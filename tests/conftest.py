@@ -64,6 +64,11 @@ def pytest_configure(config):
         "heavy: long composed/e2e protocol files (5-13 min each); "
         'deselect with -m "not heavy" for the core tier',
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card with CUDA (the port's kernels); skips "
+        "without one",
+    )
 
 
 def pytest_collection_modifyitems(config, items):
