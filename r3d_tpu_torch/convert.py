@@ -1,5 +1,8 @@
 """Carry flax weights across: ``{"params", "batch_stats"}`` -> ``state_dict``.
 
+A gradient pytree converts the same way (``{"params": grads}``), which is
+how the tests hold the port's ``.grad`` against ``jax.grad``.
+
 The leaves may be numpy arrays or anything ``np.asarray`` reads. Rules,
 applied to each leaf by its path:
 

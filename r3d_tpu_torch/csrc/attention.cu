@@ -1,11 +1,20 @@
-// Attention forward: out = softmax(q k^T * scale + bias) v, fp32 softmax.
+// Attention forward: out = softmax(q k^T * scale + bias) v, fp32 softmax,
+// optionally with dropout on the softmax weights.
 //
-// Replaces the Pallas kernel r3d_tpu/ops/attention.py:38 `_kernel` (launched
-// by `_pallas_attention`, pallas_call at :82), the forward that
-// `flash_attention` runs. On the serving path it is the decoder
-// cross-attention: Lq = 8 queries against Lk = 256 or 512 keys, D = 16, B x H
-// = 8 x 8, with a key-padding bias [B, 1, 1, Lk] that holds 0 or
-// finfo(float32).min.
+// Replaces two Pallas kernels, as two instantiations of one template:
+// - r3d_tpu/ops/attention.py:38 `_kernel` (launched by `_pallas_attention`,
+//   pallas_call at :82), the forward that `flash_attention` runs (K3);
+// - r3d_tpu/ops/attention.py:192 `_kernel_dropout` (launched by
+//   `_pallas_attention_dropout`, pallas_call at :305), the training forward
+//   of `flash_attention_dropout` (K4): the weights are multiplied by a keep
+//   mask scaled 1/(1-p). The mask comes from a counter-based hash of (seed,
+//   element index) (common.cuh), so it does not depend on the tiling, and the
+//   backward (attention_bwd.cu) redraws it. With an online softmax the sum l
+//   runs over all keys and the numerator over the kept ones:
+//   out = sum_k e_k keep_k v_k / ((1-p) l).
+// On the model's path both are the decoder cross-attention: Lq = 8 queries
+// against Lk = 256 or 512 keys, D = 16, B x H = 8 x 8, with a key-padding
+// bias [B, 1, 1, Lk] that holds 0 or finfo(float32).min.
 //
 // What bounds it on the H100: bytes. It reads K and V once (2 * B*H*Lk*D*4 =
 // 2 MB at Lk = 512) and does 4*Lq*Lk*D flops per (batch, head), 8 flops per
@@ -34,11 +43,12 @@ namespace {
 constexpr int QB = 8;    // queries per block, one warp each
 constexpr int KC = 32;   // keys per shared-memory stage, one lane each
 
-template <int D>
+template <int D, bool kDropout>
 __global__ void __launch_bounds__(QB * 32)
 attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ bias,
-                     float* __restrict__ out, int H, int Lq, int Lk, float scale) {
+                     float* __restrict__ out, int H, int Lq, int Lk, float scale,
+                     uint32_t seed, uint32_t threshold, float keep_scale) {
   constexpr int LDK = D + 1;              // padded so lane j reads row j conflict-free
   constexpr int DW = D < 32 ? D : 32;     // lanes across the output dims
   constexpr int G = 32 / DW;              // key groups per warp
@@ -97,11 +107,16 @@ attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float corr = m_new == -INFINITY ? 1.f : expf(m - m_new);
     const float p = s == -INFINITY ? 0.f : expf(s - m_new);
     l = l * corr + r3d::warp_sum(p);
+    float pv = p;  // the weight's share of the numerator
+    if (kDropout) {
+      const uint32_t idx = (static_cast<uint32_t>(bh) * Lq + qi) * Lk + j0 + lane;
+      pv = r3d::dropout_bits(seed, idx) >= threshold ? p * keep_scale : 0.f;
+    }
 #pragma unroll
     for (int e = 0; e < DPL; ++e) acc[e] *= corr;
 #pragma unroll
     for (int j = kg; j < KC; j += G) {
-      const float pj = __shfl_sync(r3d::kFullMask, p, j);
+      const float pj = __shfl_sync(r3d::kFullMask, pv, j);
 #pragma unroll
       for (int e = 0; e < DPL; ++e) acc[e] = fmaf(pj, vs[j * D + dl + 32 * e], acc[e]);
     }
@@ -120,12 +135,35 @@ attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int D>
+template <int D, bool kDropout>
 int launch(const float* q, const float* k, const float* v, const float* bias, float* out,
-           int B, int H, int Lq, int Lk, float scale, cudaStream_t stream) {
+           int B, int H, int Lq, int Lk, float scale, uint32_t seed, uint32_t threshold,
+           float keep_scale, cudaStream_t stream) {
   const dim3 grid(B * H, (Lq + QB - 1) / QB);
-  attention_fwd_kernel<D><<<grid, QB * 32, 0, stream>>>(q, k, v, bias, out, H, Lq, Lk, scale);
+  attention_fwd_kernel<D, kDropout><<<grid, QB * 32, 0, stream>>>(
+      q, k, v, bias, out, H, Lq, Lk, scale, seed, threshold, keep_scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kDropout>
+int dispatch(const float* q, const float* k, const float* v, const float* bias, float* out,
+             int B, int H, int Lq, int Lk, int D, float scale, uint32_t seed,
+             uint32_t threshold, float keep_scale, void* stream) {
+  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16:
+      return launch<16, kDropout>(q, k, v, bias, out, B, H, Lq, Lk, scale, seed, threshold,
+                                  keep_scale, s);
+    case 32:
+      return launch<32, kDropout>(q, k, v, bias, out, B, H, Lq, Lk, scale, seed, threshold,
+                                  keep_scale, s);
+    case 64:
+      return launch<64, kDropout>(q, k, v, bias, out, B, H, Lq, Lk, scale, seed, threshold,
+                                  keep_scale, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -135,12 +173,16 @@ int launch(const float* q, const float* k, const float* v, const float* bias, fl
 extern "C" int r3d_attention_fwd(const float* q, const float* k, const float* v,
                                  const float* bias, float* out, int B, int H, int Lq, int Lk,
                                  int D, float scale, void* stream) {
-  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return launch<16>(q, k, v, bias, out, B, H, Lq, Lk, scale, s);
-    case 32: return launch<32>(q, k, v, bias, out, B, H, Lq, Lk, scale, s);
-    case 64: return launch<64>(q, k, v, bias, out, B, H, Lq, Lk, scale, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch<false>(q, k, v, bias, out, B, H, Lq, Lk, D, scale, 0u, 0u, 1.f, stream);
+}
+
+// As r3d_attention_fwd, with dropout on the weights: an element is kept when
+// its dropout bits under `seed` are >= `threshold` (= rate * 2^32) and then
+// scaled by `keep_scale` (= 1 / (1 - rate)). B*H*Lq*Lk must fit in 32 bits.
+extern "C" int r3d_attention_fwd_dropout(const float* q, const float* k, const float* v,
+                                         const float* bias, float* out, int B, int H, int Lq,
+                                         int Lk, int D, float scale, uint32_t seed,
+                                         uint32_t threshold, float keep_scale, void* stream) {
+  return dispatch<true>(q, k, v, bias, out, B, H, Lq, Lk, D, scale, seed, threshold,
+                        keep_scale, stream);
 }

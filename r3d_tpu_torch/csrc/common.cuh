@@ -4,6 +4,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace r3d {
 
@@ -19,6 +20,26 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(kFullMask, v, off));
   return v;
+}
+
+// murmur3's 32-bit finalizer: a bijection with full avalanche.
+__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
+  h ^= h >> 16;
+  h *= 0x85ebca6bu;
+  h ^= h >> 13;
+  h *= 0xc2b2ae35u;
+  h ^= h >> 16;
+  return h;
+}
+
+// The attention-dropout bits of element `idx` = ((b*H + h)*Lq + q)*Lk + k of
+// the [B, H, Lq, Lk] weights under `seed`: a counter-based hash, so the mask
+// depends on neither tiling nor launch order, and the backward redraws the
+// forward's mask. An element is kept when its bits are >= rate * 2^32.
+// ops/attention.py:dropout_bits computes the same bits with torch integer ops.
+__device__ __forceinline__ uint32_t dropout_bits(uint32_t seed, uint32_t idx) {
+  const uint32_t key = fmix32(seed ^ 0x5bd1e995u);
+  return fmix32(fmix32(idx ^ key) + key);
 }
 
 }  // namespace r3d

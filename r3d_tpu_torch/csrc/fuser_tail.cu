@@ -1,16 +1,24 @@
-// Fused CMFuser: BN-affine + bottom-k alpha blend prologue, then the SA-Fuser
-// tail, in one pass over a tile of rows.
+// Fused CMFuser: the SA-Fuser tail, optionally after the BN-affine + bottom-k
+// alpha blend prologue, in one pass over a tile of rows.
 //
 // Replaces the Pallas kernel r3d_tpu/ops/fuser_kernel.py:180 `_kernel`
-// (launched by `_pallas_forward`, pallas_call at :254) on its `with_blend`
-// route, the one `fused_bn_blend_tail` takes on every serving request. For
-// each row i of the two raw streams r, d [N, C]:
+// (launched by `_pallas_forward`, pallas_call at :254) on both its routes:
+// `with_blend` (`fused_bn_blend_tail`: serving, validation and the sticky
+// training epochs) and without it (`fused_safuser_tail`: training epoch 0,
+// after the composed blend and dropout). For each row i of the streams
+// r, d [N, C]:
 //
-//   rn = r*scale_r + shift_r            dn = d*scale_d + shift_d
-//   x_r = mask_r*(a*rn + (1-a)*dn) + (1-mask_r)*rn   (and the mirror for x_d)
-//   x_r += LN1(x_d) Wvp^T + b           x_d += LN1(x_r) Wvp^T + b
+//   with the blend:  rn = r*scale_r + shift_r      dn = d*scale_d + shift_d
+//                    r <- mask_r*(a*rn + (1-a)*dn) + (1-mask_r)*rn  (mirror: d)
+//   x_r = r + LN1(d) Wvp^T + b          x_d = d + LN1(r) Wvp^T + b
 //   x_* += W2 GELU(W1 LN2(x_*) + b1) + b2
+//   x_r += r, x_d += d                  (only with the outer residual)
 //   out  = (LN_out(x_r) + LN_out(x_d)) / 2
+//
+// Both choices are template parameters, so the blend route that serving takes
+// carries no register or shared-memory cost of the other. The outer residual
+// re-reads (and re-blends) the tile's input rows from global memory at the
+// end instead of keeping a copy in shared memory.
 //
 // LayerNorm statistics are fp32 with biased variance and eps 1e-5; GELU is
 // the exact erf form (CUDA has erff; the TPU kernel's polynomial erf existed
@@ -133,6 +141,26 @@ __device__ __forceinline__ void gemm_acc(const float* A, bool swap, const float*
   }
 }
 
+// Token row i of the tile's streams: (r, d) of global row row0 + i, blended
+// when kBlend; rows past n_rows read as zero.
+template <bool kBlend>
+__device__ __forceinline__ float2 load_pair(const TailArgs& a, long g, int c) {
+  float r = 0.f;
+  float d = 0.f;
+  if (g < a.n_rows) {
+    r = __ldg(a.r + g * C + c);
+    d = __ldg(a.d + g * C + c);
+  }
+  if (!kBlend) return make_float2(r, d);
+  const float rn = r * __ldg(a.scale_r + c) + __ldg(a.shift_r + c);
+  const float dn = d * __ldg(a.scale_d + c) + __ldg(a.shift_d + c);
+  const float al = __ldg(a.alpha + c);
+  const float mr = __ldg(a.mask_r + c);
+  const float md = __ldg(a.mask_d + c);
+  return make_float2(mr * (al * rn + (1.f - al) * dn) + (1.f - mr) * rn,
+                     md * (al * dn + (1.f - al) * rn) + (1.f - md) * dn);
+}
+
 // dst[row] = LN(src[row]) * scale + bias for this warp's 4 token rows.
 __device__ __forceinline__ void layernorm_rows(const float* src, float* dst,
                                                const float* __restrict__ scale,
@@ -173,7 +201,8 @@ __device__ __forceinline__ void zero(float acc[4][4]) {
   }
 }
 
-__global__ void __launch_bounds__(NT) fused_bn_blend_tail_kernel(const TailArgs a) {
+template <bool kBlend, bool kOuterResidual>
+__global__ void __launch_bounds__(NT) fused_tail_kernel(const TailArgs a) {
   extern __shared__ float4 smem4[];
   float* xs = reinterpret_cast<float*>(smem4);  // [T, LDA] residual stream
   float* hs = xs + T * LDA;                      // [T, LDA] normalized stream
@@ -183,24 +212,13 @@ __global__ void __launch_bounds__(NT) fused_bn_blend_tail_kernel(const TailArgs 
   const int warp = threadIdx.x >> 5;
   const long row0 = static_cast<long>(blockIdx.x) * TM;
 
-  // 1. BN affine + bottom-k alpha blend; rows past n_rows read as zero.
+  // 1. the input rows (BN affine + bottom-k alpha blend when kBlend)
   for (int idx = threadIdx.x; idx < TM * C; idx += NT) {
     const int i = idx / C;
     const int c = idx % C;
-    const long g = row0 + i;
-    float r = 0.f;
-    float d = 0.f;
-    if (g < a.n_rows) {
-      r = __ldg(a.r + g * C + c);
-      d = __ldg(a.d + g * C + c);
-    }
-    const float rn = r * __ldg(a.scale_r + c) + __ldg(a.shift_r + c);
-    const float dn = d * __ldg(a.scale_d + c) + __ldg(a.shift_d + c);
-    const float al = __ldg(a.alpha + c);
-    const float mr = __ldg(a.mask_r + c);
-    const float md = __ldg(a.mask_d + c);
-    xs[i * LDA + c] = mr * (al * rn + (1.f - al) * dn) + (1.f - mr) * rn;
-    xs[(i + TM) * LDA + c] = md * (al * dn + (1.f - al) * rn) + (1.f - md) * dn;
+    const float2 rd = load_pair<kBlend>(a, row0 + i, c);
+    xs[i * LDA + c] = rd.x;
+    xs[(i + TM) * LDA + c] = rd.y;
   }
   __syncthreads();
 
@@ -251,6 +269,16 @@ __global__ void __launch_bounds__(NT) fused_bn_blend_tail_kernel(const TailArgs 
     }
   }
   __syncthreads();
+  if (kOuterResidual) {
+    for (int idx = threadIdx.x; idx < TM * C; idx += NT) {
+      const int i = idx / C;
+      const int c = idx % C;
+      const float2 rd = load_pair<kBlend>(a, row0 + i, c);
+      xs[i * LDA + c] += rd.x;
+      xs[(i + TM) * LDA + c] += rd.y;
+    }
+    __syncthreads();
+  }
 
   // 4. out = (LN_out(x_r) + LN_out(x_d)) / 2
   layernorm_rows(xs, hs, a.norm_out_scale, a.norm_out_bias);
@@ -263,8 +291,26 @@ __global__ void __launch_bounds__(NT) fused_bn_blend_tail_kernel(const TailArgs 
   }
 }
 
+template <bool kBlend>
+int launch(const TailArgs& a, bool outer_residual, void* stream) {
+  if (a.hidden <= 0 || a.hidden % HC != 0 || a.n_rows < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (a.n_rows == 0) return 0;
+  const int smem = SMEM_FLOATS * static_cast<int>(sizeof(float));
+  auto kernel = outer_residual ? fused_tail_kernel<kBlend, true> : fused_tail_kernel<kBlend, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.n_rows + TM - 1) / TM);
+  kernel<<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
+// The blend route: raw streams r, d [N, C], the folded BN affine and blend
+// vectors [C], the tail's parameters; out [N, C]. All fp32 and contiguous.
 extern "C" int r3d_fused_bn_blend_tail(
     const float* r, const float* d, const float* scale_r, const float* shift_r,
     const float* scale_d, const float* shift_d, const float* mask_r, const float* mask_d,
@@ -272,20 +318,27 @@ extern "C" int r3d_fused_bn_blend_tail(
     const float* proj_bias, const float* norm2_scale, const float* norm2_bias,
     const float* mlp1_weight, const float* mlp1_bias, const float* mlp2_weight,
     const float* mlp2_bias, const float* norm_out_scale, const float* norm_out_bias,
-    float* out, int n_rows, int channels, int hidden, void* stream) {
-  if (channels != C || hidden <= 0 || hidden % HC != 0 || n_rows < 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (n_rows == 0) return 0;
-  const int smem = SMEM_FLOATS * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(fused_bn_blend_tail_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+    float* out, int n_rows, int channels, int hidden, int outer_residual, void* stream) {
+  if (channels != C) return static_cast<int>(cudaErrorInvalidValue);
   const TailArgs a{r, d, scale_r, shift_r, scale_d, shift_d, mask_r, mask_d, alpha,
                    norm1_scale, norm1_bias, wvp, proj_bias, norm2_scale, norm2_bias,
                    mlp1_weight, mlp1_bias, mlp2_weight, mlp2_bias, norm_out_scale,
                    norm_out_bias, out, n_rows, hidden};
-  const dim3 grid((n_rows + TM - 1) / TM);
-  fused_bn_blend_tail_kernel<<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  return launch<true>(a, outer_residual != 0, stream);
+}
+
+// The no-blend route: the tail on already blended streams r, d [N, C].
+extern "C" int r3d_fused_safuser_tail(
+    const float* r, const float* d, const float* norm1_scale, const float* norm1_bias,
+    const float* wvp, const float* proj_bias, const float* norm2_scale,
+    const float* norm2_bias, const float* mlp1_weight, const float* mlp1_bias,
+    const float* mlp2_weight, const float* mlp2_bias, const float* norm_out_scale,
+    const float* norm_out_bias, float* out, int n_rows, int channels, int hidden,
+    int outer_residual, void* stream) {
+  if (channels != C) return static_cast<int>(cudaErrorInvalidValue);
+  const TailArgs a{r, d, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                   norm1_scale, norm1_bias, wvp, proj_bias, norm2_scale, norm2_bias,
+                   mlp1_weight, mlp1_bias, mlp2_weight, mlp2_bias, norm_out_scale,
+                   norm_out_bias, out, n_rows, hidden};
+  return launch<false>(a, outer_residual != 0, stream);
 }

@@ -1,9 +1,27 @@
-"""Bucketed static shapes: a sequence pads up to the smallest bucket that
-holds it. Counterpart of ``r3d_tpu/data/pipeline.py:27``."""
+"""Host-side batching with bucketed static shapes.
+
+Counterpart of ``r3d_tpu/data/pipeline.py``: a sequence pads up to the
+smallest bucket that holds it, features with 0 and labels with ``pad_idx``
+(the reference collate, basedataset.py:118-123), and a loader groups
+shuffled examples by bucket and collates them on a background thread.
+``pad_batch`` builds the arrays with numpy and returns CPU tensors; a
+``bfloat16`` feature stream is rounded to nearest even, as JAX's
+``jnp.bfloat16`` cast rounds.
+"""
 
 from __future__ import annotations
 
-from typing import Sequence
+import queue
+import threading
+from typing import Callable, Dict, Iterator, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from r3d_tpu_torch.data.protocol import Example
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+PREFETCH = 2   # collated batches the loader's thread keeps ready
 
 
 def bucket_length(length: int, buckets: Sequence[int]) -> int:
@@ -13,3 +31,107 @@ def bucket_length(length: int, buckets: Sequence[int]) -> int:
         if length <= b:
             return b
     return buckets[-1]
+
+
+def pad_batch(examples: List[Example], pad_idx: int, buckets: Sequence[int], n_query: int,
+              with_depth: bool = False, feature_dtype: str = "float32"
+              ) -> Dict[str, torch.Tensor]:
+    """Collate examples into fixed-shape CPU tensors: ``features`` [B, S, C]
+    and ``depth_features`` [B, S, ...] in ``feature_dtype``, ``past_label``
+    [B, S], ``trans_future_target`` [B, n_query] int32 and
+    ``trans_future_dur`` [B, n_query] fp32."""
+    S = bucket_length(max(e.features.shape[0] for e in examples), buckets)
+    B = len(examples)
+    features = np.zeros((B, S, examples[0].features.shape[1]), np.float32)
+    past_label = np.full((B, S), pad_idx, np.int32)
+    target = np.full((B, n_query), pad_idx, np.int32)
+    dur = np.full((B, n_query), float(pad_idx), np.float32)
+    depth = None
+    if with_depth:
+        depth = np.zeros((B, S) + examples[0].depth_features.shape[1:], np.float32)
+    for i, e in enumerate(examples):
+        s = min(e.features.shape[0], S)
+        features[i, :s] = e.features[:s]
+        past_label[i, :s] = e.past_label[:s]
+        q = min(len(e.trans_future_target), n_query)
+        target[i, :q] = e.trans_future_target[:q]
+        dur[i, :q] = e.trans_future_dur[:q]
+        if with_depth:
+            depth[i, :s] = e.depth_features[:s]
+    dtype = _DTYPES[feature_dtype]
+    batch = {
+        "features": torch.from_numpy(features).to(dtype),
+        "past_label": torch.from_numpy(past_label),
+        "trans_future_target": torch.from_numpy(target),
+        "trans_future_dur": torch.from_numpy(dur),
+    }
+    if with_depth:
+        batch["depth_features"] = torch.from_numpy(depth).to(dtype)
+    return batch
+
+
+class BucketedLoader:
+    """Iterates (shuffled) examples grouped into same-bucket batches.
+
+    ``make_example_fn(index) -> Example`` is called lazily; a background
+    thread keeps ``PREFETCH`` collated batches ready. The order (shuffle by
+    ``RandomState(seed + epoch)``, then a stable sort by bucket) is the JAX
+    loader's, so both see the same batches.
+    """
+
+    def __init__(self, num_examples: int, make_example_fn: Callable[[int], Example],
+                 batch_size: int, pad_idx: int, buckets: Sequence[int], n_query: int,
+                 with_depth: bool = False, shuffle: bool = True, seed: int = 0,
+                 example_lengths: Optional[Sequence[int]] = None,
+                 feature_dtype: str = "float32"):
+        self.num_examples = num_examples
+        self.make_example_fn = make_example_fn
+        self.batch_size = batch_size
+        self.pad_idx = pad_idx
+        self.buckets = tuple(buckets)
+        self.n_query = n_query
+        self.with_depth = with_depth
+        self.feature_dtype = feature_dtype
+        self.shuffle = shuffle
+        self.seed = seed
+        self.example_lengths = example_lengths
+        self._epoch = 0
+
+    def __len__(self) -> int:
+        return -(-self.num_examples // self.batch_size)
+
+    def _order(self) -> np.ndarray:
+        idx = np.arange(self.num_examples)
+        if self.shuffle:
+            np.random.RandomState(self.seed + self._epoch).shuffle(idx)
+        if self.example_lengths is not None:
+            lengths = np.asarray(self.example_lengths)
+            keys = np.array([bucket_length(l, self.buckets) for l in lengths[idx]])
+            idx = idx[np.argsort(keys, kind="stable")]
+        return idx
+
+    def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
+        order = self._order()
+        self._epoch += 1
+        batches = [order[i:i + self.batch_size] for i in range(0, len(order), self.batch_size)]
+        q: "queue.Queue" = queue.Queue(maxsize=PREFETCH)
+        stop = object()
+
+        def worker():
+            try:
+                for b in batches:
+                    q.put(pad_batch([self.make_example_fn(int(i)) for i in b], self.pad_idx,
+                                    self.buckets, self.n_query, self.with_depth,
+                                    self.feature_dtype))
+                q.put(stop)
+            except BaseException as e:  # surfaced in the consumer: a swallowed
+                q.put(e)                # error would silently cut the epoch short
+
+        threading.Thread(target=worker, daemon=True).start()
+        while True:
+            item = q.get()
+            if item is stop:
+                break
+            if isinstance(item, BaseException):
+                raise item
+            yield item

@@ -1,0 +1,65 @@
+"""Classification losses with the reference's ``utils.py`` semantics.
+
+Counterpart of ``r3d_tpu/losses/classification.py``, with its quirks kept:
+
+- ``cross_entropy_loss`` (``cal_loss``): masked entries contribute 0 but
+  still count in the mean's denominator, plus a fixed +2.0 penalty wherever
+  a valid entry is argmax-predicted as the pad class;
+- ``weighted_cross_entropy_loss`` (``cal_weighted_loss``): each sequence's
+  entries weigh 10 when its first future label differs from its last
+  observed label, else 1; mean over all entries; no pad penalty.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+
+def _valid_mask(gold, pad_idx: int, exclude_class_idx: Optional[int]):
+    mask = gold != pad_idx
+    if exclude_class_idx is not None:
+        mask = mask & (gold != exclude_class_idx)
+    return mask
+
+
+def _masked_ce(logits, gold, mask):
+    """Per-entry CE, exactly 0 (and gradient-free) at masked entries."""
+    safe_gold = torch.where(mask, gold, torch.zeros_like(gold))
+    logp = torch.log_softmax(logits, dim=-1)
+    ce = -torch.gather(logp, -1, safe_gold[..., None])[..., 0]
+    return torch.where(mask, ce, torch.zeros_like(ce))
+
+
+def cross_entropy_loss(logits, gold, pad_idx: int, exclude_class_idx: Optional[int] = None,
+                       penalty_weight: float = 2.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """logits [N, C], gold [N] int -> (loss, correct mask)."""
+    mask = _valid_mask(gold, pad_idx, exclude_class_idx)
+    ce = _masked_ce(logits, gold, mask)
+    pred = logits.argmax(-1)
+    penalty = penalty_weight * ((pred == pad_idx) & mask).to(logits.dtype)
+    return (ce + penalty).mean(), (pred == gold) & mask
+
+
+def weighted_cross_entropy_loss(logits, gold, pad_idx: int, reference_labels, target_ref,
+                                exclude_class_idx: Optional[int] = None,
+                                weight_same: float = 1.0, weight_different: float = 10.0
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """logits [B*T, C], gold [B*T]; reference_labels (last observed label)
+    and target_ref (first future label) [B]."""
+    mask = _valid_mask(gold, pad_idx, exclude_class_idx)
+    ce = _masked_ce(logits, gold, mask)
+    weights = torch.where(reference_labels == target_ref,
+                          torch.tensor(weight_same, device=logits.device),
+                          torch.tensor(weight_different, device=logits.device))
+    expanded = weights.repeat_interleave(ce.shape[0] // weights.shape[0])
+    correct = (logits.argmax(-1) == gold) & mask
+    return (ce * expanded).mean(), correct
+
+
+def accuracy_counts(logits, gold, pad_idx: int, exclude_class_idx: Optional[int] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(n_correct, n_valid) as in ``cal_performance``."""
+    mask = _valid_mask(gold, pad_idx, exclude_class_idx)
+    return ((logits.argmax(-1) == gold) & mask).sum(), mask.sum()

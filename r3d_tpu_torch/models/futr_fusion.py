@@ -3,7 +3,9 @@
 Counterpart of ``r3d_tpu/models/futr_fusion.py``: embed RGB, project + LN +
 ReLU the raw depth frames, fuse them with ``CMFuserBN``, run the decoder over
 the learned action queries against the fused stream (encoder bypassed), then
-the heads. The fusion models' seg head is ``n_class`` wide.
+the heads. The fusion models' seg head is ``n_class`` wide. Train mode
+(``module.train()``) turns on the batch-statistics BatchNorm and every
+dropout; ``module.eval()`` is the reference's module-eval forward.
 """
 
 from __future__ import annotations
@@ -46,12 +48,13 @@ class FUTRFusion(nn.Module):
         self.embed = InputEmbed(cfg)
         self.depth_embed = DepthEmbed(cfg, depth_dim)
         self.fuser = CMFuserBN(C, depth=cfg.fuser_depth,
-                               exchange_frac=cfg.fuser_exchange_frac)
+                               exchange_frac=cfg.fuser_exchange_frac,
+                               drop_rate=cfg.fuser_dropout, frozen=cfg.frozen_stats)
         if cfg.pos_emb:
             self.pos_embedding = nn.Parameter(torch.zeros(1, cfg.max_pos_len, C))
         self.query_embed = nn.Parameter(torch.zeros(cfg.n_query, C))
         self.transformer = FUTRTransformer(C, cfg.n_head, cfg.n_decoder_layers, 4 * C,
-                                           use_encoder=cfg.use_encoder)
+                                           use_encoder=cfg.use_encoder, dropout=cfg.dropout)
         self.heads = Heads(cfg, n_class)
 
     def forward(self, features, depth_features,

@@ -17,10 +17,11 @@ class TransformerDecoder(nn.Module):
     """Sequential decoder layers and the reference's unconditional final
     LayerNorm."""
 
-    def __init__(self, dim: int, n_head: int, n_layers: int, ffn_dim: int):
+    def __init__(self, dim: int, n_head: int, n_layers: int, ffn_dim: int,
+                 dropout: float = 0.0):
         super().__init__()
         self.layers = nn.ModuleList(
-            DecoderLayer(dim, n_head, ffn_dim) for _ in range(n_layers)
+            DecoderLayer(dim, n_head, ffn_dim, dropout) for _ in range(n_layers)
         )
         self.norm = nn.LayerNorm(dim, eps=1e-5)
 
@@ -35,12 +36,12 @@ class FUTRTransformer(nn.Module):
     """(memory, hs) = transformer(src, pos, queries) with memory = src."""
 
     def __init__(self, dim: int, n_head: int, n_decoder_layers: int, ffn_dim: int,
-                 use_encoder: bool = False):
+                 use_encoder: bool = False, dropout: float = 0.0):
         super().__init__()
         if use_encoder:
             raise NotImplementedError(
                 "use_encoder=True is not ported yet (ROADMAP queue A, item 3)")
-        self.decoder = TransformerDecoder(dim, n_head, n_decoder_layers, ffn_dim)
+        self.decoder = TransformerDecoder(dim, n_head, n_decoder_layers, ffn_dim, dropout)
 
     def forward(self, src, pos, query_pos, src_key_padding_mask=None):
         if query_pos is None:

@@ -1,16 +1,30 @@
-"""Attention forward kernel for the decoder cross-attention.
+"""Attention kernels for the decoder cross-attention, forward and backward.
 
-Counterpart of ``r3d_tpu/ops/attention.py`` (forward only). The kernel
-(``csrc/attention.cu``) computes ``softmax(q k^T * scale + bias) v`` with an
-fp32 online softmax, one block per (batch*head, tile of 8 queries), and
-masks its own ragged key edge. ``composed_attention`` is the plain PyTorch
-version; the wrapper takes it for CPU tensors only, and for a CUDA tensor
-launches the kernel or raises.
+Counterpart of ``r3d_tpu/ops/attention.py``. Three kernels:
+
+- K3 (``csrc/attention.cu``, ``r3d_attention_fwd``): ``softmax(q k^T *
+  scale + bias) v`` with an fp32 online softmax, one block per (batch*head,
+  tile of 8 queries), masking its own ragged key edge;
+- K4 (the same source, ``r3d_attention_fwd_dropout``): K3 with dropout on
+  the softmax weights, the keep mask a hash of (seed, element index);
+- K5 (``csrc/attention_bwd.cu``): the backward of both, redrawing the mask.
+
+``flash_attention`` (K3 forward, K5 backward at rate 0) and
+``flash_attention_dropout`` (K4 forward, K5 backward) are
+``torch.autograd.Function``s. ``composed_attention``,
+``composed_attention_dropout`` and ``composed_attention_bwd`` are the plain
+PyTorch versions, drawing the same keep mask (``dropout_keep``) with torch
+integer ops. The wrappers take them for CPU tensors only, and for a CUDA
+tensor launch the kernel or raise.
+
+The mask cannot reproduce the TPU's PRNG bits, so parity with the JAX
+package runs at rate 0; dropout is checked by its invariants.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -20,48 +34,235 @@ KERNEL = Kernel(
     "flash_attention", "attention.cu", "r3d_attention_fwd",
     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p],
 )
-KERNEL_HEAD_DIMS = (16, 32, 64)   # csrc/attention.cu: instantiated D
+DROPOUT_KERNEL = Kernel(
+    "flash_attention_dropout", "attention.cu", "r3d_attention_fwd_dropout",
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+    + [ctypes.c_float, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p],
+)
+BWD_KERNEL = Kernel(
+    "attention_bwd", "attention_bwd.cu", "r3d_attention_bwd",
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float,
+       ctypes.c_void_p],
+)
+KERNEL_HEAD_DIMS = (16, 32, 64)   # csrc/attention*.cu: instantiated D
+
+_U32 = 0xFFFFFFFF
+
+
+def _mul32(x, c: int):
+    """(x * c) mod 2**32 for x < 2**32 held in int64 (or a Python int),
+    without overflowing 63 bits: split c into 16-bit halves."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _U32
+
+
+def _fmix32(h):
+    """murmur3's 32-bit finalizer, as ``r3d::fmix32`` in csrc/common.cuh."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def dropout_bits(seed: int, shape, device) -> torch.Tensor:
+    """The kernels' dropout bits (``r3d::dropout_bits``) of every element of
+    [B, H, Lq, Lk] weights under ``seed``, as uint32 values in int64: a
+    hash of the element index ((b*H + h)*Lq + q)*Lk + k."""
+    key = _fmix32((int(seed) & _U32) ^ 0x5BD1E995)
+    n = int(torch.Size(shape).numel())
+    if n > 2 ** 32:
+        raise ValueError(f"dropout_bits: {n} elements do not fit a 32-bit index")
+    idx = torch.arange(n, dtype=torch.int64, device=device).reshape(shape)
+    return _fmix32((_fmix32(idx ^ key) + key) & _U32)
+
+
+def dropout_threshold(rate: float) -> int:
+    """Keep an element when its bits are >= rate * 2**32 (``_dropout_keep``,
+    ``r3d_tpu/ops/attention.py:182-189``)."""
+    return min(int(rate * 4294967296.0), _U32)
+
+
+def dropout_keep(seed: int, rate: float, shape, device) -> torch.Tensor:
+    """Float keep mask scaled 1/(1-rate): what the kernels multiply the
+    softmax weights by."""
+    keep = dropout_bits(seed, shape, device) >= dropout_threshold(rate)
+    return keep.to(torch.float32) / (1.0 - rate)
+
+
+def _scores(q, k, bias, scale):
+    scores = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    if bias is not None:
+        scores = scores + bias
+    return scores
 
 
 def composed_attention(q, k, v, bias, scale):
     """Plain attention: q, k, v [B, H, L, D]; bias [B, 1, 1, Lk] additive."""
-    scores = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
-    if bias is not None:
-        scores = scores + bias
-    w = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    w = torch.softmax(_scores(q, k, bias, scale).float(), dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bhkd->bhqd", w, v)
 
 
-def flash_attention(q, k, v, bias, scale: float) -> torch.Tensor:
-    """[B, H, Lq, D] attention over [B, H, Lk, D] keys and values with an
-    optional key-padding bias [B, 1, 1, Lk]. CPU tensors take the plain
-    version; CUDA tensors the kernel."""
-    if q.device.type == "cpu":
-        return composed_attention(q, k, v, bias, scale)
+def composed_attention_dropout(q, k, v, bias, seed: int, scale, rate: float):
+    """Plain attention with the kernels' dropout on the softmax weights."""
+    w = torch.softmax(_scores(q, k, bias, scale).float(), dim=-1)
+    if rate > 0.0:
+        w = w * dropout_keep(seed, rate, w.shape, q.device)
+    return torch.einsum("bhqk,bhkd->bhqd", w.to(q.dtype), v)
+
+
+def composed_attention_bwd(q, k, v, bias, seed: int, scale, rate: float, g,
+                           need_dbias: bool = True):
+    """Plain backward of ``composed_attention_dropout`` (rate 0: of
+    ``composed_attention``), written out as K5 computes it. Returns (dq, dk,
+    dv, dbias [B, 1, 1, Lk] or None)."""
+    w = torch.softmax(_scores(q, k, bias, scale).float(), dim=-1)
+    keep = dropout_keep(seed, rate, w.shape, q.device) if rate > 0.0 else 1.0
+    g = g.float()
+    dv = torch.einsum("bhqk,bhqd->bhkd", w * keep, g)
+    dw = torch.einsum("bhqd,bhkd->bhqk", g, v) * keep
+    ds = w * (dw - (dw * w).sum(-1, keepdim=True))
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q) * scale
+    dbias = ds.sum(dim=(1, 2), keepdim=True) if (bias is not None and need_dbias) else None
+    return dq, dk, dv, dbias
+
+
+def _check(fn, q, k, v, bias, extra=None):
+    """Raise unless the CUDA kernels take these tensors."""
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: no kernel for {q.device}")
+        raise ValueError(f"{fn}: no kernel for {q.device}")
     B, H, Lq, D = q.shape
     Lk = k.shape[2]
     if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {D} not in {KERNEL_HEAD_DIMS}")
-    want = {"q": (B, H, Lq, D), "k": (B, H, Lk, D), "v": (B, H, Lk, D)}
+        raise ValueError(f"{fn}: head dim {D} not in {KERNEL_HEAD_DIMS}")
+    want = {"q": (q, (B, H, Lq, D)), "k": (k, (B, H, Lk, D)), "v": (v, (B, H, Lk, D))}
     if bias is not None:
-        want["bias"] = (B, 1, 1, Lk)
-    for name, shape in want.items():
-        t = {"q": q, "k": k, "v": v, "bias": bias}[name]
+        want["bias"] = (bias, (B, 1, 1, Lk))
+    for name, t in (extra or {}).items():
+        want[name] = (t, (B, H, Lq, D))
+    for name, (t, shape) in want.items():
         if t.device != q.device or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"flash_attention: {name} must be a contiguous "
-                             f"float32 tensor on {q.device}")
+            raise ValueError(f"{fn}: {name} must be a contiguous float32 tensor on {q.device}")
         if tuple(t.shape) != shape:
-            raise ValueError(f"flash_attention: {name} has shape "
-                             f"{tuple(t.shape)}, expected {shape}")
+            raise ValueError(f"{fn}: {name} has shape {tuple(t.shape)}, expected {shape}")
+    return B, H, Lq, Lk, D
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _attention_fwd(q, k, v, bias, scale):
+    """K3, or the plain version for CPU tensors."""
+    if q.device.type == "cpu":
+        return composed_attention(q, k, v, bias, scale)
+    B, H, Lq, Lk, D = _check("flash_attention", q, k, v, bias)
     out = torch.empty_like(q)
-    KERNEL.launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if bias is None else bias.data_ptr(), out.data_ptr(),
-        B, H, Lq, Lk, D, float(scale), torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), out.data_ptr(),
+                  B, H, Lq, Lk, D, float(scale), _stream(q))
     return out
+
+
+def _attention_fwd_dropout(q, k, v, bias, seed, scale, rate):
+    """K4, or the plain version for CPU tensors."""
+    if q.device.type == "cpu":
+        return composed_attention_dropout(q, k, v, bias, seed, scale, rate)
+    B, H, Lq, Lk, D = _check("flash_attention_dropout", q, k, v, bias)
+    if B * H * Lq * Lk > 2 ** 32:
+        raise ValueError("flash_attention_dropout: B*H*Lq*Lk must fit a 32-bit index")
+    out = torch.empty_like(q)
+    DROPOUT_KERNEL.launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), out.data_ptr(),
+        B, H, Lq, Lk, D, float(scale), int(seed) & _U32, dropout_threshold(rate),
+        1.0 / (1.0 - rate), _stream(q))
+    return out
+
+
+def attention_bwd(q, k, v, bias, seed: int, scale, rate: float, g,
+                  need_dbias: bool = False):
+    """K5: (dq, dk, dv, dbias [B, 1, 1, Lk] or None) of attention with
+    dropout at ``rate`` (0: none) under the output cotangent g. The plain
+    version for CPU tensors."""
+    if q.device.type == "cpu":
+        return composed_attention_bwd(q, k, v, bias, seed, scale, rate, g, need_dbias)
+    B, H, Lq, Lk, D = _check("attention_bwd", q, k, v, bias, {"g": g})
+    if rate > 0.0 and B * H * Lq * Lk > 2 ** 32:
+        raise ValueError("attention_bwd: B*H*Lq*Lk must fit a 32-bit index")
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    need_dbias = need_dbias and bias is not None
+    dbias = torch.empty((B, H, Lk), dtype=torch.float32, device=q.device) if need_dbias else None
+    BWD_KERNEL.launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), g.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(dbias),
+        B, H, Lq, Lk, D, float(scale), int(rate > 0.0), int(seed) & _U32,
+        dropout_threshold(rate), 1.0 / (1.0 - rate), _stream(q))
+    if dbias is not None:
+        dbias = dbias.sum(1)[:, None, None, :]
+    return dq, dk, dv, dbias
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K3 forward, K5 backward at rate 0 (``attention.py:120-140``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale):
+        ctx.scale = scale
+        ctx.save_for_backward(q, k, v, bias)
+        return _attention_fwd(q, k, v, bias, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias = ctx.saved_tensors
+        dq, dk, dv, db = attention_bwd(q, k, v, bias, 0, ctx.scale, 0.0, g.contiguous(),
+                                       need_dbias=ctx.needs_input_grad[3])
+        return dq, dk, dv, db, None
+
+
+class _FlashAttentionDropout(torch.autograd.Function):
+    """K4 forward, K5 backward redrawing the same mask."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, seed, scale, rate):
+        ctx.seed, ctx.scale, ctx.rate = seed, scale, rate
+        ctx.save_for_backward(q, k, v, bias)
+        return _attention_fwd_dropout(q, k, v, bias, seed, scale, rate)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias = ctx.saved_tensors
+        dq, dk, dv, db = attention_bwd(q, k, v, bias, ctx.seed, ctx.scale, ctx.rate,
+                                       g.contiguous(), need_dbias=ctx.needs_input_grad[3])
+        return dq, dk, dv, db, None, None, None
+
+
+def _needs_graph(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+def flash_attention(q, k, v, bias: Optional[torch.Tensor], scale: float) -> torch.Tensor:
+    """[B, H, Lq, D] attention over [B, H, Lk, D] keys and values with an
+    optional key-padding bias [B, 1, 1, Lk]. CPU tensors take the plain
+    version; CUDA tensors the kernels (K3 forward, K5 backward)."""
+    if _needs_graph(q, k, v, bias):
+        return _FlashAttention.apply(q, k, v, bias, scale)
+    return _attention_fwd(q, k, v, bias, scale)
+
+
+def flash_attention_dropout(q, k, v, bias: Optional[torch.Tensor], seed: int, scale: float,
+                            rate: float) -> torch.Tensor:
+    """``flash_attention`` with dropout at ``rate`` on the softmax weights
+    (torch ``nn.MultiheadAttention`` semantics, scaled 1/(1-rate)), the mask
+    drawn from ``seed``: K4 forward, K5 backward on CUDA tensors."""
+    if _needs_graph(q, k, v, bias):
+        return _FlashAttentionDropout.apply(q, k, v, bias, seed, scale, rate)
+    return _attention_fwd_dropout(q, k, v, bias, seed, scale, rate)
 
 
 def attention_kernel_eligible(Lq: int, Lk: int, D: int, device: torch.device) -> bool:
@@ -69,8 +270,10 @@ def attention_kernel_eligible(Lq: int, Lk: int, D: int, device: torch.device) ->
     with "on the card" in place of ``pallas_enabled()``: the kernel when the
     key side is at least 256 long, for cross-attention only up to 512 keys,
     and while one (batch, head)'s K/V stay under 4 MB. The head dim must be
-    one the kernel is built for. Whether the H100 should keep the TPU's
-    bounds is an open question (PERF.md)."""
+    one the kernel is built for. It also routes the dropout kernel: the JAX
+    train rule (``attention.py:469-473``) adds only "on a real TPU", which
+    the CUDA check already stands for. Whether the H100 should keep the
+    TPU's bounds is an open question (PERF.md)."""
     return (
         device.type == "cuda"
         and D in KERNEL_HEAD_DIMS
@@ -78,3 +281,5 @@ def attention_kernel_eligible(Lq: int, Lk: int, D: int, device: torch.device) ->
         and (Lq == Lk or Lk <= 512 or Lq >= 256)
         and Lk * D * 4 * 2 <= 4 * 1024 * 1024
     )
+
+

@@ -1,24 +1,30 @@
 """Fused CMFuser forward: BN-affine + bottom-k alpha blend + SA-Fuser tail.
 
-Counterpart of ``r3d_tpu/ops/fuser_kernel.py``. ``fused_bn_blend_tail`` is
-the whole BN token fuser of ``futr_fusion_bn`` in one kernel
-(``csrc/fuser_tail.cu``):
+Counterpart of ``r3d_tpu/ops/fuser_kernel.py``. One kernel
+(``csrc/fuser_tail.cu``) computes the SA-Fuser tail on two [N, C] streams,
+with or without the BN-blend prologue and with an optional outer residual:
 
-    rn, dn = r*scale_r + shift_r, d*scale_d + shift_d     (folded BN)
+    rn, dn = r*scale_r + shift_r, d*scale_d + shift_d     (folded BN; blend route)
     x_r = mask_r*(a*rn + (1-a)*dn) + (1-mask_r)*rn        (and the mirror)
     x_r += LN1(x_d) @ Wvp^T + b      x_d += LN1(x_r) @ Wvp^T + b
     x_* += W2 GELU(W1 LN2(x_*) + b1) + b2
+    x_* += input                                          (outer residual)
     out = (LN_out(x_r) + LN_out(x_d)) / 2
 
 The exact two-token attention is a value swap with ``Wvp = W_proj @ W_v``
 prefolded (``models/fuser.py``). The matrices are in torch's ``[out, in]``
-layout, as the module's ``nn.Linear`` layers hold them. Only the route that
-``CMFuserBN`` takes is ported: no outer residual (``CMFuserGrad``) and no
-backward (training is a later slice).
+layout, as the module's ``nn.Linear`` layers hold them.
+
+- ``fused_bn_blend_tail`` (blend route; serving, validation, the sticky
+  training epochs): kernel forward, and as in JAX (``_bwd_bn``) a backward
+  that re-runs the plain blend and tail under autograd.
+- ``fused_safuser_tail`` (no-blend route; training epoch 0, after the
+  composed blend and dropout): kernel forward, and the backward kernel of
+  ``ops/fuser_kernel_bwd.py``.
 
 ``composed_bn_blend`` and ``composed_tail`` are the plain PyTorch version.
-The wrapper takes it for CPU tensors only; for a CUDA tensor it launches the
-kernel or raises.
+The wrappers take it for CPU tensors only; for a CUDA tensor they launch the
+kernel or raise.
 """
 
 from __future__ import annotations
@@ -78,7 +84,7 @@ def composed_bn_blend(r_raw, d_raw, blend: BlendParams):
     return ex_r, ex_d
 
 
-def composed_tail(r, d, p: FuserTailParams):
+def composed_tail(r, d, p: FuserTailParams, outer_residual: bool = False):
     """Plain SA-Fuser tail on two blended [N, C] streams."""
     h_r = _ln(r, p.norm1_scale, p.norm1_bias)
     h_d = _ln(d, p.norm1_scale, p.norm1_bias)
@@ -92,57 +98,152 @@ def composed_tail(r, d, p: FuserTailParams):
 
     x_r = x_r + mlp(x_r)
     x_d = x_d + mlp(x_d)
+    if outer_residual:
+        x_r = x_r + r
+        x_d = x_d + d
     return 0.5 * (_ln(x_r, p.norm_out_scale, p.norm_out_bias)
                   + _ln(x_d, p.norm_out_scale, p.norm_out_bias))
 
 
 KERNEL = Kernel(
     "fused_bn_blend_tail", "fuser_tail.cu", "r3d_fused_bn_blend_tail",
-    [ctypes.c_void_p] * 22 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 22 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+)
+TAIL_KERNEL = Kernel(
+    "fused_safuser_tail", "fuser_tail.cu", "r3d_fused_safuser_tail",
+    [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
 )
 KERNEL_CHANNELS = 128   # csrc/fuser_tail.cu: C
 KERNEL_HIDDEN_CHUNK = 128
 
 
-def _check(name, t, shape, device):
+def _check(fn, name, t, shape, device):
     if t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
-        raise ValueError(f"fused_bn_blend_tail: {name} must be a contiguous "
-                         f"float32 tensor on {device}, got {t.dtype} on "
-                         f"{t.device} (contiguous={t.is_contiguous()})")
+        raise ValueError(f"{fn}: {name} must be a contiguous float32 tensor on "
+                         f"{device}, got {t.dtype} on {t.device} "
+                         f"(contiguous={t.is_contiguous()})")
     if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"fused_bn_blend_tail: {name} has shape "
-                         f"{tuple(t.shape)}, expected {tuple(shape)}")
+        raise ValueError(f"{fn}: {name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
     if t.data_ptr() % 16:
-        raise ValueError(f"fused_bn_blend_tail: {name} is not 16-byte aligned")
+        raise ValueError(f"{fn}: {name} is not 16-byte aligned")
 
 
-def fused_bn_blend_tail(r_raw: torch.Tensor, d_raw: torch.Tensor,
-                        blend: BlendParams, params: FuserTailParams) -> torch.Tensor:
-    """Raw [N, C] rgb and depth streams -> fused [N, C] (the whole CMFuser
-    forward). CPU tensors take the plain version; CUDA tensors the kernel."""
-    if r_raw.device.type == "cpu":
-        return composed_tail(*composed_bn_blend(r_raw, d_raw, blend), params)
-    if r_raw.device.type != "cuda":
-        raise ValueError(f"fused_bn_blend_tail: no kernel for {r_raw.device}")
-    N, C = r_raw.shape
+def check_kernel_inputs(fn, streams, params: FuserTailParams, blend=None):
+    """Raise unless the CUDA kernels take these tensors: ``streams`` a dict
+    of [N, C] tensors, C == 128 and a hidden width that is a multiple of 128,
+    everything contiguous fp32 on one device. Returns (N, C, Ch)."""
+    first = next(iter(streams.values()))
+    if first.device.type != "cuda":
+        raise ValueError(f"{fn}: no kernel for {first.device}")
+    N, C = first.shape
     Ch = params.mlp1_weight.shape[0]
     if C != KERNEL_CHANNELS or Ch % KERNEL_HIDDEN_CHUNK:
-        raise ValueError(f"fused_bn_blend_tail: the kernel takes C == "
-                         f"{KERNEL_CHANNELS} and a hidden width that is a "
-                         f"multiple of {KERNEL_HIDDEN_CHUNK}; got C={C}, Ch={Ch}")
-    dev = r_raw.device
-    _check("r_raw", r_raw, (N, C), dev)
-    _check("d_raw", d_raw, (N, C), dev)
-    for name, t in blend._asdict().items():
-        _check(name, t, (C,), dev)
+        raise ValueError(f"{fn}: the kernel takes C == {KERNEL_CHANNELS} and a "
+                         f"hidden width that is a multiple of "
+                         f"{KERNEL_HIDDEN_CHUNK}; got C={C}, Ch={Ch}")
+    dev = first.device
+    for name, t in streams.items():
+        _check(fn, name, t, (N, C), dev)
+    for name, t in ({} if blend is None else blend._asdict()).items():
+        _check(fn, name, t, (C,), dev)
     shapes = {"wvp": (C, C), "mlp1_weight": (Ch, C), "mlp1_bias": (Ch,),
               "mlp2_weight": (C, Ch)}
     for name, t in params._asdict().items():
-        _check(name, t, shapes.get(name, (C,)), dev)
+        _check(fn, name, t, shapes.get(name, (C,)), dev)
+    return N, C, Ch
+
+
+def _bn_blend_tail_fwd(r_raw, d_raw, blend, params, outer_residual):
+    if r_raw.device.type == "cpu":
+        return composed_tail(*composed_bn_blend(r_raw, d_raw, blend), params, outer_residual)
+    N, C, Ch = check_kernel_inputs("fused_bn_blend_tail", {"r_raw": r_raw, "d_raw": d_raw},
+                                   params, blend)
     out = torch.empty_like(r_raw)
     KERNEL.launch(
         r_raw.data_ptr(), d_raw.data_ptr(),
         *(t.data_ptr() for t in blend), *(t.data_ptr() for t in params),
-        out.data_ptr(), N, C, Ch, torch.cuda.current_stream(dev).cuda_stream,
+        out.data_ptr(), N, C, Ch, int(outer_residual),
+        torch.cuda.current_stream(r_raw.device).cuda_stream,
     )
     return out
+
+
+def _safuser_tail_fwd(r, d, params, outer_residual):
+    if r.device.type == "cpu":
+        return composed_tail(r, d, params, outer_residual)
+    N, C, Ch = check_kernel_inputs("fused_safuser_tail", {"r": r, "d": d}, params)
+    out = torch.empty_like(r)
+    TAIL_KERNEL.launch(
+        r.data_ptr(), d.data_ptr(), *(t.data_ptr() for t in params),
+        out.data_ptr(), N, C, Ch, int(outer_residual),
+        torch.cuda.current_stream(r.device).cuda_stream,
+    )
+    return out
+
+
+class _BnBlendTail(torch.autograd.Function):
+    """Kernel forward; backward = autograd of the plain blend + tail, re-run
+    (JAX ``_bwd_bn``: no Pallas backward exists for this route)."""
+
+    @staticmethod
+    def forward(ctx, outer_residual, r_raw, d_raw, *tensors):
+        ctx.outer_residual = outer_residual
+        ctx.save_for_backward(r_raw, d_raw, *tensors)
+        return _bn_blend_tail_fwd(r_raw, d_raw, BlendParams(*tensors[:7]),
+                                  FuserTailParams(*tensors[7:]), outer_residual)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            r_raw, d_raw, *tensors = leaves
+            out = composed_tail(
+                *composed_bn_blend(r_raw, d_raw, BlendParams(*tensors[:7])),
+                FuserTailParams(*tensors[7:]), ctx.outer_residual)
+            grads = torch.autograd.grad(out, leaves, g, allow_unused=True)
+        return (None, *grads)
+
+
+class _SAFuserTail(torch.autograd.Function):
+    """Kernel forward; backward kernel (``fuser_kernel_bwd.fused_tail_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, outer_residual, r, d, *params):
+        ctx.outer_residual = outer_residual
+        ctx.save_for_backward(r, d, *params)
+        return _safuser_tail_fwd(r, d, FuserTailParams(*params), outer_residual)
+
+    @staticmethod
+    def backward(ctx, g):
+        from r3d_tpu_torch.ops.fuser_kernel_bwd import fused_tail_bwd
+
+        r, d, *params = ctx.saved_tensors
+        dr, dd, dparams = fused_tail_bwd(r, d, g.contiguous(), FuserTailParams(*params),
+                                         ctx.outer_residual)
+        return (None, dr, dd, *dparams)
+
+
+def _needs_graph(tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def fused_bn_blend_tail(r_raw: torch.Tensor, d_raw: torch.Tensor, blend: BlendParams,
+                        params: FuserTailParams, outer_residual: bool = False) -> torch.Tensor:
+    """Raw [N, C] rgb and depth streams -> fused [N, C] (the whole CMFuser
+    forward). CPU tensors take the plain version; CUDA tensors the kernel.
+    Differentiable in every tensor argument."""
+    tensors = (r_raw, d_raw, *blend, *params)
+    if _needs_graph(tensors):
+        return _BnBlendTail.apply(outer_residual, *tensors)
+    return _bn_blend_tail_fwd(r_raw, d_raw, blend, params, outer_residual)
+
+
+def fused_safuser_tail(r: torch.Tensor, d: torch.Tensor, params: FuserTailParams,
+                       outer_residual: bool = False) -> torch.Tensor:
+    """Blended [N, C] streams -> fused [N, C] (the tail alone). CPU tensors
+    take the plain version; CUDA tensors the forward and backward kernels."""
+    tensors = (r, d, *params)
+    if _needs_graph(tensors):
+        return _SAFuserTail.apply(outer_residual, *tensors)
+    return _safuser_tail_fwd(r, d, params, outer_residual)

@@ -1,13 +1,16 @@
 """The port's plain kernel versions against the JAX package's Pallas kernels.
 
-``r3d_tpu_torch.ops.fuser_kernel.fused_bn_blend_tail`` and
-``r3d_tpu_torch.ops.attention.flash_attention`` take their plain PyTorch
-version for CPU tensors. Here they are held against the Pallas kernels,
-which off the TPU run in interpret mode (as ``tests/test_fuser_kernel.py``
-runs them), on the same inputs made with numpy from a seed. Tolerance
-2e-5 absolute: both sides are fp32 and differ only in summation order.
-The CUDA kernels themselves are held against the plain versions on the card
-(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+The port's kernel wrappers (``ops/fuser_kernel.py``, ``ops/fuser_kernel_bwd.py``,
+``ops/attention.py``) take their plain PyTorch version for CPU tensors.
+Here they are held against the Pallas kernels, which off the TPU run in
+interpret mode (as ``tests/test_fuser_kernel.py`` runs them), on the same
+inputs made with numpy from a seed. Tolerance 2e-5 absolute for outputs:
+both sides are fp32 and differ only in summation order; gradients summed
+over rows are held to 2e-5 relative to their largest entry. The attention
+dropout mask cannot reproduce the TPU's PRNG bits, so the dropout kernels
+are held to Pallas at rate 0 (the PRNG-free path) and checked by their
+invariants otherwise. The CUDA kernels themselves are held against the
+plain versions on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
 
 import numpy as np
@@ -19,9 +22,12 @@ import jax.numpy as jnp
 from r3d_tpu.models.fuser import bottomk_mask as jax_bottomk_mask
 from r3d_tpu.ops import attention as jax_attn
 from r3d_tpu.ops import fuser_kernel as jax_fk
+from r3d_tpu.ops import fuser_kernel_bwd as jax_fkb
 from r3d_tpu_torch.models.fuser import bottomk_mask
+from r3d_tpu_torch.models.layers import MultiheadAttention
 from r3d_tpu_torch.ops import attention as pt_attn
 from r3d_tpu_torch.ops import fuser_kernel as pt_fk
+from r3d_tpu_torch.ops import fuser_kernel_bwd as pt_fkb
 
 ATOL = 2e-5
 
@@ -155,3 +161,140 @@ def test_bottomk_mask_matches_jax(case):
     np.testing.assert_array_equal(got, want)
     if case == "all-ties":  # the init case: |gamma| = 1 everywhere
         np.testing.assert_array_equal(np.nonzero(got)[0], np.arange(k))
+
+
+def _rel_close(got, want, rel, name=""):
+    want = np.asarray(want)
+    err = np.abs(np.asarray(got) - want).max()
+    assert err <= rel * max(1.0, np.abs(want).max()), (name, err)
+
+
+@pytest.mark.parametrize("outer", [False, True], ids=["no-outer", "outer-residual"])
+@pytest.mark.parametrize("N,C,Ch", [(77, 64, 256), (300, 128, 512)],
+                         ids=["ragged", "utkinects-width"])
+def test_fused_safuser_tail_matches_pallas(N, C, Ch, outer):
+    """K1's no-blend route (and the outer residual) against the Pallas
+    kernel in interpret mode."""
+    rng = np.random.RandomState(N + C + outer)
+    r, d, _, tail = _fuser_inputs(rng, N, C, Ch)
+    want = jax_fk.fused_safuser_tail(
+        jnp.asarray(r), jnp.asarray(d),
+        jax_fk.FuserTailParams(**{k: jnp.asarray(v) for k, v in tail.items()}), outer)
+    got = pt_fk.fused_safuser_tail(torch.from_numpy(r), torch.from_numpy(d),
+                                   _port_tail(tail), outer)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("outer", [False, True], ids=["no-outer", "outer-residual"])
+@pytest.mark.parametrize("N,C,Ch", [(77, 64, 256), (300, 128, 512)],
+                         ids=["ragged", "utkinects-width"])
+def test_fused_tail_bwd_matches_pallas(N, C, Ch, outer):
+    """K2's plain version (autograd of the plain tail) against
+    ``pallas_tail_bwd`` in interpret mode: dr, dd and the 12 gradients."""
+    rng = np.random.RandomState(2 * N + C + outer)
+    r, d, _, tail = _fuser_inputs(rng, N, C, Ch)
+    g = rng.randn(N, C).astype(np.float32)
+    dr_w, dd_w, dp_w = jax_fkb.pallas_tail_bwd(
+        jnp.asarray(r), jnp.asarray(d), jnp.asarray(g),
+        jax_fk.FuserTailParams(**{k: jnp.asarray(v) for k, v in tail.items()}), outer)
+    dr, dd, dp = pt_fkb.fused_tail_bwd(torch.from_numpy(r), torch.from_numpy(d),
+                                       torch.from_numpy(g), _port_tail(tail), outer)
+    _rel_close(dr.numpy(), dr_w, 2e-5, "dr")
+    _rel_close(dd.numpy(), dd_w, 2e-5, "dd")
+    for name, got, want in zip(pt_fk.FuserTailParams._fields, dp, dp_w):
+        want = np.asarray(want)
+        if name in ("wvp", "mlp1_weight", "mlp2_weight"):
+            want = want.T   # flax [in, out] -> torch [out, in]
+        _rel_close(got.numpy(), want, 2e-5, name)
+
+
+@pytest.mark.parametrize("Lk,pad_from", [(256, (200, 256, 9)), (300, (300, 123, 1)),
+                                         (512, (512, 400, 37))])
+def test_attention_dropout_and_bwd_at_rate0_match_pallas(Lk, pad_from):
+    """K4 and K5's plain versions at rate 0 against ``_pallas_attention_dropout``
+    and ``_pallas_attention_bwd`` in interpret mode (rate 0 never touches the
+    TPU PRNG). No row is fully masked: Pallas pads keys to 128 and would
+    average its zero pad keys into such a row."""
+    rng = np.random.RandomState(Lk + 1)
+    q, k, v, bias = _attention_inputs(rng, 3, 8, 8, Lk, 16, pad_from)
+    g = rng.randn(*q.shape).astype(np.float32)
+    J = lambda *xs: [jnp.asarray(x) for x in xs]
+    T = lambda *xs: [torch.from_numpy(x) for x in xs]
+    want = jax_attn._pallas_attention_dropout(*J(q, k, v, bias), 0, 0.25, 0.0)
+    got = pt_attn.flash_attention_dropout(*T(q, k, v, bias), 0, 0.25, 0.0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+    want = jax_attn._pallas_attention_bwd(*J(q, k, v, bias), 0, 0.25, 0.0, jnp.asarray(g))
+    got = pt_attn.attention_bwd(*T(q, k, v, bias), 0, 0.25, 0.0, torch.from_numpy(g),
+                                need_dbias=True)
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
+        _rel_close(a.numpy(), b, 2e-5, name)
+
+
+def test_dropout_keep_rate_is_binomial():
+    """The keep rate of 2**20 draws lies within 5 binomial standard
+    deviations of 1 - p, for several rates and seeds."""
+    n = 8 * 8 * 8 * 2048
+    for rate in (0.1, 0.5):
+        sd = (rate * (1 - rate) / n) ** 0.5
+        for seed in (0, 1, 2 ** 31 - 2):
+            kept = (pt_attn.dropout_keep(seed, rate, (8, 8, 8, 2048), "cpu") > 0).double().mean()
+            assert abs(float(kept) - (1 - rate)) < 5 * sd, (rate, seed, float(kept))
+
+
+def test_dropout_mask_is_a_function_of_seed_and_element_only():
+    """Order of evaluation and tiling do not matter: the bits of a
+    [B, H, Lq, Lk] mask are those of its flat element index, so any
+    sub-block, drawn alone and in any order, gives the same bits; another
+    seed gives an independent mask (agreement (1-p)^2 + p^2)."""
+    shape = (2, 3, 8, 300)
+    bits = pt_attn.dropout_bits(42, shape, "cpu")
+    flat = pt_attn.dropout_bits(42, (bits.numel(),), "cpu")
+    assert torch.equal(bits.reshape(-1), flat)
+    assert torch.equal(pt_attn.dropout_bits(42, shape, "cpu"), bits)
+    perm = torch.randperm(flat.numel(), generator=torch.Generator().manual_seed(0))
+    again = pt_attn._fmix32((pt_attn._fmix32(perm ^ pt_attn._fmix32(42 ^ 0x5BD1E995))
+                             + pt_attn._fmix32(42 ^ 0x5BD1E995)) & 0xFFFFFFFF)
+    assert torch.equal(again, flat[perm])
+    a = pt_attn.dropout_keep(42, 0.1, shape, "cpu") > 0
+    b = pt_attn.dropout_keep(43, 0.1, shape, "cpu") > 0
+    assert abs(float((a == b).double().mean()) - (0.9 ** 2 + 0.1 ** 2)) < 0.01
+
+
+def test_dropout_backward_redraws_the_forward_mask():
+    """The plain backward (what K5 computes) equals autograd of the plain
+    dropout forward under the same seed, and not under another."""
+    rng = np.random.RandomState(3)
+    q, k, v, bias = (torch.from_numpy(x) for x in _attention_inputs(rng, 2, 4, 8, 300, 16,
+                                                                    (300, 100)))
+    g = torch.from_numpy(rng.randn(2, 4, 8, 16).astype(np.float32))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, bias)]
+    out = pt_attn.composed_attention_dropout(*leaves, 11, 0.25, 0.3)
+    want = torch.autograd.grad(out, leaves, g)
+    got = pt_attn.composed_attention_bwd(q, k, v, bias, 11, 0.25, 0.3, g)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+    other = pt_attn.composed_attention_bwd(q, k, v, bias, 12, 0.25, 0.3, g)
+    assert float((other[2] - want[2]).abs().max()) > 1e-2
+    got = torch.autograd.grad(pt_attn.flash_attention_dropout(*leaves, 11, 0.25, 0.3),
+                              leaves, g)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+
+
+def test_multihead_attention_dropout_follows_train_mode():
+    """In train mode the weights drop at the module's rate (the plain route
+    on the CPU), draws from the module's generator, and eval mode is exact."""
+    torch.manual_seed(0)
+    m = MultiheadAttention(32, 4, dropout=0.5)
+    q = torch.randn(2, 8, 32)
+    kv = torch.randn(2, 300, 32)
+    m.eval()
+    ref = m(q, kv, kv)
+    m.train()
+    m.generator = torch.Generator().manual_seed(1)
+    a = m(q, kv, kv)
+    m.generator = torch.Generator().manual_seed(1)
+    b = m(q, kv, kv)
+    assert torch.equal(a, b) and not torch.allclose(a, ref)
+    m.dropout = 0.0
+    torch.testing.assert_close(m(q, kv, kv), ref)

@@ -264,3 +264,118 @@ def test_init_weights_draws_the_flax_distributions():
     again = init_weights(build_model(pcfg, 17, (6, 5)), torch.Generator().manual_seed(0))
     for a, b in zip(m.state_dict().values(), again.state_dict().values()):
         assert torch.equal(a, b)
+
+
+# ---- train mode: batch-statistics BN, gradients (dropout 0) ----
+
+def _grads_close(model, jax_grads, rel=1e-5, model_wide=False):
+    """Each parameter's .grad against the JAX gradient pytree carried across
+    with ``state_dict_from_flax``, to ``rel`` of the tensor's largest entry,
+    or with ``model_wide`` of the largest gradient entry in the model."""
+    want = state_dict_from_flax({"params": jax.device_get(jax_grads)})
+    got = dict(model.named_parameters())
+    assert sorted(got) == sorted(want)
+    top = max(float(np.abs(w.numpy()).max()) for w in want.values())
+    for name, p in got.items():
+        w = want[name].numpy()
+        g = np.zeros_like(w) if p.grad is None else p.grad.numpy()
+        err = np.abs(g - w).max()
+        assert err <= rel * max(1.0, top if model_wide else np.abs(w).max()), (name, err)
+
+
+def _stats_close(model, batch_stats, atol=1e-6):
+    want = state_dict_from_flax({"batch_stats": jax.device_get(batch_stats)})
+    got = model.state_dict()
+    for name in want:
+        np.testing.assert_allclose(got[name].numpy(), want[name].numpy(), atol=atol, rtol=0,
+                                   err_msg=name)
+
+
+def test_torch_batchnorm_train_matches_flax():
+    """Batch statistics over (B, T) normalize (biased variance); the running
+    statistics update by momentum 0.1 with the unbiased variance."""
+    rng = np.random.RandomState(8)
+    x = (rng.randn(3, 10, 32) * 2 + 0.5).astype(np.float32)
+    m = jax_fuser.TorchBatchNorm(32)
+    variables = jax.device_get(m.init(jax.random.PRNGKey(0), x, train=False))
+    variables["params"]["scale"] = rng.randn(32).astype(np.float32)
+    variables["batch_stats"] = {"mean": rng.randn(32).astype(np.float32),
+                                "var": rng.rand(32).astype(np.float32) + 0.5}
+    (want, _), mutated = m.apply(variables, x, train=True, mutable=["batch_stats"])
+    port = _port(fuser.TorchBatchNorm(32), variables).train()
+    got = port(_t(x))
+    np.testing.assert_allclose(got.detach().numpy(), _np(want), atol=ATOL, rtol=0)
+    _stats_close(port, mutated["batch_stats"])
+
+
+@pytest.mark.parametrize("jax_path", ["composed", "pallas-interpret"])
+@pytest.mark.parametrize("frozen", [False, True], ids=["batch-stats", "frozen"])
+def test_cmfuser_bn_train_matches_flax(jax_path, frozen, monkeypatch):
+    """CMFuserBN with train=True and dropout 0: output, the gradients of
+    every parameter and input, and the BN statistics. ``frozen`` is the
+    sticky-eval twin (running statistics, no update)."""
+    C = 32
+    rng = np.random.RandomState(9)
+    rgb = rng.randn(3, 20, C).astype(np.float32)
+    depth = rng.randn(3, 20, C).astype(np.float32)
+    w = rng.randn(3, 20, C).astype(np.float32)
+    m = jax_fuser.CMFuserBN(C, n_head=8, drop_rate=0.0, frozen=frozen,
+                            use_pallas=jax_path == "pallas-interpret")
+    variables = _randomize_bn(m.init(jax.random.PRNGKey(4), rgb, depth), rng, C)
+    if jax_path == "pallas-interpret":
+        monkeypatch.setenv("R3D_FORCE_PALLAS", "1")
+
+    def loss(params, r, d):
+        out, mut = m.apply({"params": params, "batch_stats": variables["batch_stats"]}, r, d,
+                           train=True, mutable=["batch_stats"])
+        return jnp.sum(out * w), (out, mut)
+
+    (_, (want, mutated)), grads = jax.value_and_grad(loss, argnums=(0, 1, 2), has_aux=True)(
+        variables["params"], rgb, depth)
+    port = _port(fuser.CMFuserBN(C, drop_rate=0.0, frozen=frozen), variables).train()
+    r, d = _t(rgb).requires_grad_(), _t(depth).requires_grad_()
+    got = port(r, d)
+    (got * _t(w)).sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), _np(want), atol=2e-5, rtol=0)
+    _grads_close(port, grads[0])
+    for a, b in ((r, grads[1]), (d, grads[2])):
+        np.testing.assert_allclose(a.grad.numpy(), _np(b), atol=2e-5, rtol=0)
+    _stats_close(port, mutated["batch_stats"])
+
+
+def test_futr_fusion_train_matches_flax():
+    """The whole model with train=True and dropout 0 at S = 256: outputs,
+    the gradients of a loss over every output, and the BN statistics."""
+    jcfg, pcfg = _model_cfgs()
+    jcfg = dataclasses.replace(jcfg, dropout=0.0, fuser_dropout=0.0)
+    pcfg = dataclasses.replace(pcfg, dropout=0.0, fuser_dropout=0.0)
+    S = 256
+    rng = np.random.RandomState(S + 1)
+    x = rng.randn(2, S, 12).astype(np.float32)
+    d = rng.rand(2, S, 6, 5).astype(np.float32)
+    pad = np.zeros((2, S), bool)
+    pad[1, S // 3:] = True
+    m = jax_build_model(jcfg, 17)
+    variables = _randomize_bn(m.init(jax.random.PRNGKey(8), x, d, pad, train=False), rng, 32,
+                              at=("fuser",))
+    weights = {k: rng.randn(*shape).astype(np.float32) for k, shape in
+               (("action", (2, 8, 17)), ("duration", (2, 8)), ("seg", (2, S, 17)),
+                ("fused", (2, S, 32)))}
+
+    def loss(params):
+        out, mut = m.apply({"params": params, "batch_stats": variables["batch_stats"]},
+                           x, d, pad, train=True, mutable=["batch_stats"])
+        return sum(jnp.sum(out[k] * weights[k]) for k in weights), (out, mut)
+
+    (_, (want, mutated)), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(
+        variables["params"])
+    port = _port(build_model(pcfg, 17, (6, 5)), variables).train()
+    got = port(_t(x), _t(d), _t(pad))
+    sum((got[k] * _t(weights[k])).sum() for k in weights).backward()
+    for k in want:
+        np.testing.assert_allclose(got[k].detach().numpy(), _np(want[k]), atol=2e-5, rtol=0,
+                                   err_msg=k)
+    # model-wide scale: the depth LayerNorm's scale gradient sums terms that
+    # cancel (xhat is zero-mean per row) to ~1e-1 while others reach ~1e2
+    _grads_close(port, grads, model_wide=True)
+    _stats_close(port, mutated["batch_stats"])
