@@ -2,8 +2,9 @@
 
 The port's own copy of ``r3d_tpu/config.py``: the same dataclasses with the
 same field names and defaults, so that a config built for one package reads
-the same in the other. ``CONFIGS`` holds the configs whose model the port
-serves (``futr_fusion_bn``). Fields that only the JAX package reads (mesh,
+the same in the other. ``CONFIGS`` holds the configs whose model and loop
+the port runs (``futr_fusion_bn`` with ``proposed_depth``, ``futr`` with
+``futr``), field for field as the JAX package's. Fields that only the JAX package reads (mesh,
 device cache, compile knobs) are kept so that the field sets stay equal.
 """
 
@@ -173,6 +174,47 @@ class Config:
 
 
 CONFIGS = {
+    # FUTR baseline on 50salads (main.py:68 uses mapping_l2.txt +
+    # scripts/50s_train.sh:1-5 hyperparameters): bf16 batches and bf16
+    # compute; the 1024 and 3100 buckets reach the native cross-attention
+    # kernels under R3D_CROSS_NATIVE=1.
+    "50salads": Config(
+        name="50salads",
+        data=DataConfig(
+            dataset="50salads", mapping_file="mapping_l2.txt", features_dir="features",
+            train_split="train.split{split}.bundle", val_split="test.split{split}.bundle",
+            depth_features_dir=None, gt_format="plain", sample_rate=6,
+            features_transposed=True,
+            train_obs_percs=(0.2, 0.3, 0.5), seq_buckets=(128, 256, 512, 1024, 3100),
+            feature_dtype="bfloat16",
+        ),
+        model=ModelConfig(
+            model="futr", hidden_dim=512, n_encoder_layers=2, n_decoder_layers=2,
+            n_query=20, max_pos_len=3100, seg_excludes_none=True,
+            compute_dtype="bfloat16",
+        ),
+        train=TrainConfig(loop="futr", batch_size=8, epochs=70, min_train_batch=0,
+                          device_cache=True),
+        eval=EvalConfig(ant_acc_mode="micro"),
+    ),
+    # FUTR on Breakfast (scripts/bf_train.sh:2-6)
+    "breakfast": Config(
+        name="breakfast",
+        data=DataConfig(
+            dataset="breakfast", mapping_file="mapping.txt", features_dir="features",
+            train_split="train.split{split}.bundle", val_split="test.split{split}.bundle",
+            depth_features_dir=None, gt_format="plain", sample_rate=3,
+            features_transposed=True,
+            train_obs_percs=(0.2, 0.3, 0.5), seq_buckets=(128, 256, 512, 1024, 2000),
+        ),
+        model=ModelConfig(
+            model="futr", hidden_dim=128, n_encoder_layers=2, n_decoder_layers=1,
+            n_query=8, max_pos_len=2000, seg_excludes_none=True,
+        ),
+        train=TrainConfig(loop="futr", batch_size=16, epochs=60, min_train_batch=0,
+                          device_cache=True),
+        eval=EvalConfig(ant_acc_mode="micro"),
+    ),
     # UTKinect RGB+depth token fuser (main_utkinects.py): batches stored in
     # bf16, the two wide embeds in bf16, everything after them in fp32.
     "utkinects": Config(

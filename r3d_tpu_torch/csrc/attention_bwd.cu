@@ -34,6 +34,12 @@
 // row whose every score is -inf (l = 0) gives zero gradients, not NaN. dbias
 // goes to a per-(batch, head) slice that the wrapper sums over heads, and
 // only when the bias needs a gradient.
+//
+// bf16 (the 50salads decoder: Lq = 20, Lk = 256 or 512, D = 64): q, k, v, g
+// are read as bf16 and every product and sum is fp32, as in the TPU kernel,
+// which casts g and the weights to fp32 (attention.py:230-253); dq is
+// written in bf16, and dk and dv stay fp32 here and are rounded to bf16 once
+// by the wrapper, as the TPU kernel's fp32 outputs are (attention.py:365-366).
 
 #include <cuda_runtime.h>
 
@@ -45,11 +51,11 @@ constexpr int QB = 8;     // queries per tile, one warp each
 constexpr int KC = 32;    // keys per shared-memory stage, one lane each
 constexpr int NT = QB * 32;
 
-template <int D, bool kDropout>
+template <typename T, int D, bool kDropout>
 __global__ void __launch_bounds__(NT)
-attention_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ bias,
-                     const float* __restrict__ g, float* __restrict__ dq,
+attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const float* __restrict__ bias,
+                     const T* __restrict__ g, T* __restrict__ dq,
                      float* __restrict__ dk, float* __restrict__ dv,
                      float* __restrict__ dbias, int H, int Lq, int Lk, float scale,
                      uint32_t seed, uint32_t threshold, float keep_scale) {
@@ -79,8 +85,8 @@ attention_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int w = idx / D;
       const bool ok = q0 + w < Lq;
       const size_t off = (static_cast<size_t>(bh) * Lq + q0 + w) * D + idx % D;
-      qs[idx] = ok ? q[off] : 0.f;
-      gs[idx] = ok ? g[off] : 0.f;
+      qs[idx] = ok ? r3d::to_float(q[off]) : 0.f;
+      gs[idx] = ok ? r3d::to_float(g[off]) : 0.f;
     }
 
     // pass 1: running max m, sum l and D-numerator dn of this warp's query
@@ -94,8 +100,8 @@ attention_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const int j = idx / D;
         const int dd = idx % D;
         const bool ok = j < nk;
-        ks[j * LDK + dd] = ok ? k[kv0 + static_cast<size_t>(j0 + j) * D + dd] : 0.f;
-        vs[j * LDK + dd] = ok ? v[kv0 + static_cast<size_t>(j0 + j) * D + dd] : 0.f;
+        ks[j * LDK + dd] = ok ? r3d::to_float(k[kv0 + static_cast<size_t>(j0 + j) * D + dd]) : 0.f;
+        vs[j * LDK + dd] = ok ? r3d::to_float(v[kv0 + static_cast<size_t>(j0 + j) * D + dd]) : 0.f;
       }
       if (threadIdx.x < KC) {
         bs[threadIdx.x] =
@@ -139,8 +145,8 @@ attention_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const int j = idx / D;
         const int dd = idx % D;
         const bool ok = j < nk;
-        ks[j * LDK + dd] = ok ? k[kv0 + static_cast<size_t>(j0 + j) * D + dd] : 0.f;
-        vs[j * LDK + dd] = ok ? v[kv0 + static_cast<size_t>(j0 + j) * D + dd] : 0.f;
+        ks[j * LDK + dd] = ok ? r3d::to_float(k[kv0 + static_cast<size_t>(j0 + j) * D + dd]) : 0.f;
+        vs[j * LDK + dd] = ok ? r3d::to_float(v[kv0 + static_cast<size_t>(j0 + j) * D + dd]) : 0.f;
       }
       if (threadIdx.x < KC) {
         bs[threadIdx.x] =
@@ -208,40 +214,57 @@ attention_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int t = 0; t < DQ_PER_T; ++t) {
       const int idx = threadIdx.x + t * NT;
       if (idx < QB * D && q0 + idx / D < Lq) {
-        dq[(static_cast<size_t>(bh) * Lq + q0) * D + idx] = dq_acc[t] * scale;
+        dq[(static_cast<size_t>(bh) * Lq + q0) * D + idx] = r3d::from_float<T>(dq_acc[t] * scale);
       }
     }
   }
 }
 
-template <int D, bool kDropout>
-int launch(const float* q, const float* k, const float* v, const float* bias, const float* g,
-           float* dq, float* dk, float* dv, float* dbias, int B, int H, int Lq, int Lk,
-           float scale, uint32_t seed, uint32_t threshold, float keep_scale,
-           cudaStream_t stream) {
-  attention_bwd_kernel<D, kDropout><<<B * H, NT, 0, stream>>>(
+template <typename T, int D, bool kDropout>
+int launch(const T* q, const T* k, const T* v, const float* bias, const T* g, T* dq, float* dk,
+           float* dv, float* dbias, int B, int H, int Lq, int Lk, float scale, uint32_t seed,
+           uint32_t threshold, float keep_scale, cudaStream_t stream) {
+  attention_bwd_kernel<T, D, kDropout><<<B * H, NT, 0, stream>>>(
       q, k, v, bias, g, dq, dk, dv, dbias, H, Lq, Lk, scale, seed, threshold, keep_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kDropout>
-int dispatch(const float* q, const float* k, const float* v, const float* bias,
-             const float* g, float* dq, float* dk, float* dv, float* dbias, int B, int H,
-             int Lq, int Lk, int D, float scale, uint32_t seed, uint32_t threshold,
-             float keep_scale, cudaStream_t s) {
+template <typename T, bool kDropout>
+int dispatch(const T* q, const T* k, const T* v, const float* bias, const T* g, T* dq, float* dk,
+             float* dv, float* dbias, int B, int H, int Lq, int Lk, int D, float scale,
+             uint32_t seed, uint32_t threshold, float keep_scale, cudaStream_t s) {
   switch (D) {
     case 16:
-      return launch<16, kDropout>(q, k, v, bias, g, dq, dk, dv, dbias, B, H, Lq, Lk, scale,
-                                  seed, threshold, keep_scale, s);
+      return launch<T, 16, kDropout>(q, k, v, bias, g, dq, dk, dv, dbias, B, H, Lq, Lk, scale,
+                                     seed, threshold, keep_scale, s);
     case 32:
-      return launch<32, kDropout>(q, k, v, bias, g, dq, dk, dv, dbias, B, H, Lq, Lk, scale,
-                                  seed, threshold, keep_scale, s);
+      return launch<T, 32, kDropout>(q, k, v, bias, g, dq, dk, dv, dbias, B, H, Lq, Lk, scale,
+                                     seed, threshold, keep_scale, s);
     case 64:
-      return launch<64, kDropout>(q, k, v, bias, g, dq, dk, dv, dbias, B, H, Lq, Lk, scale,
-                                  seed, threshold, keep_scale, s);
+      return launch<T, 64, kDropout>(q, k, v, bias, g, dq, dk, dv, dbias, B, H, Lq, Lk, scale,
+                                     seed, threshold, keep_scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+template <typename T>
+int run(const T* q, const T* k, const T* v, const float* bias, const T* g, T* dq, float* dk,
+        float* dv, float* dbias, int B, int H, int Lq, int Lk, int D, float scale, int dropout,
+        uint32_t seed, uint32_t threshold, float keep_scale, void* stream) {
+  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t kv_bytes = static_cast<size_t>(B) * H * Lk * D * sizeof(float);
+  cudaError_t err = cudaMemsetAsync(dk, 0, kv_bytes, s);
+  if (err == cudaSuccess) err = cudaMemsetAsync(dv, 0, kv_bytes, s);
+  if (err == cudaSuccess && dbias != nullptr) {
+    err = cudaMemsetAsync(dbias, 0, static_cast<size_t>(B) * H * Lk * sizeof(float), s);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return dropout ? dispatch<T, true>(q, k, v, bias, g, dq, dk, dv, dbias, B, H, Lq, Lk, D, scale,
+                                     seed, threshold, keep_scale, s)
+                 : dispatch<T, false>(q, k, v, bias, g, dq, dk, dv, dbias, B, H, Lq, Lk, D,
+                                      scale, seed, threshold, keep_scale, s);
 }
 
 }  // namespace
@@ -255,17 +278,17 @@ extern "C" int r3d_attention_bwd(const float* q, const float* k, const float* v,
                                  float* dv, float* dbias, int B, int H, int Lq, int Lk, int D,
                                  float scale, int dropout, uint32_t seed, uint32_t threshold,
                                  float keep_scale, void* stream) {
-  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t kv_bytes = static_cast<size_t>(B) * H * Lk * D * sizeof(float);
-  cudaError_t err = cudaMemsetAsync(dk, 0, kv_bytes, s);
-  if (err == cudaSuccess) err = cudaMemsetAsync(dv, 0, kv_bytes, s);
-  if (err == cudaSuccess && dbias != nullptr) {
-    err = cudaMemsetAsync(dbias, 0, static_cast<size_t>(B) * H * Lk * sizeof(float), s);
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return dropout ? dispatch<true>(q, k, v, bias, g, dq, dk, dv, dbias, B, H, Lq, Lk, D, scale,
-                                  seed, threshold, keep_scale, s)
-                 : dispatch<false>(q, k, v, bias, g, dq, dk, dv, dbias, B, H, Lq, Lk, D,
-                                   scale, seed, threshold, keep_scale, s);
+  return run<float>(q, k, v, bias, g, dq, dk, dv, dbias, B, H, Lq, Lk, D, scale, dropout, seed,
+                    threshold, keep_scale, stream);
+}
+
+// As r3d_attention_bwd with bf16 q, k, v, g and dq; dk, dv and dbias stay fp32.
+extern "C" int r3d_attention_bwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                                      const __nv_bfloat16* v, const float* bias,
+                                      const __nv_bfloat16* g, __nv_bfloat16* dq, float* dk,
+                                      float* dv, float* dbias, int B, int H, int Lq, int Lk,
+                                      int D, float scale, int dropout, uint32_t seed,
+                                      uint32_t threshold, float keep_scale, void* stream) {
+  return run<__nv_bfloat16>(q, k, v, bias, g, dq, dk, dv, dbias, B, H, Lq, Lk, D, scale,
+                            dropout, seed, threshold, keep_scale, stream);
 }

@@ -3,12 +3,30 @@
 // and every exported launcher returns the cudaError_t of its launch as an int.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace r3d {
 
 constexpr unsigned kFullMask = 0xffffffffu;
+
+// Loads and stores of an input type (float or bf16); the math is fp32.
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// x rounded to T's precision (nearest even), held as a float.
+template <typename T>
+__device__ __forceinline__ float round_to(float x) { return to_float(from_float<T>(x)); }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll

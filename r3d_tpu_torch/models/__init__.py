@@ -1,8 +1,8 @@
 """Model registry of the port, and the seeded init that mirrors flax's.
 
-Only ``futr_fusion_bn`` is ported. The other models of
-``r3d_tpu/models/__init__.py`` raise ``NotImplementedError`` naming their
-ROADMAP item.
+Ported: ``futr_fusion_bn`` (fp32 compute), ``futr`` and ``futr_baseline``
+(fp32 or bf16 compute). The other models of ``r3d_tpu/models/__init__.py``
+raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -15,6 +15,8 @@ from torch import nn
 
 from r3d_tpu_torch.config import ModelConfig
 from r3d_tpu_torch.models.fuser import CMFuserBN, TorchBatchNorm
+from r3d_tpu_torch.models.futr import FUTR
+from r3d_tpu_torch.models.layers import DTYPES
 from r3d_tpu_torch.models.futr_fusion import FUTRFusion
 
 _FUSION_MODELS = {
@@ -34,9 +36,15 @@ def build_model(cfg: ModelConfig, n_class: int,
                 depth_shape: Sequence[int] = (160, 120)) -> nn.Module:
     """The module for ``cfg.model``; ``depth_shape`` is the per-frame shape
     of the raw depth input (``DataConfig.depth_shape``)."""
+    if cfg.compute_dtype not in DTYPES:
+        raise NotImplementedError(f"compute_dtype {cfg.compute_dtype!r} is not ported")
+    if cfg.model in ("futr", "futr_baseline"):
+        # model/futr_baseline.py: futr + output['supcon'] = decoder output
+        return FUTR(cfg, n_class, emit_supcon=cfg.model == "futr_baseline")
     if cfg.compute_dtype != "float32":
         raise NotImplementedError(
-            "compute_dtype other than float32 is not ported (ROADMAP queue A, item 11)")
+            "the fusion models run in float32 only (no config asks for another "
+            "compute_dtype; ROADMAP queue A, item 11)")
     if cfg.model == "futr_fusion_bn":
         return FUTRFusion(cfg, n_class, math.prod(depth_shape))
     raise NotImplementedError(
@@ -68,7 +76,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 m.running_var.fill_(1.0)
         elif isinstance(m, CMFuserBN):
             m.alpha.uniform_(0.0, 1.0, generator=generator)
-        elif isinstance(m, FUTRFusion):
+        elif isinstance(m, (FUTR, FUTRFusion)):
             if hasattr(m, "pos_embedding"):
                 _, L, C = m.pos_embedding.shape
                 _xavier_(m.pos_embedding, L, C, generator)

@@ -1,22 +1,26 @@
-"""FUTR input embed and heads.
+"""FUTR: the baseline model, its input embed and heads.
 
-Counterpart of ``r3d_tpu/models/futr.py`` (``InputEmbed`` and ``Heads``).
-With ``embed_dtype="bfloat16"`` the input embed casts its input, weight and
-bias to bf16 and gives bf16 out, which is then cast to the compute dtype;
-everything after it runs in fp32.
+Counterpart of ``r3d_tpu/models/futr.py``: ``InputEmbed``, ``Heads`` and
+``FUTR`` (the reference's ``model/futr.py``; with ``emit_supcon`` its
+``model/futr_baseline.py``, which also returns the decoder output). Compute
+runs in ``cfg.compute_dtype`` with fp32 parameters; the wide input embed in
+``cfg.embed_dtype`` (default: the compute dtype); the heads return fp32.
+
+Outputs: ``action`` [B, n_query, n_class], ``duration`` [B, n_query],
+``seg`` [B, S, n_class - 1] (the NONE class excluded when
+``seg_excludes_none``), and ``supcon`` [B, n_query, C] for ``futr_baseline``.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from r3d_tpu_torch.config import ModelConfig
-
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+from r3d_tpu_torch.models.layers import DTYPES, linear_in
+from r3d_tpu_torch.models.transformer import FUTRTransformer
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -28,13 +32,8 @@ def embed_dtype(cfg: ModelConfig) -> torch.dtype:
     return DTYPES[cfg.embed_dtype or cfg.compute_dtype]
 
 
-def linear_in(x, layer: nn.Linear, dtype: torch.dtype):
-    """``layer(x)`` with input, weight and bias cast to ``dtype``."""
-    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
-
-
 class InputEmbed(nn.Module):
-    """Features -> hidden, ReLU."""
+    """Features -> hidden, ReLU, in the compute dtype."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -50,7 +49,8 @@ class InputEmbed(nn.Module):
 
 
 class Heads(nn.Module):
-    """Action, duration and segmentation heads."""
+    """Action, duration and segmentation heads, computed in the compute
+    dtype and returned in fp32."""
 
     def __init__(self, cfg: ModelConfig, n_class: int):
         super().__init__()
@@ -63,10 +63,49 @@ class Heads(nn.Module):
             self.fc_seg = nn.Linear(C, n_class - 1 if cfg.seg_excludes_none else n_class)
 
     def forward(self, hs, memory) -> Dict[str, torch.Tensor]:
+        dt = compute_dtype(self.cfg)
         out: Dict[str, torch.Tensor] = {}
         if self.cfg.anticipate:
-            out["action"] = self.fc(hs).float()
-            out["duration"] = self.fc_len(hs)[..., 0].float()
+            out["action"] = linear_in(hs, self.fc, dt).float()
+            out["duration"] = linear_in(hs, self.fc_len, dt)[..., 0].float()
         if self.cfg.seg:
-            out["seg"] = self.fc_seg(memory).float()
+            out["seg"] = linear_in(memory, self.fc_seg, dt).float()
+        return out
+
+
+class FUTR(nn.Module):
+    """The baseline FUTR: input embed, learned positions added to the keys
+    and values, the decoder over learned action queries against the embedded
+    stream (encoder bypassed), then the heads. Train mode
+    (``module.train()``) turns on every dropout."""
+
+    def __init__(self, cfg: ModelConfig, n_class: int, emit_supcon: bool = False):
+        super().__init__()
+        self.cfg = cfg
+        self.emit_supcon = emit_supcon
+        C = cfg.hidden_dim
+        self.embed = InputEmbed(cfg)
+        if cfg.pos_emb:
+            self.pos_embedding = nn.Parameter(torch.zeros(1, cfg.max_pos_len, C))
+        self.query_embed = nn.Parameter(torch.zeros(cfg.n_query, C))
+        self.transformer = FUTRTransformer(C, cfg.n_head, cfg.n_decoder_layers, 4 * C,
+                                           use_encoder=cfg.use_encoder, dropout=cfg.dropout,
+                                           dtype=compute_dtype(cfg))
+        self.heads = Heads(cfg, n_class)
+
+    def forward(self, features, src_pad_mask: Optional[torch.Tensor] = None
+                ) -> Dict[str, torch.Tensor]:
+        """features [B, S, input_dim], src_pad_mask [B, S] bool with True =
+        pad (None: no mask)."""
+        cfg = self.cfg
+        B, S = features.shape[:2]
+        src = self.embed(features)
+        pos = None
+        if cfg.pos_emb:
+            pos = self.pos_embedding[:, :S].to(src.dtype).expand(B, S, cfg.hidden_dim)
+        query = self.query_embed[None].to(src.dtype).expand(B, -1, -1)
+        memory, hs = self.transformer(src, pos, query, src_pad_mask)
+        out = self.heads(hs, memory)
+        if self.emit_supcon:
+            out["supcon"] = hs.float()
         return out

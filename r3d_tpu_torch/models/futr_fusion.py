@@ -17,7 +17,8 @@ from torch import nn
 
 from r3d_tpu_torch.config import ModelConfig
 from r3d_tpu_torch.models.fuser import CMFuserBN
-from r3d_tpu_torch.models.futr import Heads, InputEmbed, compute_dtype, embed_dtype, linear_in
+from r3d_tpu_torch.models.futr import Heads, InputEmbed, compute_dtype, embed_dtype
+from r3d_tpu_torch.models.layers import linear_in
 from r3d_tpu_torch.models.transformer import FUTRTransformer
 
 

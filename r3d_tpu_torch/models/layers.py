@@ -6,6 +6,12 @@ reference passes ``with_pos_embed(...)`` as the value too), key-padding
 masks as an additive ``finfo(float32).min`` bias, fp32 softmax, post-norm
 residual blocks, and dropout that follows ``self.training``.
 
+``dtype`` is the compute dtype, as flax's ``dtype=``: parameters stay fp32,
+each linear layer casts its input, weight and bias to it (``linear_in``),
+and LayerNorm keeps its statistics in fp32 and gives ``dtype`` out. In bf16
+the composed attention rounds its scores to bf16, where the key-padding
+bias becomes -inf: a masked key weighs exactly 0 there.
+
 Randomness: dropout masks draw from ``generator`` (a ``torch.Generator`` on
 the module's device) and the attention kernel's per-call seed from
 ``seed_generator`` (one on the CPU, so drawing it never waits for the card);
@@ -19,16 +25,40 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from r3d_tpu_torch.ops.attention import (
     attention_kernel_eligible,
-    composed_attention,
     flash_attention,
     flash_attention_dropout,
 )
+from r3d_tpu_torch.ops.cross_attention import (
+    cross_attention_native,
+    cross_attention_native_eligible,
+)
 
 INT32_MAX = 2 ** 31 - 1
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def linear_in(x, layer: nn.Linear, dtype: torch.dtype):
+    """``layer(x)`` with input, weight and bias cast to ``dtype`` (flax
+    ``Dense(dtype=...)``)."""
+    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax ``nn.LayerNorm(dtype=...)``: statistics and affine in fp32, the
+    output in ``dtype``."""
+
+    def __init__(self, dim: int, dtype: torch.dtype = torch.float32):
+        super().__init__(dim, eps=1e-5)
+        self.dtype = dtype
+
+    def forward(self, x):
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias,
+                            self.eps).to(self.dtype)
 
 
 def attention_bias_from_padding(key_padding_mask: Optional[torch.Tensor],
@@ -78,19 +108,25 @@ def set_generators(model: nn.Module, generator: Optional[torch.Generator],
 class MultiheadAttention(nn.Module):
     """torch ``nn.MultiheadAttention`` math with separate q/k/v/out
     projections and attention-weight dropout. Routes, as
-    ``r3d_tpu/models/layers.py:135-180`` does:
+    ``r3d_tpu/models/layers.py:87-180`` does:
 
+    - ``cross_attention_native_eligible`` (opt-in, few queries against long
+      keys): ``cross_attention_native`` on the projections' own layout (K6
+      forward, K7 backward), with a fresh int32 seed per call when dropping;
     - ``attention_kernel_eligible`` and no dropout: ``flash_attention`` (K3
       forward, K5 backward);
     - ``attention_kernel_eligible`` and dropout: ``flash_attention_dropout``
       (K4 forward, K5 backward) with a fresh int32 seed per call;
-    - otherwise plain attention, with dropout on the weights in train mode.
+    - otherwise plain attention in the compute dtype, with dropout on the
+      weights in train mode.
     """
 
-    def __init__(self, dim: int, n_head: int, dropout: float = 0.0):
+    def __init__(self, dim: int, n_head: int, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n_head = n_head
         self.dropout = dropout
+        self.dtype = dtype
         self.generator: Optional[torch.Generator] = None
         self.seed_generator: Optional[torch.Generator] = None
         self.q_proj = nn.Linear(dim, dim)
@@ -98,60 +134,70 @@ class MultiheadAttention(nn.Module):
         self.v_proj = nn.Linear(dim, dim)
         self.out_proj = nn.Linear(dim, dim)
 
+    def _seed(self) -> int:
+        return int(torch.randint(0, INT32_MAX, (), generator=self.seed_generator))
+
     def forward(self, q, k, v, key_padding_mask=None):
         B, Lq, C = q.shape
         Lk = k.shape[1]
         H = self.n_head
         D = C // H
         scale = 1.0 / math.sqrt(D)
-        heads = lambda x, L: x.view(B, L, H, D).transpose(1, 2).contiguous()
-        qh = heads(self.q_proj(q), Lq)
-        kh = heads(self.k_proj(k), Lk)
-        vh = heads(self.v_proj(v), Lk)
+        qf = linear_in(q, self.q_proj, self.dtype)
+        kf = linear_in(k, self.k_proj, self.dtype)
+        vf = linear_in(v, self.v_proj, self.dtype)
         bias = attention_bias_from_padding(key_padding_mask)
         rate = self.dropout if self.training else 0.0
+        if cross_attention_native_eligible(Lq, Lk, C, H, rate, q.device):
+            seed = self._seed() if rate > 0.0 else 0
+            out = cross_attention_native(qf, kf, vf, bias, seed, scale, rate, H)
+            return linear_in(out, self.out_proj, self.dtype)
+        heads = lambda x, L: x.view(B, L, H, D).transpose(1, 2).contiguous()
+        qh, kh, vh = heads(qf, Lq), heads(kf, Lk), heads(vf, Lk)
         if rate == 0.0 and attention_kernel_eligible(Lq, Lk, D, q.device):
             out = flash_attention(qh, kh, vh, bias, scale)
         elif attention_kernel_eligible(Lq, Lk, D, q.device):
-            seed = int(torch.randint(0, INT32_MAX, (), generator=self.seed_generator))
-            out = flash_attention_dropout(qh, kh, vh, bias, seed, scale, rate)
-        elif rate == 0.0:
-            out = composed_attention(qh, kh, vh, bias, scale)
+            out = flash_attention_dropout(qh, kh, vh, bias, self._seed(), scale, rate)
         else:
-            scores = torch.einsum("bhqd,bhkd->bhqk", qh, kh) * scale
+            scores = torch.einsum("bhqd,bhkd->bhqk", qh, kh) / math.sqrt(D)
             if bias is not None:
-                scores = scores + bias
-            w = dropout(torch.softmax(scores.float(), dim=-1).to(q.dtype), rate,
-                        self.generator)
+                scores = scores + bias.to(scores.dtype)
+            w = torch.softmax(scores.float(), dim=-1).to(self.dtype)
+            if rate > 0.0:
+                w = dropout(w, rate, self.generator)
             out = torch.einsum("bhqk,bhkd->bhqd", w, vh)
-        return self.out_proj(out.transpose(1, 2).reshape(B, Lq, C))
+        return linear_in(out.transpose(1, 2).reshape(B, Lq, C), self.out_proj, self.dtype)
 
 
 class FeedForward(nn.Module):
     """linear1 -> ReLU -> dropout -> linear2."""
 
-    def __init__(self, dim: int, hidden_dim: int, dropout: float = 0.0):
+    def __init__(self, dim: int, hidden_dim: int, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.linear1 = nn.Linear(dim, hidden_dim)
         self.linear2 = nn.Linear(hidden_dim, dim)
         self.drop = Dropout(dropout)
 
     def forward(self, x):
-        return self.linear2(self.drop(torch.relu(self.linear1(x))))
+        h = self.drop(torch.relu(linear_in(x, self.linear1, self.dtype)))
+        return linear_in(h, self.linear2, self.dtype)
 
 
 class DecoderLayer(nn.Module):
     """Post-norm decoder layer: query self-attention, cross-attention into
     (memory + pos) keys and values, FFN, each added back through dropout."""
 
-    def __init__(self, dim: int, n_head: int, ffn_dim: int, dropout: float = 0.0):
+    def __init__(self, dim: int, n_head: int, ffn_dim: int, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.self_attn = MultiheadAttention(dim, n_head, dropout)
-        self.cross_attn = MultiheadAttention(dim, n_head, dropout)
-        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
-        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
-        self.norm3 = nn.LayerNorm(dim, eps=1e-5)
-        self.ffn = FeedForward(dim, ffn_dim, dropout)
+        self.self_attn = MultiheadAttention(dim, n_head, dropout, dtype)
+        self.cross_attn = MultiheadAttention(dim, n_head, dropout, dtype)
+        self.norm1 = LayerNorm(dim, dtype)
+        self.norm2 = LayerNorm(dim, dtype)
+        self.norm3 = LayerNorm(dim, dtype)
+        self.ffn = FeedForward(dim, ffn_dim, dropout, dtype)
         self.drop1 = Dropout(dropout)
         self.drop2 = Dropout(dropout)
         self.drop3 = Dropout(dropout)

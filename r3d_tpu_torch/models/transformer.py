@@ -8,9 +8,10 @@ are not ported yet (ROADMAP queue A).
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 
-from r3d_tpu_torch.models.layers import DecoderLayer
+from r3d_tpu_torch.models.layers import DecoderLayer, LayerNorm
 
 
 class TransformerDecoder(nn.Module):
@@ -18,12 +19,12 @@ class TransformerDecoder(nn.Module):
     LayerNorm."""
 
     def __init__(self, dim: int, n_head: int, n_layers: int, ffn_dim: int,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.layers = nn.ModuleList(
-            DecoderLayer(dim, n_head, ffn_dim, dropout) for _ in range(n_layers)
+            DecoderLayer(dim, n_head, ffn_dim, dropout, dtype) for _ in range(n_layers)
         )
-        self.norm = nn.LayerNorm(dim, eps=1e-5)
+        self.norm = LayerNorm(dim, dtype)
 
     def forward(self, tgt, memory, pos, query_pos, memory_key_padding_mask=None):
         out = tgt
@@ -36,12 +37,14 @@ class FUTRTransformer(nn.Module):
     """(memory, hs) = transformer(src, pos, queries) with memory = src."""
 
     def __init__(self, dim: int, n_head: int, n_decoder_layers: int, ffn_dim: int,
-                 use_encoder: bool = False, dropout: float = 0.0):
+                 use_encoder: bool = False, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if use_encoder:
             raise NotImplementedError(
                 "use_encoder=True is not ported yet (ROADMAP queue A, item 3)")
-        self.decoder = TransformerDecoder(dim, n_head, n_decoder_layers, ffn_dim, dropout)
+        self.decoder = TransformerDecoder(dim, n_head, n_decoder_layers, ffn_dim, dropout,
+                                          dtype)
 
     def forward(self, src, pos, query_pos, src_key_padding_mask=None):
         if query_pos is None:

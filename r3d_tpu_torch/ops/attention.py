@@ -19,6 +19,12 @@ tensor launch the kernel or raise.
 
 The mask cannot reproduce the TPU's PRNG bits, so parity with the JAX
 package runs at rate 0; dropout is checked by its invariants.
+
+Each kernel is built for fp32 and for bf16 q, k, v (``*_BF16``, counted
+apart), with fp32 math and the TPU kernels' rounding points, which the
+plain versions share: K3 and K4 round the normalised weights (after
+dropout) to V's type before the product with V and write the output in q's
+type; K5 computes in fp32 and rounds dq, dk and dv to the inputs' type once.
 """
 
 from __future__ import annotations
@@ -45,6 +51,16 @@ BWD_KERNEL = Kernel(
     + [ctypes.c_float, ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float,
        ctypes.c_void_p],
 )
+KERNEL_BF16 = Kernel("flash_attention_bf16", "attention.cu", "r3d_attention_fwd_bf16",
+                     KERNEL.argtypes)
+DROPOUT_KERNEL_BF16 = Kernel("flash_attention_dropout_bf16", "attention.cu",
+                             "r3d_attention_fwd_dropout_bf16", DROPOUT_KERNEL.argtypes)
+BWD_KERNEL_BF16 = Kernel("attention_bwd_bf16", "attention_bwd.cu", "r3d_attention_bwd_bf16",
+                         BWD_KERNEL.argtypes)
+_BY_DTYPE = {  # (forward, dropout forward, backward) per input dtype
+    torch.float32: (KERNEL, DROPOUT_KERNEL, BWD_KERNEL),
+    torch.bfloat16: (KERNEL_BF16, DROPOUT_KERNEL_BF16, BWD_KERNEL_BF16),
+}
 KERNEL_HEAD_DIMS = (16, 32, 64)   # csrc/attention*.cu: instantiated D
 
 _U32 = 0xFFFFFFFF
@@ -91,24 +107,29 @@ def dropout_keep(seed: int, rate: float, shape, device) -> torch.Tensor:
 
 
 def _scores(q, k, bias, scale):
-    scores = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    """fp32 scores of q, k in any input dtype."""
+    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     if bias is not None:
         scores = scores + bias
     return scores
 
 
+def _pv(w, v, out_dtype):
+    """The weights rounded to V's dtype, times V in fp32, in ``out_dtype``."""
+    return torch.einsum("bhqk,bhkd->bhqd", w.to(v.dtype).float(), v.float()).to(out_dtype)
+
+
 def composed_attention(q, k, v, bias, scale):
     """Plain attention: q, k, v [B, H, L, D]; bias [B, 1, 1, Lk] additive."""
-    w = torch.softmax(_scores(q, k, bias, scale).float(), dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bhkd->bhqd", w, v)
+    return _pv(torch.softmax(_scores(q, k, bias, scale), dim=-1), v, q.dtype)
 
 
 def composed_attention_dropout(q, k, v, bias, seed: int, scale, rate: float):
     """Plain attention with the kernels' dropout on the softmax weights."""
-    w = torch.softmax(_scores(q, k, bias, scale).float(), dim=-1)
+    w = torch.softmax(_scores(q, k, bias, scale), dim=-1)
     if rate > 0.0:
         w = w * dropout_keep(seed, rate, w.shape, q.device)
-    return torch.einsum("bhqk,bhkd->bhqd", w.to(q.dtype), v)
+    return _pv(w, v, q.dtype)
 
 
 def composed_attention_bwd(q, k, v, bias, seed: int, scale, rate: float, g,
@@ -116,34 +137,37 @@ def composed_attention_bwd(q, k, v, bias, seed: int, scale, rate: float, g,
     """Plain backward of ``composed_attention_dropout`` (rate 0: of
     ``composed_attention``), written out as K5 computes it. Returns (dq, dk,
     dv, dbias [B, 1, 1, Lk] or None)."""
-    w = torch.softmax(_scores(q, k, bias, scale).float(), dim=-1)
+    w = torch.softmax(_scores(q, k, bias, scale), dim=-1)
     keep = dropout_keep(seed, rate, w.shape, q.device) if rate > 0.0 else 1.0
     g = g.float()
     dv = torch.einsum("bhqk,bhqd->bhkd", w * keep, g)
-    dw = torch.einsum("bhqd,bhkd->bhqk", g, v) * keep
+    dw = torch.einsum("bhqd,bhkd->bhqk", g, v.float()) * keep
     ds = w * (dw - (dw * w).sum(-1, keepdim=True))
-    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k) * scale
-    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q) * scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
     dbias = ds.sum(dim=(1, 2), keepdim=True) if (bias is not None and need_dbias) else None
-    return dq, dk, dv, dbias
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias
 
 
 def _check(fn, q, k, v, bias, extra=None):
     """Raise unless the CUDA kernels take these tensors."""
     if q.device.type != "cuda":
         raise ValueError(f"{fn}: no kernel for {q.device}")
+    if q.dtype not in _BY_DTYPE:
+        raise ValueError(f"{fn}: no kernel for {q.dtype}")
     B, H, Lq, D = q.shape
     Lk = k.shape[2]
     if D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"{fn}: head dim {D} not in {KERNEL_HEAD_DIMS}")
-    want = {"q": (q, (B, H, Lq, D)), "k": (k, (B, H, Lk, D)), "v": (v, (B, H, Lk, D))}
+    want = {"q": (q, (B, H, Lq, D), q.dtype), "k": (k, (B, H, Lk, D), q.dtype),
+            "v": (v, (B, H, Lk, D), q.dtype)}
     if bias is not None:
-        want["bias"] = (bias, (B, 1, 1, Lk))
+        want["bias"] = (bias, (B, 1, 1, Lk), torch.float32)
     for name, t in (extra or {}).items():
-        want[name] = (t, (B, H, Lq, D))
-    for name, (t, shape) in want.items():
-        if t.device != q.device or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{fn}: {name} must be a contiguous float32 tensor on {q.device}")
+        want[name] = (t, (B, H, Lq, D), q.dtype)
+    for name, (t, shape, dtype) in want.items():
+        if t.device != q.device or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} must be a contiguous {dtype} tensor on {q.device}")
         if tuple(t.shape) != shape:
             raise ValueError(f"{fn}: {name} has shape {tuple(t.shape)}, expected {shape}")
     return B, H, Lq, Lk, D
@@ -163,8 +187,8 @@ def _attention_fwd(q, k, v, bias, scale):
         return composed_attention(q, k, v, bias, scale)
     B, H, Lq, Lk, D = _check("flash_attention", q, k, v, bias)
     out = torch.empty_like(q)
-    KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), out.data_ptr(),
-                  B, H, Lq, Lk, D, float(scale), _stream(q))
+    _BY_DTYPE[q.dtype][0].launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
+                                 out.data_ptr(), B, H, Lq, Lk, D, float(scale), _stream(q))
     return out
 
 
@@ -176,7 +200,7 @@ def _attention_fwd_dropout(q, k, v, bias, seed, scale, rate):
     if B * H * Lq * Lk > 2 ** 32:
         raise ValueError("flash_attention_dropout: B*H*Lq*Lk must fit a 32-bit index")
     out = torch.empty_like(q)
-    DROPOUT_KERNEL.launch(
+    _BY_DTYPE[q.dtype][1].launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), out.data_ptr(),
         B, H, Lq, Lk, D, float(scale), int(seed) & _U32, dropout_threshold(rate),
         1.0 / (1.0 - rate), _stream(q))
@@ -194,18 +218,18 @@ def attention_bwd(q, k, v, bias, seed: int, scale, rate: float, g,
     if rate > 0.0 and B * H * Lq * Lk > 2 ** 32:
         raise ValueError("attention_bwd: B*H*Lq*Lk must fit a 32-bit index")
     dq = torch.empty_like(q)
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
+    dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)   # fp32 sums
+    dv = torch.empty_like(dk)
     need_dbias = need_dbias and bias is not None
     dbias = torch.empty((B, H, Lk), dtype=torch.float32, device=q.device) if need_dbias else None
-    BWD_KERNEL.launch(
+    _BY_DTYPE[q.dtype][2].launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), g.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(dbias),
         B, H, Lq, Lk, D, float(scale), int(rate > 0.0), int(seed) & _U32,
         dropout_threshold(rate), 1.0 / (1.0 - rate), _stream(q))
     if dbias is not None:
         dbias = dbias.sum(1)[:, None, None, :]
-    return dq, dk, dv, dbias
+    return dq, dk.to(k.dtype), dv.to(v.dtype), dbias
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -1,0 +1,236 @@
+"""Native-layout decoder cross-attention, forward and backward.
+
+Counterpart of ``r3d_tpu/ops/cross_attention.py``. The decoder's few
+queries (``Lq <= 64``; 20 for 50salads) attend to long keys (``S > 512``; up
+to 3,100) in the projections' own layout: q ``[B, Lq, C]``, k and v
+``[B, S, C]`` with the ``H`` heads inside ``C``, so neither direction
+relayouts K or V head-major. Two kernels:
+
+- K6 (``csrc/cross_attention.cu``, ``r3d_cross_attention_fwd``): online
+  softmax over the keys, optional dropout on the weights, and the softmax
+  statistics (m, l) ``[B, H, Lq]`` for the backward;
+- K7 (``csrc/cross_attention_bwd.cu``, ``r3d_cross_attention_bwd``): dq, dk
+  and dv in native layout and the bias's cotangent, from the saved (m, l) and
+  the forward output.
+
+``cross_attention_native`` is a ``torch.autograd.Function`` over the two.
+``composed_cross_attention`` and ``composed_cross_attention_bwd`` are the
+plain PyTorch versions with the kernels' rounding points: in bf16, K6 rounds
+the unnormalised weights (after dropout) to the input type before the
+product with V, and K7 rounds ds to the input type before the dq and dk
+products; every sum is fp32. The wrappers take the plain versions for CPU
+tensors only, and for a CUDA tensor launch the kernel or raise.
+
+Dropout draws the mask of ``ops/attention.py`` (a hash of the seed and the
+element index of the ``[B, H, Lq, S]`` weights), so the plain dropout
+version is ``composed_attention_dropout``'s mask in native layout, and K7
+redraws K6's mask. The TPU's PRNG bits cannot be reproduced: parity with
+the JAX package runs at rate 0.
+
+A fully masked row (every real key's bias ``finfo(float32).min``) averages
+V uniformly over the real keys, as the port's K3 does; the Pallas kernel
+also averages in its zero pad keys there (ROADMAP §C).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+from typing import Optional
+
+import torch
+
+from r3d_tpu_torch.ops.attention import (
+    _U32,
+    _needs_graph,
+    _ptr,
+    _stream,
+    dropout_keep,
+    dropout_threshold,
+)
+from r3d_tpu_torch.ops.build import Kernel
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}   # the launchers' `dtype`
+FWD_KERNEL = Kernel(
+    "cross_attention", "cross_attention.cu", "r3d_cross_attention_fwd",
+    [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float,
+       ctypes.c_void_p],
+)
+BWD_KERNEL = Kernel(
+    "cross_attention_bwd", "cross_attention_bwd.cu", "r3d_cross_attention_bwd",
+    [ctypes.c_int] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float,
+       ctypes.c_void_p],
+)
+CROSS_HEAD_DIMS = (16, 32, 64)   # csrc/cross_attention*.cu: instantiated D
+MAX_QUERIES = 64                 # K7's shared memory holds every query of a head
+BWD_BLOCK_KEYS = 64              # csrc/cross_attention_bwd.cu: KB, keys per block
+
+
+def _heads(x, H):
+    """[B, L, C] -> [B, H, L, D] view, as fp32."""
+    B, L, C = x.shape
+    return x.float().view(B, L, H, C // H).transpose(1, 2)
+
+
+def _native(x):
+    """[B, H, L, D] -> [B, L, H*D]."""
+    B, H, L, D = x.shape
+    return x.transpose(1, 2).reshape(B, L, H * D)
+
+
+def _scores(q, k, bias, scale, H):
+    s = torch.einsum("bhqd,bhkd->bhqk", _heads(q, H), _heads(k, H)) * scale
+    return s if bias is None else s + bias.float()
+
+
+def composed_cross_attention(q, k, v, bias, seed: int, scale: float, rate: float, H: int):
+    """Plain K6: q [B, Lq, C], k and v [B, S, C], bias [B, 1, 1, S] or None.
+    Returns (out [B, Lq, C] in q's dtype, m [B, H, Lq], l [B, H, Lq]): the
+    row max of the scores and the sum of exp(scores - m)."""
+    s = _scores(q, k, bias, scale, H)
+    m = s.amax(-1)
+    e = torch.exp(s - m[..., None])
+    l = e.sum(-1)
+    if rate > 0.0:
+        e = e * dropout_keep(seed, rate, e.shape, q.device)
+    out = torch.einsum("bhqk,bhkd->bhqd", e.to(v.dtype).float(), _heads(v, H))
+    out = out / l.clamp_min(1e-30)[..., None]
+    return _native(out).to(q.dtype), m, l
+
+
+def composed_cross_attention_bwd(q, k, v, bias, seed: int, scale: float, rate: float, H: int,
+                                 g, o, m, l, need_dbias: bool = True):
+    """Plain K7: (dq, dk, dv, dbias [B, 1, 1, S] fp32 or None) under the
+    output cotangent g, from the forward's output o and statistics (m, l).
+    delta = rowsum(g o o) per head holds under weight dropout too."""
+    w = torch.exp(_scores(q, k, bias, scale, H) - m[..., None]) / l.clamp_min(1e-30)[..., None]
+    keep = dropout_keep(seed, rate, w.shape, q.device) if rate > 0.0 else 1.0
+    gh = _heads(g, H)
+    dv = torch.einsum("bhqk,bhqd->bhkd", w * keep, gh)
+    dw = torch.einsum("bhqd,bhkd->bhqk", gh, _heads(v, H)) * keep
+    delta = (gh * _heads(o, H)).sum(-1)
+    ds = w * (dw - delta[..., None])
+    ds_r = ds.to(q.dtype).float()
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds_r, _heads(k, H)) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds_r, _heads(q, H)) * scale
+    dbias = ds.sum(dim=(1, 2))[:, None, None, :] if (bias is not None and need_dbias) else None
+    return (_native(dq).to(q.dtype), _native(dk).to(k.dtype), _native(dv).to(v.dtype), dbias)
+
+
+def _check(fn, q, k, v, bias, H, extra=None):
+    """Raise unless the CUDA kernels take these tensors."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{fn}: no kernel for {q.device}")
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError(f"{fn}: no kernel for {q.dtype}")
+    B, Lq, C = q.shape
+    S = k.shape[1]
+    if C % H or C // H not in CROSS_HEAD_DIMS:
+        raise ValueError(f"{fn}: head dim {C}/{H} not in {CROSS_HEAD_DIMS}")
+    if Lq > MAX_QUERIES:
+        raise ValueError(f"{fn}: {Lq} queries, at most {MAX_QUERIES}")
+    want = {"q": (q, (B, Lq, C), q.dtype), "k": (k, (B, S, C), q.dtype),
+            "v": (v, (B, S, C), q.dtype)}
+    if bias is not None:
+        want["bias"] = (bias, (B, 1, 1, S), torch.float32)
+    want.update(extra or {})
+    for name, (t, shape, dtype) in want.items():
+        if t.device != q.device or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} must be a contiguous {dtype} tensor on {q.device}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{fn}: {name} has shape {tuple(t.shape)}, expected {shape}")
+    if B * H * Lq * S > 2 ** 32:
+        raise ValueError(f"{fn}: B*H*Lq*S must fit a 32-bit index")
+    return B, Lq, S, C
+
+
+def cross_attention_fwd(q, k, v, bias, seed: int, scale: float, rate: float, H: int):
+    """K6: (out, m, l); the plain version for CPU tensors."""
+    if q.device.type == "cpu":
+        return composed_cross_attention(q, k, v, bias, seed, scale, rate, H)
+    B, Lq, S, C = _check("cross_attention", q, k, v, bias, H)
+    out = torch.empty_like(q)
+    m = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    FWD_KERNEL.launch(
+        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
+        out.data_ptr(), m.data_ptr(), l.data_ptr(), B, Lq, S, H, C // H, float(scale),
+        int(rate > 0.0), int(seed) & _U32, dropout_threshold(rate), 1.0 / (1.0 - rate),
+        _stream(q))
+    return out, m, l
+
+
+def cross_attention_bwd(q, k, v, bias, seed: int, scale: float, rate: float, H: int, g, o, m, l,
+                        need_dbias: bool = False):
+    """K7: (dq, dk, dv, dbias [B, 1, 1, S] or None); the plain version for
+    CPU tensors."""
+    if q.device.type == "cpu":
+        return composed_cross_attention_bwd(q, k, v, bias, seed, scale, rate, H, g, o, m, l,
+                                            need_dbias)
+    stats = (q.shape[0], H, q.shape[1])
+    B, Lq, S, C = _check("cross_attention_bwd", q, k, v, bias, H,
+                         {"g": (g, tuple(q.shape), q.dtype), "o": (o, tuple(q.shape), q.dtype),
+                          "m": (m, stats, torch.float32), "l": (l, stats, torch.float32)})
+    n_blocks = -(-S // BWD_BLOCK_KEYS)
+    dq_partial = torch.empty((n_blocks, B, Lq, C), dtype=torch.float32, device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    need_dbias = need_dbias and bias is not None
+    dbias = torch.empty((B, 1, 1, S), dtype=torch.float32, device=q.device) if need_dbias else None
+    BWD_KERNEL.launch(
+        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
+        g.data_ptr(), o.data_ptr(), m.data_ptr(), l.data_ptr(), dq_partial.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(dbias), B, Lq, S, H, C // H, n_blocks,
+        float(scale), int(rate > 0.0), int(seed) & _U32, dropout_threshold(rate),
+        1.0 / (1.0 - rate), _stream(q))
+    return dq, dk, dv, dbias
+
+
+class _CrossAttention(torch.autograd.Function):
+    """K6 forward saving (out, m, l), K7 backward (``cross_attention.py:313-329``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, seed, scale, rate, H):
+        out, m, l = cross_attention_fwd(q, k, v, bias, seed, scale, rate, H)
+        ctx.args = (seed, scale, rate, H)
+        ctx.save_for_backward(q, k, v, bias, out, m, l)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias, out, m, l = ctx.saved_tensors
+        dq, dk, dv, db = cross_attention_bwd(q, k, v, bias, *ctx.args, g.contiguous(), out, m, l,
+                                             need_dbias=ctx.needs_input_grad[3])
+        return dq, dk, dv, db, None, None, None, None
+
+
+def cross_attention_native(q, k, v, bias: Optional[torch.Tensor], seed: int, scale: float,
+                           rate: float, H: int) -> torch.Tensor:
+    """Multi-head attention on native [B, L, C] projection outputs: q
+    [B, Lq, C], k and v [B, S, C], bias [B, 1, 1, S] additive or None;
+    returns [B, Lq, C], the heads concatenated. ``rate`` > 0 drops weights
+    with the mask drawn from ``seed``. CPU tensors take the plain versions;
+    CUDA tensors the kernels (K6 forward, K7 backward)."""
+    if _needs_graph(q, k, v, bias):
+        return _CrossAttention.apply(q, k, v, bias, seed, scale, rate, H)
+    return cross_attention_fwd(q, k, v, bias, seed, scale, rate, H)[0]
+
+
+def cross_attention_native_eligible(Lq: int, Lk: int, C: int, H: int, rate: float,
+                                    device: torch.device) -> bool:
+    """The JAX package's rule (``r3d_tpu/ops/cross_attention.py:382-404``):
+    opt-in only, under ``R3D_CROSS_NATIVE=1`` (or ``R3D_FORCE_PALLAS=1``),
+    read at call time; then few queries against long keys, Lq <= 64, Lk >
+    512, C <= 1024, D % 8 == 0. "On the card" stands for both
+    ``pallas_enabled()`` and "rate > 0 needs a real TPU", so ``rate`` does
+    not change the answer here. The head dim must also be one the kernels
+    are built for. JAX keeps the route off by default after a TPU
+    measurement; whether the H100 should route it by default is an open
+    question (PERF.md)."""
+    if not (os.environ.get("R3D_CROSS_NATIVE") == "1"
+            or os.environ.get("R3D_FORCE_PALLAS") == "1"):
+        return False
+    if device.type != "cuda" or C % H != 0 or (C // H) % 8 != 0:
+        return False
+    return C // H in CROSS_HEAD_DIMS and Lq <= MAX_QUERIES and Lk > 512 and C <= 1024

@@ -1,4 +1,4 @@
-"""Serving: an inference session over ``futr_fusion_bn`` on one card.
+"""Serving: an inference session over a FUTR model on one card.
 
 Counterpart of ``r3d_tpu/serving.py`` (``InferenceSession`` and
 ``ServingQueue``):
@@ -10,8 +10,10 @@ Counterpart of ``r3d_tpu/serving.py`` (``InferenceSession`` and
 Observed windows pad to the config's buckets with exact key masking,
 requests microbatch per bucket (batch padded to the next power of two), and
 decode runs on the host. Inputs ship in the config's storage dtype (bf16 on
-the fusion configs). ``ServingQueue`` coalesces concurrent requests into
-``anticipate_batch`` calls.
+``utkinects`` and ``50salads``). The fusion models (``futr_fusion_bn``) take
+features and depth, the others (``futr``, ``futr_baseline``) features only.
+``ServingQueue`` coalesces concurrent requests into ``anticipate_batch``
+calls.
 
 Not ported yet (ROADMAP): ``from_checkpoint``, ``quantize='int8'``,
 ``input_dtype='uint8'``, ``mesh``, ``export`` / ``ExportedSession``.
@@ -34,7 +36,7 @@ from r3d_tpu_torch.config import Config
 from r3d_tpu_torch.data.pipeline import bucket_length
 from r3d_tpu_torch.eval.decode import decode_anticipation
 from r3d_tpu_torch.models import build_model, is_fusion_model
-from r3d_tpu_torch.models.futr import DTYPES
+from r3d_tpu_torch.models.layers import DTYPES
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -94,9 +96,9 @@ class InferenceSession:
 
     def _run(self, feats, depth, mask) -> Dict[str, torch.Tensor]:
         """One padded chunk -> model outputs on the device (not synced)."""
-        to = lambda t: None if t is None else t.to(self.device, non_blocking=True)
+        args = (feats, depth, mask) if self.is_fusion else (feats, mask)
         with torch.inference_mode():
-            return self.model(to(feats), to(depth), to(mask))
+            return self.model(*(t.to(self.device, non_blocking=True) for t in args))
 
     def anticipate_batch(
         self,

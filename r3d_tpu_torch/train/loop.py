@@ -1,20 +1,24 @@
-"""The ``proposed_depth`` training loop on one card.
+"""The ``proposed_depth`` and ``futr`` training loops on one card.
 
-Counterpart of the ``proposed_depth`` slice of ``r3d_tpu/train/loop.py``:
+Counterpart of those two loops of ``r3d_tpu/train/loop.py``:
 
     trainer = Trainer(config, n_class)                 # CUDA by default
     state = trainer.init_state(len(train_loader), state_dict)
     state = trainer.fit(state, train_loader, val_loader, seed)
 
-One train step is forward, the losses (weighted CE excluding the config's
-class, duration MSE, segmentation CE), backward and an AdamW update, with
-the BatchNorm running statistics updated in place by the forward. Epoch 0
-trains in train mode (batch-statistics BN, dropout); with sticky eval
-(COMPAT #37) epochs >= 1 train the module-eval forward with gradients on
+One train step is forward, the losses (CE over the anticipated actions,
+weighted and excluding a class where the config says so, as
+``proposed_depth``'s does; duration MSE; segmentation CE), backward and an
+AdamW update, with the BatchNorm running statistics of the fusion models
+updated in place by the forward. The fusion models take (features, depth,
+mask), the others (features, mask). Epoch 0 trains in train mode
+(batch-statistics BN, dropout); with sticky eval (COMPAT #37, both loops)
+epochs >= 1 train the module-eval forward with gradients on
 (``model.eval()``: running-statistics BN, no dropout), which is exactly the
 JAX package's ``_model_for(frozen=True)``. Validation runs the module-eval
 forward without the pad mask. Metrics accumulate on the device and are read
-once per epoch; the two-metric best gate and the log lines are the JAX
+once per epoch; the best gate (``proposed_depth``: either of two metrics;
+``futr``: the class accuracy alone) and the log lines are the JAX
 package's.
 
 Not ported yet, and raising ``NotImplementedError`` naming their ROADMAP
@@ -46,6 +50,7 @@ from r3d_tpu_torch.train.state import TrainState
 
 _FLOAT_STREAMS = ("features", "depth_features", "trans_future_dur")
 INIT_SEED = 0  # the seeded init without a state_dict
+LOOPS = ("proposed_depth", "futr")
 
 
 def last_non_padding_labels(past_label: torch.Tensor, pad_idx: int) -> torch.Tensor:
@@ -64,12 +69,9 @@ class Trainer:
     def __init__(self, config: Config, n_class: int,
                  device: Union[str, torch.device] = "cuda"):
         tc = config.train
-        if tc.loop != "proposed_depth":
+        if tc.loop not in LOOPS:
             raise NotImplementedError(
                 f"loop {tc.loop!r} is not ported yet (ROADMAP queue A, item 12)")
-        if not is_fusion_model(config.model.model):
-            raise NotImplementedError(
-                f"model {config.model.model!r} is not ported yet (ROADMAP queue A, item 11)")
         if tc.steps_per_dispatch > 1 or tc.grad_accum > 1:
             raise NotImplementedError(
                 "steps_per_dispatch > 1 and grad_accum > 1 are not ported yet "
@@ -78,7 +80,9 @@ class Trainer:
         self.config = config
         self.n_class = n_class
         self.pad_idx = n_class + 1  # main_utkinects.py:109
+        self.is_fusion = is_fusion_model(config.model.model)
         se = tc.sticky_eval
+        # every ported loop is sticky by default (r3d_tpu/train/loop.py:86-91)
         self.sticky_eval = True if se is None else bool(se)
         self.best_epochs = []   # epochs at which the best gate opened
 
@@ -113,12 +117,14 @@ class Trainer:
 
     def _model_inputs(self, batch, with_mask: bool) -> Tuple:
         mask = (batch["past_label"] == self.pad_idx) if with_mask else None
-        return batch["features"], batch["depth_features"], mask
+        if self.is_fusion:
+            return batch["features"], batch["depth_features"], mask
+        return batch["features"], mask
 
     # ------------------------------------------------------------- loss logic
     def _losses(self, outputs, batch, train: bool = True):
-        """(total, metrics) of the ``proposed_depth`` loop: the JAX
-        ``Trainer._losses`` branches that loop takes."""
+        """(total, metrics) of the ``proposed_depth`` and ``futr`` loops: the
+        JAX ``Trainer._losses`` branches those loops take."""
         cfg = self.config
         pad = self.pad_idx
         excl = cfg.train.exclude_class_idx
@@ -244,9 +250,10 @@ class Trainer:
         return state
 
     def _finish_epoch(self, state, epoch, agg, n_batches, n_clips, dt, validate, best, log):
-        """Train log line, validation and the two-metric
-        best gate (train_proposed_depth.py:237-241: both bests overwrite when
-        either metric improves). Returns (best_val_acc, best_weight_acc)."""
+        """Train log line, validation and the best gate: ``futr`` gates on
+        the class accuracy alone (train.py:63), ``proposed_depth`` on either
+        metric and overwrites both bests (train_proposed_depth.py:237-241).
+        Returns (best_val_acc, best_weight_acc)."""
         cfg = self.config.train
         best_val_acc, best_weight_acc = best
         loss = agg.get("loss", 0.0) / max(n_batches, 1)
@@ -259,7 +266,8 @@ class Trainer:
         weight_acc = vagg.get("weight_acc_sum", 0.0) / max(vagg.get("weight_acc_cnt", 0.0), 1.0)
         log(f"Validation Loss: {val_loss:.3f}, Class Accuracy: {val_acc:.3f}, "
             f"Weighted Accuracy: {weight_acc:.3f}")
-        if val_acc > best_val_acc or weight_acc > best_weight_acc:
+        two_metric = cfg.loop != "futr"
+        if val_acc > best_val_acc or (two_metric and weight_acc > best_weight_acc):
             best_val_acc, best_weight_acc = val_acc, weight_acc
             self.best_epochs.append(epoch)
         return best_val_acc, best_weight_acc

@@ -1,0 +1,171 @@
+"""The port's native cross-attention against the JAX package's, on the CPU.
+
+The plain versions of K6 and K7 (``r3d_tpu_torch/ops/cross_attention.py``)
+against ``r3d_tpu.ops.cross_attention.cross_attention_native``, whose
+Pallas kernels run in interpret mode off the TPU, on the same seeded numpy
+inputs: the output, the softmax statistics and all four gradients.
+Tolerances: fp32 the JAX test's own (2e-5 for values, 3e-4 for gradients,
+``tests/test_attention_kernel.py``; read: 2.1e-7 and 2.4e-7); bf16 5e-3
+of the tensor's largest entry (read: 9.8e-4), since the two sides round the
+unnormalised weights to bf16 against different running maxima (JAX's key
+blocks of 512, the port's final max), which moves a weight by at most one
+bf16 step (2**-8 relative), and then round the result to bf16. The
+routing rule is held to JAX's, and dropout (whose TPU bits cannot be
+reproduced) to its invariants.
+"""
+
+import types
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from r3d_tpu.ops import cross_attention as jax_ca
+from r3d_tpu_torch.ops import cross_attention as pt_ca
+
+H, C, LQ = 4, 64, 20
+SCALE = 0.25
+BF16_TOL = 5e-3
+
+
+def _inputs(rng, Lk, pad_from, B=2):
+    f = lambda *s: rng.randn(*s).astype(np.float32)
+    pad = np.zeros((B, Lk), bool)
+    for b, start in enumerate(pad_from):
+        pad[b, start:] = True
+    bias = np.where(pad, np.finfo(np.float32).min, 0.0).astype(np.float32)[:, None, None, :]
+    return f(B, LQ, C), f(B, Lk, C), f(B, Lk, C), bias, f(B, LQ, C)
+
+
+def _rel_err(got, want):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    return np.abs(got - want).max() / max(1.0, np.abs(want).max())
+
+
+# (Lk, pad_from): a ragged Lk (the Pallas kernel pads it to 1024 with zero
+# keys), and an Lk of whole key blocks with a fully masked row (only there
+# do the two sides average the same keys: the Pallas kernel would average
+# its pad keys into such a row)
+CASES = [(777, (777, 700)), (1024, (1024, 0))]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Lk,pad_from", CASES)
+def test_plain_kernels_match_pallas(Lk, pad_from, dtype):
+    rng = np.random.RandomState(Lk)
+    q, k, v, bias, w = _inputs(rng, Lk, pad_from)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    J = [jnp.asarray(x, jdt) for x in (q, k, v)] + [jnp.asarray(bias)]
+    T = [torch.from_numpy(x).to(tdt).requires_grad_() for x in (q, k, v)]
+    T.append(torch.from_numpy(bias).requires_grad_())
+
+    out_j, m_j, l_j = jax_ca._cross_attention_fwd_impl(*J, 0, SCALE, 0.0, H, with_stats=True)
+    out_p, m_p, l_p = pt_ca.composed_cross_attention(*[t.detach() for t in T], 0, SCALE, 0.0, H)
+    # JAX's statistics carry the query axis padded to a multiple of 8
+    np.testing.assert_allclose(m_p.numpy(), np.asarray(m_j)[:, :, :LQ], atol=2e-5, rtol=1e-6)
+    np.testing.assert_allclose(l_p.numpy(), np.asarray(l_j)[:, :, :LQ], atol=2e-5, rtol=1e-5)
+
+    def loss(*args):
+        return jnp.sum(jax_ca.cross_attention_native(*args, 0, SCALE, 0.0, H).astype(
+            jnp.float32) * w)
+
+    grads_j = jax.grad(loss, argnums=(0, 1, 2, 3))(*J)
+    got = pt_ca.cross_attention_native(*T, 0, SCALE, 0.0, H)
+    assert got.dtype == tdt and np.isfinite(got.float().detach().numpy()).all()
+    (got.float() * torch.from_numpy(w)).sum().backward()
+
+    if dtype == "float32":
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(out_j), atol=2e-5, rtol=0)
+        for name, t, g in zip("qkvb", T, grads_j):
+            np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), atol=3e-4, rtol=0,
+                                       err_msg=f"d{name}")
+    else:
+        assert _rel_err(got.detach().float(), out_j) <= BF16_TOL
+        for name, t, g in zip("qkvb", T, grads_j):
+            assert t.grad.dtype == (tdt if name != "b" else torch.float32)
+            assert _rel_err(t.grad.float(), g) <= BF16_TOL, name
+
+
+def test_plain_kernels_match_jax_composed_without_bias():
+    """No bias at all: the JAX kernel's zero bias and the port's None agree."""
+    rng = np.random.RandomState(5)
+    q, k, v, _, _ = _inputs(rng, 600, (600, 600))
+    want = jax_ca.cross_attention_native(*map(jnp.asarray, (q, k, v)), None, 0, SCALE, 0.0, H)
+    got = pt_ca.cross_attention_native(*map(torch.from_numpy, (q, k, v)), None, 0, SCALE, 0.0, H)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=0)
+
+
+_GRID = [(Lq, Lk, C_, H_) for Lq in (1, 20, 64, 65) for Lk in (256, 512, 513, 3100)
+         for C_, H_ in ((64, 4), (512, 8), (256, 8), (1024, 16), (2048, 32))]
+
+
+@pytest.mark.parametrize("switch", [None, "R3D_CROSS_NATIVE", "R3D_FORCE_PALLAS"])
+def test_eligibility_matches_jax_rule(switch, monkeypatch):
+    """The port's rule on the card equals JAX's on a TPU (``pallas_enabled``
+    and the backend stand in for it), with the switches set and unset; on
+    the CPU the port never routes to the kernels. Every head dim of the grid
+    (8, 16, 32, 64) passes JAX's D % 8 test; the port also needs D to be one
+    it is built for, so D = 8 is refused there alone."""
+    from r3d_tpu.ops import fuser_kernel as jax_fk
+
+    for name in ("R3D_CROSS_NATIVE", "R3D_FORCE_PALLAS"):
+        monkeypatch.delenv(name, raising=False)
+    if switch:
+        monkeypatch.setenv(switch, "1")
+    monkeypatch.setattr(jax_fk, "pallas_enabled", lambda: True)
+    monkeypatch.setattr(jax_ca, "jax", types.SimpleNamespace(default_backend=lambda: "tpu"))
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    routed = 0
+    for Lq, Lk, C_, H_ in _GRID:
+        for rate in (0.0, 0.1):
+            want = jax_ca.cross_attention_native_eligible(Lq, Lk, C_, H_, rate)
+            want = want and C_ // H_ in pt_ca.CROSS_HEAD_DIMS
+            assert pt_ca.cross_attention_native_eligible(Lq, Lk, C_, H_, rate, cuda) is want, (
+                Lq, Lk, C_, H_, rate)
+            assert not pt_ca.cross_attention_native_eligible(Lq, Lk, C_, H_, rate, cpu)
+            routed += want
+    assert (routed > 0) is (switch is not None)
+    monkeypatch.setenv("R3D_CROSS_NATIVE", "0")   # any value but "1" keeps it off
+    if switch != "R3D_FORCE_PALLAS":
+        assert not pt_ca.cross_attention_native_eligible(20, 3100, 512, 8, 0.0, cuda)
+
+
+def test_dropout_keeps_its_rate_and_the_backward_redraws_the_mask():
+    """The plain dropout forward drops weights at the rate (binomial bound),
+    with ``composed_attention_dropout``'s mask in native layout; the plain
+    backward equals autograd of that forward under the same seed only."""
+    from r3d_tpu_torch.ops.attention import composed_attention_dropout, dropout_keep
+
+    rng = np.random.RandomState(8)
+    q, k, v, bias, _ = (torch.from_numpy(x) for x in _inputs(rng, 700, (700, 555)))
+    rate, seed = 0.2, 99
+    keep = dropout_keep(seed, rate, (2, H, LQ, 700), "cpu") > 0
+    n = keep.numel()
+    assert abs(float(keep.double().mean()) - (1 - rate)) < 5 * (rate * (1 - rate) / n) ** 0.5
+    heads = lambda x: x.view(2, -1, H, C // H).transpose(1, 2)
+    got = pt_ca.composed_cross_attention(q, k, v, bias, seed, SCALE, rate, H)[0]
+    want = composed_attention_dropout(heads(q), heads(k), heads(v), bias, seed, SCALE, rate)
+    np.testing.assert_allclose(got.numpy(), want.transpose(1, 2).reshape(2, LQ, C).numpy(),
+                               atol=1e-5, rtol=0)
+    g = torch.from_numpy(rng.randn(2, LQ, C).astype(np.float32))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, bias)]
+    out = pt_ca.composed_cross_attention(*leaves, seed, SCALE, rate, H)[0]
+    want = torch.autograd.grad(out, leaves, g)
+    for s, same in ((seed, True), (seed + 1, False)):
+        got = torch.autograd.grad(pt_ca.cross_attention_native(*leaves, s, SCALE, rate, H),
+                                  leaves, g)
+        if same:
+            for a, b in zip(got, want):
+                torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+        else:
+            assert float((got[2] - want[2]).abs().max()) > 1e-2
+
+
+def test_wrapper_takes_plain_version_only_on_cpu():
+    q = torch.zeros(1, 20, 64, device="meta")
+    k = torch.zeros(1, 600, 64, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        pt_ca.cross_attention_native(q, k, k, None, 0, 0.25, 0.0, 4)

@@ -8,7 +8,12 @@ host (which need not have JAX) run them with
 TF32 is off for the plain versions. Tolerances: 1e-4 for the fuser tail
 (fp32 sums of up to 512 terms in another order), 2e-5 for attention (fp32
 online vs two-pass softmax); gradients summed over rows are held to the same
-figures relative to their largest entry.
+figures relative to their largest entry. The native cross-attention (K6,
+K7) is held to 2e-5 forward and 1e-4 backward in fp32 (its gradient sums
+run over up to 3,100 keys). In bf16 the kernels and the plain versions
+round at the same points, but a sum taken in another order can land a
+value on the neighbouring bf16 number (2**-8 relative), so bf16 results
+are held to 2e-2 of the tensor's largest entry.
 """
 
 import math
@@ -16,8 +21,9 @@ import math
 import pytest
 import torch
 
-from chip_smoke import attention_inputs, fuser_inputs
+from chip_smoke import attention_inputs, cross_inputs, fuser_inputs
 from r3d_tpu_torch.ops import attention as att
+from r3d_tpu_torch.ops import cross_attention as ca
 from r3d_tpu_torch.ops import fuser_kernel as fk
 
 pytestmark = pytest.mark.cuda
@@ -207,3 +213,104 @@ def test_autograd_functions_match_autograd_of_plain(cuda):
     want = _grads(lambda *t: att.composed_attention_dropout(*t, bias, 9, 0.25, 0.1), (q, k, v))
     for a, b in zip(got, want):
         _close(a, b, 2e-5)
+
+
+# ---- the 50salads slice: K6, K7, and K3-K5 in bf16 ----
+
+BF16_TOL = 2e-2
+DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("S", [1, 31, 777, 1024, 3100])
+@pytest.mark.parametrize("Lq,C,H", [(20, 512, 8), (8, 128, 8), (64, 64, 2)],
+                         ids=["50salads", "breakfast", "64-queries"])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_cross_attention_kernels_match_plain(cuda, dtype, Lq, C, H, S, rate):
+    dt = DTYPES[dtype]
+    gen = torch.Generator().manual_seed(S + C + Lq)
+    q, k, v, bias = cross_inputs(4, Lq, S, C, gen, cuda, dt, all_masked_row=S > 1)
+    scale = 1.0 / math.sqrt(C // H)
+    before = ca.FWD_KERNEL.launches
+    out, m, l = ca.cross_attention_fwd(q, k, v, bias, 5 + S, scale, rate, H)
+    torch.cuda.synchronize()
+    assert ca.FWD_KERNEL.launches == before + 1
+    w_out, w_m, w_l = ca.composed_cross_attention(q, k, v, bias, 5 + S, scale, rate, H)
+    _close(out.float(), w_out.float(), 2e-5 if dtype == "fp32" else BF16_TOL, "out")
+    # a fully masked row's m is finfo.min on both sides
+    torch.testing.assert_close(m, w_m, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(l, w_l, atol=1e-5, rtol=1e-5)
+    g = torch.randn(q.shape, generator=gen).to(cuda, dt)
+    before = ca.BWD_KERNEL.launches
+    got = ca.cross_attention_bwd(q, k, v, bias, 5 + S, scale, rate, H, g, out, m, l,
+                                 need_dbias=True)
+    torch.cuda.synchronize()
+    assert ca.BWD_KERNEL.launches == before + 1
+    want = ca.composed_cross_attention_bwd(q, k, v, bias, 5 + S, scale, rate, H, g, out, m, l)
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
+        assert a.dtype == b.dtype, name
+        _close(a.float(), b.float(), 1e-4 if dtype == "fp32" else BF16_TOL, name)
+
+
+def test_cross_attention_kernel_is_deterministic_and_keeps_its_rate(cuda):
+    gen = torch.Generator().manual_seed(3)
+    q, k, v, bias = cross_inputs(8, 20, 3100, 512, gen, cuda, torch.bfloat16)
+    g = torch.randn(q.shape, generator=gen).to(cuda, torch.bfloat16)
+    out, m, l = ca.cross_attention_fwd(q, k, v, bias, 7, 0.125, 0.1, 8)
+    first = ca.cross_attention_bwd(q, k, v, bias, 7, 0.125, 0.1, 8, g, out, m, l, True)
+    again = ca.cross_attention_bwd(q, k, v, bias, 7, 0.125, 0.1, 8, g, out, m, l, True)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    kept = float((att.dropout_keep(7, 0.1, (8, 8, 20, 3100), cuda) > 0).double().mean())
+    assert abs(kept - 0.9) < 5 * (0.09 / (8 * 8 * 20 * 3100)) ** 0.5
+
+
+def test_cross_attention_autograd_matches_autograd_of_plain(cuda):
+    gen = torch.Generator().manual_seed(12)
+    q, k, v, bias = cross_inputs(4, 20, 1100, 512, gen, cuda, torch.float32)
+    for rate in (0.0, 0.1):
+        got = _grads(lambda *t: ca.cross_attention_native(*t, 4, 0.125, rate, 8), (q, k, v, bias))
+        want = _grads(lambda *t: ca.composed_cross_attention(*t, 4, 0.125, rate, 8)[0],
+                      (q, k, v, bias))
+        for a, b in zip(got, want):
+            _close(a, b, 1e-4)
+
+
+@pytest.mark.parametrize("Lk", [1, 31, 256, 300, 512])
+@pytest.mark.parametrize("D", [16, 64])
+def test_attention_kernels_bf16_match_plain(cuda, Lk, D):
+    """K3, K4 and K5 on bf16 inputs at the 50salads query count."""
+    gen = torch.Generator().manual_seed(Lk + 7 * D)
+    q, k, v, bias = attention_inputs(8, 8, 20, Lk, D, gen, cuda, all_masked_row=Lk > 1)
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    g = torch.randn(q.shape, generator=gen).to(cuda, torch.bfloat16)
+    scale = 1.0 / math.sqrt(D)
+    counts = [kern.launches for kern in (att.KERNEL_BF16, att.DROPOUT_KERNEL_BF16,
+                                         att.BWD_KERNEL_BF16)]
+    got = att.flash_attention(q, k, v, bias, scale)
+    _close(got.float(), att.composed_attention(q, k, v, bias, scale).float(), BF16_TOL, "K3")
+    got = att.flash_attention_dropout(q, k, v, bias, 21, scale, 0.1)
+    want = att.composed_attention_dropout(q, k, v, bias, 21, scale, 0.1)
+    _close(got.float(), want.float(), BF16_TOL, "K4")
+    for rate in (0.0, 0.1):
+        got = att.attention_bwd(q, k, v, bias, 21, scale, rate, g, need_dbias=True)
+        want = att.composed_attention_bwd(q, k, v, bias, 21, scale, rate, g)
+        for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
+            assert a.dtype == b.dtype, name
+            _close(a.float(), b.float(), BF16_TOL, name)
+    torch.cuda.synchronize()
+    assert [kern.launches for kern in (att.KERNEL_BF16, att.DROPOUT_KERNEL_BF16,
+                                       att.BWD_KERNEL_BF16)] == [c + n for c, n in
+                                                                  zip(counts, (1, 1, 2))]
+
+
+def test_cross_attention_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    gen = torch.Generator().manual_seed(0)
+    q, k, v, bias = cross_inputs(2, 20, 600, 512, gen, cuda, torch.float32)
+    with pytest.raises(ValueError, match="head dim"):
+        ca.cross_attention_native(q, k, v, bias, 0, 0.1, 0.0, 4)   # D = 128
+    with pytest.raises(ValueError, match="contiguous"):
+        ca.cross_attention_native(q, k.half(), v, bias, 0, 0.1, 0.0, 8)
+    big = torch.zeros(2, 65, 512, device=cuda)
+    with pytest.raises(ValueError, match="queries"):
+        ca.cross_attention_native(big, k, v, bias, 0, 0.1, 0.0, 8)

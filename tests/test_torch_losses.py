@@ -236,7 +236,7 @@ def test_trainer_defaults_to_cuda_and_raises_without_it():
 
 @pytest.mark.parametrize("kw,item", [({"grad_accum": 2}, "item 10"),
                                      ({"steps_per_dispatch": 4}, "item 10"),
-                                     ({"loop": "futr"}, "item 12")])
+                                     ({"loop": "unsupervised"}, "item 12")])
 def test_trainer_refuses_what_is_not_ported(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         Trainer(_small_config(**kw), 6, device="cpu")

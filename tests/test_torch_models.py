@@ -79,7 +79,7 @@ def test_config_fields_and_defaults_match_jax():
         assert dataclasses.asdict(got) == dataclasses.asdict(want), name
 
 
-@pytest.mark.parametrize("name", ["utkinects", "synthetic"])
+@pytest.mark.parametrize("name", ["utkinects", "synthetic", "50salads", "breakfast"])
 def test_named_configs_match_jax(name):
     assert (dataclasses.asdict(pt_config.get_config(name))
             == dataclasses.asdict(jax_config.get_config(name)))
@@ -244,8 +244,10 @@ def test_futr_fusion_matches_flax(S):
 
 def test_build_model_refuses_what_is_not_ported():
     _, pcfg = _model_cfgs()
-    for kw in ({"model": "futr"}, {"model": "futr_fusion_grad"},
-               {"compute_dtype": "bfloat16"}, {"use_encoder": True}):
+    for kw in ({"model": "futr_fusion_grad"}, {"compute_dtype": "bfloat16"},
+               {"use_encoder": True}, {"model": "futr", "use_encoder": True},
+               {"model": "futr", "compute_dtype": "float16"},
+               {"model": "futr", "input_type": "gt"}):
         with pytest.raises(NotImplementedError):
             build_model(dataclasses.replace(pcfg, **kw), 17, (6, 5))
 
@@ -379,3 +381,125 @@ def test_futr_fusion_train_matches_flax():
     # cancel (xhat is zero-mean per row) to ~1e-1 while others reach ~1e2
     _grads_close(port, grads, model_wide=True)
     _stats_close(port, mutated["batch_stats"])
+
+
+# ---- FUTR (the 50salads and breakfast model), fp32 and bf16 ----
+
+def _futr_cfgs(dtype):
+    kw = dict(model="futr", hidden_dim=64, n_head=4, n_query=20, input_dim=24,
+              n_decoder_layers=2, max_pos_len=800, seg_excludes_none=True, dropout=0.0,
+              compute_dtype=dtype)
+    return jax_config.ModelConfig(**kw), pt_config.ModelConfig(**kw)
+
+
+def _route_on_cpu(monkeypatch, route):
+    """Send the port's decoder cross-attention down ``route`` on the CPU,
+    where the wrappers run their plain versions, and JAX's to the Pallas
+    kernels in interpret mode (``R3D_FORCE_PALLAS``); "composed" leaves both
+    on the plain path."""
+    from r3d_tpu_torch.ops import attention as pt_attention
+    from r3d_tpu_torch.ops import cross_attention as pt_cross
+
+    monkeypatch.delenv("R3D_CROSS_NATIVE", raising=False)
+    monkeypatch.delenv("R3D_FORCE_PALLAS", raising=False)
+    if route == "composed":
+        return
+    monkeypatch.setenv("R3D_FORCE_PALLAS", "1")
+    card = torch.device("cuda")
+    monkeypatch.setattr(layers, "attention_kernel_eligible",
+                        lambda Lq, Lk, D, device: pt_attention.attention_kernel_eligible(
+                            Lq, Lk, D, card))
+    monkeypatch.setattr(layers, "cross_attention_native_eligible",
+                        lambda Lq, Lk, C, H, rate, device:
+                        pt_cross.cross_attention_native_eligible(Lq, Lk, C, H, rate, card))
+
+
+# bf16 bounds. JAX runs op by op here: under jit, XLA's CPU compiler drops
+# bf16 round trips inside its fusions, and the jitted JAX bf16 model sits
+# as far from the port's bf16 model as from the port in fp32 (outputs 1.4e-2
+# of their largest entry either way). Op by op, the composed route agrees
+# bit for bit in the forward; K3 and K6 keep their scores in fp32, and K6's
+# plain version and JAX's K6 round e against different running maxima.
+# Each bound lies between the reading of the port in bf16 and the reading
+# of a control, the port in fp32 against the same JAX bf16 run (composed,
+# K3, K6):
+#   outputs, over their largest entry: bf16 0, 6.1e-3, 1.10e-2; control
+#     1.96e-2, 1.72e-2, 1.51e-2; bound 1.3e-2;
+#   gradients, over the model's largest entry: bf16 1.36e-2, 1.39e-2,
+#     4.95e-2; control 5.80e-2, 5.98e-2, 9.11e-2; bound 7e-2 (only K6's
+#     control fails it);
+#   cosine of the whole gradient vectors: bf16 0.999967, 0.999965,
+#     0.999831; control 0.998853, 0.998763, 0.999205; bound 0.9995.
+# The serving forward (module-eval, bf16 input) agrees bit for bit; its
+# control reads 9.7e-3-1.41e-2; bound 2e-3.
+FUTR_BF16_TOL = 1.3e-2
+FUTR_BF16_GRAD_TOL = 7e-2
+FUTR_BF16_COS_MIN = 0.9995
+FUTR_BF16_EVAL_TOL = 2e-3
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("route,S", [("composed", 128), ("K3", 256), ("K6", 700)])
+def test_futr_matches_flax(route, S, dtype, monkeypatch):
+    """FUTR with train=True and dropout 0 under converted weights: every
+    output and every parameter's gradient of a weighted sum of them, with
+    the decoder cross-attention on the composed path, K3 (256 keys) or K6
+    (700 keys)."""
+    jcfg, pcfg = _futr_cfgs(dtype)
+    _route_on_cpu(monkeypatch, route)
+    rng = np.random.RandomState(S)
+    x = rng.randn(2, S, 24).astype(np.float32)
+    pad = np.zeros((2, S), bool)
+    pad[1, S // 3:] = True
+    m = jax_build_model(dataclasses.replace(jcfg, model="futr_baseline"), 20)
+    variables = jax.device_get(m.init(jax.random.PRNGKey(9), x, pad, train=False))
+    weights = {k: rng.randn(*shape).astype(np.float32) for k, shape in
+               (("action", (2, 20, 20)), ("duration", (2, 20)), ("seg", (2, S, 19)),
+                ("supcon", (2, 20, 64)))}
+
+    def loss(params):
+        out = m.apply({"params": params}, x, pad, train=True, rngs={"dropout": jax.random.PRNGKey(0)})
+        return sum(jnp.sum(out[k] * weights[k]) for k in weights), out
+
+    (_, want), grads = jax.value_and_grad(loss, has_aux=True)(variables["params"])  # op by op
+    port = _port(build_model(dataclasses.replace(pcfg, model="futr_baseline"), 20),
+                 variables).train()
+    got = port(_t(x), _t(pad))
+    sum((got[k] * _t(weights[k])).sum() for k in weights).backward()
+    assert sorted(got) == sorted(want)
+    tol = 2e-5 if dtype == "float32" else FUTR_BF16_TOL
+    for k in want:
+        assert got[k].dtype == torch.float32
+        err = np.abs(got[k].detach().numpy() - _np(want[k])).max()
+        assert err <= tol * max(1.0, np.abs(_np(want[k])).max()), (k, err)
+    _grads_close(port, grads, rel=1e-5 if dtype == "float32" else FUTR_BF16_GRAD_TOL,
+                 model_wide=True)
+    want_g = state_dict_from_flax({"params": jax.device_get(grads)})
+    a = torch.cat([p.grad.flatten() for _, p in sorted(port.named_parameters())])
+    b = torch.cat([want_g[n].flatten() for n, _ in sorted(port.named_parameters())])
+    cos_min = 0.999999 if dtype == "float32" else FUTR_BF16_COS_MIN
+    assert float(torch.nn.functional.cosine_similarity(a.double(), b.double(), dim=0)) > cos_min
+
+
+def test_futr_eval_forward_without_mask_matches_flax():
+    """The serving forward: module-eval, no pad mask, bf16 batch and compute."""
+    jcfg, pcfg = _futr_cfgs("bfloat16")
+    rng = np.random.RandomState(11)
+    x = rng.randn(2, 200, 24).astype(np.float32)
+    m = jax_build_model(jcfg, 20)
+    variables = m.init(jax.random.PRNGKey(2), x, None, train=False)
+    want = m.apply(variables, jnp.asarray(x, jnp.bfloat16), None, train=False)
+    got = _port(build_model(pcfg, 20), variables)(_t(x).to(torch.bfloat16))
+    for k in want:
+        err = np.abs(got[k].detach().numpy() - _np(want[k])).max()
+        assert err <= FUTR_BF16_EVAL_TOL * max(1.0, np.abs(_np(want[k])).max()), (k, err)
+
+
+@torch.no_grad()
+def test_init_weights_covers_futr():
+    _, pcfg = _futr_cfgs("bfloat16")
+    m = init_weights(build_model(pcfg, 20), torch.Generator().manual_seed(0))
+    assert m.pos_embedding.abs().max() <= np.sqrt(6 / (800 + 64))
+    assert m.pos_embedding.abs().max() > 0 and abs(float(m.query_embed.std()) - 1.0) < 0.3
+    assert all(p.dtype == torch.float32 for p in m.parameters())
+    assert m.transformer.decoder.norm.weight.eq(1).all()

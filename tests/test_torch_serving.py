@@ -7,6 +7,12 @@ fp32, and to 1e-3 with the utkinects bf16 dtypes (bf16 batches and embeds):
 XLA and PyTorch sum a bf16 product in fp32 in different orders and may round
 an embed output to neighbouring bf16 values (2**-8 relative), which then
 runs on through the model. At these widths both measured 1.2e-6.
+
+The ``futr`` sessions (the 50salads model at reduced width: features only,
+20 queries, 2 decoder layers, buckets up to 1024) are held the same way in
+fp32 (read: 8.5e-7). In bf16 the whole model computes in bf16, so logits
+are held to 5e-2 of their largest entry (read: 1.8e-2) and the decoded
+transcripts to 95 % agreement (read: 98.3 %).
 """
 
 import numpy as np
@@ -203,3 +209,68 @@ def test_session_takes_a_module_or_a_state_dict():
     for x, y in zip(a.anticipate_batch(videos), b.anticipate_batch(videos)):
         np.testing.assert_array_equal(x["transcript"], y["transcript"])
         assert x["future_frames"].shape == (len(x["seg"]),)
+
+
+# ---- futr (the 50salads model at reduced width): features only ----
+
+FUTR_LENGTHS = (100, 700, 300, 1000, 60, 513)   # buckets 128, 1024, 512, 1024, 128, 1024
+
+
+def _futr_configs(bf16: bool):
+    model = dict(model="futr", hidden_dim=64, n_head=4, n_query=20, input_dim=12,
+                 n_decoder_layers=2, max_pos_len=1024, seg_excludes_none=True,
+                 compute_dtype="bfloat16" if bf16 else "float32")
+    data = dict(dataset="50salads", depth_features_dir=None, seq_buckets=(128, 256, 512, 1024),
+                feature_dtype="bfloat16" if bf16 else "float32")
+    make = lambda m: m.get_config("50salads").replace(
+        model=m.ModelConfig(**model), data=m.DataConfig(**data))
+    return make(jax_config), make(pt_config)
+
+
+def _feature_videos(seed, lengths):
+    rng = np.random.RandomState(seed)
+    return [{"features": rng.randn(n, 12).astype(np.float32)} for n in lengths]
+
+
+@pytest.fixture(scope="module", params=[False, True], ids=["fp32", "bf16"])
+def futr_sessions(request):
+    jcfg, pcfg = _futr_configs(request.param)
+    model = jax_build_model(jcfg.model, 20)
+    variables = jax.device_get(model.init(jax.random.PRNGKey(3), np.zeros((1, 128, 12),
+                                                                          np.float32),
+                                          None, train=False))
+    jax_session = JaxSession(jcfg, variables, 20, max_batch=4)
+    port = InferenceSession(pcfg, state_dict_from_flax(variables), 20, max_batch=4,
+                            device="cpu")
+    return request.param, jax_session, port
+
+
+def test_futr_anticipate_batch_matches_jax(futr_sessions):
+    bf16, jax_session, port = futr_sessions
+    videos = _feature_videos(7, FUTR_LENGTHS)
+    want = jax_session.anticipate_batch(videos, future_len=50)
+    got = port.anticipate_batch(videos, future_len=50)
+    agree = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g["seg"].shape == w["seg"].shape == (min(FUTR_LENGTHS[i], 1024),)
+        if bf16:
+            agree.append(np.mean(g["transcript"] == w["transcript"]))
+            continue
+        for key in ("transcript", "future_frames", "seg"):
+            np.testing.assert_array_equal(g[key], w[key], err_msg=f"video {i} {key}")
+        np.testing.assert_allclose(g["durations"], w["durations"], atol=1e-4, rtol=0)
+    assert not bf16 or np.mean(agree) >= 0.95
+
+
+@pytest.mark.parametrize("S", [128, 1024])
+def test_futr_logits_match_jax(futr_sessions, S):
+    bf16, jax_session, port = futr_sessions
+    videos = _feature_videos(8, (S - 30, S // 2 + 1, S))
+    feats, depth, mask = port._collate(videos, S)
+    assert depth is None
+    want = jax_session._run(feats.float().numpy(), None, mask.numpy())
+    got = port._run(feats, None, mask)
+    for key in ("action", "duration", "seg"):
+        w = np.asarray(want[key], np.float32)
+        err = np.abs(got[key].numpy() - w).max() / max(1.0, np.abs(w).max())
+        assert err <= (5e-2 if bf16 else 1e-4), (key, err)

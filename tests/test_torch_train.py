@@ -16,12 +16,18 @@ different dropout streams, so dropout is checked by its invariants
   parameters and BN statistics 1e-4 on 99 % of the entries and 2 lr per
   update on all;
 - metrics that count (correct predictions, gate decisions) equal.
+
+The ``futr`` loop (the 50salads model and loop at reduced width: features
+only, unweighted CE with no exclude class, the single-metric gate) runs the
+same 2-epoch comparison in fp32, and one bf16 train step is held to stated
+bounds (``test_futr_bf16_step_matches_jax``).
 """
 
 import re
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 import optax
@@ -261,3 +267,135 @@ def test_eval_step_matches_jax(setup):
         rtol = 1e-3 if k == "erank" else 1e-5
         np.testing.assert_allclose(float(got[k]), float(want[k]), atol=1e-4, rtol=rtol,
                                    err_msg=k)
+
+
+# ---- the futr loop: the 50salads layout (features only) ----
+
+def _futr_configs(dtype="float32"):
+    model = dict(model="futr", hidden_dim=32, n_head=4, n_query=20, input_dim=12,
+                 n_decoder_layers=2, max_pos_len=128, seg_excludes_none=True, dropout=0.0,
+                 compute_dtype=dtype)
+    data = dict(dataset="50salads", depth_features_dir=None, gt_format="plain",
+                seq_buckets=(64, 128), train_obs_percs=OBS,
+                feature_dtype="bfloat16" if dtype == "bfloat16" else "float32")
+    train = dict(loop="futr", batch_size=4, epochs=2, warmup_epochs=1, lr=1e-3,
+                 min_train_batch=0)
+    make = lambda m: m.get_config("50salads").replace(
+        model=m.ModelConfig(**model), data=m.DataConfig(**data), train=m.TrainConfig(**train))
+    return make(jax_config), make(pt_config)
+
+
+def _futr_setup(dtype="float32"):
+    jcfg, pcfg = _futr_configs(dtype)
+    kw = dict(n_videos=6, n_actions=19, vid_len_range=(60, 120), input_dim=12, seed=1)
+    jsrc, psrc = JaxSource(**kw), SyntheticSource(**kw)
+    fd = pcfg.data.feature_dtype
+
+    def loaders(src, Loader, shuffle, seed=0):
+        fn, n = src.make_example_fn(OBS, 1, 20)
+        extra = {} if Loader is JaxLoader else {"feature_dtype": fd}
+        return Loader(num_examples=n, make_example_fn=fn, batch_size=4, pad_idx=src.pad_idx,
+                      buckets=(64, 128), n_query=20, with_depth=False, shuffle=shuffle,
+                      seed=seed, **extra)
+
+    jtrainer = JaxTrainer(jcfg, jsrc.n_class)
+    fn, _ = jsrc.make_example_fn(OBS, 1, 20)
+    example = jax_pad_batch([fn(i) for i in range(4)], jsrc.pad_idx, (64, 128), 20)
+    steps = len(loaders(jsrc, JaxLoader, True))
+    jstate = jtrainer.init_state(jax.random.PRNGKey(0), example, steps_per_epoch=steps)
+    return jcfg, pcfg, jsrc, psrc, jtrainer, jstate, steps, loaders
+
+
+def test_futr_fit_matches_jax():
+    """A 2-epoch ``futr``-loop fit from the JAX init: per-step losses,
+    validation metrics, the single-metric gate decisions and the final
+    parameters."""
+    jcfg, pcfg, jsrc, psrc, jtrainer, jstate, steps, loaders = _futr_setup()
+    assert [jtrainer._sticky(e) for e in (0, 1)] == [False, True]
+    jlosses, plosses = [], []
+    make_step = jtrainer.make_train_step
+
+    def recording_make_step(frozen=False):
+        step = make_step(frozen=frozen)
+
+        def recorded(state, batch, rng, epoch):
+            state, metrics = step(state, batch, rng, epoch)
+            jlosses.append(float(metrics["loss"]))
+            return state, metrics
+
+        return recorded
+
+    jtrainer.make_train_step = recording_make_step
+    jlog, gates = [], _Gates()
+    try:
+        jfinal = jtrainer.fit(jax.tree.map(np.array, jstate),
+                              loaders(jsrc, JaxLoader, True, seed=3),
+                              loaders(jsrc, JaxLoader, False), seed=0, checkpointer=gates,
+                              log=jlog.append)
+    finally:
+        jtrainer.make_train_step = make_step
+
+    trainer = Trainer(pcfg, psrc.n_class, device="cpu")
+    train_step = trainer.train_step
+
+    def recorded(state, batch, epoch):
+        metrics = train_step(state, batch, epoch)
+        plosses.append(float(metrics["loss"]))
+        return metrics
+
+    trainer.train_step = recorded
+    pstate = trainer.init_state(steps, state_dict_from_flax(_variables(jstate)))
+    plog = []
+    trainer.fit(pstate, loaders(psrc, BucketedLoader, True, seed=3),
+                loaders(psrc, BucketedLoader, False), seed=0, log=plog.append)
+    assert len(plosses) == 2 * steps
+    np.testing.assert_allclose(plosses, jlosses, atol=1e-4, rtol=0)
+    jlog = [line for line in jlog if not line.startswith("Best model")]
+    assert [line.split(":")[0] for line in plog] == [line.split(":")[0] for line in jlog]
+    for a, b in zip(_numbers(plog), _numbers(jlog)):
+        np.testing.assert_allclose(a, b, atol=2e-3, rtol=0)
+    assert trainer.best_epochs == gates.best
+    _assert_state_close(pstate.model, jfinal, 1e-4, step_atol=2e-3 * steps)
+
+
+@pytest.mark.parametrize("loop,opened", [("futr", [0]), ("proposed_depth", [0, 1])])
+def test_best_gate_follows_the_loop(loop, opened):
+    """The ``futr`` loop saves on a better class accuracy only; a better
+    weighted accuracy alone opens ``proposed_depth``'s gate."""
+    _, pcfg = _futr_configs()
+    trainer = Trainer(pcfg.replace(train=pt_config.TrainConfig(loop=loop)), 20, device="cpu")
+    best = (0.0, 0.0)
+    for epoch, weighted in enumerate((1.0, 3.0)):   # the class accuracy stays 0.5
+        val = {"cls_correct": 5.0, "cls_total": 10.0, "weight_acc_sum": weighted,
+               "weight_acc_cnt": 4.0}
+        best = trainer._finish_epoch(None, epoch, {}, 1, 4, 1.0, lambda st: (val, 1), best,
+                                     lambda line: None)
+    assert trainer.best_epochs == opened
+
+
+# bf16 bounds for one step (read on this host): the loss within 5.0e-4 of
+# JAX's (bound 1e-2); gradients within 6.5e-3 of the model's largest entry
+# (bound 5e-2) and the gradient vector's cosine with JAX's 0.99989 (bound
+# 0.999): the bf16 rounding differences of test_torch_models.py
+def test_futr_bf16_step_matches_jax():
+    jcfg, pcfg, jsrc, psrc, jtrainer, jstate, steps, loaders = _futr_setup("bfloat16")
+    batch_j = next(iter(loaders(jsrc, JaxLoader, False)))
+    batch_p = next(iter(loaders(psrc, BucketedLoader, False)))
+    np.testing.assert_array_equal(batch_p["features"].float().numpy(),
+                                  np.asarray(batch_j["features"], np.float32).astype(
+                                      jax.numpy.bfloat16).astype(np.float32))
+    grads_j, metrics_j, _ = jax.jit(lambda p, b: jtrainer._grad_core(
+        p, {}, b, jax.random.PRNGKey(0), 0))(jstate.params, jax.tree.map(np.asarray, batch_j))
+    trainer = Trainer(pcfg, psrc.n_class, device="cpu")
+    state = trainer.init_state(steps, state_dict_from_flax(_variables(jstate)))
+    state.model.train()
+    metrics_p = trainer._grad_core(state.model, trainer.to_device(batch_p))
+    assert abs(float(metrics_p["loss"]) - float(metrics_j["loss"])) <= 1e-2
+    want = state_dict_from_flax({"params": jax.device_get(grads_j)})
+    got = dict(state.model.named_parameters())
+    top = max(float(np.abs(w.numpy()).max()) for w in want.values())
+    for name, p in got.items():
+        assert np.abs(p.grad.numpy() - want[name].numpy()).max() <= 5e-2 * top, name
+    a = torch.cat([got[n].grad.flatten() for n in sorted(want)])
+    b = torch.cat([want[n].flatten() for n in sorted(want)])
+    assert float(torch.nn.functional.cosine_similarity(a, b, dim=0)) > 0.999
