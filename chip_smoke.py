@@ -14,10 +14,13 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    route and the backward with the outer residual off and on); attention
    forward, dropout forward and backward (rate 0 and 0.1) at B = 8, H = 8,
    Lq = 8, D = 16, Lk = 256, 512 and a ragged 300 with a fully masked row;
-   the same three in bf16 at the 50salads decoder's Lq = 20, D = 64; the
+   the same three in bf16 at the 50salads decoder's Lq = 20, D = 64, with
+   K5 also at 33 and 70 queries and at 1, 31 and 65 keys, and two calls of
+   K5 and of K6 bit-equal; the
    native cross-attention forward and backward (K6, K7) in fp32 and bf16 at
    B = 8, H = 8, (Lq, C) = (20, 512) and (8, 128), S = 1024, 3100 and a
-   ragged 777 with padded key tails and a fully masked row, rate 0 and 0.1.
+   ragged 777 with padded key tails and a fully masked row, rate 0 and 0.1,
+   and K6 at S = 1, 31 and 257 and with splits whose keys are all masked.
    Time each at the main path's shape: kernel, plain version, bound and,
    where one exists, one PyTorch library call as the yardstick;
 4. utkinects serving: an ``InferenceSession`` at full width (n_class 17,
@@ -82,6 +85,13 @@ CROSS_BWD_TOL = 1e-4     # K7 fp32, over each gradient's largest entry: sums ove
 BF16_TOL = 2e-2          # bf16 kernels vs their plain versions, over the largest entry: the same
                          # rounding points, but a sum in another order can land on the
                          # neighbouring bf16 value (2**-8 relative)
+
+
+# every __global__ function of r3d_tpu_torch/csrc, by a fragment of its name
+OWN_KERNELS = ("fused_tail_kernel", "fuser_tail_bwd_kernel", "sum_partials_kernel",
+               "attention_fwd_kernel", "attention_bwd_kernel", "attention_bwd_bf16_kernel",
+               "dq_sum_kernel", "cross_fwd_split_kernel", "cross_fwd_combine_kernel",
+               "cross_attention_bwd_kernel", "dq_reduce_kernel")
 
 
 def fuser_inputs(N, gen, device, C=128, Ch=512):
@@ -224,24 +234,43 @@ def time_ms(fn, iters=50, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, name, iters=20):
-    """Device time per launch of the kernels whose name holds ``name``,
-    from a torch.profiler trace of ``iters`` calls; None where the profiler
-    sees no device time."""
+def device_ms(fn, names, iters=20):
+    """Device time per CALL of ``fn``: the device time of every kernel whose
+    name holds one of ``names`` (a string or several; all the launches of a
+    C entry point), or with ``names`` None of every kernel and copy on the
+    card, summed over a torch.profiler trace of ``iters`` calls and divided
+    by ``iters``. None where the profiler sees no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    if isinstance(names, str):
+        names = (names,)
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if name in e.key]
-    total_us = sum(getattr(e, "device_time_total", 0.0) for e in events)
-    count = sum(e.count for e in events)
-    return total_us / count / 1e3 if count and total_us > 0 else None
+    for _ in range(3):   # a trace now and then comes back without device events
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        if names is None:
+            events = [e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+            total_us = sum(e.self_device_time_total for e in events)
+        else:
+            events = [e for e in prof.key_averages() if any(n in e.key for n in names)]
+            total_us = sum(getattr(e, "device_time_total", 0.0) for e in events)
+        if events and total_us > 0:
+            return total_us / iters / 1e3
+    return None
+
+
+def library_times(fn, iters=50):
+    """A library yardstick's time per call twice over: CUDA events around
+    back-to-back calls (which the host can bound) and the sum of its kernels'
+    device time from the profiler."""
+    return {"library_ms": time_ms(fn, iters=iters),
+            "library_device_ms": device_ms(fn, None, iters=min(iters, 20))}
 
 
 def raw_launcher(kernel, *args):
@@ -278,7 +307,7 @@ def check_fuser_kernel(gen, device):
             bound, bound_by = fuser_bound_ms(N)
             timing = {"shape": f"N={N} C=128 Ch=512", "ms": time_ms(launch),
                       "device_ms": device_ms(launch, "fused_tail_kernel<true"),
-                      "plain_ms": time_ms(plain), "library_ms": None,
+                      "plain_ms": time_ms(plain), "library_ms": None, "library_device_ms": None,
                       "bound_ms": bound, "bound_by": bound_by}
     return worst, timing
 
@@ -340,7 +369,7 @@ def check_tail_kernels(gen, device):
             t_fwd = {"shape": f"N={N} C=128 Ch=512", "ms": time_ms(launch),
                      "device_ms": device_ms(launch, "fused_tail_kernel<false"),
                      "plain_ms": time_ms(lambda: fk.composed_tail(r, d, params)),
-                     "library_ms": None, "bound_ms": bound, "bound_by": bound_by}
+                     "library_ms": None, "library_device_ms": None, "bound_ms": bound, "bound_by": bound_by}
             layout, P = fkb.grad_layout(128, 512)
             blocks = max(1, min(-(-N // fkb.TILE_ROWS),
                                 torch.cuda.get_device_properties(device).multi_processor_count))
@@ -353,10 +382,10 @@ def check_tail_kernels(gen, device):
                                   N, 128, 512, blocks, 0, stream)
             bound, bound_by = fuser_bwd_bound_ms(N)
             t_bwd = {"shape": f"N={N} C=128 Ch=512", "ms": time_ms(launch, iters=20),
-                     "device_ms": device_ms(launch, "fuser_tail_bwd_kernel"),
+                     "device_ms": device_ms(launch, ("fuser_tail_bwd_kernel", "sum_partials_kernel")),
                      "plain_ms": time_ms(lambda: fkb.composed_tail_bwd(r, d, g, params, False),
                                          iters=20),
-                     "library_ms": None, "bound_ms": bound, "bound_by": bound_by}
+                     "library_ms": None, "library_device_ms": None, "bound_ms": bound, "bound_by": bound_by}
     return (worst_fwd, t_fwd), (worst_bwd, t_bwd)
 
 
@@ -409,7 +438,7 @@ def check_attention_train_kernels(gen, device):
                   "device_ms": device_ms(launch, "attention_fwd_kernel<float, 16, true"),
                   "plain_ms": time_ms(lambda: att.composed_attention_dropout(
                       q, k, v, bias, seed, scale, rate)),
-                  "library_ms": time_ms(library), "bound_ms": bound, "bound_by": bound_by}
+                  **library_times(library), "bound_ms": bound, "bound_by": bound_by}
             dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
             launch = raw_launcher(att.BWD_KERNEL, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                   bias.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
@@ -424,10 +453,10 @@ def check_attention_train_kernels(gen, device):
 
             bound, bound_by = attention_bwd_bound_ms(B, H, Lq, Lk, D)
             t5 = {"shape": f"B={B} H={H} Lq={Lq} Lk={Lk} D={D} p={rate}", "ms": time_ms(launch),
-                  "device_ms": device_ms(launch, "attention_bwd_kernel<float"),
+                  "device_ms": device_ms(launch, ("attention_bwd_kernel<float", "Memset")),
                   "plain_ms": time_ms(lambda: att.composed_attention_bwd(
                       q, k, v, bias, seed, scale, rate, g, False)),
-                  "library_ms": time_ms(library_bwd), "bound_ms": bound, "bound_by": bound_by}
+                  **library_times(library_bwd), "bound_ms": bound, "bound_by": bound_by}
     return (worst4, t4), (worst5, t5)
 
 
@@ -466,7 +495,7 @@ def check_attention_kernel(gen, device):
             bound, bound_by = attention_bound_ms(B, H, Lq, Lk, D)
             timing = {"shape": f"B={B} H={H} Lq={Lq} Lk={Lk} D={D}", "ms": time_ms(launch),
                       "device_ms": device_ms(launch, "attention_fwd_kernel<float, 16, false"),
-                      "plain_ms": time_ms(plain), "library_ms": time_ms(library),
+                      "plain_ms": time_ms(plain), **library_times(library),
                       "bound_ms": bound, "bound_by": bound_by}
     # the routing question (PERF.md): wrapper call vs plain call, as the
     # decoder's cross-attention would pay them, on both sides of the TPU's
@@ -483,7 +512,9 @@ def check_attention_kernel(gen, device):
 def check_attention_bf16_kernels(gen, device):
     """K3, K4 and K5 on bf16 inputs at the 50salads decoder's shape (B = 8,
     H = 8, Lq = 20, D = 64; Lk = 256, 512 and a ragged 300 with a fully
-    masked row), against their plain versions; timed at Lk = 512."""
+    masked row), against their plain versions; timed at Lk = 512. K5 also
+    twice (bit-equal), as the launches of one wrapper call, and at the
+    shapes around its tiles of 32 queries and blocks of 64 keys."""
     import torch
     import torch.nn.functional as F
 
@@ -521,8 +552,12 @@ def check_attention_bf16_kernels(gen, device):
             if not err[1] <= BF16_TOL:
                 raise AssertionError(f"K5 bf16 disagrees at Lk={Lk}, rate={r_}")
             worst["K5"] = worse(worst["K5"], err)
+        again = att.attention_bwd(q, k, v, bias, seed, scale, rate, g, need_dbias=True)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"K5 bf16 is not deterministic at Lk={Lk}")
         if Lk != 512:
             continue
+        print(f"K5 bf16 Lk={Lk}: two calls agree bit for bit")
         stream = torch.cuda.current_stream().cuda_stream
         shape = f"B={B} H={H} Lq={Lq} Lk={Lk} D={D} bf16"
         mask = bias == 0   # SDPA's bool mask (True = attend) for bf16 inputs
@@ -533,7 +568,7 @@ def check_attention_bf16_kernels(gen, device):
         timing["K3"] = {"shape": shape, "ms": time_ms(launch),
                         "device_ms": device_ms(launch, "attention_fwd_kernel<__nv_bfloat16, 64, false"),
                         "plain_ms": time_ms(lambda: att.composed_attention(q, k, v, bias, scale)),
-                        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                        **library_times(lambda: F.scaled_dot_product_attention(
                             q, k, v, attn_mask=mask, scale=scale)),
                         "bound_ms": bound, "bound_by": bound_by}
         launch = raw_launcher(att.DROPOUT_KERNEL_BF16, q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -543,15 +578,18 @@ def check_attention_bf16_kernels(gen, device):
                         "device_ms": device_ms(launch, "attention_fwd_kernel<__nv_bfloat16, 64, true"),
                         "plain_ms": time_ms(lambda: att.composed_attention_dropout(
                             q, k, v, bias, seed, scale, rate)),
-                        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                        **library_times(lambda: F.scaled_dot_product_attention(
                             q, k, v, attn_mask=mask, dropout_p=rate, scale=scale)),
                         "bound_ms": bound, "bound_by": bound_by}
-        dq = torch.empty_like(q)
-        dk, dv = (torch.empty(k.shape, device=device) for _ in range(2))
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        n_kblocks = -(-Lk // att.BWD_BLOCK_KEYS)
+        stats = torch.empty(3 * n_kblocks * B * H * Lq, device=device)
+        dq_part = torch.empty(n_kblocks * B * H * Lq * D, device=device)
         launch = raw_launcher(att.BWD_KERNEL_BF16, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                               bias.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                              dv.data_ptr(), None, B, H, Lq, Lk, D, scale, 1, seed,
-                              att.dropout_threshold(rate), 1.0 / (1.0 - rate), stream)
+                              dv.data_ptr(), None, stats.data_ptr(), dq_part.data_ptr(), B, H, Lq,
+                              Lk, D, n_kblocks, scale, 1, seed, att.dropout_threshold(rate),
+                              1.0 / (1.0 - rate), stream)
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
 
         def library_bwd():
@@ -559,20 +597,59 @@ def check_attention_bf16_kernels(gen, device):
                                                scale=scale)
             torch.autograd.grad(o, leaves, g)
 
+        # the wrapper's call on the card: the kernel's three launches and
+        # nothing else (no memset of dk and dv, no cast afterwards)
+        from torch.profiler import ProfilerActivity, profile
+
+        calls, on_card = 5, {}
+        for _ in range(3):   # a trace of so short a window can come back empty
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         acc_events=True) as prof:
+                for _ in range(calls):
+                    att.attention_bwd(q, k, v, bias, seed, scale, rate, g)
+                torch.cuda.synchronize()
+            on_card = {e.key: e.count for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA}
+            if on_card:
+                break
+        print(f"K5 bf16: {calls} attention_bwd calls on the card: "
+              f"{ {k_[:70]: c for k_, c in on_card.items()} }")
+        foreign = [k_ for k_ in on_card
+                   if "attention_bwd_bf16_kernel" not in k_ and "dq_sum_kernel" not in k_]
+        if foreign or sum(on_card.values()) != 3 * calls:
+            raise AssertionError(f"attention_bwd (bf16) should be three launches of its own "
+                                 f"kernels a call: {on_card}")
         bound, bound_by = attention_bf16_bound_ms(B, H, Lq, Lk, D, backward=True)
         timing["K5"] = {"shape": shape + f" p={rate}", "ms": time_ms(launch),
-                        "device_ms": device_ms(launch, "attention_bwd_kernel<__nv_bfloat16"),
+                        "device_ms": device_ms(launch, ("attention_bwd_bf16_kernel",
+                                                        "dq_sum_kernel")),
                         "plain_ms": time_ms(lambda: att.composed_attention_bwd(
                             q, k, v, bias, seed, scale, rate, g, False)),
-                        "library_ms": time_ms(library_bwd), "bound_ms": bound,
+                        **library_times(library_bwd), "bound_ms": bound,
                         "bound_by": bound_by}
+    # what the key-block design could get wrong: more than one query tile of
+    # 32, less than one key block of 64, one key, a last block of one key
+    for Lq_, Lk in ((33, 300), (70, 512), (20, 1), (20, 31), (70, 65)):
+        q, k, v, bias = attention_inputs(B, H, Lq_, Lk, D, gen, device, all_masked_row=Lk > 1)
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+        g = torch.randn(q.shape, generator=gen).to(device, torch.bfloat16)
+        for r_ in (0.0, rate):
+            got = att.attention_bwd(q, k, v, bias, 7, scale, r_, g, need_dbias=True)
+            err = errs(got, att.composed_attention_bwd(q, k, v, bias, 7, scale, r_, g))
+            print(f"K5 bf16 Lq={Lq_} Lk={Lk} rate={r_}: over dq, dk, dv, dbias max|kernel - "
+                  f"plain| = {err[0]:.3e}, relative {err[1]:.3e} (tol {BF16_TOL})")
+            if not (err[1] <= BF16_TOL and all(torch.isfinite(t.float()).all() for t in got)):
+                raise AssertionError(f"K5 bf16 disagrees at Lq={Lq_}, Lk={Lk}, rate={r_}")
+            worst["K5"] = worse(worst["K5"], err)
     return worst, timing
 
 
 def check_cross_attention_kernels(gen, device):
     """K6 and K7 against their plain versions: fp32 and bf16; B = 8, H = 8;
-    (Lq, C) = (20, 512) and (8, 128); S = 1024, 3100 and a ragged 777, each
-    with padded key tails and a fully masked row; rate 0 and 0.1 (the keep
+    (Lq, C) = (20, 512) and (8, 128); S = 1024, 3100, a ragged 777, 257 (a
+    last split of one key), 31 and 1, each with padded key tails and (S > 1)
+    a fully masked row; rows whose later splits are all masked;
+    two calls of K6 bit-equal; rate 0 and 0.1 (the keep
     rate, and K7 under the same seed agreeing with the plain backward, which
     redraws the plain forward's mask). Timed at the 50salads shape: B = 8,
     Lq = 20, S = 3100, C = 512, bf16."""
@@ -588,8 +665,9 @@ def check_cross_attention_kernels(gen, device):
     for dtype, (ftol, btol) in tols.items():
         for Lq, C in ((20, 512), (8, 128)):
             scale = 1.0 / math.sqrt(C // H)
-            for S in (1024, 3100, 777):
-                q, k, v, bias = cross_inputs(B, Lq, S, C, gen, device, dtype, all_masked_row=True)
+            for S in (1024, 3100, 777, 257, 31, 1):
+                q, k, v, bias = cross_inputs(B, Lq, S, C, gen, device, dtype,
+                                             all_masked_row=S > 1)
                 g = torch.randn(q.shape, generator=gen).to(device, dtype)
                 for r_ in (0.0, rate):
                     seed = 3000 + S + int(r_ > 0)
@@ -608,6 +686,9 @@ def check_cross_attention_kernels(gen, device):
                     if r_ > 0:
                         keep = att.dropout_keep(seed, r_, (B, H, Lq, S), device) > 0
                         kept = f", keep rate {float(keep.float().mean()):.4f}"
+                    if not all(torch.equal(a, b) for a, b in zip(
+                            (out, m, l), ca.cross_attention_fwd(q, k, v, bias, seed, scale, r_, H))):
+                        raise AssertionError(f"K6 is not deterministic at {dtype} S={S}")
                     print(f"cross_attention {str(dtype)[6:]} Lq={Lq} C={C} S={S} rate={r_} "
                           f"(padded tails, one row fully masked): out max|kernel - plain| "
                           f"{e_out[0]:.3e}, relative {e_out[1]:.3e} (tol {ftol}); m and l "
@@ -620,6 +701,29 @@ def check_cross_attention_kernels(gen, device):
                     worst["fwd"] = worse(worst["fwd"], e_out)
                     worst["bwd"] = worse(worst["bwd"], e_b)
 
+    # rows whose later splits hold only masked keys (10 and 300 real keys of
+    # 1,024) and a row with none: weight 0 in the combine, not NaN
+    from r3d_tpu_torch.models.layers import attention_bias_from_padding
+
+    scale = 0.125
+    for dtype, (ftol, _) in tols.items():
+        q, k, v, _ = cross_inputs(4, 20, 1024, 512, gen, device, dtype)
+        lengths = torch.tensor([1024, 10, 0, 300])
+        bias = attention_bias_from_padding(
+            (torch.arange(1024)[None, :] >= lengths[:, None]).to(device))
+        for r_ in (0.0, rate):
+            out, m, l = ca.cross_attention_fwd(q, k, v, bias, 11, scale, r_, H)
+            want = ca.composed_cross_attention(q, k, v, bias, 11, scale, r_, H)
+            e_out = errs([out], want[:1])
+            e_ml = max(float(((m - want[1]) / want[1].abs().clamp_min(1.0)).abs().max()),
+                       float(((l - want[2]) / want[2].abs().clamp_min(1.0)).abs().max()))
+            print(f"cross_attention {str(dtype)[6:]} S=1024, rows of 1024, 10, 0 and 300 real "
+                  f"keys, rate={r_}: out relative {e_out[1]:.3e} (tol {ftol}), m and l relative "
+                  f"{e_ml:.3e} (tol 1e-5)")
+            if not (e_out[1] <= ftol and e_ml <= 1e-5 and torch.isfinite(out.float()).all()):
+                raise AssertionError(f"K6 disagrees under masked splits at {dtype}, rate={r_}")
+            worst["fwd"] = worse(worst["fwd"], e_out)
+
     # timings at the 50salads shape, bf16
     Lq, S, C = 20, 3100, 512
     D = C // H
@@ -628,9 +732,14 @@ def check_cross_attention_kernels(gen, device):
     g = torch.randn(q.shape, generator=gen).to(device, torch.bfloat16)
     stream = torch.cuda.current_stream().cuda_stream
     out, m, l = ca.cross_attention_fwd(q, k, v, bias, 0, scale, 0.0, H)
+    split_keys = ca.fwd_split_keys(
+        S, B * H, torch.cuda.get_device_properties(device).multi_processor_count)
+    fwd_part = torch.empty(-(-S // split_keys) * B * H * Lq * (D + 2), device=device)
+    print(f"  K6 bf16 at S={S}: {-(-S // split_keys)} splits of {split_keys} keys")
     launch = raw_launcher(ca.FWD_KERNEL, 1, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                          bias.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(), B, Lq, S,
-                          H, D, scale, 0, 0, 0, 1.0, stream)
+                          bias.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(),
+                          fwd_part.data_ptr(), split_keys, B, Lq, S, H, D, scale, 0, 0, 0, 1.0,
+                          stream)
     mask = (bias == 0)
     heads = lambda x, L: x.view(B, L, H, D).transpose(1, 2)
 
@@ -645,10 +754,10 @@ def check_cross_attention_kernels(gen, device):
     shape = f"B={B} Lq={Lq} S={S} C={C} H={H} bf16"
     bound, bound_by = cross_bound_ms(B, Lq, S, C, H, 2)
     t6 = {"shape": shape, "ms": time_ms(launch),
-          "device_ms": device_ms(launch, "attention_fwd_kernel<__nv_bfloat16, 64, false, true"),
+          "device_ms": device_ms(launch, ("cross_fwd_split_kernel", "cross_fwd_combine_kernel")),
           "plain_ms": time_ms(lambda: ca.composed_cross_attention(q, k, v, bias, 0, scale, 0.0,
                                                                   H)),
-          "library_ms": time_ms(library), "bound_ms": bound, "bound_by": bound_by}
+          **library_times(library), "bound_ms": bound, "bound_by": bound_by}
     n_blocks = -(-S // ca.BWD_BLOCK_KEYS)
     part = torch.empty((n_blocks, B, Lq, C), device=device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
@@ -666,10 +775,10 @@ def check_cross_attention_kernels(gen, device):
 
     bound, bound_by = cross_bound_ms(B, Lq, S, C, H, 2, backward=True)
     t7 = {"shape": shape, "ms": time_ms(launch, iters=20),
-          "device_ms": device_ms(launch, "cross_attention_bwd_kernel"),
+          "device_ms": device_ms(launch, ("cross_attention_bwd_kernel", "dq_reduce_kernel")),
           "plain_ms": time_ms(lambda: ca.composed_cross_attention_bwd(
               q, k, v, bias, 0, scale, 0.0, H, g, out, m, l, False), iters=20),
-          "library_ms": time_ms(library_bwd, iters=20), "bound_ms": bound, "bound_by": bound_by}
+          **library_times(library_bwd, iters=20), "bound_ms": bound, "bound_by": bound_by}
     return (worst["fwd"], t6), (worst["bwd"], t7)
 
 
@@ -992,6 +1101,10 @@ def train_breakdown(cfg, state_dict, train_loader, min_len=256, n_class=N_CLASS,
               f"{busy_ms:.2f} ms in {launches} kernel launches (one profiled step)")
         for e in events[:8]:
             print(f"  {e.self_device_time_total / 1e3:.3f} ms x{e.count} {e.key[:90]}")
+        own = [e for e in events if any(n in e.key for n in OWN_KERNELS)]
+        print("  of which the port's own kernels: " + "; ".join(
+            f"{e.self_device_time_total / 1e3:.3f} ms x{e.count} "
+            f"{e.key.split('::')[-1].split('(')[0][:60]}" for e in own))
 
 
 # ---- 50salads: the FUTR baseline, bf16, decoder cross-attention on K3/K6 ----
@@ -1022,10 +1135,13 @@ def salads_loaders(cfg):
                          obs=(0.13, 0.8), val_videos=4, val_obs=(0.13, 0.8), val_batch=4)
 
 
-def cross_native_ab(cfg, state_dict, session, train_loader, rng, rounds=5):
+def cross_native_ab(cfg, state_dict, session, train_loader, rng, rounds=8):
     """One 3100-bucket train step (epoch 0, train mode) and one 3100-bucket
     serving chunk of 8, each with R3D_CROSS_NATIVE set and unset, in the
-    order off, on, on, off, ``rounds`` times, each to a synchronised end."""
+    order off, on, on, off, ``rounds`` times (2 * ``rounds`` of each
+    setting), each to a synchronised end. Prints the medians and, as the
+    spread, the off/on ratio of every round (its two offs over its two ons):
+    median, quartiles and range."""
     import os
 
     import torch
@@ -1062,12 +1178,17 @@ def cross_native_ab(cfg, state_dict, session, train_loader, rng, rounds=5):
     os.environ["R3D_CROSS_NATIVE"] = "1"
     med = {s: {n: float(np.median(v)) for n, v in d.items()} for s, d in times.items()}
     for name in ("step", "chunk"):
+        on, off = np.asarray(times["on"][name]), np.asarray(times["off"][name])
+        ratios = off.reshape(rounds, 2).sum(1) / on.reshape(rounds, 2).sum(1)
+        q1, q2, q3 = np.percentile(ratios, (25, 50, 75))
         print(f"A/B R3D_CROSS_NATIVE, 3100-bucket {'train step' if name == 'step' else 'serving chunk'}"
               f" of 8: on (K6/K7) median {med['on'][name]:.2f} ms, off (composed) median "
-              f"{med['off'][name]:.2f} ms of {2 * rounds} each (off/on "
-              f"{med['off'][name] / med['on'][name]:.3f}); all on: "
-              + ", ".join(f"{t:.2f}" for t in times["on"][name]) + "; all off: "
-              + ", ".join(f"{t:.2f}" for t in times["off"][name]))
+              f"{med['off'][name]:.2f} ms of {2 * rounds} each (off/on of the medians "
+              f"{med['off'][name] / med['on'][name]:.3f}; off/on per round of off, on, on, off: "
+              f"median {q2:.3f}, quartiles {q1:.3f}-{q3:.3f}, range {ratios.min():.3f}-"
+              f"{ratios.max():.3f}, {int((ratios > 1).sum())} of {rounds} rounds above 1); "
+              "all on: " + ", ".join(f"{t:.2f}" for t in on) + "; all off: "
+              + ", ".join(f"{t:.2f}" for t in off))
 
 
 def salads(kernels, k3b, k4b, k5b, k6, k7):
@@ -1238,7 +1359,7 @@ def main() -> int:
             "shape": t["shape"], "ms": t["ms"], "kernel_ms": t["ms"],
             "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"],
+            "library_ms": t["library_ms"], "library_device_ms": t["library_device_ms"],
         })
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -1,6 +1,7 @@
 // The attention forward's kernel body, out = softmax(q k^T * scale + bias) v
 // per (batch, head) with an fp32 softmax and optional dropout on the weights.
-// attention.cu (K3, K4) and cross_attention.cu (K6) instantiate it.
+// attention.cu (K3, K4; fp32 and bf16) and cross_attention.cu (K6 in fp32;
+// K6 in bf16 has a body of its own there) instantiate it.
 //
 // Layouts. Head-major (kNative false): q, out [B, H, Lq, D], k, v
 // [B, H, Lk, D]. Native (kNative true): q, out [B, Lq, C], k, v [B, Lk, C]
@@ -29,7 +30,8 @@
 //   sums w v. In fp32 rounding is the identity and one online pass remains.
 // - native (K6, r3d_tpu/ops/cross_attention.py:92): the UNNORMALISED weights
 //   e = exp(s - m_running) (times the keep factor) are rounded before the
-//   product with V, l sums the unrounded e, and out = acc / l; one pass.
+//   product with V, l sums the unrounded e, and out = acc / l; one pass. Only
+//   fp32 is instantiated on this layout, where that rounding is the identity.
 // The dropout mask is r3d::dropout_bits of the element index
 // ((b*H + h)*Lq + q)*Lk + k in both layouts, so the backwards redraw it.
 #pragma once

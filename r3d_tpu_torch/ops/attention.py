@@ -25,6 +25,8 @@ apart), with fp32 math and the TPU kernels' rounding points, which the
 plain versions share: K3 and K4 round the normalised weights (after
 dropout) to V's type before the product with V and write the output in q's
 type; K5 computes in fp32 and rounds dq, dk and dv to the inputs' type once.
+K5's bf16 body splits the keys across blocks and writes dk and dv once, in
+bf16, from the kernel; its fp32 body sums them in fp32 device memory.
 """
 
 from __future__ import annotations
@@ -55,13 +57,16 @@ KERNEL_BF16 = Kernel("flash_attention_bf16", "attention.cu", "r3d_attention_fwd_
                      KERNEL.argtypes)
 DROPOUT_KERNEL_BF16 = Kernel("flash_attention_dropout_bf16", "attention.cu",
                              "r3d_attention_fwd_dropout_bf16", DROPOUT_KERNEL.argtypes)
-BWD_KERNEL_BF16 = Kernel("attention_bwd_bf16", "attention_bwd.cu", "r3d_attention_bwd_bf16",
-                         BWD_KERNEL.argtypes)
+BWD_KERNEL_BF16 = Kernel(   # two more pointers (its scratch) and the key-block count
+    "attention_bwd_bf16", "attention_bwd.cu", "r3d_attention_bwd_bf16",
+    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + BWD_KERNEL.argtypes[14:],
+)
 _BY_DTYPE = {  # (forward, dropout forward, backward) per input dtype
     torch.float32: (KERNEL, DROPOUT_KERNEL, BWD_KERNEL),
     torch.bfloat16: (KERNEL_BF16, DROPOUT_KERNEL_BF16, BWD_KERNEL_BF16),
 }
 KERNEL_HEAD_DIMS = (16, 32, 64)   # csrc/attention*.cu: instantiated D
+BWD_BLOCK_KEYS = 64               # csrc/attention_bwd.cu: KB, keys per block of the bf16 body
 
 _U32 = 0xFFFFFFFF
 
@@ -173,6 +178,13 @@ def _check(fn, q, k, v, bias, extra=None):
     return B, H, Lq, Lk, D
 
 
+def _check_aligned(fn, **tensors):
+    """The bf16 kernels copy 16 bytes at a time."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{fn}: {name} must be 16-byte aligned")
+
+
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -217,19 +229,27 @@ def attention_bwd(q, k, v, bias, seed: int, scale, rate: float, g,
     B, H, Lq, Lk, D = _check("attention_bwd", q, k, v, bias, {"g": g})
     if rate > 0.0 and B * H * Lq * Lk > 2 ** 32:
         raise ValueError("attention_bwd: B*H*Lq*Lk must fit a 32-bit index")
-    dq = torch.empty_like(q)
-    dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)   # fp32 sums
-    dv = torch.empty_like(dk)
     need_dbias = need_dbias and bias is not None
     dbias = torch.empty((B, H, Lk), dtype=torch.float32, device=q.device) if need_dbias else None
-    _BY_DTYPE[q.dtype][2].launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), g.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(dbias),
-        B, H, Lq, Lk, D, float(scale), int(rate > 0.0), int(seed) & _U32,
-        dropout_threshold(rate), 1.0 / (1.0 - rate), _stream(q))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    tail = (float(scale), int(rate > 0.0), int(seed) & _U32, dropout_threshold(rate),
+            1.0 / (1.0 - rate), _stream(q))
+    if q.dtype == torch.bfloat16:
+        _check_aligned("attention_bwd", q=q, k=k, v=v, g=g)
+        n_kblocks = -(-Lk // BWD_BLOCK_KEYS)
+        stats = torch.empty((3, n_kblocks, B * H, Lq), dtype=torch.float32, device=q.device)
+        dq_partial = torch.empty((n_kblocks, B * H, Lq, D), dtype=torch.float32, device=q.device)
+        BWD_KERNEL_BF16.launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), g.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), _ptr(dbias), stats.data_ptr(), dq_partial.data_ptr(),
+            B, H, Lq, Lk, D, n_kblocks, *tail)
+    else:   # the fp32 body zeroes dk and dv itself and adds each query tile's share
+        BWD_KERNEL.launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), g.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), _ptr(dbias), B, H, Lq, Lk, D, *tail)
     if dbias is not None:
         dbias = dbias.sum(1)[:, None, None, :]
-    return dq, dk.to(k.dtype), dv.to(v.dtype), dbias
+    return dq, dk, dv, dbias
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -8,7 +8,10 @@ relayouts K or V head-major. Two kernels:
 
 - K6 (``csrc/cross_attention.cu``, ``r3d_cross_attention_fwd``): online
   softmax over the keys, optional dropout on the weights, and the softmax
-  statistics (m, l) ``[B, H, Lq]`` for the backward;
+  statistics (m, l) ``[B, H, Lq]`` for the backward; in bf16 the keys are
+  split across blocks (as many as stay resident on the card at once) on
+  the tensor cores, and a second launch combines the splits' (m, l, acc) in
+  split order;
 - K7 (``csrc/cross_attention_bwd.cu``, ``r3d_cross_attention_bwd``): dq, dk
   and dv in native layout and the bias's cotangent, from the saved (m, l) and
   the forward output.
@@ -42,6 +45,7 @@ import torch
 
 from r3d_tpu_torch.ops.attention import (
     _U32,
+    _check_aligned,
     _needs_graph,
     _ptr,
     _stream,
@@ -53,7 +57,7 @@ from r3d_tpu_torch.ops.build import Kernel
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}   # the launchers' `dtype`
 FWD_KERNEL = Kernel(
     "cross_attention", "cross_attention.cu", "r3d_cross_attention_fwd",
-    [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+    [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
     + [ctypes.c_float, ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float,
        ctypes.c_void_p],
 )
@@ -64,7 +68,9 @@ BWD_KERNEL = Kernel(
        ctypes.c_void_p],
 )
 CROSS_HEAD_DIMS = (16, 32, 64)   # csrc/cross_attention*.cu: instantiated D
-MAX_QUERIES = 64                 # K7's shared memory holds every query of a head
+MAX_QUERIES = 64                 # a block of K6 (bf16) and K7 holds every query of a head
+FWD_SPLIT_UNIT = 128             # csrc/cross_attention.cu: NW * KT, 4 warps x tiles of 32 keys
+FWD_BLOCKS_PER_SM = 2            # resident blocks of K6's bf16 split kernel (96 KB of tiles each)
 BWD_BLOCK_KEYS = 64              # csrc/cross_attention_bwd.cu: KB, keys per block
 
 
@@ -146,6 +152,15 @@ def _check(fn, q, k, v, bias, H, extra=None):
     return B, Lq, S, C
 
 
+def fwd_split_keys(S: int, n_heads: int, n_sm: int) -> int:
+    """Keys per block of K6's bf16 split kernel: the most splits that keep
+    all ``n_heads`` (batch x head) x splits blocks resident at once
+    (``FWD_BLOCKS_PER_SM`` an SM), so each warp streams a long run of keys
+    through its ring, in whole units of ``FWD_SPLIT_UNIT`` keys."""
+    n_split = max(1, FWD_BLOCKS_PER_SM * n_sm // n_heads)
+    return max(1, -(-S // (n_split * FWD_SPLIT_UNIT))) * FWD_SPLIT_UNIT
+
+
 def cross_attention_fwd(q, k, v, bias, seed: int, scale: float, rate: float, H: int):
     """K6: (out, m, l); the plain version for CPU tensors."""
     if q.device.type == "cpu":
@@ -154,9 +169,17 @@ def cross_attention_fwd(q, k, v, bias, seed: int, scale: float, rate: float, H: 
     out = torch.empty_like(q)
     m = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
+    split_keys, partial = 0, None
+    if q.dtype == torch.bfloat16:   # each split's (acc, m, l), combined by a second launch
+        _check_aligned("cross_attention", q=q, k=k, v=v)
+        n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
+        split_keys = fwd_split_keys(S, B * H, n_sm)
+        partial = torch.empty((-(-S // split_keys) * B * H * Lq, C // H + 2),
+                              dtype=torch.float32, device=q.device)
     FWD_KERNEL.launch(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
-        out.data_ptr(), m.data_ptr(), l.data_ptr(), B, Lq, S, H, C // H, float(scale),
+        out.data_ptr(), m.data_ptr(), l.data_ptr(), _ptr(partial), split_keys, B, Lq, S, H, C // H,
+        float(scale),
         int(rate > 0.0), int(seed) & _U32, dropout_threshold(rate), 1.0 / (1.0 - rate),
         _stream(q))
     return out, m, l

@@ -12,6 +12,12 @@ blocks of 512, the port's final max), which moves a weight by at most one
 bf16 step (2**-8 relative), and then round the result to bf16. The
 routing rule is held to JAX's, and dropout (whose TPU bits cannot be
 reproduced) to its invariants.
+
+The bf16 CUDA kernel of K6 cannot run here, but its algorithm can: a short
+PyTorch emulation (keys split across blocks of ``fwd_split_keys``, each
+warp's private online softmax over its quarter of them in tiles of 32, the
+warps and then the splits combined in order) is held to the plain version,
+fp32 within 2e-6 and bf16 within one bf16 step of the largest entry.
 """
 
 import types
@@ -169,3 +175,101 @@ def test_wrapper_takes_plain_version_only_on_cpu():
     k = torch.zeros(1, 600, 64, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         pt_ca.cross_attention_native(q, k, k, None, 0, 0.25, 0.0, 4)
+
+
+# ---- the split-key algorithm of the bf16 CUDA kernel, emulated ----
+
+N_WARPS, TILE_KEYS = 4, 32   # csrc/cross_attention.cu: NW, KT
+
+
+def _combine(parts):
+    """(m, l, acc) of partial softmaxes, summed in the order given: a part
+    with no key (m = -inf) weighs 0."""
+    m = torch.stack([p[0] for p in parts]).amax(0)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(parts[0][2])
+    for m_i, l_i, acc_i in parts:
+        w = torch.where(m_i == -torch.inf, torch.zeros_like(m), torch.exp(m_i - m))
+        l = l + l_i * w
+        acc = acc + acc_i * w[..., None]
+    return m, l, acc
+
+
+def _split_forward(q, k, v, bias, seed, scale, rate, H, split_keys):
+    """K6 as its bf16 kernel computes it with ``split_keys`` keys a block:
+    (out, m, l)."""
+    from r3d_tpu_torch.ops.attention import dropout_keep
+
+    s = pt_ca._scores(q, k, bias, scale, H)
+    keep = dropout_keep(seed, rate, s.shape, q.device) if rate > 0.0 else None
+    vh = pt_ca._heads(v, H)
+    S = s.shape[-1]
+    splits = []
+    warp_keys = split_keys // N_WARPS
+    for s0 in range(0, S, split_keys):
+        warps = []
+        for w0 in range(s0, s0 + split_keys, warp_keys):
+            m = torch.full(s.shape[:-1], -torch.inf)
+            l = torch.zeros(s.shape[:-1])
+            acc = torch.zeros(s.shape[:-1] + (vh.shape[-1],))
+            for t0 in range(w0, min(w0 + warp_keys, S), TILE_KEYS):
+                sl = slice(t0, min(t0 + TILE_KEYS, S))
+                m_new = torch.maximum(m, s[..., sl].amax(-1))
+                corr = torch.exp(m - m_new)
+                e = torch.exp(s[..., sl] - m_new[..., None])
+                l = l * corr + e.sum(-1)
+                if keep is not None:
+                    e = e * keep[..., sl]
+                acc = acc * corr[..., None] + torch.einsum(
+                    "bhqk,bhkd->bhqd", e.to(v.dtype).float(), vh[:, :, sl])
+                m = m_new
+            warps.append((m, l, acc))
+        splits.append(_combine(warps))
+    m, l, acc = _combine(splits)
+    out = acc * torch.where(l > 0, 1.0 / l, torch.zeros_like(l))[..., None]
+    return pt_ca._native(out).to(q.dtype), m, l
+
+
+# (S, first padded key per batch row, SMs of the card): the SM count sets the
+# split size. Ragged, 7 splits of 128 with a last one of 9 keys; whole splits
+# of 256 with rows whose later splits are all masked and a fully masked row;
+# one split whose warps walk 8 tiles each; S below one split; a last split of
+# one key
+SPLIT_CASES = [(777, (777, 700, 300), 132), (1024, (1024, 10, 0), 24),
+               (1024, (1024, 300, 0), 6), (100, (100, 37, 0), 132), (257, (257, 256, 1), 132)]
+
+
+def test_split_size_keeps_every_block_resident():
+    """Whole units of 128 keys, never more splits than blocks that fit the
+    card at once, and the 50salads shape's four splits of 896 on 132 SMs."""
+    assert pt_ca.fwd_split_keys(3100, 64, 132) == 896
+    for S in (1, 31, 257, 777, 1024, 3100):
+        for heads in (1, 12, 64, 1000):
+            for n_sm in (6, 24, 132):
+                split = pt_ca.fwd_split_keys(S, heads, n_sm)
+                assert split % pt_ca.FWD_SPLIT_UNIT == 0 and split >= pt_ca.FWD_SPLIT_UNIT
+                resident = max(1, pt_ca.FWD_BLOCKS_PER_SM * n_sm // heads)
+                assert -(-S // split) <= resident
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("Lq", [20, 33])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,pad_from,n_sm", SPLIT_CASES)
+def test_split_key_forward_matches_plain(S, pad_from, n_sm, dtype, Lq, rate):
+    rng = np.random.RandomState(S + Lq)
+    tdt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(rng.randn(3, L, C).astype(np.float32)).to(tdt)
+               for L in (Lq, S, S))
+    pad = np.arange(S)[None, :] >= np.asarray(pad_from)[:, None]
+    bias = torch.from_numpy(
+        np.where(pad, np.finfo(np.float32).min, 0.0).astype(np.float32)[:, None, None, :])
+    split_keys = pt_ca.fwd_split_keys(S, 3 * H, n_sm)
+    got = _split_forward(q, k, v, bias, 17, SCALE, rate, H, split_keys)
+    want = pt_ca.composed_cross_attention(q, k, v, bias, 17, SCALE, rate, H)
+    assert torch.isfinite(got[0].float()).all()
+    big = float(want[0].float().abs().max())
+    tol = 2e-6 * max(1.0, big) if dtype == "float32" else big * 2.0 ** -7
+    assert float((got[0].float() - want[0].float()).abs().max()) <= tol
+    torch.testing.assert_close(got[1], want[1], atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(got[2], want[2], atol=1e-6, rtol=2e-6)

@@ -13,7 +13,11 @@ K7) is held to 2e-5 forward and 1e-4 backward in fp32 (its gradient sums
 run over up to 3,100 keys). In bf16 the kernels and the plain versions
 round at the same points, but a sum taken in another order can land a
 value on the neighbouring bf16 number (2**-8 relative), so bf16 results
-are held to 2e-2 of the tensor's largest entry.
+are held to 2e-2 of the tensor's largest entry. K5 and K6 in bf16 split the
+keys across blocks and sum the blocks' partials in block order, so two calls
+must agree bit for bit, and the shapes around their block sizes (64 keys
+for K5, whole units of 128 for K6, 32 queries) are covered: one key, less than a block, one key past a
+block, and blocks whose keys are all masked.
 """
 
 import math
@@ -153,11 +157,12 @@ def test_attention_dropout_kernel_matches_plain(cuda, Lk, D):
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("Lq", [8, 33, 70])
 @pytest.mark.parametrize("Lk", [1, 31, 256, 300, 512, 1024])
 @pytest.mark.parametrize("D", [16, 32, 64])
-def test_attention_bwd_kernel_matches_plain(cuda, Lk, D, rate):
+def test_attention_bwd_kernel_matches_plain(cuda, Lk, D, Lq, rate):
     gen = torch.Generator().manual_seed(Lk + D)
-    q, k, v, bias = attention_inputs(8, 8, 8, Lk, D, gen, cuda, all_masked_row=Lk > 1)
+    q, k, v, bias = attention_inputs(8, 8, Lq, Lk, D, gen, cuda, all_masked_row=Lk > 1)
     g = torch.randn(q.shape, generator=gen).to(cuda)
     scale = 1.0 / math.sqrt(D)
     before = att.BWD_KERNEL.launches
@@ -169,14 +174,18 @@ def test_attention_bwd_kernel_matches_plain(cuda, Lk, D, rate):
         _close(a, b, 2e-5, name)
 
 
-def test_attention_bwd_kernel_takes_many_query_tiles(cuda):
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_attention_bwd_kernel_takes_many_query_tiles(cuda, dtype):
     gen = torch.Generator().manual_seed(5)
     q, k, v, bias = attention_inputs(2, 2, 300, 300, 32, gen, cuda)
     g = torch.randn(q.shape, generator=gen).to(cuda)
+    if dtype == "bf16":
+        q, k, v, g = (t.to(torch.bfloat16) for t in (q, k, v, g))
     got = att.attention_bwd(q, k, v, bias, 3, 0.2, 0.1, g, need_dbias=True)
     want = att.composed_attention_bwd(q, k, v, bias, 3, 0.2, 0.1, g)
     for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
-        _close(a, b, 2e-5, name)
+        assert a.dtype == b.dtype, name
+        _close(a.float(), b.float(), 2e-5 if dtype == "fp32" else 2e-2, name)
 
 
 def _grads(fn, inputs):
@@ -222,9 +231,9 @@ DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("S", [1, 31, 777, 1024, 3100])
-@pytest.mark.parametrize("Lq,C,H", [(20, 512, 8), (8, 128, 8), (64, 64, 2)],
-                         ids=["50salads", "breakfast", "64-queries"])
+@pytest.mark.parametrize("S", [1, 31, 257, 777, 1024, 3100])
+@pytest.mark.parametrize("Lq,C,H", [(20, 512, 8), (8, 128, 8), (64, 64, 2), (33, 128, 4)],
+                         ids=["50salads", "breakfast", "64-queries", "33-queries"])
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 def test_cross_attention_kernels_match_plain(cuda, dtype, Lq, C, H, S, rate):
     dt = DTYPES[dtype]
@@ -265,6 +274,51 @@ def test_cross_attention_kernel_is_deterministic_and_keeps_its_rate(cuda):
     assert abs(kept - 0.9) < 5 * (0.09 / (8 * 8 * 20 * 3100)) ** 0.5
 
 
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_cross_attention_kernel_takes_splits_with_every_key_masked(cuda, dtype):
+    """Row 1 keeps 10 keys of 1,024, so all its splits but the first hold
+    only masked keys (weight 0 in the combine, not NaN); row 2 keeps none
+    (the uniform average over all 1,024); row 3 keeps 300 (a warp and a
+    split that are masked in part)."""
+    from r3d_tpu_torch.models.layers import attention_bias_from_padding
+
+    dt = DTYPES[dtype]
+    gen = torch.Generator().manual_seed(41)
+    q, k, v, _ = cross_inputs(4, 20, 1024, 512, gen, cuda, dt)
+    lengths = torch.tensor([1024, 10, 0, 300])
+    bias = attention_bias_from_padding((torch.arange(1024)[None] >= lengths[:, None]).to(cuda))
+    for rate in (0.0, 0.1):
+        out, m, l = ca.cross_attention_fwd(q, k, v, bias, 9, 0.125, rate, 8)
+        w_out, w_m, w_l = ca.composed_cross_attention(q, k, v, bias, 9, 0.125, rate, 8)
+        assert torch.isfinite(out.float()).all()
+        _close(out.float(), w_out.float(), 2e-5 if dtype == "fp32" else BF16_TOL, "out")
+        torch.testing.assert_close(m, w_m, atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(l, w_l, atol=1e-5, rtol=1e-5)
+    assert float(l[2].min()) == 1024.0 and float(m[2].max()) == torch.finfo(torch.float32).min
+
+
+@pytest.mark.parametrize("S", [257, 3100])
+def test_cross_attention_fwd_kernel_is_deterministic(cuda, S):
+    gen = torch.Generator().manual_seed(S)
+    q, k, v, bias = cross_inputs(8, 20, S, 512, gen, cuda, torch.bfloat16, all_masked_row=True)
+    first = ca.cross_attention_fwd(q, k, v, bias, 7, 0.125, 0.1, 8)
+    again = ca.cross_attention_fwd(q, k, v, bias, 7, 0.125, 0.1, 8)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("Lq,Lk", [(20, 512), (70, 300)])
+def test_attention_bwd_bf16_kernel_is_deterministic(cuda, Lq, Lk):
+    gen = torch.Generator().manual_seed(Lq + Lk)
+    q, k, v, bias = attention_inputs(8, 8, Lq, Lk, 64, gen, cuda, all_masked_row=True)
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    g = torch.randn(q.shape, generator=gen).to(cuda, torch.bfloat16)
+    first = att.attention_bwd(q, k, v, bias, 5, 0.125, 0.1, g, need_dbias=True)
+    again = att.attention_bwd(q, k, v, bias, 5, 0.125, 0.1, g, need_dbias=True)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
 def test_cross_attention_autograd_matches_autograd_of_plain(cuda):
     gen = torch.Generator().manual_seed(12)
     q, k, v, bias = cross_inputs(4, 20, 1100, 512, gen, cuda, torch.float32)
@@ -276,12 +330,14 @@ def test_cross_attention_autograd_matches_autograd_of_plain(cuda):
             _close(a, b, 1e-4)
 
 
-@pytest.mark.parametrize("Lk", [1, 31, 256, 300, 512])
-@pytest.mark.parametrize("D", [16, 64])
-def test_attention_kernels_bf16_match_plain(cuda, Lk, D):
-    """K3, K4 and K5 on bf16 inputs at the 50salads query count."""
+@pytest.mark.parametrize("Lq", [20, 33, 70])
+@pytest.mark.parametrize("Lk", [1, 31, 65, 256, 300, 512])
+@pytest.mark.parametrize("D", [16, 32, 64])
+def test_attention_kernels_bf16_match_plain(cuda, Lk, D, Lq):
+    """K3, K4 and K5 on bf16 inputs at the 50salads query count, and at
+    query counts of more than one tile of K5's 32."""
     gen = torch.Generator().manual_seed(Lk + 7 * D)
-    q, k, v, bias = attention_inputs(8, 8, 20, Lk, D, gen, cuda, all_masked_row=Lk > 1)
+    q, k, v, bias = attention_inputs(8, 8, Lq, Lk, D, gen, cuda, all_masked_row=Lk > 1)
     q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
     g = torch.randn(q.shape, generator=gen).to(cuda, torch.bfloat16)
     scale = 1.0 / math.sqrt(D)

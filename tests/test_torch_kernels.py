@@ -11,6 +11,12 @@ dropout mask cannot reproduce the TPU's PRNG bits, so the dropout kernels
 are held to Pallas at rate 0 (the PRNG-free path) and checked by their
 invariants otherwise. The CUDA kernels themselves are held against the
 plain versions on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+
+The bf16 CUDA kernel of K5 cannot run here, but its algorithm can: a short
+PyTorch emulation (keys split across blocks of ``BWD_BLOCK_KEYS`` that own
+their dk, dv and dbias, the softmax statistics from a first pass per block,
+dq summed over the blocks' partials in order) is held to the plain version,
+fp32 within 2e-6 and bf16 within one bf16 step of the largest entry.
 """
 
 import numpy as np
@@ -298,3 +304,88 @@ def test_multihead_attention_dropout_follows_train_mode():
     assert torch.equal(a, b) and not torch.allclose(a, ref)
     m.dropout = 0.0
     torch.testing.assert_close(m(q, kv, kv), ref)
+
+
+# ---- the key-block algorithm of K5's bf16 CUDA kernel, emulated ----
+
+def _keyblock_backward(q, k, v, bias, seed, scale, rate, g, query_tile=32, warp_keys=16):
+    """K5 as its bf16 kernel computes it: (dq, dk, dv, dbias)."""
+    KB = pt_attn.BWD_BLOCK_KEYS
+    s = pt_attn._scores(q, k, bias, scale)
+    Lq, Lk = s.shape[-2:]
+    keep = (pt_attn.dropout_keep(seed, rate, s.shape, q.device) if rate > 0.0
+            else torch.ones_like(s))
+    gf = g.float()
+    gv = torch.einsum("bhqd,bhkd->bhqk", gf, v.float())
+    zero = torch.zeros(s.shape[:-1])
+
+    def combine(parts):   # in the order given; a part with no key weighs 0
+        m = torch.stack([p[0] for p in parts]).amax(0)
+        l, dn = zero.clone(), zero.clone()
+        for m_i, l_i, dn_i in parts:
+            w = torch.where(m_i == -torch.inf, zero, torch.exp(m_i - m))
+            l, dn = l + l_i * w, dn + dn_i * w
+        return m, l, dn
+
+    # first launch: each key block's (m_i, l_i, D-numerator), its warps in order
+    stats = []
+    for j0 in range(0, Lk, KB):
+        warps = []
+        for w0 in range(j0, j0 + KB, warp_keys):
+            sl = slice(w0, min(w0 + warp_keys, Lk))
+            if sl.start >= Lk:
+                warps.append((torch.full_like(zero, -torch.inf), zero, zero))
+                continue
+            m_w = s[..., sl].amax(-1)
+            p = torch.exp(s[..., sl] - m_w[..., None])
+            warps.append((m_w, p.sum(-1), (p * keep[..., sl] * gv[..., sl]).sum(-1)))
+        stats.append(combine(warps))
+    # second launch: every block combines all statistics, owns its keys
+    m, l, dn = combine(stats)
+    inv_l = torch.where(l > 0, 1.0 / l, zero)
+    drow = dn * inv_l
+    dk, dv = torch.zeros(k.shape), torch.zeros(v.shape)
+    dbias = torch.zeros(s.shape[:2] + (Lk,))
+    dq_parts = []
+    for j0 in range(0, Lk, KB):
+        sl = slice(j0, min(j0 + KB, Lk))
+        w = torch.exp(s[..., sl] - m[..., None]) * inv_l[..., None]
+        wk = w * keep[..., sl]
+        ds = w * (keep[..., sl] * gv[..., sl] - drow[..., None])
+        for q0 in range(0, Lq, query_tile):   # summed in registers over the query tiles
+            qs = slice(q0, q0 + query_tile)
+            dv[:, :, sl] += torch.einsum("bhqk,bhqd->bhkd", wk[:, :, qs], gf[:, :, qs])
+            dk[:, :, sl] += torch.einsum("bhqk,bhqd->bhkd", ds[:, :, qs], q.float()[:, :, qs])
+            dbias[:, :, sl] += ds[:, :, qs].sum(2)
+        dq_parts.append(torch.einsum("bhqk,bhkd->bhqd", ds, k.float()[:, :, sl]) * scale)
+    dq = torch.zeros(q.shape)
+    for part in dq_parts:   # third launch: in block order
+        dq = dq + part
+    return (dq.to(q.dtype), (dk * scale).to(k.dtype), dv.to(v.dtype),
+            dbias.sum(1)[:, None, None, :])
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Lq", [20, 33, 70])
+@pytest.mark.parametrize("Lk,pad_from", [
+    (300, (300, 123, 0)),     # ragged last block; a fully masked row
+    (512, (512, 10, 37)),     # whole blocks; rows whose later blocks are all masked
+    (31, (31, 5, 31)),        # less than one key block
+    (65, (65, 64, 1)),        # a last block of one key
+])
+def test_keyblock_backward_matches_plain(Lk, pad_from, Lq, dtype, rate):
+    rng = np.random.RandomState(Lk + Lq)
+    tdt = getattr(torch, dtype)
+    q, k, v, bias = (torch.from_numpy(x) for x in _attention_inputs(rng, 3, 4, Lq, Lk, 16,
+                                                                    pad_from))
+    g = torch.from_numpy(rng.randn(*q.shape).astype(np.float32))
+    q, k, v, g = (t.to(tdt) for t in (q, k, v, g))
+    got = _keyblock_backward(q, k, v, bias, 23, 0.25, rate, g)
+    want = pt_attn.composed_attention_bwd(q, k, v, bias, 23, 0.25, rate, g)
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
+        assert a.dtype == b.dtype and torch.isfinite(a.float()).all(), name
+        big = float(b.float().abs().max())
+        tol = (2e-6 * max(1.0, big) if dtype == "float32" or name == "dbias"
+               else big * 2.0 ** -7)
+        assert float((a.float() - b.float()).abs().max()) <= tol, name
