@@ -14,9 +14,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    route and the backward with the outer residual off and on); attention
    forward, dropout forward and backward (rate 0 and 0.1) at B = 8, H = 8,
    Lq = 8, D = 16, Lk = 256, 512 and a ragged 300 with a fully masked row;
-   the same three in bf16 at the 50salads decoder's Lq = 20, D = 64, with
-   K5 also at 33 and 70 queries and at 1, 31 and 65 keys, and two calls of
-   K5 and of K6 bit-equal; the
+   the same three in bf16 at the 50salads decoder's Lq = 20, D = 64, each
+   twice bit-equal and audited as one call's launches on the card, with K3
+   and K4 also at 33, 70 and 512 (= Lk) queries, at 1, 31, 65, 129, 385,
+   1,000 and 2,049 keys and with whole splits of keys masked, and K5 at 33
+   and 70 queries and at 1, 31 and 65 keys; the
    native cross-attention forward and backward (K6, K7) in fp32 and bf16 at
    B = 8, H = 8, (Lq, C) = (20, 512) and (8, 128), S = 1024, 3100 and a
    ragged 777 with padded key tails and a fully masked row, rate 0 and 0.1,
@@ -89,7 +91,8 @@ BF16_TOL = 2e-2          # bf16 kernels vs their plain versions, over the larges
 
 # every __global__ function of r3d_tpu_torch/csrc, by a fragment of its name
 OWN_KERNELS = ("fused_tail_kernel", "fuser_tail_bwd_kernel", "sum_partials_kernel",
-               "attention_fwd_kernel", "attention_bwd_kernel", "attention_bwd_bf16_kernel",
+               "attention_fwd_kernel", "attention_fwd_split_kernel", "attention_bwd_kernel",
+               "attention_bwd_bf16_kernel",
                "dq_sum_kernel", "cross_fwd_split_kernel", "cross_fwd_combine_kernel",
                "cross_attention_bwd_kernel", "dq_reduce_kernel")
 
@@ -435,7 +438,7 @@ def check_attention_train_kernels(gen, device):
                                                              dropout_p=rate, scale=scale)
             bound, bound_by = attention_bound_ms(B, H, Lq, Lk, D)
             t4 = {"shape": f"B={B} H={H} Lq={Lq} Lk={Lk} D={D} p={rate}", "ms": time_ms(launch),
-                  "device_ms": device_ms(launch, "attention_fwd_kernel<float, 16, true"),
+                  "device_ms": device_ms(launch, "attention_fwd_kernel<16, true, false"),
                   "plain_ms": time_ms(lambda: att.composed_attention_dropout(
                       q, k, v, bias, seed, scale, rate)),
                   **library_times(library), "bound_ms": bound, "bound_by": bound_by}
@@ -494,7 +497,7 @@ def check_attention_kernel(gen, device):
             print(f"  scaled_dot_product_attention (yardstick only): max|lib - plain| = {lib_err:.3e}")
             bound, bound_by = attention_bound_ms(B, H, Lq, Lk, D)
             timing = {"shape": f"B={B} H={H} Lq={Lq} Lk={Lk} D={D}", "ms": time_ms(launch),
-                      "device_ms": device_ms(launch, "attention_fwd_kernel<float, 16, false"),
+                      "device_ms": device_ms(launch, "attention_fwd_kernel<16, false, false"),
                       "plain_ms": time_ms(plain), **library_times(library),
                       "bound_ms": bound, "bound_by": bound_by}
     # the routing question (PERF.md): wrapper call vs plain call, as the
@@ -509,12 +512,52 @@ def check_attention_kernel(gen, device):
     return worst, timing
 
 
+def own_launches_per_call(fn, fragments, per_call, label, calls=5):
+    """Fail unless ``calls`` calls of ``fn`` are, on the card, exactly
+    ``per_call`` launches each of kernels whose names hold one of
+    ``fragments``, and nothing else (no memset, no cast)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    on_card = {}
+    for _ in range(3):   # a trace of so short a window can come back empty
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        on_card = {e.key: e.count for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA}
+        if on_card:
+            break
+    print(f"{label}: {calls} calls on the card: { {k[:70]: c for k, c in on_card.items()} }")
+    foreign = [k for k in on_card if not any(f in k for f in fragments)]
+    if foreign or sum(on_card.values()) != per_call * calls:
+        raise AssertionError(f"{label} should be {per_call} launches of its own kernels a "
+                             f"call: {on_card}")
+
+
+def masked_split_bias(B, Lk, lengths, device):
+    """A key-padding bias whose rows keep the given numbers of keys (cycled
+    over the batch): with 10, 128 or 129 real keys of 512, whole splits of
+    the bf16 forwards hold only masked keys; with 0 the row is fully masked."""
+    import torch
+
+    from r3d_tpu_torch.models.layers import attention_bias_from_padding
+
+    keep = torch.tensor([lengths[b % len(lengths)] for b in range(B)])
+    return attention_bias_from_padding((torch.arange(Lk)[None, :] >= keep[:, None]).to(device))
+
+
 def check_attention_bf16_kernels(gen, device):
     """K3, K4 and K5 on bf16 inputs at the 50salads decoder's shape (B = 8,
     H = 8, Lq = 20, D = 64; Lk = 256, 512 and a ragged 300 with a fully
-    masked row), against their plain versions; timed at Lk = 512. K5 also
-    twice (bit-equal), as the launches of one wrapper call, and at the
-    shapes around its tiles of 32 queries and blocks of 64 keys."""
+    masked row), against their plain versions; timed at Lk = 512. Each
+    twice (bit-equal), and as the launches of one wrapper call. K3 and K4
+    also at the shapes around their splits of 128 keys, clusters of up to 8
+    splits and tiles of 32 queries, on the self-attention route (Lq = Lk =
+    512) and with whole splits masked; K5 at the shapes around its tiles of
+    32 queries and blocks of 64 keys."""
     import torch
     import torch.nn.functional as F
 
@@ -524,25 +567,32 @@ def check_attention_bf16_kernels(gen, device):
     scale = 1.0 / math.sqrt(D)
     worst = {"K3": (0.0, 0.0), "K4": (0.0, 0.0), "K5": (0.0, 0.0)}
     timing = {}
+
+    def check_fwd(q, k, v, bias, seed, label):
+        """K3 and K4 against their plain versions, and each twice bit-equal."""
+        Lq_, Lk_ = q.shape[2], k.shape[2]
+        calls = {"K3": lambda: att.flash_attention(q, k, v, bias, scale),
+                 "K4": lambda: att.flash_attention_dropout(q, k, v, bias, seed, scale, rate)}
+        plain = {"K3": lambda: att.composed_attention(q, k, v, bias, scale),
+                 "K4": lambda: att.composed_attention_dropout(q, k, v, bias, seed, scale, rate)}
+        for name, fn in calls.items():
+            got = fn()
+            err = errs([got], [plain[name]()])
+            print(f"{name} bf16 Lq={Lq_} Lk={Lk_}{label}: max|kernel - plain| = {err[0]:.3e}, "
+                  f"over max(1, max|plain|) {err[1]:.3e} (tol {BF16_TOL})")
+            if not (err[1] <= BF16_TOL and torch.isfinite(got.float()).all()):
+                raise AssertionError(f"{name} bf16 disagrees with its plain version at "
+                                     f"Lq={Lq_}, Lk={Lk_}{label}")
+            if not torch.equal(got, fn()):
+                raise AssertionError(f"{name} bf16 is not deterministic at Lq={Lq_}, Lk={Lk_}")
+            worst[name] = worse(worst[name], err)
+
     for Lk, all_masked in ((256, False), (512, False), (300, True)):
         q, k, v, bias = attention_inputs(B, H, Lq, Lk, D, gen, device, all_masked)
         q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
         g = torch.randn(q.shape, generator=gen).to(device, torch.bfloat16)
         seed = 2000 + Lk
-        pairs = {
-            "K3": (att.flash_attention(q, k, v, bias, scale),
-                   att.composed_attention(q, k, v, bias, scale)),
-            "K4": (att.flash_attention_dropout(q, k, v, bias, seed, scale, rate),
-                   att.composed_attention_dropout(q, k, v, bias, seed, scale, rate)),
-        }
-        for name, (got, want) in pairs.items():
-            err = errs([got], [want])
-            print(f"{name} bf16 Lk={Lk}{' (one row fully masked)' if all_masked else ''}: "
-                  f"max|kernel - plain| = {err[0]:.3e}, over max(1, max|plain|) {err[1]:.3e} "
-                  f"(tol {BF16_TOL})")
-            if not (err[1] <= BF16_TOL and torch.isfinite(got.float()).all()):
-                raise AssertionError(f"{name} bf16 disagrees with its plain version at Lk={Lk}")
-            worst[name] = worse(worst[name], err)
+        check_fwd(q, k, v, bias, seed, " (one row fully masked)" if all_masked else "")
         for r_ in (0.0, rate):
             got = att.attention_bwd(q, k, v, bias, seed, scale, r_, g, need_dbias=True)
             want = att.composed_attention_bwd(q, k, v, bias, seed, scale, r_, g)
@@ -557,25 +607,28 @@ def check_attention_bf16_kernels(gen, device):
             raise AssertionError(f"K5 bf16 is not deterministic at Lk={Lk}")
         if Lk != 512:
             continue
-        print(f"K5 bf16 Lk={Lk}: two calls agree bit for bit")
+        print(f"K3, K4, K5 bf16 Lk={Lk}: two calls agree bit for bit")
         stream = torch.cuda.current_stream().cuda_stream
         shape = f"B={B} H={H} Lq={Lq} Lk={Lk} D={D} bf16"
+        split = att.fwd_split_keys(Lk)
+        print(f"  K3/K4 bf16 at Lk={Lk}: {-(-Lk // split)} splits of {split} keys")
         mask = bias == 0   # SDPA's bool mask (True = attend) for bf16 inputs
         out = torch.empty_like(q)
         launch = raw_launcher(att.KERNEL_BF16, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                              bias.data_ptr(), out.data_ptr(), B, H, Lq, Lk, D, scale, stream)
+                              bias.data_ptr(), out.data_ptr(), B, H, Lq, Lk, D, split, scale,
+                              stream)
         bound, bound_by = attention_bf16_bound_ms(B, H, Lq, Lk, D)
         timing["K3"] = {"shape": shape, "ms": time_ms(launch),
-                        "device_ms": device_ms(launch, "attention_fwd_kernel<__nv_bfloat16, 64, false"),
+                        "device_ms": device_ms(launch, "attention_fwd_split_kernel<64, false"),
                         "plain_ms": time_ms(lambda: att.composed_attention(q, k, v, bias, scale)),
                         **library_times(lambda: F.scaled_dot_product_attention(
                             q, k, v, attn_mask=mask, scale=scale)),
                         "bound_ms": bound, "bound_by": bound_by}
         launch = raw_launcher(att.DROPOUT_KERNEL_BF16, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                              bias.data_ptr(), out.data_ptr(), B, H, Lq, Lk, D, scale, seed,
-                              att.dropout_threshold(rate), 1.0 / (1.0 - rate), stream)
+                              bias.data_ptr(), out.data_ptr(), B, H, Lq, Lk, D, split, scale,
+                              seed, att.dropout_threshold(rate), 1.0 / (1.0 - rate), stream)
         timing["K4"] = {"shape": shape + f" p={rate}", "ms": time_ms(launch),
-                        "device_ms": device_ms(launch, "attention_fwd_kernel<__nv_bfloat16, 64, true"),
+                        "device_ms": device_ms(launch, "attention_fwd_split_kernel<64, true"),
                         "plain_ms": time_ms(lambda: att.composed_attention_dropout(
                             q, k, v, bias, seed, scale, rate)),
                         **library_times(lambda: F.scaled_dot_product_attention(
@@ -597,28 +650,16 @@ def check_attention_bf16_kernels(gen, device):
                                                scale=scale)
             torch.autograd.grad(o, leaves, g)
 
-        # the wrapper's call on the card: the kernel's three launches and
-        # nothing else (no memset of dk and dv, no cast afterwards)
-        from torch.profiler import ProfilerActivity, profile
-
-        calls, on_card = 5, {}
-        for _ in range(3):   # a trace of so short a window can come back empty
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                         acc_events=True) as prof:
-                for _ in range(calls):
-                    att.attention_bwd(q, k, v, bias, seed, scale, rate, g)
-                torch.cuda.synchronize()
-            on_card = {e.key: e.count for e in prof.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CUDA}
-            if on_card:
-                break
-        print(f"K5 bf16: {calls} attention_bwd calls on the card: "
-              f"{ {k_[:70]: c for k_, c in on_card.items()} }")
-        foreign = [k_ for k_ in on_card
-                   if "attention_bwd_bf16_kernel" not in k_ and "dq_sum_kernel" not in k_]
-        if foreign or sum(on_card.values()) != 3 * calls:
-            raise AssertionError(f"attention_bwd (bf16) should be three launches of its own "
-                                 f"kernels a call: {on_card}")
+        # each wrapper's call on the card: its kernel's launches and nothing
+        # else (no memset of dk and dv, no cast afterwards)
+        own_launches_per_call(lambda: att.flash_attention(q, k, v, bias, scale),
+                              ("attention_fwd_split_kernel",), 1, "K3 bf16 flash_attention")
+        own_launches_per_call(
+            lambda: att.flash_attention_dropout(q, k, v, bias, seed, scale, rate),
+            ("attention_fwd_split_kernel",), 1, "K4 bf16 flash_attention_dropout")
+        own_launches_per_call(lambda: att.attention_bwd(q, k, v, bias, seed, scale, rate, g),
+                              ("attention_bwd_bf16_kernel", "dq_sum_kernel"), 3,
+                              "K5 bf16 attention_bwd")
         bound, bound_by = attention_bf16_bound_ms(B, H, Lq, Lk, D, backward=True)
         timing["K5"] = {"shape": shape + f" p={rate}", "ms": time_ms(launch),
                         "device_ms": device_ms(launch, ("attention_bwd_bf16_kernel",
@@ -627,8 +668,21 @@ def check_attention_bf16_kernels(gen, device):
                             q, k, v, bias, seed, scale, rate, g, False)),
                         **library_times(library_bwd), "bound_ms": bound,
                         "bound_by": bound_by}
-    # what the key-block design could get wrong: more than one query tile of
-    # 32, less than one key block of 64, one key, a last block of one key
+    # what the split design of K3/K4 could get wrong: more than one query
+    # tile of 32, the self-attention route, less than one split, one key, a
+    # last split of one key, eight splits, splits grown past one tile a warp
+    for Lq_, Lk in ((33, 512), (70, 512), (512, 512), (20, 1), (20, 31), (20, 65), (20, 129),
+                    (33, 385), (20, 1000), (20, 2049)):
+        q, k, v, bias = attention_inputs(B, H, Lq_, Lk, D, gen, device, all_masked_row=Lk > 1)
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+        check_fwd(q, k, v, bias, 9 + Lk, " (one row fully masked)" if Lk > 1 else "")
+    # rows whose later splits hold only masked keys, and a fully masked row
+    q, k, v, _ = attention_inputs(B, H, Lq, 512, D, gen, device)
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    check_fwd(q, k, v, masked_split_bias(B, 512, (512, 10, 0, 128, 129, 300, 384, 1), device),
+              17, " (rows of 512, 10, 0, 128, 129, 300, 384 and 1 real keys)")
+    # what the key-block design of K5 could get wrong: more than one query
+    # tile of 32, less than one key block of 64, one key, a last block of one key
     for Lq_, Lk in ((33, 300), (70, 512), (20, 1), (20, 31), (70, 65)):
         q, k, v, bias = attention_inputs(B, H, Lq_, Lk, D, gen, device, all_masked_row=Lk > 1)
         q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))

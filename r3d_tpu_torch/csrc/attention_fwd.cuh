@@ -1,7 +1,10 @@
-// The attention forward's kernel body, out = softmax(q k^T * scale + bias) v
-// per (batch, head) with an fp32 softmax and optional dropout on the weights.
-// attention.cu (K3, K4; fp32 and bf16) and cross_attention.cu (K6 in fp32;
-// K6 in bf16 has a body of its own there) instantiate it.
+// The fp32 attention forward's kernel body, out = softmax(q k^T * scale +
+// bias) v per (batch, head) with an online fp32 softmax and optional dropout
+// on the weights. attention.cu instantiates it for K3 and K4 in fp32
+// (utkinects: Lq = 8, D = 16) on the head-major layout, cross_attention.cu
+// for K6 in fp32 on the native layout. The bf16 instantiations have bodies of
+// their own on the tensor cores: attention.cu's split kernel (K3, K4) and
+// cross_attention.cu's (K6).
 //
 // Layouts. Head-major (kNative false): q, out [B, H, Lq, D], k, v
 // [B, H, Lk, D]. Native (kNative true): q, out [B, Lq, C], k, v [B, Lk, C]
@@ -11,32 +14,19 @@
 //
 // Design. One block per (batch*head, tile of 8 queries), one warp per query.
 // The block stages K, V and the bias in chunks of 32 keys through shared
-// memory (fp32), so each key is read from device memory once per block, and
-// keeps an online softmax (running max m, running sum l, rescaled
-// accumulator) over the chunks, so it is right for any Lk. Lane j scores key
-// j of the chunk against the query held in registers; for p.V each lane owns
-// one of the D output dims and a group of keys, reads the weights with
-// shuffles, and the key groups are summed at the end. The ragged last chunk
-// is masked in the kernel (no padding of K/V), so a fully masked row averages
-// over the real keys only. A score of -inf weighs 0, and a row whose every
-// score is -inf gives 0 and (m, l) = (-inf, 0), not NaN.
-//
-// Rounding in bf16 (inputs bf16, math fp32), as each TPU kernel does:
-// - head-major (K3/K4, r3d_tpu/ops/attention.py:48-50, 210-212): the
-//   NORMALISED weights (times the dropout keep factor) are rounded to bf16
-//   before the product with V. The normaliser is known only after every key,
-//   so this instantiation makes two passes over the keys: the first finds
-//   each row's m and l, the second forms w = exp(s - m) / l, rounds it and
-//   sums w v. In fp32 rounding is the identity and one online pass remains.
-// - native (K6, r3d_tpu/ops/cross_attention.py:92): the UNNORMALISED weights
-//   e = exp(s - m_running) (times the keep factor) are rounded before the
-//   product with V, l sums the unrounded e, and out = acc / l; one pass. Only
-//   fp32 is instantiated on this layout, where that rounding is the identity.
-// The dropout mask is r3d::dropout_bits of the element index
-// ((b*H + h)*Lq + q)*Lk + k in both layouts, so the backwards redraw it.
+// memory, so each key is read from device memory once per block, and keeps
+// an online softmax (running max m, running sum l, rescaled accumulator)
+// over the chunks, so it is right for any Lk. Lane j scores key j of the
+// chunk against the query held in registers; for p.V each lane owns one of
+// the D output dims and a group of keys, reads the weights with shuffles,
+// and the key groups are summed at the end. The ragged last chunk is masked
+// in the kernel (no padding of K/V), so a fully masked row averages over the
+// real keys only. A score of -inf weighs 0, and a row whose every score is
+// -inf gives 0 and (m, l) = (-inf, 0), not NaN. In fp32 the TPU kernels'
+// bf16 rounding of the weights is the identity, so one online pass serves
+// both rounding points. The dropout mask is r3d::dropout_bits of the element
+// index ((b*H + h)*Lq + q)*Lk + k in both layouts, so the backwards redraw it.
 #pragma once
-
-#include <type_traits>
 
 #include "common.cuh"
 
@@ -45,16 +35,15 @@ namespace r3d {
 constexpr int kAttnQB = 8;    // queries per block, one warp each
 constexpr int kAttnKC = 32;   // keys per shared-memory stage, one lane each
 
-template <typename T, int D, bool kDropout, bool kNative>
+template <int D, bool kDropout, bool kNative>
 __global__ void __launch_bounds__(kAttnQB * 32)
-attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const float* __restrict__ bias,
-                     T* __restrict__ out, float* __restrict__ m_out, float* __restrict__ l_out,
+attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ bias,
+                     float* __restrict__ out, float* __restrict__ m_out, float* __restrict__ l_out,
                      int H, int Lq, int Lk, float scale, uint32_t seed, uint32_t threshold,
                      float keep_scale) {
   constexpr int QB = kAttnQB;
   constexpr int KC = kAttnKC;
-  constexpr bool kTwoPass = !kNative && !std::is_same<T, float>::value;  // see above
   constexpr int LDK = D + 1;              // padded so lane j reads row j conflict-free
   constexpr int DW = D < 32 ? D : 32;     // lanes across the output dims
   constexpr int G = 32 / DW;              // key groups per warp
@@ -74,13 +63,13 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                 : static_cast<size_t>(bh) * Lk * D;
   const size_t q_off = kNative ? (static_cast<size_t>(b) * Lq + qi) * ld + (bh % H) * D
                                : (static_cast<size_t>(bh) * Lq + qi) * D;
-  const T* kb = k + kv_off;
-  const T* vb = v + kv_off;
+  const float* kb = k + kv_off;
+  const float* vb = v + kv_off;
   const float* biasb = bias == nullptr ? nullptr : bias + static_cast<size_t>(b) * Lk;
 
   float qr[D];
 #pragma unroll
-  for (int d = 0; d < D; ++d) qr[d] = q_ok ? to_float(q[q_off + d]) : 0.f;
+  for (int d = 0; d < D; ++d) qr[d] = q_ok ? q[q_off + d] : 0.f;
   const int dl = lane % DW;
   const int kg = lane / DW;
   float m = -INFINITY;
@@ -88,33 +77,6 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float acc[DPL];
 #pragma unroll
   for (int e = 0; e < DPL; ++e) acc[e] = 0.f;
-
-  if (kTwoPass) {  // pass 1 (head-major only): each row's max m and sum l
-    for (int j0 = 0; j0 < Lk; j0 += KC) {
-      const int nk = min(KC, Lk - j0);
-      __syncthreads();
-      for (int idx = threadIdx.x; idx < KC * D; idx += QB * 32) {
-        const int j = idx / D;
-        ks[j * LDK + idx % D] = j < nk ? to_float(kb[static_cast<size_t>(j0) * D + idx]) : 0.f;
-      }
-      if (threadIdx.x < KC) {
-        bs[threadIdx.x] = (threadIdx.x < nk && biasb != nullptr) ? biasb[j0 + threadIdx.x] : 0.f;
-      }
-      __syncthreads();
-      float s = -INFINITY;
-      if (lane < nk) {
-        float dot = 0.f;
-#pragma unroll
-        for (int d = 0; d < D; ++d) dot = fmaf(qr[d], ks[lane * LDK + d], dot);
-        s = dot * scale + bs[lane];
-      }
-      const float m_new = fmaxf(m, warp_max(s));
-      const float corr = m_new == -INFINITY ? 1.f : expf(m - m_new);
-      l = l * corr + warp_sum(s == -INFINITY ? 0.f : expf(s - m_new));
-      m = m_new;
-    }
-  }
-  const float inv_l = l > 0.f ? 1.f / l : 0.f;   // pass 2's normaliser
 
   for (int j0 = 0; j0 < Lk; j0 += KC) {
     const int nk = min(KC, Lk - j0);
@@ -124,8 +86,8 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int dd = idx % D;
       const bool ok = j < nk;
       const size_t g = static_cast<size_t>(j0 + j) * ld + dd;
-      ks[j * LDK + dd] = ok ? to_float(kb[g]) : 0.f;
-      vs[j * D + dd] = ok ? to_float(vb[g]) : 0.f;
+      ks[j * LDK + dd] = ok ? kb[g] : 0.f;
+      vs[j * D + dd] = ok ? vb[g] : 0.f;
     }
     if (threadIdx.x < KC) {
       bs[threadIdx.x] = (threadIdx.x < nk && biasb != nullptr) ? biasb[j0 + threadIdx.x] : 0.f;
@@ -139,23 +101,16 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int d = 0; d < D; ++d) dot = fmaf(qr[d], ks[lane * LDK + d], dot);
       s = dot * scale + bs[lane];
     }
-    float corr = 1.f;
-    float p;
-    if (kTwoPass) {   // the normalised weight
-      p = s == -INFINITY ? 0.f : expf(s - m) * inv_l;
-    } else {          // online softmax
-      const float m_new = fmaxf(m, warp_max(s));
-      corr = m_new == -INFINITY ? 1.f : expf(m - m_new);
-      p = s == -INFINITY ? 0.f : expf(s - m_new);
-      l = l * corr + warp_sum(p);
-      m = m_new;
-    }
+    const float m_new = fmaxf(m, warp_max(s));   // online softmax
+    const float corr = m_new == -INFINITY ? 1.f : expf(m - m_new);
+    const float p = s == -INFINITY ? 0.f : expf(s - m_new);
+    l = l * corr + warp_sum(p);
+    m = m_new;
     float pv = p;  // the weight's share of the numerator
     if (kDropout) {
       const uint32_t idx = (static_cast<uint32_t>(bh) * Lq + qi) * Lk + j0 + lane;
       pv = dropout_bits(seed, idx) >= threshold ? p * keep_scale : 0.f;
     }
-    if (kTwoPass || kNative) pv = round_to<T>(pv);
 #pragma unroll
     for (int e = 0; e < DPL; ++e) acc[e] *= corr;
 #pragma unroll
@@ -171,10 +126,10 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = 0; e < DPL; ++e) acc[e] += __shfl_xor_sync(kFullMask, acc[e], off);
   }
   if (q_ok && kg == 0) {
-    const float inv = kTwoPass ? 1.f : (l > 0.f ? 1.f / l : 0.f);
-    T* o = out + q_off;
+    const float inv = l > 0.f ? 1.f / l : 0.f;
+    float* o = out + q_off;
 #pragma unroll
-    for (int e = 0; e < DPL; ++e) o[dl + 32 * e] = from_float<T>(acc[e] * inv);
+    for (int e = 0; e < DPL; ++e) o[dl + 32 * e] = acc[e] * inv;
     if (kNative && lane == 0) {
       m_out[static_cast<size_t>(bh) * Lq + qi] = m;
       l_out[static_cast<size_t>(bh) * Lq + qi] = l;

@@ -433,7 +433,7 @@ int launch_fp32(const void* q, const void* k, const void* v, const float* bias, 
                 float* m, float* l, int B, int Lq, int S, int H, float scale, uint32_t seed,
                 uint32_t threshold, float keep_scale, cudaStream_t stream) {
   const dim3 grid(B * H, (Lq + QB - 1) / QB);
-  r3d::attention_fwd_kernel<float, D, kDropout, true><<<grid, QB * 32, 0, stream>>>(
+  r3d::attention_fwd_kernel<D, kDropout, true><<<grid, QB * 32, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       bias, static_cast<float*>(out), m, l, H, Lq, S, scale, seed, threshold, keep_scale);
   return static_cast<int>(cudaGetLastError());

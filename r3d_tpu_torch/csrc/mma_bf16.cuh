@@ -1,5 +1,5 @@
-// Building blocks of the bf16 tensor-core kernels (attention_bwd.cu's bf16
-// body, cross_attention.cu's bf16 body): 16-byte asynchronous copies into
+// Building blocks of the bf16 tensor-core kernels (the bf16 bodies of
+// attention.cu, attention_bwd.cu and cross_attention.cu): asynchronous copies into
 // shared memory, bf16 tiles in shared memory with their 16-byte chunks
 // swizzled so that `ldmatrix` reads them without bank conflicts, and the warp
 // level product mma.sync m16n8k16 (bf16 x bf16 -> fp32).
@@ -30,6 +30,14 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
   const int n = ok ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(n)
+               : "memory");
+}
+
+// As cp_async16 for 4 bytes (through L1: .cg takes only 16).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  const int n = ok ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
                "r"(n)
                : "memory");
 }

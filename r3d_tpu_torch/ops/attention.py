@@ -3,8 +3,7 @@
 Counterpart of ``r3d_tpu/ops/attention.py``. Three kernels:
 
 - K3 (``csrc/attention.cu``, ``r3d_attention_fwd``): ``softmax(q k^T *
-  scale + bias) v`` with an fp32 online softmax, one block per (batch*head,
-  tile of 8 queries), masking its own ragged key edge;
+  scale + bias) v`` with an fp32 softmax, masking its own ragged key edge;
 - K4 (the same source, ``r3d_attention_fwd_dropout``): K3 with dropout on
   the softmax weights, the keep mask a hash of (seed, element index);
 - K5 (``csrc/attention_bwd.cu``): the backward of both, redrawing the mask.
@@ -25,8 +24,14 @@ apart), with fp32 math and the TPU kernels' rounding points, which the
 plain versions share: K3 and K4 round the normalised weights (after
 dropout) to V's type before the product with V and write the output in q's
 type; K5 computes in fp32 and rounds dq, dk and dv to the inputs' type once.
-K5's bf16 body splits the keys across blocks and writes dk and dv once, in
-bf16, from the kernel; its fp32 body sums them in fp32 device memory.
+The fp32 forwards run one block per (batch*head, tile of 8 queries) with an
+online softmax. The bf16 forwards split the keys into runs of
+``fwd_split_keys``, one block each, and the blocks of one (batch*head,
+query tile) form a thread-block cluster: they combine their softmax
+statistics before any weight is rounded, then their partial outputs, in a
+fixed order, in one launch. K5's bf16 body splits the keys across blocks
+and writes dk and dv once, in bf16, from the kernel; its fp32 body sums them
+in fp32 device memory.
 """
 
 from __future__ import annotations
@@ -53,10 +58,12 @@ BWD_KERNEL = Kernel(
     + [ctypes.c_float, ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float,
        ctypes.c_void_p],
 )
-KERNEL_BF16 = Kernel("flash_attention_bf16", "attention.cu", "r3d_attention_fwd_bf16",
-                     KERNEL.argtypes)
-DROPOUT_KERNEL_BF16 = Kernel("flash_attention_dropout_bf16", "attention.cu",
-                             "r3d_attention_fwd_dropout_bf16", DROPOUT_KERNEL.argtypes)
+KERNEL_BF16 = Kernel(   # one more int, the split size, after D
+    "flash_attention_bf16", "attention.cu", "r3d_attention_fwd_bf16",
+    KERNEL.argtypes[:10] + [ctypes.c_int] + KERNEL.argtypes[10:])
+DROPOUT_KERNEL_BF16 = Kernel(
+    "flash_attention_dropout_bf16", "attention.cu", "r3d_attention_fwd_dropout_bf16",
+    DROPOUT_KERNEL.argtypes[:10] + [ctypes.c_int] + DROPOUT_KERNEL.argtypes[10:])
 BWD_KERNEL_BF16 = Kernel(   # two more pointers (its scratch) and the key-block count
     "attention_bwd_bf16", "attention_bwd.cu", "r3d_attention_bwd_bf16",
     [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + BWD_KERNEL.argtypes[14:],
@@ -67,6 +74,8 @@ _BY_DTYPE = {  # (forward, dropout forward, backward) per input dtype
 }
 KERNEL_HEAD_DIMS = (16, 32, 64)   # csrc/attention*.cu: instantiated D
 BWD_BLOCK_KEYS = 64               # csrc/attention_bwd.cu: KB, keys per block of the bf16 body
+FWD_SPLIT_UNIT = 128              # csrc/attention.cu: NW * KT, one tile of keys per warp
+FWD_MAX_SPLITS = 8                # csrc/attention.cu: MAX_SPLITS, blocks per cluster
 
 _U32 = 0xFFFFFFFF
 
@@ -109,6 +118,14 @@ def dropout_keep(seed: int, rate: float, shape, device) -> torch.Tensor:
     softmax weights by."""
     keep = dropout_bits(seed, shape, device) >= dropout_threshold(rate)
     return keep.to(torch.float32) / (1.0 - rate)
+
+
+def fwd_split_keys(Lk: int) -> int:
+    """Keys per block of the bf16 forwards: as many splits of one tile per
+    warp (128 keys) as cover Lk, up to 8 (a cluster's blocks); past 1,024
+    keys each split grows by whole tiles. 4 splits of 128 at Lk = 512."""
+    n = min(FWD_MAX_SPLITS, -(-Lk // FWD_SPLIT_UNIT))
+    return FWD_SPLIT_UNIT * -(-Lk // (FWD_SPLIT_UNIT * n))
 
 
 def _scores(q, k, bias, scale):
@@ -193,14 +210,26 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _fwd_shape(fn, q, k, v, bias):
+    """The shape arguments of the forward launchers, checked: (B, H, Lq, Lk,
+    D), and for bf16 (16-byte copies) also the split size."""
+    shape = _check(fn, q, k, v, bias)
+    if q.dtype != torch.bfloat16:
+        return shape
+    _check_aligned(fn, q=q, k=k, v=v)
+    if shape[0] * shape[1] > 65535:
+        raise ValueError(f"{fn}: B*H must be at most 65535 (the grid's z)")
+    return shape + (fwd_split_keys(shape[3]),)
+
+
 def _attention_fwd(q, k, v, bias, scale):
     """K3, or the plain version for CPU tensors."""
     if q.device.type == "cpu":
         return composed_attention(q, k, v, bias, scale)
-    B, H, Lq, Lk, D = _check("flash_attention", q, k, v, bias)
+    shape = _fwd_shape("flash_attention", q, k, v, bias)
     out = torch.empty_like(q)
     _BY_DTYPE[q.dtype][0].launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
-                                 out.data_ptr(), B, H, Lq, Lk, D, float(scale), _stream(q))
+                                 out.data_ptr(), *shape, float(scale), _stream(q))
     return out
 
 
@@ -208,14 +237,14 @@ def _attention_fwd_dropout(q, k, v, bias, seed, scale, rate):
     """K4, or the plain version for CPU tensors."""
     if q.device.type == "cpu":
         return composed_attention_dropout(q, k, v, bias, seed, scale, rate)
-    B, H, Lq, Lk, D = _check("flash_attention_dropout", q, k, v, bias)
+    shape = _fwd_shape("flash_attention_dropout", q, k, v, bias)
+    B, H, Lq, Lk = shape[:4]
     if B * H * Lq * Lk > 2 ** 32:
         raise ValueError("flash_attention_dropout: B*H*Lq*Lk must fit a 32-bit index")
     out = torch.empty_like(q)
     _BY_DTYPE[q.dtype][1].launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), out.data_ptr(),
-        B, H, Lq, Lk, D, float(scale), int(seed) & _U32, dropout_threshold(rate),
-        1.0 / (1.0 - rate), _stream(q))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), out.data_ptr(), *shape,
+        float(scale), int(seed) & _U32, dropout_threshold(rate), 1.0 / (1.0 - rate), _stream(q))
     return out
 
 

@@ -13,11 +13,12 @@ K7) is held to 2e-5 forward and 1e-4 backward in fp32 (its gradient sums
 run over up to 3,100 keys). In bf16 the kernels and the plain versions
 round at the same points, but a sum taken in another order can land a
 value on the neighbouring bf16 number (2**-8 relative), so bf16 results
-are held to 2e-2 of the tensor's largest entry. K5 and K6 in bf16 split the
+are held to 2e-2 of the tensor's largest entry. K3-K6 in bf16 split the
 keys across blocks and sum the blocks' partials in block order, so two calls
 must agree bit for bit, and the shapes around their block sizes (64 keys
-for K5, whole units of 128 for K6, 32 queries) are covered: one key, less than a block, one key past a
-block, and blocks whose keys are all masked.
+for K5, whole units of 128 for K3, K4 and K6, 32 queries) are covered: one
+key, less than a block, one key past a block, and blocks whose keys are all
+masked.
 """
 
 import math
@@ -330,12 +331,18 @@ def test_cross_attention_autograd_matches_autograd_of_plain(cuda):
             _close(a, b, 1e-4)
 
 
-@pytest.mark.parametrize("Lq", [20, 33, 70])
-@pytest.mark.parametrize("Lk", [1, 31, 65, 256, 300, 512])
+@pytest.mark.parametrize("Lq,Lk", [(q, k) for q in (20, 33, 70)
+                                   for k in (1, 31, 65, 256, 300, 512, 1024, 2048)]
+                         + [(512, 512)])
 @pytest.mark.parametrize("D", [16, 32, 64])
 def test_attention_kernels_bf16_match_plain(cuda, Lk, D, Lq):
-    """K3, K4 and K5 on bf16 inputs at the 50salads query count, and at
-    query counts of more than one tile of K5's 32."""
+    """K3, K4 and K5 on bf16 inputs at the 50salads query count, at query
+    counts of more than one tile of 32, on the self-attention route (Lq ==
+    Lk), at key counts around the forwards' splits (one, less than one of
+    128, 8 of 128 at 1,024, 8 of 256 at 2,048); at Lk = 512 also with rows
+    whose later splits hold only masked keys."""
+    from chip_smoke import masked_split_bias
+
     gen = torch.Generator().manual_seed(Lk + 7 * D)
     q, k, v, bias = attention_inputs(8, 8, Lq, Lk, D, gen, cuda, all_masked_row=Lk > 1)
     q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
@@ -358,6 +365,27 @@ def test_attention_kernels_bf16_match_plain(cuda, Lk, D, Lq):
     assert [kern.launches for kern in (att.KERNEL_BF16, att.DROPOUT_KERNEL_BF16,
                                        att.BWD_KERNEL_BF16)] == [c + n for c, n in
                                                                   zip(counts, (1, 1, 2))]
+    if Lk == 512:
+        bias = masked_split_bias(8, Lk, (512, 10, 0, 128, 129, 300, 384, 1), cuda)
+        got = att.flash_attention(q, k, v, bias, scale)
+        _close(got.float(), att.composed_attention(q, k, v, bias, scale).float(), BF16_TOL,
+               "K3, masked splits")
+        got = att.flash_attention_dropout(q, k, v, bias, 22, scale, 0.1)
+        want = att.composed_attention_dropout(q, k, v, bias, 22, scale, 0.1)
+        _close(got.float(), want.float(), BF16_TOL, "K4, masked splits")
+
+
+@pytest.mark.parametrize("Lq,Lk", [(20, 512), (70, 300), (20, 2049)])
+def test_attention_fwd_bf16_kernels_are_deterministic(cuda, Lq, Lk):
+    """K3 and K4 in bf16 sum their splits' statistics and partials in a
+    fixed order: two calls agree bit for bit."""
+    gen = torch.Generator().manual_seed(Lq * Lk)
+    q, k, v, bias = attention_inputs(8, 8, Lq, Lk, 64, gen, cuda, all_masked_row=True)
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    assert torch.equal(att.flash_attention(q, k, v, bias, 0.125),
+                       att.flash_attention(q, k, v, bias, 0.125))
+    assert torch.equal(att.flash_attention_dropout(q, k, v, bias, 5, 0.125, 0.1),
+                       att.flash_attention_dropout(q, k, v, bias, 5, 0.125, 0.1))
 
 
 def test_cross_attention_wrappers_raise_on_what_the_kernels_do_not_take(cuda):

@@ -16,7 +16,10 @@ The bf16 CUDA kernel of K5 cannot run here, but its algorithm can: a short
 PyTorch emulation (keys split across blocks of ``BWD_BLOCK_KEYS`` that own
 their dk, dv and dbias, the softmax statistics from a first pass per block,
 dq summed over the blocks' partials in order) is held to the plain version,
-fp32 within 2e-6 and bf16 within one bf16 step of the largest entry.
+fp32 within 2e-6 and bf16 within one bf16 step of the largest entry. So is
+the algorithm of K3's and K4's bf16 kernel (keys split into runs of
+``fwd_split_keys``, the runs' softmax statistics combined in order before
+the normalised weights are rounded, the runs' partials summed in order).
 """
 
 import numpy as np
@@ -389,3 +392,81 @@ def test_keyblock_backward_matches_plain(Lk, pad_from, Lq, dtype, rate):
         tol = (2e-6 * max(1.0, big) if dtype == "float32" or name == "dbias"
                else big * 2.0 ** -7)
         assert float((a.float() - b.float()).abs().max()) <= tol, name
+
+
+# ---- the split-key algorithm of K3/K4's bf16 CUDA kernel, emulated ----
+
+def _split_key_forward(q, k, v, bias, seed, scale, rate, warps=4):
+    """K3 (rate 0) or K4 as their bf16 kernel computes them: the keys split
+    into runs of ``fwd_split_keys`` (one block each, ``warps`` warps that own
+    a quarter each), every run's (m_i, l_i) combined in order into the row's
+    (m, l) BEFORE any weight is rounded, the normalised weights rounded to
+    V's type after the keep factor, and the runs' partials summed in order."""
+    SK = pt_attn.fwd_split_keys(k.shape[2])
+    s = pt_attn._scores(q, k, bias, scale)
+    Lk = s.shape[-1]
+    keep = (pt_attn.dropout_keep(seed, rate, s.shape, q.device) if rate > 0.0
+            else torch.ones_like(s))
+    zero = torch.zeros(s.shape[:-1])
+    runs = [slice(j0, min(j0 + SK, Lk)) for j0 in range(0, Lk, SK)]
+
+    def combine(parts):   # in the order given; a part with no key weighs 0
+        m = torch.stack([p[0] for p in parts]).amax(0)
+        l = zero.clone()
+        for m_i, l_i in parts:
+            l = l + l_i * torch.where(m_i == -torch.inf, zero, torch.exp(m_i - m))
+        return m, l
+
+    stats = []
+    for run in runs:   # each block's warps, in warp order
+        parts = []
+        for w0 in range(run.start, run.start + SK, SK // warps):
+            sl = slice(w0, min(w0 + SK // warps, Lk))
+            if sl.start >= Lk:
+                parts.append((torch.full_like(zero, -torch.inf), zero))
+                continue
+            m_w = s[..., sl].amax(-1)
+            parts.append((m_w, torch.exp(s[..., sl] - m_w[..., None]).sum(-1)))
+        stats.append(combine(parts))
+    m, l = combine(stats)   # the cluster's blocks, in rank order
+    inv_l = torch.where(l > 0, 1.0 / l, zero)
+    w = (torch.exp(s - m[..., None]) * inv_l[..., None] * keep).to(v.dtype).float()
+    out = torch.zeros(q.shape)
+    for run in runs:   # the blocks' partials, in rank order
+        out = out + torch.einsum("bhqk,bhkd->bhqd", w[..., run], v.float()[:, :, run])
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Lq", [20, 33, 70])
+@pytest.mark.parametrize("Lk,pad_from", [
+    (1, (1, 1, 0)),           # one key; a fully masked row
+    (31, (31, 5, 0)),         # less than one warp's tile
+    (65, (65, 64, 0)),        # a warp whose only key is masked
+    (300, (300, 100, 0)),     # ragged last split; a row whose later splits are all masked
+    (512, (512, 128, 0)),     # four whole splits; the last three of a row all masked
+])
+def test_split_key_attention_forward_matches_plain(Lk, pad_from, Lq, dtype, rate):
+    rng = np.random.RandomState(Lk + 2 * Lq)
+    tdt = getattr(torch, dtype)
+    q, k, v, bias = (torch.from_numpy(x) for x in _attention_inputs(rng, 3, 4, Lq, Lk, 16,
+                                                                    pad_from))
+    q, k, v = (t.to(tdt) for t in (q, k, v))
+    got = _split_key_forward(q, k, v, bias, 29, 0.25, rate)
+    want = pt_attn.composed_attention_dropout(q, k, v, bias, 29, 0.25, rate)
+    assert got.dtype == want.dtype and torch.isfinite(got.float()).all()
+    big = float(want.float().abs().max())
+    tol = 2e-6 * max(1.0, big) if dtype == "float32" else big * 2.0 ** -7
+    assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+def test_fwd_split_keys_fit_one_cluster():
+    """The bf16 forwards' splits: whole tiles of 128 keys (one of 32 a warp),
+    at most 8 a cluster; one tile a warp up to 1,024 keys, past that the
+    smallest split that 8 blocks cover."""
+    unit, most = pt_attn.FWD_SPLIT_UNIT, pt_attn.FWD_MAX_SPLITS
+    for Lk in list(range(1, 2100, 7)) + [1024, 1025, 4096, 8191, 8192]:
+        split = pt_attn.fwd_split_keys(Lk)
+        assert split % unit == 0 and -(-Lk // split) <= most, Lk
+        assert split == unit if Lk <= unit * most else (split - unit) * most < Lk, Lk
