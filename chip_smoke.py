@@ -9,9 +9,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 2. build the CUDA kernels from ``r3d_tpu_torch/csrc`` (one nvcc per source,
    all in parallel) and print what ptxas says of each;
 3. hold each kernel against its plain PyTorch version on the card, fp32
-   with TF32 off, at the model's shapes: the fuser tail forward on both
-   routes and its backward at N = 8*256, 8*512 and a ragged N (the no-blend
-   route and the backward with the outer residual off and on); attention
+   with TF32 off, at the model's shapes: the fuser tail forward (K1) on both
+   routes with the outer residual off and on at the utkinects buckets' N =
+   8*256, 8*512, 8*1024, 8*2000 and a ragged N, twice bit-equal, with each
+   bucket's launch shape and times; its backward at N = 8*256, 8*512 and a
+   ragged N with the outer residual off and on; attention
    forward, dropout forward and backward (rate 0 and 0.1) at B = 8, H = 8,
    Lq = 8, D = 16, Lk = 256, 512 and a ragged 300 with a fully masked row;
    the same three in bf16 at the 50salads decoder's Lq = 20, D = 64, each
@@ -22,7 +24,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    native cross-attention forward and backward (K6, K7) in fp32 and bf16 at
    B = 8, H = 8, (Lq, C) = (20, 512) and (8, 128), S = 1024, 3100 and a
    ragged 777 with padded key tails and a fully masked row, rate 0 and 0.1,
-   and K6 at S = 1, 31 and 257 and with splits whose keys are all masked.
+   at S = 1, 31 and 257 and with splits whose keys are all masked, each
+   twice bit-equal, and one bf16 K7 call audited as its two launches.
    Time each at the main path's shape: kernel, plain version, bound and,
    where one exists, one PyTorch library call as the yardstick;
 4. utkinects serving: an ``InferenceSession`` at full width (n_class 17,
@@ -70,6 +73,7 @@ N_CLASS = 17            # UTKinect: 16 L2 actions + NONE
 H100_BYTES_PER_S = 3.35e12
 H100_FP32_FLOPS = 67e12  # fp32 outside the tensor cores, SXM, 700 W
 H100_BF16_FLOPS = 989e12  # bf16 tensor cores, dense, SXM, 700 W
+H100_TF32X3_FLOPS = 495e12 / 3   # fp32-accurate products as three TF32 tensor-core products
 K1_TOL = 1e-4            # fp32 on both sides; sums of up to 512 terms in another order
 K2_TOL = 1e-4            # as K1, relative to each gradient's largest entry (row sums grow)
 K3_TOL = 2e-5            # fp32; online vs two-pass softmax
@@ -90,11 +94,12 @@ BF16_TOL = 2e-2          # bf16 kernels vs their plain versions, over the larges
 
 
 # every __global__ function of r3d_tpu_torch/csrc, by a fragment of its name
-OWN_KERNELS = ("fused_tail_kernel", "fuser_tail_bwd_kernel", "sum_partials_kernel",
+OWN_KERNELS = ("fuser_tail_tf32_kernel", "fuser_tail_bwd_kernel", "sum_partials_kernel",
                "attention_fwd_kernel", "attention_fwd_split_kernel", "attention_bwd_kernel",
                "attention_bwd_bf16_kernel",
                "dq_sum_kernel", "cross_fwd_split_kernel", "cross_fwd_combine_kernel",
-               "cross_attention_bwd_kernel", "dq_reduce_kernel")
+               "cross_attention_bwd_kernel", "dq_reduce_kernel", "cross_bwd_bf16_kernel",
+               "cross_bwd_sum_kernel")
 
 
 def fuser_inputs(N, gen, device, C=128, Ch=512):
@@ -162,19 +167,21 @@ def cross_inputs(B, Lq, S, C, gen, device, dtype, all_masked_row=False):
 def fuser_bound_ms(N, C=128, Ch=512, with_blend=True):
     """Least time: bytes (streams in and out once, the tail's parameters
     once, with 8 [C] vectors, and the blend's 7 [C] vectors on its route)
-    over HBM rate, or fp32 flops of the three products over the CUDA-core
-    rate."""
+    over HBM rate, or the flops of the three fp32-accurate products at the
+    3xTF32 tensor-core rate (495 / 3 TFLOP/s; the fp32 pipes' 67 would give
+    2.5x more)."""
     n_bytes = 4 * (3 * N * C + C * C + 2 * C * Ch + Ch + (15 if with_blend else 8) * C)
     flops = N * 2 * (2 * C * C + 4 * C * Ch)
-    return _bound(n_bytes, flops)
+    return _bound(n_bytes, flops, H100_TF32X3_FLOPS)
 
 
 def fuser_bwd_bound_ms(N, C=128, Ch=512):
     """Streams r, d, g in and dr, dd out once, parameters in and their
     gradients out once; about 6 * N * (2*C*C + 4*C*Ch) flops (forward
-    recomputed, the backward's products)."""
+    recomputed, the backward's products), fp32-accurate as for K1."""
     n_params = C * C + 2 * C * Ch + Ch + 8 * C
-    return _bound(4 * (5 * N * C + 2 * n_params), 6 * N * (2 * C * C + 4 * C * Ch))
+    return _bound(4 * (5 * N * C + 2 * n_params), 6 * N * (2 * C * C + 4 * C * Ch),
+                  H100_TF32X3_FLOPS)
 
 
 def attention_bound_ms(B, H, Lq, Lk, D):
@@ -237,6 +244,20 @@ def time_ms(fn, iters=50, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def card_events(prof):
+    """The profiler's averages of what ran on the card: kernels, copies and
+    memsets. User annotations are left out: a ``record_function`` range (as
+    ``Optimizer.step#AdamW.step``, which torch.optim puts around every
+    step) also lands on the card's timeline, spanning the kernels it
+    enqueued and the gaps between them, so counting it would count those
+    kernels twice and the gaps as busy, and add a launch."""
+    import torch
+
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def device_ms(fn, names, iters=20):
     """Device time per CALL of ``fn``: the device time of every kernel whose
     name holds one of ``names`` (a string or several; all the launches of a
@@ -256,13 +277,10 @@ def device_ms(fn, names, iters=20):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        if names is None:
-            events = [e for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA]
-            total_us = sum(e.self_device_time_total for e in events)
-        else:
-            events = [e for e in prof.key_averages() if any(n in e.key for n in names)]
-            total_us = sum(getattr(e, "device_time_total", 0.0) for e in events)
+        events = card_events(prof)
+        if names is not None:
+            events = [e for e in events if any(n in e.key for n in names)]
+        total_us = sum(e.self_device_time_total for e in events)
         if events and total_us > 0:
             return total_us / iters / 1e3
     return None
@@ -283,36 +301,88 @@ def raw_launcher(kernel, *args):
     return lambda: fn(*args)
 
 
+K1_ROWS = (8 * 256, 8 * 512, 8 * 1024, 8 * 2000)   # the utkinects buckets' batches of 8
+
+
+def fuser_tail_config(N):
+    """K1's launch at N rows: (rows of each stream a block takes, blocks,
+    blocks that fit one SM at once)."""
+    import ctypes
+
+    from r3d_tpu_torch.ops import fuser_kernel as fk
+
+    out = [ctypes.c_int() for _ in range(3)]
+    fn = fk.KERNEL.query("r3d_fuser_tail_config",
+                         [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3)
+    err = fn(N, *(ctypes.byref(x) for x in out))
+    if err:
+        raise RuntimeError(f"r3d_fuser_tail_config: CUDA error {err}")
+    return tuple(x.value for x in out)
+
+
 def check_fuser_kernel(gen, device):
+    """K1 on both routes, the outer residual off and on, against its plain
+    version at the utkinects buckets' N = 8 x 256, 512, 1,024 and 2,000 rows
+    and a ragged N, each call twice bit-equal; each bucket's launch shape,
+    and both routes timed there beside the bound. Returns per route (worst
+    error, the timing at N = 8 x 512, the main path's serving chunk)."""
     import torch
 
     from r3d_tpu_torch.ops import fuser_kernel as fk
 
-    worst, timing = 0.0, None
-    for N in (8 * 256, 8 * 512, 8 * 256 + 5):
+    stream = torch.cuda.current_stream().cuda_stream
+    worst = {"blend": 0.0, "no-blend": 0.0}
+    timing = {}
+    for N in K1_ROWS + (8 * 256 + 5,):
         r, d, blend, params = fuser_inputs(N, gen, device)
-        got = fk.fused_bn_blend_tail(r, d, blend, params)
-        want = fk.composed_tail(*fk.composed_bn_blend(r, d, blend), params)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        print(f"fused_bn_blend_tail N={N}: max|kernel - plain| = {err:.3e} (tol {K1_TOL})")
-        if not (err <= K1_TOL and torch.isfinite(got).all()):
-            raise AssertionError(f"fused_bn_blend_tail disagrees with its plain version at N={N}")
-        worst = max(worst, err)
-        if N == 8 * 512:   # the 512-bucket chunk of the serving path
-            out = torch.empty_like(r)
-            stream = torch.cuda.current_stream().cuda_stream
-            launch = raw_launcher(fk.KERNEL, r.data_ptr(), d.data_ptr(),
+        for outer in (False, True):
+            calls = {
+                "blend": (lambda: fk.fused_bn_blend_tail(r, d, blend, params, outer),
+                          lambda: fk.composed_tail(*fk.composed_bn_blend(r, d, blend), params,
+                                                   outer)),
+                "no-blend": (lambda: fk.fused_safuser_tail(r, d, params, outer),
+                             lambda: fk.composed_tail(r, d, params, outer)),
+            }
+            for route, (fn, plain) in calls.items():
+                got = fn()
+                err = float((got - plain()).abs().max())
+                print(f"K1 {route} N={N} outer_residual={outer}: max|kernel - plain| = "
+                      f"{err:.3e} (tol {K1_TOL})")
+                if not (err <= K1_TOL and torch.isfinite(got).all()):
+                    raise AssertionError(f"K1 {route} disagrees with its plain version at N={N}, "
+                                         f"outer_residual={outer}")
+                if not torch.equal(got, fn()):
+                    raise AssertionError(f"K1 {route} is not deterministic at N={N}")
+                worst[route] = max(worst[route], err)
+        if N not in K1_ROWS:
+            continue
+        rows, blocks, per_sm = fuser_tail_config(N)
+        out = torch.empty_like(r)
+        launches = {
+            "blend": raw_launcher(fk.KERNEL, r.data_ptr(), d.data_ptr(),
                                   *(t.data_ptr() for t in blend),
-                                  *(t.data_ptr() for t in params), out.data_ptr(),
-                                  N, 128, 512, 0, stream)
-            plain = lambda: fk.composed_tail(*fk.composed_bn_blend(r, d, blend), params)
-            bound, bound_by = fuser_bound_ms(N)
-            timing = {"shape": f"N={N} C=128 Ch=512", "ms": time_ms(launch),
-                      "device_ms": device_ms(launch, "fused_tail_kernel<true"),
-                      "plain_ms": time_ms(plain), "library_ms": None, "library_device_ms": None,
-                      "bound_ms": bound, "bound_by": bound_by}
-    return worst, timing
+                                  *(t.data_ptr() for t in params), out.data_ptr(), N, 128, 512,
+                                  0, stream),
+            "no-blend": raw_launcher(fk.TAIL_KERNEL, r.data_ptr(), d.data_ptr(),
+                                     *(t.data_ptr() for t in params), out.data_ptr(), N, 128,
+                                     512, 0, stream),
+        }
+        for route, launch in launches.items():
+            bound, bound_by = fuser_bound_ms(N, with_blend=route == "blend")
+            t = {"shape": f"N={N} C=128 Ch=512", "ms": time_ms(launch),
+                 "device_ms": device_ms(launch, "fuser_tail_tf32_kernel<" +
+                                        ("true" if route == "blend" else "false")),
+                 "library_ms": None, "library_device_ms": None, "bound_ms": bound,
+                 "bound_by": bound_by}
+            print(f"K1 {route} N={N}: {blocks} blocks of {rows} rows of each stream, {per_sm} "
+                  f"an SM; {t['ms']:.4f} ms by events, {t['device_ms']:.4f} on the device, "
+                  f"bound {bound:.4f} ({bound_by})")
+            if N == 8 * 512:
+                plain = {"blend": lambda: fk.composed_tail(*fk.composed_bn_blend(r, d, blend),
+                                                           params),
+                         "no-blend": lambda: fk.composed_tail(r, d, params)}[route]
+                timing[route] = {**t, "plain_ms": time_ms(plain)}
+    return (worst["blend"], timing["blend"]), (worst["no-blend"], timing["no-blend"])
 
 
 def errs(got, want):
@@ -330,29 +400,19 @@ def worse(a, b):
     return max(a[0], b[0]), max(a[1], b[1])
 
 
-def check_tail_kernels(gen, device):
-    """K1's no-blend route and K2 (the fuser-tail backward)."""
+def check_fuser_bwd_kernel(gen, device):
+    """K2 (the fuser-tail backward) at N = 8 x 256, 8 x 512 and a ragged N,
+    the outer residual off and on; timed at N = 8 x 512."""
     import torch
 
-    from r3d_tpu_torch.ops import fuser_kernel as fk
     from r3d_tpu_torch.ops import fuser_kernel_bwd as fkb
 
-    worst_fwd = 0.0
     worst_bwd = (0.0, 0.0)
-    t_fwd = t_bwd = None
+    t_bwd = None
     for N in (8 * 256, 8 * 512, 8 * 256 + 5):
         r, d, _, params = fuser_inputs(N, gen, device)
         g = torch.randn(N, 128, generator=gen).to(device)
         for outer in (False, True):
-            got = fk.fused_safuser_tail(r, d, params, outer)
-            want = fk.composed_tail(r, d, params, outer)
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            print(f"fused_safuser_tail N={N} outer_residual={outer}: "
-                  f"max|kernel - plain| = {err:.3e} (tol {K1_TOL})")
-            if not (err <= K1_TOL and torch.isfinite(got).all()):
-                raise AssertionError(f"fused_safuser_tail disagrees at N={N}")
-            worst_fwd = max(worst_fwd, err)
             got = fkb.fused_tail_bwd(r, d, g, params, outer)
             want = fkb.composed_tail_bwd(r, d, g, params, outer)
             torch.cuda.synchronize()
@@ -364,15 +424,6 @@ def check_tail_kernels(gen, device):
             worst_bwd = (max(worst_bwd[0], ea), max(worst_bwd[1], er))
         if N == 8 * 512:
             stream = torch.cuda.current_stream().cuda_stream
-            out = torch.empty_like(r)
-            launch = raw_launcher(fk.TAIL_KERNEL, r.data_ptr(), d.data_ptr(),
-                                  *(t.data_ptr() for t in params), out.data_ptr(),
-                                  N, 128, 512, 0, stream)
-            bound, bound_by = fuser_bound_ms(N, with_blend=False)
-            t_fwd = {"shape": f"N={N} C=128 Ch=512", "ms": time_ms(launch),
-                     "device_ms": device_ms(launch, "fused_tail_kernel<false"),
-                     "plain_ms": time_ms(lambda: fk.composed_tail(r, d, params)),
-                     "library_ms": None, "library_device_ms": None, "bound_ms": bound, "bound_by": bound_by}
             layout, P = fkb.grad_layout(128, 512)
             blocks = max(1, min(-(-N // fkb.TILE_ROWS),
                                 torch.cuda.get_device_properties(device).multi_processor_count))
@@ -389,7 +440,7 @@ def check_tail_kernels(gen, device):
                      "plain_ms": time_ms(lambda: fkb.composed_tail_bwd(r, d, g, params, False),
                                          iters=20),
                      "library_ms": None, "library_device_ms": None, "bound_ms": bound, "bound_by": bound_by}
-    return (worst_fwd, t_fwd), (worst_bwd, t_bwd)
+    return worst_bwd, t_bwd
 
 
 def check_attention_train_kernels(gen, device):
@@ -515,23 +566,25 @@ def check_attention_kernel(gen, device):
 def own_launches_per_call(fn, fragments, per_call, label, calls=5):
     """Fail unless ``calls`` calls of ``fn`` are, on the card, exactly
     ``per_call`` launches each of kernels whose names hold one of
-    ``fragments``, and nothing else (no memset, no cast)."""
+    ``fragments``, and nothing else (no memset, no cast). A trace of so short
+    a window now and then comes back empty or short of an event: such a
+    trace is taken again (three times at most); a foreign kernel or one
+    launch too many fails at once."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     on_card = {}
-    for _ in range(3):   # a trace of so short a window can come back empty
+    for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      acc_events=True) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        on_card = {e.key: e.count for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA}
-        if on_card:
+        on_card = {e.key: e.count for e in card_events(prof)}
+        foreign = [k for k in on_card if not any(f in k for f in fragments)]
+        if foreign or sum(on_card.values()) >= per_call * calls:
             break
     print(f"{label}: {calls} calls on the card: { {k[:70]: c for k, c in on_card.items()} }")
-    foreign = [k for k in on_card if not any(f in k for f in fragments)]
     if foreign or sum(on_card.values()) != per_call * calls:
         raise AssertionError(f"{label} should be {per_call} launches of its own kernels a "
                              f"call: {on_card}")
@@ -702,11 +755,13 @@ def check_cross_attention_kernels(gen, device):
     """K6 and K7 against their plain versions: fp32 and bf16; B = 8, H = 8;
     (Lq, C) = (20, 512) and (8, 128); S = 1024, 3100, a ragged 777, 257 (a
     last split of one key), 31 and 1, each with padded key tails and (S > 1)
-    a fully masked row; rows whose later splits are all masked;
-    two calls of K6 bit-equal; rate 0 and 0.1 (the keep
-    rate, and K7 under the same seed agreeing with the plain backward, which
-    redraws the plain forward's mask). Timed at the 50salads shape: B = 8,
-    Lq = 20, S = 3100, C = 512, bf16."""
+    a fully masked row; rows whose later splits are all masked; two calls of
+    each bit-equal; rate 0 and 0.1 (the keep rate, and K7 under the same
+    seed agreeing with the plain backward, which redraws the plain forward's
+    mask). One bf16 K7 call audited as its two launches. Timed at the
+    50salads shape: B = 8, Lq = 20, S = 3100, C = 512, bf16."""
+    import ctypes
+
     import torch
     import torch.nn.functional as F
 
@@ -743,6 +798,9 @@ def check_cross_attention_kernels(gen, device):
                     if not all(torch.equal(a, b) for a, b in zip(
                             (out, m, l), ca.cross_attention_fwd(q, k, v, bias, seed, scale, r_, H))):
                         raise AssertionError(f"K6 is not deterministic at {dtype} S={S}")
+                    if not all(torch.equal(a, b) for a, b in zip(got_b, ca.cross_attention_bwd(
+                            q, k, v, bias, seed, scale, r_, H, g, out, m, l, need_dbias=True))):
+                        raise AssertionError(f"K7 is not deterministic at {dtype} S={S}")
                     print(f"cross_attention {str(dtype)[6:]} Lq={Lq} C={C} S={S} rate={r_} "
                           f"(padded tails, one row fully masked): out max|kernel - plain| "
                           f"{e_out[0]:.3e}, relative {e_out[1]:.3e} (tol {ftol}); m and l "
@@ -756,12 +814,14 @@ def check_cross_attention_kernels(gen, device):
                     worst["bwd"] = worse(worst["bwd"], e_b)
 
     # rows whose later splits hold only masked keys (10 and 300 real keys of
-    # 1,024) and a row with none: weight 0 in the combine, not NaN
+    # 1,024) and a row with none: weight 0 in the combine, not NaN; K7 on
+    # the same rows, twice bit-equal
     from r3d_tpu_torch.models.layers import attention_bias_from_padding
 
     scale = 0.125
-    for dtype, (ftol, _) in tols.items():
+    for dtype, (ftol, btol) in tols.items():
         q, k, v, _ = cross_inputs(4, 20, 1024, 512, gen, device, dtype)
+        g = torch.randn(q.shape, generator=gen).to(device, dtype)
         lengths = torch.tensor([1024, 10, 0, 300])
         bias = attention_bias_from_padding(
             (torch.arange(1024)[None, :] >= lengths[:, None]).to(device))
@@ -771,12 +831,23 @@ def check_cross_attention_kernels(gen, device):
             e_out = errs([out], want[:1])
             e_ml = max(float(((m - want[1]) / want[1].abs().clamp_min(1.0)).abs().max()),
                        float(((l - want[2]) / want[2].abs().clamp_min(1.0)).abs().max()))
+            got_b = ca.cross_attention_bwd(q, k, v, bias, 11, scale, r_, H, g, out, m, l,
+                                           need_dbias=True)
+            e_b = errs(got_b, ca.composed_cross_attention_bwd(q, k, v, bias, 11, scale, r_, H,
+                                                              g, out, m, l))
             print(f"cross_attention {str(dtype)[6:]} S=1024, rows of 1024, 10, 0 and 300 real "
                   f"keys, rate={r_}: out relative {e_out[1]:.3e} (tol {ftol}), m and l relative "
-                  f"{e_ml:.3e} (tol 1e-5)")
+                  f"{e_ml:.3e} (tol 1e-5); backward over dq, dk, dv, dbias relative "
+                  f"{e_b[1]:.3e} (tol {btol})")
             if not (e_out[1] <= ftol and e_ml <= 1e-5 and torch.isfinite(out.float()).all()):
                 raise AssertionError(f"K6 disagrees under masked splits at {dtype}, rate={r_}")
+            if not (e_b[1] <= btol and all(torch.isfinite(t.float()).all() for t in got_b)):
+                raise AssertionError(f"K7 disagrees under masked splits at {dtype}, rate={r_}")
+            if not all(torch.equal(a, b) for a, b in zip(got_b, ca.cross_attention_bwd(
+                    q, k, v, bias, 11, scale, r_, H, g, out, m, l, need_dbias=True))):
+                raise AssertionError(f"K7 is not deterministic under masked splits at {dtype}")
             worst["fwd"] = worse(worst["fwd"], e_out)
+            worst["bwd"] = worse(worst["bwd"], e_b)
 
     # timings at the 50salads shape, bf16
     Lq, S, C = 20, 3100, 512
@@ -812,14 +883,26 @@ def check_cross_attention_kernels(gen, device):
           "plain_ms": time_ms(lambda: ca.composed_cross_attention(q, k, v, bias, 0, scale, 0.0,
                                                                   H)),
           **library_times(library), "bound_ms": bound, "bound_by": bound_by}
-    n_blocks = -(-S // ca.BWD_BLOCK_KEYS)
-    part = torch.empty((n_blocks, B, Lq, C), device=device)
+    split_keys = ca.bwd_split_keys(
+        S, B * H, torch.cuda.get_device_properties(device).multi_processor_count)
+    part = torch.empty(ca.bwd_scratch_shape(S, B, Lq, C, H, split_keys, False), device=device)
+    per_sm = ctypes.c_int()
+    err = ca.BWD_KERNEL.query("r3d_cross_attention_bwd_occupancy",
+                              [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)])(
+        D, 0, ctypes.byref(per_sm))
+    if err:
+        raise RuntimeError(f"r3d_cross_attention_bwd_occupancy: CUDA error {err}")
+    print(f"  K7 bf16 at S={S}: grid ({B * H}, {-(-S // split_keys)}), splits of {split_keys} "
+          f"keys, {per_sm.value} blocks an SM")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     launch = raw_launcher(ca.BWD_KERNEL, 1, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           bias.data_ptr(), g.data_ptr(), out.data_ptr(), m.data_ptr(),
                           l.data_ptr(), part.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                          dv.data_ptr(), None, B, Lq, S, H, D, n_blocks, scale, 0, 0, 0, 1.0,
+                          dv.data_ptr(), None, B, Lq, S, H, D, split_keys, scale, 0, 0, 0, 1.0,
                           stream)
+    own_launches_per_call(
+        lambda: ca.cross_attention_bwd(q, k, v, bias, 0, scale, 0.0, H, g, out, m, l),
+        ("cross_bwd_bf16_kernel", "cross_bwd_sum_kernel"), 2, "K7 bf16 cross_attention_bwd")
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
 
     def library_bwd():
@@ -829,7 +912,7 @@ def check_cross_attention_kernels(gen, device):
 
     bound, bound_by = cross_bound_ms(B, Lq, S, C, H, 2, backward=True)
     t7 = {"shape": shape, "ms": time_ms(launch, iters=20),
-          "device_ms": device_ms(launch, ("cross_attention_bwd_kernel", "dq_reduce_kernel")),
+          "device_ms": device_ms(launch, ("cross_bwd_bf16_kernel", "cross_bwd_sum_kernel")),
           "plain_ms": time_ms(lambda: ca.composed_cross_attention_bwd(
               q, k, v, bias, 0, scale, 0.0, H, g, out, m, l, False), iters=20),
           **library_times(library_bwd, iters=20), "bound_ms": bound, "bound_by": bound_by}
@@ -909,9 +992,7 @@ def breakdown(session, cfg, rng, S=512):
                  acc_events=True) as prof:
         session._run(*batch)["action"].cpu()
     t3 = time.perf_counter()
-    on_card = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    events = sorted(on_card, key=lambda e: -e.self_device_time_total)
+    events = sorted(card_events(prof), key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     print(f"bucket {S} chunk of 8: collate {1e3 * (t1 - t0):.2f} ms, copy + forward "
           f"{1e3 * (t2 - t1):.2f} ms (profiled {1e3 * (t3 - t2):.2f} ms, card busy "
@@ -1145,16 +1226,18 @@ def train_breakdown(cfg, state_dict, train_loader, min_len=256, n_class=N_CLASS,
                      acc_events=True) as prof:
             step(epoch)
             torch.cuda.synchronize()
-        on_card = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        events = sorted(on_card, key=lambda e: -e.self_device_time_total)
+        events = sorted(card_events(prof), key=lambda e: -e.self_device_time_total)
         busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-        launches = sum(e.count for e in on_card)
+        launches = sum(e.count for e in events)
+        optim = [e for e in events if "multi_tensor_apply" in e.key]
         print(f"train step{label} ({mode}), bucket {S}: forward + backward + AdamW "
               f"median {float(np.median(times)):.2f} ms of 5 (min {min(times):.2f}), card busy "
               f"{busy_ms:.2f} ms in {launches} kernel launches (one profiled step)")
         for e in events[:8]:
             print(f"  {e.self_device_time_total / 1e3:.3f} ms x{e.count} {e.key[:90]}")
+        print(f"  of which AdamW (its foreach multi_tensor_apply kernels): "
+              f"{sum(e.self_device_time_total for e in optim) / 1e3:.3f} ms in "
+              f"{sum(e.count for e in optim)} launches")
         own = [e for e in events if any(n in e.key for n in OWN_KERNELS)]
         print("  of which the port's own kernels: " + "; ".join(
             f"{e.self_device_time_total / 1e3:.3f} ms x{e.count} "
@@ -1342,9 +1425,9 @@ def main() -> int:
                 print(f"  {source}: {line.strip()}")
 
     gen = torch.Generator().manual_seed(SEED)
-    k1_err, k1_time = check_fuser_kernel(gen, device)
+    (k1_err, k1_time), (k1t_err, k1t_time) = check_fuser_kernel(gen, device)
     k3_err, k3_time = check_attention_kernel(gen, device)
-    (k1t_err, k1t_time), (k2_err, k2_time) = check_tail_kernels(gen, device)
+    k2_err, k2_time = check_fuser_bwd_kernel(gen, device)
     (k4_err, k4_time), (k5_err, k5_time) = check_attention_train_kernels(gen, device)
     bf16_err, bf16_time = check_attention_bf16_kernels(gen, device)
     (k6_err, k6_time), (k7_err, k7_time) = check_cross_attention_kernels(gen, device)

@@ -1,0 +1,167 @@
+"""Time K1 (the fuser tail) and K7 in bf16 (the native cross-attention
+backward) of this checkout against another checkout's, on one card, in turns.
+
+    python3 kernel_ab.py OTHER_CHECKOUT      # from the root of a checkout, on a CUDA host
+
+Builds ``fuser_tail.cu`` and ``cross_attention_bwd.cu`` of the other
+checkout's ``r3d_tpu_torch/csrc`` with nvcc (the flags of
+``r3d_tpu_torch/ops/build.py``) into ``build/ab/``, loads them beside this
+checkout's, and times both on the same inputs in the order other, this,
+this, other: CUDA events around back-to-back calls and the profiler's device
+time of all of a call's launches, each the mean of the two turns.
+
+- K1: both C entry points (``r3d_fused_bn_blend_tail``,
+  ``r3d_fused_safuser_tail``; both checkouts share their signatures) at the
+  utkinects buckets' N = 8 x 256, 512, 1,024 and 2,000 rows. Every output
+  is held to the plain version (1e-4).
+- K7: ``r3d_cross_attention_bwd`` in bf16 at B = 8, Lq = 20, S = 3,100,
+  C = 512, H = 8 (the 50salads decoder's training step). This checkout's
+  takes keys per block from ``bwd_split_keys``; the other is taken to be
+  the body before that (its argument is the count of 64-key blocks, its
+  scratch one fp32 dq slice a block). Every output is held to the plain
+  version (2e-2 of each gradient's largest entry).
+
+Prints one line per kernel and shape and, as the last line, one JSON object
+of the times in ms ([events, device] per side). Exits non-zero where CUDA is
+missing.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import math
+import subprocess
+import sys
+from pathlib import Path
+
+import chip_smoke
+
+N_ROWS = chip_smoke.K1_ROWS
+
+
+def other_library(checkout: Path, source: str) -> ctypes.CDLL:
+    """The other checkout's ``source``, built into build/ab/ here."""
+    from r3d_tpu_torch.ops import build
+
+    out = Path(__file__).resolve().parent / "build" / "ab" / f"{Path(source).stem}_other.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    src = checkout / "r3d_tpu_torch" / "csrc" / source
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(out), str(src)], check=True,
+                   capture_output=True)
+    return ctypes.CDLL(str(out))
+
+
+def bind(lib, kernel):
+    fn = getattr(lib, kernel.symbol)
+    fn.argtypes, fn.restype = kernel.argtypes, ctypes.c_int
+    return fn
+
+
+def in_turns(label, calls, check, result):
+    """Time ``calls`` {"this", "other"} as other, this, this, other; run
+    ``check(who)`` after each side's first call of a turn."""
+    import torch
+
+    times = {who: [] for who in calls}
+    for who in ("other", "this", "this", "other"):
+        if calls[who]() != 0:
+            raise RuntimeError(f"{label} ({who}) failed to launch")
+        torch.cuda.synchronize()
+        check(who)
+        times[who].append((chip_smoke.time_ms(calls[who], iters=20),
+                           chip_smoke.device_ms(calls[who], None)))
+    mean = {who: [sum(x) / len(x) for x in zip(*t)] for who, t in times.items()}
+    result[label] = mean
+    print(f"{label}: other {mean['other'][0]:.4f} ms by events, {mean['other'][1]:.4f} on the "
+          f"device; this {mean['this'][0]:.4f} / {mean['this'][1]:.4f}; other / this by device "
+          f"{mean['other'][1] / mean['this'][1]:.2f}")
+
+
+def fuser_tail(other, device, gen, stream, result):
+    import torch
+
+    from r3d_tpu_torch.ops import fuser_kernel as fk
+
+    libs = {kernel.name: {"this": kernel.load(), "other": bind(other, kernel)}
+            for kernel in (fk.KERNEL, fk.TAIL_KERNEL)}
+    for N in N_ROWS:
+        r, d, blend, params = chip_smoke.fuser_inputs(N, gen, device)
+        args = {fk.KERNEL.name: (r.data_ptr(), d.data_ptr(), *(t.data_ptr() for t in blend)),
+                fk.TAIL_KERNEL.name: (r.data_ptr(), d.data_ptr())}
+        plain = {fk.KERNEL.name: fk.composed_tail(*fk.composed_bn_blend(r, d, blend), params),
+                 fk.TAIL_KERNEL.name: fk.composed_tail(r, d, params)}
+        for name, fns in libs.items():
+            out = torch.empty_like(r)
+            calls = {who: (lambda fn=fn: fn(*args[name], *(t.data_ptr() for t in params),
+                                            out.data_ptr(), N, 128, 512, 0, stream))
+                     for who, fn in fns.items()}
+
+            def check(who, name=name):
+                err = float((out - plain[name]).abs().max())
+                if not err <= chip_smoke.K1_TOL:
+                    raise AssertionError(f"{name} ({who}) disagrees with its plain version at "
+                                         f"N={N}: {err:.3e}")
+
+            in_turns(f"{name} N={N}", calls, check, result)
+
+
+def cross_attention_bwd(other, device, gen, stream, result, B=8, Lq=20, S=3100, C=512, H=8):
+    import torch
+
+    from r3d_tpu_torch.ops import cross_attention as ca
+
+    D = C // H
+    scale = 1.0 / math.sqrt(D)
+    q, k, v, bias = chip_smoke.cross_inputs(B, Lq, S, C, gen, device, torch.bfloat16)
+    g = torch.randn(q.shape, generator=gen).to(device, torch.bfloat16)
+    out, m, l = ca.cross_attention_fwd(q, k, v, bias, 0, scale, 0.0, H)
+    want = ca.composed_cross_attention_bwd(q, k, v, bias, 0, scale, 0.0, H, g, out, m, l, False)
+    split_keys = ca.bwd_split_keys(
+        S, B * H, torch.cuda.get_device_properties(device).multi_processor_count)
+    n_blocks = -(-S // ca.BWD_TILE_KEYS)
+    sides = {"this": (ca.BWD_KERNEL.load(), split_keys,
+                      ca.bwd_scratch_shape(S, B, Lq, C, H, split_keys, False)),
+             "other": (bind(other, ca.BWD_KERNEL), n_blocks, (n_blocks * B * Lq * C,))}
+    grads = {}
+    calls = {}
+    for who, (fn, keys_arg, part_shape) in sides.items():
+        part = torch.empty(part_shape, device=device)
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        grads[who] = (dq, dk, dv)
+        calls[who] = (lambda fn=fn, part=part, dq=dq, dk=dk, dv=dv, keys_arg=keys_arg: fn(
+            1, q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), g.data_ptr(),
+            out.data_ptr(), m.data_ptr(), l.data_ptr(), part.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), None, B, Lq, S, H, D, keys_arg, scale, 0, 0, 0, 1.0,
+            stream))
+
+    def check(who):
+        rel = chip_smoke.errs(grads[who], want[:3])[1]
+        if not rel <= chip_smoke.BF16_TOL:
+            raise AssertionError(f"K7 bf16 ({who}) disagrees with its plain version: {rel:.3e}")
+
+    in_turns(f"cross_attention_bwd bf16 B={B} Lq={Lq} S={S} C={C} H={H}", calls, check, result)
+
+
+def main() -> int:
+    import torch
+
+    if len(sys.argv) != 2 or not torch.cuda.is_available():
+        print(__doc__ if len(sys.argv) != 2 else "kernel_ab: CUDA is not available",
+              file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda")
+    checkout = Path(sys.argv[1])
+    gen = torch.Generator().manual_seed(chip_smoke.SEED)
+    stream = torch.cuda.current_stream().cuda_stream
+    result = {}
+    fuser_tail(other_library(checkout, "fuser_tail.cu"), device, gen, stream, result)
+    cross_attention_bwd(other_library(checkout, "cross_attention_bwd.cu"), device, gen, stream,
+                        result)
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -40,6 +40,38 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Copy 16 bytes from device to shared memory without passing registers; with
+// `ok` false nothing is read and the 16 bytes are set to zero (`src` must
+// still be a valid address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  const int n = ok ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(n)
+               : "memory");
+}
+
+// As cp_async16 for 4 bytes (through L1: .cg takes only 16).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  const int n = ok ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(n)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // murmur3's 32-bit finalizer: a bijection with full avalanche.
 __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   h ^= h >> 16;

@@ -22,48 +22,73 @@
 //
 // LayerNorm statistics are fp32 with biased variance and eps 1e-5; GELU is
 // the exact erf form (CUDA has erff; the TPU kernel's polynomial erf existed
-// only because Mosaic lacked one). All arithmetic is fp32 on the CUDA cores,
-// so the kernel agrees with the plain fp32 version to rounding.
+// only because Mosaic lacked one). Everything but the three products is fp32
+// on the CUDA cores, and the products keep about fp32's accuracy (below), so
+// the kernel agrees with the plain fp32 version to rounding.
 //
 // What bounds it on the H100: operations. Per output row it does
 // 2 * (2*C*C + 4*C*Ch) flops (C = 128, Ch = 512: 589,824) against 3*C*4 =
-// 1.5 KB of stream traffic, about 380 flops per byte, far above the fp32
-// CUDA-core ridge of 67 TFLOP/s over 3.35 TB/s = 20 flops per byte.
+// 1.5 KB of stream traffic, about 380 flops per byte. The products must be
+// fp32-accurate (the plain version and the TPU kernel sum fp32 products), so
+// they run on the tensor cores as 3xTF32 (mma_tf32.cuh: three TF32 products a
+// product, fp32 sums, about fp32's accuracy; one TF32 product would not hold
+// the plain version's 1e-4): 165 TFLOP/s at most, 0.0146 ms at N = 8 x 512.
 //
 // What the design does about it. The TPU kernel keeps all weights resident
 // in VMEM; in fp32 Wvp, W1 and W2 are 576 KB and a block has 227 KB of
 // shared memory. So a block takes TM rows of each stream (T = 2*TM token
-// rows), keeps the residual stream x, its normalized copy h and one GELU'd
-// hidden chunk m in shared memory, and streams the weights through a
-// [128 x 32] shared-memory chunk, in torch's [out, in] layout as the module
-// holds them (no transposed copy per call). The MLP runs over the 512-wide
-// hidden dimension in chunks of 128: each chunk's up-projection is GELU'd
-// into m and at once multiplied into the down-projection's register
-// accumulators, so the [T, 512] hidden activation never exists. Each thread
-// owns a 4 x 4 output tile (4 token rows, 4 channels 32 apart), read from
-// shared memory as float4s: a broadcast for the activation rows and
-// conflict-free for the padded weight rows. Rows past N read as zero and are
-// never stored, so the ragged edge needs no padding. Tensor cores (TF32 or
-// wgmma) and double-buffered weight loads are left for a later change.
+// rows), keeps the residual stream x, its normalised copy h and one GELU'd
+// hidden chunk m in shared memory, and streams the weights, in
+// torch's [out, in] layout as the module holds them (no transposed copy per
+// call), as [128 x 32] chunks through a ring of four shared-memory stages
+// filled with 16-byte cp.async: the copies of the next three chunks are in
+// flight under the products of the current one, across the boundaries of
+// the three products, with one block barrier a chunk. The MLP runs over the
+// 512-wide hidden dimension in chunks of 128: each chunk's up-projection is
+// GELU'd into m and at once multiplied into the down-projection's register
+// accumulators, so the [T, 512] hidden activation never exists. Eight warps
+// each own one stream's TM rows x 32 of every product's 128 outputs, split A
+// and B into TF32 parts as they read them, and run mma.sync m16n8k8 three
+// times a fragment pair, each pass swept over the warp's tile before the next
+// so that the mma latency hides behind the tile's other accumulators
+// (mma_tf32.cuh). Each operand costs a shared load and a split before
+// its mma, instructions that compete with the mma for issue slots. So a
+// warp's tile is 32 x 32 (each split operand feeds four or two
+// fragment pairs), and the k order within each 16-deep step is permuted alike
+// in A and B (a product sums over k in any order): physical columns 4t..4t+3
+// hold what the two k-steps' fragments of lane t need, so one 16-byte load
+// fetches them (rows padded to a stride of 16 mod 32 floats, so a quarter
+// warp's 16-byte loads hit distinct banks). The row tile is sized for the card:
+// T = 64 (TM = 32) where that still gives nine SMs in ten a block (N = 8 x
+// 512 and up: 128 blocks), else T = 32: 64 blocks of 64 tokens would leave
+// half the SMs idle at N = 8 x 256. Either way a block holds one SM. Rows
+// past N read as zero and are never stored, so the ragged edge needs no
+// padding.
 
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
 constexpr int C = 128;          // channels; the wrapper checks
-constexpr int TM = 16;          // rows of each stream per block
-constexpr int T = 2 * TM;       // token rows per block: [0, TM) rgb, [TM, T) depth
-constexpr int NT = 256;         // threads per block: 8 warps x 4 token rows
-constexpr int LDA = C + 4;      // padded row stride of the activation tiles
+constexpr int NT = 256;         // threads per block: 8 warps
+constexpr int NWARP = NT / 32;
+constexpr int LDA = C + 16;     // padded row stride of the activation tiles (% 32 == 16)
 constexpr int HC = 128;         // hidden chunk of the MLP
-constexpr int KB = 32;          // depth of one staged weight chunk
-constexpr int LDW = KB + 4;     // padded row stride of the weight chunk
-constexpr int SMEM_FLOATS = 3 * T * LDA + C * LDW;
+constexpr int KC = 32;          // depth of one weight chunk
+constexpr int LDW = KC + 16;    // padded row stride of a weight chunk (% 32 == 16)
+constexpr int NSTAGE = 4;       // weight chunks in the ring
+constexpr int CHUNK = C * LDW;  // floats of one [128 x 32] chunk
 
-static_assert(T == (NT / 32) * 4, "each warp owns 4 token rows");
-static_assert(HC == C, "one thread tile serves both MLP products");
+static_assert(HC == C, "every product has 128 outputs");
+
+// Shared memory of a block of T token rows: x, h, m and the weight ring.
+template <int T>
+constexpr int smem_bytes() {
+  return static_cast<int>(sizeof(float)) * (3 * T * LDA + NSTAGE * CHUNK);
+}
 
 struct TailArgs {
   const float* r;
@@ -92,53 +117,23 @@ struct TailArgs {
   int hidden;
 };
 
-// acc[i][j] += sum_k A[row_i][k] * W[n0 + lane + 32*j][k0 + k], k < K, where
-// row_i = 4*warp + i (swapped to the other stream's row when `swap`). A is a
-// [T, LDA] tile in shared memory; W is [*, ldw] in global memory and is
-// staged KB columns at a time through `ws`.
-__device__ __forceinline__ void gemm_acc(const float* A, bool swap, const float* __restrict__ W,
-                                         int ldw, int n0, int k0, int K, float* ws,
-                                         float acc[4][4]) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int kc = 0; kc < K; kc += KB) {
-    for (int idx = threadIdx.x; idx < C * (KB / 4); idx += NT) {
-      const int n = idx / (KB / 4);
-      const int k4 = (idx % (KB / 4)) * 4;
-      const float4 w = __ldg(reinterpret_cast<const float4*>(
-          W + static_cast<size_t>(n0 + n) * ldw + k0 + kc + k4));
-      *reinterpret_cast<float4*>(ws + n * LDW + k4) = w;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < KB; k += 4) {
-      float4 a[4];
-      float4 w[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        int row = warp * 4 + i;
-        if (swap) row = (row + TM) % T;
-        a[i] = *reinterpret_cast<const float4*>(A + row * LDA + kc + k);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        w[j] = *reinterpret_cast<const float4*>(ws + (lane + 32 * j) * LDW + k);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float s = acc[i][j];
-          s = fmaf(a[i].x, w[j].x, s);
-          s = fmaf(a[i].y, w[j].y, s);
-          s = fmaf(a[i].z, w[j].z, s);
-          s = fmaf(a[i].w, w[j].w, s);
-          acc[i][j] = s;
-        }
-      }
-    }
-    __syncthreads();
+// Source of weight chunk c, in the order the block consumes them: Wvp's four
+// (k 0..127), then per hidden chunk j W1's four (out rows 128j.., k 0..127)
+// and W2's four (k 128j..). Each is 128 rows x 32 values of a row-major
+// [rows, ldw] matrix.
+__device__ __forceinline__ const float* chunk_src(const TailArgs& a, int c, int& ldw) {
+  if (c < 4) {
+    ldw = C;
+    return a.wvp + c * KC;
   }
+  const int j = (c - 4) / 8;
+  const int r = (c - 4) % 8;
+  if (r < 4) {
+    ldw = C;
+    return a.mlp1_weight + static_cast<size_t>(j) * HC * C + r * KC;
+  }
+  ldw = a.hidden;
+  return a.mlp2_weight + j * HC + (r - 4) * KC;
 }
 
 // Token row i of the tile's streams: (r, d) of global row row0 + i, blended
@@ -161,15 +156,16 @@ __device__ __forceinline__ float2 load_pair(const TailArgs& a, long g, int c) {
                      md * (al * dn + (1.f - al) * rn) + (1.f - md) * dn);
 }
 
-// dst[row] = LN(src[row]) * scale + bias for this warp's 4 token rows.
+// dst[row] = LN(src[row]) * scale + bias for this warp's T / 8 token rows.
+template <int T>
 __device__ __forceinline__ void layernorm_rows(const float* src, float* dst,
                                                const float* __restrict__ scale,
                                                const float* __restrict__ bias) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = warp * 4 + i;
+  for (int i = 0; i < T / NWARP; ++i) {
+    const int row = warp * (T / NWARP) + i;
     float v[4];
     float s = 0.f;
 #pragma unroll
@@ -193,79 +189,194 @@ __device__ __forceinline__ void layernorm_rows(const float* src, float* dst,
   }
 }
 
-__device__ __forceinline__ void zero(float acc[4][4]) {
+// The warp layout of a block of T token rows: warp w owns the rows of one
+// stream (w / 4: TM rows, MT m-tiles) x 32 of the 128 outputs (w % 4: NTW
+// n-tiles) of every product.
+template <int T>
+struct Layout {
+  static constexpr int TM = T / 2;    // rows of each stream
+  static constexpr int MT = TM / 16;  // m-tiles of a warp
+  static constexpr int NTW = 4;       // n-tiles of a warp
+};
+static_assert(NWARP == 2 * C / 32, "two streams x 32-column slices");
+
+template <int MT, int NTW>
+__device__ __forceinline__ void zero(float (&acc)[MT][NTW][4]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int nt = 0; nt < NTW; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+    }
   }
 }
 
-template <bool kBlend, bool kOuterResidual>
-__global__ void __launch_bounds__(NT) fused_tail_kernel(const TailArgs a) {
+// Copy weight chunk c (if it exists) into its stage of the ring, one commit
+// group either way.
+__device__ __forceinline__ void issue_chunk(const TailArgs& a, float* ring, int c, int n_chunks) {
+  if (c < n_chunks) {
+    int ldw;
+    const float* src = chunk_src(a, c, ldw);
+    float* ws = ring + (c % NSTAGE) * CHUNK;
+    for (int idx = threadIdx.x; idx < C * (KC / 4); idx += NT) {
+      const int n = idx / (KC / 4);
+      const int k4 = (idx % (KC / 4)) * 4;
+      r3d::cp_async16(ws + n * LDW + k4, src + static_cast<size_t>(n) * ldw + k4, true);
+    }
+  }
+  r3d::cp_async_commit();
+}
+
+// acc += A W^T over the four chunks from `cur` on (one product of depth
+// 128), A the [T, LDA] tile; with kSwap each row reads the other stream's
+// row. Each chunk's wait and barrier also issues the copy of chunk
+// cur + NSTAGE - 1 into the stage of cur - 1. Within a 16-deep step, k-step
+// s of lane t takes k = 4t + 2s into its fragments' first k slot (a0, a1;
+// b0) and 4t + 2s + 1 into the second (a2, a3; b1).
+template <int T, bool kSwap>
+__device__ __forceinline__ void gemm(const TailArgs& a, const float* A, float* ring, int& cur,
+                                     int n_chunks, int row0, int col0,
+                                     float (&acc)[Layout<T>::MT][Layout<T>::NTW][4]) {
+  constexpr int MT = Layout<T>::MT;
+  constexpr int NTW = Layout<T>::NTW;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll 1
+  for (int kc = 0; kc < 4; ++kc, ++cur) {
+    r3d::cp_async_wait<NSTAGE - 2>();
+    __syncthreads();   // chunk `cur` has landed; every thread is done with `cur - 1`
+    issue_chunk(a, ring, cur + NSTAGE - 1, n_chunks);
+    const float* ws = ring + (cur % NSTAGE) * CHUNK;
+#pragma unroll
+    for (int k16 = 0; k16 < KC; k16 += 16) {
+      uint32_t a_hi[2][MT][4], a_lo[2][MT][4];     // [k-step][m-tile][fragment]
+      uint32_t b_hi[2][NTW][2], b_lo[2][NTW][2];   // [k-step][n-tile][fragment]
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const int r = kSwap ? (row0 + mt * 16 + Layout<T>::TM) % T : row0 + mt * 16;
+        const float* p = A + (r + g) * LDA + kc * KC + k16 + 4 * t;
+        const float4 top = *reinterpret_cast<const float4*>(p);
+        const float4 bot = *reinterpret_cast<const float4*>(p + 8 * LDA);
+        r3d::split_tf32(top.x, a_hi[0][mt][0], a_lo[0][mt][0]);
+        r3d::split_tf32(bot.x, a_hi[0][mt][1], a_lo[0][mt][1]);
+        r3d::split_tf32(top.y, a_hi[0][mt][2], a_lo[0][mt][2]);
+        r3d::split_tf32(bot.y, a_hi[0][mt][3], a_lo[0][mt][3]);
+        r3d::split_tf32(top.z, a_hi[1][mt][0], a_lo[1][mt][0]);
+        r3d::split_tf32(bot.z, a_hi[1][mt][1], a_lo[1][mt][1]);
+        r3d::split_tf32(top.w, a_hi[1][mt][2], a_lo[1][mt][2]);
+        r3d::split_tf32(bot.w, a_hi[1][mt][3], a_lo[1][mt][3]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < NTW; ++nt) {
+        const float4 w =
+            *reinterpret_cast<const float4*>(ws + (col0 + nt * 8 + g) * LDW + k16 + 4 * t);
+        r3d::split_tf32(w.x, b_hi[0][nt][0], b_lo[0][nt][0]);
+        r3d::split_tf32(w.y, b_hi[0][nt][1], b_lo[0][nt][1]);
+        r3d::split_tf32(w.z, b_hi[1][nt][0], b_lo[1][nt][0]);
+        r3d::split_tf32(w.w, b_hi[1][nt][1], b_lo[1][nt][1]);
+      }
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) r3d::mma_3xtf32(acc, a_hi[ks], a_lo[ks], b_hi[ks], b_lo[ks]);
+    }
+  }
+}
+
+template <bool kBlend, bool kOuterResidual, int T>
+__global__ void __launch_bounds__(NT, 1) fuser_tail_tf32_kernel(const TailArgs a) {
+  using L = Layout<T>;
+  constexpr int TM = L::TM;
+  constexpr int MT = L::MT;
+  constexpr int NTW = L::NTW;
   extern __shared__ float4 smem4[];
   float* xs = reinterpret_cast<float*>(smem4);  // [T, LDA] residual stream
-  float* hs = xs + T * LDA;                      // [T, LDA] normalized stream
+  float* hs = xs + T * LDA;                      // [T, LDA] normalised stream
   float* ms = hs + T * LDA;                      // [T, LDA] GELU(hidden chunk)
-  float* ws = ms + T * LDA;                      // [C, LDW] weight chunk
+  float* ring = ms + T * LDA;                    // NSTAGE x [C, LDW] weight chunks
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const long row0 = static_cast<long>(blockIdx.x) * TM;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int row0 = (warp / 4) * TM;    // the warp's first token row
+  const int col0 = (warp % 4) * 32;    // and first output column
+  const long grow0 = static_cast<long>(blockIdx.x) * TM;
+  const int n_chunks = 4 + 8 * (a.hidden / HC);
+  // element e of this thread's accumulator tile (mt, nt) is at row
+  // row0 + mt*16 + g + (e / 2)*8, column col0 + nt*8 + 2t + e % 2
+
+  int cur = 0;   // the next weight chunk to use
+#pragma unroll
+  for (int c = 0; c < NSTAGE - 1; ++c) issue_chunk(a, ring, c, n_chunks);   // under the input loads
 
   // 1. the input rows (BN affine + bottom-k alpha blend when kBlend)
   for (int idx = threadIdx.x; idx < TM * C; idx += NT) {
     const int i = idx / C;
     const int c = idx % C;
-    const float2 rd = load_pair<kBlend>(a, row0 + i, c);
+    const float2 rd = load_pair<kBlend>(a, grow0 + i, c);
     xs[i * LDA + c] = rd.x;
     xs[(i + TM) * LDA + c] = rd.y;
   }
   __syncthreads();
 
   // 2. exact two-token attention as a value swap: x_r += LN1(x_d) Wvp^T + b
-  layernorm_rows(xs, hs, a.norm1_scale, a.norm1_bias);
-  __syncthreads();
-  float acc[4][4];
-  zero(acc);
-  gemm_acc(hs, true, a.wvp, C, 0, 0, C, ws, acc);
+  layernorm_rows<T>(xs, hs, a.norm1_scale, a.norm1_bias);
+  float acc[MT][NTW][4];
+  zero<MT, NTW>(acc);
+  gemm<T, true>(a, hs, ring, cur, n_chunks, row0, col0, acc);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = lane + 32 * j;
-      float* x = xs + (warp * 4 + i) * LDA + c;
-      *x = (*x + acc[i][j]) + __ldg(a.proj_bias + c);
+    for (int nt = 0; nt < NTW; ++nt) {
+      const int col = col0 + nt * 8 + 2 * t;
+      const float2 b = make_float2(__ldg(a.proj_bias + col), __ldg(a.proj_bias + col + 1));
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        float2* x = reinterpret_cast<float2*>(xs + (row0 + mt * 16 + g + hi * 8) * LDA + col);
+        const float2 v = *x;
+        *x = make_float2((v.x + acc[mt][nt][2 * hi]) + b.x, (v.y + acc[mt][nt][2 * hi + 1]) + b.y);
+      }
     }
   }
   __syncthreads();
 
   // 3. MLP over hidden chunks: acc2 = W2 GELU(W1 LN2(x) + b1)
-  layernorm_rows(xs, hs, a.norm2_scale, a.norm2_bias);
-  __syncthreads();
-  float acc2[4][4];
-  zero(acc2);
+  layernorm_rows<T>(xs, hs, a.norm2_scale, a.norm2_bias);
+  float acc2[MT][NTW][4];
+  zero<MT, NTW>(acc2);
   for (int h0 = 0; h0 < a.hidden; h0 += HC) {
-    zero(acc);
-    gemm_acc(hs, false, a.mlp1_weight, C, h0, 0, C, ws, acc);
+    zero<MT, NTW>(acc);
+    gemm<T, false>(a, hs, ring, cur, n_chunks, row0, col0, acc);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = lane + 32 * j;
-        const float m = acc[i][j] + __ldg(a.mlp1_bias + h0 + c);
-        ms[(warp * 4 + i) * LDA + c] = 0.5f * m * (1.f + erff(m * 0.7071067811865476f));
+      for (int nt = 0; nt < NTW; ++nt) {
+        const int col = col0 + nt * 8 + 2 * t;
+        const float2 b = make_float2(__ldg(a.mlp1_bias + h0 + col), __ldg(a.mlp1_bias + h0 + col + 1));
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi) {
+          const float m0 = acc[mt][nt][2 * hi] + b.x;
+          const float m1 = acc[mt][nt][2 * hi + 1] + b.y;
+          *reinterpret_cast<float2*>(ms + (row0 + mt * 16 + g + hi * 8) * LDA + col) =
+              make_float2(0.5f * m0 * (1.f + erff(m0 * 0.7071067811865476f)),
+                          0.5f * m1 * (1.f + erff(m1 * 0.7071067811865476f)));
+        }
       }
     }
-    __syncthreads();
-    gemm_acc(ms, false, a.mlp2_weight, a.hidden, 0, h0, HC, ws, acc2);
+    gemm<T, false>(a, ms, ring, cur, n_chunks, row0, col0, acc2);
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = lane + 32 * j;
-      float* x = xs + (warp * 4 + i) * LDA + c;
-      *x = *x + (acc2[i][j] + __ldg(a.mlp2_bias + c));
+    for (int nt = 0; nt < NTW; ++nt) {
+      const int col = col0 + nt * 8 + 2 * t;
+      const float2 b = make_float2(__ldg(a.mlp2_bias + col), __ldg(a.mlp2_bias + col + 1));
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        float2* x = reinterpret_cast<float2*>(xs + (row0 + mt * 16 + g + hi * 8) * LDA + col);
+        const float2 v = *x;
+        *x = make_float2(v.x + (acc2[mt][nt][2 * hi] + b.x), v.y + (acc2[mt][nt][2 * hi + 1] + b.y));
+      }
     }
   }
   __syncthreads();
@@ -273,7 +384,7 @@ __global__ void __launch_bounds__(NT) fused_tail_kernel(const TailArgs a) {
     for (int idx = threadIdx.x; idx < TM * C; idx += NT) {
       const int i = idx / C;
       const int c = idx % C;
-      const float2 rd = load_pair<kBlend>(a, row0 + i, c);
+      const float2 rd = load_pair<kBlend>(a, grow0 + i, c);
       xs[i * LDA + c] += rd.x;
       xs[(i + TM) * LDA + c] += rd.y;
     }
@@ -281,14 +392,42 @@ __global__ void __launch_bounds__(NT) fused_tail_kernel(const TailArgs a) {
   }
 
   // 4. out = (LN_out(x_r) + LN_out(x_d)) / 2
-  layernorm_rows(xs, hs, a.norm_out_scale, a.norm_out_bias);
+  layernorm_rows<T>(xs, hs, a.norm_out_scale, a.norm_out_bias);
   __syncthreads();
   for (int idx = threadIdx.x; idx < TM * C; idx += NT) {
     const int i = idx / C;
     const int c = idx % C;
-    const long g = row0 + i;
-    if (g < a.n_rows) a.out[g * C + c] = 0.5f * (hs[i * LDA + c] + hs[(i + TM) * LDA + c]);
+    const long gr = grow0 + i;
+    if (gr < a.n_rows) a.out[gr * C + c] = 0.5f * (hs[i * LDA + c] + hs[(i + TM) * LDA + c]);
   }
+  r3d::cp_async_wait<0>();
+}
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
+      n = 0;
+    }
+  }
+  return n;
+}
+
+// Token rows a block takes at n_rows: 64 (half the weight traffic and
+// fewer operand splits an mma than 32) where that still gives nine SMs in
+// ten a block, else 32.
+int tile_rows(int n_rows) { return 10 * ((n_rows + 31) / 32) >= 9 * sm_count() ? 64 : 32; }
+
+template <bool kBlend, bool kOuterResidual, int T>
+int launch_t(const TailArgs& a, cudaStream_t stream) {
+  constexpr int smem = smem_bytes<T>();
+  auto kernel = fuser_tail_tf32_kernel<kBlend, kOuterResidual, T>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<(a.n_rows + T / 2 - 1) / (T / 2), NT, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kBlend>
@@ -297,14 +436,20 @@ int launch(const TailArgs& a, bool outer_residual, void* stream) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (a.n_rows == 0) return 0;
-  const int smem = SMEM_FLOATS * static_cast<int>(sizeof(float));
-  auto kernel = outer_residual ? fused_tail_kernel<kBlend, true> : fused_tail_kernel<kBlend, false>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a.n_rows + TM - 1) / TM);
-  kernel<<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tile_rows(a.n_rows) == 64) {
+    return outer_residual ? launch_t<kBlend, true, 64>(a, s) : launch_t<kBlend, false, 64>(a, s);
+  }
+  return outer_residual ? launch_t<kBlend, true, 32>(a, s) : launch_t<kBlend, false, 32>(a, s);
+}
+
+template <typename Kernel>
+int occupancy(Kernel kernel, int smem, int* blocks_per_sm) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, NT, smem);
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -341,4 +486,16 @@ extern "C" int r3d_fused_safuser_tail(
                    mlp1_weight, mlp1_bias, mlp2_weight, mlp2_bias, norm_out_scale,
                    norm_out_bias, out, n_rows, hidden};
   return launch<false>(a, outer_residual != 0, stream);
+}
+
+// The launch shape at n_rows: rows of each stream a block takes, blocks, and
+// the blocks that fit one SM at once (the blend route, no outer residual).
+extern "C" int r3d_fuser_tail_config(int n_rows, int* rows_per_block, int* blocks,
+                                     int* blocks_per_sm) {
+  if (n_rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int T = tile_rows(n_rows);
+  *rows_per_block = T / 2;
+  *blocks = (n_rows + T / 2 - 1) / (T / 2);
+  return T == 64 ? occupancy(fuser_tail_tf32_kernel<true, false, 64>, smem_bytes<64>(), blocks_per_sm)
+                 : occupancy(fuser_tail_tf32_kernel<true, false, 32>, smem_bytes<32>(), blocks_per_sm);
 }

@@ -1,8 +1,9 @@
 // Building blocks of the bf16 tensor-core kernels (the bf16 bodies of
-// attention.cu, attention_bwd.cu and cross_attention.cu): asynchronous copies into
-// shared memory, bf16 tiles in shared memory with their 16-byte chunks
-// swizzled so that `ldmatrix` reads them without bank conflicts, and the warp
-// level product mma.sync m16n8k16 (bf16 x bf16 -> fp32).
+// attention.cu, attention_bwd.cu, cross_attention.cu and
+// cross_attention_bwd.cu): bf16 tiles in shared memory, filled with the
+// asynchronous copies of common.cuh, with their 16-byte chunks swizzled so
+// that `ldmatrix` reads them without bank conflicts, and the warp level
+// product mma.sync m16n8k16 (bf16 x bf16 -> fp32).
 //
 // A tile is [rows][D] bf16, D in {16, 32, 64}, a row being D/8 chunks of 8
 // values (16 bytes). Chunk c of row r is stored at chunk c ^ swizzle(r), the
@@ -19,38 +20,6 @@
 #include "common.cuh"
 
 namespace r3d {
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Copy 16 bytes from device to shared memory without passing registers; with
-// `ok` false nothing is read and the 16 bytes are set to zero (`src` must
-// still be a valid address).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
-  const int n = ok ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(n)
-               : "memory");
-}
-
-// As cp_async16 for 4 bytes (through L1: .cg takes only 16).
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
-  const int n = ok ? 4 : 0;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(n)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most N of this thread's committed groups are still in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // Address of chunk c (8 values) of row r of a swizzled [rows][D] bf16 tile.
 template <int D>

@@ -102,6 +102,16 @@ class Kernel:
                 self._lib, self._fn = lib, fn
         return self._fn
 
+    def query(self, symbol: str, argtypes: Sequence):
+        """Another exported C function of this kernel's library, one that
+        launches nothing (a query of the card, such as its occupancy): not
+        counted."""
+        self.load()
+        fn = getattr(self._lib, symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        return fn
+
     def launch(self, *args) -> None:
         """Call the launcher (it enqueues on the stream passed in ``args``
         and returns the launch's error code); raise unless it is 0."""

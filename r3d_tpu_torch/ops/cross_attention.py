@@ -14,7 +14,10 @@ relayouts K or V head-major. Two kernels:
   split order;
 - K7 (``csrc/cross_attention_bwd.cu``, ``r3d_cross_attention_bwd``): dq, dk
   and dv in native layout and the bias's cotangent, from the saved (m, l) and
-  the forward output.
+  the forward output; in bf16 grid (batch*head, key split) with the splits
+  sized as K6's (every block resident at once), each block walking its keys
+  in tiles of 64 on the tensor cores and owning their dk and dv, and a
+  second launch summing the splits' dq (and the heads' dbias) in order.
 
 ``cross_attention_native`` is a ``torch.autograd.Function`` over the two.
 ``composed_cross_attention`` and ``composed_cross_attention_bwd`` are the
@@ -71,7 +74,8 @@ CROSS_HEAD_DIMS = (16, 32, 64)   # csrc/cross_attention*.cu: instantiated D
 MAX_QUERIES = 64                 # a block of K6 (bf16) and K7 holds every query of a head
 FWD_SPLIT_UNIT = 128             # csrc/cross_attention.cu: NW * KT, 4 warps x tiles of 32 keys
 FWD_BLOCKS_PER_SM = 2            # resident blocks of K6's bf16 split kernel (96 KB of tiles each)
-BWD_BLOCK_KEYS = 64              # csrc/cross_attention_bwd.cu: KB, keys per block
+BWD_TILE_KEYS = 64               # csrc/cross_attention_bwd.cu: keys per fp32 block (KB), per bf16 tile (KT)
+BWD_BLOCKS_PER_SM = 2            # resident blocks of K7's bf16 main kernel (90 KB of tiles each at D = 64)
 
 
 def _heads(x, H):
@@ -161,6 +165,23 @@ def fwd_split_keys(S: int, n_heads: int, n_sm: int) -> int:
     return max(1, -(-S // (n_split * FWD_SPLIT_UNIT))) * FWD_SPLIT_UNIT
 
 
+def bwd_split_keys(S: int, n_heads: int, n_sm: int) -> int:
+    """Keys per block of K7's bf16 main kernel: as ``fwd_split_keys``, the
+    most splits that keep all ``n_heads`` (batch x head) x splits blocks
+    resident at once (``BWD_BLOCKS_PER_SM`` an SM), in whole tiles of
+    ``BWD_TILE_KEYS``."""
+    n_split = max(1, BWD_BLOCKS_PER_SM * n_sm // n_heads)
+    return max(1, -(-S // (n_split * BWD_TILE_KEYS))) * BWD_TILE_KEYS
+
+
+def bwd_scratch_shape(S: int, B: int, Lq: int, C: int, H: int, split_keys: int,
+                      need_dbias: bool):
+    """fp32 values of K7's scratch: each split's dq [n_split, B, Lq, C], then
+    (bf16, with dbias) each head's dbias [H, B, S]."""
+    n_split = -(-S // split_keys)
+    return (n_split * B * Lq * C + (H * B * S if need_dbias else 0),)
+
+
 def cross_attention_fwd(q, k, v, bias, seed: int, scale: float, rate: float, H: int):
     """K6: (out, m, l); the plain version for CPU tensors."""
     if q.device.type == "cpu":
@@ -196,15 +217,21 @@ def cross_attention_bwd(q, k, v, bias, seed: int, scale: float, rate: float, H: 
     B, Lq, S, C = _check("cross_attention_bwd", q, k, v, bias, H,
                          {"g": (g, tuple(q.shape), q.dtype), "o": (o, tuple(q.shape), q.dtype),
                           "m": (m, stats, torch.float32), "l": (l, stats, torch.float32)})
-    n_blocks = -(-S // BWD_BLOCK_KEYS)
-    dq_partial = torch.empty((n_blocks, B, Lq, C), dtype=torch.float32, device=q.device)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     need_dbias = need_dbias and bias is not None
+    split_keys = BWD_TILE_KEYS
+    if q.dtype == torch.bfloat16:
+        _check_aligned("cross_attention_bwd", q=q, k=k, v=v, g=g)
+        n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
+        split_keys = bwd_split_keys(S, B * H, n_sm)
+    part = torch.empty(bwd_scratch_shape(S, B, Lq, C, H, split_keys,
+                                         need_dbias and q.dtype == torch.bfloat16),
+                       dtype=torch.float32, device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dbias = torch.empty((B, 1, 1, S), dtype=torch.float32, device=q.device) if need_dbias else None
     BWD_KERNEL.launch(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
-        g.data_ptr(), o.data_ptr(), m.data_ptr(), l.data_ptr(), dq_partial.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(dbias), B, Lq, S, H, C // H, n_blocks,
+        g.data_ptr(), o.data_ptr(), m.data_ptr(), l.data_ptr(), part.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(dbias), B, Lq, S, H, C // H, split_keys,
         float(scale), int(rate > 0.0), int(seed) & _U32, dropout_threshold(rate),
         1.0 / (1.0 - rate), _stream(q))
     return dq, dk, dv, dbias

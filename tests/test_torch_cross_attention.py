@@ -273,3 +273,120 @@ def test_split_key_forward_matches_plain(S, pad_from, n_sm, dtype, Lq, rate):
     assert float((got[0].float() - want[0].float()).abs().max()) <= tol
     torch.testing.assert_close(got[1], want[1], atol=1e-6, rtol=1e-6)
     torch.testing.assert_close(got[2], want[2], atol=1e-6, rtol=2e-6)
+
+
+# ---- the split-key algorithm of K7's bf16 CUDA kernel, emulated ----
+
+BWD_TILE = pt_ca.BWD_TILE_KEYS
+
+
+def _hi_lo(x):
+    """x as the sum of a bf16 high and a bf16 low part, each held in fp32."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _split_backward(q, k, v, bias, seed, scale, rate, H, g, o, m, l, split_keys, parts=2):
+    """K7 as its bf16 kernel computes it with ``split_keys`` keys a block:
+    (dq, dk, dv, dbias). Each block walks its keys in tiles of 64; a tile's
+    dk = ds_r^T q and dv = (w keep)^T g are complete there, dv from the high
+    and low bf16 parts of the fp32 w * keep (``parts=1``: the high part
+    alone); the block's dq sums over its tiles in order, the splits' dq are
+    summed in split order, each head's column sums of the unrounded ds in
+    head order."""
+    from r3d_tpu_torch.ops.attention import dropout_keep
+
+    s = pt_ca._scores(q, k, bias, scale, H)
+    S = s.shape[-1]
+    w = torch.exp(s - m[..., None]) / l.clamp_min(1e-30)[..., None]
+    keep = dropout_keep(seed, rate, s.shape, q.device) if rate > 0.0 else torch.ones_like(s)
+    qh, kh, vh, gh, oh = (pt_ca._heads(x, H) for x in (q, k, v, g, o))
+    delta = (gh * oh).sum(-1)
+    ds = w * (torch.einsum("bhqd,bhkd->bhqk", gh, vh) * keep - delta[..., None])
+    ds_r = ds.to(q.dtype).float()
+    wk = _hi_lo(w * keep)[:parts]
+    dk, dv = torch.zeros(kh.shape), torch.zeros(vh.shape)
+    dq = torch.zeros(qh.shape)
+    for s0 in range(0, S, split_keys):
+        dq_split = torch.zeros(qh.shape)
+        for t0 in range(s0, min(s0 + split_keys, S), BWD_TILE):
+            sl = slice(t0, min(t0 + BWD_TILE, S))
+            dk[:, :, sl] = torch.einsum("bhqk,bhqd->bhkd", ds_r[..., sl], qh) * scale
+            for part in reversed(wk):   # the low part first
+                dv[:, :, sl] += torch.einsum("bhqk,bhqd->bhkd", part[..., sl], gh)
+            dq_split += torch.einsum("bhqk,bhkd->bhqd", ds_r[..., sl], kh[:, :, sl])
+        dq = dq + dq_split * scale
+    dbias = torch.zeros(s.shape[0], S)
+    for h in range(H):
+        dbias = dbias + ds[:, h].sum(1)
+    return (pt_ca._native(dq).to(q.dtype), pt_ca._native(dk).to(k.dtype),
+            pt_ca._native(dv).to(v.dtype), dbias[:, None, None, :])
+
+
+def _bwd_inputs(rng, S, Lq, pad_from, dtype, seed, rate):
+    """q, k, v, bias, g and the plain forward's (out, m, l)."""
+    tdt = getattr(torch, dtype)
+    q, k, v, g = (torch.from_numpy(rng.randn(len(pad_from), L, C).astype(np.float32)).to(tdt)
+                  for L in (Lq, S, S, Lq))
+    pad = np.arange(S)[None, :] >= np.asarray(pad_from)[:, None]
+    bias = torch.from_numpy(
+        np.where(pad, np.finfo(np.float32).min, 0.0).astype(np.float32)[:, None, None, :])
+    out, m, l = pt_ca.composed_cross_attention(q, k, v, bias, seed, SCALE, rate, H)
+    return q, k, v, bias, g, out, m, l
+
+
+# (S, first padded key per batch row, SMs of the card): one key and a fully
+# masked row; less than a tile; a last tile of one key; 4 splits of 256 where
+# a row's later splits are all masked; 17 splits of 192 at the 50salads keys
+BWD_SPLIT_CASES = [(1, (1, 1, 0), 132), (31, (31, 5, 0), 132), (65, (65, 64, 1), 24),
+                   (777, (777, 100, 0), 24), (3100, (3100, 10, 0), 132)]
+
+
+def test_bwd_split_size_keeps_every_block_resident():
+    """Whole tiles of 64 keys, never more splits than blocks that fit the
+    card at once, and the 50salads shape's four splits of 832 on 132 SMs."""
+    assert pt_ca.bwd_split_keys(3100, 64, 132) == 832
+    for S in (1, 31, 65, 777, 1024, 3100):
+        for heads in (1, 12, 64, 1000):
+            for n_sm in (6, 24, 132):
+                split = pt_ca.bwd_split_keys(S, heads, n_sm)
+                assert split % BWD_TILE == 0 and split >= BWD_TILE
+                resident = max(1, pt_ca.BWD_BLOCKS_PER_SM * n_sm // heads)
+                assert -(-S // split) <= resident
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Lq", [8, 20, 33, 64])
+@pytest.mark.parametrize("S,pad_from,n_sm", BWD_SPLIT_CASES)
+def test_split_key_backward_matches_plain(S, pad_from, n_sm, Lq, dtype, rate):
+    """fp32 within 2e-6 of each gradient's largest entry, but dv within 2**-14
+    (the two bf16 parts of w * keep: about 2**-16 relative); bf16 within one
+    bf16 step of the largest entry."""
+    rng = np.random.RandomState(S + Lq)
+    q, k, v, bias, g, out, m, l = _bwd_inputs(rng, S, Lq, pad_from, dtype, 31, rate)
+    split_keys = pt_ca.bwd_split_keys(S, len(pad_from) * H, n_sm)
+    got = _split_backward(q, k, v, bias, 31, SCALE, rate, H, g, out, m, l, split_keys)
+    want = pt_ca.composed_cross_attention_bwd(q, k, v, bias, 31, SCALE, rate, H, g, out, m, l)
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
+        assert a.dtype == b.dtype and torch.isfinite(a.float()).all(), name
+        big = float(b.float().abs().max())
+        if dtype == "bfloat16" and name != "dbias":
+            tol = big * 2.0 ** -7
+        else:
+            tol = (2.0 ** -14 if name == "dv" else 2e-6) * max(1.0, big)
+        assert float((a.float() - b.float()).abs().max()) <= tol, name
+
+
+def test_split_key_backward_dv_needs_both_parts_of_w_keep():
+    """dv from the high part of w * keep alone (one bf16 product) lands
+    outside the 2**-14 that the two parts keep, in fp32 and at the 50salads
+    query count: the low part is what keeps dv's rounding point where the
+    TPU kernel has it (fp32 w * keep)."""
+    rng = np.random.RandomState(5)
+    q, k, v, bias, g, out, m, l = _bwd_inputs(rng, 777, 20, (777, 300, 500), "float32", 3, 0.1)
+    want = pt_ca.composed_cross_attention_bwd(q, k, v, bias, 3, SCALE, 0.1, H, g, out, m, l)[2]
+    big = float(want.abs().max())
+    errs = [float((_split_backward(q, k, v, bias, 3, SCALE, 0.1, H, g, out, m, l, 256,
+                                   parts)[2] - want).abs().max()) for parts in (2, 1)]
+    assert errs[0] <= 2.0 ** -14 * big < errs[1], errs

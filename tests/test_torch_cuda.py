@@ -18,7 +18,10 @@ keys across blocks and sum the blocks' partials in block order, so two calls
 must agree bit for bit, and the shapes around their block sizes (64 keys
 for K5, whole units of 128 for K3, K4 and K6, 32 queries) are covered: one
 key, less than a block, one key past a block, and blocks whose keys are all
-masked.
+masked. K7 in bf16 splits the keys as K6 does and sums the splits' dq in
+split order: the same holds for it. K1 runs its three products as 3xTF32
+on the tensor cores over a fixed order of weight chunks: two calls agree
+bit for bit too.
 """
 
 import math
@@ -45,7 +48,7 @@ def cuda():
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
 
 
-@pytest.mark.parametrize("N", [1, 15, 16, 2048, 2053, 4096])
+@pytest.mark.parametrize("N", [1, 15, 16, 2048, 2053, 4096, 8192, 16000])
 def test_fused_bn_blend_tail_kernel_matches_plain(cuda, N):
     gen = torch.Generator().manual_seed(N)
     r, d, blend, params = fuser_inputs(N, gen, cuda)
@@ -110,7 +113,7 @@ def _close(got, want, rel, name=""):
 
 
 @pytest.mark.parametrize("outer", [False, True], ids=["plain-tail", "outer-residual"])
-@pytest.mark.parametrize("N", [1, 16, 2053, 4096])
+@pytest.mark.parametrize("N", [1, 16, 2053, 4096, 16000])
 def test_fused_safuser_tail_kernel_matches_plain(cuda, N, outer):
     gen = torch.Generator().manual_seed(N)
     r, d, blend, params = fuser_inputs(N, gen, cuda)
@@ -122,6 +125,20 @@ def test_fused_safuser_tail_kernel_matches_plain(cuda, N, outer):
     got = fk.fused_bn_blend_tail(r, d, blend, params, outer)
     want = fk.composed_tail(*fk.composed_bn_blend(r, d, blend), params, outer)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("N", [15, 2048, 4096, 16000])
+def test_fused_tail_kernel_is_deterministic(cuda, N):
+    """K1 (3xTF32 products over a fixed order of weight chunks): two calls
+    of each route agree bit for bit, below one row tile (15 rows) and at the
+    utkinects buckets' two tile sizes (32 rows of each stream from 8 x 512)."""
+    gen = torch.Generator().manual_seed(N + 3)
+    r, d, blend, params = fuser_inputs(N, gen, cuda)
+    for outer in (False, True):
+        assert torch.equal(fk.fused_safuser_tail(r, d, params, outer),
+                           fk.fused_safuser_tail(r, d, params, outer))
+        assert torch.equal(fk.fused_bn_blend_tail(r, d, blend, params, outer),
+                           fk.fused_bn_blend_tail(r, d, blend, params, outer))
 
 
 @pytest.mark.parametrize("outer", [False, True], ids=["plain-tail", "outer-residual"])
@@ -233,8 +250,10 @@ DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("S", [1, 31, 257, 777, 1024, 3100])
-@pytest.mark.parametrize("Lq,C,H", [(20, 512, 8), (8, 128, 8), (64, 64, 2), (33, 128, 4)],
-                         ids=["50salads", "breakfast", "64-queries", "33-queries"])
+@pytest.mark.parametrize("Lq,C,H", [(20, 512, 8), (8, 128, 8), (64, 64, 2), (33, 128, 4),
+                                   (64, 512, 8)],
+                         ids=["50salads", "breakfast", "64-queries", "33-queries",
+                              "50salads-width-64-queries"])
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 def test_cross_attention_kernels_match_plain(cuda, dtype, Lq, C, H, S, rate):
     dt = DTYPES[dtype]
@@ -288,6 +307,7 @@ def test_cross_attention_kernel_takes_splits_with_every_key_masked(cuda, dtype):
     q, k, v, _ = cross_inputs(4, 20, 1024, 512, gen, cuda, dt)
     lengths = torch.tensor([1024, 10, 0, 300])
     bias = attention_bias_from_padding((torch.arange(1024)[None] >= lengths[:, None]).to(cuda))
+    g = torch.randn(q.shape, generator=gen).to(cuda, dt)
     for rate in (0.0, 0.1):
         out, m, l = ca.cross_attention_fwd(q, k, v, bias, 9, 0.125, rate, 8)
         w_out, w_m, w_l = ca.composed_cross_attention(q, k, v, bias, 9, 0.125, rate, 8)
@@ -295,7 +315,41 @@ def test_cross_attention_kernel_takes_splits_with_every_key_masked(cuda, dtype):
         _close(out.float(), w_out.float(), 2e-5 if dtype == "fp32" else BF16_TOL, "out")
         torch.testing.assert_close(m, w_m, atol=1e-5, rtol=1e-5)
         torch.testing.assert_close(l, w_l, atol=1e-5, rtol=1e-5)
+        # K7 on the same rows: its later splits of rows 1 and 3 hold only
+        # masked keys, and row 2 none
+        got = ca.cross_attention_bwd(q, k, v, bias, 9, 0.125, rate, 8, g, out, m, l, True)
+        want = ca.composed_cross_attention_bwd(q, k, v, bias, 9, 0.125, rate, 8, g, out, m, l)
+        for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
+            _close(a.float(), b.float(), 1e-4 if dtype == "fp32" else BF16_TOL, name)
     assert float(l[2].min()) == 1024.0 and float(m[2].max()) == torch.finfo(torch.float32).min
+
+
+@pytest.mark.parametrize("Lq,S", [(64, 777), (20, 257)])
+def test_cross_attention_bwd_kernel_is_deterministic(cuda, Lq, S):
+    """K7 in bf16 sums its splits' dq and its heads' dbias in a fixed order:
+    two calls agree bit for bit, with a fully masked row."""
+    gen = torch.Generator().manual_seed(Lq + S)
+    q, k, v, bias = cross_inputs(8, Lq, S, 512, gen, cuda, torch.bfloat16, all_masked_row=True)
+    g = torch.randn(q.shape, generator=gen).to(cuda, torch.bfloat16)
+    out, m, l = ca.cross_attention_fwd(q, k, v, bias, 7, 0.125, 0.1, 8)
+    first = ca.cross_attention_bwd(q, k, v, bias, 7, 0.125, 0.1, 8, g, out, m, l, True)
+    again = ca.cross_attention_bwd(q, k, v, bias, 7, 0.125, 0.1, 8, g, out, m, l, True)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+def test_cross_attention_bwd_call_is_its_own_two_launches(cuda):
+    """One bf16 K7 call on the card is its main and its sum kernel, and
+    nothing else (no memset, no cast)."""
+    from chip_smoke import own_launches_per_call
+
+    gen = torch.Generator().manual_seed(2)
+    q, k, v, bias = cross_inputs(8, 20, 3100, 512, gen, cuda, torch.bfloat16)
+    g = torch.randn(q.shape, generator=gen).to(cuda, torch.bfloat16)
+    out, m, l = ca.cross_attention_fwd(q, k, v, bias, 0, 0.125, 0.0, 8)
+    own_launches_per_call(lambda: ca.cross_attention_bwd(q, k, v, bias, 0, 0.125, 0.0, 8, g, out,
+                                                         m, l),
+                          ("cross_bwd_bf16_kernel", "cross_bwd_sum_kernel"), 2, "K7 bf16")
 
 
 @pytest.mark.parametrize("S", [257, 3100])

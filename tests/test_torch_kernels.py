@@ -22,9 +22,12 @@ the algorithm of K3's and K4's bf16 kernel (keys split into runs of
 the normalised weights are rounded, the runs' partials summed in order).
 """
 
+import types
+
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import jax.numpy as jnp
 
@@ -470,3 +473,58 @@ def test_fwd_split_keys_fit_one_cluster():
         split = pt_attn.fwd_split_keys(Lk)
         assert split % unit == 0 and -(-Lk // split) <= most, Lk
         assert split == unit if Lk <= unit * most else (split - unit) * most < Lk, Lk
+
+
+# ---- the 3xTF32 products of K1's CUDA kernel, emulated ----
+
+K1_TOL = 1e-4   # chip_smoke.py: K1 against its plain version, fp32 on both sides
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits) by clearing the low 13 bits of its
+    fp32 pattern, to nearest with ties away from zero (as cvt.rna)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_trunc(x):
+    """x truncated to TF32: what the mma reads of an fp32 operand."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_linear(passes):
+    """F.linear with TF32 operands and fp32 sums: one pass, or the 3xTF32 sum
+    lo_x hi_w + hi_x lo_w + hi_x hi_w of the kernel (mma_tf32.cuh: hi rounded
+    to TF32, lo = x - hi truncated by the mma)."""
+    def linear(x, w, b=None):
+        x_hi, w_hi = _tf32(x), _tf32(w)
+        y = F.linear(x_hi, w_hi)
+        if passes == 3:
+            y = (F.linear(_tf32_trunc(x - x_hi), w_hi) + F.linear(x_hi, _tf32_trunc(w - w_hi))
+                 + y)
+        return y if b is None else y + b
+    return linear
+
+
+@pytest.mark.parametrize("outer", [False, True], ids=["no-outer", "outer-residual"])
+@pytest.mark.parametrize("blend", [False, True], ids=["no-blend", "blend"])
+def test_3xtf32_products_hold_k1_tol_and_one_tf32_pass_does_not(blend, outer, monkeypatch):
+    """K1's three products on TF32 tensor cores, emulated through the plain
+    tail on both routes at the utkinects widths (C 128, Ch 512) and the
+    card check's inputs (``chip_smoke.fuser_inputs``, N = 8 x 256): the
+    3xTF32 sums stay within K1_TOL of the fp32 plain version, one TF32 pass
+    does not. This is why the kernel pays three products for each."""
+    from chip_smoke import fuser_inputs
+
+    gen = torch.Generator().manual_seed(7 + 2 * blend + outer)
+    r, d, bl, params = fuser_inputs(8 * 256, gen, "cpu")
+
+    def tail(linear):
+        monkeypatch.setattr(pt_fk, "F", types.SimpleNamespace(linear=linear, gelu=F.gelu))
+        if blend:
+            return pt_fk.composed_tail(*pt_fk.composed_bn_blend(r, d, bl), params, outer)
+        return pt_fk.composed_tail(r, d, params, outer)
+
+    want = tail(F.linear)
+    err3, err1 = (float((tail(_tf32_linear(n)) - want).abs().max()) for n in (3, 1))
+    assert err3 <= K1_TOL < err1, (err3, err1)
