@@ -27,7 +27,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    at S = 1, 31 and 257 and with splits whose keys are all masked, each
    twice bit-equal, and one bf16 K7 call audited as its two launches.
    Time each at the main path's shape: kernel, plain version, bound and,
-   where one exists, one PyTorch library call as the yardstick;
+   where one exists, one PyTorch library call as the yardstick; K6 and K7
+   also in fp32 at the utkinects 1024 and 2000 buckets' shape, where
+   ``R3D_CROSS_NATIVE=1`` would send them;
 4. utkinects serving: an ``InferenceSession`` at full width (n_class 17,
    max_batch 8) from the port's seeded init; every launch count set to 0,
    requests through ``ServingQueue`` in the 256, 512 and 1024 buckets, the
@@ -95,8 +97,8 @@ BF16_TOL = 2e-2          # bf16 kernels vs their plain versions, over the larges
 
 # every __global__ function of r3d_tpu_torch/csrc, by a fragment of its name
 OWN_KERNELS = ("fuser_tail_tf32_kernel", "fuser_tail_bwd_kernel", "sum_partials_kernel",
-               "attention_fwd_kernel", "attention_fwd_split_kernel", "attention_bwd_kernel",
-               "attention_bwd_bf16_kernel",
+               "attention_fwd_kernel", "attention_fwd_cluster_kernel", "attention_fwd_split_kernel",
+               "attention_bwd_cluster_kernel", "attention_bwd_bf16_kernel",
                "dq_sum_kernel", "cross_fwd_split_kernel", "cross_fwd_combine_kernel",
                "cross_attention_bwd_kernel", "dq_reduce_kernel", "cross_bwd_bf16_kernel",
                "cross_bwd_sum_kernel")
@@ -443,8 +445,29 @@ def check_fuser_bwd_kernel(gen, device):
     return worst_bwd, t_bwd
 
 
+def fp32_clusters_at_once(B, H, Lq, Lk, D, split):
+    """How many clusters of the fp32 K3 and K5 launches at these sizes the
+    card holds at once (``cudaOccupancyMaxActiveClusters``): fewer than the
+    launch has, and it runs in waves."""
+    import ctypes
+
+    from r3d_tpu_torch.ops import attention as att
+
+    out = [ctypes.c_int(), ctypes.c_int()]
+    args = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    err = att.KERNEL.query("r3d_attention_fwd_clusters", args)(
+        B, H, Lq, Lk, D, split, ctypes.byref(out[0]))
+    err = err or att.BWD_KERNEL.query("r3d_attention_bwd_clusters", args)(
+        B, H, Lk, D, split, 1, ctypes.byref(out[1]))
+    if err:
+        raise RuntimeError(f"r3d_attention_*_clusters: CUDA error {err}")
+    return out[0].value, out[1].value
+
+
 def check_attention_train_kernels(gen, device):
-    """K4 (dropout forward) and K5 (backward, rate 0 and 0.1)."""
+    """K4 (dropout forward) and K5 (backward, rate 0 and 0.1); K5 twice
+    bit-equal, and one K5 call audited as one launch of its own kernel (no
+    memset)."""
     import torch
     import torch.nn.functional as F
 
@@ -479,6 +502,9 @@ def check_attention_train_kernels(gen, device):
             if not er <= K3_TOL:
                 raise AssertionError(f"attention_bwd disagrees at Lk={Lk}, rate={r_}")
             worst5 = (max(worst5[0], ea), max(worst5[1], er))
+        again = att.attention_bwd(q, k, v, bias, seed, scale, rate, g, need_dbias=True)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"attention_bwd (fp32) is not deterministic at Lk={Lk}")
         if Lk == 512:
             stream = torch.cuda.current_stream().cuda_stream
             out = torch.empty_like(q)
@@ -494,10 +520,17 @@ def check_attention_train_kernels(gen, device):
                       q, k, v, bias, seed, scale, rate)),
                   **library_times(library), "bound_ms": bound, "bound_by": bound_by}
             dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+            split = att.fp32_split_keys(Lk)
+            fit = fp32_clusters_at_once(B, H, Lq, Lk, D, split)
+            print(f"  K3/K5 fp32 at Lk={Lk}: {-(-Lk // split)} splits of {split} keys, "
+                  f"{B * H} clusters launched; the card holds {fit[0]} (K3) and {fit[1]} (K5) "
+                  "at once")
             launch = raw_launcher(att.BWD_KERNEL, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                   bias.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                                  dv.data_ptr(), None, B, H, Lq, Lk, D, scale, 1, seed,
+                                  dv.data_ptr(), None, B, H, Lq, Lk, D, split, scale, 1, seed,
                                   att.dropout_threshold(rate), 1.0 / (1.0 - rate), stream)
+            own_launches_per_call(lambda: att.attention_bwd(q, k, v, bias, seed, scale, rate, g),
+                                  ("attention_bwd_cluster_kernel",), 1, "K5 fp32 attention_bwd")
             leaves = [t.clone().requires_grad_() for t in (q, k, v)]
 
             def library_bwd():
@@ -507,7 +540,7 @@ def check_attention_train_kernels(gen, device):
 
             bound, bound_by = attention_bwd_bound_ms(B, H, Lq, Lk, D)
             t5 = {"shape": f"B={B} H={H} Lq={Lq} Lk={Lk} D={D} p={rate}", "ms": time_ms(launch),
-                  "device_ms": device_ms(launch, ("attention_bwd_kernel<float", "Memset")),
+                  "device_ms": device_ms(launch, "attention_bwd_cluster_kernel<16"),
                   "plain_ms": time_ms(lambda: att.composed_attention_bwd(
                       q, k, v, bias, seed, scale, rate, g, False)),
                   **library_times(library_bwd), "bound_ms": bound, "bound_by": bound_by}
@@ -515,6 +548,11 @@ def check_attention_train_kernels(gen, device):
 
 
 def check_attention_kernel(gen, device):
+    """K3 (fp32) at B = H = 8, Lq = 8, D = 16, Lk = 256, 512 and a ragged 300
+    with a fully masked row, each twice bit-equal, timed at Lk = 512 and one
+    call audited as one launch of its own kernel; K3 and K5 at the shapes
+    around their query tiles of 8 and their splits of 64 keys; the routing
+    A/B of wrapper against plain call at Lk = 128-2,000."""
     import torch
     import torch.nn.functional as F
 
@@ -535,12 +573,16 @@ def check_attention_kernel(gen, device):
         if not (err <= K3_TOL and torch.isfinite(got).all()):
             raise AssertionError(f"flash_attention disagrees with its plain version at Lk={Lk}")
         worst = max(worst, err)
+        if not torch.equal(got, att.flash_attention(q, k, v, bias, scale)):
+            raise AssertionError(f"flash_attention (fp32) is not deterministic at Lk={Lk}")
         if Lk == 512:   # the 512-bucket cross-attention of the serving path
             out = torch.empty_like(q)
             stream = torch.cuda.current_stream().cuda_stream
             launch = raw_launcher(att.KERNEL, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                   bias.data_ptr(), out.data_ptr(), B, H, Lq, Lk, D,
-                                  scale, stream)
+                                  att.fp32_split_keys(Lk), scale, stream)
+            own_launches_per_call(lambda: att.flash_attention(q, k, v, bias, scale),
+                                  ("attention_fwd_cluster_kernel",), 1, "K3 fp32 flash_attention")
             plain = lambda: att.composed_attention(q, k, v, bias, scale)
             library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias,
                                                              scale=scale)
@@ -548,9 +590,34 @@ def check_attention_kernel(gen, device):
             print(f"  scaled_dot_product_attention (yardstick only): max|lib - plain| = {lib_err:.3e}")
             bound, bound_by = attention_bound_ms(B, H, Lq, Lk, D)
             timing = {"shape": f"B={B} H={H} Lq={Lq} Lk={Lk} D={D}", "ms": time_ms(launch),
-                      "device_ms": device_ms(launch, "attention_fwd_kernel<16, false, false"),
+                      "device_ms": device_ms(launch, "attention_fwd_cluster_kernel<16"),
                       "plain_ms": time_ms(plain), **library_times(library),
                       "bound_ms": bound, "bound_by": bound_by}
+    # what the cluster bodies of K3 and K5 could get wrong: more than one
+    # query tile of 8, one key, less than one tile of 64, a last tile of one
+    # key, splits grown to two and to five tiles (the ring), the
+    # self-attention route; a fully masked row where Lk > 1
+    for Lq_, Lk in ((33, 512), (70, 300), (8, 1), (8, 31), (8, 65), (20, 1024), (8, 2049),
+                    (512, 512)):
+        q, k, v, bias = attention_inputs(B, H, Lq_, Lk, D, gen, device, all_masked_row=Lk > 1)
+        g = torch.randn(q.shape, generator=gen).to(device)
+        got = att.flash_attention(q, k, v, bias, scale)
+        err = float((got - att.composed_attention(q, k, v, bias, scale)).abs().max())
+        if not (err <= K3_TOL and torch.equal(got, att.flash_attention(q, k, v, bias, scale))):
+            raise AssertionError(f"flash_attention (fp32) disagrees or is not deterministic at "
+                                 f"Lq={Lq_}, Lk={Lk}: {err:.3e}")
+        worst = max(worst, err)
+        for r_ in (0.0, 0.1):
+            got_b = att.attention_bwd(q, k, v, bias, 5, scale, r_, g, need_dbias=True)
+            e_b = errs(got_b, att.composed_attention_bwd(q, k, v, bias, 5, scale, r_, g))
+            same = all(torch.equal(a, b) for a, b in zip(
+                got_b, att.attention_bwd(q, k, v, bias, 5, scale, r_, g, need_dbias=True)))
+            print(f"K3, K5 fp32 Lq={Lq_} Lk={Lk} rate={r_}: K3 max|kernel - plain| {err:.3e}; "
+                  f"K5 over dq, dk, dv, dbias {e_b[0]:.3e}, relative {e_b[1]:.3e} "
+                  f"(tol {K3_TOL}); two calls bit-equal")
+            if not (e_b[1] <= K3_TOL and same):
+                raise AssertionError(f"attention_bwd (fp32) disagrees or is not deterministic at "
+                                     f"Lq={Lq_}, Lk={Lk}, rate={r_}")
     # the routing question (PERF.md): wrapper call vs plain call, as the
     # decoder's cross-attention would pay them, on both sides of the TPU's
     # [256, 512] window
@@ -759,18 +826,20 @@ def check_cross_attention_kernels(gen, device):
     each bit-equal; rate 0 and 0.1 (the keep rate, and K7 under the same
     seed agreeing with the plain backward, which redraws the plain forward's
     mask). One bf16 K7 call audited as its two launches. Timed at the
-    50salads shape: B = 8, Lq = 20, S = 3100, C = 512, bf16."""
+    50salads shape: B = 8, Lq = 20, S = 3100, C = 512, bf16; and in fp32 at
+    the utkinects shape (B = 8, Lq = 8, C = 128, S = 1,024 and 2,000).
+    Returns (worst error, timing) of K6 and K7 in bf16, then in fp32 (timed
+    at S = 2,000)."""
     import ctypes
 
     import torch
-    import torch.nn.functional as F
 
     from r3d_tpu_torch.ops import attention as att
     from r3d_tpu_torch.ops import cross_attention as ca
 
     B, H, rate = 8, 8, 0.1
     tols = {torch.float32: (CROSS_FWD_TOL, CROSS_BWD_TOL), torch.bfloat16: (BF16_TOL, BF16_TOL)}
-    worst = {"fwd": (0.0, 0.0), "bwd": (0.0, 0.0)}
+    worst = {(dt, d): (0.0, 0.0) for dt in tols for d in ("fwd", "bwd")}
     for dtype, (ftol, btol) in tols.items():
         for Lq, C in ((20, 512), (8, 128)):
             scale = 1.0 / math.sqrt(C // H)
@@ -810,8 +879,8 @@ def check_cross_attention_kernels(gen, device):
                             and torch.isfinite(out.float()).all()):
                         raise AssertionError(f"K6/K7 disagree with their plain versions at "
                                              f"{dtype} Lq={Lq} C={C} S={S} rate={r_}")
-                    worst["fwd"] = worse(worst["fwd"], e_out)
-                    worst["bwd"] = worse(worst["bwd"], e_b)
+                    worst[dtype, "fwd"] = worse(worst[dtype, "fwd"], e_out)
+                    worst[dtype, "bwd"] = worse(worst[dtype, "bwd"], e_b)
 
     # rows whose later splits hold only masked keys (10 and 300 real keys of
     # 1,024) and a row with none: weight 0 in the combine, not NaN; K7 on
@@ -846,8 +915,8 @@ def check_cross_attention_kernels(gen, device):
             if not all(torch.equal(a, b) for a, b in zip(got_b, ca.cross_attention_bwd(
                     q, k, v, bias, 11, scale, r_, H, g, out, m, l, need_dbias=True))):
                 raise AssertionError(f"K7 is not deterministic under masked splits at {dtype}")
-            worst["fwd"] = worse(worst["fwd"], e_out)
-            worst["bwd"] = worse(worst["bwd"], e_b)
+            worst[dtype, "fwd"] = worse(worst[dtype, "fwd"], e_out)
+            worst[dtype, "bwd"] = worse(worst[dtype, "bwd"], e_b)
 
     # timings at the 50salads shape, bf16
     Lq, S, C = 20, 3100, 512
@@ -865,14 +934,7 @@ def check_cross_attention_kernels(gen, device):
                           bias.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(),
                           fwd_part.data_ptr(), split_keys, B, Lq, S, H, D, scale, 0, 0, 0, 1.0,
                           stream)
-    mask = (bias == 0)
-    heads = lambda x, L: x.view(B, L, H, D).transpose(1, 2)
-
-    def library():   # SDPA on head-major copies, and the output back to native layout
-        o = F.scaled_dot_product_attention(heads(q, Lq).contiguous(), heads(k, S).contiguous(),
-                                           heads(v, S).contiguous(), attn_mask=mask, scale=scale)
-        return o.transpose(1, 2).reshape(B, Lq, C)
-
+    library, library_bwd = cross_library(q, k, v, bias, g, H, scale)
     lib_err = errs([library()], [ca.composed_cross_attention(q, k, v, bias, 0, scale, 0.0, H)[0]])
     print(f"  scaled_dot_product_attention with relayouts (yardstick only): "
           f"max|lib - plain| = {lib_err[0]:.3e}")
@@ -903,20 +965,89 @@ def check_cross_attention_kernels(gen, device):
     own_launches_per_call(
         lambda: ca.cross_attention_bwd(q, k, v, bias, 0, scale, 0.0, H, g, out, m, l),
         ("cross_bwd_bf16_kernel", "cross_bwd_sum_kernel"), 2, "K7 bf16 cross_attention_bwd")
-    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-
-    def library_bwd():
-        o = F.scaled_dot_product_attention(*(heads(t, t.shape[1]).contiguous() for t in leaves),
-                                           attn_mask=mask, scale=scale)
-        torch.autograd.grad(o.transpose(1, 2).reshape(B, Lq, C), leaves, g)
-
     bound, bound_by = cross_bound_ms(B, Lq, S, C, H, 2, backward=True)
     t7 = {"shape": shape, "ms": time_ms(launch, iters=20),
           "device_ms": device_ms(launch, ("cross_bwd_bf16_kernel", "cross_bwd_sum_kernel")),
           "plain_ms": time_ms(lambda: ca.composed_cross_attention_bwd(
               q, k, v, bias, 0, scale, 0.0, H, g, out, m, l, False), iters=20),
           **library_times(library_bwd, iters=20), "bound_ms": bound, "bound_by": bound_by}
-    return (worst["fwd"], t6), (worst["bwd"], t7)
+    t6f, t7f = {S: time_cross_fp32(gen, device, S) for S in (1024, 2000)}[2000]
+    return ((worst[torch.bfloat16, "fwd"], t6), (worst[torch.bfloat16, "bwd"], t7),
+            (worst[torch.float32, "fwd"], t6f), (worst[torch.float32, "bwd"], t7f))
+
+
+def cross_library(q, k, v, bias, g, H, scale):
+    """The library yardsticks of K6 and K7 on native-layout q [B, Lq, C],
+    k, v [B, S, C]: SDPA on head-major copies with the output back in native
+    layout, and that forward with its backward under ``g``."""
+    import torch
+    import torch.nn.functional as F
+
+    B, Lq, C = q.shape
+    D = C // H
+    mask = (bias == 0)   # SDPA's bool mask (True = attend)
+    heads = lambda x: x.view(B, x.shape[1], H, D).transpose(1, 2).contiguous()
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+
+    def library():
+        o = F.scaled_dot_product_attention(heads(q), heads(k), heads(v), attn_mask=mask,
+                                           scale=scale)
+        return o.transpose(1, 2).reshape(B, Lq, C)
+
+    def library_bwd():
+        o = F.scaled_dot_product_attention(*(heads(t) for t in leaves), attn_mask=mask,
+                                           scale=scale)
+        torch.autograd.grad(o.transpose(1, 2).reshape(B, Lq, C), leaves, g)
+
+    return library, library_bwd
+
+
+def time_cross_fp32(gen, device, S, B=8, Lq=8, C=128, H=8):
+    """K6 and K7 in fp32 at the shape ``R3D_CROSS_NATIVE=1`` would give them
+    on the utkinects path (its 1024 and 2000 buckets: B = 8, Lq = 8, C =
+    128, H = 8): events, device time, bound and the library yardsticks.
+    Returns the two timings (K6, K7)."""
+    import torch
+
+    from r3d_tpu_torch.ops import cross_attention as ca
+
+    D = C // H
+    scale = 1.0 / math.sqrt(D)
+    q, k, v, bias = cross_inputs(B, Lq, S, C, gen, device, torch.float32)
+    g = torch.randn(q.shape, generator=gen).to(device)
+    stream = torch.cuda.current_stream().cuda_stream
+    out, m, l = ca.cross_attention_fwd(q, k, v, bias, 0, scale, 0.0, H)
+    library, library_bwd = cross_library(q, k, v, bias, g, H, scale)
+    shape = f"B={B} Lq={Lq} S={S} C={C} H={H} fp32"
+    launch = raw_launcher(ca.FWD_KERNEL, 0, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          bias.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(), None, 0,
+                          B, Lq, S, H, D, scale, 0, 0, 0, 1.0, stream)
+    bound, bound_by = cross_bound_ms(B, Lq, S, C, H, 4)
+    t6 = {"shape": shape, "ms": time_ms(launch),
+          "device_ms": device_ms(launch, f"attention_fwd_kernel<{D}, false, true"),
+          "plain_ms": time_ms(lambda: ca.composed_cross_attention(q, k, v, bias, 0, scale, 0.0,
+                                                                  H)),
+          **library_times(library), "bound_ms": bound, "bound_by": bound_by}
+    part = torch.empty(ca.bwd_scratch_shape(S, B, Lq, C, H, ca.BWD_TILE_KEYS, False),
+                       device=device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    launch = raw_launcher(ca.BWD_KERNEL, 0, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          bias.data_ptr(), g.data_ptr(), out.data_ptr(), m.data_ptr(),
+                          l.data_ptr(), part.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                          dv.data_ptr(), None, B, Lq, S, H, D, ca.BWD_TILE_KEYS, scale, 0, 0, 0,
+                          1.0, stream)
+    bound, bound_by = cross_bound_ms(B, Lq, S, C, H, 4, backward=True)
+    t7 = {"shape": shape, "ms": time_ms(launch, iters=20),
+          "device_ms": device_ms(launch, ("cross_attention_bwd_kernel<float", "dq_reduce_kernel")),
+          "plain_ms": time_ms(lambda: ca.composed_cross_attention_bwd(
+              q, k, v, bias, 0, scale, 0.0, H, g, out, m, l, False), iters=20),
+          **library_times(library_bwd, iters=20), "bound_ms": bound, "bound_by": bound_by}
+    for name, t in (("K6", t6), ("K7", t7)):
+        print(f"{name} fp32 {shape}: {t['ms']:.4f} ms by events, {t['device_ms']:.4f} on the "
+              f"device; bound {t['bound_ms']:.4f} ({t['bound_by']}); SDPA with relayouts"
+              f"{' forward + backward' if name == 'K7' else ''} {t['library_ms']:.4f} by "
+              f"events, {t['library_device_ms']:.4f} on the device; plain {t['plain_ms']:.4f}")
+    return t6, t7
 
 
 def make_videos(rng, lengths, cfg):
@@ -1430,7 +1561,8 @@ def main() -> int:
     k2_err, k2_time = check_fuser_bwd_kernel(gen, device)
     (k4_err, k4_time), (k5_err, k5_time) = check_attention_train_kernels(gen, device)
     bf16_err, bf16_time = check_attention_bf16_kernels(gen, device)
-    (k6_err, k6_time), (k7_err, k7_time) = check_cross_attention_kernels(gen, device)
+    ((k6_err, k6_time), (k7_err, k7_time), (k6f_err, k6f_time),
+     (k7f_err, k7f_time)) = check_cross_attention_kernels(gen, device)
 
     # utkinects: futr_fusion_bn, fp32 after the bf16 embeds (PR 1, PR 2)
     cfg = get_config("utkinects")
@@ -1487,9 +1619,14 @@ def main() -> int:
          sal),
         (ca.FWD_KERNEL, k6_err, k6_time, "r3d_tpu/ops/cross_attention.py:50", sal),
         (ca.BWD_KERNEL, k7_err, k7_time, "r3d_tpu/ops/cross_attention.py:115", sal),
+        # fp32 K6/K7: the utkinects 1024/2000 buckets take them only under
+        # R3D_CROSS_NATIVE=1, so their launches on the (default) utkinects
+        # run are 0
+        (ca.FWD_KERNEL, k6f_err, k6f_time, "r3d_tpu/ops/cross_attention.py:50", utk),
+        (ca.BWD_KERNEL, k7f_err, k7f_time, "r3d_tpu/ops/cross_attention.py:115", utk),
     ):
         rows.append({
-            "name": k.name, "route": "cuda", "source": f"r3d_tpu_torch/csrc/{k.source}",
+            "name": k.name + (" fp32" if "fp32" in t["shape"] else ""), "route": "cuda", "source": f"r3d_tpu_torch/csrc/{k.source}",
             "replaces": replaces, "launches": path[0][k.name],
             "serving_launches": path[1][k.name],
             "max_abs_err": err[0], "max_err": err[1],

@@ -1,25 +1,34 @@
-"""Time K1 (the fuser tail) and K7 in bf16 (the native cross-attention
+"""Time K3 and K5 in fp32 (the utkinects decoder's attention forward and
+backward), K1 (the fuser tail) and K7 in bf16 (the native cross-attention
 backward) of this checkout against another checkout's, on one card, in turns.
 
     python3 kernel_ab.py OTHER_CHECKOUT      # from the root of a checkout, on a CUDA host
 
-Builds ``fuser_tail.cu`` and ``cross_attention_bwd.cu`` of the other
-checkout's ``r3d_tpu_torch/csrc`` with nvcc (the flags of
-``r3d_tpu_torch/ops/build.py``) into ``build/ab/``, loads them beside this
-checkout's, and times both on the same inputs in the order other, this,
-this, other: CUDA events around back-to-back calls and the profiler's device
-time of all of a call's launches, each the mean of the two turns.
+Builds ``attention.cu``, ``attention_bwd.cu``, ``fuser_tail.cu`` and
+``cross_attention_bwd.cu`` of the other checkout's ``r3d_tpu_torch/csrc``
+with nvcc (the flags of ``r3d_tpu_torch/ops/build.py``) into ``build/ab/``,
+loads them beside this checkout's, and times both on the same inputs in the
+order other, this, this, other: CUDA events around back-to-back calls and
+the profiler's device time of all of a call's launches, each the mean of
+the two turns. Where an entry point's signature changed, the other
+checkout's is read off its source.
 
+- K3 and K5 in fp32: ``r3d_attention_fwd`` and ``r3d_attention_bwd`` (rate
+  0.1, as ``chip_smoke.py`` times it) at B = H = 8, Lq = 8, D = 16, Lk = 256
+  and 512. The cluster bodies take the keys per block
+  (``fp32_split_keys``); the bodies before them did not. Every output is
+  held to the plain version (2e-5; K5 relative to each gradient's largest
+  entry).
 - K1: both C entry points (``r3d_fused_bn_blend_tail``,
   ``r3d_fused_safuser_tail``; both checkouts share their signatures) at the
   utkinects buckets' N = 8 x 256, 512, 1,024 and 2,000 rows. Every output
   is held to the plain version (1e-4).
 - K7: ``r3d_cross_attention_bwd`` in bf16 at B = 8, Lq = 20, S = 3,100,
-  C = 512, H = 8 (the 50salads decoder's training step). This checkout's
-  takes keys per block from ``bwd_split_keys``; the other is taken to be
-  the body before that (its argument is the count of 64-key blocks, its
-  scratch one fp32 dq slice a block). Every output is held to the plain
-  version (2e-2 of each gradient's largest entry).
+  C = 512, H = 8 (the 50salads decoder's training step). The split body
+  takes keys per block from ``bwd_split_keys``; the body before it took the
+  count of 64-key blocks, its scratch one fp32 dq slice a block. Every
+  output is held to the plain version (2e-2 of each gradient's largest
+  entry).
 
 Prints one line per kernel and shape and, as the last line, one JSON object
 of the times in ms ([events, device] per side). Exits non-zero where CUDA is
@@ -52,10 +61,16 @@ def other_library(checkout: Path, source: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(out))
 
 
-def bind(lib, kernel):
+def bind(lib, kernel, argtypes=None):
     fn = getattr(lib, kernel.symbol)
-    fn.argtypes, fn.restype = kernel.argtypes, ctypes.c_int
+    fn.argtypes, fn.restype = argtypes or kernel.argtypes, ctypes.c_int
     return fn
+
+
+def has(checkout: Path, source: str, marker: str) -> bool:
+    """Whether the other checkout's ``source`` holds ``marker``: which body,
+    and so which entry-point signature, it has."""
+    return marker in (checkout / "r3d_tpu_torch" / "csrc" / source).read_text()
 
 
 def in_turns(label, calls, check, result):
@@ -106,7 +121,61 @@ def fuser_tail(other, device, gen, stream, result):
             in_turns(f"{name} N={N}", calls, check, result)
 
 
-def cross_attention_bwd(other, device, gen, stream, result, B=8, Lq=20, S=3100, C=512, H=8):
+def attention_fp32(checkout, device, gen, stream, result, B=8, H=8, Lq=8, D=16, rate=0.1):
+    """K3 and K5 in fp32 at the utkinects decoder's shape, Lk = 256 and 512."""
+    import torch
+
+    from r3d_tpu_torch.ops import attention as att
+
+    scale = 1.0 / math.sqrt(D)
+    fwd_split = has(checkout, "attention.cu", "attention_fwd_cluster_kernel")
+    bwd_split = has(checkout, "attention_bwd.cu", "attention_bwd_cluster_kernel")
+    unsplit = lambda argtypes, at: argtypes[:at] + argtypes[at + 1:]   # without the split int
+    fwd = {"this": att.KERNEL.load(),
+           "other": bind(other_library(checkout, "attention.cu"), att.KERNEL,
+                         None if fwd_split else unsplit(att.KERNEL.argtypes, 10))}
+    bwd = {"this": att.BWD_KERNEL.load(),
+           "other": bind(other_library(checkout, "attention_bwd.cu"), att.BWD_KERNEL,
+                         None if bwd_split else unsplit(att.BWD_KERNEL.argtypes, 14))}
+    takes_split = {"this": True}
+    for Lk in (256, 512):
+        q, k, v, bias = chip_smoke.attention_inputs(B, H, Lq, Lk, D, gen, device)
+        g = torch.randn(q.shape, generator=gen).to(device)
+        split = att.fp32_split_keys(Lk)
+        seed, thr = 1000 + Lk, att.dropout_threshold(rate)
+        want = att.composed_attention(q, k, v, bias, scale)
+        want_b = att.composed_attention_bwd(q, k, v, bias, seed, scale, rate, g, False)[:3]
+        outs = {who: torch.empty_like(q) for who in fwd}
+        grads = {who: tuple(torch.empty_like(t) for t in (q, k, v)) for who in bwd}
+        shape = lambda who, taken: (B, H, Lq, Lk, D) + ((split,) if taken else ())
+        calls = {who: (lambda fn=fn, who=who: fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), outs[who].data_ptr(),
+            *shape(who, who == "this" or fwd_split), scale, stream)) for who, fn in fwd.items()}
+
+        def check(who):
+            err = float((outs[who] - want).abs().max())
+            if not err <= chip_smoke.K3_TOL:
+                raise AssertionError(f"K3 fp32 ({who}) disagrees with its plain version at "
+                                     f"Lk={Lk}: {err:.3e}")
+
+        in_turns(f"attention_fwd fp32 B={B} H={H} Lq={Lq} Lk={Lk} D={D}", calls, check, result)
+        calls = {who: (lambda fn=fn, who=who: fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), g.data_ptr(),
+            *(t.data_ptr() for t in grads[who]), None,
+            *shape(who, who == "this" or bwd_split), scale, 1, seed, thr,
+            1.0 / (1.0 - rate), stream)) for who, fn in bwd.items()}
+
+        def check_bwd(who):
+            rel = chip_smoke.errs(grads[who], want_b)[1]
+            if not rel <= chip_smoke.K3_TOL:
+                raise AssertionError(f"K5 fp32 ({who}) disagrees with its plain version at "
+                                     f"Lk={Lk}: {rel:.3e}")
+
+        in_turns(f"attention_bwd fp32 B={B} H={H} Lq={Lq} Lk={Lk} D={D} p={rate}", calls,
+                 check_bwd, result)
+
+
+def cross_attention_bwd(checkout, device, gen, stream, result, B=8, Lq=20, S=3100, C=512, H=8):
     import torch
 
     from r3d_tpu_torch.ops import cross_attention as ca
@@ -120,9 +189,12 @@ def cross_attention_bwd(other, device, gen, stream, result, B=8, Lq=20, S=3100, 
     split_keys = ca.bwd_split_keys(
         S, B * H, torch.cuda.get_device_properties(device).multi_processor_count)
     n_blocks = -(-S // ca.BWD_TILE_KEYS)
-    sides = {"this": (ca.BWD_KERNEL.load(), split_keys,
-                      ca.bwd_scratch_shape(S, B, Lq, C, H, split_keys, False)),
-             "other": (bind(other, ca.BWD_KERNEL), n_blocks, (n_blocks * B * Lq * C,))}
+    split_side = (split_keys, ca.bwd_scratch_shape(S, B, Lq, C, H, split_keys, False))
+    other = bind(other_library(checkout, "cross_attention_bwd.cu"), ca.BWD_KERNEL)
+    sides = {"this": (ca.BWD_KERNEL.load(), *split_side),
+             "other": (other, *(split_side if has(checkout, "cross_attention_bwd.cu",
+                                                  "cross_bwd_bf16_kernel")
+                                else (n_blocks, (n_blocks * B * Lq * C,))))}
     grads = {}
     calls = {}
     for who, (fn, keys_arg, part_shape) in sides.items():
@@ -156,9 +228,9 @@ def main() -> int:
     gen = torch.Generator().manual_seed(chip_smoke.SEED)
     stream = torch.cuda.current_stream().cuda_stream
     result = {}
+    attention_fp32(checkout, device, gen, stream, result)
     fuser_tail(other_library(checkout, "fuser_tail.cu"), device, gen, stream, result)
-    cross_attention_bwd(other_library(checkout, "cross_attention_bwd.cu"), device, gen, stream,
-                        result)
+    cross_attention_bwd(checkout, device, gen, stream, result)
     print(json.dumps(result))
     return 0
 

@@ -54,9 +54,11 @@
 // depends on the card's SM count, so results are bit-equal between calls on
 // one card, not between cards of different sizes.
 //
-// fp32 (no path of the models runs it; the tests do) keeps the body of
-// attention.cu's K3/K4 (attention_fwd.cuh) on the native layout: one block
-// per (batch, head, tile of 8 queries), one warp per query.
+// fp32 keeps the body of attention.cu's K4 (attention_fwd.cuh) on the
+// native layout: one block per (batch, head, tile of 8 queries), one warp per
+// query. Under R3D_CROSS_NATIVE=1 (off by default) the utkinects decoder's
+// cross-attention runs it in its 1024 and 2000 buckets: B = 8, Lq = 8,
+// S = 1,024 or 2,000, C = 128, H = 8, D = 16.
 
 #include <cuda_runtime.h>
 

@@ -52,10 +52,12 @@
 // weigh 0. A fully masked row (every real key at finfo.min) has m = finfo.min
 // and finite weights 1 / l.
 //
-// fp32 (no path of the models runs it; the tests do) keeps the first, simple
-// body: block (key block of KB = 64, batch) walks the heads, and per head
-// stages q, g (all Lq <= 64 queries), the block's K and V columns of the
-// head, and the statistics in shared memory (fp32), then
+// fp32 (the utkinects decoder's 1024 and 2000 buckets under
+// R3D_CROSS_NATIVE=1, off by default: B = 8, Lq = 8, S = 1,024 or 2,000,
+// C = 128, H = 8, D = 16) keeps the first, simple body: block (key block of
+// KB = 64, batch) walks the heads, and per head stages q, g (all Lq <= 64
+// queries), the block's K and V columns of the head, and the statistics in
+// shared memory (fp32), then
 //   (1) every thread takes (query, key) pairs: the score, g . v, w, w*keep
 //       and ds into shared memory;
 //   (2) every thread takes (key, dim) pairs: dk and dv of its keys, complete

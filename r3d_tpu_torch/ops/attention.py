@@ -24,14 +24,21 @@ apart), with fp32 math and the TPU kernels' rounding points, which the
 plain versions share: K3 and K4 round the normalised weights (after
 dropout) to V's type before the product with V and write the output in q's
 type; K5 computes in fp32 and rounds dq, dk and dv to the inputs' type once.
-The fp32 forwards run one block per (batch*head, tile of 8 queries) with an
-online softmax. The bf16 forwards split the keys into runs of
-``fwd_split_keys``, one block each, and the blocks of one (batch*head,
-query tile) form a thread-block cluster: they combine their softmax
-statistics before any weight is rounded, then their partial outputs, in a
-fixed order, in one launch. K5's bf16 body splits the keys across blocks
-and writes dk and dv once, in bf16, from the kernel; its fp32 body sums them
-in fp32 device memory.
+
+Every body but fp32 K4's splits the keys of a (batch, head) across blocks
+that run at once. fp32 K3 and K5 (the utkinects decoder: Lq = 8, Lk = 256
+or 512, D = 16) split them into runs of ``fp32_split_keys`` (8 of 64 at Lk
+= 512), the runs of one (batch*head, query tile) a thread-block cluster
+that combines its statistics through distributed shared memory in rank
+order, in one launch: K3 as flash-decoding (each run's (m, l, acc), then
+the output normalised once), K5 by combining each query's (m, l, D) before
+any gradient, each run owning dk, dv and dbias of its keys and the runs'
+dq summed in rank order. The bf16 forwards split the keys into runs of
+``fwd_split_keys`` the same way: they combine their softmax statistics
+before any weight is rounded, then their partial outputs, in a fixed order,
+in one launch. K5's bf16 body splits the keys into blocks of 64 that own dk
+and dv, in three launches. fp32 K4 (epoch 0 only) runs one block per
+(batch*head, tile of 8 queries) with an online softmax.
 """
 
 from __future__ import annotations
@@ -43,30 +50,29 @@ import torch
 
 from r3d_tpu_torch.ops.build import Kernel
 
-KERNEL = Kernel(
+KERNEL = Kernel(   # (B, H, Lq, Lk, D, split keys)
     "flash_attention", "attention.cu", "r3d_attention_fwd",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p],
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p],
 )
-DROPOUT_KERNEL = Kernel(
+DROPOUT_KERNEL = Kernel(   # (B, H, Lq, Lk, D): one block per (batch*head, 8 queries)
     "flash_attention_dropout", "attention.cu", "r3d_attention_fwd_dropout",
     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
     + [ctypes.c_float, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p],
 )
-BWD_KERNEL = Kernel(
+BWD_KERNEL = Kernel(   # (B, H, Lq, Lk, D, split keys)
     "attention_bwd", "attention_bwd.cu", "r3d_attention_bwd",
-    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
     + [ctypes.c_float, ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float,
        ctypes.c_void_p],
 )
-KERNEL_BF16 = Kernel(   # one more int, the split size, after D
-    "flash_attention_bf16", "attention.cu", "r3d_attention_fwd_bf16",
-    KERNEL.argtypes[:10] + [ctypes.c_int] + KERNEL.argtypes[10:])
-DROPOUT_KERNEL_BF16 = Kernel(
+KERNEL_BF16 = Kernel(
+    "flash_attention_bf16", "attention.cu", "r3d_attention_fwd_bf16", KERNEL.argtypes)
+DROPOUT_KERNEL_BF16 = Kernel(   # one more int, the split size, after D
     "flash_attention_dropout_bf16", "attention.cu", "r3d_attention_fwd_dropout_bf16",
     DROPOUT_KERNEL.argtypes[:10] + [ctypes.c_int] + DROPOUT_KERNEL.argtypes[10:])
-BWD_KERNEL_BF16 = Kernel(   # two more pointers (its scratch) and the key-block count
+BWD_KERNEL_BF16 = Kernel(   # two more pointers (its scratch); the key-block count
     "attention_bwd_bf16", "attention_bwd.cu", "r3d_attention_bwd_bf16",
-    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + BWD_KERNEL.argtypes[14:],
+    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + BWD_KERNEL.argtypes[15:],
 )
 _BY_DTYPE = {  # (forward, dropout forward, backward) per input dtype
     torch.float32: (KERNEL, DROPOUT_KERNEL, BWD_KERNEL),
@@ -75,7 +81,9 @@ _BY_DTYPE = {  # (forward, dropout forward, backward) per input dtype
 KERNEL_HEAD_DIMS = (16, 32, 64)   # csrc/attention*.cu: instantiated D
 BWD_BLOCK_KEYS = 64               # csrc/attention_bwd.cu: KB, keys per block of the bf16 body
 FWD_SPLIT_UNIT = 128              # csrc/attention.cu: NW * KT, one tile of keys per warp
-FWD_MAX_SPLITS = 8                # csrc/attention.cu: MAX_SPLITS, blocks per cluster
+FWD_MAX_SPLITS = 8                # csrc/attention*.cu: MAX_SPLITS, blocks per cluster
+FP32_SPLIT_UNIT = 64              # csrc/attention*.cu: F_KT, a tile of the fp32 K3/K5 bodies
+FP32_QUERY_TILE = 8               # csrc/attention*.cu: F_QT, queries a block takes at a time
 
 _U32 = 0xFFFFFFFF
 
@@ -126,6 +134,14 @@ def fwd_split_keys(Lk: int) -> int:
     keys each split grows by whole tiles. 4 splits of 128 at Lk = 512."""
     n = min(FWD_MAX_SPLITS, -(-Lk // FWD_SPLIT_UNIT))
     return FWD_SPLIT_UNIT * -(-Lk // (FWD_SPLIT_UNIT * n))
+
+
+def fp32_split_keys(Lk: int) -> int:
+    """Keys per block of the fp32 K3 and K5: as many splits of one tile (64
+    keys, one a thread) as cover Lk, up to 8 (a cluster's blocks); past 512
+    keys each split grows by whole tiles. 8 splits of 64 at Lk = 512."""
+    n = min(FWD_MAX_SPLITS, -(-Lk // FP32_SPLIT_UNIT))
+    return FP32_SPLIT_UNIT * -(-Lk // (FP32_SPLIT_UNIT * n))
 
 
 def _scores(q, k, bias, scale):
@@ -196,7 +212,7 @@ def _check(fn, q, k, v, bias, extra=None):
 
 
 def _check_aligned(fn, **tensors):
-    """The bf16 kernels copy 16 bytes at a time."""
+    """The split kernels copy 16 bytes at a time."""
     for name, t in tensors.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{fn}: {name} must be 16-byte aligned")
@@ -210,16 +226,21 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _fwd_shape(fn, q, k, v, bias):
+def _fwd_shape(fn, q, k, v, bias, split=True):
     """The shape arguments of the forward launchers, checked: (B, H, Lq, Lk,
-    D), and for bf16 (16-byte copies) also the split size."""
+    D) and, for the split bodies (16-byte copies; every one but fp32 K4's,
+    ``split`` False), the split size."""
     shape = _check(fn, q, k, v, bias)
-    if q.dtype != torch.bfloat16:
+    if not split and q.dtype == torch.float32:
         return shape
     _check_aligned(fn, q=q, k=k, v=v)
     if shape[0] * shape[1] > 65535:
         raise ValueError(f"{fn}: B*H must be at most 65535 (the grid's z)")
-    return shape + (fwd_split_keys(shape[3]),)
+    if q.dtype == torch.bfloat16:
+        return shape + (fwd_split_keys(shape[3]),)
+    if -(-shape[2] // FP32_QUERY_TILE) > 65535:
+        raise ValueError(f"{fn}: ceil(Lq / {FP32_QUERY_TILE}) must be at most 65535 (the grid's y)")
+    return shape + (fp32_split_keys(shape[3]),)
 
 
 def _attention_fwd(q, k, v, bias, scale):
@@ -237,7 +258,7 @@ def _attention_fwd_dropout(q, k, v, bias, seed, scale, rate):
     """K4, or the plain version for CPU tensors."""
     if q.device.type == "cpu":
         return composed_attention_dropout(q, k, v, bias, seed, scale, rate)
-    shape = _fwd_shape("flash_attention_dropout", q, k, v, bias)
+    shape = _fwd_shape("flash_attention_dropout", q, k, v, bias, split=False)
     B, H, Lq, Lk = shape[:4]
     if B * H * Lq * Lk > 2 ** 32:
         raise ValueError("flash_attention_dropout: B*H*Lq*Lk must fit a 32-bit index")
@@ -272,10 +293,14 @@ def attention_bwd(q, k, v, bias, seed: int, scale, rate: float, g,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), g.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), _ptr(dbias), stats.data_ptr(), dq_partial.data_ptr(),
             B, H, Lq, Lk, D, n_kblocks, *tail)
-    else:   # the fp32 body zeroes dk and dv itself and adds each query tile's share
+    else:   # every output is written by the kernel
+        _check_aligned("attention_bwd", q=q, k=k, v=v, g=g)
+        if B * H > 65535:
+            raise ValueError("attention_bwd: B*H must be at most 65535 (the grid's y)")
         BWD_KERNEL.launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), g.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), _ptr(dbias), B, H, Lq, Lk, D, *tail)
+            dk.data_ptr(), dv.data_ptr(), _ptr(dbias), B, H, Lq, Lk, D, fp32_split_keys(Lk),
+            *tail)
     if dbias is not None:
         dbias = dbias.sum(1)[:, None, None, :]
     return dq, dk, dv, dbias

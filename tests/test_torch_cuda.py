@@ -19,7 +19,9 @@ must agree bit for bit, and the shapes around their block sizes (64 keys
 for K5, whole units of 128 for K3, K4 and K6, 32 queries) are covered: one
 key, less than a block, one key past a block, and blocks whose keys are all
 masked. K7 in bf16 splits the keys as K6 does and sums the splits' dq in
-split order: the same holds for it. K1 runs its three products as 3xTF32
+split order: the same holds for it, and for K3 and K5 in fp32, which split
+the keys into runs of 64 (or whole tiles of 64 past 512 keys) whose blocks
+combine through distributed shared memory in rank order, one launch a call. K1 runs its three products as 3xTF32
 on the tensor cores over a fixed order of weight chunks: two calls agree
 bit for bit too.
 """
@@ -84,6 +86,60 @@ def test_attention_kernel_gives_zero_not_nan_under_an_all_inf_bias(cuda):
     bias = torch.full((1, 1, 1, 40), -math.inf, device=cuda)
     out = att.flash_attention(q, k, k, bias, 0.25)
     assert torch.equal(out, torch.zeros_like(out))
+
+
+@pytest.mark.parametrize("Lk", [1, 31, 300, 512, 1024, 2049])
+@pytest.mark.parametrize("Lq", [33, 70])
+@pytest.mark.parametrize("D", [16, 64])
+def test_attention_kernel_takes_many_query_tiles(cuda, D, Lq, Lk):
+    """fp32 K3 (the cluster body) past one query tile of 8, with splits of
+    one tile and, from 1,024 keys on, of several (the ring)."""
+    gen = torch.Generator().manual_seed(Lq * Lk + D)
+    q, k, v, bias = attention_inputs(8, 8, Lq, Lk, D, gen, cuda, all_masked_row=Lk > 1)
+    scale = 1.0 / math.sqrt(D)
+    got = att.flash_attention(q, k, v, bias, scale)
+    torch.testing.assert_close(got, att.composed_attention(q, k, v, bias, scale), atol=2e-5,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("Lq,Lk", [(8, 256), (8, 512), (70, 300), (20, 1100)])
+def test_attention_fp32_kernels_are_deterministic(cuda, Lq, Lk):
+    """fp32 K3 and K5 combine their splits' statistics, dq and outputs in
+    rank order: two calls agree bit for bit."""
+    gen = torch.Generator().manual_seed(Lq + Lk)
+    q, k, v, bias = attention_inputs(8, 8, Lq, Lk, 16, gen, cuda, all_masked_row=True)
+    g = torch.randn(q.shape, generator=gen).to(cuda)
+    assert torch.equal(att.flash_attention(q, k, v, bias, 0.25),
+                       att.flash_attention(q, k, v, bias, 0.25))
+    first = att.attention_bwd(q, k, v, bias, 5, 0.25, 0.1, g, need_dbias=True)
+    again = att.attention_bwd(q, k, v, bias, 5, 0.25, 0.1, g, need_dbias=True)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("Lk", [256, 512])
+def test_attention_fp32_calls_are_one_launch_each(cuda, Lk):
+    """One fp32 K3 call and one fp32 K5 call on the card, at the utkinects
+    decoder's shape, are one launch each of its own kernel, and nothing else
+    (no memset of dk and dv)."""
+    from chip_smoke import own_launches_per_call
+
+    gen = torch.Generator().manual_seed(Lk)
+    q, k, v, bias = attention_inputs(8, 8, 8, Lk, 16, gen, cuda)
+    g = torch.randn(q.shape, generator=gen).to(cuda)
+    own_launches_per_call(lambda: att.flash_attention(q, k, v, bias, 0.25),
+                          ("attention_fwd_cluster_kernel",), 1, "K3 fp32")
+    for rate in (0.0, 0.1):
+        own_launches_per_call(lambda: att.attention_bwd(q, k, v, bias, 3, 0.25, rate, g),
+                              ("attention_bwd_cluster_kernel",), 1, "K5 fp32")
+
+
+def test_attention_bwd_kernel_gives_zeros_under_an_all_inf_bias(cuda):
+    q = torch.randn(1, 2, 8, 16, device=cuda)
+    k = torch.randn(1, 2, 300, 16, device=cuda)
+    bias = torch.full((1, 1, 1, 300), -math.inf, device=cuda)
+    for x in att.attention_bwd(q, k, k, bias, 1, 0.25, 0.1, q, need_dbias=True):
+        assert torch.equal(x, torch.zeros_like(x))
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):

@@ -19,7 +19,12 @@ dq summed over the blocks' partials in order) is held to the plain version,
 fp32 within 2e-6 and bf16 within one bf16 step of the largest entry. So is
 the algorithm of K3's and K4's bf16 kernel (keys split into runs of
 ``fwd_split_keys``, the runs' softmax statistics combined in order before
-the normalised weights are rounded, the runs' partials summed in order).
+the normalised weights are rounded, the runs' partials summed in order),
+and so are those of K3's and K5's fp32 kernels (keys split into runs of
+``fp32_split_keys`` walked in tiles of 64 with an online softmax, the runs'
+statistics combined in rank order: K3's partial outputs flash-decoding
+style, K5's (m, l, D) before any gradient, each run owning dk, dv and dbias
+of its keys, the runs' dq summed in rank order), within 2e-6.
 """
 
 import types
@@ -314,6 +319,19 @@ def test_multihead_attention_dropout_follows_train_mode():
 
 # ---- the key-block algorithm of K5's bf16 CUDA kernel, emulated ----
 
+def _in_order(parts, zero):
+    """Softmax statistics (m_i, *sums_i) combined in the order given, as the
+    kernels combine their warps' and blocks': m = max m_i and each sum =
+    sum_i sums_i exp(m_i - m); a part with no key (m_i = -inf) weighs 0."""
+    m = torch.stack([p[0] for p in parts]).amax(0)
+    sums = [torch.zeros_like(x) for x in parts[0][1:]]
+    for m_i, *sums_i in parts:
+        w = torch.where(m_i == -torch.inf, zero, torch.exp(m_i - m))
+        sums = [a + b * w.reshape(w.shape + (1,) * (b.dim() - w.dim()))
+                for a, b in zip(sums, sums_i)]
+    return (m, *sums)
+
+
 def _keyblock_backward(q, k, v, bias, seed, scale, rate, g, query_tile=32, warp_keys=16):
     """K5 as its bf16 kernel computes it: (dq, dk, dv, dbias)."""
     KB = pt_attn.BWD_BLOCK_KEYS
@@ -324,14 +342,7 @@ def _keyblock_backward(q, k, v, bias, seed, scale, rate, g, query_tile=32, warp_
     gf = g.float()
     gv = torch.einsum("bhqd,bhkd->bhqk", gf, v.float())
     zero = torch.zeros(s.shape[:-1])
-
-    def combine(parts):   # in the order given; a part with no key weighs 0
-        m = torch.stack([p[0] for p in parts]).amax(0)
-        l, dn = zero.clone(), zero.clone()
-        for m_i, l_i, dn_i in parts:
-            w = torch.where(m_i == -torch.inf, zero, torch.exp(m_i - m))
-            l, dn = l + l_i * w, dn + dn_i * w
-        return m, l, dn
+    combine = lambda parts: _in_order(parts, zero)
 
     # first launch: each key block's (m_i, l_i, D-numerator), its warps in order
     stats = []
@@ -412,13 +423,7 @@ def _split_key_forward(q, k, v, bias, seed, scale, rate, warps=4):
             else torch.ones_like(s))
     zero = torch.zeros(s.shape[:-1])
     runs = [slice(j0, min(j0 + SK, Lk)) for j0 in range(0, Lk, SK)]
-
-    def combine(parts):   # in the order given; a part with no key weighs 0
-        m = torch.stack([p[0] for p in parts]).amax(0)
-        l = zero.clone()
-        for m_i, l_i in parts:
-            l = l + l_i * torch.where(m_i == -torch.inf, zero, torch.exp(m_i - m))
-        return m, l
+    combine = lambda parts: _in_order(parts, zero)
 
     stats = []
     for run in runs:   # each block's warps, in warp order
@@ -472,6 +477,158 @@ def test_fwd_split_keys_fit_one_cluster():
     for Lk in list(range(1, 2100, 7)) + [1024, 1025, 4096, 8191, 8192]:
         split = pt_attn.fwd_split_keys(Lk)
         assert split % unit == 0 and -(-Lk // split) <= most, Lk
+        assert split == unit if Lk <= unit * most else (split - unit) * most < Lk, Lk
+
+
+# ---- the cluster algorithms of K3's and K5's fp32 CUDA kernels, emulated ----
+
+def _online_tile(state, st, *terms):
+    """One tile of an online softmax: ``state`` (m, l, *sums), the tile's
+    scores ``st`` [..., keys] and, per sum, a function of the tile's weights
+    p = exp(st - m_new) giving its share; the old sums rescaled when the max
+    grows, a key scoring -inf weighing 0."""
+    m, l, *sums = state
+    m_new = torch.maximum(m, st.amax(-1))
+    corr = torch.where(m_new == -torch.inf, torch.ones_like(m), torch.exp(m - m_new))
+    p = torch.where(st == -torch.inf, 0.0, torch.exp(st - m_new[..., None]))
+    scaled = lambda x: x * corr.reshape(corr.shape + (1,) * (x.dim() - corr.dim()))
+    return (m_new, l * corr + p.sum(-1), *(scaled(x) + f(p) for x, f in zip(sums, terms)))
+
+
+def _cluster_forward(q, k, v, bias, scale):
+    """K3 in fp32 as its cluster kernel computes it: the keys split into runs
+    of ``fp32_split_keys`` (one block each), each block walking its run in
+    tiles of 64 keys with an online softmax (m_i, l_i, acc_i), then the
+    blocks' statistics and partials combined in rank order, flash-decoding
+    style, and the output normalised once."""
+    Lk = k.shape[2]
+    SK, KT = pt_attn.fp32_split_keys(Lk), pt_attn.FP32_SPLIT_UNIT
+    s = pt_attn._scores(q, k, bias, scale)
+    zero = torch.zeros(s.shape[:-1])
+    parts = []
+    for j0 in range(0, Lk, SK):
+        state = (torch.full_like(zero, -torch.inf), zero, torch.zeros(q.shape))
+        for t0 in range(j0, min(j0 + SK, Lk), KT):
+            sl = slice(t0, min(t0 + KT, Lk))
+            state = _online_tile(state, s[..., sl],
+                                 lambda p: torch.einsum("bhqk,bhkd->bhqd", p, v[:, :, sl]))
+        parts.append(state)
+    _, l, acc = _in_order(parts, zero)
+    return torch.where(l[..., None] > 0, acc / l[..., None], 0.0)
+
+
+def _cluster_backward(q, k, v, bias, seed, scale, rate, g):
+    """K5 in fp32 as its cluster kernel computes it: (dq, dk, dv, dbias).
+    Per block (a run of ``fp32_split_keys`` keys), each of its two warps
+    keeps (m, l, D-numerator) online over the run's tiles of 64 keys (keys
+    32w .. 32w + 31 of each tile); the warps are combined in warp order,
+    then the cluster's blocks in rank order; each block owns dk, dv and
+    dbias of its keys, summed over the query tiles of 8; dq is the blocks'
+    shares summed in rank order."""
+    Lq, Lk = q.shape[2], k.shape[2]
+    SK, KT, QT = pt_attn.fp32_split_keys(Lk), pt_attn.FP32_SPLIT_UNIT, pt_attn.FP32_QUERY_TILE
+    s = pt_attn._scores(q, k, bias, scale)
+    keep = (pt_attn.dropout_keep(seed, rate, s.shape, q.device) if rate > 0.0
+            else torch.ones_like(s))
+    gv = torch.einsum("bhqd,bhkd->bhqk", g, v)
+    zero = torch.zeros(s.shape[:-1])
+    blocks = [slice(j0, min(j0 + SK, Lk)) for j0 in range(0, Lk, SK)]
+    stats = []
+    for blk in blocks:
+        warps = []
+        for w in range(KT // 32):
+            state = (torch.full_like(zero, -torch.inf), zero, zero)
+            for t0 in range(blk.start, blk.stop, KT):
+                sl = slice(t0 + 32 * w, min(t0 + 32 * w + 32, blk.stop))
+                if sl.start < sl.stop:   # else every key of the warp scores -inf
+                    state = _online_tile(state, s[..., sl],
+                                         lambda p: (p * keep[..., sl] * gv[..., sl]).sum(-1))
+            warps.append(state)
+        stats.append(_in_order(warps, zero))
+    m, l, dn = _in_order(stats, zero)
+    inv_l = torch.where(l > 0, 1.0 / l, zero)
+    w = torch.where(s == -torch.inf, 0.0, torch.exp(s - m[..., None]) * inv_l[..., None])
+    ds = w * (keep * gv - (dn * inv_l)[..., None])
+    dk, dv = torch.zeros(k.shape), torch.zeros(v.shape)
+    dbias = torch.zeros(s.shape[:2] + (Lk,))
+    dq = torch.zeros(q.shape)
+    for blk in blocks:
+        for q0 in range(0, Lq, QT):   # summed over the query tiles
+            qs = slice(q0, q0 + QT)
+            dv[:, :, blk] += torch.einsum("bhqk,bhqd->bhkd", (w * keep)[:, :, qs, blk],
+                                          g[:, :, qs])
+            dk[:, :, blk] += torch.einsum("bhqk,bhqd->bhkd", ds[:, :, qs, blk], q[:, :, qs])
+            dbias[:, :, blk] += ds[:, :, qs, blk].sum(2)
+    for blk in blocks:   # the blocks' shares of dq, in rank order
+        dq = dq + torch.einsum("bhqk,bhkd->bhqd", ds[..., blk], k[:, :, blk])
+    return dq * scale, dk * scale, dv, dbias.sum(1)[:, None, None, :]
+
+
+CLUSTER_CASES = [
+    (1, (1, 1, 0)),           # one key; a fully masked row
+    (31, (31, 5, 31)),        # less than one tile of 64
+    (65, (65, 64, 1)),        # a last split of one key
+    (300, (300, 123, 0)),     # ragged last split; a fully masked row
+    (512, (512, 10, 37)),     # 8 whole splits; rows whose later splits are all masked
+    (1100, (1100, 700, 0)),   # splits of three tiles (the ring); a fully masked row
+]
+
+
+@pytest.mark.parametrize("Lq", [8, 20])
+@pytest.mark.parametrize("Lk,pad_from", CLUSTER_CASES)
+def test_cluster_attention_forward_matches_plain(Lk, pad_from, Lq):
+    rng = np.random.RandomState(Lk + 3 * Lq)
+    q, k, v, bias = (torch.from_numpy(x) for x in _attention_inputs(rng, 3, 4, Lq, Lk, 16,
+                                                                    pad_from))
+    got = _cluster_forward(q, k, v, bias, 0.25)
+    want = pt_attn.composed_attention(q, k, v, bias, 0.25)
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= 2e-6 * max(1.0, float(want.abs().max()))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("Lq", [8, 20])
+@pytest.mark.parametrize("Lk,pad_from", CLUSTER_CASES)
+def test_cluster_backward_matches_plain(Lk, pad_from, Lq, rate):
+    rng = np.random.RandomState(Lk + 5 * Lq)
+    q, k, v, bias = (torch.from_numpy(x) for x in _attention_inputs(rng, 3, 4, Lq, Lk, 16,
+                                                                    pad_from))
+    g = torch.from_numpy(rng.randn(*q.shape).astype(np.float32))
+    got = _cluster_backward(q, k, v, bias, 31, 0.25, rate, g)
+    want = pt_attn.composed_attention_bwd(q, k, v, bias, 31, 0.25, rate, g)
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
+        assert torch.isfinite(a).all(), name
+        assert float((a - b).abs().max()) <= 2e-6 * max(1.0, float(b.abs().max())), name
+
+
+def test_cluster_backward_gives_zeros_under_an_all_inf_bias():
+    """A row whose every score is -inf: l = 0 in every block, and the
+    gradients are 0, not NaN (the forward gives 0 too)."""
+    rng = np.random.RandomState(4)
+    q, k, v, _ = (torch.from_numpy(x) for x in _attention_inputs(rng, 1, 2, 8, 300, 16, (300,)))
+    bias = torch.full((1, 1, 1, 300), -torch.inf)
+    g = torch.from_numpy(rng.randn(*q.shape).astype(np.float32))
+    assert torch.equal(_cluster_forward(q, k, v, bias, 0.25), torch.zeros_like(q))
+    for x in _cluster_backward(q, k, v, bias, 3, 0.25, 0.1, g):
+        assert torch.equal(x, torch.zeros_like(x))
+
+
+def test_fp32_split_keys_fit_one_cluster():
+    """The fp32 K3 and K5 splits, for every key count the router sends to
+    them (any head dim, the self-attention route's longest included): whole
+    tiles of 64, at most 8 a cluster, every split holding a key; one tile a
+    split, so one copy a block, up to 512 keys (the utkinects buckets); past
+    that the smallest split that 8 blocks cover."""
+    cuda = torch.device("cuda")
+    admitted = [Lk for Lk in range(1, 40000)
+                if any(pt_attn.attention_kernel_eligible(Lk, Lk, D, cuda)
+                       for D in pt_attn.KERNEL_HEAD_DIMS)]
+    assert admitted[0] == 256 and admitted[-1] == 32768
+    unit, most = pt_attn.FP32_SPLIT_UNIT, pt_attn.FWD_MAX_SPLITS
+    for Lk in range(1, admitted[-1] + 1):
+        split = pt_attn.fp32_split_keys(Lk)
+        n = -(-Lk // split)
+        assert split % unit == 0 and n <= most and (n - 1) * split < Lk, Lk
         assert split == unit if Lk <= unit * most else (split - unit) * most < Lk, Lk
 
 
