@@ -12,10 +12,13 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    with TF32 off, at the model's shapes: the fuser tail forward (K1) on both
    routes with the outer residual off and on at the utkinects buckets' N =
    8*256, 8*512, 8*1024, 8*2000 and a ragged N, twice bit-equal, with each
-   bucket's launch shape and times; its backward at N = 8*256, 8*512 and a
-   ragged N with the outer residual off and on; attention
+   bucket's launch shape and times; its backward (K2) at N = 1, 16, 2,053
+   and the four buckets with the outer residual off and on, twice
+   bit-equal, one call audited as its own four launches, timed at the four
+   buckets; attention
    forward, dropout forward and backward (rate 0 and 0.1) at B = 8, H = 8,
-   Lq = 8, D = 16, Lk = 256, 512 and a ragged 300 with a fully masked row;
+   Lq = 8, D = 16, Lk = 256, 512 and a ragged 300 with a fully masked row,
+   fp32 K4 also at Lq = 33 and 70 and Lk = 1-1,100;
    the same three in bf16 at the 50salads decoder's Lq = 20, D = 64, each
    twice bit-equal and audited as one call's launches on the card, with K3
    and K4 also at 33, 70 and 512 (= Lk) queries, at 1, 31, 65, 129, 385,
@@ -96,7 +99,8 @@ BF16_TOL = 2e-2          # bf16 kernels vs their plain versions, over the larges
 
 
 # every __global__ function of r3d_tpu_torch/csrc, by a fragment of its name
-OWN_KERNELS = ("fuser_tail_tf32_kernel", "fuser_tail_bwd_kernel", "sum_partials_kernel",
+OWN_KERNELS = ("fuser_tail_tf32_kernel", "transpose_weights_kernel", "fuser_tail_bwd_rows_kernel",
+               "fuser_tail_wgrad_kernel", "fuser_tail_bwd_sum_kernel",
                "attention_fwd_kernel", "attention_fwd_cluster_kernel", "attention_fwd_split_kernel",
                "attention_bwd_cluster_kernel", "attention_bwd_bf16_kernel",
                "dq_sum_kernel", "cross_fwd_split_kernel", "cross_fwd_combine_kernel",
@@ -403,15 +407,19 @@ def worse(a, b):
 
 
 def check_fuser_bwd_kernel(gen, device):
-    """K2 (the fuser-tail backward) at N = 8 x 256, 8 x 512 and a ragged N,
-    the outer residual off and on; timed at N = 8 x 512."""
+    """K2 (the fuser-tail backward) at N = 1, 16, a ragged 2,053 and the
+    utkinects buckets' N = 8 x 256, 512, 1,024 and 2,000 rows, the outer
+    residual off and on, each call twice bit-equal; one call audited as
+    exactly its own four launches (no memset); timed at the four buckets
+    with every launch of a call counted. Returns (worst error, the timing at
+    N = 8 x 512)."""
     import torch
 
     from r3d_tpu_torch.ops import fuser_kernel_bwd as fkb
 
     worst_bwd = (0.0, 0.0)
     t_bwd = None
-    for N in (8 * 256, 8 * 512, 8 * 256 + 5):
+    for N in (1, 16, 2053) + K1_ROWS:
         r, d, _, params = fuser_inputs(N, gen, device)
         g = torch.randn(N, 128, generator=gen).to(device)
         for outer in (False, True):
@@ -419,29 +427,43 @@ def check_fuser_bwd_kernel(gen, device):
             want = fkb.composed_tail_bwd(r, d, g, params, outer)
             torch.cuda.synchronize()
             ea, er = errs((got[0], got[1], *got[2]), (want[0], want[1], *want[2]))
+            again = fkb.fused_tail_bwd(r, d, g, params, outer)
+            same = all(torch.equal(a, b) for a, b in zip((got[0], got[1], *got[2]),
+                                                          (again[0], again[1], *again[2])))
             print(f"fused_tail_bwd N={N} outer_residual={outer}: over dr, dd and 12 "
-                  f"gradients max|kernel - plain| = {ea:.3e}, relative {er:.3e} (tol {K2_TOL})")
-            if not er <= K2_TOL:
-                raise AssertionError(f"fused_tail_bwd disagrees at N={N}")
+                  f"gradients max|kernel - plain| = {ea:.3e}, relative {er:.3e} (tol {K2_TOL}); "
+                  f"two calls bit-equal: {same}")
+            if not (er <= K2_TOL and same):
+                raise AssertionError(f"fused_tail_bwd disagrees or is not deterministic at N={N}, "
+                                     f"outer_residual={outer}")
             worst_bwd = (max(worst_bwd[0], ea), max(worst_bwd[1], er))
+        if N not in K1_ROWS:
+            continue
         if N == 8 * 512:
-            stream = torch.cuda.current_stream().cuda_stream
-            layout, P = fkb.grad_layout(128, 512)
-            blocks = max(1, min(-(-N // fkb.TILE_ROWS),
-                                torch.cuda.get_device_properties(device).multi_processor_count))
-            dr, dd = torch.empty_like(r), torch.empty_like(d)
-            partial = torch.empty(blocks * P, device=device)
-            flat = torch.empty(P, device=device)
-            launch = raw_launcher(fkb.KERNEL, r.data_ptr(), d.data_ptr(), g.data_ptr(),
-                                  *(t.data_ptr() for t in params), dr.data_ptr(),
-                                  dd.data_ptr(), partial.data_ptr(), flat.data_ptr(),
-                                  N, 128, 512, blocks, 0, stream)
-            bound, bound_by = fuser_bwd_bound_ms(N)
-            t_bwd = {"shape": f"N={N} C=128 Ch=512", "ms": time_ms(launch, iters=20),
-                     "device_ms": device_ms(launch, ("fuser_tail_bwd_kernel", "sum_partials_kernel")),
-                     "plain_ms": time_ms(lambda: fkb.composed_tail_bwd(r, d, g, params, False),
-                                         iters=20),
-                     "library_ms": None, "library_device_ms": None, "bound_ms": bound, "bound_by": bound_by}
+            own_launches_per_call(lambda: fkb.fused_tail_bwd(r, d, g, params),
+                                  ("transpose_weights_kernel", "fuser_tail_bwd_rows_kernel",
+                                   "fuser_tail_wgrad_kernel", "fuser_tail_bwd_sum_kernel"),
+                                  4, "K2 fused_tail_bwd")
+        plan = fkb.bwd_plan(N, 512, torch.cuda.get_device_properties(device).multi_processor_count)
+        dr, dd = torch.empty_like(r), torch.empty_like(d)
+        scratch = torch.empty(fkb.scratch_floats(128, 512, plan), device=device)
+        flat = torch.empty(fkb.grad_layout(128, 512)[1], device=device)
+        launch = raw_launcher(fkb.KERNEL, r.data_ptr(), d.data_ptr(), g.data_ptr(),
+                              *(t.data_ptr() for t in params), dr.data_ptr(), dd.data_ptr(),
+                              scratch.data_ptr(), flat.data_ptr(), N, 128, 512, plan.tile_rows,
+                              plan.split_rows, 0, torch.cuda.current_stream().cuda_stream)
+        bound, bound_by = fuser_bwd_bound_ms(N)
+        t = {"shape": f"N={N} C=128 Ch=512", "ms": time_ms(launch, iters=20),
+             "device_ms": device_ms(launch, None), "library_ms": None,
+             "library_device_ms": None, "bound_ms": bound, "bound_by": bound_by}
+        print(f"K2 N={N}: {plan.n_tiles} row blocks of {plan.tile_rows} token rows, "
+              f"{plan.n_split} splits of {plan.split_rows} rows x "
+              f"{2 * 512 // fkb.OUT_TILE + 1} output tiles; {t['ms']:.4f} ms by events, "
+              f"{t['device_ms']:.4f} on the device (every launch of a call), "
+              f"bound {bound:.4f} ({bound_by})")
+        if N == 8 * 512:
+            t_bwd = {**t, "plain_ms": time_ms(
+                lambda: fkb.composed_tail_bwd(r, d, g, params, False), iters=20)}
     return worst_bwd, t_bwd
 
 
@@ -465,9 +487,10 @@ def fp32_clusters_at_once(B, H, Lq, Lk, D, split):
 
 
 def check_attention_train_kernels(gen, device):
-    """K4 (dropout forward) and K5 (backward, rate 0 and 0.1); K5 twice
-    bit-equal, and one K5 call audited as one launch of its own kernel (no
-    memset)."""
+    """K4 (dropout forward) and K5 (backward, rate 0 and 0.1), each twice
+    bit-equal and one call audited as one launch of its own kernel (K5: no
+    memset); K4 also at Lq 8, 33 and 70 against 1-1,100 keys, rate 0 and
+    0.1."""
     import torch
     import torch.nn.functional as F
 
@@ -491,6 +514,8 @@ def check_attention_train_kernels(gen, device):
               f" max|kernel - plain| = {err:.3e} (tol {K3_TOL}), keep rate {kept:.4f}")
         if not (err <= K3_TOL and torch.isfinite(got).all()):
             raise AssertionError(f"flash_attention_dropout disagrees at Lk={Lk}")
+        if not torch.equal(got, att.flash_attention_dropout(q, k, v, bias, seed, scale, rate)):
+            raise AssertionError(f"flash_attention_dropout (fp32) is not deterministic at Lk={Lk}")
         worst4 = max(worst4, err)
         for r_ in (0.0, rate):
             got = att.attention_bwd(q, k, v, bias, seed, scale, r_, g, need_dbias=True)
@@ -509,13 +534,17 @@ def check_attention_train_kernels(gen, device):
             stream = torch.cuda.current_stream().cuda_stream
             out = torch.empty_like(q)
             launch = raw_launcher(att.DROPOUT_KERNEL, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                  bias.data_ptr(), out.data_ptr(), B, H, Lq, Lk, D, scale,
-                                  seed, att.dropout_threshold(rate), 1.0 / (1.0 - rate), stream)
+                                  bias.data_ptr(), out.data_ptr(), B, H, Lq, Lk, D,
+                                  att.fp32_split_keys(Lk), scale, seed,
+                                  att.dropout_threshold(rate), 1.0 / (1.0 - rate), stream)
+            own_launches_per_call(
+                lambda: att.flash_attention_dropout(q, k, v, bias, seed, scale, rate),
+                ("attention_fwd_cluster_kernel",), 1, "K4 fp32 flash_attention_dropout")
             library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias,
                                                              dropout_p=rate, scale=scale)
             bound, bound_by = attention_bound_ms(B, H, Lq, Lk, D)
             t4 = {"shape": f"B={B} H={H} Lq={Lq} Lk={Lk} D={D} p={rate}", "ms": time_ms(launch),
-                  "device_ms": device_ms(launch, "attention_fwd_kernel<16, true, false"),
+                  "device_ms": device_ms(launch, "attention_fwd_cluster_kernel<16, true"),
                   "plain_ms": time_ms(lambda: att.composed_attention_dropout(
                       q, k, v, bias, seed, scale, rate)),
                   **library_times(library), "bound_ms": bound, "bound_by": bound_by}
@@ -544,6 +573,25 @@ def check_attention_train_kernels(gen, device):
                   "plain_ms": time_ms(lambda: att.composed_attention_bwd(
                       q, k, v, bias, seed, scale, rate, g, False)),
                   **library_times(library_bwd), "bound_ms": bound, "bound_by": bound_by}
+    # what the cluster body's dropout could get wrong: more than one query
+    # tile, one key, less than a tile, a last split of one key, a fully
+    # masked row, splits of several tiles; rate 0 keeps every weight
+    for Lq_ in (8, 33, 70):
+        for Lk in (1, 31, 65, 256, 300, 512, 1100):
+            q, k, v, bias = attention_inputs(B, H, Lq_, Lk, D, gen, device, all_masked_row=Lk > 1)
+            for r_ in (0.0, rate):
+                got = att.flash_attention_dropout(q, k, v, bias, 77 + Lk, scale, r_)
+                err = float((got - att.composed_attention_dropout(q, k, v, bias, 77 + Lk, scale,
+                                                                  r_)).abs().max())
+                same = torch.equal(got, att.flash_attention_dropout(q, k, v, bias, 77 + Lk,
+                                                                    scale, r_))
+                if not (err <= K3_TOL and same and torch.isfinite(got).all()):
+                    raise AssertionError(f"flash_attention_dropout (fp32) disagrees or is not "
+                                         f"deterministic at Lq={Lq_}, Lk={Lk}, rate={r_}: "
+                                         f"{err:.3e}")
+                worst4 = max(worst4, err)
+    print(f"K4 fp32 at Lq 8, 33, 70 x Lk 1-1,100, rate 0 and {rate}: max|kernel - plain| = "
+          f"{worst4:.3e} (tol {K3_TOL}); two calls bit-equal at each")
     return (worst4, t4), (worst5, t5)
 
 
@@ -633,21 +681,36 @@ def check_attention_kernel(gen, device):
 def own_launches_per_call(fn, fragments, per_call, label, calls=5):
     """Fail unless ``calls`` calls of ``fn`` are, on the card, exactly
     ``per_call`` launches each of kernels whose names hold one of
-    ``fragments``, and nothing else (no memset, no cast). A trace of so short
-    a window now and then comes back empty or short of an event: such a
-    trace is taken again (three times at most); a foreign kernel or one
-    launch too many fails at once."""
+    ``fragments``, and nothing else (no memset, no cast). The first launches
+    after the card's tracing starts can go missing from a trace (one kernel
+    or whole calls, trace after trace), so each trace runs ``calls``
+    uncounted calls first and counts what started on the card after the
+    counted calls began (a ``record_function`` range opened after a
+    synchronise). A trace short of an event is taken again (three times at
+    most); a foreign kernel or one launch too many fails at once."""
+    import collections
+
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     on_card = {}
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     acc_events=True) as prof:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        on_card = {e.key: e.count for e in card_events(prof)}
+            with record_function("counted calls"):
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+        events = prof.events()
+        start = next(e.time_range.start for e in events if e.name == "counted calls"
+                     and e.device_type == torch.autograd.DeviceType.CPU)
+        on_card = dict(collections.Counter(
+            e.name for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False) and e.name != "counted calls"
+            and e.time_range.start >= start))
         foreign = [k for k in on_card if not any(f in k for f in fragments)]
         if foreign or sum(on_card.values()) >= per_call * calls:
             break

@@ -1,11 +1,13 @@
-"""Time K3 and K5 in fp32 (the utkinects decoder's attention forward and
-backward), K1 (the fuser tail) and K7 in bf16 (the native cross-attention
-backward) of this checkout against another checkout's, on one card, in turns.
+"""Time K3, K4 and K5 in fp32 (the utkinects decoder's attention forward,
+dropout forward and backward), K1 and K2 (the fuser tail and its backward)
+and K7 in bf16 (the native cross-attention backward) of this checkout
+against another checkout's, on one card, in turns.
 
     python3 kernel_ab.py OTHER_CHECKOUT      # from the root of a checkout, on a CUDA host
 
-Builds ``attention.cu``, ``attention_bwd.cu``, ``fuser_tail.cu`` and
-``cross_attention_bwd.cu`` of the other checkout's ``r3d_tpu_torch/csrc``
+Builds ``attention.cu``, ``attention_bwd.cu``, ``fuser_tail.cu``,
+``fuser_tail_bwd.cu`` and ``cross_attention_bwd.cu`` of the other
+checkout's ``r3d_tpu_torch/csrc``
 with nvcc (the flags of ``r3d_tpu_torch/ops/build.py``) into ``build/ab/``,
 loads them beside this checkout's, and times both on the same inputs in the
 order other, this, this, other: CUDA events around back-to-back calls and
@@ -19,6 +21,15 @@ checkout's is read off its source.
   (``fp32_split_keys``); the bodies before them did not. Every output is
   held to the plain version (2e-5; K5 relative to each gradient's largest
   entry).
+- K4 in fp32: ``r3d_attention_fwd_dropout`` (rate 0.1) at the same shapes.
+  The cluster body takes the keys per block; the body before it did not.
+  Held to the plain version (2e-5).
+- K2: ``r3d_fuser_tail_bwd`` at the utkinects buckets' N = 8 x 256, 512,
+  1,024 and 2,000 rows. The two-phase body takes its scratch and launch
+  plan from ``bwd_plan``; the body before it took a block count and one
+  [blocks, P] slice of scratch a block (zeroed by its own memset, which the
+  device time counts). Every output is held to the plain version (1e-4 of
+  each gradient's largest entry).
 - K1: both C entry points (``r3d_fused_bn_blend_tail``,
   ``r3d_fused_safuser_tail``; both checkouts share their signatures) at the
   utkinects buckets' N = 8 x 256, 512, 1,024 and 2,000 rows. Every output
@@ -121,8 +132,54 @@ def fuser_tail(other, device, gen, stream, result):
             in_turns(f"{name} N={N}", calls, check, result)
 
 
+def fuser_tail_bwd(checkout, device, gen, stream, result):
+    """K2 at the utkinects buckets' N."""
+    import torch
+
+    from r3d_tpu_torch.ops import fuser_kernel_bwd as fkb
+
+    first_body = has(checkout, "fuser_tail_bwd.cu", "sum_partials_kernel")
+    old_argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fns = {"this": fkb.KERNEL.load(),
+           "other": bind(other_library(checkout, "fuser_tail_bwd.cu"), fkb.KERNEL,
+                         old_argtypes if first_body else None)}
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    layout, P = fkb.grad_layout(128, 512)
+    for N in N_ROWS:
+        r, d, _, params = chip_smoke.fuser_inputs(N, gen, device)
+        g = torch.randn(N, 128, generator=gen).to(device)
+        want = fkb.composed_tail_bwd(r, d, g, params, False)
+        want = (want[0], want[1], *want[2])
+        outs, calls = {}, {}
+        for who, fn in fns.items():
+            plan = fkb.bwd_plan(N, 512, sms)
+            if who == "other" and first_body:
+                blocks = max(1, min(-(-N // 16), sms))   # its 16 rows a tile
+                scratch, ints = torch.empty(blocks * P, device=device), (blocks,)
+            else:
+                scratch = torch.empty(fkb.scratch_floats(128, 512, plan), device=device)
+                ints = (plan.tile_rows, plan.split_rows)
+            dr, dd, flat = torch.empty_like(r), torch.empty_like(d), torch.empty(P, device=device)
+            outs[who] = (dr, dd, flat)
+            calls[who] = (lambda fn=fn, dr=dr, dd=dd, flat=flat, scratch=scratch, ints=ints: fn(
+                r.data_ptr(), d.data_ptr(), g.data_ptr(), *(t.data_ptr() for t in params),
+                dr.data_ptr(), dd.data_ptr(), scratch.data_ptr(), flat.data_ptr(), N, 128, 512,
+                *ints, 0, stream))
+
+        def check(who):
+            dr, dd, flat = outs[who]
+            got = (dr, dd, *(flat[off:off + torch.Size(sh).numel()].view(sh)
+                             for off, sh in layout))
+            rel = chip_smoke.errs(got, want)[1]
+            if not rel <= chip_smoke.K2_TOL:
+                raise AssertionError(f"K2 ({who}) disagrees with its plain version at N={N}: "
+                                     f"{rel:.3e}")
+
+        in_turns(f"fused_tail_bwd N={N}", calls, check, result)
+
+
 def attention_fp32(checkout, device, gen, stream, result, B=8, H=8, Lq=8, D=16, rate=0.1):
-    """K3 and K5 in fp32 at the utkinects decoder's shape, Lk = 256 and 512."""
+    """K3, K4 and K5 in fp32 at the utkinects decoder's shape, Lk = 256 and 512."""
     import torch
 
     from r3d_tpu_torch.ops import attention as att
@@ -130,14 +187,17 @@ def attention_fp32(checkout, device, gen, stream, result, B=8, H=8, Lq=8, D=16, 
     scale = 1.0 / math.sqrt(D)
     fwd_split = has(checkout, "attention.cu", "attention_fwd_cluster_kernel")
     bwd_split = has(checkout, "attention_bwd.cu", "attention_bwd_cluster_kernel")
+    drop_split = not has(checkout, "attention.cu", "launch_fp32_dropout")
     unsplit = lambda argtypes, at: argtypes[:at] + argtypes[at + 1:]   # without the split int
     fwd = {"this": att.KERNEL.load(),
            "other": bind(other_library(checkout, "attention.cu"), att.KERNEL,
                          None if fwd_split else unsplit(att.KERNEL.argtypes, 10))}
+    drop = {"this": att.DROPOUT_KERNEL.load(),
+            "other": bind(other_library(checkout, "attention.cu"), att.DROPOUT_KERNEL,
+                          None if drop_split else unsplit(att.DROPOUT_KERNEL.argtypes, 10))}
     bwd = {"this": att.BWD_KERNEL.load(),
            "other": bind(other_library(checkout, "attention_bwd.cu"), att.BWD_KERNEL,
                          None if bwd_split else unsplit(att.BWD_KERNEL.argtypes, 14))}
-    takes_split = {"this": True}
     for Lk in (256, 512):
         q, k, v, bias = chip_smoke.attention_inputs(B, H, Lq, Lk, D, gen, device)
         g = torch.randn(q.shape, generator=gen).to(device)
@@ -159,6 +219,20 @@ def attention_fp32(checkout, device, gen, stream, result, B=8, H=8, Lq=8, D=16, 
                                      f"Lk={Lk}: {err:.3e}")
 
         in_turns(f"attention_fwd fp32 B={B} H={H} Lq={Lq} Lk={Lk} D={D}", calls, check, result)
+        want_d = att.composed_attention_dropout(q, k, v, bias, seed, scale, rate)
+        calls = {who: (lambda fn=fn, who=who: fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), outs[who].data_ptr(),
+            *shape(who, who == "this" or drop_split), scale, seed, thr, 1.0 / (1.0 - rate),
+            stream)) for who, fn in drop.items()}
+
+        def check_drop(who):
+            err = float((outs[who] - want_d).abs().max())
+            if not err <= chip_smoke.K3_TOL:
+                raise AssertionError(f"K4 fp32 ({who}) disagrees with its plain version at "
+                                     f"Lk={Lk}: {err:.3e}")
+
+        in_turns(f"attention_fwd_dropout fp32 B={B} H={H} Lq={Lq} Lk={Lk} D={D} p={rate}", calls,
+                 check_drop, result)
         calls = {who: (lambda fn=fn, who=who: fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), g.data_ptr(),
             *(t.data_ptr() for t in grads[who]), None,
@@ -229,6 +303,7 @@ def main() -> int:
     stream = torch.cuda.current_stream().cuda_stream
     result = {}
     attention_fp32(checkout, device, gen, stream, result)
+    fuser_tail_bwd(checkout, device, gen, stream, result)
     fuser_tail(other_library(checkout, "fuser_tail.cu"), device, gen, stream, result)
     cross_attention_bwd(checkout, device, gen, stream, result)
     print(json.dumps(result))

@@ -15,7 +15,8 @@
 //
 // fp32 K3 (utkinects: Lq = 8 queries against Lk = 256 or 512 keys, D = 16,
 // B x H = 8 x 8; every sticky train step, validation step and 256/512
-// serving chunk) has the cluster body below. What bounds it on the H100:
+// serving chunk) and fp32 K4 (the same shape with dropout, every epoch-0
+// train step) share the cluster body below. What bounds it on the H100:
 // bytes, K and V once (4.2 MB at Lk = 512, 0.0013 ms at 3.35 TB/s) for
 // 4*Lq*Lk*D = 17 MFLOP in all (0.0003 ms at the fp32 rate of 67 TFLOP/s):
 // 4 flops per byte, far below the fp32 ridge of 20, so the products run as
@@ -47,14 +48,16 @@
 //   alive until the others have read it. (Pushing the partials into the
 //   owner's shared memory before one barrier instead, as K5 does, measured
 //   slower here.)
+// - K4 (kDropout): in fp32 the TPU kernel's rounding of the weights to V's
+//   type is the identity, so dropout folds into the same pass: a block adds
+//   p * keep / (1 - rate) of each key into acc_i and p alone into l_i; the
+//   keep test is r3d::dropout_bits of ((b*H + h)*Lq + q)*Lk + k against
+//   `threshold`, as K5 redraws it. The combine and the final division by l
+//   stay as they are.
 // Deterministic, no atomics. Keys past Lk are never read (zero-filled) and
 // score -inf; a split with no key has m_i = -inf and weighs 0 explicitly; a
 // row whose every real key is masked has every m_i = finfo.min and averages
 // V over the real keys; a row whose every score is -inf gives 0.
-//
-// fp32 K4 (epoch 0 of utkinects training only) keeps the first, simple body,
-// attention_fwd.cuh: one block per (batch*head, tile of 8 queries), an
-// online softmax over chunks of 32 keys, walked in turn.
 //
 // bf16 (the 50salads decoder: Lq = 20 against Lk = 256 or 512, D = 64, B x H
 // = 8 x 8) has the split body below. As the TPU kernels do
@@ -106,7 +109,6 @@
 #include <cuda_runtime.h>
 
 #include "attention_cluster.cuh"
-#include "attention_fwd.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -114,21 +116,7 @@ namespace {
 namespace cg = cooperative_groups;
 using bf16 = __nv_bfloat16;
 
-// ---- fp32 K4: attention_fwd.cuh on the head-major layout ----
-
-constexpr int QB = r3d::kAttnQB;
-
-template <int D>
-int launch_fp32_dropout(const float* q, const float* k, const float* v, const float* bias,
-                        float* out, int B, int H, int Lq, int Lk, float scale, uint32_t seed,
-                        uint32_t threshold, float keep_scale, cudaStream_t stream) {
-  const dim3 grid(B * H, (Lq + QB - 1) / QB);
-  r3d::attention_fwd_kernel<D, true, false><<<grid, QB * 32, 0, stream>>>(
-      q, k, v, bias, out, nullptr, nullptr, H, Lq, Lk, scale, seed, threshold, keep_scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---- fp32 K3: the cluster body ----
+// ---- fp32 K3 and K4: the cluster body ----
 
 constexpr int MAX_SPLITS = r3d::kMaxSplits;   // blocks per cluster (ops/attention.py)
 constexpr int F_QT = r3d::kF32QT;
@@ -136,18 +124,19 @@ constexpr int F_KT = r3d::kF32KT;
 constexpr int F_NT = F_KT;       // threads per block: 2 warps, a key a thread
 constexpr int F_PLD = F_KT + 1;   // row stride of the weights in shared memory
 
-template <int D>
+template <int D, bool kDropout>
 __global__ void __launch_bounds__(F_NT)
 attention_fwd_cluster_kernel(const float* __restrict__ q, const float* __restrict__ k,
                              const float* __restrict__ v, const float* __restrict__ bias,
                              float* __restrict__ out, int H, int Lq, int Lk, int split_keys,
-                             float scale) {
+                             float scale, uint32_t seed, uint32_t threshold, float keep_scale) {
   constexpr int LD = r3d::kF32Ld<D>;
   constexpr int C4 = D / 4;
   constexpr int OPT = F_QT * D / F_NT;   // (query, dim) pairs of the output a thread
   extern __shared__ __align__(16) float f32_smem[];   // the ring: one or two stages
   __shared__ __align__(16) float qs[F_QT * D];
   __shared__ float ps[F_QT * F_PLD];   // the tile's weights p = exp(s - m)
+  __shared__ float pk[kDropout ? F_QT * F_PLD : 1];   // and p * keep / (1 - rate)
   __shared__ float wmax[2][F_QT];      // the warps' maxima of the tile
   __shared__ float corr_s[F_QT];       // the rescale of the running sums
   __shared__ float cm[F_QT];           // this block's (m_i, l_i, acc_i), read by the cluster
@@ -221,7 +210,12 @@ attention_fwd_cluster_kernel(const float* __restrict__ q, const float* __restric
       const float m_new = fmaxf(m_run[qq], fmaxf(wmax[0][qq], wmax[1][qq]));
       if (tid == qq) corr_s[qq] = m_new == -INFINITY ? 1.f : expf(m_run[qq] - m_new);
       m_run[qq] = m_new;
-      ps[qq * F_PLD + tid] = s[qq] == -INFINITY ? 0.f : expf(s[qq] - m_new);
+      const float p = s[qq] == -INFINITY ? 0.f : expf(s[qq] - m_new);
+      ps[qq * F_PLD + tid] = p;
+      if (kDropout) {
+        const uint32_t el = (static_cast<uint32_t>(bh) * Lq + q0 + qq) * Lk + key0 + tid;
+        pk[qq * F_PLD + tid] = r3d::dropout_bits(seed, el) >= threshold ? p * keep_scale : 0.f;
+      }
     }
     __syncthreads();
     // this thread's output pairs: acc = acc * corr + sum_j p_j v_j, l likewise
@@ -231,10 +225,11 @@ attention_fwd_cluster_kernel(const float* __restrict__ q, const float* __restric
       const int qq = idx / D;
       const int d = idx % D;
       const float* pr = ps + qq * F_PLD;
+      const float* pa = (kDropout ? pk : ps) + qq * F_PLD;   // the numerator's weights
       float a = 0.f, l = 0.f;
 #pragma unroll 16
       for (int j = 0; j < F_KT; ++j) {
-        a = fmaf(pr[j], vs[j * LD + d], a);
+        a = fmaf(pa[j], vs[j * LD + d], a);
         l += pr[j];
       }
       const float cr = corr_s[qq];
@@ -284,25 +279,26 @@ attention_fwd_cluster_kernel(const float* __restrict__ q, const float* __restric
   cluster.sync();   // no block leaves while another still reads its shared memory
 }
 
-template <int D>
+template <int D, bool kDropout>
 cudaError_t fp32_cluster_launch(r3d::ClusterLaunch& l, int B, int H, int Lq, int Lk,
                                 int split_keys, cudaStream_t stream) {
   if (split_keys <= 0 || split_keys % F_KT != 0) return cudaErrorInvalidValue;
   const int n_split = (Lk + split_keys - 1) / split_keys;
   if (n_split > MAX_SPLITS) return cudaErrorInvalidValue;
-  return l.init(attention_fwd_cluster_kernel<D>, dim3(n_split, (Lq + F_QT - 1) / F_QT, B * H),
-                F_NT, r3d::f32_ring_bytes<D>(split_keys), stream);
+  return l.init(attention_fwd_cluster_kernel<D, kDropout>,
+                dim3(n_split, (Lq + F_QT - 1) / F_QT, B * H), F_NT,
+                r3d::f32_ring_bytes<D>(split_keys), stream);
 }
 
-template <int D>
+template <int D, bool kDropout>
 int launch_fp32_cluster(const float* q, const float* k, const float* v, const float* bias,
                         float* out, int B, int H, int Lq, int Lk, int split_keys, float scale,
-                        cudaStream_t stream) {
+                        uint32_t seed, uint32_t threshold, float keep_scale, cudaStream_t stream) {
   r3d::ClusterLaunch l;
-  cudaError_t err = fp32_cluster_launch<D>(l, B, H, Lq, Lk, split_keys, stream);
+  cudaError_t err = fp32_cluster_launch<D, kDropout>(l, B, H, Lq, Lk, split_keys, stream);
   if (err == cudaSuccess) {
-    err = cudaLaunchKernelEx(&l.cfg, attention_fwd_cluster_kernel<D>, q, k, v, bias, out, H, Lq,
-                             Lk, split_keys, scale);
+    err = cudaLaunchKernelEx(&l.cfg, attention_fwd_cluster_kernel<D, kDropout>, q, k, v, bias,
+                             out, H, Lq, Lk, split_keys, scale, seed, threshold, keep_scale);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
@@ -311,8 +307,8 @@ int launch_fp32_cluster(const float* q, const float* k, const float* v, const fl
 template <int D>
 int fp32_cluster_occupancy(int B, int H, int Lq, int Lk, int split_keys, int* clusters) {
   r3d::ClusterLaunch l;
-  cudaError_t err = fp32_cluster_launch<D>(l, B, H, Lq, Lk, split_keys, nullptr);
-  if (err == cudaSuccess) err = l.max_active(attention_fwd_cluster_kernel<D>, clusters);
+  cudaError_t err = fp32_cluster_launch<D, false>(l, B, H, Lq, Lk, split_keys, nullptr);
+  if (err == cudaSuccess) err = l.max_active(attention_fwd_cluster_kernel<D, false>, clusters);
   return static_cast<int>(err);
 }
 
@@ -712,38 +708,23 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const float* bias, 
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool kDropout>
 int dispatch_fp32_cluster(const float* q, const float* k, const float* v, const float* bias,
                           float* out, int B, int H, int Lq, int Lk, int D, int split_keys,
-                          float scale, void* stream) {
+                          float scale, uint32_t seed, uint32_t threshold, float keep_scale,
+                          void* stream) {
   if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16:
-      return launch_fp32_cluster<16>(q, k, v, bias, out, B, H, Lq, Lk, split_keys, scale, s);
+      return launch_fp32_cluster<16, kDropout>(q, k, v, bias, out, B, H, Lq, Lk, split_keys,
+                                               scale, seed, threshold, keep_scale, s);
     case 32:
-      return launch_fp32_cluster<32>(q, k, v, bias, out, B, H, Lq, Lk, split_keys, scale, s);
+      return launch_fp32_cluster<32, kDropout>(q, k, v, bias, out, B, H, Lq, Lk, split_keys,
+                                               scale, seed, threshold, keep_scale, s);
     case 64:
-      return launch_fp32_cluster<64>(q, k, v, bias, out, B, H, Lq, Lk, split_keys, scale, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-int dispatch_fp32_dropout(const float* q, const float* k, const float* v, const float* bias,
-                          float* out, int B, int H, int Lq, int Lk, int D, float scale,
-                          uint32_t seed, uint32_t threshold, float keep_scale, void* stream) {
-  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16:
-      return launch_fp32_dropout<16>(q, k, v, bias, out, B, H, Lq, Lk, scale, seed, threshold,
-                                     keep_scale, s);
-    case 32:
-      return launch_fp32_dropout<32>(q, k, v, bias, out, B, H, Lq, Lk, scale, seed, threshold,
-                                     keep_scale, s);
-    case 64:
-      return launch_fp32_dropout<64>(q, k, v, bias, out, B, H, Lq, Lk, scale, seed, threshold,
-                                     keep_scale, s);
+      return launch_fp32_cluster<64, kDropout>(q, k, v, bias, out, B, H, Lq, Lk, split_keys,
+                                               scale, seed, threshold, keep_scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -779,7 +760,8 @@ int dispatch_bf16(const bf16* q, const bf16* k, const bf16* v, const float* bias
 extern "C" int r3d_attention_fwd(const float* q, const float* k, const float* v,
                                  const float* bias, float* out, int B, int H, int Lq, int Lk,
                                  int D, int split_keys, float scale, void* stream) {
-  return dispatch_fp32_cluster(q, k, v, bias, out, B, H, Lq, Lk, D, split_keys, scale, stream);
+  return dispatch_fp32_cluster<false>(q, k, v, bias, out, B, H, Lq, Lk, D, split_keys, scale, 0u,
+                                      0u, 1.f, stream);
 }
 
 // How many clusters of r3d_attention_fwd's launch at these sizes the card
@@ -794,16 +776,16 @@ extern "C" int r3d_attention_fwd_clusters(int B, int H, int Lq, int Lk, int D, i
   }
 }
 
-// As r3d_attention_fwd (without `split_keys`), with dropout on the weights:
-// an element is kept when its dropout bits under `seed` are >= `threshold`
-// (= rate * 2^32) and then scaled by `keep_scale` (= 1 / (1 - rate)).
-// B*H*Lq*Lk must fit in 32 bits.
+// As r3d_attention_fwd, with dropout on the weights: an element is kept when
+// its dropout bits under `seed` are >= `threshold` (= rate * 2^32) and then
+// scaled by `keep_scale` (= 1 / (1 - rate)). B*H*Lq*Lk must fit in 32 bits.
 extern "C" int r3d_attention_fwd_dropout(const float* q, const float* k, const float* v,
                                          const float* bias, float* out, int B, int H, int Lq,
-                                         int Lk, int D, float scale, uint32_t seed,
-                                         uint32_t threshold, float keep_scale, void* stream) {
-  return dispatch_fp32_dropout(q, k, v, bias, out, B, H, Lq, Lk, D, scale, seed, threshold,
-                               keep_scale, stream);
+                                         int Lk, int D, int split_keys, float scale,
+                                         uint32_t seed, uint32_t threshold, float keep_scale,
+                                         void* stream) {
+  return dispatch_fp32_cluster<true>(q, k, v, bias, out, B, H, Lq, Lk, D, split_keys, scale, seed,
+                                     threshold, keep_scale, stream);
 }
 
 // The two above with bf16 q, k, v and out (the bias stays fp32), each 16-byte

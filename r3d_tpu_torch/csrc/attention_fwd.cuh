@@ -1,10 +1,9 @@
 // The fp32 attention forward's kernel body, out = softmax(q k^T * scale +
 // bias) v per (batch, head) with an online fp32 softmax and optional dropout
-// on the weights. attention.cu instantiates it for K3 and K4 in fp32
-// (utkinects: Lq = 8, D = 16) on the head-major layout, cross_attention.cu
-// for K6 in fp32 on the native layout. The bf16 instantiations have bodies of
-// their own on the tensor cores: attention.cu's split kernel (K3, K4) and
-// cross_attention.cu's (K6).
+// on the weights. Only cross_attention.cu instantiates it, for K6 in fp32 on
+// the native layout. K3 and K4 have bodies of their own in attention.cu (the
+// fp32 cluster kernel and the bf16 split kernel), as K6 in bf16 has in
+// cross_attention.cu.
 //
 // Layouts. Head-major (kNative false): q, out [B, H, Lq, D], k, v
 // [B, H, Lk, D]. Native (kNative true): q, out [B, Lq, C], k, v [B, Lk, C]

@@ -16,55 +16,80 @@
 //                dgamma += sum_rows g*xhat, dbeta += sum_rows g
 //   GELU'(z)     = 0.5*(1 + erf(z/sqrt2)) + z*exp(-z^2/2)/sqrt(2 pi)
 //
-// What bounds it on the H100: operations. Per row it recomputes the forward
-// (2*C*C + 4*C*Ch multiply-adds, the up-projection twice) and runs the
-// backward's five products, about 6 * 2 * (2*C*C + 4*C*Ch) flops in all:
-// 7.25 GFLOP at N = 4096, 0.11 ms at the fp32 CUDA-core peak, against 5*N*C*4
-// = 10.5 MB of stream traffic.
+// What bounds it on the H100: operations. Per token row the forward is
+// recomputed (the Wvp, W1 and W2 products), the backward runs three more
+// (dm W2, dz W1, dx Wvp), and the three weight gradients are outer products
+// summed over the 2N token rows: about 6 * N * (2*C*C + 4*C*Ch) flops, 7.25
+// GFLOP at N = 4,096 (the up-projection counted once). The products must be
+// fp32-accurate (the plain version sums fp32 products; one TF32 pass misses
+// 1e-4), so they run as 3xTF32 on the tensor cores (mma_tf32.cuh), 165
+// TFLOP/s at most: 0.044 ms, against 5*N*C*4 = 10.5 MB of stream traffic.
 //
-// What the design does about it. The TPU kernel walks its grid in order and
-// sums the parameter gradients into output blocks that stay resident across
-// it. Hopper runs blocks in parallel, so the sum across blocks is explicit
-// and deterministic: a fixed number G of blocks (at most one per SM) each
-// walk their own tiles of TM rows of each stream, and add each tile's
-// parameter-gradient contributions into their own slice of a scratch [G, P]
-// (P = 8C + Ch + C*C + 2*C*Ch = 148,992 floats, the gradients laid end to end
-// in FuserTailParams order), which no other block touches; a second kernel
-// then sums the G slices in a fixed order. Inside a tile, as in the forward
-// kernel (fuser_tail.cu), the weights stream through a shared-memory chunk in
-// torch's [out, in] layout, each thread owns a 4 x 4 tile of a product, and
-// the 512-wide hidden activation exists only one 128-wide chunk at a time:
-// the forward pass over the chunks sums y, the backward pass recomputes each
-// chunk's z, GELU(z) and GELU'(z) and folds it into du, dW1 and dW2 at once.
-// The tile keeps xhat1, h1, xhat2, u, the working stream and one chunk in
-// shared memory (6 x [32 x 132] fp32 plus an 18 KB weight chunk, 121 KB).
-// Rows past N read as zero with a zero cotangent, so they add nothing to the
-// parameter gradients and are never stored. Tensor cores are left for a
-// later change.
+// What the design does about it: two phases in one call of four launches,
+// every product on 3xTF32 mma.sync, no memset, no read-modify-write of a
+// gradient in device memory, every sum over rows in a fixed order (two calls
+// agree bit for bit).
+// 0. transpose_weights_kernel copies Wvp, W1 and W2 transposed (576 KB),
+//    so that every product of the row phase is A W^T with W row-major, as
+//    K1 streams its weights (fuser_tail.cu).
+// 1. fuser_tail_bwd_rows_kernel: one block per tile of T token rows (TM
+//    rows of each stream; T = 64 where that gives nine SMs in ten a block,
+//    else 32, as K1). It recomputes the forward with the up-projection done
+//    once per row (z, GELU(z) and GELU'(z) from one product, as the TPU
+//    kernel does), runs the backward to dr and dd, and leaves the operands
+//    of the weight gradients in a scratch of token rows: p and dz [R, Ch],
+//    dm, u, dx and the swapped h1 [R, C] (R = tiles x T; the tile's rows in
+//    order, r's then d's; rows past N are zeros and weigh nothing). The
+//    column sums of each half of a tile (the 9 vector gradients) go to its
+//    own row of a scratch [tiles, 2, 8C + Ch]. Eight warps each own one
+//    stream's TM rows x 32 of every product's 128 outputs; the weights
+//    stream as [128 x 32] chunks through a ring of three shared-memory
+//    stages filled with cp.async (the copies of the next two chunks in
+//    flight under the products of this one, across product boundaries; a
+//    fourth stage, of unpadded swizzled chunks, measured no faster). Four
+//    activation tiles take the rest of the shared memory, so GELU'(z) waits
+//    in the dz scratch slot for the backward, which overwrites it with dz.
+// 2. fuser_tail_wgrad_kernel: dW2 = dm^T p, dW1 = dz^T u and dWvp = dx^T
+//    swap(h1) as 128 x 128 output tiles (2 Ch / 128 + 1 of them) times
+//    splits of the R token rows (whole chunks of 32 rows, as many splits as
+//    fill the card once), each block a 3xTF32 product over its rows, its
+//    partial written once.
+// 3. fuser_tail_bwd_sum_kernel sums the splits' partials in split order and
+//    the tiles' column sums in a fixed order into the 12 gradients.
 
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
 constexpr int C = 128;          // channels; the launcher checks
-constexpr int TM = 16;          // rows of each stream per tile
-constexpr int T = 2 * TM;       // token rows per tile: [0, TM) r, [TM, T) d
-constexpr int NT = 256;         // threads per block: 8 warps x 4 token rows
-constexpr int LDA = C + 4;      // padded row stride of the activation tiles
+constexpr int NT = 256;         // threads per block: 8 warps
+constexpr int NWARP = NT / 32;
+constexpr int LDA = C + 16;     // padded row stride of the activation tiles (% 32 == 16)
 constexpr int HC = 128;         // hidden chunk of the MLP
-constexpr int KB = 32;          // depth of one staged weight chunk
-constexpr int LDW = KB + 4;     // row stride of a staged [C, KB] chunk of W (A @ W^T)
-constexpr int WS_FLOATS = C * LDW > KB * C ? C * LDW : KB * C;
-constexpr int TILE = T * LDA;
-constexpr int SMEM_FLOATS = 6 * TILE + WS_FLOATS + 3 * T;
+constexpr int KC = 32;          // depth of one weight chunk
+constexpr int LDW = KC + 16;    // padded row stride of a weight chunk (% 32 == 16)
+constexpr int NSTAGE = 3;       // weight chunks in the ring
+constexpr int CHUNK = C * LDW;  // floats of one [128 x 32] chunk
 constexpr float kInvSqrt2 = 0.7071067811865476f;
 constexpr float kInvSqrt2Pi = 0.3989422804014327f;
 
-static_assert(T == (NT / 32) * 4, "each warp owns 4 token rows");
-static_assert(HC == C, "one thread tile serves every product");
-static_assert(NT == 2 * C, "the column sums take C threads");
+static_assert(HC == C, "every product has 128 outputs");
+static_assert(NWARP == 2 * C / 32, "two streams x 32-column slices");
+
+// Offsets of the vector gradients in one tile's row of the column-sum
+// scratch: eight [C] vectors, then db1 [Ch].
+enum ColSum { kN1s = 0, kN1b = C, kPb = 2 * C, kN2s = 3 * C, kN2b = 4 * C, kB2 = 5 * C,
+              kNos = 6 * C, kNob = 7 * C, kB1 = 8 * C };
+
+// Shared memory of a block of T token rows: four activation tiles, the
+// ring and three [T] vectors of 1/std.
+template <int T>
+constexpr int smem_bytes() {
+  return static_cast<int>(sizeof(float)) * (4 * T * LDA + NSTAGE * CHUNK + 3 * T);
+}
 
 struct BwdArgs {
   const float* r;
@@ -82,15 +107,23 @@ struct BwdArgs {
   const float* mlp2_bias;
   const float* norm_out_scale;
   const float* norm_out_bias;
+  const float* w2t;          // W2^T [Ch, C]
+  const float* w1t;          // W1^T [C, Ch]
+  const float* wvpt;         // Wvp^T [C, C]
   float* dr;
   float* dd;
-  float* partial;            // [G, P], zeroed by the launcher
+  float* p;                  // [R, Ch] GELU(z)
+  float* dz;                 // [R, Ch] GELU'(z), then dz
+  float* dm;                 // [R, C] the cotangent of the MLP's output
+  float* u;                  // [R, C] LN2's output
+  float* dx;                 // [R, C] the cotangent of x
+  float* h1s;                // [R, C] LN1's output of the other stream's row
+  float* cs;                 // [tiles, 2, 8C + Ch] column sums of each half of a tile
   int n_rows;
   int hidden;
-  bool outer_residual;
 };
 
-// Offsets of the gradients in one slice of `partial` (FuserTailParams order).
+// Offsets of the gradients in the flat output (FuserTailParams order).
 struct Layout {
   int n1s, n1b, wvp, pb, n2s, n2b, w1, b1, w2, b2, nos, nob, total;
   __host__ __device__ explicit Layout(int ch) {
@@ -110,148 +143,198 @@ struct Layout {
   }
 };
 
-__device__ __forceinline__ int token_row(int i) { return (threadIdx.x >> 5) * 4 + i; }
-__device__ __forceinline__ int swapped(int row) { return (row + TM) % T; }
+// ---- 0. the transposed weights ----
 
-__device__ __forceinline__ void zero(float acc[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+// wt = [W2^T [Ch, C], W1^T [C, Ch], Wvp^T [C, C]]; one block per 32 x 32
+// tile of a source matrix, through shared memory.
+__global__ void __launch_bounds__(256) transpose_weights_kernel(
+    const float* __restrict__ wvp, const float* __restrict__ w1, const float* __restrict__ w2,
+    float* __restrict__ wt, int hidden) {
+  __shared__ float tile[32][33];
+  const int n2 = (C / 32) * (hidden / 32);   // tiles of W2, and of W1
+  int b = blockIdx.x;
+  const float* src;
+  float* dst;
+  int cols;   // of the source; its rows are the destination's columns
+  int rows;
+  if (b < n2) {
+    src = w2, dst = wt, rows = C, cols = hidden;
+  } else if (b < 2 * n2) {
+    b -= n2;
+    src = w1, dst = wt + hidden * C, rows = hidden, cols = C;
+  } else {
+    b -= 2 * n2;
+    src = wvp, dst = wt + 2 * hidden * C, rows = C, cols = C;
+  }
+  const int r0 = (b / (cols / 32)) * 32;
+  const int c0 = (b % (cols / 32)) * 32;
+  const int x = threadIdx.x & 31;
+  for (int y = threadIdx.x >> 5; y < 32; y += 8) {
+    tile[y][x] = src[static_cast<size_t>(r0 + y) * cols + c0 + x];
+  }
+  __syncthreads();
+  for (int y = threadIdx.x >> 5; y < 32; y += 8) {
+    dst[static_cast<size_t>(c0 + y) * rows + r0 + x] = tile[x][y];
   }
 }
 
-// acc[i][j] += sum_k A[row_i][k] * W[n0 + lane + 32*j][k0 + k], k < K: the
-// product A @ W^T with W [*, ldw] row-major ([out, in]). row_i = token_row(i),
-// or the other stream's row when `swap`. W is staged KB columns at a time.
-__device__ void gemm_wt(const float* A, bool swap, const float* __restrict__ W, int ldw,
-                        int n0, int k0, int K, float* ws, float acc[4][4]) {
+// ---- 1. the row phase ----
+
+// The warp layout of a block of T token rows: warp w owns the rows of one
+// stream (w / 4: TM rows, MT m-tiles) x 32 of the 128 outputs (w % 4: NTW
+// n-tiles) of every product; for the row-wise steps (LayerNorm, its
+// backward) warp w owns rows RPW*w .. RPW*w + RPW - 1.
+template <int T>
+struct Tile {
+  static constexpr int TM = T / 2;     // rows of each stream
+  static constexpr int MT = TM / 16;   // m-tiles of a warp
+  static constexpr int NTW = 4;        // n-tiles of a warp
+  static constexpr int RPW = T / NWARP;
+};
+
+template <int T>
+using Acc = float[Tile<T>::MT][Tile<T>::NTW][4];
+
+template <int T>
+__device__ __forceinline__ void zero(Acc<T>& acc) {
+#pragma unroll
+  for (int mt = 0; mt < Tile<T>::MT; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < Tile<T>::NTW; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+    }
+  }
+}
+
+// f(row, col, acc[..][2*hi], acc[..][2*hi + 1]) for each pair of this
+// thread's accumulator: tile (mt, nt) element e is at row row0 + mt*16 + g +
+// (e / 2)*8, column col0 + nt*8 + 2t + e % 2.
+template <int T, typename F>
+__device__ __forceinline__ void each_pair(Acc<T>& acc, int row0, int col0, F f) {
   const int lane = threadIdx.x & 31;
-  for (int kc = 0; kc < K; kc += KB) {
-    for (int idx = threadIdx.x; idx < C * (KB / 4); idx += NT) {
-      const int n = idx / (KB / 4);
-      const int k4 = (idx % (KB / 4)) * 4;
-      *reinterpret_cast<float4*>(ws + n * LDW + k4) = __ldg(reinterpret_cast<const float4*>(
-          W + static_cast<size_t>(n0 + n) * ldw + k0 + kc + k4));
-    }
-    __syncthreads();
+  const int g = lane >> 2;
+  const int t = lane & 3;
 #pragma unroll
-    for (int k = 0; k < KB; k += 4) {
-      float4 a[4];
-      float4 w[4];
+  for (int mt = 0; mt < Tile<T>::MT; ++mt) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = swap ? swapped(token_row(i)) : token_row(i);
-        a[i] = *reinterpret_cast<const float4*>(A + row * LDA + kc + k);
-      }
+    for (int nt = 0; nt < Tile<T>::NTW; ++nt) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        w[j] = *reinterpret_cast<const float4*>(ws + (lane + 32 * j) * LDW + k);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float s = acc[i][j];
-          s = fmaf(a[i].x, w[j].x, s);
-          s = fmaf(a[i].y, w[j].y, s);
-          s = fmaf(a[i].z, w[j].z, s);
-          s = fmaf(a[i].w, w[j].w, s);
-          acc[i][j] = s;
-        }
+      for (int hi = 0; hi < 2; ++hi) {
+        f(row0 + mt * 16 + g + hi * 8, col0 + nt * 8 + 2 * t, acc[mt][nt][2 * hi],
+          acc[mt][nt][2 * hi + 1]);
       }
     }
-    __syncthreads();
   }
 }
 
-// acc[i][j] += sum_k A[row_i][k] * W[k0 + k][n0 + lane + 32*j], k < K: the
-// product A @ W with W [*, ldw] row-major. W is staged KB rows at a time.
-__device__ void gemm_w(const float* A, bool swap, const float* __restrict__ W, int ldw,
-                       int n0, int k0, int K, float* ws, float acc[4][4]) {
+// Source of weight chunk c, in the order a block consumes them, each 128
+// rows x 32 values of a row-major [rows, ldw] matrix: the forward's Wvp (4
+// chunks, k 0..127), per hidden chunk j W1's four (out rows 128j.., k
+// 0..127) and W2's four (k 128j..); the backward's per hidden chunk j
+// W2^T's four (out rows 128j..) and W1^T's four (k 128j..), then Wvp^T's.
+__device__ __forceinline__ const float* chunk_src(const BwdArgs& a, int c, int& ldw) {
+  const int nj = a.hidden / HC;
+  ldw = C;
+  if (c < 4) return a.wvp + c * KC;
+  c -= 4;
+  if (c < 8 * nj) {
+    const int j = c / 8, r = c % 8;
+    if (r < 4) return a.mlp1_weight + static_cast<size_t>(j) * HC * C + r * KC;
+    ldw = a.hidden;
+    return a.mlp2_weight + j * HC + (r - 4) * KC;
+  }
+  c -= 8 * nj;
+  if (c < 8 * nj) {
+    const int j = c / 8, r = c % 8;
+    if (r < 4) return a.w2t + static_cast<size_t>(j) * HC * C + r * KC;
+    ldw = a.hidden;
+    return a.w1t + j * HC + (r - 4) * KC;
+  }
+  return a.wvpt + (c - 8 * nj) * KC;
+}
+
+// Copy weight chunk c (if it exists) into its stage of the ring, one commit
+// group either way.
+__device__ __forceinline__ void issue_chunk(const BwdArgs& a, float* ring, int c, int n_chunks) {
+  if (c < n_chunks) {
+    int ldw;
+    const float* src = chunk_src(a, c, ldw);
+    float* ws = ring + (c % NSTAGE) * CHUNK;
+    for (int idx = threadIdx.x; idx < C * (KC / 4); idx += NT) {
+      const int n = idx / (KC / 4);
+      const int k4 = (idx % (KC / 4)) * 4;
+      r3d::cp_async16(ws + n * LDW + k4, src + static_cast<size_t>(n) * ldw + k4, true);
+    }
+  }
+  r3d::cp_async_commit();
+}
+
+// acc += A W^T over the four chunks from `cur` on (one product of depth
+// 128), A the [T, LDA] tile; with kSwap each row reads the other stream's
+// row. Each chunk's wait and barrier also issues the copy of chunk
+// cur + NSTAGE - 1 into the stage of cur - 1. Within a 16-deep step, k-step
+// s of lane t takes k = 4t + 2s into its fragments' first k slot (a0, a1;
+// b0) and 4t + 2s + 1 into the second (a2, a3; b1), so one 16-byte load
+// fetches an operand's two k-steps (as fuser_tail.cu).
+template <int T, bool kSwap>
+__device__ __forceinline__ void gemm(const BwdArgs& a, const float* A, float* ring, int& cur,
+                                     int n_chunks, int row0, int col0, Acc<T>& acc) {
+  constexpr int MT = Tile<T>::MT;
+  constexpr int NTW = Tile<T>::NTW;
   const int lane = threadIdx.x & 31;
-  for (int kc = 0; kc < K; kc += KB) {
-    for (int idx = threadIdx.x; idx < KB * (C / 4); idx += NT) {
-      const int k = idx / (C / 4);
-      const int n4 = (idx % (C / 4)) * 4;
-      *reinterpret_cast<float4*>(ws + k * C + n4) = __ldg(reinterpret_cast<const float4*>(
-          W + static_cast<size_t>(k0 + kc + k) * ldw + n0 + n4));
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int k = 0; k < KB; ++k) {
-      float a[4];
-      float w[4];
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll 1
+  for (int kc = 0; kc < 4; ++kc, ++cur) {
+    r3d::cp_async_wait<NSTAGE - 2>();
+    __syncthreads();   // chunk `cur` has landed; every thread is done with `cur - 1`
+    issue_chunk(a, ring, cur + NSTAGE - 1, n_chunks);
+    const float* ws = ring + (cur % NSTAGE) * CHUNK;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = swap ? swapped(token_row(i)) : token_row(i);
-        a[i] = A[row * LDA + kc + k];
+    for (int k16 = 0; k16 < KC; k16 += 16) {
+      uint32_t a_hi[2][MT][4], a_lo[2][MT][4];     // [k-step][m-tile][fragment]
+      uint32_t b_hi[2][NTW][2], b_lo[2][NTW][2];   // [k-step][n-tile][fragment]
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const int r = kSwap ? (row0 + mt * 16 + Tile<T>::TM) % T : row0 + mt * 16;
+        const float* p = A + (r + g) * LDA + kc * KC + k16 + 4 * t;
+        const float4 top = *reinterpret_cast<const float4*>(p);
+        const float4 bot = *reinterpret_cast<const float4*>(p + 8 * LDA);
+        r3d::split_tf32(top.x, a_hi[0][mt][0], a_lo[0][mt][0]);
+        r3d::split_tf32(bot.x, a_hi[0][mt][1], a_lo[0][mt][1]);
+        r3d::split_tf32(top.y, a_hi[0][mt][2], a_lo[0][mt][2]);
+        r3d::split_tf32(bot.y, a_hi[0][mt][3], a_lo[0][mt][3]);
+        r3d::split_tf32(top.z, a_hi[1][mt][0], a_lo[1][mt][0]);
+        r3d::split_tf32(bot.z, a_hi[1][mt][1], a_lo[1][mt][1]);
+        r3d::split_tf32(top.w, a_hi[1][mt][2], a_lo[1][mt][2]);
+        r3d::split_tf32(bot.w, a_hi[1][mt][3], a_lo[1][mt][3]);
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) w[j] = ws[k * C + lane + 32 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
+      for (int nt = 0; nt < NTW; ++nt) {
+        const float4 w =
+            *reinterpret_cast<const float4*>(ws + (col0 + nt * 8 + g) * LDW + k16 + 4 * t);
+        r3d::split_tf32(w.x, b_hi[0][nt][0], b_lo[0][nt][0]);
+        r3d::split_tf32(w.y, b_hi[0][nt][1], b_lo[0][nt][1]);
+        r3d::split_tf32(w.z, b_hi[1][nt][0], b_lo[1][nt][0]);
+        r3d::split_tf32(w.w, b_hi[1][nt][1], b_lo[1][nt][1]);
       }
-    }
-    __syncthreads();
-  }
-}
-
-// out[a * ldo + b] += sum_{row < T} X[row][a] * Y[y_row][b] for a, b < 128,
-// y_row the other stream's row when `swap_y`. Each thread owns an 8 x 8 set
-// of (a, b); the block's own slice of the scratch, so no other block races.
-__device__ void outer_acc(const float* X, const float* Y, bool swap_y, float* out, int ldo) {
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  float s[8][8];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
-  }
-  for (int row = 0; row < T; ++row) {
-    const float* x = X + row * LDA;
-    const float* y = Y + (swap_y ? swapped(row) : row) * LDA;
-    float xa[8];
-    float yb[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) xa[i] = x[ty + 16 * i];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) yb[j] = y[tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = fmaf(xa[i], yb[j], s[i][j]);
+      for (int ks = 0; ks < 2; ++ks) r3d::mma_3xtf32(acc, a_hi[ks], a_lo[ks], b_hi[ks], b_lo[ks]);
     }
   }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) out[(ty + 16 * i) * ldo + tx + 16 * j] += s[i][j];
-  }
 }
 
-// out[c] += sum_rows X[row][c] * (Y ? Y[row][c] : 1) for c < 128 (threads < C).
-__device__ void colsum_acc(const float* X, const float* Y, float* out) {
-  if (threadIdx.x >= C) return;
-  const int c = threadIdx.x;
-  float s = 0.f;
-  for (int row = 0; row < T; ++row) {
-    s += Y == nullptr ? X[row * LDA + c] : X[row * LDA + c] * Y[row * LDA + c];
-  }
-  out[c] += s;
-}
-
-// LayerNorm forward of this warp's 4 rows of src: xhat into xh, the affine
-// output into y (either may alias src), 1/std into rstd[row].
-__device__ void ln_fwd_rows(const float* src, float* xh, float* y, float* rstd,
-                            const float* __restrict__ scale, const float* __restrict__ bias) {
+// LayerNorm forward of this warp's rows of src: xhat into xh, the affine
+// output into y (either may alias src, or be null), 1/std into rstd[row].
+template <int T>
+__device__ void ln_rows(const float* src, float* xh, float* y, float* rstd,
+                        const float* __restrict__ scale, const float* __restrict__ bias) {
   const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = token_row(i);
+  const int warp = threadIdx.x >> 5;
+#pragma unroll 1
+  for (int i = 0; i < Tile<T>::RPW; ++i) {
+    const int row = warp * Tile<T>::RPW + i;
     float v[4];
     float s = 0.f;
 #pragma unroll
@@ -278,15 +361,17 @@ __device__ void ln_fwd_rows(const float* src, float* xh, float* y, float* rstd,
   }
 }
 
-// Input cotangent of a LayerNorm for this warp's 4 rows: gsrc is the output
+// Input cotangent of a LayerNorm for this warp's rows: gsrc is the output
 // cotangent, xh and rstd the forward's; the result goes to dst (may alias
 // gsrc) and is added to dst when `accumulate`.
+template <int T>
 __device__ void ln_bwd_rows(const float* gsrc, const float* xh, const float* rstd,
                             const float* __restrict__ scale, float* dst, bool accumulate) {
   const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = token_row(i);
+  const int warp = threadIdx.x >> 5;
+#pragma unroll 1
+  for (int i = 0; i < Tile<T>::RPW; ++i) {
+    const int row = warp * Tile<T>::RPW + i;
     float gh[4];
     float xv[4];
     float s1 = 0.f;
@@ -311,264 +396,496 @@ __device__ void ln_bwd_rows(const float* gsrc, const float* xh, const float* rst
   }
 }
 
-__global__ void __launch_bounds__(NT) fuser_tail_bwd_kernel(const BwdArgs a) {
-  extern __shared__ float4 smem4[];
-  float* xh1 = reinterpret_cast<float*>(smem4);  // xhat of LN1
-  float* h1 = xh1 + TILE;                         // LN1 output
-  float* xh2 = h1 + TILE;                         // xhat of LN2; later gy (outer residual)
-  float* u = xh2 + TILE;                          // LN2 output
-  float* ws_a = u + TILE;                         // x, y, xhat_out, gy = dm, then dx
-  float* ms = ws_a + TILE;                        // hidden chunk, g/2, du, dh
-  float* ws = ms + TILE;                          // staged weight chunk
-  float* rstd1 = ws + WS_FLOATS;
-  float* rstd2 = rstd1 + T;
-  float* rstdo = rstd2 + T;
-
+// dst[row] += src[row] over this warp's rows.
+template <int T>
+__device__ __forceinline__ void add_rows(float* dst, const float* src) {
   const int lane = threadIdx.x & 31;
-  const Layout L(a.hidden);
-  float* part = a.partial + static_cast<size_t>(blockIdx.x) * L.total;
-  const int n_tiles = (a.n_rows + TM - 1) / TM;
-
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const long row0 = static_cast<long>(tile) * TM;
-
-    // ---- forward, recomputed ----
-    for (int idx = threadIdx.x; idx < TM * C; idx += NT) {
-      const int i = idx / C;
-      const int c = idx % C;
-      const long g = row0 + i;
-      const bool ok = g < a.n_rows;
-      ws_a[i * LDA + c] = ok ? __ldg(a.r + g * C + c) : 0.f;
-      ws_a[(i + TM) * LDA + c] = ok ? __ldg(a.d + g * C + c) : 0.f;
-    }
-    __syncthreads();
-    ln_fwd_rows(ws_a, xh1, h1, rstd1, a.norm1_scale, a.norm1_bias);
-    __syncthreads();
-    float acc[4][4];
-    zero(acc);
-    gemm_wt(h1, true, a.wvp, C, 0, 0, C, ws, acc);  // x = in + swap(h1) Wvp^T + bp
+  const int warp = threadIdx.x >> 5;
+  for (int i = 0; i < Tile<T>::RPW; ++i) {
+    const int row = warp * Tile<T>::RPW + i;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = lane + 32 * j;
-        float* x = ws_a + token_row(i) * LDA + c;
-        *x = (*x + acc[i][j]) + __ldg(a.proj_bias + c);
-      }
-    }
-    __syncthreads();
-    ln_fwd_rows(ws_a, xh2, u, rstd2, a.norm2_scale, a.norm2_bias);
-    __syncthreads();
-    float acc2[4][4];
-    zero(acc2);
-    for (int h0 = 0; h0 < a.hidden; h0 += HC) {  // y = x + GELU(u W1^T + b1) W2^T + b2
-      zero(acc);
-      gemm_wt(u, false, a.mlp1_weight, C, h0, 0, C, ws, acc);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = lane + 32 * j;
-          const float z = acc[i][j] + __ldg(a.mlp1_bias + h0 + c);
-          ms[token_row(i) * LDA + c] = 0.5f * z * (1.f + erff(z * kInvSqrt2));
-        }
-      }
-      __syncthreads();
-      gemm_wt(ms, false, a.mlp2_weight, a.hidden, 0, h0, HC, ws, acc2);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = lane + 32 * j;
-        float* x = ws_a + token_row(i) * LDA + c;
-        *x = *x + (acc2[i][j] + __ldg(a.mlp2_bias + c));
-      }
-    }
-    __syncthreads();
-    if (a.outer_residual) {
-      for (int idx = threadIdx.x; idx < TM * C; idx += NT) {
-        const int i = idx / C;
-        const int c = idx % C;
-        const long g = row0 + i;
-        if (g < a.n_rows) {
-          ws_a[i * LDA + c] += __ldg(a.r + g * C + c);
-          ws_a[(i + TM) * LDA + c] += __ldg(a.d + g * C + c);
-        }
-      }
-      __syncthreads();
-    }
-    ln_fwd_rows(ws_a, ws_a, nullptr, rstdo, a.norm_out_scale, a.norm_out_bias);
-
-    // ---- backward ----
-    // g/2 reaches each stream's LN_out (out is the mean of the two)
-    for (int idx = threadIdx.x; idx < TM * C; idx += NT) {
-      const int i = idx / C;
-      const int c = idx % C;
-      const long g = row0 + i;
-      const float gv = g < a.n_rows ? 0.5f * __ldg(a.g + g * C + c) : 0.f;
-      ms[i * LDA + c] = gv;
-      ms[(i + TM) * LDA + c] = gv;
-    }
-    __syncthreads();
-    colsum_acc(ms, ws_a, part + L.nos);
-    colsum_acc(ms, nullptr, part + L.nob);
-    __syncthreads();
-    ln_bwd_rows(ms, ws_a, rstdo, a.norm_out_scale, ws_a, false);  // gy = dm, in ws_a
-    __syncthreads();
-    colsum_acc(ws_a, nullptr, part + L.b2);
-
-    float du[4][4];
-    zero(du);
-    for (int h0 = 0; h0 < a.hidden; h0 += HC) {
-      // z, GELU(z) and GELU'(z) of this chunk
-      zero(acc);
-      gemm_wt(u, false, a.mlp1_weight, C, h0, 0, C, ws, acc);
-      float dp[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = lane + 32 * j;
-          const float z = acc[i][j] + __ldg(a.mlp1_bias + h0 + c);
-          const float cdf = 0.5f * (1.f + erff(z * kInvSqrt2));
-          dp[i][j] = cdf + z * expf(-0.5f * z * z) * kInvSqrt2Pi;
-          ms[token_row(i) * LDA + c] = z * cdf;
-        }
-      }
-      __syncthreads();
-      outer_acc(ws_a, ms, false, part + L.w2 + h0, a.hidden);  // dW2[:, chunk] += dm^T p
-      zero(acc);
-      gemm_w(ws_a, false, a.mlp2_weight, a.hidden, h0, 0, C, ws, acc);  // dm @ W2[:, chunk]
-      // gemm_w ends on a barrier: every thread is done reading p from ms
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          ms[token_row(i) * LDA + lane + 32 * j] = acc[i][j] * dp[i][j];  // dz
-        }
-      }
-      __syncthreads();
-      colsum_acc(ms, nullptr, part + L.b1 + h0);
-      outer_acc(ms, u, false, part + L.w1 + h0 * C, C);     // dW1[chunk] += dz^T u
-      gemm_w(ms, false, a.mlp1_weight, C, 0, h0, HC, ws, du);  // du += dz @ W1[chunk]
-    }
-    // gemm_w ended on a barrier: ms is free for du
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ms[token_row(i) * LDA + lane + 32 * j] = du[i][j];
-    }
-    __syncthreads();
-    colsum_acc(ms, xh2, part + L.n2s);
-    colsum_acc(ms, nullptr, part + L.n2b);
-    __syncthreads();
-    // dx = gy + LN2_bwd(du); with the outer residual, gy is kept in xh2 first
-    ln_bwd_rows(ms, xh2, rstd2, a.norm2_scale, ms, false);
-    if (a.outer_residual) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int off = token_row(i) * LDA + lane + 32 * j;
-          xh2[off] = ws_a[off];
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int off = token_row(i) * LDA + lane + 32 * j;
-        ws_a[off] += ms[off];
-      }
-    }
-    __syncthreads();
-    colsum_acc(ws_a, nullptr, part + L.pb);
-    outer_acc(ws_a, h1, true, part + L.wvp, C);  // dWvp += dx^T swap(h1)
-    zero(acc);
-    gemm_w(ws_a, true, a.wvp, C, 0, 0, C, ws, acc);  // dh = swap(dx) @ Wvp
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ms[token_row(i) * LDA + lane + 32 * j] = acc[i][j];
-    }
-    __syncthreads();
-    colsum_acc(ms, xh1, part + L.n1s);
-    colsum_acc(ms, nullptr, part + L.n1b);
-    // dr = dx + LN1_bwd(dh) (+ gy with the outer residual), in ws_a
-    ln_bwd_rows(ms, xh1, rstd1, a.norm1_scale, ws_a, true);
-    if (a.outer_residual) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int off = token_row(i) * LDA + lane + 32 * j;
-          ws_a[off] += xh2[off];
-        }
-      }
-    }
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < TM * C; idx += NT) {
-      const int i = idx / C;
-      const int c = idx % C;
-      const long g = row0 + i;
-      if (g < a.n_rows) {
-        a.dr[g * C + c] = ws_a[i * LDA + c];
-        a.dd[g * C + c] = ws_a[(i + TM) * LDA + c];
-      }
-    }
-    __syncthreads();  // the next tile overwrites ws_a and ms
+    for (int j = 0; j < 4; ++j) dst[row * LDA + lane + 32 * j] += src[row * LDA + lane + 32 * j];
   }
 }
 
-// grads[p] = sum over the G slices of partial[g][p], in order of g.
-__global__ void sum_partials_kernel(const float* __restrict__ partial, int G, int P,
-                                    float* __restrict__ grads) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= P) return;
+// The column sums of X[row][c] * (Y ? Y[row][c] : 1) over each half of the
+// tile's T rows, c < 128: thread c + 128h sums rows [hT/2, (h+1)T/2) as four
+// interleaved partial sums added in a fixed order, into out[h * half + c].
+template <int T>
+__device__ __forceinline__ void colsum(const float* X, const float* Y, float* out, int half) {
+  static_assert(NT == 2 * C, "a thread per column and half");
+  const int c = threadIdx.x % C;
+  const int h = threadIdx.x / C;
+  float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < T / 2; ++i) {
+    const int row = h * (T / 2) + i;
+    const float x = X[row * LDA + c];
+    s[i % 4] += Y == nullptr ? x : x * Y[row * LDA + c];
+  }
+  out[h * half + c] = (s[0] + s[1]) + (s[2] + s[3]);
+}
+
+// The T rows of the tile in shared memory (stride LDA) to rows srow0.. of a
+// [R, C] scratch; with kSwap each row takes the other stream's row.
+template <int T, bool kSwap>
+__device__ __forceinline__ void store_rows(float* dst, const float* src, long srow0) {
+  for (int idx = threadIdx.x; idx < T * (C / 4); idx += NT) {
+    const int row = idx / (C / 4);
+    const int c = (idx % (C / 4)) * 4;
+    const int from = kSwap ? (row + Tile<T>::TM) % T : row;
+    *reinterpret_cast<float4*>(dst + (srow0 + row) * C + c) =
+        *reinterpret_cast<const float4*>(src + from * LDA + c);
+  }
+}
+
+// The tile's rows of both streams (TM global rows from grow0) into the
+// tile: r's in rows [0, TM), d's in [TM, T); rows past n_rows read as zero.
+// With kAdd they are added to what the tile holds.
+template <int T, bool kAdd>
+__device__ __forceinline__ void load_streams(const BwdArgs& a, float* dst, long grow0) {
+  constexpr int TM = Tile<T>::TM;
+  for (int idx = threadIdx.x; idx < TM * C; idx += NT) {
+    const int i = idx / C;
+    const int c = idx % C;
+    const long gr = grow0 + i;
+    const bool ok = gr < a.n_rows;
+    const float rv = ok ? __ldg(a.r + gr * C + c) : 0.f;
+    const float dv = ok ? __ldg(a.d + gr * C + c) : 0.f;
+    if (kAdd) {
+      dst[i * LDA + c] += rv;
+      dst[(i + TM) * LDA + c] += dv;
+    } else {
+      dst[i * LDA + c] = rv;
+      dst[(i + TM) * LDA + c] = dv;
+    }
+  }
+}
+
+template <bool kOuterResidual, int T>
+__global__ void __launch_bounds__(NT, 1) fuser_tail_bwd_rows_kernel(const BwdArgs a) {
+  using L = Tile<T>;
+  constexpr int TM = L::TM;
+  extern __shared__ float4 smem4[];
+  float* xs = reinterpret_cast<float*>(smem4);  // x, y, xhat_out, gy = dm, dx, dr
+  float* hs = xs + T * LDA;                      // h1, u, du, dh
+  float* x2 = hs + T * LDA;                      // xhat2; gy (outer residual) after LN2's backward
+  float* ms = x2 + T * LDA;                      // a hidden chunk (p, dz); g/2; xhat1
+  float* ring = ms + T * LDA;                    // NSTAGE x [C, LDW] weight chunks
+  float* rstd1 = ring + NSTAGE * CHUNK;
+  float* rstd2 = rstd1 + T;
+  float* rstdo = rstd2 + T;
+  const int warp = threadIdx.x >> 5;
+  const int row0 = (warp / 4) * TM;    // the warp's first token row in the products
+  const int col0 = (warp % 4) * 32;    // and first output column
+  const int tile = blockIdx.x;
+  const long grow0 = static_cast<long>(tile) * TM;   // the tile's first row of each stream
+  const long srow0 = static_cast<long>(tile) * T;    // and first row of the scratch
+  const int ch = a.hidden;
+  const int n_chunks = 8 + 16 * (ch / HC);
+  const int csw = 8 * C + ch;   // a half's row of column sums
+  float* cs = a.cs + static_cast<size_t>(tile) * 2 * csw;
+
+  int cur = 0;   // the next weight chunk to use
+#pragma unroll
+  for (int c = 0; c < NSTAGE - 1; ++c) issue_chunk(a, ring, c, n_chunks);   // under the input loads
+
+  // ---- forward, recomputed ----
+  load_streams<T, false>(a, xs, grow0);
+  __syncthreads();
+  ln_rows<T>(xs, nullptr, hs, rstd1, a.norm1_scale, a.norm1_bias);
+  __syncthreads();
+  store_rows<T, true>(a.h1s, hs, srow0);
+  Acc<T> acc;
+  zero<T>(acc);
+  gemm<T, true>(a, hs, ring, cur, n_chunks, row0, col0, acc);   // x = in + swap(h1) Wvp^T + bp
+  each_pair<T>(acc, row0, col0, [&](int row, int col, float v0, float v1) {
+    float2* x = reinterpret_cast<float2*>(xs + row * LDA + col);
+    const float2 o = *x;
+    *x = make_float2((o.x + v0) + __ldg(a.proj_bias + col),
+                     (o.y + v1) + __ldg(a.proj_bias + col + 1));
+  });
+  __syncthreads();
+  ln_rows<T>(xs, x2, hs, rstd2, a.norm2_scale, a.norm2_bias);   // u into hs
+  __syncthreads();
+  store_rows<T, false>(a.u, hs, srow0);
+  Acc<T> acc2;
+  zero<T>(acc2);
+  for (int h0 = 0; h0 < ch; h0 += HC) {   // y = x + GELU(u W1^T + b1) W2^T + b2
+    zero<T>(acc);
+    gemm<T, false>(a, hs, ring, cur, n_chunks, row0, col0, acc);
+    each_pair<T>(acc, row0, col0, [&](int row, int col, float v0, float v1) {
+      const float z0 = v0 + __ldg(a.mlp1_bias + h0 + col);
+      const float z1 = v1 + __ldg(a.mlp1_bias + h0 + col + 1);
+      const float c0 = 0.5f * (1.f + erff(z0 * kInvSqrt2));
+      const float c1 = 0.5f * (1.f + erff(z1 * kInvSqrt2));
+      const float2 p = make_float2(z0 * c0, z1 * c1);
+      const size_t off = static_cast<size_t>(srow0 + row) * ch + h0 + col;
+      *reinterpret_cast<float2*>(ms + row * LDA + col) = p;
+      *reinterpret_cast<float2*>(a.p + off) = p;
+      *reinterpret_cast<float2*>(a.dz + off) =   // GELU'(z), until the backward
+          make_float2(c0 + z0 * expf(-0.5f * z0 * z0) * kInvSqrt2Pi,
+                      c1 + z1 * expf(-0.5f * z1 * z1) * kInvSqrt2Pi);
+    });
+    gemm<T, false>(a, ms, ring, cur, n_chunks, row0, col0, acc2);
+  }
+  each_pair<T>(acc2, row0, col0, [&](int row, int col, float v0, float v1) {
+    float2* x = reinterpret_cast<float2*>(xs + row * LDA + col);
+    const float2 o = *x;
+    *x = make_float2(o.x + (v0 + __ldg(a.mlp2_bias + col)),
+                     o.y + (v1 + __ldg(a.mlp2_bias + col + 1)));
+  });
+  __syncthreads();
+  if (kOuterResidual) {
+    load_streams<T, true>(a, xs, grow0);
+    __syncthreads();
+  }
+  ln_rows<T>(xs, xs, nullptr, rstdo, a.norm_out_scale, a.norm_out_bias);   // xhat_out
+
+  // ---- backward ----
+  // g/2 reaches each stream's LN_out (out is the mean of the two)
+  for (int idx = threadIdx.x; idx < TM * C; idx += NT) {
+    const int i = idx / C;
+    const int c = idx % C;
+    const long gr = grow0 + i;
+    const float gv = gr < a.n_rows ? 0.5f * __ldg(a.g + gr * C + c) : 0.f;
+    ms[i * LDA + c] = gv;
+    ms[(i + TM) * LDA + c] = gv;
+  }
+  __syncthreads();
+  colsum<T>(ms, xs, cs + kNos, csw);
+  colsum<T>(ms, nullptr, cs + kNob, csw);
+  __syncthreads();
+  ln_bwd_rows<T>(ms, xs, rstdo, a.norm_out_scale, xs, false);   // gy = dm, in xs
+  __syncthreads();
+  colsum<T>(xs, nullptr, cs + kB2, csw);
+  store_rows<T, false>(a.dm, xs, srow0);
+
+  Acc<T> du;
+  zero<T>(du);
+  for (int h0 = 0; h0 < ch; h0 += HC) {
+    zero<T>(acc);
+    gemm<T, false>(a, xs, ring, cur, n_chunks, row0, col0, acc);   // dm W2[:, chunk]
+    each_pair<T>(acc, row0, col0, [&](int row, int col, float v0, float v1) {
+      float2* slot =
+          reinterpret_cast<float2*>(a.dz + static_cast<size_t>(srow0 + row) * ch + h0 + col);
+      const float2 dp = *slot;   // this thread's own GELU'(z) from the forward
+      const float2 dz = make_float2(v0 * dp.x, v1 * dp.y);
+      *slot = dz;
+      *reinterpret_cast<float2*>(ms + row * LDA + col) = dz;
+    });
+    __syncthreads();
+    colsum<T>(ms, nullptr, cs + kB1 + h0, csw);
+    gemm<T, false>(a, ms, ring, cur, n_chunks, row0, col0, du);    // du += dz W1[chunk]
+  }
+  // the last gemm read hs' u long ago and ms' dz: its own barriers are
+  // behind every warp's last use of hs
+  each_pair<T>(du, row0, col0, [&](int row, int col, float v0, float v1) {
+    *reinterpret_cast<float2*>(hs + row * LDA + col) = make_float2(v0, v1);
+  });
+  __syncthreads();
+  colsum<T>(hs, x2, cs + kN2s, csw);
+  colsum<T>(hs, nullptr, cs + kN2b, csw);
+  __syncthreads();
+  // dx = gy + LN2_bwd(du); with the outer residual, gy is kept in x2 after
+  ln_bwd_rows<T>(hs, x2, rstd2, a.norm2_scale, hs, false);
+  if (kOuterResidual) {
+    const int lane = threadIdx.x & 31;
+    for (int i = 0; i < L::RPW; ++i) {
+      const int row = warp * L::RPW + i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) x2[row * LDA + lane + 32 * j] = xs[row * LDA + lane + 32 * j];
+    }
+  }
+  add_rows<T>(xs, hs);
+  __syncthreads();
+  colsum<T>(xs, nullptr, cs + kPb, csw);
+  store_rows<T, false>(a.dx, xs, srow0);
+  zero<T>(acc);
+  gemm<T, true>(a, xs, ring, cur, n_chunks, row0, col0, acc);   // dh = swap(dx) Wvp
+  each_pair<T>(acc, row0, col0, [&](int row, int col, float v0, float v1) {
+    *reinterpret_cast<float2*>(hs + row * LDA + col) = make_float2(v0, v1);
+  });
+  // xhat1 again, from the inputs
+  load_streams<T, false>(a, ms, grow0);
+  __syncthreads();
+  ln_rows<T>(ms, ms, nullptr, rstd1, a.norm1_scale, a.norm1_bias);
+  __syncthreads();
+  colsum<T>(hs, ms, cs + kN1s, csw);
+  colsum<T>(hs, nullptr, cs + kN1b, csw);
+  // dr = dx + LN1_bwd(dh) (+ gy with the outer residual), in xs
+  ln_bwd_rows<T>(hs, ms, rstd1, a.norm1_scale, xs, true);
+  if (kOuterResidual) add_rows<T>(xs, x2);
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < TM * (C / 4); idx += NT) {
+    const int i = idx / (C / 4);
+    const int c = (idx % (C / 4)) * 4;
+    const long gr = grow0 + i;
+    if (gr < a.n_rows) {
+      *reinterpret_cast<float4*>(a.dr + gr * C + c) =
+          *reinterpret_cast<const float4*>(xs + i * LDA + c);
+      *reinterpret_cast<float4*>(a.dd + gr * C + c) =
+          *reinterpret_cast<const float4*>(xs + (i + TM) * LDA + c);
+    }
+  }
+  r3d::cp_async_wait<0>();
+}
+
+// ---- 2. the weight gradients ----
+
+constexpr int WK = 32;                 // token rows of one chunk
+constexpr int LDK = C + 8;             // row stride of a staged chunk (% 32 == 8)
+constexpr int WSTAGE = 2 * WK * LDK;   // floats of one stage: X's and Y's chunk
+constexpr int WNSTAGE = 4;             // stages of the ring
+constexpr int WGRAD_SMEM = static_cast<int>(sizeof(float)) * WNSTAGE * WSTAGE;
+
+struct WgradArgs {
+  const float* p;
+  const float* dz;
+  const float* dm;
+  const float* u;
+  const float* dx;
+  const float* h1s;
+  float* partial;   // [splits, out tiles, C, C]
+  int rows;         // R
+  int split_rows;   // rows of one split, a multiple of WK
+  int hidden;
+};
+
+// out[a][b] = sum over the split's rows of X[row][a] * Y[row][b] for one
+// 128 x 128 output tile (blockIdx.y): dW2 tiles j < Ch/128 (X = dm, Y = p
+// columns 128j..), then dW1 tiles (X = dz columns 128j.., Y = u), then dWvp
+// (X = dx, Y = swap(h1)); blockIdx.x the split. The chunks of 32 rows of X
+// and Y stream through a ring of four stages (16-byte cp.async, rows past R
+// zero) in row-major [32 x 128] tiles: the row is the product's k, so the
+// fragments read A[a][k] = X[k][a] and B[k][b] = Y[k][b] with plain loads,
+// conflict-free at a row stride of 8 mod 32 (lane g, t: bank 8t + g). Eight
+// warps each own 64 x 32 of the tile (4 x 4 fragment pairs), 3xTF32.
+__global__ void __launch_bounds__(NT, 1) fuser_tail_wgrad_kernel(const WgradArgs w) {
+  extern __shared__ float4 wsmem4[];
+  float* ring = reinterpret_cast<float*>(wsmem4);
+  const int nj = w.hidden / HC;
+  const int ot = blockIdx.y;
+  const float* X;
+  const float* Y;
+  int ldx = C, ldy = C;
+  if (ot < nj) {
+    X = w.dm, Y = w.p + ot * HC, ldy = w.hidden;
+  } else if (ot < 2 * nj) {
+    X = w.dz + (ot - nj) * HC, ldx = w.hidden, Y = w.u;
+  } else {
+    X = w.dx, Y = w.h1s;
+  }
+  const int row_begin = blockIdx.x * w.split_rows;
+  const int row_end = min(w.rows, row_begin + w.split_rows);
+  const int n_ch = row_end > row_begin ? (row_end - row_begin + WK - 1) / WK : 0;
+  auto issue = [&](int c) {
+    if (c < n_ch) {
+      float* st = ring + (c % WNSTAGE) * WSTAGE;
+      for (int idx = threadIdx.x; idx < 2 * WK * (C / 4); idx += NT) {
+        const int which = idx / (WK * (C / 4));   // 0: X, 1: Y
+        const int r = (idx / (C / 4)) % WK;
+        const int c4 = (idx % (C / 4)) * 4;
+        const int row = row_begin + c * WK + r;
+        const bool ok = row < row_end;
+        const float* src = which ? Y + static_cast<size_t>(ok ? row : 0) * ldy
+                                 : X + static_cast<size_t>(ok ? row : 0) * ldx;
+        r3d::cp_async16(st + which * WK * LDK + r * LDK + c4, src + c4, ok);
+      }
+    }
+    r3d::cp_async_commit();
+  };
+#pragma unroll
+  for (int c = 0; c < WNSTAGE - 1; ++c) issue(c);
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int a0 = (warp / 4) * 64;   // the warp's output rows
+  const int b0 = (warp % 4) * 32;   // and columns
+  float acc[4][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+    }
+  }
+#pragma unroll 1
+  for (int c = 0; c < n_ch; ++c) {
+    r3d::cp_async_wait<WNSTAGE - 2>();
+    __syncthreads();   // chunk c has landed; every thread is done with c - 1
+    issue(c + WNSTAGE - 1);
+    const float* xs = ring + (c % WNSTAGE) * WSTAGE;
+    const float* ys = xs + WK * LDK;
+#pragma unroll
+    for (int k = 0; k < WK; k += 8) {
+      uint32_t a_hi[4][4], a_lo[4][4], b_hi[4][2], b_lo[4][2];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        const float* p = xs + (k + t) * LDK + a0 + mt * 16 + g;
+        r3d::split_tf32(p[0], a_hi[mt][0], a_lo[mt][0]);
+        r3d::split_tf32(p[8], a_hi[mt][1], a_lo[mt][1]);
+        r3d::split_tf32(p[4 * LDK], a_hi[mt][2], a_lo[mt][2]);
+        r3d::split_tf32(p[4 * LDK + 8], a_hi[mt][3], a_lo[mt][3]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const float* p = ys + (k + t) * LDK + b0 + nt * 8 + g;
+        r3d::split_tf32(p[0], b_hi[nt][0], b_lo[nt][0]);
+        r3d::split_tf32(p[4 * LDK], b_hi[nt][1], b_lo[nt][1]);
+      }
+      r3d::mma_3xtf32(acc, a_hi, a_lo, b_hi, b_lo);
+    }
+  }
+  r3d::cp_async_wait<0>();
+  float* out = w.partial + (static_cast<size_t>(blockIdx.x) * gridDim.y + ot) * C * C;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        *reinterpret_cast<float2*>(out + (a0 + mt * 16 + g + hi * 8) * C + b0 + nt * 8 + 2 * t) =
+            make_float2(acc[mt][nt][2 * hi], acc[mt][nt][2 * hi + 1]);
+      }
+    }
+  }
+}
+
+// ---- 3. the ordered sums ----
+
+// The 12 gradients from the partials: first the matrix entries (Wvp, W1,
+// W2), a thread each, summed over the splits' partials in split order; then
+// the vector gradients, 32 columns of the column sums a block: warp w sums
+// the tiles' halves w, w + 8, ... in order, and warp 0 adds the 8 warps'
+// sums in warp order.
+__global__ void __launch_bounds__(256) fuser_tail_bwd_sum_kernel(
+    const float* __restrict__ cs, int n_tiles, const float* __restrict__ partial, int n_split,
+    int hidden, float* __restrict__ grads) {
+  const Layout L(hidden);
+  const int nj = hidden / HC;
+  const int n_mat = C * C + 2 * hidden * C;
+  const int mat_blocks = (n_mat + 255) / 256;
+  if (static_cast<int>(blockIdx.x) < mat_blocks) {
+    const int m = blockIdx.x * 256 + threadIdx.x;
+    if (m >= n_mat) return;
+    int q, tile, a, b;
+    if (m < C * C) {
+      q = L.wvp + m, tile = 2 * nj, a = m / C, b = m % C;
+    } else if (m < C * C + hidden * C) {
+      const int i = m - C * C;   // dW1 [Ch, C]
+      q = L.w1 + i, tile = nj + (i / C) / HC, a = (i / C) % HC, b = i % C;
+    } else {
+      const int i = m - C * C - hidden * C;   // dW2 [C, Ch]
+      q = L.w2 + i, tile = (i % hidden) / HC, a = i / hidden, b = (i % hidden) % HC;
+    }
+    const size_t off = (static_cast<size_t>(tile) * C + a) * C + b;
+    const size_t step = static_cast<size_t>(2 * nj + 1) * C * C;
+    float s = 0.f;
+#pragma unroll 4
+    for (int i = 0; i < n_split; ++i) s += partial[i * step + off];
+    grads[q] = s;
+    return;
+  }
+  __shared__ float part[8][32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int col = (blockIdx.x - mat_blocks) * 32 + lane;   // 8C + Ch columns, a multiple of 32
+  const int ld = 8 * C + hidden;
   float s = 0.f;
-  for (int g = 0; g < G; ++g) s += partial[static_cast<size_t>(g) * P + p];
-  grads[p] = s;
+#pragma unroll 8
+  for (int i = warp; i < 2 * n_tiles; i += 8) s += cs[static_cast<size_t>(i) * ld + col];
+  part[warp][lane] = s;
+  __syncthreads();
+  if (warp != 0) return;
+  float t = 0.f;
+#pragma unroll
+  for (int w = 0; w < 8; ++w) t += part[w][lane];
+  const int q = col < kPb ? L.n1s + col                 // n1s, n1b
+                : col < kB2 ? L.pb + (col - kPb)        // pb, n2s, n2b
+                : col < kB1 ? L.b2 + (col - kB2)        // b2, nos, nob
+                            : L.b1 + (col - kB1);
+  grads[q] = t;
+}
+
+template <bool kOuterResidual, int T>
+cudaError_t launch_rows(const BwdArgs& a, int n_tiles, cudaStream_t s) {
+  constexpr int smem = smem_bytes<T>();
+  auto kernel = fuser_tail_bwd_rows_kernel<kOuterResidual, T>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<n_tiles, NT, smem, s>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Size in floats of one block's slice of the scratch, and of the gradients.
-extern "C" int r3d_fuser_tail_bwd_params(int hidden) { return Layout(hidden).total; }
-
 // r, d, g [N, C]; the tail's parameters (torch layout); dr, dd [N, C];
-// partial [G, P] scratch; grads [P] (the 12 gradients end to end, in
-// FuserTailParams order, matrices in [out, in] layout). All fp32, contiguous.
+// scratch (ops/fuser_kernel_bwd.py:scratch_floats: the transposed weights,
+// then p, dz [R, Ch], dm, u, dx, swapped h1 [R, C], the column sums
+// [tiles, 2, 8C + Ch] and the partials [splits, 2 Ch/128 + 1, C, C]); grads [P]
+// (the 12 gradients end to end, in FuserTailParams order, matrices in
+// [out, in] layout). All fp32, contiguous, 16-byte aligned. `tile_rows`
+// (32 or 64) token rows a block of the row phase takes, R = ceil(N /
+// (tile_rows / 2)) * tile_rows; `split_rows` (a multiple of 32) rows of a
+// split of the weight-gradient phase. Four launches.
 extern "C" int r3d_fuser_tail_bwd(
     const float* r, const float* d, const float* g, const float* norm1_scale,
     const float* norm1_bias, const float* wvp, const float* proj_bias,
     const float* norm2_scale, const float* norm2_bias, const float* mlp1_weight,
     const float* mlp1_bias, const float* mlp2_weight, const float* mlp2_bias,
     const float* norm_out_scale, const float* norm_out_bias, float* dr, float* dd,
-    float* partial, float* grads, int n_rows, int channels, int hidden, int n_blocks,
-    int outer_residual, void* stream) {
-  if (channels != C || hidden <= 0 || hidden % HC != 0 || n_rows < 0 || n_blocks <= 0) {
+    float* scratch, float* grads, int n_rows, int channels, int hidden, int tile_rows,
+    int split_rows, int outer_residual, void* stream) {
+  if (channels != C || hidden <= 0 || hidden % HC != 0 || n_rows < 0 ||
+      (tile_rows != 32 && tile_rows != 64) || split_rows <= 0 || split_rows % WK != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Layout L(hidden);
-  cudaError_t err = cudaMemsetAsync(
-      partial, 0, static_cast<size_t>(n_blocks) * L.total * sizeof(float), s);
+  const int n_tiles = (n_rows + tile_rows / 2 - 1) / (tile_rows / 2);
+  const int R = n_tiles * tile_rows;
+  const int n_split = R > 0 ? (R + split_rows - 1) / split_rows : 1;
+  const int n_out = 2 * (hidden / HC) + 1;
+  float* wt = scratch;
+  float* p = wt + 2 * hidden * C + C * C;
+  float* dz = p + static_cast<size_t>(R) * hidden;
+  float* dm = dz + static_cast<size_t>(R) * hidden;
+  float* u = dm + static_cast<size_t>(R) * C;
+  float* dx = u + static_cast<size_t>(R) * C;
+  float* h1s = dx + static_cast<size_t>(R) * C;
+  float* cs = h1s + static_cast<size_t>(R) * C;
+  float* partial = cs + static_cast<size_t>(n_tiles) * 2 * (8 * C + hidden);
+
+  transpose_weights_kernel<<<(2 * hidden * C + C * C) / 1024, 256, 0, s>>>(wvp, mlp1_weight,
+                                                                          mlp2_weight, wt, hidden);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (n_rows > 0) {
-    const int smem = SMEM_FLOATS * static_cast<int>(sizeof(float));
-    err = cudaFuncSetAttribute(fuser_tail_bwd_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const BwdArgs a{r, d, g, norm1_scale, norm1_bias, wvp, proj_bias, norm2_scale,
-                    norm2_bias, mlp1_weight, mlp1_bias, mlp2_weight, mlp2_bias,
-                    norm_out_scale, norm_out_bias, dr, dd, partial, n_rows, hidden,
-                    outer_residual != 0};
-    fuser_tail_bwd_kernel<<<n_blocks, NT, smem, s>>>(a);
-    err = cudaGetLastError();
+  if (n_tiles > 0) {
+    const BwdArgs a{r, d, g, norm1_scale, norm1_bias, wvp, proj_bias, norm2_scale, norm2_bias,
+                    mlp1_weight, mlp1_bias, mlp2_weight, mlp2_bias, norm_out_scale, norm_out_bias,
+                    wt, wt + hidden * C, wt + 2 * hidden * C, dr, dd, p, dz, dm, u,
+                    dx, h1s, cs, n_rows, hidden};
+    if (tile_rows == 64) {
+      err = outer_residual ? launch_rows<true, 64>(a, n_tiles, s)
+                           : launch_rows<false, 64>(a, n_tiles, s);
+    } else {
+      err = outer_residual ? launch_rows<true, 32>(a, n_tiles, s)
+                           : launch_rows<false, 32>(a, n_tiles, s);
+    }
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  sum_partials_kernel<<<(L.total + 255) / 256, 256, 0, s>>>(partial, n_blocks, L.total, grads);
+  err = cudaFuncSetAttribute(fuser_tail_wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             WGRAD_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const WgradArgs w{p, dz, dm, u, dx, h1s, partial, R, split_rows, hidden};
+  fuser_tail_wgrad_kernel<<<dim3(n_split, n_out), NT, WGRAD_SMEM, s>>>(w);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int sum_blocks = (C * C + 2 * hidden * C + 255) / 256 + (8 * C + hidden) / 32;
+  fuser_tail_bwd_sum_kernel<<<sum_blocks, 256, 0, s>>>(cs, n_tiles, partial, n_split, hidden,
+                                                       grads);
   return static_cast<int>(cudaGetLastError());
 }

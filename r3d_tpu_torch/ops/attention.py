@@ -25,20 +25,19 @@ plain versions share: K3 and K4 round the normalised weights (after
 dropout) to V's type before the product with V and write the output in q's
 type; K5 computes in fp32 and rounds dq, dk and dv to the inputs' type once.
 
-Every body but fp32 K4's splits the keys of a (batch, head) across blocks
-that run at once. fp32 K3 and K5 (the utkinects decoder: Lq = 8, Lk = 256
-or 512, D = 16) split them into runs of ``fp32_split_keys`` (8 of 64 at Lk
-= 512), the runs of one (batch*head, query tile) a thread-block cluster
-that combines its statistics through distributed shared memory in rank
-order, in one launch: K3 as flash-decoding (each run's (m, l, acc), then
-the output normalised once), K5 by combining each query's (m, l, D) before
-any gradient, each run owning dk, dv and dbias of its keys and the runs'
-dq summed in rank order. The bf16 forwards split the keys into runs of
-``fwd_split_keys`` the same way: they combine their softmax statistics
-before any weight is rounded, then their partial outputs, in a fixed order,
-in one launch. K5's bf16 body splits the keys into blocks of 64 that own dk
-and dv, in three launches. fp32 K4 (epoch 0 only) runs one block per
-(batch*head, tile of 8 queries) with an online softmax.
+Every body splits the keys of a (batch, head) across blocks that run at
+once. fp32 K3, K4 and K5 (the utkinects decoder: Lq = 8, Lk = 256 or 512,
+D = 16) split them into runs of ``fp32_split_keys`` (8 of 64 at Lk = 512),
+the runs of one (batch*head, query tile) a thread-block cluster that
+combines its statistics through distributed shared memory in rank order,
+in one launch: K3 and K4 as flash-decoding (each run's (m, l, acc), K4's
+acc over the kept weights scaled 1/(1-p), then the output normalised once),
+K5 by combining each query's (m, l, D) before any gradient, each run owning
+dk, dv and dbias of its keys and the runs' dq summed in rank order. The
+bf16 forwards split the keys into runs of ``fwd_split_keys`` the same way:
+they combine their softmax statistics before any weight is rounded, then
+their partial outputs, in a fixed order, in one launch. K5's bf16 body
+splits the keys into blocks of 64 that own dk and dv, in three launches.
 """
 
 from __future__ import annotations
@@ -54,9 +53,9 @@ KERNEL = Kernel(   # (B, H, Lq, Lk, D, split keys)
     "flash_attention", "attention.cu", "r3d_attention_fwd",
     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p],
 )
-DROPOUT_KERNEL = Kernel(   # (B, H, Lq, Lk, D): one block per (batch*head, 8 queries)
+DROPOUT_KERNEL = Kernel(   # (B, H, Lq, Lk, D, split keys)
     "flash_attention_dropout", "attention.cu", "r3d_attention_fwd_dropout",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
     + [ctypes.c_float, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p],
 )
 BWD_KERNEL = Kernel(   # (B, H, Lq, Lk, D, split keys)
@@ -67,9 +66,9 @@ BWD_KERNEL = Kernel(   # (B, H, Lq, Lk, D, split keys)
 )
 KERNEL_BF16 = Kernel(
     "flash_attention_bf16", "attention.cu", "r3d_attention_fwd_bf16", KERNEL.argtypes)
-DROPOUT_KERNEL_BF16 = Kernel(   # one more int, the split size, after D
+DROPOUT_KERNEL_BF16 = Kernel(
     "flash_attention_dropout_bf16", "attention.cu", "r3d_attention_fwd_dropout_bf16",
-    DROPOUT_KERNEL.argtypes[:10] + [ctypes.c_int] + DROPOUT_KERNEL.argtypes[10:])
+    DROPOUT_KERNEL.argtypes)
 BWD_KERNEL_BF16 = Kernel(   # two more pointers (its scratch); the key-block count
     "attention_bwd_bf16", "attention_bwd.cu", "r3d_attention_bwd_bf16",
     [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + BWD_KERNEL.argtypes[15:],
@@ -82,7 +81,7 @@ KERNEL_HEAD_DIMS = (16, 32, 64)   # csrc/attention*.cu: instantiated D
 BWD_BLOCK_KEYS = 64               # csrc/attention_bwd.cu: KB, keys per block of the bf16 body
 FWD_SPLIT_UNIT = 128              # csrc/attention.cu: NW * KT, one tile of keys per warp
 FWD_MAX_SPLITS = 8                # csrc/attention*.cu: MAX_SPLITS, blocks per cluster
-FP32_SPLIT_UNIT = 64              # csrc/attention*.cu: F_KT, a tile of the fp32 K3/K5 bodies
+FP32_SPLIT_UNIT = 64              # csrc/attention*.cu: F_KT, a tile of the fp32 K3-K5 bodies
 FP32_QUERY_TILE = 8               # csrc/attention*.cu: F_QT, queries a block takes at a time
 
 _U32 = 0xFFFFFFFF
@@ -137,7 +136,7 @@ def fwd_split_keys(Lk: int) -> int:
 
 
 def fp32_split_keys(Lk: int) -> int:
-    """Keys per block of the fp32 K3 and K5: as many splits of one tile (64
+    """Keys per block of the fp32 K3, K4 and K5: as many splits of one tile (64
     keys, one a thread) as cover Lk, up to 8 (a cluster's blocks); past 512
     keys each split grows by whole tiles. 8 splits of 64 at Lk = 512."""
     n = min(FWD_MAX_SPLITS, -(-Lk // FP32_SPLIT_UNIT))
@@ -226,13 +225,10 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _fwd_shape(fn, q, k, v, bias, split=True):
+def _fwd_shape(fn, q, k, v, bias):
     """The shape arguments of the forward launchers, checked: (B, H, Lq, Lk,
-    D) and, for the split bodies (16-byte copies; every one but fp32 K4's,
-    ``split`` False), the split size."""
+    D) and the split size (the split bodies copy 16 bytes at a time)."""
     shape = _check(fn, q, k, v, bias)
-    if not split and q.dtype == torch.float32:
-        return shape
     _check_aligned(fn, q=q, k=k, v=v)
     if shape[0] * shape[1] > 65535:
         raise ValueError(f"{fn}: B*H must be at most 65535 (the grid's z)")
@@ -258,7 +254,7 @@ def _attention_fwd_dropout(q, k, v, bias, seed, scale, rate):
     """K4, or the plain version for CPU tensors."""
     if q.device.type == "cpu":
         return composed_attention_dropout(q, k, v, bias, seed, scale, rate)
-    shape = _fwd_shape("flash_attention_dropout", q, k, v, bias, split=False)
+    shape = _fwd_shape("flash_attention_dropout", q, k, v, bias)
     B, H, Lq, Lk = shape[:4]
     if B * H * Lq * Lk > 2 ** 32:
         raise ValueError("flash_attention_dropout: B*H*Lq*Lk must fit a 32-bit index")

@@ -1,11 +1,18 @@
 """Backward of the SA-Fuser tail: dr, dd and the 12 parameter gradients.
 
 Counterpart of ``r3d_tpu/ops/fuser_kernel_bwd.py`` (``pallas_tail_bwd``).
-``fused_tail_bwd`` launches the kernel of ``csrc/fuser_tail_bwd.cu``, which
-recomputes the forward per tile of rows and sums the parameter gradients
-deterministically: a fixed number of blocks (at most one per SM) each add
-into their own slice of a scratch [G, P], and a second kernel sums the
-slices in order. Both launches count as one launch of the kernel.
+``fused_tail_bwd`` launches the kernels of ``csrc/fuser_tail_bwd.cu`` in
+two phases, every product on 3xTF32 tensor cores. A row phase, one block
+per tile of ``tile_rows`` token rows, recomputes the forward (the
+up-projection once), runs the backward to dr and dd, and leaves the
+operands of the weight gradients in a scratch of token rows and each
+tile's column sums (the vector gradients) in a row of their own. A
+weight-gradient phase computes dW2, dW1 and dWvp as 128 x 128 output tiles
+times splits of ``split_rows`` rows, and an ordered pass sums the splits'
+partials and the tiles' column sums in order, so two calls agree bit for
+bit. ``bwd_plan`` sizes both phases for the card; the scratch (about 60 MB
+at N = 8 x 512) comes from torch's caching allocator. The call's four
+launches (with the weights' transpose) count as one launch of the kernel.
 
 ``composed_tail_bwd`` is the plain version: ``torch.autograd.grad`` through
 ``composed_tail``, independent of the kernel's hand derivation (the JAX
@@ -16,7 +23,7 @@ only; for a CUDA tensor it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -25,9 +32,43 @@ from r3d_tpu_torch.ops.fuser_kernel import FuserTailParams, check_kernel_inputs,
 
 KERNEL = Kernel(
     "fused_tail_bwd", "fuser_tail_bwd.cu", "r3d_fuser_tail_bwd",
-    [ctypes.c_void_p] * 19 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 19 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 )
-TILE_ROWS = 16   # csrc/fuser_tail_bwd.cu: TM
+SPLIT_UNIT = 32    # csrc/fuser_tail_bwd.cu: WK, token rows of one chunk of the weight gradients
+OUT_TILE = 128     # csrc/fuser_tail_bwd.cu: C x C, an output tile of the weight gradients
+
+
+class BwdPlan(NamedTuple):
+    """The launch shape of K2 at N rows: token rows a block of the row
+    phase takes (r's and d's), its blocks, the scratch's token rows, rows of
+    a split of the weight-gradient phase and its splits."""
+    tile_rows: int
+    n_tiles: int
+    rows: int
+    split_rows: int
+    n_split: int
+
+
+def bwd_plan(N: int, Ch: int, sms: int) -> BwdPlan:
+    """64 token rows a block where that still gives nine SMs in ten a block
+    (as K1, ``csrc/fuser_tail.cu:tile_rows``), else 32; the weight gradients'
+    2 Ch/128 + 1 output tiles times as many splits of whole 32-row chunks as
+    fill the card's SMs once (14 splits of 608 rows at N = 8 x 512)."""
+    T = 64 if 10 * -(-N // 32) >= 9 * sms else 32
+    n_tiles = -(-N // (T // 2))
+    R = n_tiles * T
+    target = max(1, sms // (2 * Ch // OUT_TILE + 1))
+    split_rows = SPLIT_UNIT * max(1, -(-R // (SPLIT_UNIT * target)))
+    return BwdPlan(T, n_tiles, R, split_rows, -(-R // split_rows) if R else 1)
+
+
+def scratch_floats(C: int, Ch: int, plan: BwdPlan) -> int:
+    """Floats of the kernel's scratch (``r3d_fuser_tail_bwd``): the
+    transposed weights, p and dz [R, Ch], dm, u, dx and the swapped h1
+    [R, C], the column sums [tiles, 2 halves, 8C + Ch], the partials
+    [splits, out tiles, C, C]."""
+    return (2 * Ch * C + C * C + plan.rows * (2 * Ch + 4 * C) + plan.n_tiles * 2 * (8 * C + Ch)
+            + plan.n_split * (2 * Ch // OUT_TILE + 1) * OUT_TILE * OUT_TILE)
 
 
 def composed_tail_bwd(r, d, g, params: FuserTailParams, outer_residual: bool
@@ -64,17 +105,15 @@ def fused_tail_bwd(r: torch.Tensor, d: torch.Tensor, g: torch.Tensor,
         return composed_tail_bwd(r, d, g, params, outer_residual)
     N, C, Ch = check_kernel_inputs("fused_tail_bwd", {"r": r, "d": d, "g": g}, params)
     layout, P = grad_layout(C, Ch)
-    n_tiles = -(-N // TILE_ROWS)
-    sms = torch.cuda.get_device_properties(r.device).multi_processor_count
-    n_blocks = max(1, min(n_tiles, sms))
+    plan = bwd_plan(N, Ch, torch.cuda.get_device_properties(r.device).multi_processor_count)
     dr = torch.empty_like(r)
     dd = torch.empty_like(d)
-    partial = torch.empty(n_blocks * P, dtype=torch.float32, device=r.device)
+    scratch = torch.empty(scratch_floats(C, Ch, plan), dtype=torch.float32, device=r.device)
     flat = torch.empty(P, dtype=torch.float32, device=r.device)
     KERNEL.launch(
         r.data_ptr(), d.data_ptr(), g.data_ptr(), *(t.data_ptr() for t in params),
-        dr.data_ptr(), dd.data_ptr(), partial.data_ptr(), flat.data_ptr(),
-        N, C, Ch, n_blocks, int(outer_residual),
+        dr.data_ptr(), dd.data_ptr(), scratch.data_ptr(), flat.data_ptr(),
+        N, C, Ch, plan.tile_rows, plan.split_rows, int(outer_residual),
         torch.cuda.current_stream(r.device).cuda_stream,
     )
     grads = FuserTailParams(*(flat[off:off + torch.Size(s).numel()].view(s)

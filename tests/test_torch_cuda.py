@@ -21,9 +21,11 @@ key, less than a block, one key past a block, and blocks whose keys are all
 masked. K7 in bf16 splits the keys as K6 does and sums the splits' dq in
 split order: the same holds for it, and for K3 and K5 in fp32, which split
 the keys into runs of 64 (or whole tiles of 64 past 512 keys) whose blocks
-combine through distributed shared memory in rank order, one launch a call. K1 runs its three products as 3xTF32
-on the tensor cores over a fixed order of weight chunks: two calls agree
-bit for bit too.
+combine through distributed shared memory in rank order, one launch a call;
+fp32 K4 is K3's body with dropout. K1 runs its three products as 3xTF32 on
+the tensor cores over a fixed order of weight chunks, and K2 its products
+too, with its column sums and split partials summed in order: two calls
+agree bit for bit for both.
 """
 
 import math
@@ -119,9 +121,9 @@ def test_attention_fp32_kernels_are_deterministic(cuda, Lq, Lk):
 
 @pytest.mark.parametrize("Lk", [256, 512])
 def test_attention_fp32_calls_are_one_launch_each(cuda, Lk):
-    """One fp32 K3 call and one fp32 K5 call on the card, at the utkinects
-    decoder's shape, are one launch each of its own kernel, and nothing else
-    (no memset of dk and dv)."""
+    """One fp32 K3, K4 or K5 call on the card, at the utkinects decoder's
+    shape, is one launch of its own kernel, and nothing else (no memset of
+    dk and dv)."""
     from chip_smoke import own_launches_per_call
 
     gen = torch.Generator().manual_seed(Lk)
@@ -129,6 +131,8 @@ def test_attention_fp32_calls_are_one_launch_each(cuda, Lk):
     g = torch.randn(q.shape, generator=gen).to(cuda)
     own_launches_per_call(lambda: att.flash_attention(q, k, v, bias, 0.25),
                           ("attention_fwd_cluster_kernel",), 1, "K3 fp32")
+    own_launches_per_call(lambda: att.flash_attention_dropout(q, k, v, bias, 3, 0.25, 0.1),
+                          ("attention_fwd_cluster_kernel",), 1, "K4 fp32")
     for rate in (0.0, 0.1):
         own_launches_per_call(lambda: att.attention_bwd(q, k, v, bias, 3, 0.25, rate, g),
                               ("attention_bwd_cluster_kernel",), 1, "K5 fp32")
@@ -198,7 +202,7 @@ def test_fused_tail_kernel_is_deterministic(cuda, N):
 
 
 @pytest.mark.parametrize("outer", [False, True], ids=["plain-tail", "outer-residual"])
-@pytest.mark.parametrize("N", [1, 16, 2053, 4096])
+@pytest.mark.parametrize("N", [1, 16, 2053, 2048, 4096, 16000])
 def test_fused_tail_bwd_kernel_matches_plain(cuda, N, outer):
     from r3d_tpu_torch.ops import fuser_kernel_bwd as fkb
 
@@ -216,18 +220,53 @@ def test_fused_tail_bwd_kernel_matches_plain(cuda, N, outer):
         _close(a, b, 1e-4, name)
 
 
-@pytest.mark.parametrize("Lk", [1, 31, 256, 300, 512])
+@pytest.mark.parametrize("N", [1, 16, 2053, 2048, 4096, 8192, 16000])
+def test_fused_tail_bwd_kernel_is_deterministic(cuda, N):
+    """K2 sums its tiles' column sums and its splits' partials in a fixed
+    order: two calls agree bit for bit, the outer residual off and on."""
+    from r3d_tpu_torch.ops import fuser_kernel_bwd as fkb
+
+    gen = torch.Generator().manual_seed(N + 5)
+    r, d, _, params = fuser_inputs(N, gen, cuda)
+    g = torch.randn(N, 128, generator=gen).to(cuda)
+    for outer in (False, True):
+        first = fkb.fused_tail_bwd(r, d, g, params, outer)
+        again = fkb.fused_tail_bwd(r, d, g, params, outer)
+        for a, b in zip((first[0], first[1], *first[2]), (again[0], again[1], *again[2])):
+            assert torch.equal(a, b)
+
+
+def test_fused_tail_bwd_call_is_its_own_four_launches(cuda):
+    """One K2 call at N = 8 x 512 is the weights' transpose, the row phase,
+    the weight gradients and the ordered sum, and nothing else (no memset)."""
+    from chip_smoke import own_launches_per_call
+    from r3d_tpu_torch.ops import fuser_kernel_bwd as fkb
+
+    gen = torch.Generator().manual_seed(9)
+    r, d, _, params = fuser_inputs(4096, gen, cuda)
+    g = torch.randn(4096, 128, generator=gen).to(cuda)
+    own_launches_per_call(lambda: fkb.fused_tail_bwd(r, d, g, params),
+                          ("transpose_weights_kernel", "fuser_tail_bwd_rows_kernel",
+                           "fuser_tail_wgrad_kernel", "fuser_tail_bwd_sum_kernel"), 4, "K2")
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("Lq", [8, 33, 70])
+@pytest.mark.parametrize("Lk", [1, 31, 65, 256, 300, 512, 1100])
 @pytest.mark.parametrize("D", [16, 32, 64])
-def test_attention_dropout_kernel_matches_plain(cuda, Lk, D):
-    gen = torch.Generator().manual_seed(Lk * D)
-    q, k, v, bias = attention_inputs(8, 8, 8, Lk, D, gen, cuda, all_masked_row=Lk > 1)
+def test_attention_dropout_kernel_matches_plain(cuda, Lk, D, Lq, rate):
+    """fp32 K4 (the cluster body with dropout): one launch, two calls bit
+    for bit, within 2e-5 of the plain version, with a fully masked row."""
+    gen = torch.Generator().manual_seed(Lk * D + Lq)
+    q, k, v, bias = attention_inputs(8, 8, Lq, Lk, D, gen, cuda, all_masked_row=Lk > 1)
     scale = 1.0 / math.sqrt(D)
     before = att.DROPOUT_KERNEL.launches
-    got = att.flash_attention_dropout(q, k, v, bias, 1234 + Lk, scale, 0.1)
+    got = att.flash_attention_dropout(q, k, v, bias, 1234 + Lk, scale, rate)
     torch.cuda.synchronize()
     assert att.DROPOUT_KERNEL.launches == before + 1
-    want = att.composed_attention_dropout(q, k, v, bias, 1234 + Lk, scale, 0.1)
+    want = att.composed_attention_dropout(q, k, v, bias, 1234 + Lk, scale, rate)
     torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+    assert torch.equal(got, att.flash_attention_dropout(q, k, v, bias, 1234 + Lk, scale, rate))
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])

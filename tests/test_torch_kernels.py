@@ -23,8 +23,12 @@ the normalised weights are rounded, the runs' partials summed in order),
 and so are those of K3's and K5's fp32 kernels (keys split into runs of
 ``fp32_split_keys`` walked in tiles of 64 with an online softmax, the runs'
 statistics combined in rank order: K3's partial outputs flash-decoding
-style, K5's (m, l, D) before any gradient, each run owning dk, dv and dbias
-of its keys, the runs' dq summed in rank order), within 2e-6.
+style, K4's the same with the keep mask in the partial outputs only, K5's
+(m, l, D) before any gradient, each run owning dk, dv and dbias of its
+keys, the runs' dq summed in rank order), within 2e-6. K1's and K2's
+3xTF32 products are emulated too, K2 with its two phases (the row phase's
+tiles, the weight gradients' splits): within 1e-4 of the plain versions,
+where one TF32 pass is not.
 """
 
 import types
@@ -495,12 +499,14 @@ def _online_tile(state, st, *terms):
     return (m_new, l * corr + p.sum(-1), *(scaled(x) + f(p) for x, f in zip(sums, terms)))
 
 
-def _cluster_forward(q, k, v, bias, scale):
+def _cluster_forward(q, k, v, bias, scale, keep=None):
     """K3 in fp32 as its cluster kernel computes it: the keys split into runs
     of ``fp32_split_keys`` (one block each), each block walking its run in
     tiles of 64 keys with an online softmax (m_i, l_i, acc_i), then the
     blocks' statistics and partials combined in rank order, flash-decoding
-    style, and the output normalised once."""
+    style, and the output normalised once. With ``keep`` (the scaled keep
+    mask) K4: acc_i sums the kept weights times the keep factor, l_i every
+    weight."""
     Lk = k.shape[2]
     SK, KT = pt_attn.fp32_split_keys(Lk), pt_attn.FP32_SPLIT_UNIT
     s = pt_attn._scores(q, k, bias, scale)
@@ -510,8 +516,9 @@ def _cluster_forward(q, k, v, bias, scale):
         state = (torch.full_like(zero, -torch.inf), zero, torch.zeros(q.shape))
         for t0 in range(j0, min(j0 + SK, Lk), KT):
             sl = slice(t0, min(t0 + KT, Lk))
-            state = _online_tile(state, s[..., sl],
-                                 lambda p: torch.einsum("bhqk,bhkd->bhqd", p, v[:, :, sl]))
+            kept = (lambda p: p) if keep is None else (lambda p, sl=sl: p * keep[..., sl])
+            state = _online_tile(state, s[..., sl], lambda p, sl=sl, kept=kept: torch.einsum(
+                "bhqk,bhkd->bhqd", kept(p), v[:, :, sl]))
         parts.append(state)
     _, l, acc = _in_order(parts, zero)
     return torch.where(l[..., None] > 0, acc / l[..., None], 0.0)
@@ -582,6 +589,23 @@ def test_cluster_attention_forward_matches_plain(Lk, pad_from, Lq):
                                                                     pad_from))
     got = _cluster_forward(q, k, v, bias, 0.25)
     want = pt_attn.composed_attention(q, k, v, bias, 0.25)
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= 2e-6 * max(1.0, float(want.abs().max()))
+
+
+@pytest.mark.parametrize("Lq", [8, 20])
+@pytest.mark.parametrize("Lk,pad_from", CLUSTER_CASES)
+def test_cluster_attention_dropout_forward_matches_plain(Lk, pad_from, Lq):
+    """fp32 K4 as the cluster kernel computes it (K3's algorithm with the
+    keep mask folded into each block's acc_i, not into l_i) against the
+    plain dropout forward at p = 0.1."""
+    rng = np.random.RandomState(Lk + 7 * Lq)
+    q, k, v, bias = (torch.from_numpy(x) for x in _attention_inputs(rng, 3, 4, Lq, Lk, 16,
+                                                                    pad_from))
+    seed = 17 + Lk
+    keep = pt_attn.dropout_keep(seed, 0.1, (3, 4, Lq, Lk), "cpu")
+    got = _cluster_forward(q, k, v, bias, 0.25, keep)
+    want = pt_attn.composed_attention_dropout(q, k, v, bias, seed, 0.25, 0.1)
     assert torch.isfinite(got).all()
     assert float((got - want).abs().max()) <= 2e-6 * max(1.0, float(want.abs().max()))
 
@@ -685,3 +709,105 @@ def test_3xtf32_products_hold_k1_tol_and_one_tf32_pass_does_not(blend, outer, mo
     want = tail(F.linear)
     err3, err1 = (float((tail(_tf32_linear(n)) - want).abs().max()) for n in (3, 1))
     assert err3 <= K1_TOL < err1, (err3, err1)
+
+
+# ---- the two-phase algorithm of K2's CUDA kernels, emulated ----
+
+K2_TOL = 1e-4   # chip_smoke.py: K2 against its plain version, relative to each gradient's largest
+
+
+def _ln_fwd(x):
+    """xhat and 1/std of fp32 LayerNorm rows (biased variance, eps 1e-5)."""
+    mu = x.mean(-1, keepdim=True)
+    rstd = torch.rsqrt(((x - mu) ** 2).mean(-1, keepdim=True) + 1e-5)
+    return (x - mu) * rstd, rstd
+
+
+def _ln_bwd(gy, xhat, rstd, scale):
+    gh = gy * scale
+    return rstd * (gh - gh.mean(-1, keepdim=True) - xhat * (gh * xhat).mean(-1, keepdim=True))
+
+
+def _two_phase_tail_bwd(r, d, g, p, outer, linear, sms=132):
+    """K2 as its kernels compute it on a card of ``sms`` SMs: the token rows
+    in the row phase's order (per tile of ``bwd_plan``'s tile rows, the
+    tile's r rows, then its d rows, zero rows past N), every product of the
+    row phase through ``linear`` (the forward recomputed with the
+    up-projection once, the backward to dr and dd), the column sums of each
+    half of a tile summed in tile order, and the weight gradients as
+    products over splits of ``split_rows`` token rows (through ``linear``
+    too) summed in split order. Returns (dr, dd, FuserTailParams of
+    gradients)."""
+    N, C = r.shape
+    plan = pt_fkb.bwd_plan(N, p.mlp1_weight.shape[0], sms)
+    n, TM = plan.n_tiles, plan.tile_rows // 2
+    pad = lambda x: F.pad(x, (0, 0, 0, n * TM - N))
+    tok = lambda a, b: torch.stack([pad(a).view(n, TM, -1), pad(b).view(n, TM, -1)], 1).reshape(
+        plan.rows, -1)
+    swap = lambda x: x.view(n, 2, TM, -1).flip(1).reshape(x.shape)
+    x_in = tok(r, d)
+    xh1, rstd1 = _ln_fwd(x_in)
+    h1 = xh1 * p.norm1_scale + p.norm1_bias
+    x = x_in + linear(swap(h1), p.wvp) + p.proj_bias
+    xh2, rstd2 = _ln_fwd(x)
+    u = xh2 * p.norm2_scale + p.norm2_bias
+    z = linear(u, p.mlp1_weight) + p.mlp1_bias
+    cdf = 0.5 * (1.0 + torch.erf(z * 0.7071067811865476))
+    gelu, dgelu = z * cdf, cdf + z * torch.exp(-0.5 * z * z) * 0.3989422804014327
+    y = x + (linear(gelu, p.mlp2_weight) + p.mlp2_bias)
+    if outer:
+        y = y + x_in
+    xho, rstdo = _ln_fwd(y)
+    gh = 0.5 * tok(g, g)
+    dm = _ln_bwd(gh, xho, rstdo, p.norm_out_scale)
+    dz = linear(dm, p.mlp2_weight.t()) * dgelu
+    du = linear(dz, p.mlp1_weight.t())
+    dx = dm + _ln_bwd(du, xh2, rstd2, p.norm2_scale)
+    dh = linear(swap(dx), p.wvp.t())
+    drd = dx + _ln_bwd(dh, xh1, rstd1, p.norm1_scale) + (dm if outer else 0.0)
+    drd = drd.view(n, 2, TM, C)
+
+    def tiles_in_order(x):   # each half of each tile, in order
+        total = torch.zeros(x.shape[-1])
+        for part in x.view(2 * n, TM, -1).sum(1):
+            total = total + part
+        return total
+
+    def splits_in_order(X, Y):
+        total = 0.0
+        for i in range(0, plan.rows, plan.split_rows):
+            total = total + linear(X[i:i + plan.split_rows].t(), Y[i:i + plan.split_rows].t())
+        return total
+
+    grads = pt_fk.FuserTailParams(
+        norm1_scale=tiles_in_order(dh * xh1), norm1_bias=tiles_in_order(dh),
+        wvp=splits_in_order(dx, swap(h1)), proj_bias=tiles_in_order(dx),
+        norm2_scale=tiles_in_order(du * xh2), norm2_bias=tiles_in_order(du),
+        mlp1_weight=splits_in_order(dz, u), mlp1_bias=tiles_in_order(dz),
+        mlp2_weight=splits_in_order(dm, gelu), mlp2_bias=tiles_in_order(dm),
+        norm_out_scale=tiles_in_order(gh * xho), norm_out_bias=tiles_in_order(gh))
+    return drd[:, 0].reshape(n * TM, C)[:N], drd[:, 1].reshape(n * TM, C)[:N], grads
+
+
+@pytest.mark.parametrize("outer", [False, True], ids=["no-outer", "outer-residual"])
+@pytest.mark.parametrize("N", [8 * 256, 8 * 256 + 5], ids=["bucket-256", "ragged"])
+def test_two_phase_k2_holds_k2_tol_and_one_tf32_pass_does_not(N, outer):
+    """K2's two-phase algorithm, emulated at the utkinects widths (C 128,
+    Ch 512) on the card check's inputs (``chip_smoke.fuser_inputs``): with
+    every product as 3xTF32 it stays within K2_TOL of the plain backward
+    (dr, dd and each gradient, relative to its largest entry); with one TF32
+    pass it does not. So the kernel pays three products for each, as K1."""
+    from chip_smoke import fuser_inputs
+
+    gen = torch.Generator().manual_seed(11 + N + outer)
+    r, d, _, params = fuser_inputs(N, gen, "cpu")
+    g = torch.randn(N, 128, generator=gen)
+    wr, wd, wp = pt_fkb.composed_tail_bwd(r, d, g, params, outer)
+
+    def worst(passes):
+        got = _two_phase_tail_bwd(r, d, g, params, outer, _tf32_linear(passes))
+        return max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+                   for a, b in zip((got[0], got[1], *got[2]), (wr, wd, *wp)))
+
+    err3, err1 = worst(3), worst(1)
+    assert err3 <= K2_TOL < err1, (err3, err1)
