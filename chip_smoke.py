@@ -32,7 +32,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    Time each at the main path's shape: kernel, plain version, bound and,
    where one exists, one PyTorch library call as the yardstick; K6 and K7
    also in fp32 at the utkinects 1024 and 2000 buckets' shape, where
-   ``R3D_CROSS_NATIVE=1`` would send them;
+   ``R3D_CROSS_NATIVE=1`` sends them, held to their plain versions there,
+   each audited as one launch a call, with how many of their clusters fit
+   the card at once, and their device time in 6 turns with the SM clock;
 4. utkinects serving: an ``InferenceSession`` at full width (n_class 17,
    max_batch 8) from the port's seeded init; every launch count set to 0,
    requests through ``ServingQueue`` in the 256, 512 and 1024 buckets, the
@@ -45,7 +47,17 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    (sticky eval) the blend tail, attention and the attention backward. The
    parts of one train step, and one dropout-off step on the card against
    the CPU (loss, every gradient, BN statistics);
-6. 50salads (FUTR, bf16, ``R3D_CROSS_NATIVE=1``) at full width (hidden 512,
+6. utkinects with ``R3D_CROSS_NATIVE=1`` (restored after): requests in the
+   1024 and 2000 buckets, where every cross-attention call must be an fp32
+   K6 launch; the card's logits against the CPU's in the 2000 bucket;
+   ``fit`` of 2 epochs (one 1024- and one 2000-bucket batch of 8) with
+   validation, where every cross-attention call must be a K6 launch, epoch
+   0 must launch K6 and K7 with dropout (their kernels' names in a profiler
+   trace of it), and epoch 1 K6 and K7; one
+   dropout-off 1024-bucket step on the card against the CPU; the parts of a
+   2000-bucket train step; an interleaved A/B of a 2000-bucket train step
+   and serving chunk with ``R3D_CROSS_NATIVE`` set and unset;
+7. 50salads (FUTR, bf16, ``R3D_CROSS_NATIVE=1``) at full width (hidden 512,
    8 heads, 2 decoder layers, 20 queries, n_class 20): requests in the 256,
    512, 1024 and 3100 buckets, where the counts must show K3 at 256/512 and
    K6 at 1024/3100; the parts of a 512- and a 3100-bucket chunk; the card's
@@ -55,7 +67,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    card against the CPU; the parts of a train step; and an interleaved A/B
    of a 3100-bucket train step and serving chunk with ``R3D_CROSS_NATIVE``
    set and unset;
-7. print one ``{"kernels": [...]}`` line and, as the last line,
+8. print one ``{"kernels": [...]}`` line and, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX. Exits non-zero and prints no result where CUDA is
@@ -101,11 +113,10 @@ BF16_TOL = 2e-2          # bf16 kernels vs their plain versions, over the larges
 # every __global__ function of r3d_tpu_torch/csrc, by a fragment of its name
 OWN_KERNELS = ("fuser_tail_tf32_kernel", "transpose_weights_kernel", "fuser_tail_bwd_rows_kernel",
                "fuser_tail_wgrad_kernel", "fuser_tail_bwd_sum_kernel",
-               "attention_fwd_kernel", "attention_fwd_cluster_kernel", "attention_fwd_split_kernel",
+               "attention_fwd_cluster_kernel", "attention_fwd_split_kernel",
                "attention_bwd_cluster_kernel", "attention_bwd_bf16_kernel",
                "dq_sum_kernel", "cross_fwd_split_kernel", "cross_fwd_combine_kernel",
-               "cross_attention_bwd_kernel", "dq_reduce_kernel", "cross_bwd_bf16_kernel",
-               "cross_bwd_sum_kernel")
+               "cross_bwd_bf16_kernel", "cross_bwd_sum_kernel")
 
 
 def fuser_inputs(N, gen, device, C=128, Ch=512):
@@ -298,6 +309,39 @@ def library_times(fn, iters=50):
     device time from the profiler."""
     return {"library_ms": time_ms(fn, iters=iters),
             "library_device_ms": device_ms(fn, None, iters=min(iters, 20))}
+
+
+def busy_clock(fn):
+    """The card's SM clock and power draw (``nvidia-smi``) read while
+    back-to-back calls of ``fn`` keep it busy, as one string."""
+    import subprocess
+
+    import torch
+
+    smi = subprocess.Popen(["nvidia-smi", "-i", "0", "--query-gpu=clocks.sm,power.draw",
+                            "--format=csv,noheader"], stdout=subprocess.PIPE,
+                           stderr=subprocess.DEVNULL, text=True)
+    while smi.poll() is None:
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+    return smi.stdout.read().strip().replace(", ", " ") or "not read"
+
+
+FP32_CROSS_TURNS = 6
+
+
+def device_turns(fn, names, turns=FP32_CROSS_TURNS):
+    """``device_ms`` of ``fn`` in ``turns`` turns, each followed by the SM
+    clock and power read while ``fn`` runs (``busy_clock``): the median
+    ("device_ms"), the least ("device_min_ms") and every (ms, clock) turn.
+    A turn whose trace held no device events is left out of the median and
+    the least."""
+    readings = [(device_ms(fn, names), busy_clock(fn)) for _ in range(turns)]
+    ms = [t for t, _ in readings if t is not None]
+    return {"device_ms": float(np.median(ms)) if ms else None,
+            "device_min_ms": min(ms) if ms else None,
+            "turns": [(float("nan") if t is None else t, c) for t, c in readings]}
 
 
 def raw_launcher(kernel, *args):
@@ -686,26 +730,30 @@ def own_launches_per_call(fn, fragments, per_call, label, calls=5):
     or whole calls, trace after trace), so each trace runs ``calls``
     uncounted calls first and counts what started on the card after the
     counted calls began (a ``record_function`` range opened after a
-    synchronise). A trace short of an event is taken again (three times at
+    synchronise). The card's timestamps are mapped onto the host's clock,
+    and that mapping need not be exact, so the two groups of calls run 10 ms
+    apart and the count starts halfway between them. A trace short of an event is taken again (three times at
     most); a foreign kernel or one launch too many fails at once."""
     import collections
 
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    gap_us = 10_000
     on_card = {}
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(gap_us / 1e6)
             with record_function("counted calls"):
                 for _ in range(calls):
                     fn()
                 torch.cuda.synchronize()
         events = prof.events()
         start = next(e.time_range.start for e in events if e.name == "counted calls"
-                     and e.device_type == torch.autograd.DeviceType.CPU)
+                     and e.device_type == torch.autograd.DeviceType.CPU) - gap_us / 2
         on_card = dict(collections.Counter(
             e.name for e in events
             if e.device_type == torch.autograd.DeviceType.CUDA
@@ -890,7 +938,9 @@ def check_cross_attention_kernels(gen, device):
     seed agreeing with the plain backward, which redraws the plain forward's
     mask). One bf16 K7 call audited as its two launches. Timed at the
     50salads shape: B = 8, Lq = 20, S = 3100, C = 512, bf16; and in fp32 at
-    the utkinects shape (B = 8, Lq = 8, C = 128, S = 1,024 and 2,000).
+    the utkinects shape (B = 8, Lq = 8, C = 128, S = 1,024 and 2,000), where
+    they are also held to their plain versions and audited as one launch a
+    call (``time_cross_fp32``).
     Returns (worst error, timing) of K6 and K7 in bf16, then in fp32 (timed
     at S = 2,000)."""
     import ctypes
@@ -1065,49 +1115,100 @@ def cross_library(q, k, v, bias, g, H, scale):
     return library, library_bwd
 
 
+def cross_fp32_kernel_names(D):
+    """What the profiler's names of fp32 K6's and K7's kernels (head dim D,
+    no dropout) hold: the cluster bodies on the native layout."""
+    return (f"attention_fwd_cluster_kernel<{D}, false, true",
+            f"attention_bwd_cluster_kernel<{D}, false, true")
+
+
+def cross_fp32_clusters(B, H, Lq, S, D, fwd_split, bwd_split):
+    """How many clusters of the fp32 K6 and K7 launches at these sizes the
+    card holds at once (``cudaOccupancyMaxActiveClusters``)."""
+    import ctypes
+
+    from r3d_tpu_torch.ops import cross_attention as ca
+
+    out = [ctypes.c_int(), ctypes.c_int()]
+    err = ca.FWD_KERNEL.query("r3d_cross_attention_fwd_clusters",
+                              [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)])(
+        B, H, Lq, S, D, fwd_split, ctypes.byref(out[0]))
+    err = err or ca.BWD_KERNEL.query("r3d_cross_attention_bwd_clusters",
+                                     [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)])(
+        B, H, S, D, bwd_split, 1, ctypes.byref(out[1]))
+    if err:
+        raise RuntimeError(f"r3d_cross_attention_*_clusters: CUDA error {err}")
+    return out[0].value, out[1].value
+
+
 def time_cross_fp32(gen, device, S, B=8, Lq=8, C=128, H=8):
-    """K6 and K7 in fp32 at the shape ``R3D_CROSS_NATIVE=1`` would give them
-    on the utkinects path (its 1024 and 2000 buckets: B = 8, Lq = 8, C =
-    128, H = 8): events, device time, bound and the library yardsticks.
+    """K6 and K7 in fp32 at the shape ``R3D_CROSS_NATIVE=1`` gives them on
+    the utkinects path (its 1024 and 2000 buckets: B = 8, Lq = 8, C = 128,
+    H = 8): held to their plain versions (rate 0.1), how many of their
+    clusters the card holds at once, events, device time, bound and the
+    library yardsticks. Their device times fall in two modes about 1.8x
+    apart from one turn to the next, so each is read in ``FP32_CROSS_TURNS``
+    turns, with the card's SM clock and power while each turn's kernel keeps
+    it busy: ``device_ms`` is the median, ``device_min_ms`` the least.
     Returns the two timings (K6, K7)."""
     import torch
 
+    from r3d_tpu_torch.ops import attention as att
     from r3d_tpu_torch.ops import cross_attention as ca
 
     D = C // H
     scale = 1.0 / math.sqrt(D)
     q, k, v, bias = cross_inputs(B, Lq, S, C, gen, device, torch.float32)
     g = torch.randn(q.shape, generator=gen).to(device)
-    stream = torch.cuda.current_stream().cuda_stream
+    out, m, l = ca.cross_attention_fwd(q, k, v, bias, 7, scale, 0.1, H)
+    want = ca.composed_cross_attention(q, k, v, bias, 7, scale, 0.1, H)
+    got_b = ca.cross_attention_bwd(q, k, v, bias, 7, scale, 0.1, H, g, out, m, l)
+    e_f = errs([out, m, l], want)
+    e_b = errs(got_b[:3], ca.composed_cross_attention_bwd(q, k, v, bias, 7, scale, 0.1, H, g, out,
+                                                          m, l, False)[:3])
+    fwd_split = bwd_split = att.fp32_split_keys(S)
+    at_once = cross_fp32_clusters(B, H, Lq, S, D, fwd_split, bwd_split)
+    print(f"cross_attention fp32 B={B} Lq={Lq} S={S} C={C} H={H} rate=0.1: out, m, l relative "
+          f"{e_f[1]:.3e} (tol {CROSS_FWD_TOL}); backward {e_b[1]:.3e} (tol {CROSS_BWD_TOL}); K6 "
+          f"{-(-S // fwd_split)} splits of {fwd_split}, {-(-S // fwd_split) * B * H} blocks, "
+          f"{at_once[0]} clusters at once; K7 {-(-S // bwd_split)} splits of {bwd_split}, "
+          f"{at_once[1]} clusters at once (of {B * H})")
+    if not (e_f[1] <= CROSS_FWD_TOL and e_b[1] <= CROSS_BWD_TOL):
+        raise AssertionError(f"fp32 K6/K7 disagree with their plain versions at S={S}")
     out, m, l = ca.cross_attention_fwd(q, k, v, bias, 0, scale, 0.0, H)
     library, library_bwd = cross_library(q, k, v, bias, g, H, scale)
     shape = f"B={B} Lq={Lq} S={S} C={C} H={H} fp32"
+    stream = torch.cuda.current_stream().cuda_stream
+    fwd_name, bwd_name = cross_fp32_kernel_names(D)
     launch = raw_launcher(ca.FWD_KERNEL, 0, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                          bias.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(), None, 0,
-                          B, Lq, S, H, D, scale, 0, 0, 0, 1.0, stream)
+                          bias.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(), None,
+                          fwd_split, B, Lq, S, H, D, scale, 0, 0, 0, 1.0, stream)
     bound, bound_by = cross_bound_ms(B, Lq, S, C, H, 4)
-    t6 = {"shape": shape, "ms": time_ms(launch),
-          "device_ms": device_ms(launch, f"attention_fwd_kernel<{D}, false, true"),
+    t6 = {"shape": shape, "ms": time_ms(launch), **device_turns(launch, fwd_name),
           "plain_ms": time_ms(lambda: ca.composed_cross_attention(q, k, v, bias, 0, scale, 0.0,
                                                                   H)),
           **library_times(library), "bound_ms": bound, "bound_by": bound_by}
-    part = torch.empty(ca.bwd_scratch_shape(S, B, Lq, C, H, ca.BWD_TILE_KEYS, False),
-                       device=device)
+    own_launches_per_call(lambda: ca.cross_attention_fwd(q, k, v, bias, 0, scale, 0.0, H),
+                          (fwd_name,), 1, "K6 fp32 cross_attention")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     launch = raw_launcher(ca.BWD_KERNEL, 0, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           bias.data_ptr(), g.data_ptr(), out.data_ptr(), m.data_ptr(),
-                          l.data_ptr(), part.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                          dv.data_ptr(), None, B, Lq, S, H, D, ca.BWD_TILE_KEYS, scale, 0, 0, 0,
-                          1.0, stream)
+                          l.data_ptr(), None, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), None,
+                          B, Lq, S, H, D, bwd_split, scale, 0, 0, 0, 1.0, stream)
+    own_launches_per_call(
+        lambda: ca.cross_attention_bwd(q, k, v, bias, 0, scale, 0.0, H, g, out, m, l),
+        (bwd_name,), 1, "K7 fp32 cross_attention_bwd")
     bound, bound_by = cross_bound_ms(B, Lq, S, C, H, 4, backward=True)
-    t7 = {"shape": shape, "ms": time_ms(launch, iters=20),
-          "device_ms": device_ms(launch, ("cross_attention_bwd_kernel<float", "dq_reduce_kernel")),
+    t7 = {"shape": shape, "ms": time_ms(launch, iters=20), **device_turns(launch, bwd_name),
           "plain_ms": time_ms(lambda: ca.composed_cross_attention_bwd(
               q, k, v, bias, 0, scale, 0.0, H, g, out, m, l, False), iters=20),
           **library_times(library_bwd, iters=20), "bound_ms": bound, "bound_by": bound_by}
     for name, t in (("K6", t6), ("K7", t7)):
         print(f"{name} fp32 {shape}: {t['ms']:.4f} ms by events, {t['device_ms']:.4f} on the "
-              f"device; bound {t['bound_ms']:.4f} ({t['bound_by']}); SDPA with relayouts"
+              f"device (median of {len(t['turns'])} turns, least {t['device_min_ms']:.4f}; each "
+              "turn's ms at the SM clock and power read while it ran: "
+              + ", ".join(f"{ms:.4f} at {clock}" for ms, clock in t["turns"])
+              + f"); bound {t['bound_ms']:.4f} ({t['bound_by']}); SDPA with relayouts"
               f"{' forward + backward' if name == 'K7' else ''} {t['library_ms']:.4f} by "
               f"events, {t['library_device_ms']:.4f} on the device; plain {t['plain_ms']:.4f}")
     return t6, t7
@@ -1256,13 +1357,27 @@ def train_loaders(cfg, rng_seed=SEED, n_class=N_CLASS, n_videos=12, vid_len_rang
     return src, train, val
 
 
-def train(cfg, state_dict, kernels, loaders, want, n_class=N_CLASS):
+def on_card(prof, fragments):
+    """How many launches of kernels whose names hold each of ``fragments``
+    a profiler trace shows on the card; None where it shows nothing at all
+    there (a trace now and then comes back without device events)."""
+    events = card_events(prof)
+    return {f: sum(e.count for e in events if f in e.key) for f in fragments} if events else None
+
+
+def train(cfg, state_dict, kernels, loaders, want, n_class=N_CLASS, equal=(), epoch0_on_card=()):
     """fit 2 epochs on the card with every launch count set to 0 first;
     fail unless each phase of ``want`` (phase -> kernel names) launched each
-    of its kernels. Returns the counts of the whole fit."""
+    of its kernels, unless each pair of names in ``equal`` counted alike in
+    every phase, and unless a profiler trace of epoch 0's training shows a
+    launch of a kernel whose name holds each of ``epoch0_on_card`` (where
+    that trace holds no device events, a profiled train-mode step of the
+    loader's first batch stands in for it). Returns the counts of the whole
+    fit."""
     import dataclasses
 
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     from r3d_tpu_torch.train.loop import Trainer
 
@@ -1271,9 +1386,13 @@ def train(cfg, state_dict, kernels, loaders, want, n_class=N_CLASS):
     trainer = Trainer(cfg, n_class)
     state = trainer.init_state(len(train_loader), state_dict)
     snapshots, lines = [], []
+    traced = [profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                      acc_events=True)] if epoch0_on_card else []
 
     def log(line):
         torch.cuda.synchronize()
+        if traced and not snapshots:   # the end of epoch 0's training
+            traced[0].stop()
         snapshots.append({k.name: k.launches for k in kernels})
         lines.append(line)
         print(f"  {line}")
@@ -1281,9 +1400,37 @@ def train(cfg, state_dict, kernels, loaders, want, n_class=N_CLASS):
     for k in kernels:
         k.launches = 0
     t0 = time.perf_counter()
-    trainer.fit(state, train_loader, val_loader, seed=SEED, log=log)
+    if traced:
+        traced[0].start()
+    try:
+        trainer.fit(state, train_loader, val_loader, seed=SEED, log=log)
+    finally:
+        if traced and not snapshots:
+            traced[0].stop()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    if traced:
+        seen = on_card(traced[0], epoch0_on_card)
+        where = "a profiler trace of epoch 0's training"
+        if seen is None:
+            batch = trainer.to_device(one_batch(train_loader, 0))
+            for _ in range(3):
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                             acc_events=True) as prof:
+                    state.model.train()
+                    state.optimizer.zero_grad(set_to_none=True)
+                    trainer._grad_core(state.model, batch)
+                    state.apply_gradients()
+                    torch.cuda.synchronize()
+                seen = on_card(prof, epoch0_on_card)
+                if seen is not None:
+                    break
+            where = ("a profiled train-mode step (the trace of epoch 0 held no device "
+                     "events)")
+        print(f"launches on the card in {where}: {seen}")
+        if seen is None or not all(seen.values()):
+            raise AssertionError(f"{cfg.name}: epoch 0 launched no kernel named like each of "
+                                 f"{list(epoch0_on_card)}: {seen}")
     counts = {k.name: k.launches for k in kernels}
     phases = ["epoch 0 train", "epoch 0 validation", "epoch 1 train", "epoch 1 validation"]
     per_phase, prev = {}, {k.name: 0 for k in kernels}
@@ -1301,6 +1448,11 @@ def train(cfg, state_dict, kernels, loaders, want, n_class=N_CLASS):
         missing = [n for n in names if per_phase[phase].get(n, 0) == 0]
         if missing:
             raise AssertionError(f"{cfg.name}: {phase} never launched {missing}")
+    for phase, c in per_phase.items():
+        for a, b in equal:
+            if c.get(a, 0) != c.get(b, 0):
+                raise AssertionError(f"{cfg.name}: {phase} counted {c.get(a, 0)} {a} but "
+                                     f"{c.get(b, 0)} {b}")
     return counts
 
 
@@ -1438,6 +1590,95 @@ def train_breakdown(cfg, state_dict, train_loader, min_len=256, n_class=N_CLASS,
             f"{e.key.split('::')[-1].split('(')[0][:60]}" for e in own))
 
 
+# ---- utkinects under R3D_CROSS_NATIVE=1: fp32 K6 and K7 in the 1024 and 2000 buckets ----
+
+UTK_NATIVE_SERVE = {1024: (900, 700), 2000: (1900, 1500)}
+
+
+class Count:
+    """A count kept beside the kernels' own, with the same two attributes
+    (``name``, ``launches``), for what a kernel's count cannot tell: calls
+    of a module."""
+
+    def __init__(self, name):
+        self.name, self.launches = name, 0
+
+
+def utkinects_native_loaders(cfg):
+    """Synthetic utkinects videos of 1,100-1,399 frames: the train loader's
+    observed windows at 0.5 (550-699 frames) land in the 1024 bucket and at
+    0.95 (1,045-1,329) in the 2000 bucket, one batch of 8 each; validation
+    holds 2 videos at both ratios (batches of 2)."""
+    return train_loaders(cfg, n_videos=8, vid_len_range=(1100, 1400), obs=(0.5, 0.95),
+                         val_videos=2, val_obs=(0.5, 0.95), val_batch=2)
+
+
+def utkinects_cross_native(kernels, state_dict, k6, k7):
+    """Serve and train utkinects at full width with R3D_CROSS_NATIVE=1, where
+    the decoder's cross-attention takes fp32 K6 (``k6``) and K7 (``k7``) in
+    the 1024 and 2000 buckets: requests in both buckets, the card's logits
+    against the CPU's, ``fit`` of 2 epochs (one 1024- and one 2000-bucket
+    batch of 8) with validation, a dropout-off step on the card against the
+    CPU, the parts of a 2000-bucket step and the on/off A/B there. Every
+    cross-attention call (a module call with more than 512 keys) must be a
+    K6 launch; a profiler trace of epoch 0 must show K6 and K7 launched
+    with dropout. Restores R3D_CROSS_NATIVE at the end. Returns (serving counts, training counts)."""
+    import os
+
+    import torch
+
+    from r3d_tpu_torch.config import get_config
+    from r3d_tpu_torch.models.layers import MultiheadAttention
+    from r3d_tpu_torch.serving import InferenceSession
+
+    calls = Count("cross-attention calls")   # MultiheadAttention calls with more than 512 keys
+
+    def count_call(module, args, _):
+        if isinstance(module, MultiheadAttention) and args[1].shape[1] > 512:
+            calls.launches += 1
+
+    watched = list(kernels) + [calls]
+    before = os.environ.get("R3D_CROSS_NATIVE")
+    os.environ["R3D_CROSS_NATIVE"] = "1"
+    hook = torch.nn.modules.module.register_module_forward_hook(count_call)
+    try:
+        cfg = get_config("utkinects")
+        print(f"utkinects with R3D_CROSS_NATIVE=1: hidden {cfg.model.hidden_dim}, "
+              f"{cfg.model.n_head} heads, {cfg.model.n_query} queries, input "
+              f"{cfg.model.input_dim}, depth {tuple(cfg.data.depth_shape)}, buckets 1024 and 2000")
+        session = InferenceSession(cfg, state_dict, N_CLASS, max_batch=8)
+        rng = np.random.default_rng(SEED + 2)
+        latencies, serving, per_bucket = serve(session, watched, cfg, rng, UTK_NATIVE_SERVE)
+        for S, lat in latencies.items():
+            print(f"utkinects R3D_CROSS_NATIVE=1 bucket {S}: {lat['requests']} requests through "
+                  f"ServingQueue, latency p50 {lat['p50_ms']:.2f} ms, max {lat['max_ms']:.2f} ms; "
+                  f"launches { {k: c for k, c in per_bucket[S].items() if c} }")
+            n = per_bucket[S]
+            if not (n[k6.name] > 0 and n[k6.name] == n[calls.name] and n["flash_attention"] == 0):
+                raise AssertionError(f"utkinects bucket {S} should take every cross-attention "
+                                     f"call to {k6.name}: {n}")
+        compare_with_cpu(session, cfg, state_dict, rng, lengths=(1900, 1300))
+
+        loaders = utkinects_native_loaders(cfg)
+        want = {"epoch 0 train": (k6.name, k7.name), "epoch 1 train": (k6.name, k7.name)}
+        D = cfg.model.hidden_dim // cfg.model.n_head
+        counts = train(cfg, state_dict, watched, loaders, want, equal=((k6.name, calls.name),),
+                       epoch0_on_card=(f"attention_fwd_cluster_kernel<{D}, true, true",
+                                       f"attention_bwd_cluster_kernel<{D}, true, true"))
+        train_step_on_card_and_cpu(cfg, state_dict, one_batch(loaders[1], 512, 1024, rows=4))
+        train_breakdown(cfg, state_dict, loaders[1], 1024,
+                        label=" (utkinects, R3D_CROSS_NATIVE=1, 2000 bucket)")
+        cross_native_ab(cfg, state_dict, session, loaders[1], rng, N_CLASS, 2000, 1024)
+        del session
+    finally:
+        hook.remove()
+        if before is None:
+            os.environ.pop("R3D_CROSS_NATIVE", None)
+        else:
+            os.environ["R3D_CROSS_NATIVE"] = before
+    return serving, counts
+
+
 # ---- 50salads: the FUTR baseline, bf16, decoder cross-attention on K3/K6 ----
 
 SALADS_CLASSES = 20      # 50salads: 19 L2 actions + NONE (bench.py builds it so)
@@ -1466,23 +1707,28 @@ def salads_loaders(cfg):
                          obs=(0.13, 0.8), val_videos=4, val_obs=(0.13, 0.8), val_batch=4)
 
 
-def cross_native_ab(cfg, state_dict, session, train_loader, rng, rounds=8):
-    """One 3100-bucket train step (epoch 0, train mode) and one 3100-bucket
-    serving chunk of 8, each with R3D_CROSS_NATIVE set and unset, in the
-    order off, on, on, off, ``rounds`` times (2 * ``rounds`` of each
+def cross_native_ab(cfg, state_dict, session, train_loader, rng, n_class, bucket, min_len,
+                    rounds=8):
+    """One ``bucket`` train step (epoch 0, train mode; a batch of 8 of the
+    train loader's windows longer than ``min_len``) and one serving chunk
+    of 8 full-length requests, each with R3D_CROSS_NATIVE set and unset, in
+    the order off, on, on, off, ``rounds`` times (2 * ``rounds`` of each
     setting), each to a synchronised end. Prints the medians and, as the
     spread, the off/on ratio of every round (its two offs over its two ons):
-    median, quartiles and range."""
+    median, quartiles and range. Leaves R3D_CROSS_NATIVE as it found it."""
     import os
 
     import torch
 
     from r3d_tpu_torch.train.loop import Trainer
 
-    trainer = Trainer(cfg, SALADS_CLASSES)
+    trainer = Trainer(cfg, n_class)
     state = trainer.init_state(1, state_dict)
-    batch = trainer.to_device(one_batch(train_loader, 1024))
-    chunk = session._collate(make_videos(rng, (3100,) * 8, cfg), 3100)
+    batch = trainer.to_device(one_batch(train_loader, min_len))
+    if batch["features"].shape[1] != bucket:
+        raise AssertionError(f"the A/B batch fell in bucket {batch['features'].shape[1]}, "
+                             f"not {bucket}")
+    chunk = session._collate(make_videos(rng, (bucket,) * 8, cfg), bucket)
 
     def step():
         state.model.train()
@@ -1493,26 +1739,33 @@ def cross_native_ab(cfg, state_dict, session, train_loader, rng, rounds=8):
     def serve_chunk():
         session._run(*chunk)["action"].float().cpu()
 
+    before = os.environ.get("R3D_CROSS_NATIVE")
     times = {s: {"step": [], "chunk": []} for s in ("on", "off")}
-    for setting in ("off", "on"):   # warm both routes
-        os.environ["R3D_CROSS_NATIVE"] = "1" if setting == "on" else "0"
-        step()
-        serve_chunk()
-    for setting in ("off", "on", "on", "off") * rounds:
-        os.environ["R3D_CROSS_NATIVE"] = "1" if setting == "on" else "0"
-        for name, fn in (("step", step), ("chunk", serve_chunk)):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times[setting][name].append(1e3 * (time.perf_counter() - t0))
-    os.environ["R3D_CROSS_NATIVE"] = "1"
+    try:
+        for setting in ("off", "on"):   # warm both routes
+            os.environ["R3D_CROSS_NATIVE"] = "1" if setting == "on" else "0"
+            step()
+            serve_chunk()
+        for setting in ("off", "on", "on", "off") * rounds:
+            os.environ["R3D_CROSS_NATIVE"] = "1" if setting == "on" else "0"
+            for name, fn in (("step", step), ("chunk", serve_chunk)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times[setting][name].append(1e3 * (time.perf_counter() - t0))
+    finally:
+        if before is None:
+            os.environ.pop("R3D_CROSS_NATIVE", None)
+        else:
+            os.environ["R3D_CROSS_NATIVE"] = before
     med = {s: {n: float(np.median(v)) for n, v in d.items()} for s, d in times.items()}
     for name in ("step", "chunk"):
         on, off = np.asarray(times["on"][name]), np.asarray(times["off"][name])
         ratios = off.reshape(rounds, 2).sum(1) / on.reshape(rounds, 2).sum(1)
         q1, q2, q3 = np.percentile(ratios, (25, 50, 75))
-        print(f"A/B R3D_CROSS_NATIVE, 3100-bucket {'train step' if name == 'step' else 'serving chunk'}"
+        print(f"A/B R3D_CROSS_NATIVE, {cfg.name} {bucket}-bucket "
+              f"{'train step' if name == 'step' else 'serving chunk'}"
               f" of 8: on (K6/K7) median {med['on'][name]:.2f} ms, off (composed) median "
               f"{med['off'][name]:.2f} ms of {2 * rounds} each (off/on of the medians "
               f"{med['off'][name] / med['on'][name]:.3f}; off/on per round of off, on, on, off: "
@@ -1568,7 +1821,7 @@ def salads(kernels, k3b, k4b, k5b, k6, k7):
                                grad_tol=SALADS_GRAD_TOL, cos_min=SALADS_COS_MIN)
     for min_len, label in ((256, " (50salads, 512 bucket)"), (1024, " (50salads, 3100 bucket)")):
         train_breakdown(cfg, state_dict, loaders[1], min_len, SALADS_CLASSES, label)
-    cross_native_ab(cfg, state_dict, session, loaders[1], rng)
+    cross_native_ab(cfg, state_dict, session, loaders[1], rng, SALADS_CLASSES, 3100, 1024)
     del session
     return counts, train_counts
 
@@ -1659,6 +1912,14 @@ def main() -> int:
     train_step_on_card_and_cpu(cfg, state_dict,
                                min(loaders[1], key=lambda b: b["features"].shape[1]))
 
+    # utkinects, R3D_CROSS_NATIVE=1: fp32 K6 and K7 in the 1024 and 2000 buckets
+    n_serving, n_counts = utkinects_cross_native(kernels, state_dict, ca.FWD_KERNEL,
+                                                 ca.BWD_KERNEL)
+    print(f"launches on the utkinects R3D_CROSS_NATIVE=1 serving path: "
+          f"{ {k: c for k, c in n_serving.items() if c} }")
+    print(f"launches on the utkinects R3D_CROSS_NATIVE=1 training path: "
+          f"{ {k: c for k, c in n_counts.items() if c} }")
+
     # 50salads: futr, bf16, R3D_CROSS_NATIVE=1
     s_serving, s_counts = salads(kernels, att.KERNEL_BF16, att.DROPOUT_KERNEL_BF16,
                                     att.BWD_KERNEL_BF16, ca.FWD_KERNEL, ca.BWD_KERNEL)
@@ -1667,6 +1928,7 @@ def main() -> int:
 
     rows = []
     utk = (counts, serving_counts)
+    utkn = (n_counts, n_serving)
     sal = (s_counts, s_serving)
     for k, err, t, replaces, path in (
         (fk.KERNEL, (k1_err, k1_err), k1_time, "r3d_tpu/ops/fuser_kernel.py:180", utk),
@@ -1682,11 +1944,9 @@ def main() -> int:
          sal),
         (ca.FWD_KERNEL, k6_err, k6_time, "r3d_tpu/ops/cross_attention.py:50", sal),
         (ca.BWD_KERNEL, k7_err, k7_time, "r3d_tpu/ops/cross_attention.py:115", sal),
-        # fp32 K6/K7: the utkinects 1024/2000 buckets take them only under
-        # R3D_CROSS_NATIVE=1, so their launches on the (default) utkinects
-        # run are 0
-        (ca.FWD_KERNEL, k6f_err, k6f_time, "r3d_tpu/ops/cross_attention.py:50", utk),
-        (ca.BWD_KERNEL, k7f_err, k7f_time, "r3d_tpu/ops/cross_attention.py:115", utk),
+        # fp32 K6/K7: the utkinects 1024/2000 buckets under R3D_CROSS_NATIVE=1
+        (ca.FWD_KERNEL, k6f_err, k6f_time, "r3d_tpu/ops/cross_attention.py:50", utkn),
+        (ca.BWD_KERNEL, k7f_err, k7f_time, "r3d_tpu/ops/cross_attention.py:115", utkn),
     ):
         rows.append({
             "name": k.name + (" fp32" if "fp32" in t["shape"] else ""), "route": "cuda", "source": f"r3d_tpu_torch/csrc/{k.source}",

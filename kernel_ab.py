@@ -1,19 +1,21 @@
 """Time K3, K4 and K5 in fp32 (the utkinects decoder's attention forward,
-dropout forward and backward), K1 and K2 (the fuser tail and its backward)
-and K7 in bf16 (the native cross-attention backward) of this checkout
-against another checkout's, on one card, in turns.
+dropout forward and backward), K1 and K2 (the fuser tail and its backward),
+K7 in bf16 and K6 and K7 in fp32 (the native cross-attention) of this
+checkout against another checkout's, on one card, in turns.
 
     python3 kernel_ab.py OTHER_CHECKOUT      # from the root of a checkout, on a CUDA host
 
 Builds ``attention.cu``, ``attention_bwd.cu``, ``fuser_tail.cu``,
-``fuser_tail_bwd.cu`` and ``cross_attention_bwd.cu`` of the other
-checkout's ``r3d_tpu_torch/csrc``
+``fuser_tail_bwd.cu``, ``cross_attention.cu`` and
+``cross_attention_bwd.cu`` of the other checkout's ``r3d_tpu_torch/csrc``
 with nvcc (the flags of ``r3d_tpu_torch/ops/build.py``) into ``build/ab/``,
 loads them beside this checkout's, and times both on the same inputs in the
-order other, this, this, other: CUDA events around back-to-back calls and
-the profiler's device time of all of a call's launches, each the mean of
-the two turns. Where an entry point's signature changed, the other
-checkout's is read off its source.
+order other, this, this, other (three times over for K6 and K7 in fp32,
+whose device times spread more from turn to turn): CUDA events around
+back-to-back calls and the profiler's device time of all of a call's
+launches, each the mean of a side's turns, and each turn's device time.
+Where an entry point's signature changed, the other checkout's is read off
+its source.
 
 - K3 and K5 in fp32: ``r3d_attention_fwd`` and ``r3d_attention_bwd`` (rate
   0.1, as ``chip_smoke.py`` times it) at B = H = 8, Lq = 8, D = 16, Lk = 256
@@ -40,6 +42,14 @@ checkout's is read off its source.
   count of 64-key blocks, its scratch one fp32 dq slice a block. Every
   output is held to the plain version (2e-2 of each gradient's largest
   entry).
+- K6 and K7 in fp32: ``r3d_cross_attention_fwd`` (rate 0) and
+  ``r3d_cross_attention_bwd`` (rate 0 and 0.1) with dtype 0 at B = 8,
+  Lq = 8, C = 128, H = 8, S = 1,024 and 2,000 (the utkinects 1024 and 2000
+  buckets under R3D_CROSS_NATIVE=1). Both checkouts share the signatures;
+  the cluster bodies take the keys per block (``fp32_split_keys``) and K7
+  no scratch, where the first K6 body ignored the keys per block and the
+  first K7 body took 64 keys a block and one fp32 dq slice a block. Held to the plain versions (out, m and l 2e-5; the gradients
+  1e-4 of each one's largest entry).
 
 Prints one line per kernel and shape and, as the last line, one JSON object
 of the times in ms ([events, device] per side). Exits non-zero where CUDA is
@@ -51,6 +61,7 @@ from __future__ import annotations
 import ctypes
 import json
 import math
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -79,29 +90,51 @@ def bind(lib, kernel, argtypes=None):
 
 
 def has(checkout: Path, source: str, marker: str) -> bool:
-    """Whether the other checkout's ``source`` holds ``marker``: which body,
-    and so which entry-point signature, it has."""
-    return marker in (checkout / "r3d_tpu_torch" / "csrc" / source).read_text()
+    """Whether the other checkout's ``source``, or a header it includes
+    (``#include "..."``, followed on; the fp32 attention bodies live in
+    ``*.cuh``), holds ``marker``: which body, and so which entry-point
+    signature, it has."""
+    csrc = checkout / "r3d_tpu_torch" / "csrc"
+    seen, todo = set(), [source]
+    while todo:
+        name = todo.pop()
+        if name in seen or not (csrc / name).is_file():
+            continue
+        seen.add(name)
+        text = (csrc / name).read_text()
+        if marker in text:
+            return True
+        todo += re.findall(r'^#include "([^"]+)"', text, re.MULTILINE)
+    return False
 
 
-def in_turns(label, calls, check, result):
-    """Time ``calls`` {"this", "other"} as other, this, this, other; run
-    ``check(who)`` after each side's first call of a turn."""
+def in_turns(label, calls, check, result, rounds=1):
+    """Time ``calls`` {"this", "other"} as other, this, this, other,
+    ``rounds`` times; run ``check(who)`` after each side's first call of a
+    turn. Prints the means and each turn's device time."""
     import torch
 
     times = {who: [] for who in calls}
-    for who in ("other", "this", "this", "other"):
+    for who in ("other", "this", "this", "other") * rounds:
         if calls[who]() != 0:
             raise RuntimeError(f"{label} ({who}) failed to launch")
         torch.cuda.synchronize()
         check(who)
         times[who].append((chip_smoke.time_ms(calls[who], iters=20),
                            chip_smoke.device_ms(calls[who], None)))
-    mean = {who: [sum(x) / len(x) for x in zip(*t)] for who, t in times.items()}
+    # a trace now and then holds no device events (device_ms gives None):
+    # such a turn counts for the events time only, and is reported as left out
+    mean = {who: [sum(v) / len(v) for v in ([x for x in col if x is not None] for col in zip(*t))]
+            for who, t in times.items()}
     result[label] = mean
+    turns = lambda who: ", ".join("none" if t[1] is None else f"{t[1]:.4f}" for t in times[who])
+    dropped = lambda who: sum(t[1] is None for t in times[who])
     print(f"{label}: other {mean['other'][0]:.4f} ms by events, {mean['other'][1]:.4f} on the "
-          f"device; this {mean['this'][0]:.4f} / {mean['this'][1]:.4f}; other / this by device "
-          f"{mean['other'][1] / mean['this'][1]:.2f}")
+          f"device ({dropped('other')} of {len(times['other'])} turns without device events "
+          f"left out); this {mean['this'][0]:.4f} / {mean['this'][1]:.4f} ({dropped('this')} of "
+          f"{len(times['this'])} left out); other / this by device "
+          f"{mean['other'][1] / mean['this'][1]:.2f} (device, each turn: other {turns('other')}; "
+          f"this {turns('this')})")
 
 
 def fuser_tail(other, device, gen, stream, result):
@@ -289,6 +322,68 @@ def cross_attention_bwd(checkout, device, gen, stream, result, B=8, Lq=20, S=310
     in_turns(f"cross_attention_bwd bf16 B={B} Lq={Lq} S={S} C={C} H={H}", calls, check, result)
 
 
+def cross_attention_fp32(checkout, device, gen, stream, result, B=8, Lq=8, C=128, H=8):
+    """fp32 K6 (rate 0) and K7 (rate 0 and 0.1) at the utkinects 1024 and
+    2000 buckets' shape under R3D_CROSS_NATIVE=1."""
+    import torch
+
+    from r3d_tpu_torch.ops import attention as att
+    from r3d_tpu_torch.ops import cross_attention as ca
+
+    D = C // H
+    scale = 1.0 / math.sqrt(D)
+    first_bwd = has(checkout, "cross_attention_bwd.cu", "dq_reduce_kernel")   # split 64, a dq scratch
+    fwd = {"this": ca.FWD_KERNEL.load(),
+           "other": bind(other_library(checkout, "cross_attention.cu"), ca.FWD_KERNEL)}
+    bwd = {"this": ca.BWD_KERNEL.load(),
+           "other": bind(other_library(checkout, "cross_attention_bwd.cu"), ca.BWD_KERNEL)}
+    for S in (1024, 2000):
+        q, k, v, bias = chip_smoke.cross_inputs(B, Lq, S, C, gen, device, torch.float32)
+        g = torch.randn(q.shape, generator=gen).to(device)
+        want = ca.composed_cross_attention(q, k, v, bias, 0, scale, 0.0, H)
+        outs = {who: (torch.empty_like(q), torch.empty_like(want[1]), torch.empty_like(want[2]))
+                for who in fwd}
+        split = att.fp32_split_keys(S)   # the first body ignores it
+        calls = {who: (lambda fn=fn, o=outs[who]: fn(
+            0, q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), *(t.data_ptr() for t in o),
+            None, split, B, Lq, S, H, D, scale, 0, 0, 0, 1.0, stream)) for who, fn in fwd.items()}
+
+        def check(who):
+            err = chip_smoke.errs(outs[who], want)[1]
+            if not err <= chip_smoke.CROSS_FWD_TOL:
+                raise AssertionError(f"K6 fp32 ({who}) disagrees with its plain version at "
+                                     f"S={S}: {err:.3e}")
+
+        in_turns(f"cross_attention_fwd fp32 B={B} Lq={Lq} S={S} C={C} H={H}", calls, check, result,
+                 rounds=3)
+        out, m, l = want
+        for rate in (0.0, 0.1):
+            seed, thr = 2000 + S, att.dropout_threshold(rate)
+            want_b = ca.composed_cross_attention_bwd(q, k, v, bias, seed, scale, rate, H, g, out,
+                                                     m, l, False)[:3]
+            grads, calls = {}, {}
+            for who, fn in bwd.items():
+                old = who == "other" and first_bwd
+                keys = ca.BWD_TILE_KEYS if old else att.fp32_split_keys(S)
+                part = torch.empty(-(-S // keys) * B * Lq * C, device=device) if old else None
+                grads[who] = tuple(torch.empty_like(t) for t in (q, k, v))
+                calls[who] = (lambda fn=fn, part=part, gr=grads[who], keys=keys: fn(
+                    0, q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), g.data_ptr(),
+                    out.data_ptr(), m.data_ptr(), l.data_ptr(),
+                    None if part is None else part.data_ptr(), *(t.data_ptr() for t in gr), None,
+                    B, Lq, S, H, D, keys, scale, int(rate > 0), seed, thr, 1.0 / (1.0 - rate),
+                    stream))
+
+            def check_bwd(who):
+                rel = chip_smoke.errs(grads[who], want_b)[1]
+                if not rel <= chip_smoke.CROSS_BWD_TOL:
+                    raise AssertionError(f"K7 fp32 ({who}) disagrees with its plain version at "
+                                         f"S={S} rate={rate}: {rel:.3e}")
+
+            in_turns(f"cross_attention_bwd fp32 B={B} Lq={Lq} S={S} C={C} H={H} p={rate}", calls,
+                     check_bwd, result, rounds=3)
+
+
 def main() -> int:
     import torch
 
@@ -306,6 +401,7 @@ def main() -> int:
     fuser_tail_bwd(checkout, device, gen, stream, result)
     fuser_tail(other_library(checkout, "fuser_tail.cu"), device, gen, stream, result)
     cross_attention_bwd(checkout, device, gen, stream, result)
+    cross_attention_fp32(checkout, device, gen, stream, result)
     print(json.dumps(result))
     return 0
 

@@ -16,48 +16,11 @@
 // fp32 K3 (utkinects: Lq = 8 queries against Lk = 256 or 512 keys, D = 16,
 // B x H = 8 x 8; every sticky train step, validation step and 256/512
 // serving chunk) and fp32 K4 (the same shape with dropout, every epoch-0
-// train step) share the cluster body below. What bounds it on the H100:
-// bytes, K and V once (4.2 MB at Lk = 512, 0.0013 ms at 3.35 TB/s) for
-// 4*Lq*Lk*D = 17 MFLOP in all (0.0003 ms at the fp32 rate of 67 TFLOP/s):
-// 4 flops per byte, far below the fp32 ridge of 20, so the products run as
-// plain fp32 FMAs from shared memory and tensor cores would buy nothing. At
-// this size the work is a few microseconds, so the design is about latency:
-// every block starts its one copy at once, nothing walks the keys in turn,
-// and there is one launch and no scratch in device memory.
-// - Grid (n_split, ceil(Lq / 8), B*H), 2 warps a block. The keys of one
-//   (batch, head) are split into n_split runs of `split_keys` (a multiple of
-//   64, at most 8 runs; ops/attention.py:fp32_split_keys: 8 splits of 64 at
-//   Lk = 512, 512 blocks, one wave), and the n_split blocks of one
-//   (batch*head, tile of 8 queries) form one thread-block cluster. A block
-//   copies its first tile of 64 keys (K, V and the bias) with 16- and 4-byte
-//   cp.async at its start; past 512 keys a split walks its tiles through a
-//   ring of two, the copy of the next under the math of this one.
-// - A tile: lane j of warp w scores key 32w + j against the 8 queries (q
-//   read from shared memory as broadcast float4s), the tile's row max comes
-//   from warp maxima through shared memory, the weights p = exp(s - m) of
-//   the running max go to shared memory, and each thread keeps, for its
-//   (query, dim) pairs of the output, the running sums acc = sum p v and
-//   l = sum p, rescaled when the max grows (an online softmax across tiles).
-// - In fp32 the TPU kernel's rounding of the weights is the identity, so
-//   the splits combine flash-decoding style in one exchange: each block
-//   leaves its (m_i, l_i, acc_i) in shared memory; after a cluster barrier
-//   each block takes its share of the tile's outputs and reads every rank's
-//   (m_i, l_i, acc_i) through distributed shared memory, in rank order:
-//   m = max m_i, out = sum acc_i exp(m_i - m) / sum l_i exp(m_i - m),
-//   normalised once; a second barrier keeps every block's shared memory
-//   alive until the others have read it. (Pushing the partials into the
-//   owner's shared memory before one barrier instead, as K5 does, measured
-//   slower here.)
-// - K4 (kDropout): in fp32 the TPU kernel's rounding of the weights to V's
-//   type is the identity, so dropout folds into the same pass: a block adds
-//   p * keep / (1 - rate) of each key into acc_i and p alone into l_i; the
-//   keep test is r3d::dropout_bits of ((b*H + h)*Lq + q)*Lk + k against
-//   `threshold`, as K5 redraws it. The combine and the final division by l
-//   stay as they are.
-// Deterministic, no atomics. Keys past Lk are never read (zero-filled) and
-// score -inf; a split with no key has m_i = -inf and weighs 0 explicitly; a
-// row whose every real key is masked has every m_i = finfo.min and averages
-// V over the real keys; a row whose every score is -inf gives 0.
+// train step) share the cluster body of attention_fwd_cluster.cuh (see its
+// note) with fp32 K6 (cross_attention.cu): one launch, the keys of a (batch,
+// head) split into runs of whole 64-key tiles, one block each, the blocks of
+// one (batch*head, tile of 8 queries) a thread-block cluster that combines
+// its (m_i, l_i, acc_i) in rank order through distributed shared memory.
 //
 // bf16 (the 50salads decoder: Lq = 20 against Lk = 256 or 512, D = 64, B x H
 // = 8 x 8) has the split body below. As the TPU kernels do
@@ -108,7 +71,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-#include "attention_cluster.cuh"
+#include "attention_fwd_cluster.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -116,201 +79,7 @@ namespace {
 namespace cg = cooperative_groups;
 using bf16 = __nv_bfloat16;
 
-// ---- fp32 K3 and K4: the cluster body ----
-
 constexpr int MAX_SPLITS = r3d::kMaxSplits;   // blocks per cluster (ops/attention.py)
-constexpr int F_QT = r3d::kF32QT;
-constexpr int F_KT = r3d::kF32KT;
-constexpr int F_NT = F_KT;       // threads per block: 2 warps, a key a thread
-constexpr int F_PLD = F_KT + 1;   // row stride of the weights in shared memory
-
-template <int D, bool kDropout>
-__global__ void __launch_bounds__(F_NT)
-attention_fwd_cluster_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                             const float* __restrict__ v, const float* __restrict__ bias,
-                             float* __restrict__ out, int H, int Lq, int Lk, int split_keys,
-                             float scale, uint32_t seed, uint32_t threshold, float keep_scale) {
-  constexpr int LD = r3d::kF32Ld<D>;
-  constexpr int C4 = D / 4;
-  constexpr int OPT = F_QT * D / F_NT;   // (query, dim) pairs of the output a thread
-  extern __shared__ __align__(16) float f32_smem[];   // the ring: one or two stages
-  __shared__ __align__(16) float qs[F_QT * D];
-  __shared__ float ps[F_QT * F_PLD];   // the tile's weights p = exp(s - m)
-  __shared__ float pk[kDropout ? F_QT * F_PLD : 1];   // and p * keep / (1 - rate)
-  __shared__ float wmax[2][F_QT];      // the warps' maxima of the tile
-  __shared__ float corr_s[F_QT];       // the rescale of the running sums
-  __shared__ float cm[F_QT];           // this block's (m_i, l_i, acc_i), read by the cluster
-  __shared__ float cl[F_QT];
-  __shared__ float cacc[F_QT * D];
-
-  cg::cluster_group cluster = cg::this_cluster();
-  const int split = static_cast<int>(cluster.block_rank());
-  const int n_split = static_cast<int>(cluster.num_blocks());
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int q0 = blockIdx.y * F_QT;
-  const int nq = min(F_QT, Lq - q0);
-  const int bh = blockIdx.z;
-  const int b = bh / H;
-  const int key_begin = split * split_keys;
-  const int ntiles = (min(split_keys, Lk - key_begin) + F_KT - 1) / F_KT;
-  const float* kb = k + static_cast<size_t>(bh) * Lk * D;
-  const float* vb = v + static_cast<size_t>(bh) * Lk * D;
-  const float* biasb = bias == nullptr ? nullptr : bias + static_cast<size_t>(b) * Lk;
-
-  // the first tile's copy is in flight while q is loaded
-  r3d::f32_load_tile<D, F_NT>(f32_smem, kb, vb, biasb, key_begin, Lk);
-  for (int idx = tid; idx < F_QT * C4; idx += F_NT) {
-    const int r = idx / C4;
-    const float4 x = r < nq ? *reinterpret_cast<const float4*>(
-                                  q + (static_cast<size_t>(bh) * Lq + q0 + r) * D + (idx % C4) * 4)
-                            : make_float4(0.f, 0.f, 0.f, 0.f);
-    *reinterpret_cast<float4*>(qs + idx * 4) = x;
-  }
-
-  float m_run[F_QT];
-#pragma unroll
-  for (int qq = 0; qq < F_QT; ++qq) m_run[qq] = -INFINITY;
-  float acc[OPT], lsum[OPT];
-#pragma unroll
-  for (int i = 0; i < OPT; ++i) acc[i] = lsum[i] = 0.f;
-
-  for (int t = 0; t < ntiles; ++t) {
-    const float* stage =
-        r3d::f32_ring_step<D, F_NT>(f32_smem, t, ntiles, kb, vb, biasb, key_begin, Lk);
-    const float* ks = stage;
-    const float* vs = stage + F_KT * LD;
-    const int key0 = key_begin + t * F_KT;
-    // the scores of this thread's key against the tile's queries
-    float s[F_QT];
-#pragma unroll
-    for (int qq = 0; qq < F_QT; ++qq) s[qq] = 0.f;
-#pragma unroll
-    for (int c = 0; c < C4; ++c) {
-      const float4 kk = *reinterpret_cast<const float4*>(ks + tid * LD + c * 4);
-#pragma unroll
-      for (int qq = 0; qq < F_QT; ++qq) {
-        const float4 x = *reinterpret_cast<const float4*>(qs + qq * D + c * 4);
-        s[qq] = fmaf(x.x, kk.x, fmaf(x.y, kk.y, fmaf(x.z, kk.z, fmaf(x.w, kk.w, s[qq]))));
-      }
-    }
-    const bool key_ok = key0 + tid < Lk;
-    const float bj = stage[2 * F_KT * LD + tid];
-#pragma unroll
-    for (int qq = 0; qq < F_QT; ++qq) {
-      s[qq] = key_ok ? s[qq] * scale + bj : -INFINITY;
-      const float mx = r3d::warp_max(s[qq]);
-      if (lane == 0) wmax[warp][qq] = mx;
-    }
-    __syncthreads();
-    // the running max of every query (each thread alike), the weights
-#pragma unroll
-    for (int qq = 0; qq < F_QT; ++qq) {
-      const float m_new = fmaxf(m_run[qq], fmaxf(wmax[0][qq], wmax[1][qq]));
-      if (tid == qq) corr_s[qq] = m_new == -INFINITY ? 1.f : expf(m_run[qq] - m_new);
-      m_run[qq] = m_new;
-      const float p = s[qq] == -INFINITY ? 0.f : expf(s[qq] - m_new);
-      ps[qq * F_PLD + tid] = p;
-      if (kDropout) {
-        const uint32_t el = (static_cast<uint32_t>(bh) * Lq + q0 + qq) * Lk + key0 + tid;
-        pk[qq * F_PLD + tid] = r3d::dropout_bits(seed, el) >= threshold ? p * keep_scale : 0.f;
-      }
-    }
-    __syncthreads();
-    // this thread's output pairs: acc = acc * corr + sum_j p_j v_j, l likewise
-#pragma unroll
-    for (int i = 0; i < OPT; ++i) {
-      const int idx = tid + i * F_NT;
-      const int qq = idx / D;
-      const int d = idx % D;
-      const float* pr = ps + qq * F_PLD;
-      const float* pa = (kDropout ? pk : ps) + qq * F_PLD;   // the numerator's weights
-      float a = 0.f, l = 0.f;
-#pragma unroll 16
-      for (int j = 0; j < F_KT; ++j) {
-        a = fmaf(pa[j], vs[j * LD + d], a);
-        l += pr[j];
-      }
-      const float cr = corr_s[qq];
-      acc[i] = fmaf(acc[i], cr, a);
-      lsum[i] = fmaf(lsum[i], cr, l);
-    }
-    __syncthreads();   // the stage, ps and wmax are consumed
-  }
-
-  // this block's (m_i, l_i, acc_i), then the cluster's in rank order
-#pragma unroll
-  for (int i = 0; i < OPT; ++i) {
-    const int idx = tid + i * F_NT;
-    cacc[idx] = acc[i];
-    if (idx % D == 0) cl[idx / D] = lsum[i];
-  }
-#pragma unroll
-  for (int qq = 0; qq < F_QT; ++qq) {
-    if (tid == qq) cm[qq] = m_run[qq];
-  }
-  cluster.sync();
-  const int n_out = nq * D;
-  const int share = (n_out + n_split - 1) / n_split;
-  const int end = min(n_out, (split + 1) * share);
-  float* ob = out + (static_cast<size_t>(bh) * Lq + q0) * D;
-  for (int idx = split * share + tid; idx < end; idx += F_NT) {
-    const int qq = idx / D;
-    float mi[MAX_SPLITS], li[MAX_SPLITS], ai[MAX_SPLITS];
-#pragma unroll
-    for (int r = 0; r < MAX_SPLITS; ++r) {   // every remote load in flight at once
-      mi[r] = r < n_split ? cluster.map_shared_rank(cm, r)[qq] : -INFINITY;
-      li[r] = r < n_split ? cluster.map_shared_rank(cl, r)[qq] : 0.f;
-      ai[r] = r < n_split ? cluster.map_shared_rank(cacc, r)[idx] : 0.f;
-    }
-    float m = mi[0];
-#pragma unroll
-    for (int r = 1; r < MAX_SPLITS; ++r) m = fmaxf(m, mi[r]);
-    float l = 0.f, a = 0.f;
-#pragma unroll
-    for (int r = 0; r < MAX_SPLITS; ++r) {
-      const float w = mi[r] == -INFINITY ? 0.f : expf(mi[r] - m);
-      l = fmaf(li[r], w, l);
-      a = fmaf(ai[r], w, a);
-    }
-    ob[idx] = l > 0.f ? a / l : 0.f;
-  }
-  cluster.sync();   // no block leaves while another still reads its shared memory
-}
-
-template <int D, bool kDropout>
-cudaError_t fp32_cluster_launch(r3d::ClusterLaunch& l, int B, int H, int Lq, int Lk,
-                                int split_keys, cudaStream_t stream) {
-  if (split_keys <= 0 || split_keys % F_KT != 0) return cudaErrorInvalidValue;
-  const int n_split = (Lk + split_keys - 1) / split_keys;
-  if (n_split > MAX_SPLITS) return cudaErrorInvalidValue;
-  return l.init(attention_fwd_cluster_kernel<D, kDropout>,
-                dim3(n_split, (Lq + F_QT - 1) / F_QT, B * H), F_NT,
-                r3d::f32_ring_bytes<D>(split_keys), stream);
-}
-
-template <int D, bool kDropout>
-int launch_fp32_cluster(const float* q, const float* k, const float* v, const float* bias,
-                        float* out, int B, int H, int Lq, int Lk, int split_keys, float scale,
-                        uint32_t seed, uint32_t threshold, float keep_scale, cudaStream_t stream) {
-  r3d::ClusterLaunch l;
-  cudaError_t err = fp32_cluster_launch<D, kDropout>(l, B, H, Lq, Lk, split_keys, stream);
-  if (err == cudaSuccess) {
-    err = cudaLaunchKernelEx(&l.cfg, attention_fwd_cluster_kernel<D, kDropout>, q, k, v, bias,
-                             out, H, Lq, Lk, split_keys, scale, seed, threshold, keep_scale);
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int D>
-int fp32_cluster_occupancy(int B, int H, int Lq, int Lk, int split_keys, int* clusters) {
-  r3d::ClusterLaunch l;
-  cudaError_t err = fp32_cluster_launch<D, false>(l, B, H, Lq, Lk, split_keys, nullptr);
-  if (err == cudaSuccess) err = l.max_active(attention_fwd_cluster_kernel<D, false>, clusters);
-  return static_cast<int>(err);
-}
 
 // ---- the bf16 body ----
 
@@ -713,18 +482,20 @@ int dispatch_fp32_cluster(const float* q, const float* k, const float* v, const 
                           float* out, int B, int H, int Lq, int Lk, int D, int split_keys,
                           float scale, uint32_t seed, uint32_t threshold, float keep_scale,
                           void* stream) {
-  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16:
-      return launch_fp32_cluster<16, kDropout>(q, k, v, bias, out, B, H, Lq, Lk, split_keys,
-                                               scale, seed, threshold, keep_scale, s);
+      return r3d::fwd_cluster_launch<16, kDropout, false>(q, k, v, bias, out, nullptr, nullptr, B,
+                                                          H, Lq, Lk, split_keys, scale, seed,
+                                                          threshold, keep_scale, s);
     case 32:
-      return launch_fp32_cluster<32, kDropout>(q, k, v, bias, out, B, H, Lq, Lk, split_keys,
-                                               scale, seed, threshold, keep_scale, s);
+      return r3d::fwd_cluster_launch<32, kDropout, false>(q, k, v, bias, out, nullptr, nullptr, B,
+                                                          H, Lq, Lk, split_keys, scale, seed,
+                                                          threshold, keep_scale, s);
     case 64:
-      return launch_fp32_cluster<64, kDropout>(q, k, v, bias, out, B, H, Lq, Lk, split_keys,
-                                               scale, seed, threshold, keep_scale, s);
+      return r3d::fwd_cluster_launch<64, kDropout, false>(q, k, v, bias, out, nullptr, nullptr, B,
+                                                          H, Lq, Lk, split_keys, scale, seed,
+                                                          threshold, keep_scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -769,9 +540,9 @@ extern "C" int r3d_attention_fwd(const float* q, const float* k, const float* v,
 extern "C" int r3d_attention_fwd_clusters(int B, int H, int Lq, int Lk, int D, int split_keys,
                                           int* clusters) {
   switch (D) {
-    case 16: return fp32_cluster_occupancy<16>(B, H, Lq, Lk, split_keys, clusters);
-    case 32: return fp32_cluster_occupancy<32>(B, H, Lq, Lk, split_keys, clusters);
-    case 64: return fp32_cluster_occupancy<64>(B, H, Lq, Lk, split_keys, clusters);
+    case 16: return r3d::fwd_cluster_occupancy<16, false>(B, H, Lq, Lk, split_keys, clusters);
+    case 32: return r3d::fwd_cluster_occupancy<32, false>(B, H, Lq, Lk, split_keys, clusters);
+    case 64: return r3d::fwd_cluster_occupancy<64, false>(B, H, Lq, Lk, split_keys, clusters);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

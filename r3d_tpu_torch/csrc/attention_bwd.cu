@@ -19,52 +19,12 @@
 // about 5 flops per byte at Lq = 8.
 //
 // fp32 (utkinects: B = H = 8, Lq = 8, Lk = 256 or 512, D = 16; every train
-// step) has the cluster body below. At Lk = 512 it must move 2.1 MB in and
-// out (0.0025 ms at 3.35 TB/s) and do 10*B*H*Lq*Lk*D = 42 MFLOP (0.0006 ms
-// at the fp32 rate of 67 TFLOP/s): 5 flops per byte, so the products run as
-// plain fp32 FMAs from shared memory; tensor cores (3xTF32 for fp32
-// accuracy) would buy nothing at this shape. The work is a few microseconds,
-// so the design is about latency: one launch, no memset, no scratch, every
-// block's copy started at once and nothing walked in turn.
-// - Grid (n_split, B*H), 4 warps a block. The keys of one (batch, head) are
-//   split into n_split runs of `split_keys` (a multiple of 64, at most 8
-//   runs; ops/attention.py:fp32_split_keys: 8 splits of 64 at Lk = 512, 512
-//   blocks), and the n_split blocks of one (batch, head) form one
-//   thread-block cluster. A block copies its first tile of 64 keys (K, V and
-//   the bias) with 16- and 4-byte cp.async at its start and, when its split
-//   is one tile (Lk <= 512), keeps it for the whole call; longer splits walk
-//   their tiles through a ring of two, the next copy under this tile's math.
-// - The block walks the queries in tiles of 8, q and g in shared memory.
-//   Thread (j, h) takes key j of the tile and queries 4h .. 4h + 3 of the
-//   query tile. Statistics: it scores its key and forms g . v_j for its four
-//   queries; each warp keeps its (m, l, D-numerator sum exp(s - m) keep
-//   (g . v)) per query online over the split's tiles, and a half's two
-//   warps are combined in warp order into the block's (m_i, l_i, D_i).
-//   Each block stores them into every block of the cluster through
-//   distributed shared memory; after a cluster barrier every block combines
-//   them in rank order, so every block derives bit-identical m, l and
-//   D = sum w keep (g . v).
-// - Gradients: each thread forms w*keep and ds of its key and four queries
-//   into shared memory. The block OWNS dk, dv (and the per-head dbias slice)
-//   of its keys: thread (j, h) sums half the dims of key j's rows over all 8
-//   queries, and over the query tiles in registers, and writes them once (a
-//   split of more than one tile adds each query tile's share to its own rows
-//   in device memory instead; no other block touches them). Each block
-//   takes a share of the tile's dq, and every block stores its part of that
-//   share (sum over its keys of ds k) into it; after a second cluster
-//   barrier the block sums them in rank order and writes them once
-//   (attention_cluster.cuh: no block reads another's shared memory).
-// - What decides the time at this size is how many clusters of 8 the card
-//   holds at once: the main path launches 64, and with 255 registers a
-//   thread (a first design, two warps a block) at most four blocks fit an
-//   SM, too few, so the launch ran in two waves. The registers are capped
-//   (fp32_min_blocks) so they fit in one.
-// Deterministic, no atomics. Keys past Lk are zero-filled, score -inf and are
-// never written; queries past Lq weigh 0; a row whose every score is -inf
-// (l = 0) gives zero gradients, not NaN; a fully masked finite row (every
-// real key at finfo.min) averages over the real keys. dbias goes to a
-// per-(batch, head) slice that the wrapper sums over heads, and only when
-// the bias needs a gradient.
+// step) has the cluster body of attention_bwd_cluster.cuh (see its note),
+// shared with fp32 K7 (cross_attention_bwd.cu): one launch, the keys of a
+// (batch, head) split into runs of whole 64-key tiles, one block each, the
+// blocks one thread-block cluster that combines each query's (m, l, D) in
+// rank order before any gradient; each block owns dk, dv and dbias of its
+// keys, and the blocks' dq are summed in rank order.
 //
 // bf16 (the 50salads decoder: Lq = 20, Lk = 256 or 512, D = 64; 17 MB in and
 // out at B = H = 8, Lk = 512) is a design of its own, in three launches that
@@ -94,383 +54,10 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-#include "attention_cluster.cuh"
+#include "attention_bwd_cluster.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
-
-// ---- the fp32 body ----
-
-constexpr int MAX_SPLITS = r3d::kMaxSplits;   // blocks per cluster (ops/attention.py)
-constexpr int F_QT = r3d::kF32QT;
-constexpr int F_KT = r3d::kF32KT;
-constexpr int F_QH = F_QT / 2;    // queries a thread scores: half the tile
-constexpr int F_NT = 2 * F_KT;    // threads per block: 4 warps, a key and a half tile each
-constexpr int F_DLD = F_KT + 1;   // row stride of w*keep and ds in shared memory
-
-// The scores s, g . v and keep factors of key `key0 + j` (row j of the
-// tile at `stage`) against queries q0 + 4h .. q0 + 4h + 3 (rows 4h.. of qs
-// and gs); keys past Lk score -inf.
-template <int D, bool kDropout>
-__device__ __forceinline__ void fp32_scores(const float* stage, const float* qs, const float* gs,
-                                            int j, int h, int key0, int q0, int bh, int Lq,
-                                            int Lk, float scale, uint32_t seed,
-                                            uint32_t threshold, float keep_scale,
-                                            float (&s)[F_QH], float (&gv)[F_QH],
-                                            float (&km)[F_QH]) {
-  constexpr int LD = r3d::kF32Ld<D>;
-#pragma unroll
-  for (int i = 0; i < F_QH; ++i) s[i] = gv[i] = 0.f;
-#pragma unroll 2   // c indexes shared memory only: a full unroll hoists every load
-  for (int c = 0; c < D / 4; ++c) {
-    const float4 kk = *reinterpret_cast<const float4*>(stage + j * LD + c * 4);
-    const float4 vv = *reinterpret_cast<const float4*>(stage + (F_KT + j) * LD + c * 4);
-#pragma unroll
-    for (int i = 0; i < F_QH; ++i) {
-      const float4 x = *reinterpret_cast<const float4*>(qs + (h * F_QH + i) * D + c * 4);
-      const float4 y = *reinterpret_cast<const float4*>(gs + (h * F_QH + i) * D + c * 4);
-      s[i] = fmaf(x.x, kk.x, fmaf(x.y, kk.y, fmaf(x.z, kk.z, fmaf(x.w, kk.w, s[i]))));
-      gv[i] = fmaf(y.x, vv.x, fmaf(y.y, vv.y, fmaf(y.z, vv.z, fmaf(y.w, vv.w, gv[i]))));
-    }
-  }
-  const int key = key0 + j;
-  const float bj = stage[2 * F_KT * LD + j];
-#pragma unroll
-  for (int i = 0; i < F_QH; ++i) {
-    s[i] = key < Lk ? s[i] * scale + bj : -INFINITY;
-    km[i] = 1.f;
-    if (kDropout) {
-      const uint32_t el = (static_cast<uint32_t>(bh) * Lq + q0 + h * F_QH + i) * Lk + key;
-      km[i] = r3d::dropout_bits(seed, el) >= threshold ? keep_scale : 0.f;
-    }
-  }
-}
-
-// A cluster barrier in two halves, for the exchange by pushing (each block
-// stores its partials into the shared memory of the blocks that combine
-// them, then one cluster.sync(), release and acquire, makes them visible and
-// every read is local, so no block has to wait for the others before it
-// exits): every block signals at its start that it runs (no memory
-// ordering), and waits for the others' signals only before its first store
-// into another block's shared memory, which must have started.
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-}
-
-// Blocks an SM the registers must leave room for: at D = 16, six (at most
-// 80 registers a thread; left free, the compiler takes twice that to hoist
-// every load of q and g) leave room for all of the main path's 64 clusters
-// of 8 at once (chip_smoke.py prints how many fit); D = 32 and 64 keep their
-// sums unspilled.
-constexpr int fp32_min_blocks(int D) { return D <= 16 ? 6 : D <= 32 ? 4 : 2; }
-
-template <int D, bool kDropout>
-__global__ void __launch_bounds__(F_NT, fp32_min_blocks(D))
-attention_bwd_cluster_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                             const float* __restrict__ v, const float* __restrict__ bias,
-                             const float* __restrict__ g, float* __restrict__ dq,
-                             float* __restrict__ dk, float* __restrict__ dv,
-                             float* __restrict__ dbias, int H, int Lq, int Lk, int split_keys,
-                             float scale, uint32_t seed, uint32_t threshold, float keep_scale) {
-  constexpr int LD = r3d::kF32Ld<D>;
-  constexpr int C4 = D / 4;
-  constexpr int DH = D / 2;               // the dims of dk and dv a thread owns
-  constexpr int OPT = F_QT * D / F_NT;    // (query, dim) pairs of dq a thread
-  extern __shared__ __align__(16) float f32_smem[];   // the ring: one or two stages
-  __shared__ __align__(16) float qs[F_QT * D];
-  __shared__ __align__(16) float gs[F_QT * D];
-  __shared__ float wk_s[F_QT * F_DLD];   // w * keep of the tile in hand
-  __shared__ float ds_s[F_QT * F_DLD];   // ds of the tile in hand (before the scale)
-  __shared__ float red[3][2][F_QT];      // the warps' (m, l, D-numerator)
-  __shared__ float cst[MAX_SPLITS][3][F_QT];   // every block's (m_i, l_i, D_i), pushed by it
-  __shared__ float fin[3][F_QT];               // the row's m, 1 / l and D
-  __shared__ float dqp[MAX_SPLITS][F_QT * D];  // every block's dq of this block's share
-
-  namespace cg = cooperative_groups;
-  cg::cluster_group cluster = cg::this_cluster();
-  const int split = static_cast<int>(cluster.block_rank());
-  const int n_split = static_cast<int>(cluster.num_blocks());
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int j = tid % F_KT;    // this thread's key of a tile
-  const int h = tid / F_KT;    // its half of the query tile, and of dk's and dv's dims
-  const int wh = (tid >> 5) & 1;   // its warp among the half's two
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int key_begin = split * split_keys;
-  const int ntiles = (min(split_keys, Lk - key_begin) + F_KT - 1) / F_KT;
-  const bool one_tile = ntiles == 1;   // the tile stays in the ring's first stage
-  const size_t kv0 = static_cast<size_t>(bh) * Lk * D;
-  const float* kb = k + kv0;
-  const float* vb = v + kv0;
-  const float* biasb = bias == nullptr ? nullptr : bias + static_cast<size_t>(b) * Lk;
-  const int n_qtiles = (Lq + F_QT - 1) / F_QT;
-
-  cluster_arrive_relaxed();   // this block runs
-  if (one_tile) r3d::f32_load_tile<D, F_NT>(f32_smem, kb, vb, biasb, key_begin, Lk);
-
-  // this thread's half of its key's rows of dk and dv, and the key's dbias
-  // (h == 0), summed over the query tiles in registers when the split is
-  // one tile
-  float dk_acc[DH], dv_acc[DH];
-  float db_acc = 0.f;
-#pragma unroll
-  for (int d = 0; d < DH; ++d) dk_acc[d] = dv_acc[d] = 0.f;
-  float s[F_QH], gv[F_QH], km[F_QH];   // of the tile in hand
-
-  for (int qt = 0; qt < n_qtiles; ++qt) {
-    const int q0 = qt * F_QT;
-    const int nq = min(F_QT, Lq - q0);
-    const bool last_q = qt == n_qtiles - 1;
-    __syncthreads();   // the previous query tile is done with qs, gs, wk_s, ds_s and fin
-    for (int idx = tid; idx < F_QT * C4; idx += F_NT) {
-      const int r = idx / C4;
-      const size_t off = (static_cast<size_t>(bh) * Lq + q0 + r) * D + (idx % C4) * 4;
-      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-      *reinterpret_cast<float4*>(qs + idx * 4) =
-          r < nq ? *reinterpret_cast<const float4*>(q + off) : zero;
-      *reinterpret_cast<float4*>(gs + idx * 4) =
-          r < nq ? *reinterpret_cast<const float4*>(g + off) : zero;
-    }
-    if (one_tile) {
-      if (qt == 0) r3d::cp_async_wait<0>();
-      __syncthreads();
-    } else {
-      r3d::f32_load_tile<D, F_NT>(f32_smem, kb, vb, biasb, key_begin, Lk);
-    }
-
-    // statistics: each warp's online (m, l, D-numerator) of its 4 queries
-    // over its 32 keys of every tile of the split
-    float wm[F_QH], wl[F_QH], wd[F_QH];
-#pragma unroll
-    for (int i = 0; i < F_QH; ++i) {
-      wm[i] = -INFINITY;
-      wl[i] = wd[i] = 0.f;
-    }
-    for (int t = 0; t < ntiles; ++t) {
-      const float* stage = one_tile ? f32_smem
-                                    : r3d::f32_ring_step<D, F_NT>(f32_smem, t, ntiles, kb, vb,
-                                                                  biasb, key_begin, Lk);
-      fp32_scores<D, kDropout>(stage, qs, gs, j, h, key_begin + t * F_KT, q0, bh, Lq, Lk, scale,
-                               seed, threshold, keep_scale, s, gv, km);
-#pragma unroll
-      for (int i = 0; i < F_QH; ++i) {
-        const float m_new = fmaxf(wm[i], r3d::warp_max(s[i]));
-        const float corr = m_new == -INFINITY ? 1.f : expf(wm[i] - m_new);
-        const float p = s[i] == -INFINITY ? 0.f : expf(s[i] - m_new);
-        wl[i] = fmaf(wl[i], corr, r3d::warp_sum(p));
-        wd[i] = fmaf(wd[i], corr, r3d::warp_sum(p * km[i] * gv[i]));
-        wm[i] = m_new;
-      }
-      if (!one_tile) __syncthreads();   // the stage is consumed before the ring refills it
-    }
-    if (lane == 0) {
-#pragma unroll
-      for (int i = 0; i < F_QH; ++i) {
-        red[0][wh][h * F_QH + i] = wm[i];
-        red[1][wh][h * F_QH + i] = wl[i];
-        red[2][wh][h * F_QH + i] = wd[i];
-      }
-    }
-    __syncthreads();
-    if (qt == 0) cluster_wait();   // every block of the cluster runs
-    if (tid < F_QT) {   // the half's two warps in warp order, into every block of the cluster
-      const float m0 = red[0][0][tid], m1 = red[0][1][tid];
-      const float m = fmaxf(m0, m1);
-      const float w0 = m0 == -INFINITY ? 0.f : expf(m0 - m);
-      const float w1 = m1 == -INFINITY ? 0.f : expf(m1 - m);
-      const float l = fmaf(red[1][1][tid], w1, red[1][0][tid] * w0);
-      const float dn = fmaf(red[2][1][tid], w1, red[2][0][tid] * w0);
-      for (int r = 0; r < n_split; ++r) {
-        float* c = cluster.map_shared_rank(&cst[split][0][0], r);
-        c[tid] = m;
-        c[F_QT + tid] = l;
-        c[2 * F_QT + tid] = dn;
-      }
-    }
-    cluster.sync();
-    if (tid < F_QT) {   // the cluster's blocks, in rank order
-      float m = cst[0][0][tid];
-#pragma unroll
-      for (int r = 1; r < MAX_SPLITS; ++r) m = r < n_split ? fmaxf(m, cst[r][0][tid]) : m;
-      float w[MAX_SPLITS];
-#pragma unroll
-      for (int r = 0; r < MAX_SPLITS; ++r) {   // every exponential at once
-        w[r] = r < n_split && cst[r][0][tid] != -INFINITY ? expf(cst[r][0][tid] - m) : 0.f;
-      }
-      float l = 0.f, dn = 0.f;
-#pragma unroll
-      for (int r = 0; r < MAX_SPLITS; ++r) {
-        if (r < n_split) {
-          l = fmaf(cst[r][1][tid], w[r], l);
-          dn = fmaf(cst[r][2][tid], w[r], dn);
-        }
-      }
-      const float inv_l = l > 0.f ? 1.f / l : 0.f;
-      fin[0][tid] = m;
-      fin[1][tid] = inv_l;
-      fin[2][tid] = dn * inv_l;
-    }
-    __syncthreads();
-
-    // gradients of the split's keys for this query tile
-    float dq_acc[OPT];
-#pragma unroll
-    for (int i = 0; i < OPT; ++i) dq_acc[i] = 0.f;
-    if (!one_tile) r3d::f32_load_tile<D, F_NT>(f32_smem, kb, vb, biasb, key_begin, Lk);
-    for (int t = 0; t < ntiles; ++t) {
-      const int key0 = key_begin + t * F_KT;
-      const float* stage = f32_smem;
-      if (!one_tile) {   // one tile: the statistics' scores are in hand
-        stage = r3d::f32_ring_step<D, F_NT>(f32_smem, t, ntiles, kb, vb, biasb, key_begin, Lk);
-        fp32_scores<D, kDropout>(stage, qs, gs, j, h, key0, q0, bh, Lq, Lk, scale, seed,
-                                 threshold, keep_scale, s, gv, km);
-      }
-#pragma unroll
-      for (int i = 0; i < F_QH; ++i) {   // w * keep and ds of this thread's 4 queries
-        const int qq = h * F_QH + i;
-        const bool ok = qq < nq && s[i] != -INFINITY;
-        const float w = ok ? expf(s[i] - fin[0][qq]) * fin[1][qq] : 0.f;
-        wk_s[qq * F_DLD + j] = w * km[i];
-        ds_s[qq * F_DLD + j] = w * (km[i] * gv[i] - fin[2][qq]);
-      }
-      __syncthreads();
-      // dk, dv (this thread's half of the dims) and dbias of its key
-      const int key = key0 + j;
-      const bool key_ok = key < Lk;
-      const size_t row = kv0 + static_cast<size_t>(key) * D + h * DH;
-      if (!one_tile) {   // this query tile's share joins the sums of the earlier ones
-#pragma unroll
-        for (int d = 0; d < DH; ++d) dk_acc[d] = dv_acc[d] = 0.f;
-        db_acc = 0.f;
-        if (qt > 0 && key_ok) {
-#pragma unroll
-          for (int c = 0; c < DH / 4; ++c) {
-            const float4 a = *reinterpret_cast<const float4*>(dk + row + c * 4);
-            const float4 e = *reinterpret_cast<const float4*>(dv + row + c * 4);
-            dk_acc[4 * c] = a.x, dk_acc[4 * c + 1] = a.y, dk_acc[4 * c + 2] = a.z,
-            dk_acc[4 * c + 3] = a.w;
-            dv_acc[4 * c] = e.x, dv_acc[4 * c + 1] = e.y, dv_acc[4 * c + 2] = e.z,
-            dv_acc[4 * c + 3] = e.w;
-          }
-          if (dbias != nullptr && h == 0) db_acc = dbias[static_cast<size_t>(bh) * Lk + key];
-        }
-      }
-#pragma unroll 2   // as in fp32_scores
-      for (int qq = 0; qq < F_QT; ++qq) {
-        const float dsv = ds_s[qq * F_DLD + j];
-        const float wkv = wk_s[qq * F_DLD + j];
-        db_acc += dsv;
-#pragma unroll
-        for (int c = 0; c < DH / 4; ++c) {
-          const float4 x = *reinterpret_cast<const float4*>(qs + qq * D + h * DH + c * 4);
-          const float4 y = *reinterpret_cast<const float4*>(gs + qq * D + h * DH + c * 4);
-          dk_acc[4 * c] = fmaf(dsv, x.x, dk_acc[4 * c]);
-          dk_acc[4 * c + 1] = fmaf(dsv, x.y, dk_acc[4 * c + 1]);
-          dk_acc[4 * c + 2] = fmaf(dsv, x.z, dk_acc[4 * c + 2]);
-          dk_acc[4 * c + 3] = fmaf(dsv, x.w, dk_acc[4 * c + 3]);
-          dv_acc[4 * c] = fmaf(wkv, y.x, dv_acc[4 * c]);
-          dv_acc[4 * c + 1] = fmaf(wkv, y.y, dv_acc[4 * c + 1]);
-          dv_acc[4 * c + 2] = fmaf(wkv, y.z, dv_acc[4 * c + 2]);
-          dv_acc[4 * c + 3] = fmaf(wkv, y.w, dv_acc[4 * c + 3]);
-        }
-      }
-      if (key_ok && (!one_tile || last_q)) {   // dk scaled once, at the last query tile
-        const float ks = last_q ? scale : 1.f;
-#pragma unroll
-        for (int c = 0; c < DH / 4; ++c) {
-          *reinterpret_cast<float4*>(dk + row + c * 4) =
-              make_float4(dk_acc[4 * c] * ks, dk_acc[4 * c + 1] * ks, dk_acc[4 * c + 2] * ks,
-                          dk_acc[4 * c + 3] * ks);
-          *reinterpret_cast<float4*>(dv + row + c * 4) =
-              make_float4(dv_acc[4 * c], dv_acc[4 * c + 1], dv_acc[4 * c + 2], dv_acc[4 * c + 3]);
-        }
-        if (dbias != nullptr && h == 0) dbias[static_cast<size_t>(bh) * Lk + key] = db_acc;
-      }
-      // this block's share of dq: sum over the tile's keys of ds k
-#pragma unroll
-      for (int i = 0; i < OPT; ++i) {
-        const int idx = tid + i * F_NT;
-        const float* dr = ds_s + (idx / D) * F_DLD;
-        const int d = idx % D;
-        float a = dq_acc[i];
-#pragma unroll 16
-        for (int jj = 0; jj < F_KT; ++jj) a = fmaf(dr[jj], stage[jj * LD + d], a);
-        dq_acc[i] = a;
-      }
-      __syncthreads();   // wk_s, ds_s and the stage are consumed
-    }
-
-    // dq: block r takes elements [r * share, (r + 1) * share) of the tile's;
-    // every block's share of them into it, then summed there in rank order
-    const int n_out = nq * D;
-    const int share = (n_out + n_split - 1) / n_split;
-#pragma unroll
-    for (int i = 0; i < OPT; ++i) {
-      const int idx = tid + i * F_NT;
-      if (idx < n_out) cluster.map_shared_rank(&dqp[split][0], idx / share)[idx] = dq_acc[i];
-    }
-    cluster.sync();
-    const int end = min(n_out, (split + 1) * share);
-    float* dqb = dq + (static_cast<size_t>(bh) * Lq + q0) * D;
-    for (int idx = split * share + tid; idx < end; idx += F_NT) {
-      float a = dqp[0][idx];
-#pragma unroll
-      for (int r = 1; r < MAX_SPLITS; ++r) a += r < n_split ? dqp[r][idx] : 0.f;
-      dqb[idx] = a * scale;
-    }
-  }
-}
-
-template <int D, bool kDropout>
-int launch_fp32(const float* q, const float* k, const float* v, const float* bias, const float* g,
-                float* dq, float* dk, float* dv, float* dbias, int B, int H, int Lq, int Lk,
-                int split_keys, float scale, uint32_t seed, uint32_t threshold, float keep_scale,
-                cudaStream_t stream) {
-  const auto kernel = attention_bwd_cluster_kernel<D, kDropout>;
-  r3d::ClusterLaunch l;   // the n_split blocks of a (batch, head): one cluster
-  cudaError_t err = l.init(kernel, dim3((Lk + split_keys - 1) / split_keys, B * H), F_NT,
-                           r3d::f32_ring_bytes<D>(split_keys), stream);
-  if (err == cudaSuccess) {
-    err = cudaLaunchKernelEx(&l.cfg, kernel, q, k, v, bias, g, dq, dk, dv, dbias, H, Lq, Lk,
-                             split_keys, scale, seed, threshold, keep_scale);
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int D, bool kDropout>
-int fp32_occupancy(int B, int H, int Lk, int split_keys, int* clusters) {
-  const auto kernel = attention_bwd_cluster_kernel<D, kDropout>;
-  r3d::ClusterLaunch l;
-  cudaError_t err = l.init(kernel, dim3((Lk + split_keys - 1) / split_keys, B * H), F_NT,
-                           r3d::f32_ring_bytes<D>(split_keys), nullptr);
-  if (err == cudaSuccess) err = l.max_active(kernel, clusters);
-  return static_cast<int>(err);
-}
-
-template <bool kDropout>
-int dispatch_fp32(const float* q, const float* k, const float* v, const float* bias,
-                  const float* g, float* dq, float* dk, float* dv, float* dbias, int B, int H,
-                  int Lq, int Lk, int D, int split_keys, float scale, uint32_t seed,
-                  uint32_t threshold, float keep_scale, cudaStream_t s) {
-  switch (D) {
-    case 16:
-      return launch_fp32<16, kDropout>(q, k, v, bias, g, dq, dk, dv, dbias, B, H, Lq, Lk,
-                                       split_keys, scale, seed, threshold, keep_scale, s);
-    case 32:
-      return launch_fp32<32, kDropout>(q, k, v, bias, g, dq, dk, dv, dbias, B, H, Lq, Lk,
-                                       split_keys, scale, seed, threshold, keep_scale, s);
-    case 64:
-      return launch_fp32<64, kDropout>(q, k, v, bias, g, dq, dk, dv, dbias, B, H, Lq, Lk,
-                                       split_keys, scale, seed, threshold, keep_scale, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
 
 // ---- the bf16 body ----
 
@@ -863,34 +450,20 @@ extern "C" int r3d_attention_bwd(const float* q, const float* k, const float* v,
                                  float* dv, float* dbias, int B, int H, int Lq, int Lk, int D,
                                  int split_keys, float scale, int dropout, uint32_t seed,
                                  uint32_t threshold, float keep_scale, void* stream) {
-  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || split_keys <= 0 || split_keys % F_KT != 0 ||
-      (Lk + split_keys - 1) / split_keys > MAX_SPLITS) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dropout ? dispatch_fp32<true>(q, k, v, bias, g, dq, dk, dv, dbias, B, H, Lq, Lk, D,
-                                       split_keys, scale, seed, threshold, keep_scale, s)
-                 : dispatch_fp32<false>(q, k, v, bias, g, dq, dk, dv, dbias, B, H, Lq, Lk, D,
-                                        split_keys, scale, seed, threshold, keep_scale, s);
+  return dropout ? r3d::bwd_cluster_dispatch<true, false>(
+                       q, k, v, bias, g, nullptr, nullptr, nullptr, dq, dk, dv, dbias, B, H, Lq,
+                       Lk, D, split_keys, scale, seed, threshold, keep_scale, s)
+                 : r3d::bwd_cluster_dispatch<false, false>(
+                       q, k, v, bias, g, nullptr, nullptr, nullptr, dq, dk, dv, dbias, B, H, Lq,
+                       Lk, D, split_keys, scale, seed, threshold, keep_scale, s);
 }
 
 // How many clusters of r3d_attention_bwd's fp32 launch at these sizes the
 // card holds at once (cudaOccupancyMaxActiveClusters); launches nothing.
 extern "C" int r3d_attention_bwd_clusters(int B, int H, int Lk, int D, int split_keys, int dropout,
                                           int* clusters) {
-  if (split_keys <= 0 || split_keys % F_KT != 0 ||
-      (Lk + split_keys - 1) / split_keys > MAX_SPLITS) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  switch (D * 2 + (dropout != 0)) {
-    case 32: return fp32_occupancy<16, false>(B, H, Lk, split_keys, clusters);
-    case 33: return fp32_occupancy<16, true>(B, H, Lk, split_keys, clusters);
-    case 64: return fp32_occupancy<32, false>(B, H, Lk, split_keys, clusters);
-    case 65: return fp32_occupancy<32, true>(B, H, Lk, split_keys, clusters);
-    case 128: return fp32_occupancy<64, false>(B, H, Lk, split_keys, clusters);
-    case 129: return fp32_occupancy<64, true>(B, H, Lk, split_keys, clusters);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return r3d::bwd_cluster_occupancy<false>(B, H, Lk, D, split_keys, dropout, clusters);
 }
 
 // bf16 q, k, v, g (16-byte aligned) and dq, dk, dv, laid out as above; bias

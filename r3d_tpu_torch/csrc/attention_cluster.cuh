@@ -1,10 +1,14 @@
-// Shared by the fp32 cluster bodies of K3 (attention.cu) and K5
-// (attention_bwd.cu): the tile shape, the copy of a tile of keys into shared
-// memory and the launch. The keys of one (batch, head) are split into at
-// most 8 runs of whole tiles of 64 (ops/attention.py:fp32_split_keys), one
-// block each, and the blocks of one (batch, head) and query tile form one
-// thread-block cluster. A split of one tile copies it once at its start; a
-// longer one walks its tiles through a ring of two stages.
+// Shared by the fp32 cluster bodies of the attention forward
+// (attention_fwd_cluster.cuh: K3, K4, K6) and backward
+// (attention_bwd_cluster.cuh: K5, K7): the tile shape, the copy of a tile of
+// keys into shared memory and the launch. The keys of one (batch, head) are
+// split into at most 8 runs of whole tiles of 64
+// (ops/attention.py:fp32_split_keys), one block each, and the blocks of one
+// (batch, head) and query tile form one thread-block cluster. A split of one
+// tile copies it once at its start; a longer one walks its tiles through a
+// ring of two stages. K and V rows lie `ld` floats apart in device memory: D
+// in the head-major layout [B, H, L, D], H * D in the projections' native
+// layout [B, L, H * D], where a head's row is 4*D bytes of a longer one.
 #pragma once
 
 #include "common.cuh"
@@ -26,14 +30,14 @@ constexpr int kF32Stage = 2 * kF32KT * kF32Ld<D> + kF32KT;
 // commit group.
 template <int D, int NT>
 __device__ __forceinline__ void f32_load_tile(float* stage, const float* kb, const float* vb,
-                                              const float* biasb, int key0, int Lk) {
+                                              const float* biasb, int key0, int Lk, int ld) {
   constexpr int C4 = D / 4;
   constexpr int LD = kF32Ld<D>;
   for (int idx = threadIdx.x; idx < kF32KT * C4; idx += NT) {
     const int r = idx / C4;
     const int c = idx % C4;
     const bool ok = key0 + r < Lk;
-    const size_t off = static_cast<size_t>(ok ? key0 + r : 0) * D + c * 4;
+    const size_t off = static_cast<size_t>(ok ? key0 + r : 0) * ld + c * 4;
     cp_async16(stage + r * LD + c * 4, kb + off, ok);
     cp_async16(stage + (kF32KT + r) * LD + c * 4, vb + off, ok);
   }
@@ -53,11 +57,12 @@ __device__ __forceinline__ void f32_load_tile(float* stage, const float* kb, con
 template <int D, int NT>
 __device__ __forceinline__ const float* f32_ring_step(float* ring, int t, int ntiles,
                                                       const float* kb, const float* vb,
-                                                      const float* biasb, int key_begin, int Lk) {
+                                                      const float* biasb, int key_begin, int Lk,
+                                                      int ld) {
   const bool next = t + 1 < ntiles;
   if (next) {
     f32_load_tile<D, NT>(ring + ((t + 1) & 1) * kF32Stage<D>, kb, vb, biasb,
-                         key_begin + (t + 1) * kF32KT, Lk);
+                         key_begin + (t + 1) * kF32KT, Lk, ld);
     cp_async_wait<1>();
   } else {
     cp_async_wait<0>();

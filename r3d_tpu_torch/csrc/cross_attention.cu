@@ -54,22 +54,26 @@
 // depends on the card's SM count, so results are bit-equal between calls on
 // one card, not between cards of different sizes.
 //
-// fp32 keeps the body of attention.cu's K4 (attention_fwd.cuh) on the
-// native layout: one block per (batch, head, tile of 8 queries), one warp per
-// query. Under R3D_CROSS_NATIVE=1 (off by default) the utkinects decoder's
-// cross-attention runs it in its 1024 and 2000 buckets: B = 8, Lq = 8,
-// S = 1,024 or 2,000, C = 128, H = 8, D = 16.
+// fp32 (the utkinects decoder's 1024 and 2000 buckets under
+// R3D_CROSS_NATIVE=1, off by default: B = 8, Lq = 8, S = 1,024 or 2,000,
+// C = 128, H = 8, D = 16; 16.4 MB of K and V at S = 2,000, 0.0049 ms at
+// 3.35 TB/s) runs the cluster body of fp32 K3 and K4
+// (attention_fwd_cluster.cuh, see its note) on the native layout, one
+// launch: the keys of a (batch, head) split into runs of `split_keys`
+// (ops/cross_attention.py: 8 of 256 at S = 2,000, of 128 at 1,024; 64
+// clusters of 8 blocks, one wave), each block walking its tiles of 64 keys
+// through a cp.async ring of two, the runs combined in rank order through
+// distributed shared memory; the block that owns a row's first output
+// element writes its (m, l). No scratch, no atomics, bit-equal calls.
 
 #include <cuda_runtime.h>
 
-#include "attention_fwd.cuh"
+#include "attention_fwd_cluster.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-
-constexpr int QB = r3d::kAttnQB;
 
 // ---- the bf16 body ----
 
@@ -428,33 +432,29 @@ int dispatch_bf16(int D, const void* q, const void* k, const void* v, const floa
   }
 }
 
-// ---- the fp32 body: attention_fwd.cuh on the native layout ----
-
-template <int D, bool kDropout>
-int launch_fp32(const void* q, const void* k, const void* v, const float* bias, void* out,
-                float* m, float* l, int B, int Lq, int S, int H, float scale, uint32_t seed,
-                uint32_t threshold, float keep_scale, cudaStream_t stream) {
-  const dim3 grid(B * H, (Lq + QB - 1) / QB);
-  r3d::attention_fwd_kernel<D, kDropout, true><<<grid, QB * 32, 0, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      bias, static_cast<float*>(out), m, l, H, Lq, S, scale, seed, threshold, keep_scale);
-  return static_cast<int>(cudaGetLastError());
-}
+// ---- the fp32 body: attention_fwd_cluster.cuh on the native layout ----
 
 template <bool kDropout>
 int dispatch_fp32(int D, const void* q, const void* k, const void* v, const float* bias, void* out,
-                  float* m, float* l, int B, int Lq, int S, int H, float scale, uint32_t seed,
-                  uint32_t threshold, float keep_scale, cudaStream_t s) {
+                  float* m, float* l, int split_keys, int B, int Lq, int S, int H, float scale,
+                  uint32_t seed, uint32_t threshold, float keep_scale, cudaStream_t s) {
+  const auto* qf = static_cast<const float*>(q);
+  const auto* kf = static_cast<const float*>(k);
+  const auto* vf = static_cast<const float*>(v);
+  auto* of = static_cast<float*>(out);
   switch (D) {
     case 16:
-      return launch_fp32<16, kDropout>(q, k, v, bias, out, m, l, B, Lq, S, H, scale, seed,
-                                       threshold, keep_scale, s);
+      return r3d::fwd_cluster_launch<16, kDropout, true>(qf, kf, vf, bias, of, m, l, B, H, Lq, S,
+                                                         split_keys, scale, seed, threshold,
+                                                         keep_scale, s);
     case 32:
-      return launch_fp32<32, kDropout>(q, k, v, bias, out, m, l, B, Lq, S, H, scale, seed,
-                                       threshold, keep_scale, s);
+      return r3d::fwd_cluster_launch<32, kDropout, true>(qf, kf, vf, bias, of, m, l, B, H, Lq, S,
+                                                         split_keys, scale, seed, threshold,
+                                                         keep_scale, s);
     case 64:
-      return launch_fp32<64, kDropout>(q, k, v, bias, out, m, l, B, Lq, S, H, scale, seed,
-                                       threshold, keep_scale, s);
+      return r3d::fwd_cluster_launch<64, kDropout, true>(qf, kf, vf, bias, of, m, l, B, H, Lq, S,
+                                                         split_keys, scale, seed, threshold,
+                                                         keep_scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -463,13 +463,14 @@ int dispatch_fp32(int D, const void* q, const void* k, const void* v, const floa
 }  // namespace
 
 // dtype 0: fp32, 1: bf16 (q, k, v and out). q, out [B, Lq, C]; k, v [B, S, C];
-// bias [B, S] fp32 or null; m, l [B, H, Lq] fp32; all contiguous, C = H * D
-// with D 16, 32 or 64. bf16 only: q, k and v 16-byte aligned, Lq <= 64,
-// `split_keys` the keys per block (a multiple of 128) and `part` an fp32
-// scratch of n_split * B*H*Lq * (D + 2) values with n_split =
-// ceil(S / split_keys) (fp32 ignores both). With `dropout`, an element is
-// kept when its dropout bits under `seed` are >= `threshold` and then scaled
-// by `keep_scale`; B*H*Lq*S must fit in 32 bits.
+// bias [B, S] fp32 or null; m, l [B, H, Lq] fp32; all contiguous, q, k and v
+// 16-byte aligned, C = H * D with D 16, 32 or 64. `split_keys` is the keys
+// per block: fp32, a multiple of 64 with at most 8 splits
+// (ops/attention.py:fp32_split_keys); bf16, a multiple of 128 with Lq <= 64,
+// and `part` an fp32 scratch of n_split * B*H*Lq * (D + 2) values with
+// n_split = ceil(S / split_keys) (fp32 takes none). With
+// `dropout`, an element is kept when its dropout bits under `seed` are >=
+// `threshold` and then scaled by `keep_scale`; B*H*Lq*S must fit in 32 bits.
 extern "C" int r3d_cross_attention_fwd(int dtype, const void* q, const void* k, const void* v,
                                        const float* bias, void* out, float* m, float* l,
                                        float* part, int split_keys, int B, int Lq, int S, int H,
@@ -479,10 +480,10 @@ extern "C" int r3d_cross_attention_fwd(int dtype, const void* q, const void* k, 
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return dropout ? dispatch_fp32<true>(D, q, k, v, bias, out, m, l, B, Lq, S, H, scale, seed,
-                                           threshold, keep_scale, s)
-                     : dispatch_fp32<false>(D, q, k, v, bias, out, m, l, B, Lq, S, H, scale, seed,
-                                            threshold, keep_scale, s);
+      return dropout ? dispatch_fp32<true>(D, q, k, v, bias, out, m, l, split_keys, B, Lq, S, H,
+                                           scale, seed, threshold, keep_scale, s)
+                     : dispatch_fp32<false>(D, q, k, v, bias, out, m, l, split_keys, B, Lq, S, H,
+                                            scale, seed, threshold, keep_scale, s);
     case 1:
       return dropout ? dispatch_bf16<true>(D, q, k, v, bias, out, m, l, part, split_keys, B, Lq, S,
                                            H, scale, seed, threshold, keep_scale, s)
@@ -490,5 +491,17 @@ extern "C" int r3d_cross_attention_fwd(int dtype, const void* q, const void* k, 
                                             H, scale, seed, threshold, keep_scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// How many clusters of r3d_cross_attention_fwd's fp32 launch at these sizes
+// the card holds at once (cudaOccupancyMaxActiveClusters); launches nothing.
+extern "C" int r3d_cross_attention_fwd_clusters(int B, int H, int Lq, int S, int D,
+                                                int split_keys, int* clusters) {
+  switch (D) {
+    case 16: return r3d::fwd_cluster_occupancy<16, true>(B, H, Lq, S, split_keys, clusters);
+    case 32: return r3d::fwd_cluster_occupancy<32, true>(B, H, Lq, S, split_keys, clusters);
+    case 64: return r3d::fwd_cluster_occupancy<64, true>(B, H, Lq, S, split_keys, clusters);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -54,217 +54,28 @@
 //
 // fp32 (the utkinects decoder's 1024 and 2000 buckets under
 // R3D_CROSS_NATIVE=1, off by default: B = 8, Lq = 8, S = 1,024 or 2,000,
-// C = 128, H = 8, D = 16) keeps the first, simple body: block (key block of
-// KB = 64, batch) walks the heads, and per head stages q, g (all Lq <= 64
-// queries), the block's K and V columns of the head, and the statistics in
-// shared memory (fp32), then
-//   (1) every thread takes (query, key) pairs: the score, g . v, w, w*keep
-//       and ds into shared memory;
-//   (2) every thread takes (key, dim) pairs: dk and dv of its keys, complete
-//       in this block, written once;
-//   (3) every thread takes (query, dim) pairs: this block's share of dq,
-//       written to its own slice of an fp32 scratch [n_blocks, B, Lq, C].
-// A second launch sums the slices in block order into dq. dbias accumulates
-// in registers over heads and queries and is summed over the block's threads
-// in a fixed order.
+// C = 128, H = 8, D = 16; 32.8 MB in and out at S = 2,000, 0.0099 ms at
+// 3.35 TB/s) runs the cluster body of fp32 K5 (attention_bwd_cluster.cuh,
+// see its note) on the native layout with the forward's statistics given,
+// one launch: the keys of a (batch, head) split into runs of `split_keys`
+// (ops/attention.py:fp32_split_keys: 8 of 256 at S = 2,000; 64 clusters of 8
+// blocks, one wave), each block walking its tiles of 64 keys through a
+// cp.async ring of two and owning dk, dv and the per-head dbias slice of
+// its keys; dq summed in rank order through distributed shared memory. No
+// scratch, no atomics, bit-equal calls.
 
 #include <cuda_runtime.h>
 
-#include "common.cuh"
+#include "attention_bwd_cluster.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
-
-// ---- the fp32 body ----
-
-constexpr int KB = 64;    // keys per block (ops/cross_attention.py: BWD_TILE_KEYS)
-constexpr int NT = 256;   // threads per block; NT % KB == 0
-constexpr int MAXQ = 64;  // queries held in shared memory (ops/cross_attention.py: MAX_QUERIES)
-
-template <int D>
-size_t smem_bytes(int Lq) {
-  return sizeof(float) * (2 * Lq * D + 2 * KB * (D + 1) + 2 * Lq * KB + 3 * Lq + KB + NT);
-}
-
-template <typename T, int D, bool kDropout>
-__global__ void __launch_bounds__(NT)
-cross_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, const float* __restrict__ bias,
-                           const T* __restrict__ g, const T* __restrict__ o,
-                           const float* __restrict__ m_in, const float* __restrict__ l_in,
-                           float* __restrict__ dq_part, T* __restrict__ dk,
-                           T* __restrict__ dv, float* __restrict__ dbias, int B, int H, int Lq,
-                           int S, float scale, uint32_t seed, uint32_t threshold,
-                           float keep_scale) {
-  constexpr int LDK = D + 1;   // row j of ks/vs conflict-free across lanes
-  extern __shared__ float smem[];
-  float* qs = smem;                 // [Lq, D]
-  float* gs = qs + Lq * D;          // [Lq, D]
-  float* ks = gs + Lq * D;          // [KB, LDK]
-  float* vs = ks + KB * LDK;        // [KB, LDK]
-  float* wk = vs + KB * LDK;        // [Lq, KB]  w * keep
-  float* dsr = wk + Lq * KB;        // [Lq, KB]  ds rounded to T
-  float* delta = dsr + Lq * KB;     // [Lq]
-  float* mrow = delta + Lq;         // [Lq]
-  float* linv = mrow + Lq;          // [Lq]  1 / max(l, 1e-30)
-  float* bs = linv + Lq;            // [KB]
-  float* red = bs + KB;             // [NT]
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int blk = blockIdx.x;
-  const int b = blockIdx.y;
-  const int j0 = blk * KB;
-  const int nk = min(KB, S - j0);
-  const int C = H * D;
-  const size_t q0 = static_cast<size_t>(b) * Lq * C;
-  const size_t k0 = (static_cast<size_t>(b) * S + j0) * C;
-
-  if (tid < KB) {
-    bs[tid] = (tid < nk && bias != nullptr) ? bias[static_cast<size_t>(b) * S + j0 + tid] : 0.f;
-  }
-  float db_acc = 0.f;   // this thread's key is tid % KB (NT % KB == 0)
-
-  for (int h = 0; h < H; ++h) {
-    __syncthreads();   // the previous head is done with every buffer
-    for (int idx = tid; idx < Lq * D; idx += NT) {
-      const size_t off = q0 + static_cast<size_t>(idx / D) * C + h * D + idx % D;
-      qs[idx] = r3d::to_float(q[off]);
-      gs[idx] = r3d::to_float(g[off]);
-    }
-    for (int idx = tid; idx < KB * D; idx += NT) {
-      const int j = idx / D;
-      const int d = idx % D;
-      const bool ok = j < nk;
-      const size_t off = k0 + static_cast<size_t>(j) * C + h * D + d;
-      ks[j * LDK + d] = ok ? r3d::to_float(k[off]) : 0.f;
-      vs[j * LDK + d] = ok ? r3d::to_float(v[off]) : 0.f;
-    }
-    for (int qi = warp; qi < Lq; qi += NT / 32) {
-      const size_t off = q0 + static_cast<size_t>(qi) * C + h * D;
-      float a = 0.f;
-      for (int d = lane; d < D; d += 32) {
-        a += r3d::to_float(g[off + d]) * r3d::to_float(o[off + d]);
-      }
-      a = r3d::warp_sum(a);
-      if (lane == 0) {
-        const size_t st = (static_cast<size_t>(b) * H + h) * Lq + qi;
-        delta[qi] = a;
-        mrow[qi] = m_in[st];
-        linv[qi] = 1.f / fmaxf(l_in[st], 1e-30f);
-      }
-    }
-    __syncthreads();
-
-    // (1) (query, key) pairs: w * keep and ds
-    for (int idx = tid; idx < Lq * KB; idx += NT) {
-      const int qi = idx / KB;
-      const int j = idx % KB;
-      float wkv = 0.f;
-      float dsv = 0.f;
-      if (j < nk) {
-        float dot = 0.f;
-        float gv = 0.f;
-#pragma unroll
-        for (int d = 0; d < D; ++d) {
-          dot = fmaf(qs[qi * D + d], ks[j * LDK + d], dot);
-          gv = fmaf(gs[qi * D + d], vs[j * LDK + d], gv);
-        }
-        const float s = dot * scale + bs[j];
-        const float w = expf(s - mrow[qi]) * linv[qi];
-        float km = 1.f;
-        if (kDropout) {
-          const uint32_t el = ((static_cast<uint32_t>(b) * H + h) * Lq + qi) * S + j0 + j;
-          km = r3d::dropout_bits(seed, el) >= threshold ? keep_scale : 0.f;
-        }
-        wkv = w * km;
-        dsv = w * (gv * km - delta[qi]);
-      }
-      wk[idx] = wkv;
-      dsr[idx] = r3d::round_to<T>(dsv);
-      db_acc += dsv;
-    }
-    __syncthreads();
-
-    // (2) (key, dim) pairs: dk and dv of this block's keys
-    for (int idx = tid; idx < KB * D; idx += NT) {
-      const int j = idx / D;
-      const int d = idx % D;
-      if (j >= nk) continue;
-      float a_v = 0.f;
-      float a_k = 0.f;
-      for (int qi = 0; qi < Lq; ++qi) {
-        a_v = fmaf(wk[qi * KB + j], gs[qi * D + d], a_v);
-        a_k = fmaf(dsr[qi * KB + j], qs[qi * D + d], a_k);
-      }
-      const size_t off = k0 + static_cast<size_t>(j) * C + h * D + d;
-      dv[off] = r3d::from_float<T>(a_v);
-      dk[off] = r3d::from_float<T>(a_k * scale);
-    }
-
-    // (3) (query, dim) pairs: this block's share of dq
-    for (int idx = tid; idx < Lq * D; idx += NT) {
-      const int qi = idx / D;
-      const int d = idx % D;
-      float a = 0.f;
-#pragma unroll 8
-      for (int j = 0; j < KB; ++j) a = fmaf(dsr[qi * KB + j], ks[j * LDK + d], a);
-      dq_part[((static_cast<size_t>(blk) * B + b) * Lq + qi) * C + h * D + d] = a * scale;
-    }
-  }
-
-  if (dbias != nullptr) {
-    red[tid] = db_acc;
-    __syncthreads();
-    if (tid < nk) {
-      float a = 0.f;
-      for (int r = tid; r < NT; r += KB) a += red[r];
-      dbias[static_cast<size_t>(b) * S + j0 + tid] = a;
-    }
-  }
-}
-
-// dq[i] = sum over blocks, in block order, of dq_part[blk, i].
-template <typename T>
-__global__ void dq_reduce_kernel(const float* __restrict__ part, T* __restrict__ dq,
-                                 int n_blocks, size_t n) {
-  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
-       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    float a = 0.f;
-    for (int blk = 0; blk < n_blocks; ++blk) a += part[static_cast<size_t>(blk) * n + i];
-    dq[i] = r3d::from_float<T>(a);
-  }
-}
-
-template <int D, bool kDropout>
-int launch_fp32(const void* q, const void* k, const void* v, const float* bias, const void* g,
-                const void* o, const float* m, const float* l, float* dq_part, void* dq, void* dk,
-                void* dv, float* dbias, int B, int Lq, int S, int H, float scale, uint32_t seed,
-                uint32_t threshold, float keep_scale, cudaStream_t stream) {
-  using T = float;
-  const int n_blocks = (S + KB - 1) / KB;
-  cudaError_t err = cudaFuncSetAttribute(cross_attention_bwd_kernel<T, D, kDropout>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem_bytes<D>(MAXQ)));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cross_attention_bwd_kernel<T, D, kDropout><<<dim3(n_blocks, B), NT, smem_bytes<D>(Lq), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias,
-      static_cast<const T*>(g), static_cast<const T*>(o), m, l, dq_part, static_cast<T*>(dk),
-      static_cast<T*>(dv), dbias, B, H, Lq, S, scale, seed, threshold, keep_scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t n = static_cast<size_t>(B) * Lq * H * D;
-  const size_t want = (n + 255) / 256;
-  const int grid = static_cast<int>(want < 1024 ? want : 1024);
-  dq_reduce_kernel<T><<<grid, 256, 0, stream>>>(dq_part, static_cast<T*>(dq), n_blocks, n);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // ---- the bf16 body ----
 
 using bf16 = __nv_bfloat16;
 
+constexpr int MAXQ = 64;     // queries held in shared memory (ops/cross_attention.py: MAX_QUERIES)
 constexpr int KT = 64;       // keys per tile (ops/cross_attention.py: BWD_TILE_KEYS)
 constexpr int NW = 4;        // warps per block, 16 keys of each tile
 constexpr int NTH = NW * 32;
@@ -620,52 +431,55 @@ int launch_bf16(const void* q, const void* k, const void* v, const float* bias, 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, bool kDropout>
-int launch(int dtype, const void* q, const void* k, const void* v, const float* bias,
-           const void* g, const void* o, const float* m, const float* l, float* part, void* dq,
-           void* dk, void* dv, float* dbias, int B, int Lq, int S, int H, int split_keys,
-           float scale, uint32_t seed, uint32_t threshold, float keep_scale, cudaStream_t s) {
-  if (dtype == 0) {
-    if (split_keys != KB) return static_cast<int>(cudaErrorInvalidValue);
-    return launch_fp32<D, kDropout>(q, k, v, bias, g, o, m, l, part, dq, dk, dv, dbias, B, Lq, S,
-                                    H, scale, seed, threshold, keep_scale, s);
-  }
-  if (split_keys % KT != 0) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_bf16<D, kDropout>(q, k, v, bias, g, o, m, l, part, dq, dk, dv, dbias, B, Lq, S, H,
-                                  split_keys, scale, seed, threshold, keep_scale, s);
-}
-
 template <bool kDropout>
-int dispatch(int dtype, int D, const void* q, const void* k, const void* v, const float* bias,
-             const void* g, const void* o, const float* m, const float* l, float* part, void* dq,
-             void* dk, void* dv, float* dbias, int B, int Lq, int S, int H, int split_keys,
-             float scale, uint32_t seed, uint32_t threshold, float keep_scale, cudaStream_t s) {
+int dispatch_bf16(int D, const void* q, const void* k, const void* v, const float* bias,
+                  const void* g, const void* o, const float* m, const float* l, float* part,
+                  void* dq, void* dk, void* dv, float* dbias, int B, int Lq, int S, int H,
+                  int split_keys, float scale, uint32_t seed, uint32_t threshold,
+                  float keep_scale, cudaStream_t s) {
+  if (part == nullptr || split_keys % KT != 0) return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
     case 16:
-      return launch<16, kDropout>(dtype, q, k, v, bias, g, o, m, l, part, dq, dk, dv, dbias, B, Lq,
-                                  S, H, split_keys, scale, seed, threshold, keep_scale, s);
+      return launch_bf16<16, kDropout>(q, k, v, bias, g, o, m, l, part, dq, dk, dv, dbias, B, Lq,
+                                       S, H, split_keys, scale, seed, threshold, keep_scale, s);
     case 32:
-      return launch<32, kDropout>(dtype, q, k, v, bias, g, o, m, l, part, dq, dk, dv, dbias, B, Lq,
-                                  S, H, split_keys, scale, seed, threshold, keep_scale, s);
+      return launch_bf16<32, kDropout>(q, k, v, bias, g, o, m, l, part, dq, dk, dv, dbias, B, Lq,
+                                       S, H, split_keys, scale, seed, threshold, keep_scale, s);
     case 64:
-      return launch<64, kDropout>(dtype, q, k, v, bias, g, o, m, l, part, dq, dk, dv, dbias, B, Lq,
-                                  S, H, split_keys, scale, seed, threshold, keep_scale, s);
+      return launch_bf16<64, kDropout>(q, k, v, bias, g, o, m, l, part, dq, dk, dv, dbias, B, Lq,
+                                       S, H, split_keys, scale, seed, threshold, keep_scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+// fp32: the cluster body on the native layout, the forward's statistics given
+template <bool kDropout>
+int dispatch_fp32(int D, const void* q, const void* k, const void* v, const float* bias,
+                  const void* g, const void* o, const float* m, const float* l, void* dq,
+                  void* dk, void* dv, float* dbias, int B, int Lq, int S, int H, int split_keys,
+                  float scale, uint32_t seed, uint32_t threshold, float keep_scale,
+                  cudaStream_t s) {
+  const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  return r3d::bwd_cluster_dispatch<kDropout, true>(
+      f(q), f(k), f(v), bias, f(g), f(o), m, l, static_cast<float*>(dq), static_cast<float*>(dk),
+      static_cast<float*>(dv), dbias, B, H, Lq, S, D, split_keys, scale, seed, threshold,
+      keep_scale, s);
+}
+
 }  // namespace
 
 // dtype 0: fp32, 1: bf16 (q, k, v, g, o, dq, dk, dv). q, g, o, dq [B, Lq, C];
-// k, v, dk, dv [B, S, C]; bias [B, S] fp32 or null; m, l [B, H, Lq] fp32;
-// dbias [B, S] fp32 or null (then not computed). All contiguous; C = H * D
-// with D 16, 32 or 64; Lq <= 64. `split_keys` is the keys per block and
-// `part` an fp32 scratch: fp32 takes split_keys = 64 and part
-// [ceil(S / 64), B, Lq, C]; bf16 (q, k, v, g 16-byte aligned) takes a
-// multiple of 64 and part [n_split, B, Lq, C] with n_split =
-// ceil(S / split_keys), followed, when dbias is not null, by [H, B, S]. With
-// `dropout`, the keep mask is drawn as r3d_cross_attention_fwd draws it.
+// k, v, dk, dv [B, S, C]; bias [B, S] fp32 or null; m, l [B, H, Lq] fp32.
+// All contiguous, q, k, v, g (fp32: and o) 16-byte aligned; C = H * D with D
+// 16, 32 or 64; Lq <= 64. `split_keys` is the keys per block. fp32: a
+// multiple of 64 with at most 8 splits (ops/attention.py:fp32_split_keys),
+// no scratch (`part` is not read), and dbias [B, H, S] fp32 or null: each
+// head's column sums of ds, for the caller to sum over heads. bf16: a
+// multiple of 64, `part` an fp32 scratch [n_split, B, Lq, C] with n_split =
+// ceil(S / split_keys), followed, when dbias is not null, by [H, B, S], and
+// dbias [B, S] fp32 or null. A null dbias is not computed. With `dropout`,
+// the keep mask is drawn as r3d_cross_attention_fwd draws it.
 extern "C" int r3d_cross_attention_bwd(int dtype, const void* q, const void* k, const void* v,
                                        const float* bias, const void* g, const void* o,
                                        const float* m, const float* l, float* part, void* dq,
@@ -678,10 +492,24 @@ extern "C" int r3d_cross_attention_bwd(int dtype, const void* q, const void* k, 
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dropout ? dispatch<true>(dtype, D, q, k, v, bias, g, o, m, l, part, dq, dk, dv, dbias, B,
-                                  Lq, S, H, split_keys, scale, seed, threshold, keep_scale, s)
-                 : dispatch<false>(dtype, D, q, k, v, bias, g, o, m, l, part, dq, dk, dv, dbias, B,
-                                   Lq, S, H, split_keys, scale, seed, threshold, keep_scale, s);
+  if (dtype == 0) {
+    return dropout ? dispatch_fp32<true>(D, q, k, v, bias, g, o, m, l, dq, dk, dv, dbias, B, Lq,
+                                         S, H, split_keys, scale, seed, threshold, keep_scale, s)
+                   : dispatch_fp32<false>(D, q, k, v, bias, g, o, m, l, dq, dk, dv, dbias, B, Lq,
+                                          S, H, split_keys, scale, seed, threshold, keep_scale, s);
+  }
+  return dropout ? dispatch_bf16<true>(D, q, k, v, bias, g, o, m, l, part, dq, dk, dv, dbias, B,
+                                       Lq, S, H, split_keys, scale, seed, threshold, keep_scale, s)
+                 : dispatch_bf16<false>(D, q, k, v, bias, g, o, m, l, part, dq, dk, dv, dbias, B,
+                                        Lq, S, H, split_keys, scale, seed, threshold, keep_scale,
+                                        s);
+}
+
+// How many clusters of r3d_cross_attention_bwd's fp32 launch at these sizes
+// the card holds at once (cudaOccupancyMaxActiveClusters); launches nothing.
+extern "C" int r3d_cross_attention_bwd_clusters(int B, int H, int S, int D, int split_keys,
+                                                int dropout, int* clusters) {
+  return r3d::bwd_cluster_occupancy<true>(B, H, S, D, split_keys, dropout, clusters);
 }
 
 // Blocks of the bf16 main kernel (head dim D, with or without dropout) that

@@ -80,9 +80,9 @@ _BY_DTYPE = {  # (forward, dropout forward, backward) per input dtype
 KERNEL_HEAD_DIMS = (16, 32, 64)   # csrc/attention*.cu: instantiated D
 BWD_BLOCK_KEYS = 64               # csrc/attention_bwd.cu: KB, keys per block of the bf16 body
 FWD_SPLIT_UNIT = 128              # csrc/attention.cu: NW * KT, one tile of keys per warp
-FWD_MAX_SPLITS = 8                # csrc/attention*.cu: MAX_SPLITS, blocks per cluster
-FP32_SPLIT_UNIT = 64              # csrc/attention*.cu: F_KT, a tile of the fp32 K3-K5 bodies
-FP32_QUERY_TILE = 8               # csrc/attention*.cu: F_QT, queries a block takes at a time
+FWD_MAX_SPLITS = 8                # csrc/attention_cluster.cuh: kMaxSplits, blocks per cluster
+FP32_SPLIT_UNIT = 64              # csrc/attention_cluster.cuh: kF32KT, a tile of the fp32 bodies
+FP32_QUERY_TILE = 8               # csrc/attention_cluster.cuh: kF32QT, queries a block takes at a time
 
 _U32 = 0xFFFFFFFF
 
@@ -136,9 +136,10 @@ def fwd_split_keys(Lk: int) -> int:
 
 
 def fp32_split_keys(Lk: int) -> int:
-    """Keys per block of the fp32 K3, K4 and K5: as many splits of one tile (64
-    keys, one a thread) as cover Lk, up to 8 (a cluster's blocks); past 512
-    keys each split grows by whole tiles. 8 splits of 64 at Lk = 512."""
+    """Keys per block of the fp32 K3-K7: as many splits of one tile (64 keys,
+    one a thread) as cover Lk, up to 8 (a cluster's blocks); past 512 keys
+    each split grows by whole tiles. 8 splits of 64 at Lk = 512, of 128 at
+    1,024, of 256 at 2,000."""
     n = min(FWD_MAX_SPLITS, -(-Lk // FP32_SPLIT_UNIT))
     return FP32_SPLIT_UNIT * -(-Lk // (FP32_SPLIT_UNIT * n))
 

@@ -11,13 +11,21 @@ relayouts K or V head-major. Two kernels:
   statistics (m, l) ``[B, H, Lq]`` for the backward; in bf16 the keys are
   split across blocks (as many as stay resident on the card at once) on
   the tensor cores, and a second launch combines the splits' (m, l, acc) in
-  split order;
+  split order; in fp32 it is fp32 K3's cluster body on the native layout
+  (``csrc/attention_fwd_cluster.cuh``): the keys split into runs of
+  ``fp32_split_keys``, the runs of a (batch*head, query tile) one
+  thread-block cluster that combines them in rank order, one launch;
 - K7 (``csrc/cross_attention_bwd.cu``, ``r3d_cross_attention_bwd``): dq, dk
   and dv in native layout and the bias's cotangent, from the saved (m, l) and
   the forward output; in bf16 grid (batch*head, key split) with the splits
   sized as K6's (every block resident at once), each block walking its keys
   in tiles of 64 on the tensor cores and owning their dk and dv, and a
-  second launch summing the splits' dq (and the heads' dbias) in order.
+  second launch summing the splits' dq (and the heads' dbias) in order; in
+  fp32, fp32 K5's cluster body on the native layout with the statistics given
+  (``csrc/attention_bwd_cluster.cuh``): the keys split into runs of
+  ``fp32_split_keys``, each run's block owning their dk and dv, the runs'
+  dq summed in rank order in the cluster, one launch (and the heads' dbias
+  summed by the wrapper when asked for).
 
 ``cross_attention_native`` is a ``torch.autograd.Function`` over the two.
 ``composed_cross_attention`` and ``composed_cross_attention_bwd`` are the
@@ -54,6 +62,7 @@ from r3d_tpu_torch.ops.attention import (
     _stream,
     dropout_keep,
     dropout_threshold,
+    fp32_split_keys,
 )
 from r3d_tpu_torch.ops.build import Kernel
 
@@ -71,10 +80,10 @@ BWD_KERNEL = Kernel(
        ctypes.c_void_p],
 )
 CROSS_HEAD_DIMS = (16, 32, 64)   # csrc/cross_attention*.cu: instantiated D
-MAX_QUERIES = 64                 # a block of K6 (bf16) and K7 holds every query of a head
+MAX_QUERIES = 64                 # a block of K6 and K7 in bf16 holds every query of a head
 FWD_SPLIT_UNIT = 128             # csrc/cross_attention.cu: NW * KT, 4 warps x tiles of 32 keys
 FWD_BLOCKS_PER_SM = 2            # resident blocks of K6's bf16 split kernel (96 KB of tiles each)
-BWD_TILE_KEYS = 64               # csrc/cross_attention_bwd.cu: keys per fp32 block (KB), per bf16 tile (KT)
+BWD_TILE_KEYS = 64               # csrc/cross_attention_bwd.cu: KT, keys per tile of the bf16 body
 BWD_BLOCKS_PER_SM = 2            # resident blocks of K7's bf16 main kernel (90 KB of tiles each at D = 64)
 
 
@@ -176,8 +185,8 @@ def bwd_split_keys(S: int, n_heads: int, n_sm: int) -> int:
 
 def bwd_scratch_shape(S: int, B: int, Lq: int, C: int, H: int, split_keys: int,
                       need_dbias: bool):
-    """fp32 values of K7's scratch: each split's dq [n_split, B, Lq, C], then
-    (bf16, with dbias) each head's dbias [H, B, S]."""
+    """fp32 values of K7's bf16 scratch: each split's dq [n_split, B, Lq, C],
+    then (with dbias) each head's dbias [H, B, S]. fp32 K7 takes none."""
     n_split = -(-S // split_keys)
     return (n_split * B * Lq * C + (H * B * S if need_dbias else 0),)
 
@@ -187,16 +196,20 @@ def cross_attention_fwd(q, k, v, bias, seed: int, scale: float, rate: float, H: 
     if q.device.type == "cpu":
         return composed_cross_attention(q, k, v, bias, seed, scale, rate, H)
     B, Lq, S, C = _check("cross_attention", q, k, v, bias, H)
+    _check_aligned("cross_attention", q=q, k=k, v=v)
     out = torch.empty_like(q)
     m = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
-    split_keys, partial = 0, None
+    partial = None
     if q.dtype == torch.bfloat16:   # each split's (acc, m, l), combined by a second launch
-        _check_aligned("cross_attention", q=q, k=k, v=v)
         n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
         split_keys = fwd_split_keys(S, B * H, n_sm)
         partial = torch.empty((-(-S // split_keys) * B * H * Lq, C // H + 2),
                               dtype=torch.float32, device=q.device)
+    else:   # one cluster launch
+        if B * H > 65535:
+            raise ValueError("cross_attention: B*H must be at most 65535 (the grid's z)")
+        split_keys = fp32_split_keys(S)
     FWD_KERNEL.launch(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
         out.data_ptr(), m.data_ptr(), l.data_ptr(), _ptr(partial), split_keys, B, Lq, S, H, C // H,
@@ -218,22 +231,30 @@ def cross_attention_bwd(q, k, v, bias, seed: int, scale: float, rate: float, H: 
                          {"g": (g, tuple(q.shape), q.dtype), "o": (o, tuple(q.shape), q.dtype),
                           "m": (m, stats, torch.float32), "l": (l, stats, torch.float32)})
     need_dbias = need_dbias and bias is not None
-    split_keys = BWD_TILE_KEYS
-    if q.dtype == torch.bfloat16:
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.dtype == torch.bfloat16:   # each split's dq (and each head's dbias), summed by a second launch
         _check_aligned("cross_attention_bwd", q=q, k=k, v=v, g=g)
         n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
         split_keys = bwd_split_keys(S, B * H, n_sm)
-    part = torch.empty(bwd_scratch_shape(S, B, Lq, C, H, split_keys,
-                                         need_dbias and q.dtype == torch.bfloat16),
-                       dtype=torch.float32, device=q.device)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    dbias = torch.empty((B, 1, 1, S), dtype=torch.float32, device=q.device) if need_dbias else None
+        part = torch.empty(bwd_scratch_shape(S, B, Lq, C, H, split_keys, need_dbias),
+                           dtype=torch.float32, device=q.device)
+        dbias = (torch.empty((B, 1, 1, S), dtype=torch.float32, device=q.device)
+                 if need_dbias else None)
+    else:   # one cluster launch; each head's dbias, summed here
+        _check_aligned("cross_attention_bwd", q=q, k=k, v=v, g=g, o=o)
+        if B * H > 65535:
+            raise ValueError("cross_attention_bwd: B*H must be at most 65535 (the grid's y)")
+        split_keys, part = fp32_split_keys(S), None
+        dbias = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+                 if need_dbias else None)
     BWD_KERNEL.launch(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
-        g.data_ptr(), o.data_ptr(), m.data_ptr(), l.data_ptr(), part.data_ptr(),
+        g.data_ptr(), o.data_ptr(), m.data_ptr(), l.data_ptr(), _ptr(part),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(dbias), B, Lq, S, H, C // H, split_keys,
         float(scale), int(rate > 0.0), int(seed) & _U32, dropout_threshold(rate),
         1.0 / (1.0 - rate), _stream(q))
+    if dbias is not None and q.dtype == torch.float32:
+        dbias = dbias.sum(1)[:, None, None, :]
     return dq, dk, dv, dbias
 
 

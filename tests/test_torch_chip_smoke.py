@@ -53,3 +53,24 @@ def test_an_annotation_that_matches_a_kernel_name_is_still_left_out(annotation):
     """A range named like a kernel counts only if it is not an annotation."""
     e = _event("fuser_tail_tf32_kernel range", CUDA, 5.0, annotation=annotation)
     assert chip_smoke.card_events(_Profile([e])) == ([] if annotation else [e])
+
+
+def test_own_kernels_name_every_kernel_of_the_sources_and_no_other():
+    """``OWN_KERNELS`` (what the breakdowns count as the port's own) holds a
+    fragment of every ``__global__`` function in ``r3d_tpu_torch/csrc`` and
+    no fragment that names none, and the fp32 K6/K7 names that
+    ``time_cross_fp32`` times are kernels there."""
+    import pathlib
+    import re
+
+    csrc = pathlib.Path(chip_smoke.__file__).parent / "r3d_tpu_torch" / "csrc"
+    text = "\n".join(re.sub(r"//[^\n]*", "", p.read_text()) for p in sorted(csrc.iterdir()))
+    kernels = set(re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\((?:[^()]|\([^()]*\))*\)\s*)?(\w+)\s*\(", text))
+    assert "attention_fwd_cluster_kernel" in kernels and "attention_bwd_cluster_kernel" in kernels
+    for k in kernels:
+        assert any(f in k for f in chip_smoke.OWN_KERNELS), k
+    for f in chip_smoke.OWN_KERNELS:
+        assert any(f in k for k in kernels), f
+    for name in chip_smoke.cross_fp32_kernel_names(16):
+        assert name.split("<")[0] in kernels

@@ -19,10 +19,11 @@ must agree bit for bit, and the shapes around their block sizes (64 keys
 for K5, whole units of 128 for K3, K4 and K6, 32 queries) are covered: one
 key, less than a block, one key past a block, and blocks whose keys are all
 masked. K7 in bf16 splits the keys as K6 does and sums the splits' dq in
-split order: the same holds for it, and for K3 and K5 in fp32, which split
-the keys into runs of 64 (or whole tiles of 64 past 512 keys) whose blocks
-combine through distributed shared memory in rank order, one launch a call;
-fp32 K4 is K3's body with dropout. K1 runs its three products as 3xTF32 on
+split order: the same holds for it, and for K3, K5, K6 and K7 in fp32,
+which split the keys into runs of 64 (or whole tiles of 64 past 512 keys)
+whose blocks combine through distributed shared memory in rank order, one
+launch a call; fp32 K4 is K3's body with dropout, fp32 K6 and K7 are K3's
+and K5's bodies on the native layout. K1 runs its three products as 3xTF32 on
 the tensor cores over a fixed order of weight chunks, and K2 its products
 too, with its column sums and split partials summed in order: two calls
 agree bit for bit for both.
@@ -547,3 +548,116 @@ def test_cross_attention_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     big = torch.zeros(2, 65, 512, device=cuda)
     with pytest.raises(ValueError, match="queries"):
         ca.cross_attention_native(big, k, v, bias, 0, 0.1, 0.0, 8)
+
+
+# ---- fp32 K6 and K7: the cluster bodies on the native layout ----
+
+def _fp32_cross(B, Lq, S, C, seed, lengths=None):
+    """fp32 native-layout q, k, v, g on the card and a key-padding bias: with
+    ``lengths`` rows keeping those numbers of keys (0: fully masked), else
+    random lengths and a fully masked last row."""
+    from chip_smoke import masked_split_bias
+
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v, bias = cross_inputs(B, Lq, S, C, gen, "cuda", torch.float32, all_masked_row=True)
+    if lengths is not None:
+        bias = masked_split_bias(B, S, lengths, "cuda")
+    return q, k, v, bias, torch.randn(q.shape, generator=gen).to("cuda")
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("Lq,D,S", [(1, 16, 513), (8, 16, 1024), (8, 16, 2000), (3, 32, 777),
+                                   (20, 32, 1025), (33, 64, 2049), (64, 16, 3100),
+                                   (64, 64, 1500)])
+def test_fp32_cross_attention_kernels_match_plain(cuda, Lq, D, S, rate):
+    """fp32 K6 and K7 at Lq 1-64, D 16-64 and S 513-3,100 with ragged key
+    tails and a fully masked row: out, m and l within 2e-5, the gradients
+    within 1e-4 of each one's largest entry; each call one launch of the
+    wrapper."""
+    H = 8 if D == 16 else 4
+    q, k, v, bias, g = _fp32_cross(3, Lq, S, H * D, S + Lq + D)
+    scale = 1.0 / math.sqrt(D)
+    before = ca.FWD_KERNEL.launches, ca.BWD_KERNEL.launches
+    out, m, l = ca.cross_attention_fwd(q, k, v, bias, 3 + S, scale, rate, H)
+    got = ca.cross_attention_bwd(q, k, v, bias, 3 + S, scale, rate, H, g, out, m, l, True)
+    torch.cuda.synchronize()
+    assert (ca.FWD_KERNEL.launches, ca.BWD_KERNEL.launches) == (before[0] + 1, before[1] + 1)
+    w_out, w_m, w_l = ca.composed_cross_attention(q, k, v, bias, 3 + S, scale, rate, H)
+    _close(out, w_out, 2e-5, "out")
+    torch.testing.assert_close(m, w_m, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(l, w_l, atol=1e-5, rtol=1e-5)
+    want = ca.composed_cross_attention_bwd(q, k, v, bias, 3 + S, scale, rate, H, g, out, m, l)
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
+        _close(a, b, 1e-4, name)
+
+
+@pytest.mark.parametrize("S", [1024, 2000, 2049])
+def test_fp32_cross_attention_takes_splits_with_every_key_masked(cuda, S):
+    """Rows keeping 10, 300 and 0 keys: the later runs of the first two
+    hold only masked keys (weight 0 in the combine), the third averages V
+    over every key; K7 on the same rows; two calls of each bit-equal."""
+    q, k, v, bias, g = _fp32_cross(4, 8, S, 128, S, lengths=(S, 10, 300, 0))
+    for rate in (0.0, 0.1):
+        out, m, l = ca.cross_attention_fwd(q, k, v, bias, 9, 0.25, rate, 8)
+        w_out, w_m, w_l = ca.composed_cross_attention(q, k, v, bias, 9, 0.25, rate, 8)
+        assert torch.isfinite(out).all()
+        _close(out, w_out, 2e-5, "out")
+        torch.testing.assert_close(m, w_m, atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(l, w_l, atol=1e-5, rtol=1e-5)
+        got = ca.cross_attention_bwd(q, k, v, bias, 9, 0.25, rate, 8, g, out, m, l, True)
+        want = ca.composed_cross_attention_bwd(q, k, v, bias, 9, 0.25, rate, 8, g, out, m, l)
+        for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
+            _close(a, b, 1e-4, name)
+        for a, b in zip((out, m, l), ca.cross_attention_fwd(q, k, v, bias, 9, 0.25, rate, 8)):
+            assert torch.equal(a, b)
+        for a, b in zip(got, ca.cross_attention_bwd(q, k, v, bias, 9, 0.25, rate, 8, g, out, m,
+                                                    l, True)):
+            assert torch.equal(a, b)
+    assert float(l[3].min()) == float(S)
+
+
+def test_fp32_cross_attention_gives_zeros_under_an_all_inf_bias(cuda):
+    """Every score -inf: out 0 and (m, l) = (-inf, 0), and zero gradients
+    from those statistics, not NaN."""
+    q, k, v, _, g = _fp32_cross(2, 8, 777, 128, 1)
+    bias = torch.full((2, 1, 1, 777), -math.inf, device=cuda)
+    out, m, l = ca.cross_attention_fwd(q, k, v, bias, 1, 0.25, 0.1, 8)
+    assert torch.equal(out, torch.zeros_like(out)) and bool((m == -math.inf).all())
+    assert torch.equal(l, torch.zeros_like(l))
+    for x in ca.cross_attention_bwd(q, k, v, bias, 1, 0.25, 0.1, 8, g, out, m, l, True):
+        assert torch.equal(x, torch.zeros_like(x))
+
+
+@pytest.mark.parametrize("S", [1024, 2000])
+def test_fp32_cross_attention_calls_are_one_launch_each(cuda, S):
+    """At the utkinects buckets' shape one fp32 K6 call is one launch of the
+    forward cluster kernel, one K7 call without dbias one of the backward's,
+    and one with dbias that launch and the wrapper's sum over heads; the
+    names are the ones chip_smoke.py times."""
+    from chip_smoke import cross_fp32_kernel_names, own_launches_per_call
+
+    q, k, v, bias, g = _fp32_cross(8, 8, S, 128, S)
+    fwd_name, bwd_name = cross_fp32_kernel_names(16)
+    own_launches_per_call(lambda: ca.cross_attention_fwd(q, k, v, bias, 0, 0.25, 0.0, 8),
+                          (fwd_name,), 1, "K6 fp32")
+    out, m, l = ca.cross_attention_fwd(q, k, v, bias, 0, 0.25, 0.0, 8)
+    own_launches_per_call(lambda: ca.cross_attention_bwd(q, k, v, bias, 0, 0.25, 0.0, 8, g, out,
+                                                         m, l),
+                          (bwd_name,), 1, "K7 fp32")
+    own_launches_per_call(lambda: ca.cross_attention_bwd(q, k, v, bias, 0, 0.25, 0.0, 8, g, out,
+                                                         m, l, True),
+                          (bwd_name, "reduce_kernel"), 2, "K7 fp32 with dbias")
+
+
+def test_fp32_cross_attention_fwd_refuses_more_than_8_splits(cuda):
+    """The forward's cluster holds at most the portable 8 blocks: 16 runs of
+    64 keys at S = 1,024 are refused (cudaErrorInvalidValue), not launched."""
+    q, k, v, bias, _ = _fp32_cross(8, 8, 1024, 128, 1)
+    got = (torch.empty_like(q), torch.empty((8, 8, 8), device=q.device),
+           torch.empty((8, 8, 8), device=q.device))
+    stream = torch.cuda.current_stream().cuda_stream
+    err = ca.FWD_KERNEL.load()(0, q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                               *(t.data_ptr() for t in got), None, 64, 8, 8, 1024, 8, 16, 0.25,
+                               0, 0, 0, 1.0, stream)
+    torch.cuda.synchronize()
+    assert err == 1   # cudaErrorInvalidValue

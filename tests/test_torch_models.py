@@ -414,6 +414,60 @@ def _route_on_cpu(monkeypatch, route):
                         pt_cross.cross_attention_native_eligible(Lq, Lk, C, H, rate, card))
 
 
+@pytest.mark.parametrize("S", [520, 600])
+def test_futr_fusion_decoder_on_k6_matches_flax(S, monkeypatch):
+    """The futr_fusion_bn decoder at the utkinects widths (C 128, 8 heads of
+    16, 8 queries, one decoder layer, FFN 512) against more than 512 keys,
+    train mode with dropout 0: JAX's cross-attention on its Pallas K6 and K7
+    in interpret mode, the port's on the K6/K7 route (their plain versions
+    on the CPU). The output within 2e-5, every parameter's gradient within
+    1e-5 of the model's largest, and the gradients of memory and pos within
+    2e-5."""
+    from r3d_tpu.ops import cross_attention as jax_cross
+    from r3d_tpu_torch.ops import cross_attention as pt_cross
+
+    _route_on_cpu(monkeypatch, "K6")
+    routed = {"jax": 0, "fwd": 0, "bwd": 0}
+
+    def spy(module, name, key):
+        fn = getattr(module, name)
+
+        def counted(*args, **kwargs):
+            routed[key] += 1
+            return fn(*args, **kwargs)
+
+        monkeypatch.setattr(module, name, counted)
+
+    spy(jax_cross, "cross_attention_native_sharded", "jax")
+    spy(pt_cross, "composed_cross_attention", "fwd")
+    spy(pt_cross, "composed_cross_attention_bwd", "bwd")
+    B, Q, C = 2, 8, 128
+    rng = np.random.RandomState(S)
+    src, pos = (rng.randn(B, S, C).astype(np.float32) for _ in range(2))
+    qpos = rng.randn(B, Q, C).astype(np.float32)
+    w = rng.randn(B, Q, C).astype(np.float32)
+    pad = np.zeros((B, S), bool)
+    pad[1, S // 3:] = True
+    m = jax_transformer.FUTRTransformer(C, 8, 2, 1, 4 * C, dropout=0.0, use_encoder=False)
+    variables = jax.device_get(m.init(jax.random.PRNGKey(5), src, pos, qpos, pad))
+
+    def loss(params, src, pos):
+        _, hs = m.apply({"params": params}, src, pos, qpos, pad, deterministic=False)
+        return jnp.sum(hs * w), hs
+
+    (_, want), grads = jax.value_and_grad(loss, argnums=(0, 1, 2), has_aux=True)(
+        variables["params"], src, pos)
+    port = _port(transformer.FUTRTransformer(C, 8, 1, 4 * C), variables).train()
+    src_t, pos_t = _t(src).requires_grad_(), _t(pos).requires_grad_()
+    _, hs = port(src_t, pos_t, _t(qpos), _t(pad))
+    (hs * _t(w)).sum().backward()
+    assert routed["jax"] >= 1 and routed["fwd"] == 1 and routed["bwd"] == 1, routed
+    np.testing.assert_allclose(hs.detach().numpy(), _np(want), atol=2e-5, rtol=0)
+    _grads_close(port, grads[0], model_wide=True)
+    for name, got, g in (("memory", src_t, grads[1]), ("pos", pos_t, grads[2])):
+        np.testing.assert_allclose(got.grad.numpy(), _np(g), atol=2e-5, rtol=0, err_msg=name)
+
+
 # bf16 bounds. JAX runs op by op here: under jit, XLA's CPU compiler drops
 # bf16 round trips inside its fusions, and the jitted JAX bf16 model sits
 # as far from the port's bf16 model as from the port in fp32 (outputs 1.4e-2
