@@ -47,7 +47,21 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    (sticky eval) the blend tail, attention and the attention backward. The
    parts of one train step, and one dropout-off step on the card against
    the CPU (loss, every gradient, BN statistics);
-6. utkinects with ``R3D_CROSS_NATIVE=1`` (restored after): requests in the
+6. utkinects through the command line (``r3d_tpu_torch.cli``) at full
+   width: a synthetic utkinect-layout dataset written from a seed (16
+   actions; 5 train videos of 300-780 frames, 2 val videos of 600-780);
+   every count set to 0, ``train`` of one seed for 2 epochs with
+   validation, where epoch 0 must launch the no-blend tail, its backward,
+   the dropout attention and the attention backward and epoch 1 the blend
+   tail, attention and its backward, writing ``seed_1_best``,
+   ``seed_1_last`` and the metrics stream; the counts set to 0 again, the
+   9-ratio MoC sweep from the best checkpoint, where every chunk must
+   launch the blend tail (K1) and the 256/512-bucket chunks attention (K3);
+   its card-busy time from a profiled sweep; the same sweep with ``--cpu``,
+   held window by window (logits and durations within 5e-2; a MoC
+   difference only where a decode sits within the measured error of a
+   flip); both MoC tables and the wall times;
+7. utkinects with ``R3D_CROSS_NATIVE=1`` (restored after): requests in the
    1024 and 2000 buckets, where every cross-attention call must be an fp32
    K6 launch; the card's logits against the CPU's in the 2000 bucket;
    ``fit`` of 2 epochs (one 1024- and one 2000-bucket batch of 8) with
@@ -57,7 +71,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    dropout-off 1024-bucket step on the card against the CPU; the parts of a
    2000-bucket train step; an interleaved A/B of a 2000-bucket train step
    and serving chunk with ``R3D_CROSS_NATIVE`` set and unset;
-7. 50salads (FUTR, bf16, ``R3D_CROSS_NATIVE=1``) at full width (hidden 512,
+8. 50salads (FUTR, bf16, ``R3D_CROSS_NATIVE=1``) at full width (hidden 512,
    8 heads, 2 decoder layers, 20 queries, n_class 20): requests in the 256,
    512, 1024 and 3100 buckets, where the counts must show K3 at 256/512 and
    K6 at 1024/3100; the parts of a 512- and a 3100-bucket chunk; the card's
@@ -67,7 +81,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    card against the CPU; the parts of a train step; and an interleaved A/B
    of a 3100-bucket train step and serving chunk with ``R3D_CROSS_NATIVE``
    set and unset;
-8. print one ``{"kernels": [...]}`` line and, as the last line,
+9. print one ``{"kernels": [...]}`` line (with each kernel's launches in
+   the CLI phase's training and sweep beside those of the other phases)
+   and, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX. Exits non-zero and prints no result where CUDA is
@@ -1826,6 +1842,303 @@ def salads(kernels, k3b, k4b, k5b, k6, k7):
     return counts, train_counts
 
 
+
+# ---- utkinects through the CLI: train -> checkpoint -> MoC sweep ----
+
+CLI_DIR = "build/cli_phase"   # under the checkout (git-ignored), removed after the phase
+CLI_TRAIN_LENGTHS = (300, 780)   # train windows at 0.2-0.65: the 256 and 512 buckets
+CLI_VAL_LENGTHS = (600, 780)     # sweep windows at 0.1-0.9: the 128-1024 buckets
+
+
+def write_utkinect_dataset(root, n_train, n_val, lengths, n_actions=N_CLASS - 1, seed=SEED,
+                           input_dim=2048, depth_shape=(160, 120), val_lengths=None,
+                           gt_format="csv", transposed=False):
+    """A dataset in the utkinect layout under ``root/utkinect``, from a
+    numpy seed: per video, action runs of 5-14 frames, features [L, input]
+    that carry each frame's class (``.T`` when ``transposed``), raw depth
+    frames [L, *depth_shape] of noise, csv (``img,L2,L3``) or plain ground
+    truth; the mapping of ``n_actions`` actions (n_class ``n_actions + 1``)
+    and the train and val splits. Lengths are drawn from ``lengths``
+    (``val_lengths`` for the val split). Returns ``root``."""
+    import os
+
+    base = os.path.join(str(root), "utkinect")
+    rng = np.random.RandomState(seed)
+    acts = [f"a{i}" for i in range(n_actions)]
+    for d in ("features_img", "features_depth", "groundTruth", "splits"):
+        os.makedirs(os.path.join(base, d), exist_ok=True)
+    with open(os.path.join(base, "mapping_l2_changed.txt"), "w") as f:
+        f.write("".join(f"{i} {a}\n" for i, a in enumerate(acts)))
+    emb = rng.randn(n_actions, input_dim).astype(np.float32)
+    vids = []
+    for v in range(n_train + n_val):
+        lo, hi = lengths if v < n_train or val_lengths is None else val_lengths
+        L = int(rng.randint(lo, hi + 1))
+        ids = []
+        a = int(rng.randint(n_actions))
+        while len(ids) < L:
+            ids += [a] * int(rng.randint(5, 15))
+            a = (a + 1 + int(rng.randint(n_actions - 1))) % n_actions
+        ids = np.array(ids[:L])
+        feats = (emb[ids] + 0.5 * rng.randn(L, input_dim)).astype(np.float32)
+        np.save(os.path.join(base, "features_img", f"v{v}.npy"),
+                feats.T if transposed else feats)
+        np.save(os.path.join(base, "features_depth", f"v{v}.npy"),
+                rng.rand(L, *depth_shape).astype(np.float32))
+        with open(os.path.join(base, "groundTruth", f"v{v}.txt"), "w") as f:
+            if gt_format == "csv":
+                f.write("".join(f"img{t},{acts[i]},q{t % 3}\n" for t, i in enumerate(ids)))
+            else:
+                f.write("".join(f"{acts[i]}\n" for i in ids))
+        vids.append(f"v{v}.txt")
+    with open(os.path.join(base, "splits", "train_split.txt"), "w") as f:
+        f.write("\n".join(vids[:n_train]) + "\n")
+    with open(os.path.join(base, "splits", "val_split.txt"), "w") as f:
+        f.write("\n".join(vids[n_train:]) + "\n")
+    return str(root)
+
+
+class SweepRecorder:
+    """Records each chunk of ``Predictor`` sweeps while in use: its bucket,
+    its windows (video, ratio), its action logits and durations, and how
+    many launches of each of ``kernels`` it made."""
+
+    def __init__(self, kernels):
+        self.kernels, self.chunks = kernels, []
+
+    def __enter__(self):
+        from r3d_tpu_torch.eval.predict import Predictor
+
+        self._orig = orig = Predictor._forward_batch
+        recorder = self
+
+        def recorded(predictor, modules, items, S):
+            before = {k.name: k.launches for k in recorder.kernels}
+            out = orig(predictor, modules, items, S)
+            recorder.chunks.append({
+                "S": S, "windows": [(it["vid"], it["obs_p"]) for it in items],
+                "future_len": [it["future_len"] for it in items],
+                "action": out["action"], "duration": out["duration"],
+                "launches": {k.name: k.launches - before[k.name] for k in recorder.kernels}})
+            return out
+
+        Predictor._forward_batch = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from r3d_tpu_torch.eval.predict import Predictor
+
+        Predictor._forward_batch = self._orig
+        return False
+
+
+def moc_table(results):
+    """The sweep's results (``cli.run.predict``) as printed rows."""
+    rows = []
+    for obs, r in results.items():
+        rows.append(f"  {obs:>7}: " + " ".join(
+            f"{k.split('_', 1)[1] if k.startswith('obs') else k} {v:.4f}" for k, v in r.items()))
+    return "\n".join(rows)
+
+
+def top2_margin(action):
+    """The least gap between the two largest logits of any query slot."""
+    top = np.sort(action, axis=-1)
+    return float((top[..., -1] - top[..., -2]).min())
+
+
+def decode_flips(chunks, ref_chunks, logit_err, n_class=N_CLASS):
+    """Windows whose decoded future frames differ between two sweeps of the
+    same windows, and those of them that the measured errors do not explain:
+    a decode can flip only where a slot's top-2 logit margin is within
+    ``logit_err``, or where a slot's length ``0.5 + future_len * duration``
+    lies within the durations' measured difference of a whole frame."""
+    from r3d_tpu_torch.eval.decode import decode_anticipation
+
+    flipped, unexplained = 0, 0
+    for a, b in zip(chunks, ref_chunks):
+        for j, fl in enumerate(b["future_len"]):
+            fa, da = decode_anticipation(a["action"][j], a["duration"][j], fl, n_class - 1)
+            fb, db = decode_anticipation(b["action"][j], b["duration"][j], fl, n_class - 1)
+            if np.array_equal(fa, fb):
+                continue
+            flipped += 1
+            lengths = 0.5 + fl * db
+            near_edge = np.abs(lengths - np.round(lengths)) <= fl * float(np.abs(da - db).max())
+            if not (top2_margin(b["action"][j]) <= logit_err or near_edge.any()):
+                unexplained += 1
+    return flipped, unexplained
+
+
+def utkinects_cli(kernels, card, k1, k3):
+    """utkinects at full width through the CLI (``r3d_tpu_torch.cli``):
+    write a synthetic utkinect-layout dataset (16 actions, 5 train videos of
+    300-780 frames, 2 val videos of 600-780), every launch count set to 0,
+    ``train`` one seed for 2 epochs on the card (epoch 0 must launch the
+    no-blend tail, its backward, the dropout attention and the attention
+    backward; epoch 1 the blend tail, attention and its backward) with
+    validation, the gate, ``seed_1_best``, ``seed_1_last`` and the metrics
+    stream; then the 9-ratio MoC sweep from the best checkpoint on the
+    card, where every chunk must launch K1 (``k1``) and the 256/512-bucket
+    chunks K3 (``k3``); the sweep again under the profiler for its
+    card-busy time; and the same sweep with ``--cpu``, whose per-window
+    logits and durations the card's must hold to within ``E2E_TOL``.
+    Returns the counts of the train and card-sweep runs."""
+    import contextlib
+    import io
+    import json as _json
+    import os
+    import shutil
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from r3d_tpu_torch.cli.opts import build_parser, config_from_args, run_from_argv
+    from r3d_tpu_torch.cli.run import save_path
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(here, CLI_DIR)
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        root = write_utkinect_dataset(os.path.join(work, "data"), 5, 2, CLI_TRAIN_LENGTHS,
+                                      val_lengths=CLI_VAL_LENGTHS)
+        size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+        print(f"cli: synthetic utkinect dataset, 5 + 2 videos, {size / 2**20:.0f} MiB written "
+              f"in {time.perf_counter() - t0:.2f} s")
+        save = os.path.join(work, "save")
+        argv = ["--config", "utkinects", "--data_root", root, "--model_save_path", save,
+                "--seed", "1"]
+
+        snapshots, lines = [], []
+
+        def log(line):
+            torch.cuda.synchronize()
+            if line.startswith(("Epoch [", "Validation")):
+                snapshots.append({k.name: k.launches for k in kernels})
+            lines.append(line)
+            print(f"  {line}")
+
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        run_from_argv("utkinects", argv + ["--mode", "train", "--epochs", "2"], log=log)
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        train_counts = {k.name: k.launches for k in kernels}
+        phases = ["epoch 0 train", "epoch 0 validation", "epoch 1 train", "epoch 1 validation"]
+        per_phase, prev = {}, {k.name: 0 for k in kernels}
+        for name, snap in zip(phases, snapshots):
+            per_phase[name] = {k: snap[k] - prev[k] for k in snap if snap[k] - prev[k]}
+            prev = snap
+            print(f"cli: launches in {name}: {per_phase[name]}")
+        want = {"epoch 0 train": ("fused_safuser_tail", "fused_tail_bwd",
+                                  "flash_attention_dropout", "attention_bwd"),
+                "epoch 0 validation": ("fused_bn_blend_tail",),
+                "epoch 1 train": ("fused_bn_blend_tail", "flash_attention", "attention_bwd"),
+                "epoch 1 validation": ("fused_bn_blend_tail",)}
+        for phase, names in want.items():
+            missing = [n for n in names if per_phase.get(phase, {}).get(n, 0) == 0]
+            if missing:
+                raise AssertionError(f"cli train: {phase} never launched {missing}")
+        losses = [float(x) for line in lines
+                  for x in re.findall(r"Loss ?: ?(-?[0-9.]+|nan|inf)", line)]
+        if len(losses) != 4 or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"cli train: a loss is missing or not finite: {lines}")
+        ckpt_dir = save_path(config_from_args(build_parser("utkinects").parse_args(argv)))
+        names = sorted(os.listdir(ckpt_dir))
+        with open(os.path.join(ckpt_dir, "seed_1_metrics.jsonl")) as f:
+            records = [_json.loads(line) for line in f]
+        print(f"cli: train, 2 epochs of {records[0]['step']} steps: {names}; metrics records "
+              f"of epochs {[r['epoch'] for r in records]} with keys {sorted(records[0])}")
+        for need in ("seed_1_best", "seed_1_last", "seed_1_metrics.jsonl"):
+            if need not in names:
+                raise AssertionError(f"cli train: no {need} in {ckpt_dir}")
+        if [r["epoch"] for r in records] != [0, 1]:
+            raise AssertionError(f"cli train: metrics records of epochs {records}")
+
+        predict = argv + ["--predict", "--results_save_path", os.path.join(work, "results")]
+        runs = {}
+        for device in ("cuda", "cpu"):
+            for k in kernels:
+                k.launches = 0
+            # the card's sweep prints the reference's MoC lines; the CPU's is
+            # printed below beside it
+            quiet = io.StringIO() if device == "cpu" else sys.stdout
+            with SweepRecorder(kernels) as rec, contextlib.redirect_stdout(quiet):
+                t0 = time.perf_counter()
+                results = run_from_argv("utkinects", predict + (["--cpu"] if device == "cpu"
+                                                                 else []), log=print)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+            runs[device] = (results, rec.chunks, dt, {k.name: k.launches for k in kernels})
+        sweep_counts = runs["cuda"][3]
+        chunks = runs["cuda"][1]
+        per_bucket = {}
+        for c in chunks:
+            per_bucket[c["S"]] = per_bucket.get(c["S"], 0) + 1
+            if c["launches"][k1.name] == 0:
+                raise AssertionError(f"cli sweep: a {c['S']}-bucket chunk launched no K1")
+            if (c["launches"][k3.name] > 0) != (c["S"] in (256, 512)):
+                raise AssertionError(f"cli sweep: a {c['S']}-bucket chunk launched "
+                                     f"{c['launches'][k3.name]} K3")
+        if not {128, 256, 512, 1024} <= set(per_bucket):
+            raise AssertionError(f"cli sweep: chunks per bucket {per_bucket}")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     acc_events=True) as prof, contextlib.redirect_stdout(io.StringIO()):
+            run_from_argv("utkinects", predict, log=lambda *a: None)
+            torch.cuda.synchronize()
+        events = sorted(card_events(prof), key=lambda e: -e.self_device_time_total)
+        busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+        n_launch = sum(e.count for e in events)
+        print(f"cli sweep [{card}], a profiled sweep's card time by event:")
+        for e in events[:6]:
+            print(f"  {e.self_device_time_total / 1e3:.3f} ms x{e.count} {e.key[:90]}")
+
+        # the card's sweep against the CPU's, window by window
+        cpu_chunks = runs["cpu"][1]
+        if [c["windows"] for c in cpu_chunks] != [c["windows"] for c in chunks]:
+            raise AssertionError("cli sweep: the card and the CPU swept different windows")
+        err = max(float(np.abs(a[key] - b[key]).max())
+                  for a, b in zip(chunks, cpu_chunks) for key in ("action", "duration"))
+        for c in chunks:
+            if not (np.isfinite(c["action"]).all() and np.isfinite(c["duration"]).all()):
+                raise AssertionError(f"cli sweep: non-finite outputs in a {c['S']} chunk")
+        margin = min(top2_margin(c["action"]) for c in cpu_chunks)
+        flipped, unexplained = decode_flips(chunks, cpu_chunks, err)
+        gpu_res, cpu_res = runs["cuda"][0], runs["cpu"][0]
+        diff = [(k, abs(gpu_res[o][k] - cpu_res[o][k])) for o in cpu_res for k in cpu_res[o]]
+        moc_diff = max(d for k, d in diff if k.startswith("obs"))
+        acc_diff = max(d for k, d in diff if not k.startswith("obs"))
+        n_windows = sum(len(c["windows"]) for c in chunks)
+        print(f"cli sweep on the card [{card}]:\n{moc_table(gpu_res)}")
+        print(f"cli sweep on the CPU:\n{moc_table(cpu_res)}")
+        launched = {k: c for k, c in sweep_counts.items() if c}
+        print(f"cli sweep [{card}]: {n_windows} windows in {len(chunks)} chunks of up to 8, "
+              f"per bucket "
+              f"{dict(sorted(per_bucket.items()))}; K1 launched in every chunk, K3 in the "
+              f"256/512 chunks only; launches {launched}")
+        print(f"cli sweep card [{card}] vs CPU: max|logit or duration diff| {err:.3e} "
+              f"(tol {E2E_TOL}), "
+              f"least top-2 logit margin {margin:.3e}, max|MoC diff| {moc_diff:.3e}, max|accuracy "
+              f"diff| {acc_diff:.3e}, "
+              f"{flipped} of {n_windows} windows decoded differently ({unexplained} not "
+              f"explained by a margin or a frame edge within the measured error)")
+        print(f"cli wall times [{card}]: train (2 epochs with validation and checkpoints) "
+              f"{t_train:.2f} s; sweep on the card {runs['cuda'][2]:.2f} s, card busy "
+              f"{busy_ms:.2f} ms in {n_launch} launches (a profiled sweep); sweep on the CPU "
+              f"{runs['cpu'][2]:.2f} s")
+        if err > E2E_TOL:
+            raise AssertionError("cli sweep: the card's outputs disagree with the CPU's")
+        if unexplained or (moc_diff > 0 and flipped == 0):
+            raise AssertionError("cli sweep: the card's MoC table differs from the CPU's where "
+                                 "the measured errors cannot explain it")
+        return train_counts, sweep_counts
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -1912,6 +2225,12 @@ def main() -> int:
     train_step_on_card_and_cpu(cfg, state_dict,
                                min(loaders[1], key=lambda b: b["features"].shape[1]))
 
+    # utkinects through the CLI: train -> checkpoint -> the MoC sweep, card and CPU
+    cli_train, cli_sweep = utkinects_cli(kernels, card, fk.KERNEL, att.KERNEL)
+    print(f"launches on the utkinects CLI training path: "
+          f"{ {k: c for k, c in cli_train.items() if c} }")
+    print(f"launches on the utkinects CLI sweep: { {k: c for k, c in cli_sweep.items() if c} }")
+
     # utkinects, R3D_CROSS_NATIVE=1: fp32 K6 and K7 in the 1024 and 2000 buckets
     n_serving, n_counts = utkinects_cross_native(kernels, state_dict, ca.FWD_KERNEL,
                                                  ca.BWD_KERNEL)
@@ -1952,6 +2271,7 @@ def main() -> int:
             "name": k.name + (" fp32" if "fp32" in t["shape"] else ""), "route": "cuda", "source": f"r3d_tpu_torch/csrc/{k.source}",
             "replaces": replaces, "launches": path[0][k.name],
             "serving_launches": path[1][k.name],
+            "cli_launches": cli_train[k.name], "cli_sweep_launches": cli_sweep[k.name],
             "max_abs_err": err[0], "max_err": err[1],
             "shape": t["shape"], "ms": t["ms"], "kernel_ms": t["ms"],
             "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],

@@ -1,0 +1,177 @@
+"""Train / predict orchestration: the reference ``main_*.py`` flow.
+
+Counterpart of ``r3d_tpu/cli/run.py`` (main_utkinects.py:50-188): read the
+mapping and splits, build the model, AdamW with its warmup-cosine schedule
+and the loaders, then train each seed (validation every epoch, the best and
+last checkpoints, the metrics stream) and sweep the observation ratios over
+each seed's best checkpoint, printing the MoC lines.
+
+    python -m r3d_tpu_torch.cli --config utkinects --data_root DIR --mode train_eval
+
+Every entry point runs on CUDA unless ``device="cpu"`` (``--cpu``). Where
+the JAX package trains a ``device_cache`` config with ``fit_cached``, the
+port runs ``fit`` over the host loader in the same batch order (the JAX
+invariant ``fit_cached == fit``); the device-resident cache is ROADMAP
+item A9, meshes item A14.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Dict, Optional, Union
+
+import numpy as np
+import torch
+
+from r3d_tpu_torch.config import Config
+from r3d_tpu_torch.data.datasets import VideoSource, build_loader, build_source
+from r3d_tpu_torch.eval.predict import Predictor
+from r3d_tpu_torch.models import build_model
+from r3d_tpu_torch.train.checkpoint import Checkpointer
+from r3d_tpu_torch.train.loop import Trainer
+from r3d_tpu_torch.utils.metrics import MetricsLogger
+
+Device = Union[str, torch.device]
+
+
+def save_path(config: Config, dataset_ops: str = "") -> str:
+    # mirrors main_utkinects.py:118-119 layout
+    return os.path.join(
+        config.train.save_dir, config.data.dataset, "long", "model/transformer",
+        config.data.split, config.model.input_type, "runs0", f"_{dataset_ops}")
+
+
+def _splits(config: Config):
+    d = config.data
+    return d.train_split.format(split=d.split), d.val_split.format(split=d.split)
+
+
+def _check_ported(config: Config) -> None:
+    m = config.mesh
+    if max(m.tp, m.sp, m.pp, m.ep) > 1 or m.fsdp:
+        raise NotImplementedError("meshes are not ported yet (ROADMAP queue A, item A14)")
+
+
+def _shuffles_from_seed(config: Config) -> bool:
+    """Whether the JAX CLI trains ``config`` from its device cache
+    (``r3d_tpu/cli/run.py:124-181``), whose epoch e shuffles with
+    ``seed + e``. Its host-loader ``fit`` instead follows one example batch
+    drawn to shape the state (``cli/run.py:85``), which starts the loader's
+    epoch count at 1 in every run, resumed ones too."""
+    d = config.data
+    return (config.train.device_cache and config.train.grad_accum <= 1
+            and not d.raw_frames and d.gaze_dir is None)
+
+
+def train(config: Config, seed: int, dataset_ops: str = "",
+          sources: Optional[Dict[str, VideoSource]] = None, log=print, resume: bool = False,
+          device: Device = "cuda"):
+    """Train one seed; returns (trainer, final state, checkpointer)."""
+    _check_ported(config)
+    train_name, val_name = _splits(config)
+    if sources is None:
+        sources = {"train": build_source(config.data, train_name),
+                   "val": build_source(config.data, val_name)}
+    src = sources["train"]
+    trainer = Trainer(config, src.n_class, device=device)
+    train_loader = build_loader(src, config.data, config.train.batch_size, config.model.n_query,
+                                mode="train", shuffle=True, seed=seed)
+    val_loader = build_loader(sources["val"], config.data,
+                              config.train.val_batch_size or config.train.batch_size,
+                              config.model.n_query, mode="val", shuffle=False)
+    steps = max(len(train_loader), 1)
+    init = None
+    if config.train.init_ckpt:
+        # warm start: parameters and BN statistics only; the optimizer and
+        # the schedule start fresh, unlike --resume
+        init = torch.load(config.train.init_ckpt, map_location="cpu", weights_only=True)
+    state = trainer.init_state(steps, init, seed=seed)
+    if init is not None:
+        log(f"warm start: params loaded from {config.train.init_ckpt}")
+    path = save_path(config, dataset_ops)
+    ckpt = Checkpointer(path)
+    start_epoch = 0
+    if resume and ckpt.has(f"seed_{seed}_last"):
+        state = ckpt.restore_last(seed, state)
+        start_epoch = state.step // steps
+        log(f"resumed seed {seed} at step {state.step} (epoch {start_epoch})")
+    train_loader.epoch = start_epoch if _shuffles_from_seed(config) else 1
+    metrics = MetricsLogger(path, run_name=f"seed_{seed}_metrics",
+                            tensorboard=config.train.tensorboard)
+    try:
+        state = trainer.fit(state, train_loader, val_loader, seed, checkpointer=ckpt, log=log,
+                            metrics_logger=metrics, start_epoch=start_epoch)
+    finally:
+        metrics.close()
+    return trainer, state, ckpt
+
+
+def predict(config: Config, dataset_ops: str = "", seeds=None,
+            source: Optional[VideoSource] = None, log=print, ensemble: bool = False,
+            results_save_path: Optional[str] = None, device: Device = "cuda"
+            ) -> Dict[str, Dict[str, float]]:
+    """The observation-ratio sweep averaged over seeds
+    (main_utkinects.py:138-165): one ``predict_multi`` per seed from its best
+    checkpoint (else its last; a seed with neither is skipped), or with
+    ``ensemble`` one sweep averaging the seeds' output heads.
+    ``results_save_path`` gets ``results.json`` (ratio x metric) and each
+    sweep's gt/pred transcript logs."""
+    _check_ported(config)
+    _, val_name = _splits(config)
+    if source is None:
+        source = build_source(config.data, val_name)
+    seeds = seeds if seeds is not None else config.train.seeds
+    trainer = Trainer(config, source.n_class, device=device)
+    ckpt = Checkpointer(save_path(config, dataset_ops))
+    seed_models, found_seeds = [], []
+    for seed in seeds:
+        if ckpt.has(f"seed_{seed}_best"):
+            name = f"seed_{seed}_best"
+        elif ckpt.has(f"seed_{seed}_last"):
+            # a run whose validation never improved on 0 saves no best
+            log(f"seed_{seed}_best missing — using seed_{seed}_last")
+            name = f"seed_{seed}_last"
+        else:
+            log(f"missing checkpoint seed_{seed}_best — skipping")
+            continue
+        seed_models.append(ckpt.restore(name, trainer.init_state(1)).model)
+        found_seeds.append(seed)
+    predictor = Predictor(config, build_model(config.model, source.n_class,
+                                              config.data.depth_shape),
+                          source.n_class, eval_batch=config.eval.eval_batch, device=device)
+    obs = list(config.eval.obs_percs)
+
+    def dump(tag):
+        return os.path.join(results_save_path, tag) if results_save_path else None
+
+    if ensemble and seed_models:
+        per_seed = [predictor.predict_multi(seed_models, source, obs, log=log,
+                                            dump_dir=dump("ensemble"))]
+    else:
+        # per-seed subdirectories: one sweep truncates its own log files
+        per_seed = [predictor.predict_multi(m, source, obs, log=log, dump_dir=dump(f"seed_{s}"))
+                    for s, m in zip(found_seeds, seed_models)]
+    all_results: Dict[str, Dict[str, float]] = {}
+    for obs_p in config.eval.obs_percs:
+        rs = [r[obs_p] for r in per_seed if obs_p in r]
+        if rs:
+            all_results[f"obs{obs_p}"] = {k: float(np.mean([r[k] for r in rs]))
+                                          for k in rs[0].keys()}
+    if results_save_path is not None:
+        os.makedirs(results_save_path, exist_ok=True)
+        with open(os.path.join(results_save_path, "results.json"), "w") as f:
+            json.dump(all_results, f, indent=2)
+    return all_results
+
+
+def main(config: Config, mode: str = "train", dataset_ops: str = "", log=print,
+         resume: bool = False, ensemble: bool = False,
+         results_save_path: Optional[str] = None, device: Device = "cuda"):
+    if mode in ("train", "train_eval"):
+        for seed in config.train.seeds:
+            log(f"=== training seed {seed} ===")
+            train(config, seed, dataset_ops, log=log, resume=resume, device=device)
+    if mode in ("predict", "train_eval"):
+        return predict(config, dataset_ops, log=log, ensemble=ensemble,
+                       results_save_path=results_save_path, device=device)

@@ -225,6 +225,20 @@ CONFIGS = {
                           weighted_ce=True, device_cache=True),
         eval=EvalConfig(exclude_class_idx=16),
     ),
+    # NTU RGB+D fusion (main_nturgbd.py): the utkinects model and loop with
+    # 224x224 depth frames, 121 query slots and class 120 excluded in train
+    # and eval. The depth stream loads raw: the reference's min-max helper is
+    # commented out at its load site (basedataset_nturgbd.py:148).
+    "nturgbd": Config(
+        name="nturgbd",
+        data=DataConfig(dataset="nturgbd", train_obs_percs=(0.2, 0.3, 0.5),
+                        depth_shape=(224, 224), normalize_depth=False,
+                        feature_dtype="bfloat16"),
+        model=ModelConfig(model="futr_fusion_bn", query_num=121, embed_dtype="bfloat16"),
+        train=TrainConfig(loop="proposed_depth", exclude_class_idx=120, weighted_ce=True,
+                          device_cache=True),
+        eval=EvalConfig(exclude_class_idx=120),   # predict_nturgbd.py:330
+    ),
     # Synthetic smoke config: the same model, no data on disk.
     "synthetic": Config(
         name="synthetic",

@@ -1,0 +1,243 @@
+"""On-disk dataset source.
+
+Counterpart of ``r3d_tpu/data/datasets.py``: one loader class for the
+reference's dataset files, its fork points ``DataConfig`` fields:
+
+- ``gt_format``: 'plain' = one label per line; 'csv' = ``img,L2[,L3]`` rows,
+  keeping rows of exactly 3 fields;
+- ``features_transposed``: features stored [C, S] on disk;
+- ``train_obs_percs``: the observation ratios a train or val table repeats
+  each video at;
+- ``depth_features_dir``: an optional second stream (raw depth frames),
+  ``multi_sequence`` with its ``depth_dir_rewrite`` and ``normalize_depth``.
+
+Videos parse their labels once into int arrays and stay cached in host
+memory. Not ported yet, and raising ``NotImplementedError`` naming their
+ROADMAP item: ``cache='native'`` (the C++ streaming loader, A9),
+``raw_frames`` (A15), the gaze stream, ``l1_relabel``,
+``label_from_filename`` and every query stream in a loader (A11).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from r3d_tpu_torch.config import DataConfig
+from r3d_tpu_torch.data.mapping import read_mapping_dict
+from r3d_tpu_torch.data.pipeline import BucketedLoader
+from r3d_tpu_torch.data.protocol import Example, make_example_from_indices
+
+
+def _dataset_dir(cfg: DataConfig) -> str:
+    # main_utkinects.py:77-84: the 'utkinects' config lives in datasets/utkinect
+    name = {"utkinects": "utkinect"}.get(cfg.dataset, cfg.dataset)
+    return os.path.join(cfg.data_root, name)
+
+
+def read_split(cfg: DataConfig, split_name: str) -> List[str]:
+    path = os.path.join(_dataset_dir(cfg), cfg.splits_dir, split_name)
+    with open(path) as f:
+        return [l for l in f.read().split("\n") if l.strip()]
+
+
+def read_gt_file(path: str, gt_format: str
+                 ) -> Tuple[List[str], Optional[List[str]], Optional[List[str]]]:
+    """Returns (frame_labels, image_paths, l3_labels)."""
+    with open(path) as f:
+        lines = f.readlines()
+    if gt_format == "csv":
+        valid = [l.strip() for l in lines if len(l.strip().split(",")) == 3]
+        images = [l.split(",")[0] for l in valid]
+        labels = [l.split(",")[1] for l in valid]
+        l3 = [l.split(",")[2] for l in valid]
+        return labels, images, l3
+    labels = [l for l in "".join(lines).split("\n")][:-1]
+    return labels, None, None
+
+
+def _check_ported(cfg: DataConfig, cache: str) -> None:
+    if cache == "native":
+        raise NotImplementedError("cache='native' (the C++ streaming loader) is not "
+                                  "ported yet (ROADMAP queue A, item A9)")
+    if cfg.raw_frames:
+        raise NotImplementedError("raw_frames (jpg frames and Kinect XML depth) is not "
+                                  "ported yet (ROADMAP queue A, item A15)")
+    for name in ("gaze_dir", "l1_relabel", "label_from_filename"):
+        if getattr(cfg, name):
+            raise NotImplementedError(f"{name} is not ported yet (ROADMAP queue A, item A11)")
+
+
+class VideoSource:
+    """Lazy per-video loader and the train table over observation ratios.
+
+    Labels parse once per video into int arrays; feature arrays stay cached
+    in host memory (``cache='ram'``)."""
+
+    def __init__(self, cfg: DataConfig, vid_list: List[str], actions_dict: Dict[str, int],
+                 n_class: int, pad_idx: int, query_dict: Optional[Dict[str, int]] = None,
+                 cache: str = "ram"):
+        _check_ported(cfg, cache)
+        self.cfg = cfg
+        self.vid_list = vid_list
+        self.actions_dict = actions_dict
+        self.n_class = n_class
+        self.pad_idx = pad_idx
+        self.query_dict = query_dict
+        self.cache = cache
+        root = _dataset_dir(cfg)
+        self.features_path = os.path.join(root, cfg.features_dir)
+        self.gt_path = os.path.join(root, cfg.gt_dir)
+        self.depth_path = (os.path.join(root, cfg.depth_features_dir)
+                           if cfg.depth_features_dir else None)
+        self._cache: Dict[str, Dict] = {}
+        self._meta: Dict[str, Dict] = {}
+
+    @staticmethod
+    def _base(vid_file: str) -> str:
+        return os.path.splitext(vid_file)[0]
+
+    def _gt_file(self, vid_file: str, seq: Optional[int] = None) -> str:
+        if seq is None:
+            return os.path.join(self.gt_path, vid_file)
+        return os.path.join(self.gt_path, f"{self._base(vid_file)}_{seq}.txt")
+
+    def _feature_file(self, vid_file: str, seq: Optional[int] = None) -> str:
+        base = vid_file.split(".")[0] if seq is None else f"{self._base(vid_file)}_{seq}"
+        return os.path.join(self.features_path, base + ".npy")
+
+    def _depth_file(self, vid_file: str, seq: Optional[int] = None) -> str:
+        if seq is None and not self.cfg.multi_sequence:
+            return os.path.join(self.depth_path, vid_file.split(".")[0] + ".npy")
+        # multi-sequence: the depth stream is always the seq-1 file with the
+        # camera->depth directory rewrite (basedataset_darai_depth.py:46-50)
+        path = os.path.join(self.depth_path, f"{self._base(vid_file)}_1.npy")
+        for old, new in self.cfg.depth_dir_rewrite:
+            if old in path:
+                path = path.replace(old, new)
+                break
+        return path
+
+    def units(self) -> List[Tuple[str, Optional[int]]]:
+        """The (vid, seq) pairs this source serves.
+
+        Flat layouts: one unit per split entry. Multi-sequence layouts
+        (basedataset_darai_depth.py:44-82): walk {base}_{seq}.txt/.npy from
+        seq=1 until a file is missing or the gt has <= sample_rate lines; a
+        video with no (rewritten) depth file contributes nothing when a
+        depth stream is configured."""
+        if not self.cfg.multi_sequence:
+            return [(v, None) for v in self.vid_list]
+        out: List[Tuple[str, Optional[int]]] = []
+        for vid in self.vid_list:
+            vid_file = vid.split("/")[-1]
+            if self.depth_path is not None and not os.path.exists(
+                    self._depth_file(vid_file, seq=1)):
+                continue
+            seq = 1
+            while True:
+                gt = self._gt_file(vid_file, seq)
+                if not (os.path.exists(gt) and os.path.exists(self._feature_file(vid_file, seq))):
+                    break
+                with open(gt) as f:
+                    n_lines = len(f.readlines())
+                if n_lines <= self.cfg.sample_rate:
+                    break
+                out.append((vid, seq))
+                seq += 1
+        return out
+
+    @staticmethod
+    def _meta_key(vid_file: str, seq: Optional[int]) -> str:
+        return vid_file if seq is None else f"{vid_file}::{seq}"
+
+    def load_meta(self, vid: str, seq: Optional[int] = None) -> Dict:
+        """Parsed labels (int arrays) and paths; small, always cached."""
+        vid_file = vid.split("/")[-1]
+        key = self._meta_key(vid_file, seq)
+        if key in self._meta:
+            return self._meta[key]
+        labels, images, l3 = read_gt_file(self._gt_file(vid_file, seq), self.cfg.gt_format)
+        label_idx = np.array([self.actions_dict[l.replace(" ", "")] for l in labels], np.int64)
+        query_idx = None
+        if self.query_dict is not None and l3 is not None:
+            query_idx = np.array([self.query_dict[q.replace(" ", "")] for q in l3], np.int64)
+        meta = {"labels": labels, "label_idx": label_idx, "images": images, "l3": l3,
+                "query_idx": query_idx}
+        self._meta[key] = meta
+        return meta
+
+    def load_video(self, vid: str, seq: Optional[int] = None) -> Dict:
+        vid_file = vid.split("/")[-1]
+        key = self._meta_key(vid_file, seq)
+        if key in self._cache:
+            return self._cache[key]
+        meta = self.load_meta(vid, seq)
+        feats = np.load(self._feature_file(vid_file, seq))
+        if self.cfg.features_transposed:
+            feats = feats.T
+        video = dict(meta, features=feats)
+        if self.depth_path is not None:
+            depth = np.load(self._depth_file(vid_file, seq))
+            if self.cfg.multi_sequence and meta["images"]:
+                # align the whole-video depth stack to this sequence's frame
+                # window by the gt's image indices
+                # (basedataset_darai_depth.py:105-113)
+                idxs = [int(os.path.basename(p).split("_")[-1].split(".")[0])
+                        for p in meta["images"]]
+                depth = depth[idxs[0]: idxs[-1] + 1]
+            if self.cfg.normalize_depth:
+                # NTU: whole-stack min-max -> [0, 255] uint8
+                # (basedataset_nturgbd.py:42-52)
+                lo, hi = depth.min(), depth.max()
+                if hi > lo:
+                    depth = (depth - lo) / (hi - lo) * 255
+                depth = depth.astype(np.uint8)
+            video["depth"] = depth
+        self._cache[key] = video
+        return video
+
+    def make_example(self, vid: str, obs_perc: float, sample_rate: int, n_query: int,
+                     seq: Optional[int] = None) -> Example:
+        v = self.load_video(vid, seq)
+        return make_example_from_indices(
+            v["features"], v["label_idx"], obs_perc, sample_rate, n_query,
+            self.pad_idx, self.n_class, depth_features=v.get("depth"),
+            query_idx=v["query_idx"], vid_name=vid if seq is None else f"{vid}::{seq}",
+            future_frames=self.cfg.future_frames)
+
+
+def build_source(cfg: DataConfig, split_name: str,
+                 query_mapping: Optional[str] = None) -> VideoSource:
+    root = _dataset_dir(cfg)
+    actions_dict = read_mapping_dict(os.path.join(root, cfg.mapping_file))
+    n_class = len(actions_dict) + 1      # + NONE (main_utkinects.py:108)
+    pad_idx = n_class + 1                # main_utkinects.py:109
+    query_mapping = query_mapping or cfg.query_mapping_file
+    query_dict = read_mapping_dict(os.path.join(root, query_mapping)) if query_mapping else None
+    return VideoSource(cfg, read_split(cfg, split_name), actions_dict, n_class, pad_idx,
+                       query_dict)
+
+
+def build_loader(source: VideoSource, cfg: DataConfig, batch_size: int, n_query: int,
+                 mode: str = "train", obs_perc: float = 0.2, shuffle: bool = True,
+                 seed: int = 0) -> BucketedLoader:
+    """The loader over every (unit, ratio): the config's train ratios for
+    ``mode`` 'train' and 'val', else ``obs_perc`` alone."""
+    if source.query_dict is not None:
+        raise NotImplementedError("query streams in the loader are not ported yet "
+                                  "(ROADMAP queue A, item A11)")
+    obs = cfg.train_obs_percs if mode in ("train", "val") else (obs_perc,)
+    table = [(u, o) for u in source.units() for o in obs]
+
+    def fn(i: int) -> Example:
+        (vid, seq), o = table[i]
+        return source.make_example(vid, o, cfg.sample_rate, n_query, seq=seq)
+
+    return BucketedLoader(
+        num_examples=len(table), make_example_fn=fn, batch_size=batch_size,
+        pad_idx=source.pad_idx, buckets=cfg.seq_buckets, n_query=n_query,
+        with_depth=source.depth_path is not None, shuffle=shuffle, seed=seed,
+        feature_dtype=cfg.feature_dtype)

@@ -76,7 +76,8 @@ class BucketedLoader:
     ``make_example_fn(index) -> Example`` is called lazily; a background
     thread keeps ``PREFETCH`` collated batches ready. The order (shuffle by
     ``RandomState(seed + epoch)``, then a stable sort by bucket) is the JAX
-    loader's, so both see the same batches.
+    loader's, so both see the same batches. ``epoch`` counts the iterations
+    begun so far.
     """
 
     def __init__(self, num_examples: int, make_example_fn: Callable[[int], Example],
@@ -95,7 +96,7 @@ class BucketedLoader:
         self.shuffle = shuffle
         self.seed = seed
         self.example_lengths = example_lengths
-        self._epoch = 0
+        self.epoch = 0
 
     def __len__(self) -> int:
         return -(-self.num_examples // self.batch_size)
@@ -103,7 +104,7 @@ class BucketedLoader:
     def _order(self) -> np.ndarray:
         idx = np.arange(self.num_examples)
         if self.shuffle:
-            np.random.RandomState(self.seed + self._epoch).shuffle(idx)
+            np.random.RandomState(self.seed + self.epoch).shuffle(idx)
         if self.example_lengths is not None:
             lengths = np.asarray(self.example_lengths)
             keys = np.array([bucket_length(l, self.buckets) for l in lengths[idx]])
@@ -112,7 +113,7 @@ class BucketedLoader:
 
     def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
         order = self._order()
-        self._epoch += 1
+        self.epoch += 1   # as JAX's loader: on starting an iteration
         batches = [order[i:i + self.batch_size] for i in range(0, len(order), self.batch_size)]
         q: "queue.Queue" = queue.Queue(maxsize=PREFETCH)
         stop = object()

@@ -38,6 +38,8 @@ def build_model(cfg: ModelConfig, n_class: int,
     of the raw depth input (``DataConfig.depth_shape``)."""
     if cfg.compute_dtype not in DTYPES:
         raise NotImplementedError(f"compute_dtype {cfg.compute_dtype!r} is not ported")
+    if cfg.moe_experts > 0:
+        raise NotImplementedError("moe_experts > 0 is not ported yet (ROADMAP queue A, item A11)")
     if cfg.model in ("futr", "futr_baseline"):
         # model/futr_baseline.py: futr + output['supcon'] = decoder output
         return FUTR(cfg, n_class, emit_supcon=cfg.model == "futr_baseline")

@@ -15,8 +15,11 @@ features and depth, the others (``futr``, ``futr_baseline``) features only.
 ``ServingQueue`` coalesces concurrent requests into ``anticipate_batch``
 calls.
 
-Not ported yet (ROADMAP): ``from_checkpoint``, ``quantize='int8'``,
-``input_dtype='uint8'``, ``mesh``, ``export`` / ``ExportedSession``.
+``InferenceSession.from_checkpoint(config, ckpt_dir, seed, n_class)``
+serves a seed's best checkpoint (``train/checkpoint.py``).
+
+Not ported yet (ROADMAP): ``quantize='int8'``, ``input_dtype='uint8'``,
+``mesh``, ``export`` / ``ExportedSession``.
 """
 
 from __future__ import annotations
@@ -66,6 +69,18 @@ class InferenceSession:
             model.load_state_dict(weights)
         self.model = model.to(self.device).eval()
         self.in_dtype = DTYPES[config.data.feature_dtype]
+
+    @classmethod
+    def from_checkpoint(cls, config: Config, ckpt_dir: str, seed: int, n_class: int,
+                        **kw) -> "InferenceSession":
+        """A session over the model of checkpoint ``seed_{seed}_best`` in
+        ``ckpt_dir``; ``kw`` as for the constructor."""
+        from r3d_tpu_torch.train.checkpoint import Checkpointer
+        from r3d_tpu_torch.train.loop import Trainer
+
+        trainer = Trainer(config, n_class, device=kw.get("device", "cuda"))
+        state = Checkpointer(ckpt_dir).restore_best(seed, trainer.init_state(1))
+        return cls(config, state.model, n_class, **kw)
 
     def _collate(self, videos: Sequence[Dict[str, np.ndarray]], S: int
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:

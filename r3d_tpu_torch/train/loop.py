@@ -21,10 +21,15 @@ once per epoch; the best gate (``proposed_depth``: either of two metrics;
 ``futr``: the class accuracy alone) and the log lines are the JAX
 package's.
 
+``fit`` takes JAX's ``checkpointer`` (``train/checkpoint.py``: the best
+gate saves ``seed_{s}_checkpoint{e}`` and ``seed_{s}_best``, every epoch
+``seed_{s}_last``), ``metrics_logger`` (one record an epoch, the JAX
+package's fields) and ``start_epoch`` (a resume).
+
 Not ported yet, and raising ``NotImplementedError`` naming their ROADMAP
-item: other loops, ``steps_per_dispatch > 1`` and ``grad_accum > 1``
-(item 10), the checkpointer (item 7). Meshes (item 14) have no argument.
-``fit`` ignores ``device_cache``, as JAX's ``Trainer.fit`` does.
+item: other loops (item 12), ``steps_per_dispatch > 1``, ``grad_accum > 1``
+and ``rng_impl`` (item 10). Meshes (item 14) have no argument. ``fit``
+ignores ``device_cache``, as JAX's ``Trainer.fit`` does.
 """
 
 from __future__ import annotations
@@ -72,9 +77,9 @@ class Trainer:
         if tc.loop not in LOOPS:
             raise NotImplementedError(
                 f"loop {tc.loop!r} is not ported yet (ROADMAP queue A, item 12)")
-        if tc.steps_per_dispatch > 1 or tc.grad_accum > 1:
+        if tc.steps_per_dispatch > 1 or tc.grad_accum > 1 or tc.rng_impl is not None:
             raise NotImplementedError(
-                "steps_per_dispatch > 1 and grad_accum > 1 are not ported yet "
+                "steps_per_dispatch > 1, grad_accum > 1 and rng_impl are not ported yet "
                 "(ROADMAP queue A, item 10)")
         self.device = resolve_device(device)
         self.config = config
@@ -94,15 +99,15 @@ class Trainer:
 
     # ------------------------------------------------------------------ setup
     def init_state(self, steps_per_epoch: int,
-                   state_dict: Optional[Mapping[str, torch.Tensor]] = None
-                   ) -> TrainState:
+                   state_dict: Optional[Mapping[str, torch.Tensor]] = None,
+                   seed: int = INIT_SEED) -> TrainState:
         """The model on the trainer's device, from ``state_dict`` (e.g.
         ``convert.state_dict_from_flax`` of the JAX init) or, without one,
-        from ``init_weights`` under seed ``INIT_SEED``; AdamW at update 0."""
+        from ``init_weights`` under ``seed``; AdamW at update 0."""
         cfg = self.config
         model = build_model(cfg.model, self.n_class, cfg.data.depth_shape)
         if state_dict is None:
-            init_weights(model, torch.Generator().manual_seed(INIT_SEED))
+            init_weights(model, torch.Generator().manual_seed(seed))
         else:
             model.load_state_dict(state_dict)
         model.to(self.device)
@@ -220,19 +225,18 @@ class Trainer:
 
     # ------------------------------------------------------------ outer loop
     def fit(self, state: TrainState, train_loader, val_loader, seed: int, log=print,
-            checkpointer=None) -> TrainState:
-        """The epoch loop: train (skipping batches under ``min_train_batch``,
-        the BN guard), log, validate, gate. Dropout draws from generators
-        seeded with ``seed``."""
-        if checkpointer is not None:
-            raise NotImplementedError("the checkpointer is not ported yet "
-                                      "(ROADMAP queue A, item 7)")
+            checkpointer=None, metrics_logger=None, start_epoch: int = 0) -> TrainState:
+        """The epoch loop from ``start_epoch``: train (skipping batches under
+        ``min_train_batch``, the BN guard), log, validate, record, gate and
+        checkpoint. Dropout draws from generators seeded with ``seed`` and,
+        in a resumed run, its start epoch (JAX folds it into its key)."""
         cfg = self.config.train
         eval_step = self.make_eval_step()
-        gen = torch.Generator(self.device).manual_seed(seed)
-        set_generators(state.model, gen, torch.Generator().manual_seed(seed))
+        dropout_seed = seed if start_epoch == 0 else hash((seed, start_epoch)) & (2**63 - 1)
+        gen = torch.Generator(self.device).manual_seed(dropout_seed)
+        set_generators(state.model, gen, torch.Generator().manual_seed(dropout_seed))
         best = (0.0, 0.0)
-        for epoch in range(cfg.epochs):
+        for epoch in range(start_epoch, cfg.epochs):
             t0 = time.time()
             agg: Dict[str, torch.Tensor] = {}
             n_batches = n_clips = 0
@@ -246,14 +250,19 @@ class Trainer:
                     agg[k] = agg.get(k, 0.0) + v
             best = self._finish_epoch(
                 state, epoch, _to_host(agg), n_batches, n_clips, time.time() - t0,
-                lambda st: self._validate(st, eval_step, val_loader), best, log)
+                lambda st: self._validate(st, eval_step, val_loader), best, log,
+                seed=seed, metrics_logger=metrics_logger, checkpointer=checkpointer)
         return state
 
-    def _finish_epoch(self, state, epoch, agg, n_batches, n_clips, dt, validate, best, log):
-        """Train log line, validation and the best gate: ``futr`` gates on
-        the class accuracy alone (train.py:63), ``proposed_depth`` on either
-        metric and overwrites both bests (train_proposed_depth.py:237-241).
-        Returns (best_val_acc, best_weight_acc)."""
+    def _finish_epoch(self, state, epoch, agg, n_batches, n_clips, dt, validate, best, log,
+                      seed=0, metrics_logger=None, checkpointer=None):
+        """Train log line, validation, the metrics record
+        (``r3d_tpu/train/loop.py:1066-1079``) and the best gate: ``futr``
+        gates on the class accuracy alone (train.py:63), ``proposed_depth``
+        on either metric and overwrites both bests
+        (train_proposed_depth.py:237-241). An open gate saves the best
+        checkpoints; every epoch saves the last. Returns (best_val_acc,
+        best_weight_acc)."""
         cfg = self.config.train
         best_val_acc, best_weight_acc = best
         loss = agg.get("loss", 0.0) / max(n_batches, 1)
@@ -266,10 +275,23 @@ class Trainer:
         weight_acc = vagg.get("weight_acc_sum", 0.0) / max(vagg.get("weight_acc_cnt", 0.0), 1.0)
         log(f"Validation Loss: {val_loss:.3f}, Class Accuracy: {val_acc:.3f}, "
             f"Weighted Accuracy: {weight_acc:.3f}")
+        if metrics_logger is not None:
+            rec = {f"train_{k}": v / max(n_batches, 1) for k, v in agg.items()}
+            rec.update(epoch=epoch, seed=seed, train_acc=acc, val_loss=val_loss,
+                       val_acc=val_acc, val_weight_acc=weight_acc,
+                       clips_per_sec=n_clips / max(dt, 1e-9))
+            if "erank" in vagg:   # the paper's analysis curve, per epoch
+                rec["val_erank"] = vagg["erank"] / max(vb, 1)
+            metrics_logger.log(rec, step=int(state.step))
         two_metric = cfg.loop != "futr"
         if val_acc > best_val_acc or (two_metric and weight_acc > best_weight_acc):
             best_val_acc, best_weight_acc = val_acc, weight_acc
             self.best_epochs.append(epoch)
+            if checkpointer is not None:
+                checkpointer.save_best(state, seed=seed, epoch=epoch)
+                log(f"Best model saved (val acc {val_acc:.3f})")
+        if checkpointer is not None:
+            checkpointer.save_last(state, seed=seed)
         return best_val_acc, best_weight_acc
 
     def _validate(self, state, eval_step, val_loader):

@@ -31,6 +31,7 @@ agree bit for bit for both.
 
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -661,3 +662,117 @@ def test_fp32_cross_attention_fwd_refuses_more_than_8_splits(cuda):
                                0, 0, 0, 1.0, stream)
     torch.cuda.synchronize()
     assert err == 1   # cudaErrorInvalidValue
+
+
+# ---- checkpoints and the MoC sweep on the card ----
+
+def _utk_card_config(root=""):
+    """utkinects at its widths (hidden 128, 8 heads: K1's C and K3's D),
+    narrow inputs (64 features, 8x6 depth frames), buckets 128-512."""
+    import dataclasses
+
+    from r3d_tpu_torch.config import get_config
+
+    base = get_config("utkinects")
+    return base.replace(
+        data=dataclasses.replace(base.data, data_root=root, depth_shape=(8, 6),
+                                 seq_buckets=(128, 256, 512)),
+        model=dataclasses.replace(base.model, input_dim=64, max_pos_len=512),
+        train=dataclasses.replace(base.train, batch_size=4, min_train_batch=0, warmup_epochs=0))
+
+
+def _trained(device, cfg, steps=2):
+    from r3d_tpu_torch.data.datasets import build_loader, build_source
+    from r3d_tpu_torch.train.loop import Trainer
+
+    src = build_source(cfg.data, "train_split.txt")
+    loader = build_loader(src, cfg.data, 4, 8, seed=0)
+    trainer = Trainer(cfg, src.n_class, device=device)
+    state = trainer.init_state(len(loader), seed=1)
+    batches = list(loader)[:steps]
+    for epoch, b in enumerate(batches):
+        trainer.train_step(state, b, epoch)
+    return trainer, state, batches
+
+
+@pytest.fixture(scope="module")
+def utk_disk(tmp_path_factory):
+    from chip_smoke import write_utkinect_dataset
+
+    return write_utkinect_dataset(tmp_path_factory.mktemp("card_utk"), 4, 3, (300, 560),
+                                  n_actions=16, input_dim=64, depth_shape=(8, 6))
+
+
+@pytest.mark.parametrize("saved_on", ["cuda", "cpu"])
+def test_checkpoint_round_trip_across_devices(cuda, utk_disk, tmp_path, saved_on):
+    """A state trained on one device, saved, restored onto the other and
+    back: bit-exact parameters, BN buffers, AdamW moments and step, every
+    restored tensor on its template's device."""
+    from r3d_tpu_torch.train.checkpoint import Checkpointer
+
+    cfg = _utk_card_config(utk_disk)
+    other = "cpu" if saved_on == "cuda" else "cuda"
+    trainer, state, batches = _trained(saved_on, cfg)
+    ckpt = Checkpointer(str(tmp_path))
+    ckpt.save_last(state, seed=1)
+    from r3d_tpu_torch.train.loop import Trainer
+
+    there = ckpt.restore_last(1, Trainer(cfg, trainer.n_class, device=other).init_state(
+        len(batches), seed=2))
+    ckpt.save(there, "moved")
+    back = ckpt.restore("moved", trainer.init_state(len(batches), seed=3))
+    for restored, device in ((there, other), (back, saved_on)):
+        want, got = state.model.state_dict(), restored.model.state_dict()
+        for k in want:
+            assert got[k].device.type == device
+            assert torch.equal(got[k].cpu(), want[k].cpu()), k
+        want_opt = state.optimizer.state_dict()["state"]
+        got_opt = restored.optimizer.state_dict()["state"]
+        assert sorted(got_opt) == sorted(want_opt)
+        for i, s in want_opt.items():
+            for name in ("exp_avg", "exp_avg_sq"):
+                assert got_opt[i][name].device.type == device
+                assert torch.equal(got_opt[i][name].cpu(), s[name].cpu()), (i, name)
+            assert float(got_opt[i]["step"]) == float(s["step"])
+        assert restored.step == state.step == len(batches)
+
+
+def test_predictor_on_the_card_matches_its_cpu_self(cuda, utk_disk):
+    """The 9-ratio sweep of 3 videos (windows in the 128-512 buckets) on the
+    card against the CPU from the same weights: every chunk launches K1, the
+    256/512 chunks K3; action logits and durations within 5e-2 (the
+    utkinects bound of ``chip_smoke.E2E_TOL``: bf16 embeds); MoC and
+    accuracies equal wherever no window decodes differently."""
+    from chip_smoke import E2E_TOL, SweepRecorder, decode_flips
+    from r3d_tpu_torch.data.datasets import build_source
+    from r3d_tpu_torch.eval.predict import Predictor
+    from r3d_tpu_torch.models import build_model, init_weights
+
+    cfg = _utk_card_config(utk_disk)
+    src = build_source(cfg.data, "val_split.txt")
+    model = init_weights(build_model(cfg.model, src.n_class, cfg.data.depth_shape),
+                         torch.Generator().manual_seed(0))
+    sd = {k: v.clone() for k, v in model.state_dict().items()}
+    runs = {}
+    for device in ("cuda", "cpu"):
+        pred = Predictor(cfg, build_model(cfg.model, src.n_class, cfg.data.depth_shape),
+                         src.n_class, device=device)
+        with SweepRecorder([fk.KERNEL, att.KERNEL]) as rec:
+            runs[device] = (pred.predict_multi(sd, src, list(cfg.eval.obs_percs)), rec.chunks)
+    (gres, gchunks), (cres, cchunks) = runs["cuda"], runs["cpu"]
+    assert {c["S"] for c in gchunks} == {128, 256, 512}
+    for c in gchunks:
+        assert c["launches"]["fused_bn_blend_tail"] >= 1
+        assert (c["launches"]["flash_attention"] >= 1) == (c["S"] in (256, 512))
+    for c in cchunks:
+        assert sum(c["launches"].values()) == 0
+    err = max(float(np.abs(a[k] - b[k]).max()) for a, b in zip(gchunks, cchunks)
+              for k in ("action", "duration"))
+    assert err <= E2E_TOL
+    flipped, unexplained = decode_flips(gchunks, cchunks, err, src.n_class)
+    assert unexplained == 0
+    if flipped == 0:
+        for o in cres:
+            for k in cres[o]:
+                if k.startswith("obs"):
+                    assert gres[o][k] == cres[o][k], (o, k)

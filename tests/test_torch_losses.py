@@ -243,7 +243,9 @@ def test_trainer_refuses_what_is_not_ported(kw, item):
 
 
 def test_fit_skips_small_batches_and_refuses_a_checkpointer():
-    """The BN batch guard: batches under ``min_train_batch`` do not train."""
+    """The BN batch guard: batches under ``min_train_batch`` do not train.
+    A checkpointer, which ``fit`` refused before the port had checkpoints,
+    is now taken: the open gate saves the best, every epoch the last."""
     src = SyntheticSource(n_videos=3, n_actions=5, vid_len_range=(60, 90), input_dim=12,
                           depth_shape=(6, 5), seed=0)
     fn, n = src.make_example_fn((0.3, 0.5), 1, 8)
@@ -255,5 +257,16 @@ def test_fit_skips_small_batches_and_refuses_a_checkpointer():
     trainer.fit(state, batches, batches[:1], seed=0, log=lines.append)
     assert state.step == sum(b["features"].shape[0] >= 4 for b in batches) < len(batches)
     assert lines[0].startswith("Epoch [1/1] Loss : ") and lines[1].startswith("Validation Loss:")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        trainer.fit(state, batches, batches, seed=0, checkpointer=object())
+    calls = []
+
+    class Recorder:
+        def save_best(self, state, seed, epoch):
+            calls.append(("best", seed, epoch))
+
+        def save_last(self, state, seed):
+            calls.append(("last", seed))
+
+    lines = []
+    trainer.fit(state, batches, batches[:1], seed=3, log=lines.append, checkpointer=Recorder())
+    assert calls == [("best", 3, 0), ("last", 3)]
+    assert lines[2].startswith("Best model saved (val acc ")
