@@ -51,17 +51,37 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    width: a synthetic utkinect-layout dataset written from a seed (16
    actions; 5 train videos of 300-780 frames, 2 val videos of 600-780);
    every count set to 0, ``train`` of one seed for 2 epochs with
-   validation, where epoch 0 must launch the no-blend tail, its backward,
-   the dropout attention and the attention backward and epoch 1 the blend
-   tail, attention and its backward, writing ``seed_1_best``,
-   ``seed_1_last`` and the metrics stream; the counts set to 0 again, the
-   9-ratio MoC sweep from the best checkpoint, where every chunk must
-   launch the blend tail (K1) and the 256/512-bucket chunks attention (K3);
-   its card-busy time from a profiled sweep; the same sweep with ``--cpu``,
-   held window by window (logits and durations within 5e-2; a MoC
-   difference only where a decode sits within the measured error of a
+   validation on the JAX CLI's route for the config, the device cache
+   (its log line asserted), where epoch 0 must launch the no-blend tail,
+   its backward, the dropout attention and the attention backward, epoch 1
+   the blend tail, attention and its backward, and each validation from
+   the val cache the blend tail and attention, writing ``seed_1_best``,
+   ``seed_1_last`` and the metrics stream; the same ``train`` with
+   ``--no-device_cache`` (the host loader); ``fit`` over the host loader
+   in the cached route's batch order and ``fit_hybrid`` with two of five
+   units on the card, whose final parameters must equal the cached run's
+   bit for bit; the counts set to 0 again, the 9-ratio MoC sweep from the
+   best checkpoint and the cached val videos, where every chunk must
+   launch the blend tail (K1) and the 256/512-bucket chunks attention
+   (K3); its card-busy time and host-to-device bytes (the videos and the
+   model, no optimizer state) from a profiled sweep; the host sweep
+   (``--no-device_cache``), equal to the cached one; the same sweep with
+   ``--cpu``, held window by window (logits and durations within 5e-2; a
+   MoC difference only where a decode sits within the measured error of a
    flip); both MoC tables and the wall times;
-7. utkinects with ``R3D_CROSS_NATIVE=1`` (restored after): requests in the
+7. utkinects at UTKinect scale from the device cache: 200 videos of
+   150-450 frames from a seed (2,048-d features and 160x120 depth frames,
+   bf16 on the card), ``build_cache`` timed; one epoch of ``fit_cached``
+   (250 batch-8 steps in the 128, 256 and 512 buckets, validation from a
+   cache of 16 videos), which must launch K1 no-blend, K2, K4 and K5, with
+   its step time, and the card's busy time and launches a step from a
+   profiled window; a window in which the host may not wait for the card
+   (torch's sync debug mode) and no host-to-device copy may be larger than
+   its index table; the same batches through the host loader and the cache
+   in 4 interleaved rounds of 16 steps; 3 steps a dispatch (cached, and ``make_multi_step`` over host
+   batches) equal to 3 single steps bit for bit; a ``grad_accum=2`` update
+   against the mean microbatch gradient taken by hand;
+8. utkinects with ``R3D_CROSS_NATIVE=1`` (restored after): requests in the
    1024 and 2000 buckets, where every cross-attention call must be an fp32
    K6 launch; the card's logits against the CPU's in the 2000 bucket;
    ``fit`` of 2 epochs (one 1024- and one 2000-bucket batch of 8) with
@@ -71,7 +91,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    dropout-off 1024-bucket step on the card against the CPU; the parts of a
    2000-bucket train step; an interleaved A/B of a 2000-bucket train step
    and serving chunk with ``R3D_CROSS_NATIVE`` set and unset;
-8. 50salads (FUTR, bf16, ``R3D_CROSS_NATIVE=1``) at full width (hidden 512,
+9. 50salads (FUTR, bf16, ``R3D_CROSS_NATIVE=1``) at full width (hidden 512,
    8 heads, 2 decoder layers, 20 queries, n_class 20): requests in the 256,
    512, 1024 and 3100 buckets, where the counts must show K3 at 256/512 and
    K6 at 1024/3100; the parts of a 512- and a 3100-bucket chunk; the card's
@@ -81,8 +101,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    card against the CPU; the parts of a train step; and an interleaved A/B
    of a 3100-bucket train step and serving chunk with ``R3D_CROSS_NATIVE``
    set and unset;
-9. print one ``{"kernels": [...]}`` line (with each kernel's launches in
-   the CLI phase's training and sweep beside those of the other phases)
+10. print one ``{"kernels": [...]}`` line (with each kernel's launches in
+   the CLI phase's training and sweep and in the cached epoch beside those
+   of the other phases)
    and, as the last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -1366,7 +1387,7 @@ def train_loaders(cfg, rng_seed=SEED, n_class=N_CLASS, n_videos=12, vid_len_rang
             num_examples=n, make_example_fn=fn, batch_size=batch_size, pad_idx=src.pad_idx,
             buckets=cfg.data.seq_buckets, n_query=cfg.model.n_query, with_depth=with_depth,
             shuffle=shuffle, seed=seed, example_lengths=lengths,
-            feature_dtype=cfg.data.feature_dtype)
+            feature_dtype=cfg.data.feature_dtype, pin_memory=True)
 
     src, train = loader(n_videos, obs, rng_seed, True, 8)
     _, val = loader(val_videos, val_obs, rng_seed + 1, False, val_batch)
@@ -1543,7 +1564,7 @@ def one_batch(loader, min_len, max_len=None, rows=8):
         if len(examples) == rows:
             break
     return pad_batch(examples, loader.pad_idx, loader.buckets, loader.n_query,
-                     loader.with_depth, loader.feature_dtype)
+                     loader.with_depth, loader.feature_dtype, loader.pin_memory)
 
 
 def train_breakdown(cfg, state_dict, train_loader, min_len=256, n_class=N_CLASS, label=""):
@@ -1900,8 +1921,11 @@ def write_utkinect_dataset(root, n_train, n_val, lengths, n_actions=N_CLASS - 1,
 
 class SweepRecorder:
     """Records each chunk of ``Predictor`` sweeps while in use: its bucket,
-    its windows (video, ratio), its action logits and durations, and how
-    many launches of each of ``kernels`` it made."""
+    its windows (video, ratio), whether its windows were gathered from the
+    device cache, its action logits and durations, and how many launches of
+    each of ``kernels`` it made."""
+
+    ROUTES = (("_forward_batch", False), ("_forward_batch_cached", True))
 
     def __init__(self, kernels):
         self.kernels, self.chunks = kernels, []
@@ -1909,27 +1933,61 @@ class SweepRecorder:
     def __enter__(self):
         from r3d_tpu_torch.eval.predict import Predictor
 
-        self._orig = orig = Predictor._forward_batch
+        self._orig = {name: getattr(Predictor, name) for name, _ in self.ROUTES}
         recorder = self
 
-        def recorded(predictor, modules, items, S):
-            before = {k.name: k.launches for k in recorder.kernels}
-            out = orig(predictor, modules, items, S)
-            recorder.chunks.append({
-                "S": S, "windows": [(it["vid"], it["obs_p"]) for it in items],
-                "future_len": [it["future_len"] for it in items],
-                "action": out["action"], "duration": out["duration"],
-                "launches": {k.name: k.launches - before[k.name] for k in recorder.kernels}})
-            return out
+        def recording(orig, cached):
+            def recorded(predictor, modules, items, S, *rest):
+                before = {k.name: k.launches for k in recorder.kernels}
+                out = orig(predictor, modules, items, S, *rest)
+                recorder.chunks.append({
+                    "S": S, "windows": [(it["vid"], it["obs_p"]) for it in items],
+                    "cached": cached, "future_len": [it["future_len"] for it in items],
+                    "action": out["action"], "duration": out["duration"],
+                    "launches": {k.name: k.launches - before[k.name] for k in recorder.kernels}})
+                return out
+            return recorded
 
-        Predictor._forward_batch = recorded
+        for name, cached in self.ROUTES:
+            setattr(Predictor, name, recording(self._orig[name], cached))
         return self
 
     def __exit__(self, *exc):
         from r3d_tpu_torch.eval.predict import Predictor
 
-        Predictor._forward_batch = self._orig
+        for name, orig in self._orig.items():
+            setattr(Predictor, name, orig)
         return False
+
+
+def htod_copies(prof, path):
+    """The host-to-device copies of a profiler trace (written to ``path``
+    and read back): their sizes in bytes."""
+    import os
+
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        trace = json.load(f)
+    os.remove(path)
+    return [int(e.get("args", {}).get("bytes", 0)) for e in trace.get("traceEvents", [])
+            if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
+
+
+def final_model(ckpt_dir, name):
+    """The model ``state_dict`` of checkpoint ``name``, on the card."""
+    import os
+
+    import torch
+
+    return torch.load(os.path.join(ckpt_dir, name, "state.pt"), map_location="cuda",
+                      weights_only=True)["model"]
+
+
+def unequal(a, b):
+    """The names of the entries of two ``state_dict``s that differ in any bit."""
+    import torch
+
+    return [k for k in a if not torch.equal(a[k], b[k])]
 
 
 def moc_table(results):
@@ -1970,21 +2028,61 @@ def decode_flips(chunks, ref_chunks, logit_err, n_class=N_CLASS):
     return flipped, unexplained
 
 
+CLI_ROUTE = "device cache: "        # the route's log line, the JAX CLI's words
+CLI_SWEEP_ROUTE = "predict: eval videos cached in HBM"
+
+
+def cli_train(argv, kernels, extra=()):
+    """``train`` through the CLI with every launch count set to 0; returns
+    (log lines, the counts at the end of each epoch's training and
+    validation, the counts in all, the wall time)."""
+    import torch
+
+    from r3d_tpu_torch.cli.opts import run_from_argv
+
+    snapshots, lines = [], []
+
+    def log(line):
+        torch.cuda.synchronize()
+        if line.startswith(("Epoch [", "Validation")):
+            snapshots.append({k.name: k.launches for k in kernels})
+        lines.append(line)
+        print(f"  {line}")
+
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    run_from_argv("utkinects", argv + ["--mode", "train", "--epochs", "2", *extra], log=log)
+    torch.cuda.synchronize()
+    return lines, snapshots, {k.name: k.launches for k in kernels}, time.perf_counter() - t0
+
+
 def utkinects_cli(kernels, card, k1, k3):
     """utkinects at full width through the CLI (``r3d_tpu_torch.cli``):
     write a synthetic utkinect-layout dataset (16 actions, 5 train videos of
     300-780 frames, 2 val videos of 600-780), every launch count set to 0,
-    ``train`` one seed for 2 epochs on the card (epoch 0 must launch the
-    no-blend tail, its backward, the dropout attention and the attention
-    backward; epoch 1 the blend tail, attention and its backward) with
-    validation, the gate, ``seed_1_best``, ``seed_1_last`` and the metrics
-    stream; then the 9-ratio MoC sweep from the best checkpoint on the
-    card, where every chunk must launch K1 (``k1``) and the 256/512-bucket
-    chunks K3 (``k3``); the sweep again under the profiler for its
-    card-busy time; and the same sweep with ``--cpu``, whose per-window
-    logits and durations the card's must hold to within ``E2E_TOL``.
-    Returns the counts of the train and card-sweep runs."""
+    ``train`` one seed for 2 epochs on the card on the JAX CLI's route for
+    the config, the device cache (the route's log line asserted; epoch 0
+    must launch the no-blend tail, its backward, the dropout attention and
+    the attention backward, epoch 1 the blend tail, attention and its
+    backward, each validation from the val cache the blend tail and
+    attention) with the gate, ``seed_1_best``, ``seed_1_last`` and the
+    metrics stream; the same ``train`` with ``--no-device_cache`` (the host
+    loader, whose epoch 0 shuffles with ``seed + 1`` after the JAX CLI's
+    example batch); ``fit`` over the host loader in the cached route's
+    batch order and ``fit_hybrid`` with two of the five units on the card,
+    each of whose final parameters must equal the cached run's bit for bit;
+    then the 9-ratio MoC sweep from the best checkpoint on the card from the
+    cached val videos, where every chunk must launch K1 (``k1``) and the
+    256/512-bucket chunks K3 (``k3``); the sweep again under the profiler
+    for its card-busy time and its host-to-device bytes (the videos and the
+    model, no optimizer state); the host sweep (``--no-device_cache``),
+    equal to the cached one window by window; and the sweep with ``--cpu``,
+    whose per-window logits and durations the card's must hold to within
+    ``E2E_TOL``. Returns the counts of the cached train and card-sweep
+    runs."""
     import contextlib
+    import dataclasses
     import io
     import json as _json
     import os
@@ -1995,6 +2093,9 @@ def utkinects_cli(kernels, card, k1, k3):
 
     from r3d_tpu_torch.cli.opts import build_parser, config_from_args, run_from_argv
     from r3d_tpu_torch.cli.run import save_path
+    from r3d_tpu_torch.data import device_cache as dc
+    from r3d_tpu_torch.data.datasets import build_loader, build_source
+    from r3d_tpu_torch.train.loop import Trainer
 
     here = os.path.dirname(os.path.abspath(__file__))
     work = os.path.join(here, CLI_DIR)
@@ -2010,22 +2111,9 @@ def utkinects_cli(kernels, card, k1, k3):
         argv = ["--config", "utkinects", "--data_root", root, "--model_save_path", save,
                 "--seed", "1"]
 
-        snapshots, lines = [], []
-
-        def log(line):
-            torch.cuda.synchronize()
-            if line.startswith(("Epoch [", "Validation")):
-                snapshots.append({k.name: k.launches for k in kernels})
-            lines.append(line)
-            print(f"  {line}")
-
-        for k in kernels:
-            k.launches = 0
-        t0 = time.perf_counter()
-        run_from_argv("utkinects", argv + ["--mode", "train", "--epochs", "2"], log=log)
-        torch.cuda.synchronize()
-        t_train = time.perf_counter() - t0
-        train_counts = {k.name: k.launches for k in kernels}
+        lines, snapshots, train_counts, t_train = cli_train(argv, kernels)
+        if not any(line.startswith(CLI_ROUTE) and "views" in line for line in lines):
+            raise AssertionError(f"cli train: the cached route's line is missing: {lines}")
         phases = ["epoch 0 train", "epoch 0 validation", "epoch 1 train", "epoch 1 validation"]
         per_phase, prev = {}, {k.name: 0 for k in kernels}
         for name, snap in zip(phases, snapshots):
@@ -2034,9 +2122,9 @@ def utkinects_cli(kernels, card, k1, k3):
             print(f"cli: launches in {name}: {per_phase[name]}")
         want = {"epoch 0 train": ("fused_safuser_tail", "fused_tail_bwd",
                                   "flash_attention_dropout", "attention_bwd"),
-                "epoch 0 validation": ("fused_bn_blend_tail",),
+                "epoch 0 validation": ("fused_bn_blend_tail", "flash_attention"),
                 "epoch 1 train": ("fused_bn_blend_tail", "flash_attention", "attention_bwd"),
-                "epoch 1 validation": ("fused_bn_blend_tail",)}
+                "epoch 1 validation": ("fused_bn_blend_tail", "flash_attention")}
         for phase, names in want.items():
             missing = [n for n in names if per_phase.get(phase, {}).get(n, 0) == 0]
             if missing:
@@ -2045,34 +2133,93 @@ def utkinects_cli(kernels, card, k1, k3):
                   for x in re.findall(r"Loss ?: ?(-?[0-9.]+|nan|inf)", line)]
         if len(losses) != 4 or not all(math.isfinite(x) for x in losses):
             raise AssertionError(f"cli train: a loss is missing or not finite: {lines}")
-        ckpt_dir = save_path(config_from_args(build_parser("utkinects").parse_args(argv)))
+        config = config_from_args(build_parser("utkinects").parse_args(argv))
+        ckpt_dir = save_path(config)
         names = sorted(os.listdir(ckpt_dir))
         with open(os.path.join(ckpt_dir, "seed_1_metrics.jsonl")) as f:
             records = [_json.loads(line) for line in f]
-        print(f"cli: train, 2 epochs of {records[0]['step']} steps: {names}; metrics records "
-              f"of epochs {[r['epoch'] for r in records]} with keys {sorted(records[0])}")
+        print(f"cli: train on the cached route, 2 epochs of {records[0]['step']} steps: "
+              f"{names}; metrics records of epochs {[r['epoch'] for r in records]} with keys "
+              f"{sorted(records[0])}")
         for need in ("seed_1_best", "seed_1_last", "seed_1_metrics.jsonl"):
             if need not in names:
                 raise AssertionError(f"cli train: no {need} in {ckpt_dir}")
         if [r["epoch"] for r in records] != [0, 1]:
             raise AssertionError(f"cli train: metrics records of epochs {records}")
+        cached_final = final_model(ckpt_dir, "seed_1_last")
+
+        # the host route through the CLI: JAX's batch order for it (seed + 1)
+        host_argv = ["--config", "utkinects", "--data_root", root, "--model_save_path",
+                     os.path.join(work, "save_host"), "--seed", "1"]
+        host_lines, _, _, t_host = cli_train(host_argv, kernels, ["--no-device_cache"])
+        if any(line.startswith(("device cache", "hybrid cache")) for line in host_lines):
+            raise AssertionError(f"cli train --no-device_cache took a cache: {host_lines}")
+        host_losses = [float(x) for line in host_lines
+                       for x in re.findall(r"Loss ?: ?(-?[0-9.]+|nan|inf)", line)]
+        if len(host_losses) != 4 or not all(math.isfinite(x) for x in host_losses):
+            raise AssertionError(f"cli train --no-device_cache: a loss is not finite")
+
+        # the cached route's batches through the host loader and the hybrid
+        # cache: the same kernels, batches and dropout stream
+        sources = {s: build_source(config.data, f"{s}_split.txt") for s in ("train", "val")}
+        n_class = sources["train"].n_class
+        B, nq = config.train.batch_size, config.model.n_query
+        val = build_loader(sources["val"], config.data, B, nq, mode="val", shuffle=False,
+                           pin_memory=True)
+        train = build_loader(sources["train"], config.data, B, nq, seed=1, pin_memory=True)
+        _, frows, frb, _, drb, _ = dc._unit_probe(sources["train"], config.data)
+        budget = 2 * int(frows.max()) * (frb + drb + 4)   # two units padded to the longest
+        hybrid = dc.hybrid_cache_from_source(sources["train"], config.data, nq,
+                                             max_bytes=budget,
+                                             device=next(iter(cached_final.values())).device)
+        finals = {}
+        for route in ("fit", "fit_hybrid"):
+            cfg2 = config.replace(train=dataclasses.replace(config.train, epochs=2))
+            trainer = Trainer(cfg2, n_class)
+            state = trainer.init_state(len(train), seed=1)
+            t0 = time.perf_counter()
+            if route == "fit":
+                trainer.fit(state, train, val, seed=1, log=lambda *a: None)
+            else:
+                trainer.fit_hybrid(state, hybrid, val, seed=1, log=lambda *a: None)
+            torch.cuda.synchronize()
+            finals[route] = (state.model.state_dict(), time.perf_counter() - t0)
+        diff = {r: unequal(cached_final, sd) for r, (sd, _) in finals.items()}
+        print(f"cli [{card}]: train 2 epochs on the cached route {t_train:.2f} s "
+              f"(launches {({k: c for k, c in train_counts.items() if c})}); with "
+              f"--no-device_cache {t_host:.2f} s (the host loader from seed + 1, losses "
+              f"{host_losses}); fit over the host loader in the cached order "
+              f"{finals['fit'][1]:.2f} s; fit_hybrid with "
+              f"{100 * (1 - hybrid.host_frac):.0f}% of views on the card "
+              f"({hybrid.cache.nbytes >> 20} MiB) {finals['fit_hybrid'][1]:.2f} s")
+        print(f"cli [{card}]: final parameters and BN statistics against the cached run's: "
+              f"fit {len(diff['fit'])} of {len(cached_final)} tensors differ, fit_hybrid "
+              f"{len(diff['fit_hybrid'])} (bit for bit)")
+        if diff["fit"] or diff["fit_hybrid"]:
+            raise AssertionError(f"cli: the host routes' final parameters differ from the "
+                                 f"cached route's: {diff}")
 
         predict = argv + ["--predict", "--results_save_path", os.path.join(work, "results")]
         runs = {}
-        for device in ("cuda", "cpu"):
+        for run, extra in (("cuda", []), ("cuda_host", ["--no-device_cache"]),
+                           ("cpu", ["--cpu"])):
             for k in kernels:
                 k.launches = 0
-            # the card's sweep prints the reference's MoC lines; the CPU's is
-            # printed below beside it
-            quiet = io.StringIO() if device == "cpu" else sys.stdout
+            # the card's cached sweep prints the reference's MoC lines; the
+            # others are printed below beside it
+            quiet = io.StringIO() if run != "cuda" else sys.stdout
+            sweep_log = []
             with SweepRecorder(kernels) as rec, contextlib.redirect_stdout(quiet):
                 t0 = time.perf_counter()
-                results = run_from_argv("utkinects", predict + (["--cpu"] if device == "cpu"
-                                                                 else []), log=print)
-                if device == "cuda":
+                results = run_from_argv("utkinects", predict + extra, log=sweep_log.append)
+                if run != "cpu":
                     torch.cuda.synchronize()
                 dt = time.perf_counter() - t0
-            runs[device] = (results, rec.chunks, dt, {k.name: k.launches for k in kernels})
+            if (CLI_SWEEP_ROUTE in sweep_log) != (run != "cuda_host"):
+                raise AssertionError(f"cli sweep {run}: route {sweep_log}")
+            if {c["cached"] for c in rec.chunks} != {run != "cuda_host"}:
+                raise AssertionError(f"cli sweep {run}: chunks off the expected route")
+            runs[run] = (results, rec.chunks, dt, {k.name: k.launches for k in kernels})
         sweep_counts = runs["cuda"][3]
         chunks = runs["cuda"][1]
         per_bucket = {}
@@ -2085,6 +2232,11 @@ def utkinects_cli(kernels, card, k1, k3):
                                      f"{c['launches'][k3.name]} K3")
         if not {128, 256, 512, 1024} <= set(per_bucket):
             raise AssertionError(f"cli sweep: chunks per bucket {per_bucket}")
+        host_chunks = runs["cuda_host"][1]
+        if [c["windows"] for c in host_chunks] != [c["windows"] for c in chunks]:
+            raise AssertionError("cli sweep: the cached and host sweeps swept different windows")
+        cached_vs_host = max(float(np.abs(a[key] - b[key]).max())
+                             for a, b in zip(chunks, host_chunks) for key in ("action", "duration"))
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      acc_events=True) as prof, contextlib.redirect_stdout(io.StringIO()):
             run_from_argv("utkinects", predict, log=lambda *a: None)
@@ -2092,9 +2244,21 @@ def utkinects_cli(kernels, card, k1, k3):
         events = sorted(card_events(prof), key=lambda e: -e.self_device_time_total)
         busy_ms = sum(e.self_device_time_total for e in events) / 1e3
         n_launch = sum(e.count for e in events)
-        print(f"cli sweep [{card}], a profiled sweep's card time by event:")
+        copies = [e for e in events if "Memcpy HtoD" in e.key]
+        htod = htod_copies(prof, os.path.join(work, "sweep_trace.json"))
+        video_bytes = sum(t.numel() * t.element_size() for t in dc.arrays_from_source(
+            sources["val"], config.data, device="cpu").values())
+        model_bytes = sum(t.numel() * t.element_size() for t in cached_final.values())
+        print(f"cli sweep [{card}], a profiled cached sweep's card time by event:")
         for e in events[:6]:
             print(f"  {e.self_device_time_total / 1e3:.3f} ms x{e.count} {e.key[:90]}")
+        print(f"cli sweep [{card}]: {len(htod)} host-to-device copies of {sum(htod)} bytes "
+              f"({sum(e.self_device_time_total for e in copies) / 1e3:.3f} ms), at most the "
+              f"cached val videos' {video_bytes} and the model's {model_bytes} (parameters and "
+              f"BN buffers; AdamW's two moments would add {2 * model_bytes})")
+        if sum(htod) > video_bytes + model_bytes + (1 << 20):
+            raise AssertionError("cli sweep: more bytes reached the card than the videos and "
+                                 "the model; the optimizer's state was restored")
 
         # the card's sweep against the CPU's, window by window
         cpu_chunks = runs["cpu"][1]
@@ -2112,13 +2276,16 @@ def utkinects_cli(kernels, card, k1, k3):
         moc_diff = max(d for k, d in diff if k.startswith("obs"))
         acc_diff = max(d for k, d in diff if not k.startswith("obs"))
         n_windows = sum(len(c["windows"]) for c in chunks)
-        print(f"cli sweep on the card [{card}]:\n{moc_table(gpu_res)}")
+        print(f"cli sweep on the card [{card}], from the cached val videos:\n{moc_table(gpu_res)}")
         print(f"cli sweep on the CPU:\n{moc_table(cpu_res)}")
         launched = {k: c for k, c in sweep_counts.items() if c}
         print(f"cli sweep [{card}]: {n_windows} windows in {len(chunks)} chunks of up to 8, "
               f"per bucket "
               f"{dict(sorted(per_bucket.items()))}; K1 launched in every chunk, K3 in the "
               f"256/512 chunks only; launches {launched}")
+        print(f"cli sweep [{card}]: cached vs host sweep on the card, max|logit or duration "
+              f"diff| {cached_vs_host:.3e} (must be 0); results equal: "
+              f"{runs['cuda'][0] == runs['cuda_host'][0]}")
         print(f"cli sweep card [{card}] vs CPU: max|logit or duration diff| {err:.3e} "
               f"(tol {E2E_TOL}), "
               f"least top-2 logit margin {margin:.3e}, max|MoC diff| {moc_diff:.3e}, max|accuracy "
@@ -2126,9 +2293,12 @@ def utkinects_cli(kernels, card, k1, k3):
               f"{flipped} of {n_windows} windows decoded differently ({unexplained} not "
               f"explained by a margin or a frame edge within the measured error)")
         print(f"cli wall times [{card}]: train (2 epochs with validation and checkpoints) "
-              f"{t_train:.2f} s; sweep on the card {runs['cuda'][2]:.2f} s, card busy "
-              f"{busy_ms:.2f} ms in {n_launch} launches (a profiled sweep); sweep on the CPU "
-              f"{runs['cpu'][2]:.2f} s")
+              f"{t_train:.2f} s cached, {t_host:.2f} s host; sweep on the card "
+              f"{runs['cuda'][2]:.2f} s cached, {runs['cuda_host'][2]:.2f} s host, card busy "
+              f"{busy_ms:.2f} ms in {n_launch} launches (a profiled cached sweep, the videos' "
+              f"copy included); sweep on the CPU {runs['cpu'][2]:.2f} s")
+        if cached_vs_host != 0 or runs["cuda"][0] != runs["cuda_host"][0]:
+            raise AssertionError("cli sweep: the cached sweep differs from the host sweep")
         if err > E2E_TOL:
             raise AssertionError("cli sweep: the card's outputs disagree with the CPU's")
         if unexplained or (moc_diff > 0 and flipped == 0):
@@ -2137,6 +2307,271 @@ def utkinects_cli(kernels, card, k1, k3):
         return train_counts, sweep_counts
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+# ---- utkinects at UTKinect scale from the device cache ----
+
+SCALE_VIDEOS = 200            # UTKinect: about 200 videos of 150-450 frames
+SCALE_LENGTHS = (150, 450)
+SCALE_VAL_VIDEOS = 16
+SCALE_HOST_STEPS = 16         # steps a round of the host loader against the cache
+SCALE_ROUNDS = 4
+ACCUM_TOL = 1e-6              # grad_accum=2 against the mean taken by hand, over each
+                              # tensor's largest entry: the same products in the same order
+
+
+def scale_videos(cfg, n=SCALE_VIDEOS, lengths=SCALE_LENGTHS, seed=SEED, n_class=N_CLASS):
+    """``n`` videos at the config's widths from a numpy seed: lengths drawn
+    from ``lengths``, action runs of 5-14 frames, 2,048-d features that carry
+    each frame's class, raw 160x120 depth frames of noise (views into one
+    shared pool, so the host holds them once); the dicts ``build_cache``
+    takes."""
+    rng = np.random.default_rng(seed)
+    D, dshape = cfg.model.input_dim, tuple(cfg.data.depth_shape)
+    pool = 3 * lengths[1]
+    depth_pool = rng.random((pool,) + dshape, dtype=np.float32)
+    emb = rng.standard_normal((n_class - 1, D), dtype=np.float32)
+    videos = []
+    for _ in range(n):
+        L = int(rng.integers(lengths[0], lengths[1] + 1))
+        ids = []
+        a = int(rng.integers(n_class - 1))
+        while len(ids) < L:
+            ids += [a] * int(rng.integers(5, 15))
+            a = (a + 1 + int(rng.integers(n_class - 2))) % (n_class - 1)
+        ids = np.array(ids[:L])
+        o = int(rng.integers(pool - L))
+        videos.append({"features": emb[ids] + 0.5 * rng.standard_normal((L, D), dtype=np.float32),
+                       "label_idx": ids, "depth": depth_pool[o:o + L]})
+    return videos
+
+
+def scale_loader(cfg, videos, seed, shuffle=True, n_class=N_CLASS):
+    """The host loader (pinned collate) over the views of ``build_cache(videos)``."""
+    from r3d_tpu_torch.data.pipeline import BucketedLoader
+    from r3d_tpu_torch.data.protocol import make_example_from_indices
+
+    obs = cfg.data.train_obs_percs
+
+    def fn(i):
+        v = videos[i // len(obs)]
+        return make_example_from_indices(v["features"], v["label_idx"], obs[i % len(obs)],
+                                         cfg.data.sample_rate, cfg.model.n_query, n_class + 1,
+                                         n_class, depth_features=v["depth"])
+
+    return BucketedLoader(num_examples=len(videos) * len(obs), make_example_fn=fn,
+                          batch_size=cfg.train.batch_size, pad_idx=n_class + 1,
+                          buckets=cfg.data.seq_buckets, n_query=cfg.model.n_query,
+                          with_depth=True, shuffle=shuffle, seed=seed,
+                          feature_dtype=cfg.data.feature_dtype, pin_memory=True)
+
+
+def utkinects_device_cache(kernels, card, state_dict):
+    """utkinects at full width and UTKinect scale from the device cache:
+    200 videos of 150-450 frames built from a seed (2,048-d features, 160x120
+    depth frames, bf16 on the card), ``build_cache`` timed with its bytes;
+    every launch count set to 0 and one epoch of ``fit_cached`` (10 ratios,
+    batch 8: 250 steps in the 128, 256 and 512 buckets, then validation from
+    a cache of 16 of the videos), which must launch the no-blend tail, its
+    backward, the dropout attention and the attention backward, with its
+    wall time and step time; a window of 8 cached 512-bucket steps in which
+    the host may not wait for the card (torch's sync debug mode at 'error'),
+    and a profiled window of 4 with the card's busy time and launches a
+    step, in which no host-to-device copy may be larger than its index
+    table; the same batches through the host loader and the cache, 16 steps
+    a route in 4 interleaved rounds; a dispatch of 3
+    cached steps, and ``make_multi_step`` over 3 host batches, each equal to
+    3 single steps bit for bit; and one ``grad_accum=2`` update against the
+    mean of the two microbatch gradients taken by hand (``ACCUM_TOL``).
+    Returns the counts of the epoch."""
+    import dataclasses
+    import os
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from r3d_tpu_torch.config import get_config
+    from r3d_tpu_torch.data import device_cache as dc
+    from r3d_tpu_torch.train.loop import Trainer, _stack
+
+    cfg = get_config("utkinects")
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, epochs=1))
+    trainer = Trainer(cfg, N_CLASS)
+    t0 = time.perf_counter()
+    videos = scale_videos(cfg)
+    t_make = time.perf_counter() - t0
+    args = dict(obs_percs=cfg.data.train_obs_percs, sample_rate=cfg.data.sample_rate,
+                n_query=cfg.model.n_query, pad_idx=N_CLASS + 1, n_class=N_CLASS,
+                buckets=cfg.data.seq_buckets, feature_dtype=cfg.data.feature_dtype,
+                device=trainer.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache = dc.build_cache(videos, **args)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    val_cache = dc.build_cache(videos[:SCALE_VAL_VIDEOS], **args)
+    frames = sum(len(v["label_idx"]) for v in videos)
+    print(f"cache [{card}]: {len(videos)} videos, {frames} frames (made on the host in "
+          f"{t_make:.2f} s), {cache.n_views} views; build_cache {cache.nbytes / 2**30:.3f} GiB "
+          f"on the card in {t_build:.2f} s ({cache.nbytes / t_build / 1e9:.2f} GB/s); val cache "
+          f"{val_cache.n_views} views, {val_cache.nbytes / 2**30:.3f} GiB")
+
+    plan = dc.epoch_plan(cache, cfg.train.batch_size, SEED, 0, drop_remainder=False)
+    steps = len(plan)
+    buckets = {S: sum(p[0] == S for p in plan) for S in sorted({p[0] for p in plan})}
+    state = trainer.init_state(steps, state_dict)
+    marks = {}
+
+    def log(line):
+        torch.cuda.synchronize()
+        marks.setdefault("trained", time.perf_counter())
+        marks.setdefault("counts", {k.name: k.launches for k in kernels})
+        print(f"  {line}")
+
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.fit_cached(state, cache, None, seed=SEED, log=log, val_cache=val_cache)
+    torch.cuda.synchronize()
+    t_epoch = time.perf_counter() - t0
+    t_train = marks["trained"] - t0
+    counts = marks["counts"]
+    missing = [n for n in ("fused_safuser_tail", "fused_tail_bwd", "flash_attention_dropout",
+                           "attention_bwd") if counts[n] == 0]
+    if missing:
+        raise AssertionError(f"cache: the cached epoch never launched {missing}")
+
+    # a window of cached steps in the 512 bucket: the host must not wait for
+    # the card inside it (torch's sync debug mode raises on any call that
+    # would), then the same window profiled
+    step_fn = trainer.make_cached_train_fn(cache)
+    rows = [idx for S, idx in plan if S == 512 and len(idx) == 8][:8]
+    step_fn(state, cache.data, trainer._index_table(rows[:1]), 512, 0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        step_fn(state, cache.data, trainer._index_table(rows), 512, 0)
+        t_enqueue = (time.perf_counter() - t0) / len(rows)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    t_window = (time.perf_counter() - t0) / len(rows)
+    traced = rows[:4]
+    for _ in range(5):   # a trace now and then comes back without device events
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            for _ in range(3):   # a fresh trace can miss its first events: spin first
+                torch.cuda._sleep(1000)
+            step_fn(state, cache.data, trainer._index_table(traced), 512, 0)
+            torch.cuda.synchronize()
+        events = [e for e in card_events(prof) if "spin" not in e.key]
+        if events:
+            break
+    if not events:
+        raise AssertionError("cache: the profiler saw nothing on the card in 5 traces")
+    busy = sum(e.self_device_time_total for e in events) / 1e3 / len(traced)
+    launches = sum(e.count for e in events) / len(traced)
+    copies = htod_copies(prof, os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                                            "cached_step_trace.json"))
+    table_bytes = 8 * len(traced) * len(traced[0])
+    print(f"cache [{card}]: one epoch of fit_cached, {steps} steps (per bucket {buckets}), "
+          f"{t_train:.2f} s of training ({1e3 * t_train / steps:.2f} ms a step), "
+          f"{t_epoch:.2f} s with validation; 512-bucket window of {len(rows)} cached steps "
+          f"{1e3 * t_window:.2f} ms a step, enqueued by the host in {1e3 * t_enqueue:.2f} ms a "
+          f"step with no synchronisation (sync debug mode 'error'); card busy {busy:.3f} ms "
+          f"in {launches:.0f} launches a step (a profiled window of {len(traced)}); the port's "
+          f"kernels in the epoch { {k: c for k, c in counts.items() if c} }")
+    print(f"cache [{card}]: a profiled window of cached 512-bucket steps, card time by event "
+          f"a step:")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"  {e.self_device_time_total / 1e3 / len(traced):.3f} ms "
+              f"x{e.count / len(traced):g} {e.key[:90]}")
+    print(f"cache [{card}]: host-to-device copies in the profiled window: {copies} bytes "
+          f"(its index table: {table_bytes} bytes)")
+    if max(copies, default=0) > table_bytes:
+        raise AssertionError("cache: a cached step copied more than its index table to the card")
+
+    # the host loader over the same views, whose epoch-0 batches are the
+    # plan's: the same batches on both routes, in interleaved rounds
+    loader = scale_loader(cfg, videos, SEED)
+    it = iter(loader)
+    host_state = trainer.init_state(steps, state_dict)
+    trainer.train_step(host_state, next(it), 0)   # warm, and the loader's thread started
+    times = {"cached": [], "host": []}
+    pos = 1
+    for r in range(SCALE_ROUNDS):
+        for route in ("host", "cached") if r % 2 == 0 else ("cached", "host"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if route == "host":
+                for _ in range(SCALE_HOST_STEPS):
+                    trainer.train_step(host_state, next(it), 0)
+            else:
+                for S, idx in plan[pos: pos + SCALE_HOST_STEPS]:
+                    step_fn(state, cache.data, trainer._index_table([idx]), S, 0)
+            torch.cuda.synchronize()
+            times[route].append(1e3 * (time.perf_counter() - t0) / SCALE_HOST_STEPS)
+        pos += SCALE_HOST_STEPS
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    print(f"cache [{card}]: the same batches on both routes, {SCALE_ROUNDS} interleaved rounds "
+          f"of {SCALE_HOST_STEPS} steps, ms a step: host loader (pinned collate on a thread, "
+          f"H2D, step) {[round(t, 2) for t in times['host']]}, median {med['host']:.2f}; cached "
+          f"{[round(t, 2) for t in times['cached']]}, median {med['cached']:.2f}; host / "
+          f"cached {med['host'] / med['cached']:.2f}x")
+
+    # 3 steps a dispatch == 3 single steps, cached and host
+    three = [idx for S, idx in plan if S == 256 and len(idx) == 8][:3]
+    states = [trainer.init_state(steps, state_dict) for _ in range(4)]
+    for st in states:
+        trainer._seed_dropout(st, SEED, 0)
+    step_fn(states[0], cache.data, trainer._index_table(three), 256, 0)
+    for idx in three:
+        step_fn(states[1], cache.data, trainer._index_table([idx]), 256, 0)
+    host = [dc.assemble(cache.data, torch.from_numpy(idx).to(trainer.device), 256, 1,
+                        N_CLASS + 1, None) for idx in three]
+    host = [{k: v.cpu() for k, v in b.items()} for b in host]
+    trainer.make_multi_step()(states[2], _stack(host), 0)
+    for b in host:
+        trainer.train_step(states[3], b, 0)
+    sd = [st.model.state_dict() for st in states]
+    cached_diff, host_diff = unequal(sd[0], sd[1]), unequal(sd[2], sd[3])
+    print(f"cache [{card}]: steps_per_dispatch=3 against 3 single steps, bit for bit: cached "
+          f"{len(cached_diff)} of {len(sd[0])} tensors differ, host make_multi_step "
+          f"{len(host_diff)}")
+    if cached_diff or host_diff:
+        raise AssertionError(f"cache: 3 steps a dispatch differ from 3 steps: {cached_diff} "
+                             f"{host_diff}")
+
+    # grad_accum=2 against the mean of the two microbatch gradients
+    acfg = cfg.replace(train=dataclasses.replace(cfg.train, grad_accum=2))
+    atrainer = Trainer(acfg, N_CLASS)
+    accum, oracle = (atrainer.init_state(steps, state_dict) for _ in range(2))
+    for st in (accum, oracle):
+        atrainer._seed_dropout(st, SEED, 0)
+    atrainer.make_accum_step()(accum, _stack(host[:2]), 0)
+    oracle.model.train()
+    grads = []
+    for b in host[:2]:
+        oracle.optimizer.zero_grad(set_to_none=True)
+        atrainer._grad_core(oracle.model, atrainer.to_device(b))
+        grads.append({n: p.grad.clone() for n, p in oracle.model.named_parameters()
+                      if p.grad is not None})
+    for n, p in oracle.model.named_parameters():
+        p.grad = (grads[0][n] + grads[1][n]) / 2 if n in grads[0] else None
+    oracle.apply_gradients()
+    worst = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                for a, b in zip(accum.model.state_dict().values(),
+                                oracle.model.state_dict().values()) if a.is_floating_point())
+    bn = unequal({k: v for k, v in accum.model.state_dict().items() if "running" in k},
+                 {k: v for k, v in oracle.model.state_dict().items() if "running" in k})
+    print(f"cache [{card}]: grad_accum=2 against the mean microbatch gradient by hand: "
+          f"parameters within {worst:.3e} of each tensor's largest entry (tol {ACCUM_TOL}), "
+          f"BN statistics {len(bn)} tensors differ; step {accum.step}, updates {accum.updates}")
+    if worst > ACCUM_TOL or bn or (accum.step, accum.updates) != (2, 1):
+        raise AssertionError("cache: grad_accum=2 is not the mean microbatch gradient")
+    return counts
 
 
 def main() -> int:
@@ -2231,6 +2666,9 @@ def main() -> int:
           f"{ {k: c for k, c in cli_train.items() if c} }")
     print(f"launches on the utkinects CLI sweep: { {k: c for k, c in cli_sweep.items() if c} }")
 
+    # utkinects at UTKinect scale from the device cache
+    cache_counts = utkinects_device_cache(kernels, card, state_dict)
+
     # utkinects, R3D_CROSS_NATIVE=1: fp32 K6 and K7 in the 1024 and 2000 buckets
     n_serving, n_counts = utkinects_cross_native(kernels, state_dict, ca.FWD_KERNEL,
                                                  ca.BWD_KERNEL)
@@ -2272,6 +2710,7 @@ def main() -> int:
             "replaces": replaces, "launches": path[0][k.name],
             "serving_launches": path[1][k.name],
             "cli_launches": cli_train[k.name], "cli_sweep_launches": cli_sweep[k.name],
+            "cache_epoch_launches": cache_counts[k.name],
             "max_abs_err": err[0], "max_err": err[1],
             "shape": t["shape"], "ms": t["ms"], "kernel_ms": t["ms"],
             "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],

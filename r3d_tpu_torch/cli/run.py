@@ -8,31 +8,42 @@ each seed's best checkpoint, printing the MoC lines.
 
     python -m r3d_tpu_torch.cli --config utkinects --data_root DIR --mode train_eval
 
-Every entry point runs on CUDA unless ``device="cpu"`` (``--cpu``). Where
-the JAX package trains a ``device_cache`` config with ``fit_cached``, the
-port runs ``fit`` over the host loader in the same batch order (the JAX
-invariant ``fit_cached == fit``); the device-resident cache is ROADMAP
-item A9, meshes item A14.
+Every entry point runs on CUDA unless ``device="cpu"`` (``--cpu``). The
+route is the JAX CLI's (``r3d_tpu/cli/run.py:124-181, 227-235``): a
+``device_cache`` config lands its train and val sets on the device and
+trains with ``fit_cached`` (12 GiB for train, 4 GiB for validation, JAX's
+budgets, so the route and its batch order are JAX's for any dataset); over
+the val budget it validates from the host loader; over the train budget it
+trains with ``fit_hybrid`` (the longest units first, else the shortest),
+except a ``multi_sequence`` config, which falls back to ``fit``; ``fit``
+runs after JAX's example batch, so its loader counts epochs from 1. Each
+route is logged as JAX logs it. The sweep of a ``device_cache`` config
+gathers its windows from the val videos on the device. Meshes are ROADMAP
+item A14.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from r3d_tpu_torch.config import Config
+from r3d_tpu_torch.data import device_cache as dc
 from r3d_tpu_torch.data.datasets import VideoSource, build_loader, build_source
 from r3d_tpu_torch.eval.predict import Predictor
 from r3d_tpu_torch.models import build_model
+from r3d_tpu_torch.serving import resolve_device
 from r3d_tpu_torch.train.checkpoint import Checkpointer
 from r3d_tpu_torch.train.loop import Trainer
 from r3d_tpu_torch.utils.metrics import MetricsLogger
 
 Device = Union[str, torch.device]
+TRAIN_CACHE_BYTES = dc.MAX_BYTES   # the JAX CLI's budgets
+VAL_CACHE_BYTES = 4 << 30
 
 
 def save_path(config: Config, dataset_ops: str = "") -> str:
@@ -53,15 +64,50 @@ def _check_ported(config: Config) -> None:
         raise NotImplementedError("meshes are not ported yet (ROADMAP queue A, item A14)")
 
 
-def _shuffles_from_seed(config: Config) -> bool:
-    """Whether the JAX CLI trains ``config`` from its device cache
-    (``r3d_tpu/cli/run.py:124-181``), whose epoch e shuffles with
-    ``seed + e``. Its host-loader ``fit`` instead follows one example batch
-    drawn to shape the state (``cli/run.py:85``), which starts the loader's
-    epoch count at 1 in every run, resumed ones too."""
+def _cacheable(config: Config) -> bool:
     d = config.data
-    return (config.train.device_cache and config.train.grad_accum <= 1
-            and not d.raw_frames and d.gaze_dir is None)
+    return not d.raw_frames and d.gaze_dir is None
+
+
+def _train_caches(config: Config, sources: Dict[str, VideoSource], device: torch.device,
+                  log) -> Tuple[Optional[dc.DeviceCache], Optional[dc.DeviceCache],
+                                Optional[dc.HybridCache]]:
+    """(cache, val_cache, hybrid) of the JAX CLI's route: every one None
+    sends the run to the host loader."""
+    cache = val_cache = hybrid = None
+    if not (config.train.device_cache and config.train.grad_accum <= 1 and _cacheable(config)):
+        return cache, val_cache, hybrid
+    n_query = config.model.n_query
+    try:
+        cache = dc.cache_from_source(sources["train"], config.data, n_query,
+                                     max_bytes=TRAIN_CACHE_BYTES, device=device)
+        val_cache = dc.cache_from_source(sources["val"], config.data, n_query,
+                                         max_bytes=VAL_CACHE_BYTES, device=device)
+        log(f"device cache: {(cache.nbytes + val_cache.nbytes) >> 20} MiB in HBM, "
+            f"{cache.n_views}+{val_cache.n_views} views")
+    except MemoryError as e:
+        if cache is not None:
+            log(f"device cache: train only ({cache.nbytes >> 20} MiB); "
+                f"val stays on the host loader: {e}")
+            return cache, None, None
+        log(f"device cache over budget: {e}")
+        if config.data.multi_sequence:
+            return None, None, None
+        try:
+            try:
+                hybrid = dc.hybrid_cache_from_source(sources["train"], config.data, n_query,
+                                                     max_bytes=TRAIN_CACHE_BYTES, device=device)
+            except MemoryError:
+                # 'longest' needs the longest unit to fit; shortest first
+                # caches something rather than nothing
+                hybrid = dc.hybrid_cache_from_source(sources["train"], config.data, n_query,
+                                                     max_bytes=TRAIN_CACHE_BYTES,
+                                                     policy="ascending", device=device)
+            log(f"hybrid cache: {hybrid.cache.nbytes >> 20} MiB in HBM, "
+                f"{100 * (1 - hybrid.host_frac):.0f}% of views device-resident")
+        except (MemoryError, ValueError) as e2:
+            log(f"hybrid cache unavailable: {e2}")
+    return cache, val_cache, hybrid
 
 
 def train(config: Config, seed: int, dataset_ops: str = "",
@@ -75,11 +121,12 @@ def train(config: Config, seed: int, dataset_ops: str = "",
                    "val": build_source(config.data, val_name)}
     src = sources["train"]
     trainer = Trainer(config, src.n_class, device=device)
+    pin = trainer.device.type == "cuda"
     train_loader = build_loader(src, config.data, config.train.batch_size, config.model.n_query,
-                                mode="train", shuffle=True, seed=seed)
+                                mode="train", shuffle=True, seed=seed, pin_memory=pin)
     val_loader = build_loader(sources["val"], config.data,
                               config.train.val_batch_size or config.train.batch_size,
-                              config.model.n_query, mode="val", shuffle=False)
+                              config.model.n_query, mode="val", shuffle=False, pin_memory=pin)
     steps = max(len(train_loader), 1)
     init = None
     if config.train.init_ckpt:
@@ -96,12 +143,21 @@ def train(config: Config, seed: int, dataset_ops: str = "",
         state = ckpt.restore_last(seed, state)
         start_epoch = state.step // steps
         log(f"resumed seed {seed} at step {state.step} (epoch {start_epoch})")
-    train_loader.epoch = start_epoch if _shuffles_from_seed(config) else 1
     metrics = MetricsLogger(path, run_name=f"seed_{seed}_metrics",
                             tensorboard=config.train.tensorboard)
+    cache, val_cache, hybrid = _train_caches(config, sources, trainer.device, log)
+    kw = dict(checkpointer=ckpt, log=log, metrics_logger=metrics, start_epoch=start_epoch)
     try:
-        state = trainer.fit(state, train_loader, val_loader, seed, checkpointer=ckpt, log=log,
-                            metrics_logger=metrics, start_epoch=start_epoch)
+        if cache is not None:
+            state = trainer.fit_cached(state, cache, val_loader, seed, val_cache=val_cache, **kw)
+        elif hybrid is not None:
+            state = trainer.fit_hybrid(state, hybrid, val_loader, seed, **kw)
+        else:
+            # the JAX CLI draws one example batch to shape its state before
+            # fit, so its loader's epoch 0 shuffles with seed + 1, resumed
+            # runs too
+            train_loader.epoch = 1
+            state = trainer.fit(state, train_loader, val_loader, seed, **kw)
     finally:
         metrics.close()
     return trainer, state, ckpt
@@ -122,7 +178,14 @@ def predict(config: Config, dataset_ops: str = "", seeds=None,
     if source is None:
         source = build_source(config.data, val_name)
     seeds = seeds if seeds is not None else config.train.seeds
-    trainer = Trainer(config, source.n_class, device=device)
+    device = resolve_device(device)
+    cache_data = None
+    if config.train.device_cache and _cacheable(config):
+        try:
+            cache_data = dc.arrays_from_source(source, config.data, device=device)
+            log("predict: eval videos cached in HBM")
+        except MemoryError as e:
+            log(f"predict device cache disabled: {e}")
     ckpt = Checkpointer(save_path(config, dataset_ops))
     seed_models, found_seeds = [], []
     for seed in seeds:
@@ -135,7 +198,8 @@ def predict(config: Config, dataset_ops: str = "", seeds=None,
         else:
             log(f"missing checkpoint seed_{seed}_best — skipping")
             continue
-        seed_models.append(ckpt.restore(name, trainer.init_state(1)).model)
+        model = build_model(config.model, source.n_class, config.data.depth_shape)
+        seed_models.append(ckpt.restore_model(name, model))
         found_seeds.append(seed)
     predictor = Predictor(config, build_model(config.model, source.n_class,
                                               config.data.depth_shape),
@@ -147,10 +211,11 @@ def predict(config: Config, dataset_ops: str = "", seeds=None,
 
     if ensemble and seed_models:
         per_seed = [predictor.predict_multi(seed_models, source, obs, log=log,
-                                            dump_dir=dump("ensemble"))]
+                                            dump_dir=dump("ensemble"), cache_data=cache_data)]
     else:
         # per-seed subdirectories: one sweep truncates its own log files
-        per_seed = [predictor.predict_multi(m, source, obs, log=log, dump_dir=dump(f"seed_{s}"))
+        per_seed = [predictor.predict_multi(m, source, obs, log=log, dump_dir=dump(f"seed_{s}"),
+                                            cache_data=cache_data)
                     for s, m in zip(found_seeds, seed_models)]
     all_results: Dict[str, Dict[str, float]] = {}
     for obs_p in config.eval.obs_percs:

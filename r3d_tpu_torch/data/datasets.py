@@ -223,9 +223,10 @@ def build_source(cfg: DataConfig, split_name: str,
 
 def build_loader(source: VideoSource, cfg: DataConfig, batch_size: int, n_query: int,
                  mode: str = "train", obs_perc: float = 0.2, shuffle: bool = True,
-                 seed: int = 0) -> BucketedLoader:
+                 seed: int = 0, pin_memory: bool = False) -> BucketedLoader:
     """The loader over every (unit, ratio): the config's train ratios for
-    ``mode`` 'train' and 'val', else ``obs_perc`` alone."""
+    ``mode`` 'train' and 'val', else ``obs_perc`` alone; ``pin_memory`` for
+    batches bound for the card."""
     if source.query_dict is not None:
         raise NotImplementedError("query streams in the loader are not ported yet "
                                   "(ROADMAP queue A, item A11)")
@@ -240,4 +241,4 @@ def build_loader(source: VideoSource, cfg: DataConfig, batch_size: int, n_query:
         num_examples=len(table), make_example_fn=fn, batch_size=batch_size,
         pad_idx=source.pad_idx, buckets=cfg.seq_buckets, n_query=n_query,
         with_depth=source.depth_path is not None, shuffle=shuffle, seed=seed,
-        feature_dtype=cfg.feature_dtype)
+        feature_dtype=cfg.feature_dtype, pin_memory=pin_memory)

@@ -4,9 +4,11 @@ Counterpart of ``r3d_tpu/data/pipeline.py``: a sequence pads up to the
 smallest bucket that holds it, features with 0 and labels with ``pad_idx``
 (the reference collate, basedataset.py:118-123), and a loader groups
 shuffled examples by bucket and collates them on a background thread.
-``pad_batch`` builds the arrays with numpy and returns CPU tensors; a
+``pad_batch`` collates each example's rows straight into CPU tensors of
+the storage dtype, pinned when the batch is bound for the card; a
 ``bfloat16`` feature stream is rounded to nearest even, as JAX's
-``jnp.bfloat16`` cast rounds.
+``jnp.bfloat16`` cast rounds (the cast is elementwise and the pads are 0,
+so a row cast alone equals the batch cast whole).
 """
 
 from __future__ import annotations
@@ -34,39 +36,42 @@ def bucket_length(length: int, buckets: Sequence[int]) -> int:
 
 
 def pad_batch(examples: List[Example], pad_idx: int, buckets: Sequence[int], n_query: int,
-              with_depth: bool = False, feature_dtype: str = "float32"
-              ) -> Dict[str, torch.Tensor]:
+              with_depth: bool = False, feature_dtype: str = "float32",
+              pin_memory: bool = False) -> Dict[str, torch.Tensor]:
     """Collate examples into fixed-shape CPU tensors: ``features`` [B, S, C]
     and ``depth_features`` [B, S, ...] in ``feature_dtype``, ``past_label``
     [B, S], ``trans_future_target`` [B, n_query] int32 and
-    ``trans_future_dur`` [B, n_query] fp32."""
+    ``trans_future_dur`` [B, n_query] fp32. ``pin_memory``: the two float
+    streams in page-locked memory, for an asynchronous copy to the card."""
     S = bucket_length(max(e.features.shape[0] for e in examples), buckets)
     B = len(examples)
-    features = np.zeros((B, S, examples[0].features.shape[1]), np.float32)
+    dtype = _DTYPES[feature_dtype]
+    features = torch.zeros((B, S, examples[0].features.shape[1]), dtype=dtype,
+                           pin_memory=pin_memory)
     past_label = np.full((B, S), pad_idx, np.int32)
     target = np.full((B, n_query), pad_idx, np.int32)
     dur = np.full((B, n_query), float(pad_idx), np.float32)
     depth = None
     if with_depth:
-        depth = np.zeros((B, S) + examples[0].depth_features.shape[1:], np.float32)
+        depth = torch.zeros((B, S) + examples[0].depth_features.shape[1:], dtype=dtype,
+                            pin_memory=pin_memory)
     for i, e in enumerate(examples):
         s = min(e.features.shape[0], S)
-        features[i, :s] = e.features[:s]
+        features[i, :s] = torch.from_numpy(e.features[:s])
         past_label[i, :s] = e.past_label[:s]
         q = min(len(e.trans_future_target), n_query)
         target[i, :q] = e.trans_future_target[:q]
         dur[i, :q] = e.trans_future_dur[:q]
         if with_depth:
-            depth[i, :s] = e.depth_features[:s]
-    dtype = _DTYPES[feature_dtype]
+            depth[i, :s] = torch.from_numpy(e.depth_features[:s])
     batch = {
-        "features": torch.from_numpy(features).to(dtype),
+        "features": features,
         "past_label": torch.from_numpy(past_label),
         "trans_future_target": torch.from_numpy(target),
         "trans_future_dur": torch.from_numpy(dur),
     }
     if with_depth:
-        batch["depth_features"] = torch.from_numpy(depth).to(dtype)
+        batch["depth_features"] = depth
     return batch
 
 
@@ -77,14 +82,15 @@ class BucketedLoader:
     thread keeps ``PREFETCH`` collated batches ready. The order (shuffle by
     ``RandomState(seed + epoch)``, then a stable sort by bucket) is the JAX
     loader's, so both see the same batches. ``epoch`` counts the iterations
-    begun so far.
+    begun so far. ``pin_memory``: collate into page-locked memory (set it
+    when the batches go to the card).
     """
 
     def __init__(self, num_examples: int, make_example_fn: Callable[[int], Example],
                  batch_size: int, pad_idx: int, buckets: Sequence[int], n_query: int,
                  with_depth: bool = False, shuffle: bool = True, seed: int = 0,
                  example_lengths: Optional[Sequence[int]] = None,
-                 feature_dtype: str = "float32"):
+                 feature_dtype: str = "float32", pin_memory: bool = False):
         self.num_examples = num_examples
         self.make_example_fn = make_example_fn
         self.batch_size = batch_size
@@ -96,6 +102,7 @@ class BucketedLoader:
         self.shuffle = shuffle
         self.seed = seed
         self.example_lengths = example_lengths
+        self.pin_memory = pin_memory
         self.epoch = 0
 
     def __len__(self) -> int:
@@ -123,7 +130,7 @@ class BucketedLoader:
                 for b in batches:
                     q.put(pad_batch([self.make_example_fn(int(i)) for i in b], self.pad_idx,
                                     self.buckets, self.n_query, self.with_depth,
-                                    self.feature_dtype))
+                                    self.feature_dtype, self.pin_memory))
                 q.put(stop)
             except BaseException as e:  # surfaced in the consumer: a swallowed
                 q.put(e)                # error would silently cut the epoch short

@@ -17,11 +17,16 @@ dropped), in the storage dtype of the config. ``variables`` is a
 heads of the seeds' models (the ensemble). The forward is ``model.eval()``
 under ``torch.inference_mode()``, as the serving session runs it.
 
+``cache_data`` (``data/device_cache.arrays_from_source``: the sweep's
+videos on the card) gathers each chunk's windows there
+(``device_cache.assemble_eval``) from two [B] vectors, the videos and their
+valid rows, instead of collating and copying them: the same inputs, filler
+rows included, so the same outputs.
+
 Not ported yet, and raising ``NotImplementedError`` naming their ROADMAP
-item: ``mesh`` (A14), ``cache_data`` (the device-resident sweep, A9) and
-``gif_dir`` (A15). No ported model takes a query stream, so the
-windows carry none; the L3 accuracy counts where outputs and windows have
-them, as JAX's does.
+item: ``mesh`` (A14) and ``gif_dir`` (A15). No ported model takes a query
+stream, so the windows carry none; the L3 accuracy counts where outputs and
+windows have them, as JAX's does.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from torch import nn
 
 from r3d_tpu_torch.config import Config
 from r3d_tpu_torch.data.datasets import VideoSource
+from r3d_tpu_torch.data.device_cache import assemble_eval
 from r3d_tpu_torch.data.pipeline import bucket_length
 from r3d_tpu_torch.eval.decode import decode_anticipation
 from r3d_tpu_torch.eval.moc import MoCAccumulator
@@ -155,7 +161,26 @@ class Predictor:
             if depth is not None:
                 depth[i, :r] = torch.from_numpy(np.ascontiguousarray(it["depth"]))
         args = (feats, depth, mask) if self.is_fusion else (feats, mask)
-        args = tuple(t.to(self.device, non_blocking=True) for t in args)
+        return self._run(modules, tuple(t.to(self.device, non_blocking=True) for t in args), n)
+
+    def _forward_batch_cached(self, modules: List[nn.Module], items: List[Dict], S: int,
+                              data: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+        """``_forward_batch`` with the windows gathered on the card from the
+        sweep's cached videos ``data``: the chunk ships its [B] video indices
+        and valid row counts (filler rows: video 0, 0 rows)."""
+        vid = torch.zeros(self.eval_batch, dtype=torch.long)
+        real_s = torch.zeros(self.eval_batch, dtype=torch.long)
+        for i, it in enumerate(items):
+            vid[i], real_s[i] = it["ui"], it["real_s"]
+        b = assemble_eval(data, vid.to(self.device), real_s.to(self.device), S,
+                          self.config.data.sample_rate)
+        args = ((b["features"], b["depth"], b["mask"]) if self.is_fusion
+                else (b["features"], b["mask"]))
+        return self._run(modules, args, len(items))
+
+    def _run(self, modules: List[nn.Module], args, n: int) -> Dict[str, np.ndarray]:
+        """One forward per module, the heads averaged over modules; the
+        first ``n`` rows on the host."""
         with torch.inference_mode():
             outs = [m(*args) for m in modules]
             outputs = {k: sum(o[k] for o in outs) / len(outs)
@@ -238,10 +263,9 @@ class Predictor:
         """One sweep serving every observation ratio: the windows of all
         ratios bucket together, so chunks fill across ratios. Returns, per
         ratio, the MoC of each horizon, ``ant_acc``, ``seg_acc`` and, where
-        counted, ``l3_acc``; prints the reference's MoC lines."""
-        if cache_data is not None:
-            raise NotImplementedError("cache_data (the device-resident sweep) is not ported "
-                                      "yet (ROADMAP queue A, item A9)")
+        counted, ``l3_acc``; prints the reference's MoC lines. With
+        ``cache_data`` (the video tensors of ``source``'s units, on the card)
+        the windows are gathered there."""
         if gif_dir is not None:
             raise NotImplementedError("gif_dir is not ported yet (ROADMAP queue A, item A15)")
         cfg = self.config
@@ -260,7 +284,8 @@ class Predictor:
         for S, items in sorted(groups.items()):
             for start in range(0, len(items), self.eval_batch):
                 chunk = items[start: start + self.eval_batch]
-                outputs = self._forward_batch(modules, chunk, S)
+                outputs = (self._forward_batch(modules, chunk, S) if cache_data is None
+                           else self._forward_batch_cached(modules, chunk, S, cache_data))
                 for i, it in enumerate(chunk):
                     o = it["obs_p"]
                     self._accumulate(it, outputs, i, accs[o], stats[o], o,

@@ -50,9 +50,8 @@ def weighted_cross_entropy_loss(logits, gold, pad_idx: int, reference_labels, ta
     and target_ref (first future label) [B]."""
     mask = _valid_mask(gold, pad_idx, exclude_class_idx)
     ce = _masked_ce(logits, gold, mask)
-    weights = torch.where(reference_labels == target_ref,
-                          torch.tensor(weight_same, device=logits.device),
-                          torch.tensor(weight_different, device=logits.device))
+    # Python scalars: a tensor made from one would be a blocking copy to the card
+    weights = torch.where(reference_labels == target_ref, weight_same, weight_different)
     expanded = weights.repeat_interleave(ce.shape[0] // weights.shape[0])
     correct = (logits.argmax(-1) == gold) & mask
     return (ce * expanded).mean(), correct

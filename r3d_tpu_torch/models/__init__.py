@@ -46,11 +46,11 @@ def build_model(cfg: ModelConfig, n_class: int,
     if cfg.compute_dtype != "float32":
         raise NotImplementedError(
             "the fusion models run in float32 only (no config asks for another "
-            "compute_dtype; ROADMAP queue A, item 11)")
+            "compute_dtype; ROADMAP queue A, item A11)")
     if cfg.model == "futr_fusion_bn":
         return FUTRFusion(cfg, n_class, math.prod(depth_shape))
     raise NotImplementedError(
-        f"model {cfg.model!r} is not ported yet (ROADMAP queue A, item 11)")
+        f"model {cfg.model!r} is not ported yet (ROADMAP queue A, item A11)")
 
 
 def _xavier_(t: torch.Tensor, fan_in: int, fan_out: int, gen: torch.Generator):

@@ -74,7 +74,9 @@ def bottomk_mask(scores: torch.Tensor, k: int) -> torch.Tensor:
     ``torch.topk``, which promises no order."""
     mask = torch.zeros(scores.shape[-1], dtype=torch.bool, device=scores.device)
     if k > 0:
-        mask[torch.argsort(scores, stable=True)[:k]] = True
+        # index_fill_ takes its value as a kernel argument; ``mask[idx] = True``
+        # would copy it to the card and wait for the card
+        mask.index_fill_(0, torch.argsort(scores, stable=True)[:k], True)
     return mask
 
 

@@ -39,7 +39,7 @@ class InputEmbed(nn.Module):
         super().__init__()
         if cfg.input_type != "i3d_transcript":
             raise NotImplementedError(
-                f"input_type {cfg.input_type!r} is not ported (ROADMAP queue A, item 11)")
+                f"input_type {cfg.input_type!r} is not ported (ROADMAP queue A, item A11)")
         self.cfg = cfg
         self.input_embed = nn.Linear(cfg.input_dim, cfg.hidden_dim)
 

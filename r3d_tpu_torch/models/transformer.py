@@ -42,14 +42,14 @@ class FUTRTransformer(nn.Module):
         super().__init__()
         if use_encoder:
             raise NotImplementedError(
-                "use_encoder=True is not ported yet (ROADMAP queue A, item 3)")
+                "use_encoder=True is not ported yet (ROADMAP queue A, item A11)")
         self.decoder = TransformerDecoder(dim, n_head, n_decoder_layers, ffn_dim, dropout,
                                           dtype)
 
     def forward(self, src, pos, query_pos, src_key_padding_mask=None):
         if query_pos is None:
             raise NotImplementedError(
-                "L3 query generation is not ported yet (ROADMAP queue A, item 11)")
+                "L3 query generation is not ported yet (ROADMAP queue A, item A11)")
         memory = src
         hs = self.decoder(query_pos.new_zeros(query_pos.shape), memory, pos,
                           query_pos, src_key_padding_mask)

@@ -76,11 +76,10 @@ class InferenceSession:
         """A session over the model of checkpoint ``seed_{seed}_best`` in
         ``ckpt_dir``; ``kw`` as for the constructor."""
         from r3d_tpu_torch.train.checkpoint import Checkpointer
-        from r3d_tpu_torch.train.loop import Trainer
 
-        trainer = Trainer(config, n_class, device=kw.get("device", "cuda"))
-        state = Checkpointer(ckpt_dir).restore_best(seed, trainer.init_state(1))
-        return cls(config, state.model, n_class, **kw)
+        model = build_model(config.model, n_class, config.data.depth_shape)
+        Checkpointer(ckpt_dir).restore_model(f"seed_{seed}_best", model)
+        return cls(config, model, n_class, **kw)
 
     def _collate(self, videos: Sequence[Dict[str, np.ndarray]], S: int
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:

@@ -4,9 +4,11 @@ Counterpart of ``r3d_tpu/train/checkpoint.py``. The reference saves only
 ``model.state_dict()`` on a validation improvement, as
 ``seed_{s}_checkpoint{e}`` and ``seed_{s}_best``; here, as in the JAX
 package, the whole train state is saved (the model's ``state_dict`` with
-its BatchNorm buffers, the optimizer's ``state_dict`` and the update
-count), so a resume is exact, and a rolling ``seed_{s}_last`` is kept every
+its BatchNorm buffers, the optimizer's ``state_dict`` and the step
+counts), so a resume is exact, and a rolling ``seed_{s}_last`` is kept every
 epoch. Each checkpoint is a directory of that name holding ``state.pt``.
+``restore_model`` loads the model alone (serving and the sweep), reading
+nothing of the optimizer's state.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ class Checkpointer:
         tmp = os.path.join(path, STATE_FILE + ".tmp")
         torch.save({"model": state.model.state_dict(),
                     "optimizer": state.optimizer.state_dict(),
-                    "step": int(state.step)}, tmp)
+                    "step": int(state.step), "extra_batches": int(state.extra_batches)}, tmp)
         os.replace(tmp, os.path.join(path, STATE_FILE))
 
     def save_best(self, state: TrainState, seed: int, epoch: int) -> None:
@@ -57,7 +59,18 @@ class Checkpointer:
         template.model.load_state_dict(blob["model"])
         template.optimizer.load_state_dict(blob["optimizer"])
         template.step = int(blob["step"])
+        template.extra_batches = int(blob.get("extra_batches", 0))
         return template
+
+    def restore_model(self, name: str, model: torch.nn.Module) -> torch.nn.Module:
+        """Load the model of checkpoint ``name`` (parameters and BatchNorm
+        buffers) into ``model`` and return it. The file is mapped, not read
+        whole, so the optimizer's moments are neither read nor copied to the
+        card."""
+        blob = torch.load(os.path.join(self._path(name), STATE_FILE), map_location="cpu",
+                          weights_only=True, mmap=True)
+        model.load_state_dict(blob["model"])
+        return model
 
     def restore_best(self, seed: int, template: TrainState) -> TrainState:
         return self.restore(f"seed_{seed}_best", template)

@@ -24,22 +24,36 @@ package's.
 ``fit`` takes JAX's ``checkpointer`` (``train/checkpoint.py``: the best
 gate saves ``seed_{s}_checkpoint{e}`` and ``seed_{s}_best``, every epoch
 ``seed_{s}_last``), ``metrics_logger`` (one record an epoch, the JAX
-package's fields) and ``start_epoch`` (a resume).
+package's fields) and ``start_epoch`` (a resume). ``steps_per_dispatch =
+K`` runs K consecutive same-shape host batches from one stacked copy
+(``make_multi_step``); ``grad_accum = K`` makes one update from the mean
+gradient of K microbatches (``make_accum_step``); the two exclude each
+other, as in JAX.
+
+The device cache (``data/device_cache.py``) has its own loops, JAX's:
+``fit_cached`` trains from a ``DeviceCache`` on the card, each dispatch K
+steps whose batches are gathered there from a [K, B] index table (no batch
+copy, no host synchronisation until the epoch ends), and validates from a
+val cache; ``fit_hybrid`` trains from a ``HybridCache`` in the host
+loader's batch order. Both seed and draw dropout as ``fit`` does, so
+``fit_cached == fit`` and ``fit_hybrid == fit``.
 
 Not ported yet, and raising ``NotImplementedError`` naming their ROADMAP
-item: other loops (item 12), ``steps_per_dispatch > 1``, ``grad_accum > 1``
-and ``rng_impl`` (item 10). Meshes (item 14) have no argument. ``fit``
-ignores ``device_cache``, as JAX's ``Trainer.fit`` does.
+item: other loops (A12) and ``rng_impl`` (A10). Meshes (A14) have no
+argument.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, Mapping, Optional, Tuple, Union
+from typing import Callable, Dict, Iterable, Iterator, List, Mapping, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from r3d_tpu_torch.config import Config
+from r3d_tpu_torch.data import device_cache as dc
+from r3d_tpu_torch.data.pipeline import bucket_length, pad_batch
 from r3d_tpu_torch.losses.classification import (
     accuracy_counts,
     cross_entropy_loss,
@@ -76,11 +90,12 @@ class Trainer:
         tc = config.train
         if tc.loop not in LOOPS:
             raise NotImplementedError(
-                f"loop {tc.loop!r} is not ported yet (ROADMAP queue A, item 12)")
-        if tc.steps_per_dispatch > 1 or tc.grad_accum > 1 or tc.rng_impl is not None:
-            raise NotImplementedError(
-                "steps_per_dispatch > 1, grad_accum > 1 and rng_impl are not ported yet "
-                "(ROADMAP queue A, item 10)")
+                f"loop {tc.loop!r} is not ported yet (ROADMAP queue A, item A12)")
+        if tc.rng_impl is not None:
+            raise NotImplementedError("rng_impl is not ported yet (ROADMAP queue A, item A10)")
+        if tc.grad_accum > 1 and tc.steps_per_dispatch > 1:
+            raise ValueError("grad_accum and steps_per_dispatch are mutually exclusive: one "
+                             "stacks microbatches per update, the other updates per step")
         self.device = resolve_device(device)
         self.config = config
         self.n_class = n_class
@@ -103,7 +118,10 @@ class Trainer:
                    seed: int = INIT_SEED) -> TrainState:
         """The model on the trainer's device, from ``state_dict`` (e.g.
         ``convert.state_dict_from_flax`` of the JAX init) or, without one,
-        from ``init_weights`` under ``seed``; AdamW at update 0."""
+        from ``init_weights`` under ``seed``; AdamW at update 0. The
+        schedule reads the update count, so under ``grad_accum = K`` its
+        epoch is ``steps_per_epoch // K + steps_per_epoch % K`` updates long
+        (``r3d_tpu/train/loop.py:126-131``)."""
         cfg = self.config
         model = build_model(cfg.model, self.n_class, cfg.data.depth_shape)
         if state_dict is None:
@@ -111,14 +129,23 @@ class Trainer:
         else:
             model.load_state_dict(state_dict)
         model.to(self.device)
-        optimizer, schedule = make_optimizer(cfg.train, model.parameters(), steps_per_epoch)
+        ga = max(1, cfg.train.grad_accum)
+        sched_steps = max(1, steps_per_epoch // ga + steps_per_epoch % ga)
+        optimizer, schedule = make_optimizer(cfg.train, model.parameters(), sched_steps)
         return TrainState(model, optimizer, schedule)
 
     def to_device(self, batch: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """A host batch on the card: float streams keep their dtype, labels
         become int64 (torch's index type)."""
-        return {k: v.to(self.device, non_blocking=True) if k in _FLOAT_STREAMS
-                else v.to(self.device, non_blocking=True).long() for k, v in batch.items()}
+        return _long_labels({k: v.to(self.device, non_blocking=True) for k, v in batch.items()})
+
+    def _index_table(self, rows: List[np.ndarray]) -> torch.Tensor:
+        """[k, B] view ids on the card, copied from pinned memory without
+        waiting for the card."""
+        t = torch.from_numpy(np.stack(rows).astype(np.int64))
+        if self.device.type == "cuda":
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
 
     def _model_inputs(self, batch, with_mask: bool) -> Tuple:
         mask = (batch["past_label"] == self.pad_idx) if with_mask else None
@@ -200,58 +227,272 @@ class Trainer:
         total.backward()
         return {k: v.detach() for k, v in metrics.items()}
 
+    def _step(self, state: TrainState, batch, epoch: int) -> Dict[str, torch.Tensor]:
+        """One update of ``state`` in place from a batch on the card."""
+        state.model.train(not self._sticky(epoch))
+        state.optimizer.zero_grad(set_to_none=True)
+        metrics = self._grad_core(state.model, batch)
+        state.apply_gradients()
+        return metrics
+
     def train_step(self, state: TrainState, batch, epoch: int) -> Dict[str, torch.Tensor]:
         """One update of ``state`` in place from a host batch; returns the
         step's metrics on the device (not synchronised)."""
-        state.model.train(not self._sticky(epoch))
-        state.optimizer.zero_grad(set_to_none=True)
-        metrics = self._grad_core(state.model, self.to_device(batch))
-        state.apply_gradients()
+        return self._step(state, self.to_device(batch), epoch)
+
+    def make_multi_step(self):
+        """multi_step(state, stacked host batch [K, ...], epoch) -> metrics
+        summed over K: one copy to the card, then the K steps in order,
+        exactly K ``train_step`` calls (``r3d_tpu/train/loop.py:698``)."""
+
+        def multi_step(state: TrainState, stacked, epoch: int) -> Dict[str, torch.Tensor]:
+            stacked = self.to_device(stacked)
+            agg: Dict[str, torch.Tensor] = {}
+            for i in range(stacked["features"].shape[0]):
+                _add(agg, self._step(state, {k: v[i] for k, v in stacked.items()}, epoch))
+            return agg
+
+        return multi_step
+
+    def make_accum_step(self):
+        """accum_step(state, stacked host batch [K, ...], epoch) -> metrics
+        averaged over K: one update from the mean gradient of K microbatches
+        (``r3d_tpu/train/loop.py:722``). The gradients sum in order across
+        the K backward calls and divide by K (equal weights); the BN running
+        statistics update per microbatch, in order; ``state.step`` advances
+        by K, as it counts loader batches, while the schedule reads the
+        update count, as optax's does."""
+
+        def accum_step(state: TrainState, stacked, epoch: int) -> Dict[str, torch.Tensor]:
+            stacked = self.to_device(stacked)
+            K = stacked["features"].shape[0]
+            state.model.train(not self._sticky(epoch))
+            state.optimizer.zero_grad(set_to_none=True)
+            agg: Dict[str, torch.Tensor] = {}
+            for i in range(K):
+                _add(agg, self._grad_core(state.model, {k: v[i] for k, v in stacked.items()}))
+            for p in state.model.parameters():
+                if p.grad is not None:
+                    p.grad.div_(K)
+            state.apply_gradients()
+            state.step += K - 1
+            state.extra_batches += K - 1
+            return {k: v / K for k, v in agg.items()}
+
+        return accum_step
+
+    def make_cached_train_fn(self, cache):
+        """cached_multi_step(state, data, idx [K, B] on the card, S, epoch)
+        -> metrics summed over K: K steps, each gathering its batch of bucket
+        length ``S`` from the cache's tensors ``data``
+        (``r3d_tpu/train/loop.py:770``). Nothing is copied to the card but
+        ``idx``, and nothing waits for the card."""
+        sr, pad, qpad = cache.sample_rate, cache.pad_idx, cache.query_pad_idx
+
+        def cached_multi_step(state: TrainState, data, idx: torch.Tensor, S: int,
+                              epoch: int) -> Dict[str, torch.Tensor]:
+            agg: Dict[str, torch.Tensor] = {}
+            for ids in idx:
+                batch = _long_labels(dc.assemble(data, ids, S, sr, pad, qpad))
+                _add(agg, self._step(state, batch, epoch))
+            return agg
+
+        return cached_multi_step
+
+    def make_cached_eval_fn(self, cache):
+        """cached_eval(state, data, idx [K, B], S) -> metrics summed over K:
+        the validation counterpart of ``make_cached_train_fn``."""
+        sr, pad, qpad = cache.sample_rate, cache.pad_idx, cache.query_pad_idx
+
+        def cached_eval(state: TrainState, data, idx: torch.Tensor, S: int
+                        ) -> Dict[str, torch.Tensor]:
+            agg: Dict[str, torch.Tensor] = {}
+            for ids in idx:
+                _add(agg, self._eval(state, _long_labels(dc.assemble(data, ids, S, sr, pad,
+                                                                     qpad))))
+            return agg
+
+        return cached_eval
+
+    def make_hybrid_train_fn(self, hybrid):
+        """hybrid_step(state, data, view_ids [B], host_pos [Bh], host_part,
+        S, epoch) -> metrics: the batch's cached rows gathered on the card,
+        its host rows (``host_part``, collated at their own bucket) copied,
+        padded to ``S`` with ``pad_batch``'s values and put in their
+        positions (``r3d_tpu/train/loop.py:1261``)."""
+        cache = hybrid.cache
+        sr, pad, qpad = cache.sample_rate, cache.pad_idx, cache.query_pad_idx
+        fills = {"features": 0, "depth_features": 0, "past_label": pad}
+
+        def hybrid_step(state: TrainState, data, view_ids, host_pos, host_part, S: int,
+                        epoch: int) -> Dict[str, torch.Tensor]:
+            batch = dc.assemble(data, view_ids, S, sr, pad, qpad)
+            for k, v in host_part.items():
+                v = v.to(self.device, non_blocking=True)
+                if k in fills and v.shape[1] < S:
+                    full = v.new_full((v.shape[0], S) + v.shape[2:], fills[k])
+                    full[:, :v.shape[1]] = v
+                    v = full
+                batch[k][host_pos] = v.to(batch[k].dtype)
+            return self._step(state, _long_labels(batch), epoch)
+
+        return hybrid_step
+
+    def _eval(self, state: TrainState, batch) -> Dict[str, torch.Tensor]:
+        state.model.eval()
+        with torch.no_grad():
+            outputs = state.model(*self._model_inputs(batch, with_mask=False))
+            _, metrics = self._losses(outputs, batch, train=False)
         return metrics
 
     def make_eval_step(self):
         """eval_step(state, host batch) -> metrics on the device: the
         module-eval forward without pad masks (train_proposed_depth.py:52-108)."""
-
-        def eval_step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
-            state.model.eval()
-            batch = self.to_device(batch)
-            with torch.no_grad():
-                outputs = state.model(*self._model_inputs(batch, with_mask=False))
-                _, metrics = self._losses(outputs, batch, train=False)
-            return metrics
-
-        return eval_step
+        return lambda state, batch: self._eval(state, self.to_device(batch))
 
     # ------------------------------------------------------------ outer loop
+    def _seed_dropout(self, state: TrainState, seed: int, start_epoch: int) -> None:
+        """Dropout draws from generators seeded with ``seed`` and, in a
+        resumed run, its start epoch (JAX folds it into its key)."""
+        dropout_seed = seed if start_epoch == 0 else hash((seed, start_epoch)) & (2**63 - 1)
+        set_generators(state.model, torch.Generator(self.device).manual_seed(dropout_seed),
+                       torch.Generator().manual_seed(dropout_seed))
+
     def fit(self, state: TrainState, train_loader, val_loader, seed: int, log=print,
             checkpointer=None, metrics_logger=None, start_epoch: int = 0) -> TrainState:
         """The epoch loop from ``start_epoch``: train (skipping batches under
         ``min_train_batch``, the BN guard), log, validate, record, gate and
-        checkpoint. Dropout draws from generators seeded with ``seed`` and,
-        in a resumed run, its start epoch (JAX folds it into its key)."""
+        checkpoint."""
         cfg = self.config.train
         eval_step = self.make_eval_step()
-        dropout_seed = seed if start_epoch == 0 else hash((seed, start_epoch)) & (2**63 - 1)
-        gen = torch.Generator(self.device).manual_seed(dropout_seed)
-        set_generators(state.model, gen, torch.Generator().manual_seed(dropout_seed))
+        accum = max(1, cfg.grad_accum)
+        K = accum if accum > 1 else max(1, cfg.steps_per_dispatch)
+        group_step = self.make_accum_step() if accum > 1 else self.make_multi_step()
+
+        def steps_of(epoch):
+            kept = (b for b in train_loader   # BN guard (train_proposed_depth.py:148)
+                    if b["features"].shape[0] >= cfg.min_train_batch)
+            for n, batches in _same_shape_runs(kept, _shapes, K):
+                if n > 1:
+                    # K steps, or one update over K microbatches
+                    yield (group_step(state, _stack(batches), epoch), 1 if accum > 1 else n,
+                           n * batches[0]["features"].shape[0])
+                else:
+                    yield (self.train_step(state, batches[0], epoch), 1,
+                           batches[0]["features"].shape[0])
+
+        return self._epochs(state, seed, start_epoch, steps_of,
+                            lambda st: self._validate(st, eval_step, val_loader), log,
+                            checkpointer, metrics_logger)
+
+    def _cached_validator(self, val_loader, val_cache, K: int):
+        """validate(state) -> (metrics, batches): over ``val_cache`` in the
+        host val loader's order when there is one, else over ``val_loader``."""
+        if val_cache is None:
+            eval_step = self.make_eval_step()
+            return lambda st: self._validate(st, eval_step, val_loader)
+        cfg = self.config.train
+        cached_eval = self.make_cached_eval_fn(val_cache)
+
+        def validate(st):
+            agg: Dict[str, torch.Tensor] = {}
+            vb = 0
+            plan = dc.epoch_plan(val_cache, cfg.val_batch_size or cfg.batch_size, 0, 0,
+                                 shuffle=False, drop_remainder=False)
+            for _, entries in _same_shape_runs(plan, _plan_shape, K):
+                _add(agg, cached_eval(st, val_cache.data,
+                                      self._index_table([idx for _, idx in entries]),
+                                      entries[0][0]))
+                vb += len(entries)
+            return _to_host(agg), vb
+
+        return validate
+
+    def fit_cached(self, state: TrainState, cache, val_loader, seed: int, log=print,
+                   checkpointer=None, metrics_logger=None, start_epoch: int = 0,
+                   val_cache=None) -> TrainState:
+        """``fit`` from a ``DeviceCache`` (``r3d_tpu/train/loop.py:1146``):
+        each epoch's plan (``epoch_plan``: the host loader's shuffle by
+        ``seed + epoch``, batches under ``min_train_batch`` dropped) runs in
+        dispatches of up to ``steps_per_dispatch`` same-shape steps, each
+        batch gathered on the card; the metrics stay there until the epoch's
+        one synchronisation. Validation runs from ``val_cache`` when given,
+        else from ``val_loader``."""
+        cfg = self.config.train
+        K = max(1, cfg.steps_per_dispatch)
+        train_fn = self.make_cached_train_fn(cache)
+
+        def steps_of(epoch):
+            plan = [(S, idx) for S, idx in dc.epoch_plan(cache, cfg.batch_size, seed, epoch,
+                                                         drop_remainder=False)
+                    if len(idx) >= cfg.min_train_batch]
+            for n, entries in _same_shape_runs(plan, _plan_shape, K):
+                S, idx0 = entries[0]
+                idx = self._index_table([idx for _, idx in entries])
+                yield train_fn(state, cache.data, idx, S, epoch), n, n * len(idx0)
+
+        return self._epochs(state, seed, start_epoch, steps_of,
+                            self._cached_validator(val_loader, val_cache, K), log,
+                            checkpointer, metrics_logger)
+
+    def fit_hybrid(self, state: TrainState, hybrid, val_loader, seed: int, log=print,
+                   checkpointer=None, metrics_logger=None, start_epoch: int = 0,
+                   val_cache=None) -> TrainState:
+        """``fit`` from a ``HybridCache`` (``r3d_tpu/train/loop.py:1322``):
+        the host loader's batches (``hybrid_epoch_plan``), each with its
+        cached rows gathered on the card and its host rows collated at their
+        own bucket; one step a batch (``steps_per_dispatch`` does not apply:
+        the batches differ in their host rows)."""
+        cfg = self.config.train
+        cache = hybrid.cache
+        step_fn = self.make_hybrid_train_fn(hybrid)
+        pin = self.device.type == "cuda"
+
+        def steps_of(epoch):
+            for chunk in dc.hybrid_epoch_plan(hybrid, cfg.batch_size, seed, epoch):
+                if len(chunk) < cfg.min_train_batch:
+                    continue   # BN guard, as fit's
+                cached_id = hybrid.view_cached_id[chunk]
+                host_sel = np.where(cached_id < 0)[0]
+                examples = [hybrid.host_example(int(chunk[i])) for i in host_sel]
+                nrows = ([int(cache.nrows_host[c]) for c in cached_id if c >= 0]
+                         + [len(e.features) for e in examples])
+                S = bucket_length(max(nrows), cache.buckets)
+                part = {}
+                if examples:
+                    # the host rows at their own bucket: fewer bytes to copy
+                    Sh = bucket_length(max(len(e.features) for e in examples), cache.buckets)
+                    part = pad_batch(examples, cache.pad_idx, (Sh,), cache.n_query,
+                                     with_depth=hybrid.with_depth,
+                                     feature_dtype=cache.feature_dtype, pin_memory=pin)
+                view_ids = self._index_table([np.where(cached_id >= 0, cached_id, 0)])[0]
+                host_pos = self._index_table([host_sel])[0]
+                yield (step_fn(state, cache.data, view_ids, host_pos, part, S, epoch), 1,
+                       len(chunk))
+
+        return self._epochs(state, seed, start_epoch, steps_of,
+                            self._cached_validator(val_loader, val_cache, 1), log,
+                            checkpointer, metrics_logger)
+
+    def _epochs(self, state: TrainState, seed: int, start_epoch: int, steps_of, validate, log,
+                checkpointer, metrics_logger) -> TrainState:
+        """The epoch loop of ``fit``, ``fit_cached`` and ``fit_hybrid``:
+        dropout seeded, then each epoch's dispatches (``steps_of(epoch)``
+        yields (metrics, batches, clips) for each) summed on the device and
+        read once, and ``_finish_epoch``."""
+        self._seed_dropout(state, seed, start_epoch)
         best = (0.0, 0.0)
-        for epoch in range(start_epoch, cfg.epochs):
+        for epoch in range(start_epoch, self.config.train.epochs):
             t0 = time.time()
             agg: Dict[str, torch.Tensor] = {}
             n_batches = n_clips = 0
-            for batch in train_loader:
-                if batch["features"].shape[0] < cfg.min_train_batch:
-                    continue  # BN guard (train_proposed_depth.py:148)
-                metrics = self.train_step(state, batch, epoch)
-                n_clips += batch["features"].shape[0]
-                n_batches += 1
-                for k, v in metrics.items():
-                    agg[k] = agg.get(k, 0.0) + v
+            for metrics, nb, nc in steps_of(epoch):
+                _add(agg, metrics)
+                n_batches += nb
+                n_clips += nc
             best = self._finish_epoch(
-                state, epoch, _to_host(agg), n_batches, n_clips, time.time() - t0,
-                lambda st: self._validate(st, eval_step, val_loader), best, log,
-                seed=seed, metrics_logger=metrics_logger, checkpointer=checkpointer)
+                state, epoch, _to_host(agg), n_batches, n_clips, time.time() - t0, validate,
+                best, log, seed=seed, metrics_logger=metrics_logger, checkpointer=checkpointer)
         return state
 
     def _finish_epoch(self, state, epoch, agg, n_batches, n_clips, dt, validate, best, log,
@@ -304,6 +545,62 @@ class Trainer:
                 agg[k] = agg.get(k, 0.0) + v
             vb += 1
         return _to_host(agg), vb
+
+
+def _long_labels(batch: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Labels as int64 (torch's index type); float streams as they are."""
+    return {k: v if k in _FLOAT_STREAMS else v.long() for k, v in batch.items()}
+
+
+def _add(agg: Dict[str, torch.Tensor], metrics: Mapping[str, torch.Tensor]) -> None:
+    """Sum ``metrics`` into ``agg`` on the device."""
+    for k, v in metrics.items():
+        agg[k] = agg.get(k, 0.0) + v
+
+
+def _stack(batches: List[Mapping[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
+    """Host batches stacked to [K, ...], pinned where they were."""
+    out = {}
+    for k, v in batches[0].items():
+        buf = torch.empty((len(batches),) + tuple(v.shape), dtype=v.dtype,
+                          pin_memory=v.is_pinned())
+        out[k] = torch.stack([b[k] for b in batches], out=buf)
+    return out
+
+
+def _shapes(batch: Mapping[str, torch.Tensor]) -> Dict[str, Tuple[int, ...]]:
+    return {k: tuple(v.shape) for k, v in batch.items()}
+
+
+def _plan_shape(entry: Tuple[int, np.ndarray]) -> Tuple[int, int]:
+    """An epoch plan entry's (bucket, batch size)."""
+    return entry[0], len(entry[1])
+
+
+def _same_shape_runs(items: Iterable, shape: Callable, K: int) -> Iterator[Tuple[int, list]]:
+    """(n, items): runs of K consecutive items of one ``shape(item)``, the
+    leftovers of a run one at a time (the dispatch groups of JAX's ``fit``
+    and ``Trainer._group_same_shape``, ``r3d_tpu/train/loop.py:919-948,
+    1117``)."""
+    buf: list = []
+    sig = None
+
+    def flush():
+        if len(buf) == K:
+            yield K, list(buf)
+        else:
+            yield from ((1, [it]) for it in buf)
+        buf.clear()
+
+    for it in items:
+        s = shape(it)
+        if buf and s != sig:
+            yield from flush()
+        sig = s
+        buf.append(it)
+        if len(buf) == K:
+            yield from flush()
+    yield from flush()
 
 
 def _to_host(agg: Mapping[str, torch.Tensor]) -> Dict[str, float]:

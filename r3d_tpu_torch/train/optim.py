@@ -38,7 +38,7 @@ def make_optimizer(cfg: TrainConfig, params: Iterable[torch.nn.Parameter],
     """(optimizer, schedule); the caller sets the learning rate from the
     schedule before each step."""
     if cfg.opt_mu_dtype is not None:
-        raise NotImplementedError("opt_mu_dtype is not ported (ROADMAP queue A, item 6)")
+        raise NotImplementedError("opt_mu_dtype is not ported (ROADMAP queue A, item A10)")
     opt = torch.optim.AdamW(list(params), lr=0.0, betas=(0.9, 0.999), eps=1e-8,
                             weight_decay=cfg.weight_decay)
     schedule = linear_warmup_cosine_schedule(cfg.lr, cfg.warmup_epochs, cfg.epochs,

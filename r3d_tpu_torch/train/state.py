@@ -16,12 +16,18 @@ class TrainState:
     model: nn.Module
     optimizer: torch.optim.Optimizer
     schedule: Callable[[int], float]
-    step: int = 0
+    step: int = 0            # loader batches consumed
+    extra_batches: int = 0   # of those, the ones an accumulated update took beyond its first
+
+    @property
+    def updates(self) -> int:
+        """The optimizer updates so far: the count optax's schedule reads."""
+        return self.step - self.extra_batches
 
     def apply_gradients(self) -> None:
         """One AdamW update from the parameters' ``.grad`` at
-        ``schedule(step)``, then ``step += 1``."""
-        lr = self.schedule(self.step)
+        ``schedule(updates)``, then ``step += 1``."""
+        lr = self.schedule(self.updates)
         for group in self.optimizer.param_groups:
             group["lr"] = lr
             for p in group["params"]:

@@ -234,12 +234,18 @@ def test_trainer_defaults_to_cuda_and_raises_without_it():
         Trainer(_small_config(), 6)
 
 
-@pytest.mark.parametrize("kw,item", [({"grad_accum": 2}, "item 10"),
-                                     ({"steps_per_dispatch": 4}, "item 10"),
-                                     ({"loop": "unsupervised"}, "item 12")])
+@pytest.mark.parametrize("kw,item", [({"rng_impl": "rbg"}, "A10"),
+                                     ({"loop": "unsupervised"}, "A12")])
 def test_trainer_refuses_what_is_not_ported(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         Trainer(_small_config(**kw), 6, device="cpu")
+
+
+def test_trainer_refuses_accumulation_with_multi_step_dispatch():
+    """``grad_accum`` and ``steps_per_dispatch`` exclude each other, as in
+    JAX's ``fit`` (``r3d_tpu/train/loop.py:868-876``)."""
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        Trainer(_small_config(grad_accum=2, steps_per_dispatch=2), 6, device="cpu")
 
 
 def test_fit_skips_small_batches_and_refuses_a_checkpointer():
