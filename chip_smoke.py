@@ -23,7 +23,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    twice bit-equal and audited as one call's launches on the card, with K3
    and K4 also at 33, 70 and 512 (= Lk) queries, at 1, 31, 65, 129, 385,
    1,000 and 2,049 keys and with whole splits of keys masked, and K5 at 33
-   and 70 queries and at 1, 31 and 65 keys; the
+   and 70 queries and at 1, 31 and 65 keys; the three bf16 kernels also
+   with S queries against S keys (the decoder attention of futr_proposed)
+   at B = 8, H = 8, D = 64 and S = 256, 512, 1,024, 3,100 and a ragged 777,
+   and at B = 16, H = 8, D = 16 and S = 2,000, each twice bit-equal and
+   timed (with K5's scratch and peak memory); the
    native cross-attention forward and backward (K6, K7) in fp32 and bf16 at
    B = 8, H = 8, (Lq, C) = (20, 512) and (8, 128), S = 1024, 3100 and a
    ragged 777 with padded key tails and a fully masked row, rate 0 and 0.1,
@@ -101,10 +105,28 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    card against the CPU; the parts of a train step; and an interleaved A/B
    of a 3100-bucket train step and serving chunk with ``R3D_CROSS_NATIVE``
    set and unset;
-10. print one ``{"kernels": [...]}`` line (with each kernel's launches in
-   the CLI phase's training and sweep and in the cached epoch beside those
-   of the other phases)
-   and, as the last line,
+10. ``50salads_proposed`` (futr_proposed: hidden 512, 8 heads of 64, 2
+   decoder layers, S queries from the L2 ground truth, bf16, batch 8) and
+   ``breakfast_proposed`` (hidden 128, 8 heads of 16, 1 layer, batch 16)
+   through the command line at full width: a dataset of each config's
+   layout written from a seed (50salads: 8 train videos of 3,000-13,000
+   frames, the longest reaching the 3100 bucket at ratio 0.5; Breakfast: 8
+   of 1,500-7,000, two reaching the 2000 bucket), every count set to 0,
+   ``train`` of one seed for 2 epochs on the device cache, where both
+   epochs must launch the dropout attention and the attention backward
+   (the loop is not sticky) with a step in the largest bucket, and each
+   validation the attention forward; the 9-ratio sweep from the cached val
+   videos (every chunk of 256 rows or more launches K3), equal to the host
+   sweep, and held window by window to ``--cpu`` (logits and durations
+   within 0.15, MoC and ``l3_acc`` differences explained by a margin or a
+   frame edge); one dropout-off train step of the largest bucket through
+   the kernels against the plain route on the card (outputs, loss, each
+   gradient and the gradient vectors' cosine); the parts of that step;
+11. print one ``{"kernels": [...]}`` line (with each kernel's launches in
+   the CLI phases' training and sweeps and in the cached epoch beside those
+   of the other phases; rows for bf16 K3, K4 and K5 at Lq = Lk = 3,100 and
+   2,000 with the launches of the two proposed configs' training and
+   sweep) and, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX. Exits non-zero and prints no result where CUDA is
@@ -113,6 +135,7 @@ missing or the port is not importable.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -145,6 +168,10 @@ CROSS_BWD_TOL = 1e-4     # K7 fp32, over each gradient's largest entry: sums ove
 BF16_TOL = 2e-2          # bf16 kernels vs their plain versions, over the largest entry: the same
                          # rounding points, but a sum in another order can land on the
                          # neighbouring bf16 value (2**-8 relative)
+SELF_TOL = 1e-2          # bf16 K3-K5 at S queries against S keys, over each tensor's own largest
+                         # entry with no floor of 1 (an output entry there averages thousands
+                         # of keys and reads far below 1): a flip to the neighbouring bf16
+                         # value is 2**-8 = 3.9e-3 of it
 
 
 # every __global__ function of r3d_tpu_torch/csrc, by a fragment of its name
@@ -381,6 +408,11 @@ def device_turns(fn, names, turns=FP32_CROSS_TURNS):
             "turns": [(float("nan") if t is None else t, c) for t, c in readings]}
 
 
+def fmt_ms(x):
+    """A time that the profiler may not have seen, for printing."""
+    return "not measured" if x is None else f"{x:.4f}"
+
+
 def raw_launcher(kernel, *args):
     """The kernel's C launcher with its arguments bound, for timing without
     the wrapper's checks (and without counting)."""
@@ -480,6 +512,35 @@ def errs(got, want):
         e = float((x.float() - y.float()).abs().max())
         a, r = max(a, e), max(r, e / max(1.0, float(y.float().abs().max())))
     return a, r
+
+
+def errs_own(got, want):
+    """Over tensor pairs, in fp32: (max|got - want|, the largest of
+    max|got - want| / max|want|, the least max|want|, the least RMS of
+    ``want``): each tensor against its own scale, with no floor."""
+    a = r = 0.0
+    top = rms = math.inf
+    for x, y in zip(got, want):
+        y = y.float()
+        e = float((x.float() - y).abs().max())
+        m = float(y.abs().max())
+        a, r = max(a, e), max(r, e / max(m, 1e-30))
+        top, rms = min(top, m), min(rms, float(y.square().mean().sqrt()))
+    return a, r, top, rms
+
+
+@contextlib.contextmanager
+def plain_attention_route():
+    """Within: the attention modules take the plain route on the card
+    (``attention_kernel_eligible`` patched off), for a comparison only."""
+    from r3d_tpu_torch.models import layers
+
+    eligible = layers.attention_kernel_eligible
+    layers.attention_kernel_eligible = lambda *a: False
+    try:
+        yield
+    finally:
+        layers.attention_kernel_eligible = eligible
 
 
 def worse(a, b):
@@ -963,6 +1024,214 @@ def check_attention_bf16_kernels(gen, device):
             if not (err[1] <= BF16_TOL and all(torch.isfinite(t.float()).all() for t in got)):
                 raise AssertionError(f"K5 bf16 disagrees at Lq={Lq_}, Lk={Lk}, rate={r_}")
             worst["K5"] = worse(worst["K5"], err)
+    return worst, timing
+
+
+# bf16 K3, K4 and K5 with S queries against S keys: the decoder attention of
+# futr_proposed (self and cross), (B, H, S, D) of 50salads_proposed's
+# buckets and Breakfast's 2000 bucket, and a ragged S.
+SELF_SHAPES = ((8, 8, 256, 64), (8, 8, 512, 64), (8, 8, 1024, 64), (8, 8, 3100, 64),
+               (16, 8, 2000, 16), (8, 8, 777, 64))
+SELF_TIMED = ((8, 8, 3100, 64), (16, 8, 2000, 16))   # the kernels line's rows
+
+
+def time_mha_routes(B, H, S, D, gen, device, rate=0.1):
+    """The decoder's bf16 ``MultiheadAttention`` (S queries against S keys,
+    width H * D) on the kernels' route and on the plain route
+    (``plain_attention_route``): the two routes' eval outputs with a random
+    key length per row held within ``PROPOSED_E2E_TOL``; then, on full
+    rows (every key valid, so the bounds count the work done), the eval
+    forward (K3), the train forward (K4) and the train forward + backward
+    (K4, K5), each timed by events. Returns {"K3" | "K4" | "K5": (kernels'
+    route ms, plain route ms)}."""
+    import torch
+
+    from r3d_tpu_torch.models import layers
+
+    C = H * D
+    mha = layers.MultiheadAttention(C, H, rate, torch.bfloat16).to(device)
+    x = torch.randn(B, S, C, generator=gen).to(device, torch.bfloat16)
+    lengths = torch.randint(1, S + 1, (B,), generator=gen)
+    lengths[0] = S
+    ragged = (torch.arange(S)[None, :] >= lengths[:, None]).to(device)
+    full = torch.zeros(B, S, dtype=torch.bool, device=device)
+    g = torch.randn(B, S, C, generator=gen).to(device, torch.bfloat16)
+    leaf = x.clone().requires_grad_()
+
+    def eval_fwd(pad=full):
+        with torch.no_grad():
+            return mha.eval()(x, x, x, pad)
+
+    def train_fwd():
+        with torch.no_grad():
+            return mha.train()(x, x, x, full)
+
+    def train_step():
+        mha.train()
+        out = mha(leaf, leaf, leaf, full)
+        torch.autograd.grad(out, [leaf] + list(mha.parameters()), g)
+
+    out, times = {}, {}
+    for route, within in (("kernels", contextlib.nullcontext), ("plain", plain_attention_route)):
+        with within():
+            out[route] = eval_fwd(ragged).float()
+            times[route] = [time_ms(fn, iters=5, warmup=2) for fn in (eval_fwd, train_fwd,
+                                                                       train_step)]
+        torch.cuda.empty_cache()
+    err = float((out["kernels"] - out["plain"]).abs().max())
+    print(f"MultiheadAttention bf16 B={B} S={S} H={H} D={D}, kernels' route vs the plain route "
+          f"on the card: eval output (ragged rows) max|diff| {err:.3e} (tol {PROPOSED_E2E_TOL}); "
+          f"on full rows eval forward {times['kernels'][0]:.3f} vs {times['plain'][0]:.3f} ms, "
+          f"train forward {times['kernels'][1]:.3f} vs {times['plain'][1]:.3f} ms, train "
+          f"forward + backward {times['kernels'][2]:.3f} vs {times['plain'][2]:.3f} ms (events, "
+          "5 calls each)")
+    if not err <= PROPOSED_E2E_TOL:
+        raise AssertionError(f"MultiheadAttention at S={S}: the kernels' route disagrees with "
+                             "the plain route")
+    return {name: (times["kernels"][i], times["plain"][i])
+            for i, name in enumerate(("K3", "K4", "K5"))}
+
+
+def check_attention_bf16_self(gen, device):
+    """bf16 K3, K4 and K5 at Lq = Lk = S (``SELF_SHAPES``), each against its
+    plain version with random key lengths per row, every tensor within
+    ``SELF_TOL`` of its own largest entry, twice bit-equal; K5 at rate 0
+    and 0.1. Each shape timed on full rows (every key valid, so that the
+    bounds count the work the calls do): the kernels (events around their C
+    launchers, the profiler's device time), the plain versions, SDPA
+    (forward, and forward + backward for K5), the bounds, and K5's peak
+    memory in a wrapper call (its fp32 scratch grows with ceil(S / 64) * S);
+    at the ``SELF_TIMED`` shapes also the decoder's attention module on the
+    kernels' route against the plain route (``time_mha_routes``). Returns
+    (worst (abs, rel) error per kernel, timing per kernel and shape)."""
+    import torch
+    import torch.nn.functional as F
+
+    from r3d_tpu_torch.ops import attention as att
+
+    rate = 0.1
+    worst = {"K3": (0.0, 0.0), "K4": (0.0, 0.0), "K5": (0.0, 0.0)}
+    timing = {"K3": {}, "K4": {}, "K5": {}}
+    stream = torch.cuda.current_stream().cuda_stream
+    for B, H, S, D in SELF_SHAPES:
+        scale = 1.0 / math.sqrt(D)
+        q, k, v, bias = attention_inputs(B, H, S, S, D, gen, device)
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+        g = torch.randn(q.shape, generator=gen).to(device, torch.bfloat16)
+        seed = 3000 + S
+        label = f"B={B} H={H} Lq=Lk={S} D={D}"
+        for name, fn, plain in (
+                ("K3", lambda: att.flash_attention(q, k, v, bias, scale),
+                 lambda: att.composed_attention(q, k, v, bias, scale)),
+                ("K4", lambda: att.flash_attention_dropout(q, k, v, bias, seed, scale, rate),
+                 lambda: att.composed_attention_dropout(q, k, v, bias, seed, scale, rate))):
+            got = fn()
+            err = errs_own([got], [plain()])
+            print(f"{name} bf16 {label}: max|kernel - plain| = {err[0]:.3e}, over max|plain| "
+                  f"{err[1]:.3e} (tol {SELF_TOL}); max|plain| {err[2]:.3e}, RMS {err[3]:.3e}")
+            if not (err[1] <= SELF_TOL and torch.isfinite(got.float()).all()):
+                raise AssertionError(f"{name} bf16 disagrees with its plain version at {label}")
+            if not torch.equal(got, fn()):
+                raise AssertionError(f"{name} bf16 is not deterministic at {label}")
+            worst[name] = worse(worst[name], err[:2])
+            del got
+            torch.cuda.empty_cache()
+        for r_ in (0.0, rate):
+            got = att.attention_bwd(q, k, v, bias, seed, scale, r_, g, need_dbias=True)
+            err = errs_own(got, att.composed_attention_bwd(q, k, v, bias, seed, scale, r_, g))
+            print(f"K5 bf16 {label} rate={r_}: over dq, dk, dv, dbias max|kernel - plain| = "
+                  f"{err[0]:.3e}, over each one's max|plain| {err[1]:.3e} (tol {SELF_TOL}); "
+                  f"least max|plain| {err[2]:.3e}, least RMS {err[3]:.3e}")
+            if not (err[1] <= SELF_TOL and all(torch.isfinite(t.float()).all() for t in got)):
+                raise AssertionError(f"K5 bf16 disagrees at {label}, rate={r_}")
+            worst["K5"] = worse(worst["K5"], err[:2])
+            torch.cuda.empty_cache()
+        again = att.attention_bwd(q, k, v, bias, seed, scale, rate, g, need_dbias=True)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"K5 bf16 is not deterministic at {label}")
+        del got, again
+        torch.cuda.empty_cache()
+        if (B, H, S, D) not in SELF_TIMED and S not in (256, 512, 1024):
+            continue
+        big = S > 1024
+        iters = 10 if big else 50
+        split = att.fwd_split_keys(S)
+        bias = torch.zeros_like(bias)     # full rows
+        mask = bias == 0
+        out = torch.empty_like(q)
+        shape = f"{label} bf16, full rows"
+        fwd_bound = attention_bf16_bound_ms(B, H, S, S, D)
+        bwd_bound = attention_bf16_bound_ms(B, H, S, S, D, backward=True)
+        launch = raw_launcher(att.KERNEL_BF16, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                              bias.data_ptr(), out.data_ptr(), B, H, S, S, D, split, scale,
+                              stream)
+        timing["K3"][S] = {
+            "shape": shape, "ms": time_ms(launch, iters=iters),
+            "device_ms": device_ms(launch, f"attention_fwd_split_kernel<{D}, false"),
+            "plain_ms": time_ms(lambda: att.composed_attention(q, k, v, bias, scale), iters=5),
+            **library_times(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                                   scale=scale), iters=iters),
+            "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1]}
+        launch = raw_launcher(att.DROPOUT_KERNEL_BF16, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                              bias.data_ptr(), out.data_ptr(), B, H, S, S, D, split, scale,
+                              seed, att.dropout_threshold(rate), 1.0 / (1.0 - rate), stream)
+        timing["K4"][S] = {
+            "shape": shape + f" p={rate}", "ms": time_ms(launch, iters=iters),
+            "device_ms": device_ms(launch, f"attention_fwd_split_kernel<{D}, true"),
+            "plain_ms": time_ms(lambda: att.composed_attention_dropout(
+                q, k, v, bias, seed, scale, rate), iters=3),
+            **library_times(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, dropout_p=rate, scale=scale), iters=iters),
+            "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1]}
+        del out
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        n_kblocks = -(-S // att.BWD_BLOCK_KEYS)
+        stats = torch.empty(3 * n_kblocks * B * H * S, device=device)
+        dq_part = torch.empty(n_kblocks * B * H * S * D, device=device)
+        launch = raw_launcher(att.BWD_KERNEL_BF16, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                              bias.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                              dv.data_ptr(), None, stats.data_ptr(), dq_part.data_ptr(), B, H, S,
+                              S, D, n_kblocks, scale, 1, seed, att.dropout_threshold(rate),
+                              1.0 / (1.0 - rate), stream)
+        k5_ms = time_ms(launch, iters=iters)
+        k5_device = device_ms(launch, ("attention_bwd_bf16_kernel", "dq_sum_kernel"))
+        scratch = (stats.numel() + dq_part.numel()) * 4
+        del dq, dk, dv, stats, dq_part
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        att.attention_bwd(q, k, v, bias, seed, scale, rate, g)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+
+        def library_bwd():
+            o = F.scaled_dot_product_attention(*leaves, attn_mask=mask, dropout_p=rate,
+                                               scale=scale)
+            torch.autograd.grad(o, leaves, g)
+
+        timing["K5"][S] = {
+            "shape": shape + f" p={rate}", "ms": k5_ms, "device_ms": k5_device,
+            "plain_ms": time_ms(lambda: att.composed_attention_bwd(
+                q, k, v, bias, seed, scale, rate, g, False), iters=3),
+            **library_times(library_bwd, iters=iters),
+            "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
+            "scratch_bytes": scratch, "peak_bytes": peak}
+        if (B, H, S, D) in SELF_TIMED:
+            for name, (route_ms, plain_route_ms) in time_mha_routes(B, H, S, D, gen,
+                                                                    device).items():
+                timing[name][S].update(route_ms=route_ms, plain_route_ms=plain_route_ms)
+        for name in ("K3", "K4", "K5"):
+            t = timing[name][S]
+            print(f"{name} bf16 {t['shape']}: kernel {t['ms']:.4f} ms by events, "
+                  f"{fmt_ms(t['device_ms'])} on the device; plain {t['plain_ms']:.3f}; SDPA "
+                  f"{t['library_ms']:.4f} / {fmt_ms(t['library_device_ms'])}; bound "
+                  f"{t['bound_ms']:.4f} ({t['bound_by']})"
+                  + (f"; scratch {scratch / 1e9:.3f} GB, peak of a wrapper call "
+                     f"{peak / 1e9:.3f} GB" if name == "K5" else ""))
+        del leaves
+        torch.cuda.empty_cache()
     return worst, timing
 
 
@@ -1564,14 +1833,18 @@ def one_batch(loader, min_len, max_len=None, rows=8):
         if len(examples) == rows:
             break
     return pad_batch(examples, loader.pad_idx, loader.buckets, loader.n_query,
-                     loader.with_depth, loader.feature_dtype, loader.pin_memory)
+                     loader.with_depth, loader.feature_dtype, loader.pin_memory,
+                     loader.with_query, loader.query_pad_idx)
 
 
-def train_breakdown(cfg, state_dict, train_loader, min_len=256, n_class=N_CLASS, label=""):
+def train_breakdown(cfg, state_dict, train_loader, min_len=256, n_class=N_CLASS, label="",
+                    make_batch=None):
     """Where one train step of a batch of 8 with observed windows longer
-    than ``min_len`` spends its time: host collate, H2D, forward + backward +
-    optimizer to a synchronised end, and the card's busy time in that step
-    from a profiler trace, in epoch 0's train mode and the sticky mode."""
+    than ``min_len`` (or of the batch ``make_batch()`` collates) spends its
+    time: host collate, H2D, forward + backward + optimizer to a
+    synchronised end, and the card's busy time in that step from a profiler
+    trace, with the share of the port's own kernels, in epoch 0's train mode
+    and, where the loop has one, the sticky mode."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1580,14 +1853,14 @@ def train_breakdown(cfg, state_dict, train_loader, min_len=256, n_class=N_CLASS,
     trainer = Trainer(cfg, n_class)
     state = trainer.init_state(len(train_loader), state_dict)
     t0 = time.perf_counter()
-    batch = one_batch(train_loader, min_len)
+    batch = one_batch(train_loader, min_len) if make_batch is None else make_batch()
     t1 = time.perf_counter()
     dev = trainer.to_device(batch)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    S = batch["features"].shape[1]
-    print(f"train batch{label}, bucket {S} batch of 8: host collate {1e3 * (t1 - t0):.2f} ms, "
-          f"H2D {1e3 * (t2 - t1):.2f} ms")
+    B, S = batch["features"].shape[:2]
+    print(f"train batch{label}, bucket {S} batch of {B}: host collate "
+          f"{1e3 * (t1 - t0):.2f} ms, H2D {1e3 * (t2 - t1):.2f} ms")
 
     def step(epoch):
         state.model.train(not trainer._sticky(epoch))
@@ -1595,7 +1868,8 @@ def train_breakdown(cfg, state_dict, train_loader, min_len=256, n_class=N_CLASS,
         trainer._grad_core(state.model, dev)
         state.apply_gradients()
 
-    for epoch, mode in ((0, "epoch 0, train mode, dropout 0.1"), (1, "sticky epoch")):
+    modes = ((0, "epoch 0, train mode, dropout 0.1"), (1, "sticky epoch"))
+    for epoch, mode in modes if trainer.sticky_eval else modes[:1]:
         for _ in range(2):   # warm
             step(epoch)
         torch.cuda.synchronize()
@@ -1622,9 +1896,12 @@ def train_breakdown(cfg, state_dict, train_loader, min_len=256, n_class=N_CLASS,
               f"{sum(e.self_device_time_total for e in optim) / 1e3:.3f} ms in "
               f"{sum(e.count for e in optim)} launches")
         own = [e for e in events if any(n in e.key for n in OWN_KERNELS)]
-        print("  of which the port's own kernels: " + "; ".join(
-            f"{e.self_device_time_total / 1e3:.3f} ms x{e.count} "
-            f"{e.key.split('::')[-1].split('(')[0][:60]}" for e in own))
+        own_ms = sum(e.self_device_time_total for e in own) / 1e3
+        print(f"  of which the port's own kernels {own_ms:.3f} ms "
+              f"({100 * own_ms / max(busy_ms, 1e-9):.1f} % of the card's busy time; the step's "
+              f"median wall time {float(np.median(times)):.2f} ms): " + "; ".join(
+                  f"{e.self_device_time_total / 1e3:.3f} ms x{e.count} "
+                  f"{e.key.split('::')[-1].split('(')[0][:60]}" for e in own))
 
 
 # ---- utkinects under R3D_CROSS_NATIVE=1: fp32 K6 and K7 in the 1024 and 2000 buckets ----
@@ -1919,6 +2196,64 @@ def write_utkinect_dataset(root, n_train, n_val, lengths, n_actions=N_CLASS - 1,
     return str(root)
 
 
+BREAKFAST_ACTIVITIES = ("cereals", "coffee", "friedegg", "juice", "milk", "pancake", "salat",
+                        "sandwich", "scrambledegg", "tea")
+
+
+def write_proposed_dataset(root, config_name, train_lengths, val_lengths, input_dim=2048,
+                           seed=SEED, run=(5, 14), n_fine=48):
+    """A dataset in the layout of ``config_name`` (``50salads_proposed`` or
+    ``breakfast_proposed``) under ``root/<dataset>``, from a numpy seed:
+    features stored [input_dim, L] (transposed), plain ground truth of one
+    fine label a line in runs of ``run`` frames, features that carry each
+    frame's fine label, the mappings and the split bundles of split 1; one
+    video of each length in ``train_lengths`` and ``val_lengths``.
+
+    50salads: the fine labels are the 19 L2 actions of the L1 hierarchy
+    (``mapping_l2.txt``), the targets their 5 L1 activities
+    (``mapping_l1.txt``). Breakfast: ``n_fine`` fine actions
+    (``mapping.txt``), one of 10 activities per video, named in the file
+    name (``P<n>_cam01_<activity>``; ``mapping_l2.txt``). Returns ``root``."""
+    import os
+
+    from r3d_tpu_torch.data.salads50 import ACTION_MAPPING
+
+    salads = config_name == "50salads_proposed"
+    base = os.path.join(str(root), "50salads" if salads else "breakfast")
+    rng = np.random.RandomState(seed)
+    for d in ("features", "groundTruth", "splits"):
+        os.makedirs(os.path.join(base, d), exist_ok=True)
+    if salads:
+        fine = [l2 for l2s in ACTION_MAPPING.values() for l2 in l2s]
+        coarse, fine_map, coarse_map = list(ACTION_MAPPING), "mapping_l2.txt", "mapping_l1.txt"
+    else:
+        fine = [f"f{i}" for i in range(n_fine)]
+        coarse, fine_map, coarse_map = list(BREAKFAST_ACTIVITIES), "mapping.txt", "mapping_l2.txt"
+    for name, labels in ((fine_map, fine), (coarse_map, coarse)):
+        with open(os.path.join(base, name), "w") as f:
+            f.write("".join(f"{i} {a}\n" for i, a in enumerate(labels)))
+    emb = rng.randn(len(fine), input_dim).astype(np.float32)
+    vids = []
+    for v, L in enumerate(tuple(train_lengths) + tuple(val_lengths)):
+        ids = []
+        a = int(rng.randint(len(fine)))
+        while len(ids) < L:
+            ids += [a] * int(rng.randint(run[0], run[1] + 1))
+            a = (a + 1 + int(rng.randint(len(fine) - 1))) % len(fine)
+        ids = np.array(ids[:L])
+        name = f"v{v}" if salads else f"P{v:02d}_cam01_{coarse[v % len(coarse)]}"
+        feats = emb[ids] + 0.5 * rng.randn(L, input_dim).astype(np.float32)
+        np.save(os.path.join(base, "features", f"{name}.npy"), feats.T)
+        with open(os.path.join(base, "groundTruth", f"{name}.txt"), "w") as f:
+            f.write("".join(f"{fine[i]}\n" for i in ids))
+        vids.append(f"{name}.txt")
+    n_train = len(train_lengths)
+    for split, names in (("train", vids[:n_train]), ("test", vids[n_train:])):
+        with open(os.path.join(base, "splits", f"{split}.split1.bundle"), "w") as f:
+            f.write("\n".join(names) + "\n")
+    return str(root)
+
+
 class SweepRecorder:
     """Records each chunk of ``Predictor`` sweeps while in use: its bucket,
     its windows (video, ratio), whether its windows were gathered from the
@@ -2032,13 +2367,16 @@ CLI_ROUTE = "device cache: "        # the route's log line, the JAX CLI's words
 CLI_SWEEP_ROUTE = "predict: eval videos cached in HBM"
 
 
-def cli_train(argv, kernels, extra=()):
+def cli_train(argv, kernels, extra=(), buckets=None):
     """``train`` through the CLI with every launch count set to 0; returns
     (log lines, the counts at the end of each epoch's training and
-    validation, the counts in all, the wall time)."""
+    validation, the counts in all, the wall time). With a list
+    ``buckets``, each batch the device cache gathers appends (phase, S, B),
+    the phase counted in log lines as the snapshots are."""
     import torch
 
     from r3d_tpu_torch.cli.opts import run_from_argv
+    from r3d_tpu_torch.data import device_cache as dc
 
     snapshots, lines = [], []
 
@@ -2049,10 +2387,22 @@ def cli_train(argv, kernels, extra=()):
         lines.append(line)
         print(f"  {line}")
 
+    assemble = dc.assemble
+
+    def recorded(data, view_ids, S, *rest):
+        buckets.append((len(snapshots), S, len(view_ids)))
+        return assemble(data, view_ids, S, *rest)
+
     for k in kernels:
         k.launches = 0
     t0 = time.perf_counter()
-    run_from_argv("utkinects", argv + ["--mode", "train", "--epochs", "2", *extra], log=log)
+    if buckets is not None:
+        dc.assemble = recorded
+    try:
+        run_from_argv("utkinects", argv + ["--mode", "train", "--epochs", "2", *extra],
+                      log=log)
+    finally:
+        dc.assemble = assemble
     torch.cuda.synchronize()
     return lines, snapshots, {k.name: k.launches for k in kernels}, time.perf_counter() - t0
 
@@ -2081,7 +2431,6 @@ def utkinects_cli(kernels, card, k1, k3):
     whose per-window logits and durations the card's must hold to within
     ``E2E_TOL``. Returns the counts of the cached train and card-sweep
     runs."""
-    import contextlib
     import dataclasses
     import io
     import json as _json
@@ -2305,6 +2654,331 @@ def utkinects_cli(kernels, card, k1, k3):
             raise AssertionError("cli sweep: the card's MoC table differs from the CPU's where "
                                  "the measured errors cannot explain it")
         return train_counts, sweep_counts
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+# ---- the gt-query FUTR (futr_proposed) through the CLI: 50salads_proposed, breakfast_proposed ----
+
+PROPOSED_DIR = "build/proposed_phase"   # under the checkout (git-ignored), removed after
+# (train video lengths, val video lengths, the bucket the longest train view
+# reaches): 50salads at sample rate 6, ratios 0.2/0.3/0.5; one 13,000-frame
+# video puts its 0.5 view (1,084 rows) in the 3100 bucket; 8 videos make 24
+# views, 3 batches of 8. Breakfast at sample rate 3: two videos of 6,400 and
+# 7,000 frames reach the 2000 bucket at 0.5; 8 videos, a batch of 16 and one
+# of 8. The val videos keep every sweep window within 1,024 rows.
+PROPOSED_DATA = {
+    "50salads_proposed": ((13000, 3000, 3500, 4000, 4500, 5000, 5500, 6000), (5000, 6000),
+                          3100),
+    "breakfast_proposed": ((7000, 6400, 1500, 2000, 2500, 3000, 3500, 4000), (2500, 3000),
+                           2000),
+}
+# The S-query path, card vs CPU (the sweep) and kernels vs the plain route on
+# the card (one train step at the largest bucket, dropout off): the plain
+# route computes its scores in bf16 where the kernels keep them in fp32, as
+# the CPU does against the card in the 50salads phase, so the 50salads bounds
+# hold for outputs and the loss. The step also runs through the plain route
+# in fp32, a witness for both bf16 routes: each output and each gradient
+# (but the rounding-noise ones, ``GRAD_NOISE_ONLY``) of the kernels' route
+# must be within ``PROPOSED_WITNESS_FACTOR`` times the bf16 plain route's
+# error against fp32, each over its own largest fp32 entry. A gradient of
+# the two bf16 routes against each other can be far apart for its scale:
+# the duration head's weight gradient is a difference of near-equal terms
+# (the durations are normalised over the slots, and the pooled decoder rows
+# of a long stream are alike), 0.29 of its largest entry at the 3100 bucket
+# on an H100 while the cosine read 0.999999; the witness says which route
+# is the further off. Every entry stays within ``PROPOSED_GRAD_TOL`` of the
+# model's largest gradient entry, and the whole gradients' cosine above
+# ``PROPOSED_COS_MIN``, as ROADMAP C says of bf16 gradients.
+PROPOSED_E2E_TOL = SALADS_E2E_TOL
+PROPOSED_LOSS_TOL = SALADS_LOSS_TOL
+PROPOSED_GRAD_TOL = 7e-2     # over the model's largest gradient entry
+PROPOSED_COS_MIN = SALADS_COS_MIN
+PROPOSED_WITNESS_FACTOR = 2.0
+
+
+def batch_with_longest(loader, rows):
+    """A batch of ``rows`` of the loader's examples, the longest first and
+    then the others in the loader's order, collated: it falls in the bucket
+    of the longest view."""
+    from r3d_tpu_torch.data.pipeline import pad_batch
+
+    examples = [loader.make_example_fn(int(j)) for j in loader._order()]
+    longest = max(range(len(examples)), key=lambda i: examples[i].features.shape[0])
+    chosen = [examples[longest]] + [e for i, e in enumerate(examples) if i != longest]
+    return pad_batch(chosen[:rows], loader.pad_idx, loader.buckets, loader.n_query,
+                     loader.with_depth, loader.feature_dtype, loader.pin_memory,
+                     loader.with_query, loader.query_pad_idx)
+
+
+def step_kernels_vs_plain(cfg, state_dict, batch, n_class, kernels):
+    """One dropout-off train step's outputs, loss and gradients on the card
+    from the same weights and batch through the kernels (K3 forward, K5
+    backward), through the plain route (``plain_attention_route``) and
+    through the plain route in fp32: the two bf16 routes' outputs within
+    ``PROPOSED_E2E_TOL`` of each other, their losses within
+    ``PROPOSED_LOSS_TOL``, every gradient entry within ``PROPOSED_GRAD_TOL``
+    of the model's largest and the whole gradient vectors' cosine at least
+    ``PROPOSED_COS_MIN``; against fp32, each output and gradient of the
+    kernels' route within ``PROPOSED_WITNESS_FACTOR`` times the bf16 plain
+    route's error; and the launches of an eval forward of the batch (a
+    validation or sweep chunk of the bucket) on the kernels' route.
+    Returns the readings."""
+    import dataclasses
+
+    import torch
+
+    from r3d_tpu_torch.train.loop import Trainer
+
+    model = dataclasses.replace(cfg.model, dropout=0.0)
+    cfg = cfg.replace(model=model)
+    cfg32 = cfg.replace(model=dataclasses.replace(model, compute_dtype="float32",
+                                                  embed_dtype=None))
+    res = {}
+    for route, c, within in (("kernels", cfg, contextlib.nullcontext),
+                             ("plain", cfg, plain_attention_route),
+                             ("fp32", cfg32, plain_attention_route)):
+        with within():
+            trainer = Trainer(c, n_class)
+            state = trainer.init_state(1, state_dict)
+            state.model.train()
+            dev = trainer.to_device(batch)
+            before = {k.name: k.launches for k in kernels}
+            t0 = time.perf_counter()
+            outputs = state.model(*trainer._model_inputs(dev, with_mask=True))
+            total, _ = trainer._losses(outputs, dev)
+            total.backward()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            res[route] = (float(total.detach()),
+                          {k: outputs[k].detach().float() for k in ("action", "duration", "seg",
+                                                                    "l3")},
+                          {k: p.grad.float() for k, p in state.model.named_parameters()
+                           if p.grad is not None},
+                          {k.name: k.launches - before[k.name] for k in kernels
+                           if k.launches - before[k.name]}, dt)
+            if route == "kernels":   # a validation chunk of the bucket: no mask, eval mode
+                state.model.eval()
+                before = {k.name: k.launches for k in kernels}
+                with torch.no_grad():
+                    state.model(*trainer._model_inputs(dev, with_mask=False))
+                torch.cuda.synchronize()
+                eval_launches = {k.name: k.launches - before[k.name] for k in kernels
+                                 if k.launches - before[k.name]}
+        del trainer, state, outputs, total, dev
+        torch.cuda.empty_cache()
+    (lk, ok, gk, nk, tk), (lp, op, gp, npl, tp) = res["kernels"], res["plain"]
+    l32, o32, g32, n32, _ = res["fp32"]
+
+    def rel(x, y):
+        return float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+
+    out_err = {k: float((ok[k] - op[k]).abs().max()) for k in ok}
+    diff = {k: float((gk[k] - gp[k]).abs().max()) for k in gp}
+    top = max(float(g.abs().max()) for g in gp.values())
+    worst = max(diff, key=diff.get)
+    names = sorted(gp)
+    cos = float(torch.nn.functional.cosine_similarity(
+        torch.cat([gk[k].double().flatten() for k in names]),
+        torch.cat([gp[k].double().flatten() for k in names]), dim=0))
+    # against the fp32 witness: (kernels' error, bf16 plain route's error)
+    witness = {f"output {k}": (rel(ok[k], o32[k]), rel(op[k], o32[k])) for k in o32}
+    witness.update({k: (rel(gk[k], g32[k]), rel(gp[k], g32[k])) for k in g32
+                    if not k.endswith(GRAD_NOISE_ONLY)})
+    ratio = {k: a / max(b, 1e-30) for k, (a, b) in witness.items()}
+    far = max(ratio, key=ratio.get)
+    B, S = batch["features"].shape[:2]
+    print(f"{cfg.name} train step, bucket {S} batch of {B}, kernels vs the plain route on the "
+          f"card (dropout off): loss {lk:.6f} vs {lp:.6f} (tol {PROPOSED_LOSS_TOL}; fp32 "
+          f"{l32:.6f}); max|output diff| " + ", ".join(f"{k} {e:.3e}" for k, e in out_err.items())
+          + f" (tol {PROPOSED_E2E_TOL}); over {len(gp)} gradients max|diff| over the model's "
+          f"largest entry {diff[worst] / top:.3e} in {worst} (tol {PROPOSED_GRAD_TOL}); gradient "
+          f"cosine {cos:.6f} (min {PROPOSED_COS_MIN}); launches {nk} vs {npl} (fp32 {n32}), "
+          f"an eval forward of the batch on the kernels' route {eval_launches}; "
+          f"forward + backward {1e3 * tk:.1f} vs {1e3 * tp:.1f} ms (first calls)")
+    print(f"  against the fp32 plain route, over each one's largest fp32 entry, kernels' route "
+          f"/ bf16 plain route, at most {ratio[far]:.3f} apart in {far} (tol "
+          f"{PROPOSED_WITNESS_FACTOR}); largest 8 of the kernels' route: "
+          + ", ".join(f"{k} {witness[k][0]:.2e} / {witness[k][1]:.2e}"
+                      for k in sorted(witness, key=lambda k: -witness[k][0])[:8])
+          + "; not gated, rounding noise only: "
+          + ", ".join(f"{k} {rel(gk[k], g32[k]):.2e} / {rel(gp[k], g32[k]):.2e}"
+                      for k in g32 if k.endswith(GRAD_NOISE_ONLY)))
+    if not nk or npl or n32 or not eval_launches:
+        raise AssertionError(f"{cfg.name}: the routes launched {nk}, {npl} and {n32}, the "
+                             f"eval forward {eval_launches}")
+    if not (abs(lk - lp) <= PROPOSED_LOSS_TOL and max(out_err.values()) <= PROPOSED_E2E_TOL
+            and diff[worst] <= PROPOSED_GRAD_TOL * top and cos >= PROPOSED_COS_MIN):
+        raise AssertionError(f"{cfg.name}: the kernels' train step disagrees with the plain "
+                             "route's")
+    if not ratio[far] <= PROPOSED_WITNESS_FACTOR:
+        raise AssertionError(f"{cfg.name}: against fp32, the kernels' route is further off "
+                             f"than the bf16 plain route in {far}")
+    return {"loss_diff": abs(lk - lp), "out_err": max(out_err.values()), "cos": cos,
+            "witness_ratio": ratio[far], "eval_launches": eval_launches}
+
+
+def proposed_cli(kernels, card, name, k3, k4, k5):
+    """``name`` (``50salads_proposed`` or ``breakfast_proposed``) at full
+    width through the CLI: write a dataset of the config's layout
+    (``PROPOSED_DATA``), every launch count set to 0, ``train`` one seed for
+    2 epochs on the JAX CLI's route (the device cache, its log line
+    asserted), where each epoch's training must launch K4 (``k4``, the loop
+    is not sticky) and K5 and each validation K3, and the largest bucket must
+    come up in training; the 9-ratio sweep from the best checkpoint on the
+    card from the cached val videos, where every chunk of 256 rows or more
+    must launch K3; the host sweep, equal to it; the sweep with ``--cpu``,
+    held window by window (logits and durations within
+    ``PROPOSED_E2E_TOL``, every MoC difference explained by a margin or a
+    frame edge); one train step at the largest bucket through the kernels
+    against the plain route on the card; and the parts of that step. Returns
+    (train counts, sweep counts, the launches of an eval chunk of the
+    largest bucket)."""
+    import io
+    import os
+    import shutil
+
+    import torch
+
+    from r3d_tpu_torch.cli.opts import build_parser, config_from_args, run_from_argv
+    from r3d_tpu_torch.cli.run import save_path
+    from r3d_tpu_torch.data.datasets import build_loader, build_source
+
+    train_lengths, val_lengths, big = PROPOSED_DATA[name]
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(here, PROPOSED_DIR, name)
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        root = write_proposed_dataset(os.path.join(work, "data"), name, train_lengths,
+                                      val_lengths, run=(30, 300))
+        size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+        print(f"{name}: dataset of {len(train_lengths)} + {len(val_lengths)} videos "
+              f"({min(train_lengths)}-{max(train_lengths)} frames), {size / 2**20:.0f} MiB "
+              f"written in {time.perf_counter() - t0:.2f} s")
+        # the schedule at its peak from the first step: 2 epochs of a 10-epoch
+        # warmup would train at lr 0 first
+        argv = ["--config", name, "--data_root", root, "--model_save_path",
+                os.path.join(work, "save"), "--seed", "1", "--warmup_epochs", "0"]
+        config = config_from_args(build_parser(name).parse_args(argv))
+        m = config.model
+        print(f"{name}: hidden {m.hidden_dim}, {m.n_head} heads of {m.hidden_dim // m.n_head}, "
+              f"{m.n_decoder_layers} decoder layers, {m.n_query} queries, query_num "
+              f"{m.query_num}, batch {config.train.batch_size}, compute {m.compute_dtype}, "
+              f"buckets {config.data.seq_buckets}")
+        buckets = []
+        lines, snapshots, train_counts, t_train = cli_train(argv, kernels, buckets=buckets)
+        if not any(line.startswith(CLI_ROUTE) and "views" in line for line in lines):
+            raise AssertionError(f"{name} train: the cached route's line is missing: {lines}")
+        phases = ["epoch 0 train", "epoch 0 validation", "epoch 1 train", "epoch 1 validation"]
+        per_phase, prev = {}, {k.name: 0 for k in kernels}
+        for phase, snap in zip(phases, snapshots):
+            per_phase[phase] = {k: snap[k] - prev[k] for k in snap if snap[k] - prev[k]}
+            prev = snap
+            steps = [(S, B) for i, S, B in buckets if i == phases.index(phase)]
+            print(f"{name}: {phase}: batches (bucket, rows) {steps}; launches {per_phase[phase]}")
+        want = {"epoch 0 train": (k4.name, k5.name), "epoch 1 train": (k4.name, k5.name),
+                "epoch 0 validation": (k3.name,), "epoch 1 validation": (k3.name,)}
+        for phase, names in want.items():
+            missing = [n for n in names if per_phase.get(phase, {}).get(n, 0) == 0]
+            if missing:
+                raise AssertionError(f"{name} train: {phase} never launched {missing}")
+        trained = [S for i, S, _ in buckets if i in (0, 2)]
+        if big not in trained:
+            raise AssertionError(f"{name} train: no step in the {big} bucket: {trained}")
+        losses = [float(x) for line in lines
+                  for x in re.findall(r"Loss ?: ?(-?[0-9.]+|nan|inf)", line)]
+        if len(losses) != 4 or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{name} train: a loss is missing or not finite: {lines}")
+        ckpt_dir = save_path(config)
+        names = sorted(os.listdir(ckpt_dir))
+        for need in ("seed_1_last", "seed_1_metrics.jsonl"):
+            if need not in names:
+                raise AssertionError(f"{name} train: no {need} in {ckpt_dir}")
+        gate = [line for line in lines if line.startswith("Best model saved")]
+        if bool(gate) != ("seed_1_best" in names):
+            raise AssertionError(f"{name} train: the gate's lines {gate} and {names} disagree")
+        print(f"{name} [{card}]: train 2 epochs on the cached route in {t_train:.2f} s "
+              f"(steps in buckets {trained}); the gate opened {len(gate)} times; {names}")
+
+        predict = argv + ["--predict", "--results_save_path", os.path.join(work, "results")]
+        runs = {}
+        for run, extra in (("cuda", []), ("cuda_host", ["--no-device_cache"]),
+                           ("cpu", ["--cpu"])):
+            for k in kernels:
+                k.launches = 0
+            quiet = io.StringIO() if run != "cuda" else sys.stdout
+            sweep_log = []
+            with SweepRecorder(kernels) as rec, contextlib.redirect_stdout(quiet):
+                t0 = time.perf_counter()
+                results = run_from_argv(name, predict + extra, log=sweep_log.append)
+                if run != "cpu":
+                    torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+            if (CLI_SWEEP_ROUTE in sweep_log) != (run != "cuda_host"):
+                raise AssertionError(f"{name} sweep {run}: route {sweep_log}")
+            runs[run] = (results, rec.chunks, dt, {k.name: k.launches for k in kernels})
+        results, chunks, _, sweep_counts = runs["cuda"]
+        per_bucket = {}
+        for c in chunks:
+            per_bucket[c["S"]] = per_bucket.get(c["S"], 0) + 1
+            if (c["launches"][k3.name] > 0) != (c["S"] >= 256):
+                raise AssertionError(f"{name} sweep: a {c['S']}-bucket chunk launched "
+                                     f"{c['launches'][k3.name]} K3")
+        if not {256, 512, 1024} <= set(per_bucket):
+            raise AssertionError(f"{name} sweep: chunks per bucket {per_bucket}")
+        host_chunks, cpu_chunks = runs["cuda_host"][1], runs["cpu"][1]
+        for other in (host_chunks, cpu_chunks):
+            if [c["windows"] for c in other] != [c["windows"] for c in chunks]:
+                raise AssertionError(f"{name} sweep: the runs swept different windows")
+        cached_vs_host = max(float(np.abs(a[key] - b[key]).max())
+                             for a, b in zip(chunks, host_chunks) for key in ("action", "duration"))
+        err = max(float(np.abs(a[key] - b[key]).max())
+                  for a, b in zip(chunks, cpu_chunks) for key in ("action", "duration"))
+        for c in chunks:
+            if not (np.isfinite(c["action"]).all() and np.isfinite(c["duration"]).all()):
+                raise AssertionError(f"{name} sweep: non-finite outputs in a {c['S']} chunk")
+        n_class = build_source(config.data, "train.split1.bundle").n_class
+        flipped, unexplained = decode_flips(chunks, cpu_chunks, err, n_class=n_class)
+        cpu_res = runs["cpu"][0]
+        diff = [(k, abs(results[o][k] - cpu_res[o][k])) for o in cpu_res for k in cpu_res[o]]
+        moc_diff = max(d for k, d in diff if k.startswith("obs"))
+        acc_diff = max(d for k, d in diff if not k.startswith("obs"))
+        n_windows = sum(len(c["windows"]) for c in chunks)
+        print(f"{name} sweep on the card [{card}], from the cached val videos:\n"
+              f"{moc_table(results)}")
+        print(f"{name} sweep on the CPU:\n{moc_table(cpu_res)}")
+        print(f"{name} sweep [{card}]: {n_windows} windows in {len(chunks)} chunks, per bucket "
+              f"{dict(sorted(per_bucket.items()))}; K3 in every chunk of 256 rows or more; "
+              f"launches { {k: c for k, c in sweep_counts.items() if c} }; cached vs host max|"
+              f"diff| {cached_vs_host:.3e} (must be 0); card vs CPU max|logit or duration diff| "
+              f"{err:.3e} (tol {PROPOSED_E2E_TOL}), max|MoC diff| {moc_diff:.3e}, max|accuracy "
+              f"diff| {acc_diff:.3e} (l3_acc included), {flipped} of {n_windows} windows decoded "
+              f"differently ({unexplained} not explained); wall {runs['cuda'][2]:.2f} s cached, "
+              f"{runs['cuda_host'][2]:.2f} s host, {runs['cpu'][2]:.2f} s on the CPU")
+        if any("l3_acc" not in r for r in results.values()):
+            raise AssertionError(f"{name} sweep: no l3_acc in {results}")
+        if cached_vs_host != 0 or results != runs["cuda_host"][0]:
+            raise AssertionError(f"{name} sweep: the cached sweep differs from the host sweep")
+        if err > PROPOSED_E2E_TOL:
+            raise AssertionError(f"{name} sweep: the card's outputs disagree with the CPU's")
+        if unexplained or (moc_diff > 0 and flipped == 0):
+            raise AssertionError(f"{name} sweep: the card's MoC table differs from the CPU's "
+                                 "where the measured errors cannot explain it")
+
+        # one step of the largest bucket: kernels against the plain route, and its parts
+        src = build_source(config.data, "train.split1.bundle")
+        loader = build_loader(src, config.data, config.train.batch_size, m.n_query,
+                              pin_memory=True)
+        batch = batch_with_longest(loader, config.train.batch_size)
+        if batch["features"].shape[1] != big:
+            raise AssertionError(f"{name}: the held batch fell in bucket "
+                                 f"{batch['features'].shape[1]}, not {big}")
+        state_dict = final_model(ckpt_dir, "seed_1_last")
+        step = step_kernels_vs_plain(config, state_dict, batch, n_class, kernels)
+        train_breakdown(config, state_dict, loader, n_class=n_class, label=f" ({name})",
+                        make_batch=lambda: batch_with_longest(loader, config.train.batch_size))
+        return train_counts, sweep_counts, step["eval_launches"]
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2625,6 +3299,7 @@ def main() -> int:
     k2_err, k2_time = check_fuser_bwd_kernel(gen, device)
     (k4_err, k4_time), (k5_err, k5_time) = check_attention_train_kernels(gen, device)
     bf16_err, bf16_time = check_attention_bf16_kernels(gen, device)
+    self_err, self_time = check_attention_bf16_self(gen, device)
     ((k6_err, k6_time), (k7_err, k7_time), (k6f_err, k6f_time),
      (k7f_err, k7f_time)) = check_cross_attention_kernels(gen, device)
 
@@ -2683,11 +3358,30 @@ def main() -> int:
     print(f"launches on the 50salads serving path: { {k: c for k, c in s_serving.items() if c} }")
     print(f"launches on the 50salads training path: { {k: c for k, c in s_counts.items() if c} }")
 
+    # the gt-query FUTR: 50salads_proposed and breakfast_proposed through the CLI
+    proposed = {}
+    for name in PROPOSED_DATA:
+        proposed[name] = proposed_cli(kernels, card, name, att.KERNEL_BF16,
+                                      att.DROPOUT_KERNEL_BF16, att.BWD_KERNEL_BF16)
+        print(f"launches on the {name} CLI training path: "
+              f"{ {k: c for k, c in proposed[name][0].items() if c} }; sweep: "
+              f"{ {k: c for k, c in proposed[name][1].items() if c} }")
+
     rows = []
     utk = (counts, serving_counts)
     utkn = (n_counts, n_serving)
     sal = (s_counts, s_serving)
-    for k, err, t, replaces, path in (
+    s_prop, b_prop = proposed["50salads_proposed"], proposed["breakfast_proposed"]
+    self_rows = []
+    for (B, H, S, D), path in zip(SELF_TIMED, (s_prop, b_prop)):
+        for k, key, replaces in (
+                (att.KERNEL_BF16, "K3", "r3d_tpu/ops/attention.py:38"),
+                (att.DROPOUT_KERNEL_BF16, "K4", "r3d_tpu/ops/attention.py:192"),
+                (att.BWD_KERNEL_BF16, "K5", "r3d_tpu/ops/attention.py:215")):
+            self_time[key][S]["eval_chunk_launches"] = path[2].get(k.name, 0)
+            self_rows.append((k, self_err[key], self_time[key][S], replaces, path,
+                              f" Lq=Lk={S} D={D}"))
+    for k, err, t, replaces, path, suffix in [r + ("",) for r in (
         (fk.KERNEL, (k1_err, k1_err), k1_time, "r3d_tpu/ops/fuser_kernel.py:180", utk),
         (fk.TAIL_KERNEL, (k1t_err, k1t_err), k1t_time, "r3d_tpu/ops/fuser_kernel.py:180", utk),
         (fkb.KERNEL, k2_err, k2_time, "r3d_tpu/ops/fuser_kernel_bwd.py:70", utk),
@@ -2704,18 +3398,24 @@ def main() -> int:
         # fp32 K6/K7: the utkinects 1024/2000 buckets under R3D_CROSS_NATIVE=1
         (ca.FWD_KERNEL, k6f_err, k6f_time, "r3d_tpu/ops/cross_attention.py:50", utkn),
         (ca.BWD_KERNEL, k7f_err, k7f_time, "r3d_tpu/ops/cross_attention.py:115", utkn),
-    ):
+    )] + self_rows:
         rows.append({
-            "name": k.name + (" fp32" if "fp32" in t["shape"] else ""), "route": "cuda", "source": f"r3d_tpu_torch/csrc/{k.source}",
+            "name": k.name + (" fp32" if "fp32" in t["shape"] else "") + suffix, "route": "cuda",
+            "source": f"r3d_tpu_torch/csrc/{k.source}",
             "replaces": replaces, "launches": path[0][k.name],
             "serving_launches": path[1][k.name],
             "cli_launches": cli_train[k.name], "cli_sweep_launches": cli_sweep[k.name],
             "cache_epoch_launches": cache_counts[k.name],
+            "proposed_launches": s_prop[0][k.name], "proposed_sweep_launches": s_prop[1][k.name],
+            "breakfast_launches": b_prop[0][k.name],
+            "breakfast_sweep_launches": b_prop[1][k.name],
             "max_abs_err": err[0], "max_err": err[1],
             "shape": t["shape"], "ms": t["ms"], "kernel_ms": t["ms"],
             "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "library_device_ms": t["library_device_ms"],
+            **{key: t[key] for key in ("route_ms", "plain_route_ms", "eval_chunk_launches")
+               if key in t},
         })
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -4,7 +4,8 @@ The port's own copy of ``r3d_tpu/config.py``: the same dataclasses with the
 same field names and defaults, so that a config built for one package reads
 the same in the other. ``CONFIGS`` holds the configs whose model and loop
 the port runs (``futr_fusion_bn`` with ``proposed_depth``, ``futr`` with
-``futr``), field for field as the JAX package's. Fields that only the JAX package reads (mesh,
+``futr``, ``futr_proposed`` with ``proposed``), field for field as the JAX
+package's. Fields that only the JAX package reads (mesh,
 device cache, compile knobs) are kept so that the field sets stay equal.
 """
 
@@ -197,6 +198,35 @@ CONFIGS = {
                           device_cache=True),
         eval=EvalConfig(ant_acc_mode="micro"),
     ),
+    # 50salads proposed path (main_proposed_50salads.py): L1 targets derived
+    # from the L2 ground truth, the L2 stream as the queries of futr_proposed.
+    "50salads_proposed": Config(
+        name="50salads_proposed",
+        data=DataConfig(
+            dataset="50salads", mapping_file="mapping_l1.txt",
+            query_mapping_file="mapping_l2.txt", l1_relabel=True,
+            features_dir="features",
+            train_split="train.split{split}.bundle",
+            val_split="test.split{split}.bundle",
+            depth_features_dir=None, gt_format="plain", sample_rate=6,
+            features_transposed=True,
+            train_obs_percs=(0.2, 0.3, 0.5),
+            seq_buckets=(128, 256, 512, 1024, 3100),
+            feature_dtype="bfloat16",
+        ),
+        model=ModelConfig(
+            model="futr_proposed", hidden_dim=512, n_encoder_layers=2,
+            n_decoder_layers=2, n_query=20, max_pos_len=3100,
+            # 19 L2 classes + the query pad slot (COMPAT #26)
+            query_num=20,
+            seg_excludes_none=True, compute_dtype="bfloat16",
+        ),
+        # train_proposed: the two-metric gate, train mode after every
+        # validation (not sticky), batches under 8 rows skipped
+        train=TrainConfig(loop="proposed", batch_size=8, epochs=70,
+                          min_train_batch=8, device_cache=True),
+        eval=EvalConfig(ant_acc_mode="micro"),
+    ),
     # FUTR on Breakfast (scripts/bf_train.sh:2-6)
     "breakfast": Config(
         name="breakfast",
@@ -214,6 +244,36 @@ CONFIGS = {
         train=TrainConfig(loop="futr", batch_size=16, epochs=60, min_train_batch=0,
                           device_cache=True),
         eval=EvalConfig(ant_acc_mode="micro"),
+    ),
+    # Breakfast with the fine-action query stream (main_proposed.py): the
+    # coarse activity from the file name is the target, the fine labels of
+    # the gt file (mapping.txt) the queries of futr_proposed.
+    "breakfast_proposed": Config(
+        name="breakfast_proposed",
+        data=DataConfig(
+            dataset="breakfast", mapping_file="mapping_l2.txt",
+            query_mapping_file="mapping.txt", features_dir="features",
+            label_from_filename=True,
+            train_split="train.split{split}.bundle",
+            val_split="test.split{split}.bundle",
+            depth_features_dir=None, gt_format="plain", sample_rate=3,
+            features_transposed=True,
+            train_obs_percs=(0.2, 0.3, 0.5),
+            seq_buckets=(128, 256, 512, 1024, 2000),
+            feature_dtype="bfloat16",
+        ),
+        model=ModelConfig(
+            model="futr_proposed", hidden_dim=128, n_encoder_layers=2,
+            n_decoder_layers=1, n_query=8, max_pos_len=2000,
+            query_num=49,  # 48 fine classes + the query pad slot (COMPAT #26)
+            seg_excludes_none=True, compute_dtype="bfloat16",
+        ),
+        train=TrainConfig(loop="proposed", batch_size=16, epochs=60,
+                          min_train_batch=8, device_cache=True),
+        # predict_breakfast.py: the observed-row skip at 2000, per-video
+        # plain ant accuracy, the 0/1 query re-encoding
+        eval=EvalConfig(max_eval_len=2000, ant_acc_mode="unweighted",
+                        query_mod2=True),
     ),
     # UTKinect RGB+depth token fuser (main_utkinects.py): batches stored in
     # bf16, the two wide embeds in bf16, everything after them in fp32.

@@ -8,13 +8,15 @@ applied to each leaf by its path:
 
 - a Dense ``kernel`` [in, out] becomes ``weight`` [out, in];
 - a LayerNorm or BatchNorm ``scale`` becomes ``weight``;
+- an ``nn.Embed``'s ``embedding`` [num, C] becomes ``nn.Embedding``'s
+  ``weight`` [num, C], untransposed;
 - the FuserBlock's flat names split at the last underscore
   (``mlp1_kernel`` -> ``mlp1.weight``, ``norm_scale`` -> ``norm.weight``);
 - ``layer{i}`` becomes ``layers.{i}``;
 - BatchNorm statistics ``mean`` / ``var`` become ``running_mean`` /
   ``running_var``;
-- everything else (``pos_embedding`` [1, L, C], ``query_embed`` [Q, C],
-  ``alpha`` [1, 1, C], biases) keeps its name and shape.
+- everything else (``pos_embedding`` [1, L, C], FUTR's raw ``query_embed``
+  parameter [Q, C], ``alpha`` [1, 1, C], biases) keeps its name and shape.
 
 The rules are local to a leaf, so any subtree of a flax model converts to
 the ``state_dict`` of the port's module at the same place.
@@ -54,7 +56,7 @@ def _param(path: Tuple[str, ...], value: np.ndarray) -> Tuple[str, np.ndarray]:
         leaf = m.group(2)
     if leaf == "kernel":
         leaf, value = "weight", value.T
-    elif leaf == "scale":
+    elif leaf in ("scale", "embedding"):
         leaf = "weight"
     return ".".join(mods + [leaf]), value
 

@@ -9,13 +9,16 @@ reference's dataset files, its fork points ``DataConfig`` fields:
 - ``train_obs_percs``: the observation ratios a train or val table repeats
   each video at;
 - ``depth_features_dir``: an optional second stream (raw depth frames),
-  ``multi_sequence`` with its ``depth_dir_rewrite`` and ``normalize_depth``.
+  ``multi_sequence`` with its ``depth_dir_rewrite`` and ``normalize_depth``;
+- ``query_mapping_file``: an integer query stream (the query models' ids),
+  with ``l1_relabel`` (50salads: L1 targets from the L2 gt, the L2 labels
+  the queries) or ``label_from_filename`` (Breakfast: the activity in the
+  file name the target, the gt's fine labels the queries).
 
 Videos parse their labels once into int arrays and stay cached in host
 memory. Not ported yet, and raising ``NotImplementedError`` naming their
 ROADMAP item: ``cache='native'`` (the C++ streaming loader, A9),
-``raw_frames`` (A15), the gaze stream, ``l1_relabel``,
-``label_from_filename`` and every query stream in a loader (A11).
+``raw_frames`` (A15) and the gaze stream (A11.3).
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from r3d_tpu_torch.config import DataConfig
 from r3d_tpu_torch.data.mapping import read_mapping_dict
 from r3d_tpu_torch.data.pipeline import BucketedLoader
 from r3d_tpu_torch.data.protocol import Example, make_example_from_indices
+from r3d_tpu_torch.data.salads50 import relabel_sequence
 
 
 def _dataset_dir(cfg: DataConfig) -> str:
@@ -65,9 +69,9 @@ def _check_ported(cfg: DataConfig, cache: str) -> None:
     if cfg.raw_frames:
         raise NotImplementedError("raw_frames (jpg frames and Kinect XML depth) is not "
                                   "ported yet (ROADMAP queue A, item A15)")
-    for name in ("gaze_dir", "l1_relabel", "label_from_filename"):
-        if getattr(cfg, name):
-            raise NotImplementedError(f"{name} is not ported yet (ROADMAP queue A, item A11)")
+    if cfg.gaze_dir:
+        raise NotImplementedError("gaze_dir (the gaze query stream) is not ported yet "
+                                  "(ROADMAP queue A, item A11.3)")
 
 
 class VideoSource:
@@ -160,6 +164,17 @@ class VideoSource:
         if key in self._meta:
             return self._meta[key]
         labels, images, l3 = read_gt_file(self._gt_file(vid_file, seq), self.cfg.gt_format)
+        if self.cfg.label_from_filename:
+            # proposed-breakfast: the gt's fine labels are the queries, the
+            # activity in the file name every frame's target
+            # (basedataset_proposed_breakfast.py:60-66)
+            l3 = labels
+            labels = [self._base(vid_file).split("_")[-1]] * len(l3)
+        elif self.cfg.l1_relabel:
+            # proposed-50salads: L1 targets from the L2 gt, the L2 labels
+            # the queries
+            l3 = labels
+            labels = relabel_sequence(labels)
         label_idx = np.array([self.actions_dict[l.replace(" ", "")] for l in labels], np.int64)
         query_idx = None
         if self.query_dict is not None and l3 is not None:
@@ -226,10 +241,9 @@ def build_loader(source: VideoSource, cfg: DataConfig, batch_size: int, n_query:
                  seed: int = 0, pin_memory: bool = False) -> BucketedLoader:
     """The loader over every (unit, ratio): the config's train ratios for
     ``mode`` 'train' and 'val', else ``obs_perc`` alone; ``pin_memory`` for
-    batches bound for the card."""
-    if source.query_dict is not None:
-        raise NotImplementedError("query streams in the loader are not ported yet "
-                                  "(ROADMAP queue A, item A11)")
+    batches bound for the card. A source with a query vocabulary collates
+    its query stream, padded with that vocabulary's pad id
+    ``len(query_dict)`` (the coarse ``pad_idx`` is a valid fine id)."""
     obs = cfg.train_obs_percs if mode in ("train", "val") else (obs_perc,)
     table = [(u, o) for u in source.units() for o in obs]
 
@@ -241,4 +255,6 @@ def build_loader(source: VideoSource, cfg: DataConfig, batch_size: int, n_query:
         num_examples=len(table), make_example_fn=fn, batch_size=batch_size,
         pad_idx=source.pad_idx, buckets=cfg.seq_buckets, n_query=n_query,
         with_depth=source.depth_path is not None, shuffle=shuffle, seed=seed,
-        feature_dtype=cfg.feature_dtype, pin_memory=pin_memory)
+        feature_dtype=cfg.feature_dtype, pin_memory=pin_memory,
+        with_query=source.query_dict is not None,
+        query_pad_idx=len(source.query_dict) if source.query_dict is not None else None)

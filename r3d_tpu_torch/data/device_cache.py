@@ -33,7 +33,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from r3d_tpu_torch.data.pipeline import _DTYPES, bucket_length
+from r3d_tpu_torch.data.pipeline import _DTYPES, bucket_length, query_fill
 from r3d_tpu_torch.data.protocol import Example, indices_to_transcript, pad_transcript
 
 MAX_BYTES = 12 << 30     # the JAX package's default cache budget
@@ -276,8 +276,7 @@ def assemble(data: Dict[str, torch.Tensor], view_ids: torch.Tensor, S: int, samp
         batch["depth_features"] = gather(data["depth"], 0)
     if "query" in data:
         q = data["query"]
-        qfill = 0.0 if q.is_floating_point() else (
-            pad_idx if query_pad_idx is None else query_pad_idx)
+        qfill = 0.0 if q.is_floating_point() else query_fill(pad_idx, query_pad_idx)
         batch["query_label"] = gather(q, qfill)
     return batch
 
@@ -336,6 +335,7 @@ class HybridCache:
     host_example: Callable[[int], Example]   # global view id -> Example (host views)
     n_obs: int
     with_depth: bool
+    with_query: bool = False
 
     @property
     def host_frac(self) -> float:
@@ -413,7 +413,8 @@ def hybrid_cache_from_source(source, cfg, n_query: int, max_bytes: int = MAX_BYT
 
     return HybridCache(cache=cache, n_views=len(units) * n_obs, view_cached_id=view_cached_id,
                        host_example=host_example, n_obs=n_obs,
-                       with_depth=source.depth_path is not None)
+                       with_depth=source.depth_path is not None,
+                       with_query=source.query_dict is not None)
 
 
 def hybrid_epoch_plan(h: HybridCache, batch_size: int, seed: int, epoch: int

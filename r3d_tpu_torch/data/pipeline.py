@@ -35,14 +35,24 @@ def bucket_length(length: int, buckets: Sequence[int]) -> int:
     return buckets[-1]
 
 
+def query_fill(pad_idx: int, query_pad_idx: Optional[int]) -> int:
+    """The pad id of an integer query stream: the query vocabulary's
+    ``query_pad_idx``, else ``pad_idx``."""
+    return pad_idx if query_pad_idx is None else query_pad_idx
+
+
 def pad_batch(examples: List[Example], pad_idx: int, buckets: Sequence[int], n_query: int,
               with_depth: bool = False, feature_dtype: str = "float32",
-              pin_memory: bool = False) -> Dict[str, torch.Tensor]:
+              pin_memory: bool = False, with_query: bool = False,
+              query_pad_idx: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """Collate examples into fixed-shape CPU tensors: ``features`` [B, S, C]
     and ``depth_features`` [B, S, ...] in ``feature_dtype``, ``past_label``
-    [B, S], ``trans_future_target`` [B, n_query] int32 and
-    ``trans_future_dur`` [B, n_query] fp32. ``pin_memory``: the two float
-    streams in page-locked memory, for an asynchronous copy to the card."""
+    [B, S], ``trans_future_target`` [B, n_query] int32,
+    ``trans_future_dur`` [B, n_query] fp32 and, ``with_query``,
+    ``query_label`` [B, S] int32 padded with ``query_pad_idx`` (``pad_idx``
+    when None). ``pin_memory``: the float streams and the query stream in
+    page-locked memory, for an asynchronous copy to the card. A float
+    (gaze) query stream is ROADMAP item A11.3."""
     S = bucket_length(max(e.features.shape[0] for e in examples), buckets)
     B = len(examples)
     dtype = _DTYPES[feature_dtype]
@@ -55,6 +65,14 @@ def pad_batch(examples: List[Example], pad_idx: int, buckets: Sequence[int], n_q
     if with_depth:
         depth = torch.zeros((B, S) + examples[0].depth_features.shape[1:], dtype=dtype,
                             pin_memory=pin_memory)
+    query = None
+    if with_query:
+        q0 = np.asarray(examples[0].query_label)
+        if q0.ndim > 1 or not np.issubdtype(q0.dtype, np.integer):
+            raise NotImplementedError("float (gaze) query streams are not ported yet "
+                                      "(ROADMAP queue A, item A11.3)")
+        query = torch.full((B, S), query_fill(pad_idx, query_pad_idx),
+                           dtype=torch.int32, pin_memory=pin_memory)
     for i, e in enumerate(examples):
         s = min(e.features.shape[0], S)
         features[i, :s] = torch.from_numpy(e.features[:s])
@@ -64,6 +82,8 @@ def pad_batch(examples: List[Example], pad_idx: int, buckets: Sequence[int], n_q
         dur[i, :q] = e.trans_future_dur[:q]
         if with_depth:
             depth[i, :s] = torch.from_numpy(e.depth_features[:s])
+        if with_query:
+            query[i, :s] = torch.from_numpy(np.asarray(e.query_label[:s], np.int32))
     batch = {
         "features": features,
         "past_label": torch.from_numpy(past_label),
@@ -72,6 +92,8 @@ def pad_batch(examples: List[Example], pad_idx: int, buckets: Sequence[int], n_q
     }
     if with_depth:
         batch["depth_features"] = depth
+    if with_query:
+        batch["query_label"] = query
     return batch
 
 
@@ -90,7 +112,8 @@ class BucketedLoader:
                  batch_size: int, pad_idx: int, buckets: Sequence[int], n_query: int,
                  with_depth: bool = False, shuffle: bool = True, seed: int = 0,
                  example_lengths: Optional[Sequence[int]] = None,
-                 feature_dtype: str = "float32", pin_memory: bool = False):
+                 feature_dtype: str = "float32", pin_memory: bool = False,
+                 with_query: bool = False, query_pad_idx: Optional[int] = None):
         self.num_examples = num_examples
         self.make_example_fn = make_example_fn
         self.batch_size = batch_size
@@ -103,6 +126,8 @@ class BucketedLoader:
         self.seed = seed
         self.example_lengths = example_lengths
         self.pin_memory = pin_memory
+        self.with_query = with_query
+        self.query_pad_idx = query_pad_idx
         self.epoch = 0
 
     def __len__(self) -> int:
@@ -130,7 +155,8 @@ class BucketedLoader:
                 for b in batches:
                     q.put(pad_batch([self.make_example_fn(int(i)) for i in b], self.pad_idx,
                                     self.buckets, self.n_query, self.with_depth,
-                                    self.feature_dtype, self.pin_memory))
+                                    self.feature_dtype, self.pin_memory, self.with_query,
+                                    self.query_pad_idx))
                 q.put(stop)
             except BaseException as e:  # surfaced in the consumer: a swallowed
                 q.put(e)                # error would silently cut the epoch short

@@ -23,10 +23,14 @@ videos on the card) gathers each chunk's windows there
 valid rows, instead of collating and copying them: the same inputs, filler
 rows included, so the same outputs.
 
+A query model (``models.QUERY_MODELS``) gets each window's query ids,
+sliced and strided as the features are, with ``query_mod2`` re-encoded as
+segment parity (``alternating_query``; on the cached route on the card,
+over the gathered rows), and zeros past a window's rows; its ``l3`` output
+gives the L3 accuracy (``l3_acc``), as JAX's does.
+
 Not ported yet, and raising ``NotImplementedError`` naming their ROADMAP
-item: ``mesh`` (A14) and ``gif_dir`` (A15). No ported model takes a query
-stream, so the windows carry none; the L3 accuracy counts where outputs and
-windows have them, as JAX's does.
+item: ``mesh`` (A14) and ``gif_dir`` (A15).
 """
 
 from __future__ import annotations
@@ -46,7 +50,7 @@ from r3d_tpu_torch.data.device_cache import assemble_eval
 from r3d_tpu_torch.data.pipeline import bucket_length
 from r3d_tpu_torch.eval.decode import decode_anticipation
 from r3d_tpu_torch.eval.moc import MoCAccumulator
-from r3d_tpu_torch.models import is_fusion_model
+from r3d_tpu_torch.models import is_fusion_model, model_needs_query
 from r3d_tpu_torch.models.layers import DTYPES
 from r3d_tpu_torch.serving import resolve_device
 
@@ -60,6 +64,14 @@ def alternating_query(q: np.ndarray) -> np.ndarray:
     q = np.asarray(q)
     changes = np.concatenate([[0], (q[1:] != q[:-1]).astype(np.int64)])
     return (np.cumsum(changes) % 2).astype(q.dtype)
+
+
+def alternating_query_rows(q: torch.Tensor) -> torch.Tensor:
+    """``alternating_query`` of each row of [B, S] ids, on their device.
+    Rows past a window's length are re-encoded too; the mask keeps them from
+    every real output."""
+    changes = torch.cat([torch.zeros_like(q[:, :1]), (q[:, 1:] != q[:, :-1]).to(q.dtype)], 1)
+    return torch.cumsum(changes, 1) % 2
 
 
 def weighted_anticipation_accuracy(pred_actions: np.ndarray, future_labels: np.ndarray,
@@ -96,6 +108,7 @@ class Predictor:
         self.n_class = n_class
         self.eval_batch = eval_batch
         self.is_fusion = is_fusion_model(config.model.model)
+        self.needs_query = model_needs_query(config.model.model)
         self.in_dtype = DTYPES[config.data.feature_dtype]
 
     def _modules(self, variables: Union[Variables, Sequence[Variables]]) -> List[nn.Module]:
@@ -134,6 +147,9 @@ class Predictor:
                     "real_s": real_s, "feats": feats}
             if "depth" in v:
                 item["depth"] = v["depth"][:past_len][::sample_rate]
+            if self.needs_query and v.get("query_idx") is not None:
+                q = np.asarray(v["query_idx"][:past_len][::sample_rate])
+                item["query"] = alternating_query(q) if cfg.eval.query_mod2 else q
             groups[bucket_length(real_s, cfg.data.seq_buckets)].append(item)
         return groups
 
@@ -149,10 +165,12 @@ class Predictor:
                             pin_memory=pin)
         mask = torch.ones((B, S), dtype=torch.bool)
         mask[:, 0] = False
-        depth = None
+        depth = query = None
         if self.is_fusion:
             depth = torch.zeros((B, S) + items[0]["depth"].shape[1:], dtype=self.in_dtype,
                                 pin_memory=pin)
+        if self.needs_query:
+            query = torch.zeros((B, S), dtype=torch.int32, pin_memory=pin)
         for i, it in enumerate(items):
             r = it["real_s"]
             feats[i, :r] = torch.from_numpy(np.ascontiguousarray(it["feats"]))
@@ -160,7 +178,14 @@ class Predictor:
             mask[i, r:] = True
             if depth is not None:
                 depth[i, :r] = torch.from_numpy(np.ascontiguousarray(it["depth"]))
-        args = (feats, depth, mask) if self.is_fusion else (feats, mask)
+            if query is not None:
+                query[i, :r] = torch.from_numpy(np.asarray(it["query"][:r], np.int32))
+        if self.is_fusion:
+            args = (feats, depth, mask)
+        elif self.needs_query:
+            args = (feats, query, mask)
+        else:
+            args = (feats, mask)
         return self._run(modules, tuple(t.to(self.device, non_blocking=True) for t in args), n)
 
     def _forward_batch_cached(self, modules: List[nn.Module], items: List[Dict], S: int,
@@ -174,8 +199,14 @@ class Predictor:
             vid[i], real_s[i] = it["ui"], it["real_s"]
         b = assemble_eval(data, vid.to(self.device), real_s.to(self.device), S,
                           self.config.data.sample_rate)
-        args = ((b["features"], b["depth"], b["mask"]) if self.is_fusion
-                else (b["features"], b["mask"]))
+        if self.is_fusion:
+            args = (b["features"], b["depth"], b["mask"])
+        elif self.needs_query:
+            q = b["query"]
+            args = (b["features"], alternating_query_rows(q) if self.config.eval.query_mod2
+                    else q, b["mask"])
+        else:
+            args = (b["features"], b["mask"])
         return self._run(modules, args, len(items))
 
     def _run(self, modules: List[nn.Module], args, n: int) -> Dict[str, np.ndarray]:

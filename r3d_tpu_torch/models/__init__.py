@@ -1,8 +1,9 @@
 """Model registry of the port, and the seeded init that mirrors flax's.
 
-Ported: ``futr_fusion_bn`` (fp32 compute), ``futr`` and ``futr_baseline``
-(fp32 or bf16 compute). The other models of ``r3d_tpu/models/__init__.py``
-raise ``NotImplementedError`` naming their ROADMAP item.
+Ported: ``futr_fusion_bn`` (fp32 compute), ``futr``, ``futr_baseline`` and
+``futr_proposed`` (fp32 or bf16 compute). The other models of
+``r3d_tpu/models/__init__.py`` raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -16,8 +17,9 @@ from torch import nn
 from r3d_tpu_torch.config import ModelConfig
 from r3d_tpu_torch.models.fuser import CMFuserBN, TorchBatchNorm
 from r3d_tpu_torch.models.futr import FUTR
-from r3d_tpu_torch.models.layers import DTYPES
 from r3d_tpu_torch.models.futr_fusion import FUTRFusion
+from r3d_tpu_torch.models.futr_unsupervised import FUTRUnsupervised
+from r3d_tpu_torch.models.layers import DTYPES
 
 _FUSION_MODELS = {
     "futr_fusion_bn",
@@ -32,6 +34,23 @@ def is_fusion_model(name: str) -> bool:
     return name in _FUSION_MODELS
 
 
+# Models whose forward takes (features, query, src_pad_mask): the
+# FUTRUnsupervised family. The trainer and the sweep build their inputs
+# from this list.
+QUERY_MODELS = (
+    "futr_unsupervised",
+    "futr_proposed",
+    "futr_gaze",
+    "futr_unsupervised_depth",
+    "futr_unsupervised_temp2",
+    "futr_unsupervised_temp3",
+)
+
+
+def model_needs_query(name: str) -> bool:
+    return name in QUERY_MODELS
+
+
 def build_model(cfg: ModelConfig, n_class: int,
                 depth_shape: Sequence[int] = (160, 120)) -> nn.Module:
     """The module for ``cfg.model``; ``depth_shape`` is the per-frame shape
@@ -43,6 +62,8 @@ def build_model(cfg: ModelConfig, n_class: int,
     if cfg.model in ("futr", "futr_baseline"):
         # model/futr_baseline.py: futr + output['supcon'] = decoder output
         return FUTR(cfg, n_class, emit_supcon=cfg.model == "futr_baseline")
+    if cfg.model == "futr_proposed":
+        return FUTRUnsupervised(cfg, n_class, query_source="gt")
     if cfg.compute_dtype != "float32":
         raise NotImplementedError(
             "the fusion models run in float32 only (no config asks for another "
@@ -64,7 +85,9 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Random weights drawn as the flax init draws them (not the same
     numbers): xavier-uniform Linear weights and pos_embedding, zero biases,
     LayerNorm and BatchNorm at ones/zeros with unit running variance,
-    query_embed ~ N(0, 1), alpha ~ U(0, 1)."""
+    FUTR's query_embed ~ N(0, 1), alpha ~ U(0, 1), and an Embedding's table
+    xavier-uniform with fan_in its rows and fan_out its width (flax's
+    ``Embed(embedding_init=xavier)``)."""
     for m in model.modules():
         if isinstance(m, nn.Linear):
             _xavier_(m.weight, m.in_features, m.out_features, generator)
@@ -76,11 +99,14 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
             if isinstance(m, TorchBatchNorm):
                 m.running_mean.zero_()
                 m.running_var.fill_(1.0)
+        elif isinstance(m, nn.Embedding):
+            _xavier_(m.weight, m.num_embeddings, m.embedding_dim, generator)
         elif isinstance(m, CMFuserBN):
             m.alpha.uniform_(0.0, 1.0, generator=generator)
-        elif isinstance(m, (FUTR, FUTRFusion)):
+        elif isinstance(m, (FUTR, FUTRFusion, FUTRUnsupervised)):
             if hasattr(m, "pos_embedding"):
                 _, L, C = m.pos_embedding.shape
                 _xavier_(m.pos_embedding, L, C, generator)
-            m.query_embed.normal_(0.0, 1.0, generator=generator)
+            if isinstance(m.query_embed, nn.Parameter):
+                m.query_embed.normal_(0.0, 1.0, generator=generator)
     return model

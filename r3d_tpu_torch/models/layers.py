@@ -187,7 +187,10 @@ class FeedForward(nn.Module):
 
 class DecoderLayer(nn.Module):
     """Post-norm decoder layer: query self-attention, cross-attention into
-    (memory + pos) keys and values, FFN, each added back through dropout."""
+    (memory + pos) keys and values, FFN, each added back through dropout.
+    ``tgt_key_padding_mask`` masks padded query rows out of the
+    self-attention (the S-query models, whose queries pad with the
+    stream)."""
 
     def __init__(self, dim: int, n_head: int, ffn_dim: int, dropout: float = 0.0,
                  dtype: torch.dtype = torch.float32):
@@ -202,10 +205,54 @@ class DecoderLayer(nn.Module):
         self.drop2 = Dropout(dropout)
         self.drop3 = Dropout(dropout)
 
-    def forward(self, tgt, memory, pos, query_pos, memory_key_padding_mask=None):
+    def forward(self, tgt, memory, pos, query_pos, memory_key_padding_mask=None,
+                tgt_key_padding_mask=None):
         q = tgt + query_pos
-        tgt = self.norm1(tgt + self.drop1(self.self_attn(q, q, q)))
+        tgt = self.norm1(tgt + self.drop1(self.self_attn(q, q, q, tgt_key_padding_mask)))
         mem = memory if pos is None else memory + pos
         q = tgt + query_pos
         tgt = self.norm2(tgt + self.drop2(self.cross_attn(q, mem, mem, memory_key_padding_mask)))
         return self.norm3(tgt + self.drop3(self.ffn(tgt)))
+
+
+def sinusoidal_positional_encoding(seq_len: int, dim: int) -> torch.Tensor:
+    """The sin/cos table [seq_len, dim] in fp32 (``r3d_tpu/models/layers.py:312``)."""
+    position = torch.arange(seq_len, dtype=torch.float32)[:, None]
+    div_term = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32)
+                         * -(math.log(10000.0) / dim))
+    pe = torch.zeros(seq_len, dim)
+    pe[:, 0::2] = torch.sin(position * div_term)
+    pe[:, 1::2] = torch.cos(position * div_term)
+    return pe
+
+
+def adaptive_avg_pool1d(x: torch.Tensor, out_len: int) -> torch.Tensor:
+    """``F.adaptive_avg_pool1d`` over the middle axis of [B, T, C]: bin i
+    averages rows [floor(i*T/out), ceil((i+1)*T/out)), as one product with a
+    pooling matrix whose weights are in ``x.dtype`` (in bf16, 1/len rounded
+    as JAX rounds it)."""
+    T = x.shape[1]
+    i = torch.arange(out_len, device=x.device)
+    starts = (i * T) // out_len
+    ends = -((-(i + 1) * T) // out_len)
+    t = torch.arange(T, device=x.device)
+    sel = (t[None, :] >= starts[:, None]) & (t[None, :] < ends[:, None])
+    w = sel.to(x.dtype) / (ends - starts).clamp_min(1)[:, None].to(x.dtype)
+    return torch.einsum("ot,btc->boc", w, x)
+
+
+def masked_adaptive_avg_pool1d(x: torch.Tensor, out_len: int,
+                               lengths: torch.Tensor) -> torch.Tensor:
+    """``adaptive_avg_pool1d`` over only the first ``lengths[b]`` rows of
+    each example: the bins follow each row's true length, as the pool of
+    the unpadded sequence (``r3d_tpu/models/layers.py:339``)."""
+    S = x.shape[1]
+    q = torch.arange(out_len, device=x.device)[None, :]
+    L = lengths.to(torch.int64)[:, None]
+    starts = (q * L) // out_len
+    ends = -((-(q + 1) * L) // out_len)
+    s = torch.arange(S, device=x.device)[None, None, :]
+    sel = (s >= starts[..., None]) & (s < ends[..., None])
+    w = sel.to(x.dtype)
+    w = w / w.sum(-1, keepdim=True).clamp_min(1)
+    return torch.einsum("bns,bsc->bnc", w, x)

@@ -26,10 +26,12 @@ class TransformerDecoder(nn.Module):
         )
         self.norm = LayerNorm(dim, dtype)
 
-    def forward(self, tgt, memory, pos, query_pos, memory_key_padding_mask=None):
+    def forward(self, tgt, memory, pos, query_pos, memory_key_padding_mask=None,
+                tgt_key_padding_mask=None):
         out = tgt
         for layer in self.layers:
-            out = layer(out, memory, pos, query_pos, memory_key_padding_mask)
+            out = layer(out, memory, pos, query_pos, memory_key_padding_mask,
+                        tgt_key_padding_mask)
         return self.norm(out)
 
 
@@ -46,11 +48,14 @@ class FUTRTransformer(nn.Module):
         self.decoder = TransformerDecoder(dim, n_head, n_decoder_layers, ffn_dim, dropout,
                                           dtype)
 
-    def forward(self, src, pos, query_pos, src_key_padding_mask=None):
+    def forward(self, src, pos, query_pos, src_key_padding_mask=None,
+                tgt_key_padding_mask=None):
+        """``tgt_key_padding_mask`` [B, Q] (True = pad) masks padded query
+        rows out of the decoder self-attention."""
         if query_pos is None:
             raise NotImplementedError(
                 "L3 query generation is not ported yet (ROADMAP queue A, item A11)")
         memory = src
         hs = self.decoder(query_pos.new_zeros(query_pos.shape), memory, pos,
-                          query_pos, src_key_padding_mask)
+                          query_pos, src_key_padding_mask, tgt_key_padding_mask)
         return memory, hs

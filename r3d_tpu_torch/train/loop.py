@@ -1,6 +1,7 @@
-"""The ``proposed_depth`` and ``futr`` training loops on one card.
+"""The ``proposed_depth``, ``futr`` and ``proposed`` training loops on one
+card.
 
-Counterpart of those two loops of ``r3d_tpu/train/loop.py``:
+Counterpart of those three loops of ``r3d_tpu/train/loop.py``:
 
     trainer = Trainer(config, n_class)                 # CUDA by default
     state = trainer.init_state(len(train_loader), state_dict)
@@ -11,15 +12,19 @@ weighted and excluding a class where the config says so, as
 ``proposed_depth``'s does; duration MSE; segmentation CE), backward and an
 AdamW update, with the BatchNorm running statistics of the fusion models
 updated in place by the forward. The fusion models take (features, depth,
-mask), the others (features, mask). Epoch 0 trains in train mode
-(batch-statistics BN, dropout); with sticky eval (COMPAT #37, both loops)
-epochs >= 1 train the module-eval forward with gradients on
+mask), the query models (``models.QUERY_MODELS``) (features, query ids,
+mask), the others (features, mask). ``proposed`` is ``futr``'s losses
+under the two-metric gate; the query models' ``l3`` output takes no loss
+there. Epoch 0 trains in train mode (batch-statistics BN, dropout); with
+sticky eval (COMPAT #37: ``futr`` and ``proposed_depth``, not
+``proposed``, whose reference loop restores train mode after every
+validation) epochs >= 1 train the module-eval forward with gradients on
 (``model.eval()``: running-statistics BN, no dropout), which is exactly the
 JAX package's ``_model_for(frozen=True)``. Validation runs the module-eval
 forward without the pad mask. Metrics accumulate on the device and are read
-once per epoch; the best gate (``proposed_depth``: either of two metrics;
-``futr``: the class accuracy alone) and the log lines are the JAX
-package's.
+once per epoch; the best gate (``proposed_depth`` and ``proposed``: either
+of two metrics; ``futr``: the class accuracy alone) and the log lines are
+the JAX package's.
 
 ``fit`` takes JAX's ``checkpointer`` (``train/checkpoint.py``: the best
 gate saves ``seed_{s}_checkpoint{e}`` and ``seed_{s}_best``, every epoch
@@ -53,14 +58,14 @@ import torch
 
 from r3d_tpu_torch.config import Config
 from r3d_tpu_torch.data import device_cache as dc
-from r3d_tpu_torch.data.pipeline import bucket_length, pad_batch
+from r3d_tpu_torch.data.pipeline import bucket_length, pad_batch, query_fill
 from r3d_tpu_torch.losses.classification import (
     accuracy_counts,
     cross_entropy_loss,
     weighted_cross_entropy_loss,
 )
 from r3d_tpu_torch.losses.duration import duration_loss
-from r3d_tpu_torch.models import build_model, init_weights, is_fusion_model
+from r3d_tpu_torch.models import build_model, init_weights, is_fusion_model, model_needs_query
 from r3d_tpu_torch.models.layers import set_generators
 from r3d_tpu_torch.ops.effective_rank import effective_rank, effective_rank_loss
 from r3d_tpu_torch.serving import resolve_device
@@ -69,7 +74,8 @@ from r3d_tpu_torch.train.state import TrainState
 
 _FLOAT_STREAMS = ("features", "depth_features", "trans_future_dur")
 INIT_SEED = 0  # the seeded init without a state_dict
-LOOPS = ("proposed_depth", "futr")
+LOOPS = ("proposed_depth", "futr", "proposed")
+STICKY_LOOPS = ("futr", "proposed_depth", "unsupervised", "tcn")   # r3d_tpu/train/loop.py:86-91
 
 
 def last_non_padding_labels(past_label: torch.Tensor, pad_idx: int) -> torch.Tensor:
@@ -101,9 +107,9 @@ class Trainer:
         self.n_class = n_class
         self.pad_idx = n_class + 1  # main_utkinects.py:109
         self.is_fusion = is_fusion_model(config.model.model)
+        self.needs_query = model_needs_query(config.model.model)
         se = tc.sticky_eval
-        # every ported loop is sticky by default (r3d_tpu/train/loop.py:86-91)
-        self.sticky_eval = True if se is None else bool(se)
+        self.sticky_eval = tc.loop in STICKY_LOOPS if se is None else bool(se)
         self.best_epochs = []   # epochs at which the best gate opened
 
     def _sticky(self, epoch: int) -> bool:
@@ -151,12 +157,15 @@ class Trainer:
         mask = (batch["past_label"] == self.pad_idx) if with_mask else None
         if self.is_fusion:
             return batch["features"], batch["depth_features"], mask
+        if self.needs_query:
+            return batch["features"], batch.get("query_label"), mask
         return batch["features"], mask
 
     # ------------------------------------------------------------- loss logic
     def _losses(self, outputs, batch, train: bool = True):
-        """(total, metrics) of the ``proposed_depth`` and ``futr`` loops: the
-        JAX ``Trainer._losses`` branches those loops take."""
+        """(total, metrics) of the ``proposed_depth``, ``futr`` and
+        ``proposed`` loops: the JAX ``Trainer._losses`` branches those loops
+        take."""
         cfg = self.config
         pad = self.pad_idx
         excl = cfg.train.exclude_class_idx
@@ -322,7 +331,8 @@ class Trainer:
         positions (``r3d_tpu/train/loop.py:1261``)."""
         cache = hybrid.cache
         sr, pad, qpad = cache.sample_rate, cache.pad_idx, cache.query_pad_idx
-        fills = {"features": 0, "depth_features": 0, "past_label": pad}
+        fills = {"features": 0, "depth_features": 0, "past_label": pad,
+                 "query_label": query_fill(pad, qpad)}
 
         def hybrid_step(state: TrainState, data, view_ids, host_pos, host_part, S: int,
                         epoch: int) -> Dict[str, torch.Tensor]:
@@ -464,7 +474,9 @@ class Trainer:
                     Sh = bucket_length(max(len(e.features) for e in examples), cache.buckets)
                     part = pad_batch(examples, cache.pad_idx, (Sh,), cache.n_query,
                                      with_depth=hybrid.with_depth,
-                                     feature_dtype=cache.feature_dtype, pin_memory=pin)
+                                     feature_dtype=cache.feature_dtype, pin_memory=pin,
+                                     with_query=hybrid.with_query,
+                                     query_pad_idx=cache.query_pad_idx)
                 view_ids = self._index_table([np.where(cached_id >= 0, cached_id, 0)])[0]
                 host_pos = self._index_table([host_sel])[0]
                 yield (step_fn(state, cache.data, view_ids, host_pos, part, S, epoch), 1,

@@ -35,7 +35,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import attention_inputs, cross_inputs, fuser_inputs
+from chip_smoke import SELF_TOL, attention_inputs, cross_inputs, fuser_inputs
 from r3d_tpu_torch.ops import attention as att
 from r3d_tpu_torch.ops import cross_attention as ca
 from r3d_tpu_torch.ops import fuser_kernel as fk
@@ -164,11 +164,11 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
 
 # ---- the training kernels: K1's no-blend route, K2, K4, K5 ----
 
-def _close(got, want, rel, name=""):
-    """|got - want| <= rel * max|want| (+ a floor for all-zero tensors):
-    the kernels sum in another order than the plain versions, and gradients
-    summed over thousands of rows grow with the row count."""
-    scale = max(float(want.abs().max()), 1.0)
+def _close(got, want, rel, name="", floor=1.0):
+    """|got - want| <= rel * max(max|want|, floor): the kernels sum in
+    another order than the plain versions, and gradients summed over
+    thousands of rows grow with the row count."""
+    scale = max(float(want.abs().max()), floor)
     err = float((got - want).abs().max())
     assert torch.isfinite(got).all(), name
     assert err <= rel * scale, f"{name}: max|diff| {err:.3e} > {rel} * {scale:.3e}"
@@ -524,6 +524,40 @@ def test_attention_kernels_bf16_match_plain(cuda, Lk, D, Lq):
         got = att.flash_attention_dropout(q, k, v, bias, 22, scale, 0.1)
         want = att.composed_attention_dropout(q, k, v, bias, 22, scale, 0.1)
         _close(got.float(), want.float(), BF16_TOL, "K4, masked splits")
+
+
+@pytest.mark.parametrize("B,H,S,D", [(8, 8, 256, 64), (8, 8, 512, 64), (8, 8, 1024, 64),
+                                     (8, 8, 3100, 64), (16, 8, 2000, 16), (8, 8, 777, 64)])
+def test_attention_kernels_bf16_with_s_queries_match_plain(cuda, B, H, S, D):
+    """bf16 K3, K4 and K5 with S queries against S keys, the decoder
+    attention of futr_proposed: the 50salads_proposed buckets at D = 64,
+    Breakfast's 2000 bucket at D = 16 and B = 16, and a ragged S; random key
+    lengths per row; each against its plain version, within ``SELF_TOL`` of
+    each tensor's own largest entry (no floor of 1: the entries there are
+    far below 1), and twice bit-equal."""
+    gen = torch.Generator().manual_seed(S + D)
+    q, k, v, bias = attention_inputs(B, H, S, S, D, gen, cuda)
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    g = torch.randn(q.shape, generator=gen).to(cuda, torch.bfloat16)
+    scale = 1.0 / math.sqrt(D)
+    got = att.flash_attention(q, k, v, bias, scale)
+    _close(got.float(), att.composed_attention(q, k, v, bias, scale).float(), SELF_TOL, "K3",
+           floor=0.0)
+    assert torch.equal(got, att.flash_attention(q, k, v, bias, scale))
+    got = att.flash_attention_dropout(q, k, v, bias, 23, scale, 0.1)
+    want = att.composed_attention_dropout(q, k, v, bias, 23, scale, 0.1)
+    _close(got.float(), want.float(), SELF_TOL, "K4", floor=0.0)
+    assert torch.equal(got, att.flash_attention_dropout(q, k, v, bias, 23, scale, 0.1))
+    del got, want
+    for rate in (0.0, 0.1):
+        got = att.attention_bwd(q, k, v, bias, 23, scale, rate, g, need_dbias=True)
+        want = att.composed_attention_bwd(q, k, v, bias, 23, scale, rate, g)
+        for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
+            _close(a.float(), b.float(), SELF_TOL, name, floor=0.0)
+        del want
+        torch.cuda.empty_cache()
+    again = att.attention_bwd(q, k, v, bias, 23, scale, 0.1, g, need_dbias=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.parametrize("Lq,Lk", [(20, 512), (70, 300), (20, 2049)])

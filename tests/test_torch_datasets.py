@@ -156,8 +156,7 @@ def test_read_mapping_matches_jax(csv_root):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("raw_frames", True, "A15"), ("gaze_dir", "gaze", "A11"), ("l1_relabel", True, "A11"),
-    ("label_from_filename", True, "A11")])
+    ("raw_frames", True, "A15"), ("gaze_dir", "gaze", "A11.3")])
 def test_unported_branches_raise(csv_root, field, value, item):
     _, pcfg = data_configs(csv_root)
     with pytest.raises(NotImplementedError, match=item):
@@ -174,5 +173,12 @@ def test_native_cache_and_query_streams_raise(csv_root):
         f.write("0 q0\n1 q1\n2 q2\n")
     qsrc = pt_ds.build_source(pcfg, "train_split.txt", query_mapping="mapping_l3.txt")
     assert qsrc.load_meta(qsrc.vid_list[0])["query_idx"][:3].tolist() == [0, 1, 2]
-    with pytest.raises(NotImplementedError, match="A11"):
-        pt_ds.build_loader(qsrc, pcfg, 4, 8)
+    # the csv's L3 column is the query stream of the loader, padded with the
+    # query vocabulary's pad id (tests/test_torch_proposed_data.py holds the
+    # query configs' loaders to JAX's)
+    jcfg, _ = data_configs(csv_root)
+    jsrc = jax_ds.build_source(jcfg, "train_split.txt", query_mapping="mapping_l3.txt")
+    for pb, jb in zip(pt_ds.build_loader(qsrc, pcfg, 4, 8),
+                      jax_ds.build_loader(jsrc, jcfg, 4, 8)):
+        np.testing.assert_array_equal(pb["query_label"].numpy(), jb["query_label"])
+        assert (pb["query_label"] == 3).any()

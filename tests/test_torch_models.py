@@ -79,7 +79,8 @@ def test_config_fields_and_defaults_match_jax():
         assert dataclasses.asdict(got) == dataclasses.asdict(want), name
 
 
-@pytest.mark.parametrize("name", ["utkinects", "synthetic", "50salads", "breakfast"])
+@pytest.mark.parametrize("name", ["utkinects", "synthetic", "50salads", "breakfast",
+                                  "50salads_proposed", "breakfast_proposed"])
 def test_named_configs_match_jax(name):
     assert (dataclasses.asdict(pt_config.get_config(name))
             == dataclasses.asdict(jax_config.get_config(name)))
