@@ -23,11 +23,17 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    twice bit-equal and audited as one call's launches on the card, with K3
    and K4 also at 33, 70 and 512 (= Lk) queries, at 1, 31, 65, 129, 385,
    1,000 and 2,049 keys and with whole splits of keys masked, and K5 at 33
-   and 70 queries and at 1, 31 and 65 keys; the three bf16 kernels also
-   with S queries against S keys (the decoder attention of futr_proposed)
-   at B = 8, H = 8, D = 64 and S = 256, 512, 1,024, 3,100 and a ragged 777,
-   and at B = 16, H = 8, D = 16 and S = 2,000, each twice bit-equal and
-   timed (with K5's scratch and peak memory); the
+   and 70 queries and at 1, 31 and 65 keys (from 33 queries on, the
+   many-query bodies); the three bf16 kernels also with S queries against
+   S keys (the decoder attention of futr_proposed), where they take the
+   many-query bodies (``csrc/attention_many*.cu``), at B = 8, H = 8, D = 64
+   and S = 256, 512, 1,024, 3,100 and a ragged 777, and at B = 16, H = 8,
+   D = 16 and S = 2,000, each twice bit-equal and timed (K4 with and
+   without the fp32 output and keep bits a training call asks for, K5's dq
+   launch and its peak memory), one call of each audited at S = 1,024 as 1, 1 and 2
+   launches of its own kernels, and the few-query against the many-query
+   bodies at Lk = 256 and Lq = 20-256 (the A/B behind ``MANY_QUERY_MIN``);
+   the
    native cross-attention forward and backward (K6, K7) in fp32 and bf16 at
    B = 8, H = 8, (Lq, C) = (20, 512) and (8, 128), S = 1024, 3100 and a
    ragged 777 with padded key tails and a fully masked row, rate 0 and 0.1,
@@ -101,7 +107,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    K6 at 1024/3100; the parts of a 512- and a 3100-bucket chunk; the card's
    logits against the CPU's; ``fit`` of 2 epochs (one 512- and one
    3100-bucket batch of 8) with validation, where epoch 0 must launch K4,
-   K5, K6 and K7 and epoch 1 K3, K5, K6 and K7; one dropout-off step on the
+   K5, K6 and K7 and epoch 1 K3, K5, K6 and K7 (the few-query bodies, never
+   the many-query ones); one dropout-off step on the
    card against the CPU; the parts of a train step; and an interleaved A/B
    of a 3100-bucket train step and serving chunk with ``R3D_CROSS_NATIVE``
    set and unset;
@@ -121,7 +128,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    within 0.15, MoC and ``l3_acc`` differences explained by a margin or a
    frame edge); one dropout-off train step of the largest bucket through
    the kernels against the plain route on the card (outputs, loss, each
-   gradient and the gradient vectors' cosine); the parts of that step;
+   gradient and the gradient vectors' cosine); the parts of that step; K3,
+   K4 and K5 there are the many-query bodies, never the few-query ones;
 11. print one ``{"kernels": [...]}`` line (with each kernel's launches in
    the CLI phases' training and sweeps and in the cached epoch beside those
    of the other phases; rows for bf16 K3, K4 and K5 at Lq = Lk = 3,100 and
@@ -178,6 +186,8 @@ SELF_TOL = 1e-2          # bf16 K3-K5 at S queries against S keys, over each ten
 OWN_KERNELS = ("fuser_tail_tf32_kernel", "transpose_weights_kernel", "fuser_tail_bwd_rows_kernel",
                "fuser_tail_wgrad_kernel", "fuser_tail_bwd_sum_kernel",
                "attention_fwd_cluster_kernel", "attention_fwd_split_kernel",
+               "attention_fwd_many_kernel", "attention_bwd_many_dq_kernel",
+               "attention_bwd_many_dkdv_kernel",
                "attention_bwd_cluster_kernel", "attention_bwd_bf16_kernel",
                "dq_sum_kernel", "cross_fwd_split_kernel", "cross_fwd_combine_kernel",
                "cross_bwd_bf16_kernel", "cross_bwd_sum_kernel")
@@ -886,7 +896,8 @@ def check_attention_bf16_kernels(gen, device):
     also at the shapes around their splits of 128 keys, clusters of up to 8
     splits and tiles of 32 queries, on the self-attention route (Lq = Lk =
     512) and with whole splits masked; K5 at the shapes around its tiles of
-    32 queries and blocks of 64 keys."""
+    32 queries and blocks of 64 keys. From ``MANY_QUERY_MIN`` queries on
+    (33, 70, 512) the calls take the many-query bodies, held the same way."""
     import torch
     import torch.nn.functional as F
 
@@ -1033,6 +1044,7 @@ def check_attention_bf16_kernels(gen, device):
 SELF_SHAPES = ((8, 8, 256, 64), (8, 8, 512, 64), (8, 8, 1024, 64), (8, 8, 3100, 64),
                (16, 8, 2000, 16), (8, 8, 777, 64))
 SELF_TIMED = ((8, 8, 3100, 64), (16, 8, 2000, 16))   # the kernels line's rows
+BWD_MANY = ("attention_bwd_many_dq_kernel", "attention_bwd_many_dkdv_kernel")   # K5's two launches
 
 
 def time_mha_routes(B, H, S, D, gen, device, rate=0.1):
@@ -1093,17 +1105,22 @@ def time_mha_routes(B, H, S, D, gen, device, rate=0.1):
 
 
 def check_attention_bf16_self(gen, device):
-    """bf16 K3, K4 and K5 at Lq = Lk = S (``SELF_SHAPES``), each against its
-    plain version with random key lengths per row, every tensor within
-    ``SELF_TOL`` of its own largest entry, twice bit-equal; K5 at rate 0
-    and 0.1. Each shape timed on full rows (every key valid, so that the
-    bounds count the work the calls do): the kernels (events around their C
-    launchers, the profiler's device time), the plain versions, SDPA
-    (forward, and forward + backward for K5), the bounds, and K5's peak
-    memory in a wrapper call (its fp32 scratch grows with ceil(S / 64) * S);
-    at the ``SELF_TIMED`` shapes also the decoder's attention module on the
-    kernels' route against the plain route (``time_mha_routes``). Returns
-    (worst (abs, rel) error per kernel, timing per kernel and shape)."""
+    """bf16 K3, K4 and K5 at Lq = Lk = S (``SELF_SHAPES``), where they take
+    the many-query bodies, each against its plain version with random key
+    lengths per row, every tensor within ``SELF_TOL`` of its own largest
+    entry, twice bit-equal; K5 at rate 0 and 0.1. Each shape timed on full
+    rows (every key valid, so that the bounds count the work the calls do):
+    the kernels (events around their C launchers, the profiler's device
+    time; K4 as training calls it, with the fp32 output and keep bits for
+    the backward, and without; K5's dq launch apart), the plain versions,
+    SDPA (forward,
+    and forward + backward for K5), the bounds, and K5's peak memory in a
+    wrapper call; at S = 1,024 one call of each audited as its own launches
+    (1, 1 and 2); at the ``SELF_TIMED`` shapes also the decoder's attention
+    module on the kernels' route against the plain route
+    (``time_mha_routes``). Then the A/B that sets ``MANY_QUERY_MIN``
+    (``many_query_threshold_ab``). Returns (worst (abs, rel) error per
+    kernel, timing per kernel and shape)."""
     import torch
     import torch.nn.functional as F
 
@@ -1155,55 +1172,71 @@ def check_attention_bf16_self(gen, device):
             continue
         big = S > 1024
         iters = 10 if big else 50
-        split = att.fwd_split_keys(S)
         bias = torch.zeros_like(bias)     # full rows
         mask = bias == 0
         out = torch.empty_like(q)
+        out32 = torch.empty(q.shape, device=device)
+        stats = torch.empty(2, B * H, S, device=device)
+        keep_bits = torch.empty(att.keep_bits_shape(B, H, S, S), dtype=torch.int32, device=device)
         shape = f"{label} bf16, full rows"
         fwd_bound = attention_bf16_bound_ms(B, H, S, S, D)
         bwd_bound = attention_bf16_bound_ms(B, H, S, S, D, backward=True)
-        launch = raw_launcher(att.KERNEL_BF16, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                              bias.data_ptr(), out.data_ptr(), B, H, S, S, D, split, scale,
-                              stream)
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr())
+        launch = raw_launcher(att.KERNEL_BF16_MANY, *ptrs, None, stats.data_ptr(), B, H, S, S, D,
+                              scale, stream)
         timing["K3"][S] = {
             "shape": shape, "ms": time_ms(launch, iters=iters),
-            "device_ms": device_ms(launch, f"attention_fwd_split_kernel<{D}, false"),
+            "device_ms": device_ms(launch, f"attention_fwd_many_kernel<{D}, false, false"),
             "plain_ms": time_ms(lambda: att.composed_attention(q, k, v, bias, scale), iters=5),
             **library_times(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                                                    scale=scale), iters=iters),
             "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1]}
-        launch = raw_launcher(att.DROPOUT_KERNEL_BF16, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                              bias.data_ptr(), out.data_ptr(), B, H, S, S, D, split, scale,
-                              seed, att.dropout_threshold(rate), 1.0 / (1.0 - rate), stream)
+        drop = (seed, att.dropout_threshold(rate), 1.0 / (1.0 - rate), stream)
+        # K4 as a training step calls it, keeping the fp32 output and keep bits
+        launch = raw_launcher(att.DROPOUT_KERNEL_BF16_MANY, *ptrs, out32.data_ptr(),
+                              stats.data_ptr(), keep_bits.data_ptr(), B, H, S, S, D, scale, *drop)
+        eval_launch = raw_launcher(att.DROPOUT_KERNEL_BF16_MANY, *ptrs, None, stats.data_ptr(),
+                                   None, B, H, S, S, D, scale, *drop)
         timing["K4"][S] = {
-            "shape": shape + f" p={rate}", "ms": time_ms(launch, iters=iters),
-            "device_ms": device_ms(launch, f"attention_fwd_split_kernel<{D}, true"),
+            "shape": shape + f" p={rate}, with out32", "ms": time_ms(launch, iters=iters),
+            "device_ms": device_ms(launch, f"attention_fwd_many_kernel<{D}, true, true"),
+            "no_out32_device_ms": device_ms(eval_launch,
+                                            f"attention_fwd_many_kernel<{D}, true, false"),
             "plain_ms": time_ms(lambda: att.composed_attention_dropout(
                 q, k, v, bias, seed, scale, rate), iters=3),
             **library_times(lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask, dropout_p=rate, scale=scale), iters=iters),
             "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1]}
+        launch()
         del out
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-        n_kblocks = -(-S // att.BWD_BLOCK_KEYS)
-        stats = torch.empty(3 * n_kblocks * B * H * S, device=device)
-        dq_part = torch.empty(n_kblocks * B * H * S * D, device=device)
-        launch = raw_launcher(att.BWD_KERNEL_BF16, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                              bias.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                              dv.data_ptr(), None, stats.data_ptr(), dq_part.data_ptr(), B, H, S,
-                              S, D, n_kblocks, scale, 1, seed, att.dropout_threshold(rate),
+        delta = torch.empty(B * H, S, device=device)
+        launch = raw_launcher(att.BWD_KERNEL_BF16_MANY, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                              bias.data_ptr(), g.data_ptr(), out32.data_ptr(), stats.data_ptr(),
+                              keep_bits.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                              dk.data_ptr(), dv.data_ptr(), None, B, H, S, S, D, scale, 1,
                               1.0 / (1.0 - rate), stream)
         k5_ms = time_ms(launch, iters=iters)
-        k5_device = device_ms(launch, ("attention_bwd_bf16_kernel", "dq_sum_kernel"))
-        scratch = (stats.numel() + dq_part.numel()) * 4
-        del dq, dk, dv, stats, dq_part
+        k5_device = device_ms(launch, BWD_MANY)
+        k5_dq = device_ms(launch, "attention_bwd_many_dq_kernel")
+        del dq, dk, dv, delta
+        saved = (stats, out32, keep_bits)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        att.attention_bwd(q, k, v, bias, seed, scale, rate, g)
+        att.attention_bwd(q, k, v, bias, seed, scale, rate, g, saved=saved)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() - base
+        if S == 1024:   # one wrapper call on the card: its own launches, nothing else
+            own_launches_per_call(lambda: att.flash_attention(q, k, v, bias, scale),
+                                  ("attention_fwd_many_kernel",), 1, f"K3 bf16 {label}")
+            own_launches_per_call(
+                lambda: att.flash_attention_dropout(q, k, v, bias, seed, scale, rate),
+                ("attention_fwd_many_kernel",), 1, f"K4 bf16 {label}")
+            own_launches_per_call(
+                lambda: att.attention_bwd(q, k, v, bias, seed, scale, rate, g, saved=saved),
+                BWD_MANY, 2, f"K5 bf16 {label}")
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
 
         def library_bwd():
@@ -1213,11 +1246,11 @@ def check_attention_bf16_self(gen, device):
 
         timing["K5"][S] = {
             "shape": shape + f" p={rate}", "ms": k5_ms, "device_ms": k5_device,
+            "dq_launch_device_ms": k5_dq,
             "plain_ms": time_ms(lambda: att.composed_attention_bwd(
                 q, k, v, bias, seed, scale, rate, g, False), iters=3),
             **library_times(library_bwd, iters=iters),
-            "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
-            "scratch_bytes": scratch, "peak_bytes": peak}
+            "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1], "peak_bytes": peak}
         if (B, H, S, D) in SELF_TIMED:
             for name, (route_ms, plain_route_ms) in time_mha_routes(B, H, S, D, gen,
                                                                     device).items():
@@ -1228,11 +1261,56 @@ def check_attention_bf16_self(gen, device):
                   f"{fmt_ms(t['device_ms'])} on the device; plain {t['plain_ms']:.3f}; SDPA "
                   f"{t['library_ms']:.4f} / {fmt_ms(t['library_device_ms'])}; bound "
                   f"{t['bound_ms']:.4f} ({t['bound_by']})"
-                  + (f"; scratch {scratch / 1e9:.3f} GB, peak of a wrapper call "
-                     f"{peak / 1e9:.3f} GB" if name == "K5" else ""))
-        del leaves
+                  + {"K4": f"; without out32 {fmt_ms(t.get('no_out32_device_ms'))} on the device",
+                     "K5": f"; the dq launch {fmt_ms(t.get('dq_launch_device_ms'))} on the "
+                           f"device; peak of a wrapper call {peak / 1e9:.4f} GB"}.get(name, ""))
+        del leaves, saved, stats, out32, keep_bits
         torch.cuda.empty_cache()
+    many_query_threshold_ab(gen, device)
     return worst, timing
+
+
+def many_query_threshold_ab(gen, device, B=8, H=8, Lk=256, D=64):
+    """Which bf16 body an Lq takes (``MANY_QUERY_MIN``): the few-query and
+    the many-query K3 and K5 (rate 0) launched by hand on the same inputs at
+    Lk = 256, Lq = 20-256, device time each."""
+    import torch
+
+    from r3d_tpu_torch.ops import attention as att
+
+    stream = torch.cuda.current_stream().cuda_stream
+    scale = 1.0 / math.sqrt(D)
+    for Lq in (20, 32, 33, 48, 64, 128, 256):
+        q, k, v, bias = attention_inputs(B, H, Lq, Lk, D, gen, device)
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+        g = torch.randn(q.shape, generator=gen).to(device, torch.bfloat16)
+        out, out32 = torch.empty_like(q), torch.empty(q.shape, device=device)
+        stats = torch.empty(2, B * H, Lq, device=device)
+        qkv = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr())
+        few = raw_launcher(att.KERNEL_BF16, *qkv, out.data_ptr(), B, H, Lq, Lk, D,
+                           att.fwd_split_keys(Lk), scale, stream)
+        many = raw_launcher(att.KERNEL_BF16_MANY, *qkv, out.data_ptr(), None, stats.data_ptr(), B,
+                            H, Lq, Lk, D, scale, stream)
+        raw_launcher(att.KERNEL_BF16_MANY, *qkv, out.data_ptr(), out32.data_ptr(),
+                     stats.data_ptr(), B, H, Lq, Lk, D, scale, stream)()
+        nkb = -(-Lk // att.BWD_BLOCK_KEYS)
+        block_stats = torch.empty(3 * nkb * B * H * Lq, device=device)
+        part = torch.empty(nkb * B * H * Lq * D, device=device)
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        delta = torch.empty(B * H * Lq, device=device)
+        grads = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), None)
+        few_b = raw_launcher(att.BWD_KERNEL_BF16, *qkv, g.data_ptr(), *grads,
+                             block_stats.data_ptr(), part.data_ptr(), B, H, Lq, Lk, D, nkb,
+                             scale, 0, 0, 0, 1.0, stream)
+        many_b = raw_launcher(att.BWD_KERNEL_BF16_MANY, *qkv, g.data_ptr(), out32.data_ptr(),
+                              stats.data_ptr(), None, delta.data_ptr(), *grads, B, H, Lq, Lk, D,
+                              scale, 0, 1.0, stream)
+        t = [device_ms(fn, names) for fn, names in (
+            (few, "attention_fwd_split_kernel"), (many, "attention_fwd_many_kernel"),
+            (few_b, ("attention_bwd_bf16_kernel", "dq_sum_kernel")), (many_b, BWD_MANY))]
+        print(f"threshold A/B bf16 B={B} H={H} Lq={Lq} Lk={Lk} D={D} (MANY_QUERY_MIN "
+              f"{att.MANY_QUERY_MIN}): K3 few-query {fmt_ms(t[0])} / many-query {fmt_ms(t[1])} "
+              f"ms, K5 few-query {fmt_ms(t[2])} / many-query {fmt_ms(t[3])} ms on the device")
 
 
 def check_cross_attention_kernels(gen, device):
@@ -3279,9 +3357,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
 
+    many = [att.KERNEL_BF16_MANY, att.DROPOUT_KERNEL_BF16_MANY, att.BWD_KERNEL_BF16_MANY]
     kernels = [fk.KERNEL, fk.TAIL_KERNEL, fkb.KERNEL, att.KERNEL, att.DROPOUT_KERNEL,
                att.BWD_KERNEL, att.KERNEL_BF16, att.DROPOUT_KERNEL_BF16, att.BWD_KERNEL_BF16,
-               ca.FWD_KERNEL, ca.BWD_KERNEL]
+               *many, ca.FWD_KERNEL, ca.BWD_KERNEL]
     serving_kernels = [fk.KERNEL, att.KERNEL]
     t0 = time.perf_counter()
     kbuild.build_all(kernels)
@@ -3355,17 +3434,24 @@ def main() -> int:
     # 50salads: futr, bf16, R3D_CROSS_NATIVE=1
     s_serving, s_counts = salads(kernels, att.KERNEL_BF16, att.DROPOUT_KERNEL_BF16,
                                     att.BWD_KERNEL_BF16, ca.FWD_KERNEL, ca.BWD_KERNEL)
+    launched = {k.name: c[k.name] for c in (s_serving, s_counts) for k in many if c[k.name]}
+    if launched:   # the decoder's 20 queries take the few-query bodies
+        raise AssertionError(f"50salads launched the many-query bodies: {launched}")
     print(f"launches on the 50salads serving path: { {k: c for k, c in s_serving.items() if c} }")
     print(f"launches on the 50salads training path: { {k: c for k, c in s_counts.items() if c} }")
 
     # the gt-query FUTR: 50salads_proposed and breakfast_proposed through the CLI
     proposed = {}
     for name in PROPOSED_DATA:
-        proposed[name] = proposed_cli(kernels, card, name, att.KERNEL_BF16,
-                                      att.DROPOUT_KERNEL_BF16, att.BWD_KERNEL_BF16)
+        proposed[name] = proposed_cli(kernels, card, name, *many)
         print(f"launches on the {name} CLI training path: "
               f"{ {k: c for k, c in proposed[name][0].items() if c} }; sweep: "
               f"{ {k: c for k, c in proposed[name][1].items() if c} }")
+        few = {k.name: c[k.name] for c in proposed[name][:2]
+               for k in (att.KERNEL_BF16, att.DROPOUT_KERNEL_BF16, att.BWD_KERNEL_BF16)
+               if c[k.name]}
+        if few:   # S queries against S keys take the many-query bodies
+            raise AssertionError(f"{name} launched the few-query bodies: {few}")
 
     rows = []
     utk = (counts, serving_counts)
@@ -3375,9 +3461,9 @@ def main() -> int:
     self_rows = []
     for (B, H, S, D), path in zip(SELF_TIMED, (s_prop, b_prop)):
         for k, key, replaces in (
-                (att.KERNEL_BF16, "K3", "r3d_tpu/ops/attention.py:38"),
-                (att.DROPOUT_KERNEL_BF16, "K4", "r3d_tpu/ops/attention.py:192"),
-                (att.BWD_KERNEL_BF16, "K5", "r3d_tpu/ops/attention.py:215")):
+                (att.KERNEL_BF16_MANY, "K3", "r3d_tpu/ops/attention.py:38"),
+                (att.DROPOUT_KERNEL_BF16_MANY, "K4", "r3d_tpu/ops/attention.py:192"),
+                (att.BWD_KERNEL_BF16_MANY, "K5", "r3d_tpu/ops/attention.py:215")):
             self_time[key][S]["eval_chunk_launches"] = path[2].get(k.name, 0)
             self_rows.append((k, self_err[key], self_time[key][S], replaces, path,
                               f" Lq=Lk={S} D={D}"))
@@ -3414,7 +3500,8 @@ def main() -> int:
             "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "library_device_ms": t["library_device_ms"],
-            **{key: t[key] for key in ("route_ms", "plain_route_ms", "eval_chunk_launches")
+            **{key: t[key] for key in ("route_ms", "plain_route_ms", "eval_chunk_launches",
+                                       "no_out32_device_ms", "dq_launch_device_ms", "peak_bytes")
                if key in t},
         })
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")

@@ -1,7 +1,8 @@
-"""Time K3, K4 and K5 in fp32 (the utkinects decoder's attention forward,
-dropout forward and backward), K1 and K2 (the fuser tail and its backward),
-K7 in bf16 and K6 and K7 in fp32 (the native cross-attention) of this
-checkout against another checkout's, on one card, in turns.
+"""Time K3, K4 and K5 in bf16 with S queries against S keys (the gt-query
+FUTR's decoder attention) and in fp32 (the utkinects decoder's attention
+forward, dropout forward and backward), K1 and K2 (the fuser tail and its
+backward), K7 in bf16 and K6 and K7 in fp32 (the native cross-attention) of
+this checkout against another checkout's, on one card, in turns.
 
     python3 kernel_ab.py OTHER_CHECKOUT      # from the root of a checkout, on a CUDA host
 
@@ -17,6 +18,15 @@ launches, each the mean of a side's turns, and each turn's device time.
 Where an entry point's signature changed, the other checkout's is read off
 its source.
 
+- K3, K4 and K5 in bf16 at Lq = Lk = S on full rows (``chip_smoke.SELF_TIMED``:
+  S = 3,100 at D = 64, 2,000 at D = 16): this checkout's many-query bodies
+  (``r3d_attention_fwd_many_bf16``, its dropout twin with the fp32 output
+  and keep bits a training call asks for, ``r3d_attention_bwd_many_bf16``)
+  against the
+  other checkout's ``r3d_attention_fwd_bf16``, ``..._dropout_bf16`` and
+  ``r3d_attention_bwd_bf16``, which run the few-query bodies there. Each
+  side is held to the plain version (1e-2 of each tensor's own largest
+  entry).
 - K3 and K5 in fp32: ``r3d_attention_fwd`` and ``r3d_attention_bwd`` (rate
   0.1, as ``chip_smoke.py`` times it) at B = H = 8, Lq = 8, D = 16, Lk = 256
   and 512. The cluster bodies take the keys per block
@@ -59,6 +69,7 @@ missing.
 from __future__ import annotations
 
 import ctypes
+import functools
 import json
 import math
 import re
@@ -71,8 +82,10 @@ import chip_smoke
 N_ROWS = chip_smoke.K1_ROWS
 
 
+@functools.lru_cache(maxsize=None)
 def other_library(checkout: Path, source: str) -> ctypes.CDLL:
-    """The other checkout's ``source``, built into build/ab/ here."""
+    """The other checkout's ``source``, built into build/ab/ here (once: a
+    library in use is not written over)."""
     from r3d_tpu_torch.ops import build
 
     out = Path(__file__).resolve().parent / "build" / "ab" / f"{Path(source).stem}_other.so"
@@ -135,6 +148,80 @@ def in_turns(label, calls, check, result, rounds=1):
           f"{len(times['this'])} left out); other / this by device "
           f"{mean['other'][1] / mean['this'][1]:.2f} (device, each turn: other {turns('other')}; "
           f"this {turns('this')})")
+
+
+def attention_bf16_many(checkout, device, gen, stream, result, rate=0.1):
+    """bf16 K3, K4 and K5 with S queries against S keys on full rows, at
+    ``chip_smoke.SELF_TIMED`` (B = H = 8, S = 3,100, D = 64; B = 16, H = 8,
+    S = 2,000, D = 16): this checkout's many-query bodies, launched as its
+    wrappers launch them (K4 with the fp32 output and keep bits a training
+    call asks for, K5 from what that K4 kept), against the other checkout's entry points
+    at the same shapes, which run the few-query bodies. Each side held to
+    the plain version within ``chip_smoke.SELF_TOL`` of each tensor's own
+    largest entry."""
+    import torch
+
+    from r3d_tpu_torch.ops import attention as att
+
+    fwd_lib = other_library(checkout, "attention.cu")
+    old = {"K3": bind(fwd_lib, att.KERNEL_BF16), "K4": bind(fwd_lib, att.DROPOUT_KERNEL_BF16),
+           "K5": bind(other_library(checkout, "attention_bwd.cu"), att.BWD_KERNEL_BF16)}
+    new = {"K3": att.KERNEL_BF16_MANY.load(), "K4": att.DROPOUT_KERNEL_BF16_MANY.load(),
+           "K5": att.BWD_KERNEL_BF16_MANY.load()}
+    for B, H, S, D in chip_smoke.SELF_TIMED:
+        q, k, v, bias = chip_smoke.attention_inputs(B, H, S, S, D, gen, device)
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+        bias = torch.zeros_like(bias)   # full rows
+        g = torch.randn(q.shape, generator=gen).to(device, torch.bfloat16)
+        scale = 1.0 / math.sqrt(D)
+        seed = 3000 + S
+        drop = (seed, att.dropout_threshold(rate), 1.0 / (1.0 - rate))
+        split, nkb = att.fwd_split_keys(S), -(-S // att.BWD_BLOCK_KEYS)
+        label = f"B={B} H={H} Lq=Lk={S} D={D} bf16, full rows"
+        qkv = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr())
+        outs = {who: torch.empty_like(q) for who in ("this", "other")}
+        out32 = torch.empty(q.shape, device=device)
+        stats = torch.empty(2, B * H, S, device=device)
+        keep_bits = torch.empty(att.keep_bits_shape(B, H, S, S), dtype=torch.int32, device=device)
+
+        def hold(name, got, want):
+            def check(who):
+                rel = chip_smoke.errs_own(got(who), want)[1]
+                if not rel <= chip_smoke.SELF_TOL:
+                    raise AssertionError(f"{name} bf16 ({who}) disagrees with its plain version "
+                                         f"at {label}: {rel:.3e}")
+            return check
+
+        fwd = lambda who: [outs[who]]
+        calls = {"this": lambda: new["K3"](*qkv, outs["this"].data_ptr(), None, stats.data_ptr(),
+                                           B, H, S, S, D, scale, stream),
+                 "other": lambda: old["K3"](*qkv, outs["other"].data_ptr(), B, H, S, S, D, split,
+                                            scale, stream)}
+        in_turns(f"attention_fwd bf16 {label}", calls, hold(
+            "K3", fwd, [att.composed_attention(q, k, v, bias, scale)]), result)
+        calls = {"this": lambda: new["K4"](*qkv, outs["this"].data_ptr(), out32.data_ptr(),
+                                           stats.data_ptr(), keep_bits.data_ptr(), B, H, S, S, D,
+                                           scale, *drop, stream),
+                 "other": lambda: old["K4"](*qkv, outs["other"].data_ptr(), B, H, S, S, D, split,
+                                            scale, *drop, stream)}
+        in_turns(f"attention_fwd_dropout bf16 {label} p={rate} (this: with out32)", calls, hold(
+            "K4", fwd, [att.composed_attention_dropout(q, k, v, bias, seed, scale, rate)]), result)
+        grads = {who: tuple(torch.empty_like(t) for t in (q, k, v)) for who in outs}
+        delta = torch.empty(B * H, S, device=device)
+        block_stats = torch.empty(3 * nkb * B * H * S, device=device)
+        part = torch.empty(nkb * B * H * S * D, device=device)
+        ptrs = lambda who: tuple(t.data_ptr() for t in grads[who]) + (None,)
+        calls = {"this": lambda: new["K5"](*qkv, g.data_ptr(), out32.data_ptr(), stats.data_ptr(),
+                                           keep_bits.data_ptr(), delta.data_ptr(), *ptrs("this"),
+                                           B, H, S, S, D, scale, 1, drop[2], stream),
+                 "other": lambda: old["K5"](*qkv, g.data_ptr(), *ptrs("other"),
+                                            block_stats.data_ptr(), part.data_ptr(), B, H, S, S,
+                                            D, nkb, scale, 1, *drop, stream)}
+        want = att.composed_attention_bwd(q, k, v, bias, seed, scale, rate, g, False)[:3]
+        in_turns(f"attention_bwd bf16 {label} p={rate}", calls,
+                 hold("K5", lambda who: grads[who], want), result)
+        del want, block_stats, part
+        torch.cuda.empty_cache()
 
 
 def fuser_tail(other, device, gen, stream, result):
@@ -397,6 +484,7 @@ def main() -> int:
     gen = torch.Generator().manual_seed(chip_smoke.SEED)
     stream = torch.cuda.current_stream().cuda_stream
     result = {}
+    attention_bf16_many(checkout, device, gen, stream, result)
     attention_fp32(checkout, device, gen, stream, result)
     fuser_tail_bwd(checkout, device, gen, stream, result)
     fuser_tail(other_library(checkout, "fuser_tail.cu"), device, gen, stream, result)

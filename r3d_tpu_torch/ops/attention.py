@@ -6,7 +6,8 @@ Counterpart of ``r3d_tpu/ops/attention.py``. Three kernels:
   scale + bias) v`` with an fp32 softmax, masking its own ragged key edge;
 - K4 (the same source, ``r3d_attention_fwd_dropout``): K3 with dropout on
   the softmax weights, the keep mask a hash of (seed, element index);
-- K5 (``csrc/attention_bwd.cu``): the backward of both, redrawing the mask.
+- K5 (``csrc/attention_bwd.cu``): the backward of both, redrawing the mask
+  (the many-query body reads it from its forward).
 
 ``flash_attention`` (K3 forward, K5 backward at rate 0) and
 ``flash_attention_dropout`` (K4 forward, K5 backward) are
@@ -38,6 +39,23 @@ bf16 forwards split the keys into runs of ``fwd_split_keys`` the same way:
 they combine their softmax statistics before any weight is rounded, then
 their partial outputs, in a fixed order, in one launch. K5's bf16 body
 splits the keys into blocks of 64 that own dk and dv, in three launches.
+
+Those bf16 bodies were built for few queries (the 50salads decoder's 20).
+A bf16 call with at least ``MANY_QUERY_MIN`` queries (the gt-query FUTR's
+decoder: S queries against S keys) takes the many-query bodies instead,
+counted apart (``*_MANY``). The forward (``csrc/attention_many.cu``, K3 and
+K4 as one template) gives each block 64 queries against every key in an
+online softmax on the tensor cores and rounds the UNNORMALISED weights to
+bf16 against the running max (as bf16 K6 does; the plain version rounds
+the normalised ones, so a weight can differ by one bf16 step). A call that
+trains also keeps, for the backward, each query's (m, 1 / l), the output in
+fp32 from fp32-accurate weights (for Dq = rowsum(g o out)) and, with
+dropout, the keep mask as bits. The backward (``csrc/attention_many_bwd.cu``,
+two launches) takes those: Dq and dq over query tiles, then dk, dv and dbias
+over key tiles, each owned by one block, ds rounded to bf16 before the dq
+and dk products and the weights times the keep mask kept at fp32 accuracy
+for dv (bf16 K7's rounding points). The autograd Functions save what the
+forward keeps on that route only.
 """
 
 from __future__ import annotations
@@ -73,6 +91,20 @@ BWD_KERNEL_BF16 = Kernel(   # two more pointers (its scratch); the key-block cou
     "attention_bwd_bf16", "attention_bwd.cu", "r3d_attention_bwd_bf16",
     [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + BWD_KERNEL.argtypes[15:],
 )
+KERNEL_BF16_MANY = Kernel(   # q, k, v, bias, out, out32, stats; (B, H, Lq, Lk, D)
+    "flash_attention_bf16_many", "attention_many.cu", "r3d_attention_fwd_many_bf16",
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p],
+)
+DROPOUT_KERNEL_BF16_MANY = Kernel(   # q, k, v, bias, out, out32, stats, keep bits
+    "flash_attention_dropout_bf16_many", "attention_many.cu",
+    "r3d_attention_fwd_dropout_many_bf16",
+    [ctypes.c_void_p] * 8 + KERNEL_BF16_MANY.argtypes[7:-1] + DROPOUT_KERNEL.argtypes[-4:],
+)
+BWD_KERNEL_BF16_MANY = Kernel(   # q, k, v, bias, g, out32, stats, keep bits, Dq, dq, dk, dv, dbias
+    "attention_bwd_bf16_many", "attention_many_bwd.cu", "r3d_attention_bwd_many_bf16",
+    [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
+)
 _BY_DTYPE = {  # (forward, dropout forward, backward) per input dtype
     torch.float32: (KERNEL, DROPOUT_KERNEL, BWD_KERNEL),
     torch.bfloat16: (KERNEL_BF16, DROPOUT_KERNEL_BF16, BWD_KERNEL_BF16),
@@ -83,6 +115,8 @@ FWD_SPLIT_UNIT = 128              # csrc/attention.cu: NW * KT, one tile of keys
 FWD_MAX_SPLITS = 8                # csrc/attention_cluster.cuh: kMaxSplits, blocks per cluster
 FP32_SPLIT_UNIT = 64              # csrc/attention_cluster.cuh: kF32KT, a tile of the fp32 bodies
 FP32_QUERY_TILE = 8               # csrc/attention_cluster.cuh: kF32QT, queries a block takes at a time
+MANY_QUERY_MIN = 33               # bf16 calls with this many queries or more: the many-query bodies
+MANY_KEY_TILE = 64                # csrc/attention_many.cuh: kManyKeyTile, keys per tile
 
 _U32 = 0xFFFFFFFF
 
@@ -142,6 +176,21 @@ def fp32_split_keys(Lk: int) -> int:
     1,024, of 256 at 2,000."""
     n = min(FWD_MAX_SPLITS, -(-Lk // FP32_SPLIT_UNIT))
     return FP32_SPLIT_UNIT * -(-Lk // (FP32_SPLIT_UNIT * n))
+
+
+def keep_bits_shape(B, H, Lq, Lk):
+    """The many-query forward's keep mask for its backward: a record of 32
+    words per (block of 16 queries, tile of ``MANY_KEY_TILE`` keys)."""
+    return (B * H, -(-Lq // 16), -(-Lk // MANY_KEY_TILE), 32)
+
+
+def many_query(q) -> bool:
+    """Whether a CUDA call on ``q`` [B, H, Lq, D] takes the many-query
+    bodies: bf16 with at least ``MANY_QUERY_MIN`` queries (the two bodies'
+    A/B at Lk = 256, ``chip_smoke.many_query_threshold_ab``: from 33
+    queries the many-query K3 and K5 are both ahead). The few-query bodies
+    keep the rest."""
+    return q.dtype == torch.bfloat16 and q.shape[2] >= MANY_QUERY_MIN
 
 
 def _scores(q, k, bias, scale):
@@ -240,37 +289,71 @@ def _fwd_shape(fn, q, k, v, bias):
     return shape + (fp32_split_keys(shape[3]),)
 
 
-def _attention_fwd(q, k, v, bias, scale):
-    """K3, or the plain version for CPU tensors."""
+def _many_fwd(q, k, v, bias, scale, for_grad, drop=None):
+    """The many-query forward: ``KERNEL_BF16_MANY``, or with ``drop`` =
+    (seed, threshold, keep scale) ``DROPOUT_KERNEL_BF16_MANY``. Returns out
+    and, with ``for_grad``, what the backward takes from it: (the statistics
+    [2, B*H, Lq] fp32, each query's m then 1 / l; out in fp32 from
+    fp32-accurate weights; with dropout the keep mask as bits, int32 [B*H,
+    ceil(Lq / 16), ceil(Lk / 64), 32] (``csrc/attention_many.cuh``), else
+    None)."""
+    kernel = KERNEL_BF16_MANY if drop is None else DROPOUT_KERNEL_BF16_MANY
+    B, H, Lq, Lk, D = _check(kernel.name, q, k, v, bias)
+    _check_aligned(kernel.name, q=q, k=k, v=v)
+    if B * H > 65535:
+        raise ValueError(f"{kernel.name}: B*H must be at most 65535 (the grid's y)")
+    out = torch.empty_like(q)
+    stats = torch.empty((2, B * H, Lq), dtype=torch.float32, device=q.device)
+    out32 = torch.empty(q.shape, dtype=torch.float32, device=q.device) if for_grad else None
+    keep_bits = (torch.empty(keep_bits_shape(B, H, Lq, Lk), dtype=torch.int32, device=q.device)
+                 if for_grad and drop is not None else None)
+    bits = () if drop is None else (_ptr(keep_bits),)
+    kernel.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), out.data_ptr(),
+                  _ptr(out32), stats.data_ptr(), *bits, B, H, Lq, Lk, D, float(scale),
+                  *(drop or ()), _stream(q))
+    return out, ((stats, out32, keep_bits) if for_grad else None)
+
+
+def _attention_fwd(q, k, v, bias, scale, for_grad=False):
+    """K3: (out, what the many-query backward takes (``_many_fwd``) or
+    None). The plain version for CPU tensors."""
     if q.device.type == "cpu":
-        return composed_attention(q, k, v, bias, scale)
+        return composed_attention(q, k, v, bias, scale), None
+    if many_query(q):
+        return _many_fwd(q, k, v, bias, scale, for_grad)
     shape = _fwd_shape("flash_attention", q, k, v, bias)
     out = torch.empty_like(q)
     _BY_DTYPE[q.dtype][0].launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
                                  out.data_ptr(), *shape, float(scale), _stream(q))
-    return out
+    return out, None
 
 
-def _attention_fwd_dropout(q, k, v, bias, seed, scale, rate):
-    """K4, or the plain version for CPU tensors."""
+def _attention_fwd_dropout(q, k, v, bias, seed, scale, rate, for_grad=False):
+    """K4: (out, what the many-query backward takes (``_many_fwd``) or
+    None). The plain version for CPU tensors."""
     if q.device.type == "cpu":
-        return composed_attention_dropout(q, k, v, bias, seed, scale, rate)
-    shape = _fwd_shape("flash_attention_dropout", q, k, v, bias)
-    B, H, Lq, Lk = shape[:4]
-    if B * H * Lq * Lk > 2 ** 32:
+        return composed_attention_dropout(q, k, v, bias, seed, scale, rate), None
+    if q.numel() // q.shape[-1] * k.shape[-2] > 2 ** 32:
         raise ValueError("flash_attention_dropout: B*H*Lq*Lk must fit a 32-bit index")
+    drop = (int(seed) & _U32, dropout_threshold(rate), 1.0 / (1.0 - rate))
+    if many_query(q):
+        return _many_fwd(q, k, v, bias, scale, for_grad, drop)
+    shape = _fwd_shape("flash_attention_dropout", q, k, v, bias)
     out = torch.empty_like(q)
     _BY_DTYPE[q.dtype][1].launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), out.data_ptr(), *shape,
-        float(scale), int(seed) & _U32, dropout_threshold(rate), 1.0 / (1.0 - rate), _stream(q))
-    return out
+        float(scale), *drop, _stream(q))
+    return out, None
 
 
 def attention_bwd(q, k, v, bias, seed: int, scale, rate: float, g,
-                  need_dbias: bool = False):
+                  need_dbias: bool = False, saved=None):
     """K5: (dq, dk, dv, dbias [B, 1, 1, Lk] or None) of attention with
     dropout at ``rate`` (0: none) under the output cotangent g. The plain
-    version for CPU tensors."""
+    version for CPU tensors. On the many-query route ``saved`` is what the
+    forward of the same call keeps for it (the second thing
+    ``_attention_fwd`` or, at rate > 0, ``_attention_fwd_dropout`` returns
+    with ``for_grad``); without it that forward runs first."""
     if q.device.type == "cpu":
         return composed_attention_bwd(q, k, v, bias, seed, scale, rate, g, need_dbias)
     B, H, Lq, Lk, D = _check("attention_bwd", q, k, v, bias, {"g": g})
@@ -281,14 +364,39 @@ def attention_bwd(q, k, v, bias, seed: int, scale, rate: float, g,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     tail = (float(scale), int(rate > 0.0), int(seed) & _U32, dropout_threshold(rate),
             1.0 / (1.0 - rate), _stream(q))
-    if q.dtype == torch.bfloat16:
+    if many_query(q):
+        if saved is None:
+            saved = (_attention_fwd_dropout(q, k, v, bias, seed, scale, rate, for_grad=True)
+                     if rate > 0.0 else _attention_fwd(q, k, v, bias, scale, for_grad=True))[1]
+        stats, out32, keep_bits = saved
+        want = [("the statistics", stats, (2, B * H, Lq), torch.float32),
+                ("out32", out32, (B, H, Lq, D), torch.float32)]
+        if rate > 0.0:
+            if keep_bits is None:
+                raise ValueError("attention_bwd: no keep bits from a dropout forward")
+            want.append(("the keep bits", keep_bits, keep_bits_shape(B, H, Lq, Lk), torch.int32))
+        for name, t, shape, dtype in want:
+            if (t.device != q.device or t.dtype != dtype or not t.is_contiguous()
+                    or tuple(t.shape) != shape):
+                raise ValueError(f"attention_bwd: {name} must be a contiguous {dtype} "
+                                 f"{list(shape)} tensor on {q.device}")
+        _check_aligned("attention_bwd", q=q, k=k, v=v, g=g, out32=out32)
+        if B * H > 65535:
+            raise ValueError("attention_bwd: B*H must be at most 65535 (the grid's y)")
+        delta = torch.empty((B * H, Lq), dtype=torch.float32, device=q.device)
+        BWD_KERNEL_BF16_MANY.launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), g.data_ptr(), out32.data_ptr(),
+            stats.data_ptr(), _ptr(keep_bits) if rate > 0.0 else None, delta.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(dbias), B, H, Lq, Lk, D,
+            float(scale), int(rate > 0.0), 1.0 / (1.0 - rate), _stream(q))
+    elif q.dtype == torch.bfloat16:
         _check_aligned("attention_bwd", q=q, k=k, v=v, g=g)
         n_kblocks = -(-Lk // BWD_BLOCK_KEYS)
-        stats = torch.empty((3, n_kblocks, B * H, Lq), dtype=torch.float32, device=q.device)
+        block_stats = torch.empty((3, n_kblocks, B * H, Lq), dtype=torch.float32, device=q.device)
         dq_partial = torch.empty((n_kblocks, B * H, Lq, D), dtype=torch.float32, device=q.device)
         BWD_KERNEL_BF16.launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), g.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), _ptr(dbias), stats.data_ptr(), dq_partial.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), _ptr(dbias), block_stats.data_ptr(), dq_partial.data_ptr(),
             B, H, Lq, Lk, D, n_kblocks, *tail)
     else:   # every output is written by the kernel
         _check_aligned("attention_bwd", q=q, k=k, v=v, g=g)
@@ -304,36 +412,42 @@ def attention_bwd(q, k, v, bias, seed: int, scale, rate: float, g,
 
 
 class _FlashAttention(torch.autograd.Function):
-    """K3 forward, K5 backward at rate 0 (``attention.py:120-140``)."""
+    """K3 forward, K5 backward at rate 0 (``attention.py:120-140``); on the
+    many-query route what the forward keeps for K5 is saved."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, scale):
         ctx.scale = scale
-        ctx.save_for_backward(q, k, v, bias)
-        return _attention_fwd(q, k, v, bias, scale)
+        out, saved = _attention_fwd(q, k, v, bias, scale, for_grad=True)
+        ctx.save_for_backward(q, k, v, bias, *(saved or ()))
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, bias = ctx.saved_tensors
+        q, k, v, bias, *saved = ctx.saved_tensors
         dq, dk, dv, db = attention_bwd(q, k, v, bias, 0, ctx.scale, 0.0, g.contiguous(),
-                                       need_dbias=ctx.needs_input_grad[3])
+                                       need_dbias=ctx.needs_input_grad[3],
+                                       saved=tuple(saved) or None)
         return dq, dk, dv, db, None
 
 
 class _FlashAttentionDropout(torch.autograd.Function):
-    """K4 forward, K5 backward redrawing the same mask."""
+    """K4 forward, K5 backward with the same mask (redrawn, or on the
+    many-query route read from the forward's bits)."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, seed, scale, rate):
         ctx.seed, ctx.scale, ctx.rate = seed, scale, rate
-        ctx.save_for_backward(q, k, v, bias)
-        return _attention_fwd_dropout(q, k, v, bias, seed, scale, rate)
+        out, saved = _attention_fwd_dropout(q, k, v, bias, seed, scale, rate, for_grad=True)
+        ctx.save_for_backward(q, k, v, bias, *(saved or ()))
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, bias = ctx.saved_tensors
+        q, k, v, bias, *saved = ctx.saved_tensors
         dq, dk, dv, db = attention_bwd(q, k, v, bias, ctx.seed, ctx.scale, ctx.rate,
-                                       g.contiguous(), need_dbias=ctx.needs_input_grad[3])
+                                       g.contiguous(), need_dbias=ctx.needs_input_grad[3],
+                                       saved=tuple(saved) or None)
         return dq, dk, dv, db, None, None, None
 
 
@@ -347,7 +461,7 @@ def flash_attention(q, k, v, bias: Optional[torch.Tensor], scale: float) -> torc
     version; CUDA tensors the kernels (K3 forward, K5 backward)."""
     if _needs_graph(q, k, v, bias):
         return _FlashAttention.apply(q, k, v, bias, scale)
-    return _attention_fwd(q, k, v, bias, scale)
+    return _attention_fwd(q, k, v, bias, scale)[0]
 
 
 def flash_attention_dropout(q, k, v, bias: Optional[torch.Tensor], seed: int, scale: float,
@@ -357,7 +471,7 @@ def flash_attention_dropout(q, k, v, bias: Optional[torch.Tensor], seed: int, sc
     drawn from ``seed``: K4 forward, K5 backward on CUDA tensors."""
     if _needs_graph(q, k, v, bias):
         return _FlashAttentionDropout.apply(q, k, v, bias, seed, scale, rate)
-    return _attention_fwd_dropout(q, k, v, bias, seed, scale, rate)
+    return _attention_fwd_dropout(q, k, v, bias, seed, scale, rate)[0]
 
 
 def attention_kernel_eligible(Lq: int, Lk: int, D: int, device: torch.device) -> bool:

@@ -491,7 +491,8 @@ def test_attention_kernels_bf16_match_plain(cuda, Lk, D, Lq):
     counts of more than one tile of 32, on the self-attention route (Lq ==
     Lk), at key counts around the forwards' splits (one, less than one of
     128, 8 of 128 at 1,024, 8 of 256 at 2,048); at Lk = 512 also with rows
-    whose later splits hold only masked keys."""
+    whose later splits hold only masked keys. From ``MANY_QUERY_MIN``
+    queries on (33, 70, 512) the calls take the many-query bodies."""
     from chip_smoke import masked_split_bias
 
     gen = torch.Generator().manual_seed(Lk + 7 * D)
@@ -499,8 +500,12 @@ def test_attention_kernels_bf16_match_plain(cuda, Lk, D, Lq):
     q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
     g = torch.randn(q.shape, generator=gen).to(cuda, torch.bfloat16)
     scale = 1.0 / math.sqrt(D)
-    counts = [kern.launches for kern in (att.KERNEL_BF16, att.DROPOUT_KERNEL_BF16,
-                                         att.BWD_KERNEL_BF16)]
+    # from MANY_QUERY_MIN queries on the many-query bodies, whose backward
+    # runs its forward first when it is not handed what that keeps
+    many = Lq >= att.MANY_QUERY_MIN
+    kerns = ((att.KERNEL_BF16_MANY, att.DROPOUT_KERNEL_BF16_MANY, att.BWD_KERNEL_BF16_MANY) if many
+             else (att.KERNEL_BF16, att.DROPOUT_KERNEL_BF16, att.BWD_KERNEL_BF16))
+    counts = [kern.launches for kern in kerns]
     got = att.flash_attention(q, k, v, bias, scale)
     _close(got.float(), att.composed_attention(q, k, v, bias, scale).float(), BF16_TOL, "K3")
     got = att.flash_attention_dropout(q, k, v, bias, 21, scale, 0.1)
@@ -513,9 +518,8 @@ def test_attention_kernels_bf16_match_plain(cuda, Lk, D, Lq):
             assert a.dtype == b.dtype, name
             _close(a.float(), b.float(), BF16_TOL, name)
     torch.cuda.synchronize()
-    assert [kern.launches for kern in (att.KERNEL_BF16, att.DROPOUT_KERNEL_BF16,
-                                       att.BWD_KERNEL_BF16)] == [c + n for c, n in
-                                                                  zip(counts, (1, 1, 2))]
+    assert [kern.launches for kern in kerns] == [c + n for c, n in
+                                                 zip(counts, (2, 2, 2) if many else (1, 1, 2))]
     if Lk == 512:
         bias = masked_split_bias(8, Lk, (512, 10, 0, 128, 129, 300, 384, 1), cuda)
         got = att.flash_attention(q, k, v, bias, scale)
@@ -810,3 +814,83 @@ def test_predictor_on_the_card_matches_its_cpu_self(cuda, utk_disk):
             for k in cres[o]:
                 if k.startswith("obs"):
                     assert gres[o][k] == cres[o][k], (o, k)
+
+
+# ---- the many-query bf16 bodies (csrc/attention_many.cu, attention_many_bwd.cu) ----
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("Lq,Lk", [(33, 300), (65, 65), (200, 513), (777, 1), (1000, 257)])
+@pytest.mark.parametrize("D", [16, 32, 64])
+def test_many_query_bodies_match_plain(cuda, D, Lq, Lk, rate):
+    """The many-query forward and backward at query counts that are not a
+    multiple of their tiles (64 queries a block, 64 keys a tile), with a
+    fully masked row (Lk > 1), the bias's cotangent, rate 0 and 0.1, each
+    call twice bit-equal; held to the plain versions within ``BF16_TOL``."""
+    gen = torch.Generator().manual_seed(Lq * 7 + Lk + D)
+    q, k, v, bias = attention_inputs(2, 3, Lq, Lk, D, gen, cuda, all_masked_row=Lk > 1)
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    g = torch.randn(q.shape, generator=gen).to(cuda, torch.bfloat16)
+    scale = 1.0 / math.sqrt(D)
+    assert att.many_query(q)
+    out, saved = att._attention_fwd_dropout(q, k, v, bias, 5, scale, rate, for_grad=True)
+    want = att.composed_attention_dropout(q, k, v, bias, 5, scale, rate)
+    _close(out.float(), want.float(), BF16_TOL, "out")
+    again = att._attention_fwd_dropout(q, k, v, bias, 5, scale, rate, for_grad=True)
+    assert torch.equal(out, again[0]) and all(torch.equal(a, b) for a, b in zip(saved, again[1]))
+    assert torch.equal(out, att.flash_attention_dropout(q, k, v, bias, 5, scale, rate))
+    got = att.attention_bwd(q, k, v, bias, 5, scale, rate, g, need_dbias=True, saved=saved)
+    want = att.composed_attention_bwd(q, k, v, bias, 5, scale, rate, g)
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
+        assert a.dtype == b.dtype, name
+        _close(a.float(), b.float(), BF16_TOL, name)
+    again = att.attention_bwd(q, k, v, bias, 5, scale, rate, g, need_dbias=True, saved=saved)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert att.attention_bwd(q, k, v, bias, 5, scale, rate, g, saved=saved)[3] is None
+
+
+def test_many_query_autograd_matches_autograd_of_plain(cuda):
+    """The autograd Functions on the many-query route (the forward keeps its
+    statistics and fp32 output for the backward) against autograd through
+    the plain versions, the bias's gradient included."""
+    gen = torch.Generator().manual_seed(13)
+    q, k, v, bias = attention_inputs(2, 4, 300, 300, 32, gen, cuda)
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    for fn, plain in ((lambda *t: att.flash_attention(*t, 0.2),
+                       lambda *t: att.composed_attention(*t, 0.2)),
+                      (lambda *t: att.flash_attention_dropout(*t, 8, 0.2, 0.1),
+                       lambda *t: att.composed_attention_dropout(*t, 8, 0.2, 0.1))):
+        for a, b in zip(_grads(fn, (q, k, v, bias)), _grads(plain, (q, k, v, bias))):
+            _close(a.float(), b.float(), BF16_TOL)
+
+
+def test_many_query_calls_are_their_own_launches(cuda):
+    """One many-query forward call is one launch of its kernel and one
+    backward call two, and nothing else; a 20-query call takes the
+    few-query bodies."""
+    from chip_smoke import BWD_MANY, own_launches_per_call
+
+    gen = torch.Generator().manual_seed(3)
+    q, k, v, bias = attention_inputs(4, 4, 512, 512, 64, gen, cuda)
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    g = torch.randn(q.shape, generator=gen).to(cuda, torch.bfloat16)
+    _, saved = att._attention_fwd_dropout(q, k, v, bias, 3, 0.125, 0.1, for_grad=True)
+    own_launches_per_call(lambda: att.flash_attention(q, k, v, bias, 0.125),
+                          ("attention_fwd_many_kernel",), 1, "K3 many-query")
+    own_launches_per_call(lambda: att.flash_attention_dropout(q, k, v, bias, 3, 0.125, 0.1),
+                          ("attention_fwd_many_kernel",), 1, "K4 many-query")
+    own_launches_per_call(lambda: att.attention_bwd(q, k, v, bias, 3, 0.125, 0.1, g, saved=saved),
+                          BWD_MANY, 2, "K5 many-query")
+    few = [kern.launches for kern in (att.KERNEL_BF16, att.KERNEL_BF16_MANY)]
+    att.flash_attention(q[:, :, :20].contiguous(), k, v, bias, 0.125)
+    assert [kern.launches for kern in (att.KERNEL_BF16, att.KERNEL_BF16_MANY)] == [few[0] + 1,
+                                                                                    few[1]]
+
+
+def test_many_query_bodies_give_zeros_under_an_all_inf_bias(cuda):
+    q = torch.randn(1, 2, 70, 16, device=cuda).to(torch.bfloat16)
+    k = torch.randn(1, 2, 300, 16, device=cuda).to(torch.bfloat16)
+    bias = torch.full((1, 1, 1, 300), -math.inf, device=cuda)
+    out, saved = att._attention_fwd(q, k, k, bias, 0.25, for_grad=True)
+    assert torch.equal(out, torch.zeros_like(out))
+    for x in att.attention_bwd(q, k, k, bias, 1, 0.25, 0.0, q, need_dbias=True, saved=saved):
+        assert torch.equal(x, torch.zeros_like(x))
