@@ -130,11 +130,31 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    the kernels against the plain route on the card (outputs, loss, each
    gradient and the gradient vectors' cosine); the parts of that step; K3,
    K4 and K5 there are the many-query bodies, never the few-query ones;
-11. print one ``{"kernels": [...]}`` line (with each kernel's launches in
+11. ``darai`` (futr_unsupervised: self-attention queries across the batch,
+   the ``unsupervised`` loop) and ``darai_gaze`` (futr_gaze, the ``futr``
+   loop) through the command line at full width (hidden 128, 8 heads of
+   16, 8 queries, input 2,048, one decoder layer, batch 8, fp32): one
+   dataset of the DARai layout from a seed (4 train videos of 8 sequences
+   of 10,500-12,800 frames, whose views at sample rate 15 fall in the 256
+   and 512 buckets, 1 val video of 2 sequences, a gaze CSV of 1,200-1,900
+   rows a video), every count set to 0, ``train`` of one seed for 2
+   epochs (``darai`` on the device cache, ``darai_gaze`` on the host
+   loader), where epoch 0 must launch fp32 K4 and K5, the sticky epoch K3
+   and K5 and no K4, each validation K3; for ``darai`` the same with
+   ``--no-device_cache`` and ``fit`` in the cached order, bit-equal to the
+   cached run; the 9-ratio sweep at ``eval_batch=1`` (the cached sweep
+   equal to the host sweep for ``darai``), K3 in every chunk of the 256
+   and 512 buckets, its card time from a profiled sweep, held window by
+   window to ``--cpu`` (logits, durations and L3 logits within 1e-3, every
+   MoC or ``l3_acc`` difference explained by a margin or a frame edge); one
+   sticky 512-bucket step through the kernels against the plain route;
+   the parts of a 512-bucket step in epoch 0 and sticky; ``darai``'s
+   validation time and launches a video;
+12. print one ``{"kernels": [...]}`` line (with each kernel's launches in
    the CLI phases' training and sweeps and in the cached epoch beside those
    of the other phases; rows for bf16 K3, K4 and K5 at Lq = Lk = 3,100 and
    2,000 with the launches of the two proposed configs' training and
-   sweep) and, as the last line,
+   sweep; the darai phases' launches) and, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX. Exits non-zero and prints no result where CUDA is
@@ -1912,7 +1932,7 @@ def one_batch(loader, min_len, max_len=None, rows=8):
             break
     return pad_batch(examples, loader.pad_idx, loader.buckets, loader.n_query,
                      loader.with_depth, loader.feature_dtype, loader.pin_memory,
-                     loader.with_query, loader.query_pad_idx)
+                     loader.with_query, loader.query_pad_idx, loader.query_pad_len)
 
 
 def train_breakdown(cfg, state_dict, train_loader, min_len=256, n_class=N_CLASS, label="",
@@ -1933,7 +1953,7 @@ def train_breakdown(cfg, state_dict, train_loader, min_len=256, n_class=N_CLASS,
     t0 = time.perf_counter()
     batch = one_batch(train_loader, min_len) if make_batch is None else make_batch()
     t1 = time.perf_counter()
-    dev = trainer.to_device(batch)
+    dev = trainer.to_device(trainer._with_seg_ids(batch))
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     B, S = batch["features"].shape[:2]
@@ -1943,7 +1963,7 @@ def train_breakdown(cfg, state_dict, train_loader, min_len=256, n_class=N_CLASS,
     def step(epoch):
         state.model.train(not trainer._sticky(epoch))
         state.optimizer.zero_grad(set_to_none=True)
-        trainer._grad_core(state.model, dev)
+        trainer._grad_core(state.model, dev, epoch)
         state.apply_gradients()
 
     modes = ((0, "epoch 0, train mode, dropout 0.1"), (1, "sticky epoch"))
@@ -2169,17 +2189,28 @@ def cross_native_ab(cfg, state_dict, session, train_loader, rng, n_class, bucket
 
 def salads(kernels, k3b, k4b, k5b, k6, k7):
     """Serve and train the 50salads FUTR at full width with the native
-    cross-attention on (R3D_CROSS_NATIVE=1). Returns (serving counts,
-    training counts)."""
+    cross-attention on (R3D_CROSS_NATIVE=1, restored after). Returns
+    (serving counts, training counts)."""
     import os
 
+    before = os.environ.get("R3D_CROSS_NATIVE")
+    os.environ["R3D_CROSS_NATIVE"] = "1"
+    try:
+        return _salads(kernels, k3b, k4b, k5b, k6, k7)
+    finally:   # the later phases run the default route
+        if before is None:
+            os.environ.pop("R3D_CROSS_NATIVE", None)
+        else:
+            os.environ["R3D_CROSS_NATIVE"] = before
+
+
+def _salads(kernels, k3b, k4b, k5b, k6, k7):
     import torch
 
     from r3d_tpu_torch.config import get_config
     from r3d_tpu_torch.models import build_model, init_weights
     from r3d_tpu_torch.serving import InferenceSession
 
-    os.environ["R3D_CROSS_NATIVE"] = "1"
     cfg = get_config("50salads")
     model = init_weights(build_model(cfg.model, SALADS_CLASSES), torch.Generator().manual_seed(SEED))
     state_dict = model.state_dict()
@@ -2332,11 +2363,72 @@ def write_proposed_dataset(root, config_name, train_lengths, val_lengths, input_
     return str(root)
 
 
+def write_darai_dataset(root, train_videos, val_videos, input_dim=2048, seed=SEED, run=(5, 14),
+                        n_actions=10, n_l3=48, gaze_rows=None, without_gaze=()):
+    """A dataset in the DARai layout under ``root/darai``, from a numpy seed:
+    each video of ``train_videos`` and ``val_videos`` a tuple of its
+    sequences' lengths, stored as ``features_img/v<i>_<seq>.npy`` [L,
+    input_dim] and csv ground truth ``groundTruth/v<i>_<seq>.txt`` of
+    ``img,L2,L3`` rows: L2 actions in runs of ``run`` frames, each run cut
+    into L3 sub-runs of 2-9 frames drawn from the action's own 8 of the
+    ``n_l3`` L3 labels; features that carry both labels; the mappings
+    ``mapping_l2_changed.txt`` (``n_actions``) and ``mapping_l3_changed.txt``
+    (``n_l3``) and the train and val splits of video names. With
+    ``gaze_rows`` (lo, hi), a gaze CSV ``gaze/v<i>.csv`` of that many rows
+    (x, y in pixels of a 640x480 frame) for each video but those of
+    ``without_gaze``. Returns ``root``."""
+    import os
+
+    base = os.path.join(str(root), "darai")
+    rng = np.random.RandomState(seed)
+    for d in ("features_img", "groundTruth", "splits", "gaze"):
+        os.makedirs(os.path.join(base, d), exist_ok=True)
+    acts = [f"act{i}" for i in range(n_actions)]
+    l3s = [f"l3_{i}" for i in range(n_l3)]
+    for name, labels in (("mapping_l2_changed.txt", acts), ("mapping_l3_changed.txt", l3s)):
+        with open(os.path.join(base, name), "w") as f:
+            f.write("".join(f"{i} {a}\n" for i, a in enumerate(labels)))
+    emb = rng.randn(n_actions, input_dim).astype(np.float32)
+    emb3 = rng.randn(n_l3, input_dim).astype(np.float32)
+    vids = []
+    for v, seqs in enumerate(tuple(train_videos) + tuple(val_videos)):
+        for seq, L in enumerate(seqs, start=1):
+            ids, sub = [], []
+            a = int(rng.randint(n_actions))
+            while len(ids) < L:
+                n = int(rng.randint(run[0], run[1] + 1))
+                ids += [a] * n
+                while len(sub) < len(ids):
+                    sub += [(8 * a + int(rng.randint(8))) % n_l3] * int(rng.randint(2, 10))
+                a = (a + 1 + int(rng.randint(n_actions - 1))) % n_actions
+            ids, sub = np.array(ids[:L]), np.array(sub[:L])
+            feats = emb[ids] + emb3[sub] + 0.5 * rng.randn(L, input_dim).astype(np.float32)
+            np.save(os.path.join(base, "features_img", f"v{v}_{seq}.npy"), feats)
+            with open(os.path.join(base, "groundTruth", f"v{v}_{seq}.txt"), "w") as f:
+                f.write("".join(f"img_{t}.jpg,{acts[i]},{l3s[j]}\n"
+                                for t, (i, j) in enumerate(zip(ids, sub))))
+        if gaze_rows is not None and v not in without_gaze:
+            n = int(rng.randint(gaze_rows[0], gaze_rows[1] + 1))
+            # pixels on a coarse grid: a third of each column normalises to
+            # exactly 1, which the model's truncation keeps
+            xy = rng.randint(0, 3, (n, 2)) * (320, 240)
+            with open(os.path.join(base, "gaze", f"v{v}.csv"), "w") as f:
+                f.write("frame, gaze_x [px], gaze_y [px]\n")
+                f.write("".join(f"{i}, {x}, {y}\n" for i, (x, y) in enumerate(xy)))
+        vids.append(f"v{v}.txt")
+    n_train = len(train_videos)
+    for split, names in (("train_split.txt", vids[:n_train]), ("val_split.txt", vids[n_train:])):
+        with open(os.path.join(base, "splits", split), "w") as f:
+            f.write("\n".join(names) + "\n")
+    return str(root)
+
+
 class SweepRecorder:
     """Records each chunk of ``Predictor`` sweeps while in use: its bucket,
     its windows (video, ratio), whether its windows were gathered from the
-    device cache, its action logits and durations, and how many launches of
-    each of ``kernels`` it made."""
+    device cache, its action logits, durations and L3 logits (None for a
+    model without them), and how many launches of each of ``kernels`` it
+    made."""
 
     ROUTES = (("_forward_batch", False), ("_forward_batch_cached", True))
 
@@ -2356,7 +2448,7 @@ class SweepRecorder:
                 recorder.chunks.append({
                     "S": S, "windows": [(it["vid"], it["obs_p"]) for it in items],
                     "cached": cached, "future_len": [it["future_len"] for it in items],
-                    "action": out["action"], "duration": out["duration"],
+                    "action": out["action"], "duration": out["duration"], "l3": out.get("l3"),
                     "launches": {k.name: k.launches - before[k.name] for k in recorder.kernels}})
                 return out
             return recorded
@@ -2786,7 +2878,7 @@ def batch_with_longest(loader, rows):
     chosen = [examples[longest]] + [e for i, e in enumerate(examples) if i != longest]
     return pad_batch(chosen[:rows], loader.pad_idx, loader.buckets, loader.n_query,
                      loader.with_depth, loader.feature_dtype, loader.pin_memory,
-                     loader.with_query, loader.query_pad_idx)
+                     loader.with_query, loader.query_pad_idx, loader.query_pad_len)
 
 
 def step_kernels_vs_plain(cfg, state_dict, batch, n_class, kernels):
@@ -3027,7 +3119,8 @@ def proposed_cli(kernels, card, name, k3, k4, k5):
               f"{moc_table(results)}")
         print(f"{name} sweep on the CPU:\n{moc_table(cpu_res)}")
         print(f"{name} sweep [{card}]: {n_windows} windows in {len(chunks)} chunks, per bucket "
-              f"{dict(sorted(per_bucket.items()))}; K3 in every chunk of 256 rows or more; "
+              f"{dict(sorted(per_bucket.items()))}; K3 in every chunk of the 256 and 512 "
+              f"buckets; "
               f"launches { {k: c for k, c in sweep_counts.items() if c} }; cached vs host max|"
               f"diff| {cached_vs_host:.3e} (must be 0); card vs CPU max|logit or duration diff| "
               f"{err:.3e} (tol {PROPOSED_E2E_TOL}), max|MoC diff| {moc_diff:.3e}, max|accuracy "
@@ -3057,6 +3150,347 @@ def proposed_cli(kernels, card, name, k3, k4, k5):
         train_breakdown(config, state_dict, loader, n_class=n_class, label=f" ({name})",
                         make_batch=lambda: batch_with_longest(loader, config.train.batch_size))
         return train_counts, sweep_counts, step["eval_launches"]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+# ---- the DARai family: darai (futr_unsupervised) and darai_gaze (futr_gaze) ----
+
+DARAI_DIR = "build/darai_phase"   # under the checkout (git-ignored), removed after
+# Each video a tuple of its sequences' lengths. At sample rate 15 and the
+# train ratios 0.2/0.3/0.5 a sequence of 10,500-12,800 frames gives 140-256
+# rows (the 256 bucket) and 350-427 (the 512 bucket); 8 train sequences make
+# 24 views, 3 batches of 8. The 2 val sequences give sweep windows of 74-720
+# rows (the 128-1024 buckets). About 0.98 GB of fp32 features.
+DARAI_TRAIN = ((12000, 11500), (12500, 11000), (11800, 12200), (10500, 12800))
+DARAI_VAL = ((12000, 11000),)
+DARAI_GAZE_ROWS = (1200, 1900)   # raw gaze rows a video, padded to the 2000 bucket
+DARAI_E2E_TOL = 1e-3   # logits and durations, card vs CPU, fp32 on both (TF32 off)
+DARAI_LOSS_TOL = 1e-4  # a train step's loss, kernels vs the plain route on the card
+DARAI_OUT_TOL = 1e-4   # its outputs
+DARAI_GRAD_TOL = 1e-4  # a gradient entry over the model's largest gradient entry
+
+
+def fp32_step_kernels_vs_plain(cfg, state_dict, batch, n_class, kernels):
+    """One dropout-off train step (the sticky epochs' forward) of an fp32
+    config on the card from the same weights and batch, through the kernels
+    (K3 forward, K5 backward) and through the plain route: loss within
+    ``DARAI_LOSS_TOL``, outputs within ``DARAI_OUT_TOL``, every gradient
+    entry within ``DARAI_GRAD_TOL`` of the model's largest gradient entry
+    (not of its own tensor's: the duration head's weight gradient is a
+    difference of near-equal terms, the gaze model's 8 queries being alike,
+    and read 3.3e-2 of its own largest entry on an H100 with the loss and
+    outputs within 1e-6); the kernels' route must launch, the plain route
+    must not."""
+    import torch
+
+    from r3d_tpu_torch.train.loop import Trainer
+
+    res = {}
+    for route, within in (("kernels", contextlib.nullcontext), ("plain", plain_attention_route)):
+        with within():
+            trainer = Trainer(cfg, n_class)
+            state = trainer.init_state(1, state_dict)
+            state.model.eval()
+            dev = trainer.to_device(trainer._with_seg_ids(batch))
+            before = {k.name: k.launches for k in kernels}
+            outputs = state.model(*trainer._model_inputs(dev, with_mask=True))
+            total, _ = trainer._losses(outputs, dev, epoch=1)
+            total.backward()
+            torch.cuda.synchronize()
+            res[route] = (float(total.detach()),
+                          {k: v.detach().float() for k, v in outputs.items() if k != "supcon"},
+                          {k: p.grad.clone() for k, p in state.model.named_parameters()
+                           if p.grad is not None},
+                          {k.name: k.launches - before[k.name] for k in kernels
+                           if k.launches - before[k.name]})
+        del trainer, state, outputs, total, dev
+    (lk, ok, gk, nk), (lp, op, gp, npl) = res["kernels"], res["plain"]
+    out_err = max(float((ok[k] - op[k]).abs().max()) for k in op)
+    diff = {k: float((gk[k] - gp[k]).abs().max()) for k in gp}
+    top = max(float(g.abs().max()) for g in gp.values())
+    worst = max(diff, key=diff.get)
+    own = {k: diff[k] / max(float(gp[k].abs().max()), 1e-30) for k in gp}
+    B, S = batch["features"].shape[:2]
+    print(f"{cfg.name} train step, bucket {S} batch of {B}, sticky (dropout off), kernels vs "
+          f"the plain route on the card: loss {lk:.6f} vs {lp:.6f} (tol {DARAI_LOSS_TOL}); "
+          f"max|output diff| {out_err:.3e} over {sorted(op)} (tol {DARAI_OUT_TOL}); over "
+          f"{len(gp)} gradients max|diff| over the model's largest entry {diff[worst] / top:.3e} "
+          f"in {worst} (tol {DARAI_GRAD_TOL}); largest over its own tensor's: " + ", ".join(
+              f"{k} {own[k]:.2e}" for k in sorted(own, key=lambda k: -own[k])[:4])
+          + f"; launches {nk} vs {npl}")
+    if not nk or npl:
+        raise AssertionError(f"{cfg.name}: the routes launched {nk} and {npl}")
+    if not (abs(lk - lp) <= DARAI_LOSS_TOL and out_err <= DARAI_OUT_TOL
+            and diff[worst] <= DARAI_GRAD_TOL * top):
+        raise AssertionError(f"{cfg.name}: the kernels' train step disagrees with the plain "
+                             "route's")
+
+
+def validation_per_video(config, state_dict, source, n_class):
+    """``darai``'s validation from the val cache, one video a batch as the
+    config runs it: its wall time (median of 3) and, from a profiled pass,
+    the card's busy time and launches, each over the number of views."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from r3d_tpu_torch.cli.run import VAL_CACHE_BYTES
+    from r3d_tpu_torch.data import device_cache as dc
+    from r3d_tpu_torch.train.loop import Trainer
+
+    trainer = Trainer(config, n_class)
+    state = trainer.init_state(1, state_dict)
+    cache = dc.cache_from_source(source, config.data, config.model.n_query,
+                                 max_bytes=VAL_CACHE_BYTES, device="cuda")
+    validate = trainer._cached_validator(None, cache, max(1, config.train.steps_per_dispatch))
+    validate(state)
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        validate(state)
+        times.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        validate(state)
+        torch.cuda.synchronize()
+    events = card_events(prof)
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    n = cache.n_views
+    print(f"{config.name} validation from the val cache, batch {config.train.val_batch_size}: "
+          f"{n} views, median {1e3 * float(np.median(times)) / n:.2f} ms a view (of 3 passes), "
+          f"card busy {busy / n:.3f} ms and {sum(e.count for e in events) / n:.1f} launches a "
+          f"view (one profiled pass)")
+
+
+def l3_flips(chunks, ref_chunks, err):
+    """Frames whose L3 argmax differs between two sweeps of the same
+    windows, and those of them whose reference top-2 margin exceeds
+    ``err`` (not explained by the measured error)."""
+    flipped = unexplained = 0
+    for a, b in zip(chunks, ref_chunks):
+        if b["l3"] is None:
+            continue
+        diff = a["l3"].argmax(-1) != b["l3"].argmax(-1)
+        top = np.sort(b["l3"], axis=-1)
+        margin = top[..., -1] - top[..., -2]
+        flipped += int(diff.sum())
+        unexplained += int((diff & (margin > err)).sum())
+    return flipped, unexplained
+
+
+def darai_cli(kernels, card, name, root, k3, k4, k5):
+    """``name`` (``darai`` or ``darai_gaze``) at full width through the CLI
+    over the dataset at ``root``: every launch count set to 0, ``train`` one
+    seed for 2 epochs on the JAX CLI's route (``darai``: the device cache,
+    its line asserted; ``darai_gaze``: the host loader, the cache declining
+    the gaze stream), where epoch 0's training must launch K4 (``k4``) and
+    K5 (``k5``), epoch 1's (sticky) K3 (``k3``) and K5 and no K4, and each
+    validation K3; for ``darai`` the same ``train`` with
+    ``--no-device_cache``, and ``fit`` over the host loader in the cached
+    route's order, bit-equal to the cached run; the 9-ratio sweep at
+    ``eval_batch=1`` from the best checkpoint on the card (``darai``: from
+    the cached val videos, and the host sweep equal to it), every chunk of
+    the 256 and 512 buckets launching K3 once and the others nothing, with
+    its card time from a profiled sweep;
+    the sweep with ``--cpu``, held window by window (logits, durations and
+    L3 logits within ``DARAI_E2E_TOL``, every decode or L3 flip explained by
+    a margin or a frame edge, MoC and ``l3_acc`` otherwise equal); one
+    512-bucket step through the kernels against the plain route; the parts
+    of that step in epoch 0 and sticky; for ``darai`` the validation's time
+    and launches a video. Returns (train counts, sweep counts)."""
+    import dataclasses
+    import io
+    import os
+    import shutil
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from r3d_tpu_torch.cli.opts import build_parser, config_from_args, run_from_argv
+    from r3d_tpu_torch.cli.run import save_path
+    from r3d_tpu_torch.data.datasets import build_loader, build_source
+    from r3d_tpu_torch.train.loop import Trainer
+
+    cached = name == "darai"
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), DARAI_DIR, name)
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        # the schedule at its peak from the first step: 2 epochs of a 10-epoch
+        # warmup would train at lr 0 first
+        argv = ["--config", name, "--data_root", root, "--model_save_path",
+                os.path.join(work, "save"), "--seed", "1", "--warmup_epochs", "0"]
+        config = config_from_args(build_parser(name).parse_args(argv))
+        m = config.model
+        print(f"{name}: {m.model}, hidden {m.hidden_dim}, {m.n_head} heads of "
+              f"{m.hidden_dim // m.n_head}, {m.n_decoder_layers} decoder layer, {m.n_query} "
+              f"queries, input {m.input_dim}, query_num {m.query_num}, batch "
+              f"{config.train.batch_size}, val batch {config.train.val_batch_size}, compute "
+              f"{m.compute_dtype}, loop {config.train.loop}, buckets {config.data.seq_buckets}")
+        buckets = []
+        lines, snapshots, train_counts, t_train = cli_train(argv, kernels, buckets=buckets)
+        took_cache = any(line.startswith(CLI_ROUTE) and "views" in line for line in lines)
+        if took_cache != cached:
+            raise AssertionError(f"{name} train: the route's lines {lines}")
+        phases = ["epoch 0 train", "epoch 0 validation", "epoch 1 train", "epoch 1 validation"]
+        per_phase, prev = {}, {k.name: 0 for k in kernels}
+        for phase, snap in zip(phases, snapshots):
+            per_phase[phase] = {k: snap[k] - prev[k] for k in snap if snap[k] - prev[k]}
+            prev = snap
+            steps = [(S, B) for i, S, B in buckets if i == phases.index(phase)]
+            print(f"{name}: {phase}: cached batches (bucket, rows) {steps}; launches "
+                  f"{per_phase[phase]}")
+        want = {"epoch 0 train": (k4.name, k5.name), "epoch 1 train": (k3.name, k5.name),
+                "epoch 0 validation": (k3.name,), "epoch 1 validation": (k3.name,)}
+        for phase, names in want.items():
+            missing = [n for n in names if per_phase.get(phase, {}).get(n, 0) == 0]
+            if missing:
+                raise AssertionError(f"{name} train: {phase} never launched {missing}")
+        if per_phase["epoch 1 train"].get(k4.name, 0):
+            raise AssertionError(f"{name} train: the sticky epoch launched K4")
+        losses = [float(x) for line in lines
+                  for x in re.findall(r"Loss ?: ?(-?[0-9.]+|nan|inf)", line)]
+        if len(losses) != 4 or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{name} train: a loss is missing or not finite: {lines}")
+        ckpt_dir = save_path(config)
+        names = sorted(os.listdir(ckpt_dir))
+        for need in ("seed_1_last", "seed_1_metrics.jsonl"):
+            if need not in names:
+                raise AssertionError(f"{name} train: no {need} in {ckpt_dir}")
+        gate = [line for line in lines if line.startswith("Best model saved")]
+        if bool(gate) != ("seed_1_best" in names):
+            raise AssertionError(f"{name} train: the gate's lines {gate} and {names} disagree")
+        print(f"{name} [{card}]: train 2 epochs on the {'cached' if cached else 'host'} route "
+              f"in {t_train:.2f} s; the gate opened {len(gate)} times; {names}")
+        final = final_model(ckpt_dir, "seed_1_last")
+        sources = {s: build_source(config.data, f"{s}_split.txt") for s in ("train", "val")}
+        n_class = sources["train"].n_class
+        nq = config.model.n_query
+        train = build_loader(sources["train"], config.data, config.train.batch_size, nq, seed=1,
+                             pin_memory=True)
+        if cached:
+            host_argv = argv[:5] + [os.path.join(work, "save_host")] + argv[6:]
+            host_lines, _, _, t_host = cli_train(host_argv, kernels, ["--no-device_cache"])
+            if any(line.startswith(("device cache", "hybrid cache")) for line in host_lines):
+                raise AssertionError(f"{name} --no-device_cache took a cache: {host_lines}")
+            host_losses = [float(x) for line in host_lines
+                           for x in re.findall(r"Loss ?: ?(-?[0-9.]+|nan|inf)", line)]
+            if len(host_losses) != 4 or not all(math.isfinite(x) for x in host_losses):
+                raise AssertionError(f"{name} --no-device_cache: a loss is not finite")
+            # the cached route's batches through the host loader
+            val = build_loader(sources["val"], config.data, 1, nq, mode="val", shuffle=False,
+                               pin_memory=True)
+            trainer = Trainer(config.replace(train=dataclasses.replace(config.train, epochs=2)),
+                              n_class)
+            state = trainer.init_state(len(train), seed=1)
+            t0 = time.perf_counter()
+            trainer.fit(state, train, val, seed=1, log=lambda *a: None)
+            torch.cuda.synchronize()
+            diff = unequal(final, state.model.state_dict())
+            print(f"{name} [{card}]: --no-device_cache {t_host:.2f} s (the host loader from "
+                  f"seed + 1, losses {host_losses}); fit over the host loader in the cached "
+                  f"order {time.perf_counter() - t0:.2f} s: {len(diff)} of {len(final)} "
+                  "tensors differ from the cached run's (bit for bit)")
+            if diff:
+                raise AssertionError(f"{name}: the host loader's final parameters differ from "
+                                     f"the cached route's: {diff}")
+            del trainer, state
+
+        predict = argv + ["--predict", "--eval_batch", "1", "--results_save_path",
+                          os.path.join(work, "results")]
+        runs = {}
+        sweeps = (("cuda", []), ("cuda_host", ["--no-device_cache"]), ("cpu", ["--cpu"]))
+        for run, extra in sweeps if cached else (sweeps[0], sweeps[2]):
+            for k in kernels:
+                k.launches = 0
+            quiet = io.StringIO() if run != "cuda" else sys.stdout
+            sweep_log = []
+            with SweepRecorder(kernels) as rec, contextlib.redirect_stdout(quiet):
+                t0 = time.perf_counter()
+                results = run_from_argv(name, predict + extra, log=sweep_log.append)
+                if run != "cpu":
+                    torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+            if (CLI_SWEEP_ROUTE in sweep_log) != (cached and run != "cuda_host"):
+                raise AssertionError(f"{name} sweep {run}: route {sweep_log}")
+            runs[run] = (results, rec.chunks, dt, {k.name: k.launches for k in kernels})
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     acc_events=True) as prof, contextlib.redirect_stdout(io.StringIO()):
+            run_from_argv(name, predict, log=lambda *a: None)
+            torch.cuda.synchronize()
+        events = card_events(prof)
+        sweep_busy = sum(e.self_device_time_total for e in events) / 1e3
+        results, chunks, t_sweep, sweep_counts = runs["cuda"]
+        per_bucket = {}
+        for c in chunks:
+            per_bucket[c["S"]] = per_bucket.get(c["S"], 0) + 1
+            if len(c["windows"]) != 1:
+                raise AssertionError(f"{name} sweep: a chunk of {len(c['windows'])} windows")
+            # K3 takes 8 queries against 256-512 keys (attention_kernel_eligible);
+            # the other buckets, and every other kernel, the plain route
+            launched = {k: n for k, n in c["launches"].items() if n}
+            if launched != ({k3.name: 1} if c["S"] in (256, 512) else {}):
+                raise AssertionError(f"{name} sweep: a {c['S']}-bucket chunk launched "
+                                     f"{launched}")
+        if not {128, 256, 512, 1024} <= set(per_bucket):
+            raise AssertionError(f"{name} sweep: chunks per bucket {per_bucket}")
+        cpu_res, cpu_chunks = runs["cpu"][0], runs["cpu"][1]
+        others = [cpu_chunks] + ([runs["cuda_host"][1]] if cached else [])
+        for other in others:
+            if [c["windows"] for c in other] != [c["windows"] for c in chunks]:
+                raise AssertionError(f"{name} sweep: the runs swept different windows")
+        keys = ("action", "duration") + (("l3",) if cached else ())
+        err = max(float(np.abs(a[k] - b[k]).max())
+                  for a, b in zip(chunks, cpu_chunks) for k in keys)
+        for c in chunks:
+            if not all(np.isfinite(c[k]).all() for k in keys):
+                raise AssertionError(f"{name} sweep: non-finite outputs in a {c['S']} chunk")
+        flipped, unexplained = decode_flips(chunks, cpu_chunks, err, n_class=n_class)
+        l3_flipped, l3_unexplained = l3_flips(chunks, cpu_chunks, err)
+        diff = [(k, abs(results[o][k] - cpu_res[o][k])) for o in cpu_res for k in cpu_res[o]]
+        moc_diff = max(d for k, d in diff if k.startswith("obs"))
+        l3_diff = max([d for k, d in diff if k == "l3_acc"], default=0.0)
+        n_windows = sum(len(c["windows"]) for c in chunks)
+        print(f"{name} sweep on the card [{card}]:\n{moc_table(results)}")
+        print(f"{name} sweep on the CPU:\n{moc_table(cpu_res)}")
+        host = ""
+        if cached:
+            cached_vs_host = max(float(np.abs(a[k] - b[k]).max())
+                                 for a, b in zip(chunks, runs["cuda_host"][1]) for k in keys)
+            host = (f"cached vs host max|diff| {cached_vs_host:.3e} (must be 0), host sweep "
+                    f"{runs['cuda_host'][2]:.2f} s; ")
+            if cached_vs_host != 0 or results != runs["cuda_host"][0]:
+                raise AssertionError(f"{name} sweep: the cached sweep differs from the host "
+                                     "sweep")
+        print(f"{name} sweep [{card}], eval_batch 1: {n_windows} windows, per bucket "
+              f"{dict(sorted(per_bucket.items()))}; K3 in every chunk of the 256 and 512 "
+              f"buckets; "
+              f"launches { {k: c for k, c in sweep_counts.items() if c} }; {host}card vs CPU "
+              f"max|logit, duration or L3 logit diff| {err:.3e} (tol {DARAI_E2E_TOL}), max|MoC "
+              f"diff| {moc_diff:.3e}, max|l3_acc diff| {l3_diff:.3e}, {flipped} of {n_windows} "
+              f"windows decoded differently ({unexplained} not explained), {l3_flipped} L3 "
+              f"frames flipped ({l3_unexplained} not explained); wall {t_sweep:.2f} s on the "
+              f"card, card busy {sweep_busy:.2f} ms in {sum(e.count for e in events)} launches "
+              f"(one profiled sweep), {runs['cpu'][2]:.2f} s on the CPU")
+        if cached and any("l3_acc" not in r for r in results.values()):
+            raise AssertionError(f"{name} sweep: no l3_acc in {results}")
+        if err > DARAI_E2E_TOL:
+            raise AssertionError(f"{name} sweep: the card's outputs disagree with the CPU's")
+        if (unexplained or l3_unexplained or (moc_diff > 0 and flipped == 0)
+                or (l3_diff > 0 and l3_flipped == 0)):
+            raise AssertionError(f"{name} sweep: the card's MoC or l3_acc differs from the "
+                                 "CPU's where the measured errors cannot explain it")
+
+        # one step of the 512 bucket: kernels against the plain route, and its parts
+        batch = one_batch(train, 256, rows=config.train.batch_size)
+        if batch["features"].shape[1] != 512:
+            raise AssertionError(f"{name}: the held batch fell in bucket "
+                                 f"{batch['features'].shape[1]}, not 512")
+        fp32_step_kernels_vs_plain(config, final, batch, n_class, kernels)
+        train_breakdown(config, final, train, n_class=n_class, label=f" ({name})",
+                        make_batch=lambda: one_batch(train, 256, rows=config.train.batch_size))
+        if cached:
+            validation_per_video(config, final, sources["val"], n_class)
+        return train_counts, sweep_counts
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3327,6 +3761,9 @@ def utkinects_device_cache(kernels, card, state_dict):
 
 
 def main() -> int:
+    import os
+    import shutil
+
     import torch
 
     if not torch.cuda.is_available():
@@ -3453,6 +3890,30 @@ def main() -> int:
         if few:   # S queries against S keys take the many-query bodies
             raise AssertionError(f"{name} launched the few-query bodies: {few}")
 
+    # the DARai family: darai and darai_gaze through the CLI, fp32 K3-K5
+    darai = {}
+    data_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), DARAI_DIR, "data")
+    shutil.rmtree(data_dir, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        root = write_darai_dataset(data_dir, DARAI_TRAIN, DARAI_VAL, gaze_rows=DARAI_GAZE_ROWS)
+        size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root)
+                   for f in fs)
+        print(f"darai: dataset of {len(DARAI_TRAIN)} + {len(DARAI_VAL)} videos "
+              f"({sum(map(len, DARAI_TRAIN))} + {sum(map(len, DARAI_VAL))} sequences of "
+              f"{min(min(v) for v in DARAI_TRAIN + DARAI_VAL)}-"
+              f"{max(max(v) for v in DARAI_TRAIN + DARAI_VAL)} frames, gaze of "
+              f"{DARAI_GAZE_ROWS[0]}-{DARAI_GAZE_ROWS[1]} rows), {size / 2**20:.0f} MiB written "
+              f"in {time.perf_counter() - t0:.2f} s")
+        for name in ("darai", "darai_gaze"):
+            darai[name] = darai_cli(kernels, card, name, root, att.KERNEL, att.DROPOUT_KERNEL,
+                                    att.BWD_KERNEL)
+            print(f"launches on the {name} CLI training path: "
+                  f"{ {k: c for k, c in darai[name][0].items() if c} }; sweep: "
+                  f"{ {k: c for k, c in darai[name][1].items() if c} }")
+    finally:
+        shutil.rmtree(data_dir, ignore_errors=True)
+
     rows = []
     utk = (counts, serving_counts)
     utkn = (n_counts, n_serving)
@@ -3495,6 +3956,10 @@ def main() -> int:
             "proposed_launches": s_prop[0][k.name], "proposed_sweep_launches": s_prop[1][k.name],
             "breakfast_launches": b_prop[0][k.name],
             "breakfast_sweep_launches": b_prop[1][k.name],
+            "darai_launches": darai["darai"][0][k.name],
+            "darai_sweep_launches": darai["darai"][1][k.name],
+            "darai_gaze_launches": darai["darai_gaze"][0][k.name],
+            "darai_gaze_sweep_launches": darai["darai_gaze"][1][k.name],
             "max_abs_err": err[0], "max_err": err[1],
             "shape": t["shape"], "ms": t["ms"], "kernel_ms": t["ms"],
             "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],

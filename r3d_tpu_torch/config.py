@@ -4,7 +4,8 @@ The port's own copy of ``r3d_tpu/config.py``: the same dataclasses with the
 same field names and defaults, so that a config built for one package reads
 the same in the other. ``CONFIGS`` holds the configs whose model and loop
 the port runs (``futr_fusion_bn`` with ``proposed_depth``, ``futr`` with
-``futr``, ``futr_proposed`` with ``proposed``), field for field as the JAX
+``futr``, ``futr_proposed`` with ``proposed``, ``futr_unsupervised`` with
+``unsupervised``, ``futr_gaze`` with ``futr``), field for field as the JAX
 package's. Fields that only the JAX package reads (mesh,
 device cache, compile knobs) are kept so that the field sets stay equal.
 """
@@ -284,6 +285,38 @@ CONFIGS = {
         train=TrainConfig(loop="proposed_depth", exclude_class_idx=47,
                           weighted_ce=True, device_cache=True),
         eval=EvalConfig(exclude_class_idx=16),
+    ),
+    # DARai's unsupervised curriculum (main_darai.py): multi-sequence
+    # {base}_{seq}.npy features, the L3 queries of mapping_l3_changed.txt,
+    # futr_unsupervised with self-attention queries, which attend across the
+    # batch (COMPAT #17), so validation and the sweep run one video at a time
+    # (main_darai.py:181); the focal L3 loss pads with 47 and excludes 48.
+    "darai": Config(
+        name="darai",
+        data=DataConfig(
+            dataset="darai", sample_rate=15, depth_shape=(224, 224),
+            train_obs_percs=(0.2, 0.3, 0.5),
+            query_mapping_file="mapping_l3_changed.txt",
+            depth_features_dir=None, multi_sequence=True,
+        ),
+        model=ModelConfig(model="futr_unsupervised", query_num=48),
+        train=TrainConfig(loop="unsupervised", exclude_class_idx=None, l3_pad_idx=47,
+                          l3_exclude_idx=48, device_cache=True, val_batch_size=1),
+        eval=EvalConfig(exclude_class_idx=16, eval_batch=1),   # make_gif.py:370
+    ),
+    # DARai's gaze-query model (main_darai.py:19,34: basedataset_darai_gaze and
+    # futr_unsupervised_multimodal): the gaze CSVs under gaze/ as the query
+    # stream of futr_gaze, which has no l3 output and so trains with the futr
+    # loop (COMPAT #32); fc_seg is n_class - 1 wide (multimodal.py:59).
+    "darai_gaze": Config(
+        name="darai_gaze",
+        data=DataConfig(
+            dataset="darai", sample_rate=15, train_obs_percs=(0.2, 0.3, 0.5),
+            depth_features_dir=None, multi_sequence=True, gaze_dir="gaze",
+        ),
+        model=ModelConfig(model="futr_gaze", seg_excludes_none=True),
+        train=TrainConfig(loop="futr", exclude_class_idx=None),
+        eval=EvalConfig(exclude_class_idx=16),   # make_gif.py:370
     ),
     # NTU RGB+D fusion (main_nturgbd.py): the utkinects model and loop with
     # 224x224 depth frames, 121 query slots and class 120 excluded in train

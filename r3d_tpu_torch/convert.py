@@ -6,7 +6,8 @@ how the tests hold the port's ``.grad`` against ``jax.grad``.
 The leaves may be numpy arrays or anything ``np.asarray`` reads. Rules,
 applied to each leaf by its path:
 
-- a Dense ``kernel`` [in, out] becomes ``weight`` [out, in];
+- a Dense ``kernel`` [in, out] becomes ``weight`` [out, in], a Conv
+  ``kernel`` [H, W, in, out] (HWIO) ``weight`` [out, in, H, W] (OIHW);
 - a LayerNorm or BatchNorm ``scale`` becomes ``weight``;
 - an ``nn.Embed``'s ``embedding`` [num, C] becomes ``nn.Embedding``'s
   ``weight`` [num, C], untransposed;
@@ -15,8 +16,9 @@ applied to each leaf by its path:
 - ``layer{i}`` becomes ``layers.{i}``;
 - BatchNorm statistics ``mean`` / ``var`` become ``running_mean`` /
   ``running_var``;
-- everything else (``pos_embedding`` [1, L, C], FUTR's raw ``query_embed``
-  parameter [Q, C], ``alpha`` [1, 1, C], biases) keeps its name and shape.
+- everything else (``pos_embedding`` [1, L, C], the raw ``query_embed``
+  parameter [Q, C] of FUTR and of ``temp2``, ``alpha`` [1, 1, C], biases)
+  keeps its name and shape.
 
 The rules are local to a leaf, so any subtree of a flax model converts to
 the ``state_dict`` of the port's module at the same place.
@@ -55,7 +57,7 @@ def _param(path: Tuple[str, ...], value: np.ndarray) -> Tuple[str, np.ndarray]:
         mods.append(m.group(1))
         leaf = m.group(2)
     if leaf == "kernel":
-        leaf, value = "weight", value.T
+        leaf, value = "weight", value.transpose(3, 2, 0, 1) if value.ndim == 4 else value.T
     elif leaf in ("scale", "embedding"):
         leaf = "weight"
     return ".".join(mods + [leaf]), value

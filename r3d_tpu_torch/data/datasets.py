@@ -13,12 +13,16 @@ reference's dataset files, its fork points ``DataConfig`` fields:
 - ``query_mapping_file``: an integer query stream (the query models' ids),
   with ``l1_relabel`` (50salads: L1 targets from the L2 gt, the L2 labels
   the queries) or ``label_from_filename`` (Breakfast: the activity in the
-  file name the target, the gt's fine labels the queries).
+  file name the target, the gt's fine labels the queries);
+- ``gaze_dir``: a float query stream, each video's gaze CSV
+  (``preprocess/tools.gaze_csv_to_query``, [N, 2]); a video without one is
+  left out, and an example's window is ``[:int(obs_perc * N)]`` of the raw
+  gaze, not strided by ``sample_rate`` (basedataset_darai_gaze.py:152-188).
 
 Videos parse their labels once into int arrays and stay cached in host
 memory. Not ported yet, and raising ``NotImplementedError`` naming their
-ROADMAP item: ``cache='native'`` (the C++ streaming loader, A9),
-``raw_frames`` (A15) and the gaze stream (A11.3).
+ROADMAP item: ``cache='native'`` (the C++ streaming loader, A9) and
+``raw_frames`` (A15).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import numpy as np
 from r3d_tpu_torch.config import DataConfig
 from r3d_tpu_torch.data.mapping import read_mapping_dict
 from r3d_tpu_torch.data.pipeline import BucketedLoader
+from r3d_tpu_torch.data.preprocess.tools import gaze_csv_to_query
 from r3d_tpu_torch.data.protocol import Example, make_example_from_indices
 from r3d_tpu_torch.data.salads50 import relabel_sequence
 
@@ -69,9 +74,6 @@ def _check_ported(cfg: DataConfig, cache: str) -> None:
     if cfg.raw_frames:
         raise NotImplementedError("raw_frames (jpg frames and Kinect XML depth) is not "
                                   "ported yet (ROADMAP queue A, item A15)")
-    if cfg.gaze_dir:
-        raise NotImplementedError("gaze_dir (the gaze query stream) is not ported yet "
-                                  "(ROADMAP queue A, item A11.3)")
 
 
 class VideoSource:
@@ -112,6 +114,13 @@ class VideoSource:
         base = vid_file.split(".")[0] if seq is None else f"{self._base(vid_file)}_{seq}"
         return os.path.join(self.features_path, base + ".npy")
 
+    def _gaze_file(self, vid_file: str) -> str:
+        # one gaze CSV per video: the reference resolves it from each gt
+        # row's image path, which encodes only (activity, video id), so its
+        # per-row existence check is per video (basedataset_darai_gaze.py:97-109)
+        return os.path.join(_dataset_dir(self.cfg), self.cfg.gaze_dir,
+                            vid_file.split(".")[0] + ".csv")
+
     def _depth_file(self, vid_file: str, seq: Optional[int] = None) -> str:
         if seq is None and not self.cfg.multi_sequence:
             return os.path.join(self.depth_path, vid_file.split(".")[0] + ".npy")
@@ -131,14 +140,19 @@ class VideoSource:
         (basedataset_darai_depth.py:44-82): walk {base}_{seq}.txt/.npy from
         seq=1 until a file is missing or the gt has <= sample_rate lines; a
         video with no (rewritten) depth file contributes nothing when a
-        depth stream is configured."""
+        depth stream is configured, and none without its gaze CSV when a
+        gaze stream is (the reference's rows of such a video all fail its
+        existence check, basedataset_darai_gaze.py:152-158)."""
+        def gaze_ok(vid_file: str) -> bool:
+            return self.cfg.gaze_dir is None or os.path.exists(self._gaze_file(vid_file))
+
         if not self.cfg.multi_sequence:
-            return [(v, None) for v in self.vid_list]
+            return [(v, None) for v in self.vid_list if gaze_ok(v.split("/")[-1])]
         out: List[Tuple[str, Optional[int]]] = []
         for vid in self.vid_list:
             vid_file = vid.split("/")[-1]
-            if self.depth_path is not None and not os.path.exists(
-                    self._depth_file(vid_file, seq=1)):
+            if not gaze_ok(vid_file) or (self.depth_path is not None and not os.path.exists(
+                    self._depth_file(vid_file, seq=1))):
                 continue
             seq = 1
             while True:
@@ -179,6 +193,10 @@ class VideoSource:
         query_idx = None
         if self.query_dict is not None and l3 is not None:
             query_idx = np.array([self.query_dict[q.replace(" ", "")] for q in l3], np.int64)
+        if self.cfg.gaze_dir is not None:
+            # the video's whole gaze stream, [N, 2] float (its N is not the
+            # frame count; basedataset_darai_gaze.py:169-188)
+            query_idx = gaze_csv_to_query(self._gaze_file(vid_file))
         meta = {"labels": labels, "label_idx": label_idx, "images": images, "l3": l3,
                 "query_idx": query_idx}
         self._meta[key] = meta
@@ -217,11 +235,19 @@ class VideoSource:
     def make_example(self, vid: str, obs_perc: float, sample_rate: int, n_query: int,
                      seq: Optional[int] = None) -> Example:
         v = self.load_video(vid, seq)
-        return make_example_from_indices(
+        gaze = self.cfg.gaze_dir is not None
+        ex = make_example_from_indices(
             v["features"], v["label_idx"], obs_perc, sample_rate, n_query,
             self.pad_idx, self.n_class, depth_features=v.get("depth"),
-            query_idx=v["query_idx"], vid_name=vid if seq is None else f"{vid}::{seq}",
+            query_idx=None if gaze else v["query_idx"],
+            vid_name=vid if seq is None else f"{vid}::{seq}",
             future_frames=self.cfg.future_frames)
+        if gaze:
+            # the observation window over the raw gaze stream, not strided
+            # (basedataset_darai_gaze.py:186-188)
+            g = v["query_idx"]
+            ex.query_label = g[:int(obs_perc * len(g))]
+        return ex
 
 
 def build_source(cfg: DataConfig, split_name: str,
@@ -243,7 +269,9 @@ def build_loader(source: VideoSource, cfg: DataConfig, batch_size: int, n_query:
     ``mode`` 'train' and 'val', else ``obs_perc`` alone; ``pin_memory`` for
     batches bound for the card. A source with a query vocabulary collates
     its query stream, padded with that vocabulary's pad id
-    ``len(query_dict)`` (the coarse ``pad_idx`` is a valid fine id)."""
+    ``len(query_dict)`` (the coarse ``pad_idx`` is a valid fine id); a gaze
+    source its gaze stream, zero-padded to ``gaze_pad_len`` rows (else the
+    largest bucket) with each row's ``query_len``."""
     obs = cfg.train_obs_percs if mode in ("train", "val") else (obs_perc,)
     table = [(u, o) for u in source.units() for o in obs]
 
@@ -256,5 +284,6 @@ def build_loader(source: VideoSource, cfg: DataConfig, batch_size: int, n_query:
         pad_idx=source.pad_idx, buckets=cfg.seq_buckets, n_query=n_query,
         with_depth=source.depth_path is not None, shuffle=shuffle, seed=seed,
         feature_dtype=cfg.feature_dtype, pin_memory=pin_memory,
-        with_query=source.query_dict is not None,
-        query_pad_idx=len(source.query_dict) if source.query_dict is not None else None)
+        with_query=source.query_dict is not None or cfg.gaze_dir is not None,
+        query_pad_idx=len(source.query_dict) if source.query_dict is not None else None,
+        query_pad_len=cfg.gaze_pad_len)

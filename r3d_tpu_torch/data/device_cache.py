@@ -231,9 +231,18 @@ def _cache_kwargs(source, cfg, n_query: int, max_bytes: int, device: Device) -> 
                 max_bytes=max_bytes, future_frames=cfg.future_frames, device=device)
 
 
+def _refuse_gaze(cfg) -> None:
+    # the gaze stream windows by its raw length, not by the frame window:
+    # the in-step gather has no gaze gather (r3d_tpu/data/device_cache.py:283)
+    if cfg.gaze_dir is not None:
+        raise ValueError("device cache does not support gaze query streams")
+
+
 def cache_from_source(source, cfg, n_query: int, max_bytes: int = MAX_BYTES,
                       device: Device = "cuda") -> DeviceCache:
-    """The cache of a ``datasets.VideoSource`` (flat or multi-sequence)."""
+    """The cache of a ``datasets.VideoSource`` (flat or multi-sequence);
+    a gaze stream raises ``ValueError`` (the host loader takes it)."""
+    _refuse_gaze(cfg)
     probe_footprint(source, cfg, max_bytes)
     return build_cache(videos_from_source(source, cfg),
                        **_cache_kwargs(source, cfg, n_query, max_bytes, device))
@@ -377,6 +386,7 @@ def hybrid_cache_from_source(source, cfg, n_query: int, max_bytes: int = MAX_BYT
     if policy not in ("ascending", "longest"):
         raise ValueError(f"unknown hybrid cache policy {policy!r} "
                          "(supported: 'ascending', 'longest')")
+    _refuse_gaze(cfg)
     if cfg.raw_frames or cfg.multi_sequence:
         # multi-sequence units slice a whole-video depth stack at load: the
         # header probe cannot see their windows

@@ -44,15 +44,19 @@ def query_fill(pad_idx: int, query_pad_idx: Optional[int]) -> int:
 def pad_batch(examples: List[Example], pad_idx: int, buckets: Sequence[int], n_query: int,
               with_depth: bool = False, feature_dtype: str = "float32",
               pin_memory: bool = False, with_query: bool = False,
-              query_pad_idx: Optional[int] = None) -> Dict[str, torch.Tensor]:
+              query_pad_idx: Optional[int] = None, query_pad_len: Optional[int] = None
+              ) -> Dict[str, torch.Tensor]:
     """Collate examples into fixed-shape CPU tensors: ``features`` [B, S, C]
     and ``depth_features`` [B, S, ...] in ``feature_dtype``, ``past_label``
     [B, S], ``trans_future_target`` [B, n_query] int32,
     ``trans_future_dur`` [B, n_query] fp32 and, ``with_query``,
     ``query_label`` [B, S] int32 padded with ``query_pad_idx`` (``pad_idx``
-    when None). ``pin_memory``: the float streams and the query stream in
-    page-locked memory, for an asynchronous copy to the card. A float
-    (gaze) query stream is ROADMAP item A11.3."""
+    when None). A float query stream (gaze, [N, 2]) pads with zeros to its
+    own length, ``query_pad_len`` rows (else the largest bucket; longer
+    streams are cut), in fp32, with ``query_len`` [B] int32 its true rows:
+    its length is not the frame bucket's (basedataset_darai_gaze.py:186).
+    ``pin_memory``: the float streams and the query stream in page-locked
+    memory, for an asynchronous copy to the card."""
     S = bucket_length(max(e.features.shape[0] for e in examples), buckets)
     B = len(examples)
     dtype = _DTYPES[feature_dtype]
@@ -65,14 +69,19 @@ def pad_batch(examples: List[Example], pad_idx: int, buckets: Sequence[int], n_q
     if with_depth:
         depth = torch.zeros((B, S) + examples[0].depth_features.shape[1:], dtype=dtype,
                             pin_memory=pin_memory)
-    query = None
+    query = query_len = None
+    query_float = False
     if with_query:
         q0 = np.asarray(examples[0].query_label)
-        if q0.ndim > 1 or not np.issubdtype(q0.dtype, np.integer):
-            raise NotImplementedError("float (gaze) query streams are not ported yet "
-                                      "(ROADMAP queue A, item A11.3)")
-        query = torch.full((B, S), query_fill(pad_idx, query_pad_idx),
-                           dtype=torch.int32, pin_memory=pin_memory)
+        query_float = q0.ndim > 1 or not np.issubdtype(q0.dtype, np.integer)
+        if query_float:
+            Sq = int(query_pad_len) if query_pad_len else buckets[-1]
+            query = torch.zeros((B, Sq) + q0.shape[1:], dtype=torch.float32,
+                                pin_memory=pin_memory)
+            query_len = np.zeros((B,), np.int32)
+        else:
+            query = torch.full((B, S), query_fill(pad_idx, query_pad_idx),
+                               dtype=torch.int32, pin_memory=pin_memory)
     for i, e in enumerate(examples):
         s = min(e.features.shape[0], S)
         features[i, :s] = torch.from_numpy(e.features[:s])
@@ -82,7 +91,11 @@ def pad_batch(examples: List[Example], pad_idx: int, buckets: Sequence[int], n_q
         dur[i, :q] = e.trans_future_dur[:q]
         if with_depth:
             depth[i, :s] = torch.from_numpy(e.depth_features[:s])
-        if with_query:
+        if query_float:
+            sq = min(len(e.query_label), query.shape[1])
+            query[i, :sq] = torch.from_numpy(np.asarray(e.query_label[:sq], np.float32))
+            query_len[i] = sq
+        elif with_query:
             query[i, :s] = torch.from_numpy(np.asarray(e.query_label[:s], np.int32))
     batch = {
         "features": features,
@@ -94,6 +107,8 @@ def pad_batch(examples: List[Example], pad_idx: int, buckets: Sequence[int], n_q
         batch["depth_features"] = depth
     if with_query:
         batch["query_label"] = query
+    if query_len is not None:
+        batch["query_len"] = torch.from_numpy(query_len)
     return batch
 
 
@@ -113,7 +128,8 @@ class BucketedLoader:
                  with_depth: bool = False, shuffle: bool = True, seed: int = 0,
                  example_lengths: Optional[Sequence[int]] = None,
                  feature_dtype: str = "float32", pin_memory: bool = False,
-                 with_query: bool = False, query_pad_idx: Optional[int] = None):
+                 with_query: bool = False, query_pad_idx: Optional[int] = None,
+                 query_pad_len: Optional[int] = None):
         self.num_examples = num_examples
         self.make_example_fn = make_example_fn
         self.batch_size = batch_size
@@ -128,6 +144,7 @@ class BucketedLoader:
         self.pin_memory = pin_memory
         self.with_query = with_query
         self.query_pad_idx = query_pad_idx
+        self.query_pad_len = query_pad_len
         self.epoch = 0
 
     def __len__(self) -> int:
@@ -156,7 +173,7 @@ class BucketedLoader:
                     q.put(pad_batch([self.make_example_fn(int(i)) for i in b], self.pad_idx,
                                     self.buckets, self.n_query, self.with_depth,
                                     self.feature_dtype, self.pin_memory, self.with_query,
-                                    self.query_pad_idx))
+                                    self.query_pad_idx, self.query_pad_len))
                 q.put(stop)
             except BaseException as e:  # surfaced in the consumer: a swallowed
                 q.put(e)                # error would silently cut the epoch short

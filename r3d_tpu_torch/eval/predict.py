@@ -27,7 +27,15 @@ A query model (``models.QUERY_MODELS``) gets each window's query ids,
 sliced and strided as the features are, with ``query_mod2`` re-encoded as
 segment parity (``alternating_query``; on the cached route on the card,
 over the gathered rows), and zeros past a window's rows; its ``l3`` output
-gives the L3 accuracy (``l3_acc``), as JAX's does.
+gives the L3 accuracy (``l3_acc``), as JAX's does. A gaze stream
+(``gaze_dir``) is windowed over its raw rows, ``[:int(obs_p * N)]``, and
+zero-padded to ``gaze_pad_len`` rows (else the largest bucket) with each
+row's ``query_len``.
+
+The self-attention source attends across the batch (COMPAT #17): its
+outputs depend on the chunk's other rows, filler rows included, so the
+reference's per-video protocol needs ``eval_batch=1`` (``darai`` sets it);
+any other batch size warns.
 
 Not ported yet, and raising ``NotImplementedError`` naming their ROADMAP
 item: ``mesh`` (A14) and ``gif_dir`` (A15).
@@ -38,6 +46,7 @@ from __future__ import annotations
 import collections
 import copy
 import os
+import warnings
 from typing import Callable, Dict, List, Mapping, Optional, Sequence, Union
 
 import numpy as np
@@ -110,6 +119,11 @@ class Predictor:
         self.is_fusion = is_fusion_model(config.model.model)
         self.needs_query = model_needs_query(config.model.model)
         self.in_dtype = DTYPES[config.data.feature_dtype]
+        if getattr(model, "query_source", None) == "self_attention" and eval_batch != 1:
+            warnings.warn(
+                f"model {config.model.model!r} attends across the batch (COMPAT #17): "
+                f"eval_batch={eval_batch} makes the sweep batch-composition-dependent; the "
+                "reference protocol is per-video (eval_batch=1).")
 
     def _modules(self, variables: Union[Variables, Sequence[Variables]]) -> List[nn.Module]:
         """The eval-mode modules on the device for ``variables`` (one, or a
@@ -147,7 +161,12 @@ class Predictor:
                     "real_s": real_s, "feats": feats}
             if "depth" in v:
                 item["depth"] = v["depth"][:past_len][::sample_rate]
-            if self.needs_query and v.get("query_idx") is not None:
+            if self.needs_query and cfg.data.gaze_dir is not None:
+                # the raw gaze rows of the window, not strided
+                # (basedataset_darai_gaze.py:186-188)
+                g = v["query_idx"]
+                item["query"] = g[:int(obs_p * len(g))]
+            elif self.needs_query and v.get("query_idx") is not None:
                 q = np.asarray(v["query_idx"][:past_len][::sample_rate])
                 item["query"] = alternating_query(q) if cfg.eval.query_mod2 else q
             groups[bucket_length(real_s, cfg.data.seq_buckets)].append(item)
@@ -165,11 +184,16 @@ class Predictor:
                             pin_memory=pin)
         mask = torch.ones((B, S), dtype=torch.bool)
         mask[:, 0] = False
-        depth = query = None
+        depth = query = query_len = None
+        gaze = self.config.data.gaze_dir is not None
         if self.is_fusion:
             depth = torch.zeros((B, S) + items[0]["depth"].shape[1:], dtype=self.in_dtype,
                                 pin_memory=pin)
-        if self.needs_query:
+        if self.needs_query and gaze:
+            Sq = self.config.data.gaze_pad_len or self.config.data.seq_buckets[-1]
+            query = torch.zeros((B, Sq, 2), dtype=torch.float32, pin_memory=pin)
+            query_len = torch.zeros((B,), dtype=torch.int32)
+        elif self.needs_query:
             query = torch.zeros((B, S), dtype=torch.int32, pin_memory=pin)
         for i, it in enumerate(items):
             r = it["real_s"]
@@ -178,15 +202,20 @@ class Predictor:
             mask[i, r:] = True
             if depth is not None:
                 depth[i, :r] = torch.from_numpy(np.ascontiguousarray(it["depth"]))
-            if query is not None:
+            if query_len is not None:
+                sq = min(len(it["query"]), query.shape[1])
+                query[i, :sq] = torch.from_numpy(np.asarray(it["query"][:sq], np.float32))
+                query_len[i] = sq
+            elif query is not None:
                 query[i, :r] = torch.from_numpy(np.asarray(it["query"][:r], np.int32))
         if self.is_fusion:
             args = (feats, depth, mask)
         elif self.needs_query:
-            args = (feats, query, mask)
+            args = (feats, query, mask, query_len)
         else:
             args = (feats, mask)
-        return self._run(modules, tuple(t.to(self.device, non_blocking=True) for t in args), n)
+        return self._run(modules, tuple(None if t is None else t.to(self.device, non_blocking=True)
+                                        for t in args), n)
 
     def _forward_batch_cached(self, modules: List[nn.Module], items: List[Dict], S: int,
                               data: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:

@@ -1,1 +1,1 @@
-"""Losses of the ``proposed_depth`` loop (counterpart of ``r3d_tpu/losses``)."""
+"""Losses of the port's loops (counterpart of ``r3d_tpu/losses``)."""

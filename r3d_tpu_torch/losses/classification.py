@@ -7,7 +7,10 @@ Counterpart of ``r3d_tpu/losses/classification.py``, with its quirks kept:
   a valid entry is argmax-predicted as the pad class;
 - ``weighted_cross_entropy_loss`` (``cal_weighted_loss``): each sequence's
   entries weigh 10 when its first future label differs from its last
-  observed label, else 1; mean over all entries; no pad penalty.
+  observed label, else 1; mean over all entries; no pad penalty;
+- ``focal_loss``: alpha = 1, gamma = 2 on the CE, the focal weight from
+  the true class's probability at the raw gold, pad entries included
+  (their CE is 0).
 """
 
 from __future__ import annotations
@@ -62,3 +65,22 @@ def accuracy_counts(logits, gold, pad_idx: int, exclude_class_idx: Optional[int]
     """(n_correct, n_valid) as in ``cal_performance``."""
     mask = _valid_mask(gold, pad_idx, exclude_class_idx)
     return ((logits.argmax(-1) == gold) & mask).sum(), mask.sum()
+
+
+def focal_loss(logits, gold, pad_idx: int, exclude_class_idx: Optional[int] = None,
+               alpha: float = 1.0, gamma: float = 2.0, penalty_weight: float = 0.0
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``focal_loss`` (utils.py:493-540): the CE weighted by alpha (1 - p)^gamma
+    of the true class, mean over all entries -> (loss, correct mask). The
+    weight reads the raw gold, pad entries too (their CE is 0); its gather
+    index is clipped to the logits' width, since the pad and exclude ids may
+    lie past it (``darai``: 47 and 48 against 48 logits)."""
+    mask = _valid_mask(gold, pad_idx, exclude_class_idx)
+    ce = _masked_ce(logits, gold, mask)
+    probs = torch.softmax(logits, dim=-1)
+    idx = gold.clamp(0, logits.shape[-1] - 1)
+    true_probs = torch.gather(probs, -1, idx[..., None])[..., 0]
+    pred = logits.argmax(-1)
+    penalty = penalty_weight * ((pred == pad_idx) & mask).to(logits.dtype)
+    loss = (alpha * (1.0 - true_probs) ** gamma * ce + penalty).mean()
+    return loss, (pred == gold) & mask

@@ -1,9 +1,10 @@
 """Model registry of the port, and the seeded init that mirrors flax's.
 
-Ported: ``futr_fusion_bn`` (fp32 compute), ``futr``, ``futr_baseline`` and
-``futr_proposed`` (fp32 or bf16 compute). The other models of
-``r3d_tpu/models/__init__.py`` raise ``NotImplementedError`` naming their
-ROADMAP item.
+Ported: ``futr_fusion_bn`` (fp32 compute), ``futr``, ``futr_baseline``,
+``futr_proposed``, ``futr_unsupervised``, ``futr_unsupervised_temp2``,
+``futr_unsupervised_temp3`` and ``futr_gaze`` (fp32 or bf16 compute). The
+other models of ``r3d_tpu/models/__init__.py`` raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -34,8 +35,8 @@ def is_fusion_model(name: str) -> bool:
     return name in _FUSION_MODELS
 
 
-# Models whose forward takes (features, query, src_pad_mask): the
-# FUTRUnsupervised family. The trainer and the sweep build their inputs
+# Models whose forward takes (features, query, src_pad_mask, query_len):
+# the FUTRUnsupervised family. The trainer and the sweep build their inputs
 # from this list.
 QUERY_MODELS = (
     "futr_unsupervised",
@@ -51,6 +52,18 @@ def model_needs_query(name: str) -> bool:
     return name in QUERY_MODELS
 
 
+# the query source of each ported model of the family
+# (r3d_tpu/models/__init__.py:52-67); the depth source raises naming A11.4
+_QUERY_SOURCES = {
+    "futr_unsupervised_depth": "depth",
+    "futr_proposed": "gt",
+    "futr_unsupervised": "self_attention",
+    "futr_unsupervised_temp2": "self_attention",
+    "futr_unsupervised_temp3": "self_attention",
+    "futr_gaze": "gaze",
+}
+
+
 def build_model(cfg: ModelConfig, n_class: int,
                 depth_shape: Sequence[int] = (160, 120)) -> nn.Module:
     """The module for ``cfg.model``; ``depth_shape`` is the per-frame shape
@@ -62,8 +75,9 @@ def build_model(cfg: ModelConfig, n_class: int,
     if cfg.model in ("futr", "futr_baseline"):
         # model/futr_baseline.py: futr + output['supcon'] = decoder output
         return FUTR(cfg, n_class, emit_supcon=cfg.model == "futr_baseline")
-    if cfg.model == "futr_proposed":
-        return FUTRUnsupervised(cfg, n_class, query_source="gt")
+    if cfg.model in _QUERY_SOURCES:
+        variant = cfg.model[len("futr_unsupervised_"):] if "_temp" in cfg.model else ""
+        return FUTRUnsupervised(cfg, n_class, _QUERY_SOURCES[cfg.model], variant)
     if cfg.compute_dtype != "float32":
         raise NotImplementedError(
             "the fusion models run in float32 only (no config asks for another "
@@ -80,14 +94,24 @@ def _xavier_(t: torch.Tensor, fan_in: int, fan_out: int, gen: torch.Generator):
         t.uniform_(-bound, bound, generator=gen)
 
 
+def _lecun_normal_(t: torch.Tensor, fan_in: int, gen: torch.Generator):
+    """flax's default kernel init: a normal of variance 1/fan_in truncated
+    at two standard deviations (the std corrected for the truncation)."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    with torch.no_grad():
+        nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std, generator=gen)
+
+
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Random weights drawn as the flax init draws them (not the same
     numbers): xavier-uniform Linear weights and pos_embedding, zero biases,
     LayerNorm and BatchNorm at ones/zeros with unit running variance,
-    FUTR's query_embed ~ N(0, 1), alpha ~ U(0, 1), and an Embedding's table
+    FUTR's query_embed ~ N(0, 1), alpha ~ U(0, 1), an Embedding's table
     xavier-uniform with fan_in its rows and fan_out its width (flax's
-    ``Embed(embedding_init=xavier)``)."""
+    ``Embed(embedding_init=xavier)``), the raw ``query_embed`` of ``temp2``
+    xavier-uniform, and a Conv2d's kernel as flax's ``Conv`` default
+    (truncated lecun normal) with a zero bias."""
     for m in model.modules():
         if isinstance(m, nn.Linear):
             _xavier_(m.weight, m.in_features, m.out_features, generator)
@@ -99,6 +123,9 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
             if isinstance(m, TorchBatchNorm):
                 m.running_mean.zero_()
                 m.running_var.fill_(1.0)
+        elif isinstance(m, nn.Conv2d):
+            _lecun_normal_(m.weight, m.weight[0].numel(), generator)
+            m.bias.zero_()
         elif isinstance(m, nn.Embedding):
             _xavier_(m.weight, m.num_embeddings, m.embedding_dim, generator)
         elif isinstance(m, CMFuserBN):
@@ -107,6 +134,9 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
             if hasattr(m, "pos_embedding"):
                 _, L, C = m.pos_embedding.shape
                 _xavier_(m.pos_embedding, L, C, generator)
-            if isinstance(m.query_embed, nn.Parameter):
-                m.query_embed.normal_(0.0, 1.0, generator=generator)
+            qe = getattr(m, "query_embed", None)
+            if isinstance(qe, nn.Parameter) and isinstance(m, FUTRUnsupervised):
+                _xavier_(qe, *qe.shape, generator)   # temp2's query_embed
+            elif isinstance(qe, nn.Parameter):
+                qe.normal_(0.0, 1.0, generator=generator)
     return model

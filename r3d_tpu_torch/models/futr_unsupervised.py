@@ -1,25 +1,41 @@
-"""The query-conditioned FUTR: ``futr_proposed``, queries from the ground
-truth.
+"""The query-conditioned FUTR family: ``futr_proposed``, ``futr_unsupervised``
+(with its ``temp2`` and ``temp3`` variants) and ``futr_gaze``.
 
-Counterpart of ``FUTRUnsupervised`` in ``r3d_tpu/models/futr_unsupervised.py``
-with ``query_source="gt"`` (the reference's ``model/futr_proposed.py``):
+Counterpart of ``FUTRUnsupervised`` and ``GazeCNN`` in
+``r3d_tpu/models/futr_unsupervised.py``. Every source embeds the features
+with ``InputEmbed``, adds the learned ``pos_embedding`` to the decoder's keys
+and values, runs the decoder (encoder bypassed) and reads ``Heads`` off its
+rows and the embedded stream. The sources differ in their queries:
 
-- the features go through ``InputEmbed``; the learned ``pos_embedding`` is
-  added to the decoder's keys and values (no sinusoidal encoding and no
-  dropout on the source in this mode);
-- the S queries are ``query_embed`` (an ``nn.Embedding`` of ``query_num``
-  rows) of the query ids plus the sinusoidal encoding;
-- the decoder runs all S queries against the S keys, with the pad mask on
-  both sides, and only its output pools down to ``n_query`` rows: each
-  row's bins follow its true length when a mask is given
-  (``masked_adaptive_avg_pool1d``), else the plain pool runs over every
-  row, pads included (validation and serving give no mask);
-- ``Heads`` read the pooled rows and the embedded stream; ``l3`` is
-  ``fc_l3`` of the queries in fp32 and ``supcon`` the queries themselves,
-  in the compute dtype.
+- ``query_source="gt"`` (``futr_proposed``, the reference's
+  ``model/futr_proposed.py``): ``query_embed`` (an ``nn.Embedding`` of
+  ``query_num`` rows) of the query ids plus the sinusoidal encoding, looked
+  up in fp32 and cast; the decoder runs all S queries against the S keys
+  with the pad mask on both sides, and only its output pools down to
+  ``n_query`` rows, each row's bins following its true length when a mask
+  is given (``masked_adaptive_avg_pool1d``), else over every row;
+- ``query_source="self_attention"`` (``futr_unsupervised``,
+  ``model/futr_unsupervised.py:124-137``): the source gets the sinusoidal
+  encoding and a hard-coded ``Dropout(0.1)``, which ``cfg.dropout`` does not
+  reach; ``l3_attention`` runs on the (S, B, C) stream, so it attends ACROSS
+  THE BATCH at each step (COMPAT #17: the reference's ``batch_first=True``
+  fed (T, B, C) tensors); the queries are its output plus the encoding,
+  pooled to ``n_query`` rows (``adaptive_avg_pool1d``, COMPAT #18) before
+  the decoder. Variants: ``temp2`` adds the L3 stream into the source, runs
+  the decoder on a learned ``query_embed`` parameter of ``n_query`` rows
+  and reads the seg head off the source before the add; ``temp3`` is the
+  default without ``supcon``;
+- ``query_source="gaze"`` (``futr_gaze``,
+  ``model/futr_unsupervised_multimodal.py``): the normalised gaze is
+  truncated (``query.long()``), ``GazeCNN`` turns it into 8 identical rows,
+  the L2-normalised encoding of the first 8 positions is added, and the
+  decoder output over those 8 queries pools to ``n_query``; no ``l3``.
 
-The other query sources (``self_attention``, ``gaze``, ``depth``) and the
-``temp2``/``temp3`` variants are ROADMAP item A11.
+Outputs: ``action``, ``duration``, ``seg`` as ``Heads`` gives them; ``l3``
+[B, S, query_num] (``fc_l3`` of the query stream, fp32) but for gaze;
+``supcon`` (the query stream, in the compute dtype) but for ``temp2`` and
+``temp3``. ``query_source="depth"`` and JAX's ``attend_over_batch=False``
+(per-sequence L3 attention) are ROADMAP item A11.4.
 """
 
 from __future__ import annotations
@@ -27,11 +43,14 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from r3d_tpu_torch.config import ModelConfig
 from r3d_tpu_torch.models.futr import Heads, InputEmbed, compute_dtype
 from r3d_tpu_torch.models.layers import (
+    Dropout,
+    MultiheadAttention,
     adaptive_avg_pool1d,
     linear_in,
     masked_adaptive_avg_pool1d,
@@ -39,52 +58,132 @@ from r3d_tpu_torch.models.layers import (
 )
 from r3d_tpu_torch.models.transformer import FUTRTransformer
 
+SOURCES = ("gt", "self_attention", "gaze")
+GAZE_STEPS = 8   # GazeCNN's output rows: its constructor default, never overridden
+SRC_DROPOUT = 0.1   # the hard-coded dropout on the self-attention source
+
+
+class GazeCNN(nn.Module):
+    """Gaze (x, y) series [B, N, 2] -> [B, 8, C] (multimodal.py GazeCNN):
+    three 3x3 convs (32, 64, C channels, ReLU) over the [B, 2, N, 1] map,
+    whose width-1 axis sees only the kernels' middle column, then the mean
+    over the N rows repeated 8 times (the reference pools the width-1 axis
+    up to 8). With ``lengths`` the rows past each row's length are zeroed
+    after every conv and the mean divides by ``max(length, 1)``, so a
+    padded batch gives each row's unpadded forward (COMPAT #31)."""
+
+    def __init__(self, hidden_dim: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.conv1 = nn.Conv2d(2, 32, 3, padding=1)
+        self.conv2 = nn.Conv2d(32, 64, 3, padding=1)
+        self.conv3 = nn.Conv2d(64, hidden_dim, 3, padding=1)
+
+    def forward(self, gaze: torch.Tensor, lengths: Optional[torch.Tensor] = None):
+        x = gaze.to(self.dtype).transpose(1, 2)[..., None]          # [B, 2, N, 1]
+        row_ok = None
+        if lengths is not None:
+            N = x.shape[2]
+            row_ok = (torch.arange(N, device=x.device)[None, :]
+                      < lengths[:, None])[:, None, :, None].to(x.dtype)
+            x = x * row_ok
+        for conv in (self.conv1, self.conv2, self.conv3):
+            x = torch.relu(F.conv2d(x, conv.weight.to(self.dtype), conv.bias.to(self.dtype),
+                                    padding=1))
+            if row_ok is not None:
+                # the next conv sees the zero boundary of the unpadded run
+                x = x * row_ok
+        if row_ok is None:
+            pooled = x.mean(dim=(2, 3))
+        else:
+            pooled = x.sum(dim=(2, 3)) / lengths.clamp_min(1).to(x.dtype)[:, None]
+        return pooled[:, None, :].expand(-1, GAZE_STEPS, -1)
+
 
 class FUTRUnsupervised(nn.Module):
-    """``forward(features [B, S, input_dim], query [B, S] int ids,
-    src_pad_mask [B, S] bool (True = pad) or None)`` -> ``action``,
-    ``duration``, ``seg``, ``l3`` [B, S, query_num] and ``supcon`` [B, S, C]."""
+    """``forward(features [B, S, input_dim], query, src_pad_mask [B, S] bool
+    (True = pad) or None, query_len [B] or None)``: ``query`` is the [B, S]
+    query ids (gt), the [B, N, 2] gaze stream (gaze; ``query_len`` its true
+    rows) or unused (self_attention)."""
 
     def __init__(self, cfg: ModelConfig, n_class: int, query_source: str = "gt",
                  variant: str = ""):
         super().__init__()
-        if query_source != "gt" or variant:
+        if query_source not in SOURCES:
             raise NotImplementedError(
-                f"FUTRUnsupervised with query_source={query_source!r} variant={variant!r} is "
-                "not ported yet (ROADMAP queue A, item A11)")
+                f"FUTRUnsupervised with query_source={query_source!r} is not ported yet "
+                "(ROADMAP queue A, item A11.4)")
+        if variant not in ("", "temp2", "temp3") or (variant and query_source != "self_attention"):
+            raise ValueError(f"variant {variant!r} of query_source {query_source!r}")
         self.cfg = cfg
+        self.query_source = query_source
+        self.variant = variant
         C = cfg.hidden_dim
+        dt = compute_dtype(cfg)
         self.embed = InputEmbed(cfg)
         if cfg.pos_emb:
             self.pos_embedding = nn.Parameter(torch.zeros(1, cfg.max_pos_len, C))
-        self.query_embed = nn.Embedding(cfg.query_num, C)
+        if query_source == "gt":
+            self.query_embed = nn.Embedding(cfg.query_num, C)
+        elif query_source == "gaze":
+            self.gaze_cnn = GazeCNN(C, dt)
+        else:
+            self.src_drop = Dropout(SRC_DROPOUT)
+            self.l3_attention = MultiheadAttention(C, cfg.n_head, 0.0, dt)
+            if variant == "temp2":
+                self.query_embed = nn.Parameter(torch.zeros(cfg.n_query, C))
         self.transformer = FUTRTransformer(C, cfg.n_head, cfg.n_decoder_layers, 4 * C,
                                            use_encoder=cfg.use_encoder, dropout=cfg.dropout,
-                                           dtype=compute_dtype(cfg))
+                                           dtype=dt)
         self.heads = Heads(cfg, n_class)
-        self.fc_l3 = nn.Linear(C, cfg.query_num)
+        if query_source != "gaze":
+            self.fc_l3 = nn.Linear(C, cfg.query_num)
         self.register_buffer("pe", sinusoidal_positional_encoding(cfg.max_pos_len, C),
                              persistent=False)
 
-    def forward(self, features, query, src_pad_mask: Optional[torch.Tensor] = None
-                ) -> Dict[str, torch.Tensor]:
+    def forward(self, features, query=None, src_pad_mask: Optional[torch.Tensor] = None,
+                query_len: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         cfg = self.cfg
         B, S = features.shape[:2]
         dt = compute_dtype(cfg)
         src = self.embed(features)
+        pe = self.pe[:S].to(dt)
+        if self.query_source == "self_attention":
+            # futr_unsupervised.py:106: the encoding and its dropout on the source
+            src = self.src_drop(src + pe)
         pos = None
         if cfg.pos_emb:
             pos = self.pos_embedding[:, :S].to(src.dtype).expand(B, S, cfg.hidden_dim)
-        # the lookup in fp32, then the cast: the values of flax's bf16 table
-        # lookup, with the backward's sums over S rows in fp32 (an
-        # embedding backward, not an indexing scatter)
-        action_query = self.query_embed(query.long()).to(dt) + self.pe[:S].to(dt)
-        memory, hs = self.transformer(src, pos, action_query, src_pad_mask, src_pad_mask)
-        if src_pad_mask is not None:
-            hs = masked_adaptive_avg_pool1d(hs, cfg.n_query, (~src_pad_mask).sum(1))
+        seg_stream = None   # temp2: the seg head reads the source before the add
+        if self.query_source == "gt":
+            # the lookup in fp32, then the cast: the values of flax's table
+            # lookup, with the backward's sums over S rows in fp32
+            action_query = self.query_embed(query.long()).to(dt) + pe
+            query_stream = action_query
+        elif self.query_source == "gaze":
+            q = self.gaze_cnn(torch.trunc(query.float()), query_len)
+            pe_q = self.pe[:GAZE_STEPS]
+            pe_q = pe_q / pe_q.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+            action_query = query_stream = q + pe_q.to(q.dtype)
         else:
+            src_t = src.transpose(0, 1)   # (S, B, C): attention across the batch
+            query_stream = self.l3_attention(src_t, src_t, src_t).transpose(0, 1) + pe
+            if self.variant == "temp2":
+                seg_stream = src
+                src = src + query_stream
+                action_query = self.query_embed[None].to(dt).expand(B, -1, -1)
+            else:
+                action_query = adaptive_avg_pool1d(query_stream, cfg.n_query)
+        tgt_mask = src_pad_mask if self.query_source == "gt" else None
+        memory, hs = self.transformer(src, pos, action_query, src_pad_mask, tgt_mask)
+        if self.query_source == "gt" and src_pad_mask is not None:
+            hs = masked_adaptive_avg_pool1d(hs, cfg.n_query, (~src_pad_mask).sum(1))
+        elif self.query_source in ("gt", "gaze"):
+            # gaze: the 8 decoder rows pool to n_query (identity at 8)
             hs = adaptive_avg_pool1d(hs, cfg.n_query)
-        out = self.heads(hs, memory)
-        out["l3"] = linear_in(action_query, self.fc_l3, dt).float()
-        out["supcon"] = action_query
+        out = self.heads(hs, memory if seg_stream is None else seg_stream)
+        if self.query_source != "gaze":
+            out["l3"] = linear_in(query_stream, self.fc_l3, dt).float()
+        if self.variant not in ("temp2", "temp3"):
+            out["supcon"] = query_stream
         return out

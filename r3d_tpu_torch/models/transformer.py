@@ -2,8 +2,9 @@
 
 Counterpart of ``r3d_tpu/models/transformer.py``. Every reference entry
 point runs with the encoder bypassed (``memory = src``), and so does the
-port: ``use_encoder=True`` and the L3 query generation (``query_pos=None``)
-are not ported yet (ROADMAP queue A).
+port: ``use_encoder=True`` and the L3 query generation (``query_pos=None``,
+``r3d_tpu/models/transformer.py:251-262``, which no model of the JAX
+package reaches) are not ported yet (ROADMAP queue A, item A11.4).
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ class FUTRTransformer(nn.Module):
         super().__init__()
         if use_encoder:
             raise NotImplementedError(
-                "use_encoder=True is not ported yet (ROADMAP queue A, item A11)")
+                "use_encoder=True is not ported yet (ROADMAP queue A, item A11.4)")
         self.decoder = TransformerDecoder(dim, n_head, n_decoder_layers, ffn_dim, dropout,
                                           dtype)
 
@@ -54,7 +55,8 @@ class FUTRTransformer(nn.Module):
         rows out of the decoder self-attention."""
         if query_pos is None:
             raise NotImplementedError(
-                "L3 query generation is not ported yet (ROADMAP queue A, item A11)")
+                "L3 query generation (query_pos=None) is not ported yet "
+                "(ROADMAP queue A, item A11.4)")
         memory = src
         hs = self.decoder(query_pos.new_zeros(query_pos.shape), memory, pos,
                           query_pos, src_key_padding_mask, tgt_key_padding_mask)

@@ -1,7 +1,7 @@
-"""The ``proposed_depth``, ``futr`` and ``proposed`` training loops on one
-card.
+"""The ``proposed_depth``, ``futr``, ``proposed`` and ``unsupervised``
+training loops on one card.
 
-Counterpart of those three loops of ``r3d_tpu/train/loop.py``:
+Counterpart of those four loops of ``r3d_tpu/train/loop.py``:
 
     trainer = Trainer(config, n_class)                 # CUDA by default
     state = trainer.init_state(len(train_loader), state_dict)
@@ -12,19 +12,36 @@ weighted and excluding a class where the config says so, as
 ``proposed_depth``'s does; duration MSE; segmentation CE), backward and an
 AdamW update, with the BatchNorm running statistics of the fusion models
 updated in place by the forward. The fusion models take (features, depth,
-mask), the query models (``models.QUERY_MODELS``) (features, query ids,
-mask), the others (features, mask). ``proposed`` is ``futr``'s losses
-under the two-metric gate; the query models' ``l3`` output takes no loss
-there. Epoch 0 trains in train mode (batch-statistics BN, dropout); with
-sticky eval (COMPAT #37: ``futr`` and ``proposed_depth``, not
+mask), the query models (``models.QUERY_MODELS``) (features, query,
+mask, query_len: the gaze stream's true rows, else None), the others
+(features, mask). ``proposed`` is ``futr``'s losses under the two-metric
+gate; the query models' ``l3`` output takes no loss there.
+
+``unsupervised`` (``darai``; train_unsupervised.py:294-362) is the
+curriculum composite: the seg CE and the weighted class CE without an
+exclude class, the duration MSE, the focal L3 loss (pad and exclude ids
+``l3_pad_idx``, ``l3_exclude_idx``) and the temporal cluster loss over the
+``l3`` logits by segment ids of the query labels (``seg_ids``, on the host
+for ``fit``, on the device for ``fit_cached``); the correctness gate weighs
+each frame 1 where both its L3 and its seg prediction are right, else 5,
+and with ``wbar`` their mean the total is ``(1 - 1/wbar) * ((1 - wf) *
+l3 + wf * cluster) + (1/wbar) * (cls + dur + seg)``, ``wf`` the triangular
+warmup over ``warmup_loss_epochs``; validation sums l3 + seg + cls.
+``supcon_weight > 0`` adds the SupCon term over the ``supcon`` stream.
+
+Epoch 0 trains in train mode (batch-statistics BN, dropout); with sticky
+eval (COMPAT #37: ``futr``, ``proposed_depth`` and ``unsupervised``, not
 ``proposed``, whose reference loop restores train mode after every
 validation) epochs >= 1 train the module-eval forward with gradients on
-(``model.eval()``: running-statistics BN, no dropout), which is exactly the
-JAX package's ``_model_for(frozen=True)``. Validation runs the module-eval
-forward without the pad mask. Metrics accumulate on the device and are read
-once per epoch; the best gate (``proposed_depth`` and ``proposed``: either
-of two metrics; ``futr``: the class accuracy alone) and the log lines are
-the JAX package's.
+(``model.eval()``: running-statistics BN, no dropout), the JAX package's
+``_model_for(frozen=True)``, with one difference: JAX's frozen twin zeroes
+only the configured dropout rates, so the self-attention source's
+hard-coded ``Dropout(0.1)`` stays on there, where ``model.eval()`` turns
+it off as the reference's ``validate()`` does (ROADMAP C). Validation runs
+the module-eval forward without the pad mask. Metrics accumulate on the
+device and are read once per epoch; the best gate (``proposed_depth``,
+``proposed`` and ``unsupervised``: either of two metrics; ``futr``: the
+class accuracy alone) and the log lines are the JAX package's.
 
 ``fit`` takes JAX's ``checkpointer`` (``train/checkpoint.py``: the best
 gate saves ``seed_{s}_checkpoint{e}`` and ``seed_{s}_best``, every epoch
@@ -44,8 +61,8 @@ loader's batch order. Both seed and draw dropout as ``fit`` does, so
 ``fit_cached == fit`` and ``fit_hybrid == fit``.
 
 Not ported yet, and raising ``NotImplementedError`` naming their ROADMAP
-item: other loops (A12) and ``rng_impl`` (A10). Meshes (A14) have no
-argument.
+item: the ``tcn`` and ``unimodal`` loops (A11.4, A12) and ``rng_impl``
+(A10). Meshes (A14) have no argument.
 """
 
 from __future__ import annotations
@@ -62,9 +79,16 @@ from r3d_tpu_torch.data.pipeline import bucket_length, pad_batch, query_fill
 from r3d_tpu_torch.losses.classification import (
     accuracy_counts,
     cross_entropy_loss,
+    focal_loss,
     weighted_cross_entropy_loss,
 )
 from r3d_tpu_torch.losses.duration import duration_loss
+from r3d_tpu_torch.losses.supcon import supcon_loss
+from r3d_tpu_torch.losses.temporal import (
+    segment_ids_from_labels,
+    segment_ids_from_labels_torch,
+    temporal_cluster_loss,
+)
 from r3d_tpu_torch.models import build_model, init_weights, is_fusion_model, model_needs_query
 from r3d_tpu_torch.models.layers import set_generators
 from r3d_tpu_torch.ops.effective_rank import effective_rank, effective_rank_loss
@@ -72,10 +96,18 @@ from r3d_tpu_torch.serving import resolve_device
 from r3d_tpu_torch.train.optim import make_optimizer
 from r3d_tpu_torch.train.state import TrainState
 
-_FLOAT_STREAMS = ("features", "depth_features", "trans_future_dur")
 INIT_SEED = 0  # the seeded init without a state_dict
-LOOPS = ("proposed_depth", "futr", "proposed")
+LOOPS = ("proposed_depth", "futr", "proposed", "unsupervised")
 STICKY_LOOPS = ("futr", "proposed_depth", "unsupervised", "tcn")   # r3d_tpu/train/loop.py:86-91
+
+
+def triangular_warmup(epoch: int, start: int, peak: int, end: int) -> float:
+    """train_unsupervised.get_warmup_factor:10-32: 0 -> 1 over [start,
+    peak], 1 -> 0 over [peak, end], 0 outside; in fp32, as JAX computes it."""
+    e = np.float32(epoch)
+    up = (e - np.float32(start)) / np.float32(max(peak - start, 1))
+    down = np.float32(1.0) - (e - np.float32(peak)) / np.float32(max(end - peak, 1))
+    return float(np.clip(up if e < peak else down, np.float32(0.0), np.float32(1.0)))
 
 
 def last_non_padding_labels(past_label: torch.Tensor, pad_idx: int) -> torch.Tensor:
@@ -158,29 +190,43 @@ class Trainer:
         if self.is_fusion:
             return batch["features"], batch["depth_features"], mask
         if self.needs_query:
-            return batch["features"], batch.get("query_label"), mask
+            return batch["features"], batch.get("query_label"), mask, batch.get("query_len")
         return batch["features"], mask
 
+    def _with_seg_ids(self, batch):
+        """An ``unsupervised`` host batch with its ``seg_ids``: the label
+        runs of the raw padded query map (``valid=None``), as
+        ``r3d_tpu/train/loop.py:893-903`` derives them."""
+        if self.config.train.loop != "unsupervised":
+            return batch
+        ids = segment_ids_from_labels(batch["query_label"].numpy(), None,
+                                      self.config.train.max_segments)
+        return dict(batch, seg_ids=torch.from_numpy(ids))
+
     # ------------------------------------------------------------- loss logic
-    def _losses(self, outputs, batch, train: bool = True):
-        """(total, metrics) of the ``proposed_depth``, ``futr`` and
-        ``proposed`` loops: the JAX ``Trainer._losses`` branches those loops
-        take."""
+    def _losses(self, outputs, batch, epoch: int = 0, train: bool = True):
+        """(total, metrics) of the ported loops: the JAX ``Trainer._losses``
+        branches they take."""
         cfg = self.config
         pad = self.pad_idx
-        excl = cfg.train.exclude_class_idx
+        unsup = cfg.train.loop == "unsupervised"
+        # the unsupervised loop's seg and class CE have no exclude class
+        # (train_unsupervised.py:327, 340)
+        excl = None if unsup else cfg.train.exclude_class_idx
         past_label = batch["past_label"]
         target = batch["trans_future_target"]
         dur = batch["trans_future_dur"]
         dur_mask = (dur != pad).float()
-        total = torch.zeros((), device=past_label.device)
+        zero = torch.zeros((), device=past_label.device)
+        total = loss_seg = loss_cls = loss_dur = zero
+        seg_correct = None
         metrics: Dict[str, torch.Tensor] = {}
 
         if cfg.model.seg and "seg" in outputs:
             seg = outputs["seg"]
             seg_flat = seg.reshape(-1, seg.shape[-1])
             gold = past_label.reshape(-1)
-            loss_seg, _ = cross_entropy_loss(seg_flat, gold, pad, excl)
+            loss_seg, seg_correct = cross_entropy_loss(seg_flat, gold, pad, excl)
             nc, nw = accuracy_counts(seg_flat, gold, pad, excl)
             total = total + loss_seg
             metrics.update(loss_seg=loss_seg, seg_correct=nc, seg_total=nw)
@@ -189,7 +235,7 @@ class Trainer:
             act = outputs["action"]
             act_flat = act.reshape(-1, act.shape[-1])
             gold_t = target.reshape(-1)
-            if cfg.train.weighted_ce:
+            if cfg.train.weighted_ce or unsup:
                 reference = last_non_padding_labels(past_label, pad)
                 loss_cls, _ = weighted_cross_entropy_loss(
                     act_flat, gold_t, pad, reference, target[:, 0], excl)
@@ -214,6 +260,10 @@ class Trainer:
                 total = total + loss_dur
                 metrics.update(loss_dur=loss_dur)
 
+        if unsup and "l3" in outputs:
+            total = self._curriculum(outputs, batch, epoch, train, metrics, seg_correct,
+                                     loss_seg, loss_cls, loss_dur)
+
         m = cfg.model
         if "fused" in outputs and (m.erank_weight > 0.0 or m.log_erank):
             valid = (past_label != pad).float()
@@ -227,12 +277,52 @@ class Trainer:
         metrics["loss"] = total
         return total, metrics
 
+    def _curriculum(self, outputs, batch, epoch, train, metrics, seg_correct, loss_seg,
+                    loss_cls, loss_dur):
+        """The ``unsupervised`` total (``r3d_tpu/train/loop.py:230-291``):
+        the curriculum composite under the correctness gate in training,
+        l3 + seg + cls in validation; the L3 counters go into ``metrics``."""
+        tr = self.config.train
+        l3 = outputs["l3"]
+        l3_flat = l3.reshape(-1, l3.shape[-1])
+        q_flat = batch["query_label"].reshape(-1)
+        loss_l3, l3_correct = focal_loss(l3_flat, q_flat, tr.l3_pad_idx, tr.l3_exclude_idx)
+        nc, nw = accuracy_counts(l3_flat, q_flat, tr.l3_pad_idx, tr.l3_exclude_idx)
+        metrics.update(loss_l3=loss_l3, l3_correct=nc, l3_total=nw)
+        if not train:
+            # the reference validate sums l3 + seg + cls (train_unsupervised.py:147-198)
+            return loss_l3 + loss_seg + loss_cls
+        loss_cluster = temporal_cluster_loss(l3, batch["seg_ids"], tr.max_segments)
+        metrics.update(loss_supcon=loss_cluster)
+        # 1 where both the L3 and the seg prediction are right, else 5
+        # (train_unsupervised.py:357)
+        both = (l3_correct & seg_correct if seg_correct is not None
+                else torch.zeros_like(l3_correct))
+        wbar = torch.where(both, 1.0, 5.0).mean()
+        wf = triangular_warmup(epoch, 0, *tr.warmup_loss_epochs)
+        total = ((1.0 - 1.0 / wbar) * ((1.0 - wf) * loss_l3 + wf * loss_cluster)
+                 + (1.0 / wbar) * (loss_cls + loss_dur + loss_seg))
+        if tr.supcon_weight > 0.0 and "supcon" in outputs:
+            # the commented "soft label loss" (train_unsupervised.py:314-319):
+            # SupCon over the unit-norm per-frame embeddings against their L3
+            # labels, the first supcon_samples frames, ramped to the warmup peak
+            feats = outputs["supcon"].reshape(-1, outputs["supcon"].shape[-1])
+            feats = feats / feats.norm(dim=-1, keepdim=True).clamp_min(1e-6)
+            n = min(tr.supcon_samples, feats.shape[0])
+            loss_sc = supcon_loss(feats[:n, None, :], q_flat[:n],
+                                  temperature=tr.supcon_temperature)
+            ramp = float(min(np.float32(1.0), np.float32(epoch)
+                             / np.float32(max(tr.warmup_loss_epochs[0], 1))))
+            total = total + tr.supcon_weight * ramp * loss_sc
+            metrics.update(loss_supcon2=loss_sc)
+        return total
+
     # ------------------------------------------------------------- train step
-    def _grad_core(self, model, batch) -> Dict[str, torch.Tensor]:
+    def _grad_core(self, model, batch, epoch: int = 0) -> Dict[str, torch.Tensor]:
         """Forward + losses + backward of one batch on the card; the
         gradients land in the parameters' ``.grad``."""
         outputs = model(*self._model_inputs(batch, with_mask=True))
-        total, metrics = self._losses(outputs, batch, train=True)
+        total, metrics = self._losses(outputs, batch, epoch, train=True)
         total.backward()
         return {k: v.detach() for k, v in metrics.items()}
 
@@ -240,7 +330,7 @@ class Trainer:
         """One update of ``state`` in place from a batch on the card."""
         state.model.train(not self._sticky(epoch))
         state.optimizer.zero_grad(set_to_none=True)
-        metrics = self._grad_core(state.model, batch)
+        metrics = self._grad_core(state.model, batch, epoch)
         state.apply_gradients()
         return metrics
 
@@ -279,7 +369,8 @@ class Trainer:
             state.optimizer.zero_grad(set_to_none=True)
             agg: Dict[str, torch.Tensor] = {}
             for i in range(K):
-                _add(agg, self._grad_core(state.model, {k: v[i] for k, v in stacked.items()}))
+                _add(agg, self._grad_core(state.model, {k: v[i] for k, v in stacked.items()},
+                                          epoch))
             for p in state.model.parameters():
                 if p.grad is not None:
                     p.grad.div_(K)
@@ -295,18 +386,28 @@ class Trainer:
         -> metrics summed over K: K steps, each gathering its batch of bucket
         length ``S`` from the cache's tensors ``data``
         (``r3d_tpu/train/loop.py:770``). Nothing is copied to the card but
-        ``idx``, and nothing waits for the card."""
+        ``idx``, and nothing waits for the card; an ``unsupervised`` batch
+        gets its ``seg_ids`` there, from the gathered query labels."""
         sr, pad, qpad = cache.sample_rate, cache.pad_idx, cache.query_pad_idx
 
         def cached_multi_step(state: TrainState, data, idx: torch.Tensor, S: int,
                               epoch: int) -> Dict[str, torch.Tensor]:
             agg: Dict[str, torch.Tensor] = {}
             for ids in idx:
-                batch = _long_labels(dc.assemble(data, ids, S, sr, pad, qpad))
+                batch = self._device_seg_ids(_long_labels(dc.assemble(data, ids, S, sr, pad,
+                                                                      qpad)))
                 _add(agg, self._step(state, batch, epoch))
             return agg
 
         return cached_multi_step
+
+    def _device_seg_ids(self, batch):
+        """``_with_seg_ids`` of a batch on the card (the JAX twin's
+        ``segment_ids_from_labels_jnp``, ``r3d_tpu/train/loop.py:782-800``)."""
+        if self.config.train.loop != "unsupervised":
+            return batch
+        return dict(batch, seg_ids=segment_ids_from_labels_torch(
+            batch["query_label"], self.config.train.max_segments))
 
     def make_cached_eval_fn(self, cache):
         """cached_eval(state, data, idx [K, B], S) -> metrics summed over K:
@@ -344,7 +445,7 @@ class Trainer:
                     full[:, :v.shape[1]] = v
                     v = full
                 batch[k][host_pos] = v.to(batch[k].dtype)
-            return self._step(state, _long_labels(batch), epoch)
+            return self._step(state, self._device_seg_ids(_long_labels(batch)), epoch)
 
         return hybrid_step
 
@@ -380,7 +481,8 @@ class Trainer:
         group_step = self.make_accum_step() if accum > 1 else self.make_multi_step()
 
         def steps_of(epoch):
-            kept = (b for b in train_loader   # BN guard (train_proposed_depth.py:148)
+            # the BN guard (train_proposed_depth.py:148), then the seg ids
+            kept = (self._with_seg_ids(b) for b in train_loader
                     if b["features"].shape[0] >= cfg.min_train_batch)
             for n, batches in _same_shape_runs(kept, _shapes, K):
                 if n > 1:
@@ -560,8 +662,9 @@ class Trainer:
 
 
 def _long_labels(batch: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """Labels as int64 (torch's index type); float streams as they are."""
-    return {k: v if k in _FLOAT_STREAMS else v.long() for k, v in batch.items()}
+    """Labels as int64 (torch's index type); float streams (features, depth,
+    durations, a gaze query) as they are."""
+    return {k: v if v.is_floating_point() else v.long() for k, v in batch.items()}
 
 
 def _add(agg: Dict[str, torch.Tensor], metrics: Mapping[str, torch.Tensor]) -> None:

@@ -894,3 +894,61 @@ def test_many_query_bodies_give_zeros_under_an_all_inf_bias(cuda):
     assert torch.equal(out, torch.zeros_like(out))
     for x in att.attention_bwd(q, k, k, bias, 1, 0.25, 0.0, q, need_dbias=True, saved=saved):
         assert torch.equal(x, torch.zeros_like(x))
+
+
+# ---- the DARai family: fp32 K3-K5 with 8 queries against the 256/512 buckets ----
+
+@pytest.mark.parametrize("masked", [False, True], ids=["no-bias", "ragged-keys"])
+@pytest.mark.parametrize("Lk", [256, 512])
+@pytest.mark.parametrize("B", [1, 8])
+def test_fp32_attention_at_the_darai_shapes(cuda, B, Lk, masked):
+    """The decoder's cross-attention of ``darai`` and ``darai_gaze``: 8
+    heads of 16, 8 queries against the 256- and 512-row buckets, batch 8 in
+    training and 1 in validation and the sweep (whose forward has no key
+    mask): K3, K4 at 0.1 and K5 at rates 0 and 0.1, one launch each, within
+    2e-5 of the plain versions."""
+    gen = torch.Generator().manual_seed(B * Lk + masked)
+    q, k, v, bias = attention_inputs(B, 8, 8, Lk, 16, gen, cuda)
+    bias = bias if masked else None
+    g = torch.randn(q.shape, generator=gen).to(cuda)
+    launches = [kern.launches for kern in (att.KERNEL, att.DROPOUT_KERNEL, att.BWD_KERNEL)]
+    torch.testing.assert_close(att.flash_attention(q, k, v, bias, 0.25),
+                               att.composed_attention(q, k, v, bias, 0.25), atol=2e-5, rtol=0)
+    torch.testing.assert_close(att.flash_attention_dropout(q, k, v, bias, 9, 0.25, 0.1),
+                               att.composed_attention_dropout(q, k, v, bias, 9, 0.25, 0.1),
+                               atol=2e-5, rtol=0)
+    for rate in (0.0, 0.1):
+        got = att.attention_bwd(q, k, v, bias, 9, 0.25, rate, g, need_dbias=masked)
+        want = att.composed_attention_bwd(q, k, v, bias, 9, 0.25, rate, g)
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            _close(a, b, 2e-5, name)
+    torch.cuda.synchronize()
+    assert [kern.launches for kern in (att.KERNEL, att.DROPOUT_KERNEL, att.BWD_KERNEL)] == [
+        launches[0] + 1, launches[1] + 1, launches[2] + 2]
+
+
+@pytest.mark.parametrize("name", ["darai", "darai_gaze"])
+def test_darai_step_through_the_kernels_matches_the_plain_route(cuda, tmp_path, name):
+    """One sticky train step of a 512-bucket batch of 8 at the configs'
+    widths (hidden 128, 8 heads, 8 queries; 64 input features) on the card,
+    through fp32 K3 and K5 and through the plain route: within
+    ``chip_smoke.fp32_step_kernels_vs_plain``'s bounds."""
+    import dataclasses
+
+    from chip_smoke import (DARAI_GAZE_ROWS, DARAI_TRAIN, fp32_step_kernels_vs_plain,
+                            one_batch, write_darai_dataset)
+    from r3d_tpu_torch.config import get_config
+    from r3d_tpu_torch.data.datasets import build_loader, build_source
+    from r3d_tpu_torch.models import build_model, init_weights
+
+    root = write_darai_dataset(tmp_path, DARAI_TRAIN, (), input_dim=64,
+                               gaze_rows=DARAI_GAZE_ROWS)
+    base = get_config(name)
+    cfg = base.replace(data=dataclasses.replace(base.data, data_root=root),
+                       model=dataclasses.replace(base.model, input_dim=64))
+    src = build_source(cfg.data, "train_split.txt")
+    batch = one_batch(build_loader(src, cfg.data, 8, 8, seed=0), 256)
+    assert batch["features"].shape[:2] == (8, 512)
+    model = init_weights(build_model(cfg.model, src.n_class), torch.Generator().manual_seed(0))
+    fp32_step_kernels_vs_plain(cfg, model.state_dict(), batch, src.n_class,
+                               [att.KERNEL, att.DROPOUT_KERNEL, att.BWD_KERNEL])

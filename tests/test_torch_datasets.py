@@ -155,12 +155,28 @@ def test_read_mapping_matches_jax(csv_root):
     assert read_mapping_dict(path) == jax_read_mapping(path) == {f"a{i}": i for i in range(5)}
 
 
-@pytest.mark.parametrize("field,value,item", [
-    ("raw_frames", True, "A15"), ("gaze_dir", "gaze", "A11.3")])
+@pytest.mark.parametrize("field,value,item", [("raw_frames", True, "A15")])
 def test_unported_branches_raise(csv_root, field, value, item):
     _, pcfg = data_configs(csv_root)
     with pytest.raises(NotImplementedError, match=item):
         pt_ds.build_source(dataclasses.replace(pcfg, **{field: value}), "train_split.txt")
+
+
+def test_gaze_dir_builds_a_gaze_source_as_jax(csv_root):
+    """``gaze_dir`` (once refused here) reads each video's gaze CSV as the
+    query stream and leaves out the videos without one, as JAX's source
+    does (``tests/test_torch_darai_data.py`` holds the darai layout)."""
+    jcfg, pcfg = data_configs(csv_root)
+    os.makedirs(os.path.join(csv_root, "utkinect", "gaze"), exist_ok=True)
+    vids = pt_ds.read_split(pcfg, "train_split.txt")
+    with open(os.path.join(csv_root, "utkinect", "gaze",
+                           vids[0].split(".")[0] + ".csv"), "w") as f:
+        f.write("frame,gaze_x,gaze_y\n0,1,2\n1,3,0\n2,2,1\n")
+    psrc = pt_ds.build_source(dataclasses.replace(pcfg, gaze_dir="gaze"), "train_split.txt")
+    jsrc = jax_ds.build_source(dataclasses.replace(jcfg, gaze_dir="gaze"), "train_split.txt")
+    assert psrc.units() == jsrc.units() == [(vids[0], None)]
+    np.testing.assert_array_equal(psrc.load_meta(vids[0])["query_idx"],
+                                  jsrc.load_meta(vids[0])["query_idx"])
 
 
 def test_native_cache_and_query_streams_raise(csv_root):

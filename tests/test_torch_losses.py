@@ -235,7 +235,7 @@ def test_trainer_defaults_to_cuda_and_raises_without_it():
 
 
 @pytest.mark.parametrize("kw,item", [({"rng_impl": "rbg"}, "A10"),
-                                     ({"loop": "unsupervised"}, "A12")])
+                                     ({"loop": "tcn"}, "A12")])
 def test_trainer_refuses_what_is_not_ported(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         Trainer(_small_config(**kw), 6, device="cpu")

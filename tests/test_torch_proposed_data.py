@@ -142,13 +142,25 @@ def test_pad_batch_with_queries_matches_jax(query_pad_idx):
     assert (got["query_label"] == (psrc.pad_idx if query_pad_idx is None else 7)).any()
 
 
-def test_float_query_streams_raise():
-    kw = dict(n_videos=2, n_actions=5, vid_len_range=(30, 40), input_dim=8, n_query_classes=7)
-    fn, _ = SyntheticSource(**kw).make_example_fn((0.5,), 1, 8)
-    e = fn(0)
-    e.query_label = np.zeros((len(e.features), 2), np.float32)   # a gaze stream
-    with pytest.raises(NotImplementedError, match="A11.3"):
-        pad_batch([e], 7, (64,), 8, with_query=True)
+@pytest.mark.parametrize("query_pad_len", [None, 24])
+def test_float_query_streams_match_jax(query_pad_len):
+    """A gaze stream ([N, 2] float, N unrelated to the frame count) pads
+    with zeros to its own length, ``query_pad_len`` or the largest bucket,
+    cut where longer, with ``query_len`` the rows kept: JAX's collate, bit
+    for bit."""
+    kw = dict(n_videos=3, n_actions=5, vid_len_range=(30, 40), input_dim=8, n_query_classes=7)
+    pfn, _ = SyntheticSource(**kw).make_example_fn((0.5,), 1, 8)
+    jfn, _ = JaxSource(**kw).make_example_fn((0.5,), 1, 8)
+    rng = np.random.RandomState(0)
+    pe, je = [pfn(i) for i in range(3)], [jfn(i) for i in range(3)]
+    for p, j, n in zip(pe, je, (10, 70, 0)):
+        p.query_label = j.query_label = rng.rand(n, 2).astype(np.float32)
+    got = pad_batch(pe, 7, (32, 64), 8, with_query=True, query_pad_len=query_pad_len)
+    want = jax_pad_batch(je, 7, (32, 64), 8, with_query=True, query_pad_len=query_pad_len)
+    assert sorted(got) == sorted(want) and got["query_label"].dtype == torch.float32
+    for k in want:
+        np.testing.assert_array_equal(_b(got[k]), _b(want[k]), err_msg=k)
+    assert got["query_len"].tolist() == [10, query_pad_len or 64, 0]
 
 
 @pytest.mark.parametrize("name", CONFIGS)
