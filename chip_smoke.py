@@ -150,11 +150,47 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    sticky 512-bucket step through the kernels against the plain route;
    the parts of a 512-bucket step in epoch 0 and sticky; ``darai``'s
    validation time and launches a video;
-12. print one ``{"kernels": [...]}`` line (with each kernel's launches in
+12. the fuser ablations ``futr_fusion_grad``, ``futr_fusion_vary``,
+   ``futr_fusion_nox`` and ``afft`` through the command line
+   (``--config utkinects --model <variant>``) at full width over the CLI
+   phase's 5 + 2 seeded videos: every count set to 0, ``train`` of one
+   seed for 2 epochs on the device cache, each step's K1 and K2 launches
+   counted by name, the outer-residual calls on counters of their own (on
+   for grad, off for the others): both training epochs (epoch 0 and the sticky one) must launch
+   K1's no-blend route and K2, never the blend route, and but for ``afft``
+   the attention kernels; the checkpoint; the 9-ratio sweep on the card
+   against ``--cpu`` window by window (K1's no-blend route in every chunk);
+   for grad the training ranking on the card (channels [0, 32), in train
+   mode and sticky), one sticky 512-bucket step through the kernels
+   against the plain routes of the fuser and the attention, and the same
+   step with K2's outer-residual flag flipped, which must fail its bounds;
+13. ``futr_fusion_bn`` with ``fuser_depth=2`` (the composed fuser blocks,
+   no K1 or K2): one serving chunk and one dropout-off train step on the
+   card against the CPU;
+14. the FUTR encoder (``use_encoder=True``, two layers): before the model
+   phases, fp32 K3, K4 and K5 with S queries against S keys (B = H = 8,
+   D = 16, S = 256, 512, 777, 1,024 and 2,000) against their plain
+   versions, twice bit-equal, and timed at 512 and 2,000 with their bounds
+   and SDPA (forward + backward for K5), and K1 and K2 timed with the outer
+   residual; then ``futr_fusion_bn`` with the encoder at full width:
+   requests in the 256-2,000 buckets (each launching fp32 K3 at Lq = Lk,
+   counted as ``flash_attention_many``), the card's logits against the
+   CPU's in the 2000 bucket, ``fit`` of 2 epochs over windows in the 512
+   and 2000 buckets (K4 and K5 at Lq = Lk in epoch 0, K3 and K5 sticky), a
+   train step against the CPU; and one 3100-bucket train step of ``futr``
+   (50salads widths, bf16) with the encoder through the kernels (the
+   many-query bodies) against the plain route, with the plain version at
+   the kernels' rounding points read against the same witness at three
+   seeds;
+15. print one ``{"kernels": [...]}`` line (with each kernel's launches in
    the CLI phases' training and sweeps and in the cached epoch beside those
    of the other phases; rows for bf16 K3, K4 and K5 at Lq = Lk = 3,100 and
    2,000 with the launches of the two proposed configs' training and
-   sweep; the darai phases' launches) and, as the last line,
+   sweep; the darai phases', the ablations', ``fuser_depth=2``'s and the
+   encoder's launches; rows for K1 and K2 with the outer residual, with the
+   grad variant's launches, and for fp32 K3, K4 and K5 at Lq = Lk = 512 and
+   2,000, with the encoder fit's launches and the serving launches of that
+   bucket) and, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX. Exits non-zero and prints no result where CUDA is
@@ -1631,9 +1667,9 @@ def make_videos(rng, lengths, cfg):
 
 def serve(session, kernels, cfg, rng, groups):
     """Answer requests through ServingQueue, bucket by bucket (``groups``:
-    bucket -> request lengths), with every launch count set to 0 first.
-    Returns per-bucket latencies, the counts of the whole run and the
-    launches of each bucket."""
+    bucket -> request lengths), with every launch count set to 0 first
+    (after a warm-up of the same chunks). Returns per-bucket latencies, the
+    counts of the whole run and the launches of each bucket."""
     import torch
 
     from r3d_tpu_torch.serving import ServingQueue
@@ -1961,7 +1997,7 @@ def train_breakdown(cfg, state_dict, train_loader, min_len=256, n_class=N_CLASS,
           f"{1e3 * (t1 - t0):.2f} ms, H2D {1e3 * (t2 - t1):.2f} ms")
 
     def step(epoch):
-        state.model.train(not trainer._sticky(epoch))
+        trainer._train_mode(state.model, epoch)
         state.optimizer.zero_grad(set_to_none=True)
         trainer._grad_core(state.model, dev, epoch)
         state.apply_gradients()
@@ -2881,6 +2917,59 @@ def batch_with_longest(loader, rows):
                      loader.with_query, loader.query_pad_idx, loader.query_pad_len)
 
 
+def bf16_step(cfg, state_dict, batch, n_class, kernels):
+    """One dropout-off train-mode step of ``cfg`` on the card from the given
+    weights and batch, on whatever route is in force: (loss, outputs,
+    gradients by parameter name, launches, wall time of the first call,
+    the launches of an eval forward of the batch without its mask, a
+    validation or sweep chunk of the bucket)."""
+    import torch
+
+    from r3d_tpu_torch.train.loop import Trainer
+
+    trainer = Trainer(cfg, n_class)
+    state = trainer.init_state(1, state_dict)
+    state.model.train()
+    dev = trainer.to_device(batch)
+    before = {k.name: k.launches for k in kernels}
+    t0 = time.perf_counter()
+    outputs = state.model(*trainer._model_inputs(dev, with_mask=True))
+    total, _ = trainer._losses(outputs, dev)
+    total.backward()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    step = (float(total.detach()),
+            {k: outputs[k].detach().float() for k in ("action", "duration", "seg", "l3")
+             if k in outputs},
+            {k: p.grad.float() for k, p in state.model.named_parameters() if p.grad is not None},
+            {k.name: k.launches - before[k.name] for k in kernels
+             if k.launches - before[k.name]}, dt)
+    state.model.eval()
+    before = {k.name: k.launches for k in kernels}
+    with torch.no_grad():
+        state.model(*trainer._model_inputs(dev, with_mask=False))
+    torch.cuda.synchronize()
+    eval_launches = {k.name: k.launches - before[k.name] for k in kernels
+                     if k.launches - before[k.name]}
+    del trainer, state, outputs, total, dev
+    torch.cuda.empty_cache()
+    return step + (eval_launches,)
+
+
+def witness_errors(test, plain, fp32):
+    """Against the fp32 witness, over each one's largest fp32 entry: output
+    or gradient name -> (``test``'s error, ``plain``'s error), each a
+    ``bf16_step``; the gradients of ``GRAD_NOISE_ONLY`` left out."""
+    def rel(x, y):
+        return float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+
+    witness = {f"output {k}": (rel(test[1][k], fp32[1][k]), rel(plain[1][k], fp32[1][k]))
+               for k in fp32[1]}
+    witness.update({k: (rel(test[2][k], fp32[2][k]), rel(plain[2][k], fp32[2][k]))
+                    for k in fp32[2] if not k.endswith(GRAD_NOISE_ONLY)})
+    return witness
+
+
 def step_kernels_vs_plain(cfg, state_dict, batch, n_class, kernels):
     """One dropout-off train step's outputs, loss and gradients on the card
     from the same weights and batch through the kernels (K3 forward, K5
@@ -2890,55 +2979,26 @@ def step_kernels_vs_plain(cfg, state_dict, batch, n_class, kernels):
     ``PROPOSED_LOSS_TOL``, every gradient entry within ``PROPOSED_GRAD_TOL``
     of the model's largest and the whole gradient vectors' cosine at least
     ``PROPOSED_COS_MIN``; against fp32, each output and gradient of the
-    kernels' route within ``PROPOSED_WITNESS_FACTOR`` times the bf16 plain
-    route's error; and the launches of an eval forward of the batch (a
-    validation or sweep chunk of the bucket) on the kernels' route.
-    Returns the readings."""
+    kernels' route within ``PROPOSED_WITNESS_FACTOR`` (with the encoder
+    ``ENCODER_WITNESS_FACTOR``) times the bf16 plain route's error; and the
+    launches of an eval forward of the batch (a validation or sweep chunk
+    of the bucket) on the kernels' route. Returns the readings."""
     import dataclasses
 
     import torch
-
-    from r3d_tpu_torch.train.loop import Trainer
 
     model = dataclasses.replace(cfg.model, dropout=0.0)
     cfg = cfg.replace(model=model)
     cfg32 = cfg.replace(model=dataclasses.replace(model, compute_dtype="float32",
                                                   embed_dtype=None))
-    res = {}
-    for route, c, within in (("kernels", cfg, contextlib.nullcontext),
-                             ("plain", cfg, plain_attention_route),
-                             ("fp32", cfg32, plain_attention_route)):
-        with within():
-            trainer = Trainer(c, n_class)
-            state = trainer.init_state(1, state_dict)
-            state.model.train()
-            dev = trainer.to_device(batch)
-            before = {k.name: k.launches for k in kernels}
-            t0 = time.perf_counter()
-            outputs = state.model(*trainer._model_inputs(dev, with_mask=True))
-            total, _ = trainer._losses(outputs, dev)
-            total.backward()
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            res[route] = (float(total.detach()),
-                          {k: outputs[k].detach().float() for k in ("action", "duration", "seg",
-                                                                    "l3")},
-                          {k: p.grad.float() for k, p in state.model.named_parameters()
-                           if p.grad is not None},
-                          {k.name: k.launches - before[k.name] for k in kernels
-                           if k.launches - before[k.name]}, dt)
-            if route == "kernels":   # a validation chunk of the bucket: no mask, eval mode
-                state.model.eval()
-                before = {k.name: k.launches for k in kernels}
-                with torch.no_grad():
-                    state.model(*trainer._model_inputs(dev, with_mask=False))
-                torch.cuda.synchronize()
-                eval_launches = {k.name: k.launches - before[k.name] for k in kernels
-                                 if k.launches - before[k.name]}
-        del trainer, state, outputs, total, dev
-        torch.cuda.empty_cache()
-    (lk, ok, gk, nk, tk), (lp, op, gp, npl, tp) = res["kernels"], res["plain"]
-    l32, o32, g32, n32, _ = res["fp32"]
+    witness_factor = ENCODER_WITNESS_FACTOR if model.use_encoder else PROPOSED_WITNESS_FACTOR
+    res = {"kernels": bf16_step(cfg, state_dict, batch, n_class, kernels)}
+    with plain_attention_route():
+        res["plain"] = bf16_step(cfg, state_dict, batch, n_class, kernels)
+        res["fp32"] = bf16_step(cfg32, state_dict, batch, n_class, kernels)
+    eval_launches = res["kernels"][5]
+    (lk, ok, gk, nk, tk, _), (lp, op, gp, npl, tp, _) = res["kernels"], res["plain"]
+    l32, o32, g32, n32, _, _ = res["fp32"]
 
     def rel(x, y):
         return float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
@@ -2952,9 +3012,7 @@ def step_kernels_vs_plain(cfg, state_dict, batch, n_class, kernels):
         torch.cat([gk[k].double().flatten() for k in names]),
         torch.cat([gp[k].double().flatten() for k in names]), dim=0))
     # against the fp32 witness: (kernels' error, bf16 plain route's error)
-    witness = {f"output {k}": (rel(ok[k], o32[k]), rel(op[k], o32[k])) for k in o32}
-    witness.update({k: (rel(gk[k], g32[k]), rel(gp[k], g32[k])) for k in g32
-                    if not k.endswith(GRAD_NOISE_ONLY)})
+    witness = witness_errors(res["kernels"], res["plain"], res["fp32"])
     ratio = {k: a / max(b, 1e-30) for k, (a, b) in witness.items()}
     far = max(ratio, key=ratio.get)
     B, S = batch["features"].shape[:2]
@@ -2967,8 +3025,9 @@ def step_kernels_vs_plain(cfg, state_dict, batch, n_class, kernels):
           f"an eval forward of the batch on the kernels' route {eval_launches}; "
           f"forward + backward {1e3 * tk:.1f} vs {1e3 * tp:.1f} ms (first calls)")
     print(f"  against the fp32 plain route, over each one's largest fp32 entry, kernels' route "
-          f"/ bf16 plain route, at most {ratio[far]:.3f} apart in {far} (tol "
-          f"{PROPOSED_WITNESS_FACTOR}); largest 8 of the kernels' route: "
+          f"/ bf16 plain route, at most {ratio[far]:.3f} apart in {far} "
+          f"({witness[far][0]:.2e} / {witness[far][1]:.2e}; tol {witness_factor}); largest 8 "
+          f"of the kernels' route: "
           + ", ".join(f"{k} {witness[k][0]:.2e} / {witness[k][1]:.2e}"
                       for k in sorted(witness, key=lambda k: -witness[k][0])[:8])
           + "; not gated, rounding noise only: "
@@ -2981,11 +3040,11 @@ def step_kernels_vs_plain(cfg, state_dict, batch, n_class, kernels):
             and diff[worst] <= PROPOSED_GRAD_TOL * top and cos >= PROPOSED_COS_MIN):
         raise AssertionError(f"{cfg.name}: the kernels' train step disagrees with the plain "
                              "route's")
-    if not ratio[far] <= PROPOSED_WITNESS_FACTOR:
+    if not ratio[far] <= witness_factor:
         raise AssertionError(f"{cfg.name}: against fp32, the kernels' route is further off "
                              f"than the bf16 plain route in {far}")
     return {"loss_diff": abs(lk - lp), "out_err": max(out_err.values()), "cos": cos,
-            "witness_ratio": ratio[far], "eval_launches": eval_launches}
+            "witness_ratio": ratio[far], "launches": nk, "eval_launches": eval_launches}
 
 
 def proposed_cli(kernels, card, name, k3, k4, k5):
@@ -3171,60 +3230,84 @@ DARAI_OUT_TOL = 1e-4   # its outputs
 DARAI_GRAD_TOL = 1e-4  # a gradient entry over the model's largest gradient entry
 
 
+def fp32_step(cfg, state_dict, batch, n_class, kernels):
+    """One dropout-off train step (the sticky epochs' forward,
+    ``Trainer._train_mode``) of an fp32 config on the card from the given
+    weights and batch, on whatever route is in force: (loss, outputs,
+    gradients by parameter name, launches)."""
+    import torch
+
+    from r3d_tpu_torch.train.loop import Trainer
+
+    trainer = Trainer(cfg, n_class)
+    state = trainer.init_state(1, state_dict)
+    trainer._train_mode(state.model, 1)
+    dev = trainer.to_device(trainer._with_seg_ids(batch))
+    before = {k.name: k.launches for k in kernels}
+    outputs = state.model(*trainer._model_inputs(dev, with_mask=True))
+    total, _ = trainer._losses(outputs, dev, epoch=1)
+    total.backward()
+    torch.cuda.synchronize()
+    return (float(total.detach()),
+            {k: v.detach().float() for k, v in outputs.items() if k != "supcon"},
+            {k: p.grad.clone() for k, p in state.model.named_parameters() if p.grad is not None},
+            {k.name: k.launches - before[k.name] for k in kernels
+             if k.launches - before[k.name]})
+
+
+def grad_gaps(got, want):
+    """Per parameter max|got - want|, and (the largest over the model's
+    largest entry of ``want``, its parameter, the largest among the fuser's
+    parameters over the fuser's largest entry, its parameter; the last two
+    None where the model has no fuser)."""
+    diff = {k: float((got[k] - want[k]).abs().max()) for k in want}
+    worst = max(diff, key=diff.get)
+    top = max(float(g.abs().max()) for g in want.values())
+    fuser = [k for k in want if k.startswith("fuser.")]
+    if not fuser:
+        return diff, (diff[worst] / top, worst, None, None)
+    f_worst = max(fuser, key=diff.get)
+    f_top = max(float(want[k].abs().max()) for k in fuser)
+    return diff, (diff[worst] / top, worst, diff[f_worst] / f_top, f_worst)
+
+
 def fp32_step_kernels_vs_plain(cfg, state_dict, batch, n_class, kernels):
-    """One dropout-off train step (the sticky epochs' forward) of an fp32
-    config on the card from the same weights and batch, through the kernels
-    (K3 forward, K5 backward) and through the plain route: loss within
+    """``fp32_step`` through the kernels and through the plain routes
+    (``plain_routes``: the attention and the fuser tail): loss within
     ``DARAI_LOSS_TOL``, outputs within ``DARAI_OUT_TOL``, every gradient
     entry within ``DARAI_GRAD_TOL`` of the model's largest gradient entry
     (not of its own tensor's: the duration head's weight gradient is a
     difference of near-equal terms, the gaze model's 8 queries being alike,
     and read 3.3e-2 of its own largest entry on an H100 with the loss and
-    outputs within 1e-6); the kernels' route must launch, the plain route
-    must not."""
-    import torch
-
-    from r3d_tpu_torch.train.loop import Trainer
-
-    res = {}
-    for route, within in (("kernels", contextlib.nullcontext), ("plain", plain_attention_route)):
-        with within():
-            trainer = Trainer(cfg, n_class)
-            state = trainer.init_state(1, state_dict)
-            state.model.eval()
-            dev = trainer.to_device(trainer._with_seg_ids(batch))
-            before = {k.name: k.launches for k in kernels}
-            outputs = state.model(*trainer._model_inputs(dev, with_mask=True))
-            total, _ = trainer._losses(outputs, dev, epoch=1)
-            total.backward()
-            torch.cuda.synchronize()
-            res[route] = (float(total.detach()),
-                          {k: v.detach().float() for k, v in outputs.items() if k != "supcon"},
-                          {k: p.grad.clone() for k, p in state.model.named_parameters()
-                           if p.grad is not None},
-                          {k.name: k.launches - before[k.name] for k in kernels
-                           if k.launches - before[k.name]})
-        del trainer, state, outputs, total, dev
+    outputs within 1e-6), or ``ABLATION_GRAD_TOL`` where the embeds run in
+    bf16; where the model has a fuser, every fuser gradient entry also
+    within ``FUSER_GRAD_TOL`` of the fuser's largest gradient entry (its
+    gradients are small beside the embeds'). The kernels' route must
+    launch, the plain route must not. Returns the plain route's step."""
+    res = {"kernels": fp32_step(cfg, state_dict, batch, n_class, kernels)}
+    with plain_routes():
+        res["plain"] = fp32_step(cfg, state_dict, batch, n_class, kernels)
     (lk, ok, gk, nk), (lp, op, gp, npl) = res["kernels"], res["plain"]
     out_err = max(float((ok[k] - op[k]).abs().max()) for k in op)
-    diff = {k: float((gk[k] - gp[k]).abs().max()) for k in gp}
-    top = max(float(g.abs().max()) for g in gp.values())
-    worst = max(diff, key=diff.get)
+    diff, (model_gap, worst, fuser_gap, f_worst) = grad_gaps(gk, gp)
+    grad_tol = ABLATION_GRAD_TOL if cfg.model.embed_dtype == "bfloat16" else DARAI_GRAD_TOL
     own = {k: diff[k] / max(float(gp[k].abs().max()), 1e-30) for k in gp}
     B, S = batch["features"].shape[:2]
     print(f"{cfg.name} train step, bucket {S} batch of {B}, sticky (dropout off), kernels vs "
           f"the plain route on the card: loss {lk:.6f} vs {lp:.6f} (tol {DARAI_LOSS_TOL}); "
           f"max|output diff| {out_err:.3e} over {sorted(op)} (tol {DARAI_OUT_TOL}); over "
-          f"{len(gp)} gradients max|diff| over the model's largest entry {diff[worst] / top:.3e} "
-          f"in {worst} (tol {DARAI_GRAD_TOL}); largest over its own tensor's: " + ", ".join(
+          f"{len(gp)} gradients max|diff| over the model's largest entry {model_gap:.3e} "
+          f"in {worst} (tol {grad_tol}); largest over its own tensor's: " + ", ".join(
               f"{k} {own[k]:.2e}" for k in sorted(own, key=lambda k: -own[k])[:4])
-          + f"; launches {nk} vs {npl}")
+          + (f"; the fuser's over its largest entry {fuser_gap:.3e} in {f_worst} (tol "
+             f"{FUSER_GRAD_TOL})" if f_worst else "") + f"; launches {nk} vs {npl}")
     if not nk or npl:
         raise AssertionError(f"{cfg.name}: the routes launched {nk} and {npl}")
     if not (abs(lk - lp) <= DARAI_LOSS_TOL and out_err <= DARAI_OUT_TOL
-            and diff[worst] <= DARAI_GRAD_TOL * top):
+            and model_gap <= grad_tol and (f_worst is None or fuser_gap <= FUSER_GRAD_TOL)):
         raise AssertionError(f"{cfg.name}: the kernels' train step disagrees with the plain "
                              "route's")
+    return res["plain"]
 
 
 def validation_per_video(config, state_dict, source, n_class):
@@ -3760,6 +3843,720 @@ def utkinects_device_cache(kernels, card, state_dict):
     return counts
 
 
+# ---- fp32 K3, K4 and K5 with S queries against S keys: the encoder's self-attention ----
+
+# (B, H, S, D) of the utkinects encoder (use_encoder=True: 8 heads of 16,
+# batch 8) in its 256-2,000 buckets and a ragged S; the kernels line's rows
+# at 512 and 2,000
+SELF32_SHAPES = ((8, 8, 256, 16), (8, 8, 512, 16), (8, 8, 777, 16), (8, 8, 1024, 16),
+                 (8, 8, 2000, 16))
+SELF32_TIMED = (512, 2000)
+SELF32_BWD_TOL = 1e-4   # K5 fp32 over each gradient's largest entry past 512: its sums run
+                        # over up to 2,000 queries or keys (fp32 K7's bound over 3,100 keys)
+
+
+def check_attention_fp32_self(gen, device):
+    """fp32 K3, K4 and K5 at Lq = Lk = S (``SELF32_SHAPES``, the encoder's
+    self-attention; the cluster bodies built for 8-64 queries, each block
+    taking ``FP32_QUERY_TILE`` of them), each against its plain version with
+    random key lengths per row and one fully masked row, twice bit-equal
+    (K5 at rate 0 and 0.1, within ``K3_TOL`` to 512 and ``SELF32_BWD_TOL``
+    past it, of max(1, each gradient's largest entry)); the launch shape (query
+    tiles, key splits, clusters at once); at ``SELF32_TIMED`` each timed:
+    the C launcher by events and the profiler's device time, the plain
+    version, SDPA (forward, and forward + backward for K5) and the bound.
+    Returns (worst (abs, rel) error per kernel, timing per kernel and S)."""
+    import torch
+    import torch.nn.functional as F
+
+    from r3d_tpu_torch.ops import attention as att
+
+    rate = 0.1
+    worst = {"K3": (0.0, 0.0), "K4": (0.0, 0.0), "K5": (0.0, 0.0)}
+    timing = {"K3": {}, "K4": {}, "K5": {}}
+    stream = torch.cuda.current_stream().cuda_stream
+    for B, H, S, D in SELF32_SHAPES:
+        scale = 1.0 / math.sqrt(D)
+        q, k, v, bias = attention_inputs(B, H, S, S, D, gen, device, all_masked_row=True)
+        g = torch.randn(q.shape, generator=gen).to(device)
+        seed = 5000 + S
+        label = f"B={B} H={H} Lq=Lk={S} D={D}"
+        for name, fn, plain in (
+                ("K3", lambda: att.flash_attention(q, k, v, bias, scale),
+                 lambda: att.composed_attention(q, k, v, bias, scale)),
+                ("K4", lambda: att.flash_attention_dropout(q, k, v, bias, seed, scale, rate),
+                 lambda: att.composed_attention_dropout(q, k, v, bias, seed, scale, rate))):
+            got = fn()
+            err = errs([got], [plain()])
+            print(f"{name} fp32 {label}: max|kernel - plain| = {err[0]:.3e} (tol {K3_TOL})")
+            if not (err[0] <= K3_TOL and torch.isfinite(got).all()):
+                raise AssertionError(f"{name} fp32 disagrees with its plain version at {label}")
+            if not torch.equal(got, fn()):
+                raise AssertionError(f"{name} fp32 is not deterministic at {label}")
+            worst[name] = worse(worst[name], err)
+        tol = K3_TOL if S <= 512 else SELF32_BWD_TOL
+        for r_ in (0.0, rate):
+            got = att.attention_bwd(q, k, v, bias, seed, scale, r_, g, need_dbias=True)
+            err = errs(got, att.composed_attention_bwd(q, k, v, bias, seed, scale, r_, g))
+            print(f"K5 fp32 {label} rate={r_}: over dq, dk, dv, dbias max|kernel - plain| = "
+                  f"{err[0]:.3e}, over each one's max(1, max|plain|) {err[1]:.3e} (tol {tol})")
+            if not (err[1] <= tol and all(torch.isfinite(t).all() for t in got)):
+                raise AssertionError(f"K5 fp32 disagrees at {label}, rate={r_}")
+            worst["K5"] = worse(worst["K5"], err)
+        again = att.attention_bwd(q, k, v, bias, seed, scale, rate, g, need_dbias=True)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"K5 fp32 is not deterministic at {label}")
+        del got, again
+        split = att.fp32_split_keys(S)
+        fit = fp32_clusters_at_once(B, H, S, S, D, split)
+        print(f"  fp32 K3-K5 at {label}: {-(-S // att.FP32_QUERY_TILE)} query tiles of "
+              f"{att.FP32_QUERY_TILE} x {B * H} (batch, head), {-(-S // split)} splits of "
+              f"{split} keys a cluster, {B * H * -(-S // att.FP32_QUERY_TILE)} clusters "
+              f"launched; the card holds {fit[0]} (K3) and {fit[1]} (K5) at once")
+        torch.cuda.empty_cache()
+        if S not in SELF32_TIMED:
+            continue
+        iters = 10 if S > 1024 else 30
+        mask = bias == 0
+        out = torch.empty_like(q)
+        shape = f"{label} fp32"
+        fwd_bound = attention_bound_ms(B, H, S, S, D)
+        bwd_bound = attention_bwd_bound_ms(B, H, S, S, D)
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr())
+        launch = raw_launcher(att.KERNEL, *ptrs, B, H, S, S, D, split, scale, stream)
+        timing["K3"][S] = {
+            "shape": shape, "ms": time_ms(launch, iters=iters),
+            "device_ms": device_ms(launch, "attention_fwd_cluster_kernel<16, false"),
+            "plain_ms": time_ms(lambda: att.composed_attention(q, k, v, bias, scale), iters=3),
+            **library_times(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                                   scale=scale), iters=iters),
+            "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1]}
+        launch = raw_launcher(att.DROPOUT_KERNEL, *ptrs, B, H, S, S, D, split, scale, seed,
+                              att.dropout_threshold(rate), 1.0 / (1.0 - rate), stream)
+        timing["K4"][S] = {
+            "shape": shape + f" p={rate}", "ms": time_ms(launch, iters=iters),
+            "device_ms": device_ms(launch, "attention_fwd_cluster_kernel<16, true"),
+            "plain_ms": time_ms(lambda: att.composed_attention_dropout(
+                q, k, v, bias, seed, scale, rate), iters=3),
+            **library_times(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, dropout_p=rate, scale=scale), iters=iters),
+            "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1]}
+        del out
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        launch = raw_launcher(att.BWD_KERNEL, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                              bias.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                              dv.data_ptr(), None, B, H, S, S, D, split, scale, 1, seed,
+                              att.dropout_threshold(rate), 1.0 / (1.0 - rate), stream)
+        k5_ms = time_ms(launch, iters=iters)
+        k5_device = device_ms(launch, "attention_bwd_cluster_kernel<16")
+        if S == 512:   # one wrapper call each: its own launch, nothing else
+            own_launches_per_call(lambda: att.flash_attention(q, k, v, bias, scale),
+                                  ("attention_fwd_cluster_kernel",), 1, f"K3 fp32 {label}")
+            own_launches_per_call(
+                lambda: att.flash_attention_dropout(q, k, v, bias, seed, scale, rate),
+                ("attention_fwd_cluster_kernel",), 1, f"K4 fp32 {label}")
+            own_launches_per_call(lambda: att.attention_bwd(q, k, v, bias, seed, scale, rate, g),
+                                  ("attention_bwd_cluster_kernel",), 1, f"K5 fp32 {label}")
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+
+        def library_bwd():
+            o = F.scaled_dot_product_attention(*leaves, attn_mask=mask, dropout_p=rate,
+                                               scale=scale)
+            torch.autograd.grad(o, leaves, g)
+
+        timing["K5"][S] = {
+            "shape": shape + f" p={rate}", "ms": k5_ms, "device_ms": k5_device,
+            "plain_ms": time_ms(lambda: att.composed_attention_bwd(
+                q, k, v, bias, seed, scale, rate, g, False), iters=3),
+            **library_times(library_bwd, iters=iters),
+            "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1]}
+        for name in ("K3", "K4", "K5"):
+            t = timing[name][S]
+            print(f"{name} fp32 {t['shape']}: kernel {t['ms']:.4f} ms by events, "
+                  f"{fmt_ms(t['device_ms'])} on the device; plain {t['plain_ms']:.3f}; SDPA "
+                  f"{t['library_ms']:.4f} / {fmt_ms(t['library_device_ms'])}"
+                  f"{' (forward + backward)' if name == 'K5' else ''}; bound "
+                  f"{t['bound_ms']:.4f} ({t['bound_by']})")
+        del leaves, dq, dk, dv
+        torch.cuda.empty_cache()
+    return worst, timing
+
+
+def time_outer_residual(gen, device, N=8 * 512):
+    """K1's no-blend route and K2 with the outer residual on (the
+    ``futr_fusion_grad`` tail) at N rows: the C launchers by events and the
+    profiler's device time beside the plain versions and the bounds, as
+    ``check_fuser_kernel`` and ``check_fuser_bwd_kernel`` time them with it
+    off. Returns (K1 timing, K2 timing)."""
+    import torch
+
+    from r3d_tpu_torch.ops import fuser_kernel as fk
+    from r3d_tpu_torch.ops import fuser_kernel_bwd as fkb
+
+    stream = torch.cuda.current_stream().cuda_stream
+    r, d, _, params = fuser_inputs(N, gen, device)
+    g = torch.randn(N, 128, generator=gen).to(device)
+    out = torch.empty_like(r)
+    launch = raw_launcher(fk.TAIL_KERNEL, r.data_ptr(), d.data_ptr(),
+                          *(t.data_ptr() for t in params), out.data_ptr(), N, 128, 512, 1,
+                          stream)
+    bound, bound_by = fuser_bound_ms(N, with_blend=False)
+    t1 = {"shape": f"N={N} C=128 Ch=512 outer_residual", "ms": time_ms(launch),
+          "device_ms": device_ms(launch, "fuser_tail_tf32_kernel<false"),
+          "plain_ms": time_ms(lambda: fk.composed_tail(r, d, params, True)),
+          "library_ms": None, "library_device_ms": None, "bound_ms": bound,
+          "bound_by": bound_by}
+    plan = fkb.bwd_plan(N, 512, torch.cuda.get_device_properties(device).multi_processor_count)
+    dr, dd = torch.empty_like(r), torch.empty_like(d)
+    scratch = torch.empty(fkb.scratch_floats(128, 512, plan), device=device)
+    flat = torch.empty(fkb.grad_layout(128, 512)[1], device=device)
+    launch = raw_launcher(fkb.KERNEL, r.data_ptr(), d.data_ptr(), g.data_ptr(),
+                          *(t.data_ptr() for t in params), dr.data_ptr(), dd.data_ptr(),
+                          scratch.data_ptr(), flat.data_ptr(), N, 128, 512, plan.tile_rows,
+                          plan.split_rows, 1, stream)
+    bound, bound_by = fuser_bwd_bound_ms(N)
+    t2 = {"shape": f"N={N} C=128 Ch=512 outer_residual", "ms": time_ms(launch, iters=20),
+          "device_ms": device_ms(launch, None),
+          "plain_ms": time_ms(lambda: fkb.composed_tail_bwd(r, d, g, params, True), iters=20),
+          "library_ms": None, "library_device_ms": None, "bound_ms": bound,
+          "bound_by": bound_by}
+    for name, t in (("K1 no-blend", t1), ("K2", t2)):
+        print(f"{name} with the outer residual, N={N}: {t['ms']:.4f} ms by events, "
+              f"{fmt_ms(t['device_ms'])} on the device, plain {t['plain_ms']:.4f}, bound "
+              f"{t['bound_ms']:.4f} ({t['bound_by']})")
+    return t1, t2
+
+
+@contextlib.contextmanager
+def k2_outer_residual_flipped():
+    """Within: K2 runs with its outer-residual flag flipped (the forward
+    keeps its own), a planted fault for a control reading only."""
+    from r3d_tpu_torch.ops import fuser_kernel_bwd as fkb
+
+    bwd = fkb.fused_tail_bwd
+    fkb.fused_tail_bwd = lambda r, d, g, params, outer=False: bwd(r, d, g, params, not outer)
+    try:
+        yield
+    finally:
+        fkb.fused_tail_bwd = bwd
+
+
+@contextlib.contextmanager
+def plain_routes():
+    """Within: the attention modules and the fuser tail take their plain
+    routes on the card (``plain_attention_route``, and the fuser module's
+    two tail wrappers swapped for the plain tail), for a comparison only."""
+    from r3d_tpu_torch.models import fuser
+    from r3d_tpu_torch.ops import fuser_kernel as fk
+
+    orig = fuser.fused_safuser_tail, fuser.fused_bn_blend_tail
+    fuser.fused_safuser_tail = lambda r, d, p, outer=False: fk.composed_tail(r, d, p, outer)
+    fuser.fused_bn_blend_tail = lambda r, d, blend, p, outer=False: fk.composed_tail(
+        *fk.composed_bn_blend(r, d, blend), p, outer)
+    try:
+        with plain_attention_route():
+            yield
+    finally:
+        fuser.fused_safuser_tail, fuser.fused_bn_blend_tail = orig
+
+
+# ---- the fuser ablations through the CLI: futr_fusion_grad, _vary, _nox and afft ----
+
+ABLATIONS = ("futr_fusion_grad", "futr_fusion_vary", "futr_fusion_nox", "afft")
+# The grad variant's sticky step, kernels vs the plain routes on the card:
+# utkinects runs its two embeds in bf16, so a gradient into an embed's
+# weight moves by a bf16 step (2**-8 of an entry) wherever the fp32
+# cotangent at the embed's output rounds to the neighbouring bf16 value:
+# 6.1e-4 of the model's largest gradient entry in
+# depth_embed.depth_projection.weight on an H100 (4.1e-4 in a CPU
+# rehearsal of the two routes). Over the model's largest gradient entry:
+ABLATION_GRAD_TOL = 2e-3
+# the fuser's own parameters (fp32 from the embeds' outputs on), each
+# entry over the fuser's largest gradient entry
+FUSER_GRAD_TOL = 1e-4
+ABLATION_DIR = "build/ablation_phase"   # under the checkout (git-ignored), removed after
+
+
+def ablation_cli(kernels, card, model, root):
+    """``--config utkinects --model <model>`` at full width through the CLI
+    over the dataset at ``root`` (the CLI phase's 5 + 2 videos): every
+    launch count set to 0, ``train`` one seed for 2 epochs on the device
+    cache, where each training phase (epoch 0, train mode; epoch 1, sticky)
+    must launch K1's no-blend route and K2, both with the outer residual on
+    for ``futr_fusion_grad`` and off for the others (their ``*_OUTER``
+    counters or the plain ones), never K1's blend route nor the other flag,
+    and, but for ``afft`` (no transformer), the attention kernels (K4 and
+    K5 in epoch 0, K3 and K5 sticky); each validation K1's
+    no-blend route; the checkpoint's files; the 9-ratio sweep from the best
+    checkpoint and the cached val videos on the card (K1's no-blend route in
+    every chunk, K3 in the 256/512 chunks but for ``afft``) and with
+    ``--cpu``, held window by window (logits and durations within
+    ``E2E_TOL``, a MoC difference only where a decode flip is explained).
+    For ``futr_fusion_grad`` also: its training ranking on the card swaps
+    channels [0, 32), in train mode and sticky; one sticky 512-bucket step
+    through the kernels against the plain routes, and a control: the same
+    step with K2's outer-residual flag flipped must fail both its bounds.
+    Returns (train counts, sweep counts). Also the parts of a 512-bucket
+    step in epoch 0 and sticky (``train_breakdown``)."""
+    import io
+    import os
+    import shutil
+
+    import torch
+
+    from r3d_tpu_torch.cli.opts import build_parser, config_from_args, run_from_argv
+    from r3d_tpu_torch.cli.run import save_path
+    from r3d_tpu_torch.data.datasets import build_loader, build_source
+    from r3d_tpu_torch.models import build_model
+    from r3d_tpu_torch.models.fuser import mark_sticky
+    from r3d_tpu_torch.ops import fuser_kernel as fk
+    from r3d_tpu_torch.ops import fuser_kernel_bwd as fkb
+
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), ABLATION_DIR, model)
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        argv = ["--config", "utkinects", "--model", model, "--data_root", root,
+                "--model_save_path", os.path.join(work, "save"), "--seed", "1"]
+        config = config_from_args(build_parser("utkinects").parse_args(argv))
+        outer = model == "futr_fusion_grad"
+        lines, snapshots, train_counts, t_train = cli_train(argv, kernels)
+        if not any(line.startswith(CLI_ROUTE) and "views" in line for line in lines):
+            raise AssertionError(f"{model} train: the cached route's line is missing: {lines}")
+        phases = ["epoch 0 train", "epoch 0 validation", "epoch 1 train", "epoch 1 validation"]
+        per_phase, prev = {}, {}
+        for phase, snap in zip(phases, snapshots):
+            per_phase[phase] = {k: snap[k] - prev.get(k, 0) for k in snap
+                                if snap[k] - prev.get(k, 0)}
+            prev = snap
+            print(f"{model}: launches in {phase}: {per_phase[phase]}")
+        tail, bwd = ((fk.TAIL_KERNEL_OUTER, fkb.KERNEL_OUTER) if outer
+                     else (fk.TAIL_KERNEL, fkb.KERNEL))
+        tail, bwd = tail.name, bwd.name
+        never = {fk.KERNEL.name, fk.TAIL_KERNEL.name, fk.TAIL_KERNEL_OUTER.name,
+                 fkb.KERNEL.name, fkb.KERNEL_OUTER.name} - {tail, bwd}
+        attn = model != "afft"
+        want = {"epoch 0 train": (tail, bwd) + (("flash_attention_dropout", "attention_bwd")
+                                                if attn else ()),
+                "epoch 1 train": (tail, bwd) + (("flash_attention", "attention_bwd")
+                                                if attn else ()),
+                "epoch 0 validation": (tail,) + (("flash_attention",) if attn else ()),
+                "epoch 1 validation": (tail,) + (("flash_attention",) if attn else ())}
+        for phase, names in want.items():
+            missing = [n for n in names if per_phase.get(phase, {}).get(n, 0) == 0]
+            if missing:
+                raise AssertionError(f"{model} train: {phase} never launched {missing}")
+        wrong = {k: c for p in per_phase.values() for k, c in p.items()
+                 if k in never or (not attn and "attention" in k)
+                 or (k == "flash_attention_dropout" and p is per_phase["epoch 1 train"])}
+        if wrong:
+            raise AssertionError(f"{model} train: launched what its route must not: {wrong}")
+        losses = [float(x) for line in lines
+                  for x in re.findall(r"Loss ?: ?(-?[0-9.]+|nan|inf)", line)]
+        if len(losses) != 4 or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{model} train: a loss is missing or not finite: {lines}")
+        ckpt_dir = save_path(config)
+        names = sorted(os.listdir(ckpt_dir))
+        for need in ("seed_1_best", "seed_1_last", "seed_1_metrics.jsonl"):
+            if need not in names:
+                raise AssertionError(f"{model} train: no {need} in {ckpt_dir}")
+        gate = [line for line in lines if line.startswith("Best model saved")]
+        print(f"{model} [{card}]: train 2 epochs on the cached route in {t_train:.2f} s, the "
+              f"gate opened {len(gate)} times; {names}")
+
+        predict = argv + ["--predict", "--results_save_path", os.path.join(work, "results")]
+        runs = {}
+        for run, extra in (("cuda", []), ("cpu", ["--cpu"])):
+            for k in kernels:
+                k.launches = 0
+            quiet = io.StringIO() if run != "cuda" else sys.stdout
+            with SweepRecorder(kernels) as rec, contextlib.redirect_stdout(quiet):
+                t0 = time.perf_counter()
+                results = run_from_argv("utkinects", predict + extra, log=lambda *a: None)
+                if run != "cpu":
+                    torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+            runs[run] = (results, rec.chunks, dt, {k.name: k.launches for k in kernels})
+        results, chunks, t_sweep, sweep_counts = runs["cuda"]
+        cpu_res, cpu_chunks = runs["cpu"][0], runs["cpu"][1]
+        per_bucket = {}
+        for c in chunks:
+            per_bucket[c["S"]] = per_bucket.get(c["S"], 0) + 1
+            n = c["launches"]
+            if n[tail] == 0 or any(n[k] for k in never):
+                raise AssertionError(f"{model} sweep: a {c['S']}-bucket chunk launched {n}")
+            if (n["flash_attention"] > 0) != (attn and c["S"] in (256, 512)):
+                raise AssertionError(f"{model} sweep: a {c['S']}-bucket chunk launched "
+                                     f"{n['flash_attention']} K3")
+        if [c["windows"] for c in cpu_chunks] != [c["windows"] for c in chunks]:
+            raise AssertionError(f"{model} sweep: the card and the CPU swept different windows")
+        err = max(float(np.abs(a[key] - b[key]).max())
+                  for a, b in zip(chunks, cpu_chunks) for key in ("action", "duration"))
+        for c in chunks:
+            if not (np.isfinite(c["action"]).all() and np.isfinite(c["duration"]).all()):
+                raise AssertionError(f"{model} sweep: non-finite outputs in a {c['S']} chunk")
+        flipped, unexplained = decode_flips(chunks, cpu_chunks, err)
+        diff = [(k, abs(results[o][k] - cpu_res[o][k])) for o in cpu_res for k in cpu_res[o]]
+        moc_diff = max(d for k, d in diff if k.startswith("obs"))
+        n_windows = sum(len(c["windows"]) for c in chunks)
+        print(f"{model} sweep on the card [{card}]:\n{moc_table(results)}")
+        print(f"{model} sweep [{card}]: {n_windows} windows, per bucket "
+              f"{dict(sorted(per_bucket.items()))}; launches "
+              f"{ {k: c for k, c in sweep_counts.items() if c} }; card vs CPU max|logit or "
+              f"duration diff| {err:.3e} (tol {E2E_TOL}), max|MoC diff| {moc_diff:.3e}, "
+              f"{flipped} of {n_windows} windows decoded differently ({unexplained} not "
+              f"explained); MoC tables equal: {results == cpu_res}; wall {t_sweep:.2f} s on the "
+              f"card, {runs['cpu'][2]:.2f} s on the CPU")
+        if err > E2E_TOL:
+            raise AssertionError(f"{model} sweep: the card's outputs disagree with the CPU's")
+        if unexplained or (moc_diff > 0 and flipped == 0):
+            raise AssertionError(f"{model} sweep: the card's MoC table differs from the CPU's "
+                                 "where the measured errors cannot explain it")
+
+        final = final_model(ckpt_dir, "seed_1_last")
+        sources = build_source(config.data, "train_split.txt")
+        train = build_loader(sources, config.data, config.train.batch_size,
+                             config.model.n_query, seed=1, pin_memory=True)
+        batch = one_batch(train, 256, rows=config.train.batch_size)
+        if batch["features"].shape[1] != 512:
+            raise AssertionError(f"{model}: the held batch fell in bucket "
+                                 f"{batch['features'].shape[1]}, not 512")
+        train_breakdown(config, final, train, n_class=sources.n_class, label=f" ({model})",
+                        make_batch=lambda: one_batch(train, 256, rows=config.train.batch_size))
+        if outer:
+            m = build_model(config.model, sources.n_class, config.data.depth_shape).cuda()
+            m.load_state_dict(final)
+            with torch.no_grad():
+                rgb = m.embed(batch["features"].cuda())
+                dep = m.depth_embed(batch["depth_features"].cuda())
+            first = torch.arange(rgb.shape[-1], device=rgb.device) < rgb.shape[-1] // 4
+            m.train()
+            train_masks = m.fuser.masks(rgb, dep)
+            m.eval()
+            mark_sticky(m)
+            sticky_masks = m.fuser.masks(rgb, dep)
+            m.eval()
+            eval_masks = m.fuser.masks(rgb, dep)
+            ok = all(torch.equal(x, first) for x in train_masks + sticky_masks)
+            print(f"{model} [{card}]: the training ranking swaps channels "
+                  f"{torch.nonzero(train_masks[0]).flatten().tolist()} of rgb and "
+                  f"{torch.nonzero(train_masks[1]).flatten().tolist()} of depth, the sticky "
+                  f"step the same: {ok}; the eval ranking (by activation) swaps "
+                  f"{int((eval_masks[0] & first).sum())} of [0, 32) in rgb")
+            if not ok:
+                raise AssertionError(f"{model}: the training ranking on the card is not "
+                                     "channels [0, 32)")
+            plain = fp32_step_kernels_vs_plain(config, final, batch, sources.n_class, kernels)
+            with k2_outer_residual_flipped():   # a control: a K2 fault must fail the bounds
+                control = fp32_step(config, final, batch, sources.n_class, kernels)
+            _, (model_gap, worst, fuser_gap, f_worst) = grad_gaps(control[2], plain[2])
+            print(f"{model} control, K2's outer-residual flag flipped: max|grad diff| over the "
+                  f"model's largest entry {model_gap:.3e} in {worst} (tol {ABLATION_GRAD_TOL}), "
+                  f"the fuser's over its largest {fuser_gap:.3e} in {f_worst} (tol "
+                  f"{FUSER_GRAD_TOL})")
+            if not (model_gap > ABLATION_GRAD_TOL and fuser_gap > FUSER_GRAD_TOL):
+                raise AssertionError(f"{model}: the step's bounds pass a K2 fault")
+        return train_counts, sweep_counts
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def ablations(kernels, card):
+    """Write the CLI phase's dataset once, then ``ablation_cli`` for each of
+    ``ABLATIONS``. Returns model -> its (train, sweep) counts."""
+    import os
+    import shutil
+
+    data_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), ABLATION_DIR, "data")
+    shutil.rmtree(data_dir, ignore_errors=True)
+    try:
+        root = write_utkinect_dataset(data_dir, 5, 2, CLI_TRAIN_LENGTHS,
+                                      val_lengths=CLI_VAL_LENGTHS)
+        return {model: ablation_cli(kernels, card, model, root) for model in ABLATIONS}
+    finally:
+        shutil.rmtree(data_dir, ignore_errors=True)
+
+
+# ---- fuser_depth = 2: the composed fuser stack ----
+
+def fuser_depth_2(kernels, loaders):
+    """``futr_fusion_bn`` with ``fuser_depth=2`` at the utkinects widths from
+    the seeded init: one serving chunk of the 256 bucket and one dropout-off
+    train step (the 512 bucket), each on the card against the CPU, with
+    every launch count set to 0: the fuser runs its composed blocks (no K1,
+    no K2, as in JAX), the attention its kernels. Returns the counts."""
+    import dataclasses
+
+    import torch
+
+    from r3d_tpu_torch.config import get_config
+    from r3d_tpu_torch.models import build_model, init_weights
+    from r3d_tpu_torch.ops import fuser_kernel as fk
+    from r3d_tpu_torch.ops import fuser_kernel_bwd as fkb
+    from r3d_tpu_torch.serving import InferenceSession
+
+    base = get_config("utkinects")
+    cfg = base.replace(model=dataclasses.replace(base.model, fuser_depth=2))
+    model = init_weights(build_model(cfg.model, N_CLASS, cfg.data.depth_shape),
+                         torch.Generator().manual_seed(SEED))
+    if not hasattr(model.fuser.safuser, "block1"):
+        raise AssertionError("fuser_depth=2 built one block")
+    state_dict = model.state_dict()
+    for k in kernels:
+        k.launches = 0
+    session = InferenceSession(cfg, state_dict, N_CLASS, max_batch=8)
+    compare_with_cpu(session, cfg, state_dict, np.random.default_rng(SEED + 2))
+    del session
+    train_step_on_card_and_cpu(cfg, state_dict, one_batch(loaders[1], 256))
+    torch.cuda.synchronize()
+    counts = {k.name: k.launches for k in kernels}
+    print(f"fuser_depth=2: launches of a serving chunk and a train step "
+          f"{ {k: c for k, c in counts.items() if c} }")
+    fuser_launches = sum(counts[k.name] for k in (fk.KERNEL, fk.TAIL_KERNEL, fk.TAIL_KERNEL_OUTER,
+                                                   fkb.KERNEL, fkb.KERNEL_OUTER))
+    if fuser_launches or not counts["flash_attention"] or not counts["attention_bwd"]:
+        raise AssertionError(f"fuser_depth=2 took the wrong routes: {counts}")
+    return counts
+
+
+# ---- the FUTR encoder (use_encoder=True): fp32 K3-K5 with S queries ----
+
+ENCODER_SERVE = {256: (200, 256, 131, 240), 512: (400, 512, 300, 480),
+                 1024: (900, 700, 1000, 600), 2000: (1900, 1500, 2000, 1200)}
+ENCODER_FUTR_BUCKET = 3100   # the futr step's bucket: 50salads' largest
+# The futr step with the encoder against its fp32 witness, per tensor: the
+# kernels' route (fp32 scores, the weights rounded once) against the bf16
+# plain route (bf16 scores). Two encoder layers ahead of the decoder spread
+# the per-tensor ratio of their errors. On an NVIDIA H100 80GB HBM3 at
+# 700.00 W at seeds 0, 1, 2 (``encoder_witness_readings``): the kernels
+# 2.676 (heads.fc.bias), 1.431, 1.426; the many-query algorithm in PyTorch
+# (the kernels' rounding points: unnormalised bf16 weights, bf16 ds) 2.676
+# (heads.fc.bias), 1.505, 1.484; the plain version (normalised weights, an
+# fp32 backward) 1.666, 1.723, 1.571. The kernels read what their algorithm
+# reads, where the decoder-only step read 1.961 against
+# ``PROPOSED_WITNESS_FACTOR``. Every other bound of
+# ``step_kernels_vs_plain`` is the decoder-only step's.
+ENCODER_WITNESS_FACTOR = 3.0
+ENCODER_WITNESS_SEEDS = (SEED, SEED + 1, SEED + 2)
+# the encoder fit's videos: 16 of 2,100-3,400 frames, whose windows at 0.15
+# (315-510 rows) fill two batches of 8 in the 512 bucket and at 0.5
+# (1,050-1,700) two in the 2000 bucket
+ENCODER_FIT = dict(n_videos=16, vid_len_range=(2100, 3400), obs=(0.15, 0.5))
+
+
+@contextlib.contextmanager
+def composed_attention_route():
+    """Within: the attention modules' kernel branch runs the plain versions
+    on the card under autograd (``composed_attention`` and
+    ``composed_attention_dropout``: fp32 scores, the weights rounded once,
+    no kernel), for a reading only."""
+    from r3d_tpu_torch.models import layers
+    from r3d_tpu_torch.ops import attention as att
+
+    orig = layers.flash_attention, layers.flash_attention_dropout
+    layers.flash_attention = att.composed_attention
+    layers.flash_attention_dropout = att.composed_attention_dropout
+    try:
+        yield
+    finally:
+        layers.flash_attention, layers.flash_attention_dropout = orig
+
+
+def many_query_emulated(q, k, v, bias, scale):
+    """bf16 K3 and K5 (rate 0) as the many-query kernels compute them, in
+    plain PyTorch under autograd: the keys in tiles of ``MANY_KEY_TILE``,
+    an fp32 online softmax, the weights rounded to bf16 unnormalised
+    against the running max, out = acc / l in bf16; the backward from (m,
+    1 / l) and out in fp32 from the weights' bf16 high and low parts, ds
+    rounded to bf16 before the dq and dk products, dv from the weights'
+    high and low parts (``tests/test_torch_attention_rows.py``, which holds
+    the same algorithm to the plain versions and to JAX)."""
+    import torch
+
+    from r3d_tpu_torch.ops import attention as att
+
+    tile = att.MANY_KEY_TILE
+    bf = lambda x: x.to(torch.bfloat16).float()
+
+    class Emulated(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v):
+            s = att._scores(q, k, bias, scale)
+            m = torch.full(s.shape[:-1], -torch.inf, device=q.device)
+            l = torch.zeros(s.shape[:-1], device=q.device)
+            acc, acc_lo = torch.zeros(q.shape, device=q.device), torch.zeros(q.shape,
+                                                                             device=q.device)
+            for j0 in range(0, s.shape[-1], tile):
+                st, vt = s[..., j0:j0 + tile], v[:, :, j0:j0 + tile].float()
+                m_new = torch.maximum(m, st.amax(-1))
+                corr = torch.where(m_new == -torch.inf, torch.ones_like(m), torch.exp(m - m_new))
+                pt = torch.where(st == -torch.inf, 0.0, torch.exp(st - m_new[..., None]))
+                l = l * corr + pt.sum(-1)
+                acc = acc * corr[..., None] + torch.einsum("bhqk,bhkd->bhqd", bf(pt), vt)
+                acc_lo = acc_lo * corr[..., None] + torch.einsum("bhqk,bhkd->bhqd",
+                                                                 bf(pt - bf(pt)), vt)
+                m = m_new
+            inv_l = torch.where(l > 0, 1.0 / l, torch.zeros_like(l))
+            ctx.save_for_backward(q, k, v, m, inv_l, (acc + acc_lo) * inv_l[..., None])
+            return (acc * inv_l[..., None]).to(q.dtype)
+
+        @staticmethod
+        def backward(ctx, g):
+            q, k, v, m, inv_l, out32 = ctx.saved_tensors
+            s = att._scores(q, k, bias, scale)
+            qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+            w = torch.where(s == -torch.inf, 0.0, torch.exp(s - m[..., None]) * inv_l[..., None])
+            ds = w * (torch.einsum("bhqd,bhkd->bhqk", gf, vf) - (gf * out32).sum(-1)[..., None])
+            dq = torch.einsum("bhqk,bhkd->bhqd", bf(ds), kf) * scale
+            dk = torch.einsum("bhqk,bhqd->bhkd", bf(ds), qf) * scale
+            dv = (torch.einsum("bhqk,bhqd->bhkd", bf(w), gf)
+                  + torch.einsum("bhqk,bhqd->bhkd", bf(w - bf(w)), gf))
+            return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+    return Emulated.apply(q, k, v)
+
+
+@contextlib.contextmanager
+def emulated_attention_route():
+    """Within: the attention modules' kernel branch runs
+    ``many_query_emulated`` for the calls the many-query bodies take and
+    the kernels for the rest, for a reading only."""
+    from r3d_tpu_torch.models import layers
+    from r3d_tpu_torch.ops import attention as att
+
+    orig = layers.flash_attention
+    layers.flash_attention = lambda q, k, v, bias, scale: (
+        many_query_emulated(q, k, v, bias, scale) if att.many_query(q)
+        else orig(q, k, v, bias, scale))
+    try:
+        yield
+    finally:
+        layers.flash_attention = orig
+
+
+def encoder_witness_readings(cfg, batch, kernels):
+    """The futr step with the encoder (``cfg``, bf16, dropout off) from the
+    initial weights of each of ``ENCODER_WITNESS_SEEDS``, against its fp32
+    witness: the largest ratio over outputs and gradients of an error over
+    the bf16 plain route's error, for the kernels' route, for the plain
+    version (``composed_attention_route``: fp32 scores, the normalised
+    weights rounded once, the backward in fp32) and for the many-query
+    algorithm in plain PyTorch (``emulated_attention_route``: the kernels'
+    rounding points). The kernels' ratio must be at most
+    ``ENCODER_WITNESS_FACTOR`` at every seed. Returns seed -> route ->
+    (ratio, where)."""
+    import dataclasses
+
+    import torch
+
+    from r3d_tpu_torch.models import build_model, init_weights
+
+    model = dataclasses.replace(cfg.model, dropout=0.0)
+    cfg = cfg.replace(model=model)
+    cfg32 = cfg.replace(model=dataclasses.replace(model, compute_dtype="float32",
+                                                  embed_dtype=None))
+    readings = {}
+    for seed in ENCODER_WITNESS_SEEDS:
+        state_dict = init_weights(build_model(model, SALADS_CLASSES),
+                                  torch.Generator().manual_seed(seed)).state_dict()
+        steps = {"kernels": bf16_step(cfg, state_dict, batch, SALADS_CLASSES, kernels)}
+        for route, within in (("plain version", composed_attention_route),
+                              ("emulation", emulated_attention_route)):
+            with within():
+                steps[route] = bf16_step(cfg, state_dict, batch, SALADS_CLASSES, kernels)
+            if steps[route][3]:
+                raise AssertionError(f"the {route}'s route launched {steps[route][3]}")
+        with plain_attention_route():
+            plain = bf16_step(cfg, state_dict, batch, SALADS_CLASSES, kernels)
+            fp32 = bf16_step(cfg32, state_dict, batch, SALADS_CLASSES, kernels)
+        readings[seed] = {}
+        for route, step in steps.items():
+            ratio = {k: a / max(b, 1e-30)
+                     for k, (a, b) in witness_errors(step, plain, fp32).items()}
+            far = max(ratio, key=ratio.get)
+            readings[seed][route] = (ratio[far], far)
+        print(f"futr with the encoder, bucket {batch['features'].shape[1]}, seed {seed}: "
+              f"against fp32, over the bf16 plain route's error: " + ", ".join(
+                  f"{route} {r:.3f} in {where}" for route, (r, where) in readings[seed].items())
+              + f" (tol for the kernels {ENCODER_WITNESS_FACTOR})")
+        if not readings[seed]["kernels"][0] <= ENCODER_WITNESS_FACTOR:
+            raise AssertionError(f"futr with the encoder, seed {seed}: against fp32, the "
+                                 "kernels' route is further off than the bf16 plain route")
+    return readings
+
+
+def encoder(kernels, loaders):
+    """``futr_fusion_bn`` with ``use_encoder=True`` (two encoder layers) at
+    the utkinects widths from the seeded init: requests through
+    ``ServingQueue`` in the 256-2,000 buckets, every count set to 0, where
+    each bucket must launch fp32 K3 with S queries against S keys (the
+    encoder) and the 256/512 buckets also with 8 (the decoder); the card's
+    logits against the CPU's in the 2000 bucket; ``fit`` of 2 epochs (the
+    videos of ``ENCODER_FIT``, batches in the 512 and 2000 buckets), where
+    epoch 0 must launch K4 and K5 at Lq = Lk and epoch 1 (sticky) K3 and K5
+    at Lq = Lk; one dropout-off 512-bucket train step (of ``loaders``) on
+    the card against the CPU; the parts of a 2000-bucket step in epoch 0
+    and sticky (``train_breakdown``). Then ``futr`` at the 50salads widths
+    in bf16 with the encoder: one dropout-off 3100-bucket train step through
+    the kernels (the encoder's S queries on the many-query bodies) against
+    the plain route (``step_kernels_vs_plain``), and the witness readings
+    at three seeds (``encoder_witness_readings``). Returns the counts of the
+    serving run, of the fit and of each serving bucket."""
+    import dataclasses
+
+    import torch
+
+    from r3d_tpu_torch.config import get_config
+    from r3d_tpu_torch.models import build_model, init_weights
+    from r3d_tpu_torch.ops import attention as att
+    from r3d_tpu_torch.serving import InferenceSession
+
+    base = get_config("utkinects")
+    cfg = base.replace(model=dataclasses.replace(base.model, use_encoder=True))
+    model = init_weights(build_model(cfg.model, N_CLASS, cfg.data.depth_shape),
+                         torch.Generator().manual_seed(SEED))
+    layers = len(model.transformer.encoder.layers)
+    state_dict = model.state_dict()
+    session = InferenceSession(cfg, state_dict, N_CLASS, max_batch=8)
+    rng = np.random.default_rng(SEED + 3)
+    latencies, serving_counts, per_bucket = serve(session, kernels, cfg, rng, ENCODER_SERVE)
+    for S, lat in latencies.items():
+        print(f"encoder ({layers} layers) bucket {S}: {lat['requests']} requests, latency p50 "
+              f"{lat['p50_ms']:.2f} ms, max {lat['max_ms']:.2f} ms; launches "
+              f"{ {k: c for k, c in per_bucket[S].items() if c} }")
+        if not per_bucket[S][att.KERNEL_MANY.name] or S <= 512 and not per_bucket[S][
+                att.KERNEL.name]:
+            raise AssertionError(f"encoder serving: bucket {S} launched {per_bucket[S]}")
+    compare_with_cpu(session, cfg, state_dict, rng, lengths=ENCODER_SERVE[2000])
+    del session
+    want = {"epoch 0 train": (att.DROPOUT_KERNEL_MANY.name, att.BWD_KERNEL_MANY.name),
+            "epoch 1 train": (att.KERNEL_MANY.name, att.BWD_KERNEL_MANY.name)}
+    fit_counts = train(cfg, state_dict, kernels, train_loaders(cfg, **ENCODER_FIT), want)
+    print(f"encoder fit: launches {fit_counts}")
+    train_step_on_card_and_cpu(cfg, state_dict, one_batch(loaders[1], 256))
+    fit_loader = train_loaders(cfg, **ENCODER_FIT)[1]
+    train_breakdown(cfg, state_dict, fit_loader, min_len=1024, label=" (encoder, 2000)")
+
+    # futr (50salads widths, bf16) with the encoder: a 3100-bucket step
+    s_base = get_config("50salads")
+    s_cfg = s_base.replace(model=dataclasses.replace(s_base.model, use_encoder=True))
+    s_model = init_weights(build_model(s_cfg.model, SALADS_CLASSES),
+                           torch.Generator().manual_seed(SEED))
+    s_loaders = salads_loaders(s_cfg)
+    batch = one_batch(s_loaders[1], 1024)
+    if batch["features"].shape[1] != ENCODER_FUTR_BUCKET:
+        raise AssertionError(f"encoder: the futr batch fell in bucket "
+                             f"{batch['features'].shape[1]}, not {ENCODER_FUTR_BUCKET}")
+    step = step_kernels_vs_plain(s_cfg, s_model.state_dict(), batch, SALADS_CLASSES, kernels)
+    many = {k.name: step["launches"].get(k.name, 0)
+            for k in (att.KERNEL_BF16_MANY, att.DROPOUT_KERNEL_BF16_MANY,
+                      att.BWD_KERNEL_BF16_MANY)}
+    print(f"futr with the encoder, bf16, 3100 bucket: many-query launches {many}")
+    if not many[att.KERNEL_BF16_MANY.name] or not many[att.BWD_KERNEL_BF16_MANY.name]:
+        raise AssertionError(f"futr with the encoder: no S-query kernel launched: {many}")
+    encoder_witness_readings(s_cfg, batch, kernels)
+    return {"serving": serving_counts, "fit": fit_counts, "per_bucket": per_bucket}
+
+
 def main() -> int:
     import os
     import shutil
@@ -3795,9 +4592,10 @@ def main() -> int:
     device = torch.device("cuda")
 
     many = [att.KERNEL_BF16_MANY, att.DROPOUT_KERNEL_BF16_MANY, att.BWD_KERNEL_BF16_MANY]
-    kernels = [fk.KERNEL, fk.TAIL_KERNEL, fkb.KERNEL, att.KERNEL, att.DROPOUT_KERNEL,
-               att.BWD_KERNEL, att.KERNEL_BF16, att.DROPOUT_KERNEL_BF16, att.BWD_KERNEL_BF16,
-               *many, ca.FWD_KERNEL, ca.BWD_KERNEL]
+    fp32_many = [att.KERNEL_MANY, att.DROPOUT_KERNEL_MANY, att.BWD_KERNEL_MANY]
+    kernels = [fk.KERNEL, fk.TAIL_KERNEL, fk.TAIL_KERNEL_OUTER, fkb.KERNEL, fkb.KERNEL_OUTER,
+               att.KERNEL, att.DROPOUT_KERNEL, att.BWD_KERNEL, *fp32_many, att.KERNEL_BF16,
+               att.DROPOUT_KERNEL_BF16, att.BWD_KERNEL_BF16, *many, ca.FWD_KERNEL, ca.BWD_KERNEL]
     serving_kernels = [fk.KERNEL, att.KERNEL]
     t0 = time.perf_counter()
     kbuild.build_all(kernels)
@@ -3818,6 +4616,8 @@ def main() -> int:
     self_err, self_time = check_attention_bf16_self(gen, device)
     ((k6_err, k6_time), (k7_err, k7_time), (k6f_err, k6f_time),
      (k7f_err, k7f_time)) = check_cross_attention_kernels(gen, device)
+    self32_err, self32_time = check_attention_fp32_self(gen, device)
+    k1o_time, k2o_time = time_outer_residual(gen, device)
 
     # utkinects: futr_fusion_bn, fp32 after the bf16 embeds (PR 1, PR 2)
     cfg = get_config("utkinects")
@@ -3914,6 +4714,18 @@ def main() -> int:
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
 
+    # the fuser ablations through the CLI, fuser_depth=2, and the encoder
+    ablation = ablations(kernels, card)
+    for model, (a_train, a_sweep) in ablation.items():
+        print(f"launches on the {model} CLI training path: "
+              f"{ {k: c for k, c in a_train.items() if c} }; "
+              f"sweep: { {k: c for k, c in a_sweep.items() if c} }")
+    depth2_counts = fuser_depth_2(kernels, loaders)
+    enc = encoder(kernels, loaders)
+    print(f"launches on the encoder serving path: "
+          f"{ {k: c for k, c in enc['serving'].items() if c} }; fit: "
+          f"{ {k: c for k, c in enc['fit'].items() if c} }")
+
     rows = []
     utk = (counts, serving_counts)
     utkn = (n_counts, n_serving)
@@ -3960,6 +4772,11 @@ def main() -> int:
             "darai_sweep_launches": darai["darai"][1][k.name],
             "darai_gaze_launches": darai["darai_gaze"][0][k.name],
             "darai_gaze_sweep_launches": darai["darai_gaze"][1][k.name],
+            "ablation_launches": sum(a[0][k.name] for a in ablation.values()),
+            "ablation_sweep_launches": sum(a[1][k.name] for a in ablation.values()),
+            "depth2_launches": depth2_counts[k.name],
+            "encoder_launches": enc["fit"][k.name],
+            "encoder_serving_launches": enc["serving"][k.name],
             "max_abs_err": err[0], "max_err": err[1],
             "shape": t["shape"], "ms": t["ms"], "kernel_ms": t["ms"],
             "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
@@ -3969,6 +4786,31 @@ def main() -> int:
                                        "no_out32_device_ms", "dq_launch_device_ms", "peak_bytes")
                if key in t},
         })
+    # this slice's rows: K1 and K2 with the outer residual on the grad
+    # variant's path (its training and sweep), fp32 K3-K5 with S queries on
+    # the encoder's (the fit over its 512 and 2000 buckets, and the serving
+    # run's bucket of that S)
+    grad_train, grad_sweep = ablation["futr_fusion_grad"]
+    new_rows = [
+        (fk.TAIL_KERNEL_OUTER, (k1t_err, k1t_err), k1o_time, "r3d_tpu/ops/fuser_kernel.py:180",
+         grad_train[fk.TAIL_KERNEL_OUTER.name], grad_sweep[fk.TAIL_KERNEL_OUTER.name], ""),
+        (fkb.KERNEL_OUTER, k2_err, k2o_time, "r3d_tpu/ops/fuser_kernel_bwd.py:70",
+         grad_train[fkb.KERNEL_OUTER.name], grad_sweep[fkb.KERNEL_OUTER.name], "")]
+    for S in SELF32_TIMED:
+        for k, key, replaces in ((att.KERNEL_MANY, "K3", "r3d_tpu/ops/attention.py:38"),
+                                 (att.DROPOUT_KERNEL_MANY, "K4", "r3d_tpu/ops/attention.py:192"),
+                                 (att.BWD_KERNEL_MANY, "K5", "r3d_tpu/ops/attention.py:215")):
+            new_rows.append((k, self32_err[key], self32_time[key][S], replaces,
+                             enc["fit"][k.name], enc["per_bucket"][S][k.name], f" Lq=Lk={S}"))
+    for k, err, t, replaces, launches, serving, suffix in new_rows:
+        rows.append({
+            "name": k.name + (" fp32" if "fp32" in t["shape"] else "") + suffix,
+            "route": "cuda", "source": f"r3d_tpu_torch/csrc/{k.source}", "replaces": replaces,
+            "launches": launches, "serving_launches": serving,
+            "max_abs_err": err[0], "max_err": err[1], "shape": t["shape"], "ms": t["ms"],
+            "kernel_ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "library_device_ms": t["library_device_ms"]})
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

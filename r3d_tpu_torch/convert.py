@@ -13,12 +13,16 @@ applied to each leaf by its path:
   ``weight`` [num, C], untransposed;
 - the FuserBlock's flat names split at the last underscore
   (``mlp1_kernel`` -> ``mlp1.weight``, ``norm_scale`` -> ``norm.weight``);
-- ``layer{i}`` becomes ``layers.{i}``;
+- ``layer{i}`` becomes ``layers.{i}`` (the decoder's and the encoder's,
+  ``encoder/layer{i}`` -> ``encoder.layers.{i}``); the fuser's blocks
+  ``safuser/block{i}`` keep their names;
 - BatchNorm statistics ``mean`` / ``var`` become ``running_mean`` /
   ``running_var``;
 - everything else (``pos_embedding`` [1, L, C], the raw ``query_embed``
-  parameter [Q, C] of FUTR and of ``temp2``, ``alpha`` [1, 1, C], biases)
-  keeps its name and shape.
+  parameter [Q, C] of FUTR and of ``temp2``, ``alpha`` [1, 1, C] of the BN
+  and vary fusers, ``modality_token`` [1, 1, 1, C], biases) keeps its name
+  and shape, and ``afft``'s Dense heads ``fc`` and ``fc_len`` convert as
+  any Dense.
 
 The rules are local to a leaf, so any subtree of a flax model converts to
 the ``state_dict`` of the port's module at the same place.

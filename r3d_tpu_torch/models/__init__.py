@@ -1,10 +1,13 @@
 """Model registry of the port, and the seeded init that mirrors flax's.
 
-Ported: ``futr_fusion_bn`` (fp32 compute), ``futr``, ``futr_baseline``,
-``futr_proposed``, ``futr_unsupervised``, ``futr_unsupervised_temp2``,
-``futr_unsupervised_temp3`` and ``futr_gaze`` (fp32 or bf16 compute). The
-other models of ``r3d_tpu/models/__init__.py`` raise
-``NotImplementedError`` naming their ROADMAP item.
+Ported: the fusion models ``futr_fusion_bn``, ``futr_fusion_grad``,
+``futr_fusion_vary``, ``futr_fusion_nox`` and ``afft`` (fp32 compute, any
+``fuser_depth``), ``futr``, ``futr_baseline``, ``futr_proposed``,
+``futr_unsupervised``, ``futr_unsupervised_temp2``,
+``futr_unsupervised_temp3`` and ``futr_gaze`` (fp32 or bf16 compute), each
+with or without ``use_encoder``. The other models of
+``r3d_tpu/models/__init__.py`` raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -16,23 +19,14 @@ import torch
 from torch import nn
 
 from r3d_tpu_torch.config import ModelConfig
-from r3d_tpu_torch.models.fuser import CMFuserBN, TorchBatchNorm
+from r3d_tpu_torch.models.fuser import CMFuserBN, CMFuserNoExchange, CMFuserVary, TorchBatchNorm
 from r3d_tpu_torch.models.futr import FUTR
-from r3d_tpu_torch.models.futr_fusion import FUTRFusion
+from r3d_tpu_torch.models.futr_fusion import FUSERS, FUTRFusion
 from r3d_tpu_torch.models.futr_unsupervised import FUTRUnsupervised
 from r3d_tpu_torch.models.layers import DTYPES
 
-_FUSION_MODELS = {
-    "futr_fusion_bn",
-    "futr_fusion_grad",
-    "futr_fusion_vary",
-    "futr_fusion_nox",
-    "afft",
-}
-
-
 def is_fusion_model(name: str) -> bool:
-    return name in _FUSION_MODELS
+    return name in FUSERS
 
 
 # Models whose forward takes (features, query, src_pad_mask, query_len):
@@ -82,7 +76,7 @@ def build_model(cfg: ModelConfig, n_class: int,
         raise NotImplementedError(
             "the fusion models run in float32 only (no config asks for another "
             "compute_dtype; ROADMAP queue A, item A11)")
-    if cfg.model == "futr_fusion_bn":
+    if cfg.model in FUSERS:
         return FUTRFusion(cfg, n_class, math.prod(depth_shape))
     raise NotImplementedError(
         f"model {cfg.model!r} is not ported yet (ROADMAP queue A, item A11)")
@@ -107,7 +101,9 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Random weights drawn as the flax init draws them (not the same
     numbers): xavier-uniform Linear weights and pos_embedding, zero biases,
     LayerNorm and BatchNorm at ones/zeros with unit running variance,
-    FUTR's query_embed ~ N(0, 1), alpha ~ U(0, 1), an Embedding's table
+    FUTR's query_embed ~ N(0, 1), ``futr_fusion_bn``'s alpha ~ U(0, 1) and
+    ``futr_fusion_vary``'s at ones, the modality token of
+    ``futr_fusion_nox`` and ``afft`` ~ N(0, 1), an Embedding's table
     xavier-uniform with fan_in its rows and fan_out its width (flax's
     ``Embed(embedding_init=xavier)``), the raw ``query_embed`` of ``temp2``
     xavier-uniform, and a Conv2d's kernel as flax's ``Conv`` default
@@ -130,6 +126,10 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
             _xavier_(m.weight, m.num_embeddings, m.embedding_dim, generator)
         elif isinstance(m, CMFuserBN):
             m.alpha.uniform_(0.0, 1.0, generator=generator)
+        elif isinstance(m, CMFuserVary):
+            m.alpha.fill_(1.0)
+        elif isinstance(m, CMFuserNoExchange):
+            m.modality_token.normal_(0.0, 1.0, generator=generator)
         elif isinstance(m, (FUTR, FUTRFusion, FUTRUnsupervised)):
             if hasattr(m, "pos_embedding"):
                 _, L, C = m.pos_embedding.shape

@@ -1,20 +1,41 @@
-"""Rank-enhancing Token Fuser, BN variant (``CMFuserBN``).
+"""Rank-enhancing Token Fuser variants.
 
-Counterpart of ``r3d_tpu/models/fuser.py:38-345``. Per-modality BatchNorm
-(batch statistics in train mode, running statistics in eval mode or when
-``frozen``), the bottom 10 % of channels by |gamma| alpha-blended across the
-modalities, dropout, then the two-token SA-Fuser tail without outer
-residual. The two-token self-attention with its -inf diagonal is exactly a
-value swap, so the block's attention needs only the V third of ``qkv`` and
-``proj``, prefolded into ``Wvp = W_proj @ W_v``. Without dropout the whole
-fuser is one call of ``ops.fuser_kernel.fused_bn_blend_tail``; with it, the
-blend and the dropout run in PyTorch and the tail is
-``ops.fuser_kernel.fused_safuser_tail`` (``r3d_tpu/models/fuser.py:229-276``).
+Counterpart of ``r3d_tpu/models/fuser.py``. Each variant exchanges channels
+between the two modality streams, then runs the SA-Fuser tail
+(``_SAFuserCore``): dropout, ``depth`` pre-norm blocks over the two tokens,
+an optional outer residual, the output LayerNorm and the mean over the two
+tokens.
+
+- ``CMFuserBN`` (``futr_fusion_bn``): per-modality BatchNorm (batch
+  statistics in train mode, running statistics in eval mode or when
+  ``frozen``), the bottom 10 % of channels by |gamma| alpha-blended across
+  the modalities; no outer residual.
+- ``CMFuserGrad`` (``futr_fusion_grad``): the bottom quarter of channels by
+  a gradient probe in train mode (a constant, so the first quarter) or by
+  mean |activation| in eval mode, hard-swapped; the outer residual.
+- ``CMFuserVary`` (``futr_fusion_vary``): the bottom quarter by mean
+  |activation| always, the exchanged channels ``alpha * other``.
+- ``CMFuserNoExchange`` (``futr_fusion_nox`` and ``afft``): a learned
+  modality token added to both streams, no exchange.
+
+The two-token self-attention with its -inf diagonal is exactly a value
+swap, so a block's attention needs only the V third of ``qkv`` and
+``proj`` (JAX's ``two_token_exact``, the only form its fusers build). With
+one block the tail is one kernel (``r3d_tpu/models/fuser.py:229-276``):
+without dropout ``CMFuserBN``'s whole fuser is
+``ops.fuser_kernel.fused_bn_blend_tail``; otherwise the exchange and the
+dropout run in PyTorch and the tail is ``ops.fuser_kernel.fused_safuser_tail``
+(K1's no-blend route, K2 its backward), with ``Wvp = W_proj @ W_v``
+prefolded. With ``depth > 1`` the blocks run composed, as in JAX, which has
+no kernel there.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from r3d_tpu_torch.models.layers import Dropout
@@ -81,8 +102,9 @@ def bottomk_mask(scores: torch.Tensor, k: int) -> torch.Tensor:
 
 
 class FuserBlock(nn.Module):
-    """Parameters of the pre-norm timm Block of the SA-Fuser. Only the exact
-    two-token form is ported, which reads them through ``_SAFuserCore``."""
+    """The pre-norm timm Block of the SA-Fuser over two tokens with the -inf
+    diagonal, in its exact closed form (``r3d_tpu/models/fuser.py:163-171``):
+    each token's attention output is the projected value of the other."""
 
     def __init__(self, dim: int, mlp_ratio: float = 4.0):
         super().__init__()
@@ -94,14 +116,29 @@ class FuserBlock(nn.Module):
         self.mlp1 = nn.Linear(dim, hidden)
         self.mlp2 = nn.Linear(hidden, dim)
 
+    def forward(self, x):
+        """[N, 2, C] -> [N, 2, C]."""
+        C = x.shape[-1]
+        v = F.linear(self.norm1(x), self.qkv.weight[2 * C:])
+        x = x + self.proj(v.flip(1))
+        return x + self.mlp2(F.gelu(self.mlp1(self.norm2(x)), approximate="none"))
+
 
 class _SAFuserCore(nn.Module):
-    """The BN-blend prologue, dropout, one FuserBlock, the output LayerNorm
-    and the mean over the two modality tokens."""
+    """The optional BN-blend prologue, dropout, ``depth`` FuserBlocks, the
+    optional outer residual around them, the output LayerNorm and the mean
+    over the two modality tokens. One block takes the kernels; more run
+    composed (JAX's ``kernel_ok``)."""
 
-    def __init__(self, dim: int, drop_rate: float = 0.1):
+    def __init__(self, dim: int, depth: int = 1, outer_residual: bool = False,
+                 drop_rate: float = 0.1):
         super().__init__()
-        self.block0 = FuserBlock(dim)
+        if depth < 1:
+            raise ValueError(f"fuser depth {depth} < 1")
+        self.depth = depth
+        self.outer_residual = outer_residual
+        for i in range(depth):
+            setattr(self, f"block{i}", FuserBlock(dim))
         self.norm = nn.LayerNorm(dim, eps=1e-5)
         self.drop = Dropout(drop_rate)
 
@@ -117,20 +154,36 @@ class _SAFuserCore(nn.Module):
             norm_out_scale=self.norm.weight, norm_out_bias=self.norm.bias,
         )
 
-    def forward(self, rgb, depth, blend: BlendParams):
-        """Raw [B, T, C] streams -> fused [B, T, C]."""
+    def forward(self, rgb, depth, blend: Optional[BlendParams] = None):
+        """[B, T, C] streams -> fused [B, T, C]. With ``blend`` the streams
+        are the raw ones and the BN-affine and alpha-blend come first."""
         B, T, C = rgb.shape
         r = rgb.reshape(B * T, C).contiguous()
         d = depth.reshape(B * T, C).contiguous()
-        params = self.tail_params()
         no_dropout = not self.training or self.drop.rate == 0.0
-        if no_dropout:
-            fused = fused_bn_blend_tail(r, d, blend, params)
-        else:
-            ex_r, ex_d = composed_bn_blend(r, d, blend)
-            fused = fused_safuser_tail(self.drop(ex_r).contiguous(),
-                                       self.drop(ex_d).contiguous(), params)
-        return fused.reshape(B, T, C)
+        if self.depth == 1 and blend is not None and no_dropout:
+            fused = fused_bn_blend_tail(r, d, blend, self.tail_params(), self.outer_residual)
+            return fused.reshape(B, T, C)
+        if blend is not None:
+            r, d = composed_bn_blend(r, d, blend)
+        r, d = self.drop(r), self.drop(d)
+        if self.depth == 1:
+            fused = fused_safuser_tail(r.contiguous(), d.contiguous(), self.tail_params(),
+                                       self.outer_residual)
+            return fused.reshape(B, T, C)
+        x = x_res = torch.stack([r, d], dim=1)
+        for i in range(self.depth):
+            x = getattr(self, f"block{i}")(x)
+        if self.outer_residual:
+            x = x + x_res
+        return self.norm(x).mean(dim=1).reshape(B, T, C)
+
+
+def _activation_masks(rgb, depth, k: int):
+    """Bottom-k masks of each stream's channels by mean |activation| over
+    (B, T), pad rows included, as JAX ranks them."""
+    return (bottomk_mask(rgb.abs().mean(dim=(0, 1)), k),
+            bottomk_mask(depth.abs().mean(dim=(0, 1)), k))
 
 
 class CMFuserBN(nn.Module):
@@ -141,14 +194,12 @@ class CMFuserBN(nn.Module):
     def __init__(self, dim: int, depth: int = 1, exchange_frac: float = 0.1,
                  drop_rate: float = 0.1, frozen: bool = False):
         super().__init__()
-        if depth != 1:
-            raise NotImplementedError("fuser_depth > 1 is not ported")
         self.exchange_frac = exchange_frac
         self.frozen = frozen
         self.bn_rgb = TorchBatchNorm(dim)
         self.bn_depth = TorchBatchNorm(dim)
         self.alpha = nn.Parameter(torch.rand(1, 1, dim))
-        self.safuser = _SAFuserCore(dim, drop_rate)
+        self.safuser = _SAFuserCore(dim, depth, drop_rate=drop_rate)
 
     def forward(self, rgb, depth):
         C = rgb.shape[-1]
@@ -163,3 +214,84 @@ class CMFuserBN(nn.Module):
             alpha=self.alpha.reshape(C),
         )
         return self.safuser(rgb, depth, blend)
+
+
+class CMFuserGrad(nn.Module):
+    """Gradient-probe variant: the bottom quarter of each stream's channels
+    hard-swapped with the other stream's, SA-Fuser tail with the outer
+    residual. The ranking: in a training forward JAX ranks by
+    |d(mean(rgb) + mean(depth)) / d stream| averaged over (B, T), which is
+    1/numel for every channel, so its bottom-k takes the first quarter
+    (COMPAT #2, #10); in eval mode by mean |activation|.
+
+    ``sticky``: the sticky-eval training epochs run the module-eval forward
+    (``model.eval()``) but rank as JAX's frozen twin does, which it applies
+    with ``train=True``: by the probe. The trainer sets it after
+    ``model.train(False)``; every ``train()`` / ``eval()`` clears it."""
+
+    def __init__(self, dim: int, depth: int = 1, drop_rate: float = 0.1):
+        super().__init__()
+        self.sticky = False
+        self.safuser = _SAFuserCore(dim, depth, outer_residual=True, drop_rate=drop_rate)
+
+    def train(self, mode: bool = True):
+        self.sticky = False
+        return super().train(mode)
+
+    def masks(self, rgb, depth):
+        """(mask_rgb, mask_depth), [C] bool: the channels that swap."""
+        C = rgb.shape[-1]
+        k = C // 4
+        if self.training or self.sticky:
+            # the probe's scores are all equal; the first k, with no sum whose
+            # rounding could reorder the ties
+            first = torch.arange(C, device=rgb.device) < k
+            return first, first
+        return _activation_masks(rgb, depth, k)
+
+    def forward(self, rgb, depth):
+        mask_r, mask_d = self.masks(rgb, depth)
+        return self.safuser(torch.where(mask_r, depth, rgb), torch.where(mask_d, rgb, depth))
+
+
+class CMFuserVary(nn.Module):
+    """Vary ablation: the bottom quarter of each stream's channels by mean
+    |activation| (in every mode) become ``alpha * other``, alpha initialised
+    to ones; SA-Fuser tail without the outer residual."""
+
+    def __init__(self, dim: int, depth: int = 1, drop_rate: float = 0.1):
+        super().__init__()
+        self.alpha = nn.Parameter(torch.ones(1, 1, dim))
+        self.safuser = _SAFuserCore(dim, depth, drop_rate=drop_rate)
+
+    def masks(self, rgb, depth):
+        return _activation_masks(rgb, depth, rgb.shape[-1] // 4)
+
+    def forward(self, rgb, depth):
+        mask_r, mask_d = self.masks(rgb, depth)
+        a = self.alpha.to(rgb.dtype)
+        return self.safuser(torch.where(mask_r, a * depth, rgb),
+                            torch.where(mask_d, a * rgb, depth))
+
+
+class CMFuserNoExchange(nn.Module):
+    """AFFT-style fusion without exchange (``futr_fusion_nox``, ``afft``): a
+    learned modality token, N(0, 1) at init, added to both streams, then the
+    SA-Fuser tail without the outer residual."""
+
+    def __init__(self, dim: int, depth: int = 1, drop_rate: float = 0.1):
+        super().__init__()
+        self.modality_token = nn.Parameter(torch.zeros(1, 1, 1, dim))
+        self.safuser = _SAFuserCore(dim, depth, drop_rate=drop_rate)
+
+    def forward(self, rgb, depth):
+        tok = self.modality_token.reshape(-1).to(rgb.dtype)
+        return self.safuser(rgb + tok, depth + tok)
+
+
+def mark_sticky(model: nn.Module) -> None:
+    """Let every ``CMFuserGrad`` of ``model`` (already in eval mode) rank by
+    the probe, as JAX's frozen twin does in the sticky epochs."""
+    for m in model.modules():
+        if isinstance(m, CMFuserGrad):
+            m.sticky = True

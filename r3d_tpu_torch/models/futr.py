@@ -76,7 +76,7 @@ class Heads(nn.Module):
 class FUTR(nn.Module):
     """The baseline FUTR: input embed, learned positions added to the keys
     and values, the decoder over learned action queries against the embedded
-    stream (encoder bypassed), then the heads. Train mode
+    stream (the encoder bypassed unless ``use_encoder``), then the heads. Train mode
     (``module.train()``) turns on every dropout."""
 
     def __init__(self, cfg: ModelConfig, n_class: int, emit_supcon: bool = False):
@@ -88,9 +88,10 @@ class FUTR(nn.Module):
         if cfg.pos_emb:
             self.pos_embedding = nn.Parameter(torch.zeros(1, cfg.max_pos_len, C))
         self.query_embed = nn.Parameter(torch.zeros(cfg.n_query, C))
-        self.transformer = FUTRTransformer(C, cfg.n_head, cfg.n_decoder_layers, 4 * C,
-                                           use_encoder=cfg.use_encoder, dropout=cfg.dropout,
-                                           dtype=compute_dtype(cfg))
+        self.transformer = FUTRTransformer(
+            C, cfg.n_head, cfg.n_decoder_layers, 4 * C,
+            n_encoder_layers=cfg.n_encoder_layers if cfg.use_encoder else 0,
+            dropout=cfg.dropout, dtype=compute_dtype(cfg))
         self.heads = Heads(cfg, n_class)
 
     def forward(self, features, src_pad_mask: Optional[torch.Tensor] = None

@@ -1,9 +1,13 @@
-"""RGB + depth fusion FUTR (``futr_fusion_bn``).
+"""RGB + depth fusion FUTR: ``futr_fusion_bn`` and the fuser ablations
+``futr_fusion_grad``, ``futr_fusion_vary``, ``futr_fusion_nox`` and ``afft``.
 
 Counterpart of ``r3d_tpu/models/futr_fusion.py``: embed RGB, project + LN +
-ReLU the raw depth frames, fuse them with ``CMFuserBN``, run the decoder over
-the learned action queries against the fused stream (encoder bypassed), then
-the heads. The fusion models' seg head is ``n_class`` wide. Train mode
+ReLU the raw depth frames, fuse them with the model's fuser (``FUSERS``),
+run the transformer (the encoder bypassed unless ``use_encoder``) with the
+learned action queries against the fused stream, then the heads. The
+fusion models' seg head is ``n_class`` wide. ``afft`` bypasses the
+transformer: the fused stream, pooled to ``n_query`` rows, goes through
+``fc`` and ``fc_len`` only (no ``seg``, no ``fused`` output). Train mode
 (``module.train()``) turns on the batch-statistics BatchNorm and every
 dropout; ``module.eval()`` is the reference's module-eval forward.
 """
@@ -16,10 +20,18 @@ import torch
 from torch import nn
 
 from r3d_tpu_torch.config import ModelConfig
-from r3d_tpu_torch.models.fuser import CMFuserBN
+from r3d_tpu_torch.models.fuser import CMFuserBN, CMFuserGrad, CMFuserNoExchange, CMFuserVary
 from r3d_tpu_torch.models.futr import Heads, InputEmbed, compute_dtype, embed_dtype
-from r3d_tpu_torch.models.layers import linear_in
+from r3d_tpu_torch.models.layers import adaptive_avg_pool1d, linear_in
 from r3d_tpu_torch.models.transformer import FUTRTransformer
+
+FUSERS = {
+    "futr_fusion_bn": CMFuserBN,
+    "futr_fusion_grad": CMFuserGrad,
+    "futr_fusion_vary": CMFuserVary,
+    "futr_fusion_nox": CMFuserNoExchange,
+    "afft": CMFuserNoExchange,
+}
 
 
 class DepthEmbed(nn.Module):
@@ -42,20 +54,30 @@ class FUTRFusion(nn.Module):
 
     def __init__(self, cfg: ModelConfig, n_class: int, depth_dim: int):
         super().__init__()
-        if cfg.model != "futr_fusion_bn":
-            raise NotImplementedError(f"fusion model {cfg.model!r} is not ported")
+        if cfg.model not in FUSERS:
+            raise ValueError(f"{cfg.model!r} is not a fusion model")
         self.cfg = cfg
         C = cfg.hidden_dim
         self.embed = InputEmbed(cfg)
         self.depth_embed = DepthEmbed(cfg, depth_dim)
-        self.fuser = CMFuserBN(C, depth=cfg.fuser_depth,
-                               exchange_frac=cfg.fuser_exchange_frac,
-                               drop_rate=cfg.fuser_dropout, frozen=cfg.frozen_stats)
+        kw = dict(depth=cfg.fuser_depth, drop_rate=cfg.fuser_dropout)
+        if cfg.model == "futr_fusion_bn":
+            # the BN variant's bottom-k fraction and the sticky epochs' frozen
+            # statistics; grad and vary fix C // 4
+            kw.update(exchange_frac=cfg.fuser_exchange_frac, frozen=cfg.frozen_stats)
+        self.fuser = FUSERS[cfg.model](C, **kw)
+        if cfg.model == "afft":
+            if cfg.anticipate:
+                self.fc = nn.Linear(C, n_class)
+                self.fc_len = nn.Linear(C, 1)
+            return
         if cfg.pos_emb:
             self.pos_embedding = nn.Parameter(torch.zeros(1, cfg.max_pos_len, C))
         self.query_embed = nn.Parameter(torch.zeros(cfg.n_query, C))
-        self.transformer = FUTRTransformer(C, cfg.n_head, cfg.n_decoder_layers, 4 * C,
-                                           use_encoder=cfg.use_encoder, dropout=cfg.dropout)
+        self.transformer = FUTRTransformer(
+            C, cfg.n_head, cfg.n_decoder_layers, 4 * C,
+            n_encoder_layers=cfg.n_encoder_layers if cfg.use_encoder else 0,
+            dropout=cfg.dropout)
         self.heads = Heads(cfg, n_class)
 
     def forward(self, features, depth_features,
@@ -67,6 +89,15 @@ class FUTRFusion(nn.Module):
         src = self.embed(features)
         depth = self.depth_embed(depth_features)
         fused = self.fuser(src, depth)
+        if cfg.model == "afft":
+            # the transformer bypassed: the heads on the fused stream pooled
+            # to n_query rows, no mask (afft.py:174-201)
+            out: Dict[str, torch.Tensor] = {}
+            if cfg.anticipate:
+                pooled = adaptive_avg_pool1d(fused, cfg.n_query)
+                out["action"] = self.fc(pooled).float()
+                out["duration"] = self.fc_len(pooled)[..., 0].float()
+            return out
         pos = None
         if cfg.pos_emb:
             pos = self.pos_embedding[:, :S].to(src.dtype).expand(B, S, cfg.hidden_dim)

@@ -132,9 +132,10 @@ class FUTRUnsupervised(nn.Module):
             self.l3_attention = MultiheadAttention(C, cfg.n_head, 0.0, dt)
             if variant == "temp2":
                 self.query_embed = nn.Parameter(torch.zeros(cfg.n_query, C))
-        self.transformer = FUTRTransformer(C, cfg.n_head, cfg.n_decoder_layers, 4 * C,
-                                           use_encoder=cfg.use_encoder, dropout=cfg.dropout,
-                                           dtype=dt)
+        self.transformer = FUTRTransformer(
+            C, cfg.n_head, cfg.n_decoder_layers, 4 * C,
+            n_encoder_layers=cfg.n_encoder_layers if cfg.use_encoder else 0,
+            dropout=cfg.dropout, dtype=dt)
         self.heads = Heads(cfg, n_class)
         if query_source != "gaze":
             self.fc_l3 = nn.Linear(C, cfg.query_num)

@@ -185,6 +185,29 @@ class FeedForward(nn.Module):
         return linear_in(h, self.linear2, self.dtype)
 
 
+class EncoderLayer(nn.Module):
+    """Post-norm encoder layer (``r3d_tpu/models/layers.py:223-253``):
+    self-attention with ``src + pos`` as queries, keys and values under the
+    key-padding mask, then the FFN, each added back through dropout. At S
+    of 256 or more the self-attention takes the attention kernels (S
+    queries against S keys)."""
+
+    def __init__(self, dim: int, n_head: int, ffn_dim: int, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.self_attn = MultiheadAttention(dim, n_head, dropout, dtype)
+        self.norm1 = LayerNorm(dim, dtype)
+        self.norm2 = LayerNorm(dim, dtype)
+        self.ffn = FeedForward(dim, ffn_dim, dropout, dtype)
+        self.drop1 = Dropout(dropout)
+        self.drop2 = Dropout(dropout)
+
+    def forward(self, src, pos, key_padding_mask=None):
+        qkv = src if pos is None else src + pos
+        src = self.norm1(src + self.drop1(self.self_attn(qkv, qkv, qkv, key_padding_mask)))
+        return self.norm2(src + self.drop2(self.ffn(src)))
+
+
 class DecoderLayer(nn.Module):
     """Post-norm decoder layer: query self-attention, cross-attention into
     (memory + pos) keys and values, FFN, each added back through dropout.

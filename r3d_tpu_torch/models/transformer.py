@@ -1,10 +1,12 @@
-"""FUTR decoder stack with the bypassed encoder.
+"""FUTR encoder-decoder stack.
 
 Counterpart of ``r3d_tpu/models/transformer.py``. Every reference entry
-point runs with the encoder bypassed (``memory = src``), and so does the
-port: ``use_encoder=True`` and the L3 query generation (``query_pos=None``,
+point runs with the encoder bypassed (``memory = src``, COMPAT #1), and so
+does the port by default; ``use_encoder=True`` runs the post-norm encoder
+stack over the source first (``r3d_tpu/models/transformer.py:24-47,
+240-248``). The L3 query generation (``query_pos=None``,
 ``r3d_tpu/models/transformer.py:251-262``, which no model of the JAX
-package reaches) are not ported yet (ROADMAP queue A, item A11.4).
+package reaches) is not ported yet (ROADMAP queue A, item A11.4).
 """
 
 from __future__ import annotations
@@ -12,7 +14,24 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from r3d_tpu_torch.models.layers import DecoderLayer, LayerNorm
+from r3d_tpu_torch.models.layers import DecoderLayer, EncoderLayer, LayerNorm
+
+
+class TransformerEncoder(nn.Module):
+    """Sequential encoder layers, no final LayerNorm (as JAX's)."""
+
+    def __init__(self, dim: int, n_head: int, n_layers: int, ffn_dim: int,
+                 dropout: float = 0.0, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            EncoderLayer(dim, n_head, ffn_dim, dropout, dtype) for _ in range(n_layers)
+        )
+
+    def forward(self, src, pos, key_padding_mask=None):
+        out = src
+        for layer in self.layers:
+            out = layer(out, pos, key_padding_mask)
+        return out
 
 
 class TransformerDecoder(nn.Module):
@@ -37,15 +56,16 @@ class TransformerDecoder(nn.Module):
 
 
 class FUTRTransformer(nn.Module):
-    """(memory, hs) = transformer(src, pos, queries) with memory = src."""
+    """(memory, hs) = transformer(src, pos, queries): memory = src, or the
+    encoder stack of ``n_encoder_layers`` over it (none at 0, the config's
+    ``use_encoder=False``)."""
 
     def __init__(self, dim: int, n_head: int, n_decoder_layers: int, ffn_dim: int,
-                 use_encoder: bool = False, dropout: float = 0.0,
+                 n_encoder_layers: int = 0, dropout: float = 0.0,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if use_encoder:
-            raise NotImplementedError(
-                "use_encoder=True is not ported yet (ROADMAP queue A, item A11.4)")
+        self.encoder = (TransformerEncoder(dim, n_head, n_encoder_layers, ffn_dim, dropout, dtype)
+                        if n_encoder_layers else None)
         self.decoder = TransformerDecoder(dim, n_head, n_decoder_layers, ffn_dim, dropout,
                                           dtype)
 
@@ -57,7 +77,7 @@ class FUTRTransformer(nn.Module):
             raise NotImplementedError(
                 "L3 query generation (query_pos=None) is not ported yet "
                 "(ROADMAP queue A, item A11.4)")
-        memory = src
+        memory = src if self.encoder is None else self.encoder(src, pos, src_key_padding_mask)
         hs = self.decoder(query_pos.new_zeros(query_pos.shape), memory, pos,
                           query_pos, src_key_padding_mask, tgt_key_padding_mask)
         return memory, hs

@@ -105,6 +105,13 @@ BWD_KERNEL_BF16_MANY = Kernel(   # q, k, v, bias, g, out32, stats, keep bits, Dq
     [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
     + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
 )
+# fp32 calls with MANY_QUERY_MIN queries or more (the encoder's S queries):
+# the same bodies as KERNEL, DROPOUT_KERNEL and BWD_KERNEL, counted apart
+KERNEL_MANY = Kernel("flash_attention_many", KERNEL.source, KERNEL.symbol, KERNEL.argtypes)
+DROPOUT_KERNEL_MANY = Kernel("flash_attention_dropout_many", DROPOUT_KERNEL.source,
+                             DROPOUT_KERNEL.symbol, DROPOUT_KERNEL.argtypes)
+BWD_KERNEL_MANY = Kernel("attention_bwd_many", BWD_KERNEL.source, BWD_KERNEL.symbol,
+                         BWD_KERNEL.argtypes)
 _BY_DTYPE = {  # (forward, dropout forward, backward) per input dtype
     torch.float32: (KERNEL, DROPOUT_KERNEL, BWD_KERNEL),
     torch.bfloat16: (KERNEL_BF16, DROPOUT_KERNEL_BF16, BWD_KERNEL_BF16),
@@ -115,7 +122,7 @@ FWD_SPLIT_UNIT = 128              # csrc/attention.cu: NW * KT, one tile of keys
 FWD_MAX_SPLITS = 8                # csrc/attention_cluster.cuh: kMaxSplits, blocks per cluster
 FP32_SPLIT_UNIT = 64              # csrc/attention_cluster.cuh: kF32KT, a tile of the fp32 bodies
 FP32_QUERY_TILE = 8               # csrc/attention_cluster.cuh: kF32QT, queries a block takes at a time
-MANY_QUERY_MIN = 33               # bf16 calls with this many queries or more: the many-query bodies
+MANY_QUERY_MIN = 33               # from this many queries: bf16 the many-query bodies, fp32 *_MANY
 MANY_KEY_TILE = 64                # csrc/attention_many.cuh: kManyKeyTile, keys per tile
 
 _U32 = 0xFFFFFFFF
@@ -191,6 +198,15 @@ def many_query(q) -> bool:
     queries the many-query K3 and K5 are both ahead). The few-query bodies
     keep the rest."""
     return q.dtype == torch.bfloat16 and q.shape[2] >= MANY_QUERY_MIN
+
+
+def _counters(q):
+    """The (forward, dropout forward, backward) kernels that count a call
+    on ``q`` off the many-query bodies: by dtype, and for fp32 with
+    ``MANY_QUERY_MIN`` queries or more the ``*_MANY`` counters."""
+    if q.dtype == torch.float32 and q.shape[2] >= MANY_QUERY_MIN:
+        return KERNEL_MANY, DROPOUT_KERNEL_MANY, BWD_KERNEL_MANY
+    return _BY_DTYPE[q.dtype]
 
 
 def _scores(q, k, bias, scale):
@@ -323,8 +339,8 @@ def _attention_fwd(q, k, v, bias, scale, for_grad=False):
         return _many_fwd(q, k, v, bias, scale, for_grad)
     shape = _fwd_shape("flash_attention", q, k, v, bias)
     out = torch.empty_like(q)
-    _BY_DTYPE[q.dtype][0].launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
-                                 out.data_ptr(), *shape, float(scale), _stream(q))
+    _counters(q)[0].launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
+                           out.data_ptr(), *shape, float(scale), _stream(q))
     return out, None
 
 
@@ -340,7 +356,7 @@ def _attention_fwd_dropout(q, k, v, bias, seed, scale, rate, for_grad=False):
         return _many_fwd(q, k, v, bias, scale, for_grad, drop)
     shape = _fwd_shape("flash_attention_dropout", q, k, v, bias)
     out = torch.empty_like(q)
-    _BY_DTYPE[q.dtype][1].launch(
+    _counters(q)[1].launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), out.data_ptr(), *shape,
         float(scale), *drop, _stream(q))
     return out, None
@@ -402,7 +418,7 @@ def attention_bwd(q, k, v, bias, seed: int, scale, rate: float, g,
         _check_aligned("attention_bwd", q=q, k=k, v=v, g=g)
         if B * H > 65535:
             raise ValueError("attention_bwd: B*H must be at most 65535 (the grid's y)")
-        BWD_KERNEL.launch(
+        _counters(q)[2].launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), g.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), _ptr(dbias), B, H, Lq, Lk, D, fp32_split_keys(Lk),
             *tail)

@@ -113,6 +113,8 @@ TAIL_KERNEL = Kernel(
     "fused_safuser_tail", "fuser_tail.cu", "r3d_fused_safuser_tail",
     [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
 )
+TAIL_KERNEL_OUTER = Kernel(   # TAIL_KERNEL's calls with the outer residual, counted apart
+    "fused_safuser_tail_outer", TAIL_KERNEL.source, TAIL_KERNEL.symbol, TAIL_KERNEL.argtypes)
 KERNEL_CHANNELS = 128   # csrc/fuser_tail.cu: C
 KERNEL_HIDDEN_CHUNK = 128
 
@@ -174,7 +176,7 @@ def _safuser_tail_fwd(r, d, params, outer_residual):
         return composed_tail(r, d, params, outer_residual)
     N, C, Ch = check_kernel_inputs("fused_safuser_tail", {"r": r, "d": d}, params)
     out = torch.empty_like(r)
-    TAIL_KERNEL.launch(
+    (TAIL_KERNEL_OUTER if outer_residual else TAIL_KERNEL).launch(
         r.data_ptr(), d.data_ptr(), *(t.data_ptr() for t in params),
         out.data_ptr(), N, C, Ch, int(outer_residual),
         torch.cuda.current_stream(r.device).cuda_stream,

@@ -34,6 +34,8 @@ KERNEL = Kernel(
     "fused_tail_bwd", "fuser_tail_bwd.cu", "r3d_fuser_tail_bwd",
     [ctypes.c_void_p] * 19 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 )
+KERNEL_OUTER = Kernel(   # KERNEL's calls with the outer residual, counted apart
+    "fused_tail_bwd_outer", KERNEL.source, KERNEL.symbol, KERNEL.argtypes)
 SPLIT_UNIT = 32    # csrc/fuser_tail_bwd.cu: WK, token rows of one chunk of the weight gradients
 OUT_TILE = 128     # csrc/fuser_tail_bwd.cu: C x C, an output tile of the weight gradients
 
@@ -110,7 +112,7 @@ def fused_tail_bwd(r: torch.Tensor, d: torch.Tensor, g: torch.Tensor,
     dd = torch.empty_like(d)
     scratch = torch.empty(scratch_floats(C, Ch, plan), dtype=torch.float32, device=r.device)
     flat = torch.empty(P, dtype=torch.float32, device=r.device)
-    KERNEL.launch(
+    (KERNEL_OUTER if outer_residual else KERNEL).launch(
         r.data_ptr(), d.data_ptr(), g.data_ptr(), *(t.data_ptr() for t in params),
         dr.data_ptr(), dd.data_ptr(), scratch.data_ptr(), flat.data_ptr(),
         N, C, Ch, plan.tile_rows, plan.split_rows, int(outer_residual),

@@ -34,10 +34,13 @@ eval (COMPAT #37: ``futr``, ``proposed_depth`` and ``unsupervised``, not
 ``proposed``, whose reference loop restores train mode after every
 validation) epochs >= 1 train the module-eval forward with gradients on
 (``model.eval()``: running-statistics BN, no dropout), the JAX package's
-``_model_for(frozen=True)``, with one difference: JAX's frozen twin zeroes
-only the configured dropout rates, so the self-attention source's
-hard-coded ``Dropout(0.1)`` stays on there, where ``model.eval()`` turns
-it off as the reference's ``validate()`` does (ROADMAP C). Validation runs
+``_model_for(frozen=True)``, which it applies with ``train=True``; so
+``futr_fusion_grad`` keeps ranking its channels by the training forward's
+probe there (``models.fuser.mark_sticky``), not by activation as its eval
+mode does. One difference is kept: JAX's frozen twin zeroes only the
+configured dropout rates, so the self-attention source's hard-coded
+``Dropout(0.1)`` stays on there, where ``model.eval()`` turns it off as the
+reference's ``validate()`` does (ROADMAP C). Validation runs
 the module-eval forward without the pad mask. Metrics accumulate on the
 device and are read once per epoch; the best gate (``proposed_depth``,
 ``proposed`` and ``unsupervised``: either of two metrics; ``futr``: the
@@ -90,6 +93,7 @@ from r3d_tpu_torch.losses.temporal import (
     temporal_cluster_loss,
 )
 from r3d_tpu_torch.models import build_model, init_weights, is_fusion_model, model_needs_query
+from r3d_tpu_torch.models.fuser import mark_sticky
 from r3d_tpu_torch.models.layers import set_generators
 from r3d_tpu_torch.ops.effective_rank import effective_rank, effective_rank_loss
 from r3d_tpu_torch.serving import resolve_device
@@ -149,6 +153,14 @@ class Trainer:
         reference's first validate (end of epoch 0) flips the module to eval
         and the loop never flips it back."""
         return self.sticky_eval and epoch >= 1
+
+    def _train_mode(self, model, epoch: int) -> None:
+        """Train mode in epoch 0; in a sticky epoch the module-eval forward
+        with the training forward's channel ranking (JAX's frozen twin)."""
+        sticky = self._sticky(epoch)
+        model.train(not sticky)
+        if sticky:
+            mark_sticky(model)
 
     # ------------------------------------------------------------------ setup
     def init_state(self, steps_per_epoch: int,
@@ -328,7 +340,7 @@ class Trainer:
 
     def _step(self, state: TrainState, batch, epoch: int) -> Dict[str, torch.Tensor]:
         """One update of ``state`` in place from a batch on the card."""
-        state.model.train(not self._sticky(epoch))
+        self._train_mode(state.model, epoch)
         state.optimizer.zero_grad(set_to_none=True)
         metrics = self._grad_core(state.model, batch, epoch)
         state.apply_gradients()
@@ -365,7 +377,7 @@ class Trainer:
         def accum_step(state: TrainState, stacked, epoch: int) -> Dict[str, torch.Tensor]:
             stacked = self.to_device(stacked)
             K = stacked["features"].shape[0]
-            state.model.train(not self._sticky(epoch))
+            self._train_mode(state.model, epoch)
             state.optimizer.zero_grad(set_to_none=True)
             agg: Dict[str, torch.Tensor] = {}
             for i in range(K):

@@ -179,10 +179,11 @@ def _close(got, want, rel, name="", floor=1.0):
 def test_fused_safuser_tail_kernel_matches_plain(cuda, N, outer):
     gen = torch.Generator().manual_seed(N)
     r, d, blend, params = fuser_inputs(N, gen, cuda)
-    before = fk.TAIL_KERNEL.launches
+    kernel = fk.TAIL_KERNEL_OUTER if outer else fk.TAIL_KERNEL
+    before = kernel.launches
     got = fk.fused_safuser_tail(r, d, params, outer)
     torch.cuda.synchronize()
-    assert fk.TAIL_KERNEL.launches == before + 1
+    assert kernel.launches == before + 1
     torch.testing.assert_close(got, fk.composed_tail(r, d, params, outer), atol=1e-4, rtol=0)
     got = fk.fused_bn_blend_tail(r, d, blend, params, outer)
     want = fk.composed_tail(*fk.composed_bn_blend(r, d, blend), params, outer)
@@ -211,10 +212,11 @@ def test_fused_tail_bwd_kernel_matches_plain(cuda, N, outer):
     gen = torch.Generator().manual_seed(N + 1)
     r, d, _, params = fuser_inputs(N, gen, cuda)
     g = torch.randn(N, 128, generator=gen).to(cuda)
-    before = fkb.KERNEL.launches
+    kernel = fkb.KERNEL_OUTER if outer else fkb.KERNEL
+    before = kernel.launches
     dr, dd, dp = fkb.fused_tail_bwd(r, d, g, params, outer)
     torch.cuda.synchronize()
-    assert fkb.KERNEL.launches == before + 1
+    assert kernel.launches == before + 1
     wr, wd, wp = fkb.composed_tail_bwd(r, d, g, params, outer)
     _close(dr, wr, 1e-4, "dr")
     _close(dd, wd, 1e-4, "dd")
@@ -262,10 +264,11 @@ def test_attention_dropout_kernel_matches_plain(cuda, Lk, D, Lq, rate):
     gen = torch.Generator().manual_seed(Lk * D + Lq)
     q, k, v, bias = attention_inputs(8, 8, Lq, Lk, D, gen, cuda, all_masked_row=Lk > 1)
     scale = 1.0 / math.sqrt(D)
-    before = att.DROPOUT_KERNEL.launches
+    kernel = att.DROPOUT_KERNEL_MANY if Lq >= att.MANY_QUERY_MIN else att.DROPOUT_KERNEL
+    before = kernel.launches
     got = att.flash_attention_dropout(q, k, v, bias, 1234 + Lk, scale, rate)
     torch.cuda.synchronize()
-    assert att.DROPOUT_KERNEL.launches == before + 1
+    assert kernel.launches == before + 1
     want = att.composed_attention_dropout(q, k, v, bias, 1234 + Lk, scale, rate)
     torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
     assert torch.equal(got, att.flash_attention_dropout(q, k, v, bias, 1234 + Lk, scale, rate))
@@ -280,13 +283,93 @@ def test_attention_bwd_kernel_matches_plain(cuda, Lk, D, Lq, rate):
     q, k, v, bias = attention_inputs(8, 8, Lq, Lk, D, gen, cuda, all_masked_row=Lk > 1)
     g = torch.randn(q.shape, generator=gen).to(cuda)
     scale = 1.0 / math.sqrt(D)
-    before = att.BWD_KERNEL.launches
+    kernel = att.BWD_KERNEL_MANY if Lq >= att.MANY_QUERY_MIN else att.BWD_KERNEL
+    before = kernel.launches
     got = att.attention_bwd(q, k, v, bias, 77, scale, rate, g, need_dbias=True)
     torch.cuda.synchronize()
-    assert att.BWD_KERNEL.launches == before + 1
+    assert kernel.launches == before + 1
     want = att.composed_attention_bwd(q, k, v, bias, 77, scale, rate, g)
     for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
         _close(a, b, 2e-5, name)
+
+
+@pytest.mark.parametrize("S", [256, 512, 777, 1024, 2000])
+def test_attention_fp32_kernels_with_s_queries_match_plain(cuda, S):
+    """fp32 K3, K4 and K5 with S queries against S keys (the encoder's
+    self-attention, ``use_encoder=True``) at B = H = 8, D = 16, ragged rows
+    and one fully masked: one launch a call, counted on the ``*_MANY``
+    kernels, two calls bit for bit, forward within 2e-5; K5's sums run over
+    up to 2,000 queries or keys, so its gradients are held to 2e-5 of their
+    largest entry to 512 and 1e-4 past it (as fp32 K7's over 3,100 keys)."""
+    gen = torch.Generator().manual_seed(S + 11)
+    q, k, v, bias = attention_inputs(8, 8, S, S, 16, gen, cuda, all_masked_row=True)
+    g = torch.randn(q.shape, generator=gen).to(cuda)
+    calls = (
+        (att.KERNEL_MANY, lambda: att.flash_attention(q, k, v, bias, 0.25),
+         lambda: att.composed_attention(q, k, v, bias, 0.25)),
+        (att.DROPOUT_KERNEL_MANY, lambda: att.flash_attention_dropout(q, k, v, bias, 7, 0.25, 0.1),
+         lambda: att.composed_attention_dropout(q, k, v, bias, 7, 0.25, 0.1)))
+    for kernel, fn, plain in calls:
+        before = kernel.launches
+        got = fn()
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1, kernel.name
+        torch.testing.assert_close(got, plain(), atol=2e-5, rtol=0)
+        assert torch.equal(got, fn()), kernel.name
+    rel = 2e-5 if S <= 512 else 1e-4
+    for rate in (0.0, 0.1):
+        before = att.BWD_KERNEL_MANY.launches
+        got = att.attention_bwd(q, k, v, bias, 7, 0.25, rate, g, need_dbias=True)
+        torch.cuda.synchronize()
+        assert att.BWD_KERNEL_MANY.launches == before + 1
+        want = att.composed_attention_bwd(q, k, v, bias, 7, 0.25, rate, g)
+        for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
+            _close(a, b, rel, f"{name} rate {rate}")
+        again = att.attention_bwd(q, k, v, bias, 7, 0.25, rate, g, need_dbias=True)
+        for a, b in zip(got, again):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+def test_cmfuser_grad_on_the_card_matches_the_cpu(cuda, depth):
+    """``CMFuserGrad`` (the outer residual) at the utkinects width over 8 x
+    512 rows, train mode with dropout 0: at depth 1 one K1 no-blend launch
+    forward and one K2 launch backward, both counted as outer-residual
+    calls, at depth 2 none (the composed blocks, as in JAX); the output
+    within 1e-4 and every gradient within 1e-4 of its largest entry of the
+    same module on the CPU (the plain version). The training ranking swaps
+    channels [0, 32) on the card."""
+    from r3d_tpu_torch.models.fuser import CMFuserGrad
+    from r3d_tpu_torch.ops import fuser_kernel_bwd as fkb
+
+    torch.manual_seed(depth)
+    cpu = CMFuserGrad(128, depth=depth, drop_rate=0.0).train()
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.add_(torch.randn(p.shape) * 0.05)
+    card = CMFuserGrad(128, depth=depth, drop_rate=0.0).to(cuda).train()
+    card.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(depth + 40)
+    rgb, dep, w = (torch.randn(8, 512, 128, generator=gen) for _ in range(3))
+    mask_r, mask_d = card.masks(rgb.to(cuda), dep.to(cuda))
+    first = torch.arange(128, device=cuda) < 32
+    assert torch.equal(mask_r, first) and torch.equal(mask_d, first)
+    before = fk.TAIL_KERNEL_OUTER.launches, fkb.KERNEL_OUTER.launches
+    r, d = rgb.to(cuda).requires_grad_(), dep.to(cuda).requires_grad_()
+    out = card(r, d)
+    (out * w.to(cuda)).sum().backward()
+    torch.cuda.synchronize()
+    launched = fk.TAIL_KERNEL_OUTER.launches - before[0], fkb.KERNEL_OUTER.launches - before[1]
+    assert launched == ((1, 1) if depth == 1 else (0, 0)), launched
+    rc, dc = rgb.clone().requires_grad_(), dep.clone().requires_grad_()
+    want = cpu(rc, dc)
+    (want * w).sum().backward()
+    _close(out.detach().cpu(), want.detach(), 1e-4, "out")
+    for name, a, b in (("rgb", r.grad, rc.grad), ("depth", d.grad, dc.grad)):
+        _close(a.cpu(), b, 1e-4, name)
+    grads = dict(cpu.named_parameters())
+    for name, p in card.named_parameters():
+        _close(p.grad.cpu(), grads[name].grad, 1e-4, name)
 
 
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])

@@ -245,8 +245,7 @@ def test_futr_fusion_matches_flax(S):
 
 def test_build_model_refuses_what_is_not_ported():
     _, pcfg = _model_cfgs()
-    for kw in ({"model": "futr_fusion_grad"}, {"compute_dtype": "bfloat16"},
-               {"use_encoder": True}, {"model": "futr", "use_encoder": True},
+    for kw in ({"compute_dtype": "bfloat16"},
                {"model": "futr", "compute_dtype": "float16"},
                {"model": "futr", "input_type": "gt"}):
         with pytest.raises(NotImplementedError):
