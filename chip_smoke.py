@@ -182,7 +182,38 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    many-query bodies) against the plain route, with the plain version at
    the kernels' rounding points read against the same witness at three
    seeds;
-15. print one ``{"kernels": [...]}`` line (with each kernel's launches in
+15. the NTU baselines (``--config nturgbd --model rnn|cnn|tcn``: input
+   2,048, hidden 128, bf16 batches and embed) through the command line
+   over an NTU-layout dataset written from a seed (5 + 2 videos of 100-300
+   frames, 224x224 depth frames, 120 actions): ``train`` 2 epochs on the
+   device cache, the sweep on the card against ``--cpu`` (outputs within
+   5e-2, the TCN's slots decoded without durations), a dropout-off step
+   against the CPU, the parts of a step, then ``Trainer.fit`` in the
+   ``unimodal`` loop for ``rnn`` and the ``tcn`` loop for ``tcn`` (its
+   sticky step's fixed-rate dropouts held by their keep rate and masks);
+   no kernel of the port may launch anywhere in the phase;
+16. ``darai --model futr_unsupervised_depth`` through the command line on
+   the darai phase's dataset (S queries: fp32 K4 and K5 in epoch 0, K3
+   and K5 sticky, K3 in validation, all on the ``*_MANY`` counters, the
+   self- and cross-attention of every sweep chunk of 256 rows or more),
+   the sweep against ``--cpu`` (1e-3), a sticky step through the kernels
+   against the plain route, and a sticky step whose source and query
+   ``Dropout(0.1)`` must keep 0.9 within 3 sigma, the backward through the
+   forward's mask (ROADMAP C4);
+17. ``50salads`` with MoE FFNs (4 experts, top 2) at full width under
+   ``R3D_CROSS_NATIVE=1``: requests in the 512 and 3100 buckets, a 3100
+   chunk against the CPU with the expert choices pinned to the card's,
+   ``fit`` of 2 epochs (K4-K7 in epoch 0, K3, K5-K7 in epoch 1), a 3100
+   step through the kernels against the plain route with an fp32 witness
+   (the routes share the kernels' route's expert choices), and the parts
+   of that step beside the dense ``futr``'s;
+18. ``futr`` with the gt-label embed at the breakfast widths (fp32): a
+   forward of [8, 512] ids (K3) and a train step (K5) against the CPU
+   within 1e-3;
+19. L3 query generation (``FUTRTransformer(query_pos=None)``) at S = 2,000:
+   one forward against the CPU within 1e-3, ``l3_attention`` on fp32 K3's
+   many-query counter;
+20. print one ``{"kernels": [...]}`` line (with each kernel's launches in
    the CLI phases' training and sweeps and in the cached epoch beside those
    of the other phases; rows for bf16 K3, K4 and K5 at Lq = Lk = 3,100 and
    2,000 with the launches of the two proposed configs' training and
@@ -190,7 +221,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    encoder's launches; rows for K1 and K2 with the outer residual, with the
    grad variant's launches, and for fp32 K3, K4 and K5 at Lq = Lk = 512 and
    2,000, with the encoder fit's launches and the serving launches of that
-   bucket) and, as the last line,
+   bucket, and the launches of phases 15-19 in their own columns) and, as
+   the last line,
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX. Exits non-zero and prints no result where CUDA is
@@ -598,15 +630,18 @@ def errs_own(got, want):
 @contextlib.contextmanager
 def plain_attention_route():
     """Within: the attention modules take the plain route on the card
-    (``attention_kernel_eligible`` patched off), for a comparison only."""
+    (``attention_kernel_eligible`` and, under ``R3D_CROSS_NATIVE=1``,
+    ``cross_attention_native_eligible`` patched off), for a comparison
+    only."""
     from r3d_tpu_torch.models import layers
 
-    eligible = layers.attention_kernel_eligible
+    eligible = layers.attention_kernel_eligible, layers.cross_attention_native_eligible
     layers.attention_kernel_eligible = lambda *a: False
+    layers.cross_attention_native_eligible = lambda *a: False
     try:
         yield
     finally:
-        layers.attention_kernel_eligible = eligible
+        layers.attention_kernel_eligible, layers.cross_attention_native_eligible = eligible
 
 
 def worse(a, b):
@@ -1620,7 +1655,7 @@ def time_cross_fp32(gen, device, S, B=8, Lq=8, C=128, H=8):
     shape = f"B={B} Lq={Lq} S={S} C={C} H={H} fp32"
     stream = torch.cuda.current_stream().cuda_stream
     fwd_name, bwd_name = cross_fp32_kernel_names(D)
-    launch = raw_launcher(ca.FWD_KERNEL, 0, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    launch = raw_launcher(ca.FWD_KERNEL_FP32, 0, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           bias.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(), None,
                           fwd_split, B, Lq, S, H, D, scale, 0, 0, 0, 1.0, stream)
     bound, bound_by = cross_bound_ms(B, Lq, S, C, H, 4)
@@ -1631,7 +1666,7 @@ def time_cross_fp32(gen, device, S, B=8, Lq=8, C=128, H=8):
     own_launches_per_call(lambda: ca.cross_attention_fwd(q, k, v, bias, 0, scale, 0.0, H),
                           (fwd_name,), 1, "K6 fp32 cross_attention")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    launch = raw_launcher(ca.BWD_KERNEL, 0, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    launch = raw_launcher(ca.BWD_KERNEL_FP32, 0, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           bias.data_ptr(), g.data_ptr(), out.data_ptr(), m.data_ptr(),
                           l.data_ptr(), None, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), None,
                           B, Lq, S, H, D, bwd_split, scale, 0, 0, 0, 1.0, stream)
@@ -2295,9 +2330,9 @@ CLI_VAL_LENGTHS = (600, 780)     # sweep windows at 0.1-0.9: the 128-1024 bucket
 
 def write_utkinect_dataset(root, n_train, n_val, lengths, n_actions=N_CLASS - 1, seed=SEED,
                            input_dim=2048, depth_shape=(160, 120), val_lengths=None,
-                           gt_format="csv", transposed=False):
-    """A dataset in the utkinect layout under ``root/utkinect``, from a
-    numpy seed: per video, action runs of 5-14 frames, features [L, input]
+                           gt_format="csv", transposed=False, dataset_dir="utkinect"):
+    """A dataset in the utkinect layout (NTU RGB+D's too) under
+    ``root/<dataset_dir>``, from a numpy seed: per video, action runs of 5-14 frames, features [L, input]
     that carry each frame's class (``.T`` when ``transposed``), raw depth
     frames [L, *depth_shape] of noise, csv (``img,L2,L3``) or plain ground
     truth; the mapping of ``n_actions`` actions (n_class ``n_actions + 1``)
@@ -2305,7 +2340,7 @@ def write_utkinect_dataset(root, n_train, n_val, lengths, n_actions=N_CLASS - 1,
     (``val_lengths`` for the val split). Returns ``root``."""
     import os
 
-    base = os.path.join(str(root), "utkinect")
+    base = os.path.join(str(root), dataset_dir)
     rng = np.random.RandomState(seed)
     acts = [f"a{i}" for i in range(n_actions)]
     for d in ("features_img", "features_depth", "groundTruth", "splits"):
@@ -2463,8 +2498,8 @@ class SweepRecorder:
     """Records each chunk of ``Predictor`` sweeps while in use: its bucket,
     its windows (video, ratio), whether its windows were gathered from the
     device cache, its action logits, durations and L3 logits (None for a
-    model without them), and how many launches of each of ``kernels`` it
-    made."""
+    model without them: the TCN has no durations), and how many launches of
+    each of ``kernels`` it made."""
 
     ROUTES = (("_forward_batch", False), ("_forward_batch_cached", True))
 
@@ -2484,7 +2519,8 @@ class SweepRecorder:
                 recorder.chunks.append({
                     "S": S, "windows": [(it["vid"], it["obs_p"]) for it in items],
                     "cached": cached, "future_len": [it["future_len"] for it in items],
-                    "action": out["action"], "duration": out["duration"], "l3": out.get("l3"),
+                    "action": out["action"], "duration": out.get("duration"),
+                    "l3": out.get("l3"),
                     "launches": {k.name: k.launches - before[k.name] for k in recorder.kernels}})
                 return out
             return recorded
@@ -2551,12 +2587,20 @@ def decode_flips(chunks, ref_chunks, logit_err, n_class=N_CLASS):
     same windows, and those of them that the measured errors do not explain:
     a decode can flip only where a slot's top-2 logit margin is within
     ``logit_err``, or where a slot's length ``0.5 + future_len * duration``
-    lies within the durations' measured difference of a whole frame."""
-    from r3d_tpu_torch.eval.decode import decode_anticipation
+    lies within the durations' measured difference of a whole frame. A
+    model without durations (the TCN) paints each slot's argmax, which can
+    flip only at a margin."""
+    from r3d_tpu_torch.eval.decode import decode_anticipation, decode_frames_from_slots
 
     flipped, unexplained = 0, 0
     for a, b in zip(chunks, ref_chunks):
         for j, fl in enumerate(b["future_len"]):
+            if b["duration"] is None:
+                if not np.array_equal(decode_frames_from_slots(a["action"][j], fl),
+                                      decode_frames_from_slots(b["action"][j], fl)):
+                    flipped += 1
+                    unexplained += top2_margin(b["action"][j]) > logit_err
+                continue
             fa, da = decode_anticipation(a["action"][j], a["duration"][j], fl, n_class - 1)
             fb, db = decode_anticipation(b["action"][j], b["duration"][j], fl, n_class - 1)
             if np.array_equal(fa, fb):
@@ -2970,6 +3014,116 @@ def witness_errors(test, plain, fp32):
     return witness
 
 
+# The MoE routes' router probabilities, card against a compared route
+# (the CPU, the card's plain or fp32 route) at the same layer call: the
+# inputs differ by the routes' rounding run through the layers before. An
+# expectation, not a reading: about 1e-2 on the logits' scale makes a few
+# 1e-3 of probability; a router fault (other weights, a wrong softmax)
+# moves probabilities by O(0.1).
+ROUTER_PROB_TOL = 0.05
+
+
+class MoERouting:
+    """Within: the compared routes take the card's expert choices. Every
+    ``MoEFeedForward.select`` on the card's kernels' route records its
+    router probabilities and choices, call by call; on a compared route (a
+    call on the CPU, or on the card under ``plain_attention_route``) the
+    calls take the recorded choices in the same order, the recording
+    replayed from its start each time it runs out. Routing is a step
+    function of the probabilities: two routes that round differently can
+    send a token to another expert, an O(1) change that says nothing of the
+    kernels, so pinned, the routes compare their numbers. At the end the
+    pin holds itself: the compared routes made as many calls as a whole
+    number of recordings, the probabilities' largest difference at a call
+    (``eps``) is at most ``ROUTER_PROB_TOL``, and each token whose own
+    choices would differ is explained: under the compared route's
+    probabilities p, the card's choices c_1..c_K are the top K within 2 eps
+    (p[c_j] >= p[c_j+1] - 2 eps, and no other expert above min_j p[c_j] by
+    more than 2 eps), as they must be if the card sorted probabilities
+    within eps of p."""
+
+    def __init__(self, label: str):
+        self.label = label
+
+    def __enter__(self):
+        from r3d_tpu_torch.models import layers
+        from r3d_tpu_torch.models.moe import MoEFeedForward
+
+        self.orig, self.kernel_route = MoEFeedForward.select, layers.attention_kernel_eligible
+        self.recorded, self.replaying, self.i = [], False, 0
+        self.differ = self.total = 0
+        self.eps, self.flips = 0.0, []
+        pin = self
+
+        def select(module, probs):
+            own = pin.orig(module, probs)
+            if pin.card_route(probs):
+                if pin.replaying:   # a new recording, once the last was replayed whole
+                    pin.check_whole()
+                    pin.recorded, pin.replaying, pin.i = [], False, 0
+                pin.recorded.append((probs.detach().float(), own))
+                return own
+            if not pin.recorded:
+                raise AssertionError(f"{pin.label}: a compared route routed before the card")
+            pin.replaying = True
+            card_probs, chosen = pin.recorded[pin.i % len(pin.recorded)]
+            pin.i += 1
+            if chosen.shape != own.shape:
+                raise AssertionError(f"{pin.label}: a compared route's MoE call {pin.i} routes "
+                                     f"{tuple(own.shape)} choices, the card's {tuple(chosen.shape)}")
+            p = probs.detach().float()
+            chosen = chosen.to(own.device)
+            pin.eps = max(pin.eps, float((p - card_probs.to(p.device)).abs().max()))
+            rows = (own != chosen).any(-1)
+            pin.differ += int(rows.sum())
+            pin.total += own.shape[0]
+            if rows.any():
+                pin.flips.append((p[rows], chosen[rows]))
+            return chosen
+
+        MoEFeedForward.select = select
+        return self
+
+    def check_whole(self):
+        """The compared routes replayed the recording a whole number of times."""
+        if not self.total or self.i % len(self.recorded):
+            raise AssertionError(f"{self.label}: {self.i} compared MoE calls against a "
+                                 f"recording of {len(self.recorded)}")
+
+    def card_route(self, probs) -> bool:
+        """Whether a call is the card's kernels' route's (recorded) rather
+        than a compared route's."""
+        from r3d_tpu_torch.models import layers
+
+        return (probs.device.type != "cpu"
+                and layers.attention_kernel_eligible is self.kernel_route)
+
+    def __exit__(self, exc_type, *exc):
+        import torch
+
+        from r3d_tpu_torch.models.moe import MoEFeedForward
+
+        MoEFeedForward.select = self.orig
+        if exc_type is not None:
+            return False
+        unexplained = 0
+        for p, c in self.flips:
+            pc = p.gather(-1, c)                                      # [n, K]
+            others = p.scatter(-1, c, float("-inf")).amax(-1)         # the best unchosen
+            # how far each token's choices break the top-K order under p
+            gaps = torch.cat([pc[:, 1:] - pc[:, :-1], (others - pc.amin(-1))[:, None]], -1)
+            unexplained += int((gaps.amax(-1) > 2 * self.eps).sum())
+        print(f"{self.label}: the compared routes take the card's expert choices; "
+              f"{self.differ} of {self.total} token choices would differ, {unexplained} not "
+              f"explained by the router probabilities' largest difference {self.eps:.3e} "
+              f"(bound {ROUTER_PROB_TOL})")
+        self.check_whole()
+        if self.eps > ROUTER_PROB_TOL or unexplained:
+            raise AssertionError(f"{self.label}: the router probabilities differ by "
+                                 f"{self.eps:.3e}, or a token's choices are not explained by it")
+        return False
+
+
 def step_kernels_vs_plain(cfg, state_dict, batch, n_class, kernels):
     """One dropout-off train step's outputs, loss and gradients on the card
     from the same weights and batch through the kernels (K3 forward, K5
@@ -2994,8 +3148,8 @@ def step_kernels_vs_plain(cfg, state_dict, batch, n_class, kernels):
     witness_factor = ENCODER_WITNESS_FACTOR if model.use_encoder else PROPOSED_WITNESS_FACTOR
     res = {"kernels": bf16_step(cfg, state_dict, batch, n_class, kernels)}
     with plain_attention_route():
-        res["plain"] = bf16_step(cfg, state_dict, batch, n_class, kernels)
-        res["fp32"] = bf16_step(cfg32, state_dict, batch, n_class, kernels)
+        for route, c in (("plain", cfg), ("fp32", cfg32)):
+            res[route] = bf16_step(c, state_dict, batch, n_class, kernels)
     eval_launches = res["kernels"][5]
     (lk, ok, gk, nk, tk, _), (lp, op, gp, npl, tp, _) = res["kernels"], res["plain"]
     l32, o32, g32, n32, _, _ = res["fp32"]
@@ -3231,9 +3385,10 @@ DARAI_GRAD_TOL = 1e-4  # a gradient entry over the model's largest gradient entr
 
 
 def fp32_step(cfg, state_dict, batch, n_class, kernels):
-    """One dropout-off train step (the sticky epochs' forward,
-    ``Trainer._train_mode``) of an fp32 config on the card from the given
-    weights and batch, on whatever route is in force: (loss, outputs,
+    """One train step of the sticky epochs' forward (``Trainer._train_mode``:
+    the configured dropouts off, the fixed-rate ones on, their generators
+    seeded alike on every call) of an fp32 config on the card from the
+    given weights and batch, on whatever route is in force: (loss, outputs,
     gradients by parameter name, launches)."""
     import torch
 
@@ -3241,6 +3396,7 @@ def fp32_step(cfg, state_dict, batch, n_class, kernels):
 
     trainer = Trainer(cfg, n_class)
     state = trainer.init_state(1, state_dict)
+    trainer._seed_dropout(state, SEED, 0)
     trainer._train_mode(state.model, 1)
     dev = trainer.to_device(trainer._with_seg_ids(batch))
     before = {k.name: k.launches for k in kernels}
@@ -3293,7 +3449,8 @@ def fp32_step_kernels_vs_plain(cfg, state_dict, batch, n_class, kernels):
     grad_tol = ABLATION_GRAD_TOL if cfg.model.embed_dtype == "bfloat16" else DARAI_GRAD_TOL
     own = {k: diff[k] / max(float(gp[k].abs().max()), 1e-30) for k in gp}
     B, S = batch["features"].shape[:2]
-    print(f"{cfg.name} train step, bucket {S} batch of {B}, sticky (dropout off), kernels vs "
+    print(f"{cfg.name} train step, bucket {S} batch of {B}, sticky (the configured dropout "
+          f"off, the fixed-rate dropouts seeded alike), kernels vs "
           f"the plain route on the card: loss {lk:.6f} vs {lp:.6f} (tol {DARAI_LOSS_TOL}); "
           f"max|output diff| {out_err:.3e} over {sorted(op)} (tol {DARAI_OUT_TOL}); over "
           f"{len(gp)} gradients max|diff| over the model's largest entry {model_gap:.3e} "
@@ -3361,7 +3518,7 @@ def l3_flips(chunks, ref_chunks, err):
     return flipped, unexplained
 
 
-def darai_cli(kernels, card, name, root, k3, k4, k5):
+def darai_cli(kernels, card, name, root, k3, k4, k5, model=None):
     """``name`` (``darai`` or ``darai_gaze``) at full width through the CLI
     over the dataset at ``root``: every launch count set to 0, ``train`` one
     seed for 2 epochs on the JAX CLI's route (``darai``: the device cache,
@@ -3379,8 +3536,12 @@ def darai_cli(kernels, card, name, root, k3, k4, k5):
     L3 logits within ``DARAI_E2E_TOL``, every decode or L3 flip explained by
     a margin or a frame edge, MoC and ``l3_acc`` otherwise equal); one
     512-bucket step through the kernels against the plain route; the parts
-    of that step in epoch 0 and sticky; for ``darai`` the validation's time
-    and launches a video. Returns (train counts, sweep counts)."""
+    of that step in epoch 0 and sticky; a sticky step that holds the
+    fixed-rate dropouts (``sticky_dropout_on_card``); for ``darai`` the
+    validation's time and launches a video. With ``model`` (``--model
+    <model>``, the depth source) the same run of that model, whose S queries
+    launch K3 in self- and cross-attention from the 256 bucket up. Returns
+    (train counts, sweep counts)."""
     import dataclasses
     import io
     import os
@@ -3395,16 +3556,27 @@ def darai_cli(kernels, card, name, root, k3, k4, k5):
     from r3d_tpu_torch.train.loop import Trainer
 
     cached = name == "darai"
-    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), DARAI_DIR, name)
+    label = name if model is None else f"{name} --model {model}"
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), DARAI_DIR, model or name)
+
+    def chunk_launches(S):
+        # K3 takes 8 queries against 256-512 keys (attention_kernel_eligible),
+        # the depth source's S queries from 256 keys up; the other buckets,
+        # and every other kernel, the plain route
+        if model is not None:
+            return {k3.name: 2} if S >= 256 else {}
+        return {k3.name: 1} if S in (256, 512) else {}
     shutil.rmtree(work, ignore_errors=True)
     try:
         # the schedule at its peak from the first step: 2 epochs of a 10-epoch
         # warmup would train at lr 0 first
         argv = ["--config", name, "--data_root", root, "--model_save_path",
                 os.path.join(work, "save"), "--seed", "1", "--warmup_epochs", "0"]
+        if model is not None:
+            argv += ["--model", model]
         config = config_from_args(build_parser(name).parse_args(argv))
         m = config.model
-        print(f"{name}: {m.model}, hidden {m.hidden_dim}, {m.n_head} heads of "
+        print(f"{label}: {m.model}, hidden {m.hidden_dim}, {m.n_head} heads of "
               f"{m.hidden_dim // m.n_head}, {m.n_decoder_layers} decoder layer, {m.n_query} "
               f"queries, input {m.input_dim}, query_num {m.query_num}, batch "
               f"{config.train.batch_size}, val batch {config.train.val_batch_size}, compute "
@@ -3413,36 +3585,36 @@ def darai_cli(kernels, card, name, root, k3, k4, k5):
         lines, snapshots, train_counts, t_train = cli_train(argv, kernels, buckets=buckets)
         took_cache = any(line.startswith(CLI_ROUTE) and "views" in line for line in lines)
         if took_cache != cached:
-            raise AssertionError(f"{name} train: the route's lines {lines}")
+            raise AssertionError(f"{label} train: the route's lines {lines}")
         phases = ["epoch 0 train", "epoch 0 validation", "epoch 1 train", "epoch 1 validation"]
         per_phase, prev = {}, {k.name: 0 for k in kernels}
         for phase, snap in zip(phases, snapshots):
             per_phase[phase] = {k: snap[k] - prev[k] for k in snap if snap[k] - prev[k]}
             prev = snap
             steps = [(S, B) for i, S, B in buckets if i == phases.index(phase)]
-            print(f"{name}: {phase}: cached batches (bucket, rows) {steps}; launches "
+            print(f"{label}: {phase}: cached batches (bucket, rows) {steps}; launches "
                   f"{per_phase[phase]}")
         want = {"epoch 0 train": (k4.name, k5.name), "epoch 1 train": (k3.name, k5.name),
                 "epoch 0 validation": (k3.name,), "epoch 1 validation": (k3.name,)}
         for phase, names in want.items():
             missing = [n for n in names if per_phase.get(phase, {}).get(n, 0) == 0]
             if missing:
-                raise AssertionError(f"{name} train: {phase} never launched {missing}")
+                raise AssertionError(f"{label} train: {phase} never launched {missing}")
         if per_phase["epoch 1 train"].get(k4.name, 0):
-            raise AssertionError(f"{name} train: the sticky epoch launched K4")
+            raise AssertionError(f"{label} train: the sticky epoch launched K4")
         losses = [float(x) for line in lines
                   for x in re.findall(r"Loss ?: ?(-?[0-9.]+|nan|inf)", line)]
         if len(losses) != 4 or not all(math.isfinite(x) for x in losses):
-            raise AssertionError(f"{name} train: a loss is missing or not finite: {lines}")
+            raise AssertionError(f"{label} train: a loss is missing or not finite: {lines}")
         ckpt_dir = save_path(config)
         names = sorted(os.listdir(ckpt_dir))
         for need in ("seed_1_last", "seed_1_metrics.jsonl"):
             if need not in names:
-                raise AssertionError(f"{name} train: no {need} in {ckpt_dir}")
+                raise AssertionError(f"{label} train: no {need} in {ckpt_dir}")
         gate = [line for line in lines if line.startswith("Best model saved")]
         if bool(gate) != ("seed_1_best" in names):
-            raise AssertionError(f"{name} train: the gate's lines {gate} and {names} disagree")
-        print(f"{name} [{card}]: train 2 epochs on the {'cached' if cached else 'host'} route "
+            raise AssertionError(f"{label} train: the gate's lines {gate} and {names} disagree")
+        print(f"{label} [{card}]: train 2 epochs on the {'cached' if cached else 'host'} route "
               f"in {t_train:.2f} s; the gate opened {len(gate)} times; {names}")
         final = final_model(ckpt_dir, "seed_1_last")
         sources = {s: build_source(config.data, f"{s}_split.txt") for s in ("train", "val")}
@@ -3454,11 +3626,11 @@ def darai_cli(kernels, card, name, root, k3, k4, k5):
             host_argv = argv[:5] + [os.path.join(work, "save_host")] + argv[6:]
             host_lines, _, _, t_host = cli_train(host_argv, kernels, ["--no-device_cache"])
             if any(line.startswith(("device cache", "hybrid cache")) for line in host_lines):
-                raise AssertionError(f"{name} --no-device_cache took a cache: {host_lines}")
+                raise AssertionError(f"{label} --no-device_cache took a cache: {host_lines}")
             host_losses = [float(x) for line in host_lines
                            for x in re.findall(r"Loss ?: ?(-?[0-9.]+|nan|inf)", line)]
             if len(host_losses) != 4 or not all(math.isfinite(x) for x in host_losses):
-                raise AssertionError(f"{name} --no-device_cache: a loss is not finite")
+                raise AssertionError(f"{label} --no-device_cache: a loss is not finite")
             # the cached route's batches through the host loader
             val = build_loader(sources["val"], config.data, 1, nq, mode="val", shuffle=False,
                                pin_memory=True)
@@ -3469,12 +3641,12 @@ def darai_cli(kernels, card, name, root, k3, k4, k5):
             trainer.fit(state, train, val, seed=1, log=lambda *a: None)
             torch.cuda.synchronize()
             diff = unequal(final, state.model.state_dict())
-            print(f"{name} [{card}]: --no-device_cache {t_host:.2f} s (the host loader from "
+            print(f"{label} [{card}]: --no-device_cache {t_host:.2f} s (the host loader from "
                   f"seed + 1, losses {host_losses}); fit over the host loader in the cached "
                   f"order {time.perf_counter() - t0:.2f} s: {len(diff)} of {len(final)} "
                   "tensors differ from the cached run's (bit for bit)")
             if diff:
-                raise AssertionError(f"{name}: the host loader's final parameters differ from "
+                raise AssertionError(f"{label}: the host loader's final parameters differ from "
                                      f"the cached route's: {diff}")
             del trainer, state
 
@@ -3494,7 +3666,7 @@ def darai_cli(kernels, card, name, root, k3, k4, k5):
                     torch.cuda.synchronize()
                 dt = time.perf_counter() - t0
             if (CLI_SWEEP_ROUTE in sweep_log) != (cached and run != "cuda_host"):
-                raise AssertionError(f"{name} sweep {run}: route {sweep_log}")
+                raise AssertionError(f"{label} sweep {run}: route {sweep_log}")
             runs[run] = (results, rec.chunks, dt, {k.name: k.launches for k in kernels})
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      acc_events=True) as prof, contextlib.redirect_stdout(io.StringIO()):
@@ -3507,34 +3679,32 @@ def darai_cli(kernels, card, name, root, k3, k4, k5):
         for c in chunks:
             per_bucket[c["S"]] = per_bucket.get(c["S"], 0) + 1
             if len(c["windows"]) != 1:
-                raise AssertionError(f"{name} sweep: a chunk of {len(c['windows'])} windows")
-            # K3 takes 8 queries against 256-512 keys (attention_kernel_eligible);
-            # the other buckets, and every other kernel, the plain route
+                raise AssertionError(f"{label} sweep: a chunk of {len(c['windows'])} windows")
             launched = {k: n for k, n in c["launches"].items() if n}
-            if launched != ({k3.name: 1} if c["S"] in (256, 512) else {}):
-                raise AssertionError(f"{name} sweep: a {c['S']}-bucket chunk launched "
+            if launched != chunk_launches(c["S"]):
+                raise AssertionError(f"{label} sweep: a {c['S']}-bucket chunk launched "
                                      f"{launched}")
         if not {128, 256, 512, 1024} <= set(per_bucket):
-            raise AssertionError(f"{name} sweep: chunks per bucket {per_bucket}")
+            raise AssertionError(f"{label} sweep: chunks per bucket {per_bucket}")
         cpu_res, cpu_chunks = runs["cpu"][0], runs["cpu"][1]
         others = [cpu_chunks] + ([runs["cuda_host"][1]] if cached else [])
         for other in others:
             if [c["windows"] for c in other] != [c["windows"] for c in chunks]:
-                raise AssertionError(f"{name} sweep: the runs swept different windows")
+                raise AssertionError(f"{label} sweep: the runs swept different windows")
         keys = ("action", "duration") + (("l3",) if cached else ())
         err = max(float(np.abs(a[k] - b[k]).max())
                   for a, b in zip(chunks, cpu_chunks) for k in keys)
         for c in chunks:
             if not all(np.isfinite(c[k]).all() for k in keys):
-                raise AssertionError(f"{name} sweep: non-finite outputs in a {c['S']} chunk")
+                raise AssertionError(f"{label} sweep: non-finite outputs in a {c['S']} chunk")
         flipped, unexplained = decode_flips(chunks, cpu_chunks, err, n_class=n_class)
         l3_flipped, l3_unexplained = l3_flips(chunks, cpu_chunks, err)
         diff = [(k, abs(results[o][k] - cpu_res[o][k])) for o in cpu_res for k in cpu_res[o]]
         moc_diff = max(d for k, d in diff if k.startswith("obs"))
         l3_diff = max([d for k, d in diff if k == "l3_acc"], default=0.0)
         n_windows = sum(len(c["windows"]) for c in chunks)
-        print(f"{name} sweep on the card [{card}]:\n{moc_table(results)}")
-        print(f"{name} sweep on the CPU:\n{moc_table(cpu_res)}")
+        print(f"{label} sweep on the card [{card}]:\n{moc_table(results)}")
+        print(f"{label} sweep on the CPU:\n{moc_table(cpu_res)}")
         host = ""
         if cached:
             cached_vs_host = max(float(np.abs(a[k] - b[k]).max())
@@ -3542,11 +3712,11 @@ def darai_cli(kernels, card, name, root, k3, k4, k5):
             host = (f"cached vs host max|diff| {cached_vs_host:.3e} (must be 0), host sweep "
                     f"{runs['cuda_host'][2]:.2f} s; ")
             if cached_vs_host != 0 or results != runs["cuda_host"][0]:
-                raise AssertionError(f"{name} sweep: the cached sweep differs from the host "
+                raise AssertionError(f"{label} sweep: the cached sweep differs from the host "
                                      "sweep")
-        print(f"{name} sweep [{card}], eval_batch 1: {n_windows} windows, per bucket "
-              f"{dict(sorted(per_bucket.items()))}; K3 in every chunk of the 256 and 512 "
-              f"buckets; "
+        print(f"{label} sweep [{card}], eval_batch 1: {n_windows} windows, per bucket "
+              f"{dict(sorted(per_bucket.items()))}; each chunk's launches as its bucket's "
+              f"route asks; "
               f"launches { {k: c for k, c in sweep_counts.items() if c} }; {host}card vs CPU "
               f"max|logit, duration or L3 logit diff| {err:.3e} (tol {DARAI_E2E_TOL}), max|MoC "
               f"diff| {moc_diff:.3e}, max|l3_acc diff| {l3_diff:.3e}, {flipped} of {n_windows} "
@@ -3555,24 +3725,25 @@ def darai_cli(kernels, card, name, root, k3, k4, k5):
               f"card, card busy {sweep_busy:.2f} ms in {sum(e.count for e in events)} launches "
               f"(one profiled sweep), {runs['cpu'][2]:.2f} s on the CPU")
         if cached and any("l3_acc" not in r for r in results.values()):
-            raise AssertionError(f"{name} sweep: no l3_acc in {results}")
+            raise AssertionError(f"{label} sweep: no l3_acc in {results}")
         if err > DARAI_E2E_TOL:
-            raise AssertionError(f"{name} sweep: the card's outputs disagree with the CPU's")
+            raise AssertionError(f"{label} sweep: the card's outputs disagree with the CPU's")
         if (unexplained or l3_unexplained or (moc_diff > 0 and flipped == 0)
                 or (l3_diff > 0 and l3_flipped == 0)):
-            raise AssertionError(f"{name} sweep: the card's MoC or l3_acc differs from the "
+            raise AssertionError(f"{label} sweep: the card's MoC or l3_acc differs from the "
                                  "CPU's where the measured errors cannot explain it")
 
         # one step of the 512 bucket: kernels against the plain route, and its parts
         batch = one_batch(train, 256, rows=config.train.batch_size)
         if batch["features"].shape[1] != 512:
-            raise AssertionError(f"{name}: the held batch fell in bucket "
+            raise AssertionError(f"{label}: the held batch fell in bucket "
                                  f"{batch['features'].shape[1]}, not 512")
         fp32_step_kernels_vs_plain(config, final, batch, n_class, kernels)
-        train_breakdown(config, final, train, n_class=n_class, label=f" ({name})",
+        train_breakdown(config, final, train, n_class=n_class, label=f" ({label})",
                         make_batch=lambda: one_batch(train, 256, rows=config.train.batch_size))
         if cached:
             validation_per_video(config, final, sources["val"], n_class)
+        sticky_dropout_on_card(config, final, batch, n_class)
         return train_counts, sweep_counts
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -4557,6 +4728,421 @@ def encoder(kernels, loaders):
     return {"serving": serving_counts, "fit": fit_counts, "per_bucket": per_bucket}
 
 
+# ---- A11.4: the baselines, the depth source, MoE, the gt embed, L3 generation ----
+
+NTU_DIR = "build/ntu_phase"   # under the checkout (git-ignored), removed after the phase
+NTU_CLASSES = 121             # NTU RGB+D: 120 actions + NONE
+NTU_TRAIN, NTU_VAL = 5, 2     # videos of the written dataset
+NTU_LENGTHS = (100, 300)      # NTU RGB+D clips: a few seconds at 30 fps
+NTU_TOL = E2E_TOL             # outputs, card vs CPU: nturgbd embeds in bf16, as utkinects
+BASELINES = ("rnn", "cnn", "tcn")
+BASELINE_LOOPS = {"rnn": "unimodal", "tcn": "tcn"}   # the loops the JAX package pairs them with
+DEPTH_MODEL = "futr_unsupervised_depth"
+MOE = dict(moe_experts=4, moe_top_k=2)
+BREAKFAST_CLASSES = 48        # Breakfast: 47 actions + NONE
+GT_TOL = 1e-3                 # fp32 at the breakfast widths, card vs CPU
+L3_TOL = 1e-3                 # L3 generation, fp32, card vs CPU
+L3_S = 2000
+
+
+def sticky_dropout_on_card(cfg, state_dict, batch, n_class):
+    """One sticky train step on the card (``Trainer._train_mode`` at epoch
+    1) from the given weights and batch, at the model's real fixed rates
+    (ROADMAP C4): every ``FixedDropout`` must run in train mode, keep within
+    3 sigma of 1 - rate of its nonzero inputs, scale the kept values by
+    1 / (1 - rate), and its backward must pass the gradient through the
+    forward's mask. Returns each module's keep rate (none for a model
+    without fixed-rate dropouts, such as the gaze source)."""
+    import torch
+
+    from r3d_tpu_torch.models.layers import FixedDropout
+    from r3d_tpu_torch.train.loop import Trainer
+
+    trainer = Trainer(cfg, n_class)
+    state = trainer.init_state(1, state_dict)
+    trainer._seed_dropout(state, SEED, 0)
+    names = {m: n for n, m in state.model.named_modules() if isinstance(m, FixedDropout)}
+    if not names:
+        return {}
+    calls = []
+
+    def hook(module, args, out):
+        call = {"name": names[module], "rate": module.rate, "training": module.training,
+                "x": args[0].detach(), "y": out.detach()}
+        calls.append(call)
+        if out is not args[0] and out.requires_grad:
+            out.register_hook(lambda g: call.__setitem__("gy", g))
+            args[0].register_hook(lambda g: call.__setitem__("gx", g))
+
+    handles = [m.register_forward_hook(hook) for m in names]
+    try:
+        trainer.train_step(state, trainer._with_seg_ids(batch), 1)
+        torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+    if not calls or state.model.training:
+        raise AssertionError(f"{cfg.name}: the sticky step ran {len(calls)} fixed-rate dropouts "
+                             f"with the module in train mode {state.model.training}")
+    keep = {}
+    for c in calls:
+        live = c["x"] != 0
+        kept = live & (c["y"] != 0)
+        n_live = int(live.sum())
+        rate = float(kept.sum()) / max(n_live, 1)
+        sigma = math.sqrt(c["rate"] * (1 - c["rate"]) / max(n_live, 1))
+        scale_err = float((c["y"][kept] - c["x"][kept] / (1 - c["rate"])).abs().max())
+        grad_err = float((c["gx"][live] - (c["gy"] * kept / (1 - c["rate"]))[live]).abs().max())
+        keep.setdefault(c["name"], []).append(rate)
+        if not (c["training"] and abs(rate - (1 - c["rate"])) <= 3 * sigma and scale_err == 0
+                and grad_err <= 1e-6 * max(float(c["gy"].abs().max()), 1e-30)):
+            raise AssertionError(
+                f"{cfg.name}: the sticky step's {c['name']} (rate {c['rate']}) ran in train mode "
+                f"{c['training']}, kept {rate:.4f} of {n_live} (3 sigma {3 * sigma:.4f}), "
+                f"scale error {scale_err:.3e}, backward off the forward's mask by {grad_err:.3e}")
+    print(f"{cfg.name} sticky train step on the card, the fixed-rate dropouts in train mode: "
+          + "; ".join(f"{n} kept " + ", ".join(f"{r:.4f}" for r in rs) for n, rs in keep.items())
+          + " of their nonzero inputs (within 3 sigma of 1 - rate); the backward through the "
+          "forward's mask")
+    return keep
+
+
+def baseline_cli(kernels, card, model, root):
+    """``--config nturgbd --model <model>`` (``rnn``, ``cnn`` or ``tcn``)
+    at full width (input 2,048, hidden 128, the config's buckets and bf16
+    batches and embed) through the CLI over the NTU-layout dataset at
+    ``root``: every launch count set to 0, ``train`` one seed for 2 epochs
+    on the device cache (the config's loop, ``proposed_depth``: sticky from
+    epoch 1), where no kernel of the port may launch (LSTM and convs run in
+    cuDNN, as JAX ran them in XLA); the checkpoint's files; the 9-ratio
+    sweep on the card and with ``--cpu``, held window by window (outputs
+    within ``NTU_TOL``, a MoC difference only where a decode flip is
+    explained; the TCN's slots decode without durations); one dropout-off
+    train step on the card against the CPU; the parts of a step; then
+    ``Trainer.fit`` of 2 epochs in the loop the JAX package pairs the model
+    with (``unimodal`` for ``rnn``: not sticky; ``tcn`` for ``tcn``: sticky,
+    its fixed-rate dropouts held by ``sticky_dropout_on_card``). Returns the
+    launches of the whole phase."""
+    import dataclasses
+    import io
+    import os
+    import shutil
+
+    import torch
+
+    from r3d_tpu_torch.cli.opts import build_parser, config_from_args, run_from_argv
+    from r3d_tpu_torch.cli.run import save_path
+    from r3d_tpu_torch.data.datasets import build_loader, build_source
+    from r3d_tpu_torch.models import baselines
+    from r3d_tpu_torch.train.loop import Trainer
+
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), NTU_DIR, model)
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        argv = ["--config", "nturgbd", "--model", model, "--data_root", root,
+                "--model_save_path", os.path.join(work, "save"), "--seed", "1",
+                "--warmup_epochs", "0"]
+        config = config_from_args(build_parser("nturgbd").parse_args(argv))
+        lines, _, train_counts, t_train = cli_train(argv, kernels)
+        if not any(line.startswith(CLI_ROUTE) and "views" in line for line in lines):
+            raise AssertionError(f"nturgbd {model} train: the cached route's line is missing")
+        losses = [float(x) for line in lines
+                  for x in re.findall(r"Loss ?: ?(-?[0-9.]+|nan|inf)", line)]
+        if len(losses) != 4 or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"nturgbd {model} train: a loss is missing or not finite")
+        ckpt_dir = save_path(config)
+        names = sorted(os.listdir(ckpt_dir))
+        gate = [line for line in lines if line.startswith("Best model saved")]
+        if "seed_1_last" not in names or bool(gate) != ("seed_1_best" in names):
+            raise AssertionError(f"nturgbd {model} train: checkpoints {names}, gate {gate}")
+        print(f"nturgbd {model} [{card}]: train 2 epochs on the cached route in {t_train:.2f} s, "
+              f"losses {losses}; the gate opened {len(gate)} times; {names}")
+
+        predict = argv + ["--predict", "--results_save_path", os.path.join(work, "results")]
+        runs = {}
+        for run, extra in (("cuda", []), ("cpu", ["--cpu"])):
+            quiet = io.StringIO() if run != "cuda" else sys.stdout
+            with SweepRecorder(kernels) as rec, contextlib.redirect_stdout(quiet):
+                t0 = time.perf_counter()
+                results = run_from_argv("nturgbd", predict + extra, log=lambda *a: None)
+                if run != "cpu":
+                    torch.cuda.synchronize()
+                runs[run] = (results, rec.chunks, time.perf_counter() - t0)
+        (results, chunks, t_sweep), (cpu_res, cpu_chunks, t_cpu) = runs["cuda"], runs["cpu"]
+        if [c["windows"] for c in cpu_chunks] != [c["windows"] for c in chunks]:
+            raise AssertionError(f"nturgbd {model} sweep: the card and the CPU swept different "
+                                 "windows")
+        keys = ("action",) if model == "tcn" else ("action", "duration")
+        err = max(float(np.abs(a[k] - b[k]).max()) for a, b in zip(chunks, cpu_chunks)
+                  for k in keys)
+        if not all(np.isfinite(c[k]).all() for c in chunks for k in keys):
+            raise AssertionError(f"nturgbd {model} sweep: non-finite outputs")
+        flipped, unexplained = decode_flips(chunks, cpu_chunks, err, n_class=NTU_CLASSES)
+        diff = [(k, abs(results[o][k] - cpu_res[o][k])) for o in cpu_res for k in cpu_res[o]]
+        moc_diff = max(d for k, d in diff if k.startswith("obs"))
+        per_bucket = {}
+        for c in chunks:
+            per_bucket[c["S"]] = per_bucket.get(c["S"], 0) + 1
+        n_windows = sum(len(c["windows"]) for c in chunks)
+        print(f"nturgbd {model} sweep on the card [{card}]:\n{moc_table(results)}")
+        print(f"nturgbd {model} sweep [{card}]: {n_windows} windows, per bucket "
+              f"{dict(sorted(per_bucket.items()))}; card vs CPU max|{' or '.join(keys)} diff| {err:.3e} (tol {NTU_TOL}), max|MoC diff| "
+              f"{moc_diff:.3e}, {flipped} of {n_windows} windows decoded differently "
+              f"({unexplained} not explained); MoC tables equal: {results == cpu_res}; wall "
+              f"{t_sweep:.2f} s on the card, {t_cpu:.2f} s on the CPU")
+        if err > NTU_TOL or unexplained or (moc_diff > 0 and flipped == 0):
+            raise AssertionError(f"nturgbd {model} sweep: the card disagrees with the CPU")
+
+        final = final_model(ckpt_dir, "seed_1_last")
+        n_class = NTU_CLASSES
+        sources = {s: build_source(config.data, f"{s}_split.txt") for s in ("train", "val")}
+        train = build_loader(sources["train"], config.data, config.train.batch_size,
+                             config.model.n_query, seed=1, pin_memory=True)
+        batch = one_batch(train, 0, rows=config.train.batch_size)
+        rate = baselines.TCN_DROPOUT
+        baselines.TCN_DROPOUT = 0.0   # the card and the CPU draw different streams
+        try:
+            train_step_on_card_and_cpu(config, final, batch, n_class)
+        finally:
+            baselines.TCN_DROPOUT = rate
+        train_breakdown(config, final, train, n_class=n_class, label=f" (nturgbd {model})",
+                        make_batch=lambda: one_batch(train, 0, rows=config.train.batch_size))
+        if model in BASELINE_LOOPS:
+            loop = BASELINE_LOOPS[model]
+            cfg = config.replace(train=dataclasses.replace(config.train, loop=loop, epochs=2))
+            val = build_loader(sources["val"], config.data, config.train.batch_size,
+                               config.model.n_query, mode="val", shuffle=False, pin_memory=True)
+            trainer = Trainer(cfg, n_class)
+            state = trainer.init_state(len(train), final)
+            modes, fit_log = [], []
+            step = trainer.train_step
+
+            def recorded(st, b, epoch):
+                out = step(st, b, epoch)
+                modes.append(st.model.training)
+                return out
+
+            trainer.train_step = recorded
+            t0 = time.perf_counter()
+            trainer.fit(state, train, val, seed=1, log=fit_log.append)
+            torch.cuda.synchronize()
+            fit_losses = [float(x) for line in fit_log
+                          for x in re.findall(r"Loss ?: ?(-?[0-9.]+|nan|inf)", line)]
+            half = len(modes) // 2
+            want_modes = [True] * half + [loop != "tcn"] * half
+            print(f"nturgbd {model} [{card}]: Trainer.fit of the {loop} loop, 2 epochs in "
+                  f"{time.perf_counter() - t0:.2f} s, losses {fit_losses}, train mode by step "
+                  f"{modes}, the gate opened at epochs {trainer.best_epochs}")
+            if (modes != want_modes or len(fit_losses) != 4
+                    or not all(math.isfinite(x) for x in fit_losses)):
+                raise AssertionError(f"nturgbd {model}: the {loop} loop's fit went wrong")
+            if loop == "tcn":
+                sticky_dropout_on_card(cfg, final, batch, n_class)
+        torch.cuda.synchronize()
+        counts = {k.name: k.launches for k in kernels}
+        if any(counts.values()):
+            raise AssertionError(f"nturgbd {model}: launched the port's kernels "
+                                 f"{ {k: c for k, c in counts.items() if c} }")
+        return dict(train_counts)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def ntu_baselines(kernels, card):
+    """Write an NTU-layout dataset (``NTU_TRAIN`` + ``NTU_VAL`` videos of
+    ``NTU_LENGTHS`` frames, 2,048-d features, 224x224 depth frames, 120
+    actions), then ``baseline_cli`` for each of ``BASELINES``. Returns model
+    -> its launches (all 0)."""
+    import os
+    import shutil
+
+    data_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), NTU_DIR, "data")
+    shutil.rmtree(data_dir, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        root = write_utkinect_dataset(data_dir, NTU_TRAIN, NTU_VAL, NTU_LENGTHS,
+                                      n_actions=NTU_CLASSES - 1, depth_shape=(224, 224),
+                                      dataset_dir="nturgbd")
+        size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root)
+                   for f in fs)
+        print(f"nturgbd: dataset of {NTU_TRAIN} + {NTU_VAL} videos of {NTU_LENGTHS[0]}-"
+              f"{NTU_LENGTHS[1]} frames, {size / 2**20:.0f} MiB written in "
+              f"{time.perf_counter() - t0:.2f} s")
+        return {model: baseline_cli(kernels, card, model, root) for model in BASELINES}
+    finally:
+        shutil.rmtree(data_dir, ignore_errors=True)
+
+
+def salads_moe(kernels, card, k3b, k4b, k5b, k6, k7):
+    """50salads' ``futr`` with MoE FFNs (``MOE``: 4 experts, top 2; hidden
+    512, 8 heads, 2 decoder layers, 20 queries, bf16) at full width under
+    ``R3D_CROSS_NATIVE=1`` (restored after), from the seeded init: requests
+    in the 512 and 3100 buckets (K3 at 512, K6 at 3100); a 3100-bucket
+    chunk on the card against the CPU (``SALADS_E2E_TOL``); ``fit`` of 2
+    epochs (one 512- and one 3100-bucket batch of 8) where epoch 0 must
+    launch K4, K5, K6 and K7 and epoch 1 K3, K5, K6 and K7; one dropout-off
+    3100-bucket step through the kernels against the plain route with an
+    fp32 witness (``step_kernels_vs_plain``); and the parts of that step beside the
+    dense ``futr``'s, from the same seed, in the same call. Returns
+    (serving counts, training counts)."""
+    import dataclasses
+    import os
+
+    import torch
+
+    from r3d_tpu_torch.config import get_config
+    from r3d_tpu_torch.models import build_model, init_weights
+    from r3d_tpu_torch.serving import InferenceSession
+
+    before = os.environ.get("R3D_CROSS_NATIVE")
+    os.environ["R3D_CROSS_NATIVE"] = "1"
+    try:
+        base = get_config("50salads")
+        cfg = base.replace(model=dataclasses.replace(base.model, **MOE))
+        sds = {}
+        for c in (cfg, base):
+            m = init_weights(build_model(c.model, SALADS_CLASSES),
+                             torch.Generator().manual_seed(SEED))
+            sds[c.model.moe_experts] = m.state_dict()
+        state_dict = sds[MOE["moe_experts"]]
+        n_params = sum(v.numel() for v in state_dict.values())
+        print(f"50salads MoE: {MOE['moe_experts']} experts, top {MOE['moe_top_k']}, capacity "
+              f"factor {cfg.model.moe_capacity_factor}, aux weight {cfg.model.moe_aux_weight}; "
+              f"{n_params} parameters ({sum(v.numel() for v in sds[0].values())} dense); "
+              f"hidden {cfg.model.hidden_dim}, {cfg.model.n_decoder_layers} decoder layers, "
+              f"{cfg.model.n_query} queries, {cfg.model.compute_dtype}, R3D_CROSS_NATIVE=1")
+        session = InferenceSession(cfg, state_dict, SALADS_CLASSES, max_batch=8)
+        rng = np.random.default_rng(SEED + 5)
+        groups = {S: SALADS_SERVE[S] for S in (512, 3100)}
+        latencies, serving, per_bucket = serve(session, kernels, cfg, rng, groups)
+        for S, lat in latencies.items():
+            print(f"50salads MoE bucket {S}: {lat['requests']} requests through ServingQueue, "
+                  f"latency p50 {lat['p50_ms']:.2f} ms, max {lat['max_ms']:.2f} ms; launches "
+                  f"{ {k: c for k, c in per_bucket[S].items() if c} }")
+        for S, route in ((512, k3b), (3100, k6)):
+            if per_bucket[S][route.name] == 0:
+                raise AssertionError(f"50salads MoE bucket {S} did not launch {route.name}")
+        with MoERouting("50salads MoE, card vs CPU"):
+            compare_with_cpu(session, cfg, state_dict, rng, n_class=SALADS_CLASSES,
+                             lengths=(3100, 2000, 1500, 2800), tol=SALADS_E2E_TOL)
+        del session
+        loaders = salads_loaders(cfg)
+        want = {"epoch 0 train": (k4b.name, k5b.name, k6.name, k7.name),
+                "epoch 1 train": (k3b.name, k5b.name, k6.name, k7.name)}
+        train_counts = train(cfg, state_dict, kernels, loaders, want, n_class=SALADS_CLASSES)
+        batch = one_batch(loaders[1], 1024)
+        if batch["features"].shape[1] != 3100:
+            raise AssertionError(f"50salads MoE: the held batch fell in bucket "
+                                 f"{batch['features'].shape[1]}, not 3100")
+        with MoERouting("50salads MoE, the kernels' route vs the plain and fp32 routes"):
+            step_kernels_vs_plain(cfg, state_dict, batch, SALADS_CLASSES, kernels)
+        for c, label in ((cfg, "MoE"), (base, "dense")):
+            train_breakdown(c, sds[c.model.moe_experts], loaders[1], 1024, SALADS_CLASSES,
+                            f" (50salads {label}, 3100 bucket)",
+                            make_batch=lambda: one_batch(loaders[1], 1024))
+        torch.cuda.synchronize()
+        return serving, train_counts
+    finally:
+        if before is None:
+            os.environ.pop("R3D_CROSS_NATIVE", None)
+        else:
+            os.environ["R3D_CROSS_NATIVE"] = before
+
+
+def gt_futr(kernels, card):
+    """``futr`` with the gt-label embed (``input_type="gt"``) at the
+    breakfast widths (hidden 128, 8 heads, 8 queries, fp32) from the seeded
+    init, on [8, 512] label ids drawn from a seed with ragged rows: the eval
+    forward on the card (K3) against the CPU, and one dropout-off train step
+    (K3, K5) against the CPU, each within ``GT_TOL``. Returns the counts."""
+    import dataclasses
+
+    import torch
+
+    from r3d_tpu_torch.config import get_config
+    from r3d_tpu_torch.models import build_model, init_weights
+
+    base = get_config("breakfast")
+    cfg = base.replace(model=dataclasses.replace(base.model, input_type="gt"))
+    n_class = BREAKFAST_CLASSES
+    model = init_weights(build_model(cfg.model, n_class), torch.Generator().manual_seed(SEED))
+    state_dict = model.state_dict()
+    rng = np.random.default_rng(SEED + 6)
+    B, S, Q = 8, 512, cfg.model.n_query
+    lengths = np.array([512, 480, 400, 333, 300, 290, 270, 257])
+    pad = np.arange(S)[None, :] >= lengths[:, None]
+    past = rng.integers(0, n_class - 1, (B, S))
+    past[pad] = n_class + 1
+    feats = np.where(pad, n_class + 1, rng.integers(0, n_class + 2, (B, S)))
+    target = rng.integers(0, n_class, (B, Q))
+    batch = {"features": torch.from_numpy(feats), "past_label": torch.from_numpy(past),
+             "trans_future_target": torch.from_numpy(target),
+             "trans_future_dur": torch.from_numpy(rng.random((B, Q), dtype=np.float32))}
+    for k in kernels:
+        k.launches = 0
+    mask = torch.from_numpy(pad)
+    with torch.no_grad():
+        want = model.eval()(batch["features"], mask)
+        got = model.cuda()(batch["features"].cuda(), mask.cuda())
+    torch.cuda.synchronize()
+    fwd = {k.name: k.launches for k in kernels if k.launches}
+    err = max(float((got[k].cpu() - want[k]).abs().max()) for k in want)
+    print(f"gt futr [{card}] (breakfast widths, fp32, input_type gt, ids of {n_class + 2} "
+          f"rows): eval forward of [{B}, {S}] ids card vs CPU max|output diff| {err:.3e} (tol "
+          f"{GT_TOL}); launches {fwd}")
+    if err > GT_TOL or not fwd.get("flash_attention"):
+        raise AssertionError("gt futr: the card's forward disagrees with the CPU's or took "
+                             "the plain route")
+    del model, got
+    train_step_on_card_and_cpu(cfg, state_dict, batch, n_class, loss_tol=GT_TOL,
+                               grad_tol=GT_TOL)
+    torch.cuda.synchronize()
+    counts = {k.name: k.launches for k in kernels}
+    if not counts["attention_bwd"]:
+        raise AssertionError("gt futr: the train step did not launch K5")
+    return counts
+
+
+def l3_generation(kernels, card):
+    """``FUTRTransformer(query_pos=None)`` (L3 query generation) at the
+    breakfast widths (hidden 128, 8 heads of 16, 8 queries, one decoder
+    layer) from the seeded init: one forward of [4, ``L3_S``] ragged rows on
+    the card against the CPU (within ``L3_TOL``), where ``l3_attention`` (S
+    queries against S keys) must launch fp32 K3 on its many-query counter.
+    Returns the counts."""
+    import torch
+
+    from r3d_tpu_torch.models import init_weights
+    from r3d_tpu_torch.models.transformer import FUTRTransformer
+
+    C, H, B = 128, 8, 4
+    m = init_weights(FUTRTransformer(C, H, 1, 4 * C, l3_queries=True, n_query=8,
+                                     max_pos_len=L3_S), torch.Generator().manual_seed(SEED))
+    m.eval()
+    g = torch.Generator().manual_seed(SEED + 7)
+    src = torch.randn(B, L3_S, C, generator=g)
+    pos = 0.1 * torch.randn(B, L3_S, C, generator=g)
+    mask = torch.arange(L3_S)[None, :] >= torch.tensor([2000, 1700, 1100, 600])[:, None]
+    with torch.no_grad():
+        want = m(src, pos, None, mask)[1]
+        for k in kernels:
+            k.launches = 0
+        m.cuda()
+        t0 = time.perf_counter()
+        got = m(src.cuda(), pos.cuda(), None, mask.cuda())[1]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    counts = {k.name: k.launches for k in kernels}
+    err = float((got.cpu() - want).abs().max())
+    print(f"L3 query generation [{card}]: [{B}, {L3_S}] -> {tuple(got.shape)} queries' decoder "
+          f"output, card vs CPU max|diff| {err:.3e} (tol {L3_TOL}), {1e3 * dt:.1f} ms (first "
+          f"call); launches { {k: c for k, c in counts.items() if c} }")
+    if err > L3_TOL or not counts["flash_attention_many"]:
+        raise AssertionError("L3 generation: the card disagrees with the CPU or l3_attention "
+                             "took the plain route")
+    return counts
+
+
 def main() -> int:
     import os
     import shutil
@@ -4595,7 +5181,8 @@ def main() -> int:
     fp32_many = [att.KERNEL_MANY, att.DROPOUT_KERNEL_MANY, att.BWD_KERNEL_MANY]
     kernels = [fk.KERNEL, fk.TAIL_KERNEL, fk.TAIL_KERNEL_OUTER, fkb.KERNEL, fkb.KERNEL_OUTER,
                att.KERNEL, att.DROPOUT_KERNEL, att.BWD_KERNEL, *fp32_many, att.KERNEL_BF16,
-               att.DROPOUT_KERNEL_BF16, att.BWD_KERNEL_BF16, *many, ca.FWD_KERNEL, ca.BWD_KERNEL]
+               att.DROPOUT_KERNEL_BF16, att.BWD_KERNEL_BF16, *many, ca.FWD_KERNEL, ca.BWD_KERNEL,
+               ca.FWD_KERNEL_FP32, ca.BWD_KERNEL_FP32]
     serving_kernels = [fk.KERNEL, att.KERNEL]
     t0 = time.perf_counter()
     kbuild.build_all(kernels)
@@ -4661,8 +5248,8 @@ def main() -> int:
     cache_counts = utkinects_device_cache(kernels, card, state_dict)
 
     # utkinects, R3D_CROSS_NATIVE=1: fp32 K6 and K7 in the 1024 and 2000 buckets
-    n_serving, n_counts = utkinects_cross_native(kernels, state_dict, ca.FWD_KERNEL,
-                                                 ca.BWD_KERNEL)
+    n_serving, n_counts = utkinects_cross_native(kernels, state_dict, ca.FWD_KERNEL_FP32,
+                                                 ca.BWD_KERNEL_FP32)
     print(f"launches on the utkinects R3D_CROSS_NATIVE=1 serving path: "
           f"{ {k: c for k, c in n_serving.items() if c} }")
     print(f"launches on the utkinects R3D_CROSS_NATIVE=1 training path: "
@@ -4711,6 +5298,13 @@ def main() -> int:
             print(f"launches on the {name} CLI training path: "
                   f"{ {k: c for k, c in darai[name][0].items() if c} }; sweep: "
                   f"{ {k: c for k, c in darai[name][1].items() if c} }")
+        # the depth source (A11.4) on the same dataset: S queries, fp32 K3-K5
+        # on their many-query counters, self- and cross-attention in a chunk
+        darai[DEPTH_MODEL] = darai_cli(kernels, card, "darai", root, *fp32_many,
+                                       model=DEPTH_MODEL)
+        print(f"launches on the darai --model {DEPTH_MODEL} CLI training path: "
+              f"{ {k: c for k, c in darai[DEPTH_MODEL][0].items() if c} }; sweep: "
+              f"{ {k: c for k, c in darai[DEPTH_MODEL][1].items() if c} }")
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
 
@@ -4725,6 +5319,24 @@ def main() -> int:
     print(f"launches on the encoder serving path: "
           f"{ {k: c for k, c in enc['serving'].items() if c} }; fit: "
           f"{ {k: c for k, c in enc['fit'].items() if c} }")
+
+    # the rest of A11.4: the NTU baselines, MoE, the gt embed, L3 generation
+    ntu = ntu_baselines(kernels, card)
+    moe_serving, moe_train = salads_moe(kernels, card, att.KERNEL_BF16, att.DROPOUT_KERNEL_BF16,
+                                        att.BWD_KERNEL_BF16, ca.FWD_KERNEL, ca.BWD_KERNEL)
+    print(f"launches on the 50salads MoE serving path: "
+          f"{ {k: c for k, c in moe_serving.items() if c} }; training path: "
+          f"{ {k: c for k, c in moe_train.items() if c} }")
+    gt_counts = gt_futr(kernels, card)
+    l3_counts = l3_generation(kernels, card)
+    a114 = {   # this slice's paths, a column each in the kernels line
+        "ntu_launches": {k.name: sum(c[k.name] for c in ntu.values()) for k in kernels},
+        "depth_launches": darai[DEPTH_MODEL][0], "depth_sweep_launches": darai[DEPTH_MODEL][1],
+        "moe_launches": moe_train, "moe_serving_launches": moe_serving,
+        "gt_launches": gt_counts, "l3_launches": l3_counts}
+
+    def a114_columns(name):
+        return {col: counts[name] for col, counts in a114.items()}
 
     rows = []
     utk = (counts, serving_counts)
@@ -4755,11 +5367,12 @@ def main() -> int:
         (ca.FWD_KERNEL, k6_err, k6_time, "r3d_tpu/ops/cross_attention.py:50", sal),
         (ca.BWD_KERNEL, k7_err, k7_time, "r3d_tpu/ops/cross_attention.py:115", sal),
         # fp32 K6/K7: the utkinects 1024/2000 buckets under R3D_CROSS_NATIVE=1
-        (ca.FWD_KERNEL, k6f_err, k6f_time, "r3d_tpu/ops/cross_attention.py:50", utkn),
-        (ca.BWD_KERNEL, k7f_err, k7f_time, "r3d_tpu/ops/cross_attention.py:115", utkn),
+        (ca.FWD_KERNEL_FP32, k6f_err, k6f_time, "r3d_tpu/ops/cross_attention.py:50", utkn),
+        (ca.BWD_KERNEL_FP32, k7f_err, k7f_time, "r3d_tpu/ops/cross_attention.py:115", utkn),
     )] + self_rows:
         rows.append({
-            "name": k.name + (" fp32" if "fp32" in t["shape"] else "") + suffix, "route": "cuda",
+            "name": k.name + (" fp32" if "fp32" in t["shape"] and "fp32" not in k.name else "")
+            + suffix, "route": "cuda",
             "source": f"r3d_tpu_torch/csrc/{k.source}",
             "replaces": replaces, "launches": path[0][k.name],
             "serving_launches": path[1][k.name],
@@ -4777,6 +5390,7 @@ def main() -> int:
             "depth2_launches": depth2_counts[k.name],
             "encoder_launches": enc["fit"][k.name],
             "encoder_serving_launches": enc["serving"][k.name],
+            **a114_columns(k.name),
             "max_abs_err": err[0], "max_err": err[1],
             "shape": t["shape"], "ms": t["ms"], "kernel_ms": t["ms"],
             "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
@@ -4807,6 +5421,7 @@ def main() -> int:
             "name": k.name + (" fp32" if "fp32" in t["shape"] else "") + suffix,
             "route": "cuda", "source": f"r3d_tpu_torch/csrc/{k.source}", "replaces": replaces,
             "launches": launches, "serving_launches": serving,
+            **a114_columns(k.name),
             "max_abs_err": err[0], "max_err": err[1], "shape": t["shape"], "ms": t["ms"],
             "kernel_ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],

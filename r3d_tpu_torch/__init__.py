@@ -7,15 +7,17 @@ counterpart there and is tested equal to it on the CPU.
 - ``r3d_tpu_torch.serving``    — ``InferenceSession`` and ``ServingQueue``,
   the serving entry points (CUDA unless the caller passes ``device="cpu"``).
 - ``r3d_tpu_torch.train.loop`` — ``Trainer`` (``init_state``, ``fit``,
-  ``train_step``, ``make_eval_step``): the ``proposed_depth`` training loop,
+  ``train_step``, ``make_eval_step``): the ``proposed_depth``, ``futr``,
+  ``proposed``, ``unsupervised``, ``unimodal`` and ``tcn`` training loops,
   CUDA unless the caller passes ``device="cpu"``; ``train.checkpoint``, the
   best and last checkpoints and resume.
 - ``r3d_tpu_torch.cli``        — ``python -m r3d_tpu_torch.cli --config NAME
   ...``: train, validate, checkpoint and sweep the MoC protocol
   (``eval.predict.Predictor``, ``eval.moc``) over on-disk datasets
   (``data.datasets``), CUDA unless ``--cpu``.
-- ``r3d_tpu_torch.models``     — ``futr_fusion_bn``: embeds, the BN token
-  fuser, the FUTR decoder and the heads, as ``nn.Module``s.
+- ``r3d_tpu_torch.models``     — every model of the JAX registry as an
+  ``nn.Module`` (the fusion FUTRs, ``futr``, the query family, the
+  ``rnn``/``cnn``/``tcn`` baselines), with MoE feed-forwards as an option.
 - ``r3d_tpu_torch.data``, ``losses`` — collate, loader, synthetic and on-disk videos;
   the loop's losses.
 - ``r3d_tpu_torch.ops``        — the hand-written Hopper kernels (CUDA C++

@@ -18,14 +18,29 @@ applied to each leaf by its path:
   ``safuser/block{i}`` keep their names;
 - BatchNorm statistics ``mean`` / ``var`` become ``running_mean`` /
   ``running_var``;
+- an MoE layer's stacked expert kernels ``experts/linear{1,2}/kernel``
+  [E, in, out] become ``weight`` [E, out, in] (each expert's Dense
+  transposed; a plain ``.T`` would give [out, in, E]);
+- a weight-normalised conv's ``v`` [k, in, out] becomes ``v`` [out, in, k]
+  (a Conv ``kernel`` [k, in, out] of a 1-D conv becomes ``weight``
+  [out, in, k] by the Dense rule's ``.T``);
+- the four cells of a bidirectional 2-layer LSTM, which flax names
+  ``OptimizedLSTMCell_{0..3}`` in the order the stack creates them (layer
+  0 forward, layer 0 backward, layer 1 forward, layer 1 backward), become
+  ``nn.LSTM``'s ``weight_ih_l{layer}`` (the input kernels ``ii, if, ig,
+  io`` transposed and stacked in that gate order), ``weight_hh_l{layer}``
+  (``hi, hf, hg, ho``), ``bias_hh_l{layer}`` (their biases) and a zero
+  ``bias_ih_l{layer}``, with ``_reverse`` for the backward cells. This is
+  the one rule that reads several leaves;
 - everything else (``pos_embedding`` [1, L, C], the raw ``query_embed``
   parameter [Q, C] of FUTR and of ``temp2``, ``alpha`` [1, 1, C] of the BN
   and vary fusers, ``modality_token`` [1, 1, 1, C], biases) keeps its name
   and shape, and ``afft``'s Dense heads ``fc`` and ``fc_len`` convert as
   any Dense.
 
-The rules are local to a leaf, so any subtree of a flax model converts to
-the ``state_dict`` of the port's module at the same place.
+Every rule but the LSTM's is local to a leaf, so any subtree of a flax
+model converts to the ``state_dict`` of the port's module at the same place
+(an LSTM's whole stack at once).
 """
 
 from __future__ import annotations
@@ -39,6 +54,8 @@ import torch
 _FLAT = re.compile(r"^(\w+)_(kernel|scale|bias)$")
 _LAYER = re.compile(r"^layer(\d+)$")
 _STATS = {"mean": "running_mean", "var": "running_var"}
+_LSTM_CELL = re.compile(r"^OptimizedLSTMCell_(\d+)$")
+_LSTM_GATES = {"ih": ("ii", "if", "ig", "io"), "hh": ("hi", "hf", "hg", "ho")}
 
 
 def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], Any]]:
@@ -60,8 +77,12 @@ def _param(path: Tuple[str, ...], value: np.ndarray) -> Tuple[str, np.ndarray]:
     if m:
         mods.append(m.group(1))
         leaf = m.group(2)
-    if leaf == "kernel":
+    if leaf == "kernel" and "experts" in mods:
+        leaf, value = "weight", value.transpose(0, 2, 1)
+    elif leaf == "kernel":
         leaf, value = "weight", value.transpose(3, 2, 0, 1) if value.ndim == 4 else value.T
+    elif leaf == "v" and value.ndim == 3:
+        value = value.transpose(2, 1, 0)
     elif leaf in ("scale", "embedding"):
         leaf = "weight"
     return ".".join(mods + [leaf]), value
@@ -71,9 +92,26 @@ def state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
     """flax variables of a model (or of one of its submodules) -> the
     port's ``state_dict`` for the module at the same place."""
     sd: Dict[str, torch.Tensor] = {}
+    cells: Dict[Tuple[Tuple[str, ...], int], Dict[Tuple[str, str], np.ndarray]] = {}
     for path, leaf in _leaves(variables.get("params", {})):
-        key, value = _param(path, np.asarray(leaf, np.float32))
+        value = np.asarray(leaf, np.float32)
+        cell = [i for i, p in enumerate(path) if _LSTM_CELL.match(p)]
+        if cell:
+            i = cell[0]
+            n = int(_LSTM_CELL.match(path[i]).group(1))
+            cells.setdefault((path[:i], n), {})[path[i + 1], path[-1]] = value
+            continue
+        key, value = _param(path, value)
         sd[key] = torch.from_numpy(np.array(value, np.float32))
+    for (prefix, n), leaves in cells.items():
+        name = ".".join(_module_path(prefix) + [""])
+        suffix = f"l{n // 2}" + ("_reverse" if n % 2 else "")
+        for side, gates in _LSTM_GATES.items():
+            w = np.concatenate([leaves[g, "kernel"].T for g in gates])
+            sd[f"{name}weight_{side}_{suffix}"] = torch.from_numpy(np.array(w, np.float32))
+        b = np.concatenate([leaves[g, "bias"] for g in _LSTM_GATES["hh"]])
+        sd[f"{name}bias_hh_{suffix}"] = torch.from_numpy(np.array(b, np.float32))
+        sd[f"{name}bias_ih_{suffix}"] = torch.zeros(len(b))
     for path, leaf in _leaves(variables.get("batch_stats", {})):
         *mods, stat = path
         key = ".".join(_module_path(tuple(mods)) + [_STATS[stat]])

@@ -1,6 +1,6 @@
 """Anticipation decode: transcript + durations -> frame-level prediction.
 
-Counterpart of ``r3d_tpu/eval/decode.py:25``:
+Counterpart of ``r3d_tpu/eval/decode.py``. ``decode_anticipation`` (:25):
 
 1. argmax actions over queries;
 2. find the first NONE; durations from it onward are masked before
@@ -8,6 +8,9 @@ Counterpart of ``r3d_tpu/eval/decode.py:25``:
 3. integer lengths ``(0.5 + future_len * dur).long()``;
 4. paint frames: interval i covers [cum_i, cum_{i+1}); the last action also
    paints everything from its start to the end of the horizon.
+
+``decode_frames_from_slots`` (:56), for a model without a duration head
+(the TCN's 8 per-slot logits): slot q paints frames [q*T/Q, (q+1)*T/Q).
 """
 
 from __future__ import annotations
@@ -42,3 +45,16 @@ def decode_anticipation(
         return np.zeros((0,), dtype=np.int64), norm_dur
     idx = np.searchsorted(bounds[1:], np.arange(future_len), side="right")
     return actions[np.clip(idx, 0, Q - 1)], norm_dur
+
+
+def decode_frames_from_slots(action_logits: np.ndarray,   # [Q, n_class]
+                             future_len: int) -> np.ndarray:
+    """The duration-less decode: each of the Q slots' argmax paints an equal
+    share of the horizon (the reference's own TCN paint loop never reads
+    the model output, COMPAT #29; this is its evident per-slot intent)."""
+    classes = np.argmax(action_logits, axis=-1)
+    if future_len <= 0:
+        return np.zeros((0,), dtype=np.int64)
+    Q = classes.shape[0]
+    idx = (np.arange(future_len) * Q) // future_len
+    return classes[np.minimum(idx, Q - 1)].astype(np.int64)

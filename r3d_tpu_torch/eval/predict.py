@@ -27,7 +27,8 @@ A query model (``models.QUERY_MODELS``) gets each window's query ids,
 sliced and strided as the features are, with ``query_mod2`` re-encoded as
 segment parity (``alternating_query``; on the cached route on the card,
 over the gathered rows), and zeros past a window's rows; its ``l3`` output
-gives the L3 accuracy (``l3_acc``), as JAX's does. A gaze stream
+gives the L3 accuracy (``l3_acc``), as JAX's does; the depth source takes
+the same ids, as JAX's sweep feeds them. A gaze stream
 (``gaze_dir``) is windowed over its raw rows, ``[:int(obs_p * N)]``, and
 zero-padded to ``gaze_pad_len`` rows (else the largest bucket) with each
 row's ``query_len``.
@@ -57,7 +58,7 @@ from r3d_tpu_torch.config import Config
 from r3d_tpu_torch.data.datasets import VideoSource
 from r3d_tpu_torch.data.device_cache import assemble_eval
 from r3d_tpu_torch.data.pipeline import bucket_length
-from r3d_tpu_torch.eval.decode import decode_anticipation
+from r3d_tpu_torch.eval.decode import decode_anticipation, decode_frames_from_slots
 from r3d_tpu_torch.eval.moc import MoCAccumulator
 from r3d_tpu_torch.models import is_fusion_model, model_needs_query
 from r3d_tpu_torch.models.layers import DTYPES
@@ -256,8 +257,12 @@ class Predictor:
         labels_idx = it["labels_idx"]
         past_len, future_len = it["past_len"], it["future_len"]
         action_logits = outputs["action"][i]
-        frames, _ = decode_anticipation(action_logits, outputs["duration"][i], future_len,
-                                        none_idx)
+        if "duration" in outputs:
+            frames, _ = decode_anticipation(action_logits, outputs["duration"][i], future_len,
+                                            none_idx)
+        else:
+            # a model without a duration head (the TCN): each slot paints its share
+            frames = decode_frames_from_slots(action_logits, future_len)
         acc.add_video(labels_idx, np.concatenate([labels_idx[:past_len], frames]), obs_p)
 
         # secondary metrics (predict_utkinects.py:305-328)

@@ -32,20 +32,36 @@ def embed_dtype(cfg: ModelConfig) -> torch.dtype:
     return DTYPES[cfg.embed_dtype or cfg.compute_dtype]
 
 
-class InputEmbed(nn.Module):
-    """Features -> hidden, ReLU, in the compute dtype."""
+def moe_spec(cfg: ModelConfig):
+    """(experts, top_k, capacity_factor) of the transformer's FFNs."""
+    return cfg.moe_experts, cfg.moe_top_k, cfg.moe_capacity_factor
 
-    def __init__(self, cfg: ModelConfig):
+
+class InputEmbed(nn.Module):
+    """Features -> hidden, ReLU, in the compute dtype. With ``input_type=
+    "gt"`` the input is [B, S] label ids, looked up in ``gt_emb`` (an
+    ``nn.Embedding`` of ``n_class + 2`` rows, the Breakfast gt-label
+    embedding), looked up in fp32 and cast, as ``futr_proposed``'s query
+    table is (the values of flax's lookup, the backward's sums in fp32)."""
+
+    def __init__(self, cfg: ModelConfig, n_class: Optional[int] = None):
         super().__init__()
-        if cfg.input_type != "i3d_transcript":
-            raise NotImplementedError(
-                f"input_type {cfg.input_type!r} is not ported (ROADMAP queue A, item A11)")
         self.cfg = cfg
-        self.input_embed = nn.Linear(cfg.input_dim, cfg.hidden_dim)
+        if cfg.input_type == "gt":
+            if n_class is None:
+                raise ValueError("input_type 'gt' needs n_class")
+            self.gt_emb = nn.Embedding(n_class + 2, cfg.hidden_dim)
+        elif cfg.input_type == "i3d_transcript":
+            self.input_embed = nn.Linear(cfg.input_dim, cfg.hidden_dim)
+        else:
+            raise ValueError(f"unknown input_type {cfg.input_type!r}")
 
     def forward(self, src):
+        dt = compute_dtype(self.cfg)
+        if self.cfg.input_type == "gt":
+            return torch.relu(self.gt_emb(src.long()).to(dt))
         emb = linear_in(src, self.input_embed, embed_dtype(self.cfg))
-        return torch.relu(emb).to(compute_dtype(self.cfg))
+        return torch.relu(emb).to(dt)
 
 
 class Heads(nn.Module):
@@ -84,20 +100,21 @@ class FUTR(nn.Module):
         self.cfg = cfg
         self.emit_supcon = emit_supcon
         C = cfg.hidden_dim
-        self.embed = InputEmbed(cfg)
+        self.embed = InputEmbed(cfg, n_class)
         if cfg.pos_emb:
             self.pos_embedding = nn.Parameter(torch.zeros(1, cfg.max_pos_len, C))
         self.query_embed = nn.Parameter(torch.zeros(cfg.n_query, C))
         self.transformer = FUTRTransformer(
             C, cfg.n_head, cfg.n_decoder_layers, 4 * C,
             n_encoder_layers=cfg.n_encoder_layers if cfg.use_encoder else 0,
-            dropout=cfg.dropout, dtype=compute_dtype(cfg))
+            dropout=cfg.dropout, dtype=compute_dtype(cfg), moe=moe_spec(cfg))
         self.heads = Heads(cfg, n_class)
 
     def forward(self, features, src_pad_mask: Optional[torch.Tensor] = None
                 ) -> Dict[str, torch.Tensor]:
-        """features [B, S, input_dim], src_pad_mask [B, S] bool with True =
-        pad (None: no mask)."""
+        """features [B, S, input_dim] (or [B, S] label ids for
+        ``input_type="gt"``), src_pad_mask [B, S] bool with True = pad
+        (None: no mask)."""
         cfg = self.cfg
         B, S = features.shape[:2]
         src = self.embed(features)

@@ -21,8 +21,8 @@ from torch import nn
 
 from r3d_tpu_torch.config import ModelConfig
 from r3d_tpu_torch.models.fuser import CMFuserBN, CMFuserGrad, CMFuserNoExchange, CMFuserVary
-from r3d_tpu_torch.models.futr import Heads, InputEmbed, compute_dtype, embed_dtype
-from r3d_tpu_torch.models.layers import adaptive_avg_pool1d, linear_in
+from r3d_tpu_torch.models.futr import Heads, InputEmbed, compute_dtype, embed_dtype, moe_spec
+from r3d_tpu_torch.models.layers import LayerNorm, adaptive_avg_pool1d, linear_in
 from r3d_tpu_torch.models.transformer import FUTRTransformer
 
 FUSERS = {
@@ -41,7 +41,7 @@ class DepthEmbed(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.depth_projection = nn.Linear(depth_dim, cfg.hidden_dim)
-        self.depth_layernorm = nn.LayerNorm(cfg.hidden_dim, eps=1e-5)
+        self.depth_layernorm = LayerNorm(cfg.hidden_dim, compute_dtype(cfg))
 
     def forward(self, depth):
         B, S = depth.shape[:2]
@@ -58,7 +58,7 @@ class FUTRFusion(nn.Module):
             raise ValueError(f"{cfg.model!r} is not a fusion model")
         self.cfg = cfg
         C = cfg.hidden_dim
-        self.embed = InputEmbed(cfg)
+        self.embed = InputEmbed(cfg, n_class)
         self.depth_embed = DepthEmbed(cfg, depth_dim)
         kw = dict(depth=cfg.fuser_depth, drop_rate=cfg.fuser_dropout)
         if cfg.model == "futr_fusion_bn":
@@ -77,7 +77,7 @@ class FUTRFusion(nn.Module):
         self.transformer = FUTRTransformer(
             C, cfg.n_head, cfg.n_decoder_layers, 4 * C,
             n_encoder_layers=cfg.n_encoder_layers if cfg.use_encoder else 0,
-            dropout=cfg.dropout)
+            dropout=cfg.dropout, moe=moe_spec(cfg))
         self.heads = Heads(cfg, n_class)
 
     def forward(self, features, depth_features,

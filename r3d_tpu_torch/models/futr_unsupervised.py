@@ -29,13 +29,27 @@ rows and the embedded stream. The sources differ in their queries:
   ``model/futr_unsupervised_multimodal.py``): the normalised gaze is
   truncated (``query.long()``), ``GazeCNN`` turns it into 8 identical rows,
   the L2-normalised encoding of the first 8 positions is added, and the
-  decoder output over those 8 queries pools to ``n_query``; no ``l3``.
+  decoder output over those 8 queries pools to ``n_query``; no ``l3``;
+- ``query_source="depth"`` (``futr_unsupervised_depth``,
+  ``model/futr_unsupervised_depth.py``): the source gets the encoding and
+  the hard-coded dropout as the self-attention source does; the queries are
+  ``DepthEmbed`` of the query input (projection, LayerNorm, ReLU) plus the
+  encoding, then a hard-coded ``Dropout(0.1)`` of their own; the decoder
+  and the pool are gt's. The module takes raw depth [B, S, H, W], as JAX's
+  does (``depth_dim = H * W``), but the trainer, the cached route and the
+  sweep feed it what JAX's trainer feeds (``r3d_tpu/train/loop.py:136-149``):
+  the [B, S] L3 ids of ``query_label``, so ``build_model`` sizes its
+  projection 1 wide, as JAX's init through that route does.
+
+The hard-coded dropouts (``SRC_DROPOUT``, ``DEPTH_QUERY_DROPOUT``) are
+``FixedDropout``: on in the sticky epochs, as in JAX's frozen twin (ROADMAP
+C4).
 
 Outputs: ``action``, ``duration``, ``seg`` as ``Heads`` gives them; ``l3``
 [B, S, query_num] (``fc_l3`` of the query stream, fp32) but for gaze;
 ``supcon`` (the query stream, in the compute dtype) but for ``temp2`` and
-``temp3``. ``query_source="depth"`` and JAX's ``attend_over_batch=False``
-(per-sequence L3 attention) are ROADMAP item A11.4.
+``temp3``. JAX's ``attend_over_batch=False`` (per-sequence L3 attention) is
+selected by no model and is not ported.
 """
 
 from __future__ import annotations
@@ -47,9 +61,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from r3d_tpu_torch.config import ModelConfig
-from r3d_tpu_torch.models.futr import Heads, InputEmbed, compute_dtype
+from r3d_tpu_torch.models.futr import Heads, InputEmbed, compute_dtype, moe_spec
+from r3d_tpu_torch.models.futr_fusion import DepthEmbed
 from r3d_tpu_torch.models.layers import (
-    Dropout,
+    FixedDropout,
     MultiheadAttention,
     adaptive_avg_pool1d,
     linear_in,
@@ -58,9 +73,10 @@ from r3d_tpu_torch.models.layers import (
 )
 from r3d_tpu_torch.models.transformer import FUTRTransformer
 
-SOURCES = ("gt", "self_attention", "gaze")
+SOURCES = ("gt", "self_attention", "gaze", "depth")
 GAZE_STEPS = 8   # GazeCNN's output rows: its constructor default, never overridden
-SRC_DROPOUT = 0.1   # the hard-coded dropout on the self-attention source
+SRC_DROPOUT = 0.1   # the hard-coded dropout on the self-attention and depth sources
+DEPTH_QUERY_DROPOUT = 0.1   # the hard-coded dropout on the depth queries
 
 
 class GazeCNN(nn.Module):
@@ -104,15 +120,14 @@ class FUTRUnsupervised(nn.Module):
     """``forward(features [B, S, input_dim], query, src_pad_mask [B, S] bool
     (True = pad) or None, query_len [B] or None)``: ``query`` is the [B, S]
     query ids (gt), the [B, N, 2] gaze stream (gaze; ``query_len`` its true
-    rows) or unused (self_attention)."""
+    rows), [B, S, ...] of ``depth_dim`` values a row (depth) or unused
+    (self_attention)."""
 
     def __init__(self, cfg: ModelConfig, n_class: int, query_source: str = "gt",
-                 variant: str = ""):
+                 variant: str = "", depth_dim: int = 1):
         super().__init__()
         if query_source not in SOURCES:
-            raise NotImplementedError(
-                f"FUTRUnsupervised with query_source={query_source!r} is not ported yet "
-                "(ROADMAP queue A, item A11.4)")
+            raise ValueError(f"unknown query_source {query_source!r}")
         if variant not in ("", "temp2", "temp3") or (variant and query_source != "self_attention"):
             raise ValueError(f"variant {variant!r} of query_source {query_source!r}")
         self.cfg = cfg
@@ -120,22 +135,26 @@ class FUTRUnsupervised(nn.Module):
         self.variant = variant
         C = cfg.hidden_dim
         dt = compute_dtype(cfg)
-        self.embed = InputEmbed(cfg)
+        self.embed = InputEmbed(cfg, n_class)
         if cfg.pos_emb:
             self.pos_embedding = nn.Parameter(torch.zeros(1, cfg.max_pos_len, C))
         if query_source == "gt":
             self.query_embed = nn.Embedding(cfg.query_num, C)
         elif query_source == "gaze":
             self.gaze_cnn = GazeCNN(C, dt)
+        elif query_source == "depth":
+            self.src_drop = FixedDropout(SRC_DROPOUT)
+            self.depth_embed = DepthEmbed(cfg, depth_dim)
+            self.query_drop = FixedDropout(DEPTH_QUERY_DROPOUT)
         else:
-            self.src_drop = Dropout(SRC_DROPOUT)
+            self.src_drop = FixedDropout(SRC_DROPOUT)
             self.l3_attention = MultiheadAttention(C, cfg.n_head, 0.0, dt)
             if variant == "temp2":
                 self.query_embed = nn.Parameter(torch.zeros(cfg.n_query, C))
         self.transformer = FUTRTransformer(
             C, cfg.n_head, cfg.n_decoder_layers, 4 * C,
             n_encoder_layers=cfg.n_encoder_layers if cfg.use_encoder else 0,
-            dropout=cfg.dropout, dtype=dt)
+            dropout=cfg.dropout, dtype=dt, moe=moe_spec(cfg))
         self.heads = Heads(cfg, n_class)
         if query_source != "gaze":
             self.fc_l3 = nn.Linear(C, cfg.query_num)
@@ -149,8 +168,9 @@ class FUTRUnsupervised(nn.Module):
         dt = compute_dtype(cfg)
         src = self.embed(features)
         pe = self.pe[:S].to(dt)
-        if self.query_source == "self_attention":
-            # futr_unsupervised.py:106: the encoding and its dropout on the source
+        if self.query_source in ("self_attention", "depth"):
+            # futr_unsupervised.py:106, futr_unsupervised_depth.py:99: the
+            # encoding and its dropout on the source
             src = self.src_drop(src + pe)
         pos = None
         if cfg.pos_emb:
@@ -166,6 +186,10 @@ class FUTRUnsupervised(nn.Module):
             pe_q = self.pe[:GAZE_STEPS]
             pe_q = pe_q / pe_q.norm(dim=-1, keepdim=True).clamp_min(1e-12)
             action_query = query_stream = q + pe_q.to(q.dtype)
+        elif self.query_source == "depth":
+            # futr_unsupervised_depth.py:108-115: the projected queries, the
+            # encoding and its dropout
+            action_query = query_stream = self.query_drop(self.depth_embed(query) + pe)
         else:
             src_t = src.transpose(0, 1)   # (S, B, C): attention across the batch
             query_stream = self.l3_attention(src_t, src_t, src_t).transpose(0, 1) + pe
@@ -175,11 +199,12 @@ class FUTRUnsupervised(nn.Module):
                 action_query = self.query_embed[None].to(dt).expand(B, -1, -1)
             else:
                 action_query = adaptive_avg_pool1d(query_stream, cfg.n_query)
-        tgt_mask = src_pad_mask if self.query_source == "gt" else None
+        s_queries = self.query_source in ("gt", "depth")   # pooled after the decoder
+        tgt_mask = src_pad_mask if s_queries else None
         memory, hs = self.transformer(src, pos, action_query, src_pad_mask, tgt_mask)
-        if self.query_source == "gt" and src_pad_mask is not None:
+        if s_queries and src_pad_mask is not None:
             hs = masked_adaptive_avg_pool1d(hs, cfg.n_query, (~src_pad_mask).sum(1))
-        elif self.query_source in ("gt", "gaze"):
+        elif self.query_source in ("gt", "depth", "gaze"):
             # gaze: the 8 decoder rows pool to n_query (identity at 8)
             hs = adaptive_avg_pool1d(hs, cfg.n_query)
         out = self.heads(hs, memory if seg_stream is None else seg_stream)

@@ -94,6 +94,15 @@ class Dropout(nn.Module):
         return dropout(x, self.rate, self.generator)
 
 
+class FixedDropout(Dropout):
+    """A dropout whose rate is written into the model, not taken from the
+    config (the self-attention and depth sources' 0.1, the TCN's 0.2). JAX's
+    frozen twin of the sticky epochs zeroes only the configured rates and
+    runs at ``train=True``, so these stay on there (ROADMAP C4):
+    ``train.loop.frozen_twin`` puts them back in train mode after
+    ``model.eval()``."""
+
+
 def set_generators(model: nn.Module, generator: Optional[torch.Generator],
                    seed_generator: Optional[torch.Generator]) -> None:
     """Point every dropout of ``model`` at ``generator`` and every attention
@@ -170,7 +179,8 @@ class MultiheadAttention(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """linear1 -> ReLU -> dropout -> linear2."""
+    """linear1 -> ReLU -> dropout -> linear2. ``pad_mask`` is for the MoE
+    layer's signature; a token-wise FFN needs none."""
 
     def __init__(self, dim: int, hidden_dim: int, dropout: float = 0.0,
                  dtype: torch.dtype = torch.float32):
@@ -180,32 +190,45 @@ class FeedForward(nn.Module):
         self.linear2 = nn.Linear(hidden_dim, dim)
         self.drop = Dropout(dropout)
 
-    def forward(self, x):
+    def forward(self, x, pad_mask=None):
         h = self.drop(torch.relu(linear_in(x, self.linear1, self.dtype)))
         return linear_in(h, self.linear2, self.dtype)
+
+
+def feed_forward(dim: int, hidden_dim: int, dropout: float, dtype: torch.dtype,
+                 moe: Optional[tuple] = None) -> nn.Module:
+    """The layer's FFN: dense, or with ``moe`` = (experts, top_k,
+    capacity_factor) and experts > 0 ``MoEFeedForward``
+    (``r3d_tpu/models/layers.py:201-213``)."""
+    if moe is not None and moe[0] > 0:
+        from r3d_tpu_torch.models.moe import MoEFeedForward
+
+        return MoEFeedForward(dim, hidden_dim, *moe, dropout=dropout, dtype=dtype)
+    return FeedForward(dim, hidden_dim, dropout, dtype)
 
 
 class EncoderLayer(nn.Module):
     """Post-norm encoder layer (``r3d_tpu/models/layers.py:223-253``):
     self-attention with ``src + pos`` as queries, keys and values under the
-    key-padding mask, then the FFN, each added back through dropout. At S
-    of 256 or more the self-attention takes the attention kernels (S
-    queries against S keys)."""
+    key-padding mask, then the FFN (MoE under the same mask with ``moe``),
+    each added back through dropout. At S of 256 or more the
+    self-attention takes the attention kernels (S queries against S
+    keys)."""
 
     def __init__(self, dim: int, n_head: int, ffn_dim: int, dropout: float = 0.0,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, moe: Optional[tuple] = None):
         super().__init__()
         self.self_attn = MultiheadAttention(dim, n_head, dropout, dtype)
         self.norm1 = LayerNorm(dim, dtype)
         self.norm2 = LayerNorm(dim, dtype)
-        self.ffn = FeedForward(dim, ffn_dim, dropout, dtype)
+        self.ffn = feed_forward(dim, ffn_dim, dropout, dtype, moe)
         self.drop1 = Dropout(dropout)
         self.drop2 = Dropout(dropout)
 
     def forward(self, src, pos, key_padding_mask=None):
         qkv = src if pos is None else src + pos
         src = self.norm1(src + self.drop1(self.self_attn(qkv, qkv, qkv, key_padding_mask)))
-        return self.norm2(src + self.drop2(self.ffn(src)))
+        return self.norm2(src + self.drop2(self.ffn(src, key_padding_mask)))
 
 
 class DecoderLayer(nn.Module):
@@ -213,17 +236,17 @@ class DecoderLayer(nn.Module):
     (memory + pos) keys and values, FFN, each added back through dropout.
     ``tgt_key_padding_mask`` masks padded query rows out of the
     self-attention (the S-query models, whose queries pad with the
-    stream)."""
+    stream) and, with ``moe``, out of the MoE FFN's queues."""
 
     def __init__(self, dim: int, n_head: int, ffn_dim: int, dropout: float = 0.0,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, moe: Optional[tuple] = None):
         super().__init__()
         self.self_attn = MultiheadAttention(dim, n_head, dropout, dtype)
         self.cross_attn = MultiheadAttention(dim, n_head, dropout, dtype)
         self.norm1 = LayerNorm(dim, dtype)
         self.norm2 = LayerNorm(dim, dtype)
         self.norm3 = LayerNorm(dim, dtype)
-        self.ffn = FeedForward(dim, ffn_dim, dropout, dtype)
+        self.ffn = feed_forward(dim, ffn_dim, dropout, dtype, moe)
         self.drop1 = Dropout(dropout)
         self.drop2 = Dropout(dropout)
         self.drop3 = Dropout(dropout)
@@ -235,7 +258,7 @@ class DecoderLayer(nn.Module):
         mem = memory if pos is None else memory + pos
         q = tgt + query_pos
         tgt = self.norm2(tgt + self.drop2(self.cross_attn(q, mem, mem, memory_key_padding_mask)))
-        return self.norm3(tgt + self.drop3(self.ffn(tgt)))
+        return self.norm3(tgt + self.drop3(self.ffn(tgt, tgt_key_padding_mask)))
 
 
 def sinusoidal_positional_encoding(seq_len: int, dim: int) -> torch.Tensor:

@@ -1,0 +1,144 @@
+"""Mixture-of-Experts feed-forward: ``moe_experts > 0`` replaces every FFN of
+the encoder and the decoder.
+
+Counterpart of ``r3d_tpu/models/moe.py`` (``MoEFeedForward``), the same
+function:
+
+- the router is a bias-free fp32 linear to E logits, softmax, then the top
+  K probabilities (K = min(top_k, E); ties go to the lower expert, as
+  ``jax.lax.top_k`` orders them), renormalised to sum 1 for K > 1, the raw
+  probability for K = 1;
+- each expert takes at most ``cap = min(ceil(K * T / E * capacity_factor),
+  T)`` of the T = B * L tokens; the assignments queue k-major (every
+  token's first choice ahead of any second choice), in token order within
+  a choice, and those past ``cap`` drop. Pad tokens (``pad_mask``) take no
+  place in a queue, and their output rows are zero;
+- the experts are FFNs (linear1, ReLU, dropout, linear2) with their
+  parameters stacked [E, ...]; a token's output is the sum over its kept
+  choices of the gate times the expert's output, in the compute dtype;
+- the Switch balance term ``E * sum_e f_e * P_e`` over the valid tokens
+  (f_e: the share whose first choice is e; P_e: the mean router
+  probability) is left in ``aux`` after each forward with gradients on,
+  where the trainer collects it (``moe_aux``); with gradients off (serving,
+  validation) ``aux`` is None, as JAX sows it only where the trainer asks.
+
+JAX dispatches with one-hot [K*T, E, cap] tensors; the port indexes:
+the kept assignments are copied into their [E, cap, C] slots and gathered
+back from them, which gives the same values (each slot holds one token, and
+each token's output one product a choice).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from r3d_tpu_torch.models.layers import Dropout
+
+
+class Router(nn.Linear):
+    """The bias-free router; its weight draws flax's default Dense init
+    (lecun normal), not the transformer's xavier."""
+
+    def __init__(self, dim: int, n_experts: int):
+        super().__init__(dim, n_experts, bias=False)
+
+
+class StackedLinear(nn.Module):
+    """E linears side by side: ``weight`` [E, out, in], ``bias`` [E, out]
+    (flax's ``nn.vmap`` of ``Dense``: kernel [E, in, out])."""
+
+    def __init__(self, n: int, in_features: int, out_features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(n, out_features, in_features))
+        self.bias = nn.Parameter(torch.zeros(n, out_features))
+
+    def forward(self, x, dtype: torch.dtype):
+        """[E, N, in] -> [E, N, out], the product then the bias in ``dtype``."""
+        y = torch.bmm(x.to(dtype), self.weight.to(dtype).transpose(1, 2))
+        return y + self.bias.to(dtype)[:, None, :]
+
+
+class Experts(nn.Module):
+    """E FFNs over their own [E, cap, C] slots."""
+
+    def __init__(self, n: int, dim: int, hidden_dim: int, dropout: float, dtype: torch.dtype):
+        super().__init__()
+        self.dtype = dtype
+        self.linear1 = StackedLinear(n, dim, hidden_dim)
+        self.linear2 = StackedLinear(n, hidden_dim, dim)
+        self.drop = Dropout(dropout)
+
+    def forward(self, x):
+        return self.linear2(self.drop(torch.relu(self.linear1(x, self.dtype))), self.dtype)
+
+
+class MoEFeedForward(nn.Module):
+    """[B, L, C] -> [B, L, C], in place of ``FeedForward``."""
+
+    def __init__(self, dim: int, hidden_dim: int, n_experts: int, top_k: int = 2,
+                 capacity_factor: float = 1.25, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.n_experts = n_experts
+        self.top_k = min(top_k, n_experts)
+        self.capacity_factor = capacity_factor
+        self.dtype = dtype
+        self.router = Router(dim, n_experts)
+        self.experts = Experts(n_experts, dim, hidden_dim, dropout, dtype)
+        self.aux: Optional[torch.Tensor] = None
+
+    def select(self, probs: torch.Tensor) -> torch.Tensor:
+        """[T, E] router probabilities -> [T, K] experts: the K largest, ties
+        to the lower expert (a stable descending sort)."""
+        return torch.sort(probs, stable=True, dim=-1, descending=True).indices[:, :self.top_k]
+
+    def forward(self, x, pad_mask: Optional[torch.Tensor] = None):
+        B, L, C = x.shape
+        T = B * L
+        E, K = self.n_experts, self.top_k
+        cap = min(int(math.ceil(K * T / E * self.capacity_factor)), T)
+        xt = x.reshape(T, C)
+        valid = (torch.ones(T, device=x.device) if pad_mask is None
+                 else (~pad_mask).reshape(T).float())
+
+        probs = torch.softmax(torch.nn.functional.linear(xt.float(), self.router.weight), -1)
+        gate_idx = self.select(probs)                              # [T, K]
+        gate = probs.gather(-1, gate_idx)
+        if K > 1:
+            gate = gate / gate.sum(-1, keepdim=True)
+
+        # k-major queue positions, pad tokens out of every queue
+        expert = gate_idx.t().reshape(K * T)
+        onehot = torch.nn.functional.one_hot(expert, E) * valid.repeat(K).long()[:, None]
+        pos = (torch.cumsum(onehot, 0) * onehot).sum(-1) - 1
+        keep = (pos >= 0) & (pos < cap)
+        # each kept assignment's slot in [E * cap]; dropped ones point at a
+        # zero row past the end
+        slot = torch.where(keep, expert * cap + pos, torch.full_like(pos, E * cap))
+
+        xr = xt.to(self.dtype).repeat(K, 1)
+        expert_in = xr.new_zeros(E * cap + 1, C).index_copy(0, slot, xr)[:E * cap]
+        expert_out = self.experts(expert_in.view(E, cap, C)).reshape(E * cap, C)
+        expert_out = torch.cat([expert_out, expert_out.new_zeros(1, C)])
+        y = expert_out.index_select(0, slot) * gate.t().reshape(K * T, 1).to(self.dtype)
+        y = y.view(K, T, C).sum(0)
+
+        self.aux = None
+        if torch.is_grad_enabled():
+            n_valid = valid.sum().clamp_min(1.0)
+            f = (torch.nn.functional.one_hot(gate_idx[:, 0], E).float() * valid[:, None]).sum(0)
+            P = (probs * valid[:, None]).sum(0)
+            self.aux = E * ((f / n_valid) * (P / n_valid)).sum()
+        return y.reshape(B, L, C).to(self.dtype)
+
+
+def moe_aux(model: nn.Module) -> Optional[torch.Tensor]:
+    """The sum of the balance terms the last forward left in ``model``'s
+    MoE layers; None for a dense model."""
+    terms = [m.aux for m in model.modules()
+             if isinstance(m, MoEFeedForward) and m.aux is not None]
+    return torch.stack(terms).sum() if terms else None

@@ -4,27 +4,42 @@ Counterpart of ``r3d_tpu/models/transformer.py``. Every reference entry
 point runs with the encoder bypassed (``memory = src``, COMPAT #1), and so
 does the port by default; ``use_encoder=True`` runs the post-norm encoder
 stack over the source first (``r3d_tpu/models/transformer.py:24-47,
-240-248``). The L3 query generation (``query_pos=None``,
-``r3d_tpu/models/transformer.py:251-262``, which no model of the JAX
-package reaches) is not ported yet (ROADMAP queue A, item A11.4).
+240-248``). ``moe`` = (experts, top_k, capacity_factor) with experts > 0
+makes every FFN of both stacks a ``MoEFeedForward``.
+
+L3 query generation (``l3_queries=True``, then ``query_pos=None``;
+``r3d_tpu/models/transformer.py:251-263``, which no model of the JAX
+package reaches): ``l3_attention`` (queries the memory, keys and values the
+source, no mask, no dropout), plus the sinusoidal encoding, pooled to
+``n_query`` rows (``adaptive_avg_pool1d``), are the decoder's queries.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
-from r3d_tpu_torch.models.layers import DecoderLayer, EncoderLayer, LayerNorm
+from r3d_tpu_torch.models.layers import (
+    DecoderLayer,
+    EncoderLayer,
+    LayerNorm,
+    MultiheadAttention,
+    adaptive_avg_pool1d,
+    sinusoidal_positional_encoding,
+)
 
 
 class TransformerEncoder(nn.Module):
     """Sequential encoder layers, no final LayerNorm (as JAX's)."""
 
     def __init__(self, dim: int, n_head: int, n_layers: int, ffn_dim: int,
-                 dropout: float = 0.0, dtype: torch.dtype = torch.float32):
+                 dropout: float = 0.0, dtype: torch.dtype = torch.float32,
+                 moe: Optional[tuple] = None):
         super().__init__()
         self.layers = nn.ModuleList(
-            EncoderLayer(dim, n_head, ffn_dim, dropout, dtype) for _ in range(n_layers)
+            EncoderLayer(dim, n_head, ffn_dim, dropout, dtype, moe) for _ in range(n_layers)
         )
 
     def forward(self, src, pos, key_padding_mask=None):
@@ -39,10 +54,11 @@ class TransformerDecoder(nn.Module):
     LayerNorm."""
 
     def __init__(self, dim: int, n_head: int, n_layers: int, ffn_dim: int,
-                 dropout: float = 0.0, dtype: torch.dtype = torch.float32):
+                 dropout: float = 0.0, dtype: torch.dtype = torch.float32,
+                 moe: Optional[tuple] = None):
         super().__init__()
         self.layers = nn.ModuleList(
-            DecoderLayer(dim, n_head, ffn_dim, dropout, dtype) for _ in range(n_layers)
+            DecoderLayer(dim, n_head, ffn_dim, dropout, dtype, moe) for _ in range(n_layers)
         )
         self.norm = LayerNorm(dim, dtype)
 
@@ -58,26 +74,35 @@ class TransformerDecoder(nn.Module):
 class FUTRTransformer(nn.Module):
     """(memory, hs) = transformer(src, pos, queries): memory = src, or the
     encoder stack of ``n_encoder_layers`` over it (none at 0, the config's
-    ``use_encoder=False``)."""
+    ``use_encoder=False``). With ``l3_queries`` the queries may be None:
+    they are generated from the memory and the source."""
 
     def __init__(self, dim: int, n_head: int, n_decoder_layers: int, ffn_dim: int,
                  n_encoder_layers: int = 0, dropout: float = 0.0,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, moe: Optional[tuple] = None,
+                 l3_queries: bool = False, n_query: int = 8, max_pos_len: int = 2000):
         super().__init__()
-        self.encoder = (TransformerEncoder(dim, n_head, n_encoder_layers, ffn_dim, dropout, dtype)
-                        if n_encoder_layers else None)
+        self.encoder = (TransformerEncoder(dim, n_head, n_encoder_layers, ffn_dim, dropout, dtype,
+                                           moe) if n_encoder_layers else None)
         self.decoder = TransformerDecoder(dim, n_head, n_decoder_layers, ffn_dim, dropout,
-                                          dtype)
+                                          dtype, moe)
+        if l3_queries:
+            self.n_query = n_query
+            self.l3_attention = MultiheadAttention(dim, n_head, 0.0, dtype)
+            self.register_buffer("pe", sinusoidal_positional_encoding(max_pos_len, dim),
+                                 persistent=False)
 
     def forward(self, src, pos, query_pos, src_key_padding_mask=None,
                 tgt_key_padding_mask=None):
         """``tgt_key_padding_mask`` [B, Q] (True = pad) masks padded query
         rows out of the decoder self-attention."""
-        if query_pos is None:
-            raise NotImplementedError(
-                "L3 query generation (query_pos=None) is not ported yet "
-                "(ROADMAP queue A, item A11.4)")
         memory = src if self.encoder is None else self.encoder(src, pos, src_key_padding_mask)
+        if query_pos is None:
+            if not hasattr(self, "l3_attention"):
+                raise ValueError("query_pos=None needs a transformer built with l3_queries=True")
+            src_l3 = self.l3_attention(memory, src, src)
+            query_pos = adaptive_avg_pool1d(src_l3 + self.pe[:src.shape[1]].to(src_l3.dtype),
+                                            self.n_query)
         hs = self.decoder(query_pos.new_zeros(query_pos.shape), memory, pos,
                           query_pos, src_key_padding_mask, tgt_key_padding_mask)
         return memory, hs

@@ -27,6 +27,9 @@ relayouts K or V head-major. Two kernels:
   dq summed in rank order in the cluster, one launch (and the heads' dbias
   summed by the wrapper when asked for).
 
+``FWD_KERNEL`` and ``BWD_KERNEL`` count the bf16 launches,
+``FWD_KERNEL_FP32`` and ``BWD_KERNEL_FP32`` the fp32 ones (``BY_DTYPE``).
+
 ``cross_attention_native`` is a ``torch.autograd.Function`` over the two.
 ``composed_cross_attention`` and ``composed_cross_attention_bwd`` are the
 plain PyTorch versions with the kernels' rounding points: in bf16, K6 rounds
@@ -79,6 +82,13 @@ BWD_KERNEL = Kernel(
     + [ctypes.c_float, ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float,
        ctypes.c_void_p],
 )
+# fp32 calls: the same launchers, counted apart from the bf16 calls
+FWD_KERNEL_FP32 = Kernel("cross_attention_fp32", FWD_KERNEL.source, FWD_KERNEL.symbol,
+                         FWD_KERNEL.argtypes)
+BWD_KERNEL_FP32 = Kernel("cross_attention_bwd_fp32", BWD_KERNEL.source, BWD_KERNEL.symbol,
+                         BWD_KERNEL.argtypes)
+BY_DTYPE = {torch.float32: (FWD_KERNEL_FP32, BWD_KERNEL_FP32),   # (K6, K7) counters
+            torch.bfloat16: (FWD_KERNEL, BWD_KERNEL)}
 CROSS_HEAD_DIMS = (16, 32, 64)   # csrc/cross_attention*.cu: instantiated D
 MAX_QUERIES = 64                 # a block of K6 and K7 in bf16 holds every query of a head
 FWD_SPLIT_UNIT = 128             # csrc/cross_attention.cu: NW * KT, 4 warps x tiles of 32 keys
@@ -210,7 +220,7 @@ def cross_attention_fwd(q, k, v, bias, seed: int, scale: float, rate: float, H: 
         if B * H > 65535:
             raise ValueError("cross_attention: B*H must be at most 65535 (the grid's z)")
         split_keys = fp32_split_keys(S)
-    FWD_KERNEL.launch(
+    BY_DTYPE[q.dtype][0].launch(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
         out.data_ptr(), m.data_ptr(), l.data_ptr(), _ptr(partial), split_keys, B, Lq, S, H, C // H,
         float(scale),
@@ -247,7 +257,7 @@ def cross_attention_bwd(q, k, v, bias, seed: int, scale: float, rate: float, H: 
         split_keys, part = fp32_split_keys(S), None
         dbias = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
                  if need_dbias else None)
-    BWD_KERNEL.launch(
+    BY_DTYPE[q.dtype][1].launch(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
         g.data_ptr(), o.data_ptr(), m.data_ptr(), l.data_ptr(), _ptr(part),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(dbias), B, Lq, S, H, C // H, split_keys,

@@ -1,7 +1,7 @@
-"""The ``proposed_depth``, ``futr``, ``proposed`` and ``unsupervised``
-training loops on one card.
+"""The ``proposed_depth``, ``futr``, ``proposed``, ``unsupervised``,
+``unimodal`` and ``tcn`` training loops on one card.
 
-Counterpart of those four loops of ``r3d_tpu/train/loop.py``:
+Counterpart of the loops of ``r3d_tpu/train/loop.py``:
 
     trainer = Trainer(config, n_class)                 # CUDA by default
     state = trainer.init_state(len(train_loader), state_dict)
@@ -14,8 +14,12 @@ AdamW update, with the BatchNorm running statistics of the fusion models
 updated in place by the forward. The fusion models take (features, depth,
 mask), the query models (``models.QUERY_MODELS``) (features, query,
 mask, query_len: the gaze stream's true rows, else None), the others
-(features, mask). ``proposed`` is ``futr``'s losses under the two-metric
-gate; the query models' ``l3`` output takes no loss there.
+(features, mask). ``proposed`` and ``unimodal`` are ``futr``'s losses
+under the two-metric gate, ``tcn`` under the accuracy-only gate; the query
+models' ``l3`` output takes no loss there, and a model without a
+``duration`` head (the TCN) no duration loss. With MoE FFNs the total adds
+``moe_aux_weight`` times the layers' balance terms (``moe_aux``), on every
+training route.
 
 ``unsupervised`` (``darai``; train_unsupervised.py:294-362) is the
 curriculum composite: the seg CE and the weighted class CE without an
@@ -30,17 +34,17 @@ warmup over ``warmup_loss_epochs``; validation sums l3 + seg + cls.
 ``supcon_weight > 0`` adds the SupCon term over the ``supcon`` stream.
 
 Epoch 0 trains in train mode (batch-statistics BN, dropout); with sticky
-eval (COMPAT #37: ``futr``, ``proposed_depth`` and ``unsupervised``, not
-``proposed``, whose reference loop restores train mode after every
-validation) epochs >= 1 train the module-eval forward with gradients on
-(``model.eval()``: running-statistics BN, no dropout), the JAX package's
-``_model_for(frozen=True)``, which it applies with ``train=True``; so
+eval (COMPAT #37: ``futr``, ``proposed_depth``, ``unsupervised`` and
+``tcn``, not ``proposed`` or ``unimodal``, whose reference loops restore
+train mode after every validation) epochs >= 1 train the JAX package's
+``_model_for(frozen=True)``: the module-eval forward with gradients on
+(``model.eval()``: running-statistics BN, the configured dropouts off),
+applied as JAX applies it, with ``train=True`` (``frozen_twin``):
 ``futr_fusion_grad`` keeps ranking its channels by the training forward's
-probe there (``models.fuser.mark_sticky``), not by activation as its eval
-mode does. One difference is kept: JAX's frozen twin zeroes only the
-configured dropout rates, so the self-attention source's hard-coded
-``Dropout(0.1)`` stays on there, where ``model.eval()`` turns it off as the
-reference's ``validate()`` does (ROADMAP C). Validation runs
+probe (``models.fuser.mark_sticky``), not by activation as its eval mode
+does, and the dropouts whose rate is written into the model
+(``FixedDropout``: the self-attention and depth sources', the TCN's) stay
+on (ROADMAP C4). Validation runs
 the module-eval forward without the pad mask. Metrics accumulate on the
 device and are read once per epoch; the best gate (``proposed_depth``,
 ``proposed`` and ``unsupervised``: either of two metrics; ``futr``: the
@@ -63,9 +67,8 @@ val cache; ``fit_hybrid`` trains from a ``HybridCache`` in the host
 loader's batch order. Both seed and draw dropout as ``fit`` does, so
 ``fit_cached == fit`` and ``fit_hybrid == fit``.
 
-Not ported yet, and raising ``NotImplementedError`` naming their ROADMAP
-item: the ``tcn`` and ``unimodal`` loops (A11.4, A12) and ``rng_impl``
-(A10). Meshes (A14) have no argument.
+Not ported yet, and raising ``NotImplementedError`` naming its ROADMAP
+item: ``rng_impl`` (A10). Meshes (A14) have no argument.
 """
 
 from __future__ import annotations
@@ -94,15 +97,17 @@ from r3d_tpu_torch.losses.temporal import (
 )
 from r3d_tpu_torch.models import build_model, init_weights, is_fusion_model, model_needs_query
 from r3d_tpu_torch.models.fuser import mark_sticky
-from r3d_tpu_torch.models.layers import set_generators
+from r3d_tpu_torch.models.layers import FixedDropout, set_generators
+from r3d_tpu_torch.models.moe import moe_aux
 from r3d_tpu_torch.ops.effective_rank import effective_rank, effective_rank_loss
 from r3d_tpu_torch.serving import resolve_device
 from r3d_tpu_torch.train.optim import make_optimizer
 from r3d_tpu_torch.train.state import TrainState
 
 INIT_SEED = 0  # the seeded init without a state_dict
-LOOPS = ("proposed_depth", "futr", "proposed", "unsupervised")
+LOOPS = ("proposed_depth", "futr", "proposed", "unsupervised", "unimodal", "tcn")
 STICKY_LOOPS = ("futr", "proposed_depth", "unsupervised", "tcn")   # r3d_tpu/train/loop.py:86-91
+ACCURACY_GATE_LOOPS = ("futr", "tcn")   # train.py:63, train_tcn.py:44
 
 
 def triangular_warmup(epoch: int, start: int, peak: int, end: int) -> float:
@@ -124,6 +129,18 @@ def last_non_padding_labels(past_label: torch.Tensor, pad_idx: int) -> torch.Ten
     return torch.where(valid.any(-1), last, torch.full_like(last, pad_idx))
 
 
+def frozen_twin(model: torch.nn.Module) -> None:
+    """Make ``model`` (already in eval mode) JAX's frozen twin of the sticky
+    epochs, which runs at ``train=True`` with only the configured dropout
+    rates zeroed: every ``CMFuserGrad`` ranks by the probe
+    (``mark_sticky``), and every ``FixedDropout`` goes back to train mode
+    (ROADMAP C4)."""
+    mark_sticky(model)
+    for m in model.modules():
+        if isinstance(m, FixedDropout):
+            m.train(True)
+
+
 class Trainer:
     """Train and eval steps for a Config, and the epoch loop."""
 
@@ -131,8 +148,7 @@ class Trainer:
                  device: Union[str, torch.device] = "cuda"):
         tc = config.train
         if tc.loop not in LOOPS:
-            raise NotImplementedError(
-                f"loop {tc.loop!r} is not ported yet (ROADMAP queue A, item A12)")
+            raise ValueError(f"unknown loop {tc.loop!r}")
         if tc.rng_impl is not None:
             raise NotImplementedError("rng_impl is not ported yet (ROADMAP queue A, item A10)")
         if tc.grad_accum > 1 and tc.steps_per_dispatch > 1:
@@ -155,12 +171,13 @@ class Trainer:
         return self.sticky_eval and epoch >= 1
 
     def _train_mode(self, model, epoch: int) -> None:
-        """Train mode in epoch 0; in a sticky epoch the module-eval forward
-        with the training forward's channel ranking (JAX's frozen twin)."""
+        """Train mode in epoch 0; in a sticky epoch JAX's frozen twin: the
+        module-eval forward with the training forward's channel ranking and
+        the fixed-rate dropouts on."""
         sticky = self._sticky(epoch)
         model.train(not sticky)
         if sticky:
-            mark_sticky(model)
+            frozen_twin(model)
 
     # ------------------------------------------------------------------ setup
     def init_state(self, steps_per_epoch: int,
@@ -335,6 +352,12 @@ class Trainer:
         gradients land in the parameters' ``.grad``."""
         outputs = model(*self._model_inputs(batch, with_mask=True))
         total, metrics = self._losses(outputs, batch, epoch, train=True)
+        w = self.config.model.moe_aux_weight
+        if self.config.model.moe_experts > 0 and w > 0.0:
+            # the MoE layers' balance terms (r3d_tpu/train/loop.py:347-361)
+            aux = moe_aux(model)
+            total = total + w * aux
+            metrics.update(moe_aux=aux, loss=total)
         total.backward()
         return {k: v.detach() for k, v in metrics.items()}
 
@@ -625,9 +648,9 @@ class Trainer:
                       seed=0, metrics_logger=None, checkpointer=None):
         """Train log line, validation, the metrics record
         (``r3d_tpu/train/loop.py:1066-1079``) and the best gate: ``futr``
-        gates on the class accuracy alone (train.py:63), ``proposed_depth``
-        on either metric and overwrites both bests
-        (train_proposed_depth.py:237-241). An open gate saves the best
+        and ``tcn`` gate on the class accuracy alone (train.py:63,
+        train_tcn.py:44), the others on either metric and overwrite both
+        bests (train_proposed_depth.py:237-241). An open gate saves the best
         checkpoints; every epoch saves the last. Returns (best_val_acc,
         best_weight_acc)."""
         cfg = self.config.train
@@ -650,7 +673,7 @@ class Trainer:
             if "erank" in vagg:   # the paper's analysis curve, per epoch
                 rec["val_erank"] = vagg["erank"] / max(vb, 1)
             metrics_logger.log(rec, step=int(state.step))
-        two_metric = cfg.loop != "futr"
+        two_metric = cfg.loop not in ACCURACY_GATE_LOOPS
         if val_acc > best_val_acc or (two_metric and weight_acc > best_weight_acc):
             best_val_acc, best_weight_acc = val_acc, weight_acc
             self.best_epochs.append(epoch)

@@ -8,6 +8,8 @@ epoch 0 trains at ``warmup_start_lr`` (0.0). As optax counts, update t (from
 every parameter (biases and norms too). optax decays a parameter whose
 gradient is zero, while ``torch.optim.AdamW`` skips one whose ``.grad`` is
 None, so ``TrainState.apply_gradients`` fills missing gradients with zeros.
+Parameters with ``requires_grad`` off (the LSTM's zero input-side biases,
+which flax's cells do not have) are left out of the optimizer.
 """
 
 from __future__ import annotations
@@ -39,8 +41,8 @@ def make_optimizer(cfg: TrainConfig, params: Iterable[torch.nn.Parameter],
     schedule before each step."""
     if cfg.opt_mu_dtype is not None:
         raise NotImplementedError("opt_mu_dtype is not ported (ROADMAP queue A, item A10)")
-    opt = torch.optim.AdamW(list(params), lr=0.0, betas=(0.9, 0.999), eps=1e-8,
-                            weight_decay=cfg.weight_decay)
+    opt = torch.optim.AdamW([p for p in params if p.requires_grad], lr=0.0,
+                            betas=(0.9, 0.999), eps=1e-8, weight_decay=cfg.weight_decay)
     schedule = linear_warmup_cosine_schedule(cfg.lr, cfg.warmup_epochs, cfg.epochs,
                                              steps_per_epoch)
     return opt, schedule

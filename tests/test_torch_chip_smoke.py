@@ -8,6 +8,10 @@ card's timeline over the kernels it enqueued; counted, it would count those
 kernels twice, the gaps between them as busy, and one launch too many.
 Stand-in events with the attributes the profiler's averages carry show what
 counts.
+
+``chip_smoke.MoERouting`` gives a compared route the card's expert choices
+and fails where rounding cannot explain a differing choice: held here on a
+MoE layer, the CPU standing in for the card.
 """
 
 import types
@@ -74,3 +78,56 @@ def test_own_kernels_name_every_kernel_of_the_sources_and_no_other():
         assert any(f in k for k in kernels), f
     for name in chip_smoke.cross_fp32_kernel_names(16):
         assert name.split("<")[0] in kernels
+
+
+def _moe_routes(monkeypatch, card_select=None, noise=0.0, compared_calls=2):
+    """A MoE layer's calls under ``MoERouting``: two on the card's route
+    (here: outside ``plain_attention_route``, the CPU standing in for the
+    card), through ``card_select`` if given, then ``compared_calls`` on a
+    compared route whose router weight is off by ``noise``."""
+    from r3d_tpu_torch.models import layers
+    from r3d_tpu_torch.models.moe import MoEFeedForward
+
+    monkeypatch.setattr(chip_smoke.MoERouting, "card_route",
+                        lambda self, probs: layers.attention_kernel_eligible is self.kernel_route)
+    gen = torch.Generator().manual_seed(0)
+    m = MoEFeedForward(16, 32, 4, 2)
+    m.router.weight.data = 0.3 * torch.randn(4, 16, generator=gen)
+    x = torch.randn(2, 50, 16, generator=gen)
+    with chip_smoke.MoERouting("test") as pin:
+        own = pin.orig
+        if card_select is not None:
+            pin.orig = lambda module, probs: card_select(own(module, probs))
+        for _ in range(2):
+            m(x)
+        pin.orig = own
+        m.router.weight.data += noise * torch.randn(4, 16, generator=gen)
+        with chip_smoke.plain_attention_route():
+            for _ in range(compared_calls):
+                m(x)
+    return pin
+
+
+def test_moe_routing_takes_explained_choices(monkeypatch):
+    """A compared route whose router probabilities sit within
+    ``ROUTER_PROB_TOL`` of the card's takes the card's choices; the tokens
+    whose own choices differ lie within twice that difference of the top-K
+    boundary."""
+    pin = _moe_routes(monkeypatch, noise=0.01)
+    assert 0 < pin.eps <= chip_smoke.ROUTER_PROB_TOL
+    assert 0 < pin.differ < pin.total == 200
+
+
+@pytest.mark.parametrize("fault", ["probabilities", "order", "replay"])
+def test_moe_routing_fails_what_rounding_cannot_explain(monkeypatch, fault):
+    """The pin fails on router probabilities off by more than
+    ``ROUTER_PROB_TOL``, on card choices that are not the top K of the
+    card's own probabilities (here its first and second choice swapped),
+    and on a compared route that replays part of the recording."""
+    with pytest.raises(AssertionError):
+        if fault == "probabilities":
+            _moe_routes(monkeypatch, noise=0.5)
+        elif fault == "order":
+            _moe_routes(monkeypatch, card_select=lambda c: c.flip(-1))
+        else:
+            _moe_routes(monkeypatch, compared_calls=1)

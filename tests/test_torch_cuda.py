@@ -440,21 +440,22 @@ def test_cross_attention_kernels_match_plain(cuda, dtype, Lq, C, H, S, rate):
     gen = torch.Generator().manual_seed(S + C + Lq)
     q, k, v, bias = cross_inputs(4, Lq, S, C, gen, cuda, dt, all_masked_row=S > 1)
     scale = 1.0 / math.sqrt(C // H)
-    before = ca.FWD_KERNEL.launches
+    fwd, bwd = ca.BY_DTYPE[dt]
+    before = fwd.launches
     out, m, l = ca.cross_attention_fwd(q, k, v, bias, 5 + S, scale, rate, H)
     torch.cuda.synchronize()
-    assert ca.FWD_KERNEL.launches == before + 1
+    assert fwd.launches == before + 1
     w_out, w_m, w_l = ca.composed_cross_attention(q, k, v, bias, 5 + S, scale, rate, H)
     _close(out.float(), w_out.float(), 2e-5 if dtype == "fp32" else BF16_TOL, "out")
     # a fully masked row's m is finfo.min on both sides
     torch.testing.assert_close(m, w_m, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(l, w_l, atol=1e-5, rtol=1e-5)
     g = torch.randn(q.shape, generator=gen).to(cuda, dt)
-    before = ca.BWD_KERNEL.launches
+    before = bwd.launches
     got = ca.cross_attention_bwd(q, k, v, bias, 5 + S, scale, rate, H, g, out, m, l,
                                  need_dbias=True)
     torch.cuda.synchronize()
-    assert ca.BWD_KERNEL.launches == before + 1
+    assert bwd.launches == before + 1
     want = ca.composed_cross_attention_bwd(q, k, v, bias, 5 + S, scale, rate, H, g, out, m, l)
     for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
         assert a.dtype == b.dtype, name
@@ -699,11 +700,13 @@ def test_fp32_cross_attention_kernels_match_plain(cuda, Lq, D, S, rate):
     H = 8 if D == 16 else 4
     q, k, v, bias, g = _fp32_cross(3, Lq, S, H * D, S + Lq + D)
     scale = 1.0 / math.sqrt(D)
-    before = ca.FWD_KERNEL.launches, ca.BWD_KERNEL.launches
+    fwd, bwd = ca.FWD_KERNEL_FP32, ca.BWD_KERNEL_FP32
+    before = fwd.launches, bwd.launches, ca.FWD_KERNEL.launches, ca.BWD_KERNEL.launches
     out, m, l = ca.cross_attention_fwd(q, k, v, bias, 3 + S, scale, rate, H)
     got = ca.cross_attention_bwd(q, k, v, bias, 3 + S, scale, rate, H, g, out, m, l, True)
     torch.cuda.synchronize()
-    assert (ca.FWD_KERNEL.launches, ca.BWD_KERNEL.launches) == (before[0] + 1, before[1] + 1)
+    assert (fwd.launches, bwd.launches, ca.FWD_KERNEL.launches, ca.BWD_KERNEL.launches) == (
+        before[0] + 1, before[1] + 1, before[2], before[3])   # the bf16 counters stay
     w_out, w_m, w_l = ca.composed_cross_attention(q, k, v, bias, 3 + S, scale, rate, H)
     _close(out, w_out, 2e-5, "out")
     torch.testing.assert_close(m, w_m, atol=1e-5, rtol=1e-5)
@@ -778,9 +781,9 @@ def test_fp32_cross_attention_fwd_refuses_more_than_8_splits(cuda):
     got = (torch.empty_like(q), torch.empty((8, 8, 8), device=q.device),
            torch.empty((8, 8, 8), device=q.device))
     stream = torch.cuda.current_stream().cuda_stream
-    err = ca.FWD_KERNEL.load()(0, q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-                               *(t.data_ptr() for t in got), None, 64, 8, 8, 1024, 8, 16, 0.25,
-                               0, 0, 0, 1.0, stream)
+    err = ca.FWD_KERNEL_FP32.load()(0, q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                                    *(t.data_ptr() for t in got), None, 64, 8, 8, 1024, 8, 16,
+                                    0.25, 0, 0, 0, 1.0, stream)
     torch.cuda.synchronize()
     assert err == 1   # cudaErrorInvalidValue
 
@@ -1035,3 +1038,98 @@ def test_darai_step_through_the_kernels_matches_the_plain_route(cuda, tmp_path, 
     model = init_weights(build_model(cfg.model, src.n_class), torch.Generator().manual_seed(0))
     fp32_step_kernels_vs_plain(cfg, model.state_dict(), batch, src.n_class,
                                [att.KERNEL, att.DROPOUT_KERNEL, att.BWD_KERNEL])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_layer_on_the_card_matches_the_cpu(cuda, dtype):
+    """``MoEFeedForward`` (4 experts, top 2, pad rows, a capacity that
+    drops) on the card against the CPU from the same weights, the CPU
+    taking the card's expert choices (``chip_smoke.MoERouting``): outputs
+    and gradients within 1e-5 in fp32, 2e-2 of the largest entry in bf16."""
+    from chip_smoke import MoERouting
+    from r3d_tpu_torch.models.moe import MoEFeedForward
+
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(4, 300, 64, generator=gen)
+    pad = torch.arange(300)[None, :] >= torch.tensor([300, 250, 128, 7])[:, None]
+    m = MoEFeedForward(64, 256, 4, 2, 0.8, dtype=dtype)
+    with torch.no_grad():
+        for p in m.parameters():
+            p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+    out = {}
+    with MoERouting("MoE layer, card vs CPU"):
+        for dev in ("cuda", "cpu"):
+            mm = m.to(dev)
+            mm.zero_grad()
+            xd = x.to(dev).requires_grad_()
+            y = mm(xd, pad.to(dev))
+            ((y.float() ** 2).mean() + mm.aux).backward()
+            y = y.detach()
+            out[dev] = (y.float().cpu(), xd.grad.float().cpu(),
+                        {n: p.grad.float().cpu() for n, p in mm.named_parameters()})
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    (yc, gc, pc), (yh, gh, ph) = out["cuda"], out["cpu"]
+    assert float((yc - yh).abs().max()) <= tol * max(1.0, float(yh.abs().max()))
+    assert float((gc - gh).abs().max()) <= tol * max(1.0, float(gh.abs().max()))
+    for n in ph:
+        assert float((pc[n] - ph[n]).abs().max()) <= tol * max(1.0, float(ph[n].abs().max())), n
+
+
+@pytest.mark.parametrize("model", ["rnn", "tcn"])
+def test_baselines_on_the_card_match_the_cpu(cuda, model):
+    """The BiLSTM (packed, cuDNN) and the TCN (cuDNN's 1-D convs) at hidden
+    128 on ragged rows, in eval mode (the TCN's dropout off) with gradients,
+    as a sticky step runs them: outputs on the real rows and the gradients
+    within 1e-4 of the CPU's (fp32, TF32 off)."""
+    import dataclasses
+
+    from r3d_tpu_torch.config import get_config
+    from r3d_tpu_torch.models import build_model, init_weights
+
+    base = get_config("nturgbd")
+    cfg = dataclasses.replace(base.model, model=model, input_dim=64, embed_dtype=None)
+    net = init_weights(build_model(cfg, 11), torch.Generator().manual_seed(0)).eval()
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(4, 256, 64, generator=gen)
+    pad = torch.arange(256)[None, :] >= torch.tensor([256, 200, 129, 31])[:, None]
+    res = {}
+    for dev in ("cuda", "cpu"):
+        n = net.to(dev)
+        n.zero_grad()
+        out = n(x.to(dev), pad.to(dev))
+        sum((v[~pad.to(dev)] if k == "supcon" else v).float().pow(2).mean()
+            for k, v in out.items()).backward()
+        res[dev] = ({k: v.detach().float().cpu() for k, v in out.items()},
+                    {k: p.grad.cpu() for k, p in n.named_parameters() if p.grad is not None})
+    (oc, gc), (oh, gh) = res["cuda"], res["cpu"]
+    for k in oh:
+        a, b = (oc[k][~pad], oh[k][~pad]) if k == "supcon" else (oc[k], oh[k])
+        assert float((a - b).abs().max()) <= 1e-4, k
+    assert gc.keys() == gh.keys()
+    for k in gh:
+        assert float((gc[k] - gh[k]).abs().max()) <= 1e-4 * max(1.0, float(gh[k].abs().max())), k
+
+
+def test_depth_source_keeps_its_fixed_dropouts_in_a_sticky_step(cuda, tmp_path):
+    """``darai --model futr_unsupervised_depth`` at hidden 128 (64 input
+    features): a sticky train step of a 512-bucket batch through the
+    kernels keeps the source's and the queries' ``Dropout(0.1)`` on, each
+    within 3 sigma of 0.9 with the backward through the forward's mask
+    (``chip_smoke.sticky_dropout_on_card``; ROADMAP C4)."""
+    import dataclasses
+
+    from chip_smoke import DARAI_TRAIN, one_batch, sticky_dropout_on_card, write_darai_dataset
+    from r3d_tpu_torch.config import get_config
+    from r3d_tpu_torch.data.datasets import build_loader, build_source
+    from r3d_tpu_torch.models import build_model, init_weights
+
+    root = write_darai_dataset(tmp_path, DARAI_TRAIN[:1], (), input_dim=64)
+    base = get_config("darai")
+    cfg = base.replace(data=dataclasses.replace(base.data, data_root=root),
+                       model=dataclasses.replace(base.model, input_dim=64,
+                                                 model="futr_unsupervised_depth"))
+    src = build_source(cfg.data, "train_split.txt")
+    batch = one_batch(build_loader(src, cfg.data, 8, 8, seed=0), 0)
+    model = init_weights(build_model(cfg.model, src.n_class), torch.Generator().manual_seed(0))
+    keep = sticky_dropout_on_card(cfg, model.state_dict(), batch, src.n_class)
+    assert sorted(keep) == ["query_drop", "src_drop"]

@@ -234,8 +234,7 @@ def test_trainer_defaults_to_cuda_and_raises_without_it():
         Trainer(_small_config(), 6)
 
 
-@pytest.mark.parametrize("kw,item", [({"rng_impl": "rbg"}, "A10"),
-                                     ({"loop": "tcn"}, "A12")])
+@pytest.mark.parametrize("kw,item", [({"rng_impl": "rbg"}, "A10")])
 def test_trainer_refuses_what_is_not_ported(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         Trainer(_small_config(**kw), 6, device="cpu")

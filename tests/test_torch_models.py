@@ -246,8 +246,7 @@ def test_futr_fusion_matches_flax(S):
 def test_build_model_refuses_what_is_not_ported():
     _, pcfg = _model_cfgs()
     for kw in ({"compute_dtype": "bfloat16"},
-               {"model": "futr", "compute_dtype": "float16"},
-               {"model": "futr", "input_type": "gt"}):
+               {"model": "futr", "compute_dtype": "float16"}):
         with pytest.raises(NotImplementedError):
             build_model(dataclasses.replace(pcfg, **kw), 17, (6, 5))
 

@@ -229,9 +229,9 @@ def test_fc_l3_reads_the_queries_and_masked_rows_do_not_leak():
 def test_registry_and_init():
     """``futr_proposed`` builds in fp32 and bf16, the query family is the
     JAX package's, the self-attention and gaze sources build too
-    (``tests/test_torch_unsupervised_model.py`` holds them to JAX), the
-    depth source raises naming A11.4, and the embedding table is drawn as
-    flax's xavier-uniform ``Embed``."""
+    (``tests/test_torch_unsupervised_model.py`` holds them to JAX), so does
+    the depth source (``tests/test_torch_query_variants.py``), and the
+    embedding table is drawn as flax's xavier-uniform ``Embed``."""
     for name in jax_config.get_config("darai").model.model, "futr_proposed", "futr", "afft":
         assert model_needs_query(name) == jax_needs_query(name)
     for dtype in ("float32", "bfloat16"):
@@ -242,8 +242,7 @@ def test_registry_and_init():
                {"model": "futr_unsupervised_temp2"}):
         assert isinstance(build_model(dataclasses.replace(pcfg, **kw), N_CLASS),
                           FUTRUnsupervised)
-    with pytest.raises(NotImplementedError, match="A11.4"):
-        FUTRUnsupervised(pcfg, N_CLASS, query_source="depth")
+    assert FUTRUnsupervised(pcfg, N_CLASS, query_source="depth").query_source == "depth"
     with torch.no_grad():
         m = init_weights(build_model(pcfg, N_CLASS), torch.Generator().manual_seed(0))
     bound = np.sqrt(6 / (QUERY_NUM + 32))

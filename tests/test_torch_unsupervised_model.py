@@ -159,16 +159,15 @@ def test_source_dropout_invariants():
 
 @torch.no_grad()
 def test_registry_and_init():
-    """Every model of the family builds but the depth source, which raises
-    naming A11.4; the convs draw flax's truncated lecun normal with zero
+    """Every model of the family builds, the depth source with the 1-wide
+    projection of the trainer's L3-id route; the convs draw flax's truncated lecun normal with zero
     bias, temp2's raw ``query_embed`` flax's xavier uniform."""
     for name in MODELS:
         _, pcfg = _cfgs(name)
         assert model_needs_query(name) and isinstance(build_model(pcfg, N_CLASS),
                                                       FUTRUnsupervised)
     _, pcfg = _cfgs("futr_unsupervised_depth")
-    with pytest.raises(NotImplementedError, match="A11.4"):
-        build_model(pcfg, N_CLASS)
+    assert build_model(pcfg, N_CLASS).depth_embed.depth_projection.in_features == 1
     _, pcfg = _cfgs("futr_gaze")
     m = init_weights(build_model(pcfg, N_CLASS), torch.Generator().manual_seed(0))
     for conv, fan_in in ((m.gaze_cnn.conv1, 18), (m.gaze_cnn.conv2, 288)):
