@@ -264,6 +264,14 @@ CROSS_BWD_TOL = 1e-4     # K7 fp32, over each gradient's largest entry: sums ove
 BF16_TOL = 2e-2          # bf16 kernels vs their plain versions, over the largest entry: the same
                          # rounding points, but a sum in another order can land on the
                          # neighbouring bf16 value (2**-8 relative)
+BF16_STEPS = 2           # bf16 K1 vs its plain version: within two bf16 steps (2**-7 of the
+BF16_SHARE = 0.01        # largest entry each) and at most 1 % of the entries off; the same
+                         # rounding points, so only a sum in another order that lands on the
+                         # other side of a rounding boundary moves a value (and what it feeds).
+                         # bf16 K2 (fp32 inside): dr and dd within one step, its fp32
+                         # parameter gradients within K2_TOL
+BF16_GRAD_TOL = 0.25     # a bf16 model's train step, card vs CPU: each gradient over its
+BF16_COS_MIN = 0.9995    # largest entry, and the cosine of the whole gradient
 SELF_TOL = 1e-2          # bf16 K3-K5 at S queries against S keys, over each tensor's own largest
                          # entry with no floor of 1 (an output entry there averages thousands
                          # of keys and reads far below 1): a flip to the neighbouring bf16
@@ -271,8 +279,8 @@ SELF_TOL = 1e-2          # bf16 K3-K5 at S queries against S keys, over each ten
 
 
 # every __global__ function of r3d_tpu_torch/csrc, by a fragment of its name
-OWN_KERNELS = ("fuser_tail_tf32_kernel", "transpose_weights_kernel", "fuser_tail_bwd_rows_kernel",
-               "fuser_tail_wgrad_kernel", "fuser_tail_bwd_sum_kernel",
+OWN_KERNELS = ("fuser_tail_tf32_kernel", "fuser_tail_bf16_kernel", "transpose_weights_kernel",
+               "fuser_tail_bwd_rows_kernel", "fuser_tail_wgrad_kernel", "fuser_tail_bwd_sum_kernel",
                "attention_fwd_cluster_kernel", "attention_fwd_split_kernel",
                "attention_fwd_many_kernel", "attention_bwd_many_dq_kernel",
                "attention_bwd_many_dkdv_kernel",
@@ -4153,6 +4161,133 @@ def check_attention_fp32_self(gen, device):
     return worst, timing
 
 
+def bf16_steps_off(got, want):
+    """(largest |got - want| in bf16 steps of want's largest entry, the
+    share of entries that differ), in fp32."""
+    diff = (got.float() - want.float()).abs()
+    big = float(want.float().abs().max())
+    return float(diff.max()) / (2.0 ** -7 * max(big, 1e-30)), float((diff > 0).float().mean())
+
+
+def fuser_bf16_bound_ms(N, C=128, Ch=512, with_blend=True, backward=False):
+    """bf16 K1: bf16 streams in and out once, the fp32 parameters (and
+    blend vectors) once, the three products at the bf16 tensor-core rate.
+    bf16 K2: bf16 r, d, g in and dr, dd out, the fp32 parameters in and
+    their gradients out, its products fp32-accurate as JAX computes them
+    (3xTF32, as fp32 K2)."""
+    n_params = C * C + 2 * C * Ch + Ch + 8 * C
+    if backward:
+        return _bound(2 * 5 * N * C + 4 * 2 * n_params, 6 * N * (2 * C * C + 4 * C * Ch),
+                      H100_TF32X3_FLOPS)
+    n_bytes = 2 * 3 * N * C + 4 * (n_params + (7 * C if with_blend else 0))
+    return _bound(n_bytes, N * 2 * (2 * C * C + 4 * C * Ch), H100_BF16_FLOPS)
+
+
+def check_fuser_bf16_kernels(gen, device):
+    """The bf16 instantiations of K1 (both routes, the outer residual off and
+    on) and K2 (off and on) against their plain versions in bf16 (bf16
+    streams, fp32 parameters) at N = 1, 16, the utkinects buckets' N = 8 x
+    256, 512, 1,024 and 2,000 rows and a ragged N; each
+    call twice bit-equal; each timed at 8 x 512 (events around the C
+    launcher, the profiler's device time of all of a call's launches)
+    beside its plain version and its bound. Returns {counter name: (worst
+    (max|kernel - plain|, bf16 steps off, share of entries off for K1 or
+    the parameter gradients' relative error for K2), timing)}."""
+    import torch
+
+    from r3d_tpu_torch.ops import fuser_kernel as fk
+    from r3d_tpu_torch.ops import fuser_kernel_bwd as fkb
+
+    stream = torch.cuda.current_stream().cuda_stream
+    worst = {}
+    timing = {}
+
+    def note(name, err):
+        old = worst.get(name, (0.0, 0.0, 0.0))
+        worst[name] = tuple(max(a, b) for a, b in zip(old, err))
+
+    for N in (1, 16) + K1_ROWS + (8 * 256 + 5,):
+        r, d, blend, params = fuser_inputs(N, gen, device)
+        r, d = r.bfloat16(), d.bfloat16()
+        g = torch.randn(N, 128, generator=gen).to(device).bfloat16()
+        for outer in (False, True):
+            calls = {
+                fk.KERNEL_BF16.name: (
+                    lambda: fk.fused_bn_blend_tail(r, d, blend, params, outer),
+                    lambda: fk.composed_tail(*fk.composed_bn_blend(r, d, blend), params, outer)),
+                (fk.TAIL_KERNEL_BF16_OUTER if outer else fk.TAIL_KERNEL_BF16).name: (
+                    lambda: fk.fused_safuser_tail(r, d, params, outer),
+                    lambda: fk.composed_tail(r, d, params, outer)),
+            }
+            for name, (fn, plain) in calls.items():
+                got = fn()
+                steps, share = bf16_steps_off(got, plain())
+                print(f"{name} N={N} outer_residual={outer}: {steps:.2f} bf16 steps of the "
+                      f"largest entry at most, {100 * share:.3f} % of the entries off (tol "
+                      f"{BF16_STEPS} steps, {100 * BF16_SHARE:.0f} %)")
+                if not (got.dtype == torch.bfloat16 and steps <= BF16_STEPS
+                        and share <= BF16_SHARE and torch.isfinite(got.float()).all()):
+                    raise AssertionError(f"{name} disagrees with its plain version at N={N}")
+                if not torch.equal(got, fn()):
+                    raise AssertionError(f"{name} is not deterministic at N={N}")
+                note(name, (errs([got], [plain()])[0], steps, share))
+            name = (fkb.KERNEL_BF16_OUTER if outer else fkb.KERNEL_BF16).name
+            got = fkb.fused_tail_bwd(r, d, g, params, outer)
+            want = fkb.composed_tail_bwd(r, d, g, params, outer)
+            steps = max(bf16_steps_off(a, b)[0] for a, b in zip(got[:2], want[:2]))
+            ea, er = errs(got[2], want[2])
+            again = fkb.fused_tail_bwd(r, d, g, params, outer)
+            same = all(torch.equal(a, b) for a, b in zip((got[0], got[1], *got[2]),
+                                                          (again[0], again[1], *again[2])))
+            print(f"{name} N={N}: dr, dd {steps:.2f} bf16 steps off at most (tol 1); 12 fp32 "
+                  f"gradients max|kernel - plain| {ea:.3e}, relative {er:.3e} (tol {K2_TOL}); "
+                  f"two calls bit-equal: {same}")
+            if not (steps <= 1.0 and er <= K2_TOL and same and got[0].dtype == torch.bfloat16):
+                raise AssertionError(f"{name} disagrees or is not deterministic at N={N}")
+            note(name, (max(ea, errs(got[:2], want[:2])[0]), steps, er))
+        if N != 8 * 512:
+            continue
+        out = torch.empty_like(r)
+        ptrs = [t.data_ptr() for t in params]
+        launches = {
+            fk.KERNEL_BF16.name: (raw_launcher(
+                fk.KERNEL_BF16, r.data_ptr(), d.data_ptr(), *(t.data_ptr() for t in blend),
+                *ptrs, out.data_ptr(), N, 128, 512, 0, stream),
+                lambda: fk.composed_tail(*fk.composed_bn_blend(r, d, blend), params),
+                fuser_bf16_bound_ms(N)),
+        }
+        for outer, k in ((0, fk.TAIL_KERNEL_BF16), (1, fk.TAIL_KERNEL_BF16_OUTER)):
+            launches[k.name] = (
+                raw_launcher(k, r.data_ptr(), d.data_ptr(), *ptrs, out.data_ptr(), N, 128, 512,
+                             outer, stream),
+                lambda outer=outer: fk.composed_tail(r, d, params, bool(outer)),
+                fuser_bf16_bound_ms(N, with_blend=False))
+        plan = fkb.bwd_plan(N, 512, torch.cuda.get_device_properties(device).multi_processor_count)
+        dr, dd = torch.empty_like(r), torch.empty_like(d)
+        scratch = torch.empty(fkb.scratch_floats(128, 512, plan), device=device)
+        flat = torch.empty(fkb.grad_layout(128, 512)[1], device=device)
+        for outer, k in ((0, fkb.KERNEL_BF16), (1, fkb.KERNEL_BF16_OUTER)):
+            launches[k.name] = (
+                raw_launcher(k, r.data_ptr(), d.data_ptr(), g.data_ptr(), *ptrs, dr.data_ptr(),
+                             dd.data_ptr(), scratch.data_ptr(), flat.data_ptr(), N, 128, 512,
+                             plan.tile_rows, plan.split_rows, outer, stream),
+                lambda outer=outer: fkb.composed_tail_bwd(r, d, g, params, bool(outer)),
+                fuser_bf16_bound_ms(N, backward=True))
+        for name, (launch, plain, (bound, bound_by)) in launches.items():
+            backward = "bwd" in name
+            t = {"shape": f"N={N} C=128 Ch=512 bf16" + (" outer_residual" if "outer" in name
+                                                          else ""),
+                 "ms": time_ms(launch, iters=20 if backward else 50),
+                 "device_ms": device_ms(launch, None if backward else "fuser_tail_bf16_kernel"),
+                 "plain_ms": time_ms(plain, iters=20), "library_ms": None,
+                 "library_device_ms": None, "bound_ms": bound, "bound_by": bound_by}
+            print(f"{name} N={N}: {t['ms']:.4f} ms by events, {fmt_ms(t['device_ms'])} on the "
+                  f"device{' (every launch of a call)' if backward else ''}, plain "
+                  f"{t['plain_ms']:.4f}, bound {bound:.4f} ({bound_by})")
+            timing[name] = t
+    return {name: (worst[name], timing[name]) for name in timing}
+
+
 def time_outer_residual(gen, device, N=8 * 512):
     """K1's no-blend route and K2 with the outer residual on (the
     ``futr_fusion_grad`` tail) at N rows: the C launchers by events and the
@@ -4248,6 +4383,45 @@ FUSER_GRAD_TOL = 1e-4
 ABLATION_DIR = "build/ablation_phase"   # under the checkout (git-ignored), removed after
 
 
+def phase_launches(snapshots, label):
+    """The launches of each phase of a 2-epoch ``cli_train`` run (the
+    differences between its snapshots), each printed under ``label``."""
+    phases = ["epoch 0 train", "epoch 0 validation", "epoch 1 train", "epoch 1 validation"]
+    per_phase, prev = {}, {}
+    for phase, snap in zip(phases, snapshots):
+        per_phase[phase] = {k: snap[k] - prev.get(k, 0) for k in snap
+                            if snap[k] - prev.get(k, 0)}
+        prev = snap
+        print(f"{label}: launches in {phase}: {per_phase[phase]}")
+    return per_phase
+
+
+def sweep_card_and_cpu(predict, kernels):
+    """The utkinects CLI's sweep ``predict`` (argv) on the card and with
+    ``--cpu`` (its output silenced), the launch counts set to 0 before each:
+    {"cuda" or "cpu": (results, the ``SweepRecorder`` chunks, wall s, the
+    counts)}."""
+    import io
+
+    import torch
+
+    from r3d_tpu_torch.cli.opts import run_from_argv
+
+    runs = {}
+    for run, extra in (("cuda", []), ("cpu", ["--cpu"])):
+        for k in kernels:
+            k.launches = 0
+        quiet = io.StringIO() if run != "cuda" else sys.stdout
+        with SweepRecorder(kernels) as rec, contextlib.redirect_stdout(quiet):
+            t0 = time.perf_counter()
+            results = run_from_argv("utkinects", predict + extra, log=lambda *a: None)
+            if run != "cpu":
+                torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        runs[run] = (results, rec.chunks, dt, {k.name: k.launches for k in kernels})
+    return runs
+
+
 def ablation_cli(kernels, card, model, root):
     """``--config utkinects --model <model>`` at full width through the CLI
     over the dataset at ``root`` (the CLI phase's 5 + 2 videos): every
@@ -4269,13 +4443,12 @@ def ablation_cli(kernels, card, model, root):
     step with K2's outer-residual flag flipped must fail both its bounds.
     Returns (train counts, sweep counts). Also the parts of a 512-bucket
     step in epoch 0 and sticky (``train_breakdown``)."""
-    import io
     import os
     import shutil
 
     import torch
 
-    from r3d_tpu_torch.cli.opts import build_parser, config_from_args, run_from_argv
+    from r3d_tpu_torch.cli.opts import build_parser, config_from_args
     from r3d_tpu_torch.cli.run import save_path
     from r3d_tpu_torch.data.datasets import build_loader, build_source
     from r3d_tpu_torch.models import build_model
@@ -4293,13 +4466,7 @@ def ablation_cli(kernels, card, model, root):
         lines, snapshots, train_counts, t_train = cli_train(argv, kernels)
         if not any(line.startswith(CLI_ROUTE) and "views" in line for line in lines):
             raise AssertionError(f"{model} train: the cached route's line is missing: {lines}")
-        phases = ["epoch 0 train", "epoch 0 validation", "epoch 1 train", "epoch 1 validation"]
-        per_phase, prev = {}, {}
-        for phase, snap in zip(phases, snapshots):
-            per_phase[phase] = {k: snap[k] - prev.get(k, 0) for k in snap
-                                if snap[k] - prev.get(k, 0)}
-            prev = snap
-            print(f"{model}: launches in {phase}: {per_phase[phase]}")
+        per_phase = phase_launches(snapshots, model)
         tail, bwd = ((fk.TAIL_KERNEL_OUTER, fkb.KERNEL_OUTER) if outer
                      else (fk.TAIL_KERNEL, fkb.KERNEL))
         tail, bwd = tail.name, bwd.name
@@ -4335,18 +4502,7 @@ def ablation_cli(kernels, card, model, root):
               f"gate opened {len(gate)} times; {names}")
 
         predict = argv + ["--predict", "--results_save_path", os.path.join(work, "results")]
-        runs = {}
-        for run, extra in (("cuda", []), ("cpu", ["--cpu"])):
-            for k in kernels:
-                k.launches = 0
-            quiet = io.StringIO() if run != "cuda" else sys.stdout
-            with SweepRecorder(kernels) as rec, contextlib.redirect_stdout(quiet):
-                t0 = time.perf_counter()
-                results = run_from_argv("utkinects", predict + extra, log=lambda *a: None)
-                if run != "cpu":
-                    torch.cuda.synchronize()
-                dt = time.perf_counter() - t0
-            runs[run] = (results, rec.chunks, dt, {k.name: k.launches for k in kernels})
+        runs = sweep_card_and_cpu(predict, kernels)
         results, chunks, t_sweep, sweep_counts = runs["cuda"]
         cpu_res, cpu_chunks = runs["cpu"][0], runs["cpu"][1]
         per_bucket = {}
@@ -4445,6 +4601,172 @@ def ablations(kernels, card):
         return {model: ablation_cli(kernels, card, model, root) for model in ABLATIONS}
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
+
+
+# ---- the fusion models in bf16: utkinects with --compute_dtype bfloat16 ----
+
+BF16_DIR = "build/bf16_phase"   # under the checkout (git-ignored), removed after the phase
+BF16_FLAGS = ["--compute_dtype", "bfloat16", "--opt_mu_dtype", "bfloat16"]
+
+
+def bf16_fuser_counters():
+    """The five bf16 K1/K2 counters, then the five fp32 ones."""
+    from r3d_tpu_torch.ops import fuser_kernel as fk
+    from r3d_tpu_torch.ops import fuser_kernel_bwd as fkb
+
+    return ([fk.KERNEL_BF16, fk.TAIL_KERNEL_BF16, fk.TAIL_KERNEL_BF16_OUTER, fkb.KERNEL_BF16,
+             fkb.KERNEL_BF16_OUTER],
+            [fk.KERNEL, fk.TAIL_KERNEL, fk.TAIL_KERNEL_OUTER, fkb.KERNEL, fkb.KERNEL_OUTER])
+
+
+def utkinects_bf16(kernels, card):
+    """``--config utkinects --compute_dtype bfloat16 --opt_mu_dtype
+    bfloat16`` at full width through the CLI on the CLI phase's dataset
+    (written anew): every launch count set to 0, ``train`` one seed for 2
+    epochs on the device cache, where epoch 0 (dropout on) must launch bf16
+    K1's no-blend route and bf16 K2, the sticky epoch 1 and both
+    validations bf16 K1's blend route, and nothing may launch an fp32 K1/K2;
+    the checkpoint's AdamW first moment must be bf16; the 9-ratio sweep from
+    the best checkpoint on the card (bf16 K1's blend route in every chunk)
+    and with ``--cpu``, held window by window (logits and durations within
+    ``E2E_TOL``, a MoC difference only where a decode flip is explained);
+    then one bf16 training step of each fuser ablation (dropout off: K1's
+    no-blend route and K2, the outer residual on for ``futr_fusion_grad``)
+    from a seeded init on a 512-bucket batch, on the card and on the CPU
+    (``train_step_on_card_and_cpu``: the loss, each gradient within
+    ``BF16_GRAD_TOL`` of its largest entry, the gradient's cosine at least
+    ``BF16_COS_MIN``); and the parts of a 512-bucket step of the trained
+    bf16 model beside the same step in fp32 (``train_breakdown``). Returns
+    (the phase's counts: training, sweep and the four steps; the sweep's
+    counts; the steps' counts)."""
+    import dataclasses
+    import os
+    import shutil
+
+    import torch
+
+    from r3d_tpu_torch.cli.opts import build_parser, config_from_args
+    from r3d_tpu_torch.cli.run import save_path
+    from r3d_tpu_torch.data.datasets import build_loader, build_source
+    from r3d_tpu_torch.models import build_model, init_weights
+
+    bf16_k, fp32_k = bf16_fuser_counters()
+    blend, tail, tail_outer, bwd, bwd_outer = (k.name for k in bf16_k)
+    never = {k.name for k in fp32_k}
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), BF16_DIR)
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        root = write_utkinect_dataset(os.path.join(work, "data"), 5, 2, CLI_TRAIN_LENGTHS,
+                                      val_lengths=CLI_VAL_LENGTHS)
+        argv = ["--config", "utkinects", "--data_root", root, "--model_save_path",
+                os.path.join(work, "save"), "--seed", "1", *BF16_FLAGS]
+        config = config_from_args(build_parser("utkinects").parse_args(argv))
+        if (config.model.compute_dtype, config.train.opt_mu_dtype) != ("bfloat16", "bfloat16"):
+            raise AssertionError(f"bf16: the flags did not reach the config: {config}")
+        lines, snapshots, train_counts, t_train = cli_train(argv, kernels)
+        if not any(line.startswith(CLI_ROUTE) and "views" in line for line in lines):
+            raise AssertionError(f"bf16 train: the cached route's line is missing: {lines}")
+        per_phase = phase_launches(snapshots, "bf16 utkinects")
+        k3, k4, k5 = "flash_attention_bf16", "flash_attention_dropout_bf16", "attention_bwd_bf16"
+        want = {"epoch 0 train": (tail, bwd, k4, k5), "epoch 0 validation": (blend, k3),
+                "epoch 1 train": (blend, k3, k5), "epoch 1 validation": (blend, k3)}
+        never |= {"flash_attention", "flash_attention_dropout", "attention_bwd"}   # fp32 K3-K5
+        for phase, names in want.items():
+            missing = [n for n in names if per_phase.get(phase, {}).get(n, 0) == 0]
+            if missing:
+                raise AssertionError(f"bf16 train: {phase} never launched {missing}")
+        wrong = {k: c for k, c in train_counts.items() if c and k in never}
+        if wrong:
+            raise AssertionError(f"bf16 train: launched fp32 kernels: {wrong}")
+        losses = [float(x) for line in lines
+                  for x in re.findall(r"Loss ?: ?(-?[0-9.]+|nan|inf)", line)]
+        if len(losses) != 4 or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"bf16 train: a loss is missing or not finite: {lines}")
+        ckpt_dir = save_path(config)
+        blob = torch.load(os.path.join(ckpt_dir, "seed_1_last", "state.pt"), map_location="cpu",
+                          weights_only=True)
+        mu_dtypes = {str(st["exp_avg"].dtype) for st in blob["optimizer"]["state"].values()}
+        nu_dtypes = {str(st["exp_avg_sq"].dtype) for st in blob["optimizer"]["state"].values()}
+        gate = [line for line in lines if line.startswith("Best model saved")]
+        print(f"bf16 utkinects [{card}]: train 2 epochs on the cached route in {t_train:.2f} s, "
+              f"the gate opened {len(gate)} times; {sorted(os.listdir(ckpt_dir))}; AdamW's "
+              f"first moment {mu_dtypes}, second {nu_dtypes}")
+        if mu_dtypes != {"torch.bfloat16"} or nu_dtypes != {"torch.float32"}:
+            raise AssertionError("bf16 train: the checkpoint's AdamW moments are not bf16/fp32")
+
+        predict = argv + ["--predict", "--results_save_path", os.path.join(work, "results")]
+        runs = sweep_card_and_cpu(predict, kernels)
+        results, chunks, t_sweep, sweep_counts = runs["cuda"]
+        cpu_res, cpu_chunks = runs["cpu"][0], runs["cpu"][1]
+        for c in chunks:
+            n = c["launches"]
+            if n[blend] == 0 or any(n[k] for k in never):
+                raise AssertionError(f"bf16 sweep: a {c['S']}-bucket chunk launched {n}")
+            if not (np.isfinite(c["action"]).all() and np.isfinite(c["duration"]).all()):
+                raise AssertionError(f"bf16 sweep: non-finite outputs in a {c['S']} chunk")
+        if [c["windows"] for c in cpu_chunks] != [c["windows"] for c in chunks]:
+            raise AssertionError("bf16 sweep: the card and the CPU swept different windows")
+        err = max(float(np.abs(a[key] - b[key]).max())
+                  for a, b in zip(chunks, cpu_chunks) for key in ("action", "duration"))
+        flipped, unexplained = decode_flips(chunks, cpu_chunks, err)
+        moc_diff = max(abs(results[o][k] - cpu_res[o][k]) for o in cpu_res for k in cpu_res[o]
+                       if k.startswith("obs"))
+        other = {f"{o} {k}": abs(results[o][k] - cpu_res[o][k]) for o in cpu_res
+                 for k in cpu_res[o] if not k.startswith("obs") and results[o][k] != cpu_res[o][k]}
+        n_windows = sum(len(c["windows"]) for c in chunks)
+        print(f"bf16 utkinects sweep on the card [{card}]:\n{moc_table(results)}")
+        print(f"bf16 utkinects sweep [{card}]: {n_windows} windows in {len(chunks)} chunks; "
+              f"launches { {k: c for k, c in sweep_counts.items() if c} }; card vs CPU "
+              f"max|logit or duration diff| {err:.3e} (tol {E2E_TOL}), max|MoC diff| "
+              f"{moc_diff:.3e}, {flipped} of {n_windows} windows decoded differently "
+              f"({unexplained} not explained); MoC entries equal: {moc_diff == 0}, the other "
+              f"entries that differ: {other or 'none'}; wall "
+              f"{t_sweep:.2f} s on the card, {runs['cpu'][2]:.2f} s on the CPU")
+        if err > E2E_TOL:
+            raise AssertionError("bf16 sweep: the card's outputs disagree with the CPU's")
+        if unexplained or (moc_diff > 0 and flipped == 0):
+            raise AssertionError("bf16 sweep: the card's MoC table differs from the CPU's "
+                                 "where the measured errors cannot explain it")
+
+        sources = build_source(config.data, "train_split.txt")
+        loader = build_loader(sources, config.data, config.train.batch_size,
+                              config.model.n_query, seed=1, pin_memory=True)
+        batch = one_batch(loader, 256, rows=config.train.batch_size)
+        step_counts = {}
+        for model in ABLATIONS:
+            cfg = config.replace(model=dataclasses.replace(config.model, model=model))
+            state_dict = init_weights(build_model(cfg.model, sources.n_class,
+                                                  cfg.data.depth_shape),
+                                      torch.Generator().manual_seed(SEED)).state_dict()
+            for k in kernels:
+                k.launches = 0
+            loss_gap = train_step_on_card_and_cpu(cfg, state_dict, batch, sources.n_class,
+                                                  grad_tol=BF16_GRAD_TOL, cos_min=BF16_COS_MIN)
+            step_counts[model] = {k.name: k.launches for k in kernels}
+            used = (tail_outer, bwd_outer) if model == "futr_fusion_grad" else (tail, bwd)
+            print(f"bf16 {model} step [{card}]: batch {tuple(batch['features'].shape[:2])}, "
+                  f"|loss card - CPU| {loss_gap:.3e}; launches "
+                  f"{ {k: c for k, c in step_counts[model].items() if c} }")
+            if any(step_counts[model][n] == 0 for n in used) or any(
+                    step_counts[model][n] for n in never | {blend}):
+                raise AssertionError(f"bf16 {model} step: launched {step_counts[model]}, "
+                                     f"wanted {used}")
+        # where a 512-bucket step's time goes, bf16 beside fp32 on the same batch and weights
+        final = final_model(ckpt_dir, "seed_1_last")
+        same_batch = lambda: one_batch(loader, 256, rows=config.train.batch_size)
+        fp32 = config.replace(
+            model=dataclasses.replace(config.model, compute_dtype="float32"),
+            train=dataclasses.replace(config.train, opt_mu_dtype=None))
+        for cfg, label in ((config, " (utkinects bf16)"), (fp32, " (utkinects fp32)")):
+            train_breakdown(cfg, final, loader, n_class=sources.n_class, label=label,
+                            make_batch=same_batch)
+        names = train_counts.keys()
+        total = {k: train_counts[k] + sweep_counts[k] + sum(c[k] for c in step_counts.values())
+                 for k in names}
+        steps = {k: sum(c[k] for c in step_counts.values()) for k in names}
+        return total, sweep_counts, steps
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 # ---- fuser_depth = 2: the composed fuser stack ----
@@ -5179,8 +5501,9 @@ def main() -> int:
 
     many = [att.KERNEL_BF16_MANY, att.DROPOUT_KERNEL_BF16_MANY, att.BWD_KERNEL_BF16_MANY]
     fp32_many = [att.KERNEL_MANY, att.DROPOUT_KERNEL_MANY, att.BWD_KERNEL_MANY]
+    bf16_fuser, _ = bf16_fuser_counters()
     kernels = [fk.KERNEL, fk.TAIL_KERNEL, fk.TAIL_KERNEL_OUTER, fkb.KERNEL, fkb.KERNEL_OUTER,
-               att.KERNEL, att.DROPOUT_KERNEL, att.BWD_KERNEL, *fp32_many, att.KERNEL_BF16,
+               *bf16_fuser, att.KERNEL, att.DROPOUT_KERNEL, att.BWD_KERNEL, *fp32_many, att.KERNEL_BF16,
                att.DROPOUT_KERNEL_BF16, att.BWD_KERNEL_BF16, *many, ca.FWD_KERNEL, ca.BWD_KERNEL,
                ca.FWD_KERNEL_FP32, ca.BWD_KERNEL_FP32]
     serving_kernels = [fk.KERNEL, att.KERNEL]
@@ -5205,6 +5528,7 @@ def main() -> int:
      (k7f_err, k7f_time)) = check_cross_attention_kernels(gen, device)
     self32_err, self32_time = check_attention_fp32_self(gen, device)
     k1o_time, k2o_time = time_outer_residual(gen, device)
+    fuser_bf16 = check_fuser_bf16_kernels(gen, device)
 
     # utkinects: futr_fusion_bn, fp32 after the bf16 embeds (PR 1, PR 2)
     cfg = get_config("utkinects")
@@ -5314,6 +5638,13 @@ def main() -> int:
         print(f"launches on the {model} CLI training path: "
               f"{ {k: c for k, c in a_train.items() if c} }; "
               f"sweep: { {k: c for k, c in a_sweep.items() if c} }")
+    # the fusion models in bf16 (A18): bf16 K1 on both routes, bf16 K2
+    bf16_counts, bf16_sweep, bf16_steps = utkinects_bf16(kernels, card)
+    print(f"launches on the bf16 utkinects path (CLI training, sweep, the ablations' steps): "
+          f"{ {k: c for k, c in bf16_counts.items() if c} }")
+    unused = [k.name for k in bf16_fuser if bf16_counts[k.name] == 0]
+    if unused:
+        raise AssertionError(f"the bf16 utkinects path never launched {unused}")
     depth2_counts = fuser_depth_2(kernels, loaders)
     enc = encoder(kernels, loaders)
     print(f"launches on the encoder serving path: "
@@ -5333,7 +5664,8 @@ def main() -> int:
         "ntu_launches": {k.name: sum(c[k.name] for c in ntu.values()) for k in kernels},
         "depth_launches": darai[DEPTH_MODEL][0], "depth_sweep_launches": darai[DEPTH_MODEL][1],
         "moe_launches": moe_train, "moe_serving_launches": moe_serving,
-        "gt_launches": gt_counts, "l3_launches": l3_counts}
+        "gt_launches": gt_counts, "l3_launches": l3_counts,
+        "bf16_launches": bf16_counts}   # the fusion models in bf16
 
     def a114_columns(name):
         return {col: counts[name] for col, counts in a114.items()}
@@ -5425,6 +5757,22 @@ def main() -> int:
             "max_abs_err": err[0], "max_err": err[1], "shape": t["shape"], "ms": t["ms"],
             "kernel_ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "library_device_ms": t["library_device_ms"]})
+    # the bf16 K1/K2 rows (A18): launches on the bf16 utkinects path, its
+    # sweep's, and the ablations' bf16 steps'
+    for k in bf16_fuser:
+        err, t = fuser_bf16[k.name]
+        rows.append({
+            "name": k.name, "route": "cuda", "source": f"r3d_tpu_torch/csrc/{k.source}",
+            "replaces": ("r3d_tpu/ops/fuser_kernel_bwd.py:70" if "bwd" in k.name
+                         else "r3d_tpu/ops/fuser_kernel.py:180"),
+            "launches": bf16_counts[k.name], "bf16_sweep_launches": bf16_sweep[k.name],
+            "bf16_step_launches": bf16_steps[k.name], **a114_columns(k.name),
+            "max_abs_err": err[0], "max_bf16_steps": err[1],
+            ("max_err" if "bwd" in k.name else "share_off"): err[2],
+            "shape": t["shape"], "ms": t["ms"], "kernel_ms": t["ms"],
+            "device_ms": t["device_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "library_device_ms": t["library_device_ms"]})
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -56,10 +56,16 @@
 //    partial written once.
 // 3. fuser_tail_bwd_sum_kernel sums the splits' partials in split order and
 //    the tiles' column sums in a fixed order into the 12 gradients.
+//
+// The bf16 instantiation (the fusion models in bf16) reads bf16 r, d and g
+// and writes bf16 dr and dd; everything between is the fp32 body above, as
+// the TPU kernel upcasts its inputs and computes in fp32. The parameter
+// gradients stay fp32.
 
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "mma_bf16.cuh"
 #include "mma_tf32.cuh"
 
 namespace {
@@ -92,9 +98,9 @@ constexpr int smem_bytes() {
 }
 
 struct BwdArgs {
-  const float* r;
-  const float* d;
-  const float* g;
+  const void* r;             // float or __nv_bfloat16, as the instantiation
+  const void* d;
+  const void* g;
   const float* norm1_scale;
   const float* norm1_bias;
   const float* wvp;          // [C, C], [out, in]
@@ -110,8 +116,8 @@ struct BwdArgs {
   const float* w2t;          // W2^T [Ch, C]
   const float* w1t;          // W1^T [C, Ch]
   const float* wvpt;         // Wvp^T [C, C]
-  float* dr;
-  float* dd;
+  void* dr;                  // the streams' type
+  void* dd;
   float* p;                  // [R, Ch] GELU(z)
   float* dz;                 // [R, Ch] GELU'(z), then dz
   float* dm;                 // [R, C] the cotangent of the MLP's output
@@ -439,10 +445,21 @@ __device__ __forceinline__ void store_rows(float* dst, const float* src, long sr
   }
 }
 
+// Four values to dst[i..i+3] in the streams' type (16 or 8 bytes).
+template <typename TOut>
+__device__ __forceinline__ void store4(void* dst, long i, float4 v) {
+  if constexpr (sizeof(TOut) == 4) {
+    *reinterpret_cast<float4*>(static_cast<float*>(dst) + i) = v;
+  } else {
+    *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(dst) + i) =
+        make_uint2(r3d::pack_bf16(v.x, v.y), r3d::pack_bf16(v.z, v.w));
+  }
+}
+
 // The tile's rows of both streams (TM global rows from grow0) into the
 // tile: r's in rows [0, TM), d's in [TM, T); rows past n_rows read as zero.
 // With kAdd they are added to what the tile holds.
-template <int T, bool kAdd>
+template <int T, bool kAdd, typename TIn>
 __device__ __forceinline__ void load_streams(const BwdArgs& a, float* dst, long grow0) {
   constexpr int TM = Tile<T>::TM;
   for (int idx = threadIdx.x; idx < TM * C; idx += NT) {
@@ -450,8 +467,8 @@ __device__ __forceinline__ void load_streams(const BwdArgs& a, float* dst, long 
     const int c = idx % C;
     const long gr = grow0 + i;
     const bool ok = gr < a.n_rows;
-    const float rv = ok ? __ldg(a.r + gr * C + c) : 0.f;
-    const float dv = ok ? __ldg(a.d + gr * C + c) : 0.f;
+    const float rv = ok ? r3d::to_float(static_cast<const TIn*>(a.r)[gr * C + c]) : 0.f;
+    const float dv = ok ? r3d::to_float(static_cast<const TIn*>(a.d)[gr * C + c]) : 0.f;
     if (kAdd) {
       dst[i * LDA + c] += rv;
       dst[(i + TM) * LDA + c] += dv;
@@ -462,7 +479,7 @@ __device__ __forceinline__ void load_streams(const BwdArgs& a, float* dst, long 
   }
 }
 
-template <bool kOuterResidual, int T>
+template <bool kOuterResidual, int T, typename TIn>
 __global__ void __launch_bounds__(NT, 1) fuser_tail_bwd_rows_kernel(const BwdArgs a) {
   using L = Tile<T>;
   constexpr int TM = L::TM;
@@ -491,7 +508,7 @@ __global__ void __launch_bounds__(NT, 1) fuser_tail_bwd_rows_kernel(const BwdArg
   for (int c = 0; c < NSTAGE - 1; ++c) issue_chunk(a, ring, c, n_chunks);   // under the input loads
 
   // ---- forward, recomputed ----
-  load_streams<T, false>(a, xs, grow0);
+  load_streams<T, false, TIn>(a, xs, grow0);
   __syncthreads();
   ln_rows<T>(xs, nullptr, hs, rstd1, a.norm1_scale, a.norm1_bias);
   __syncthreads();
@@ -537,7 +554,7 @@ __global__ void __launch_bounds__(NT, 1) fuser_tail_bwd_rows_kernel(const BwdArg
   });
   __syncthreads();
   if (kOuterResidual) {
-    load_streams<T, true>(a, xs, grow0);
+    load_streams<T, true, TIn>(a, xs, grow0);
     __syncthreads();
   }
   ln_rows<T>(xs, xs, nullptr, rstdo, a.norm_out_scale, a.norm_out_bias);   // xhat_out
@@ -548,7 +565,8 @@ __global__ void __launch_bounds__(NT, 1) fuser_tail_bwd_rows_kernel(const BwdArg
     const int i = idx / C;
     const int c = idx % C;
     const long gr = grow0 + i;
-    const float gv = gr < a.n_rows ? 0.5f * __ldg(a.g + gr * C + c) : 0.f;
+    const float gv =
+        gr < a.n_rows ? 0.5f * r3d::to_float(static_cast<const TIn*>(a.g)[gr * C + c]) : 0.f;
     ms[i * LDA + c] = gv;
     ms[(i + TM) * LDA + c] = gv;
   }
@@ -607,7 +625,7 @@ __global__ void __launch_bounds__(NT, 1) fuser_tail_bwd_rows_kernel(const BwdArg
     *reinterpret_cast<float2*>(hs + row * LDA + col) = make_float2(v0, v1);
   });
   // xhat1 again, from the inputs
-  load_streams<T, false>(a, ms, grow0);
+  load_streams<T, false, TIn>(a, ms, grow0);
   __syncthreads();
   ln_rows<T>(ms, ms, nullptr, rstd1, a.norm1_scale, a.norm1_bias);
   __syncthreads();
@@ -622,10 +640,8 @@ __global__ void __launch_bounds__(NT, 1) fuser_tail_bwd_rows_kernel(const BwdArg
     const int c = (idx % (C / 4)) * 4;
     const long gr = grow0 + i;
     if (gr < a.n_rows) {
-      *reinterpret_cast<float4*>(a.dr + gr * C + c) =
-          *reinterpret_cast<const float4*>(xs + i * LDA + c);
-      *reinterpret_cast<float4*>(a.dd + gr * C + c) =
-          *reinterpret_cast<const float4*>(xs + (i + TM) * LDA + c);
+      store4<TIn>(a.dr, gr * C + c, *reinterpret_cast<const float4*>(xs + i * LDA + c));
+      store4<TIn>(a.dd, gr * C + c, *reinterpret_cast<const float4*>(xs + (i + TM) * LDA + c));
     }
   }
   r3d::cp_async_wait<0>();
@@ -811,33 +827,33 @@ __global__ void __launch_bounds__(256) fuser_tail_bwd_sum_kernel(
   grads[q] = t;
 }
 
-template <bool kOuterResidual, int T>
+template <bool kOuterResidual, int T, typename TIn>
 cudaError_t launch_rows(const BwdArgs& a, int n_tiles, cudaStream_t s) {
   constexpr int smem = smem_bytes<T>();
-  auto kernel = fuser_tail_bwd_rows_kernel<kOuterResidual, T>;
+  auto kernel = fuser_tail_bwd_rows_kernel<kOuterResidual, T, TIn>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   kernel<<<n_tiles, NT, smem, s>>>(a);
   return cudaGetLastError();
 }
 
-}  // namespace
-
 // r, d, g [N, C]; the tail's parameters (torch layout); dr, dd [N, C];
 // scratch (ops/fuser_kernel_bwd.py:scratch_floats: the transposed weights,
 // then p, dz [R, Ch], dm, u, dx, swapped h1 [R, C], the column sums
 // [tiles, 2, 8C + Ch] and the partials [splits, 2 Ch/128 + 1, C, C]); grads [P]
 // (the 12 gradients end to end, in FuserTailParams order, matrices in
-// [out, in] layout). All fp32, contiguous, 16-byte aligned. `tile_rows`
+// [out, in] layout). r, d, g, dr and dd of type TIn (fp32 or bf16), the rest fp32;
+// all contiguous and 16-byte aligned. `tile_rows`
 // (32 or 64) token rows a block of the row phase takes, R = ceil(N /
 // (tile_rows / 2)) * tile_rows; `split_rows` (a multiple of 32) rows of a
 // split of the weight-gradient phase. Four launches.
-extern "C" int r3d_fuser_tail_bwd(
-    const float* r, const float* d, const float* g, const float* norm1_scale,
+template <typename TIn>
+int tail_bwd(
+    const void* r, const void* d, const void* g, const float* norm1_scale,
     const float* norm1_bias, const float* wvp, const float* proj_bias,
     const float* norm2_scale, const float* norm2_bias, const float* mlp1_weight,
     const float* mlp1_bias, const float* mlp2_weight, const float* mlp2_bias,
-    const float* norm_out_scale, const float* norm_out_bias, float* dr, float* dd,
+    const float* norm_out_scale, const float* norm_out_bias, void* dr, void* dd,
     float* scratch, float* grads, int n_rows, int channels, int hidden, int tile_rows,
     int split_rows, int outer_residual, void* stream) {
   if (channels != C || hidden <= 0 || hidden % HC != 0 || n_rows < 0 ||
@@ -869,11 +885,11 @@ extern "C" int r3d_fuser_tail_bwd(
                     wt, wt + hidden * C, wt + 2 * hidden * C, dr, dd, p, dz, dm, u,
                     dx, h1s, cs, n_rows, hidden};
     if (tile_rows == 64) {
-      err = outer_residual ? launch_rows<true, 64>(a, n_tiles, s)
-                           : launch_rows<false, 64>(a, n_tiles, s);
+      err = outer_residual ? launch_rows<true, 64, TIn>(a, n_tiles, s)
+                           : launch_rows<false, 64, TIn>(a, n_tiles, s);
     } else {
-      err = outer_residual ? launch_rows<true, 32>(a, n_tiles, s)
-                           : launch_rows<false, 32>(a, n_tiles, s);
+      err = outer_residual ? launch_rows<true, 32, TIn>(a, n_tiles, s)
+                           : launch_rows<false, 32, TIn>(a, n_tiles, s);
     }
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -888,4 +904,35 @@ extern "C" int r3d_fuser_tail_bwd(
   fuser_tail_bwd_sum_kernel<<<sum_blocks, 256, 0, s>>>(cs, n_tiles, partial, n_split, hidden,
                                                        grads);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int r3d_fuser_tail_bwd(
+    const float* r, const float* d, const float* g, const float* norm1_scale,
+    const float* norm1_bias, const float* wvp, const float* proj_bias,
+    const float* norm2_scale, const float* norm2_bias, const float* mlp1_weight,
+    const float* mlp1_bias, const float* mlp2_weight, const float* mlp2_bias,
+    const float* norm_out_scale, const float* norm_out_bias, float* dr, float* dd,
+    float* scratch, float* grads, int n_rows, int channels, int hidden, int tile_rows,
+    int split_rows, int outer_residual, void* stream) {
+  return tail_bwd<float>(r, d, g, norm1_scale, norm1_bias, wvp, proj_bias, norm2_scale,
+                         norm2_bias, mlp1_weight, mlp1_bias, mlp2_weight, mlp2_bias,
+                         norm_out_scale, norm_out_bias, dr, dd, scratch, grads, n_rows,
+                         channels, hidden, tile_rows, split_rows, outer_residual, stream);
+}
+
+// The bf16 instantiation: r, d, g, dr and dd bf16, all else as above.
+extern "C" int r3d_fuser_tail_bwd_bf16(
+    const void* r, const void* d, const void* g, const float* norm1_scale,
+    const float* norm1_bias, const float* wvp, const float* proj_bias,
+    const float* norm2_scale, const float* norm2_bias, const float* mlp1_weight,
+    const float* mlp1_bias, const float* mlp2_weight, const float* mlp2_bias,
+    const float* norm_out_scale, const float* norm_out_bias, void* dr, void* dd,
+    float* scratch, float* grads, int n_rows, int channels, int hidden, int tile_rows,
+    int split_rows, int outer_residual, void* stream) {
+  return tail_bwd<__nv_bfloat16>(r, d, g, norm1_scale, norm1_bias, wvp, proj_bias, norm2_scale,
+                                 norm2_bias, mlp1_weight, mlp1_bias, mlp2_weight, mlp2_bias,
+                                 norm_out_scale, norm_out_bias, dr, dd, scratch, grads, n_rows,
+                                 channels, hidden, tile_rows, split_rows, outer_residual, stream);
 }

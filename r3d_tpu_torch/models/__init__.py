@@ -2,16 +2,16 @@
 
 Every model of ``r3d_tpu/models/__init__.py`` builds: the fusion models
 ``futr_fusion_bn``, ``futr_fusion_grad``, ``futr_fusion_vary``,
-``futr_fusion_nox`` and ``afft`` (fp32 compute, any ``fuser_depth``),
-``futr``, ``futr_baseline``, the query family ``futr_proposed``,
+``futr_fusion_nox`` and ``afft`` (any ``fuser_depth``), ``futr``,
+``futr_baseline``, the query family ``futr_proposed``,
 ``futr_unsupervised``, ``futr_unsupervised_temp2``,
 ``futr_unsupervised_temp3``, ``futr_unsupervised_depth`` and ``futr_gaze``,
-and the baselines ``rnn``, ``cnn`` and ``tcn`` (fp32 or bf16 compute), each
-with or without ``use_encoder`` and MoE FFNs (``moe_experts > 0``) where it
-has a transformer, and with the gt-label embed (``input_type="gt"``) where
-it has ``InputEmbed``. The fusion models in bf16 raise
-``NotImplementedError`` naming their ROADMAP item; another name raises
-``ValueError``, as JAX's registry does.
+and the baselines ``rnn``, ``cnn`` and ``tcn``, each in fp32 or bf16
+compute, with or without ``use_encoder`` and MoE FFNs (``moe_experts > 0``)
+where it has a transformer, and with the gt-label embed
+(``input_type="gt"``) where it has ``InputEmbed``. Another compute dtype
+raises ``NotImplementedError``; another name raises ``ValueError``, as
+JAX's registry does.
 """
 
 from __future__ import annotations
@@ -90,10 +90,6 @@ def build_model(cfg: ModelConfig, n_class: int,
         return BASELINES[cfg.model](cfg, n_class)
     if cfg.model not in FUSERS:
         raise ValueError(f"unknown model {cfg.model!r}")
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            "the fusion models run in float32 only: bf16 needs bf16 K1/K2 (ROADMAP queue A, "
-            "item A18)")
     return FUTRFusion(cfg, n_class, math.prod(depth_shape))
 
 

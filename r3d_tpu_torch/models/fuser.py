@@ -28,6 +28,12 @@ dropout run in PyTorch and the tail is ``ops.fuser_kernel.fused_safuser_tail``
 (K1's no-blend route, K2 its backward), with ``Wvp = W_proj @ W_v``
 prefolded. With ``depth > 1`` the blocks run composed, as in JAX, which has
 no kernel there.
+
+The streams are fp32 or bf16 (``compute_dtype``); the parameters and the
+BatchNorm statistics stay fp32. In bf16 the kernels and their plain versions
+compute at the Pallas kernel's rounding points (``ops/fuser_kernel.py``),
+and a composed block at flax's: LayerNorm in fp32 rounded to bf16, each
+product of bf16 operands rounded once, its bias added in bf16.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ from r3d_tpu_torch.ops.fuser_kernel import (
     composed_bn_blend,
     fused_bn_blend_tail,
     fused_safuser_tail,
+    linear_in_dtype,
 )
 
 BN_MOMENTUM = 0.1  # torch BatchNorm1d's default (r3d_tpu/models/fuser.py:51)
@@ -54,7 +61,8 @@ class TorchBatchNorm(nn.Module):
     """BatchNorm1d over the channels of [B, T, C] with torch semantics:
     batch statistics over (B, T) with the biased variance normalize; the
     running statistics update in place by momentum 0.1 with the unbiased
-    variance. Eval mode normalizes with the running statistics."""
+    variance. Eval mode normalizes with the running statistics. The
+    statistics are fp32 whatever the input's dtype."""
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -117,11 +125,20 @@ class FuserBlock(nn.Module):
         self.mlp2 = nn.Linear(hidden, dim)
 
     def forward(self, x):
-        """[N, 2, C] -> [N, 2, C]."""
+        """[N, 2, C] -> [N, 2, C], in x's dtype."""
         C = x.shape[-1]
-        v = F.linear(self.norm1(x), self.qkv.weight[2 * C:])
-        x = x + self.proj(v.flip(1))
-        return x + self.mlp2(F.gelu(self.mlp1(self.norm2(x)), approximate="none"))
+        v = linear_in_dtype(layer_norm(self.norm1, x), self.qkv.weight[2 * C:])
+        x = x + linear_in_dtype(v.flip(1), self.proj.weight, self.proj.bias)
+        m = linear_in_dtype(layer_norm(self.norm2, x), self.mlp1.weight, self.mlp1.bias)
+        m = F.gelu(m.float(), approximate="none").to(x.dtype)
+        return x + linear_in_dtype(m, self.mlp2.weight, self.mlp2.bias)
+
+
+def layer_norm(norm: nn.LayerNorm, x):
+    """``norm(x)`` in fp32, rounded to x's dtype (flax's fp32 LayerNorm
+    statistics and affine)."""
+    return F.layer_norm(x.float(), norm.normalized_shape, norm.weight, norm.bias,
+                        norm.eps).to(x.dtype)
 
 
 class _SAFuserCore(nn.Module):
@@ -176,7 +193,7 @@ class _SAFuserCore(nn.Module):
             x = getattr(self, f"block{i}")(x)
         if self.outer_residual:
             x = x + x_res
-        return self.norm(x).mean(dim=1).reshape(B, T, C)
+        return layer_norm(self.norm, x).mean(dim=1).reshape(B, T, C)
 
 
 def _activation_masks(rgb, depth, k: int):

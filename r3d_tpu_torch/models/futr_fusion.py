@@ -9,7 +9,9 @@ fusion models' seg head is ``n_class`` wide. ``afft`` bypasses the
 transformer: the fused stream, pooled to ``n_query`` rows, goes through
 ``fc`` and ``fc_len`` only (no ``seg``, no ``fused`` output). Train mode
 (``module.train()``) turns on the batch-statistics BatchNorm and every
-dropout; ``module.eval()`` is the reference's module-eval forward.
+dropout; ``module.eval()`` is the reference's module-eval forward. In bf16
+(``compute_dtype``) the embeds, the fuser, the transformer and the heads
+compute in bf16 and the parameters stay fp32, as flax's ``dtype=`` does.
 """
 
 from __future__ import annotations
@@ -77,7 +79,7 @@ class FUTRFusion(nn.Module):
         self.transformer = FUTRTransformer(
             C, cfg.n_head, cfg.n_decoder_layers, 4 * C,
             n_encoder_layers=cfg.n_encoder_layers if cfg.use_encoder else 0,
-            dropout=cfg.dropout, moe=moe_spec(cfg))
+            dropout=cfg.dropout, dtype=compute_dtype(cfg), moe=moe_spec(cfg))
         self.heads = Heads(cfg, n_class)
 
     def forward(self, features, depth_features,
@@ -94,9 +96,10 @@ class FUTRFusion(nn.Module):
             # to n_query rows, no mask (afft.py:174-201)
             out: Dict[str, torch.Tensor] = {}
             if cfg.anticipate:
+                dt = compute_dtype(cfg)
                 pooled = adaptive_avg_pool1d(fused, cfg.n_query)
-                out["action"] = self.fc(pooled).float()
-                out["duration"] = self.fc_len(pooled)[..., 0].float()
+                out["action"] = linear_in(pooled, self.fc, dt).float()
+                out["duration"] = linear_in(pooled, self.fc_len, dt)[..., 0].float()
             return out
         pos = None
         if cfg.pos_emb:

@@ -25,6 +25,16 @@ layout, as the module's ``nn.Linear`` layers hold them.
 ``composed_bn_blend`` and ``composed_tail`` are the plain PyTorch version.
 The wrappers take it for CPU tensors only; for a CUDA tensor they launch the
 kernel or raise.
+
+The streams are fp32 or bf16; the parameters and blend vectors stay fp32,
+as JAX passes them. In bf16 the kernel computes in the stream's dtype at the
+rounding points of the Pallas kernel (``r3d_tpu/ops/fuser_kernel.py:180-223``):
+each elementwise op of the blend prologue and the residuals rounds to bf16;
+LayerNorm keeps fp32 statistics, scale and bias and rounds its output; each
+product takes bf16 operands, sums in fp32 and rounds once, and its bias is
+added in bf16; the GELU is the fp32 erf form, rounded; the output is the two
+rounded output LayerNorms widened, averaged and rounded. The fp32 and bf16
+instantiations count their launches on counters of their own.
 """
 
 from __future__ import annotations
@@ -75,34 +85,49 @@ def _ln(x, scale, bias, eps=1e-5):
 
 
 def composed_bn_blend(r_raw, d_raw, blend: BlendParams):
-    """Plain BN-affine + alpha-blend prologue."""
-    rn = r_raw * blend.scale_r + blend.shift_r
-    dn = d_raw * blend.scale_d + blend.shift_d
-    a, mr, md = blend.alpha, blend.mask_r, blend.mask_d
+    """Plain BN-affine + alpha-blend prologue in the streams' dtype (each op
+    rounds to it; the vectors are cast first, as JAX's ``_kernel`` does)."""
+    dt = r_raw.dtype
+    rn = r_raw * blend.scale_r.to(dt) + blend.shift_r.to(dt)
+    dn = d_raw * blend.scale_d.to(dt) + blend.shift_d.to(dt)
+    a, mr, md = (t.to(dt) for t in (blend.alpha, blend.mask_r, blend.mask_d))
     ex_r = mr * (a * rn + (1 - a) * dn) + (1 - mr) * rn
     ex_d = md * (a * dn + (1 - a) * rn) + (1 - md) * dn
     return ex_r, ex_d
 
 
+def linear_in_dtype(x, weight, bias=None):
+    """``x W^T + b`` in x's dtype: in bf16 the operands are bf16, the sums
+    fp32, the product rounded once and the bias added in bf16 (JAX's
+    ``preferred_element_type=f32`` then ``astype``)."""
+    if x.dtype == torch.float32:
+        return F.linear(x, weight, bias)
+    y = F.linear(x.float(), weight.to(x.dtype).float()).to(x.dtype)
+    return y if bias is None else y + bias.to(x.dtype)
+
+
 def composed_tail(r, d, p: FuserTailParams, outer_residual: bool = False):
-    """Plain SA-Fuser tail on two blended [N, C] streams."""
-    h_r = _ln(r, p.norm1_scale, p.norm1_bias)
-    h_d = _ln(d, p.norm1_scale, p.norm1_bias)
-    x_r = r + F.linear(h_d, p.wvp) + p.proj_bias
-    x_d = d + F.linear(h_r, p.wvp) + p.proj_bias
+    """Plain SA-Fuser tail on two blended [N, C] streams, in their dtype."""
+    dt = r.dtype
+    ln = lambda x, scale, bias: _ln(x, scale, bias).to(dt)
+    h_r = ln(r, p.norm1_scale, p.norm1_bias)
+    h_d = ln(d, p.norm1_scale, p.norm1_bias)
+    x_r = r + linear_in_dtype(h_d, p.wvp) + p.proj_bias.to(dt)
+    x_d = d + linear_in_dtype(h_r, p.wvp) + p.proj_bias.to(dt)
 
     def mlp(x):
-        h = _ln(x, p.norm2_scale, p.norm2_bias)
-        m = F.gelu(F.linear(h, p.mlp1_weight, p.mlp1_bias), approximate="none")
-        return F.linear(m, p.mlp2_weight, p.mlp2_bias)
+        h = ln(x, p.norm2_scale, p.norm2_bias)
+        m = linear_in_dtype(h, p.mlp1_weight, p.mlp1_bias)
+        m = F.gelu(m.float(), approximate="none").to(dt)
+        return linear_in_dtype(m, p.mlp2_weight, p.mlp2_bias)
 
     x_r = x_r + mlp(x_r)
     x_d = x_d + mlp(x_d)
     if outer_residual:
         x_r = x_r + r
         x_d = x_d + d
-    return 0.5 * (_ln(x_r, p.norm_out_scale, p.norm_out_bias)
-                  + _ln(x_d, p.norm_out_scale, p.norm_out_bias))
+    return (0.5 * (ln(x_r, p.norm_out_scale, p.norm_out_bias).float()
+                   + ln(x_d, p.norm_out_scale, p.norm_out_bias).float())).to(dt)
 
 
 KERNEL = Kernel(
@@ -115,13 +140,23 @@ TAIL_KERNEL = Kernel(
 )
 TAIL_KERNEL_OUTER = Kernel(   # TAIL_KERNEL's calls with the outer residual, counted apart
     "fused_safuser_tail_outer", TAIL_KERNEL.source, TAIL_KERNEL.symbol, TAIL_KERNEL.argtypes)
+# the bf16 instantiations: bf16 streams and output, fp32 parameters
+KERNEL_BF16 = Kernel(
+    "fused_bn_blend_tail_bf16", "fuser_tail.cu", "r3d_fused_bn_blend_tail_bf16", KERNEL.argtypes)
+TAIL_KERNEL_BF16 = Kernel(
+    "fused_safuser_tail_bf16", "fuser_tail.cu", "r3d_fused_safuser_tail_bf16",
+    TAIL_KERNEL.argtypes)
+TAIL_KERNEL_BF16_OUTER = Kernel(
+    "fused_safuser_tail_bf16_outer", TAIL_KERNEL_BF16.source, TAIL_KERNEL_BF16.symbol,
+    TAIL_KERNEL.argtypes)
 KERNEL_CHANNELS = 128   # csrc/fuser_tail.cu: C
 KERNEL_HIDDEN_CHUNK = 128
+STREAM_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _check(fn, name, t, shape, device):
-    if t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
-        raise ValueError(f"{fn}: {name} must be a contiguous float32 tensor on "
+def _check(fn, name, t, shape, device, dtype=torch.float32):
+    if t.device != device or t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(f"{fn}: {name} must be a contiguous {dtype} tensor on "
                          f"{device}, got {t.dtype} on {t.device} "
                          f"(contiguous={t.is_contiguous()})")
     if tuple(t.shape) != tuple(shape):
@@ -133,11 +168,14 @@ def _check(fn, name, t, shape, device):
 
 def check_kernel_inputs(fn, streams, params: FuserTailParams, blend=None):
     """Raise unless the CUDA kernels take these tensors: ``streams`` a dict
-    of [N, C] tensors, C == 128 and a hidden width that is a multiple of 128,
-    everything contiguous fp32 on one device. Returns (N, C, Ch)."""
+    of [N, C] tensors of one dtype, fp32 or bf16, C == 128 and a hidden
+    width that is a multiple of 128, the parameters and blend vectors fp32,
+    everything contiguous on one device. Returns (N, C, Ch)."""
     first = next(iter(streams.values()))
     if first.device.type != "cuda":
         raise ValueError(f"{fn}: no kernel for {first.device}")
+    if first.dtype not in STREAM_DTYPES:
+        raise ValueError(f"{fn}: no kernel for {first.dtype} streams (float32 or bfloat16)")
     N, C = first.shape
     Ch = params.mlp1_weight.shape[0]
     if C != KERNEL_CHANNELS or Ch % KERNEL_HIDDEN_CHUNK:
@@ -146,7 +184,7 @@ def check_kernel_inputs(fn, streams, params: FuserTailParams, blend=None):
                          f"{KERNEL_HIDDEN_CHUNK}; got C={C}, Ch={Ch}")
     dev = first.device
     for name, t in streams.items():
-        _check(fn, name, t, (N, C), dev)
+        _check(fn, name, t, (N, C), dev, first.dtype)
     for name, t in ({} if blend is None else blend._asdict()).items():
         _check(fn, name, t, (C,), dev)
     shapes = {"wvp": (C, C), "mlp1_weight": (Ch, C), "mlp1_bias": (Ch,),
@@ -162,7 +200,7 @@ def _bn_blend_tail_fwd(r_raw, d_raw, blend, params, outer_residual):
     N, C, Ch = check_kernel_inputs("fused_bn_blend_tail", {"r_raw": r_raw, "d_raw": d_raw},
                                    params, blend)
     out = torch.empty_like(r_raw)
-    KERNEL.launch(
+    (KERNEL if r_raw.dtype == torch.float32 else KERNEL_BF16).launch(
         r_raw.data_ptr(), d_raw.data_ptr(),
         *(t.data_ptr() for t in blend), *(t.data_ptr() for t in params),
         out.data_ptr(), N, C, Ch, int(outer_residual),
@@ -176,7 +214,11 @@ def _safuser_tail_fwd(r, d, params, outer_residual):
         return composed_tail(r, d, params, outer_residual)
     N, C, Ch = check_kernel_inputs("fused_safuser_tail", {"r": r, "d": d}, params)
     out = torch.empty_like(r)
-    (TAIL_KERNEL_OUTER if outer_residual else TAIL_KERNEL).launch(
+    if r.dtype == torch.float32:
+        kernel = TAIL_KERNEL_OUTER if outer_residual else TAIL_KERNEL
+    else:
+        kernel = TAIL_KERNEL_BF16_OUTER if outer_residual else TAIL_KERNEL_BF16
+    kernel.launch(
         r.data_ptr(), d.data_ptr(), *(t.data_ptr() for t in params),
         out.data_ptr(), N, C, Ch, int(outer_residual),
         torch.cuda.current_stream(r.device).cuda_stream,

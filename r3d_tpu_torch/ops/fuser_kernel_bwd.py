@@ -18,6 +18,11 @@ launches (with the weights' transpose) count as one launch of the kernel.
 ``composed_tail``, independent of the kernel's hand derivation (the JAX
 fallback, ``fuser_kernel.py:303-306``). The wrapper takes it for CPU tensors
 only; for a CUDA tensor it launches the kernel or raises.
+
+bf16 streams (the fusion models in bf16): the kernel reads bf16 r, d and g,
+computes in fp32 and writes bf16 dr and dd, as JAX's ``_bwd_kernel`` does
+(``r3d_tpu/ops/fuser_kernel_bwd.py:70-165``); the parameter gradients stay
+fp32. Its calls count on ``KERNEL_BF16`` and ``KERNEL_BF16_OUTER``.
 """
 
 from __future__ import annotations
@@ -36,6 +41,11 @@ KERNEL = Kernel(
 )
 KERNEL_OUTER = Kernel(   # KERNEL's calls with the outer residual, counted apart
     "fused_tail_bwd_outer", KERNEL.source, KERNEL.symbol, KERNEL.argtypes)
+# bf16 r, d, g in and dr, dd out; fp32 inside and for the parameter gradients
+KERNEL_BF16 = Kernel(
+    "fused_tail_bwd_bf16", KERNEL.source, "r3d_fuser_tail_bwd_bf16", KERNEL.argtypes)
+KERNEL_BF16_OUTER = Kernel(
+    "fused_tail_bwd_bf16_outer", KERNEL.source, KERNEL_BF16.symbol, KERNEL.argtypes)
 SPLIT_UNIT = 32    # csrc/fuser_tail_bwd.cu: WK, token rows of one chunk of the weight gradients
 OUT_TILE = 128     # csrc/fuser_tail_bwd.cu: C x C, an output tile of the weight gradients
 
@@ -75,13 +85,17 @@ def scratch_floats(C: int, Ch: int, plan: BwdPlan) -> int:
 
 def composed_tail_bwd(r, d, g, params: FuserTailParams, outer_residual: bool
                       ) -> Tuple[torch.Tensor, torch.Tensor, FuserTailParams]:
-    """Plain backward: autograd of ``composed_tail``."""
+    """Plain backward: autograd of ``composed_tail`` in fp32. bf16 streams
+    and cotangent are widened first and dr, dd rounded back, as JAX's kernel
+    computes in fp32 whatever the streams' dtype; the parameter gradients
+    stay fp32."""
     with torch.enable_grad():
-        leaves = [t.detach().requires_grad_() for t in (r, d, *params)]
+        leaves = [t.detach().float().requires_grad_() for t in (r, d)]
+        leaves += [t.detach().requires_grad_() for t in params]
         out = composed_tail(leaves[0], leaves[1], FuserTailParams(*leaves[2:]),
                             outer_residual)
-        grads = torch.autograd.grad(out, leaves, g)
-    return grads[0], grads[1], FuserTailParams(*grads[2:])
+        grads = torch.autograd.grad(out, leaves, g.float())
+    return grads[0].to(r.dtype), grads[1].to(d.dtype), FuserTailParams(*grads[2:])
 
 
 def grad_layout(C: int, Ch: int):
@@ -112,7 +126,11 @@ def fused_tail_bwd(r: torch.Tensor, d: torch.Tensor, g: torch.Tensor,
     dd = torch.empty_like(d)
     scratch = torch.empty(scratch_floats(C, Ch, plan), dtype=torch.float32, device=r.device)
     flat = torch.empty(P, dtype=torch.float32, device=r.device)
-    (KERNEL_OUTER if outer_residual else KERNEL).launch(
+    if r.dtype == torch.float32:
+        kernel = KERNEL_OUTER if outer_residual else KERNEL
+    else:
+        kernel = KERNEL_BF16_OUTER if outer_residual else KERNEL_BF16
+    kernel.launch(
         r.data_ptr(), d.data_ptr(), g.data_ptr(), *(t.data_ptr() for t in params),
         dr.data_ptr(), dd.data_ptr(), scratch.data_ptr(), flat.data_ptr(),
         N, C, Ch, plan.tile_rows, plan.split_rows, int(outer_residual),

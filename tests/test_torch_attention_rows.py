@@ -46,6 +46,8 @@ import jax.numpy as jnp
 
 from r3d_tpu_torch.ops import attention as pt_attn
 
+torch.set_num_threads(1)   # one intra-op thread a test worker: the workers share the cores
+
 TILE = 64   # keys per tile of the forward and of launch 1, queries per tile of launch 2
 FWD_TOL = 1e-2   # chip_smoke.SELF_TOL
 BWD_TOL = {"dq": FWD_TOL, "dk": FWD_TOL, "dv": 2.0 ** -8, "dbias": 2e-6}

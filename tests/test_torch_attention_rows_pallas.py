@@ -13,6 +13,8 @@ from r3d_tpu.ops import attention as jax_attn
 from test_torch_attention_rows import (BWD_TOL, CASES, FWD_TOL, _close, _inputs, _many_backward,
                                        _many_forward)
 
+torch.set_num_threads(1)   # one intra-op thread a test worker: the workers share the cores
+
 
 @pytest.mark.parametrize("S,D,lengths", CASES)
 def test_many_query_algorithms_match_pallas_at_rate0(S, D, lengths):

@@ -32,6 +32,8 @@ from r3d_tpu_torch.models import build_model, init_weights
 from r3d_tpu_torch.models.baselines import LSTMStack, WNCausalConv
 from test_torch_models import _grads_close, _np, _port, _t
 
+torch.set_num_threads(1)   # one intra-op thread a test worker: the workers share the cores
+
 N_CLASS = 7
 B, S = 3, 40
 LENGTHS = (40, 23, 9)

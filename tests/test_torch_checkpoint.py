@@ -29,6 +29,8 @@ from test_torch_cli import (N_CLASS, assert_logs_match, assert_metrics_match, cl
 from test_torch_datasets import write_utkinect
 from test_torch_train import _assert_state_close
 
+torch.set_num_threads(1)   # one intra-op thread a test worker: the workers share the cores
+
 
 @pytest.fixture(scope="module")
 def ckpt_data(tmp_path_factory):

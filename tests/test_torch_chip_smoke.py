@@ -21,6 +21,8 @@ import torch
 
 import chip_smoke
 
+torch.set_num_threads(1)   # one intra-op thread a test worker: the workers share the cores
+
 CUDA, CPU = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
 
 

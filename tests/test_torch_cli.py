@@ -15,6 +15,18 @@ records with the same keys (numbers within 1e-4, the effective rank
 within 1e-6. The utkinects config caches its data on the device in both
 packages: ``fit_cached`` with validation from the val cache, and the sweep
 from the cached val videos; both log that route.
+
+The bf16 chain (``test_bf16_train_eval_matches_jax_cli``):
+``--compute_dtype bfloat16 --opt_mu_dtype bfloat16`` on the same data and
+init, JAX's fuser on its Pallas kernels in interpret mode
+(``R3D_FORCE_PALLAS=1``, the TPU's route), whose rounding points the
+port's plain versions follow. The two frameworks round bf16 sums to
+neighbouring values now and then, so the numbers are held to bf16 bounds:
+the same log lines and gate decisions, the same checkpoint names and
+metrics keys, each logged number within 2e-2 of itself (at least 2e-2),
+every MoC entry within 2e-2 (read: 1.5e-2 in one entry, the rest equal)
+and the anticipation and segmentation accuracies within one window of a
+ratio's 24 (read: one window at ratio 0.2).
 """
 
 import dataclasses
@@ -40,6 +52,8 @@ from r3d_tpu_torch.cli import run as pt_run
 from r3d_tpu_torch.convert import state_dict_from_flax
 from r3d_tpu_torch.train.loop import Trainer
 from test_torch_datasets import write_utkinect
+
+torch.set_num_threads(1)   # one intra-op thread a test worker: the workers share the cores
 
 N_CLASS = 6
 METRIC_TOL = 1e-6
@@ -162,6 +176,47 @@ def test_train_eval_matches_jax_cli(cli_data, tmp_path, monkeypatch, capsys):
             == sorted(os.listdir(tmp_path / "jax_results" / "seed_1")))
 
 
+BF16_TOL = 2e-2   # a MoC entry of the bf16 chain
+ACC_TOL = 0.05    # its ant_acc and seg_acc: one of the 24 windows of a ratio decoded differently
+
+
+def _bf16(cfg):
+    return cfg.replace(model=dataclasses.replace(cfg.model, compute_dtype="bfloat16"),
+                       train=dataclasses.replace(cfg.train, opt_mu_dtype="bfloat16"))
+
+
+def test_bf16_train_eval_matches_jax_cli(cli_data, tmp_path, monkeypatch, capsys):
+    one_device_jax(monkeypatch)
+    monkeypatch.setenv("R3D_FORCE_PALLAS", "1")
+    root, init = cli_data
+    jcfg, pcfg = (_bf16(c) for c in cli_configs(root, str(tmp_path), init))
+    jlog, plog = [], []
+    want = jax_run.main(jcfg, "train_eval", log=jlog.append,
+                        results_save_path=str(tmp_path / "jax_results"))
+    jout = capsys.readouterr().out
+    got = pt_run.main(pcfg, "train_eval", log=plog.append,
+                      results_save_path=str(tmp_path / "port_results"), device="cpu")
+    pout = capsys.readouterr().out
+    strip = lambda lines: [re.sub(r"-?\d+\.\d+|/\S+", "#", l) for l in lines]
+    assert strip(plog) == strip(jlog)
+    assert strip(pout.splitlines()) == strip(jout.splitlines())
+    for a, b in zip(numbers(plog), numbers(jlog)):
+        assert all(abs(x - y) <= BF16_TOL * max(1.0, abs(y)) for x, y in zip(a, b)), (a, b)
+    assert any(l.startswith("Best model saved") for l in plog)
+    jdir, pdir = jax_run.save_path(jcfg), pt_run.save_path(pcfg)
+    assert sorted(os.listdir(pdir)) == sorted(os.listdir(jdir))
+    precs = read_jsonl(os.path.join(pdir, "seed_1_metrics.jsonl"))
+    jrecs = read_jsonl(os.path.join(jdir, "seed_1_metrics.jsonl"))
+    assert [sorted(p) for p in precs] == [sorted(j) for j in jrecs]
+    for res in (got, json.loads((tmp_path / "port_results" / "results.json").read_text())):
+        assert sorted(res) == sorted(want)
+        for o in want:
+            assert sorted(res[o]) == sorted(want[o])
+            for k in want[o]:
+                tol = BF16_TOL if k.startswith("obs") else ACC_TOL
+                assert abs(res[o][k] - want[o][k]) <= tol, (o, k, res[o][k], want[o][k])
+
+
 ARGVS = [
     [],
     ["--config", "utkinects", "--data_root", "/data", "--epochs", "3", "--seed", "7",
@@ -190,7 +245,7 @@ def test_config_from_args_matches_jax(argv):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--rng_impl", "rbg"], "A10"), (["--opt_mu_dtype", "bfloat16"], "A10"),
+    (["--rng_impl", "rbg"], "A10"),
     (["--tensorboard"], "A15"),
     (["--mesh_tp", "2"], "A14")])
 def test_unported_flags_parse_and_raise(cli_data, tmp_path, flag, item):
@@ -199,6 +254,24 @@ def test_unported_flags_parse_and_raise(cli_data, tmp_path, flag, item):
             "--hidden_dim", "32", "--n_head", "4", "--input_dim", "12", "--mode", "train"]
     with pytest.raises(NotImplementedError, match=item):
         pt_opts.run_from_argv("utkinects", argv + flag, log=lambda *a: None)
+
+
+def test_opt_mu_dtype_trains_with_a_bf16_first_moment(cli_data, tmp_path):
+    """``opt_mu_dtype = "bfloat16"`` (``--opt_mu_dtype``) trains through the
+    CLI: AdamW's first moment in the checkpoint is bf16, its second fp32,
+    and the loss is finite."""
+    root, init = cli_data
+    _, pcfg = cli_configs(root, str(tmp_path), init, epochs=1)
+    pcfg = pcfg.replace(train=dataclasses.replace(pcfg.train, opt_mu_dtype="bfloat16"))
+    lines = []
+    pt_run.main(pcfg, "train", log=lines.append, device="cpu")
+    losses = [float(x) for l in lines for x in re.findall(r"Loss ?: ?(-?[0-9.]+)", l)]
+    assert losses and all(np.isfinite(losses))
+    blob = torch.load(os.path.join(pt_run.save_path(pcfg), "seed_1_last", "state.pt"),
+                      weights_only=True)
+    state = blob["optimizer"]["state"].values()
+    assert {st["exp_avg"].dtype for st in state} == {torch.bfloat16}
+    assert {st["exp_avg_sq"].dtype for st in state} == {torch.float32}
 
 
 def test_cli_defaults_to_cuda_and_raises_without_it(cli_data, tmp_path):

@@ -36,6 +36,8 @@ import jax.numpy as jnp
 from r3d_tpu.ops import cross_attention as jax_ca
 from r3d_tpu_torch.ops import cross_attention as pt_ca
 
+torch.set_num_threads(1)   # one intra-op thread a test worker: the workers share the cores
+
 H, C, LQ = 4, 64, 20
 SCALE = 0.25
 BF16_TOL = 5e-3

@@ -14,6 +14,8 @@ import torch
 from r3d_tpu_torch.ops import cross_attention as pt_ca
 from test_torch_cross_attention import SCALE
 
+torch.set_num_threads(1)   # one intra-op thread a test worker: the workers share the cores
+
 
 FP32_TILE = 64   # csrc/attention_cluster.cuh: kF32KT, keys a tile
 FP32_QT = 8      # csrc/attention_cluster.cuh: kF32QT, queries a block takes at a time

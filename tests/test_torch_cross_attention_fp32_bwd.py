@@ -12,6 +12,8 @@ from r3d_tpu_torch.ops import cross_attention as pt_ca
 from test_torch_cross_attention import SCALE
 from test_torch_cross_attention_fp32 import FP32_CLUSTER_S, _cluster_backward, _fp32_inputs
 
+torch.set_num_threads(1)   # one intra-op thread a test worker: the workers share the cores
+
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("D", [16, 64])

@@ -224,6 +224,75 @@ def test_fused_tail_bwd_kernel_matches_plain(cuda, N, outer):
         _close(a, b, 1e-4, name)
 
 
+BF16_STEP = 2.0 ** -7   # one bf16 step at the top of a binade, relative
+
+
+def _close_bf16(got, want, steps, name, share=0.01):
+    """bf16 ``got`` within ``steps`` bf16 steps of ``want``'s largest entry,
+    and at most ``share`` of the entries off at all: the kernel and the plain
+    version round at the same points, so only a sum that lands on the other
+    side of a rounding boundary moves a value (and what it feeds)."""
+    assert got.dtype == want.dtype == torch.bfloat16, name
+    assert torch.isfinite(got.float()).all(), name
+    diff = (got.float() - want.float()).abs()
+    big = float(want.float().abs().max())
+    assert float(diff.max()) <= steps * BF16_STEP * big, (name, float(diff.max()), big)
+    assert float((diff > 0).float().mean()) <= share, (name, float((diff > 0).float().mean()))
+
+
+@pytest.mark.parametrize("outer", [False, True], ids=["plain-tail", "outer-residual"])
+@pytest.mark.parametrize("N", [1, 16, 2053, 4096, 16000])
+def test_fused_tail_bf16_kernel_matches_plain(cuda, N, outer):
+    """bf16 K1 on both routes (bf16 streams, fp32 parameters) against the
+    plain version in bf16: within two bf16 steps of the largest entry, at
+    most 1 % of the entries off; each call one launch on its own counter;
+    two calls bit-equal."""
+    gen = torch.Generator().manual_seed(N + 7)
+    r, d, blend, params = fuser_inputs(N, gen, cuda)
+    r, d = r.bfloat16(), d.bfloat16()
+    tail = fk.TAIL_KERNEL_BF16_OUTER if outer else fk.TAIL_KERNEL_BF16
+    before = tail.launches, fk.KERNEL_BF16.launches, fk.TAIL_KERNEL.launches, fk.KERNEL.launches
+    got = fk.fused_safuser_tail(r, d, params, outer)
+    got_blend = fk.fused_bn_blend_tail(r, d, blend, params, outer)
+    torch.cuda.synchronize()
+    after = tail.launches, fk.KERNEL_BF16.launches, fk.TAIL_KERNEL.launches, fk.KERNEL.launches
+    assert after == (before[0] + 1, before[1] + 1, before[2], before[3])
+    _close_bf16(got, fk.composed_tail(r, d, params, outer), 2, "no-blend")
+    want = fk.composed_tail(*fk.composed_bn_blend(r, d, blend), params, outer)
+    _close_bf16(got_blend, want, 2, "blend")
+    assert torch.equal(got, fk.fused_safuser_tail(r, d, params, outer))
+    assert torch.equal(got_blend, fk.fused_bn_blend_tail(r, d, blend, params, outer))
+
+
+@pytest.mark.parametrize("outer", [False, True], ids=["plain-tail", "outer-residual"])
+@pytest.mark.parametrize("N", [1, 16, 2053, 4096, 16000])
+def test_fused_tail_bwd_bf16_kernel_matches_plain(cuda, N, outer):
+    """bf16 K2 (bf16 r, d, g in, bf16 dr, dd out, fp32 inside): dr and dd
+    within one bf16 step of the largest entry (the fp32 body agrees to 1e-4
+    before its one rounding), the fp32 parameter gradients within K2's
+    fp32 1e-4; its own counter; two calls bit-equal."""
+    from r3d_tpu_torch.ops import fuser_kernel_bwd as fkb
+
+    gen = torch.Generator().manual_seed(N + 9)
+    r, d, _, params = fuser_inputs(N, gen, cuda)
+    r, d = r.bfloat16(), d.bfloat16()
+    g = torch.randn(N, 128, generator=gen).to(cuda).bfloat16()
+    kernel = fkb.KERNEL_BF16_OUTER if outer else fkb.KERNEL_BF16
+    before = kernel.launches, fkb.KERNEL.launches
+    dr, dd, dp = fkb.fused_tail_bwd(r, d, g, params, outer)
+    torch.cuda.synchronize()
+    assert (kernel.launches, fkb.KERNEL.launches) == (before[0] + 1, before[1])
+    wr, wd, wp = fkb.composed_tail_bwd(r, d, g, params, outer)
+    _close_bf16(dr, wr, 1, "dr")
+    _close_bf16(dd, wd, 1, "dd")
+    for name, a, b in zip(fk.FuserTailParams._fields, dp, wp):
+        assert a.dtype == torch.float32, name
+        _close(a, b, 1e-4, name)
+    again = fkb.fused_tail_bwd(r, d, g, params, outer)
+    for a, b in zip((dr, dd, *dp), (again[0], again[1], *again[2])):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("N", [1, 16, 2053, 2048, 4096, 8192, 16000])
 def test_fused_tail_bwd_kernel_is_deterministic(cuda, N):
     """K2 sums its tiles' column sums and its splits' partials in a fixed

@@ -39,6 +39,8 @@ from r3d_tpu_torch.models import futr_unsupervised
 from test_torch_cli import METRIC_TOL, assert_logs_match, assert_metrics_match, one_device_jax
 from test_torch_darai_fit import _NoDropout
 
+torch.set_num_threads(1)   # one intra-op thread a test worker: the workers share the cores
+
 INPUT_DIM = 12
 TRAIN = ((80, 90), (100,), (70, 75), (95,), (85,))
 VAL = ((85, 60), (90,))

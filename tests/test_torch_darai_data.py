@@ -28,6 +28,8 @@ from r3d_tpu_torch.data import datasets as pt_ds
 from r3d_tpu_torch.data import device_cache as dc
 from r3d_tpu_torch.data.preprocess.tools import gaze_csv_to_query
 
+torch.set_num_threads(1)   # one intra-op thread a test worker: the workers share the cores
+
 TRAIN = ((80, 90), (100,), (70, 75), (95,))
 VAL = ((85, 60),)
 NAMES = ("darai", "darai_gaze")

@@ -43,6 +43,8 @@ from r3d_tpu_torch.models import futr_unsupervised, layers
 from r3d_tpu_torch.train.loop import Trainer
 from test_torch_train import _assert_state_close, _Gates, _numbers, _variables
 
+torch.set_num_threads(1)   # one intra-op thread a test worker: the workers share the cores
+
 TRAIN = ((80, 90), (100,), (70, 75), (95,))
 VAL = ((85, 60),)
 NQ = 8

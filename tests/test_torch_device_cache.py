@@ -53,6 +53,8 @@ from test_torch_cli import cli_configs, one_device_jax
 from test_torch_datasets import write_utkinect
 from test_torch_train import _assert_state_close, _configs, _jax_init, _numbers, _variables
 
+torch.set_num_threads(1)   # one intra-op thread a test worker: the workers share the cores
+
 OBS = (0.3, 0.5)
 BUCKETS = (256, 512)
 NQ = 8

@@ -45,6 +45,8 @@ from test_torch_device_cache import (
 from test_torch_train import (
     OBS as TRAIN_OBS, _assert_state_close, _configs, _jax_init, _numbers, _sources, _variables)
 
+torch.set_num_threads(1)   # one intra-op thread a test worker: the workers share the cores
+
 
 def _fresh(trainer, state_dict, steps=3, seed=0):
     state = trainer.init_state(steps, state_dict)

@@ -32,6 +32,8 @@ from r3d_tpu_torch.models import build_model, transformer
 from r3d_tpu_torch.ops import attention as pt_attention
 from test_torch_models import _futr_cfgs, _grads_close, _np, _port, _route_on_cpu, _t
 
+torch.set_num_threads(1)   # one intra-op thread a test worker: the workers share the cores
+
 ATOL = 2e-5
 
 

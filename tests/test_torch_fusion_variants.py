@@ -34,6 +34,8 @@ from r3d_tpu_torch.train.loop import Trainer
 from test_torch_models import _grads_close, _np, _port, _randomize_bn, _t
 from test_torch_train import _loaders, _sources
 
+torch.set_num_threads(1)   # one intra-op thread a test worker: the workers share the cores
+
 VARIANTS = ("futr_fusion_grad", "futr_fusion_vary", "futr_fusion_nox", "afft")
 JAX_FUSERS = {"bn": jax_fuser.CMFuserBN, "grad": jax_fuser.CMFuserGrad,
               "vary": jax_fuser.CMFuserVary, "nox": jax_fuser.CMFuserNoExchange}

@@ -33,6 +33,8 @@ from test_torch_cli import (N_CLASS, METRIC_TOL, assert_logs_match, assert_metri
                             cli_configs, one_device_jax)
 from test_torch_datasets import write_utkinect
 
+torch.set_num_threads(1)   # one intra-op thread a test worker: the workers share the cores
+
 
 @pytest.fixture(scope="module")
 def dataset(tmp_path_factory):

@@ -50,6 +50,8 @@ from r3d_tpu_torch.ops import attention as pt_attn
 from r3d_tpu_torch.ops import fuser_kernel as pt_fk
 from r3d_tpu_torch.ops import fuser_kernel_bwd as pt_fkb
 
+torch.set_num_threads(1)   # one intra-op thread a test worker: the workers share the cores
+
 ATOL = 2e-5
 
 

@@ -38,6 +38,8 @@ from r3d_tpu_torch.train import optim as pt_optim
 from r3d_tpu_torch.train.loop import Trainer, last_non_padding_labels
 from r3d_tpu_torch.train.state import TrainState
 
+torch.set_num_threads(1)   # one intra-op thread a test worker: the workers share the cores
+
 PAD = 7
 
 

@@ -34,6 +34,8 @@ from r3d_tpu_torch.eval.decode import decode_anticipation
 from r3d_tpu_torch.models import build_model, init_weights
 from r3d_tpu_torch.models import fuser, futr, futr_fusion, layers, transformer
 
+torch.set_num_threads(1)   # one intra-op thread a test worker: the workers share the cores
+
 ATOL = 1e-5
 
 
@@ -244,11 +246,14 @@ def test_futr_fusion_matches_flax(S):
 
 
 def test_build_model_refuses_what_is_not_ported():
+    """float16 compute is not ported and raises; the fusion models build in
+    bf16 (with fp32 parameters, as flax keeps them)."""
     _, pcfg = _model_cfgs()
-    for kw in ({"compute_dtype": "bfloat16"},
-               {"model": "futr", "compute_dtype": "float16"}):
-        with pytest.raises(NotImplementedError):
-            build_model(dataclasses.replace(pcfg, **kw), 17, (6, 5))
+    with pytest.raises(NotImplementedError):
+        build_model(dataclasses.replace(pcfg, model="futr", compute_dtype="float16"), 17, (6, 5))
+    m = build_model(dataclasses.replace(pcfg, compute_dtype="bfloat16"), 17, (6, 5))
+    assert isinstance(m, futr_fusion.FUTRFusion) and isinstance(m.fuser, fuser.CMFuserBN)
+    assert all(p.dtype == torch.float32 for p in m.parameters())
 
 
 @torch.no_grad()

@@ -34,6 +34,8 @@ from r3d_tpu_torch.models.moe import MoEFeedForward, moe_aux
 from r3d_tpu_torch.train.loop import Trainer
 from test_torch_models import _grads_close, _np, _port, _t
 
+torch.set_num_threads(1)   # one intra-op thread a test worker: the workers share the cores
+
 B, L, C, H, E = 3, 16, 16, 32, 4
 
 

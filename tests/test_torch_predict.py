@@ -38,6 +38,8 @@ from r3d_tpu_torch.train.checkpoint import Checkpointer
 from r3d_tpu_torch.train.loop import Trainer
 from test_torch_datasets import write_utkinect
 
+torch.set_num_threads(1)   # one intra-op thread a test worker: the workers share the cores
+
 N_CLASS = 6           # 5 actions + NONE
 LOGIT_TOL = 1e-4
 METRIC_TOL = 1e-6

@@ -43,6 +43,8 @@ from test_torch_models import (
     _t,
 )
 
+torch.set_num_threads(1)   # one intra-op thread a test worker: the workers share the cores
+
 N_CLASS = 6
 QUERY_NUM = 20
 

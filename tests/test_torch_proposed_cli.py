@@ -34,6 +34,8 @@ from r3d_tpu_torch.cli import run as pt_run
 from r3d_tpu_torch.convert import state_dict_from_flax
 from test_torch_cli import METRIC_TOL, assert_logs_match, assert_metrics_match, one_device_jax
 
+torch.set_num_threads(1)   # one intra-op thread a test worker: the workers share the cores
+
 INPUT_DIM = 12
 LENGTHS = {   # train, val: windows of the sweep's nine ratios within the 64 bucket
     "50salads_proposed": ((300, 340, 380, 360), (330, 370)),

@@ -34,6 +34,8 @@ from r3d_tpu_torch.data.pipeline import pad_batch
 from r3d_tpu_torch.data.synthetic import SyntheticSource
 from r3d_tpu_torch.eval.predict import alternating_query_rows
 
+torch.set_num_threads(1)   # one intra-op thread a test worker: the workers share the cores
+
 INPUT_DIM = 12
 CONFIGS = ("50salads_proposed", "breakfast_proposed")
 TRAIN_LENGTHS = {"50salads_proposed": (300, 420, 250, 380), "breakfast_proposed": (90, 150, 120)}

@@ -39,6 +39,8 @@ from r3d_tpu_torch.ops import attention as pt_attention
 from r3d_tpu_torch.train.loop import Trainer
 from test_torch_train import _assert_state_close, _Gates, _numbers, _variables
 
+torch.set_num_threads(1)   # one intra-op thread a test worker: the workers share the cores
+
 OBS = (0.2, 0.3, 0.5)
 NQ = 8
 QUERY_CLASSES = 9    # the query pad id is 9: query_num 10

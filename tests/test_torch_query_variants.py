@@ -47,6 +47,8 @@ from r3d_tpu_torch.train.loop import Trainer
 from test_torch_darai_fit import _NoDropout
 from test_torch_models import _grads_close, _np, _port, _t
 
+torch.set_num_threads(1)   # one intra-op thread a test worker: the workers share the cores
+
 N_CLASS = 9
 QUERY_NUM = 10
 

@@ -30,6 +30,8 @@ from r3d_tpu_torch.ops import attention as pt_attn
 from r3d_tpu_torch.ops import fuser_kernel as pt_fk
 from r3d_tpu_torch.serving import InferenceSession, ServingQueue
 
+torch.set_num_threads(1)   # one intra-op thread a test worker: the workers share the cores
+
 N_CLASS = 17
 LENGTHS = (100, 128, 200, 60, 300, 512, 257)   # buckets 128, 128, 256, 128, 512, 512, 512
 

@@ -28,6 +28,8 @@ from r3d_tpu_torch import config as pt_config
 from r3d_tpu_torch.models.layers import FixedDropout
 from r3d_tpu_torch.train.loop import Trainer
 
+torch.set_num_threads(1)   # one intra-op thread a test worker: the workers share the cores
+
 N_CLASS = 9
 
 

@@ -43,6 +43,8 @@ from r3d_tpu_torch.data.pipeline import BucketedLoader
 from r3d_tpu_torch.data.synthetic import SyntheticSource
 from r3d_tpu_torch.train.loop import Trainer
 
+torch.set_num_threads(1)   # one intra-op thread a test worker: the workers share the cores
+
 OBS = (0.2, 0.3, 0.5)
 
 

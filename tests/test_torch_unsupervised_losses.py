@@ -18,6 +18,8 @@ from r3d_tpu_torch.losses import classification as pt_cls
 from r3d_tpu_torch.losses import supcon as pt_supcon
 from r3d_tpu_torch.losses import temporal as pt_temporal
 
+torch.set_num_threads(1)   # one intra-op thread a test worker: the workers share the cores
+
 TOL = 1e-6
 
 

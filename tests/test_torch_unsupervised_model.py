@@ -27,6 +27,8 @@ from r3d_tpu_torch.models import build_model, init_weights, model_needs_query
 from r3d_tpu_torch.models.futr_unsupervised import SRC_DROPOUT, FUTRUnsupervised, GazeCNN
 from test_torch_models import _grads_close, _np, _port, _t
 
+torch.set_num_threads(1)   # one intra-op thread a test worker: the workers share the cores
+
 N_CLASS = 6
 QUERY_NUM = 10
 MODELS = ("futr_unsupervised", "futr_unsupervised_temp2", "futr_unsupervised_temp3",

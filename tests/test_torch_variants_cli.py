@@ -52,6 +52,8 @@ from test_torch_darai_cli import configs as darai_configs
 from test_torch_darai_fit import _NoDropout
 from test_torch_datasets import write_utkinect
 
+torch.set_num_threads(1)   # one intra-op thread a test worker: the workers share the cores
+
 VARIANTS = {   # the model and loop of each run
     "rnn": (dict(model="rnn"), "unimodal"),
     "tcn": (dict(model="tcn"), "tcn"),
