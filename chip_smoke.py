@@ -213,7 +213,21 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 19. L3 query generation (``FUTRTransformer(query_pos=None)``) at S = 2,000:
    one forward against the CPU within 1e-3, ``l3_attention`` on fp32 K3's
    many-query counter;
-20. print one ``{"kernels": [...]}`` line (with each kernel's launches in
+20. serving deployment (A13): ``utkinects`` at full width from the seeded
+   init in four sessions (float, ``quantize="int8"``,
+   ``input_dtype="uint8"``, both), requests through ``ServingQueue`` in the
+   256-2,000 buckets (K1's blend route in every chunk, fp32 K3 at 256/512),
+   each session against itself on the CPU, the quantized sessions' logits
+   against the float session's, the depth quantizer within scale/2, the
+   weights' bytes on the card and (measured after phase 4,
+   ``deploy_htod``) a 2000-bucket chunk's host-to-device bytes; the float
+   and int8 + uint8 sessions exported (time, bytes), loaded as
+   ``ExportedSession``s and served again, bit-equal to the live
+   sessions, with live and exported latency a bucket; ``50salads`` (bf16,
+   ``R3D_CROSS_NATIVE=1``, one request at a time) exported and served from
+   the artifact in the 256-3,100 buckets (bf16 K3, bf16 K6), bit-equal to
+   its live session;
+21. print one ``{"kernels": [...]}`` line (with each kernel's launches in
    the CLI phases' training and sweeps and in the cached epoch beside those
    of the other phases; rows for bf16 K3, K4 and K5 at Lq = Lk = 3,100 and
    2,000 with the launches of the two proposed configs' training and
@@ -221,7 +235,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    encoder's launches; rows for K1 and K2 with the outer residual, with the
    grad variant's launches, and for fp32 K3, K4 and K5 at Lq = Lk = 512 and
    2,000, with the encoder fit's launches and the serving launches of that
-   bucket, and the launches of phases 15-19 in their own columns) and, as
+   bucket, and the launches of phases 15-20 in their own columns) and, as
    the last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -1713,11 +1727,17 @@ def serve(session, kernels, cfg, rng, groups):
     bucket -> request lengths), with every launch count set to 0 first
     (after a warm-up of the same chunks). Returns per-bucket latencies, the
     counts of the whole run and the launches of each bucket."""
+    videos = {S: make_videos(rng, lens, cfg) for S, lens in groups.items()}
+    return serve_videos(session, kernels, cfg, videos)[:3]
+
+
+def serve_videos(session, kernels, cfg, videos):
+    """``serve`` of given request videos (bucket -> videos); also returns
+    the results, bucket -> the results in request order."""
     import torch
 
     from r3d_tpu_torch.serving import ServingQueue
 
-    videos = {S: make_videos(rng, lens, cfg) for S, lens in groups.items()}
     # warm-up at the same chunk shapes: cuBLAS plans, the device allocator
     # and the pinned host buffers (the first pinned 157 MB costs ~70 ms)
     for S, vids in videos.items():
@@ -1726,17 +1746,18 @@ def serve(session, kernels, cfg, rng, groups):
 
     for k in kernels:
         k.launches = 0
-    latencies, per_bucket = {}, {}
+    latencies, per_bucket, results = {}, {}, {}
     q = ServingQueue(session, max_wait_ms=20)
     try:
         for S, vids in videos.items():
             before = {k.name: k.launches for k in kernels}
             t0 = time.perf_counter()
             futs = [q.submit(v["features"], v.get("depth")) for v in vids]
-            done = []
+            done, results[S] = [], []
             for v, f in zip(vids, futs):
                 res = f.result(timeout=600)
                 done.append(time.perf_counter() - t0)
+                results[S].append(res)
                 n = v["features"].shape[0]
                 shapes = {"transcript": (cfg.model.n_query,), "durations": (cfg.model.n_query,),
                           "future_frames": (n,), "seg": (n,)}
@@ -1750,7 +1771,7 @@ def serve(session, kernels, cfg, rng, groups):
     finally:
         q.close()
     counts = {k.name: k.launches for k in kernels}
-    return latencies, counts, per_bucket
+    return latencies, counts, per_bucket, results
 
 
 def breakdown(session, cfg, rng, S=512):
@@ -1780,9 +1801,10 @@ def breakdown(session, cfg, rng, S=512):
 
 
 def compare_with_cpu(session, cfg, state_dict, rng, n_class=N_CLASS,
-                     lengths=(256, 200, 129, 250, 177, 240, 210, 255), tol=E2E_TOL):
-    """The card's outputs for one chunk vs the same session on the CPU,
-    where every attention runs its plain composed form."""
+                     lengths=(256, 200, 129, 250, 177, 240, 210, 255), tol=E2E_TOL, **kw):
+    """The card's outputs for one chunk vs the same session on the CPU
+    (``kw``: its ``quantize`` and ``input_dtype``), where every attention
+    runs its plain composed form."""
     import torch
 
     from r3d_tpu_torch.data.pipeline import bucket_length
@@ -1790,10 +1812,10 @@ def compare_with_cpu(session, cfg, state_dict, rng, n_class=N_CLASS,
 
     S = bucket_length(max(lengths), cfg.data.seq_buckets)
     vids = make_videos(rng, lengths, cfg)
-    feats, depth, mask = session._collate(vids, S)
-    got = {k: v.float().cpu() for k, v in session._run(feats, depth, mask).items()}
-    cpu = InferenceSession(cfg, state_dict, n_class, max_batch=8, device="cpu")
-    want = cpu._run(feats, depth, mask)
+    batch = session._collate(vids, S)
+    got = {k: v.float().cpu() for k, v in session._run(*batch).items()}
+    cpu = InferenceSession(cfg, state_dict, n_class, max_batch=8, device="cpu", **kw)
+    want = cpu._run(*batch)
     worst = 0.0
     for key in ("action", "duration", "seg"):
         if not torch.isfinite(got[key]).all():
@@ -5465,6 +5487,305 @@ def l3_generation(kernels, card):
     return counts
 
 
+# ---- serving deployment (A13): int8 weights, uint8 depth, export ----
+
+DEPLOY_DIR = "build/deploy_phase"   # under the checkout (git-ignored), removed after the phase
+DEPLOY_SERVE = {256: (200, 256, 131, 240), 512: (400, 512, 300, 480), 1024: (900, 1024),
+                2000: (1900, 2000)}
+DEPLOY_KINDS = {"float": {}, "int8": {"quantize": "int8"}, "uint8": {"input_dtype": "uint8"},
+                "int8+uint8": {"quantize": "int8", "input_dtype": "uint8"}}
+DEPLOY_EXPORTED = ("float", "int8+uint8")
+SALADS_DEPLOY = {256: (200,), 512: (400,), 1024: (900,), 3100: (3000,)}
+# A quantized session's logits against the float session's, over their
+# largest entry: JAX's bound for both options (tests/test_quant.py, "within a
+# few percent"). Each option's own error is the quantizer's: a weight within
+# scale/2 = absmax/254 of its float value, a depth value within scale/2 =
+# range/510, checked directly.
+QUANT_LOGIT_TOL = 5e-2
+
+
+def same_results(got, want):
+    """Whether two sessions' results (bucket -> result dicts) are equal bit
+    for bit."""
+    return all(np.array_equal(g[k], w[k]) for S in want for g, w in zip(got[S], want[S])
+               for k in ("transcript", "durations", "future_frames", "seg"))
+
+
+def same_chunk(a, b, batch):
+    """Whether two sessions give the same outputs, bit for bit, on one
+    collated chunk."""
+    import torch
+
+    x, y = a._run(*batch), b._run(*batch)
+    return x.keys() == y.keys() and all(torch.equal(x[k], y[k]) for k in x)
+
+
+def chunk_ab(live, served, batch, rounds=8):
+    """One chunk's ``_run`` to a synchronised end, live and exported in
+    turns (live, exported, exported, live), ``rounds`` times: the medians
+    in ms (2 * ``rounds`` calls each)."""
+    import torch
+
+    times = {"live": [], "exported": []}
+    for name in ("live", "exported", "exported", "live") * rounds:
+        session = live if name == "live" else served
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        session._run(*batch)["action"].cpu()
+        times[name].append(1e3 * (time.perf_counter() - t0))
+    return {name: float(np.median(t)) for name, t in times.items()}
+
+
+def artifact_bytes(path):
+    """(all files, the weights file, the largest program) in bytes."""
+    import os
+
+    sizes = {f: os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)}
+    programs = [n for f, n in sizes.items() if f.endswith(".pt2")]
+    return sum(sizes.values()), sizes["weights.pt"], max(programs), len(programs)
+
+
+def htod_bytes(session, batch, path):
+    """Host-to-device bytes of one chunk's ``_run``, from a profiler trace
+    (spun first: a fresh trace can miss its first events, here the copies;
+    traced again, up to 5 times, where it saw none)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            for _ in range(3):
+                torch.cuda._sleep(1000)
+            session._run(*batch)["action"].cpu()
+            torch.cuda.synchronize()
+        copies = htod_copies(prof, path)
+        if copies:
+            return sum(copies)
+    raise AssertionError("the profiler saw no host-to-device copy of a chunk in 5 traces")
+
+
+def deploy_htod(card, state_dict):
+    """Serving deployment (A13): the host-to-device bytes of one 2000-bucket
+    chunk of utkinects (``DEPLOY_SERVE``'s 2 requests) with bf16 depth and
+    with uint8 depth, from profiler traces. Run before the training phases:
+    traces taken after the device-cache phase in the same process show no
+    copies at all (``PERF.md`` §7)."""
+    import os
+
+    from r3d_tpu_torch.config import get_config
+    from r3d_tpu_torch.serving import InferenceSession
+
+    cfg = get_config("utkinects")
+    videos = make_videos(np.random.default_rng(SEED + 9), DEPLOY_SERVE[2000], cfg)
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "deploy_htod.json")
+    for kind in ("float", "uint8"):
+        session = InferenceSession(cfg, state_dict, N_CLASS, max_batch=8, **DEPLOY_KINDS[kind])
+        batch = session._collate(videos, 2000)
+        session._run(*batch)["action"].cpu()   # warm
+        print(f"utkinects {kind} session: one 2000-bucket chunk of {len(videos)} (batch "
+              f"{batch[0].shape[0]}) copies {htod_bytes(session, batch, path)} bytes host to "
+              f"device [{card}]")
+
+
+def serve_and_print(session, kernels, cfg, videos, label, card):
+    """``serve_videos`` and a latency line a bucket, with the card."""
+    lat, counts, per_bucket, results = serve_videos(session, kernels, cfg, videos)
+    for S, t in lat.items():
+        print(f"{label} bucket {S} [{card}]: {t['requests']} requests through ServingQueue, "
+              f"latency p50 {t['p50_ms']:.2f} ms, max {t['max_ms']:.2f} ms; launches "
+              f"{ {k: c for k, c in per_bucket[S].items() if c} }")
+    return lat, counts, per_bucket, results
+
+
+def serving_deploy(kernels, card, state_dict):
+    """The rest of serving (A13) at full width. ``utkinects`` from the seeded
+    init in four sessions, float, ``quantize="int8"``, ``input_dtype="uint8"``
+    and both: every count set to 0, requests through ``ServingQueue`` in the
+    256-2,000 buckets (each chunk must launch K1's blend route, the 256/512
+    chunks fp32 K3), each session against the same session on the CPU
+    (``E2E_TOL``), the uint8 session also with uint8 depth from the client
+    (no host quantizer), the quantized sessions' logits against the float
+    session's (``QUANT_LOGIT_TOL``), the depth quantizer's error (scale/2),
+    and the weights' bytes on the card in fp32 and int8 (a 2000-bucket
+    chunk's host-to-device bytes with float and uint8 depth come earlier,
+    ``deploy_htod``). The float and
+    the int8 + uint8 sessions exported (the export's time and the
+    artifact's bytes), loaded as ``ExportedSession``s and served the same
+    requests, equal to the live session bit for bit, K1's blend route and
+    fp32 K3 launched, and a 512- and a 2000-bucket chunk timed live against
+    exported in turns. Then ``50salads`` (bf16, one request at a time:
+    ``max_batch=1``, 5 programs) with ``R3D_CROSS_NATIVE=1`` exported,
+    loaded and served in the 256-3,100 buckets, equal to its live session
+    bit for bit, bf16 K3 at 256/512 and bf16 K6 at 1,024/3,100.
+    Returns (the live sessions' counts, the exported sessions' counts)."""
+    import os
+    import shutil
+
+    import torch
+
+    from r3d_tpu_torch.config import get_config
+    from r3d_tpu_torch.models import build_model, init_weights
+    from r3d_tpu_torch.ops import attention as att
+    from r3d_tpu_torch.ops import cross_attention as ca
+    from r3d_tpu_torch.ops import fuser_kernel as fk
+    from r3d_tpu_torch.ops.quant import quantized_nbytes
+    from r3d_tpu_torch.serving import ExportedSession, InferenceSession, dequantize_depth
+
+    cfg = get_config("utkinects")
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), DEPLOY_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.default_rng(SEED + 9)
+    videos = {S: make_videos(rng, lens, cfg) for S, lens in DEPLOY_SERVE.items()}
+    live_counts = {k.name: 0 for k in kernels}
+    exported_counts = {k.name: 0 for k in kernels}
+
+    def add(total, counts):
+        for name, c in counts.items():
+            total[name] += c
+
+    def check_route(label, per_bucket, want):
+        for S, names in want.items():
+            missing = [n for n in names if per_bucket[S][n] == 0]
+            if missing:
+                raise AssertionError(f"{label} bucket {S} never launched {missing}: "
+                                     f"{per_bucket[S]}")
+
+    utk_want = {S: ((fk.KERNEL.name, att.KERNEL.name) if S <= 512 else (fk.KERNEL.name,))
+                for S in DEPLOY_SERVE}
+    try:
+        sessions, chunk_out, live_results, live_lat = {}, {}, {}, {}
+        chunk = {}
+        for kind, kw in DEPLOY_KINDS.items():
+            session = InferenceSession(cfg, state_dict, N_CLASS, max_batch=8, **kw)
+            label = f"utkinects {kind} session"
+            live_lat[kind], counts, per_bucket, live_results[kind] = serve_and_print(
+                session, kernels, cfg, videos, label, card)
+            check_route(label, per_bucket, utk_want)
+            add(live_counts, counts)
+            print(f"{label}: card vs CPU")
+            compare_with_cpu(session, cfg, state_dict, rng, **kw)
+            chunk[kind] = session._collate(videos[2000], 2000)
+            out = session._run(*session._collate(videos[512], 512))
+            chunk_out[kind] = {k: out[k].float().cpu() for k in ("action", "duration")}
+            print(f"{label}: weights on the card {quantized_nbytes(session.weights)} bytes "
+                  f"[{card}]")
+            if kind == "uint8":   # a client that ships uint8 depth: no host quantizer
+                u8_videos = {S: [{**v, "depth": np.rint(v["depth"] * 255).astype(np.uint8)}
+                                 for v in vids] for S, vids in videos.items()}
+                serve_and_print(session, kernels, cfg, u8_videos,
+                                f"{label}, uint8 depth from the client", card)
+            if kind in DEPLOY_EXPORTED:
+                sessions[kind] = session
+            del session
+
+        for kind in ("int8", "uint8", "int8+uint8"):
+            ref = chunk_out["float"]
+            worst = {k: float((chunk_out[kind][k] - ref[k]).abs().max())
+                     / max(float(ref[k].abs().max()), 1e-6) for k in ref}
+            print(f"utkinects {kind} vs float session, 512-bucket chunk: max|diff| over the "
+                  f"largest entry {worst} (tol {QUANT_LOGIT_TOL})")
+            if max(worst.values()) > QUANT_LOGIT_TOL:
+                raise AssertionError(f"the {kind} session strays from the float session")
+        d = videos[2000][0]["depth"]
+        u, lo, scale = InferenceSession.quantize_depth(d)
+        device = sessions["float"].device
+        qp = torch.tensor([[lo, scale]], dtype=torch.float32, device=device)
+        deq = dequantize_depth(torch.from_numpy(u)[None].to(device), qp, torch.float32)[0].cpu()
+        err = float((deq - torch.from_numpy(d)).abs().max())
+        print(f"uint8 depth: max|dequantized - float| {err:.3e} for scale {scale:.3e} "
+              f"(bound scale/2 = {scale / 2:.3e}, + 1e-6 for fp32 roundings of values up to 1)")
+        if err > scale / 2 + 1e-6:
+            raise AssertionError("the depth quantizer strays beyond scale/2")
+
+        for kind in DEPLOY_EXPORTED:
+            path = os.path.join(root, kind.replace("+", "_"))
+            t0 = time.perf_counter()
+            sessions[kind].export(path)
+            dt = time.perf_counter() - t0
+            total, weights, program, n = artifact_bytes(path)
+            print(f"utkinects {kind} export [{card}]: {n} programs in {dt:.1f} s, artifact "
+                  f"{total} bytes (weights {weights} once, largest program {program})")
+            t0 = time.perf_counter()
+            served = ExportedSession.load(path)
+            label = f"utkinects {kind} exported"
+            lat, counts, per_bucket, results = serve_and_print(
+                served, kernels, cfg, videos, label, card)
+            print(f"{label}: loaded and served (programs loaded lazily) in "
+                  f"{time.perf_counter() - t0:.1f} s")
+            check_route(label, per_bucket, utk_want)
+            add(exported_counts, counts)
+            for S in DEPLOY_SERVE:
+                print(f"utkinects {kind} bucket {S} [{card}]: p50 live "
+                      f"{live_lat[kind][S]['p50_ms']:.2f} ms, exported {lat[S]['p50_ms']:.2f} "
+                      f"ms; max live {live_lat[kind][S]['max_ms']:.2f} ms, exported "
+                      f"{lat[S]['max_ms']:.2f} ms")
+            for S in (512, 2000):
+                ab = chunk_ab(sessions[kind], served, sessions[kind]._collate(videos[S], S))
+                print(f"utkinects {kind} {S}-bucket chunk of {len(videos[S])} [{card}]: "
+                      f"live {ab['live']:.2f} ms, exported {ab['exported']:.2f} ms (medians of "
+                      f"16 calls each, in turns)")
+            equal = same_results(results, live_results[kind])
+            equal_chunk = same_chunk(served, sessions[kind], chunk[kind])
+            print(f"{label} vs live: results bit-equal {equal}, a 2000-bucket chunk's outputs "
+                  f"bit-equal {equal_chunk}")
+            if not (equal and equal_chunk):
+                raise AssertionError(f"the exported {kind} session differs from the live one")
+            del served
+        del sessions
+
+        before = os.environ.get("R3D_CROSS_NATIVE")
+        os.environ["R3D_CROSS_NATIVE"] = "1"
+        try:
+            scfg = get_config("50salads")
+            model = init_weights(build_model(scfg.model, SALADS_CLASSES),
+                                 torch.Generator().manual_seed(SEED))
+            # one request at a time: the artifact's programs are the 5 of batch 1
+            live = InferenceSession(scfg, model.state_dict(), SALADS_CLASSES, max_batch=1)
+            del model
+            svideos = {S: make_videos(rng, lens, scfg) for S, lens in SALADS_DEPLOY.items()}
+            want = {S: ((att.KERNEL_BF16.name,) if S <= 512 else (ca.FWD_KERNEL.name,))
+                    for S in SALADS_DEPLOY}
+            lat_l, counts, per_bucket, res_l = serve_and_print(
+                live, kernels, scfg, svideos, "50salads live", card)
+            check_route("50salads live", per_bucket, want)
+            add(live_counts, counts)
+            path = os.path.join(root, "50salads")
+            t0 = time.perf_counter()
+            live.export(path)
+            dt = time.perf_counter() - t0
+            total, weights, program, n = artifact_bytes(path)
+            print(f"50salads export, R3D_CROSS_NATIVE=1 [{card}]: {n} programs in {dt:.1f} s, "
+                  f"artifact {total} bytes (weights {weights} once, largest program {program})")
+            served = ExportedSession.load(path)
+            lat_e, counts, per_bucket, res_e = serve_and_print(
+                served, kernels, scfg, svideos, "50salads exported", card)
+            check_route("50salads exported", per_bucket, want)
+            add(exported_counts, counts)
+            for S in SALADS_DEPLOY:
+                print(f"50salads bucket {S} [{card}]: p50 live {lat_l[S]['p50_ms']:.2f} ms, "
+                      f"exported {lat_e[S]['p50_ms']:.2f} ms; max live {lat_l[S]['max_ms']:.2f} "
+                      f"ms, exported {lat_e[S]['max_ms']:.2f} ms")
+            for S in (512, 3100):
+                ab = chunk_ab(live, served, live._collate(svideos[S], S))
+                print(f"50salads {S}-bucket chunk of 1 [{card}]: live {ab['live']:.2f} ms, "
+                      f"exported {ab['exported']:.2f} ms (medians of 16 calls each, in turns)")
+            equal = same_results(res_e, res_l)
+            equal_chunk = same_chunk(served, live, live._collate(svideos[3100], 3100))
+            print(f"50salads exported vs live: results bit-equal {equal}, a 3100-bucket chunk's "
+                  f"outputs bit-equal {equal_chunk}")
+            if not (equal and equal_chunk):
+                raise AssertionError("the exported 50salads session differs from the live one")
+        finally:
+            if before is None:
+                os.environ.pop("R3D_CROSS_NATIVE", None)
+            else:
+                os.environ["R3D_CROSS_NATIVE"] = before
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return live_counts, exported_counts
+
+
 def main() -> int:
     import os
     import shutil
@@ -5551,6 +5872,7 @@ def main() -> int:
     breakdown(session, cfg, rng)
     compare_with_cpu(session, cfg, state_dict, rng)
     del session
+    deploy_htod(card, state_dict)   # the serving deployment phase's H2D bytes (phase 20)
 
     loaders = train_loaders(cfg)
     want = {"epoch 0 train": ("fused_safuser_tail", "fused_tail_bwd",
@@ -5660,12 +5982,19 @@ def main() -> int:
           f"{ {k: c for k, c in moe_train.items() if c} }")
     gt_counts = gt_futr(kernels, card)
     l3_counts = l3_generation(kernels, card)
+    # the rest of serving (A13): int8 weights, uint8 depth, export and ExportedSession
+    deploy_live, deploy_exported = serving_deploy(kernels, card, state_dict)
+    print(f"launches on the deployment phase's live sessions: "
+          f"{ {k: c for k, c in deploy_live.items() if c} }; exported sessions: "
+          f"{ {k: c for k, c in deploy_exported.items() if c} }")
     a114 = {   # this slice's paths, a column each in the kernels line
         "ntu_launches": {k.name: sum(c[k.name] for c in ntu.values()) for k in kernels},
         "depth_launches": darai[DEPTH_MODEL][0], "depth_sweep_launches": darai[DEPTH_MODEL][1],
         "moe_launches": moe_train, "moe_serving_launches": moe_serving,
         "gt_launches": gt_counts, "l3_launches": l3_counts,
-        "bf16_launches": bf16_counts}   # the fusion models in bf16
+        "bf16_launches": bf16_counts,   # the fusion models in bf16
+        # serving deployment (A13): the live and the exported sessions
+        "deploy_launches": deploy_live, "deploy_exported_launches": deploy_exported}
 
     def a114_columns(name):
         return {col: counts[name] for col, counts in a114.items()}

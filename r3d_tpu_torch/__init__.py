@@ -4,8 +4,9 @@ It imports ``torch`` and never JAX, and nothing of ``r3d_tpu``. The JAX
 package stays the reference: each module here sits at the path of its
 counterpart there and is tested equal to it on the CPU.
 
-- ``r3d_tpu_torch.serving``    — ``InferenceSession`` and ``ServingQueue``,
-  the serving entry points (CUDA unless the caller passes ``device="cpu"``).
+- ``r3d_tpu_torch.serving``    — ``InferenceSession`` (int8 weights, uint8
+  depth, ``export``), ``ExportedSession`` and ``ServingQueue``, the serving
+  entry points (CUDA unless the caller passes ``device="cpu"``).
 - ``r3d_tpu_torch.train.loop`` — ``Trainer`` (``init_state``, ``fit``,
   ``train_step``, ``make_eval_step``): the ``proposed_depth``, ``futr``,
   ``proposed``, ``unsupervised``, ``unimodal`` and ``tcn`` training loops,

@@ -117,3 +117,30 @@ def state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
         key = ".".join(_module_path(tuple(mods)) + [_STATS[stat]])
         sd[key] = torch.from_numpy(np.array(leaf, np.float32))
     return sd
+
+
+def flax_kernels(model: torch.nn.Module) -> Dict[str, Tuple[int, int]]:
+    """The entries of ``model``'s ``state_dict`` that the rules above make
+    from flax ``kernel`` leaves, each with (the dim its output channel went
+    to, the number of flax kernels stacked in it): a Dense kernel or a Conv
+    kernel (``nn.Linear``, ``nn.Conv1d``, ``nn.Conv2d`` ``weight``) puts its
+    last axis first, (0, 1); the MoE's stacked expert kernels under
+    ``experts`` [E, in, out] -> [E, out, in], (1, 1); an LSTM's
+    ``weight_ih_l*`` and ``weight_hh_l*`` stack four gate kernels' outputs
+    along dim 0, (0, 4). Everything else (``scale``, ``embedding``, a WN
+    conv's ``v``, raw parameters such as ``pos_embedding``) is not a
+    kernel. ``ops.quant`` quantizes from this set, as JAX's ``quantize_tree``
+    does from the leaves whose path names a kernel."""
+    out: Dict[str, Tuple[int, int]] = {}
+    for mod_name, module in model.named_modules():
+        prefix = mod_name + "." if mod_name else ""
+        if isinstance(module, (torch.nn.Linear, torch.nn.Conv1d, torch.nn.Conv2d)):
+            out[prefix + "weight"] = (0, 1)
+        elif isinstance(module, torch.nn.LSTM):
+            for name, _ in module.named_parameters(recurse=False):
+                if name.startswith(("weight_ih", "weight_hh")):
+                    out[prefix + name] = (0, 4)
+        elif "experts" in mod_name.split(".") and isinstance(
+                getattr(module, "weight", None), torch.nn.Parameter):
+            out[prefix + "weight"] = (1, 1)
+    return out

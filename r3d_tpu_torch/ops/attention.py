@@ -17,6 +17,13 @@ PyTorch versions, drawing the same keep mask (``dropout_keep``) with torch
 integer ops. The wrappers take them for CPU tensors only, and for a CUDA
 tensor launch the kernel or raise.
 
+Without gradients ``flash_attention`` calls K3's forward as a registered
+operator, ``torch.ops.r3d_tpu_torch.flash_attention`` (its CPU
+implementation the plain version, its CUDA implementation the kernel, on
+either body; a fake implementation for ``torch.export``), so that an
+exported serving program runs the kernel. A launch is counted where the
+kernel runs, never where a program is traced.
+
 The mask cannot reproduce the TPU's PRNG bits, so parity with the JAX
 package runs at rate 0; dropout is checked by its invariants.
 
@@ -65,7 +72,7 @@ from typing import Optional
 
 import torch
 
-from r3d_tpu_torch.ops.build import Kernel
+from r3d_tpu_torch.ops.build import Kernel, check_device
 
 KERNEL = Kernel(   # (B, H, Lq, Lk, D, split keys)
     "flash_attention", "attention.cu", "r3d_attention_fwd",
@@ -471,13 +478,29 @@ def _needs_graph(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
 
+@torch.library.custom_op("r3d_tpu_torch::flash_attention", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       bias: Optional[torch.Tensor], scale: float) -> torch.Tensor:
+    """K3's forward as an operator: the plain version on the CPU, the kernel
+    (either body) on the card."""
+    return _attention_fwd(q, k, v, bias, scale)[0]
+
+
+@flash_attention_op.register_fake
+def _(q, k, v, bias, scale):
+    return torch.empty_like(q)
+
+
 def flash_attention(q, k, v, bias: Optional[torch.Tensor], scale: float) -> torch.Tensor:
     """[B, H, Lq, D] attention over [B, H, Lk, D] keys and values with an
     optional key-padding bias [B, 1, 1, Lk]. CPU tensors take the plain
-    version; CUDA tensors the kernels (K3 forward, K5 backward)."""
+    version; CUDA tensors the kernels (K3 forward, K5 backward). Without
+    gradients, the operator ``flash_attention_op``."""
     if _needs_graph(q, k, v, bias):
         return _FlashAttention.apply(q, k, v, bias, scale)
-    return _attention_fwd(q, k, v, bias, scale)[0]
+    check_device("flash_attention", q)
+    return flash_attention_op(q, k, v, bias, scale)
 
 
 def flash_attention_dropout(q, k, v, bias: Optional[torch.Tensor], seed: int, scale: float,

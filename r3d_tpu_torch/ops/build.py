@@ -122,6 +122,14 @@ class Kernel:
         self.launches += 1
 
 
+def check_device(fn: str, t) -> None:
+    """Raise unless ``t`` is on the CPU or a CUDA card: the port's operators
+    are registered for those two only, and a tensor on another device (such
+    as ``meta``) must not get their fake implementation as a result."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{fn}: no kernel for {t.device}")
+
+
 def build_all(kernels: Sequence[Kernel]) -> None:
     """Build every kernel's source in parallel, then load each."""
     build([k.source for k in kernels])

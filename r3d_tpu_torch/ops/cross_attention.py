@@ -38,6 +38,13 @@ product with V, and K7 rounds ds to the input type before the dq and dk
 products; every sum is fp32. The wrappers take the plain versions for CPU
 tensors only, and for a CUDA tensor launch the kernel or raise.
 
+Without gradients ``cross_attention_native`` calls K6 as a registered
+operator, ``torch.ops.r3d_tpu_torch.cross_attention`` (its CPU
+implementation the plain version, its CUDA implementation the kernel, a
+fake implementation for ``torch.export``), so that an exported serving
+program runs the kernel. A launch is counted where the kernel runs, never
+where a program is traced.
+
 Dropout draws the mask of ``ops/attention.py`` (a hash of the seed and the
 element index of the ``[B, H, Lq, S]`` weights), so the plain dropout
 version is ``composed_attention_dropout``'s mask in native layout, and K7
@@ -53,7 +60,7 @@ from __future__ import annotations
 
 import ctypes
 import os
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -67,7 +74,7 @@ from r3d_tpu_torch.ops.attention import (
     dropout_threshold,
     fp32_split_keys,
 )
-from r3d_tpu_torch.ops.build import Kernel
+from r3d_tpu_torch.ops.build import Kernel, check_device
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}   # the launchers' `dtype`
 FWD_KERNEL = Kernel(
@@ -286,16 +293,34 @@ class _CrossAttention(torch.autograd.Function):
         return dq, dk, dv, db, None, None, None, None
 
 
+@torch.library.custom_op("r3d_tpu_torch::cross_attention", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def cross_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       bias: Optional[torch.Tensor], seed: int, scale: float, rate: float,
+                       H: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K6 as an operator, (out, m, l): the plain version on the CPU, the
+    kernel on the card."""
+    return cross_attention_fwd(q, k, v, bias, seed, scale, rate, H)
+
+
+@cross_attention_op.register_fake
+def _(q, k, v, bias, seed, scale, rate, H):
+    stats = q.new_empty((q.shape[0], H, q.shape[1]), dtype=torch.float32)
+    return torch.empty_like(q), stats, torch.empty_like(stats)
+
+
 def cross_attention_native(q, k, v, bias: Optional[torch.Tensor], seed: int, scale: float,
                            rate: float, H: int) -> torch.Tensor:
     """Multi-head attention on native [B, L, C] projection outputs: q
     [B, Lq, C], k and v [B, S, C], bias [B, 1, 1, S] additive or None;
     returns [B, Lq, C], the heads concatenated. ``rate`` > 0 drops weights
     with the mask drawn from ``seed``. CPU tensors take the plain versions;
-    CUDA tensors the kernels (K6 forward, K7 backward)."""
+    CUDA tensors the kernels (K6 forward, K7 backward). Without gradients,
+    the operator ``cross_attention_op``."""
     if _needs_graph(q, k, v, bias):
         return _CrossAttention.apply(q, k, v, bias, seed, scale, rate, H)
-    return cross_attention_fwd(q, k, v, bias, seed, scale, rate, H)[0]
+    check_device("cross_attention", q)
+    return cross_attention_op(q, k, v, bias, seed, scale, rate, H)[0]
 
 
 def cross_attention_native_eligible(Lq: int, Lk: int, C: int, H: int, rate: float,

@@ -26,6 +26,14 @@ layout, as the module's ``nn.Linear`` layers hold them.
 The wrappers take it for CPU tensors only; for a CUDA tensor they launch the
 kernel or raise.
 
+Without gradients (serving, validation) both wrappers call the forward as a
+registered operator (``torch.ops.r3d_tpu_torch.fused_bn_blend_tail`` and
+``fused_safuser_tail``), so that ``torch.export`` records it in a program
+(``serving.InferenceSession.export``): its CPU implementation is the plain
+version, its CUDA implementation the kernel, and its fake implementation
+gives the output's shape and dtype and launches nothing. A launch is counted
+where the kernel runs, never where a program is traced.
+
 The streams are fp32 or bf16; the parameters and blend vectors stay fp32,
 as JAX passes them. In bf16 the kernel computes in the stream's dtype at the
 rounding points of the Pallas kernel (``r3d_tpu/ops/fuser_kernel.py:180-223``):
@@ -40,12 +48,12 @@ instantiations count their launches on counters of their own.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import List, NamedTuple
 
 import torch
 import torch.nn.functional as F
 
-from r3d_tpu_torch.ops.build import Kernel
+from r3d_tpu_torch.ops.build import Kernel, check_device
 
 
 class BlendParams(NamedTuple):
@@ -272,6 +280,35 @@ def _needs_graph(tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
+@torch.library.custom_op("r3d_tpu_torch::fused_bn_blend_tail", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def bn_blend_tail_op(r_raw: torch.Tensor, d_raw: torch.Tensor, blend: List[torch.Tensor],
+                     params: List[torch.Tensor], outer_residual: bool) -> torch.Tensor:
+    """K1's blend route as an operator: the plain version on the CPU, the
+    kernel on the card."""
+    return _bn_blend_tail_fwd(r_raw, d_raw, BlendParams(*blend), FuserTailParams(*params),
+                              outer_residual)
+
+
+@bn_blend_tail_op.register_fake
+def _(r_raw, d_raw, blend, params, outer_residual):
+    return torch.empty_like(r_raw)
+
+
+@torch.library.custom_op("r3d_tpu_torch::fused_safuser_tail", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def safuser_tail_op(r: torch.Tensor, d: torch.Tensor, params: List[torch.Tensor],
+                    outer_residual: bool) -> torch.Tensor:
+    """K1's no-blend route as an operator: the plain version on the CPU, the
+    kernel on the card."""
+    return _safuser_tail_fwd(r, d, FuserTailParams(*params), outer_residual)
+
+
+@safuser_tail_op.register_fake
+def _(r, d, params, outer_residual):
+    return torch.empty_like(r)
+
+
 def fused_bn_blend_tail(r_raw: torch.Tensor, d_raw: torch.Tensor, blend: BlendParams,
                         params: FuserTailParams, outer_residual: bool = False) -> torch.Tensor:
     """Raw [N, C] rgb and depth streams -> fused [N, C] (the whole CMFuser
@@ -280,7 +317,8 @@ def fused_bn_blend_tail(r_raw: torch.Tensor, d_raw: torch.Tensor, blend: BlendPa
     tensors = (r_raw, d_raw, *blend, *params)
     if _needs_graph(tensors):
         return _BnBlendTail.apply(outer_residual, *tensors)
-    return _bn_blend_tail_fwd(r_raw, d_raw, blend, params, outer_residual)
+    check_device("fused_bn_blend_tail", r_raw)
+    return bn_blend_tail_op(r_raw, d_raw, list(blend), list(params), outer_residual)
 
 
 def fused_safuser_tail(r: torch.Tensor, d: torch.Tensor, params: FuserTailParams,
@@ -290,4 +328,5 @@ def fused_safuser_tail(r: torch.Tensor, d: torch.Tensor, params: FuserTailParams
     tensors = (r, d, *params)
     if _needs_graph(tensors):
         return _SAFuserTail.apply(outer_residual, *tensors)
-    return _safuser_tail_fwd(r, d, params, outer_residual)
+    check_device("fused_safuser_tail", r)
+    return safuser_tail_op(r, d, list(params), outer_residual)

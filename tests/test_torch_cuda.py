@@ -1202,3 +1202,109 @@ def test_depth_source_keeps_its_fixed_dropouts_in_a_sticky_step(cuda, tmp_path):
     model = init_weights(build_model(cfg.model, src.n_class), torch.Generator().manual_seed(0))
     keep = sticky_dropout_on_card(cfg, model.state_dict(), batch, src.n_class)
     assert sorted(keep) == ["query_drop", "src_drop"]
+
+
+# ---- the serving kernels as registered operators; quantized serving ----
+
+SERVING_OP_ROUTES = ["k1_blend", "k1_blend_outer", "k1_noblend", "k1_noblend_outer", "k3",
+                     "k3_many", "k6"]
+
+
+def _serving_op_case(route, dtype, device):
+    """(the operator's call, the direct launch of its kernel, the kernel's
+    counter) at the serving shapes: K1 at the 512 bucket's 8 x 512 rows; K3
+    at the utkinects decoder's 8 queries x 512 keys (fp32) and 50salads'
+    20 x 256 (bf16), the many-query body at 512 x 512; K6 at the utkinects
+    2000 bucket (fp32) and 50salads' 3100 (bf16)."""
+    gen = torch.Generator().manual_seed(len(route))
+    fp32 = dtype == torch.float32
+    if route.startswith("k1"):
+        r, d, blend, params = fuser_inputs(8 * 512, gen, device)
+        r, d = r.to(dtype), d.to(dtype)
+        outer = route.endswith("outer")
+        if "noblend" in route:
+            kernel = {(True, False): fk.TAIL_KERNEL, (True, True): fk.TAIL_KERNEL_OUTER,
+                      (False, False): fk.TAIL_KERNEL_BF16,
+                      (False, True): fk.TAIL_KERNEL_BF16_OUTER}[fp32, outer]
+            return (lambda: fk.safuser_tail_op(r, d, list(params), outer),
+                    lambda: fk._safuser_tail_fwd(r, d, params, outer), kernel)
+        return (lambda: fk.bn_blend_tail_op(r, d, list(blend), list(params), outer),
+                lambda: fk._bn_blend_tail_fwd(r, d, blend, params, outer),
+                fk.KERNEL if fp32 else fk.KERNEL_BF16)
+    if route.startswith("k3"):
+        B, H, D = 8, 8, 16 if fp32 else 64
+        Lq, Lk = (512, 512) if route == "k3_many" else ((8, 512) if fp32 else (20, 256))
+        q, k, v, bias = attention_inputs(B, H, Lq, Lk, D, gen, device)
+        q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+        kernel = ({(True, False): att.KERNEL, (True, True): att.KERNEL_MANY,
+                   (False, False): att.KERNEL_BF16, (False, True): att.KERNEL_BF16_MANY}
+                  [fp32, route == "k3_many"])
+        return (lambda: att.flash_attention_op(q, k, v, bias, D ** -0.5),
+                lambda: att._attention_fwd(q, k, v, bias, D ** -0.5)[0], kernel)
+    B, Lq, S, C = (8, 8, 2000, 128) if fp32 else (8, 20, 3100, 512)
+    q, k, v, bias = cross_inputs(B, Lq, S, C, gen, device, dtype)
+    scale = (C // 8) ** -0.5
+    return (lambda: ca.cross_attention_op(q, k, v, bias, 0, scale, 0.0, 8),
+            lambda: ca.cross_attention_fwd(q, k, v, bias, 0, scale, 0.0, 8), ca.BY_DTYPE[dtype][0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("route", SERVING_OP_ROUTES)
+def test_serving_operator_equals_a_direct_launch(cuda, route, dtype):
+    """Each registered operator's CUDA implementation is its hand-written
+    kernel: bit-equal to a direct launch, one launch on its counter."""
+    op, direct, kernel = _serving_op_case(route, dtype, cuda)
+    before = kernel.launches
+    got = op()
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    want = direct()
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_serving_operators_refuse_what_the_kernels_do_not_take(cuda):
+    q = torch.zeros(1, 1, 8, 24, device=cuda)   # head dim 24 has no kernel
+    with pytest.raises(ValueError, match="head dim"):
+        att.flash_attention_op(q, q, q, None, 0.2)
+
+
+def test_depth_dequantization_on_the_card_equals_the_cpu(cuda):
+    """``u * scale + lo`` is one fused multiply-add on both devices."""
+    from r3d_tpu_torch.serving import dequantize_depth
+
+    g = torch.Generator().manual_seed(5)
+    u = torch.randint(0, 256, (4, 300, 16, 12), generator=g, dtype=torch.uint8)
+    qp = torch.stack([torch.rand(4, generator=g) * 3 - 1, torch.rand(4, generator=g) / 50], 1)
+    for dtype in (torch.float32, torch.bfloat16):
+        want = dequantize_depth(u, qp, dtype)
+        got = dequantize_depth(u.to(cuda), qp.to(cuda), dtype).cpu()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kind", ["int8", "uint8", "int8+uint8"])
+def test_quantized_sessions_on_the_card_match_the_cpu(cuda, kind):
+    """utkinects at full width from a seeded init: one 512-bucket chunk of
+    the quantized or uint8 session on the card against the same session on
+    the CPU (``E2E_TOL``: the bf16 embeds' roundings); the int8 weights and
+    scales live on the card."""
+    from chip_smoke import E2E_TOL, N_CLASS, make_videos
+    from r3d_tpu_torch.config import get_config
+    from r3d_tpu_torch.models import build_model, init_weights
+    from r3d_tpu_torch.serving import InferenceSession
+
+    kw = {"int8": dict(quantize="int8"), "uint8": dict(input_dtype="uint8"),
+          "int8+uint8": dict(quantize="int8", input_dtype="uint8")}[kind]
+    cfg = get_config("utkinects")
+    sd = init_weights(build_model(cfg.model, N_CLASS, cfg.data.depth_shape),
+                      torch.Generator().manual_seed(3)).state_dict()
+    card = InferenceSession(cfg, sd, N_CLASS, max_batch=4, **kw)
+    cpu = InferenceSession(cfg, sd, N_CLASS, max_batch=4, device="cpu", **kw)
+    if "quantize" in kw:
+        assert all(t.device.type == "cuda" for v in card.weights.values() if isinstance(v, tuple)
+                   for t in v)
+    batch = card._collate(make_videos(np.random.default_rng(3), (512, 300, 400), cfg), 512)
+    got, want = card._run(*batch), cpu._run(*batch)
+    for key in ("action", "duration", "seg"):
+        assert torch.isfinite(got[key]).all()
+        assert float((got[key].float().cpu() - want[key]).abs().max()) <= E2E_TOL, key
