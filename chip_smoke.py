@@ -18,7 +18,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    buckets; attention
    forward, dropout forward and backward (rate 0 and 0.1) at B = 8, H = 8,
    Lq = 8, D = 16, Lk = 256, 512 and a ragged 300 with a fully masked row,
-   fp32 K4 also at Lq = 33 and 70 and Lk = 1-1,100;
+   fp32 K4 also at Lq = 33 and 70 and Lk = 1-1,100 (from
+   ``FP32_MANY_QUERY_MIN``, 20 queries, the fp32 many-query forward,
+   ``csrc/attention_many_f32.cu``);
    the same three in bf16 at the 50salads decoder's Lq = 20, D = 64, each
    twice bit-equal and audited as one call's launches on the card, with K3
    and K4 also at 33, 70 and 512 (= Lk) queries, at 1, 31, 65, 129, 385,
@@ -169,10 +171,14 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    card against the CPU;
 14. the FUTR encoder (``use_encoder=True``, two layers): before the model
    phases, fp32 K3, K4 and K5 with S queries against S keys (B = H = 8,
-   D = 16, S = 256, 512, 777, 1,024 and 2,000) against their plain
-   versions, twice bit-equal, and timed at 512 and 2,000 with their bounds
-   and SDPA (forward + backward for K5), and K1 and K2 timed with the outer
-   residual; then ``futr_fusion_bn`` with the encoder at full width:
+   D = 16, S = 256, 512, 777, 1,024 and 2,000; K3 and K4 on the many-query
+   forward, one launch a call on its counter, K5 on the cluster body)
+   against their plain versions, twice bit-equal, and timed at 512 and
+   2,000 with their bounds, SDPA (forward + backward for K5) and, for K3
+   and K4, the cluster body they replace there; the cluster body against
+   the many-query forward at Lk = 256, Lq = 8-256 (the A/B behind
+   ``FP32_MANY_QUERY_MIN``); K1 and K2 timed with the outer residual;
+   then ``futr_fusion_bn`` with the encoder at full width:
    requests in the 256-2,000 buckets (each launching fp32 K3 at Lq = Lk,
    counted as ``flash_attention_many``), the card's logits against the
    CPU's in the 2000 bucket, ``fit`` of 2 epochs over windows in the 512
@@ -296,7 +302,8 @@ SELF_TOL = 1e-2          # bf16 K3-K5 at S queries against S keys, over each ten
 OWN_KERNELS = ("fuser_tail_tf32_kernel", "fuser_tail_bf16_kernel", "transpose_weights_kernel",
                "fuser_tail_bwd_rows_kernel", "fuser_tail_wgrad_kernel", "fuser_tail_bwd_sum_kernel",
                "attention_fwd_cluster_kernel", "attention_fwd_split_kernel",
-               "attention_fwd_many_kernel", "attention_bwd_many_dq_kernel",
+               "attention_fwd_many_kernel", "attention_fwd_many_f32_kernel",
+               "attention_bwd_many_dq_kernel",
                "attention_bwd_many_dkdv_kernel",
                "attention_bwd_cluster_kernel", "attention_bwd_bf16_kernel",
                "dq_sum_kernel", "cross_fwd_split_kernel", "cross_fwd_combine_kernel",
@@ -385,10 +392,13 @@ def fuser_bwd_bound_ms(N, C=128, Ch=512):
                   H100_TF32X3_FLOPS)
 
 
-def attention_bound_ms(B, H, Lq, Lk, D):
+def attention_bound_ms(B, H, Lq, Lk, D, flops_per_s=H100_FP32_FLOPS):
+    """q, k, v and the bias in, out out, once; the two products at the fp32
+    rate (or ``flops_per_s``: the 3xTF32 rate for the many-query body,
+    whose products are fp32-accurate on the tensor cores)."""
     n_bytes = 4 * (2 * B * H * Lq * D + 2 * B * H * Lk * D + B * Lk)
     flops = 4 * B * H * Lq * Lk * D
-    return _bound(n_bytes, flops)
+    return _bound(n_bytes, flops, flops_per_s)
 
 
 def attention_bwd_bound_ms(B, H, Lq, Lk, D):
@@ -531,6 +541,21 @@ def device_turns(fn, names, turns=FP32_CROSS_TURNS):
 def fmt_ms(x):
     """A time that the profiler may not have seen, for printing."""
     return "not measured" if x is None else f"{x:.4f}"
+
+
+def ptxas_entry(mangled):
+    """A kernel's name and template arguments from its mangled name in
+    ptxas's output: ``_ZN3r3d28attention_fwd_cluster_kernelILi16ELb0ELb0EEEv...``
+    gives ``attention_fwd_cluster_kernel<16, 0, 0>``."""
+    i = 3 if mangled.startswith("_ZN") else 2
+    name = mangled
+    while i < len(mangled) and mangled[i].isdigit():   # <length><identifier>, namespaces first
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
+    args = re.match(r"I((?:L[a-z]-?\d+E)+)E", mangled[i:])
+    return name + (f"<{', '.join(re.findall(r'L[a-z](-?[0-9]+)E', args[1]))}>" if args else "")
 
 
 def raw_launcher(kernel, *args):
@@ -838,7 +863,8 @@ def check_attention_train_kernels(gen, device):
                   "plain_ms": time_ms(lambda: att.composed_attention_bwd(
                       q, k, v, bias, seed, scale, rate, g, False)),
                   **library_times(library_bwd), "bound_ms": bound, "bound_by": bound_by}
-    # what the cluster body's dropout could get wrong: more than one query
+    # what the dropout forwards could get wrong (the cluster body at 8
+    # queries, the many-query body at 33 and 70): more than one query
     # tile, one key, less than a tile, a last split of one key, a fully
     # masked row, splits of several tiles; rate 0 keeps every weight
     for Lq_ in (8, 33, 70):
@@ -909,7 +935,8 @@ def check_attention_kernel(gen, device):
     # what the cluster bodies of K3 and K5 could get wrong: more than one
     # query tile of 8, one key, less than one tile of 64, a last tile of one
     # key, splits grown to two and to five tiles (the ring), the
-    # self-attention route; a fully masked row where Lk > 1
+    # self-attention route; a fully masked row where Lk > 1 (K3 at 33 queries
+    # or more: the many-query forward, a ragged query block and key tile)
     for Lq_, Lk in ((33, 512), (70, 300), (8, 1), (8, 31), (8, 65), (20, 1024), (8, 2049),
                     (512, 512)):
         q, k, v, bias = attention_inputs(B, H, Lq_, Lk, D, gen, device, all_masked_row=Lk > 1)
@@ -4052,21 +4079,28 @@ def utkinects_device_cache(kernels, card, state_dict):
 SELF32_SHAPES = ((8, 8, 256, 16), (8, 8, 512, 16), (8, 8, 777, 16), (8, 8, 1024, 16),
                  (8, 8, 2000, 16))
 SELF32_TIMED = (512, 2000)
+FP32_MANY_QUERIES = 64   # csrc/attention_many_f32.cu: BQ, queries a block
 SELF32_BWD_TOL = 1e-4   # K5 fp32 over each gradient's largest entry past 512: its sums run
                         # over up to 2,000 queries or keys (fp32 K7's bound over 3,100 keys)
 
 
 def check_attention_fp32_self(gen, device):
     """fp32 K3, K4 and K5 at Lq = Lk = S (``SELF32_SHAPES``, the encoder's
-    self-attention; the cluster bodies built for 8-64 queries, each block
-    taking ``FP32_QUERY_TILE`` of them), each against its plain version with
-    random key lengths per row and one fully masked row, twice bit-equal
-    (K5 at rate 0 and 0.1, within ``K3_TOL`` to 512 and ``SELF32_BWD_TOL``
-    past it, of max(1, each gradient's largest entry)); the launch shape (query
-    tiles, key splits, clusters at once); at ``SELF32_TIMED`` each timed:
-    the C launcher by events and the profiler's device time, the plain
-    version, SDPA (forward, and forward + backward for K5) and the bound.
-    Returns (worst (abs, rel) error per kernel, timing per kernel and S)."""
+    self-attention): K3 and K4 on the many-query forward
+    (``csrc/attention_many_f32.cu``, 64 queries a block against every key),
+    K5 on the cluster body (query tiles of ``FP32_QUERY_TILE``, key splits
+    a cluster), each against its plain version with random key lengths per
+    row and one fully masked row, twice bit-equal (K5 at rate 0 and 0.1,
+    within ``K3_TOL`` to 512 and ``SELF32_BWD_TOL`` past it, of max(1, each
+    gradient's largest entry)); K3 and K4 each one launch on its counter
+    (``flash_attention_many``, ``flash_attention_dropout_many``) at every
+    shape; the launch shapes; at ``SELF32_TIMED`` each timed: the C
+    launcher by events and the profiler's device time (K3 and K4 also the
+    cluster body they replace at this shape), the plain version, SDPA
+    (forward, and forward + backward for K5) and the bound (K3 and K4 at
+    the 3xTF32 rate, with the fp32 rate's beside it), one call of each
+    audited at 512 as one launch of its own kernel. Returns (worst (abs,
+    rel) error per kernel, timing per kernel and S)."""
     import torch
     import torch.nn.functional as F
 
@@ -4082,16 +4116,23 @@ def check_attention_fp32_self(gen, device):
         g = torch.randn(q.shape, generator=gen).to(device)
         seed = 5000 + S
         label = f"B={B} H={H} Lq=Lk={S} D={D}"
-        for name, fn, plain in (
-                ("K3", lambda: att.flash_attention(q, k, v, bias, scale),
+        for name, kernel, fn, plain in (
+                ("K3", att.KERNEL_MANY, lambda: att.flash_attention(q, k, v, bias, scale),
                  lambda: att.composed_attention(q, k, v, bias, scale)),
-                ("K4", lambda: att.flash_attention_dropout(q, k, v, bias, seed, scale, rate),
+                ("K4", att.DROPOUT_KERNEL_MANY,
+                 lambda: att.flash_attention_dropout(q, k, v, bias, seed, scale, rate),
                  lambda: att.composed_attention_dropout(q, k, v, bias, seed, scale, rate))):
+            before = kernel.launches
             got = fn()
+            launched = kernel.launches - before
             err = errs([got], [plain()])
-            print(f"{name} fp32 {label}: max|kernel - plain| = {err[0]:.3e} (tol {K3_TOL})")
+            print(f"{name} fp32 {label}: max|kernel - plain| = {err[0]:.3e} (tol {K3_TOL}), "
+                  f"{launched} launch on {kernel.name}")
             if not (err[0] <= K3_TOL and torch.isfinite(got).all()):
                 raise AssertionError(f"{name} fp32 disagrees with its plain version at {label}")
+            if launched != 1:
+                raise AssertionError(f"{name} fp32 at {label}: {launched} launches on "
+                                     f"{kernel.name}, not 1")
             if not torch.equal(got, fn()):
                 raise AssertionError(f"{name} fp32 is not deterministic at {label}")
             worst[name] = worse(worst[name], err)
@@ -4110,10 +4151,12 @@ def check_attention_fp32_self(gen, device):
         del got, again
         split = att.fp32_split_keys(S)
         fit = fp32_clusters_at_once(B, H, S, S, D, split)
-        print(f"  fp32 K3-K5 at {label}: {-(-S // att.FP32_QUERY_TILE)} query tiles of "
-              f"{att.FP32_QUERY_TILE} x {B * H} (batch, head), {-(-S // split)} splits of "
-              f"{split} keys a cluster, {B * H * -(-S // att.FP32_QUERY_TILE)} clusters "
-              f"launched; the card holds {fit[0]} (K3) and {fit[1]} (K5) at once")
+        print(f"  fp32 K3/K4 at {label}: {-(-S // FP32_MANY_QUERIES)} query blocks of "
+              f"{FP32_MANY_QUERIES} x {B * H} (batch, head), each walking {-(-S // 64)} key "
+              f"tiles; K5: {-(-S // att.FP32_QUERY_TILE)} query tiles of "
+              f"{att.FP32_QUERY_TILE} x {B * H}, {-(-S // split)} splits of {split} keys a "
+              f"cluster, {B * H * -(-S // att.FP32_QUERY_TILE)} clusters launched; the card "
+              f"holds {fit[1]} at once")
         torch.cuda.empty_cache()
         if S not in SELF32_TIMED:
             continue
@@ -4121,41 +4164,48 @@ def check_attention_fp32_self(gen, device):
         mask = bias == 0
         out = torch.empty_like(q)
         shape = f"{label} fp32"
-        fwd_bound = attention_bound_ms(B, H, S, S, D)
+        fwd_bound = attention_bound_ms(B, H, S, S, D, H100_TF32X3_FLOPS)
+        fwd_bound_fp32 = attention_bound_ms(B, H, S, S, D)[0]
         bwd_bound = attention_bwd_bound_ms(B, H, S, S, D)
         ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr())
-        launch = raw_launcher(att.KERNEL, *ptrs, B, H, S, S, D, split, scale, stream)
+        drop = (seed, att.dropout_threshold(rate), 1.0 / (1.0 - rate))
+        launch = raw_launcher(att.KERNEL_MANY, *ptrs, B, H, S, S, D, scale, stream)
+        cluster = raw_launcher(att.KERNEL, *ptrs, B, H, S, S, D, split, scale, stream)
         timing["K3"][S] = {
             "shape": shape, "ms": time_ms(launch, iters=iters),
-            "device_ms": device_ms(launch, "attention_fwd_cluster_kernel<16, false"),
+            "device_ms": device_ms(launch, "attention_fwd_many_f32_kernel<16, false"),
+            "cluster_ms": time_ms(cluster, iters=iters),
+            "cluster_device_ms": device_ms(cluster, "attention_fwd_cluster_kernel<16, false"),
             "plain_ms": time_ms(lambda: att.composed_attention(q, k, v, bias, scale), iters=3),
             **library_times(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                                                    scale=scale), iters=iters),
-            "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1]}
-        launch = raw_launcher(att.DROPOUT_KERNEL, *ptrs, B, H, S, S, D, split, scale, seed,
-                              att.dropout_threshold(rate), 1.0 / (1.0 - rate), stream)
+            "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1], "bound_fp32_ms": fwd_bound_fp32}
+        launch = raw_launcher(att.DROPOUT_KERNEL_MANY, *ptrs, B, H, S, S, D, scale, *drop, stream)
+        cluster = raw_launcher(att.DROPOUT_KERNEL, *ptrs, B, H, S, S, D, split, scale, *drop,
+                               stream)
         timing["K4"][S] = {
             "shape": shape + f" p={rate}", "ms": time_ms(launch, iters=iters),
-            "device_ms": device_ms(launch, "attention_fwd_cluster_kernel<16, true"),
+            "device_ms": device_ms(launch, "attention_fwd_many_f32_kernel<16, true"),
+            "cluster_ms": time_ms(cluster, iters=iters),
+            "cluster_device_ms": device_ms(cluster, "attention_fwd_cluster_kernel<16, true"),
             "plain_ms": time_ms(lambda: att.composed_attention_dropout(
                 q, k, v, bias, seed, scale, rate), iters=3),
             **library_times(lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask, dropout_p=rate, scale=scale), iters=iters),
-            "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1]}
+            "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1], "bound_fp32_ms": fwd_bound_fp32}
         del out
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
         launch = raw_launcher(att.BWD_KERNEL, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                               bias.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                              dv.data_ptr(), None, B, H, S, S, D, split, scale, 1, seed,
-                              att.dropout_threshold(rate), 1.0 / (1.0 - rate), stream)
+                              dv.data_ptr(), None, B, H, S, S, D, split, scale, 1, *drop, stream)
         k5_ms = time_ms(launch, iters=iters)
         k5_device = device_ms(launch, "attention_bwd_cluster_kernel<16")
         if S == 512:   # one wrapper call each: its own launch, nothing else
             own_launches_per_call(lambda: att.flash_attention(q, k, v, bias, scale),
-                                  ("attention_fwd_cluster_kernel",), 1, f"K3 fp32 {label}")
+                                  ("attention_fwd_many_f32_kernel",), 1, f"K3 fp32 {label}")
             own_launches_per_call(
                 lambda: att.flash_attention_dropout(q, k, v, bias, seed, scale, rate),
-                ("attention_fwd_cluster_kernel",), 1, f"K4 fp32 {label}")
+                ("attention_fwd_many_f32_kernel",), 1, f"K4 fp32 {label}")
             own_launches_per_call(lambda: att.attention_bwd(q, k, v, bias, seed, scale, rate, g),
                                   ("attention_bwd_cluster_kernel",), 1, f"K5 fp32 {label}")
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -4171,16 +4221,70 @@ def check_attention_fp32_self(gen, device):
                 q, k, v, bias, seed, scale, rate, g, False), iters=3),
             **library_times(library_bwd, iters=iters),
             "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1]}
+        # K3's distance from an fp64 reference: the kernel, the cluster body it
+        # replaces, the plain version
+        ref = att.composed_attention(q.double(), k.double(), v.double(), bias.double(), scale)
+        out = torch.empty_like(q)
+        raw_launcher(att.KERNEL, q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                     out.data_ptr(), B, H, S, S, D, split, scale, stream)()
+        timing["K3"][S].update({
+            "err_vs_fp64": float((att.flash_attention(q, k, v, bias, scale) - ref).abs().max()),
+            "cluster_err_vs_fp64": float((out - ref).abs().max()),
+            "plain_err_vs_fp64": float((att.composed_attention(q, k, v, bias, scale)
+                                        - ref).abs().max())})
+        del ref, out
         for name in ("K3", "K4", "K5"):
             t = timing[name][S]
+            extra = (f" (the cluster body at this shape {t['cluster_ms']:.4f} / "
+                     f"{fmt_ms(t['cluster_device_ms'])}; bound at the fp32 rate "
+                     f"{t['bound_fp32_ms']:.4f})" if "cluster_ms" in t else "")
+            if "err_vs_fp64" in t:
+                extra += (f"; max|out - fp64 reference| kernel {t['err_vs_fp64']:.3e}, cluster "
+                          f"body {t['cluster_err_vs_fp64']:.3e}, plain version "
+                          f"{t['plain_err_vs_fp64']:.3e}")
             print(f"{name} fp32 {t['shape']}: kernel {t['ms']:.4f} ms by events, "
                   f"{fmt_ms(t['device_ms'])} on the device; plain {t['plain_ms']:.3f}; SDPA "
                   f"{t['library_ms']:.4f} / {fmt_ms(t['library_device_ms'])}"
                   f"{' (forward + backward)' if name == 'K5' else ''}; bound "
-                  f"{t['bound_ms']:.4f} ({t['bound_by']})")
+                  f"{t['bound_ms']:.4f} ({t['bound_by']}){extra}")
         del leaves, dq, dk, dv
         torch.cuda.empty_cache()
     return worst, timing
+
+
+def fp32_threshold_ab(gen, device, B=8, H=8, Lk=256, D=16):
+    """Which fp32 forward an Lq takes (``FP32_MANY_QUERY_MIN``): the cluster
+    body and the many-query body, K3 and K4 (p = 0.1), launched by hand on
+    the same inputs at Lk = 256, Lq = 8-256, device time each. Returns Lq
+    -> (K3 cluster, K3 many, K4 cluster, K4 many) in ms."""
+    import torch
+
+    from r3d_tpu_torch.ops import attention as att
+
+    stream = torch.cuda.current_stream().cuda_stream
+    scale = 1.0 / math.sqrt(D)
+    drop = (77, att.dropout_threshold(0.1), 1.0 / 0.9)
+    readings = {}
+    for Lq in (8, 16, 17, 18, 19, 20, 32, 33, 64, 128, 256):
+        q, k, v, bias = attention_inputs(B, H, Lq, Lk, D, gen, device)
+        out = torch.empty_like(q)
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr())
+        split = att.fp32_split_keys(Lk)
+        calls = (
+            (raw_launcher(att.KERNEL, *ptrs, B, H, Lq, Lk, D, split, scale, stream),
+             "attention_fwd_cluster_kernel"),
+            (raw_launcher(att.KERNEL_MANY, *ptrs, B, H, Lq, Lk, D, scale, stream),
+             "attention_fwd_many_f32_kernel"),
+            (raw_launcher(att.DROPOUT_KERNEL, *ptrs, B, H, Lq, Lk, D, split, scale, *drop,
+                          stream), "attention_fwd_cluster_kernel"),
+            (raw_launcher(att.DROPOUT_KERNEL_MANY, *ptrs, B, H, Lq, Lk, D, scale, *drop, stream),
+             "attention_fwd_many_f32_kernel"))
+        readings[Lq] = t = [device_ms(fn, name) for fn, name in calls]
+        print(f"threshold A/B fp32 B={B} H={H} Lq={Lq} Lk={Lk} D={D} (FP32_MANY_QUERY_MIN "
+              f"{att.FP32_MANY_QUERY_MIN}): K3 cluster {fmt_ms(t[0])} / many-query "
+              f"{fmt_ms(t[1])} ms, K4 cluster {fmt_ms(t[2])} / many-query {fmt_ms(t[3])} ms on "
+              "the device")
+    return readings
 
 
 def bf16_steps_off(got, want):
@@ -5834,9 +5938,12 @@ def main() -> int:
     print(f"built {sources} in {time.perf_counter() - t0:.1f} s into {kbuild.build_dir()}")
     for source in sources:
         log = (kbuild.build_dir() / (source.rsplit('.', 1)[0] + ".log"))
+        entry = ""
         for line in log.read_text().splitlines() if log.exists() else []:
-            if "registers" in line or "spill" in line:
-                print(f"  {source}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = ptxas_entry(line.split("'")[1]) + ": "
+            elif "registers" in line or "spill" in line:
+                print(f"  {source}: {entry}{line.strip()}")
 
     gen = torch.Generator().manual_seed(SEED)
     (k1_err, k1_time), (k1t_err, k1t_time) = check_fuser_kernel(gen, device)
@@ -5848,6 +5955,7 @@ def main() -> int:
     ((k6_err, k6_time), (k7_err, k7_time), (k6f_err, k6f_time),
      (k7f_err, k7f_time)) = check_cross_attention_kernels(gen, device)
     self32_err, self32_time = check_attention_fp32_self(gen, device)
+    fp32_threshold_ab(gen, device)
     k1o_time, k2o_time = time_outer_residual(gen, device)
     fuser_bf16 = check_fuser_bf16_kernels(gen, device)
 
@@ -6086,7 +6194,10 @@ def main() -> int:
             "max_abs_err": err[0], "max_err": err[1], "shape": t["shape"], "ms": t["ms"],
             "kernel_ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "library_device_ms": t["library_device_ms"]})
+            "library_device_ms": t["library_device_ms"],
+            **{key: t[key] for key in ("bound_fp32_ms", "cluster_ms", "cluster_device_ms",
+                                       "err_vs_fp64", "cluster_err_vs_fp64", "plain_err_vs_fp64")
+               if key in t}})
     # the bf16 K1/K2 rows (A18): launches on the bf16 utkinects path, its
     # sweep's, and the ablations' bf16 steps'
     for k in bf16_fuser:

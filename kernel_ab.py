@@ -36,6 +36,12 @@ its source.
 - K4 in fp32: ``r3d_attention_fwd_dropout`` (rate 0.1) at the same shapes.
   The cluster body takes the keys per block; the body before it did not.
   Held to the plain version (2e-5).
+- K3 and K4 in fp32 with S queries against S keys (the encoder's
+  self-attention), B = H = 8, D = 16, S = 512 and 2,000: this checkout's
+  many-query forward (``r3d_attention_fwd_many_f32``, its dropout twin)
+  against the other checkout's ``r3d_attention_fwd`` and
+  ``r3d_attention_fwd_dropout`` at Lq = Lk, which run the cluster body
+  there. Held to the plain version (2e-5).
 - K2: ``r3d_fuser_tail_bwd`` at the utkinects buckets' N = 8 x 256, 512,
   1,024 and 2,000 rows. The two-phase body takes its scratch and launch
   plan from ``bwd_plan``; the body before it took a block count and one
@@ -60,6 +66,10 @@ its source.
   no scratch, where the first K6 body ignored the keys per block and the
   first K7 body took 64 keys a block and one fp32 dq slice a block. Held to the plain versions (out, m and l 2e-5; the gradients
   1e-4 of each one's largest entry).
+- One encoder train step at the 2000 bucket, epoch 0 and sticky
+  (``ENCODER_STEP``, ``chip_smoke.train_breakdown``), in a process of its
+  own in each checkout, in the same turns: step ms, card-busy ms and
+  launches.
 
 Prints one line per kernel and shape and, as the last line, one JSON object
 of the times in ms ([events, device] per side). Exits non-zero where CUDA is
@@ -72,6 +82,7 @@ import ctypes
 import functools
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -369,6 +380,58 @@ def attention_fp32(checkout, device, gen, stream, result, B=8, H=8, Lq=8, D=16, 
                  check_bwd, result)
 
 
+def attention_fp32_many(checkout, device, gen, stream, result, B=8, H=8, D=16, rate=0.1):
+    """fp32 K3 and K4 (p = 0.1) with S queries against S keys (the encoder's
+    self-attention), S = 512 and 2,000: this checkout's many-query forward
+    (``r3d_attention_fwd_many_f32`` and its dropout twin) against the other
+    checkout's ``r3d_attention_fwd`` and ``r3d_attention_fwd_dropout`` at
+    Lq = Lk, which run the cluster body there. Each side held to the plain
+    version (2e-5)."""
+    import torch
+
+    from r3d_tpu_torch.ops import attention as att
+
+    scale = 1.0 / math.sqrt(D)
+    lib = other_library(checkout, "attention.cu")
+    unsplit = lambda argtypes: argtypes[:10] + argtypes[11:]   # without the split int
+    fwd_split = has(checkout, "attention.cu", "attention_fwd_cluster_kernel")
+    drop_split = not has(checkout, "attention.cu", "launch_fp32_dropout")
+    old = {"K3": (bind(lib, att.KERNEL, None if fwd_split else unsplit(att.KERNEL.argtypes)),
+                  fwd_split),
+           "K4": (bind(lib, att.DROPOUT_KERNEL,
+                       None if drop_split else unsplit(att.DROPOUT_KERNEL.argtypes)), drop_split)}
+    new = {"K3": att.KERNEL_MANY.load(), "K4": att.DROPOUT_KERNEL_MANY.load()}
+    for S in (512, 2000):
+        q, k, v, bias = chip_smoke.attention_inputs(B, H, S, S, D, gen, device)
+        seed = 4000 + S
+        drop = {"K3": (), "K4": (seed, att.dropout_threshold(rate), 1.0 / (1.0 - rate))}
+        want = {"K3": att.composed_attention(q, k, v, bias, scale),
+                "K4": att.composed_attention_dropout(q, k, v, bias, seed, scale, rate)}
+        outs = {who: torch.empty_like(q) for who in ("this", "other")}
+        qkv = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr())
+        for name in ("K3", "K4"):
+            fn, split = old[name]
+            calls = {"this": lambda name=name: new[name](
+                         *qkv, outs["this"].data_ptr(), B, H, S, S, D, scale, *drop[name], stream),
+                     "other": lambda name=name, fn=fn, split=split: fn(
+                         *qkv, outs["other"].data_ptr(), B, H, S, S, D,
+                         *((att.fp32_split_keys(S),) if split else ()), scale, *drop[name],
+                         stream)}
+
+            def check(who, name=name):
+                err = float((outs[who] - want[name]).abs().max())
+                if not err <= chip_smoke.K3_TOL:
+                    raise AssertionError(f"{name} fp32 ({who}) disagrees with its plain version "
+                                         f"at Lq=Lk={S}: {err:.3e}")
+
+            label = "attention_fwd" if name == "K3" else "attention_fwd_dropout"
+            in_turns(f"{label} fp32 B={B} H={H} Lq=Lk={S} D={D}"
+                     f"{f' p={rate}' if name == 'K4' else ''} (this: the many-query forward)",
+                     calls, check, result)
+        del want, outs
+        torch.cuda.empty_cache()
+
+
 def cross_attention_bwd(checkout, device, gen, stream, result, B=8, Lq=20, S=3100, C=512, H=8):
     import torch
 
@@ -471,6 +534,52 @@ def cross_attention_fp32(checkout, device, gen, stream, result, B=8, Lq=8, C=128
                      check_bwd, result, rounds=3)
 
 
+# One encoder train step at the 2000 bucket (``futr_fusion_bn`` with
+# ``use_encoder=True`` at the utkinects widths, the seeded init, the
+# encoder fit's videos), epoch 0 and sticky, through ``chip_smoke.train_breakdown``
+# of the checkout it runs in: only what both checkouts have.
+ENCODER_STEP = """
+import dataclasses
+import torch
+import chip_smoke as c
+from r3d_tpu_torch.config import get_config
+from r3d_tpu_torch.models import build_model, init_weights
+torch.backends.cuda.matmul.allow_tf32 = False
+base = get_config("utkinects")
+cfg = base.replace(model=dataclasses.replace(base.model, use_encoder=True))
+model = init_weights(build_model(cfg.model, c.N_CLASS, cfg.data.depth_shape),
+                     torch.Generator().manual_seed(c.SEED))
+c.train_breakdown(cfg, model.state_dict(), c.train_loaders(cfg, **c.ENCODER_FIT)[1],
+                  min_len=1024, label=" (encoder, 2000)")
+"""
+STEP_LINE = re.compile(r"train step \(encoder, 2000\) \((.*?)\), bucket (\d+): .* median "
+                       r"([\d.]+) ms .* card busy ([\d.]+) ms in (\d+) kernel launches")
+
+
+def encoder_steps(checkout, result):
+    """``ENCODER_STEP`` in a process of its own in each checkout (each builds
+    its kernels there at first use), other, this, this, other: each turn's
+    median step ms, card-busy ms and launches, epoch 0 and sticky."""
+    here = Path(__file__).resolve().parent
+    runs = {"this": [], "other": []}
+    for who in ("other", "this", "this", "other"):
+        root = here if who == "this" else checkout.resolve()
+        done = subprocess.run([sys.executable, "-c", ENCODER_STEP], cwd=root, text=True,
+                              capture_output=True, env={**os.environ, "PYTHONPATH": str(root)})
+        if done.returncode != 0:
+            raise RuntimeError(f"encoder step ({who}) failed:\n{done.stdout[-3000:]}"
+                               f"{done.stderr[-3000:]}")
+        steps = {m[0]: (float(m[2]), float(m[3]), int(m[4]))
+                 for m in STEP_LINE.findall(done.stdout)}
+        if len(steps) != 2:
+            raise RuntimeError(f"encoder step ({who}): no step lines in\n{done.stdout[-3000:]}")
+        runs[who].append(steps)
+        print(f"encoder 2000 step ({who}): " + "; ".join(
+            f"{mode}: median {ms:.2f} ms, card busy {busy:.2f} ms in {n} launches"
+            for mode, (ms, busy, n) in steps.items()))
+    result["encoder 2000 step"] = runs
+
+
 def main() -> int:
     import torch
 
@@ -486,10 +595,12 @@ def main() -> int:
     result = {}
     attention_bf16_many(checkout, device, gen, stream, result)
     attention_fp32(checkout, device, gen, stream, result)
+    attention_fp32_many(checkout, device, gen, stream, result)
     fuser_tail_bwd(checkout, device, gen, stream, result)
     fuser_tail(other_library(checkout, "fuser_tail.cu"), device, gen, stream, result)
     cross_attention_bwd(checkout, device, gen, stream, result)
     cross_attention_fp32(checkout, device, gen, stream, result)
+    encoder_steps(checkout, result)
     print(json.dumps(result))
     return 0
 

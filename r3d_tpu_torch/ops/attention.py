@@ -63,6 +63,15 @@ over key tiles, each owned by one block, ds rounded to bf16 before the dq
 and dk products and the weights times the keep mask kept at fp32 accuracy
 for dv (bf16 K7's rounding points). The autograd Functions save what the
 forward keeps on that route only.
+
+An fp32 call with at least ``FP32_MANY_QUERY_MIN`` queries (S queries
+against S keys: the encoder, the depth query source, L3 query generation)
+takes the fp32 many-query forward (``csrc/attention_many_f32.cu``, K3 and
+K4 as one template, ``KERNEL_MANY`` and ``DROPOUT_KERNEL_MANY``): 64
+queries a block against every key, 3xTF32 tensor-core products, an online
+softmax normalised once, the output in fp32. Its backward stays the
+cluster body (counted apart, as ``BWD_KERNEL_MANY``), which redraws the
+keep mask, so that forward keeps nothing.
 """
 
 from __future__ import annotations
@@ -112,11 +121,16 @@ BWD_KERNEL_BF16_MANY = Kernel(   # q, k, v, bias, g, out32, stats, keep bits, Dq
     [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
     + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
 )
-# fp32 calls with MANY_QUERY_MIN queries or more (the encoder's S queries):
-# the same bodies as KERNEL, DROPOUT_KERNEL and BWD_KERNEL, counted apart
-KERNEL_MANY = Kernel("flash_attention_many", KERNEL.source, KERNEL.symbol, KERNEL.argtypes)
-DROPOUT_KERNEL_MANY = Kernel("flash_attention_dropout_many", DROPOUT_KERNEL.source,
-                             DROPOUT_KERNEL.symbol, DROPOUT_KERNEL.argtypes)
+KERNEL_MANY = Kernel(   # fp32, many queries: q, k, v, bias, out; (B, H, Lq, Lk, D)
+    "flash_attention_many", "attention_many_f32.cu", "r3d_attention_fwd_many_f32",
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p],
+)
+DROPOUT_KERNEL_MANY = Kernel(
+    "flash_attention_dropout_many", "attention_many_f32.cu", "r3d_attention_fwd_dropout_many_f32",
+    KERNEL_MANY.argtypes[:-1] + DROPOUT_KERNEL.argtypes[-4:],
+)
+# fp32 backward calls with FP32_MANY_QUERY_MIN queries or more: BWD_KERNEL's
+# cluster body, counted apart
 BWD_KERNEL_MANY = Kernel("attention_bwd_many", BWD_KERNEL.source, BWD_KERNEL.symbol,
                          BWD_KERNEL.argtypes)
 _BY_DTYPE = {  # (forward, dropout forward, backward) per input dtype
@@ -129,7 +143,15 @@ FWD_SPLIT_UNIT = 128              # csrc/attention.cu: NW * KT, one tile of keys
 FWD_MAX_SPLITS = 8                # csrc/attention_cluster.cuh: kMaxSplits, blocks per cluster
 FP32_SPLIT_UNIT = 64              # csrc/attention_cluster.cuh: kF32KT, a tile of the fp32 bodies
 FP32_QUERY_TILE = 8               # csrc/attention_cluster.cuh: kF32QT, queries a block takes at a time
-MANY_QUERY_MIN = 33               # from this many queries: bf16 the many-query bodies, fp32 *_MANY
+MANY_QUERY_MIN = 33               # bf16: the many-query bodies from this many queries
+# from this many queries the fp32 many-query forward: at Lk = 256, B = H = 8,
+# D = 16 (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.fp32_threshold_ab) the
+# cluster body's device time against the many-query body's, K3 / K4: 8
+# queries 0.0059 / 0.0066 against 0.0061 / 0.0084 ms, 16 0.0072 / 0.0082
+# against 0.0061 / 0.0083, 17 0.0084 / 0.0097 against 0.0061 / 0.0084, 20
+# 0.0090 / 0.0095 against 0.0060 / 0.0088, 33 0.0133 / 0.0146 against
+# 0.0061 / 0.0084; no fp32 path runs 9-32 queries
+FP32_MANY_QUERY_MIN = 20
 MANY_KEY_TILE = 64                # csrc/attention_many.cuh: kManyKeyTile, keys per tile
 
 _U32 = 0xFFFFFFFF
@@ -207,13 +229,12 @@ def many_query(q) -> bool:
     return q.dtype == torch.bfloat16 and q.shape[2] >= MANY_QUERY_MIN
 
 
-def _counters(q):
-    """The (forward, dropout forward, backward) kernels that count a call
-    on ``q`` off the many-query bodies: by dtype, and for fp32 with
-    ``MANY_QUERY_MIN`` queries or more the ``*_MANY`` counters."""
-    if q.dtype == torch.float32 and q.shape[2] >= MANY_QUERY_MIN:
-        return KERNEL_MANY, DROPOUT_KERNEL_MANY, BWD_KERNEL_MANY
-    return _BY_DTYPE[q.dtype]
+def fp32_many_query(q) -> bool:
+    """Whether a CUDA call on ``q`` [B, H, Lq, D] takes the fp32 many-query
+    forward: fp32 with at least ``FP32_MANY_QUERY_MIN`` queries (the A/B
+    against the cluster body at Lk = 256, ``chip_smoke.fp32_threshold_ab``).
+    Its backward is the cluster body either way."""
+    return q.dtype == torch.float32 and q.shape[2] >= FP32_MANY_QUERY_MIN
 
 
 def _scores(q, k, bias, scale):
@@ -337,6 +358,20 @@ def _many_fwd(q, k, v, bias, scale, for_grad, drop=None):
     return out, ((stats, out32, keep_bits) if for_grad else None)
 
 
+def _many_fwd_f32(q, k, v, bias, scale, drop=None):
+    """The fp32 many-query forward: ``KERNEL_MANY``, or with ``drop`` =
+    (seed, threshold, keep scale) ``DROPOUT_KERNEL_MANY``. Returns out."""
+    kernel = KERNEL_MANY if drop is None else DROPOUT_KERNEL_MANY
+    B, H, Lq, Lk, D = _check(kernel.name, q, k, v, bias)
+    _check_aligned(kernel.name, k=k, v=v)
+    if B * H > 65535:
+        raise ValueError(f"{kernel.name}: B*H must be at most 65535 (the grid's y)")
+    out = torch.empty_like(q)
+    kernel.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), out.data_ptr(), B, H, Lq,
+                  Lk, D, float(scale), *(drop or ()), _stream(q))
+    return out
+
+
 def _attention_fwd(q, k, v, bias, scale, for_grad=False):
     """K3: (out, what the many-query backward takes (``_many_fwd``) or
     None). The plain version for CPU tensors."""
@@ -344,10 +379,12 @@ def _attention_fwd(q, k, v, bias, scale, for_grad=False):
         return composed_attention(q, k, v, bias, scale), None
     if many_query(q):
         return _many_fwd(q, k, v, bias, scale, for_grad)
+    if fp32_many_query(q):
+        return _many_fwd_f32(q, k, v, bias, scale), None
     shape = _fwd_shape("flash_attention", q, k, v, bias)
     out = torch.empty_like(q)
-    _counters(q)[0].launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
-                           out.data_ptr(), *shape, float(scale), _stream(q))
+    _BY_DTYPE[q.dtype][0].launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
+                                 out.data_ptr(), *shape, float(scale), _stream(q))
     return out, None
 
 
@@ -361,9 +398,11 @@ def _attention_fwd_dropout(q, k, v, bias, seed, scale, rate, for_grad=False):
     drop = (int(seed) & _U32, dropout_threshold(rate), 1.0 / (1.0 - rate))
     if many_query(q):
         return _many_fwd(q, k, v, bias, scale, for_grad, drop)
+    if fp32_many_query(q):
+        return _many_fwd_f32(q, k, v, bias, scale, drop), None
     shape = _fwd_shape("flash_attention_dropout", q, k, v, bias)
     out = torch.empty_like(q)
-    _counters(q)[1].launch(
+    _BY_DTYPE[q.dtype][1].launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), out.data_ptr(), *shape,
         float(scale), *drop, _stream(q))
     return out, None
@@ -425,7 +464,7 @@ def attention_bwd(q, k, v, bias, seed: int, scale, rate: float, g,
         _check_aligned("attention_bwd", q=q, k=k, v=v, g=g)
         if B * H > 65535:
             raise ValueError("attention_bwd: B*H must be at most 65535 (the grid's y)")
-        _counters(q)[2].launch(
+        (BWD_KERNEL_MANY if Lq >= FP32_MANY_QUERY_MIN else BWD_KERNEL).launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), g.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), _ptr(dbias), B, H, Lq, Lk, D, fp32_split_keys(Lk),
             *tail)

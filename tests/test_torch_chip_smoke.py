@@ -82,6 +82,17 @@ def test_own_kernels_name_every_kernel_of_the_sources_and_no_other():
         assert name.split("<")[0] in kernels
 
 
+@pytest.mark.parametrize("mangled,name", [
+    ("_ZN54_GLOBAL__N__16262854_21_attention_many_f32_cu_a16103b229attention_fwd_many_f32_"
+     "kernelILi16ELb1EEEvPKfS2_S2_S2_Pfiiifjjf", "attention_fwd_many_f32_kernel<16, 1>"),
+    ("_ZN3r3d28attention_fwd_cluster_kernelILi64ELb0ELb1EEEvPKfS2_",
+     "attention_fwd_cluster_kernel<64, 0, 1>"),
+    ("_Z22fuser_tail_tf32_kernelPKfS0_", "fuser_tail_tf32_kernel")])
+def test_ptxas_entry_names_the_kernel_and_its_template_arguments(mangled, name):
+    """What ``chip_smoke.py`` prints beside each instantiation's registers."""
+    assert chip_smoke.ptxas_entry(mangled) == name
+
+
 def _moe_routes(monkeypatch, card_select=None, noise=0.0, compared_calls=2):
     """A MoE layer's calls under ``MoERouting``: two on the card's route
     (here: outside ``plain_attention_route``, the CPU standing in for the

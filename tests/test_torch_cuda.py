@@ -328,12 +328,13 @@ def test_fused_tail_bwd_call_is_its_own_four_launches(cuda):
 @pytest.mark.parametrize("Lk", [1, 31, 65, 256, 300, 512, 1100])
 @pytest.mark.parametrize("D", [16, 32, 64])
 def test_attention_dropout_kernel_matches_plain(cuda, Lk, D, Lq, rate):
-    """fp32 K4 (the cluster body with dropout): one launch, two calls bit
-    for bit, within 2e-5 of the plain version, with a fully masked row."""
+    """fp32 K4 (the cluster body with dropout; from ``FP32_MANY_QUERY_MIN``
+    queries the many-query forward): one launch, two calls bit for bit,
+    within 2e-5 of the plain version, with a fully masked row."""
     gen = torch.Generator().manual_seed(Lk * D + Lq)
     q, k, v, bias = attention_inputs(8, 8, Lq, Lk, D, gen, cuda, all_masked_row=Lk > 1)
     scale = 1.0 / math.sqrt(D)
-    kernel = att.DROPOUT_KERNEL_MANY if Lq >= att.MANY_QUERY_MIN else att.DROPOUT_KERNEL
+    kernel = att.DROPOUT_KERNEL_MANY if Lq >= att.FP32_MANY_QUERY_MIN else att.DROPOUT_KERNEL
     before = kernel.launches
     got = att.flash_attention_dropout(q, k, v, bias, 1234 + Lk, scale, rate)
     torch.cuda.synchronize()
@@ -352,7 +353,7 @@ def test_attention_bwd_kernel_matches_plain(cuda, Lk, D, Lq, rate):
     q, k, v, bias = attention_inputs(8, 8, Lq, Lk, D, gen, cuda, all_masked_row=Lk > 1)
     g = torch.randn(q.shape, generator=gen).to(cuda)
     scale = 1.0 / math.sqrt(D)
-    kernel = att.BWD_KERNEL_MANY if Lq >= att.MANY_QUERY_MIN else att.BWD_KERNEL
+    kernel = att.BWD_KERNEL_MANY if Lq >= att.FP32_MANY_QUERY_MIN else att.BWD_KERNEL
     before = kernel.launches
     got = att.attention_bwd(q, k, v, bias, 77, scale, rate, g, need_dbias=True)
     torch.cuda.synchronize()
@@ -367,7 +368,8 @@ def test_attention_fp32_kernels_with_s_queries_match_plain(cuda, S):
     """fp32 K3, K4 and K5 with S queries against S keys (the encoder's
     self-attention, ``use_encoder=True``) at B = H = 8, D = 16, ragged rows
     and one fully masked: one launch a call, counted on the ``*_MANY``
-    kernels, two calls bit for bit, forward within 2e-5; K5's sums run over
+    kernels (K3 and K4 the many-query forward, K5 the cluster body), two
+    calls bit for bit, forward within 2e-5; K5's sums run over
     up to 2,000 queries or keys, so its gradients are held to 2e-5 of their
     largest entry to 512 and 1e-4 past it (as fp32 K7's over 3,100 keys)."""
     gen = torch.Generator().manual_seed(S + 11)
@@ -969,6 +971,57 @@ def test_predictor_on_the_card_matches_its_cpu_self(cuda, utk_disk):
             for k in cres[o]:
                 if k.startswith("obs"):
                     assert gres[o][k] == cres[o][k], (o, k)
+
+
+# ---- the fp32 many-query forward (csrc/attention_many_f32.cu) ----
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("Lq,Lk", [(33, 1), (33, 300), (64, 64), (65, 65), (130, 2049),
+                                   (777, 129), (2000, 63)])
+@pytest.mark.parametrize("D", [16, 32, 64])
+def test_fp32_many_query_forward_matches_plain(cuda, D, Lq, Lk, rate):
+    """fp32 K3 (rate 0) and K4 on the many-query forward at query counts
+    around its blocks of 64 and key counts around its tiles of 64 (one key,
+    a last tile of one key, more than the ring's three stages), with a
+    fully masked row where Lk > 1 and without a bias: one launch on its
+    counter, within 2e-5 of the plain version, two calls bit for bit."""
+    gen = torch.Generator().manual_seed(Lq * 3 + Lk + D)
+    q, k, v, bias = attention_inputs(2, 3, Lq, Lk, D, gen, cuda, all_masked_row=Lk > 1)
+    scale = 1.0 / math.sqrt(D)
+    assert att.fp32_many_query(q) and not att.many_query(q)
+    kernel = att.DROPOUT_KERNEL_MANY if rate > 0.0 else att.KERNEL_MANY
+    for b in (bias, None):
+        before = kernel.launches
+        got, saved = att._attention_fwd_dropout(q, k, v, b, 9, scale, rate, for_grad=True) \
+            if rate > 0.0 else att._attention_fwd(q, k, v, b, scale, for_grad=True)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1 and saved is None
+        want = att.composed_attention_dropout(q, k, v, b, 9, scale, rate)
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+        again = (att.flash_attention_dropout(q, k, v, b, 9, scale, rate) if rate > 0.0
+                 else att.flash_attention(q, k, v, b, scale))
+        assert torch.equal(got, again)
+
+
+def test_fp32_many_query_training_call_takes_the_cluster_backward(cuda):
+    """An fp32 S-query call under autograd: the forward on the many-query
+    body (nothing saved beyond the inputs), the backward on the cluster body
+    counted as ``BWD_KERNEL_MANY``; gradients within 2e-5 of the plain
+    backward's largest entry."""
+    gen = torch.Generator().manual_seed(41)
+    q, k, v, bias = attention_inputs(2, 4, 300, 300, 16, gen, cuda, all_masked_row=True)
+    g = torch.randn(q.shape, generator=gen).to(cuda)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    kernels = (att.DROPOUT_KERNEL_MANY, att.BWD_KERNEL_MANY, att.DROPOUT_KERNEL, att.BWD_KERNEL)
+    before = [kern.launches for kern in kernels]
+    out = att.flash_attention_dropout(*leaves, bias, 3, 0.25, 0.1)
+    assert len(out.grad_fn.saved_tensors) == 4   # q, k, v and the bias
+    grads = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    assert [kern.launches - c for kern, c in zip(kernels, before)] == [1, 1, 0, 0]
+    want = att.composed_attention_bwd(q, k, v, bias, 3, 0.25, 0.1, g)
+    for name, a, b in zip(("dq", "dk", "dv"), grads, want):
+        _close(a, b, 2e-5, name)
 
 
 # ---- the many-query bf16 bodies (csrc/attention_many.cu, attention_many_bwd.cu) ----
