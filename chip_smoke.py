@@ -172,11 +172,13 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 14. the FUTR encoder (``use_encoder=True``, two layers): before the model
    phases, fp32 K3, K4 and K5 with S queries against S keys (B = H = 8,
    D = 16, S = 256, 512, 777, 1,024 and 2,000; K3 and K4 on the many-query
-   forward, one launch a call on its counter, K5 on the cluster body)
-   against their plain versions, twice bit-equal, and timed at 512 and
-   2,000 with their bounds, SDPA (forward + backward for K5) and, for K3
-   and K4, the cluster body they replace there; the cluster body against
-   the many-query forward at Lk = 256, Lq = 8-256 (the A/B behind
+   forward, K5 on the many-query backward from what the forward kept, one
+   launch a call on its counter; the forward's output the same with and
+   without ``for_grad``) against their plain versions, twice bit-equal,
+   and timed at 512 and 2,000 with their bounds, SDPA (forward + backward
+   for K5), the cluster bodies they replace there and, for K3 and K5, the
+   distance from an fp64 reference; the cluster bodies against the
+   many-query bodies at Lk = 256, Lq = 8-256, K3, K4 and K5 (the A/B behind
    ``FP32_MANY_QUERY_MIN``); K1 and K2 timed with the outer residual;
    then ``futr_fusion_bn`` with the encoder at full width:
    requests in the 256-2,000 buckets (each launching fp32 K3 at Lq = Lk,
@@ -303,8 +305,8 @@ OWN_KERNELS = ("fuser_tail_tf32_kernel", "fuser_tail_bf16_kernel", "transpose_we
                "fuser_tail_bwd_rows_kernel", "fuser_tail_wgrad_kernel", "fuser_tail_bwd_sum_kernel",
                "attention_fwd_cluster_kernel", "attention_fwd_split_kernel",
                "attention_fwd_many_kernel", "attention_fwd_many_f32_kernel",
-               "attention_bwd_many_dq_kernel",
-               "attention_bwd_many_dkdv_kernel",
+               "attention_bwd_many_dq_kernel", "attention_bwd_many_dkdv_kernel",
+               "attention_bwd_many_f32_dq_kernel", "attention_bwd_many_f32_dkdv_kernel",
                "attention_bwd_cluster_kernel", "attention_bwd_bf16_kernel",
                "dq_sum_kernel", "cross_fwd_split_kernel", "cross_fwd_combine_kernel",
                "cross_bwd_bf16_kernel", "cross_bwd_sum_kernel")
@@ -401,12 +403,14 @@ def attention_bound_ms(B, H, Lq, Lk, D, flops_per_s=H100_FP32_FLOPS):
     return _bound(n_bytes, flops, flops_per_s)
 
 
-def attention_bwd_bound_ms(B, H, Lq, Lk, D):
-    """q, g, k, v, bias in and dq, dk, dv out once (the kernel recomputes
-    rowsum(g * out) and reads no ``out``; no dbias on the path); the
-    backward's five [Lq, Lk, D] products."""
+def attention_bwd_bound_ms(B, H, Lq, Lk, D, flops_per_s=H100_FP32_FLOPS):
+    """q, g, k, v, bias in and dq, dk, dv out once (the function's inputs
+    and outputs: the cluster body recomputes rowsum(g * out) and the
+    many-query body reads what its forward kept, neither counted; no dbias
+    on the path); the backward's five [Lq, Lk, D] products at the fp32 rate
+    (or ``flops_per_s``: the 3xTF32 rate for the many-query body)."""
     n_bytes = 4 * (3 * B * H * Lq * D + 4 * B * H * Lk * D + B * Lk)
-    return _bound(n_bytes, 10 * B * H * Lq * Lk * D)
+    return _bound(n_bytes, 10 * B * H * Lq * Lk * D, flops_per_s)
 
 
 def attention_bf16_bound_ms(B, H, Lq, Lk, D, backward=False):
@@ -689,6 +693,34 @@ def plain_attention_route():
         yield
     finally:
         layers.attention_kernel_eligible, layers.cross_attention_native_eligible = eligible
+
+
+def attention_fp64(q, k, v, bias, scale, seed=0, rate=0.0, g=None):
+    """Attention in fp64 (the plain versions compute their products in
+    fp32): the output, or with ``g`` the backward's (dq, dk, dv) under the
+    kernels' keep mask at ``rate``."""
+    import torch
+
+    from r3d_tpu_torch.ops import attention as att
+
+    q, k, v = (t.double() for t in (q, k, v))
+    w = torch.softmax(torch.einsum("bhqd,bhkd->bhqk", q, k) * scale + bias.double(), dim=-1)
+    if g is None:
+        return torch.einsum("bhqk,bhkd->bhqd", w, v)
+    keep = att.dropout_keep(seed, rate, w.shape, q.device).double() if rate > 0.0 else 1.0
+    g = g.double()
+    dw = torch.einsum("bhqd,bhkd->bhqk", g, v) * keep
+    ds = w * (dw - (dw * w).sum(-1, keepdim=True))
+    return (torch.einsum("bhqk,bhkd->bhqd", ds, k) * scale,
+            torch.einsum("bhqk,bhqd->bhkd", ds, q) * scale,
+            torch.einsum("bhqk,bhqd->bhkd", w * keep, g))
+
+
+def errs_fp64(got, ref):
+    """max|got - ref| over max(1, max|ref|), the worst of tensor pairs, in
+    fp64 (``ref`` an fp64 reference)."""
+    return max(float((x.double() - y).abs().max()) / max(1.0, float(y.abs().max()))
+               for x, y in zip(got, ref))
 
 
 def worse(a, b):
@@ -1185,6 +1217,7 @@ SELF_SHAPES = ((8, 8, 256, 64), (8, 8, 512, 64), (8, 8, 1024, 64), (8, 8, 3100, 
                (16, 8, 2000, 16), (8, 8, 777, 64))
 SELF_TIMED = ((8, 8, 3100, 64), (16, 8, 2000, 16))   # the kernels line's rows
 BWD_MANY = ("attention_bwd_many_dq_kernel", "attention_bwd_many_dkdv_kernel")   # K5's two launches
+BWD_MANY_F32 = ("attention_bwd_many_f32_dq_kernel", "attention_bwd_many_f32_dkdv_kernel")   # fp32's
 
 
 def time_mha_routes(B, H, S, D, gen, device, rate=0.1):
@@ -4086,21 +4119,25 @@ SELF32_BWD_TOL = 1e-4   # K5 fp32 over each gradient's largest entry past 512: i
 
 def check_attention_fp32_self(gen, device):
     """fp32 K3, K4 and K5 at Lq = Lk = S (``SELF32_SHAPES``, the encoder's
-    self-attention): K3 and K4 on the many-query forward
+    self-attention), on the many-query bodies: K3 and K4 on the forward
     (``csrc/attention_many_f32.cu``, 64 queries a block against every key),
-    K5 on the cluster body (query tiles of ``FP32_QUERY_TILE``, key splits
-    a cluster), each against its plain version with random key lengths per
-    row and one fully masked row, twice bit-equal (K5 at rate 0 and 0.1,
-    within ``K3_TOL`` to 512 and ``SELF32_BWD_TOL`` past it, of max(1, each
-    gradient's largest entry)); K3 and K4 each one launch on its counter
-    (``flash_attention_many``, ``flash_attention_dropout_many``) at every
-    shape; the launch shapes; at ``SELF32_TIMED`` each timed: the C
-    launcher by events and the profiler's device time (K3 and K4 also the
-    cluster body they replace at this shape), the plain version, SDPA
-    (forward, and forward + backward for K5) and the bound (K3 and K4 at
-    the 3xTF32 rate, with the fp32 rate's beside it), one call of each
-    audited at 512 as one launch of its own kernel. Returns (worst (abs,
-    rel) error per kernel, timing per kernel and S)."""
+    K5 on the backward (``csrc/attention_many_bwd_f32.cu``, two launches from
+    what the forward kept), each against its plain version with random key
+    lengths per row and one fully masked row, twice bit-equal (K5 at rate 0
+    and 0.1, within ``K3_TOL`` to 512 and ``SELF32_BWD_TOL`` past it, of
+    max(1, each gradient's largest entry), with the saved tensors given and
+    not given bit-equal); the forward's output bit-equal with and without
+    ``for_grad``; each call one launch on its counter (``flash_attention_many``,
+    ``flash_attention_dropout_many``, ``attention_bwd_many``) at every
+    shape; the launch shapes; at ``SELF32_TIMED`` each timed: the C launcher
+    by events and the profiler's device time (K3 and K4 also as a training
+    call runs them, keeping the statistics and bits; all three the cluster
+    body they replace at this shape), the plain version, SDPA (forward, and
+    forward + backward for K5) and the bound (at the 3xTF32 rate, with the
+    fp32 rate's beside it), one call of each audited at 512 as its own
+    launches, and K3's and K5's distance from an fp64 reference beside the
+    cluster body's and the plain version's. Returns (worst (abs, rel) error
+    per kernel, timing per kernel and S)."""
     import torch
     import torch.nn.functional as F
 
@@ -4138,54 +4175,84 @@ def check_attention_fp32_self(gen, device):
             worst[name] = worse(worst[name], err)
         tol = K3_TOL if S <= 512 else SELF32_BWD_TOL
         for r_ in (0.0, rate):
-            got = att.attention_bwd(q, k, v, bias, seed, scale, r_, g, need_dbias=True)
+            def forward(for_grad, r_=r_):
+                if r_ > 0.0:
+                    return att._attention_fwd_dropout(q, k, v, bias, seed, scale, r_, for_grad)
+                return att._attention_fwd(q, k, v, bias, scale, for_grad)
+
+            out, saved = forward(True)
+            if not torch.equal(out, forward(False)[0]):
+                raise AssertionError(f"fp32 forward at {label}, rate={r_}: the output of a "
+                                     "training call differs from a call without gradients")
+            before = att.BWD_KERNEL_MANY.launches
+            got = att.attention_bwd(q, k, v, bias, seed, scale, r_, g, need_dbias=True,
+                                    saved=saved)
+            launched = att.BWD_KERNEL_MANY.launches - before
             err = errs(got, att.composed_attention_bwd(q, k, v, bias, seed, scale, r_, g))
             print(f"K5 fp32 {label} rate={r_}: over dq, dk, dv, dbias max|kernel - plain| = "
-                  f"{err[0]:.3e}, over each one's max(1, max|plain|) {err[1]:.3e} (tol {tol})")
+                  f"{err[0]:.3e}, over each one's max(1, max|plain|) {err[1]:.3e} (tol {tol}), "
+                  f"{launched} launch on {att.BWD_KERNEL_MANY.name}")
             if not (err[1] <= tol and all(torch.isfinite(t).all() for t in got)):
                 raise AssertionError(f"K5 fp32 disagrees at {label}, rate={r_}")
+            if launched != 1:
+                raise AssertionError(f"K5 fp32 at {label}: {launched} launches on "
+                                     f"{att.BWD_KERNEL_MANY.name}, not 1")
             worst["K5"] = worse(worst["K5"], err)
-        again = att.attention_bwd(q, k, v, bias, seed, scale, rate, g, need_dbias=True)
-        if not all(torch.equal(a, b) for a, b in zip(got, again)):
-            raise AssertionError(f"K5 fp32 is not deterministic at {label}")
-        del got, again
+            again = att.attention_bwd(q, k, v, bias, seed, scale, r_, g, need_dbias=True,
+                                      saved=saved)
+            unsaved = att.attention_bwd(q, k, v, bias, seed, scale, r_, g, need_dbias=True)
+            if not all(torch.equal(a, b) and torch.equal(a, c)
+                       for a, b, c in zip(got, again, unsaved)):
+                raise AssertionError(f"K5 fp32 is not deterministic at {label}, rate={r_} "
+                                     "(again, or with its forward run anew)")
+            del got, again, unsaved, out, saved
         split = att.fp32_split_keys(S)
-        fit = fp32_clusters_at_once(B, H, S, S, D, split)
         print(f"  fp32 K3/K4 at {label}: {-(-S // FP32_MANY_QUERIES)} query blocks of "
               f"{FP32_MANY_QUERIES} x {B * H} (batch, head), each walking {-(-S // 64)} key "
-              f"tiles; K5: {-(-S // att.FP32_QUERY_TILE)} query tiles of "
-              f"{att.FP32_QUERY_TILE} x {B * H}, {-(-S // split)} splits of {split} keys a "
-              f"cluster, {B * H * -(-S // att.FP32_QUERY_TILE)} clusters launched; the card "
-              f"holds {fit[1]} at once")
+              f"tiles; K5: {-(-S // FP32_MANY_QUERIES)} query blocks walking the key tiles, "
+              f"then {-(-S // 64)} key blocks of 64 walking {-(-S // 64)} query tiles, each "
+              f"x {B * H}")
         torch.cuda.empty_cache()
         if S not in SELF32_TIMED:
             continue
         iters = 10 if S > 1024 else 30
         mask = bias == 0
-        out = torch.empty_like(q)
+        out_t = torch.empty_like(q)   # what the timed launches write
+        stats_t = torch.empty((2, B * H, S), device=device)
+        bits_t = torch.empty(att.keep_bits_shape(B, H, S, S), dtype=torch.int32, device=device)
         shape = f"{label} fp32"
         fwd_bound = attention_bound_ms(B, H, S, S, D, H100_TF32X3_FLOPS)
         fwd_bound_fp32 = attention_bound_ms(B, H, S, S, D)[0]
-        bwd_bound = attention_bwd_bound_ms(B, H, S, S, D)
-        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr())
+        bwd_bound = attention_bwd_bound_ms(B, H, S, S, D, H100_TF32X3_FLOPS)
+        bwd_bound_fp32 = attention_bwd_bound_ms(B, H, S, S, D)[0]
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out_t.data_ptr())
         drop = (seed, att.dropout_threshold(rate), 1.0 / (1.0 - rate))
-        launch = raw_launcher(att.KERNEL_MANY, *ptrs, B, H, S, S, D, scale, stream)
+        launch = raw_launcher(att.KERNEL_MANY, *ptrs, None, B, H, S, S, D, scale, stream)
+        train = raw_launcher(att.KERNEL_MANY, *ptrs, stats_t.data_ptr(), B, H, S, S, D, scale,
+                             stream)
         cluster = raw_launcher(att.KERNEL, *ptrs, B, H, S, S, D, split, scale, stream)
         timing["K3"][S] = {
             "shape": shape, "ms": time_ms(launch, iters=iters),
-            "device_ms": device_ms(launch, "attention_fwd_many_f32_kernel<16, false"),
+            "device_ms": device_ms(launch, "attention_fwd_many_f32_kernel<16, false, false"),
+            "train_ms": time_ms(train, iters=iters),
+            "train_device_ms": device_ms(train, "attention_fwd_many_f32_kernel<16, false, true"),
             "cluster_ms": time_ms(cluster, iters=iters),
             "cluster_device_ms": device_ms(cluster, "attention_fwd_cluster_kernel<16, false"),
             "plain_ms": time_ms(lambda: att.composed_attention(q, k, v, bias, scale), iters=3),
             **library_times(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                                                    scale=scale), iters=iters),
             "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1], "bound_fp32_ms": fwd_bound_fp32}
-        launch = raw_launcher(att.DROPOUT_KERNEL_MANY, *ptrs, B, H, S, S, D, scale, *drop, stream)
+        launch = raw_launcher(att.DROPOUT_KERNEL_MANY, *ptrs, None, None, B, H, S, S, D, scale,
+                              *drop, stream)
+        train = raw_launcher(att.DROPOUT_KERNEL_MANY, *ptrs, stats_t.data_ptr(),
+                             bits_t.data_ptr(), B, H, S, S, D, scale, *drop, stream)
         cluster = raw_launcher(att.DROPOUT_KERNEL, *ptrs, B, H, S, S, D, split, scale, *drop,
                                stream)
         timing["K4"][S] = {
             "shape": shape + f" p={rate}", "ms": time_ms(launch, iters=iters),
-            "device_ms": device_ms(launch, "attention_fwd_many_f32_kernel<16, true"),
+            "device_ms": device_ms(launch, "attention_fwd_many_f32_kernel<16, true, false"),
+            "train_ms": time_ms(train, iters=iters),
+            "train_device_ms": device_ms(train, "attention_fwd_many_f32_kernel<16, true, true"),
             "cluster_ms": time_ms(cluster, iters=iters),
             "cluster_device_ms": device_ms(cluster, "attention_fwd_cluster_kernel<16, true"),
             "plain_ms": time_ms(lambda: att.composed_attention_dropout(
@@ -4193,21 +4260,31 @@ def check_attention_fp32_self(gen, device):
             **library_times(lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask, dropout_p=rate, scale=scale), iters=iters),
             "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1], "bound_fp32_ms": fwd_bound_fp32}
-        del out
+        _, (stats, _, bits) = att._attention_fwd_dropout(q, k, v, bias, seed, scale, rate,
+                                                         for_grad=True)
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-        launch = raw_launcher(att.BWD_KERNEL, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                              bias.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                              dv.data_ptr(), None, B, H, S, S, D, split, scale, 1, *drop, stream)
+        delta = torch.empty((B * H, S), device=device)
+        grads = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), None)
+        launch = raw_launcher(att.BWD_KERNEL_MANY, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                              bias.data_ptr(), g.data_ptr(), stats.data_ptr(), bits.data_ptr(),
+                              delta.data_ptr(), *grads, B, H, S, S, D, scale, 1, drop[2], stream)
+        cluster = raw_launcher(att.BWD_KERNEL, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                               bias.data_ptr(), g.data_ptr(), *grads, B, H, S, S, D, split, scale,
+                               1, *drop, stream)
         k5_ms = time_ms(launch, iters=iters)
-        k5_device = device_ms(launch, "attention_bwd_cluster_kernel<16")
-        if S == 512:   # one wrapper call each: its own launch, nothing else
+        k5_device = device_ms(launch, BWD_MANY_F32)
+        k5_dq_device = device_ms(launch, BWD_MANY_F32[0])
+        k5_cluster_ms = time_ms(cluster, iters=iters)
+        k5_cluster_device = device_ms(cluster, "attention_bwd_cluster_kernel<16")
+        if S == 512:   # one wrapper call each: its own launches, nothing else
             own_launches_per_call(lambda: att.flash_attention(q, k, v, bias, scale),
                                   ("attention_fwd_many_f32_kernel",), 1, f"K3 fp32 {label}")
             own_launches_per_call(
                 lambda: att.flash_attention_dropout(q, k, v, bias, seed, scale, rate),
                 ("attention_fwd_many_f32_kernel",), 1, f"K4 fp32 {label}")
-            own_launches_per_call(lambda: att.attention_bwd(q, k, v, bias, seed, scale, rate, g),
-                                  ("attention_bwd_cluster_kernel",), 1, f"K5 fp32 {label}")
+            own_launches_per_call(lambda: att.attention_bwd(q, k, v, bias, seed, scale, rate, g,
+                                                            saved=(stats, None, bits)),
+                                  BWD_MANY_F32, 2, f"K5 fp32 {label}")
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
 
         def library_bwd():
@@ -4217,46 +4294,66 @@ def check_attention_fp32_self(gen, device):
 
         timing["K5"][S] = {
             "shape": shape + f" p={rate}", "ms": k5_ms, "device_ms": k5_device,
+            "dq_launch_device_ms": k5_dq_device, "cluster_ms": k5_cluster_ms,
+            "cluster_device_ms": k5_cluster_device,
             "plain_ms": time_ms(lambda: att.composed_attention_bwd(
                 q, k, v, bias, seed, scale, rate, g, False), iters=3),
             **library_times(library_bwd, iters=iters),
-            "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1]}
-        # K3's distance from an fp64 reference: the kernel, the cluster body it
-        # replaces, the plain version
-        ref = att.composed_attention(q.double(), k.double(), v.double(), bias.double(), scale)
-        out = torch.empty_like(q)
-        raw_launcher(att.KERNEL, q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-                     out.data_ptr(), B, H, S, S, D, split, scale, stream)()
+            "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1], "bound_fp32_ms": bwd_bound_fp32}
+        del leaves
+        # the distance from an fp64 reference of K3's output and of K5's dq,
+        # dk, dv (over each one's max(1, max|reference|)): the kernel, the
+        # cluster body it replaces, the plain version
+        ref = attention_fp64(q, k, v, bias, scale)
+        raw_launcher(att.KERNEL, *ptrs, B, H, S, S, D, split, scale, stream)()
         timing["K3"][S].update({
-            "err_vs_fp64": float((att.flash_attention(q, k, v, bias, scale) - ref).abs().max()),
-            "cluster_err_vs_fp64": float((out - ref).abs().max()),
-            "plain_err_vs_fp64": float((att.composed_attention(q, k, v, bias, scale)
-                                        - ref).abs().max())})
-        del ref, out
+            "err_vs_fp64": errs_fp64([att.flash_attention(q, k, v, bias, scale)], [ref]),
+            "cluster_err_vs_fp64": errs_fp64([out_t], [ref]),
+            "plain_err_vs_fp64": errs_fp64([att.composed_attention(q, k, v, bias, scale)],
+                                           [ref])})
+        del ref
+        ref = attention_fp64(q, k, v, bias, scale, seed, rate, g)
+        cluster()
+        timing["K5"][S].update({
+            "err_vs_fp64": errs_fp64(att.attention_bwd(q, k, v, bias, seed, scale, rate, g)[:3],
+                                     ref),
+            "cluster_err_vs_fp64": errs_fp64((dq, dk, dv), ref),
+            "plain_err_vs_fp64": errs_fp64(att.composed_attention_bwd(
+                q, k, v, bias, seed, scale, rate, g, False)[:3], ref)})
+        del ref, stats, bits, out_t, stats_t, bits_t
         for name in ("K3", "K4", "K5"):
             t = timing[name][S]
             extra = (f" (the cluster body at this shape {t['cluster_ms']:.4f} / "
                      f"{fmt_ms(t['cluster_device_ms'])}; bound at the fp32 rate "
-                     f"{t['bound_fp32_ms']:.4f})" if "cluster_ms" in t else "")
+                     f"{t['bound_fp32_ms']:.4f})")
+            if "train_ms" in t:
+                extra += (f"; as a training call runs it (the statistics"
+                          f"{' and keep bits' if name == 'K4' else ''} kept) {t['train_ms']:.4f}"
+                          f" / {fmt_ms(t['train_device_ms'])}")
+            if "dq_launch_device_ms" in t:
+                extra += f"; its dq launch {fmt_ms(t['dq_launch_device_ms'])} on the device"
             if "err_vs_fp64" in t:
-                extra += (f"; max|out - fp64 reference| kernel {t['err_vs_fp64']:.3e}, cluster "
-                          f"body {t['cluster_err_vs_fp64']:.3e}, plain version "
-                          f"{t['plain_err_vs_fp64']:.3e}")
+                extra += (f"; max|kernel - fp64 reference| over max(1, max|reference|) "
+                          f"{t['err_vs_fp64']:.3e}, cluster body {t['cluster_err_vs_fp64']:.3e}, "
+                          f"plain version {t['plain_err_vs_fp64']:.3e}")
             print(f"{name} fp32 {t['shape']}: kernel {t['ms']:.4f} ms by events, "
                   f"{fmt_ms(t['device_ms'])} on the device; plain {t['plain_ms']:.3f}; SDPA "
                   f"{t['library_ms']:.4f} / {fmt_ms(t['library_device_ms'])}"
                   f"{' (forward + backward)' if name == 'K5' else ''}; bound "
                   f"{t['bound_ms']:.4f} ({t['bound_by']}){extra}")
-        del leaves, dq, dk, dv
+        del dq, dk, dv, delta
         torch.cuda.empty_cache()
     return worst, timing
 
 
 def fp32_threshold_ab(gen, device, B=8, H=8, Lk=256, D=16):
-    """Which fp32 forward an Lq takes (``FP32_MANY_QUERY_MIN``): the cluster
-    body and the many-query body, K3 and K4 (p = 0.1), launched by hand on
-    the same inputs at Lk = 256, Lq = 8-256, device time each. Returns Lq
-    -> (K3 cluster, K3 many, K4 cluster, K4 many) in ms."""
+    """Which fp32 bodies an Lq takes (``FP32_MANY_QUERY_MIN``): the cluster
+    bodies and the many-query bodies, K3, K4 (p = 0.1; the many-query body
+    as a training call runs it, keeping the statistics and keep bits) and K5
+    (p = 0.1, from those), launched by hand on the same inputs at Lk = 256,
+    Lq = 8-256, device time each, and a training step's forward + backward
+    on each side. Returns Lq -> (K3 cluster, K3 many, K4 cluster, K4 many,
+    K5 cluster, K5 many) in ms."""
     import torch
 
     from r3d_tpu_torch.ops import attention as att
@@ -4267,23 +4364,41 @@ def fp32_threshold_ab(gen, device, B=8, H=8, Lk=256, D=16):
     readings = {}
     for Lq in (8, 16, 17, 18, 19, 20, 32, 33, 64, 128, 256):
         q, k, v, bias = attention_inputs(B, H, Lq, Lk, D, gen, device)
-        out = torch.empty_like(q)
-        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr())
+        g = torch.randn(q.shape, generator=gen).to(device)
+        # the many-query forward's statistics and bits at any Lq (the wrapper
+        # routes fewer than FP32_MANY_QUERY_MIN queries to the cluster body)
+        _, (stats, _, bits) = att._many_fwd_f32(q, k, v, bias, scale, True, drop)
+        o = torch.empty_like(q)
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        delta = torch.empty((B * H, Lq), device=device)
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), o.data_ptr())
+        grads = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), None)
         split = att.fp32_split_keys(Lk)
         calls = (
             (raw_launcher(att.KERNEL, *ptrs, B, H, Lq, Lk, D, split, scale, stream),
              "attention_fwd_cluster_kernel"),
-            (raw_launcher(att.KERNEL_MANY, *ptrs, B, H, Lq, Lk, D, scale, stream),
+            (raw_launcher(att.KERNEL_MANY, *ptrs, None, B, H, Lq, Lk, D, scale, stream),
              "attention_fwd_many_f32_kernel"),
             (raw_launcher(att.DROPOUT_KERNEL, *ptrs, B, H, Lq, Lk, D, split, scale, *drop,
                           stream), "attention_fwd_cluster_kernel"),
-            (raw_launcher(att.DROPOUT_KERNEL_MANY, *ptrs, B, H, Lq, Lk, D, scale, *drop, stream),
-             "attention_fwd_many_f32_kernel"))
+            (raw_launcher(att.DROPOUT_KERNEL_MANY, *ptrs, stats.data_ptr(), bits.data_ptr(), B, H,
+                          Lq, Lk, D, scale, *drop, stream), "attention_fwd_many_f32_kernel"),
+            (raw_launcher(att.BWD_KERNEL, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          bias.data_ptr(), g.data_ptr(), *grads, B, H, Lq, Lk, D, split, scale,
+                          1, *drop, stream), "attention_bwd_cluster_kernel"),
+            (raw_launcher(att.BWD_KERNEL_MANY, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          bias.data_ptr(), g.data_ptr(), stats.data_ptr(), bits.data_ptr(),
+                          delta.data_ptr(), *grads, B, H, Lq, Lk, D, scale, 1, drop[2], stream),
+             BWD_MANY_F32))
         readings[Lq] = t = [device_ms(fn, name) for fn, name in calls]
+        pair = lambda a, b: (fmt_ms(t[a] + t[b]) if t[a] is not None and t[b] is not None
+                             else "not measured")
         print(f"threshold A/B fp32 B={B} H={H} Lq={Lq} Lk={Lk} D={D} (FP32_MANY_QUERY_MIN "
               f"{att.FP32_MANY_QUERY_MIN}): K3 cluster {fmt_ms(t[0])} / many-query "
-              f"{fmt_ms(t[1])} ms, K4 cluster {fmt_ms(t[2])} / many-query {fmt_ms(t[3])} ms on "
-              "the device")
+              f"{fmt_ms(t[1])} ms, K4 cluster {fmt_ms(t[2])} / many-query (keeping the "
+              f"statistics and bits) {fmt_ms(t[3])} ms, K5 cluster {fmt_ms(t[4])} / many-query "
+              f"{fmt_ms(t[5])} ms on the device; a training step's K4 + K5 cluster "
+              f"{pair(2, 4)} / many-query {pair(3, 5)} ms")
     return readings
 
 
@@ -6196,6 +6311,7 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "library_device_ms": t["library_device_ms"],
             **{key: t[key] for key in ("bound_fp32_ms", "cluster_ms", "cluster_device_ms",
+                                       "train_ms", "train_device_ms", "dq_launch_device_ms",
                                        "err_vs_fp64", "cluster_err_vs_fp64", "plain_err_vs_fp64")
                if key in t}})
     # the bf16 K1/K2 rows (A18): launches on the bf16 utkinects path, its

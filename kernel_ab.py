@@ -36,12 +36,16 @@ its source.
 - K4 in fp32: ``r3d_attention_fwd_dropout`` (rate 0.1) at the same shapes.
   The cluster body takes the keys per block; the body before it did not.
   Held to the plain version (2e-5).
-- K3 and K4 in fp32 with S queries against S keys (the encoder's
+- K3, K4 and K5 in fp32 with S queries against S keys (the encoder's
   self-attention), B = H = 8, D = 16, S = 512 and 2,000: this checkout's
-  many-query forward (``r3d_attention_fwd_many_f32``, its dropout twin)
-  against the other checkout's ``r3d_attention_fwd`` and
-  ``r3d_attention_fwd_dropout`` at Lq = Lk, which run the cluster body
-  there. Held to the plain version (2e-5).
+  many-query forward (``r3d_attention_fwd_many_f32``, its dropout twin;
+  without gradients and keeping what the backward takes) against the
+  other checkout's many-query forward where it has one, else its
+  ``r3d_attention_fwd`` and ``r3d_attention_fwd_dropout``; this
+  checkout's many-query backward (``r3d_attention_bwd_many_f32``) against
+  the other's ``r3d_attention_bwd`` at Lq = Lk, its cluster body. Held to
+  the plain version (2e-5; K5 relative to each gradient's largest entry,
+  1e-4 at 2,000).
 - K2: ``r3d_fuser_tail_bwd`` at the utkinects buckets' N = 8 x 256, 512,
   1,024 and 2,000 rows. The two-phase body takes its scratch and launch
   plan from ``bwd_plan``; the body before it took a block count and one
@@ -381,54 +385,98 @@ def attention_fp32(checkout, device, gen, stream, result, B=8, H=8, Lq=8, D=16, 
 
 
 def attention_fp32_many(checkout, device, gen, stream, result, B=8, H=8, D=16, rate=0.1):
-    """fp32 K3 and K4 (p = 0.1) with S queries against S keys (the encoder's
-    self-attention), S = 512 and 2,000: this checkout's many-query forward
-    (``r3d_attention_fwd_many_f32`` and its dropout twin) against the other
-    checkout's ``r3d_attention_fwd`` and ``r3d_attention_fwd_dropout`` at
-    Lq = Lk, which run the cluster body there. Each side held to the plain
-    version (2e-5)."""
+    """fp32 K3, K4 and K5 (K4 and K5 at p = 0.1) with S queries against S
+    keys (the encoder's self-attention), S = 512 and 2,000, this checkout's
+    many-query bodies against the other checkout's entry points at Lq = Lk:
+    K3 and K4 without gradients and as a training call runs them (keeping
+    the statistics and, K4, the keep bits for K5) against the other's
+    many-query forward where it has one (its entry point without the
+    statistics where its source keeps none), else its
+    ``r3d_attention_fwd`` and ``r3d_attention_fwd_dropout``; K5 from what
+    this K4 kept (``r3d_attention_bwd_many_f32``) against the other's
+    ``r3d_attention_bwd``, the cluster body. Each side held to the plain
+    version (forward 2e-5; K5 ``chip_smoke.K3_TOL`` to 512 and
+    ``SELF32_BWD_TOL`` past it, of each gradient's max(1, largest entry))."""
     import torch
 
     from r3d_tpu_torch.ops import attention as att
 
     scale = 1.0 / math.sqrt(D)
-    lib = other_library(checkout, "attention.cu")
-    unsplit = lambda argtypes: argtypes[:10] + argtypes[11:]   # without the split int
-    fwd_split = has(checkout, "attention.cu", "attention_fwd_cluster_kernel")
-    drop_split = not has(checkout, "attention.cu", "launch_fp32_dropout")
-    old = {"K3": (bind(lib, att.KERNEL, None if fwd_split else unsplit(att.KERNEL.argtypes)),
-                  fwd_split),
-           "K4": (bind(lib, att.DROPOUT_KERNEL,
-                       None if drop_split else unsplit(att.DROPOUT_KERNEL.argtypes)), drop_split)}
+    if (checkout / "r3d_tpu_torch" / "csrc" / "attention_many_f32.cu").is_file():
+        lib = other_library(checkout, "attention_many_f32.cu")
+        kept = has(checkout, "attention_many_f32.cu", "kStats")   # takes the statistics
+        old = {"K3": (bind(lib, att.KERNEL_MANY, None if kept else
+                           att.KERNEL_MANY.argtypes[:5] + att.KERNEL_MANY.argtypes[6:]),
+                      (None,) if kept else ()),
+               "K4": (bind(lib, att.DROPOUT_KERNEL_MANY, None if kept else
+                           att.DROPOUT_KERNEL_MANY.argtypes[:5]
+                           + att.DROPOUT_KERNEL_MANY.argtypes[7:]),
+                      (None, None) if kept else ())}
+        other_body, split_arg = "its many-query forward", False
+    else:
+        lib = other_library(checkout, "attention.cu")
+        old = {"K3": (bind(lib, att.KERNEL), ()), "K4": (bind(lib, att.DROPOUT_KERNEL), ())}
+        other_body, split_arg = "its cluster body", True
+    old_bwd = bind(other_library(checkout, "attention_bwd.cu"), att.BWD_KERNEL)
     new = {"K3": att.KERNEL_MANY.load(), "K4": att.DROPOUT_KERNEL_MANY.load()}
     for S in (512, 2000):
         q, k, v, bias = chip_smoke.attention_inputs(B, H, S, S, D, gen, device)
+        g = torch.randn(q.shape, generator=gen).to(device)
         seed = 4000 + S
         drop = {"K3": (), "K4": (seed, att.dropout_threshold(rate), 1.0 / (1.0 - rate))}
         want = {"K3": att.composed_attention(q, k, v, bias, scale),
                 "K4": att.composed_attention_dropout(q, k, v, bias, seed, scale, rate)}
         outs = {who: torch.empty_like(q) for who in ("this", "other")}
+        stats = torch.empty((2, B * H, S), device=device)
+        bits = torch.empty(att.keep_bits_shape(B, H, S, S), dtype=torch.int32, device=device)
         qkv = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr())
+        split = (att.fp32_split_keys(S),) if split_arg else ()
         for name in ("K3", "K4"):
-            fn, split = old[name]
-            calls = {"this": lambda name=name: new[name](
-                         *qkv, outs["this"].data_ptr(), B, H, S, S, D, scale, *drop[name], stream),
-                     "other": lambda name=name, fn=fn, split=split: fn(
-                         *qkv, outs["other"].data_ptr(), B, H, S, S, D,
-                         *((att.fp32_split_keys(S),) if split else ()), scale, *drop[name],
-                         stream)}
+            fn, none = old[name]
+            for train in (False, True):
+                keep = ((stats.data_ptr(),) + ((bits.data_ptr(),) if name == "K4" else ())
+                        if train else (None,) * (1 + (name == "K4")))
+                calls = {"this": lambda name=name, keep=keep: new[name](
+                             *qkv, outs["this"].data_ptr(), *keep, B, H, S, S, D, scale,
+                             *drop[name], stream),
+                         "other": lambda name=name, fn=fn, none=none: fn(
+                             *qkv, outs["other"].data_ptr(), *none, B, H, S, S, D, *split,
+                             scale, *drop[name], stream)}
 
-            def check(who, name=name):
-                err = float((outs[who] - want[name]).abs().max())
-                if not err <= chip_smoke.K3_TOL:
-                    raise AssertionError(f"{name} fp32 ({who}) disagrees with its plain version "
-                                         f"at Lq=Lk={S}: {err:.3e}")
+                def check(who, name=name):
+                    err = float((outs[who] - want[name]).abs().max())
+                    if not err <= chip_smoke.K3_TOL:
+                        raise AssertionError(f"{name} fp32 ({who}) disagrees with its plain "
+                                             f"version at Lq=Lk={S}: {err:.3e}")
 
-            label = "attention_fwd" if name == "K3" else "attention_fwd_dropout"
-            in_turns(f"{label} fp32 B={B} H={H} Lq=Lk={S} D={D}"
-                     f"{f' p={rate}' if name == 'K4' else ''} (this: the many-query forward)",
-                     calls, check, result)
-        del want, outs
+                label = "attention_fwd" if name == "K3" else "attention_fwd_dropout"
+                in_turns(f"{label} fp32 B={B} H={H} Lq=Lk={S} D={D}"
+                         f"{f' p={rate}' if name == 'K4' else ''} (this: the many-query "
+                         f"forward{', as a training call runs it' if train else ''}; other: "
+                         f"{other_body})", calls, check, result)
+        del want
+        want_b = att.composed_attention_bwd(q, k, v, bias, seed, scale, rate, g, False)[:3]
+        grads = {who: tuple(torch.empty_like(t) for t in (q, k, v)) for who in outs}
+        delta = torch.empty((B * H, S), device=device)
+        new_bwd = att.BWD_KERNEL_MANY.load()
+        calls = {"this": lambda: new_bwd(
+                     *qkv, g.data_ptr(), stats.data_ptr(), bits.data_ptr(), delta.data_ptr(),
+                     *(t.data_ptr() for t in grads["this"]), None, B, H, S, S, D, scale, 1,
+                     1.0 / (1.0 - rate), stream),
+                 "other": lambda: old_bwd(
+                     *qkv, g.data_ptr(), *(t.data_ptr() for t in grads["other"]), None, B, H,
+                     S, S, D, att.fp32_split_keys(S), scale, 1, *drop["K4"], stream)}
+        tol = chip_smoke.K3_TOL if S <= 512 else chip_smoke.SELF32_BWD_TOL
+
+        def check_bwd(who):
+            rel = chip_smoke.errs(grads[who], want_b)[1]
+            if not rel <= tol:
+                raise AssertionError(f"K5 fp32 ({who}) disagrees with its plain version at "
+                                     f"Lq=Lk={S}: {rel:.3e}")
+
+        in_turns(f"attention_bwd fp32 B={B} H={H} Lq=Lk={S} D={D} p={rate} (this: the "
+                 "many-query backward; other: its cluster body)", calls, check_bwd, result)
+        del want_b, grads, outs
         torch.cuda.empty_cache()
 
 

@@ -1,11 +1,14 @@
-// What the many-query attention forward (attention_many.cu) keeps for its
-// backward (attention_many_bwd.cu) besides each query's (m, 1 / l) and the
-// fp32 output: with dropout, the keep mask, one bit a weight, so that the
-// backward reads it instead of hashing every element again.
+// What the many-query attention forwards (attention_many.cu in bf16,
+// attention_many_f32.cu in fp32) keep for their backwards
+// (attention_many_bwd.cu, attention_many_bwd_f32.cu) besides each query's
+// (m, 1 / l) and, in bf16, the fp32 output: with dropout, the keep mask, one
+// bit a weight, so that the backward reads it instead of hashing every
+// element again.
 //
 // Layout: uint32 [B*H, ceil(Lq / 16), ceil(Lk / 64), 32], one record of 32
 // words per (block of 16 query rows, tile of 64 keys), word g*4 + t for the
-// lane (g, t) of an mma C fragment (mma_bf16.cuh): bits 0-15 row g of the
+// lane (g, t) of an mma C fragment (mma_bf16.cuh's m16n8k16 and
+// mma_tf32.cuh's m16n8k8 share the C layout): bits 0-15 row g of the
 // block, bits 16-31 row g + 8, key nt*8 + 2t + j of the tile at bit nt*2 + j
 // (nt < 8, j < 2). The forward's warps, and the backward's dq launch, own
 // blocks of 16 rows, so each lane writes and reads its own word; the dk/dv

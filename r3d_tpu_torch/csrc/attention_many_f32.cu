@@ -1,6 +1,6 @@
 // Attention forward for many queries, fp32: out = softmax(q k^T * scale +
 // bias) v with an fp32 online softmax, optionally with dropout on the
-// weights.
+// weights, and what the backward (attention_many_bwd_f32.cu) takes from it.
 //
 // Replaces, at many queries, the Pallas kernels r3d_tpu/ops/attention.py:38
 // `_kernel` (launched by `_pallas_attention`, pallas_call at :82), K3, and
@@ -62,9 +62,20 @@
 // - Dropout (kDropout): acc takes p * keep / (1 - rate), l takes p; the
 //   keep test is r3d::dropout_bits of the element index ((b*H + h)*Lq +
 //   q)*Lk + k against `threshold` (common.cuh), bit for bit the mask that
-//   the fp32 backward (attention_bwd_cluster.cuh) redraws. Each tile's keep
-//   factors are hashed before its products, so that their integer work can
-//   overlap the tensor cores'.
+//   the fp32 cluster backward (attention_bwd_cluster.cuh) redraws. Each
+//   tile's keep factors are hashed before its products, so that their
+//   integer work can overlap the tensor cores'.
+// - For the backward (kStats, a call that trains: `stats` given): each
+//   query's m and 1 / l, fp32 [2, B*H, Lq], as the bf16 forward writes them
+//   (attention_many.cu), and with dropout the keep mask as bits in the
+//   records of attention_many.cuh. The records follow the scores' C
+//   fragments (lane (g, t): rows g and g + 8, keys 2t and 2t + 1 of each
+//   n-tile), the layout of the m16n8k16 C fragment that the bf16 bodies
+//   write; the key order 0, 2, 4, 6, 1, 3, 5, 7 of P's A fragment stays
+//   inside P v. The output is fp32 already, so the backward's Dq =
+//   rowsum(g o out) reads out itself. Without `stats` (serving, export, a
+//   call without gradients) nothing more is written, and out is bit for bit
+//   the same either way.
 // A row whose every real key is masked (all at finfo.min) averages V over
 // the real keys; a row whose every score is -inf gives 0. Queries past Lq
 // score zeros and are neither written nor counted. Deterministic: every
@@ -90,12 +101,14 @@ template <int D>
 constexpr size_t kSmemBytes = NSTAGE * r3d::kF32Stage<D> * sizeof(float);
 
 // D = 64 holds two blocks an SM (its ring is 103 KB); D = 16 and 32 three.
-template <int D, bool kDropout>
+template <int D, bool kDropout, bool kStats>
 __global__ void __launch_bounds__(NTH, D == 64 ? 2 : 3)
 attention_fwd_many_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                               const float* __restrict__ v, const float* __restrict__ bias,
-                              float* __restrict__ out, int H, int Lq, int Lk, float scale,
-                              uint32_t seed, uint32_t threshold, float keep_scale) {
+                              float* __restrict__ out, float* __restrict__ stats,
+                              uint32_t* __restrict__ keep_bits, int H, int Lq, int Lk,
+                              float scale, uint32_t seed, uint32_t threshold,
+                              float keep_scale) {
   constexpr int KS = D / 8;    // k-steps of q k^T
   constexpr int NT = D / 8;    // n-tiles of the output
   constexpr int ST = KT / 8;   // n-tiles of the scores, k-steps of P v
@@ -260,6 +273,19 @@ attention_fwd_many_f32_kernel(const float* __restrict__ q, const float* __restri
       }
       r3d::mma_3xtf32<1, NT>(part[kk % NACC], ph, pl, vh, vl);
     }
+    // this lane's keep bits of its two rows for the backward
+    // (attention_many.cuh), from the keep factors once the products are issued
+    if (kDropout && kStats) {
+      uint32_t w = 0u;
+#pragma unroll
+      for (int nt = 0; nt < ST; ++nt) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (kp[nt][i] != 0.f) w |= 1u << ((i >> 1) * 16 + nt * 2 + (i & 1));
+        }
+      }
+      keep_bits[r3d::keep_record(bh, q0 >> 4, tile, (Lq + 15) >> 4, ntiles) + lane] = w;
+    }
     // acc = acc * corr + this tile's P v, in fp32
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
@@ -274,7 +300,8 @@ attention_fwd_many_f32_kernel(const float* __restrict__ q, const float* __restri
   r3d::cp_async_wait<0>();   // no copy outlives the block (the last groups are empty)
   if (!active) return;
 
-  // out = acc / l, once, in fp32
+  // out = acc / l, once, in fp32; with kStats the statistics m (0 for a row
+  // with no finite score, whose 1 / l is 0) and 1 / l
 #pragma unroll
   for (int hi = 0; hi < 2; ++hi) {
     const float lr = r3d::quad_sum(l[hi]);
@@ -287,40 +314,57 @@ attention_fwd_many_f32_kernel(const float* __restrict__ q, const float* __restri
       *reinterpret_cast<float2*>(o + nt * 8) =
           make_float2(acc[nt][hi * 2] * inv, acc[nt][hi * 2 + 1] * inv);
     }
+    if (kStats && t == 0) {
+      const size_t i = static_cast<size_t>(bh) * Lq + row;
+      stats[i] = m[hi] == -INFINITY ? 0.f : m[hi];
+      stats[static_cast<size_t>(gridDim.y) * Lq + i] = inv;
+    }
   }
 }
 
-template <int D, bool kDropout>
-int launch(const float* q, const float* k, const float* v, const float* bias, float* out, int B,
-           int H, int Lq, int Lk, float scale, uint32_t seed, uint32_t threshold,
-           float keep_scale, cudaStream_t stream) {
-  const auto kernel = attention_fwd_many_f32_kernel<D, kDropout>;
+template <int D, bool kDropout, bool kStats>
+int launch(const float* q, const float* k, const float* v, const float* bias, float* out,
+           float* stats, uint32_t* keep_bits, int B, int H, int Lq, int Lk, float scale,
+           uint32_t seed, uint32_t threshold, float keep_scale, cudaStream_t stream) {
+  const auto kernel = attention_fwd_many_f32_kernel<D, kDropout, kStats>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(kSmemBytes<D>));
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<dim3((Lq + BQ - 1) / BQ, B * H), NTH, kSmemBytes<D>, stream>>>(
-      q, k, v, bias, out, H, Lq, Lk, scale, seed, threshold, keep_scale);
+      q, k, v, bias, out, stats, keep_bits, H, Lq, Lk, scale, seed, threshold, keep_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D, bool kDropout>
+int launch_d(const float* q, const float* k, const float* v, const float* bias, float* out,
+             float* stats, uint32_t* keep_bits, int B, int H, int Lq, int Lk, float scale,
+             uint32_t seed, uint32_t threshold, float keep_scale, cudaStream_t s) {
+  return stats != nullptr
+             ? launch<D, kDropout, true>(q, k, v, bias, out, stats, keep_bits, B, H, Lq, Lk,
+                                         scale, seed, threshold, keep_scale, s)
+             : launch<D, kDropout, false>(q, k, v, bias, out, stats, keep_bits, B, H, Lq, Lk,
+                                          scale, seed, threshold, keep_scale, s);
+}
+
 template <bool kDropout>
-int dispatch(const float* q, const float* k, const float* v, const float* bias, float* out, int B,
-             int H, int Lq, int Lk, int D, float scale, uint32_t seed, uint32_t threshold,
-             float keep_scale, void* stream) {
-  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || B * H > 65535) {
+int dispatch(const float* q, const float* k, const float* v, const float* bias, float* out,
+             float* stats, uint32_t* keep_bits, int B, int H, int Lq, int Lk, int D, float scale,
+             uint32_t seed, uint32_t threshold, float keep_scale, void* stream) {
+  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || B * H > 65535 ||
+      (kDropout && stats != nullptr && keep_bits == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16:
-      return launch<16, kDropout>(q, k, v, bias, out, B, H, Lq, Lk, scale, seed, threshold,
-                                  keep_scale, s);
+      return launch_d<16, kDropout>(q, k, v, bias, out, stats, keep_bits, B, H, Lq, Lk, scale,
+                                    seed, threshold, keep_scale, s);
     case 32:
-      return launch<32, kDropout>(q, k, v, bias, out, B, H, Lq, Lk, scale, seed, threshold,
-                                  keep_scale, s);
+      return launch_d<32, kDropout>(q, k, v, bias, out, stats, keep_bits, B, H, Lq, Lk, scale,
+                                    seed, threshold, keep_scale, s);
     case 64:
-      return launch<64, kDropout>(q, k, v, bias, out, B, H, Lq, Lk, scale, seed, threshold,
-                                  keep_scale, s);
+      return launch_d<64, kDropout>(q, k, v, bias, out, stats, keep_bits, B, H, Lq, Lk, scale,
+                                    seed, threshold, keep_scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -329,22 +373,28 @@ int dispatch(const float* q, const float* k, const float* v, const float* bias, 
 }  // namespace
 
 // q [B, H, Lq, D], k and v [B, H, Lk, D], out [B, H, Lq, D], all fp32 and
-// contiguous, k and v 16-byte aligned; bias [B, Lk] fp32 or null. D must be
-// 16, 32 or 64 and B*H at most 65,535.
+// contiguous, k and v 16-byte aligned; bias [B, Lk] fp32 or null; stats
+// [2, B*H, Lq] fp32 (m, then 1 / l) for a call that trains, else null. D
+// must be 16, 32 or 64 and B*H at most 65,535.
 extern "C" int r3d_attention_fwd_many_f32(const float* q, const float* k, const float* v,
-                                          const float* bias, float* out, int B, int H, int Lq,
-                                          int Lk, int D, float scale, void* stream) {
-  return dispatch<false>(q, k, v, bias, out, B, H, Lq, Lk, D, scale, 0u, 0u, 1.f, stream);
+                                          const float* bias, float* out, float* stats, int B,
+                                          int H, int Lq, int Lk, int D, float scale,
+                                          void* stream) {
+  return dispatch<false>(q, k, v, bias, out, stats, nullptr, B, H, Lq, Lk, D, scale, 0u, 0u, 1.f,
+                         stream);
 }
 
 // As above, with dropout on the weights: an element is kept when its
 // dropout bits under `seed` are >= `threshold` (= rate * 2^32) and then
 // scaled by `keep_scale` (= 1 / (1 - rate)). B*H*Lq*Lk must fit in 32 bits.
+// With stats, keep_bits (uint32 [B*H, ceil(Lq / 16), ceil(Lk / 64), 32],
+// attention_many.cuh) takes the keep mask.
 extern "C" int r3d_attention_fwd_dropout_many_f32(const float* q, const float* k, const float* v,
-                                                  const float* bias, float* out, int B, int H,
-                                                  int Lq, int Lk, int D, float scale,
-                                                  uint32_t seed, uint32_t threshold,
-                                                  float keep_scale, void* stream) {
-  return dispatch<true>(q, k, v, bias, out, B, H, Lq, Lk, D, scale, seed, threshold, keep_scale,
-                        stream);
+                                                  const float* bias, float* out, float* stats,
+                                                  uint32_t* keep_bits, int B, int H, int Lq,
+                                                  int Lk, int D, float scale, uint32_t seed,
+                                                  uint32_t threshold, float keep_scale,
+                                                  void* stream) {
+  return dispatch<true>(q, k, v, bias, out, stats, keep_bits, B, H, Lq, Lk, D, scale, seed,
+                        threshold, keep_scale, stream);
 }

@@ -7,7 +7,7 @@ Counterpart of ``r3d_tpu/ops/attention.py``. Three kernels:
 - K4 (the same source, ``r3d_attention_fwd_dropout``): K3 with dropout on
   the softmax weights, the keep mask a hash of (seed, element index);
 - K5 (``csrc/attention_bwd.cu``): the backward of both, redrawing the mask
-  (the many-query body reads it from its forward).
+  (the many-query bodies read it from their forward).
 
 ``flash_attention`` (K3 forward, K5 backward at rate 0) and
 ``flash_attention_dropout`` (K4 forward, K5 backward) are
@@ -66,12 +66,19 @@ forward keeps on that route only.
 
 An fp32 call with at least ``FP32_MANY_QUERY_MIN`` queries (S queries
 against S keys: the encoder, the depth query source, L3 query generation)
-takes the fp32 many-query forward (``csrc/attention_many_f32.cu``, K3 and
-K4 as one template, ``KERNEL_MANY`` and ``DROPOUT_KERNEL_MANY``): 64
+takes the fp32 many-query bodies. The forward (``csrc/attention_many_f32.cu``,
+K3 and K4 as one template, ``KERNEL_MANY`` and ``DROPOUT_KERNEL_MANY``): 64
 queries a block against every key, 3xTF32 tensor-core products, an online
-softmax normalised once, the output in fp32. Its backward stays the
-cluster body (counted apart, as ``BWD_KERNEL_MANY``), which redraws the
-keep mask, so that forward keeps nothing.
+softmax normalised once, the output in fp32; a call that trains also keeps
+each query's (m, 1 / l) and, with dropout, the keep mask as bits, in the
+bf16 forward's layout. The backward (``csrc/attention_many_bwd_f32.cu``,
+``BWD_KERNEL_MANY``, two launches) follows the bf16 many-query backward's
+design in fp32: Dq and dq over query tiles, then dk, dv and dbias over key
+tiles, each owned by one block, every product 3xTF32, each tile's share
+summed from zero and added once. It forms Dq = sum_k P keep dP from its own
+P and dP, as the plain version does, and reads no output, so its saved
+tensors are (the statistics, None, the keep bits or None) where bf16's are
+(the statistics, out32, the keep bits or None).
 """
 
 from __future__ import annotations
@@ -121,18 +128,18 @@ BWD_KERNEL_BF16_MANY = Kernel(   # q, k, v, bias, g, out32, stats, keep bits, Dq
     [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
     + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
 )
-KERNEL_MANY = Kernel(   # fp32, many queries: q, k, v, bias, out; (B, H, Lq, Lk, D)
+KERNEL_MANY = Kernel(   # fp32, many queries: q, k, v, bias, out, stats; (B, H, Lq, Lk, D)
     "flash_attention_many", "attention_many_f32.cu", "r3d_attention_fwd_many_f32",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p],
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p],
 )
-DROPOUT_KERNEL_MANY = Kernel(
+DROPOUT_KERNEL_MANY = Kernel(   # q, k, v, bias, out, stats, keep bits
     "flash_attention_dropout_many", "attention_many_f32.cu", "r3d_attention_fwd_dropout_many_f32",
-    KERNEL_MANY.argtypes[:-1] + DROPOUT_KERNEL.argtypes[-4:],
+    [ctypes.c_void_p] * 7 + KERNEL_MANY.argtypes[6:-1] + DROPOUT_KERNEL.argtypes[-4:],
 )
-# fp32 backward calls with FP32_MANY_QUERY_MIN queries or more: BWD_KERNEL's
-# cluster body, counted apart
-BWD_KERNEL_MANY = Kernel("attention_bwd_many", BWD_KERNEL.source, BWD_KERNEL.symbol,
-                         BWD_KERNEL.argtypes)
+BWD_KERNEL_MANY = Kernel(   # q, k, v, bias, g, stats, keep bits, Dq, dq, dk, dv, dbias
+    "attention_bwd_many", "attention_many_bwd_f32.cu", "r3d_attention_bwd_many_f32",
+    BWD_KERNEL_BF16_MANY.argtypes[:5] + BWD_KERNEL_BF16_MANY.argtypes[6:],
+)
 _BY_DTYPE = {  # (forward, dropout forward, backward) per input dtype
     torch.float32: (KERNEL, DROPOUT_KERNEL, BWD_KERNEL),
     torch.bfloat16: (KERNEL_BF16, DROPOUT_KERNEL_BF16, BWD_KERNEL_BF16),
@@ -144,13 +151,16 @@ FWD_MAX_SPLITS = 8                # csrc/attention_cluster.cuh: kMaxSplits, bloc
 FP32_SPLIT_UNIT = 64              # csrc/attention_cluster.cuh: kF32KT, a tile of the fp32 bodies
 FP32_QUERY_TILE = 8               # csrc/attention_cluster.cuh: kF32QT, queries a block takes at a time
 MANY_QUERY_MIN = 33               # bf16: the many-query bodies from this many queries
-# from this many queries the fp32 many-query forward: at Lk = 256, B = H = 8,
-# D = 16 (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.fp32_threshold_ab) the
-# cluster body's device time against the many-query body's, K3 / K4: 8
-# queries 0.0059 / 0.0066 against 0.0061 / 0.0084 ms, 16 0.0072 / 0.0082
-# against 0.0061 / 0.0083, 17 0.0084 / 0.0097 against 0.0061 / 0.0084, 20
-# 0.0090 / 0.0095 against 0.0060 / 0.0088, 33 0.0133 / 0.0146 against
-# 0.0061 / 0.0084; no fp32 path runs 9-32 queries
+# from this many queries the fp32 many-query bodies, forward and backward: at
+# Lk = 256, B = H = 8, D = 16, p = 0.1 (NVIDIA H100 80GB HBM3, 700 W;
+# chip_smoke.fp32_threshold_ab) the cluster bodies' device time against the
+# many-query bodies', K3 / K4 (the many-query K4 keeping its statistics and
+# bits) / K5: 8 queries 0.0062 / 0.0069 / 0.0093 against 0.0064 / 0.0092 /
+# 0.0149 ms, 16 0.0076 / 0.0085 / 0.0147 against 0.0064 / 0.0093 / 0.0150,
+# 17 0.0088 / 0.0102 / 0.0205 against 0.0064 / 0.0093 / 0.0150, 20 0.0088 /
+# 0.0102 / 0.0206 against 0.0064 / 0.0093 / 0.0150, 33 0.0138 / 0.0154 /
+# 0.0327 against 0.0065 / 0.0093 / 0.0151: a training call's K4 + K5 leads
+# from 17 queries, K3 from 16; no fp32 path runs 9-32 queries
 FP32_MANY_QUERY_MIN = 20
 MANY_KEY_TILE = 64                # csrc/attention_many.cuh: kManyKeyTile, keys per tile
 
@@ -231,9 +241,9 @@ def many_query(q) -> bool:
 
 def fp32_many_query(q) -> bool:
     """Whether a CUDA call on ``q`` [B, H, Lq, D] takes the fp32 many-query
-    forward: fp32 with at least ``FP32_MANY_QUERY_MIN`` queries (the A/B
-    against the cluster body at Lk = 256, ``chip_smoke.fp32_threshold_ab``).
-    Its backward is the cluster body either way."""
+    bodies, forward and backward: fp32 with at least ``FP32_MANY_QUERY_MIN``
+    queries (the A/B against the cluster bodies at Lk = 256,
+    ``chip_smoke.fp32_threshold_ab``). ``many_query`` stays bf16's."""
     return q.dtype == torch.float32 and q.shape[2] >= FP32_MANY_QUERY_MIN
 
 
@@ -358,29 +368,40 @@ def _many_fwd(q, k, v, bias, scale, for_grad, drop=None):
     return out, ((stats, out32, keep_bits) if for_grad else None)
 
 
-def _many_fwd_f32(q, k, v, bias, scale, drop=None):
+def _many_fwd_f32(q, k, v, bias, scale, for_grad, drop=None):
     """The fp32 many-query forward: ``KERNEL_MANY``, or with ``drop`` =
-    (seed, threshold, keep scale) ``DROPOUT_KERNEL_MANY``. Returns out."""
+    (seed, threshold, keep scale) ``DROPOUT_KERNEL_MANY``. Returns out and,
+    with ``for_grad``, what the backward takes from it: (the statistics [2,
+    B*H, Lq] fp32, each query's m then 1 / l; None, where bf16 keeps its
+    fp32 output: the fp32 backward reads no output; with dropout the keep
+    mask as bits, int32 [B*H, ceil(Lq / 16), ceil(Lk / 64), 32]
+    (``csrc/attention_many.cuh``), else None). Without it the kernel writes
+    nothing but out, the same out bit for bit."""
     kernel = KERNEL_MANY if drop is None else DROPOUT_KERNEL_MANY
     B, H, Lq, Lk, D = _check(kernel.name, q, k, v, bias)
     _check_aligned(kernel.name, k=k, v=v)
     if B * H > 65535:
         raise ValueError(f"{kernel.name}: B*H must be at most 65535 (the grid's y)")
     out = torch.empty_like(q)
-    kernel.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), out.data_ptr(), B, H, Lq,
-                  Lk, D, float(scale), *(drop or ()), _stream(q))
-    return out
+    stats = (torch.empty((2, B * H, Lq), dtype=torch.float32, device=q.device)
+             if for_grad else None)
+    keep_bits = (torch.empty(keep_bits_shape(B, H, Lq, Lk), dtype=torch.int32, device=q.device)
+                 if for_grad and drop is not None else None)
+    bits = () if drop is None else (_ptr(keep_bits),)
+    kernel.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), out.data_ptr(),
+                  _ptr(stats), *bits, B, H, Lq, Lk, D, float(scale), *(drop or ()), _stream(q))
+    return out, ((stats, None, keep_bits) if for_grad else None)
 
 
 def _attention_fwd(q, k, v, bias, scale, for_grad=False):
-    """K3: (out, what the many-query backward takes (``_many_fwd``) or
-    None). The plain version for CPU tensors."""
+    """K3: (out, what the many-query backward takes (``_many_fwd``,
+    ``_many_fwd_f32``) or None). The plain version for CPU tensors."""
     if q.device.type == "cpu":
         return composed_attention(q, k, v, bias, scale), None
     if many_query(q):
         return _many_fwd(q, k, v, bias, scale, for_grad)
     if fp32_many_query(q):
-        return _many_fwd_f32(q, k, v, bias, scale), None
+        return _many_fwd_f32(q, k, v, bias, scale, for_grad)
     shape = _fwd_shape("flash_attention", q, k, v, bias)
     out = torch.empty_like(q)
     _BY_DTYPE[q.dtype][0].launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
@@ -389,8 +410,8 @@ def _attention_fwd(q, k, v, bias, scale, for_grad=False):
 
 
 def _attention_fwd_dropout(q, k, v, bias, seed, scale, rate, for_grad=False):
-    """K4: (out, what the many-query backward takes (``_many_fwd``) or
-    None). The plain version for CPU tensors."""
+    """K4: (out, what the many-query backward takes (``_many_fwd``,
+    ``_many_fwd_f32``) or None). The plain version for CPU tensors."""
     if q.device.type == "cpu":
         return composed_attention_dropout(q, k, v, bias, seed, scale, rate), None
     if q.numel() // q.shape[-1] * k.shape[-2] > 2 ** 32:
@@ -399,7 +420,7 @@ def _attention_fwd_dropout(q, k, v, bias, seed, scale, rate, for_grad=False):
     if many_query(q):
         return _many_fwd(q, k, v, bias, scale, for_grad, drop)
     if fp32_many_query(q):
-        return _many_fwd_f32(q, k, v, bias, scale, drop), None
+        return _many_fwd_f32(q, k, v, bias, scale, for_grad, drop)
     shape = _fwd_shape("flash_attention_dropout", q, k, v, bias)
     out = torch.empty_like(q)
     _BY_DTYPE[q.dtype][1].launch(
@@ -426,13 +447,15 @@ def attention_bwd(q, k, v, bias, seed: int, scale, rate: float, g,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     tail = (float(scale), int(rate > 0.0), int(seed) & _U32, dropout_threshold(rate),
             1.0 / (1.0 - rate), _stream(q))
-    if many_query(q):
+    if many_query(q) or fp32_many_query(q):
         if saved is None:
             saved = (_attention_fwd_dropout(q, k, v, bias, seed, scale, rate, for_grad=True)
                      if rate > 0.0 else _attention_fwd(q, k, v, bias, scale, for_grad=True))[1]
-        stats, out32, keep_bits = saved
-        want = [("the statistics", stats, (2, B * H, Lq), torch.float32),
-                ("out32", out32, (B, H, Lq, D), torch.float32)]
+        stats, out32, keep_bits = saved   # out32: bf16's only
+        bf16 = q.dtype == torch.bfloat16
+        want = [("the statistics", stats, (2, B * H, Lq), torch.float32)]
+        if bf16:
+            want.append(("out32", out32, (B, H, Lq, D), torch.float32))
         if rate > 0.0:
             if keep_bits is None:
                 raise ValueError("attention_bwd: no keep bits from a dropout forward")
@@ -442,13 +465,16 @@ def attention_bwd(q, k, v, bias, seed: int, scale, rate: float, g,
                     or tuple(t.shape) != shape):
                 raise ValueError(f"attention_bwd: {name} must be a contiguous {dtype} "
                                  f"{list(shape)} tensor on {q.device}")
-        _check_aligned("attention_bwd", q=q, k=k, v=v, g=g, out32=out32)
+        _check_aligned("attention_bwd", q=q, k=k, v=v, g=g)
+        if bf16:
+            _check_aligned("attention_bwd", out32=out32)
         if B * H > 65535:
             raise ValueError("attention_bwd: B*H must be at most 65535 (the grid's y)")
         delta = torch.empty((B * H, Lq), dtype=torch.float32, device=q.device)
-        BWD_KERNEL_BF16_MANY.launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), g.data_ptr(), out32.data_ptr(),
-            stats.data_ptr(), _ptr(keep_bits) if rate > 0.0 else None, delta.data_ptr(),
+        (BWD_KERNEL_BF16_MANY if bf16 else BWD_KERNEL_MANY).launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), g.data_ptr(),
+            *((out32.data_ptr(),) if bf16 else ()), stats.data_ptr(),
+            _ptr(keep_bits) if rate > 0.0 else None, delta.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(dbias), B, H, Lq, Lk, D,
             float(scale), int(rate > 0.0), 1.0 / (1.0 - rate), _stream(q))
     elif q.dtype == torch.bfloat16:
@@ -464,7 +490,7 @@ def attention_bwd(q, k, v, bias, seed: int, scale, rate: float, g,
         _check_aligned("attention_bwd", q=q, k=k, v=v, g=g)
         if B * H > 65535:
             raise ValueError("attention_bwd: B*H must be at most 65535 (the grid's y)")
-        (BWD_KERNEL_MANY if Lq >= FP32_MANY_QUERY_MIN else BWD_KERNEL).launch(
+        BWD_KERNEL.launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias), g.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), _ptr(dbias), B, H, Lq, Lk, D, fp32_split_keys(Lk),
             *tail)
@@ -475,7 +501,8 @@ def attention_bwd(q, k, v, bias, seed: int, scale, rate: float, g,
 
 class _FlashAttention(torch.autograd.Function):
     """K3 forward, K5 backward at rate 0 (``attention.py:120-140``); on the
-    many-query route what the forward keeps for K5 is saved."""
+    many-query routes (bf16 and fp32) what the forward keeps for K5 is
+    saved."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, scale):
@@ -495,7 +522,7 @@ class _FlashAttention(torch.autograd.Function):
 
 class _FlashAttentionDropout(torch.autograd.Function):
     """K4 forward, K5 backward with the same mask (redrawn, or on the
-    many-query route read from the forward's bits)."""
+    many-query routes read from the forward's bits)."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, seed, scale, rate):

@@ -65,12 +65,15 @@ def _product(eq, a, b, passes):
     return y
 
 
-def many_forward_f32(q, k, v, bias, seed, scale, rate, passes=3):
-    """K3 (rate 0) or K4 as the fp32 many-query kernel computes them."""
+def many_forward_f32(q, k, v, bias, seed, scale, rate, passes=3, stats=False):
+    """K3 (rate 0) or K4 as the fp32 many-query kernel computes them: out,
+    or with ``stats`` (out, m, 1 / l) as a call that trains keeps them (m 0
+    and 1 / l 0 for a row with no finite score)."""
     B, H, Lq, D = q.shape
     Lk = k.shape[2]
     keep = pt_attn.dropout_keep(seed, rate, (B, H, Lq, Lk), "cpu") if rate > 0.0 else None
     out = torch.empty_like(q)
+    m_all, inv_all = torch.empty(q.shape[:-1]), torch.empty(q.shape[:-1])
     for i0 in range(0, Lq, QUERY_BLOCK):
         rows = slice(i0, i0 + QUERY_BLOCK)
         qb = q[:, :, rows]
@@ -91,8 +94,11 @@ def many_forward_f32(q, k, v, bias, seed, scale, rate, passes=3):
                 p = p * keep[:, :, rows, keys]
             acc = acc * corr[..., None] + _product("bhqk,bhkd->bhqd", p, v[:, :, keys], passes)
             m = m_new
-        out[:, :, rows] = acc * torch.where(l > 0, 1.0 / l, torch.zeros_like(l))[..., None]
-    return out
+        inv = torch.where(l > 0, 1.0 / l, torch.zeros_like(l))
+        out[:, :, rows] = acc * inv[..., None]
+        m_all[:, :, rows] = torch.where(m == -torch.inf, torch.zeros_like(m), m)
+        inv_all[:, :, rows] = inv
+    return (out, m_all, inv_all) if stats else out
 
 
 def _inputs(rng, S, D, lengths, H=2):
@@ -182,15 +188,18 @@ class _Launches:
 
 def test_the_router_sends_many_fp32_queries_to_the_many_query_forward(monkeypatch):
     """fp32 from ``FP32_MANY_QUERY_MIN`` queries: K3 and K4 on the fp32
-    many-query forward (``attention_many_f32.cu``), keeping nothing for the
-    backward, which stays the cluster body (``attention_bwd.cu``) counted
-    apart as ``attention_bwd_many``; fewer fp32 queries the cluster bodies;
-    bf16 its own bodies, the many-query ones from ``MANY_QUERY_MIN``. The
-    CPU takes the plain version either way."""
+    many-query forward (``attention_many_f32.cu``), which with ``for_grad``
+    keeps (the statistics, None, the keep bits or None at rate 0) and
+    without it nothing; K5 on the fp32 many-query backward
+    (``attention_many_bwd_f32.cu``), counted as ``attention_bwd_many``, from
+    those or, without them, after its forward; fewer fp32 queries the
+    cluster bodies; bf16 its own bodies, the many-query ones from
+    ``MANY_QUERY_MIN``. The CPU takes the plain version either way."""
     n = pt_attn.FP32_MANY_QUERY_MIN
     assert pt_attn.KERNEL_MANY.source == pt_attn.DROPOUT_KERNEL_MANY.source == "attention_many_f32.cu"
     assert (pt_attn.BWD_KERNEL_MANY.source, pt_attn.BWD_KERNEL_MANY.symbol) == (
-        pt_attn.BWD_KERNEL.source, pt_attn.BWD_KERNEL.symbol)
+        "attention_many_bwd_f32.cu", "r3d_attention_bwd_many_f32")
+    assert pt_attn.BWD_KERNEL_MANY.name == "attention_bwd_many"
     rng = np.random.RandomState(2)
     q, k, v, bias = _inputs(rng, n, 16, (n, 7))
     assert torch.equal(pt_attn.flash_attention(q, k, v, bias, 0.25),
@@ -206,12 +215,25 @@ def test_the_router_sends_many_fp32_queries_to_the_many_query_forward(monkeypatc
             (n - 1, "flash_attention", "flash_attention_dropout", "attention_bwd"),
             (8, "flash_attention", "flash_attention_dropout", "attention_bwd")):
         q, k, v = meta(Lq)
-        assert pt_attn.fp32_many_query(q) == (Lq >= n) and not pt_attn.many_query(q)
-        assert pt_attn._attention_fwd(q, k, v, bias, 0.25, for_grad=True)[1] is None
-        assert pt_attn._attention_fwd_dropout(q, k, v, bias, 3, 0.25, 0.1,
-                                              for_grad=True)[1] is None
-        pt_attn.attention_bwd(q, k, v, bias, 3, 0.25, 0.1, torch.empty_like(q), True)
-        assert launches.take() == [fwd, drop, bwd], Lq
+        g = torch.empty_like(q)
+        many = Lq >= n
+        assert pt_attn.fp32_many_query(q) == many and not pt_attn.many_query(q)
+        kept = pt_attn._attention_fwd(q, k, v, bias, 0.25, for_grad=True)[1]
+        _, kept_drop = pt_attn._attention_fwd_dropout(q, k, v, bias, 3, 0.25, 0.1, for_grad=True)
+        assert pt_attn._attention_fwd(q, k, v, bias, 0.25)[1] is None
+        assert pt_attn._attention_fwd_dropout(q, k, v, bias, 3, 0.25, 0.1)[1] is None
+        if many:
+            stats, none, bits = kept
+            assert stats.shape == (2, 4, Lq) and stats.dtype == torch.float32
+            assert none is None and bits is None
+            assert kept_drop[2].shape == pt_attn.keep_bits_shape(2, 2, Lq, 300)
+            assert kept_drop[2].dtype == torch.int32
+        else:
+            assert kept is None and kept_drop is None
+        pt_attn.attention_bwd(q, k, v, bias, 3, 0.25, 0.1, g, True, saved=kept_drop)
+        assert launches.take() == [fwd, drop, fwd, drop, bwd], Lq
+        pt_attn.attention_bwd(q, k, v, bias, 3, 0.25, 0.1, g, True)   # its forward first
+        assert launches.take() == ([drop, bwd] if many else [bwd]), Lq
     for Lq, fwd in ((pt_attn.MANY_QUERY_MIN, "flash_attention_bf16_many"),
                     (20, "flash_attention_bf16")):
         q, k, v = meta(Lq, dtype=torch.bfloat16)

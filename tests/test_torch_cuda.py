@@ -368,8 +368,8 @@ def test_attention_fp32_kernels_with_s_queries_match_plain(cuda, S):
     """fp32 K3, K4 and K5 with S queries against S keys (the encoder's
     self-attention, ``use_encoder=True``) at B = H = 8, D = 16, ragged rows
     and one fully masked: one launch a call, counted on the ``*_MANY``
-    kernels (K3 and K4 the many-query forward, K5 the cluster body), two
-    calls bit for bit, forward within 2e-5; K5's sums run over
+    kernels (K3 and K4 the many-query forward, K5 the many-query backward),
+    two calls bit for bit, forward within 2e-5; K5's sums run over
     up to 2,000 queries or keys, so its gradients are held to 2e-5 of their
     largest entry to 512 and 1e-4 past it (as fp32 K7's over 3,100 keys)."""
     gen = torch.Generator().manual_seed(S + 11)
@@ -984,7 +984,10 @@ def test_fp32_many_query_forward_matches_plain(cuda, D, Lq, Lk, rate):
     around its blocks of 64 and key counts around its tiles of 64 (one key,
     a last tile of one key, more than the ring's three stages), with a
     fully masked row where Lk > 1 and without a bias: one launch on its
-    counter, within 2e-5 of the plain version, two calls bit for bit."""
+    counter, within 2e-5 of the plain version, two calls bit for bit; a
+    training call keeps (the statistics, None, the keep bits or None at
+    rate 0), and its out is bit for bit the out of a call without
+    gradients."""
     gen = torch.Generator().manual_seed(Lq * 3 + Lk + D)
     q, k, v, bias = attention_inputs(2, 3, Lq, Lk, D, gen, cuda, all_masked_row=Lk > 1)
     scale = 1.0 / math.sqrt(D)
@@ -995,7 +998,10 @@ def test_fp32_many_query_forward_matches_plain(cuda, D, Lq, Lk, rate):
         got, saved = att._attention_fwd_dropout(q, k, v, b, 9, scale, rate, for_grad=True) \
             if rate > 0.0 else att._attention_fwd(q, k, v, b, scale, for_grad=True)
         torch.cuda.synchronize()
-        assert kernel.launches == before + 1 and saved is None
+        assert kernel.launches == before + 1
+        stats, none, bits = saved
+        assert none is None and stats.shape == (2, 6, Lq) and torch.isfinite(stats).all()
+        assert (bits is None) == (rate == 0.0)
         want = att.composed_attention_dropout(q, k, v, b, 9, scale, rate)
         torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
         again = (att.flash_attention_dropout(q, k, v, b, 9, scale, rate) if rate > 0.0
@@ -1003,11 +1009,83 @@ def test_fp32_many_query_forward_matches_plain(cuda, D, Lq, Lk, rate):
         assert torch.equal(got, again)
 
 
-def test_fp32_many_query_training_call_takes_the_cluster_backward(cuda):
+def _many_bwd_tol(Lq, Lk):
+    """fp32 K5 over each gradient's max(1, largest entry): 2e-5 to 512 rows
+    a sum, 1e-4 past it (``chip_smoke.K3_TOL``, ``SELF32_BWD_TOL``)."""
+    return 2e-5 if max(Lq, Lk) <= 512 else 1e-4
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("Lq,Lk", [(33, 300), (65, 65), (200, 513), (777, 1), (1000, 257),
+                                   (2000, 2000)])
+@pytest.mark.parametrize("D", [16, 32, 64])
+def test_fp32_many_query_backward_matches_plain(cuda, D, Lq, Lk, rate):
+    """fp32 K5 on the many-query backward (``attention_many_bwd_f32.cu``) at
+    query and key counts that are not multiples of its tiles of 64, one
+    key, S = 2,000, with a fully masked row where Lk > 1, the bias's
+    cotangent and without a bias: one launch on ``attention_bwd_many``,
+    within ``_many_bwd_tol`` of the plain version, twice bit-equal, and bit
+    for bit the same with the forward's saved tensors given and not given."""
+    gen = torch.Generator().manual_seed(Lq * 5 + Lk + D)
+    q, k, v, bias = attention_inputs(2, 3, Lq, Lk, D, gen, cuda, all_masked_row=Lk > 1)
+    g = torch.randn(q.shape, generator=gen).to(cuda)
+    scale = 1.0 / math.sqrt(D)
+    for b in (bias, None):
+        _, saved = (att._attention_fwd_dropout(q, k, v, b, 5, scale, rate, for_grad=True)
+                    if rate > 0.0 else att._attention_fwd(q, k, v, b, scale, for_grad=True))
+        before = att.BWD_KERNEL_MANY.launches
+        got = att.attention_bwd(q, k, v, b, 5, scale, rate, g, need_dbias=True, saved=saved)
+        torch.cuda.synchronize()
+        assert att.BWD_KERNEL_MANY.launches == before + 1
+        want = att.composed_attention_bwd(q, k, v, b, 5, scale, rate, g)
+        assert (got[3] is None) == (b is None)
+        for name, x, y in zip(("dq", "dk", "dv", "dbias"), got, want):
+            if y is not None:
+                _close(x, y, _many_bwd_tol(Lq, Lk), f"{name} bias={b is not None}")
+        again = att.attention_bwd(q, k, v, b, 5, scale, rate, g, need_dbias=True, saved=saved)
+        unsaved = att.attention_bwd(q, k, v, b, 5, scale, rate, g, need_dbias=True)
+        for x, y, z in zip(got, again, unsaved):
+            assert (x is None and y is None and z is None) or (torch.equal(x, y)
+                                                              and torch.equal(x, z))
+
+
+def test_fp32_many_query_backward_gives_zeros_under_an_all_inf_bias(cuda):
+    """A row whose every score is -inf: zeros out and zeros in every
+    gradient, no NaN."""
+    q = torch.randn(1, 2, 70, 16, device=cuda)
+    k = torch.randn(1, 2, 300, 16, device=cuda)
+    bias = torch.full((1, 1, 1, 300), -math.inf, device=cuda)
+    for rate in (0.0, 0.1):
+        out, saved = (att._attention_fwd_dropout(q, k, k, bias, 1, 0.25, rate, for_grad=True)
+                      if rate > 0.0 else att._attention_fwd(q, k, k, bias, 0.25, for_grad=True))
+        assert torch.equal(out, torch.zeros_like(out))
+        for x in att.attention_bwd(q, k, k, bias, 1, 0.25, rate, q, need_dbias=True, saved=saved):
+            assert torch.equal(x, torch.zeros_like(x))
+
+
+def test_fp32_many_query_calls_are_their_own_launches(cuda):
+    """One fp32 many-query backward call with its forward's saved tensors is
+    the two launches of ``attention_many_bwd_f32.cu`` and nothing else (no
+    memset, no cast); without them, its forward's launch first."""
+    from chip_smoke import BWD_MANY_F32, own_launches_per_call
+
+    gen = torch.Generator().manual_seed(4)
+    q, k, v, bias = attention_inputs(4, 4, 512, 512, 16, gen, cuda)
+    g = torch.randn(q.shape, generator=gen).to(cuda)
+    _, saved = att._attention_fwd_dropout(q, k, v, bias, 3, 0.25, 0.1, for_grad=True)
+    own_launches_per_call(lambda: att.attention_bwd(q, k, v, bias, 3, 0.25, 0.1, g, saved=saved),
+                          BWD_MANY_F32, 2, "K5 fp32 many-query")
+    own_launches_per_call(lambda: att.attention_bwd(q, k, v, bias, 3, 0.25, 0.1, g),
+                          BWD_MANY_F32 + ("attention_fwd_many_f32_kernel",), 3,
+                          "K5 fp32 many-query, its forward first")
+
+
+def test_fp32_many_query_training_call_takes_the_many_query_backward(cuda):
     """An fp32 S-query call under autograd: the forward on the many-query
-    body (nothing saved beyond the inputs), the backward on the cluster body
-    counted as ``BWD_KERNEL_MANY``; gradients within 2e-5 of the plain
-    backward's largest entry."""
+    body, which saves (the statistics, the keep bits), the backward on
+    the many-query backward counted as ``BWD_KERNEL_MANY``, one launch of
+    each a step and none of the cluster bodies; gradients within 2e-5 of
+    the plain backward's largest entry."""
     gen = torch.Generator().manual_seed(41)
     q, k, v, bias = attention_inputs(2, 4, 300, 300, 16, gen, cuda, all_masked_row=True)
     g = torch.randn(q.shape, generator=gen).to(cuda)
@@ -1015,7 +1093,9 @@ def test_fp32_many_query_training_call_takes_the_cluster_backward(cuda):
     kernels = (att.DROPOUT_KERNEL_MANY, att.BWD_KERNEL_MANY, att.DROPOUT_KERNEL, att.BWD_KERNEL)
     before = [kern.launches for kern in kernels]
     out = att.flash_attention_dropout(*leaves, bias, 3, 0.25, 0.1)
-    assert len(out.grad_fn.saved_tensors) == 4   # q, k, v and the bias
+    saved = out.grad_fn.saved_tensors   # q, k, v, the bias, then what K5 takes
+    assert len(saved) == 7 and saved[5] is None
+    assert saved[4].shape == (2, 8, 300) and saved[6].dtype == torch.int32
     grads = torch.autograd.grad(out, leaves, g)
     torch.cuda.synchronize()
     assert [kern.launches - c for kern, c in zip(kernels, before)] == [1, 1, 0, 0]
