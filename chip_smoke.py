@@ -1,7 +1,9 @@
 """Drive the PyTorch port on one NVIDIA card and hold its kernels to their
 plain versions.
 
-    python3 chip_smoke.py        # from the root of a checkout, on a CUDA host
+    python3 chip_smoke.py          # from the root of a checkout, on a CUDA host
+    python3 chip_smoke.py --cards  # the CLI on every card of a host of two or more,
+                                   # against one card (phase 21's second arm), alone
 
 Phases, each of which fails the run (non-zero exit) if it fails:
 
@@ -235,7 +237,25 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    ``R3D_CROSS_NATIVE=1``, one request at a time) exported and served from
    the artifact in the 256-3,100 buckets (bf16 K3, bf16 K6), bit-equal to
    its live session;
-21. print one ``{"kernels": [...]}`` line (with each kernel's launches in
+21. data parallelism (A14, ``data_parallel``) at the utkinects widths, in
+   three arms: a one-rank NCCL group on ``cuda:0`` in this process (a
+   2-epoch ``fit`` on the host loader and ``fit_cached``, both with dropout
+   0.1, and ``fit_cached`` under FSDP; the final parameters, BN statistics
+   and checkpoint tensors of each bit-equal to the same run without a
+   group, FSDP2 making every parameter a DTensor on the one-rank mesh; K1,
+   K2, K3, K4 and K5 counted inside the group); the CLI under ``torchrun
+   --standalone --nproc_per_node 1 ... --fsdp`` in a subprocess against the
+   plain CLI (train, checkpoint, sweep; ``cli_under_torchrun``),
+   MoC tables and checkpoints equal, and where the script sees more cards,
+   on all of them with dropout off, within the fit bounds; two gloo ranks
+   on the one card (dp = 2, the gradients all-reduced, the global
+   BatchNorm), ``DP_STEPS`` 512-bucket steps of a global batch of 8,
+   dropout off, against the one-process steps on the card within the CPU
+   tests' fit bounds, then two steps with dropout 0.1 after which the
+   ranks' parameters are equal, each rank's K1-K5 launches and its median
+   step printed (two processes sharing one card: a reading, not a
+   throughput);
+22. print one ``{"kernels": [...]}`` line (with each kernel's launches in
    the CLI phases' training and sweeps and in the cached epoch beside those
    of the other phases; rows for bf16 K3, K4 and K5 at Lq = Lk = 3,100 and
    2,000 with the launches of the two proposed configs' training and
@@ -243,7 +263,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    encoder's launches; rows for K1 and K2 with the outer residual, with the
    grad variant's launches, and for fp32 K3, K4 and K5 at Lq = Lk = 512 and
    2,000, with the encoder fit's launches and the serving launches of that
-   bucket, and the launches of phases 15-20 in their own columns) and, as
+   bucket, and the launches of phases 15-21 in their own columns) and, as
    the last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -6004,6 +6024,541 @@ def serving_deploy(kernels, card, state_dict):
         shutil.rmtree(root, ignore_errors=True)
     return live_counts, exported_counts
 
+DP_DIR = "build/dp_phase"   # under the checkout (git-ignored), removed after the phase
+DP_STEPS = 4                # 512-bucket steps of a global batch of 8 on two gloo ranks
+DP_DROPOUT_STEPS = 2        # then steps with dropout 0.1: the ranks' masks differ
+DP_TIMEOUT = 300            # s: a rank or a collective that takes longer fails the phase
+# Two ranks vs one process on the card, the CPU tests' fit bounds taken
+# relative to each tensor's largest entry (at least 1), as their gradient
+# bounds are: the BN statistics read in the tens at full width, where the
+# CPU tests' read near 1
+DP_LOSS_TOL = 1e-4          # the global loss a step, over max(1, |loss|)
+DP_STATE_TOL = 1e-4         # final parameters and BN statistics on 99 % of each tensor's
+                            # entries, and 2 lr an update on all (``_close_states``)
+DP_LOG_TOL = 2e-3           # a logged loss or accuracy of N cards vs one (printed to 3 decimals)
+DP_MOC_TOL = 1e-6           # a MoC entry of one checkpoint's sweep, N cards vs one
+CLI_WORKER = "--cli-worker"  # chip_smoke.py --cli-worker DROPOUT FLAGS: the CLI, dropout at DROPOUT
+CARDS = "--cards"            # chip_smoke.py --cards: cli_under_torchrun on every card, alone
+
+
+def _dp_fit(kernels, config, route, sources, work, mesh=None, fsdp=False):
+    """A 2-epoch utkinects fit on ``route`` ('fit': the host loader,
+    'fit_cached': the device cache), on ``mesh`` where one is given, with
+    its checkpoints under ``work``: (final model state, gathered whole
+    where FSDP shards it, log lines, launch counts, wall time, the
+    parameters FSDP sharded of all)."""
+    import torch
+
+    from r3d_tpu_torch.data import device_cache as dc
+    from r3d_tpu_torch.data.datasets import build_loader
+    from r3d_tpu_torch.parallel.mesh import full_tensors, is_sharded, shard_state
+    from r3d_tpu_torch.train.checkpoint import Checkpointer
+    from r3d_tpu_torch.train.loop import Trainer
+
+    B, nq = config.train.batch_size, config.model.n_query
+    train = build_loader(sources["train"], config.data, B, nq, seed=1, pin_memory=True)
+    val = build_loader(sources["val"], config.data, B, nq, mode="val", shuffle=False,
+                       pin_memory=True)
+    trainer = Trainer(config, sources["train"].n_class, mesh=mesh)
+    state = trainer.init_state(len(train), seed=1)
+    if mesh is not None:
+        state = shard_state(state, mesh, fsdp=fsdp)
+    lines = []
+    kw = dict(log=lines.append, checkpointer=Checkpointer(work))
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    if route == "fit":
+        trainer.fit(state, train, val, seed=1, **kw)
+    else:
+        cache = dc.cache_from_source(sources["train"], config.data, nq, device="cuda")
+        val_cache = dc.cache_from_source(sources["val"], config.data, nq, device="cuda")
+        trainer.fit_cached(state, cache, val, seed=1, val_cache=val_cache, **kw)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    final = {k: v.detach().clone() for k, v in full_tensors(state.model.state_dict()).items()}
+    params = list(state.model.parameters())
+    return (final, lines, {k.name: k.launches for k in kernels}, dt,
+            (sum(is_sharded(p) for p in params), len(params)))
+
+
+def saved_tensors(path):
+    """{checkpoint file relative to ``path``: its tensors by name (the
+    model's, and the optimizer's as ``optimizer/{i}/{key}``)}."""
+    import os
+
+    import torch
+
+    out = {}
+    for d, _, files in os.walk(path):
+        if "state.pt" in files:
+            blob = torch.load(os.path.join(d, "state.pt"), map_location="cpu", weights_only=True)
+            t = dict(blob["model"])
+            for i, st in blob["optimizer"]["state"].items():
+                t.update({f"optimizer/{i}/{k}": v for k, v in st.items()})
+            t["step"] = torch.tensor(blob["step"])
+            out[os.path.relpath(d, path)] = t
+    return out
+
+
+def same_checkpoints(a, b):
+    """The checkpoint files and tensors where two ``saved_tensors`` differ."""
+    import torch
+
+    if sorted(a) != sorted(b):
+        return [f"files {sorted(a)} vs {sorted(b)}"]
+    return [f"{f}:{k}" for f in a for k in b[f] if k not in a[f] or not
+            (a[f][k].dtype == b[f][k].dtype and torch.equal(a[f][k], b[f][k]))]
+
+
+DP_KERNELS = ("fused_bn_blend_tail", "fused_safuser_tail", "fused_tail_bwd", "flash_attention",
+              "flash_attention_dropout", "attention_bwd")   # K1 (both routes), K2, K3, K4, K5
+
+
+def _dp_batches(cfg):
+    """``DP_STEPS`` host batches of 8 windows of 257-512 rows (the 512
+    bucket), cycling over the distinct ones the utkinects loader has."""
+    from r3d_tpu_torch.data.pipeline import pad_batch
+
+    _, loader, _ = train_loaders(cfg)
+    examples = [e for e in (loader.make_example_fn(int(j)) for j in loader._order())
+                if 256 < e.features.shape[0] <= 512]
+    batches = [pad_batch(examples[i: i + 8], loader.pad_idx, loader.buckets, loader.n_query,
+                         loader.with_depth, loader.feature_dtype, False)
+               for i in range(0, len(examples) - 7, 8)]
+    if not batches:
+        raise AssertionError("data_parallel: the loader has no 8 windows in the 512 bucket")
+    return [batches[i % len(batches)] for i in range(DP_STEPS)]
+
+
+def _dp_steps(trainer, state, batches, seed_dropout=False):
+    """``train_step`` over ``batches`` in train mode (BN batch statistics):
+    (the global loss of each, the wall time of each)."""
+    import torch
+
+    if seed_dropout:
+        trainer._seed_dropout(state, SEED, 0)
+    losses, times = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = trainer.train_step(state, b, 0)
+        losses.append(trainer._to_host({"loss": metrics["loss"]})["loss"])
+        times.append(time.perf_counter() - t0)
+    return losses, times
+
+
+def _dp_rank(rank, world, work):
+    """One gloo rank on the card (``cuda:0``, shared): the dropout-off steps
+    and the dropout-on steps of ``data_parallel``'s third arm; writes its
+    results to ``work/rank{rank}.pt``."""
+    import datetime
+    import os
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"file://{work}/store", rank=rank,
+                                world_size=world, timeout=datetime.timedelta(seconds=DP_TIMEOUT))
+        from r3d_tpu_torch.ops import attention as att
+        from r3d_tpu_torch.ops import fuser_kernel as fk
+        from r3d_tpu_torch.ops import fuser_kernel_bwd as fkb
+        from r3d_tpu_torch.parallel.mesh import make_mesh, shard_state
+        from r3d_tpu_torch.train.loop import Trainer
+
+        kernels = [fk.KERNEL, fk.TAIL_KERNEL, fkb.KERNEL, att.KERNEL, att.DROPOUT_KERNEL,
+                   att.BWD_KERNEL]
+        mesh = make_mesh(dp=world)
+        batches = torch.load(os.path.join(work, "batches.pt"), weights_only=True)
+        out = {}
+        for tag, steps, drop in (("off", batches, 0.0), ("on", batches[:DP_DROPOUT_STEPS], 0.1)):
+            cfg = dp_config(drop)
+            trainer = Trainer(cfg, N_CLASS, mesh=mesh)
+            state = shard_state(trainer.init_state(1, dp_init(cfg)), mesh)
+            for k in kernels:
+                k.launches = 0
+            losses, times = _dp_steps(trainer, state, steps, seed_dropout=drop > 0)
+            torch.cuda.synchronize()
+            out[tag] = dict(losses=losses, times=times,
+                            launches={k.name: k.launches for k in kernels},
+                            state={k: v.detach().cpu() for k, v in
+                                   state.model.state_dict().items()})
+        torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(work, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        os._exit(1)
+
+
+def dp_config(dropout):
+    """utkinects at full width with both dropout rates at ``dropout``."""
+    import dataclasses
+
+    from r3d_tpu_torch.config import get_config
+
+    cfg = get_config("utkinects")
+    return cfg.replace(model=dataclasses.replace(cfg.model, dropout=dropout,
+                                                 fuser_dropout=dropout))
+
+
+def dp_init(cfg):
+    """The port's seeded init of ``cfg``'s model (the same in every process)."""
+    import torch
+
+    from r3d_tpu_torch.models import build_model, init_weights
+
+    return init_weights(build_model(cfg.model, N_CLASS, cfg.data.depth_shape),
+                        torch.Generator().manual_seed(SEED)).state_dict()
+
+
+def _close_states(got, want, lr, updates):
+    """The tensors of two model states outside the fit bounds: over the
+    scale max(1, the tensor's largest entry), ``DP_STATE_TOL`` on 99 % of
+    its entries (but ``GRAD_NOISE_ONLY``'s) and 2 ``lr`` an update on all
+    (Adam moves an entry by at most about lr an update). (name, max|diff|,
+    scale) each."""
+    bad = []
+    for k, w in want.items():
+        if k not in got:
+            bad.append((k, "missing", None))
+            continue
+        w = w.float().cpu()
+        d = (got[k].float().cpu() - w).abs()
+        scale = max(1.0, float(w.abs().max())) if w.numel() else 1.0
+        if d.numel() and (float(d.max()) > 2 * lr * updates * scale or (
+                not k.endswith(GRAD_NOISE_ONLY)
+                and float((d > DP_STATE_TOL * scale).float().mean()) > 0.01)):
+            bad.append((k, float(d.max()), scale))
+    return bad
+
+
+def dp_cli_argv(work):
+    """Write the CLI phase's utkinects dataset (5 + 2 videos) under
+    ``work``: the CLI flags that train on it, 2 epochs, seed 1."""
+    import os
+
+    root = write_utkinect_dataset(os.path.join(work, "data"), 5, 2, CLI_TRAIN_LENGTHS,
+                                  val_lengths=CLI_VAL_LENGTHS)
+    return ["--config", "utkinects", "--data_root", root, "--seed", "1", "--epochs", "2"]
+
+
+def _cli_main(flags, dropout=None, log=print):
+    """``cli.run.main`` with ``flags`` parsed as ``python -m r3d_tpu_torch.cli``
+    parses them, both dropout rates at ``dropout`` where it is set
+    (``--fuser_dropout`` has no flag); ``main`` forms the group where
+    ``torchrun`` started the process."""
+    import dataclasses
+
+    from r3d_tpu_torch.cli.opts import build_parser, config_from_args
+    from r3d_tpu_torch.cli.run import main as cli_main
+
+    args = build_parser("utkinects").parse_args(flags)
+    cfg = config_from_args(args)
+    if dropout is not None:
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model, dropout=dropout,
+                                                    fuser_dropout=dropout))
+    return cli_main(cfg, mode="predict" if args.predict else args.mode, log=log,
+                    results_save_path=args.results_save_path,
+                    device="cpu" if args.cpu else "cuda")
+
+
+def cli_worker(argv) -> None:
+    """``chip_smoke.py --cli-worker DROPOUT FLAGS``: ``_cli_main(FLAGS,
+    DROPOUT)``, the CLI that ``torchrun`` starts on each rank."""
+    _cli_main(argv[1:], float(argv[0]))
+
+
+def _cli(flags, here, n_ranks=None, dropout=None):
+    """The CLI: (its log lines, its wall time). Without ``n_ranks`` the plain
+    CLI in this process; with it, under ``torchrun --standalone
+    --nproc_per_node n_ranks`` (``-m r3d_tpu_torch.cli``, or this script's
+    ``--cli-worker`` where ``dropout`` is set), rank 0's stdout lines."""
+    import io
+    import os
+
+    t0 = time.perf_counter()
+    if n_ranks is None:
+        lines = []
+        with contextlib.redirect_stdout(io.StringIO()):
+            _cli_main(flags, dropout, log=lines.append)
+        return lines, time.perf_counter() - t0
+    entry = (["-m", "r3d_tpu_torch.cli"] if dropout is None
+             else [os.path.abspath(__file__), CLI_WORKER, str(dropout)])
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(n_ranks), *entry, *flags]
+    done = subprocess.run(cmd, cwd=here, capture_output=True, text=True, timeout=DP_TIMEOUT,
+                          env={**os.environ, "PYTHONPATH": here})
+    if done.returncode != 0:
+        raise AssertionError(f"data_parallel: {' '.join(cmd[:8])} ... exited "
+                             f"{done.returncode}: {done.stderr[-3000:]}")
+    return done.stdout.splitlines(), time.perf_counter() - t0
+
+
+def _log_numbers(lines):
+    """The numbers of the Epoch and Validation log lines, without the
+    clips/s rate."""
+    return [[float(x) for x in re.findall(r"-?\d+\.\d+", re.sub(r"\([0-9.]+ clips/s\)", "", l))]
+            for l in lines if l.startswith(("Epoch", "Validation"))]
+
+
+def cli_under_torchrun(n_ranks, argv, work, here, card):
+    """The CLI (train, checkpoints, sweep) under ``torchrun --standalone
+    --nproc_per_node n_ranks ... --fsdp`` against the plain CLI on one card
+    (in this process). One rank keeps utkinects' dropout 0.1
+    (rank 0 draws one process's masks): the MoC tables and every checkpoint
+    tensor equal, bit for bit. More ranks run with dropout off (their masks
+    are not one process's): the same log lines with their numbers within
+    ``DP_LOG_TOL``, the same checkpoints and step counts, every model
+    tensor within the fit bounds (``_close_states``, at the config's lr),
+    and the one-process checkpoint swept on the ranks within
+    ``DP_MOC_TOL`` of its plain sweep. The wall times include the
+    ``torchrun`` processes' start and, in the first run, loading the
+    kernels: a reading, not a throughput. Returns them."""
+    import json as _json
+    import os
+
+    from r3d_tpu_torch.cli.opts import build_parser, config_from_args
+
+    one = n_ranks == 1
+    dropout = None if one else 0.0
+    mode = "train_eval" if one else "train"
+    runs = {}
+    for tag, n in (("plain", None), ("torchrun", n_ranks)):
+        save, res = os.path.join(work, f"cli_{tag}"), os.path.join(work, f"results_{tag}")
+        flags = argv + ["--mode", mode, "--model_save_path", save, "--results_save_path", res]
+        lines, dt = _cli(flags + (["--fsdp"] if n else []), here, n, dropout)
+        runs[tag] = (lines, saved_tensors(save), dt, res)
+    lines = runs["torchrun"][0]
+    mesh = f"mesh: {{'dp': {n_ranks}, 'ep': 1, 'tp': 1, 'sp': 1, 'pp': 1}}"
+    for need in (mesh, "fsdp: state sharded over dp"):
+        if need not in lines:
+            raise AssertionError(f"data_parallel: torchrun CLI on {n_ranks} ranks: no {need!r}")
+    want, got = runs["plain"][1], runs["torchrun"][1]
+    label = (f"the CLI (2 epochs) under torchrun --standalone --nproc_per_node {n_ranks} --fsdp "
+             f"{runs['torchrun'][2]:.2f} s, plain {runs['plain'][2]:.2f} s (wall time, the "
+             f"former with its processes' start)")
+    if one:
+        tables = [_json.load(open(os.path.join(runs[t][3], "results.json"))) for t in runs]
+        ckpt_diff = same_checkpoints(got, want)
+        print(f"dp [{card}]: {label}: MoC tables equal {tables[0] == tables[1]}, "
+              f"{len(ckpt_diff)} checkpoint tensors differ in {sorted(want)}")
+        if tables[0] != tables[1] or ckpt_diff:
+            raise AssertionError(f"data_parallel: the torchrun CLI differs from the plain CLI: "
+                                 f"{ckpt_diff[:5]} {tables}")
+        return dict(train_s=[runs["plain"][2], runs["torchrun"][2]])
+    lr = config_from_args(build_parser("utkinects").parse_args(argv)).train.lr
+    numbers = [_log_numbers(runs[t][0]) for t in ("plain", "torchrun")]
+    log_err = max((abs(a - b) for x, y in zip(*numbers) for a, b in zip(x, y)), default=0.0)
+    heads = [[l.split(":")[0] for l in runs[t][0] if l.startswith(("Epoch", "Best"))]
+             for t in ("plain", "torchrun")]
+    bad = [] if sorted(got) == sorted(want) else [f"files {sorted(got)} vs {sorted(want)}"]
+    for f, tensors in want.items():
+        if f not in got:
+            continue
+        if int(tensors["step"]) != int(got[f]["step"]):
+            bad.append((f, "step"))
+        model = {k: v for k, v in tensors.items()
+                 if not k.startswith("optimizer/") and v.is_floating_point()}
+        bad += [(f, *b) for b in _close_states(got[f], model, lr, int(tensors["step"]))]
+    sweeps = {}
+    for tag, n in (("plain", None), ("torchrun", n_ranks)):
+        res = os.path.join(work, f"sweep_{tag}")
+        _, dt = _cli(argv + ["--predict", "--model_save_path", os.path.join(work, "cli_plain"),
+                             "--results_save_path", res], here, n, dropout)
+        sweeps[tag] = (_json.load(open(os.path.join(res, "results.json"))), dt)
+    moc_err = max(abs(sweeps["torchrun"][0][o][k] - v) for o, r in sweeps["plain"][0].items()
+                  for k, v in r.items())
+    print(f"dp [{card}]: {label}, dropout off: logged numbers max|diff| {log_err:.3e} (tol "
+          f"{DP_LOG_TOL}), lines alike {heads[0] == heads[1]}, {len(bad)} checkpoint tensors "
+          f"outside the fit bounds at lr {lr} {bad[:4]}; the one-process checkpoint swept on "
+          f"{n_ranks} ranks {sweeps['torchrun'][1]:.2f} s, plain {sweeps['plain'][1]:.2f} s: "
+          f"max|MoC diff| {moc_err:.3e} (tol {DP_MOC_TOL})")
+    if log_err > DP_LOG_TOL or heads[0] != heads[1] or bad or moc_err > DP_MOC_TOL:
+        raise AssertionError(f"data_parallel: the CLI on {n_ranks} cards differs from one card")
+    return dict(train_s=[runs["plain"][2], runs["torchrun"][2]],
+                sweep_s=[sweeps["plain"][1], sweeps["torchrun"][1]], log_err=log_err,
+                moc_err=moc_err)
+
+
+def data_parallel(kernels, card):
+    """Phase 21: see the module docstring. Returns the launch counts of the
+    one-rank group's three fits."""
+    import datetime
+    import os
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from r3d_tpu_torch.cli.opts import build_parser, config_from_args
+    from r3d_tpu_torch.data.datasets import build_source
+    from r3d_tpu_torch.parallel.mesh import make_mesh
+    from r3d_tpu_torch.train.loop import Trainer
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(here, DP_DIR)
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    procs = []
+    try:
+        argv = dp_cli_argv(work)
+        config = config_from_args(build_parser("utkinects").parse_args(argv))
+        sources = {s: build_source(config.data, f"{s}_split.txt") for s in ("train", "val")}
+
+        # arm 1: a one-rank NCCL group on cuda:0, in this process
+        total = {k.name: 0 for k in kernels}
+        plain = {}
+        for route, fsdp in (("fit", False), ("fit_cached", False), ("fit_cached", True)):
+            tag = route + ("_fsdp" if fsdp else "")
+            if route not in plain:
+                plain[route] = _dp_fit(kernels, config, route, sources,
+                                       os.path.join(work, f"plain_{tag}"))
+            dist.init_process_group("nccl", init_method=f"file://{work}/store_{tag}", rank=0,
+                                    world_size=1, timeout=datetime.timedelta(seconds=DP_TIMEOUT))
+            try:
+                mesh = make_mesh(dp=1)
+                got = _dp_fit(kernels, config, route, sources, os.path.join(work, f"group_{tag}"),
+                              mesh=mesh, fsdp=fsdp)
+            finally:
+                dist.destroy_process_group()
+            want = plain[route]
+            strip = lambda lines: [line.split("(")[0] for line in lines]
+            diff = unequal(got[0], want[0])
+            ckpt_diff = same_checkpoints(saved_tensors(os.path.join(work, f"group_{tag}")),
+                                         saved_tensors(os.path.join(work, f"plain_{route}")))
+            launched = {n: got[2][n] for n in DP_KERNELS}
+            print(f"dp [{card}]: {tag} on a one-rank NCCL group {got[3]:.2f} s (without a group "
+                  f"{want[3]:.2f} s; {got[4][0]} of {got[4][1]} parameters DTensors): "
+                  f"{len(diff)} of {len(want[0])} final tensors and "
+                  f"{len(ckpt_diff)} checkpoint tensors differ (bit for bit); launches inside "
+                  f"the group {launched}")
+            if got[4][0] != (got[4][1] if fsdp else 0):
+                raise AssertionError(f"data_parallel: {tag}: {got[4][0]} of {got[4][1]} "
+                                     "parameters sharded")
+            if diff or ckpt_diff or strip(got[1]) != strip(want[1]):
+                raise AssertionError(f"data_parallel: {tag} on a one-rank group differs from "
+                                     f"the run without one: {diff} {ckpt_diff[:5]} "
+                                     f"{got[1]} {want[1]}")
+            missing = [n for n, c in launched.items() if c == 0]
+            if missing:
+                raise AssertionError(f"data_parallel: {tag} in the group never launched "
+                                     f"{missing}")
+            for k, c in got[2].items():
+                total[k] += c
+
+        # arm 2: the CLI under torchrun (one process) against the plain CLI, and
+        # on every card where the script sees more than one
+        cli_under_torchrun(1, argv, work, here, card)
+        if torch.cuda.device_count() > 1:
+            cli_under_torchrun(torch.cuda.device_count(), argv, work, here, card)
+
+        # arm 3: two gloo ranks sharing the card against one process
+        batches = _dp_batches(dp_config(0.0))
+        torch.save(batches, os.path.join(work, "batches.pt"))
+        cfg = dp_config(0.0)
+        trainer = Trainer(cfg, N_CLASS)
+        state = trainer.init_state(1, dp_init(cfg))
+        one_losses, one_times = _dp_steps(trainer, state, batches)
+        one_state = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+        del trainer, state
+        ctx = mp.get_context("spawn")
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=_dp_rank, args=(r, 2, work), daemon=True) for r in range(2)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(max(1.0, DP_TIMEOUT - (time.perf_counter() - t0)))
+        errors = [open(os.path.join(work, f)).read() for f in sorted(os.listdir(work))
+                  if f.endswith(".err")]
+        if any(p.is_alive() or p.exitcode != 0 for p in procs) or errors:
+            raise AssertionError(f"data_parallel: a gloo rank failed: exit codes "
+                                 f"{[p.exitcode for p in procs]} {errors}")
+        ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=True)
+                 for r in range(2)]
+        t_ranks = time.perf_counter() - t0
+        loss_err = max(abs(a - b) / max(1.0, abs(b))
+                       for a, b in zip(ranks[0]["off"]["losses"], one_losses))
+        bad = _close_states(ranks[0]["off"]["state"], one_state, dp_config(0.0).train.lr,
+                            DP_STEPS)
+        split = [k for k in one_state if not torch.equal(ranks[0]["off"]["state"][k],
+                                                         ranks[1]["off"]["state"][k])]
+        split_on = [k for k in one_state if not torch.equal(ranks[0]["on"]["state"][k],
+                                                            ranks[1]["on"]["state"][k])]
+        finite = all(torch.isfinite(v).all() for r in ranks for v in r["on"]["state"].values()
+                     if v.is_floating_point())
+        for r, out in enumerate(ranks):
+            launched = {n: out["off"]["launches"].get(n, 0) + out["on"]["launches"].get(n, 0)
+                        for n in DP_KERNELS}
+            print(f"dp [{card}]: gloo rank {r} of 2 on the one card: launches {launched}; "
+                  f"median step {1e3 * float(np.median(out['off']['times'][1:])):.2f} ms over "
+                  f"{DP_STEPS - 1} steps of 4 rows (the first, {1e3 * out['off']['times'][0]:.2f}"
+                  f" ms, aside)")
+            missing = [n for n, c in launched.items() if c == 0]
+            if missing:
+                raise AssertionError(f"data_parallel: gloo rank {r} never launched {missing}")
+        print(f"dp [{card}]: 2 gloo ranks ({t_ranks:.1f} s with their start) vs one process "
+              f"(median step {1e3 * float(np.median(one_times[1:])):.2f} ms over 8 rows): "
+              f"{DP_STEPS} steps, max|loss diff| / max(1, |loss|) {loss_err:.3e} (tol "
+              f"{DP_LOSS_TOL}), losses "
+              f"{ranks[0]['off']['losses']} vs {one_losses}; {len(bad)} of {len(one_state)} "
+              f"final tensors outside the fit bounds {bad[:3]}; the ranks' states differ in "
+              f"{len(split)} tensors, after {DP_DROPOUT_STEPS} dropout steps in "
+              f"{len(split_on)} (finite {finite})")
+        if loss_err > DP_LOSS_TOL or bad or split or split_on or not finite:
+            raise AssertionError("data_parallel: two gloo ranks disagree with one process "
+                                 "or with each other")
+        print(f"dp [{card}]: the data_parallel phase took {time.perf_counter() - t_phase:.1f} s")
+        return total
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def cards_main() -> int:
+    """``chip_smoke.py --cards``: ``cli_under_torchrun`` on every card the
+    host has (two or more) against one card, alone; prints the cards' names
+    and power limits, the readings and, last, one JSON object of them."""
+    import os
+    import shutil
+
+    import torch
+
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n < 2:
+        print(f"chip_smoke --cards: {n} CUDA card(s); this needs two or more", file=sys.stderr)
+        return 1
+    try:
+        import r3d_tpu_torch.cli.run  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke --cards: the port is not importable here ({e})", file=sys.stderr)
+        return 1
+    listed = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()
+    print("\n".join(listed))
+    cards = "; ".join(f"{listed.count(c)} x {c}" for c in sorted(set(listed)))
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(here, DP_DIR)
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        got = cli_under_torchrun(n, dp_cli_argv(work), work, here, cards)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(json.dumps({"ranks": n, **got}))
+    return 0
+
 
 def main() -> int:
     import os
@@ -6210,6 +6765,10 @@ def main() -> int:
     print(f"launches on the deployment phase's live sessions: "
           f"{ {k: c for k, c in deploy_live.items() if c} }; exported sessions: "
           f"{ {k: c for k, c in deploy_exported.items() if c} }")
+    # data parallelism (A14): a one-rank NCCL group, torchrun, two gloo ranks
+    dp_counts = data_parallel(kernels, card)
+    print(f"launches on the one-rank group's fits: "
+          f"{ {k: c for k, c in dp_counts.items() if c} }")
     a114 = {   # this slice's paths, a column each in the kernels line
         "ntu_launches": {k.name: sum(c[k.name] for c in ntu.values()) for k in kernels},
         "depth_launches": darai[DEPTH_MODEL][0], "depth_sweep_launches": darai[DEPTH_MODEL][1],
@@ -6217,7 +6776,8 @@ def main() -> int:
         "gt_launches": gt_counts, "l3_launches": l3_counts,
         "bf16_launches": bf16_counts,   # the fusion models in bf16
         # serving deployment (A13): the live and the exported sessions
-        "deploy_launches": deploy_live, "deploy_exported_launches": deploy_exported}
+        "deploy_launches": deploy_live, "deploy_exported_launches": deploy_exported,
+        "dp_launches": dp_counts}   # the one-rank NCCL group's three fits (A14)
 
     def a114_columns(name):
         return {col: counts[name] for col, counts in a114.items()}
@@ -6338,4 +6898,7 @@ def main() -> int:
     return 0
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if sys.argv[1:2] == [CLI_WORKER]:
+        cli_worker(sys.argv[2:])
+    else:
+        sys.exit(cards_main() if sys.argv[1:2] == [CARDS] else main())

@@ -18,8 +18,16 @@ trains with ``fit_hybrid`` (the longest units first, else the shortest),
 except a ``multi_sequence`` config, which falls back to ``fit``; ``fit``
 runs after JAX's example batch, so its loader counts epochs from 1. Each
 route is logged as JAX logs it. The sweep of a ``device_cache`` config
-gathers its windows from the val videos on the device. Meshes are ROADMAP
-item A14.
+gathers its windows from the val videos on the device.
+
+Under ``torchrun`` (``torchrun --nproc_per_node N -m r3d_tpu_torch.cli
+...``) the CLI forms the process group (NCCL on ``cuda:{LOCAL_RANK}``, gloo
+under ``--cpu``) and a dp mesh of ``--mesh_dp`` ranks (all of them by
+default), as the JAX CLI builds its mesh on a host of several devices
+(``r3d_tpu/cli/run.py:59-73``): the trainer and the sweep split their
+batches over it, ``--fsdp`` shards the train state over it, and only rank 0
+logs and writes. A group the caller already formed is used as it is. Mesh
+axes other than dp are ROADMAP item A14's next slices.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ from r3d_tpu_torch.data import device_cache as dc
 from r3d_tpu_torch.data.datasets import VideoSource, build_loader, build_source
 from r3d_tpu_torch.eval.predict import Predictor
 from r3d_tpu_torch.models import build_model
+from r3d_tpu_torch.parallel.mesh import is_writer, make_mesh, mesh_sizes, shard_state
 from r3d_tpu_torch.serving import resolve_device
 from r3d_tpu_torch.train.checkpoint import Checkpointer
 from r3d_tpu_torch.train.loop import Trainer
@@ -60,8 +69,43 @@ def _splits(config: Config):
 
 def _check_ported(config: Config) -> None:
     m = config.mesh
-    if max(m.tp, m.sp, m.pp, m.ep) > 1 or m.fsdp:
-        raise NotImplementedError("meshes are not ported yet (ROADMAP queue A, item A14)")
+    if max(m.tp, m.sp, m.pp, m.ep) > 1:
+        raise NotImplementedError("mesh axes other than dp are not ported yet "
+                                  "(ROADMAP queue A, item A14)")
+
+
+def launch_env(environ=None) -> Optional[Tuple[int, int, int]]:
+    """(rank, world size, local rank) where ``torchrun`` started this
+    process (it sets ``TORCHELASTIC_RUN_ID``; any launcher that sets
+    ``WORLD_SIZE`` above 1), else None."""
+    env = os.environ if environ is None else environ
+    if "TORCHELASTIC_RUN_ID" not in env and int(env.get("WORLD_SIZE", "1")) <= 1:
+        return None
+    return int(env["RANK"]), int(env["WORLD_SIZE"]), int(env.get("LOCAL_RANK", "0"))
+
+
+def form_group(config: Config, device: Device):
+    """(mesh, device, formed): the dp mesh of the process group that
+    ``torchrun`` launched (formed here, NCCL on ``cuda:{LOCAL_RANK}`` or
+    gloo on the CPU) or that the caller formed; (None, device, False) for a
+    plain run."""
+    import torch.distributed as dist
+
+    device = torch.device(device)
+    formed = False
+    if not dist.is_initialized():
+        env = launch_env()
+        if env is None:
+            return None, device, False
+        if device.type == "cuda":
+            device = torch.device("cuda", env[2])
+            torch.cuda.set_device(device)
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+        formed = True
+    elif device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    m = config.mesh
+    return make_mesh(m.dp, m.tp, m.sp, m.pp, m.ep), device, formed
 
 
 def _cacheable(config: Config) -> bool:
@@ -112,15 +156,16 @@ def _train_caches(config: Config, sources: Dict[str, VideoSource], device: torch
 
 def train(config: Config, seed: int, dataset_ops: str = "",
           sources: Optional[Dict[str, VideoSource]] = None, log=print, resume: bool = False,
-          device: Device = "cuda"):
-    """Train one seed; returns (trainer, final state, checkpointer)."""
+          device: Device = "cuda", mesh=None):
+    """Train one seed, data-parallel over ``mesh`` where one is given;
+    returns (trainer, final state, checkpointer)."""
     _check_ported(config)
     train_name, val_name = _splits(config)
     if sources is None:
         sources = {"train": build_source(config.data, train_name),
                    "val": build_source(config.data, val_name)}
     src = sources["train"]
-    trainer = Trainer(config, src.n_class, device=device)
+    trainer = Trainer(config, src.n_class, device=device, mesh=mesh)
     pin = trainer.device.type == "cuda"
     train_loader = build_loader(src, config.data, config.train.batch_size, config.model.n_query,
                                 mode="train", shuffle=True, seed=seed, pin_memory=pin)
@@ -143,6 +188,10 @@ def train(config: Config, seed: int, dataset_ops: str = "",
         state = ckpt.restore_last(seed, state)
         start_epoch = state.step // steps
         log(f"resumed seed {seed} at step {state.step} (epoch {start_epoch})")
+    if mesh is not None:
+        state = shard_state(state, mesh, fsdp=config.mesh.fsdp)
+        if config.mesh.fsdp:
+            log("fsdp: state sharded over dp")
     metrics = MetricsLogger(path, run_name=f"seed_{seed}_metrics",
                             tensorboard=config.train.tensorboard)
     cache, val_cache, hybrid = _train_caches(config, sources, trainer.device, log)
@@ -165,7 +214,7 @@ def train(config: Config, seed: int, dataset_ops: str = "",
 
 def predict(config: Config, dataset_ops: str = "", seeds=None,
             source: Optional[VideoSource] = None, log=print, ensemble: bool = False,
-            results_save_path: Optional[str] = None, device: Device = "cuda"
+            results_save_path: Optional[str] = None, device: Device = "cuda", mesh=None
             ) -> Dict[str, Dict[str, float]]:
     """The observation-ratio sweep averaged over seeds
     (main_utkinects.py:138-165): one ``predict_multi`` per seed from its best
@@ -203,7 +252,8 @@ def predict(config: Config, dataset_ops: str = "", seeds=None,
         found_seeds.append(seed)
     predictor = Predictor(config, build_model(config.model, source.n_class,
                                               config.data.depth_shape),
-                          source.n_class, eval_batch=config.eval.eval_batch, device=device)
+                          source.n_class, eval_batch=config.eval.eval_batch, device=device,
+                          mesh=mesh)
     obs = list(config.eval.obs_percs)
 
     def dump(tag):
@@ -223,7 +273,7 @@ def predict(config: Config, dataset_ops: str = "", seeds=None,
         if rs:
             all_results[f"obs{obs_p}"] = {k: float(np.mean([r[k] for r in rs]))
                                           for k in rs[0].keys()}
-    if results_save_path is not None:
+    if results_save_path is not None and is_writer():
         os.makedirs(results_save_path, exist_ok=True)
         with open(os.path.join(results_save_path, "results.json"), "w") as f:
             json.dump(all_results, f, indent=2)
@@ -233,10 +283,22 @@ def predict(config: Config, dataset_ops: str = "", seeds=None,
 def main(config: Config, mode: str = "train", dataset_ops: str = "", log=print,
          resume: bool = False, ensemble: bool = False,
          results_save_path: Optional[str] = None, device: Device = "cuda"):
-    if mode in ("train", "train_eval"):
-        for seed in config.train.seeds:
-            log(f"=== training seed {seed} ===")
-            train(config, seed, dataset_ops, log=log, resume=resume, device=device)
-    if mode in ("predict", "train_eval"):
-        return predict(config, dataset_ops, log=log, ensemble=ensemble,
-                       results_save_path=results_save_path, device=device)
+    _check_ported(config)
+    mesh, device, formed = form_group(config, device)
+    if mesh is not None:
+        if not is_writer():
+            log = lambda *_: None   # only rank 0 logs
+        log(f"mesh: {mesh_sizes(mesh)}")
+    try:
+        if mode in ("train", "train_eval"):
+            for seed in config.train.seeds:
+                log(f"=== training seed {seed} ===")
+                train(config, seed, dataset_ops, log=log, resume=resume, device=device,
+                      mesh=mesh)
+        if mode in ("predict", "train_eval"):
+            return predict(config, dataset_ops, log=log, ensemble=ensemble,
+                           results_save_path=results_save_path, device=device, mesh=mesh)
+    finally:
+        if formed:
+            torch.distributed.destroy_process_group()
+

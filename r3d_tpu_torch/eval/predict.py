@@ -38,8 +38,17 @@ outputs depend on the chunk's other rows, filler rows included, so the
 reference's per-video protocol needs ``eval_batch=1`` (``darai`` sets it);
 any other batch size warns.
 
+``mesh`` (``parallel.make_mesh``) splits the sweep over the dp group, as
+``r3d_tpu/eval/predict.py:114-126`` shards it: ``eval_batch`` rounds up to
+the dp extent, each rank runs its rows of every chunk (inside
+``split_rows``, so a fuser that ranks channels by activation ranks them
+over the whole chunk) and every rank gathers the chunk's outputs; a model
+that attends across the batch runs every chunk whole on every rank, at its
+own ``eval_batch``. The filler rows stay masked and dropped, so the MoC
+tables are the one-process sweep's.
+
 Not ported yet, and raising ``NotImplementedError`` naming their ROADMAP
-item: ``mesh`` (A14) and ``gif_dir`` (A15).
+item: mesh axes other than dp (A14) and ``gif_dir`` (A15).
 """
 
 from __future__ import annotations
@@ -62,6 +71,15 @@ from r3d_tpu_torch.eval.decode import decode_anticipation, decode_frames_from_sl
 from r3d_tpu_torch.eval.moc import MoCAccumulator
 from r3d_tpu_torch.models import is_fusion_model, model_needs_query
 from r3d_tpu_torch.models.layers import DTYPES
+from r3d_tpu_torch.parallel.mesh import (
+    batch_sharding,
+    check_mesh,
+    cut,
+    dp_group,
+    dp_size,
+    is_writer,
+    split_rows,
+)
 from r3d_tpu_torch.serving import resolve_device
 
 OUTPUT_KEYS = ("action", "duration", "seg", "l3")   # what the sweep reads back
@@ -109,9 +127,10 @@ class Predictor:
     def __init__(self, config: Config, model: nn.Module, n_class: int, eval_batch: int = 8,
                  mesh=None, device: Union[str, torch.device] = "cuda"):
         """``model``: a module of ``config.model`` that ``state_dict``
-        variables load into."""
-        if mesh is not None:
-            raise NotImplementedError("mesh is not ported yet (ROADMAP queue A, item A14)")
+        variables load into; ``mesh`` a dp mesh to split the sweep over."""
+        check_mesh(mesh)
+        self.mesh = mesh
+        self.group = dp_group(mesh)
         self.device = resolve_device(device)
         self.config = config
         self.model = model
@@ -120,11 +139,19 @@ class Predictor:
         self.is_fusion = is_fusion_model(config.model.model)
         self.needs_query = model_needs_query(config.model.model)
         self.in_dtype = DTYPES[config.data.feature_dtype]
-        if getattr(model, "query_source", None) == "self_attention" and eval_batch != 1:
+        batch_attending = getattr(model, "query_source", None) == "self_attention"
+        if batch_attending and eval_batch != 1:
             warnings.warn(
                 f"model {config.model.model!r} attends across the batch (COMPAT #17): "
                 f"eval_batch={eval_batch} makes the sweep batch-composition-dependent; the "
                 "reference protocol is per-video (eval_batch=1).")
+        # split each chunk over dp, or (a model that attends across the
+        # batch, unless its batch already divides) run it whole on each rank
+        dp = dp_size(mesh)
+        rounded = -(-eval_batch // dp) * dp
+        self._replicate = batch_attending and rounded != eval_batch
+        if not self._replicate:
+            self.eval_batch = rounded
 
     def _modules(self, variables: Union[Variables, Sequence[Variables]]) -> List[nn.Module]:
         """The eval-mode modules on the device for ``variables`` (one, or a
@@ -215,8 +242,9 @@ class Predictor:
             args = (feats, query, mask, query_len)
         else:
             args = (feats, mask)
-        return self._run(modules, tuple(None if t is None else t.to(self.device, non_blocking=True)
-                                        for t in args), n)
+        rows = self._rows()
+        return self._run(modules, tuple(None if t is None else cut(t, rows).to(
+            self.device, non_blocking=True) for t in args), n)
 
     def _forward_batch_cached(self, modules: List[nn.Module], items: List[Dict], S: int,
                               data: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
@@ -227,8 +255,9 @@ class Predictor:
         real_s = torch.zeros(self.eval_batch, dtype=torch.long)
         for i, it in enumerate(items):
             vid[i], real_s[i] = it["ui"], it["real_s"]
-        b = assemble_eval(data, vid.to(self.device), real_s.to(self.device), S,
-                          self.config.data.sample_rate)
+        rows = self._rows()
+        b = assemble_eval(data, cut(vid, rows).to(self.device),
+                          cut(real_s, rows).to(self.device), S, self.config.data.sample_rate)
         if self.is_fusion:
             args = (b["features"], b["depth"], b["mask"])
         elif self.needs_query:
@@ -239,14 +268,32 @@ class Predictor:
             args = (b["features"], b["mask"])
         return self._run(modules, args, len(items))
 
+    def _rows(self) -> Optional[slice]:
+        """This rank's rows of a chunk (None: all of them)."""
+        return None if self._replicate else batch_sharding(self.mesh, self.eval_batch)
+
     def _run(self, modules: List[nn.Module], args, n: int) -> Dict[str, np.ndarray]:
         """One forward per module, the heads averaged over modules; the
-        first ``n`` rows on the host."""
-        with torch.inference_mode():
+        first ``n`` rows on the host. On a dp group ``args`` hold this
+        rank's ``_rows()`` of the chunk, and the chunk's outputs are
+        gathered from the group."""
+        rows = self._rows()
+        with torch.inference_mode(), split_rows(self.group if rows is not None else None):
             outs = [m(*args) for m in modules]
             outputs = {k: sum(o[k] for o in outs) / len(outs)
                        for k in OUTPUT_KEYS if k in outs[0]}
+            if rows is not None:
+                outputs = {k: self._gather(v.float(), rows) for k, v in outputs.items()}
         return {k: v[:n].float().cpu().numpy() for k, v in outputs.items()}
+
+    def _gather(self, part: torch.Tensor, rows: slice) -> torch.Tensor:
+        """The chunk's [eval_batch, ...] outputs from each rank's ``rows``
+        of them: zeros elsewhere, summed over the group (exact: each entry
+        is one rank's value plus zeros)."""
+        full = part.new_zeros((self.eval_batch,) + part.shape[1:])
+        full[rows] = part
+        torch.distributed.all_reduce(full, group=self.group)
+        return full
 
     def _accumulate(self, it: Dict, outputs: Dict, i: int, acc: MoCAccumulator, stats: Dict,
                     obs_p: float, dump: Optional[List[str]] = None) -> None:
@@ -355,7 +402,7 @@ class Predictor:
                     o = it["obs_p"]
                     self._accumulate(it, outputs, i, accs[o], stats[o], o,
                                      dump=None if dumps is None else dumps[o])
-        if dumps is not None:
+        if dumps is not None and is_writer():
             os.makedirs(dump_dir, exist_ok=True)
             for o, lines in dumps.items():
                 with open(os.path.join(dump_dir, f"gt_pred_log_{o}.txt"), "w") as f:
@@ -364,7 +411,8 @@ class Predictor:
         all_results: Dict[float, Dict[str, float]] = {}
         for o in obs_list:
             results = accs[o].results(o)
-            accs[o].print_results(o)
+            if is_writer():
+                accs[o].print_results(o)
             st = stats[o]
             if cfg.eval.ant_acc_mode == "micro":
                 results["ant_acc"] = st["ant_correct"] / max(st["ant_total"], 1)

@@ -12,9 +12,11 @@ def normalize_duration(durations, mask):
     return x / x.abs().sum(-1, keepdim=True).clamp_min(1e-12)
 
 
-def duration_loss(pred_durations, target_durations, dur_mask):
+def duration_loss(pred_durations, target_durations, dur_mask, count=None):
     """Squared error of the normalized prediction against target * mask,
-    summed and divided by the number of VALID duration slots."""
+    summed and divided by the number of VALID duration slots (at least 1),
+    or by ``count`` where the caller gives one (the rows split over a dp
+    group: ``parallel.mesh.global_count``)."""
     mask = dur_mask.to(pred_durations.dtype)
     sq = (normalize_duration(pred_durations, dur_mask) - target_durations * mask) ** 2
-    return sq.sum() / mask.sum().clamp_min(1.0)
+    return sq.sum() / (mask.sum().clamp_min(1.0) if count is None else count)

@@ -53,6 +53,7 @@ from r3d_tpu_torch.ops.fuser_kernel import (
     fused_safuser_tail,
     linear_in_dtype,
 )
+from r3d_tpu_torch.parallel.mesh import global_mean, split_group
 
 BN_MOMENTUM = 0.1  # torch BatchNorm1d's default (r3d_tpu/models/fuser.py:51)
 
@@ -74,13 +75,17 @@ class TorchBatchNorm(nn.Module):
 
     def stats(self, x, train: bool):
         """(mean, var) to normalize with; in train mode the batch's (which
-        carry gradients), updating the running statistics."""
+        carry gradients), updating the running statistics. Where the rows
+        are split over a dp group (``parallel.mesh.split_rows``) the batch
+        is the global one: both statistics and the unbiased factor's n."""
         if not train:
             return self.running_mean, self.running_var
         x32 = x.float()
-        mean = x32.mean(dim=(0, 1))
-        var = ((x32 - mean) ** 2).mean(dim=(0, 1))
+        mean = global_mean(x32, (0, 1))
+        var = global_mean((x32 - mean) ** 2, (0, 1))
         n = x.shape[0] * x.shape[1]
+        if split_group() is not None:
+            n *= torch.distributed.get_world_size(split_group())
         with torch.no_grad():
             m = BN_MOMENTUM
             self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
@@ -198,9 +203,11 @@ class _SAFuserCore(nn.Module):
 
 def _activation_masks(rgb, depth, k: int):
     """Bottom-k masks of each stream's channels by mean |activation| over
-    (B, T), pad rows included, as JAX ranks them."""
-    return (bottomk_mask(rgb.abs().mean(dim=(0, 1)), k),
-            bottomk_mask(depth.abs().mean(dim=(0, 1)), k))
+    (B, T), pad rows included, as JAX ranks them; over the global batch
+    where the rows are split over a dp group."""
+    with torch.no_grad():
+        return (bottomk_mask(global_mean(rgb.abs(), (0, 1)), k),
+                bottomk_mask(global_mean(depth.abs(), (0, 1)), k))
 
 
 class CMFuserBN(nn.Module):

@@ -9,6 +9,11 @@ counts), so a resume is exact, and a rolling ``seed_{s}_last`` is kept every
 epoch. Each checkpoint is a directory of that name holding ``state.pt``.
 ``restore_model`` loads the model alone (serving and the sweep), reading
 nothing of the optimizer's state.
+
+On a process group every rank calls ``save`` and ``restore``: the file
+holds the whole train state (FSDP's shards gathered), written by rank 0
+alone, the same tensors a one-process run writes, and it restores into a
+state of any world size, each rank taking its shards of it.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import os
 
 import torch
 
+from r3d_tpu_torch.parallel.mesh import barrier, full_tensors, is_writer, like, load_full_optimizer
 from r3d_tpu_torch.train.state import TrainState
 
 STATE_FILE = "state.pt"
@@ -33,13 +39,16 @@ class Checkpointer:
     def save(self, state: TrainState, name: str) -> None:
         """Write ``state`` as checkpoint ``name``, replacing one of that name;
         the file appears whole or not at all."""
-        path = self._path(name)
-        os.makedirs(path, exist_ok=True)
-        tmp = os.path.join(path, STATE_FILE + ".tmp")
-        torch.save({"model": state.model.state_dict(),
-                    "optimizer": state.optimizer.state_dict(),
-                    "step": int(state.step), "extra_batches": int(state.extra_batches)}, tmp)
-        os.replace(tmp, os.path.join(path, STATE_FILE))
+        blob = {"model": full_tensors(state.model.state_dict()),
+                "optimizer": full_tensors(state.optimizer.state_dict()),
+                "step": int(state.step), "extra_batches": int(state.extra_batches)}
+        if is_writer():
+            path = self._path(name)
+            os.makedirs(path, exist_ok=True)
+            tmp = os.path.join(path, STATE_FILE + ".tmp")
+            torch.save(blob, tmp)
+            os.replace(tmp, os.path.join(path, STATE_FILE))
+        barrier()
 
     def save_best(self, state: TrainState, seed: int, epoch: int) -> None:
         self.save(state, f"seed_{seed}_checkpoint{epoch}")
@@ -56,8 +65,9 @@ class Checkpointer:
         device = next(template.model.parameters()).device
         blob = torch.load(os.path.join(self._path(name), STATE_FILE), map_location=device,
                           weights_only=True)
-        template.model.load_state_dict(blob["model"])
-        template.optimizer.load_state_dict(blob["optimizer"])
+        current = template.model.state_dict()
+        template.model.load_state_dict({k: like(v, current[k]) for k, v in blob["model"].items()})
+        load_full_optimizer(template.optimizer, blob["optimizer"])
         template.step = int(blob["step"])
         template.extra_batches = int(blob.get("extra_batches", 0))
         return template

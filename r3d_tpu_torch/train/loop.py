@@ -67,8 +67,26 @@ val cache; ``fit_hybrid`` trains from a ``HybridCache`` in the host
 loader's batch order. Both seed and draw dropout as ``fit`` does, so
 ``fit_cached == fit`` and ``fit_hybrid == fit``.
 
+``Trainer(config, n_class, mesh=make_mesh(...))`` trains data-parallel
+over the mesh's dp group (``parallel/mesh.py``): every rank runs the same
+loop on its share of each batch (``batch_sharding``: the host batch's rows,
+the cached routes' [k, B] index table along B, the hybrid batch's view ids;
+every row where B does not divide), inside ``split_rows``, so the
+BatchNorm statistics, the fusers' activation rankings and the duration
+loss's count are the global batch's; the gradients are averaged over the
+group (FSDP2 reduce-scatters those of the parameters ``shard_state``
+sharded); the epoch's metric sums are reduced over the group once, before
+they are logged, gated or checkpointed; the BN guard reads the global batch.
+Rank 0 draws today's dropout streams, the other ranks fold their rank into
+the seeds; where every rank holds the whole batch (B % W != 0) the group
+takes rank 0's update and metrics, as one process would draw one set of
+masks for it. Only rank 0 logs. One rank computes exactly what no mesh
+does.
+Families whose step mixes rows beyond that refuse a group above one rank
+(``dp_refusal``).
+
 Not ported yet, and raising ``NotImplementedError`` naming its ROADMAP
-item: ``rng_impl`` (A10). Meshes (A14) have no argument.
+item: ``rng_impl`` (A10); mesh axes other than dp (A14).
 """
 
 from __future__ import annotations
@@ -95,11 +113,31 @@ from r3d_tpu_torch.losses.temporal import (
     segment_ids_from_labels_torch,
     temporal_cluster_loss,
 )
-from r3d_tpu_torch.models import build_model, init_weights, is_fusion_model, model_needs_query
+from r3d_tpu_torch.models import (
+    _QUERY_SOURCES,
+    build_model,
+    init_weights,
+    is_fusion_model,
+    model_needs_query,
+)
 from r3d_tpu_torch.models.fuser import mark_sticky
 from r3d_tpu_torch.models.layers import FixedDropout, set_generators
 from r3d_tpu_torch.models.moe import moe_aux
 from r3d_tpu_torch.ops.effective_rank import effective_rank, effective_rank_loss
+from r3d_tpu_torch.parallel.mesh import (
+    average_gradients,
+    batch_sharding,
+    broadcast_buffers,
+    check_mesh,
+    cut,
+    dp_group,
+    dp_rank,
+    dp_size,
+    global_count,
+    split_group,
+    split_rows,
+    take_rows,
+)
 from r3d_tpu_torch.serving import resolve_device
 from r3d_tpu_torch.train.optim import make_optimizer
 from r3d_tpu_torch.train.state import TrainState
@@ -108,6 +146,23 @@ INIT_SEED = 0  # the seeded init without a state_dict
 LOOPS = ("proposed_depth", "futr", "proposed", "unsupervised", "unimodal", "tcn")
 STICKY_LOOPS = ("futr", "proposed_depth", "unsupervised", "tcn")   # r3d_tpu/train/loop.py:86-91
 ACCURACY_GATE_LOOPS = ("futr", "tcn")   # train.py:63, train_tcn.py:44
+# metrics that are sums over rows (the others are means over a fixed number
+# of entries per row): a dp group adds them up, and averages the rest
+_SUM_METRICS = ("_correct", "_total", "_sum", "_cnt")
+
+
+def dp_refusal(config: Config) -> Optional[str]:
+    """Why ``config`` cannot train on a dp group above one rank, or None:
+    its step mixes rows in a way the per-rank step does not reproduce
+    (ROADMAP queue A, item A14)."""
+    if config.train.loop == "unsupervised":
+        return ("the unsupervised loop's correctness-gate mean, cluster and SupCon terms "
+                "mix rows across the batch")
+    if _QUERY_SOURCES.get(config.model.model) == "self_attention":
+        return "the self-attention query source attends across the batch (COMPAT #17)"
+    if config.model.moe_experts > 0:
+        return "MoE routing's expert capacity is shared across the batch"
+    return None
 
 
 def triangular_warmup(epoch: int, start: int, peak: int, end: int) -> float:
@@ -145,7 +200,7 @@ class Trainer:
     """Train and eval steps for a Config, and the epoch loop."""
 
     def __init__(self, config: Config, n_class: int,
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda", mesh=None):
         tc = config.train
         if tc.loop not in LOOPS:
             raise ValueError(f"unknown loop {tc.loop!r}")
@@ -154,6 +209,14 @@ class Trainer:
         if tc.grad_accum > 1 and tc.steps_per_dispatch > 1:
             raise ValueError("grad_accum and steps_per_dispatch are mutually exclusive: one "
                              "stacks microbatches per update, the other updates per step")
+        check_mesh(mesh)
+        self.mesh = mesh
+        self.dp, self.rank, self.group = dp_size(mesh), dp_rank(mesh), dp_group(mesh)
+        why = dp_refusal(config) if self.dp > 1 else None
+        if why is not None:
+            raise NotImplementedError(f"data parallelism for {config.model.model!r} in the "
+                                      f"{tc.loop!r} loop is not ported: {why} (ROADMAP queue "
+                                      "A, item A14)")
         self.device = resolve_device(device)
         self.config = config
         self.n_class = n_class
@@ -178,6 +241,39 @@ class Trainer:
         model.train(not sticky)
         if sticky:
             frozen_twin(model)
+
+    # ------------------------------------------------------------- dp group
+    def _rows(self, n: int) -> Optional[slice]:
+        """This rank's rows of a batch of ``n`` (None: all of them)."""
+        return batch_sharding(self.mesh, n) if self.dp > 1 else None
+
+    def _split(self, rows: Optional[slice]):
+        """The block's batch is split over the group where ``rows`` is set."""
+        return split_rows(self.group if rows is not None else None)
+
+    def _replicated(self) -> bool:
+        """On a group, every rank holds the whole batch (``_rows`` None)."""
+        return self.group is not None and split_group() is None
+
+    def _shared(self, metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """A step's metrics for the group's sum (``_to_host``): where every
+        rank held every row, rank 0's alone, its means times the group's
+        size (the ranks' dropout draws differ)."""
+        if not self._replicated():
+            return metrics
+        if self.rank:
+            return {k: torch.zeros_like(v) for k, v in metrics.items()}
+        return {k: v if k.endswith(_SUM_METRICS) else v * self.dp for k, v in metrics.items()}
+
+    def _to_host(self, agg: Mapping[str, torch.Tensor]) -> Dict[str, float]:
+        """Device metric sums -> floats in one synchronisation; on a group,
+        summed over it, the means divided by its size."""
+        if self.group is None or not agg:
+            return _to_host(agg)
+        v = torch.stack([torch.as_tensor(x).double() for x in agg.values()])
+        torch.distributed.all_reduce(v, group=self.group)
+        return {k: x if k.endswith(_SUM_METRICS) else x / self.dp
+                for k, x in zip(agg.keys(), v.tolist())}
 
     # ------------------------------------------------------------------ setup
     def init_state(self, steps_per_epoch: int,
@@ -285,7 +381,8 @@ class Trainer:
                 metrics["weight_acc_cnt"] = torch.tensor(float(target.shape[0]),
                                                          device=act.device)
             if "duration" in outputs:
-                loss_dur = duration_loss(outputs["duration"], dur * dur_mask, dur_mask)
+                loss_dur = duration_loss(outputs["duration"], dur * dur_mask, dur_mask,
+                                         global_count(dur_mask.sum()))
                 total = total + loss_dur
                 metrics.update(loss_dur=loss_dur)
 
@@ -358,21 +455,37 @@ class Trainer:
             aux = moe_aux(model)
             total = total + w * aux
             metrics.update(moe_aux=aux, loss=total)
+        if self._replicated():
+            # every rank holds the whole batch: the group's mean gradient is
+            # rank 0's (exact for a power-of-two group), whose dropout draws
+            # are one process's; the other ranks' masks differ
+            total = total * (self.dp if self.rank == 0 else 0.0)
         total.backward()
         return {k: v.detach() for k, v in metrics.items()}
 
     def _step(self, state: TrainState, batch, epoch: int) -> Dict[str, torch.Tensor]:
-        """One update of ``state`` in place from a batch on the card."""
+        """One update of ``state`` in place from a batch on the card (this
+        rank's rows of it on a group)."""
         self._train_mode(state.model, epoch)
         state.optimizer.zero_grad(set_to_none=True)
         metrics = self._grad_core(state.model, batch, epoch)
+        average_gradients(state.model, self.group)
         state.apply_gradients()
-        return metrics
+        return self._updated(state, metrics)
+
+    def _updated(self, state: TrainState, metrics):
+        """After an update on a group from a batch every rank held whole:
+        rank 0's BN statistics everywhere (the ranks' dropout draws differ)."""
+        if self._replicated():
+            broadcast_buffers(state.model, self.group)
+        return self._shared(metrics)
 
     def train_step(self, state: TrainState, batch, epoch: int) -> Dict[str, torch.Tensor]:
         """One update of ``state`` in place from a host batch; returns the
         step's metrics on the device (not synchronised)."""
-        return self._step(state, self.to_device(batch), epoch)
+        rows = self._rows(batch["features"].shape[0])
+        with self._split(rows):
+            return self._step(state, self.to_device(take_rows(batch, rows)), epoch)
 
     def make_multi_step(self):
         """multi_step(state, stacked host batch [K, ...], epoch) -> metrics
@@ -380,10 +493,12 @@ class Trainer:
         exactly K ``train_step`` calls (``r3d_tpu/train/loop.py:698``)."""
 
         def multi_step(state: TrainState, stacked, epoch: int) -> Dict[str, torch.Tensor]:
-            stacked = self.to_device(stacked)
+            rows = self._rows(stacked["features"].shape[1])
+            stacked = self.to_device(take_rows(stacked, rows, axis=1))
             agg: Dict[str, torch.Tensor] = {}
-            for i in range(stacked["features"].shape[0]):
-                _add(agg, self._step(state, {k: v[i] for k, v in stacked.items()}, epoch))
+            with self._split(rows):
+                for i in range(stacked["features"].shape[0]):
+                    _add(agg, self._step(state, {k: v[i] for k, v in stacked.items()}, epoch))
             return agg
 
         return multi_step
@@ -398,21 +513,24 @@ class Trainer:
         update count, as optax's does."""
 
         def accum_step(state: TrainState, stacked, epoch: int) -> Dict[str, torch.Tensor]:
-            stacked = self.to_device(stacked)
+            rows = self._rows(stacked["features"].shape[1])
+            stacked = self.to_device(take_rows(stacked, rows, axis=1))
             K = stacked["features"].shape[0]
             self._train_mode(state.model, epoch)
             state.optimizer.zero_grad(set_to_none=True)
             agg: Dict[str, torch.Tensor] = {}
-            for i in range(K):
-                _add(agg, self._grad_core(state.model, {k: v[i] for k, v in stacked.items()},
-                                          epoch))
-            for p in state.model.parameters():
-                if p.grad is not None:
-                    p.grad.div_(K)
-            state.apply_gradients()
-            state.step += K - 1
-            state.extra_batches += K - 1
-            return {k: v / K for k, v in agg.items()}
+            with self._split(rows):
+                for i in range(K):
+                    _add(agg, self._grad_core(state.model,
+                                              {k: v[i] for k, v in stacked.items()}, epoch))
+                average_gradients(state.model, self.group)
+                for p in state.model.parameters():
+                    if p.grad is not None:
+                        p.grad.div_(K)
+                state.apply_gradients()
+                state.step += K - 1
+                state.extra_batches += K - 1
+                return self._updated(state, {k: v / K for k, v in agg.items()})
 
         return accum_step
 
@@ -489,18 +607,28 @@ class Trainer:
         with torch.no_grad():
             outputs = state.model(*self._model_inputs(batch, with_mask=False))
             _, metrics = self._losses(outputs, batch, train=False)
-        return metrics
+        return self._shared(metrics)
 
     def make_eval_step(self):
         """eval_step(state, host batch) -> metrics on the device: the
         module-eval forward without pad masks (train_proposed_depth.py:52-108)."""
-        return lambda state, batch: self._eval(state, self.to_device(batch))
+
+        def eval_step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
+            rows = self._rows(batch["features"].shape[0])
+            with self._split(rows):
+                return self._eval(state, self.to_device(take_rows(batch, rows)))
+
+        return eval_step
 
     # ------------------------------------------------------------ outer loop
     def _seed_dropout(self, state: TrainState, seed: int, start_epoch: int) -> None:
         """Dropout draws from generators seeded with ``seed`` and, in a
-        resumed run, its start epoch (JAX folds it into its key)."""
+        resumed run, its start epoch (JAX folds it into its key); on a
+        group, ranks above 0 fold in their rank."""
         dropout_seed = seed if start_epoch == 0 else hash((seed, start_epoch)) & (2**63 - 1)
+        if self.rank:
+            # two ranks never draw the same masks for different rows
+            dropout_seed = hash((dropout_seed, -self.rank)) & (2**63 - 1)
         set_generators(state.model, torch.Generator(self.device).manual_seed(dropout_seed),
                        torch.Generator().manual_seed(dropout_seed))
 
@@ -547,11 +675,12 @@ class Trainer:
             plan = dc.epoch_plan(val_cache, cfg.val_batch_size or cfg.batch_size, 0, 0,
                                  shuffle=False, drop_remainder=False)
             for _, entries in _same_shape_runs(plan, _plan_shape, K):
-                _add(agg, cached_eval(st, val_cache.data,
-                                      self._index_table([idx for _, idx in entries]),
-                                      entries[0][0]))
+                rows = self._rows(len(entries[0][1]))
+                idx = self._index_table([cut(idx, rows) for _, idx in entries])
+                with self._split(rows):
+                    _add(agg, cached_eval(st, val_cache.data, idx, entries[0][0]))
                 vb += len(entries)
-            return _to_host(agg), vb
+            return self._to_host(agg), vb
 
         return validate
 
@@ -575,8 +704,11 @@ class Trainer:
                     if len(idx) >= cfg.min_train_batch]
             for n, entries in _same_shape_runs(plan, _plan_shape, K):
                 S, idx0 = entries[0]
-                idx = self._index_table([idx for _, idx in entries])
-                yield train_fn(state, cache.data, idx, S, epoch), n, n * len(idx0)
+                rows = self._rows(len(idx0))
+                idx = self._index_table([cut(idx, rows) for _, idx in entries])
+                with self._split(rows):
+                    metrics = train_fn(state, cache.data, idx, S, epoch)
+                yield metrics, n, n * len(idx0)
 
         return self._epochs(state, seed, start_epoch, steps_of,
                             self._cached_validator(val_loader, val_cache, K), log,
@@ -604,7 +736,14 @@ class Trainer:
                 examples = [hybrid.host_example(int(chunk[i])) for i in host_sel]
                 nrows = ([int(cache.nrows_host[c]) for c in cached_id if c >= 0]
                          + [len(e.features) for e in examples])
-                S = bucket_length(max(nrows), cache.buckets)
+                S = bucket_length(max(nrows), cache.buckets)   # the global batch's
+                rows = self._rows(len(chunk))
+                if rows is not None:
+                    # this rank's view ids, and the host rows among them
+                    mine = (host_sel >= rows.start) & (host_sel < rows.stop)
+                    examples = [e for e, m in zip(examples, mine) if m]
+                    host_sel = host_sel[mine] - rows.start
+                    cached_id = cached_id[rows]
                 part = {}
                 if examples:
                     # the host rows at their own bucket: fewer bytes to copy
@@ -616,8 +755,9 @@ class Trainer:
                                      query_pad_idx=cache.query_pad_idx)
                 view_ids = self._index_table([np.where(cached_id >= 0, cached_id, 0)])[0]
                 host_pos = self._index_table([host_sel])[0]
-                yield (step_fn(state, cache.data, view_ids, host_pos, part, S, epoch), 1,
-                       len(chunk))
+                with self._split(rows):
+                    metrics = step_fn(state, cache.data, view_ids, host_pos, part, S, epoch)
+                yield metrics, 1, len(chunk)
 
         return self._epochs(state, seed, start_epoch, steps_of,
                             self._cached_validator(val_loader, val_cache, 1), log,
@@ -628,8 +768,10 @@ class Trainer:
         """The epoch loop of ``fit``, ``fit_cached`` and ``fit_hybrid``:
         dropout seeded, then each epoch's dispatches (``steps_of(epoch)``
         yields (metrics, batches, clips) for each) summed on the device and
-        read once, and ``_finish_epoch``."""
+        read once, and ``_finish_epoch``. Only rank 0 logs."""
         self._seed_dropout(state, seed, start_epoch)
+        if self.rank:
+            log = _quiet
         best = (0.0, 0.0)
         for epoch in range(start_epoch, self.config.train.epochs):
             t0 = time.time()
@@ -640,7 +782,7 @@ class Trainer:
                 n_batches += nb
                 n_clips += nc
             best = self._finish_epoch(
-                state, epoch, _to_host(agg), n_batches, n_clips, time.time() - t0, validate,
+                state, epoch, self._to_host(agg), n_batches, n_clips, time.time() - t0, validate,
                 best, log, seed=seed, metrics_logger=metrics_logger, checkpointer=checkpointer)
         return state
 
@@ -693,7 +835,11 @@ class Trainer:
             for k, v in eval_step(state, batch).items():
                 agg[k] = agg.get(k, 0.0) + v
             vb += 1
-        return _to_host(agg), vb
+        return self._to_host(agg), vb
+
+
+def _quiet(*_args) -> None:
+    """The log of ranks above 0."""
 
 
 def _long_labels(batch: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

@@ -24,6 +24,7 @@ from typing import Callable, Iterable
 import torch
 
 from r3d_tpu_torch.config import TrainConfig
+from r3d_tpu_torch.parallel.mesh import is_sharded
 
 
 def linear_warmup_cosine_schedule(base_lr: float, warmup_epochs: int, max_epochs: int,
@@ -93,8 +94,14 @@ class AdamWLowMu(torch.optim.Optimizer):
             update = torch._foreach_div(mu_hat, denom)
             torch._foreach_add_(update, torch._foreach_mul(params, group["weight_decay"]))
             torch._foreach_add_(params, update, alpha=-group["lr"])
-            torch._foreach_copy_(mus, mu)
-            torch._foreach_copy_(nus, nu)
+            # DTensor (FSDP) has no rule for _foreach_copy_: copy the shards
+            torch._foreach_copy_(_local(mus), _local(mu))
+            torch._foreach_copy_(_local(nus), _local(nu))
+
+
+def _local(ts):
+    """Each tensor of ``ts``, or this rank's shard of a sharded one."""
+    return [t.to_local() if is_sharded(t) else t for t in ts]
 
 
 def make_optimizer(cfg: TrainConfig, params: Iterable[torch.nn.Parameter],

@@ -1,8 +1,9 @@
 """Structured metrics logging.
 
 Counterpart of ``r3d_tpu/utils/metrics.py``: every epoch record lands in a
-JSONL stream (one object per record) beside the checkpoints. The
-TensorBoard mirror is not ported yet (ROADMAP queue A, item A15).
+JSONL stream (one object per record) beside the checkpoints; on a process
+group only rank 0 writes it. The TensorBoard mirror is not ported yet
+(ROADMAP queue A, item A15).
 """
 
 from __future__ import annotations
@@ -12,17 +13,23 @@ import os
 import time
 from typing import Any, Dict, Optional
 
+from r3d_tpu_torch.parallel.mesh import is_writer
+
 
 class MetricsLogger:
     def __init__(self, log_dir: str, run_name: str = "run", tensorboard: bool = False):
         if tensorboard:
             raise NotImplementedError("the TensorBoard writer is not ported yet "
                                       "(ROADMAP queue A, item A15)")
-        os.makedirs(log_dir, exist_ok=True)
         self.path = os.path.join(log_dir, f"{run_name}.jsonl")
-        self._f = open(self.path, "a")
+        self._f = None
+        if is_writer():
+            os.makedirs(log_dir, exist_ok=True)
+            self._f = open(self.path, "a")
 
     def log(self, record: Dict[str, Any], step: Optional[int] = None) -> None:
+        if self._f is None:
+            return
         rec = {"time": time.time(), **record}
         if step is not None:
             rec["step"] = step
@@ -30,7 +37,8 @@ class MetricsLogger:
         self._f.flush()
 
     def close(self) -> None:
-        self._f.close()
+        if self._f is not None:
+            self._f.close()
 
 
 class Timer:

@@ -876,14 +876,17 @@ def _utk_card_config(root=""):
         train=dataclasses.replace(base.train, batch_size=4, min_train_batch=0, warmup_epochs=0))
 
 
-def _trained(device, cfg, steps=2):
+def _trained(device, cfg, steps=2, mesh=None, fsdp=False):
     from r3d_tpu_torch.data.datasets import build_loader, build_source
+    from r3d_tpu_torch.parallel.mesh import shard_state
     from r3d_tpu_torch.train.loop import Trainer
 
     src = build_source(cfg.data, "train_split.txt")
     loader = build_loader(src, cfg.data, 4, 8, seed=0)
-    trainer = Trainer(cfg, src.n_class, device=device)
+    trainer = Trainer(cfg, src.n_class, device=device, mesh=mesh)
     state = trainer.init_state(len(loader), seed=1)
+    if mesh is not None:
+        state = shard_state(state, mesh, fsdp=fsdp)
     batches = list(loader)[:steps]
     for epoch, b in enumerate(batches):
         trainer.train_step(state, b, epoch)
@@ -1441,3 +1444,46 @@ def test_quantized_sessions_on_the_card_match_the_cpu(cuda, kind):
     for key in ("action", "duration", "seg"):
         assert torch.isfinite(got[key]).all()
         assert float((got[key].float().cpu() - want[key]).abs().max()) <= E2E_TOL, key
+
+
+# ---- a one-rank NCCL group (data parallelism, A14) ----
+
+@pytest.mark.parametrize("fsdp", [False, True], ids=["dp", "fsdp"])
+def test_one_rank_nccl_group_trains_bit_equal_to_no_group(cuda, utk_disk, tmp_path, fsdp):
+    """Two steps on a one-rank NCCL group (``shard_state`` with and without
+    FSDP, which makes every parameter a DTensor on the one-rank mesh) and
+    the same steps without a group: the parameters, BN buffers, AdamW
+    moments and the checkpoint's tensors bit for bit."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from r3d_tpu_torch.parallel.mesh import full_tensors, is_sharded, make_mesh
+    from r3d_tpu_torch.train.checkpoint import Checkpointer
+
+    cfg = _utk_card_config(utk_disk)
+    torch.manual_seed(0)   # the steps' dropout draws from the default generators
+    _, plain, _ = _trained(cuda, cfg)
+    Checkpointer(str(tmp_path / "plain")).save_last(plain, seed=1)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        torch.manual_seed(0)
+        _, state, _ = _trained(cuda, cfg, mesh=make_mesh(dp=1), fsdp=fsdp)
+        Checkpointer(str(tmp_path / "group")).save_last(state, seed=1)
+        got = full_tensors(state.model.state_dict())
+        got_opt = full_tensors(state.optimizer.state_dict())["state"]
+        sharded = [is_sharded(p) for p in state.model.parameters()]
+    finally:
+        dist.destroy_process_group()
+    assert all(sharded) if fsdp else not any(sharded)
+    for k, v in plain.model.state_dict().items():
+        assert torch.equal(got[k], v), k
+    for i, st in plain.optimizer.state_dict()["state"].items():
+        for k, v in st.items():
+            assert torch.equal(got_opt[i][k], v), (i, k)
+    a = torch.load(tmp_path / "plain" / "seed_1_last" / "state.pt", weights_only=True)
+    b = torch.load(tmp_path / "group" / "seed_1_last" / "state.pt", weights_only=True)
+    assert a["step"] == b["step"]
+    for k, v in a["model"].items():
+        assert torch.equal(b["model"][k], v), k

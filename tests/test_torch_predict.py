@@ -14,6 +14,7 @@ accumulator equals JAX's exactly on random label arrays.
 """
 
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -262,8 +263,12 @@ def test_helpers_and_l3_accuracy_match_jax(sweep64):
 
 
 def test_unported_options_raise(sweep64):
+    # the layout of a DeviceMesh of 2 ranks with tp = 2 (building one takes
+    # the 2 ranks): dp is ported, tp is not
+    tp2 = types.SimpleNamespace(mesh_dim_names=("dp", "ep", "tp", "sp", "pp"),
+                                mesh=torch.empty(1, 1, 2, 1, 1))
     with pytest.raises(NotImplementedError, match="A14"):
-        pt_predict.Predictor(sweep64.pcfg, sweep64.ppred.model, N_CLASS, mesh=object(),
+        pt_predict.Predictor(sweep64.pcfg, sweep64.ppred.model, N_CLASS, mesh=tp2,
                              device="cpu")
     with pytest.raises(NotImplementedError, match="A15"):
         sweep64.ppred.predict_multi(sweep64.state_dicts[0], sweep64.psrc, [0.5], gif_dir="g")
