@@ -3,7 +3,8 @@ plain versions.
 
     python3 chip_smoke.py          # from the root of a checkout, on a CUDA host
     python3 chip_smoke.py --cards  # the CLI on every card of a host of two or more,
-                                   # against one card (phase 21's second arm), alone
+                                   # against one card (phase 21's second arm, and on
+                                   # dp x tp 2, phase 22), alone
 
 Phases, each of which fails the run (non-zero exit) if it fails:
 
@@ -255,7 +256,26 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    ranks' parameters are equal, each rank's K1-K5 launches and its median
    step printed (two processes sharing one card: a reading, not a
    throughput);
-22. print one ``{"kernels": [...]}`` line (with each kernel's launches in
+22. tensor and expert parallelism (A14, ``tensor_parallel``): K3, K4 and
+   K5 at the heads a rank of tp 2 holds (H 4: fp32 at D 16, bf16 at D
+   64) and K6/K7 at its channels (fp32 C 64, bf16 C 256) against their
+   plain versions (``check_tp_shapes``); which gloo collectives take CUDA
+   tensors (``_gloo_probe``); then two gloo ranks on the one card run
+   ``TP_ARMS``, each against the same steps in one process on the card
+   within the fit bounds (the loss within ``DP_LOSS_TOL``, bf16
+   ``TP_BF16_LOSS_TOL``), the ranks' whole states equal: utkinects at full
+   width on tp 2 in the 512 bucket (K1/K2 on every row, K3 and K5 on 4 of
+   the 8 heads) and in the 2000 bucket under ``R3D_CROSS_NATIVE=1`` (K6/K7
+   on 64 of the 128 channels), each then with dropout 0.1 (K4, and K6/K7
+   with their tp-folded seeds) after which the replicated tensors of the
+   two ranks are equal; 50salads with MoE (bf16) on ep 2; darai
+   (futr_unsupervised, the unsupervised loop, SupCon on, epoch 2) and the
+   self-attention source in 50salads' futr loop on dp 2; each rank's
+   launches, the heads and channels its attention calls saw, and its
+   median step printed (two processes sharing one card: a reading);
+   ``--cards`` also runs the CLI under ``torchrun ... --fsdp --mesh_tp 2``
+   (dp x tp 2, NCCL) against one card;
+23. print one ``{"kernels": [...]}`` line (with each kernel's launches in
    the CLI phases' training and sweeps and in the cached epoch beside those
    of the other phases; rows for bf16 K3, K4 and K5 at Lq = Lk = 3,100 and
    2,000 with the launches of the two proposed configs' training and
@@ -263,7 +283,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    encoder's launches; rows for K1 and K2 with the outer residual, with the
    grad variant's launches, and for fp32 K3, K4 and K5 at Lq = Lk = 512 and
    2,000, with the encoder fit's launches and the serving launches of that
-   bucket, and the launches of phases 15-21 in their own columns) and, as
+   bucket, the launches of phases 15-22 in their own columns and the
+   relative error of phase 22's tp-shape checks) and, as
    the last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -6217,12 +6238,12 @@ def dp_init(cfg):
                         torch.Generator().manual_seed(SEED)).state_dict()
 
 
-def _close_states(got, want, lr, updates):
+def _close_states(got, want, lr, updates, share=True):
     """The tensors of two model states outside the fit bounds: over the
     scale max(1, the tensor's largest entry), ``DP_STATE_TOL`` on 99 % of
-    its entries (but ``GRAD_NOISE_ONLY``'s) and 2 ``lr`` an update on all
-    (Adam moves an entry by at most about lr an update). (name, max|diff|,
-    scale) each."""
+    its entries (but ``GRAD_NOISE_ONLY``'s; not with ``share`` False) and 2
+    ``lr`` an update on all (Adam moves an entry by at most about lr an
+    update). (name, max|diff|, scale) each."""
     bad = []
     for k, w in want.items():
         if k not in got:
@@ -6232,7 +6253,7 @@ def _close_states(got, want, lr, updates):
         d = (got[k].float().cpu() - w).abs()
         scale = max(1.0, float(w.abs().max())) if w.numel() else 1.0
         if d.numel() and (float(d.max()) > 2 * lr * updates * scale or (
-                not k.endswith(GRAD_NOISE_ONLY)
+                share and not k.endswith(GRAD_NOISE_ONLY)
                 and float((d > DP_STATE_TOL * scale).float().mean()) > 0.01)):
             bad.append((k, float(d.max()), scale))
     return bad
@@ -6307,10 +6328,10 @@ def _log_numbers(lines):
             for l in lines if l.startswith(("Epoch", "Validation"))]
 
 
-def cli_under_torchrun(n_ranks, argv, work, here, card):
+def cli_under_torchrun(n_ranks, argv, work, here, card, tp=1):
     """The CLI (train, checkpoints, sweep) under ``torchrun --standalone
-    --nproc_per_node n_ranks ... --fsdp`` against the plain CLI on one card
-    (in this process). One rank keeps utkinects' dropout 0.1
+    --nproc_per_node n_ranks ... --fsdp`` (and ``--mesh_tp tp``: a mesh of
+    n_ranks / tp by tp) against the plain CLI on one card (in this process). One rank keeps utkinects' dropout 0.1
     (rank 0 draws one process's masks): the MoC tables and every checkpoint
     tensor equal, bit for bit. More ranks run with dropout off (their masks
     are not one process's): the same log lines with their numbers within
@@ -6328,19 +6349,21 @@ def cli_under_torchrun(n_ranks, argv, work, here, card):
     one = n_ranks == 1
     dropout = None if one else 0.0
     mode = "train_eval" if one else "train"
+    mesh_flags = ["--mesh_tp", str(tp)] if tp > 1 else []
     runs = {}
     for tag, n in (("plain", None), ("torchrun", n_ranks)):
         save, res = os.path.join(work, f"cli_{tag}"), os.path.join(work, f"results_{tag}")
         flags = argv + ["--mode", mode, "--model_save_path", save, "--results_save_path", res]
-        lines, dt = _cli(flags + (["--fsdp"] if n else []), here, n, dropout)
+        lines, dt = _cli(flags + (["--fsdp"] + mesh_flags if n else []), here, n, dropout)
         runs[tag] = (lines, saved_tensors(save), dt, res)
     lines = runs["torchrun"][0]
-    mesh = f"mesh: {{'dp': {n_ranks}, 'ep': 1, 'tp': 1, 'sp': 1, 'pp': 1}}"
+    mesh = f"mesh: {{'dp': {n_ranks // tp}, 'ep': 1, 'tp': {tp}, 'sp': 1, 'pp': 1}}"
     for need in (mesh, "fsdp: state sharded over dp"):
         if need not in lines:
             raise AssertionError(f"data_parallel: torchrun CLI on {n_ranks} ranks: no {need!r}")
     want, got = runs["plain"][1], runs["torchrun"][1]
     label = (f"the CLI (2 epochs) under torchrun --standalone --nproc_per_node {n_ranks} --fsdp "
+             f"{' '.join(mesh_flags)} "
              f"{runs['torchrun'][2]:.2f} s, plain {runs['plain'][2]:.2f} s (wall time, the "
              f"former with its processes' start)")
     if one:
@@ -6370,7 +6393,8 @@ def cli_under_torchrun(n_ranks, argv, work, here, card):
     for tag, n in (("plain", None), ("torchrun", n_ranks)):
         res = os.path.join(work, f"sweep_{tag}")
         _, dt = _cli(argv + ["--predict", "--model_save_path", os.path.join(work, "cli_plain"),
-                             "--results_save_path", res], here, n, dropout)
+                             "--results_save_path", res] + (mesh_flags if n else []),
+                     here, n, dropout)
         sweeps[tag] = (_json.load(open(os.path.join(res, "results.json"))), dt)
     moc_err = max(abs(sweeps["torchrun"][0][o][k] - v) for o, r in sweeps["plain"][0].items()
                   for k, v in r.items())
@@ -6525,10 +6549,453 @@ def data_parallel(kernels, card):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ------------------------------------------------- phase 22: tensor and expert parallelism
+
+TP_DIR = "build/tp_phase"   # under the checkout (git-ignored), removed after the phase
+TP_TIMEOUT = 300            # s: a rank or a collective that takes longer fails the phase
+TP_STEPS = 4                # steps of each arm, dropout off, on two gloo ranks and in one process
+TP_DROPOUT_STEPS = 2        # then steps of the tp arms with dropout 0.1 (K4, K6 and K7's masks)
+TP_ROWS_2000 = 2            # rows of the 2000-bucket batch (154 MB of bf16 depth)
+TP_BF16_LOSS_TOL = 1e-2     # the bf16 arms' loss, two ranks vs one process (SALADS_LOSS_TOL);
+                            # their states within Adam's 2 lr an update on every entry alone: a
+                            # near-zero bf16 gradient that flips sign moves an entry by 2 lr
+DARAI_TP = dict(warmup_loss_epochs=(1, 3), supcon_weight=0.5)   # epoch 2: every term weighs in
+GLOO_OPS = ("all_reduce", "broadcast", "all_gather", "all_gather_into_tensor", "reduce_scatter",
+            "reduce_scatter_tensor", "all_to_all", "reduce")
+
+
+def check_tp_shapes(gen, device):
+    """K3-K7 at the shapes a rank of tp 2 gives them (its half of the
+    heads), against their plain versions: fp32 K3, K4 and K5 at B 8, H 4, Lq
+    8, Lk 512, D 16 (utkinects, hidden 128 over 8 heads) and bf16 at H 4, Lq
+    20, D 64 (50salads); fp32 K6 and K7 at C 64 (H 4, D 16, Lq 8, S 2,000)
+    and bf16 at C 256 (H 4, D 64, Lq 20, S 3,100); rate 0 and 0.1. Returns
+    {kernel: (max|kernel - plain|, over max(1, max|plain|))}."""
+    import torch
+
+    from r3d_tpu_torch.ops import attention as att
+    from r3d_tpu_torch.ops import cross_attention as ca
+
+    worst = {}
+    rate = 0.1
+    for dtype, Lq, D, tol in ((torch.float32, 8, 16, K3_TOL), (torch.bfloat16, 20, 64, BF16_TOL)):
+        B, H, Lk = 8, 4, 512
+        name = "fp32" if dtype == torch.float32 else "bf16"
+        q, k, v, bias = attention_inputs(B, H, Lq, Lk, D, gen, device)
+        q, k, v = (t.to(dtype) for t in (q, k, v))
+        g = torch.randn(q.shape, generator=gen).to(device, dtype)
+        scale = 1.0 / math.sqrt(D)
+        got = {f"K3 {name}": errs([att.flash_attention(q, k, v, bias, scale)],
+                                  [att.composed_attention(q, k, v, bias, scale)]),
+               f"K4 {name}": errs([att.flash_attention_dropout(q, k, v, bias, 7, scale, rate)],
+                                  [att.composed_attention_dropout(q, k, v, bias, 7, scale, rate)]),
+               f"K5 {name}": worse(*(errs(att.attention_bwd(q, k, v, bias, 7, scale, r, g,
+                                                            need_dbias=True),
+                                          att.composed_attention_bwd(q, k, v, bias, 7, scale, r, g))
+                                     for r in (0.0, rate)))}
+        for key, e in got.items():
+            print(f"tp shapes: {key} B={B} H={H} Lq={Lq} Lk={Lk} D={D}: max|kernel - plain| "
+                  f"{e[0]:.3e}, relative {e[1]:.3e} (tol {tol})")
+            if not e[1] <= tol:
+                raise AssertionError(f"tensor_parallel: {key} disagrees at H={H}")
+        worst.update(got)
+    for dtype, Lq, C, S, (ftol, btol) in (
+            (torch.float32, 8, 64, 2000, (CROSS_FWD_TOL, CROSS_BWD_TOL)),
+            (torch.bfloat16, 20, 256, 3100, (BF16_TOL, BF16_TOL))):
+        B, H = 8, 4
+        name = "fp32" if dtype == torch.float32 else "bf16"
+        q, k, v, bias = cross_inputs(B, Lq, S, C, gen, device, dtype)
+        g = torch.randn(q.shape, generator=gen).to(device, dtype)
+        scale = 1.0 / math.sqrt(C // H)
+        e6 = e7 = (0.0, 0.0)
+        for r in (0.0, rate):
+            out, m, l = ca.cross_attention_fwd(q, k, v, bias, 5, scale, r, H)
+            want = ca.composed_cross_attention(q, k, v, bias, 5, scale, r, H)
+            e6 = worse(e6, errs([out], want[:1]))
+            e7 = worse(e7, errs(ca.cross_attention_bwd(q, k, v, bias, 5, scale, r, H, g, out, m, l,
+                                                       need_dbias=True),
+                                ca.composed_cross_attention_bwd(q, k, v, bias, 5, scale, r, H, g,
+                                                                out, m, l)))
+        print(f"tp shapes: K6/K7 {name} B={B} Lq={Lq} S={S} C={C} H={H}: forward relative "
+              f"{e6[1]:.3e} (tol {ftol}), backward relative {e7[1]:.3e} (tol {btol})")
+        if not (e6[1] <= ftol and e7[1] <= btol):
+            raise AssertionError(f"tensor_parallel: K6/K7 {name} disagree at C={C}")
+        worst[f"K6 {name}"], worst[f"K7 {name}"] = e6, e7
+    return worst
+
+
+def tp_configs():
+    """The phase's configs: utkinects at full width (dropout off), 50salads
+    with MoE (4 experts, top 2) and dropout off, darai (futr_unsupervised,
+    the unsupervised loop, SupCon on) and 50salads' futr loop on the
+    self-attention source, both without dropout."""
+    import dataclasses
+
+    from r3d_tpu_torch.config import get_config
+
+    salads = get_config("50salads")
+    moe = salads.replace(model=dataclasses.replace(salads.model, dropout=0.0, **MOE))
+    darai = get_config("darai")
+    darai = darai.replace(model=dataclasses.replace(darai.model, dropout=0.0),
+                          train=dataclasses.replace(darai.train, **DARAI_TP))
+    unsup = salads.replace(model=dataclasses.replace(salads.model, model="futr_unsupervised",
+                                                     dropout=0.0, query_num=darai.model.query_num))
+    return dict(utk=dp_config(0.0), moe=moe, darai=darai, unsup=unsup)
+
+
+def tp_inits(cfgs):
+    """The seeded init of each config's model (the same in every process)."""
+    import torch
+
+    from r3d_tpu_torch.models import build_model, futr_unsupervised, init_weights
+
+    saved, futr_unsupervised.SRC_DROPOUT = futr_unsupervised.SRC_DROPOUT, 0.0
+    try:
+        return {k: init_weights(build_model(c.model, tp_classes(k), c.data.depth_shape),
+                                torch.Generator().manual_seed(SEED)).state_dict()
+                for k, c in cfgs.items()}
+    finally:
+        futr_unsupervised.SRC_DROPOUT = saved
+
+
+def tp_classes(key):
+    return N_CLASS if key == "utk" else DARAI_CLASSES if key == "darai" else SALADS_CLASSES
+
+
+DARAI_CLASSES = 11   # the darai arm's synthetic actions: 10 + NONE
+
+
+def tp_batches(cfgs):
+    """The host batches of each arm: utkinects' ``TP_STEPS`` 512-bucket
+    batches of 8 and a 2000-bucket batch of ``TP_ROWS_2000``; 50salads'
+    512-bucket batch of 8; darai's of 4 (synthetic videos with 47 L3
+    labels, padded with 47)."""
+    from r3d_tpu_torch.data.pipeline import BucketedLoader
+    from r3d_tpu_torch.data.synthetic import SyntheticSource
+
+    utk = cfgs["utk"]
+    out = dict(utk=_dp_batches(utk)[:TP_STEPS],
+               utk2000=[one_batch(utkinects_native_loaders(utk)[1], 1024, rows=TP_ROWS_2000)],
+               salads=[one_batch(salads_loaders(cfgs["moe"])[1], 256, 512)])
+    d = cfgs["darai"]
+    src = SyntheticSource(n_videos=6, n_actions=DARAI_CLASSES - 1, vid_len_range=(600, 1000),
+                          input_dim=d.model.input_dim, n_query_classes=d.train.l3_pad_idx,
+                          seed=SEED)
+    fn, n = src.make_example_fn((0.5,), 1, d.model.n_query)
+    loader = BucketedLoader(num_examples=n, make_example_fn=fn, batch_size=4,
+                            pad_idx=src.pad_idx, buckets=d.data.seq_buckets,
+                            n_query=d.model.n_query, with_query=True,
+                            query_pad_idx=d.train.l3_pad_idx, shuffle=False)
+    out["darai"] = [next(iter(loader))]
+    for key, want in (("utk", 512), ("utk2000", 2000), ("salads", 512), ("darai", 512)):
+        if out[key][0]["features"].shape[1] != want:
+            raise AssertionError(f"tensor_parallel: the {key} batch fell in bucket "
+                                 f"{out[key][0]['features'].shape[1]}, not {want}")
+    return out
+
+
+# arm -> (config, batches, mesh sizes, dropout steps too, R3D_CROSS_NATIVE, epoch)
+TP_ARMS = {
+    "utkinects tp 2, 512": ("utk", "utk", dict(dp=1, tp=2), True, False, 0),
+    "utkinects tp 2, 2000, R3D_CROSS_NATIVE=1": ("utk", "utk2000", dict(dp=1, tp=2), True, True, 0),
+    "50salads MoE ep 2": ("moe", "salads", dict(dp=1, ep=2), False, False, 0),
+    "darai dp 2": ("darai", "darai", dict(dp=2), False, False, 2),
+    "futr_unsupervised (50salads futr loop) dp 2": ("unsup", "salads", dict(dp=2), False, False, 0),
+}
+
+
+def _tp_steps(trainer, state, batches, epoch, seed_dropout=False):
+    """``train_step`` over ``batches`` in ``epoch``: (the global loss of
+    each, the wall time of each)."""
+    import torch
+
+    if seed_dropout:
+        trainer._seed_dropout(state, SEED, 0)
+    losses, times = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = trainer.train_step(state, trainer._with_seg_ids(b), epoch)
+        losses.append(trainer._to_host({"loss": metrics["loss"]})["loss"])
+        times.append(time.perf_counter() - t0)
+    return losses, times
+
+
+def _gloo_probe(rank):
+    """Which gloo collectives accept CUDA tensors in this torch: {op: "ok"
+    or the error's first line}. A probe, not an arm: it only records."""
+    import torch
+    import torch.distributed as dist
+
+    x = torch.ones(4, device="cuda")
+    calls = {"all_reduce": lambda: dist.all_reduce(x.clone()),
+             "broadcast": lambda: dist.broadcast(x.clone(), src=0),
+             "all_gather": lambda: dist.all_gather([torch.empty_like(x) for _ in range(2)], x),
+             "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+                 x.new_empty(8), x),
+             "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+                 x.new_empty(2), x.clone()),
+             "reduce_scatter": lambda: dist.reduce_scatter(torch.empty_like(x),
+                                                           [x.clone(), x.clone()]),
+             "all_to_all": lambda: dist.all_to_all([torch.empty_like(x) for _ in range(2)],
+                                                   [x.clone(), x.clone()]),
+             "reduce": lambda: dist.reduce(x.clone(), dst=0)}
+    out = {}
+    for op in GLOO_OPS:
+        try:
+            calls[op]()
+            torch.cuda.synchronize()
+            out[op] = "ok"
+        except Exception as e:   # noqa: BLE001 -- the answer recorded is the error itself
+            out[op] = str(e).splitlines()[0][:120]
+        dist.barrier()
+    return out
+
+
+def _tp_rank(rank, world, work):
+    """One gloo rank on the card (``cuda:0``, shared): every ``TP_ARMS`` arm
+    on its mesh, each with the counts set to 0 before it and read after,
+    the attention calls' heads and channels recorded; writes its results to
+    ``work/rank{rank}.pt``."""
+    import datetime
+    import os
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"file://{work}/store", rank=rank,
+                                world_size=world, timeout=datetime.timedelta(seconds=TP_TIMEOUT))
+        out = {"gloo": _gloo_probe(rank)}
+        kernels = tp_kernels()
+        batches = torch.load(os.path.join(work, "batches.pt"), weights_only=True)
+        inits = torch.load(os.path.join(work, "inits.pt"), weights_only=True)
+        from r3d_tpu_torch.parallel.mesh import make_mesh
+
+        out["arms"] = {tag: _tp_arm(tag, kernels, batches, inits, make_mesh(**arm[2]))
+                       for tag, arm in TP_ARMS.items()}
+        torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(work, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        os._exit(1)
+
+
+def tp_kernels():
+    from r3d_tpu_torch.ops import attention as att
+    from r3d_tpu_torch.ops import cross_attention as ca
+    from r3d_tpu_torch.ops import fuser_kernel as fk
+    from r3d_tpu_torch.ops import fuser_kernel_bwd as fkb
+
+    return [fk.KERNEL, fk.TAIL_KERNEL, fkb.KERNEL, att.KERNEL, att.DROPOUT_KERNEL, att.BWD_KERNEL,
+            att.KERNEL_BF16, att.DROPOUT_KERNEL_BF16, att.BWD_KERNEL_BF16, ca.FWD_KERNEL_FP32,
+            ca.BWD_KERNEL_FP32]
+
+
+@contextlib.contextmanager
+def _attention_shapes(seen):
+    """Within: every attention route a layer calls records (route, heads,
+    channels a head times heads) into ``seen``."""
+    from r3d_tpu_torch.models import layers
+
+    saved = layers.flash_attention, layers.flash_attention_dropout, layers.cross_attention_native
+
+    def spy(route, fn, native=False):
+        def call(*a):
+            q = a[0]
+            seen.add((route, a[7], q.shape[-1]) if native else (route, q.shape[1],
+                                                                q.shape[1] * q.shape[-1]))
+            return fn(*a)
+        return call
+
+    layers.flash_attention = spy("K3", saved[0])
+    layers.flash_attention_dropout = spy("K4", saved[1])
+    layers.cross_attention_native = spy("K6", saved[2], native=True)
+    try:
+        yield
+    finally:
+        (layers.flash_attention, layers.flash_attention_dropout,
+         layers.cross_attention_native) = saved
+
+
+def _tp_arm(tag, kernels, batches, inits, mesh=None):
+    """One ``TP_ARMS`` arm on ``mesh`` (None: one process): the dropout-off
+    steps (their losses, times, launches, the attention shapes, the whole
+    final state), then, for the tp arms on a mesh, the dropout steps
+    (losses, whether every tensor is finite, this rank's replicated
+    tensors)."""
+    import dataclasses
+    import os
+
+    import torch
+
+    from r3d_tpu_torch.models import futr_unsupervised
+    from r3d_tpu_torch.parallel.mesh import shard_state, whole_model_state
+    from r3d_tpu_torch.train.loop import Trainer
+
+    key, batch_key, _, dropout, native, epoch = TP_ARMS[tag]
+    cfg = tp_configs()[key]
+    before = os.environ.get("R3D_CROSS_NATIVE")
+    if native:
+        os.environ["R3D_CROSS_NATIVE"] = "1"
+    saved, futr_unsupervised.SRC_DROPOUT = futr_unsupervised.SRC_DROPOUT, 0.0
+    try:
+        res = {}
+        for drop in ((0.0, 0.1) if dropout and mesh is not None else (0.0,)):
+            c = cfg.replace(model=dataclasses.replace(cfg.model, dropout=drop,
+                                                      fuser_dropout=drop)) if drop else cfg
+            trainer = Trainer(c, tp_classes(key), mesh=mesh)
+            state = trainer.init_state(1, inits[key])
+            if mesh is not None:
+                state = shard_state(state, mesh)
+            n = TP_DROPOUT_STEPS if drop else TP_STEPS
+            steps = (batches[batch_key] * n)[:n]
+            seen = set()
+            for k in kernels:
+                k.launches = 0
+            with _attention_shapes(seen):
+                losses, times = _tp_steps(trainer, state, steps, epoch, seed_dropout=drop > 0)
+            torch.cuda.synchronize()
+            launches = {k.name: k.launches for k in kernels}
+            whole = {k: v.detach().cpu() for k, v in whole_model_state(state.model).items()}
+            placed = getattr(state.model, "placement", {})
+            r = dict(losses=losses, times=times, launches=launches, seen=sorted(seen),
+                     finite=all(bool(torch.isfinite(v).all()) for v in whole.values()
+                                if v.is_floating_point()),
+                     sliced=len(placed))
+            if drop:
+                r["replicated"] = {k: v.detach().cpu() for k, v in state.model.state_dict().items()
+                                   if k not in placed}
+            else:
+                r["state"] = whole
+            res["on" if drop else "off"] = r
+        return res
+    finally:
+        futr_unsupervised.SRC_DROPOUT = saved
+        if before is None:
+            os.environ.pop("R3D_CROSS_NATIVE", None)
+        else:
+            os.environ["R3D_CROSS_NATIVE"] = before
+
+
+def tensor_parallel(kernels, card):
+    """Phase 22: see the module docstring. Returns each kernel's launches
+    on the two ranks' arms (both ranks summed) and the tp-shape checks'
+    errors."""
+    import os
+    import shutil
+
+    import torch
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    shapes = check_tp_shapes(torch.Generator().manual_seed(SEED + 22), torch.device("cuda"))
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(here, TP_DIR)
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    procs = []
+    try:
+        cfgs = tp_configs()
+        batches = tp_batches(cfgs)
+        inits = tp_inits(cfgs)
+        torch.save(batches, os.path.join(work, "batches.pt"))
+        torch.save(inits, os.path.join(work, "inits.pt"))
+        ctx = mp.get_context("spawn")
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=_tp_rank, args=(r, 2, work), daemon=True) for r in range(2)]
+        for p in procs:
+            p.start()
+        # while the ranks start: one process on the same card
+        one = {tag: _tp_arm(tag, kernels, batches, inits) for tag in TP_ARMS}
+        for p in procs:
+            p.join(max(1.0, TP_TIMEOUT - (time.perf_counter() - t0)))
+        errors = [open(os.path.join(work, f)).read() for f in sorted(os.listdir(work))
+                  if f.endswith(".err")]
+        if any(p.is_alive() or p.exitcode != 0 for p in procs) or errors:
+            raise AssertionError(f"tensor_parallel: a gloo rank failed: exit codes "
+                                 f"{[p.exitcode for p in procs]} {errors}")
+        ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+        t_ranks = time.perf_counter() - t0
+        print(f"tp [{card}]: gloo collectives on CUDA tensors in torch {torch.__version__}: "
+              f"{ranks[0]['gloo']}")
+        total = {k.name: 0 for k in kernels}
+        for tag, (key, _, sizes, dropout, native, epoch) in TP_ARMS.items():
+            lr = tp_configs()[key].train.lr
+            got = [r["arms"][tag] for r in ranks]
+            want = one[tag]["off"]
+            bf16 = tp_configs()[key].model.compute_dtype == "bfloat16"
+            tol = TP_BF16_LOSS_TOL if bf16 else DP_LOSS_TOL
+            loss_err = max(abs(a - b) / max(1.0, abs(b))
+                           for a, b in zip(got[0]["off"]["losses"], want["losses"]))
+            bad = _close_states(got[0]["off"]["state"], want["state"], lr, TP_STEPS,
+                                share=not bf16)
+            split = [k for k in want["state"] if not torch.equal(got[0]["off"]["state"][k],
+                                                                 got[1]["off"]["state"][k])]
+            line = (f"tp [{card}]: {tag} (epoch {epoch}), {TP_STEPS} steps on 2 gloo ranks vs one "
+                    f"process: max|loss diff| / max(1, |loss|) {loss_err:.3e} (tol {tol}), "
+                    f"losses {got[0]['off']['losses']} vs {want['losses']}; {len(bad)} of "
+                    f"{len(want['state'])} final tensors outside the fit bounds {bad[:3]}; the "
+                    f"ranks' whole states differ in {len(split)} tensors; each rank holds "
+                    f"{got[0]['off']['sliced']} sliced tensors")
+            print(line)
+            if loss_err > tol or bad or split or not got[0]["off"]["finite"]:
+                raise AssertionError(f"tensor_parallel: {tag} disagrees with one process")
+            for r, g in enumerate(got):
+                launched = {n: sum(part["launches"].get(n, 0) for part in g.values())
+                            for n in total}
+                seen = sorted({s for part in g.values() for s in part["seen"]})
+                print(f"tp [{card}]: {tag}: gloo rank {r}: launches "
+                      f"{ {n: c for n, c in launched.items() if c} }; attention calls (route, "
+                      f"heads, channels) {seen}; median step "
+                      f"{1e3 * float(np.median(g['off']['times'][1:])):.2f} ms (one process "
+                      f"{1e3 * float(np.median(want['times'][1:])):.2f}; the first step "
+                      f"aside)")
+                for n, c in launched.items():
+                    total[n] += c
+                if sizes.get("tp", 1) > 1:
+                    heads = {s[1] for s in seen}
+                    if heads != {4}:
+                        raise AssertionError(f"tensor_parallel: {tag}: rank {r}'s attention "
+                                             f"ran on {heads} heads, not 4 of 8")
+                    routes = {s[0] for s in seen}
+                    need = {"K6"} if native else {"K3", "K4"}
+                    if not need <= routes:
+                        raise AssertionError(f"tensor_parallel: {tag}: rank {r} took routes "
+                                             f"{routes}, not {need}")
+            if dropout:
+                on = [g["on"] for g in got]
+                rep = [k for k in on[0]["replicated"] if not torch.equal(
+                    on[0]["replicated"][k], on[1]["replicated"][k])]
+                print(f"tp [{card}]: {tag}: {TP_DROPOUT_STEPS} steps with dropout 0.1: losses "
+                      f"{on[0]['losses']}, finite {on[0]['finite'] and on[1]['finite']}; the tp "
+                      f"ranks' replicated tensors differ in {len(rep)} of "
+                      f"{len(on[0]['replicated'])}")
+                if rep or not (on[0]["finite"] and on[1]["finite"]):
+                    raise AssertionError(f"tensor_parallel: {tag} with dropout: replicas "
+                                         f"differ {rep[:5]} or a value is not finite")
+        print(f"tp [{card}]: 2 gloo ranks, {len(TP_ARMS)} arms, {t_ranks:.1f} s with their "
+              f"start; the tensor_parallel phase took {time.perf_counter() - t_phase:.1f} s")
+        return total, shapes
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def cards_main() -> int:
     """``chip_smoke.py --cards``: ``cli_under_torchrun`` on every card the
-    host has (two or more) against one card, alone; prints the cards' names
-    and power limits, the readings and, last, one JSON object of them."""
+    host has (two or more) against one card, alone, on a dp mesh and (an
+    even count of cards) on dp x tp 2; prints the cards' names and power
+    limits, the readings and, last, one JSON object of them."""
     import os
     import shutil
 
@@ -6553,10 +7020,13 @@ def cards_main() -> int:
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     try:
-        got = cli_under_torchrun(n, dp_cli_argv(work), work, here, cards)
+        argv = dp_cli_argv(work)
+        got = cli_under_torchrun(n, argv, work, here, cards)
+        # dp x tp 2 (NCCL, FSDP over dp): tensor parallelism across cards
+        got_tp = cli_under_torchrun(n, argv, work, here, cards, tp=2) if n % 2 == 0 else None
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    print(json.dumps({"ranks": n, **got}))
+    print(json.dumps({"ranks": n, **got, "mesh_tp_2": got_tp}))
     return 0
 
 
@@ -6769,6 +7239,20 @@ def main() -> int:
     dp_counts = data_parallel(kernels, card)
     print(f"launches on the one-rank group's fits: "
           f"{ {k: c for k, c in dp_counts.items() if c} }")
+    # tensor and expert parallelism (A14): two gloo ranks on tp, ep and dp meshes
+    tp_counts, tp_shapes = tensor_parallel(kernels, card)
+    print(f"launches on the tensor_parallel phase's ranks: "
+          f"{ {k: c for k, c in tp_counts.items() if c} }")
+    tp_path = (fk.TAIL_KERNEL, fkb.KERNEL, att.KERNEL, att.DROPOUT_KERNEL, att.BWD_KERNEL,
+               att.KERNEL_BF16, att.BWD_KERNEL_BF16, ca.FWD_KERNEL_FP32, ca.BWD_KERNEL_FP32)
+    unused = [k.name for k in tp_path if tp_counts[k.name] == 0]
+    if unused:
+        raise AssertionError(f"the tensor_parallel phase never launched {unused}")
+    tp_shape_err = {k.name: tp_shapes[key][1] for k, key in (
+        (att.KERNEL, "K3 fp32"), (att.DROPOUT_KERNEL, "K4 fp32"), (att.BWD_KERNEL, "K5 fp32"),
+        (att.KERNEL_BF16, "K3 bf16"), (att.DROPOUT_KERNEL_BF16, "K4 bf16"),
+        (att.BWD_KERNEL_BF16, "K5 bf16"), (ca.FWD_KERNEL, "K6 bf16"), (ca.BWD_KERNEL, "K7 bf16"),
+        (ca.FWD_KERNEL_FP32, "K6 fp32"), (ca.BWD_KERNEL_FP32, "K7 fp32"))}
     a114 = {   # this slice's paths, a column each in the kernels line
         "ntu_launches": {k.name: sum(c[k.name] for c in ntu.values()) for k in kernels},
         "depth_launches": darai[DEPTH_MODEL][0], "depth_sweep_launches": darai[DEPTH_MODEL][1],
@@ -6777,10 +7261,12 @@ def main() -> int:
         "bf16_launches": bf16_counts,   # the fusion models in bf16
         # serving deployment (A13): the live and the exported sessions
         "deploy_launches": deploy_live, "deploy_exported_launches": deploy_exported,
-        "dp_launches": dp_counts}   # the one-rank NCCL group's three fits (A14)
+        "dp_launches": dp_counts,   # the one-rank NCCL group's three fits (A14)
+        "tp_launches": tp_counts}   # the two ranks' tp, ep and dp arms (A14), both summed
 
     def a114_columns(name):
-        return {col: counts[name] for col, counts in a114.items()}
+        return {**{col: counts[name] for col, counts in a114.items()},
+                "tp_shape_rel_err": tp_shape_err.get(name)}
 
     rows = []
     utk = (counts, serving_counts)

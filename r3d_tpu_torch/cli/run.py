@@ -22,12 +22,14 @@ gathers its windows from the val videos on the device.
 
 Under ``torchrun`` (``torchrun --nproc_per_node N -m r3d_tpu_torch.cli
 ...``) the CLI forms the process group (NCCL on ``cuda:{LOCAL_RANK}``, gloo
-under ``--cpu``) and a dp mesh of ``--mesh_dp`` ranks (all of them by
-default), as the JAX CLI builds its mesh on a host of several devices
-(``r3d_tpu/cli/run.py:59-73``): the trainer and the sweep split their
-batches over it, ``--fsdp`` shards the train state over it, and only rank 0
-logs and writes. A group the caller already formed is used as it is. Mesh
-axes other than dp are ROADMAP item A14's next slices.
+under ``--cpu``) and a (dp, ep, tp) mesh of ``--mesh_dp`` x ``--mesh_ep``
+x ``--mesh_tp`` ranks (dp takes what the others leave by default), as the
+JAX CLI builds its mesh on a host of several devices
+(``r3d_tpu/cli/run.py:59-73``), and logs it (``mesh: {...}``): the trainer
+and the sweep split their batches over dp and the parameters over tp and
+ep, ``--fsdp`` shards the train state over dp, and only rank 0 logs and
+writes. A group the caller already formed is used as it is. The sp and pp
+axes are ROADMAP item A14's next slices.
 """
 
 from __future__ import annotations
@@ -69,8 +71,8 @@ def _splits(config: Config):
 
 def _check_ported(config: Config) -> None:
     m = config.mesh
-    if max(m.tp, m.sp, m.pp, m.ep) > 1:
-        raise NotImplementedError("mesh axes other than dp are not ported yet "
+    if max(m.sp, m.pp) > 1:
+        raise NotImplementedError("the sp and pp mesh axes are not ported yet "
                                   "(ROADMAP queue A, item A14)")
 
 

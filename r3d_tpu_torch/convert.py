@@ -144,3 +144,42 @@ def flax_kernels(model: torch.nn.Module) -> Dict[str, Tuple[int, int]]:
                 getattr(module, "weight", None), torch.nn.Parameter):
             out[prefix + "weight"] = (1, 1)
     return out
+
+
+def flax_path(model: torch.nn.Module, name: str) -> Tuple[str, Tuple[int, ...]]:
+    """The flax leaf a ``state_dict`` entry of ``model`` is made from, the
+    rules above run backwards: (its path, ``"a/layer0/b/kernel"``, and the
+    permutation that takes the flax leaf's axes to the entry's, so that the
+    entry's axis ``i`` is the leaf's axis ``perm[i]``). An LSTM's stacked
+    gate weights name their module's path and keep their own name: several
+    leaves make each of them."""
+    from r3d_tpu_torch.models.fuser import FuserBlock, TorchBatchNorm, _SAFuserCore
+
+    *mods, leaf = name.split(".")
+    module = model.get_submodule(".".join(mods))
+    parent = model.get_submodule(".".join(mods[:-1])) if mods else None
+    value = getattr(module, leaf)
+    perm = tuple(range(value.dim()))
+    if leaf == "weight" and "experts" in mods:
+        leaf, perm = "kernel", (0, 2, 1)
+    elif leaf == "weight" and isinstance(module, (torch.nn.Linear, torch.nn.Conv1d,
+                                                  torch.nn.Conv2d)):
+        leaf = "kernel"
+        perm = (3, 2, 0, 1) if value.dim() == 4 else tuple(reversed(perm))
+    elif leaf == "v" and value.dim() == 3:
+        perm = (2, 1, 0)
+    elif leaf == "weight" and isinstance(module, (torch.nn.LayerNorm, TorchBatchNorm)):
+        leaf = "scale"
+    elif leaf == "weight" and isinstance(module, torch.nn.Embedding):
+        leaf = "embedding"
+    if isinstance(parent, (FuserBlock, _SAFuserCore)):
+        leaf = f"{mods.pop()}_{leaf}"
+    parts, i = [], 0
+    while i < len(mods):
+        if mods[i] == "layers" and i + 1 < len(mods) and mods[i + 1].isdigit():
+            parts.append(f"layer{mods[i + 1]}")
+            i += 2
+        else:
+            parts.append(mods[i])
+            i += 1
+    return "/".join(parts + [leaf]), perm

@@ -42,13 +42,15 @@ any other batch size warns.
 ``r3d_tpu/eval/predict.py:114-126`` shards it: ``eval_batch`` rounds up to
 the dp extent, each rank runs its rows of every chunk (inside
 ``split_rows``, so a fuser that ranks channels by activation ranks them
-over the whole chunk) and every rank gathers the chunk's outputs; a model
-that attends across the batch runs every chunk whole on every rank, at its
-own ``eval_batch``. The filler rows stay masked and dropped, so the MoC
-tables are the one-process sweep's.
+over the whole chunk, and MoE routes over it) and every rank gathers the
+chunk's outputs over dp; a model that attends across the batch runs every
+chunk whole on every rank, at its own ``eval_batch``. Each module holds
+its rank's tp and ep slices (``parallel.mesh.place_model``), so the ranks
+of one dp coordinate compute its rows together. The filler rows stay
+masked and dropped, so the MoC tables are the one-process sweep's.
 
 Not ported yet, and raising ``NotImplementedError`` naming their ROADMAP
-item: mesh axes other than dp (A14) and ``gif_dir`` (A15).
+item: the sp and pp mesh axes (A14) and ``gif_dir`` (A15).
 """
 
 from __future__ import annotations
@@ -78,6 +80,8 @@ from r3d_tpu_torch.parallel.mesh import (
     dp_group,
     dp_size,
     is_writer,
+    local_model_state,
+    place_model,
     split_rows,
 )
 from r3d_tpu_torch.serving import resolve_device
@@ -127,7 +131,7 @@ class Predictor:
     def __init__(self, config: Config, model: nn.Module, n_class: int, eval_batch: int = 8,
                  mesh=None, device: Union[str, torch.device] = "cuda"):
         """``model``: a module of ``config.model`` that ``state_dict``
-        variables load into; ``mesh`` a dp mesh to split the sweep over."""
+        variables load into; ``mesh`` the mesh to split the sweep over."""
         check_mesh(mesh)
         self.mesh = mesh
         self.group = dp_group(mesh)
@@ -161,9 +165,9 @@ class Predictor:
         for i, v in enumerate(variables if many else [variables]):
             if not isinstance(v, nn.Module):
                 m = self.model if i == 0 else copy.deepcopy(self.model)
-                m.load_state_dict(v)
+                m.load_state_dict(local_model_state(m, v))
                 v = m
-            modules.append(v.to(self.device).eval())
+            modules.append(place_model(v.to(self.device), self.mesh).eval())
         return modules
 
     def _prepare(self, source: VideoSource, obs_p: float) -> Dict[int, List[Dict]]:

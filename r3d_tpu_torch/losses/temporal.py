@@ -23,6 +23,11 @@ quirks are kept:
 - contrastive: ``fill_diagonal_(0)`` on a cluster's [N, T] positive mask
   clears absolute columns 0..N-1 (utils.py:259), the true self-pair only
   when the cluster starts at frame 0.
+
+Inside ``parallel.mesh.split_rows`` the cluster loss's counts are the
+global batch's (the existing clusters, the rows with more than one, the
+cluster count of the global batch's last such row), and each rank's value
+is scaled so that the ranks' mean is the global loss.
 """
 
 from __future__ import annotations
@@ -31,6 +36,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from r3d_tpu_torch.parallel.mesh import global_count, rank_table
 
 
 def segment_ids_from_labels(labels: np.ndarray, valid: Optional[np.ndarray],
@@ -93,7 +100,10 @@ def temporal_cluster_loss(predictions: torch.Tensor, seg_ids: torch.Tensor,
     sq_dev = torch.where(valid, sq_dev, torch.zeros((), dtype=sq_dev.dtype, device=sq_dev.device))
     per_cluster = torch.einsum("btk,bt->bk", onehot, sq_dev) / (counts * C).clamp_min(1.0)
     zero = torch.zeros((), dtype=predictions.dtype, device=predictions.device)
-    intra = torch.where(exists, per_cluster, zero).sum() / exists.sum().clamp_min(1)
+    n_exists = global_count(exists.sum())
+    if n_exists is None:
+        n_exists = exists.sum().clamp_min(1)
+    intra = torch.where(exists, per_cluster, zero).sum() / n_exists
 
     n_b = exists.sum(-1)                                               # [B]
     multi = n_b > 1
@@ -104,11 +114,18 @@ def temporal_cluster_loss(predictions: torch.Tensor, seg_ids: torch.Tensor,
     one = torch.ones((), dtype=sq.dtype, device=sq.device)
     dist = torch.sqrt(torch.where(pair, sq.clamp_min(1e-12), one))
     inter_sum = torch.where(pair, 1.0 / (1e-5 + dist), zero).sum()
-    n_multi = multi.sum()
     idxs = torch.arange(B, device=predictions.device)
     last_multi = torch.where(multi, idxs, -1).max()
     last_count = torch.where(last_multi >= 0, n_b[last_multi.clamp_min(0)], 2)
-    inter = torch.where(n_multi > 0, inter_sum / (n_multi * (last_count - 1)).clamp_min(1), zero)
+    # every rank's (rows with more than one cluster, its last such row's
+    # count): the global batch's last such row is the last rank's that has one
+    table = rank_table(torch.stack([multi.sum(), last_count]))
+    n_multi = table[:, 0].sum()
+    ranks = torch.arange(table.shape[0], device=predictions.device)
+    last_rank = torch.where(table[:, 0] > 0, ranks, 0).max()
+    last_count = torch.where(n_multi > 0, table[last_rank, 1], 2)
+    denom = (n_multi * (last_count - 1)).clamp_min(1) / table.shape[0]
+    inter = torch.where(n_multi > 0, inter_sum / denom, zero)
     return intra + inter
 
 

@@ -19,6 +19,7 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from r3d_tpu_torch.config import ModelConfig
@@ -26,6 +27,7 @@ from r3d_tpu_torch.models.fuser import CMFuserBN, CMFuserGrad, CMFuserNoExchange
 from r3d_tpu_torch.models.futr import Heads, InputEmbed, compute_dtype, embed_dtype, moe_spec
 from r3d_tpu_torch.models.layers import LayerNorm, adaptive_avg_pool1d, linear_in
 from r3d_tpu_torch.models.transformer import FUTRTransformer
+from r3d_tpu_torch.parallel.tensor import Axis, copy_to, gather_from
 
 FUSERS = {
     "futr_fusion_bn": CMFuserBN,
@@ -37,17 +39,33 @@ FUSERS = {
 
 
 class DepthEmbed(nn.Module):
-    """Raw depth frames -> hidden: flatten, Linear, LayerNorm, ReLU."""
+    """Raw depth frames -> hidden: flatten, Linear, LayerNorm, ReLU. With a
+    tp axis the projection is column-parallel (its kernel's rule; its bias
+    has none and stays whole, each rank adding its slice of it): the rank's
+    C/tp outputs, each computed as one process computes it, are gathered
+    before the LayerNorm."""
 
     def __init__(self, cfg: ModelConfig, depth_dim: int):
         super().__init__()
         self.cfg = cfg
+        self.tp: Optional[Axis] = None
         self.depth_projection = nn.Linear(depth_dim, cfg.hidden_dim)
         self.depth_layernorm = LayerNorm(cfg.hidden_dim, compute_dtype(cfg))
 
+    def set_axes(self, tp: Optional[Axis]) -> None:
+        self.tp = tp
+
     def forward(self, depth):
         B, S = depth.shape[:2]
-        h = linear_in(depth.reshape(B, S, -1), self.depth_projection, embed_dtype(self.cfg))
+        x = depth.reshape(B, S, -1)
+        dt = embed_dtype(self.cfg)
+        if self.tp is None:
+            h = linear_in(x, self.depth_projection, dt)
+        else:
+            w, b = self.depth_projection.weight, copy_to(self.depth_projection.bias, self.tp)
+            h = F.linear(copy_to(x, self.tp).to(dt), w.to(dt),
+                         b[self.tp.part(b.shape[0])].to(dt))
+            h = gather_from(h, self.tp)
         return torch.relu(self.depth_layernorm(h.to(compute_dtype(self.cfg))))
 
 

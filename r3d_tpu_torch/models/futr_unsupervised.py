@@ -19,7 +19,9 @@ rows and the embedded stream. The sources differ in their queries:
   encoding and a hard-coded ``Dropout(0.1)``, which ``cfg.dropout`` does not
   reach; ``l3_attention`` runs on the (S, B, C) stream, so it attends ACROSS
   THE BATCH at each step (COMPAT #17: the reference's ``batch_first=True``
-  fed (T, B, C) tensors); the queries are its output plus the encoding,
+  fed (T, B, C) tensors; on a dp group its keys are the global batch's
+  rows, ``parallel.mesh.gather_rows``); the queries are its output plus
+  the encoding,
   pooled to ``n_query`` rows (``adaptive_avg_pool1d``, COMPAT #18) before
   the decoder. Variants: ``temp2`` adds the L3 stream into the source, runs
   the decoder on a learned ``query_embed`` parameter of ``n_query`` rows
@@ -72,6 +74,7 @@ from r3d_tpu_torch.models.layers import (
     sinusoidal_positional_encoding,
 )
 from r3d_tpu_torch.models.transformer import FUTRTransformer
+from r3d_tpu_torch.parallel.mesh import gather_rows
 
 SOURCES = ("gt", "self_attention", "gaze", "depth")
 GAZE_STEPS = 8   # GazeCNN's output rows: its constructor default, never overridden
@@ -191,8 +194,11 @@ class FUTRUnsupervised(nn.Module):
             # encoding and its dropout
             action_query = query_stream = self.query_drop(self.depth_embed(query) + pe)
         else:
-            src_t = src.transpose(0, 1)   # (S, B, C): attention across the batch
-            query_stream = self.l3_attention(src_t, src_t, src_t).transpose(0, 1) + pe
+            # (S, B, C): attention across the batch, whose keys are the
+            # global batch's rows where a dp group splits them
+            src_t = src.transpose(0, 1)
+            all_t = gather_rows(src).transpose(0, 1)
+            query_stream = self.l3_attention(src_t, all_t, all_t).transpose(0, 1) + pe
             if self.variant == "temp2":
                 seg_stream = src
                 src = src + query_stream

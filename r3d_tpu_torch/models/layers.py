@@ -17,12 +17,23 @@ the module's device) and the attention kernel's per-call seed from
 ``seed_generator`` (one on the CPU, so drawing it never waits for the card);
 the trainer sets both with ``set_generators``. None means torch's default
 generators.
+
+Tensor parallelism (``parallel.mesh.place_model``, JAX's TP rules): a
+``MultiheadAttention`` or ``FeedForward`` given a tp axis (``set_axes``)
+holds its rank's slice, Megatron's: q/k/v column-parallel (the rank's
+H/tp heads, whose attention runs on them alone), ``out_proj`` and
+``linear2`` row-parallel, their partial sums added over tp and their
+biases added once after. A mask the port draws itself is drawn whole from
+the generator every tp rank shares and cut to the rank's slice
+(``Dropout.cuts``), so a tp step draws one process's masks; the
+attention kernels' seeds fold in the tp coordinate, as JAX's
+``flash_attention_dropout_sharded`` does.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -37,8 +48,10 @@ from r3d_tpu_torch.ops.cross_attention import (
     cross_attention_native,
     cross_attention_native_eligible,
 )
+from r3d_tpu_torch.parallel.tensor import Axis, copy_to, reduce_from
 
 INT32_MAX = 2 ** 31 - 1
+TP_SEED_STRIDE = 7919   # r3d_tpu/ops/attention.py:435: a tp shard's seed offset
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -46,6 +59,14 @@ def linear_in(x, layer: nn.Linear, dtype: torch.dtype):
     """``layer(x)`` with input, weight and bias cast to ``dtype`` (flax
     ``Dense(dtype=...)``)."""
     return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+
+
+def row_parallel(x, layer: nn.Linear, dtype: torch.dtype, tp: Optional[Axis]):
+    """``linear_in(x, layer, dtype)`` of a row-parallel layer: with ``tp``
+    the rank's partial product summed over it, then the bias, once."""
+    if tp is None:
+        return linear_in(x, layer, dtype)
+    return reduce_from(F.linear(x.to(dtype), layer.weight.to(dtype)), tp) + layer.bias.to(dtype)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -73,25 +94,38 @@ def attention_bias_from_padding(key_padding_mask: Optional[torch.Tensor],
     return bias[:, None, None, :]
 
 
-def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]):
+Cuts = Tuple[Tuple[int, Axis], ...]
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+            cuts: Cuts = ()):
     """flax ``nn.Dropout``: keep with probability 1 - rate, scale the kept
-    values by 1/(1 - rate)."""
-    keep = torch.rand(x.shape, device=x.device, generator=generator) >= rate
+    values by 1/(1 - rate). ``x`` is a rank's slice along each (dim, axis)
+    of ``cuts``: the whole mask is drawn and cut to it."""
+    shape = list(x.shape)
+    for d, a in cuts:
+        shape[d] *= a.size
+    u = torch.rand(shape, device=x.device, generator=generator)
+    for d, a in cuts:
+        u = u[(slice(None),) * (d % x.dim()) + (a.part(u.shape[d]),)]
+    keep = u >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class Dropout(nn.Module):
-    """Dropout in train mode at ``rate`` > 0, identity otherwise."""
+    """Dropout in train mode at ``rate`` > 0, identity otherwise; ``cuts``
+    where its input is a rank's slice (``dropout``)."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
         self.generator: Optional[torch.Generator] = None
+        self.cuts: Cuts = ()
 
     def forward(self, x):
         if not self.training or self.rate == 0.0:
             return x
-        return dropout(x, self.rate, self.generator)
+        return dropout(x, self.rate, self.generator, self.cuts)
 
 
 class FixedDropout(Dropout):
@@ -128,6 +162,9 @@ class MultiheadAttention(nn.Module):
       (K4 forward, K5 backward) with a fresh int32 seed per call;
     - otherwise plain attention in the compute dtype, with dropout on the
       weights in train mode.
+
+    With a tp axis every route runs on the rank's H/tp heads (K6/K7 on its
+    C/tp channels, each head's channels together).
     """
 
     def __init__(self, dim: int, n_head: int, dropout: float = 0.0,
@@ -138,29 +175,42 @@ class MultiheadAttention(nn.Module):
         self.dtype = dtype
         self.generator: Optional[torch.Generator] = None
         self.seed_generator: Optional[torch.Generator] = None
+        self.tp: Optional[Axis] = None
         self.q_proj = nn.Linear(dim, dim)
         self.k_proj = nn.Linear(dim, dim)
         self.v_proj = nn.Linear(dim, dim)
         self.out_proj = nn.Linear(dim, dim)
 
+    def set_axes(self, tp: Optional[Axis]) -> None:
+        self.tp = tp
+
     def _seed(self) -> int:
-        return int(torch.randint(0, INT32_MAX, (), generator=self.seed_generator))
+        seed = int(torch.randint(0, INT32_MAX, (), generator=self.seed_generator))
+        if self.tp is not None:
+            seed = (seed + TP_SEED_STRIDE * self.tp.rank) % INT32_MAX
+        return seed
 
     def forward(self, q, k, v, key_padding_mask=None):
         B, Lq, C = q.shape
         Lk = k.shape[1]
-        H = self.n_head
-        D = C // H
+        tp = self.tp
+        D = C // self.n_head
+        H = self.n_head // (1 if tp is None else tp.size)   # this rank's heads
+        Cl = H * D
         scale = 1.0 / math.sqrt(D)
+        if tp is not None:
+            qi = copy_to(q, tp)
+            ki = qi if k is q else copy_to(k, tp)
+            q, k, v = qi, ki, ki if v is k else copy_to(v, tp)
         qf = linear_in(q, self.q_proj, self.dtype)
         kf = linear_in(k, self.k_proj, self.dtype)
         vf = linear_in(v, self.v_proj, self.dtype)
         bias = attention_bias_from_padding(key_padding_mask)
         rate = self.dropout if self.training else 0.0
-        if cross_attention_native_eligible(Lq, Lk, C, H, rate, q.device):
+        if cross_attention_native_eligible(Lq, Lk, Cl, H, rate, q.device):
             seed = self._seed() if rate > 0.0 else 0
             out = cross_attention_native(qf, kf, vf, bias, seed, scale, rate, H)
-            return linear_in(out, self.out_proj, self.dtype)
+            return row_parallel(out, self.out_proj, self.dtype, tp)
         heads = lambda x, L: x.view(B, L, H, D).transpose(1, 2).contiguous()
         qh, kh, vh = heads(qf, Lq), heads(kf, Lk), heads(vf, Lk)
         if rate == 0.0 and attention_kernel_eligible(Lq, Lk, D, q.device):
@@ -173,26 +223,32 @@ class MultiheadAttention(nn.Module):
                 scores = scores + bias.to(scores.dtype)
             w = torch.softmax(scores.float(), dim=-1).to(self.dtype)
             if rate > 0.0:
-                w = dropout(w, rate, self.generator)
+                w = dropout(w, rate, self.generator, () if tp is None else ((1, tp),))
             out = torch.einsum("bhqk,bhkd->bhqd", w, vh)
-        return linear_in(out.transpose(1, 2).reshape(B, Lq, C), self.out_proj, self.dtype)
+        return row_parallel(out.transpose(1, 2).reshape(B, Lq, Cl), self.out_proj, self.dtype, tp)
 
 
 class FeedForward(nn.Module):
     """linear1 -> ReLU -> dropout -> linear2. ``pad_mask`` is for the MoE
-    layer's signature; a token-wise FFN needs none."""
+    layer's signature; a token-wise FFN needs none. With a tp axis linear1
+    is column-parallel and linear2 row-parallel, its bias added once."""
 
     def __init__(self, dim: int, hidden_dim: int, dropout: float = 0.0,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
+        self.tp: Optional[Axis] = None
         self.linear1 = nn.Linear(dim, hidden_dim)
         self.linear2 = nn.Linear(hidden_dim, dim)
         self.drop = Dropout(dropout)
 
+    def set_axes(self, tp: Optional[Axis]) -> None:
+        self.tp = tp
+        self.drop.cuts = () if tp is None else ((-1, tp),)
+
     def forward(self, x, pad_mask=None):
-        h = self.drop(torch.relu(linear_in(x, self.linear1, self.dtype)))
-        return linear_in(h, self.linear2, self.dtype)
+        h = self.drop(torch.relu(linear_in(copy_to(x, self.tp), self.linear1, self.dtype)))
+        return row_parallel(h, self.linear2, self.dtype, self.tp)
 
 
 def feed_forward(dim: int, hidden_dim: int, dropout: float, dtype: torch.dtype,

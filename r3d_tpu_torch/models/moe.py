@@ -26,6 +26,17 @@ JAX dispatches with one-hot [K*T, E, cap] tensors; the port indexes:
 the kept assignments are copied into their [E, cap, C] slots and gathered
 back from them, which gives the same values (each slot holds one token, and
 each token's output one product a choice).
+
+On a mesh (``parallel.mesh``) JAX routes over the global batch: inside
+``split_rows`` T is the dp group's token count, ``cap`` is taken from it,
+and an assignment's queue place is its place in the global k-major,
+rank-major order (one all-reduce of each rank's [K, E] counts gives each
+rank its offsets); the balance term's f, P and token count are global
+sums. The experts shard over ep (each rank holds E/ep of them, its slots
+of the global queues) and each expert's two linears over tp, as JAX's
+rules say; tokens are replicated over ep and tp, so each rank adds its
+experts' contributions and one sum over ep (and tp inside each expert)
+combines them: no all-to-all.
 """
 
 from __future__ import annotations
@@ -37,6 +48,8 @@ import torch
 from torch import nn
 
 from r3d_tpu_torch.models.layers import Dropout
+from r3d_tpu_torch.parallel.mesh import global_sum, rank_table, split_group, split_size
+from r3d_tpu_torch.parallel.tensor import Axis, copy_to, reduce_from
 
 
 class Router(nn.Linear):
@@ -56,24 +69,34 @@ class StackedLinear(nn.Module):
         self.weight = nn.Parameter(torch.zeros(n, out_features, in_features))
         self.bias = nn.Parameter(torch.zeros(n, out_features))
 
-    def forward(self, x, dtype: torch.dtype):
-        """[E, N, in] -> [E, N, out], the product then the bias in ``dtype``."""
-        y = torch.bmm(x.to(dtype), self.weight.to(dtype).transpose(1, 2))
+    def forward(self, x, dtype: torch.dtype, tp: Optional[Axis] = None):
+        """[E, N, in] -> [E, N, out], the product then the bias in ``dtype``;
+        with ``tp`` the product's partial sums (row-parallel) are added over
+        it first."""
+        y = reduce_from(torch.bmm(x.to(dtype), self.weight.to(dtype).transpose(1, 2)), tp)
         return y + self.bias.to(dtype)[:, None, :]
 
 
 class Experts(nn.Module):
-    """E FFNs over their own [E, cap, C] slots."""
+    """E FFNs over their own [E, cap, C] slots; with an ep axis this rank's
+    E/ep of them, with a tp axis each split column- then row-parallel."""
 
     def __init__(self, n: int, dim: int, hidden_dim: int, dropout: float, dtype: torch.dtype):
         super().__init__()
         self.dtype = dtype
+        self.ep: Optional[Axis] = None
+        self.tp: Optional[Axis] = None
         self.linear1 = StackedLinear(n, dim, hidden_dim)
         self.linear2 = StackedLinear(n, hidden_dim, dim)
         self.drop = Dropout(dropout)
 
+    def set_axes(self, ep: Optional[Axis], tp: Optional[Axis]) -> None:
+        self.ep, self.tp = ep, tp
+        self.drop.cuts = tuple((d, a) for d, a in ((0, ep), (2, tp)) if a is not None)
+
     def forward(self, x):
-        return self.linear2(self.drop(torch.relu(self.linear1(x, self.dtype))), self.dtype)
+        h = self.drop(torch.relu(self.linear1(copy_to(x, self.tp), self.dtype)))
+        return self.linear2(h, self.dtype, self.tp)
 
 
 class MoEFeedForward(nn.Module):
@@ -100,7 +123,8 @@ class MoEFeedForward(nn.Module):
         B, L, C = x.shape
         T = B * L
         E, K = self.n_experts, self.top_k
-        cap = min(int(math.ceil(K * T / E * self.capacity_factor)), T)
+        W = split_size()
+        cap = min(int(math.ceil(K * T * W / E * self.capacity_factor)), T * W)
         xt = x.reshape(T, C)
         valid = (torch.ones(T, device=x.device) if pad_mask is None
                  else (~pad_mask).reshape(T).float())
@@ -111,27 +135,41 @@ class MoEFeedForward(nn.Module):
         if K > 1:
             gate = gate / gate.sum(-1, keepdim=True)
 
-        # k-major queue positions, pad tokens out of every queue
+        # k-major queue positions over the global batch, pad tokens out of
+        # every queue: this rank's place within its own (choice, expert)
+        # runs, after every rank's earlier choices and, within a choice,
+        # the earlier ranks'
         expert = gate_idx.t().reshape(K * T)
-        onehot = torch.nn.functional.one_hot(expert, E) * valid.repeat(K).long()[:, None]
-        pos = (torch.cumsum(onehot, 0) * onehot).sum(-1) - 1
+        onehot = (torch.nn.functional.one_hot(expert, E)
+                  * valid.repeat(K).long()[:, None]).view(K, T, E)
+        table = rank_table(onehot.sum(1).double()).long()          # [W, K, E]
+        r = 0 if W == 1 else torch.distributed.get_rank(split_group())
+        totals = table.sum(0)
+        before = totals.cumsum(0) - totals + table[:r].sum(0)      # [K, E]
+        pos = ((torch.cumsum(onehot, 1) + before[:, None, :]) * onehot).sum(-1).reshape(K * T) - 1
         keep = (pos >= 0) & (pos < cap)
-        # each kept assignment's slot in [E * cap]; dropped ones point at a
-        # zero row past the end
-        slot = torch.where(keep, expert * cap + pos, torch.full_like(pos, E * cap))
+        # each kept assignment to this rank's experts gets its slot in
+        # [E_local * cap]; the others point at a zero row past the end
+        ep = self.experts.ep
+        n_local = E if ep is None else E // ep.size
+        first = 0 if ep is None else ep.rank * n_local
+        mine = keep & (expert >= first) & (expert < first + n_local)
+        slot = torch.where(mine, (expert - first) * cap + pos,
+                           torch.full_like(pos, n_local * cap))
 
-        xr = xt.to(self.dtype).repeat(K, 1)
-        expert_in = xr.new_zeros(E * cap + 1, C).index_copy(0, slot, xr)[:E * cap]
-        expert_out = self.experts(expert_in.view(E, cap, C)).reshape(E * cap, C)
+        xr = copy_to(xt.to(self.dtype), ep).repeat(K, 1)
+        expert_in = xr.new_zeros(n_local * cap + 1, C).index_copy(0, slot, xr)[:n_local * cap]
+        expert_out = self.experts(expert_in.view(n_local, cap, C)).reshape(n_local * cap, C)
         expert_out = torch.cat([expert_out, expert_out.new_zeros(1, C)])
-        y = expert_out.index_select(0, slot) * gate.t().reshape(K * T, 1).to(self.dtype)
-        y = y.view(K, T, C).sum(0)
+        g = copy_to(gate.t().reshape(K * T, 1).to(self.dtype), ep)
+        y = reduce_from((expert_out.index_select(0, slot) * g).view(K, T, C).sum(0), ep)
 
         self.aux = None
         if torch.is_grad_enabled():
-            n_valid = valid.sum().clamp_min(1.0)
-            f = (torch.nn.functional.one_hot(gate_idx[:, 0], E).float() * valid[:, None]).sum(0)
-            P = (probs * valid[:, None]).sum(0)
+            n_valid = global_sum(valid.sum()).clamp_min(1.0)
+            f = global_sum((torch.nn.functional.one_hot(gate_idx[:, 0], E).float()
+                            * valid[:, None]).sum(0))
+            P = global_sum((probs * valid[:, None]).sum(0))
             self.aux = E * ((f / n_valid) * (P / n_valid)).sum()
         return y.reshape(B, L, C).to(self.dtype)
 

@@ -1,10 +1,12 @@
-"""Data parallelism and FSDP over a ``torch.distributed`` group
-(counterpart of ``r3d_tpu/parallel``'s dp axis)."""
+"""Data, tensor and expert parallelism over a ``torch.distributed`` group
+(counterpart of ``r3d_tpu/parallel``'s dp, ep and tp axes)."""
 
 from r3d_tpu_torch.parallel.mesh import (
     FSDP_MIN_ELEMS,
+    TP_RULES,
     batch_sharding,
     make_mesh,
+    place_model,
     shard_state,
     take_rows,
 )

@@ -1,44 +1,62 @@
-"""Data parallelism and FSDP over a ``torch.distributed`` group.
+"""Data, tensor and expert parallelism over a ``torch.distributed`` group.
 
-Counterpart of ``r3d_tpu/parallel/mesh.py`` for its ``dp`` axis. JAX jits
-one program over the dp-sharded global batch and GSPMD inserts the
-collectives; here each rank is a process that runs the same step on its own
-rows, and the collectives are written out:
+Counterpart of ``r3d_tpu/parallel/mesh.py`` for its ``dp``, ``ep`` and
+``tp`` axes. JAX jits one program over the sharded global batch and
+parameters and GSPMD inserts the collectives; here each rank is a process
+that runs the same step on its own rows and its own slices of the
+parameters, and the collectives are written out:
 
-- the batch: rank r of W takes the contiguous rows ``[r B/W, (r+1) B/W)``,
-  where ``P("dp")`` places them; where ``B % W != 0`` every rank takes every
-  row (``batch_sharding``, ``take_rows``; JAX replicates such batches,
-  ``r3d_tpu/train/loop.py:965-973``);
-- what mixes rows: inside ``split_rows(group)`` the BatchNorm statistics
-  and the fusers' activation rankings are taken over the global batch by
-  ``global_sum`` (an all-reduce that carries gradients), and the duration
-  loss divides by the global count of valid slots (``global_count``);
-- the gradients: the trainer averages them over the group
-  (``train/loop.py``), or FSDP2 reduce-scatters them;
-- FSDP (``shard_state(..., fsdp=True)``): every parameter shards over dp
-  on the axis JAX's ``_fsdp_spec`` picks, without its size floor (FSDP2's
-  ``fully_shard`` with that ``shard_placement_fn``; axis 0 where no axis
-  divides); the optimizer's moments follow their parameters.
+- the mesh: ``(dp, ep, tp, sp, pp)`` over the ranks, row-major as JAX
+  reshapes its devices; the batch shards over dp alone, so the ranks that
+  share a dp coordinate hold the same rows;
+- the batch: dp rank r of W takes the contiguous rows ``[r B/W, (r+1)
+  B/W)``, where ``P("dp")`` places them; where ``B % W != 0`` every rank
+  takes every row (``batch_sharding``, ``take_rows``; JAX replicates such
+  batches, ``r3d_tpu/train/loop.py:965-973``);
+- what mixes rows: inside ``split_rows(group)`` the BatchNorm statistics,
+  the fusers' activation rankings, MoE's routing and balance term, the
+  unsupervised loop's loss terms and the self-attention source's attention
+  across the batch are taken over the global batch by ``global_sum`` (an
+  all-reduce that carries gradients), ``gather_rows`` and ``rank_table``,
+  and the duration loss divides by the global count of valid slots
+  (``global_count``);
+- the parameters: ``TP_RULES`` is JAX's ``_TP_RULES``, applied to each
+  parameter's flax path (``convert.flax_path``); ``place_model`` cuts each
+  rank's slice of the parameters the rules shard and points the layers
+  that use them at their axis (``parallel/tensor.py``'s collectives:
+  Megatron's column- and row-parallel attention and FFN, the depth
+  projection gathered, MoE's experts over ep);
+- the gradients: the trainer averages them over the dp group (a
+  replicated parameter's gradient is the same on every tp and ep rank of a
+  dp coordinate), or FSDP2 reduce-scatters them;
+- FSDP (``shard_state(..., fsdp=True)``): every parameter shards over the
+  dp sub-mesh on the axis JAX's ``_fsdp_spec`` picks among those its TP
+  spec leaves free, without its size floor (FSDP2's ``fully_shard`` with
+  that ``shard_placement_fn``; axis 0 where no axis divides); the
+  optimizer's moments follow their parameters.
 
 ``make_mesh`` returns a ``DeviceMesh`` with JAX's dims ``("dp", "ep",
-"tp", "sp", "pp")``; tp, sp, pp and ep above 1 are ROADMAP item A14's next
-slices and raise. JAX's module-wide active mesh has no counterpart: its
-Pallas wrappers read it to shard_map themselves, while here the trainer
-and the predictor hold their own mesh and only ``split_rows`` is scoped
-state, so objects with and without a group coexist in one process. With
-one rank every path computes what it computes without a mesh, FSDP's
-included.
+"tp", "sp", "pp")``; sp and pp above 1 are ROADMAP item A14's next slices
+and raise. JAX's module-wide active mesh has no counterpart: its Pallas
+wrappers read it to shard_map themselves, while here the trainer and the
+predictor hold their own mesh, the layers their own axes, and only
+``split_rows`` is scoped state, so objects with and without a group
+coexist in one process. With one rank every path computes what it
+computes without a mesh, FSDP's included.
 """
 
 from __future__ import annotations
 
 import contextlib
 import inspect
-from typing import Any, Dict, Optional, Sequence, Tuple
+import re
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 from torch import nn
+
+from r3d_tpu_torch.parallel.tensor import Axis
 
 DIMS = ("dp", "ep", "tp", "sp", "pp")
 
@@ -51,16 +69,17 @@ _SPLIT_GROUP: Optional[dist.ProcessGroup] = None
 
 
 def _refuse_axes(sizes: Dict[str, int]) -> None:
-    over = {ax: n for ax, n in sizes.items() if ax != "dp" and n > 1}
+    over = {ax: n for ax, n in sizes.items() if ax in ("sp", "pp") and n > 1}
     if over:
-        raise NotImplementedError(f"mesh axes {over} are not ported yet: only dp is "
-                                  "(ROADMAP queue A, item A14)")
+        raise NotImplementedError(f"mesh axes {over} are not ported yet: only dp, ep and tp "
+                                  "are (ROADMAP queue A, item A14)")
 
 
 def make_mesh(dp: int = -1, tp: int = 1, sp: int = 1, pp: int = 1, ep: int = 1,
               device_type: Optional[str] = None):
     """The ``DeviceMesh`` of the initialised process group, dims ``("dp",
-    "ep", "tp", "sp", "pp")``; ``dp = -1`` takes the whole world.
+    "ep", "tp", "sp", "pp")``, the ranks laid out row-major as JAX reshapes
+    its devices; ``dp = -1`` takes what the other axes leave.
     ``device_type`` defaults to ``cuda`` under NCCL, else ``cpu`` (gloo)."""
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -69,12 +88,12 @@ def make_mesh(dp: int = -1, tp: int = 1, sp: int = 1, pp: int = 1, ep: int = 1,
         raise RuntimeError("make_mesh needs an initialised torch.distributed process group")
     n = dist.get_world_size()
     if dp == -1:
-        dp = n
-    if dp != n:
+        dp = n // (tp * ep)
+    if dp * ep * tp != n:
         raise ValueError(f"mesh {dp}x{ep}x{tp}x{sp}x{pp} != {n} ranks")
     if device_type is None:
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return init_device_mesh(device_type, (dp, 1, 1, 1, 1), mesh_dim_names=DIMS)
+    return init_device_mesh(device_type, (dp, ep, tp, 1, 1), mesh_dim_names=DIMS)
 
 
 def mesh_sizes(mesh) -> Dict[str, int]:
@@ -83,22 +102,57 @@ def mesh_sizes(mesh) -> Dict[str, int]:
 
 
 def check_mesh(mesh) -> None:
-    """Raise for what is not ported: any axis but dp above 1."""
+    """Raise for what is not ported: sp or pp above 1."""
     if mesh is not None:
         _refuse_axes(mesh_sizes(mesh))
 
 
+def axis_size(mesh, ax: str) -> int:
+    return 1 if mesh is None else mesh_sizes(mesh)[ax]
+
+
+def axis_rank(mesh, ax: str) -> int:
+    return 0 if axis_size(mesh, ax) == 1 else mesh.get_local_rank(ax)
+
+
+def axis_group(mesh, ax: str) -> Optional[dist.ProcessGroup]:
+    """The process group of ``ax``, None without a mesh or with one rank on it."""
+    return mesh.get_group(ax) if axis_size(mesh, ax) > 1 else None
+
+
+def axis(mesh, ax: str) -> Optional[Axis]:
+    """``ax`` as a layer holds it, None where it has one rank."""
+    g = axis_group(mesh, ax)
+    return None if g is None else Axis(g, axis_size(mesh, ax), axis_rank(mesh, ax))
+
+
 def dp_size(mesh) -> int:
-    return 1 if mesh is None else mesh_sizes(mesh)["dp"]
+    return axis_size(mesh, "dp")
 
 
 def dp_rank(mesh) -> int:
-    return 0 if mesh is None or dp_size(mesh) == 1 else mesh.get_local_rank("dp")
+    return axis_rank(mesh, "dp")
 
 
 def dp_group(mesh) -> Optional[dist.ProcessGroup]:
     """The dp process group, None without a mesh or with one rank."""
-    return mesh.get_group("dp") if dp_size(mesh) > 1 else None
+    return axis_group(mesh, "dp")
+
+
+def tp_rank(mesh) -> int:
+    return axis_rank(mesh, "tp")
+
+
+def tp_group(mesh) -> Optional[dist.ProcessGroup]:
+    return axis_group(mesh, "tp")
+
+
+def ep_rank(mesh) -> int:
+    return axis_rank(mesh, "ep")
+
+
+def ep_group(mesh) -> Optional[dist.ProcessGroup]:
+    return axis_group(mesh, "ep")
 
 
 def batch_sharding(mesh, n_rows: int) -> Optional[slice]:
@@ -192,6 +246,36 @@ def global_count(count: torch.Tensor) -> Optional[torch.Tensor]:
     return c.clamp_min(1.0) / dist.get_world_size(g)
 
 
+def split_size() -> int:
+    """The ranks the rows are split over (1 outside ``split_rows``)."""
+    g = _SPLIT_GROUP
+    return 1 if g is None else dist.get_world_size(g)
+
+
+def gather_rows(x: torch.Tensor) -> torch.Tensor:
+    """The global batch of which ``x`` holds this rank's rows (axis 0),
+    each rank's rows in a zero-filled tensor summed over the group: exact,
+    and a gradient reaches each rank's rows from every rank's loss (as
+    ``global_sum``'s does). ``x`` itself outside ``split_rows``."""
+    g = _SPLIT_GROUP
+    if g is None:
+        return x
+    n, r = x.shape[0], dist.get_rank(g)
+    dtype = x.dtype if x.is_floating_point() else torch.float64
+    full = x.new_zeros((n * dist.get_world_size(g),) + x.shape[1:], dtype=dtype)
+    full[r * n:(r + 1) * n] = x
+    if x.requires_grad:
+        return _AllReduceSum.apply(full, g)
+    dist.all_reduce(full, group=g)
+    return full.to(x.dtype)
+
+
+def rank_table(x: torch.Tensor) -> torch.Tensor:
+    """[W, *x.shape]: every rank's ``x`` (no gradient), in rank order;
+    ``x[None]`` outside ``split_rows``."""
+    return gather_rows(x.detach()[None])
+
+
 # ------------------------------------------------------------------------- FSDP
 
 def _fsdp_spec(spec: Sequence[Optional[str]], shape: Sequence[int], dp: int,
@@ -220,13 +304,228 @@ def _fsdp_spec(spec: Sequence[Optional[str]], shape: Sequence[int], dp: int,
     return tuple(dims)
 
 
-def fsdp_dim(shape: Sequence[int], dp: int) -> int:
-    """The axis a parameter of ``shape`` shards on over ``dp`` ranks: the
-    one JAX's rule picks, without its size floor (a (1, 2000, 128) position
-    table splits on its 2000 rows, where FSDP2's default axis 0 would leave
-    it whole on rank 0), else 0 (FSDP2 pads it)."""
-    spec = _fsdp_spec((), shape, dp, 0)
+def fsdp_dim(shape: Sequence[int], dp: int, spec: Sequence[Optional[str]] = ()) -> int:
+    """The axis a parameter of ``shape`` (this rank's slice) shards on over
+    ``dp`` ranks: the one JAX's rule picks among the axes ``spec`` (its
+    placed TP spec) leaves free, without its size floor (a (1, 2000, 128)
+    position table splits on its 2000 rows, where FSDP2's default axis 0
+    would leave it whole on rank 0), else 0 (FSDP2 pads it)."""
+    spec = _fsdp_spec(spec, shape, dp, 0)
     return spec.index("dp") if "dp" in spec else 0
+
+
+# ------------------------------------------------------------ tensor parallelism
+
+# r3d_tpu/parallel/mesh.py:_TP_RULES, verbatim: a flax path regex -> the
+# PartitionSpec of its leaf (kernels [in, out]; the first match wins). The
+# mlp1/mlp2 rules match nothing: the fuser's weights are the flat
+# ``mlp1_kernel``/``mlp2_kernel`` (r3d_tpu/models/fuser.py:144-146) and
+# stay replicated, as r3d_tpu/parallel/mesh.py:112-113 intends.
+TP_RULES = [
+    (r".*experts/linear1/kernel", ("ep", None, "tp")),
+    (r".*experts/linear1/bias", ("ep", "tp")),
+    (r".*experts/linear2/kernel", ("ep", "tp", None)),
+    (r".*experts/linear2/bias", ("ep",)),
+    (r".*depth_projection.*kernel", (None, "tp")),
+    (r".*ffn/linear1/kernel", (None, "tp")),
+    (r".*ffn/linear1/bias", ("tp",)),
+    (r".*ffn/linear2/kernel", ("tp", None)),
+    (r".*mlp1/kernel", (None, "tp")),
+    (r".*mlp1/bias", ("tp",)),
+    (r".*mlp2/kernel", ("tp", None)),
+    (r".*(self|cross)_attn/[qkv]_proj/kernel", (None, "tp")),
+    (r".*(self|cross)_attn/[qkv]_proj/bias", ("tp",)),
+    (r".*(self|cross)_attn/out_proj/kernel", ("tp", None)),
+]
+
+
+def tp_spec(path: str, shape: Sequence[int], sizes: Dict[str, int]
+            ) -> Tuple[Optional[str], ...]:
+    """JAX's spec of the flax leaf at ``path`` of ``shape`` on a mesh of
+    ``sizes`` (``param_shardings`` without FSDP): the first rule that
+    matches, each axis that does not divide dropped, () where none is left
+    or no rule matches (``r3d_tpu/parallel/mesh.py:136-142, 187-195``)."""
+    for pattern, spec in TP_RULES:
+        if re.fullmatch(pattern, path):
+            dims = tuple(None if a is not None and shape[d] % sizes.get(a, 1) else a
+                         for d, a in enumerate(spec))
+            return dims if any(a is not None for a in dims) else ()
+    return ()
+
+
+def param_spec(model: nn.Module, name: str, sizes: Dict[str, int]
+               ) -> Tuple[Optional[str], ...]:
+    """``tp_spec`` of ``model``'s entry ``name`` on the entry's own axes
+    (a torch weight is [out, in] where the kernel is [in, out])."""
+    from r3d_tpu_torch.convert import flax_path
+
+    path, perm = flax_path(model, name)
+    t = model.get_parameter(name)
+    flax_shape = [0] * t.dim()
+    for i, a in enumerate(perm):
+        flax_shape[a] = t.shape[i]
+    spec = tp_spec(path, flax_shape, sizes)
+    if not spec:
+        return ()
+    spec = spec + (None,) * (t.dim() - len(spec))
+    return tuple(spec[a] for a in perm)
+
+
+def _placed(spec: Sequence[Optional[str]], sizes: Dict[str, int]) -> Tuple[Tuple[int, str], ...]:
+    """The (dim, axis) pairs of ``spec`` whose axis has more than one rank."""
+    return tuple((d, a) for d, a in enumerate(spec) if a is not None and sizes[a] > 1)
+
+
+def _plan(model: nn.Module, mesh) -> Dict[str, Tuple[Tuple[int, str], ...]]:
+    """{parameter name: its (dim, axis) cuts} for the layers that run
+    split, each layer split only where all of its rules hold (and, for
+    attention, the heads divide: JAX keeps the kernel whole otherwise)."""
+    from r3d_tpu_torch.models.futr_fusion import DepthEmbed
+    from r3d_tpu_torch.models.layers import FeedForward, MultiheadAttention
+    from r3d_tpu_torch.models.moe import Experts
+
+    sizes = mesh_sizes(mesh)
+    tp = sizes["tp"]
+    plan: Dict[str, Tuple[Tuple[int, str], ...]] = {}
+
+    def specs(prefix, names):
+        return {n: _placed(param_spec(model, prefix + n, sizes), sizes) for n in names}
+
+    for name, m in model.named_modules():
+        prefix = name + "." if name else ""
+        if isinstance(m, MultiheadAttention):
+            names = [f"{p}_proj.{w}" for p in "qkv" for w in ("weight", "bias")]
+            got = specs(prefix, names + ["out_proj.weight"])
+            want = {n: ((0, "tp"),) for n in names}
+            want["out_proj.weight"] = ((1, "tp"),)
+            if tp > 1 and got == want and m.n_head % tp == 0:
+                plan.update({prefix + n: c for n, c in got.items()})
+        elif isinstance(m, FeedForward):
+            got = specs(prefix, ["linear1.weight", "linear1.bias", "linear2.weight"])
+            if tp > 1 and got == {"linear1.weight": ((0, "tp"),), "linear1.bias": ((0, "tp"),),
+                                  "linear2.weight": ((1, "tp"),)}:
+                plan.update({prefix + n: c for n, c in got.items()})
+        elif isinstance(m, DepthEmbed):
+            got = specs(prefix, ["depth_projection.weight"])
+            if got["depth_projection.weight"] == ((0, "tp"),):
+                plan.update({prefix + n: c for n, c in got.items()})
+        elif isinstance(m, Experts):
+            got = specs(prefix, ["linear1.weight", "linear1.bias", "linear2.weight",
+                                 "linear2.bias"])
+            ep_ok = all(c[:1] == ((0, "ep"),) for c in got.values())
+            tp_ok = (((1, "tp") in got["linear1.weight"]) and ((1, "tp") in got["linear1.bias"])
+                     and ((2, "tp") in got["linear2.weight"]))
+            for n, c in got.items():
+                keep = tuple(x for x in c if (x[1] == "ep" and ep_ok) or (x[1] == "tp" and tp_ok))
+                if keep:
+                    plan[prefix + n] = keep
+    return plan
+
+
+def _cut(t: torch.Tensor, cuts) -> torch.Tensor:
+    """This rank's slice of the whole ``t`` under ``cuts``, (dim, Axis) pairs."""
+    for d, a in cuts:
+        t = t[(slice(None),) * d + (a.part(t.shape[d]),)]
+    return t.contiguous()
+
+
+def place_model(model: nn.Module, mesh) -> nn.Module:
+    """Cut ``model``'s parameters (whole, the same on every rank) to this
+    rank's slices where the TP rules shard them over tp or ep, and point
+    the layers at their axes; ``model.placement`` records {name: its
+    (dim, Axis) cuts}.
+    The parameter objects are kept (an optimizer over them stays valid).
+    Once per model: a placed model is returned as it is."""
+    from r3d_tpu_torch.models.futr_fusion import DepthEmbed
+    from r3d_tpu_torch.models.layers import FeedForward, MultiheadAttention
+    from r3d_tpu_torch.models.moe import Experts
+
+    if mesh is None or hasattr(model, "placement"):
+        return model
+    axes = {"tp": axis(mesh, "tp"), "ep": axis(mesh, "ep")}
+    plan = {name: tuple((d, axes[a]) for d, a in cuts) for name, cuts in _plan(model, mesh).items()}
+    with torch.no_grad():
+        for name, cuts in plan.items():
+            p = model.get_parameter(name)
+            p.data = _cut(p.data, cuts)
+    tp, ep = axes["tp"], axes["ep"]
+    for name, m in model.named_modules():
+        prefix = name + "." if name else ""
+        if isinstance(m, (MultiheadAttention, FeedForward, DepthEmbed)):
+            key = prefix + ("depth_projection.weight" if isinstance(m, DepthEmbed)
+                            else "out_proj.weight" if isinstance(m, MultiheadAttention)
+                            else "linear2.weight")
+            if key in plan:
+                m.set_axes(tp)
+        elif isinstance(m, Experts):
+            cut = [a for _, a in plan.get(prefix + "linear1.weight", ())]
+            m.set_axes(ep if ep in cut else None, tp if tp in cut else None)
+    model.placement = plan
+    return model
+
+
+def _gather_cuts(t: torch.Tensor, cuts) -> torch.Tensor:
+    """The whole tensor of which ``t`` is this rank's slice under ``cuts``:
+    each axis's slices in a zero-filled tensor summed over its group
+    (exact); a collective over those groups."""
+    for d, a in reversed(cuts):
+        n = t.shape[d]
+        shape = list(t.shape)
+        shape[d] = n * a.size
+        full = t.new_zeros(shape)
+        full.narrow(d, a.rank * n, n).copy_(t)
+        dist.all_reduce(full, group=a.group)
+        t = full
+    return t
+
+
+def _param_names(optimizer: torch.optim.Optimizer, model: nn.Module) -> List[str]:
+    """The names of the optimizer's parameters, in its state's order."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    return [names[id(p)] for g in optimizer.param_groups for p in g["params"]]
+
+
+def whole_tensor(model: nn.Module, name: str, t: torch.Tensor) -> torch.Tensor:
+    """``t``, this rank's slice of a tensor shaped as parameter ``name`` (the
+    parameter, its gradient, a moment), gathered whole over tp and ep (a
+    collective where the parameter is cut)."""
+    cuts = getattr(model, "placement", {}).get(name)
+    return _gather_cuts(t, cuts) if cuts else t
+
+
+def whole_model_state(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """``model``'s ``state_dict`` with FSDP's shards and the tp and ep
+    slices gathered whole: the tensors one process holds (a collective)."""
+    sd = full_tensors(model.state_dict())
+    plan = getattr(model, "placement", {})
+    return {k: _gather_cuts(v, plan[k]) if k in plan else v for k, v in sd.items()}
+
+
+def whole_optimizer_state(optimizer: torch.optim.Optimizer, model: nn.Module
+                          ) -> Dict[str, Any]:
+    """The optimizer's ``state_dict`` with every moment gathered whole as
+    its parameter is (a collective)."""
+    state = full_tensors(optimizer.state_dict())
+    plan = getattr(model, "placement", {})
+    if not plan:
+        return state
+    names = _param_names(optimizer, model)
+    out = {}
+    for i, st in state["state"].items():
+        cuts = plan.get(names[int(i)])
+        out[i] = {k: _gather_cuts(v, cuts) if cuts and torch.is_tensor(v) and v.dim() else v
+                  for k, v in st.items()}
+    return {**state, "state": out}
+
+
+def local_model_state(model: nn.Module, whole: Dict[str, torch.Tensor]
+                      ) -> Dict[str, torch.Tensor]:
+    """A whole ``state_dict`` cut as ``model`` holds its tensors: the tp and
+    ep slices, then FSDP's shards (no communication)."""
+    current = model.state_dict()
+    plan = getattr(model, "placement", {})
+    return {k: like(_cut(v, plan[k]) if k in plan else v, current[k])
+            for k, v in whole.items()}
 
 
 def is_writer() -> bool:
@@ -266,15 +565,23 @@ def like(full: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
                              src_data_rank=None)
 
 
-def load_full_optimizer(optimizer: torch.optim.Optimizer, state: Dict[str, Any]) -> None:
+def load_full_optimizer(optimizer: torch.optim.Optimizer, state: Dict[str, Any],
+                        model: Optional[nn.Module] = None) -> None:
     """Load a whole (one-process) optimizer ``state_dict`` into
-    ``optimizer``, each moment placed as its parameter is."""
+    ``optimizer``, each moment cut and placed as its parameter is
+    (``model`` names the parameters' tp and ep slices)."""
     params = [p for g in optimizer.param_groups for p in g["params"]]
+    plan = getattr(model, "placement", {}) if model is not None else {}
+    names = _param_names(optimizer, model) if plan else None
     placed = {}
     for i, st in state["state"].items():
         p = params[int(i)]
-        placed[i] = {k: like(v, p) if torch.is_tensor(v) and v.shape == p.shape else v
-                     for k, v in st.items()}
+        cuts = plan.get(names[int(i)]) if plan else None
+        placed[i] = {}
+        for k, v in st.items():
+            if torch.is_tensor(v) and v.dim() and cuts:
+                v = _cut(v, cuts)
+            placed[i][k] = like(v, p) if torch.is_tensor(v) and v.shape == p.shape else v
     optimizer.load_state_dict({**state, "state": placed})
 
 
@@ -290,33 +597,45 @@ def _rebuilt(optimizer: torch.optim.Optimizer, params) -> torch.optim.Optimizer:
 
 
 def shard_state(state, mesh, fsdp: bool = False):
-    """Land a ``TrainState`` on the mesh: every rank takes rank 0's
-    parameters and buffers; with ``fsdp`` the parameters shard over dp
-    (FSDP2, each on ``fsdp_dim``'s axis), and the optimizer is rebuilt over
-    them, its moments sharded alike. JAX keeps leaves under
-    ``FSDP_MIN_ELEMS`` whole to save a gather each; FSDP2 gathers a
-    module's parameters in one collective, so they shard at no such cost,
-    and every foreach list of the optimizer holds sharded tensors only
-    (DTensor refuses a list that mixes them with whole ones). One rank
-    without ``fsdp``: nothing changes; with it, FSDP2 on the one-rank mesh
-    (each shard the whole tensor), which computes what no mesh does."""
+    """Land a ``TrainState`` on the mesh: every rank takes global rank 0's
+    parameters and buffers, then its tp and ep slices of them
+    (``place_model``; the optimizer's moments, where a restore filled them,
+    cut alike); with ``fsdp`` the parameters shard over the dp sub-mesh
+    (FSDP2, each on ``fsdp_dim``'s axis among those its TP spec leaves
+    free), and the optimizer is rebuilt over them, its moments sharded
+    alike. JAX keeps leaves under ``FSDP_MIN_ELEMS`` whole to save a gather
+    each; FSDP2 gathers a module's parameters in one collective, so they
+    shard at no such cost, and every foreach list of the optimizer holds
+    sharded tensors only (DTensor refuses a list that mixes them with whole
+    ones). One rank without ``fsdp``: nothing changes; with it, FSDP2 on
+    the one-rank mesh (each shard the whole tensor), which computes what no
+    mesh does."""
     check_mesh(mesh)
-    W = dp_size(mesh)
-    if W == 1 and not fsdp:
+    world = dist.get_world_size() if mesh is not None else 1
+    if world == 1 and not fsdp:
         return state
-    if W > 1:
-        group = dp_group(mesh)
-        src = dist.get_global_rank(group, 0)
+    if world > 1:
         with torch.no_grad():
             for t in list(state.model.parameters()) + list(state.model.buffers()):
-                dist.broadcast(t.data, src=src, group=group)
+                dist.broadcast(t.data, src=0)
+        whole = state.optimizer.state_dict() if state.optimizer.state else None
+        place_model(state.model, mesh)
+        if whole is not None:
+            load_full_optimizer(state.optimizer, whole, state.model)
     if not fsdp:
         return state
     from torch.distributed.fsdp import fully_shard
     from torch.distributed.tensor import Shard
 
+    W = dp_size(mesh)
+    specs = {}
+    for name, p in state.model.named_parameters():
+        spec = [None] * p.dim()
+        for d, _ in getattr(state.model, "placement", {}).get(name, ()):
+            spec[d] = "tp"   # cut over tp or ep: not FSDP's
+        specs[id(p)] = tuple(spec)
     fully_shard(state.model, mesh=mesh["dp"], reshard_after_forward=True,
-                shard_placement_fn=lambda p: Shard(fsdp_dim(p.shape, W)))
+                shard_placement_fn=lambda p: Shard(fsdp_dim(p.shape, W, specs[id(p)])))
     trainable = [p for p in state.model.parameters() if p.requires_grad]
     state.optimizer = _rebuilt(state.optimizer, trainable)
     return state

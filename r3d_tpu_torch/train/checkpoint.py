@@ -11,9 +11,10 @@ epoch. Each checkpoint is a directory of that name holding ``state.pt``.
 nothing of the optimizer's state.
 
 On a process group every rank calls ``save`` and ``restore``: the file
-holds the whole train state (FSDP's shards gathered), written by rank 0
-alone, the same tensors a one-process run writes, and it restores into a
-state of any world size, each rank taking its shards of it.
+holds the whole train state (FSDP's shards and the tp and ep slices
+gathered), written by rank 0 alone, the same tensors a one-process run
+writes, and it restores into a state of any (dp, ep, tp), each rank
+taking its slices and shards of it.
 """
 
 from __future__ import annotations
@@ -22,7 +23,14 @@ import os
 
 import torch
 
-from r3d_tpu_torch.parallel.mesh import barrier, full_tensors, is_writer, like, load_full_optimizer
+from r3d_tpu_torch.parallel.mesh import (
+    barrier,
+    is_writer,
+    load_full_optimizer,
+    local_model_state,
+    whole_model_state,
+    whole_optimizer_state,
+)
 from r3d_tpu_torch.train.state import TrainState
 
 STATE_FILE = "state.pt"
@@ -39,8 +47,8 @@ class Checkpointer:
     def save(self, state: TrainState, name: str) -> None:
         """Write ``state`` as checkpoint ``name``, replacing one of that name;
         the file appears whole or not at all."""
-        blob = {"model": full_tensors(state.model.state_dict()),
-                "optimizer": full_tensors(state.optimizer.state_dict()),
+        blob = {"model": whole_model_state(state.model),
+                "optimizer": whole_optimizer_state(state.optimizer, state.model),
                 "step": int(state.step), "extra_batches": int(state.extra_batches)}
         if is_writer():
             path = self._path(name)
@@ -65,9 +73,8 @@ class Checkpointer:
         device = next(template.model.parameters()).device
         blob = torch.load(os.path.join(self._path(name), STATE_FILE), map_location=device,
                           weights_only=True)
-        current = template.model.state_dict()
-        template.model.load_state_dict({k: like(v, current[k]) for k, v in blob["model"].items()})
-        load_full_optimizer(template.optimizer, blob["optimizer"])
+        template.model.load_state_dict(local_model_state(template.model, blob["model"]))
+        load_full_optimizer(template.optimizer, blob["optimizer"], template.model)
         template.step = int(blob["step"])
         template.extra_batches = int(blob.get("extra_batches", 0))
         return template

@@ -67,26 +67,30 @@ val cache; ``fit_hybrid`` trains from a ``HybridCache`` in the host
 loader's batch order. Both seed and draw dropout as ``fit`` does, so
 ``fit_cached == fit`` and ``fit_hybrid == fit``.
 
-``Trainer(config, n_class, mesh=make_mesh(...))`` trains data-parallel
-over the mesh's dp group (``parallel/mesh.py``): every rank runs the same
-loop on its share of each batch (``batch_sharding``: the host batch's rows,
-the cached routes' [k, B] index table along B, the hybrid batch's view ids;
-every row where B does not divide), inside ``split_rows``, so the
-BatchNorm statistics, the fusers' activation rankings and the duration
-loss's count are the global batch's; the gradients are averaged over the
-group (FSDP2 reduce-scatters those of the parameters ``shard_state``
-sharded); the epoch's metric sums are reduced over the group once, before
-they are logged, gated or checkpointed; the BN guard reads the global batch.
-Rank 0 draws today's dropout streams, the other ranks fold their rank into
-the seeds; where every rank holds the whole batch (B % W != 0) the group
-takes rank 0's update and metrics, as one process would draw one set of
-masks for it. Only rank 0 logs. One rank computes exactly what no mesh
-does.
-Families whose step mixes rows beyond that refuse a group above one rank
-(``dp_refusal``).
+``Trainer(config, n_class, mesh=make_mesh(...))`` trains over the mesh
+(``parallel/mesh.py``; the state placed by ``shard_state``): every rank
+runs the same loop on its dp coordinate's share of each batch
+(``batch_sharding``: the host batch's rows, the cached routes' [k, B] index
+table along B, the hybrid batch's view ids; every row where B does not
+divide), inside ``split_rows`` over the dp group, so the BatchNorm
+statistics, the fusers' activation rankings, MoE's routing, the duration
+loss's count, the unsupervised loop's correctness-gate mean, cluster
+counts and SupCon frames, and the self-attention source's keys are the
+global batch's; the ranks of one dp coordinate (its tp and ep ranks) hold
+the same rows and their slices of the parameters (``place_model``), and
+their replicated parameters stay equal bit for bit; the gradients are
+averaged over the dp group (FSDP2 reduce-scatters those of the parameters
+``shard_state`` sharded); the epoch's metric sums are reduced over the dp
+group once, before they are logged, gated or checkpointed; the BN guard
+reads the global batch. The ranks of dp coordinate 0 draw today's dropout
+streams, the others fold their coordinate into the seeds (a tp or ep rank
+draws its dp coordinate's whole masks and keeps its slice); where every
+rank holds the whole batch (B % W != 0) the group takes rank 0's update
+and metrics, as one process would draw one set of masks for it. Only rank
+0 logs. One rank computes exactly what no mesh does.
 
 Not ported yet, and raising ``NotImplementedError`` naming its ROADMAP
-item: ``rng_impl`` (A10); mesh axes other than dp (A14).
+item: ``rng_impl`` (A10); the sp and pp mesh axes (A14).
 """
 
 from __future__ import annotations
@@ -114,7 +118,6 @@ from r3d_tpu_torch.losses.temporal import (
     temporal_cluster_loss,
 )
 from r3d_tpu_torch.models import (
-    _QUERY_SOURCES,
     build_model,
     init_weights,
     is_fusion_model,
@@ -133,7 +136,9 @@ from r3d_tpu_torch.parallel.mesh import (
     dp_group,
     dp_rank,
     dp_size,
+    gather_rows,
     global_count,
+    global_mean,
     split_group,
     split_rows,
     take_rows,
@@ -149,20 +154,6 @@ ACCURACY_GATE_LOOPS = ("futr", "tcn")   # train.py:63, train_tcn.py:44
 # metrics that are sums over rows (the others are means over a fixed number
 # of entries per row): a dp group adds them up, and averages the rest
 _SUM_METRICS = ("_correct", "_total", "_sum", "_cnt")
-
-
-def dp_refusal(config: Config) -> Optional[str]:
-    """Why ``config`` cannot train on a dp group above one rank, or None:
-    its step mixes rows in a way the per-rank step does not reproduce
-    (ROADMAP queue A, item A14)."""
-    if config.train.loop == "unsupervised":
-        return ("the unsupervised loop's correctness-gate mean, cluster and SupCon terms "
-                "mix rows across the batch")
-    if _QUERY_SOURCES.get(config.model.model) == "self_attention":
-        return "the self-attention query source attends across the batch (COMPAT #17)"
-    if config.model.moe_experts > 0:
-        return "MoE routing's expert capacity is shared across the batch"
-    return None
 
 
 def triangular_warmup(epoch: int, start: int, peak: int, end: int) -> float:
@@ -212,11 +203,6 @@ class Trainer:
         check_mesh(mesh)
         self.mesh = mesh
         self.dp, self.rank, self.group = dp_size(mesh), dp_rank(mesh), dp_group(mesh)
-        why = dp_refusal(config) if self.dp > 1 else None
-        if why is not None:
-            raise NotImplementedError(f"data parallelism for {config.model.model!r} in the "
-                                      f"{tc.loop!r} loop is not ported: {why} (ROADMAP queue "
-                                      "A, item A14)")
         self.device = resolve_device(device)
         self.config = config
         self.n_class = n_class
@@ -424,19 +410,23 @@ class Trainer:
         # (train_unsupervised.py:357)
         both = (l3_correct & seg_correct if seg_correct is not None
                 else torch.zeros_like(l3_correct))
-        wbar = torch.where(both, 1.0, 5.0).mean()
+        wbar = global_mean(torch.where(both, 1.0, 5.0), (0,))
         wf = triangular_warmup(epoch, 0, *tr.warmup_loss_epochs)
         total = ((1.0 - 1.0 / wbar) * ((1.0 - wf) * loss_l3 + wf * loss_cluster)
                  + (1.0 / wbar) * (loss_cls + loss_dur + loss_seg))
         if tr.supcon_weight > 0.0 and "supcon" in outputs:
             # the commented "soft label loss" (train_unsupervised.py:314-319):
             # SupCon over the unit-norm per-frame embeddings against their L3
-            # labels, the first supcon_samples frames, ramped to the warmup peak
-            feats = outputs["supcon"].reshape(-1, outputs["supcon"].shape[-1])
-            feats = feats / feats.norm(dim=-1, keepdim=True).clamp_min(1e-6)
+            # labels, the first supcon_samples frames of the global batch
+            # (on a dp group mostly the first ranks' rows, gathered with
+            # their gradient), ramped to the warmup peak
+            sc = gather_rows(outputs["supcon"])
+            feats = sc.reshape(-1, sc.shape[-1])
             n = min(tr.supcon_samples, feats.shape[0])
-            loss_sc = supcon_loss(feats[:n, None, :], q_flat[:n],
-                                  temperature=tr.supcon_temperature)
+            feats = feats[:n]
+            feats = feats / feats.norm(dim=-1, keepdim=True).clamp_min(1e-6)
+            labels = gather_rows(batch["query_label"]).reshape(-1)[:n]
+            loss_sc = supcon_loss(feats[:, None, :], labels, temperature=tr.supcon_temperature)
             ramp = float(min(np.float32(1.0), np.float32(epoch)
                              / np.float32(max(tr.warmup_loss_epochs[0], 1))))
             total = total + tr.supcon_weight * ramp * loss_sc

@@ -28,7 +28,6 @@ from torch_parallel_ranks import (
     dropout_arm,
     finish,
     init_state_dict,
-    refusal_arm,
     replicated_dropout_arm,
     start,
     step_arm,
@@ -67,7 +66,7 @@ def test_launch_env_reads_torchrun():
     assert launch_env({"WORLD_SIZE": "4", "RANK": "3", "LOCAL_RANK": "1"}) == (3, 4, 1)
 
 
-@pytest.mark.parametrize("axis", ["tp", "sp", "pp", "ep"])
+@pytest.mark.parametrize("axis", ["sp", "pp"])
 def test_other_axes_raise_a14(axis):
     with pytest.raises(NotImplementedError, match="A14"):
         pm.make_mesh(**{axis: 2})
@@ -98,8 +97,7 @@ def group2(tmp_path_factory):
 def _group2(mesh, names, init):
     return dict(steps={n: step_arm(mesh, n, init[n]) for n in names},
                 dropout=dropout_arm(mesh),
-                replicated=[replicated_dropout_arm(mesh, fsdp) for fsdp in (False, True)],
-                refusals=refusal_arm(mesh))
+                replicated=[replicated_dropout_arm(mesh, fsdp) for fsdp in (False, True)])
 
 
 def assert_step_matches(got, want, grad_tol=1e-6):
@@ -162,11 +160,3 @@ def test_replicated_batch_takes_rank_0s_dropout_update(group2):
         for part in ("grads", "state"):
             for k, v in today[part].items():
                 assert torch.equal(got[part][k], v), (part, k)
-
-
-def test_families_that_mix_rows_refuse_the_group(group2):
-    ranks, _ = group2
-    for r in ranks:
-        assert set(r["refusals"]) == {"unsupervised", "self_attention_source", "moe"}
-        for tag, err in r["refusals"].items():
-            assert err is not None and "A14" in err, tag

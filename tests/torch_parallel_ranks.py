@@ -14,6 +14,7 @@ is held to.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import datetime
@@ -40,6 +41,8 @@ from r3d_tpu_torch.parallel.mesh import (
     is_sharded,
     make_mesh,
     shard_state,
+    whole_model_state,
+    whole_tensor,
 )
 from r3d_tpu_torch.train.checkpoint import Checkpointer
 from r3d_tpu_torch.train.loop import Trainer
@@ -106,14 +109,14 @@ def spawn(fn, world, tmp_path, *args, timeout=240):
 # ------------------------------------------------------------------ set-ups
 
 def fusion_config(model="futr_fusion_bn", fuser_depth=1, dtype="float32", config=pt_config,
-                  **train_kw):
+                  buckets=(64, 128), **train_kw):
     """``tests/test_torch_train.py``'s fusion set-up (hidden 32, depth 6 x 5,
     the 64/128 buckets, dropout 0); ``config`` the package to build it in."""
     m = config
     model_kw = dict(model=model, hidden_dim=32, n_head=4, n_query=NQ, input_dim=12,
-                    max_pos_len=128, dropout=0.0, fuser_dropout=0.0, fuser_depth=fuser_depth,
-                    compute_dtype=dtype)
-    data = dict(dataset="synthetic", gt_format="plain", seq_buckets=(64, 128),
+                    max_pos_len=max(buckets), dropout=0.0, fuser_dropout=0.0,
+                    fuser_depth=fuser_depth, compute_dtype=dtype)
+    data = dict(dataset="synthetic", gt_format="plain", seq_buckets=buckets,
                 train_obs_percs=OBS, depth_shape=(6, 5),
                 feature_dtype="bfloat16" if dtype == "bfloat16" else "float32")
     train = dict(dict(loop="proposed_depth", batch_size=4, epochs=2, warmup_epochs=1, lr=1e-3,
@@ -122,16 +125,16 @@ def fusion_config(model="futr_fusion_bn", fuser_depth=1, dtype="float32", config
         model=m.ModelConfig(**model_kw), data=m.DataConfig(**data), train=m.TrainConfig(**train))
 
 
-def futr_config(model="futr", loop="futr", config=pt_config, n_query=20, **train_kw):
+def futr_config(model="futr", loop="futr", config=pt_config, n_query=20, moe=None, **train_kw):
     """``tests/test_torch_train.py``'s ``futr`` set-up (features only, 20
     queries); ``futr_proposed`` in the ``proposed`` loop with a query stream
     as ``tests/test_torch_proposed_fit.py`` has it; the baselines in their
-    loops."""
+    loops; ``moe`` the MoE fields of the model."""
     m = config
     query = model == "futr_proposed"
     model_kw = dict(model=model, hidden_dim=32, n_head=4, n_query=NQ if query else n_query,
                     input_dim=12, n_decoder_layers=2, max_pos_len=128, seg_excludes_none=True,
-                    dropout=0.0)
+                    dropout=0.0, **(moe or {}))
     if query:
         model_kw["query_num"] = QUERY_CLASSES + 1
     data = dict(dataset="50salads", depth_features_dir=None, gt_format="plain",
@@ -157,16 +160,31 @@ SETUPS = {
     "rnn": ("baseline", dict(model="rnn", loop="unimodal", n_query=NQ)),
     "tcn": ("baseline", dict(model="tcn", loop="tcn", n_query=NQ)),
 }
+# the tensor- and expert-parallel set-ups: the fusion model in the 256
+# bucket (the attention kernels' key length), MoE with 4 experts at an
+# ample capacity and at one that drops assignments, the self-attention
+# source in the futr loop
+TP_SETUPS = {
+    "futr_fusion_bn_256": ("fusion", dict(buckets=(256,))),
+    "futr_moe": ("futr", dict(moe=dict(moe_experts=4, moe_top_k=2))),
+    "futr_moe_drop": ("futr", dict(moe=dict(moe_experts=4, moe_top_k=2,
+                                            moe_capacity_factor=0.5))),
+    "self_attention": ("futr", dict(model="futr_unsupervised")),
+}
+
+
+def _setup(name):
+    return SETUPS[name] if name in SETUPS else TP_SETUPS[name]
 
 
 def setup_config(name, config=pt_config, **train_kw):
-    kind, kw = SETUPS[name]
+    kind, kw = _setup(name)
     build = fusion_config if kind == "fusion" else futr_config
     return build(config=config, **kw, **train_kw)
 
 
 def source_for(name, Source=SyntheticSource):
-    kind = SETUPS[name][0]
+    kind = _setup(name)[0]
     if kind == "fusion":
         return Source(n_videos=6, n_actions=5, vid_len_range=(60, 120), input_dim=12,
                       depth_shape=(6, 5), seed=0)
@@ -177,7 +195,8 @@ def source_for(name, Source=SyntheticSource):
 
 
 def loader_for(name, src, shuffle, seed=0, batch_size=4, Loader=BucketedLoader):
-    kind = SETUPS[name][0]
+    kind, kw = _setup(name)
+    buckets = kw.get("buckets", (64, 128))
     nq = 20 if kind == "futr" else NQ
     fn, n = src.make_example_fn(OBS, 1, nq)
     kw = {}
@@ -186,7 +205,7 @@ def loader_for(name, src, shuffle, seed=0, batch_size=4, Loader=BucketedLoader):
     if Loader is BucketedLoader and name.endswith("bf16"):
         kw["feature_dtype"] = "bfloat16"
     return Loader(num_examples=n, make_example_fn=fn, batch_size=batch_size,
-                  pad_idx=src.pad_idx, buckets=(64, 128), n_query=nq,
+                  pad_idx=src.pad_idx, buckets=buckets, n_query=nq,
                   with_depth=kind == "fusion", shuffle=shuffle, seed=seed, **kw)
 
 
@@ -202,11 +221,38 @@ def _gammas(model):
                     rng.permutation(0.2 + 0.1 * np.arange(C)).astype(np.float32)))
 
 
-def init_state_dict(name, seed=0):
-    """The seeded init of ``name``'s model with spread BN scales."""
-    cfg = setup_config(name)
+def darai_config(root, **train_kw):
+    """``tests/test_torch_darai_fit.py``'s ``darai`` set-up over the dataset
+    at ``root``: hidden 32, the 64 bucket, SupCon on over the first 64
+    frames, batches of 4."""
+    base = pt_config.get_config("darai")
+    return base.replace(
+        model=dataclasses.replace(base.model, hidden_dim=32, n_head=4, n_query=NQ,
+                                  input_dim=12, max_pos_len=64, dropout=0.0),
+        data=dataclasses.replace(base.data, data_root=root, sample_rate=2, seq_buckets=(64,)),
+        train=dataclasses.replace(base.train, **dict(dict(
+            batch_size=4, epochs=2, warmup_epochs=1, min_train_batch=0,
+            warmup_loss_epochs=(1, 3), supcon_weight=0.5, supcon_samples=64), **train_kw)))
+
+
+def inputs(name, root=None):
+    """(config, class count, the first batch of 4 rows) of ``name``, or of
+    ``darai`` over the dataset at ``root``."""
+    if name == "darai":
+        from r3d_tpu_torch.data import datasets as pt_ds
+
+        cfg = darai_config(root)
+        src = pt_ds.build_source(cfg.data, "train_split.txt")
+        return cfg, src.n_class, next(iter(pt_ds.build_loader(src, cfg.data, 4, NQ,
+                                                              shuffle=False)))
     src = source_for(name)
-    trainer = Trainer(cfg, src.n_class, device="cpu")
+    return setup_config(name), src.n_class, next(iter(loader_for(name, src, False)))
+
+
+def init_state_dict(name, seed=0, root=None):
+    """The seeded init of ``name``'s model with spread BN scales."""
+    cfg, n_class, _ = inputs(name, root)
+    trainer = Trainer(cfg, n_class, device="cpu")
     state = trainer.init_state(5, seed=seed)
     _gammas(state.model)
     return {k: v.clone() for k, v in state.model.state_dict().items()}
@@ -218,7 +264,8 @@ def local_numel(t):
 
 
 def _sd(model):
-    return {k: v.detach().clone() for k, v in full_tensors(model.state_dict()).items()}
+    """The whole state (FSDP's shards, tp and ep slices gathered)."""
+    return {k: v.detach().clone() for k, v in whole_model_state(model).items()}
 
 
 def _grads(model):
@@ -227,44 +274,62 @@ def _grads(model):
     out = {}
     for n, p in model.named_parameters():
         g = torch.zeros_like(p) if p.grad is None else p.grad
-        out[n] = (g.full_tensor() if is_sharded(g) else g).detach().clone()
+        g = g.full_tensor() if is_sharded(g) else g
+        out[n] = whole_tensor(model, n, g).detach().clone()
     return out
 
 
 # ------------------------------------------------------------------- drives
 
-def step_arm(mesh, name, state_dict=None):
+@contextlib.contextmanager
+def fixed_dropouts_off():
+    """The models built inside have the TCN's and the sources' hard-coded
+    dropouts at rate 0 (read at construction): the ranks of a dp group draw
+    their own masks."""
+    from r3d_tpu_torch.models import futr_unsupervised
+
+    saved = baselines.TCN_DROPOUT, futr_unsupervised.SRC_DROPOUT
+    baselines.TCN_DROPOUT = futr_unsupervised.SRC_DROPOUT = 0.0
+    try:
+        yield
+    finally:
+        baselines.TCN_DROPOUT, futr_unsupervised.SRC_DROPOUT = saved
+
+
+def step_arm(mesh, name, state_dict=None, root=None, epoch=0, fsdp=False):
     """One batch of ``name``'s first 4 rows: the global loss and counts, every
     gradient (averaged over the group), the BN running statistics after the
-    forward, then one full ``train_step`` in epoch 0 from fresh weights: its
-    parameters and the bottom-k masks of its BN scales."""
-    if name == "tcn":
-        baselines.TCN_DROPOUT = 0.0   # the TCN's fixed rate: the ranks' masks differ
-    cfg = setup_config(name)
-    src = source_for(name)
-    sd = state_dict if state_dict is not None else init_state_dict(name)
-    batch = next(iter(loader_for(name, src, False)))
-    trainer = Trainer(cfg, src.n_class, device="cpu", mesh=mesh)
-    state = shard_state(trainer.init_state(5, sd), mesh)
+    forward, then one full ``train_step`` in ``epoch`` from fresh weights
+    (under FSDP where asked): its parameters and the bottom-k masks of its
+    BN scales. The sources' hard-coded dropouts are off: the ranks of a dp
+    group draw their own masks."""
+    from r3d_tpu_torch.parallel.mesh import average_gradients, take_rows
+
+    cfg, n_class, batch = inputs(name, root)
+    sd = state_dict if state_dict is not None else init_state_dict(name, root=root)
+    trainer = Trainer(cfg, n_class, device="cpu", mesh=mesh)
+    batch = trainer._with_seg_ids(batch)
+    with fixed_dropouts_off():
+        state = shard_state(trainer.init_state(5, sd), mesh)
     model = state.model
     model.train()
     rows = trainer._rows(batch["features"].shape[0])
-    from r3d_tpu_torch.parallel.mesh import average_gradients, take_rows
-
     with trainer._split(rows):
-        metrics = trainer._grad_core(model, trainer.to_device(take_rows(batch, rows)))
+        metrics = trainer._grad_core(model, trainer.to_device(take_rows(batch, rows)), epoch)
     average_gradients(model, trainer.group)
     host = trainer._to_host(metrics)
     out = dict(metrics=host, grads=_grads(model),
                stats={k: v.clone() for k, v in model.state_dict().items() if "running" in k})
-    state = shard_state(trainer.init_state(5, sd), mesh)
-    trainer.train_step(state, batch, 0)
+    with fixed_dropouts_off():
+        state = shard_state(trainer.init_state(5, sd), mesh, fsdp=fsdp)
+    trainer.train_step(state, batch, epoch)
     out["params"] = _sd(state.model)
     masks = {}
     for n, m in state.model.named_modules():
         if hasattr(m, "bn_rgb"):
             k = max(0, int(m.bn_rgb.weight.shape[0] * m.exchange_frac))
-            masks[n] = [bottomk_mask(bn.weight.detach().abs(), k) for bn in (m.bn_rgb, m.bn_depth)]
+            masks[n] = [bottomk_mask(out["params"][f"{n}.{bn}.weight"].abs(), k)
+                        for bn in ("bn_rgb", "bn_depth")]
     out["masks"] = masks
     out["rows"] = (batch_sharding(mesh, 8), batch_sharding(mesh, 7)) if mesh is not None else None
     return out
@@ -488,21 +553,104 @@ def cli_arm(mesh, root, save_dir, results, fsdp):
     return dict(log=log, results=res)
 
 
-def refusal_arm(mesh):
-    """Each family the group refuses: the error each Trainer raises."""
-    from r3d_tpu_torch.config import get_config
+# ------------------------------------------------- tensor and expert parallelism
 
-    out = {}
-    darai = get_config("darai")
-    salads = get_config("50salads")
-    for tag, cfg in (
-            ("unsupervised", darai),
-            ("self_attention_source",
-             salads.replace(model=dataclasses.replace(darai.model, model="futr_unsupervised"))),
-            ("moe", salads.replace(model=dataclasses.replace(salads.model, moe_experts=2)))):
-        try:
-            Trainer(cfg, 10, device="cpu", mesh=mesh)
-            out[tag] = None
-        except NotImplementedError as e:
-            out[tag] = str(e)
-    return out
+TP_NAME = "futr_fusion_bn_256"
+
+
+def dropout_steps_arm(mesh, state_dict, name=TP_NAME, steps=2):
+    """``steps`` ``train_step``s of ``name`` with dropout 0.1 and fuser
+    dropout 0.1 after the trainer seeds dropout: the losses, the last
+    gradients and the whole state after, and this rank's own tensors: the
+    replicated ones (``replicated``) and its slices (``sliced``)."""
+    cfg, n_class, batch = inputs(name)
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, dropout=0.1, fuser_dropout=0.1))
+    trainer = Trainer(cfg, n_class, device="cpu", mesh=mesh)
+    state = shard_state(trainer.init_state(5, state_dict), mesh)
+    trainer._seed_dropout(state, seed=1, start_epoch=0)
+    losses = []
+    for _ in range(steps):
+        metrics = trainer.train_step(state, batch, 0)
+        losses.append(trainer._to_host({"loss": metrics["loss"]})["loss"])
+    placed = getattr(state.model, "placement", {})
+    own = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+    return dict(losses=losses, grads=_grads(state.model), state=_sd(state.model),
+                replicated={k: v for k, v in own.items() if k not in placed},
+                sliced={k: v for k, v in own.items() if k in placed})
+
+
+def one_step_state(mesh, state_dict, name=TP_NAME):
+    """``name``'s train state after one ``train_step`` of its first batch."""
+    cfg, n_class, batch = inputs(name)
+    trainer = Trainer(cfg, n_class, device="cpu", mesh=mesh)
+    state = shard_state(trainer.init_state(5, state_dict), mesh)
+    trainer.train_step(state, batch, 0)
+    return trainer, state, batch
+
+
+def whole_train_state(state):
+    """The model's and the optimizer's whole tensors (a collective)."""
+    from r3d_tpu_torch.parallel.mesh import whole_optimizer_state
+
+    opt = whole_optimizer_state(state.optimizer, state.model)
+    return dict(model=_sd(state.model),
+                optimizer={f"{i}/{k}": v.clone() for i, st in opt["state"].items()
+                           for k, v in st.items() if torch.is_tensor(v)},
+                step=state.step)
+
+
+def checkpoint_arm(mesh, state_dict, ckpt_in, ckpt_out):
+    """Checkpoint ``seed_1_last`` under ``ckpt_in`` (one process's)
+    restored into a fresh placed state of ``TP_NAME``: its whole train
+    state; then one more step, saved under ``ckpt_out``: its whole state."""
+    trainer, state, batch = one_step_state(mesh, state_dict)
+    state = Checkpointer(ckpt_in).restore_last(1, state)
+    restored = whole_train_state(state)
+    trainer.train_step(state, batch, 0)
+    Checkpointer(ckpt_out).save_last(state, 1)
+    return dict(restored=restored, after=whole_train_state(state))
+
+
+def tp_group(mesh, init, root, ckpt_in, ckpt_out):
+    """The 2-rank arms of ``tests/test_torch_parallel_tp.py`` on one group:
+    tp 2 (one step, the dropout steps, the checkpoint round trip), ep 2
+    (MoE), and dp 2 (``mesh``: MoE at a capacity that drops assignments,
+    ``darai`` in epoch 2 with SupCon on, the self-attention source)."""
+    tp = make_mesh(dp=1, tp=2)
+    ep = make_mesh(dp=1, ep=2)
+    return dict(
+        tp=step_arm(tp, TP_NAME, init[TP_NAME]),
+        tp_dropout=dropout_steps_arm(tp, init[TP_NAME]),
+        checkpoint=checkpoint_arm(tp, init[TP_NAME], ckpt_in, ckpt_out),
+        ep=step_arm(ep, "futr_moe", init["futr_moe"]),
+        moe_dp=step_arm(mesh, "futr_moe_drop", init["futr_moe_drop"]),
+        darai=step_arm(mesh, "darai", init["darai"], root=root, epoch=2),
+        self_attention=step_arm(mesh, "self_attention", init["self_attention"]))
+
+
+def tp_cli_arm(mesh, root, save_dir, results, ref_save_dir):
+    """``cli.run.main`` train_eval with ``--mesh_tp 2`` on the group the
+    harness formed (the CLI's mesh: dp 1, tp 2), then the sweep of the
+    one-process run's checkpoint under ``ref_save_dir`` on that mesh, host
+    collate and the cached route."""
+    from r3d_tpu_torch.cli import run as pt_run
+
+    cfg = cli_config(root, save_dir)
+    cfg = cfg.replace(mesh=dataclasses.replace(cfg.mesh, tp=2))
+    log = []
+    res = pt_run.main(cfg, mode="train_eval", log=log.append, device="cpu",
+                      results_save_path=results)
+    tp = make_mesh(dp=1, tp=2)
+    sweep = {}
+    for cache in (False, True):
+        c = cli_config(root, ref_save_dir)
+        c = c.replace(train=dataclasses.replace(c.train, device_cache=cache))
+        sweep[cache] = pt_run.predict(c, log=lambda *a: None, device="cpu", mesh=tp)
+    return dict(log=log, results=res, sweep=sweep)
+
+
+def dp_tp_arm(mesh, state_dict):
+    """``TP_NAME``'s step on ``make_mesh(dp=2, tp=2)``, its update without
+    and with FSDP."""
+    m = make_mesh(dp=2, tp=2)
+    return {fsdp: step_arm(m, TP_NAME, state_dict, fsdp=fsdp) for fsdp in (False, True)}
