@@ -275,7 +275,31 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    median step printed (two processes sharing one card: a reading);
    ``--cards`` also runs the CLI under ``torchrun ... --fsdp --mesh_tp 2``
    (dp x tp 2, NCCL) against one card;
-23. print one ``{"kernels": [...]}`` line (with each kernel's launches in
+23. sequence parallelism (A14, ``sequence_parallel``): whether gloo
+   carries ``send``/``recv`` and ``batch_isend_irecv`` of CUDA tensors, the
+   ring's transport (``gloo_p2p_probe``, each in a pair of throwaway
+   processes: gloo aborted the sending process in its first run; the
+   ring's hop on gloo with CUDA tensors is an ``all_gather_into_tensor``,
+   ``ops/ring_attention.py``); then two gloo ranks on
+   the one card on dp 1 x sp 2 run ``SP_ARMS``, each against the same
+   steps in one process on the card within the fit bounds (the loss within
+   ``DP_LOSS_TOL``, bf16 ``TP_BF16_LOSS_TOL``), the ranks' whole states
+   equal: utkinects at full width in the 512 bucket, epoch 0 with dropout
+   0.1 and the sticky epoch (K1 and K2 on each rank's 8 x 256 rows, K3, K4
+   and K5 in the decoder over the 512 gathered keys), and futr at 50salads
+   widths with its 2 encoder layers in the 2000 bucket (S/sp = 1,000): a
+   dropout-off step through the ring, a dropout-0.1 step whose encoder
+   gathers its attention over sp (bf16 K4/K5 on the whole sequence), and a
+   step under ``R3D_CROSS_NATIVE=1`` (K6/K7 over the 2,000 gathered keys),
+   then futr's eval forward through the ring against one process within
+   ``SP_EVAL_TOL``; each rank's launches (every kernel of an arm's path
+   must launch on each rank), the routes and shapes its calls saw, its
+   step times and its peak allocated bytes beside one process's (two
+   processes sharing one card: a reading). ``--cards`` also runs the CLI
+   under ``torchrun ... --fsdp --mesh_sp 2`` (dp x sp 2, NCCL) against one
+   card, without and with one encoder layer (the ring over point-to-point
+   calls; its logged numbers within ``SP_RING_LOG_RTOL``);
+24. print one ``{"kernels": [...]}`` line (with each kernel's launches in
    the CLI phases' training and sweeps and in the cached epoch beside those
    of the other phases; rows for bf16 K3, K4 and K5 at Lq = Lk = 3,100 and
    2,000 with the launches of the two proposed configs' training and
@@ -283,7 +307,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    encoder's launches; rows for K1 and K2 with the outer residual, with the
    grad variant's launches, and for fp32 K3, K4 and K5 at Lq = Lk = 512 and
    2,000, with the encoder fit's launches and the serving launches of that
-   bucket, the launches of phases 15-22 in their own columns and the
+   bucket, the launches of phases 15-23 in their own columns and the
    relative error of phase 22's tp-shape checks) and, as
    the last line,
    ``{"ok": true, "device": {...}}``.
@@ -6058,7 +6082,13 @@ DP_STATE_TOL = 1e-4         # final parameters and BN statistics on 99 % of each
                             # entries, and 2 lr an update on all (``_close_states``)
 DP_LOG_TOL = 2e-3           # a logged loss or accuracy of N cards vs one (printed to 3 decimals)
 DP_MOC_TOL = 1e-6           # a MoC entry of one checkpoint's sweep, N cards vs one
-CLI_WORKER = "--cli-worker"  # chip_smoke.py --cli-worker DROPOUT FLAGS: the CLI, dropout at DROPOUT
+SP_RING_LOG_RTOL = 1e-2     # a logged number over max(1, |it|), N cards with the encoder on sp
+                            # (the ring) vs one card (the fp32 many-query kernel): two attention
+                            # algorithms, so the trained states drift apart within the fit bounds;
+                            # read 7.1e-3 on 4 H100s (700 W), a sticky validation loss 6.736
+                            # vs 6.784, while the same arm without the encoder read 0
+CLI_WORKER = "--cli-worker"  # chip_smoke.py --cli-worker DROPOUT ENCODER FLAGS: the CLI, dropout at
+                             # DROPOUT, ENCODER encoder layers (0: none)
 CARDS = "--cards"            # chip_smoke.py --cards: cli_under_torchrun on every card, alone
 
 
@@ -6269,10 +6299,11 @@ def dp_cli_argv(work):
     return ["--config", "utkinects", "--data_root", root, "--seed", "1", "--epochs", "2"]
 
 
-def _cli_main(flags, dropout=None, log=print):
+def _cli_main(flags, dropout=None, log=print, encoder=0):
     """``cli.run.main`` with ``flags`` parsed as ``python -m r3d_tpu_torch.cli``
     parses them, both dropout rates at ``dropout`` where it is set
-    (``--fuser_dropout`` has no flag); ``main`` forms the group where
+    (``--fuser_dropout`` has no flag) and ``encoder`` encoder layers where it
+    is above 0 (``use_encoder`` has no flag); ``main`` forms the group where
     ``torchrun`` started the process."""
     import dataclasses
 
@@ -6284,22 +6315,27 @@ def _cli_main(flags, dropout=None, log=print):
     if dropout is not None:
         cfg = cfg.replace(model=dataclasses.replace(cfg.model, dropout=dropout,
                                                     fuser_dropout=dropout))
+    if encoder:
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model, use_encoder=True,
+                                                    n_encoder_layers=encoder))
     return cli_main(cfg, mode="predict" if args.predict else args.mode, log=log,
                     results_save_path=args.results_save_path,
                     device="cpu" if args.cpu else "cuda")
 
 
 def cli_worker(argv) -> None:
-    """``chip_smoke.py --cli-worker DROPOUT FLAGS``: ``_cli_main(FLAGS,
-    DROPOUT)``, the CLI that ``torchrun`` starts on each rank."""
-    _cli_main(argv[1:], float(argv[0]))
+    """``chip_smoke.py --cli-worker DROPOUT ENCODER FLAGS``: ``_cli_main(FLAGS,
+    DROPOUT, encoder=ENCODER)``, the CLI that ``torchrun`` starts on each
+    rank."""
+    _cli_main(argv[2:], float(argv[0]), encoder=int(argv[1]))
 
 
-def _cli(flags, here, n_ranks=None, dropout=None):
+def _cli(flags, here, n_ranks=None, dropout=None, encoder=0):
     """The CLI: (its log lines, its wall time). Without ``n_ranks`` the plain
     CLI in this process; with it, under ``torchrun --standalone
     --nproc_per_node n_ranks`` (``-m r3d_tpu_torch.cli``, or this script's
-    ``--cli-worker`` where ``dropout`` is set), rank 0's stdout lines."""
+    ``--cli-worker`` where ``dropout`` is set), rank 0's stdout lines.
+    ``encoder``: encoder layers (``_cli_main``; with ``dropout`` set)."""
     import io
     import os
 
@@ -6307,10 +6343,10 @@ def _cli(flags, here, n_ranks=None, dropout=None):
     if n_ranks is None:
         lines = []
         with contextlib.redirect_stdout(io.StringIO()):
-            _cli_main(flags, dropout, log=lines.append)
+            _cli_main(flags, dropout, log=lines.append, encoder=encoder)
         return lines, time.perf_counter() - t0
     entry = (["-m", "r3d_tpu_torch.cli"] if dropout is None
-             else [os.path.abspath(__file__), CLI_WORKER, str(dropout)])
+             else [os.path.abspath(__file__), CLI_WORKER, str(dropout), str(encoder)])
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc_per_node", str(n_ranks), *entry, *flags]
     done = subprocess.run(cmd, cwd=here, capture_output=True, text=True, timeout=DP_TIMEOUT,
@@ -6328,10 +6364,13 @@ def _log_numbers(lines):
             for l in lines if l.startswith(("Epoch", "Validation"))]
 
 
-def cli_under_torchrun(n_ranks, argv, work, here, card, tp=1):
+def cli_under_torchrun(n_ranks, argv, work, here, card, tp=1, sp=1, encoder=0):
     """The CLI (train, checkpoints, sweep) under ``torchrun --standalone
-    --nproc_per_node n_ranks ... --fsdp`` (and ``--mesh_tp tp``: a mesh of
-    n_ranks / tp by tp) against the plain CLI on one card (in this process). One rank keeps utkinects' dropout 0.1
+    --nproc_per_node n_ranks ... --fsdp`` (and ``--mesh_tp tp``, ``--mesh_sp
+    sp``: a mesh of n_ranks / (tp sp) by tp by sp; ``encoder``: both CLIs
+    with that many encoder layers, whose self-attention on sp is the ring
+    over NCCL's point-to-point calls, its logged numbers then held to
+    ``SP_RING_LOG_RTOL``) against the plain CLI on one card (in this process). One rank keeps utkinects' dropout 0.1
     (rank 0 draws one process's masks): the MoC tables and every checkpoint
     tensor equal, bit for bit. More ranks run with dropout off (their masks
     are not one process's): the same log lines with their numbers within
@@ -6349,15 +6388,18 @@ def cli_under_torchrun(n_ranks, argv, work, here, card, tp=1):
     one = n_ranks == 1
     dropout = None if one else 0.0
     mode = "train_eval" if one else "train"
-    mesh_flags = ["--mesh_tp", str(tp)] if tp > 1 else []
+    mesh_flags = ((["--mesh_tp", str(tp)] if tp > 1 else [])
+                  + (["--mesh_sp", str(sp)] if sp > 1 else []))
     runs = {}
     for tag, n in (("plain", None), ("torchrun", n_ranks)):
         save, res = os.path.join(work, f"cli_{tag}"), os.path.join(work, f"results_{tag}")
         flags = argv + ["--mode", mode, "--model_save_path", save, "--results_save_path", res]
-        lines, dt = _cli(flags + (["--fsdp"] + mesh_flags if n else []), here, n, dropout)
+        lines, dt = _cli(flags + (["--fsdp"] + mesh_flags if n else []), here, n, dropout,
+                         encoder)
         runs[tag] = (lines, saved_tensors(save), dt, res)
     lines = runs["torchrun"][0]
-    mesh = f"mesh: {{'dp': {n_ranks // tp}, 'ep': 1, 'tp': {tp}, 'sp': 1, 'pp': 1}}"
+    mesh = (f"mesh: {{'dp': {n_ranks // (tp * sp)}, 'ep': 1, 'tp': {tp}, 'sp': {sp}, "
+            f"'pp': 1}}")
     for need in (mesh, "fsdp: state sharded over dp"):
         if need not in lines:
             raise AssertionError(f"data_parallel: torchrun CLI on {n_ranks} ranks: no {need!r}")
@@ -6377,7 +6419,11 @@ def cli_under_torchrun(n_ranks, argv, work, here, card, tp=1):
         return dict(train_s=[runs["plain"][2], runs["torchrun"][2]])
     lr = config_from_args(build_parser("utkinects").parse_args(argv)).train.lr
     numbers = [_log_numbers(runs[t][0]) for t in ("plain", "torchrun")]
-    log_err = max((abs(a - b) for x, y in zip(*numbers) for a, b in zip(x, y)), default=0.0)
+    ring = sp > 1 and encoder > 0
+    scale = (lambda b: max(1.0, abs(b))) if ring else (lambda b: 1.0)
+    log_tol = SP_RING_LOG_RTOL if ring else DP_LOG_TOL
+    log_err = max((abs(a - b) / scale(b) for x, y in zip(*numbers) for a, b in zip(x, y)),
+                  default=0.0)
     heads = [[l.split(":")[0] for l in runs[t][0] if l.startswith(("Epoch", "Best"))]
              for t in ("plain", "torchrun")]
     bad = [] if sorted(got) == sorted(want) else [f"files {sorted(got)} vs {sorted(want)}"]
@@ -6394,16 +6440,20 @@ def cli_under_torchrun(n_ranks, argv, work, here, card, tp=1):
         res = os.path.join(work, f"sweep_{tag}")
         _, dt = _cli(argv + ["--predict", "--model_save_path", os.path.join(work, "cli_plain"),
                              "--results_save_path", res] + (mesh_flags if n else []),
-                     here, n, dropout)
+                     here, n, dropout, encoder)
         sweeps[tag] = (_json.load(open(os.path.join(res, "results.json"))), dt)
     moc_err = max(abs(sweeps["torchrun"][0][o][k] - v) for o, r in sweeps["plain"][0].items()
                   for k, v in r.items())
-    print(f"dp [{card}]: {label}, dropout off: logged numbers max|diff| {log_err:.3e} (tol "
-          f"{DP_LOG_TOL}), lines alike {heads[0] == heads[1]}, {len(bad)} checkpoint tensors "
+    if log_err:
+        for a, b in zip(*[[l for l in runs[t][0] if l.startswith(("Epoch", "Validation"))]
+                          for t in ("plain", "torchrun")]):
+            print(f"dp [{card}]:   one card: {a}\n dp [{card}]:   {n_ranks} cards: {b}")
+    print(f"dp [{card}]: {label}, dropout off: logged numbers max|diff|"
+          f"{' / max(1, |number|)' if ring else ''} {log_err:.3e} (tol {log_tol}), lines alike {heads[0] == heads[1]}, {len(bad)} checkpoint tensors "
           f"outside the fit bounds at lr {lr} {bad[:4]}; the one-process checkpoint swept on "
           f"{n_ranks} ranks {sweeps['torchrun'][1]:.2f} s, plain {sweeps['plain'][1]:.2f} s: "
           f"max|MoC diff| {moc_err:.3e} (tol {DP_MOC_TOL})")
-    if log_err > DP_LOG_TOL or heads[0] != heads[1] or bad or moc_err > DP_MOC_TOL:
+    if log_err > log_tol or heads[0] != heads[1] or bad or moc_err > DP_MOC_TOL:
         raise AssertionError(f"data_parallel: the CLI on {n_ranks} cards differs from one card")
     return dict(train_s=[runs["plain"][2], runs["torchrun"][2]],
                 sweep_s=[sweeps["plain"][1], sweeps["torchrun"][1]], log_err=log_err,
@@ -6728,6 +6778,7 @@ def _gloo_probe(rank):
     import torch.distributed as dist
 
     x = torch.ones(4, device="cuda")
+
     calls = {"all_reduce": lambda: dist.all_reduce(x.clone()),
              "broadcast": lambda: dist.broadcast(x.clone(), src=0),
              "all_gather": lambda: dist.all_gather([torch.empty_like(x) for _ in range(2)], x),
@@ -6991,10 +7042,439 @@ def tensor_parallel(kernels, card):
         shutil.rmtree(work, ignore_errors=True)
 
 
+SP_DIR = "build/sp_phase"   # under the checkout (git-ignored), removed after the phase
+SP_TIMEOUT = 300            # s: a rank or a collective that takes longer fails the phase
+SP_ROWS_2000 = 4            # rows of the futr arms' 2000-bucket batch (50salads widths)
+SP_BUCKETS_2000 = (1024, 2000)   # the futr arms' buckets: their windows of 1,560-1,920 frames
+SP_EVAL_TOL = SALADS_E2E_TOL     # the futr eval forward's action and duration outputs, two
+                                 # ranks vs one process: the ring (fp32 scores of bf16 q, k, v)
+                                 # against bf16 K3 on the whole sequence
+# arm -> (config, dropout, R3D_CROSS_NATIVE, the epochs of its steps (one batch each, from
+# the same init), the kernels each rank must launch in it)
+SP_ARMS = {
+    "utkinects sp 2, 512: epoch 0 with dropout 0.1, then the sticky epoch": (
+        "utk", 0.1, False, (0, 1),
+        ("fused_safuser_tail", "fused_bn_blend_tail", "fused_tail_bwd", "flash_attention",
+         "flash_attention_dropout", "attention_bwd")),
+    "futr (50salads widths, 2 encoder layers) sp 2, 2000, dropout off: the ring": (
+        "futr", 0.0, False, (0,), ()),
+    "futr sp 2, 2000, dropout 0.1: the encoder's attention gathered": (
+        "futr", 0.1, False, (0,), ("flash_attention_dropout_bf16_many",
+                                   "attention_bwd_bf16_many")),
+    "futr sp 2, 2000, dropout off, R3D_CROSS_NATIVE=1: the ring, K6/K7 in the decoder": (
+        "futr", 0.0, True, (0,), ("cross_attention", "cross_attention_bwd")),
+}
+
+
+def sp_configs():
+    """(utk) utkinects at full width: K1 no-blend and K4 in epoch 0, K1
+    blend and K3 in the sticky epoch, K3-K5 in the decoder over the 512
+    gathered keys; (futr) futr at 50salads widths (bf16, hidden 512, 8
+    heads, 20 queries, 2 decoder layers) with its 2 encoder layers, in
+    ``SP_BUCKETS_2000``."""
+    import dataclasses
+
+    from r3d_tpu_torch.config import get_config
+
+    salads = get_config("50salads")
+    futr = salads.replace(
+        model=dataclasses.replace(salads.model, use_encoder=True),
+        data=dataclasses.replace(salads.data, seq_buckets=SP_BUCKETS_2000))
+    return dict(utk=get_config("utkinects"), futr=futr)
+
+
+def sp_config(key, dropout):
+    import dataclasses
+
+    cfg = sp_configs()[key]
+    return cfg.replace(model=dataclasses.replace(cfg.model, dropout=dropout,
+                                                 fuser_dropout=dropout))
+
+
+def sp_classes(key):
+    return N_CLASS if key == "utk" else SALADS_CLASSES
+
+
+def sp_batches(cfgs):
+    """utkinects' first two 512-bucket batches of 8; futr's 2000-bucket
+    batch of ``SP_ROWS_2000`` (synthetic 50salads videos of 2,600-3,200
+    frames observed at 0.6)."""
+    utk = _dp_batches(cfgs["utk"])[:2]
+    _, loader, _ = train_loaders(cfgs["futr"], n_class=SALADS_CLASSES, n_videos=6,
+                                 vid_len_range=(2600, 3200), obs=(0.6,), val_videos=1,
+                                 val_obs=(0.6,), val_batch=1)
+    futr = [one_batch(loader, 1024, 2000, rows=SP_ROWS_2000)]
+    for key, got, want in (("utk", utk[0], 512), ("futr", futr[0], 2000)):
+        if got["features"].shape[1] != want:
+            raise AssertionError(f"sequence_parallel: the {key} batch fell in bucket "
+                                 f"{got['features'].shape[1]}, not {want}")
+    return dict(utk=utk, futr=futr)
+
+
+def sp_inits(cfgs):
+    """The seeded init of each config's model (the same in every process)."""
+    import torch
+
+    from r3d_tpu_torch.models import build_model, init_weights
+
+    return {k: init_weights(build_model(c.model, sp_classes(k), c.data.depth_shape),
+                            torch.Generator().manual_seed(SEED)).state_dict()
+            for k, c in cfgs.items()}
+
+
+@contextlib.contextmanager
+def _sp_spy(seen):
+    """Within: each sequence-parallel self-attention records its route
+    (``ring`` with its rank's queries, or ``gathered``: the whole call on
+    its inputs gathered over sp), each attention kernel call its (route,
+    queries, keys), and each fuser tail its rows, into ``seen``."""
+    from r3d_tpu_torch.models import fuser, layers
+
+    names = ((layers, "ring_attention"), (layers, "cut_seq"), (layers, "flash_attention"),
+             (layers, "flash_attention_dropout"), (layers, "cross_attention_native"),
+             (fuser, "fused_safuser_tail"), (fuser, "fused_bn_blend_tail"))
+    record = {
+        "ring_attention": lambda a: ("ring", a[0].shape[2]),
+        "cut_seq": lambda a: ("gathered", a[0].shape[1]),   # the whole call's output
+        "flash_attention": lambda a: ("K3", a[0].shape[2], a[1].shape[2]),
+        "flash_attention_dropout": lambda a: ("K4", a[0].shape[2], a[1].shape[2]),
+        "cross_attention_native": lambda a: ("K6", a[0].shape[1], a[1].shape[1]),
+        "fused_safuser_tail": lambda a: ("K1 no-blend rows", a[0].shape[0]),
+        "fused_bn_blend_tail": lambda a: ("K1 blend rows", a[0].shape[0])}
+    saved = [getattr(mod, n) for mod, n in names]
+
+    def spy(n, fn):
+        def call(*a):
+            seen.add(record[n](a))
+            return fn(*a)
+        return call
+
+    for (mod, n), fn in zip(names, saved):
+        setattr(mod, n, spy(n, fn))
+    try:
+        yield
+    finally:
+        for (mod, n), fn in zip(names, saved):
+            setattr(mod, n, fn)
+
+
+def _sp_rank_faults(arm, launched, seen, shape):
+    """What a rank's run of ``arm`` on a batch of ``shape`` (B, S) did that
+    the arm's path does not: a kernel of it never launched; the encoder's
+    self-attention (futr) not the ring on the rank's S/2 queries, or with
+    dropout not the whole call over the S gathered frames; utkinects' fuser
+    tail not on its B S/2 rows, or its decoder's K3/K4 not over the S
+    gathered keys; K6 (under R3D_CROSS_NATIVE=1) not over them. [] where
+    none."""
+    key, drop, native, _, need = arm
+    B, S = shape
+    wrong = [f"never launched {n}" for n in need if launched.get(n, 0) == 0]
+    routes = {x for x in seen if x[0] in ("ring", "gathered")}
+    want = (set() if key == "utk" else {("gathered", S)} if drop else {("ring", S // 2)})
+    if routes != want:
+        wrong.append(f"took {routes}, not {want}")
+    if key == "utk":
+        rows = {x[1] for x in seen if x[0].startswith("K1")}
+        keys = {x[2] for x in seen if x[0] in ("K3", "K4")}
+        if rows != {B * S // 2} or keys != {S}:
+            wrong.append(f"fuser rows {rows}, decoder keys {keys}")
+    if native and {x[2] for x in seen if x[0] == "K6"} != {S}:
+        wrong.append(f"K6 calls not over the {S} gathered keys: {seen}")
+    return wrong
+
+
+P2P_OPS = ("send_recv", "batch_isend_irecv")
+P2P_TIMEOUT = 90   # s: a pair of probe processes still running then is killed and recorded so
+
+
+def _p2p_probe_rank(rank, op, work):
+    """One rank of a throwaway pair: ``op`` (``P2P_OPS``) of a CUDA tensor
+    over gloo; writes "ok" or the error's first line to ``work``."""
+    import datetime
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{work}/{op}.store", rank=rank,
+                            world_size=2, timeout=datetime.timedelta(seconds=P2P_TIMEOUT // 2))
+    x = torch.ones(4, device="cuda")
+    peer = 1 - rank
+    try:
+        if op == "send_recv":
+            (dist.send(x, dst=peer) if rank == 0 else dist.recv(torch.empty_like(x), src=peer))
+        else:
+            ops = [dist.P2POp(dist.isend, x, peer), dist.P2POp(dist.irecv, torch.empty_like(x), peer)]
+            for w in dist.batch_isend_irecv(ops if rank == 0 else ops[::-1]):
+                w.wait()
+        torch.cuda.synchronize()
+        out = "ok"
+    except Exception as e:   # noqa: BLE001 -- the answer recorded is the error itself
+        out = str(e).splitlines()[0][:120]
+    with open(os.path.join(work, f"{op}.rank{rank}"), "w") as f:
+        f.write(out)
+    os._exit(0)
+
+
+def gloo_p2p_probe(work):
+    """Whether gloo carries point-to-point calls of CUDA tensors, the ring's
+    transport (``ops/ring_attention.py``): {op: each rank's answer, "ok",
+    the error's first line, or how its process ended}. Each op runs in a
+    pair of throwaway processes: in this probe's first run (torch 2.11, an
+    H100 machine) gloo aborted the process that sent a CUDA tensor
+    (``gloo::IoException``, ``tcp/pair.cc`` ``writev``: Bad address), which
+    would have ended any rank that tried. A probe, not an arm: it only
+    records."""
+    import os
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    procs = {(op, r): ctx.Process(target=_p2p_probe_rank, args=(r, op, work), daemon=True)
+             for op in P2P_OPS for r in range(2)}
+    t0 = time.perf_counter()
+    for p in procs.values():
+        p.start()
+    out = {}
+    for (op, r), p in procs.items():
+        p.join(max(1.0, P2P_TIMEOUT - (time.perf_counter() - t0)))
+        if p.is_alive():
+            p.kill()
+            p.join()
+        path = os.path.join(work, f"{op}.rank{r}")
+        out.setdefault(op, []).append(open(path).read() if os.path.exists(path) else
+                                      f"the process ended with exit code {p.exitcode}")
+    return out
+
+
+def sp_kernels():
+    from r3d_tpu_torch.ops import attention as att
+    from r3d_tpu_torch.ops import cross_attention as ca
+
+    return tp_kernels() + [att.KERNEL_BF16_MANY, att.DROPOUT_KERNEL_BF16_MANY,
+                           att.BWD_KERNEL_BF16_MANY, ca.FWD_KERNEL, ca.BWD_KERNEL]
+
+
+def _sp_arm(tag, kernels, batches, inits, mesh=None):
+    """One ``SP_ARMS`` arm on ``mesh`` (None: one process on the card): its
+    steps from the init after the trainer seeds dropout, each with the
+    counts set to 0 before and read after, the routes and shapes seen, its
+    loss, wall time and the peak bytes allocated in this process; the whole
+    final state."""
+    import os
+
+    import torch
+
+    from r3d_tpu_torch.parallel.mesh import shard_state, whole_model_state
+    from r3d_tpu_torch.train.loop import Trainer
+
+    key, drop, native, epochs, _ = SP_ARMS[tag]
+    before = os.environ.get("R3D_CROSS_NATIVE")
+    if native:
+        os.environ["R3D_CROSS_NATIVE"] = "1"
+    try:
+        trainer = Trainer(sp_config(key, drop), sp_classes(key), mesh=mesh)
+        state = trainer.init_state(1, inits[key])
+        if mesh is not None:
+            state = shard_state(state, mesh)
+        trainer._seed_dropout(state, SEED, 0)
+        steps = []
+        for i, epoch in enumerate(epochs):
+            seen = set()
+            for k in kernels:
+                k.launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with _sp_spy(seen):
+                metrics = trainer.train_step(state, batches[key][i % len(batches[key])], epoch)
+                loss = trainer._to_host({"loss": metrics["loss"]})["loss"]
+            torch.cuda.synchronize()
+            steps.append(dict(loss=loss, ms=1e3 * (time.perf_counter() - t0),
+                              peak=torch.cuda.max_memory_allocated(),
+                              launches={k.name: k.launches for k in kernels}, seen=sorted(seen)))
+        whole = {k: v.detach().cpu() for k, v in whole_model_state(state.model).items()}
+        return dict(steps=steps, state=whole,
+                    finite=all(bool(torch.isfinite(v).all()) for v in whole.values()
+                               if v.is_floating_point()))
+    finally:
+        os.environ.pop("R3D_CROSS_NATIVE", None)
+        if before is not None:
+            os.environ["R3D_CROSS_NATIVE"] = before
+
+
+def _sp_eval(batches, inits, mesh=None):
+    """futr's module-eval forward of its 2000-bucket batch with the pad mask
+    (the ring on each rank): the action and duration outputs, the routes
+    seen, the wall time and the peak bytes allocated in this process."""
+    import torch
+
+    from r3d_tpu_torch.parallel.mesh import take_rows, take_seq
+    from r3d_tpu_torch.train.loop import Trainer
+
+    trainer = Trainer(sp_config("futr", 0.0), SALADS_CLASSES, mesh=mesh)
+    state = trainer.init_state(1, inits["futr"])
+    model = state.model.eval()
+    batch = batches["futr"][0]
+    rows = trainer._rows(batch["features"].shape[0])
+    seq = trainer._seq(batch["features"].shape[1])
+    seen = set()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad(), trainer._split(rows, seq), _sp_spy(seen):
+        out = model(*trainer._model_inputs(
+            trainer.to_device(take_seq(take_rows(batch, rows), seq)), with_mask=True))
+        got = {k: out[k].float().cpu() for k in ("action", "duration")}
+    return dict(out=got, seen=sorted(seen), ms=1e3 * (time.perf_counter() - t0),
+                peak=torch.cuda.max_memory_allocated())
+
+
+def _sp_rank(rank, world, work):
+    """One gloo rank on the card (``cuda:0``, shared), on dp 1 x sp 2: every
+    ``SP_ARMS`` arm and the eval forward; writes its results to
+    ``work/rank{rank}.pt``."""
+    import datetime
+    import os
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"file://{work}/store", rank=rank,
+                                world_size=world, timeout=datetime.timedelta(seconds=SP_TIMEOUT))
+        from r3d_tpu_torch.parallel.mesh import make_mesh
+
+        kernels = sp_kernels()
+        batches = torch.load(os.path.join(work, "batches.pt"), weights_only=True)
+        inits = torch.load(os.path.join(work, "inits.pt"), weights_only=True)
+        mesh = make_mesh(dp=1, sp=world)
+        out = {"arms": {tag: _sp_arm(tag, kernels, batches, inits, mesh) for tag in SP_ARMS},
+               "eval": _sp_eval(batches, inits, mesh)}
+        torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(work, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        os._exit(1)
+
+
+def sequence_parallel(kernels, card):
+    """Phase 23: see the module docstring. Returns each kernel's launches
+    on the two ranks' arms (both ranks summed) and each rank's peak bytes
+    against one process's in the futr arms."""
+    import os
+    import shutil
+
+    import torch
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(here, SP_DIR)
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    procs = []
+    try:
+        cfgs = sp_configs()
+        batches = sp_batches(cfgs)
+        inits = sp_inits(cfgs)
+        torch.save(batches, os.path.join(work, "batches.pt"))
+        torch.save(inits, os.path.join(work, "inits.pt"))
+        p2p = gloo_p2p_probe(work)
+        print(f"sp [{card}]: gloo point-to-point calls of CUDA tensors in torch "
+              f"{torch.__version__} (rank 0, rank 1): {p2p}; the ring's hop on gloo with CUDA "
+              f"tensors is one all_gather_into_tensor (ops/ring_attention.py)")
+        ctx = mp.get_context("spawn")
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=_sp_rank, args=(r, 2, work), daemon=True) for r in range(2)]
+        for p in procs:
+            p.start()
+        # while the ranks start: one process on the same card
+        one = {tag: _sp_arm(tag, kernels, batches, inits) for tag in SP_ARMS}
+        one_eval = _sp_eval(batches, inits)
+        for p in procs:
+            p.join(max(1.0, SP_TIMEOUT - (time.perf_counter() - t0)))
+        errors = [open(os.path.join(work, f)).read() for f in sorted(os.listdir(work))
+                  if f.endswith(".err")]
+        if any(p.is_alive() or p.exitcode != 0 for p in procs) or errors:
+            raise AssertionError(f"sequence_parallel: a gloo rank failed: exit codes "
+                                 f"{[p.exitcode for p in procs]} {errors}")
+        ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+        t_ranks = time.perf_counter() - t0
+        total = {k.name: 0 for k in kernels}
+        peaks = {}
+        for tag, (key, drop, native, epochs, need) in SP_ARMS.items():
+            lr = cfgs[key].train.lr
+            got = [r["arms"][tag] for r in ranks]
+            want = one[tag]
+            bf16 = cfgs[key].model.compute_dtype == "bfloat16"
+            tol = TP_BF16_LOSS_TOL if bf16 else DP_LOSS_TOL
+            loss_err = max(abs(a["loss"] - b["loss"]) / max(1.0, abs(b["loss"]))
+                           for a, b in zip(got[0]["steps"], want["steps"]))
+            bad = _close_states(got[0]["state"], want["state"], lr, len(epochs), share=not bf16)
+            split = [k for k in want["state"] if not torch.equal(got[0]["state"][k],
+                                                                 got[1]["state"][k])]
+            print(f"sp [{card}]: {tag}: {len(epochs)} steps on 2 gloo ranks (dp 1 x sp 2) vs "
+                  f"one process: max|loss diff| / max(1, |loss|) {loss_err:.3e} (tol {tol}), "
+                  f"losses {[s['loss'] for s in got[0]['steps']]} vs "
+                  f"{[s['loss'] for s in want['steps']]}; {len(bad)} of {len(want['state'])} "
+                  f"final tensors outside the fit bounds {bad[:3]}; the ranks' whole states "
+                  f"differ in {len(split)} tensors")
+            if loss_err > tol or bad or split or not (got[0]["finite"] and got[1]["finite"]):
+                raise AssertionError(f"sequence_parallel: {tag} disagrees with one process")
+            for r, g in enumerate(got):
+                launched = {n: sum(s["launches"].get(n, 0) for s in g["steps"]) for n in total}
+                seen = sorted({x for s in g["steps"] for x in s["seen"]})
+                print(f"sp [{card}]: {tag}: gloo rank {r}: launches "
+                      f"{ {n: c for n, c in launched.items() if c} }; routes and shapes {seen}; "
+                      f"step ms {[round(s['ms'], 2) for s in g['steps']]} (one process "
+                      f"{[round(s['ms'], 2) for s in want['steps']]}); peak allocated bytes "
+                      f"{[s['peak'] for s in g['steps']]} (one process "
+                      f"{[s['peak'] for s in want['steps']]})")
+                for n, c in launched.items():
+                    total[n] += c
+                wrong = _sp_rank_faults(SP_ARMS[tag], launched, seen,
+                                        batches[key][0]["features"].shape[:2])
+                if wrong:
+                    raise AssertionError(f"sequence_parallel: {tag}: rank {r}: {wrong}")
+            if key == "futr":
+                peaks[tag] = ([g["steps"][0]["peak"] for g in got], want["steps"][0]["peak"])
+        ev = [r["eval"] for r in ranks]
+        err = max(float((e["out"][k] - one_eval["out"][k]).abs().max())
+                  for e in ev for k in one_eval["out"])
+        print(f"sp [{card}]: {SP_ROWS_2000} x 2000 futr eval forward, 2 ranks vs one process: "
+              f"max|output diff| {err:.3e} (tol {SP_EVAL_TOL}); routes {ev[0]['seen']} (one "
+              f"process {one_eval['seen']}); ms {[round(e['ms'], 2) for e in ev]} (one process "
+              f"{one_eval['ms']:.2f}); peak allocated bytes {[e['peak'] for e in ev]} (one "
+              f"process {one_eval['peak']})")
+        ring = ("ring", batches["futr"][0]["features"].shape[1] // 2)
+        if not err <= SP_EVAL_TOL or ring not in ev[0]["seen"]:
+            raise AssertionError("sequence_parallel: the futr eval forward disagrees")
+        peaks["eval"] = ([e["peak"] for e in ev], one_eval["peak"])
+        print(f"sp [{card}]: 2 gloo ranks, {len(SP_ARMS)} arms and the eval forward, "
+              f"{t_ranks:.1f} s with their start; the sequence_parallel phase took "
+              f"{time.perf_counter() - t_phase:.1f} s")
+        return total, peaks
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def cards_main() -> int:
     """``chip_smoke.py --cards``: ``cli_under_torchrun`` on every card the
     host has (two or more) against one card, alone, on a dp mesh and (an
-    even count of cards) on dp x tp 2; prints the cards' names and power
+    even count of cards) on dp x tp 2 and on dp x sp 2, without and with
+    one encoder layer; prints the cards' names and power
     limits, the readings and, last, one JSON object of them."""
     import os
     import shutil
@@ -7024,9 +7504,16 @@ def cards_main() -> int:
         got = cli_under_torchrun(n, argv, work, here, cards)
         # dp x tp 2 (NCCL, FSDP over dp): tensor parallelism across cards
         got_tp = cli_under_torchrun(n, argv, work, here, cards, tp=2) if n % 2 == 0 else None
+        # dp x sp 2 (NCCL, FSDP over dp): the sequence cut across cards, then
+        # with one encoder layer: the ring over NCCL's point-to-point calls
+        got_sp = got_ring = None
+        if n % 2 == 0:
+            got_sp = cli_under_torchrun(n, argv, work, here, cards, sp=2)
+            got_ring = cli_under_torchrun(n, argv, work, here, cards, sp=2, encoder=1)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    print(json.dumps({"ranks": n, **got, "mesh_tp_2": got_tp}))
+    print(json.dumps({"ranks": n, **got, "mesh_tp_2": got_tp, "mesh_sp_2": got_sp,
+                      "mesh_sp_2_encoder": got_ring}))
     return 0
 
 
@@ -7248,6 +7735,17 @@ def main() -> int:
     unused = [k.name for k in tp_path if tp_counts[k.name] == 0]
     if unused:
         raise AssertionError(f"the tensor_parallel phase never launched {unused}")
+    # sequence parallelism (A14): two gloo ranks on dp 1 x sp 2
+    sp_counts, sp_peaks = sequence_parallel(kernels, card)
+    print(f"launches on the sequence_parallel phase's ranks: "
+          f"{ {k: c for k, c in sp_counts.items() if c} }; each rank's peak allocated bytes "
+          f"against one process's: {sp_peaks}")
+    sp_path = (fk.TAIL_KERNEL, fk.KERNEL, fkb.KERNEL, att.KERNEL, att.DROPOUT_KERNEL,
+               att.BWD_KERNEL, att.DROPOUT_KERNEL_BF16_MANY, att.BWD_KERNEL_BF16_MANY,
+               ca.FWD_KERNEL, ca.BWD_KERNEL)
+    unused = [k.name for k in sp_path if sp_counts[k.name] == 0]
+    if unused:
+        raise AssertionError(f"the sequence_parallel phase never launched {unused}")
     tp_shape_err = {k.name: tp_shapes[key][1] for k, key in (
         (att.KERNEL, "K3 fp32"), (att.DROPOUT_KERNEL, "K4 fp32"), (att.BWD_KERNEL, "K5 fp32"),
         (att.KERNEL_BF16, "K3 bf16"), (att.DROPOUT_KERNEL_BF16, "K4 bf16"),
@@ -7262,7 +7760,8 @@ def main() -> int:
         # serving deployment (A13): the live and the exported sessions
         "deploy_launches": deploy_live, "deploy_exported_launches": deploy_exported,
         "dp_launches": dp_counts,   # the one-rank NCCL group's three fits (A14)
-        "tp_launches": tp_counts}   # the two ranks' tp, ep and dp arms (A14), both summed
+        "tp_launches": tp_counts,   # the two ranks' tp, ep and dp arms (A14), both summed
+        "sp_launches": sp_counts}   # the two ranks' sp arms (A14), both summed
 
     def a114_columns(name):
         return {**{col: counts[name] for col, counts in a114.items()},

@@ -22,14 +22,16 @@ gathers its windows from the val videos on the device.
 
 Under ``torchrun`` (``torchrun --nproc_per_node N -m r3d_tpu_torch.cli
 ...``) the CLI forms the process group (NCCL on ``cuda:{LOCAL_RANK}``, gloo
-under ``--cpu``) and a (dp, ep, tp) mesh of ``--mesh_dp`` x ``--mesh_ep``
-x ``--mesh_tp`` ranks (dp takes what the others leave by default), as the
-JAX CLI builds its mesh on a host of several devices
-(``r3d_tpu/cli/run.py:59-73``), and logs it (``mesh: {...}``): the trainer
-and the sweep split their batches over dp and the parameters over tp and
-ep, ``--fsdp`` shards the train state over dp, and only rank 0 logs and
-writes. A group the caller already formed is used as it is. The sp and pp
-axes are ROADMAP item A14's next slices.
+under ``--cpu``) and a (dp, ep, tp, sp) mesh of ``--mesh_dp`` x
+``--mesh_ep`` x ``--mesh_tp`` x ``--mesh_sp`` ranks (dp takes what the
+others leave by default), as the JAX CLI builds its mesh on a host of
+several devices (``r3d_tpu/cli/run.py:59-73``), and logs it (``mesh:
+{...}``): the trainer and the sweep split their batches over dp and their
+sequences over sp, and the parameters over tp and ep, ``--fsdp`` shards
+the train state over dp, and only rank 0 logs and writes. A group the
+caller already formed is used as it is. The pp axis is ROADMAP item A14's
+next slice, and sp runs the fusion models and futr
+(``parallel.mesh.sp_refusal``).
 """
 
 from __future__ import annotations
@@ -70,10 +72,9 @@ def _splits(config: Config):
 
 
 def _check_ported(config: Config) -> None:
-    m = config.mesh
-    if max(m.sp, m.pp) > 1:
-        raise NotImplementedError("the sp and pp mesh axes are not ported yet "
-                                  "(ROADMAP queue A, item A14)")
+    if config.mesh.pp > 1:
+        raise NotImplementedError("the pp mesh axis is not ported yet (ROADMAP queue A, "
+                                  "item A14)")
 
 
 def launch_env(environ=None) -> Optional[Tuple[int, int, int]]:
@@ -87,7 +88,7 @@ def launch_env(environ=None) -> Optional[Tuple[int, int, int]]:
 
 
 def form_group(config: Config, device: Device):
-    """(mesh, device, formed): the dp mesh of the process group that
+    """(mesh, device, formed): the mesh of the process group that
     ``torchrun`` launched (formed here, NCCL on ``cuda:{LOCAL_RANK}`` or
     gloo on the CPU) or that the caller formed; (None, device, False) for a
     plain run."""

@@ -248,15 +248,22 @@ def cache_from_source(source, cfg, n_query: int, max_bytes: int = MAX_BYTES,
                        **_cache_kwargs(source, cfg, n_query, max_bytes, device))
 
 
-def _gather_window(arr: torch.Tensor, vid: torch.Tensor, in_view: torch.Tensor, S: int,
-                   sample_rate: int, fill) -> torch.Tensor:
-    """[B] video ids -> [B, S, ...] strided observed windows: rows
-    ``arange(S) * sample_rate`` of each video, ``fill`` outside ``in_view``
+def _frames(S: int, seq: Optional[slice], device) -> torch.Tensor:
+    """The window positions a batch of bucket ``S`` holds: all of them, or
+    the sp rank's ``seq`` of them."""
+    return torch.arange(S, device=device) if seq is None else torch.arange(
+        seq.start, seq.stop, device=device)
+
+
+def _gather_window(arr: torch.Tensor, vid: torch.Tensor, in_view: torch.Tensor,
+                   frames: torch.Tensor, sample_rate: int, fill) -> torch.Tensor:
+    """[B] video ids -> [B, len(frames), ...] strided observed windows: rows
+    ``frames * sample_rate`` of each video, ``fill`` outside ``in_view``
     and past the stored length. Rows past a video's own length are zeros in
     the padded storage, as the host collate leaves them. One gather kernel
     and one in-place fill: no second copy of the batch."""
     L = arr.shape[1]
-    rows = torch.arange(S, device=arr.device) * sample_rate
+    rows = frames * sample_rate
     ok = in_view & (rows < L)[None, :]
     g = arr[vid[:, None], rows.clamp(max=L - 1)[None, :]]
     g.masked_fill_(~ok.view(ok.shape + (1,) * (g.ndim - 2)), fill)
@@ -264,18 +271,21 @@ def _gather_window(arr: torch.Tensor, vid: torch.Tensor, in_view: torch.Tensor, 
 
 
 def assemble(data: Dict[str, torch.Tensor], view_ids: torch.Tensor, S: int, sample_rate: int,
-             pad_idx: int, query_pad_idx: Optional[int]) -> Dict[str, torch.Tensor]:
+             pad_idx: int, query_pad_idx: Optional[int], seq: Optional[slice] = None
+             ) -> Dict[str, torch.Tensor]:
     """The batch of views ``view_ids`` [B] at bucket length ``S``: the
     arrays ``pipeline.pad_batch`` builds (same dtypes, same pads), on the
-    cache's device. ``j < nrows`` puts row ``j * sample_rate`` inside the
-    observed window and the label stream, so one mask serves every
-    stream."""
+    cache's device; with ``seq`` (an sp rank's frames) only those frames of
+    the sequence streams are gathered. ``j < nrows`` puts row ``j *
+    sample_rate`` inside the observed window and the label stream, so one
+    mask serves every stream."""
     vid = data["view_vid"][view_ids].long()
     nrows = data["view_nrows"][view_ids]
-    in_view = torch.arange(S, device=vid.device)[None, :] < nrows[:, None]
+    frames = _frames(S, seq, vid.device)
+    in_view = frames[None, :] < nrows[:, None]
 
     def gather(arr, fill):
-        return _gather_window(arr, vid, in_view, S, sample_rate, fill)
+        return _gather_window(arr, vid, in_view, frames, sample_rate, fill)
 
     batch = {"features": gather(data["features"], 0),
              "past_label": gather(data["labels"], pad_idx),
@@ -291,21 +301,24 @@ def assemble(data: Dict[str, torch.Tensor], view_ids: torch.Tensor, S: int, samp
 
 
 def assemble_eval(data: Dict[str, torch.Tensor], vid: torch.Tensor, real_s: torch.Tensor,
-                  S: int, sample_rate: int) -> Dict[str, torch.Tensor]:
+                  S: int, sample_rate: int, seq: Optional[slice] = None
+                  ) -> Dict[str, torch.Tensor]:
     """The sweep's observed windows (``Predictor._forward_batch``'s host
     padding, on the card): ``vid`` and ``real_s`` are [B] video indices and
     valid strided-row counts; returns features, mask (True = pad) and depth
-    or query, [B, S, ...]. Filler rows (``real_s == 0``) keep frame 0
-    unmasked, as the host path does."""
-    in_view = torch.arange(S, device=vid.device)[None, :] < real_s[:, None]
+    or query, [B, S, ...] (the frames ``seq`` of them, where given). Filler
+    rows (``real_s == 0``) keep frame 0 unmasked, as the host path does."""
+    frames = _frames(S, seq, vid.device)
+    in_view = frames[None, :] < real_s[:, None]
     mask = ~in_view
-    mask[:, 0] = False
-    out = {"features": _gather_window(data["features"], vid, in_view, S, sample_rate, 0),
+    if seq is None or seq.start == 0:
+        mask[:, 0] = False
+    out = {"features": _gather_window(data["features"], vid, in_view, frames, sample_rate, 0),
            "mask": mask}
     if "depth" in data:
-        out["depth"] = _gather_window(data["depth"], vid, in_view, S, sample_rate, 0)
+        out["depth"] = _gather_window(data["depth"], vid, in_view, frames, sample_rate, 0)
     if "query" in data:   # the host sweep zero-fills query padding
-        out["query"] = _gather_window(data["query"], vid, in_view, S, sample_rate, 0)
+        out["query"] = _gather_window(data["query"], vid, in_view, frames, sample_rate, 0)
     return out
 
 

@@ -46,11 +46,17 @@ over the whole chunk, and MoE routes over it) and every rank gathers the
 chunk's outputs over dp; a model that attends across the batch runs every
 chunk whole on every rank, at its own ``eval_batch``. Each module holds
 its rank's tp and ep slices (``parallel.mesh.place_model``), so the ranks
-of one dp coordinate compute its rows together. The filler rows stay
-masked and dropped, so the MoC tables are the one-process sweep's.
+of one dp coordinate compute its rows together. On an sp axis each chunk's
+sequence is cut as training cuts it (the bucket's frames over sp where sp
+divides it, the cached route gathering only the rank's frames; JAX's sweep
+cuts over dp and lets its ring reshard, ``r3d_tpu/eval/predict.py:114-125``,
+to the same numbers), and the per-frame outputs are gathered over sp
+before dp. The filler rows stay masked and dropped, so the MoC tables are
+the one-process sweep's.
 
 Not ported yet, and raising ``NotImplementedError`` naming their ROADMAP
-item: the sp and pp mesh axes (A14) and ``gif_dir`` (A15).
+item: the pp mesh axis and sp for the families
+``parallel.mesh.sp_refusal`` names (A14), and ``gif_dir`` (A15).
 """
 
 from __future__ import annotations
@@ -74,6 +80,7 @@ from r3d_tpu_torch.eval.moc import MoCAccumulator
 from r3d_tpu_torch.models import is_fusion_model, model_needs_query
 from r3d_tpu_torch.models.layers import DTYPES
 from r3d_tpu_torch.parallel.mesh import (
+    axis,
     batch_sharding,
     check_mesh,
     cut,
@@ -82,11 +89,16 @@ from r3d_tpu_torch.parallel.mesh import (
     is_writer,
     local_model_state,
     place_model,
+    rows_group,
+    seq_sharding,
+    sp_refusal,
     split_rows,
 )
+from r3d_tpu_torch.parallel.tensor import gather_seq
 from r3d_tpu_torch.serving import resolve_device
 
 OUTPUT_KEYS = ("action", "duration", "seg", "l3")   # what the sweep reads back
+FRAME_KEYS = ("seg", "l3")   # the outputs with a frame axis: gathered over a cut sequence
 Variables = Union[Mapping[str, torch.Tensor], nn.Module]
 
 
@@ -133,8 +145,10 @@ class Predictor:
         """``model``: a module of ``config.model`` that ``state_dict``
         variables load into; ``mesh`` the mesh to split the sweep over."""
         check_mesh(mesh)
+        sp_refusal(config, mesh)
         self.mesh = mesh
         self.group = dp_group(mesh)
+        self.sp = axis(mesh, "sp")
         self.device = resolve_device(device)
         self.config = config
         self.model = model
@@ -246,9 +260,10 @@ class Predictor:
             args = (feats, query, mask, query_len)
         else:
             args = (feats, mask)
-        rows = self._rows()
-        return self._run(modules, tuple(None if t is None else cut(t, rows).to(
-            self.device, non_blocking=True) for t in args), n)
+        rows, seq = self._rows(), self._seq(S)
+        return self._run(modules, tuple(None if t is None else cut(
+            cut(t, rows), seq if t.dim() > 1 and t.shape[1] == S else None, 1).to(
+            self.device, non_blocking=True) for t in args), n, seq)
 
     def _forward_batch_cached(self, modules: List[nn.Module], items: List[Dict], S: int,
                               data: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
@@ -259,9 +274,10 @@ class Predictor:
         real_s = torch.zeros(self.eval_batch, dtype=torch.long)
         for i, it in enumerate(items):
             vid[i], real_s[i] = it["ui"], it["real_s"]
-        rows = self._rows()
+        rows, seq = self._rows(), self._seq(S)
         b = assemble_eval(data, cut(vid, rows).to(self.device),
-                          cut(real_s, rows).to(self.device), S, self.config.data.sample_rate)
+                          cut(real_s, rows).to(self.device), S, self.config.data.sample_rate,
+                          seq)
         if self.is_fusion:
             args = (b["features"], b["depth"], b["mask"])
         elif self.needs_query:
@@ -270,22 +286,32 @@ class Predictor:
                     else q, b["mask"])
         else:
             args = (b["features"], b["mask"])
-        return self._run(modules, args, len(items))
+        return self._run(modules, args, len(items), seq)
 
     def _rows(self) -> Optional[slice]:
         """This rank's rows of a chunk (None: all of them)."""
         return None if self._replicate else batch_sharding(self.mesh, self.eval_batch)
 
-    def _run(self, modules: List[nn.Module], args, n: int) -> Dict[str, np.ndarray]:
+    def _seq(self, S: int) -> Optional[slice]:
+        """This sp rank's frames of a bucket of ``S`` (None: all of them)."""
+        return None if self.sp is None else seq_sharding(self.mesh, S)
+
+    def _run(self, modules: List[nn.Module], args, n: int, seq: Optional[slice] = None
+             ) -> Dict[str, np.ndarray]:
         """One forward per module, the heads averaged over modules; the
         first ``n`` rows on the host. On a dp group ``args`` hold this
         rank's ``_rows()`` of the chunk, and the chunk's outputs are
-        gathered from the group."""
+        gathered from the group; on a cut sequence (``seq``) they hold the
+        rank's frames, and the per-frame outputs are gathered over sp."""
         rows = self._rows()
-        with torch.inference_mode(), split_rows(self.group if rows is not None else None):
+        sp = self.sp if seq is not None else None
+        with torch.inference_mode(), split_rows(
+                rows_group(self.mesh, rows is not None, sp is not None), sp):
             outs = [m(*args) for m in modules]
             outputs = {k: sum(o[k] for o in outs) / len(outs)
                        for k in OUTPUT_KEYS if k in outs[0]}
+            outputs = {k: gather_seq(v, sp) if k in FRAME_KEYS else v
+                       for k, v in outputs.items()}
             if rows is not None:
                 outputs = {k: self._gather(v.float(), rows) for k, v in outputs.items()}
         return {k: v[:n].float().cpu().numpy() for k, v in outputs.items()}

@@ -34,6 +34,12 @@ BatchNorm statistics stay fp32. In bf16 the kernels and their plain versions
 compute at the Pallas kernel's rounding points (``ops/fuser_kernel.py``),
 and a composed block at flax's: LayerNorm in fp32 rounded to bf16, each
 product of bf16 operands rounded once, its bias added in bf16.
+
+Under sequence parallelism each rank fuses its own frames (K1 and K2 on
+its ``B/dp * S/sp`` rows); the BatchNorm statistics, the BN unbiased
+factor's n and the activation rankings reduce over the dp x sp group
+(``parallel.mesh.split_rows``), and the dropout keeps the rank's frames of
+the whole mask.
 """
 
 from __future__ import annotations
@@ -76,8 +82,8 @@ class TorchBatchNorm(nn.Module):
     def stats(self, x, train: bool):
         """(mean, var) to normalize with; in train mode the batch's (which
         carry gradients), updating the running statistics. Where the rows
-        are split over a dp group (``parallel.mesh.split_rows``) the batch
-        is the global one: both statistics and the unbiased factor's n."""
+        are split over a dp (x sp) group (``parallel.mesh.split_rows``) the
+        batch is the global one: both statistics and the unbiased factor's n."""
         if not train:
             return self.running_mean, self.running_var
         x32 = x.float()
@@ -162,7 +168,8 @@ class _SAFuserCore(nn.Module):
         for i in range(depth):
             setattr(self, f"block{i}", FuserBlock(dim))
         self.norm = nn.LayerNorm(dim, eps=1e-5)
-        self.drop = Dropout(drop_rate)
+        # applied to [B, T, C]: under sp, T is the rank's frames of the stream
+        self.drop = Dropout(drop_rate, seq_dim=1)
 
     def tail_params(self) -> FuserTailParams:
         b = self.block0
@@ -188,7 +195,9 @@ class _SAFuserCore(nn.Module):
             return fused.reshape(B, T, C)
         if blend is not None:
             r, d = composed_bn_blend(r, d, blend)
-        r, d = self.drop(r), self.drop(d)
+        # the masks drawn as [B, T, C], the same numbers as [B * T, C]
+        r = self.drop(r.view(B, T, C)).reshape(B * T, C)
+        d = self.drop(d.view(B, T, C)).reshape(B * T, C)
         if self.depth == 1:
             fused = fused_safuser_tail(r.contiguous(), d.contiguous(), self.tail_params(),
                                        self.outer_residual)

@@ -21,6 +21,7 @@ from torch import nn
 from r3d_tpu_torch.config import ModelConfig
 from r3d_tpu_torch.models.layers import DTYPES, linear_in
 from r3d_tpu_torch.models.transformer import FUTRTransformer
+from r3d_tpu_torch.parallel.mesh import seq_axis
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -35,6 +36,15 @@ def embed_dtype(cfg: ModelConfig) -> torch.dtype:
 def moe_spec(cfg: ModelConfig):
     """(experts, top_k, capacity_factor) of the transformer's FFNs."""
     return cfg.moe_experts, cfg.moe_top_k, cfg.moe_capacity_factor
+
+
+def positions(table: torch.Tensor, S: int) -> torch.Tensor:
+    """The learned positions of the stream's S frames, [1, S, C]: the first
+    S rows of ``table``, or under sequence parallelism the sp rank's own
+    range of them, ``[r S, (r+1) S)``."""
+    sp = seq_axis()
+    start = 0 if sp is None else sp.rank * S
+    return table[:, start:start + S]
 
 
 class InputEmbed(nn.Module):
@@ -120,7 +130,7 @@ class FUTR(nn.Module):
         src = self.embed(features)
         pos = None
         if cfg.pos_emb:
-            pos = self.pos_embedding[:, :S].to(src.dtype).expand(B, S, cfg.hidden_dim)
+            pos = positions(self.pos_embedding, S).to(src.dtype).expand(B, S, cfg.hidden_dim)
         query = self.query_embed[None].to(src.dtype).expand(B, -1, -1)
         memory, hs = self.transformer(src, pos, query, src_pad_mask)
         out = self.heads(hs, memory)

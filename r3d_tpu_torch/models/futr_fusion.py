@@ -12,6 +12,11 @@ transformer: the fused stream, pooled to ``n_query`` rows, goes through
 dropout; ``module.eval()`` is the reference's module-eval forward. In bf16
 (``compute_dtype``) the embeds, the fuser, the transformer and the heads
 compute in bf16 and the parameters stay fp32, as flax's ``dtype=`` does.
+
+Under sequence parallelism (``parallel.mesh.seq_axis()`` set) the inputs
+are the rank's frames ``[r S, (r+1) S)`` of the bucket (S the rank's
+length): the embeds and the fuser run on them, the positional table is
+cut to that range, and ``afft`` pools the fused stream gathered over sp.
 """
 
 from __future__ import annotations
@@ -24,10 +29,18 @@ from torch import nn
 
 from r3d_tpu_torch.config import ModelConfig
 from r3d_tpu_torch.models.fuser import CMFuserBN, CMFuserGrad, CMFuserNoExchange, CMFuserVary
-from r3d_tpu_torch.models.futr import Heads, InputEmbed, compute_dtype, embed_dtype, moe_spec
+from r3d_tpu_torch.models.futr import (
+    Heads,
+    InputEmbed,
+    compute_dtype,
+    embed_dtype,
+    moe_spec,
+    positions,
+)
 from r3d_tpu_torch.models.layers import LayerNorm, adaptive_avg_pool1d, linear_in
 from r3d_tpu_torch.models.transformer import FUTRTransformer
-from r3d_tpu_torch.parallel.tensor import Axis, copy_to, gather_from
+from r3d_tpu_torch.parallel.mesh import seq_axis
+from r3d_tpu_torch.parallel.tensor import Axis, copy_to, gather_from, gather_seq
 
 FUSERS = {
     "futr_fusion_bn": CMFuserBN,
@@ -115,13 +128,13 @@ class FUTRFusion(nn.Module):
             out: Dict[str, torch.Tensor] = {}
             if cfg.anticipate:
                 dt = compute_dtype(cfg)
-                pooled = adaptive_avg_pool1d(fused, cfg.n_query)
+                pooled = adaptive_avg_pool1d(gather_seq(fused, seq_axis()), cfg.n_query)
                 out["action"] = linear_in(pooled, self.fc, dt).float()
                 out["duration"] = linear_in(pooled, self.fc_len, dt)[..., 0].float()
             return out
         pos = None
         if cfg.pos_emb:
-            pos = self.pos_embedding[:, :S].to(src.dtype).expand(B, S, cfg.hidden_dim)
+            pos = positions(self.pos_embedding, S).to(src.dtype).expand(B, S, cfg.hidden_dim)
         query = self.query_embed[None].to(src.dtype).expand(B, -1, -1)
         memory, hs = self.transformer(fused, pos, query, src_pad_mask)
         out = self.heads(hs, memory)

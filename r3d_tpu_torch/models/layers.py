@@ -48,7 +48,9 @@ from r3d_tpu_torch.ops.cross_attention import (
     cross_attention_native,
     cross_attention_native_eligible,
 )
-from r3d_tpu_torch.parallel.tensor import Axis, copy_to, reduce_from
+from r3d_tpu_torch.ops.ring_attention import ring_attention, ring_attention_eligible
+from r3d_tpu_torch.parallel.mesh import seq_axis
+from r3d_tpu_torch.parallel.tensor import Axis, copy_to, cut_seq, gather_seq, reduce_from
 
 INT32_MAX = 2 ** 31 - 1
 TP_SEED_STRIDE = 7919   # r3d_tpu/ops/attention.py:435: a tp shard's seed offset
@@ -114,18 +116,23 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
 
 class Dropout(nn.Module):
     """Dropout in train mode at ``rate`` > 0, identity otherwise; ``cuts``
-    where its input is a rank's slice (``dropout``)."""
+    where its input is a rank's slice (``dropout``). ``seq_dim``: the axis
+    of its input that is the sequence, cut over sp where ``seq_axis()`` is
+    set (None: its input never is)."""
 
-    def __init__(self, rate: float):
+    def __init__(self, rate: float, seq_dim: Optional[int] = None):
         super().__init__()
         self.rate = rate
         self.generator: Optional[torch.Generator] = None
         self.cuts: Cuts = ()
+        self.seq_dim = seq_dim
 
     def forward(self, x):
         if not self.training or self.rate == 0.0:
             return x
-        return dropout(x, self.rate, self.generator, self.cuts)
+        sp = seq_axis() if self.seq_dim is not None else None
+        cuts = self.cuts if sp is None else self.cuts + ((self.seq_dim, sp),)
+        return dropout(x, self.rate, self.generator, cuts)
 
 
 class FixedDropout(Dropout):
@@ -164,7 +171,11 @@ class MultiheadAttention(nn.Module):
       weights in train mode.
 
     With a tp axis every route runs on the rank's H/tp heads (K6/K7 on its
-    C/tp channels, each head's channels together).
+    C/tp channels, each head's channels together). With ``seq`` (q, k and
+    v on the sequence stream) and ``seq_axis()`` set, the routes are chosen
+    on the whole lengths, JAX's order (``r3d_tpu/models/layers.py:87-133``):
+    the ring without dropout where ``ring_attention_eligible``, else the
+    whole call on the inputs gathered over sp, the rank's rows kept.
     """
 
     def __init__(self, dim: int, n_head: int, dropout: float = 0.0,
@@ -190,10 +201,21 @@ class MultiheadAttention(nn.Module):
             seed = (seed + TP_SEED_STRIDE * self.tp.rank) % INT32_MAX
         return seed
 
-    def forward(self, q, k, v, key_padding_mask=None):
+    def forward(self, q, k, v, key_padding_mask=None, seq: bool = False):
         B, Lq, C = q.shape
         Lk = k.shape[1]
         tp = self.tp
+        rate = self.dropout if self.training else 0.0
+        sp = seq_axis() if seq else None
+        ring = (sp is not None and rate == 0.0
+                and ring_attention_eligible(Lq * sp.size, Lk * sp.size, sp.size))
+        if sp is not None and not ring:
+            # the one-process call on the gathered sequence, this rank's rows kept
+            gq = gather_seq(q, sp)
+            gk = gq if k is q else gather_seq(k, sp)
+            gv = gk if v is k else gather_seq(v, sp)
+            mask = None if key_padding_mask is None else gather_seq(key_padding_mask, sp)
+            return cut_seq(self.forward(gq, gk, gv, mask), sp)
         D = C // self.n_head
         H = self.n_head // (1 if tp is None else tp.size)   # this rank's heads
         Cl = H * D
@@ -206,14 +228,15 @@ class MultiheadAttention(nn.Module):
         kf = linear_in(k, self.k_proj, self.dtype)
         vf = linear_in(v, self.v_proj, self.dtype)
         bias = attention_bias_from_padding(key_padding_mask)
-        rate = self.dropout if self.training else 0.0
-        if cross_attention_native_eligible(Lq, Lk, Cl, H, rate, q.device):
+        if cross_attention_native_eligible(Lq, Lk, Cl, H, rate, q.device) and not ring:
             seed = self._seed() if rate > 0.0 else 0
             out = cross_attention_native(qf, kf, vf, bias, seed, scale, rate, H)
             return row_parallel(out, self.out_proj, self.dtype, tp)
         heads = lambda x, L: x.view(B, L, H, D).transpose(1, 2).contiguous()
         qh, kh, vh = heads(qf, Lq), heads(kf, Lk), heads(vf, Lk)
-        if rate == 0.0 and attention_kernel_eligible(Lq, Lk, D, q.device):
+        if ring:
+            out = ring_attention(qh, kh, vh, bias, scale, sp)
+        elif rate == 0.0 and attention_kernel_eligible(Lq, Lk, D, q.device):
             out = flash_attention(qh, kh, vh, bias, scale)
         elif attention_kernel_eligible(Lq, Lk, D, q.device):
             out = flash_attention_dropout(qh, kh, vh, bias, self._seed(), scale, rate)
@@ -269,7 +292,7 @@ class EncoderLayer(nn.Module):
     key-padding mask, then the FFN (MoE under the same mask with ``moe``),
     each added back through dropout. At S of 256 or more the
     self-attention takes the attention kernels (S queries against S
-    keys)."""
+    keys). Its input is the sequence stream: under sp, the rank's frames."""
 
     def __init__(self, dim: int, n_head: int, ffn_dim: int, dropout: float = 0.0,
                  dtype: torch.dtype = torch.float32, moe: Optional[tuple] = None):
@@ -278,12 +301,15 @@ class EncoderLayer(nn.Module):
         self.norm1 = LayerNorm(dim, dtype)
         self.norm2 = LayerNorm(dim, dtype)
         self.ffn = feed_forward(dim, ffn_dim, dropout, dtype, moe)
-        self.drop1 = Dropout(dropout)
-        self.drop2 = Dropout(dropout)
+        self.drop1 = Dropout(dropout, seq_dim=1)
+        self.drop2 = Dropout(dropout, seq_dim=1)
+        if isinstance(self.ffn, FeedForward):
+            self.ffn.drop.seq_dim = 1
 
     def forward(self, src, pos, key_padding_mask=None):
         qkv = src if pos is None else src + pos
-        src = self.norm1(src + self.drop1(self.self_attn(qkv, qkv, qkv, key_padding_mask)))
+        src = self.norm1(src + self.drop1(self.self_attn(qkv, qkv, qkv, key_padding_mask,
+                                                         seq=True)))
         return self.norm2(src + self.drop2(self.ffn(src, key_padding_mask)))
 
 

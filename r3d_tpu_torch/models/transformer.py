@@ -12,6 +12,14 @@ L3 query generation (``l3_queries=True``, then ``query_pos=None``;
 package reaches): ``l3_attention`` (queries the memory, keys and values the
 source, no mask, no dropout), plus the sinusoidal encoding, pooled to
 ``n_query`` rows (``adaptive_avg_pool1d``), are the decoder's queries.
+
+Sequence parallelism (``parallel.mesh.seq_axis()`` set): the encoder runs
+on the rank's S/sp frames (ring attention, ``models/layers.py``), then the
+decoder's keys and values (``memory + pos``) and the memory's padding mask
+are gathered over sp (``gather_seq``, one collective each) and the decoder
+runs on the whole sequence, replicated on the sp ranks, as JAX's program
+computes it on each sp device; the memory handed back stays the rank's
+block, so the segmentation head runs on the rank's frames.
 """
 
 from __future__ import annotations
@@ -21,6 +29,8 @@ from typing import Optional
 import torch
 from torch import nn
 
+from r3d_tpu_torch.parallel.mesh import seq_axis
+from r3d_tpu_torch.parallel.tensor import gather_seq
 from r3d_tpu_torch.models.layers import (
     DecoderLayer,
     EncoderLayer,
@@ -103,6 +113,13 @@ class FUTRTransformer(nn.Module):
             src_l3 = self.l3_attention(memory, src, src)
             query_pos = adaptive_avg_pool1d(src_l3 + self.pe[:src.shape[1]].to(src_l3.dtype),
                                             self.n_query)
-        hs = self.decoder(query_pos.new_zeros(query_pos.shape), memory, pos,
-                          query_pos, src_key_padding_mask, tgt_key_padding_mask)
+        keys, key_pos, key_mask = memory, pos, src_key_padding_mask
+        sp = seq_axis()
+        if sp is not None:
+            # the decoder reads memory + pos alone: one gather
+            keys = gather_seq(memory if pos is None else memory + pos, sp)
+            key_pos = None
+            key_mask = None if key_mask is None else gather_seq(key_mask, sp)
+        hs = self.decoder(query_pos.new_zeros(query_pos.shape), keys, key_pos,
+                          query_pos, key_mask, tgt_key_padding_mask)
         return memory, hs

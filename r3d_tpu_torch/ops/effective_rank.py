@@ -15,6 +15,9 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed as dist
+
+from r3d_tpu_torch.parallel.tensor import sum_over
 
 _EPS = 1e-12
 
@@ -47,17 +50,22 @@ class _ERankFromGram(torch.autograd.Function):
         return g[..., None, None] * dG
 
 
-def effective_rank(x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+def effective_rank(x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                   group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
     """x [..., N, C] (leading dims batched), mask [..., N] with 1 = valid
-    row. Masked rows are zeroed, which leaves the Gram matrix exact."""
+    row. Masked rows are zeroed, which leaves the Gram matrix exact.
+    ``group``: the N rows are cut over it (a sequence over sp), and each
+    Gram matrix is summed over it, with gradients, before the eigenvalues."""
     if x.dtype not in (torch.float32, torch.float64):
         x = x.float()
     if mask is not None:
         x = x * mask.to(x.dtype)[..., None]
-    return _ERankFromGram.apply(torch.einsum("...nc,...nd->...cd", x, x))
+    gram = sum_over(torch.einsum("...nc,...nd->...cd", x, x), group)
+    return _ERankFromGram.apply(gram)
 
 
-def effective_rank_loss(x, mask=None, target: Optional[float] = None) -> torch.Tensor:
+def effective_rank_loss(x, mask=None, target: Optional[float] = None,
+                        group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
     """-erank (maximize rank), or (erank - target)^2; mean over the batch."""
-    er = effective_rank(x, mask)
+    er = effective_rank(x, mask, group)
     return (-er if target is None else (er - target) ** 2).mean()

@@ -1,5 +1,6 @@
-"""Data, tensor and expert parallelism over a ``torch.distributed`` group
-(counterpart of ``r3d_tpu/parallel``'s dp, ep and tp axes)."""
+"""Data, tensor, expert and sequence parallelism over a
+``torch.distributed`` group (counterpart of ``r3d_tpu/parallel``'s dp, ep,
+tp and sp axes)."""
 
 from r3d_tpu_torch.parallel.mesh import (
     FSDP_MIN_ELEMS,

@@ -1,34 +1,44 @@
-"""Data, tensor and expert parallelism over a ``torch.distributed`` group.
+"""Data, tensor, expert and sequence parallelism over a ``torch.distributed``
+group.
 
-Counterpart of ``r3d_tpu/parallel/mesh.py`` for its ``dp``, ``ep`` and
-``tp`` axes. JAX jits one program over the sharded global batch and
+Counterpart of ``r3d_tpu/parallel/mesh.py`` for its ``dp``, ``ep``, ``tp``
+and ``sp`` axes. JAX jits one program over the sharded global batch and
 parameters and GSPMD inserts the collectives; here each rank is a process
 that runs the same step on its own rows and its own slices of the
 parameters, and the collectives are written out:
 
 - the mesh: ``(dp, ep, tp, sp, pp)`` over the ranks, row-major as JAX
-  reshapes its devices; the batch shards over dp alone, so the ranks that
-  share a dp coordinate hold the same rows;
+  reshapes its devices; the batch shards over dp, so the ranks that share
+  a dp coordinate hold the same rows;
 - the batch: dp rank r of W takes the contiguous rows ``[r B/W, (r+1)
   B/W)``, where ``P("dp")`` places them; where ``B % W != 0`` every rank
   takes every row (``batch_sharding``, ``take_rows``; JAX replicates such
   batches, ``r3d_tpu/train/loop.py:965-973``);
-- what mixes rows: inside ``split_rows(group)`` the BatchNorm statistics,
-  the fusers' activation rankings, MoE's routing and balance term, the
-  unsupervised loop's loss terms and the self-attention source's attention
-  across the batch are taken over the global batch by ``global_sum`` (an
-  all-reduce that carries gradients), ``gather_rows`` and ``rank_table``,
-  and the duration loss divides by the global count of valid slots
-  (``global_count``);
+- the sequence: on an sp axis every array whose axis 1 is the bucket's S
+  takes sp rank r's frames ``[r S/sp, (r+1) S/sp)`` (``seq_sharding``,
+  ``take_seq``; JAX's ``shard_batch`` and ``put_batch``,
+  ``r3d_tpu/parallel/mesh.py:224-247``, ``r3d_tpu/train/loop.py:955-990``);
+  ``n_query``-sized arrays stay whole, and a bucket whose S sp does not
+  divide runs whole on every sp rank;
+- what mixes rows: inside ``split_rows(group, seq)`` the BatchNorm
+  statistics, the fusers' activation rankings, MoE's routing and balance
+  term, the unsupervised loop's loss terms and the self-attention source's
+  attention across the batch are taken over the global batch by
+  ``global_sum`` (an all-reduce that carries gradients), ``gather_rows``
+  and ``rank_table``, and the duration loss divides by the global count of
+  valid slots (``global_count``); the group is the dp x sp ranks of this
+  rank's (ep, tp) coordinate where both cut the batch (``rows_group``), and
+  ``seq_axis()`` tells the layers that their S axis is this sp rank's block;
 - the parameters: ``TP_RULES`` is JAX's ``_TP_RULES``, applied to each
   parameter's flax path (``convert.flax_path``); ``place_model`` cuts each
   rank's slice of the parameters the rules shard and points the layers
   that use them at their axis (``parallel/tensor.py``'s collectives:
   Megatron's column- and row-parallel attention and FFN, the depth
-  projection gathered, MoE's experts over ep);
-- the gradients: the trainer averages them over the dp group (a
+  projection gathered, MoE's experts over ep); sp replicates them;
+- the gradients: the trainer averages them over the dp x sp group (a
   replicated parameter's gradient is the same on every tp and ep rank of a
-  dp coordinate), or FSDP2 reduce-scatters them;
+  dp coordinate), or FSDP2 reduce-scatters them over dp and
+  ``average_gradients`` averages the shards over sp;
 - FSDP (``shard_state(..., fsdp=True)``): every parameter shards over the
   dp sub-mesh on the axis JAX's ``_fsdp_spec`` picks among those its TP
   spec leaves free, without its size floor (FSDP2's ``fully_shard`` with
@@ -36,13 +46,14 @@ parameters, and the collectives are written out:
   optimizer's moments follow their parameters.
 
 ``make_mesh`` returns a ``DeviceMesh`` with JAX's dims ``("dp", "ep",
-"tp", "sp", "pp")``; sp and pp above 1 are ROADMAP item A14's next slices
-and raise. JAX's module-wide active mesh has no counterpart: its Pallas
-wrappers read it to shard_map themselves, while here the trainer and the
-predictor hold their own mesh, the layers their own axes, and only
-``split_rows`` is scoped state, so objects with and without a group
-coexist in one process. With one rank every path computes what it
-computes without a mesh, FSDP's included.
+"tp", "sp", "pp")``; pp above 1 is ROADMAP item A14's next slice and
+raises, and so does sp for the families ``sp_refusal`` names. JAX's
+module-wide active mesh has no counterpart: its Pallas wrappers read it to
+shard_map themselves, while here the trainer and the predictor hold their
+own mesh, the layers their own axes, and only ``split_rows`` is scoped
+state, so objects with and without a group coexist in one process. With
+one rank every path computes what it computes without a mesh, FSDP's
+included.
 """
 
 from __future__ import annotations
@@ -56,7 +67,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from r3d_tpu_torch.parallel.tensor import Axis
+from r3d_tpu_torch.parallel.tensor import Axis, gather_block, sum_over
 
 DIMS = ("dp", "ep", "tp", "sp", "pp")
 
@@ -66,13 +77,15 @@ DIMS = ("dp", "ep", "tp", "sp", "pp")
 FSDP_MIN_ELEMS = 8192
 
 _SPLIT_GROUP: Optional[dist.ProcessGroup] = None
+_SEQ_AXIS: Optional[Axis] = None
+# {id(mesh): this rank's dp x sp group}, made by ``make_mesh`` where both exceed 1
+_ROWS_GROUPS: Dict[int, dist.ProcessGroup] = {}
 
 
 def _refuse_axes(sizes: Dict[str, int]) -> None:
-    over = {ax: n for ax, n in sizes.items() if ax in ("sp", "pp") and n > 1}
-    if over:
-        raise NotImplementedError(f"mesh axes {over} are not ported yet: only dp, ep and tp "
-                                  "are (ROADMAP queue A, item A14)")
+    if sizes.get("pp", 1) > 1:
+        raise NotImplementedError(f"mesh axis pp={sizes['pp']} is not ported yet: dp, ep, tp "
+                                  "and sp are (ROADMAP queue A, item A14)")
 
 
 def make_mesh(dp: int = -1, tp: int = 1, sp: int = 1, pp: int = 1, ep: int = 1,
@@ -88,12 +101,23 @@ def make_mesh(dp: int = -1, tp: int = 1, sp: int = 1, pp: int = 1, ep: int = 1,
         raise RuntimeError("make_mesh needs an initialised torch.distributed process group")
     n = dist.get_world_size()
     if dp == -1:
-        dp = n // (tp * ep)
-    if dp * ep * tp != n:
+        dp = n // (tp * ep * sp)
+    if dp * ep * tp * sp != n:
         raise ValueError(f"mesh {dp}x{ep}x{tp}x{sp}x{pp} != {n} ranks")
     if device_type is None:
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return init_device_mesh(device_type, (dp, ep, tp, 1, 1), mesh_dim_names=DIMS)
+    mesh = init_device_mesh(device_type, (dp, ep, tp, sp, 1), mesh_dim_names=DIMS)
+    if dp > 1 and sp > 1:
+        # the dp x sp ranks of each (ep, tp) coordinate: every rank makes
+        # every group, in one order, and keeps its own
+        ranks = torch.arange(n).reshape(dp, ep, tp, sp)
+        for e in range(ep):
+            for t in range(tp):
+                members = ranks[:, e, t, :].reshape(-1).tolist()
+                g = dist.new_group(members)
+                if dist.get_rank() in members:
+                    _ROWS_GROUPS[id(mesh)] = g
+    return mesh
 
 
 def mesh_sizes(mesh) -> Dict[str, int]:
@@ -102,9 +126,39 @@ def mesh_sizes(mesh) -> Dict[str, int]:
 
 
 def check_mesh(mesh) -> None:
-    """Raise for what is not ported: sp or pp above 1."""
+    """Raise for what is not ported: pp above 1."""
     if mesh is not None:
         _refuse_axes(mesh_sizes(mesh))
+
+
+# the families whose S-axis work is attention, token-wise layers and
+# reductions: the sequence cut runs them (ROADMAP A14's sp slice)
+SP_MODELS = ("futr_fusion_bn", "futr_fusion_grad", "futr_fusion_vary", "futr_fusion_nox", "afft",
+             "futr", "futr_baseline")
+SP_LOOPS = ("proposed_depth", "futr")
+
+
+def sp_refusal(config, mesh) -> None:
+    """Raise ``NotImplementedError`` (A14) where ``mesh`` cuts the sequence
+    (sp above 1) for a family the sp slice does not run: the query family
+    (S queries against S keys, the self-attention, depth and gaze sources,
+    temp2/temp3, L3 generation) and its loops, MoE (routing over the dp x
+    sp tokens), the rnn/cnn/tcn baselines (recurrences and dilated
+    convolutions across the cut)."""
+    if axis_size(mesh, "sp") == 1:
+        return
+    m, loop = config.model, config.train.loop
+    why = None
+    if m.model not in SP_MODELS:
+        why = f"model {m.model!r}"
+    elif loop not in SP_LOOPS:
+        why = f"the {loop!r} loop"
+    elif m.moe_experts > 0:
+        why = "MoE FFNs (moe_experts > 0)"
+    if why is not None:
+        raise NotImplementedError(f"{why} on an sp mesh is not ported yet: sequence "
+                                  "parallelism runs the fusion models and futr (ROADMAP queue "
+                                  "A, item A14)")
 
 
 def axis_size(mesh, ax: str) -> int:
@@ -155,6 +209,30 @@ def ep_group(mesh) -> Optional[dist.ProcessGroup]:
     return axis_group(mesh, "ep")
 
 
+def sp_rank(mesh) -> int:
+    return axis_rank(mesh, "sp")
+
+
+def sp_group(mesh) -> Optional[dist.ProcessGroup]:
+    return axis_group(mesh, "sp")
+
+
+def rows_group(mesh, rows: bool, seq: bool) -> Optional[dist.ProcessGroup]:
+    """The group a batch is split over: dp where its rows are cut
+    (``rows``), sp where its sequence is (``seq``), the dp x sp ranks of
+    this (ep, tp) coordinate where both are; None where neither is."""
+    if rows and seq:
+        return _ROWS_GROUPS[id(mesh)]
+    return dp_group(mesh) if rows else sp_group(mesh) if seq else None
+
+
+def grad_group(mesh) -> Optional[dist.ProcessGroup]:
+    """The group the gradients average over: the dp x sp ranks (every sp
+    rank computes a loss; where a batch runs whole on the sp ranks their
+    gradients are equal, and the mean is the dp group's)."""
+    return rows_group(mesh, dp_size(mesh) > 1, axis_size(mesh, "sp") > 1)
+
+
 def batch_sharding(mesh, n_rows: int) -> Optional[slice]:
     """This rank's rows of a batch of ``n_rows``: a slice, or None where
     every rank takes every row (one rank, or ``n_rows % dp != 0``)."""
@@ -177,49 +255,57 @@ def take_rows(batch: Dict[str, Any], rows: Optional[slice], axis: int = 0) -> Di
     return {k: cut(v, rows, axis) for k, v in batch.items()}
 
 
+def seq_sharding(mesh, S: int) -> Optional[slice]:
+    """This sp rank's frames of a bucket of ``S``: a slice, or None where
+    every sp rank takes the whole sequence (one rank, or ``S % sp != 0``)."""
+    a = axis(mesh, "sp")
+    if a is None or S % a.size:
+        return None
+    return a.part(S)
+
+
+def take_seq(batch: Dict[str, Any], seq: Optional[slice], axis: int = 1) -> Dict[str, Any]:
+    """Every array of ``batch`` whose ``axis`` is the sequence's (that of
+    ``features``) at ``seq`` along it (all of it for None): JAX's rule, axis
+    2 for stacked [K, B, S, ...] batches; ``n_query``-sized arrays stay
+    whole."""
+    if seq is None:
+        return batch
+    S = batch["features"].shape[axis]
+    return {k: cut(v, seq, axis) if v.dim() > axis and v.shape[axis] == S else v
+            for k, v in batch.items()}
+
+
 # ---------------------------------------------------------------- the rows' group
 
 @contextlib.contextmanager
-def split_rows(group: Optional[dist.ProcessGroup]):
+def split_rows(group: Optional[dist.ProcessGroup], seq: Optional[Axis] = None):
     """Within the block, the batch's rows are split over ``group`` (None:
     this process holds the whole batch): ``global_sum``, ``global_mean``
-    and ``global_count`` reduce over it."""
-    global _SPLIT_GROUP
-    prev = _SPLIT_GROUP
-    _SPLIT_GROUP = group
+    and ``global_count`` reduce over it. ``seq``: the batch's S axis is
+    this rank's block on that sp axis (``seq_axis``)."""
+    global _SPLIT_GROUP, _SEQ_AXIS
+    prev = _SPLIT_GROUP, _SEQ_AXIS
+    _SPLIT_GROUP, _SEQ_AXIS = group, seq
     try:
         yield
     finally:
-        _SPLIT_GROUP = prev
+        _SPLIT_GROUP, _SEQ_AXIS = prev
 
 
 def split_group() -> Optional[dist.ProcessGroup]:
     return _SPLIT_GROUP
 
 
-class _AllReduceSum(torch.autograd.Function):
-    """Sum over the group; the backward sums the ranks' gradients, so each
-    rank's input gets the gradient of every rank's loss through it."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        y = x.contiguous().clone()
-        dist.all_reduce(y, group=group)
-        return y
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
+def seq_axis() -> Optional[Axis]:
+    """The sp axis the current batch's sequence is cut over (None: whole)."""
+    return _SEQ_AXIS
 
 
 def global_sum(x: torch.Tensor) -> torch.Tensor:
     """``x`` summed over the rows' group (``x`` itself outside
     ``split_rows``), with gradients."""
-    g = _SPLIT_GROUP
-    return x if g is None else _AllReduceSum.apply(x, g)
+    return sum_over(x, _SPLIT_GROUP)
 
 
 def global_mean(x: torch.Tensor, dims: Tuple[int, ...]) -> torch.Tensor:
@@ -260,14 +346,7 @@ def gather_rows(x: torch.Tensor) -> torch.Tensor:
     g = _SPLIT_GROUP
     if g is None:
         return x
-    n, r = x.shape[0], dist.get_rank(g)
-    dtype = x.dtype if x.is_floating_point() else torch.float64
-    full = x.new_zeros((n * dist.get_world_size(g),) + x.shape[1:], dtype=dtype)
-    full[r * n:(r + 1) * n] = x
-    if x.requires_grad:
-        return _AllReduceSum.apply(full, g)
-    dist.all_reduce(full, group=g)
-    return full.to(x.dtype)
+    return gather_block(x, g, dist.get_rank(g), dist.get_world_size(g))
 
 
 def rank_table(x: torch.Tensor) -> torch.Tensor:
@@ -647,23 +726,31 @@ def is_sharded(p: torch.Tensor) -> bool:
     return isinstance(p, DTensor)
 
 
-def average_gradients(model: nn.Module, group: Optional[dist.ProcessGroup]) -> None:
-    """Average the gradients over ``group`` in one all-reduce (FSDP has
-    reduce-scattered those of sharded parameters); a parameter without a
-    gradient gets zeros first, as ``TrainState.apply_gradients`` fills them."""
-    if group is None:
-        return
-    params = [p for p in model.parameters() if p.requires_grad and not is_sharded(p)]
-    if not params:
-        return
-    for p in params:
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    flat = torch.cat([p.grad.reshape(-1) for p in params])
+def _average(grads: List[torch.Tensor], group: dist.ProcessGroup) -> None:
+    """Average ``grads`` over ``group`` in place, in one all-reduce."""
+    flat = torch.cat([g.reshape(-1) for g in grads])
     dist.all_reduce(flat, group=group)
     flat /= dist.get_world_size(group)
-    for p, g in zip(params, flat.split([p.numel() for p in params])):
-        p.grad.copy_(g.view_as(p.grad))
+    for g, f in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(f.view_as(g))
+
+
+def average_gradients(model: nn.Module, group: Optional[dist.ProcessGroup],
+                      sp: Optional[dist.ProcessGroup] = None) -> None:
+    """Average the gradients over ``group`` in one all-reduce; FSDP has
+    reduce-scattered those of sharded parameters over dp, and their shards
+    average over ``sp``, the sp group, in another. A parameter without a
+    gradient gets zeros first, as ``TrainState.apply_gradients`` fills them."""
+    params = [p for p in model.parameters() if p.requires_grad]
+    whole = [p for p in params if not is_sharded(p)]
+    if group is not None and whole:
+        for p in whole:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        _average([p.grad for p in whole], group)
+    shards = [p.grad.to_local() for p in params if is_sharded(p) and p.grad is not None]
+    if sp is not None and shards:
+        _average(shards, sp)
 
 
 def broadcast_buffers(model: nn.Module, group: Optional[dist.ProcessGroup]) -> None:

@@ -15,6 +15,19 @@ forward split the work.
   in a zero-filled fp32 tensor summed forward (exact), the rank's slice of
   the gradient backward.
 
+Sequence parallelism (the sp axis) keeps another convention: every sp rank
+computes a loss, and the trainer averages the gradients over the dp x sp
+ranks, so a collective's backward is the adjoint of its forward taken over
+the sum of the ranks' losses:
+
+- ``gather_seq``: a rank's ``[B, S/sp, ...]`` block made whole along axis 1,
+  exact as ``gather_from`` is; backward, the ranks' gradients of the whole
+  tensor summed, then the rank's block (``parallel.mesh.gather_rows``'
+  convention). What runs after it runs replicated on the sp ranks, as JAX's
+  program computes it on each sp device;
+- ``cut_seq``: the rank's block of a tensor every sp rank holds whole, a
+  plain slice, whose backward (zeros elsewhere) is already that adjoint.
+
 An ``Axis`` is what a module holds of one mesh axis: its group, its extent
 and this rank's place on it. Layers without one (``None``) compute as one
 process does.
@@ -81,6 +94,63 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g[..., ctx.axis.part(g.shape[-1])].contiguous(), None
+
+
+class _Sum(torch.autograd.Function):
+    """Sum over the group; the backward sums the ranks' gradients, so each
+    rank's input gets the gradient of every rank's loss through it."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def sum_over(x: torch.Tensor, group: Optional[dist.ProcessGroup]) -> torch.Tensor:
+    """``x`` summed over ``group`` (``x`` itself for None), with gradients."""
+    return x if group is None else _Sum.apply(x, group)
+
+
+def gather_block(x: torch.Tensor, group: dist.ProcessGroup, rank: int, size: int,
+                 dim: int = 0) -> torch.Tensor:
+    """The whole tensor of which ``x`` is block ``rank`` of ``size`` along
+    ``dim``, the blocks in rank order over ``group``: ``x`` in a zero-filled
+    tensor (fp32 for floats, int64 else) summed over the group, exact; a
+    gradient reaches each rank's block from every rank's loss."""
+    n = x.shape[dim]
+    shape = list(x.shape)
+    shape[dim] = n * size
+    wide = torch.float64 if x.dtype == torch.float64 else (
+        torch.float32 if x.is_floating_point() else torch.int64)
+    full = x.new_zeros(shape, dtype=wide)
+    full.narrow(dim, rank * n, n).copy_(x)
+    if x.requires_grad:
+        return sum_over(full, group).to(x.dtype)
+    dist.all_reduce(full, group=group)
+    return full.to(x.dtype)
+
+
+def gather_seq(x: torch.Tensor, axis: Optional[Axis], dim: int = 1) -> torch.Tensor:
+    """``x``'s axis ``dim``, cut over the sp ``axis``, made whole (exact);
+    a gradient reaches each rank's block from every rank's loss."""
+    return x if axis is None else gather_block(x, axis.group, axis.rank, axis.size, dim)
+
+
+def cut_seq(x: torch.Tensor, axis: Optional[Axis], dim: int = 1) -> torch.Tensor:
+    """This rank's block along ``dim`` of ``x``, which every rank of the sp
+    ``axis`` holds whole."""
+    if axis is None:
+        return x
+    n = x.shape[dim] // axis.size
+    return x.narrow(dim, axis.rank * n, n)
 
 
 def copy_to(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:

@@ -13,8 +13,8 @@ nothing of the optimizer's state.
 On a process group every rank calls ``save`` and ``restore``: the file
 holds the whole train state (FSDP's shards and the tp and ep slices
 gathered), written by rank 0 alone, the same tensors a one-process run
-writes, and it restores into a state of any (dp, ep, tp), each rank
-taking its slices and shards of it.
+writes, and it restores into a state of any (dp, ep, tp, sp), each rank
+taking its slices and shards of it (sp replicates the parameters).
 """
 
 from __future__ import annotations

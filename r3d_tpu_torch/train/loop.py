@@ -89,12 +89,26 @@ rank holds the whole batch (B % W != 0) the group takes rank 0's update
 and metrics, as one process would draw one set of masks for it. Only rank
 0 logs. One rank computes exactly what no mesh does.
 
+On an sp axis each batch's sequence is cut too (``seq_sharding``: every
+array whose axis 1 is the bucket's S, axis 2 of a stacked batch, when sp
+divides S; the cached routes gather only the rank's frames on the card),
+and the rows' group is the dp x sp ranks: the BatchNorm statistics, the
+rankings and the duration count reduce over it, the effective rank's Gram
+matrices sum over sp alone, the weighted CE reads the whole ``past_label``
+row (gathered, no gradient), the gradients average over dp x sp (FSDP's
+shards over sp after its reduce-scatter), and the epoch's per-frame counts
+sum over dp x sp while its per-query counts (``cls_*``, ``weight_acc_*``)
+sum over dp alone. A bucket sp does not divide runs whole on every sp rank.
+The sp ranks of a dp coordinate share its dropout streams.
+
 Not ported yet, and raising ``NotImplementedError`` naming its ROADMAP
-item: ``rng_impl`` (A10); the sp and pp mesh axes (A14).
+item: ``rng_impl`` (A10); the pp mesh axis and sp for the families
+``parallel.mesh.sp_refusal`` names (A14).
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Callable, Dict, Iterable, Iterator, List, Mapping, Optional, Tuple, Union
 
@@ -129,20 +143,28 @@ from r3d_tpu_torch.models.moe import moe_aux
 from r3d_tpu_torch.ops.effective_rank import effective_rank, effective_rank_loss
 from r3d_tpu_torch.parallel.mesh import (
     average_gradients,
+    axis,
     batch_sharding,
     broadcast_buffers,
     check_mesh,
     cut,
-    dp_group,
     dp_rank,
     dp_size,
     gather_rows,
     global_count,
     global_mean,
-    split_group,
+    grad_group,
+    is_writer,
+    rows_group,
+    seq_axis,
+    seq_sharding,
+    sp_group,
+    sp_refusal,
     split_rows,
     take_rows,
+    take_seq,
 )
+from r3d_tpu_torch.parallel.tensor import gather_seq
 from r3d_tpu_torch.serving import resolve_device
 from r3d_tpu_torch.train.optim import make_optimizer
 from r3d_tpu_torch.train.state import TrainState
@@ -154,6 +176,9 @@ ACCURACY_GATE_LOOPS = ("futr", "tcn")   # train.py:63, train_tcn.py:44
 # metrics that are sums over rows (the others are means over a fixed number
 # of entries per row): a dp group adds them up, and averages the rest
 _SUM_METRICS = ("_correct", "_total", "_sum", "_cnt")
+# the sums over frames: on a cut sequence each sp rank counts its own; the
+# other sums count queries, which every sp rank holds alike
+_FRAME_METRICS = ("seg_correct", "seg_total")
 
 
 def triangular_warmup(epoch: int, start: int, peak: int, end: int) -> float:
@@ -201,8 +226,12 @@ class Trainer:
             raise ValueError("grad_accum and steps_per_dispatch are mutually exclusive: one "
                              "stacks microbatches per update, the other updates per step")
         check_mesh(mesh)
+        sp_refusal(config, mesh)
         self.mesh = mesh
-        self.dp, self.rank, self.group = dp_size(mesh), dp_rank(mesh), dp_group(mesh)
+        self.dp, self.rank = dp_size(mesh), dp_rank(mesh)
+        self.sp = axis(mesh, "sp")
+        self.group = grad_group(mesh)   # the dp x sp ranks the gradients average over
+        self._cut = (False, False)      # the current batch's (rows, sequence) are cut
         self.device = resolve_device(device)
         self.config = config
         self.n_class = n_class
@@ -228,28 +257,52 @@ class Trainer:
         if sticky:
             frozen_twin(model)
 
-    # ------------------------------------------------------------- dp group
+    # ------------------------------------------------------------ the group
     def _rows(self, n: int) -> Optional[slice]:
         """This rank's rows of a batch of ``n`` (None: all of them)."""
         return batch_sharding(self.mesh, n) if self.dp > 1 else None
 
-    def _split(self, rows: Optional[slice]):
-        """The block's batch is split over the group where ``rows`` is set."""
-        return split_rows(self.group if rows is not None else None)
+    def _seq(self, S: int) -> Optional[slice]:
+        """This sp rank's frames of a bucket of ``S`` (None: all of them)."""
+        return seq_sharding(self.mesh, S) if self.sp is not None else None
+
+    @contextlib.contextmanager
+    def _split(self, rows: Optional[slice], seq: Optional[slice] = None):
+        """The block's batch is split over dp where ``rows`` is set and over
+        sp where ``seq`` is (``split_rows`` over their group)."""
+        prev = self._cut
+        self._cut = (rows is not None, seq is not None)
+        try:
+            with split_rows(rows_group(self.mesh, *self._cut),
+                            self.sp if seq is not None else None):
+                yield
+        finally:
+            self._cut = prev
 
     def _replicated(self) -> bool:
-        """On a group, every rank holds the whole batch (``_rows`` None)."""
-        return self.group is not None and split_group() is None
+        """On a dp group, every dp rank holds the whole batch (``_rows`` None)."""
+        return self.dp > 1 and not self._cut[0]
 
     def _shared(self, metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """A step's metrics for the group's sum (``_to_host``): where every
-        rank held every row, rank 0's alone, its means times the group's
-        size (the ranks' dropout draws differ)."""
-        if not self._replicated():
-            return metrics
-        if self.rank:
+        dp rank held every row, dp rank 0's alone, its means times dp (the
+        ranks' dropout draws differ); on sp, the sums each sp rank holds
+        alike (every sum where the sequence ran whole) sp rank 0's alone."""
+        replicated = self._replicated()
+        if replicated and self.rank:
             return {k: torch.zeros_like(v) for k, v in metrics.items()}
-        return {k: v if k.endswith(_SUM_METRICS) else v * self.dp for k, v in metrics.items()}
+        alike = self.sp is not None and self.sp.rank > 0
+        if not (replicated or alike):
+            return metrics
+        out = {}
+        for k, v in metrics.items():
+            if not k.endswith(_SUM_METRICS):
+                out[k] = v * self.dp if replicated else v
+            elif alike and not (self._cut[1] and k in _FRAME_METRICS):
+                out[k] = torch.zeros_like(v)
+            else:
+                out[k] = v
+        return out
 
     def _to_host(self, agg: Mapping[str, torch.Tensor]) -> Dict[str, float]:
         """Device metric sums -> floats in one synchronisation; on a group,
@@ -258,7 +311,8 @@ class Trainer:
             return _to_host(agg)
         v = torch.stack([torch.as_tensor(x).double() for x in agg.values()])
         torch.distributed.all_reduce(v, group=self.group)
-        return {k: x if k.endswith(_SUM_METRICS) else x / self.dp
+        W = torch.distributed.get_world_size(self.group)
+        return {k: x if k.endswith(_SUM_METRICS) else x / W
                 for k, x in zip(agg.keys(), v.tolist())}
 
     # ------------------------------------------------------------------ setup
@@ -347,7 +401,8 @@ class Trainer:
             act_flat = act.reshape(-1, act.shape[-1])
             gold_t = target.reshape(-1)
             if cfg.train.weighted_ce or unsup:
-                reference = last_non_padding_labels(past_label, pad)
+                # the whole row's last label: gathered over a cut sequence
+                reference = last_non_padding_labels(gather_seq(past_label, seq_axis()), pad)
                 loss_cls, _ = weighted_cross_entropy_loss(
                     act_flat, gold_t, pad, reference, target[:, 0], excl)
             else:
@@ -379,12 +434,16 @@ class Trainer:
         m = cfg.model
         if "fused" in outputs and (m.erank_weight > 0.0 or m.log_erank):
             valid = (past_label != pad).float()
+            # each example's Gram matrix sums over its frames: over sp where they are cut
+            sp = seq_axis()
+            frames = None if sp is None else sp.group
             if m.erank_weight > 0.0:
-                loss_rank = effective_rank_loss(outputs["fused"], valid, m.erank_target)
+                loss_rank = effective_rank_loss(outputs["fused"], valid, m.erank_target, frames)
                 total = total + m.erank_weight * loss_rank
                 metrics.update(loss_erank=loss_rank)
             if m.log_erank and (not train or m.erank_weight > 0.0):
-                metrics.update(erank=effective_rank(outputs["fused"].detach(), valid).mean())
+                metrics.update(erank=effective_rank(outputs["fused"].detach(), valid,
+                                                    frames).mean())
 
         metrics["loss"] = total
         return total, metrics
@@ -459,7 +518,7 @@ class Trainer:
         self._train_mode(state.model, epoch)
         state.optimizer.zero_grad(set_to_none=True)
         metrics = self._grad_core(state.model, batch, epoch)
-        average_gradients(state.model, self.group)
+        average_gradients(state.model, self.group, sp_group(self.mesh))
         state.apply_gradients()
         return self._updated(state, metrics)
 
@@ -474,8 +533,9 @@ class Trainer:
         """One update of ``state`` in place from a host batch; returns the
         step's metrics on the device (not synchronised)."""
         rows = self._rows(batch["features"].shape[0])
-        with self._split(rows):
-            return self._step(state, self.to_device(take_rows(batch, rows)), epoch)
+        seq = self._seq(batch["features"].shape[1])
+        with self._split(rows, seq):
+            return self._step(state, self.to_device(take_seq(take_rows(batch, rows), seq)), epoch)
 
     def make_multi_step(self):
         """multi_step(state, stacked host batch [K, ...], epoch) -> metrics
@@ -484,9 +544,10 @@ class Trainer:
 
         def multi_step(state: TrainState, stacked, epoch: int) -> Dict[str, torch.Tensor]:
             rows = self._rows(stacked["features"].shape[1])
-            stacked = self.to_device(take_rows(stacked, rows, axis=1))
+            seq = self._seq(stacked["features"].shape[2])
+            stacked = self.to_device(take_seq(take_rows(stacked, rows, axis=1), seq, axis=2))
             agg: Dict[str, torch.Tensor] = {}
-            with self._split(rows):
+            with self._split(rows, seq):
                 for i in range(stacked["features"].shape[0]):
                     _add(agg, self._step(state, {k: v[i] for k, v in stacked.items()}, epoch))
             return agg
@@ -504,16 +565,17 @@ class Trainer:
 
         def accum_step(state: TrainState, stacked, epoch: int) -> Dict[str, torch.Tensor]:
             rows = self._rows(stacked["features"].shape[1])
-            stacked = self.to_device(take_rows(stacked, rows, axis=1))
+            seq = self._seq(stacked["features"].shape[2])
+            stacked = self.to_device(take_seq(take_rows(stacked, rows, axis=1), seq, axis=2))
             K = stacked["features"].shape[0]
             self._train_mode(state.model, epoch)
             state.optimizer.zero_grad(set_to_none=True)
             agg: Dict[str, torch.Tensor] = {}
-            with self._split(rows):
+            with self._split(rows, seq):
                 for i in range(K):
                     _add(agg, self._grad_core(state.model,
                                               {k: v[i] for k, v in stacked.items()}, epoch))
-                average_gradients(state.model, self.group)
+                average_gradients(state.model, self.group, sp_group(self.mesh))
                 for p in state.model.parameters():
                     if p.grad is not None:
                         p.grad.div_(K)
@@ -525,20 +587,22 @@ class Trainer:
         return accum_step
 
     def make_cached_train_fn(self, cache):
-        """cached_multi_step(state, data, idx [K, B] on the card, S, epoch)
-        -> metrics summed over K: K steps, each gathering its batch of bucket
-        length ``S`` from the cache's tensors ``data``
-        (``r3d_tpu/train/loop.py:770``). Nothing is copied to the card but
-        ``idx``, and nothing waits for the card; an ``unsupervised`` batch
-        gets its ``seg_ids`` there, from the gathered query labels."""
+        """cached_multi_step(state, data, idx [K, B] on the card, S, epoch,
+        seq) -> metrics summed over K: K steps, each gathering its batch of
+        bucket length ``S`` (the frames ``seq`` of it, where given) from the
+        cache's tensors ``data`` (``r3d_tpu/train/loop.py:770``). Nothing is
+        copied to the card but ``idx``, and nothing waits for the card; an
+        ``unsupervised`` batch gets its ``seg_ids`` there, from the gathered
+        query labels."""
         sr, pad, qpad = cache.sample_rate, cache.pad_idx, cache.query_pad_idx
 
         def cached_multi_step(state: TrainState, data, idx: torch.Tensor, S: int,
-                              epoch: int) -> Dict[str, torch.Tensor]:
+                              epoch: int, seq: Optional[slice] = None
+                              ) -> Dict[str, torch.Tensor]:
             agg: Dict[str, torch.Tensor] = {}
             for ids in idx:
                 batch = self._device_seg_ids(_long_labels(dc.assemble(data, ids, S, sr, pad,
-                                                                      qpad)))
+                                                                      qpad, seq)))
                 _add(agg, self._step(state, batch, epoch))
             return agg
 
@@ -557,12 +621,12 @@ class Trainer:
         the validation counterpart of ``make_cached_train_fn``."""
         sr, pad, qpad = cache.sample_rate, cache.pad_idx, cache.query_pad_idx
 
-        def cached_eval(state: TrainState, data, idx: torch.Tensor, S: int
-                        ) -> Dict[str, torch.Tensor]:
+        def cached_eval(state: TrainState, data, idx: torch.Tensor, S: int,
+                        seq: Optional[slice] = None) -> Dict[str, torch.Tensor]:
             agg: Dict[str, torch.Tensor] = {}
             for ids in idx:
                 _add(agg, self._eval(state, _long_labels(dc.assemble(data, ids, S, sr, pad,
-                                                                     qpad))))
+                                                                     qpad, seq))))
             return agg
 
         return cached_eval
@@ -579,14 +643,16 @@ class Trainer:
                  "query_label": query_fill(pad, qpad)}
 
         def hybrid_step(state: TrainState, data, view_ids, host_pos, host_part, S: int,
-                        epoch: int) -> Dict[str, torch.Tensor]:
-            batch = dc.assemble(data, view_ids, S, sr, pad, qpad)
+                        epoch: int, seq: Optional[slice] = None) -> Dict[str, torch.Tensor]:
+            batch = dc.assemble(data, view_ids, S, sr, pad, qpad, seq)
             for k, v in host_part.items():
                 v = v.to(self.device, non_blocking=True)
-                if k in fills and v.shape[1] < S:
-                    full = v.new_full((v.shape[0], S) + v.shape[2:], fills[k])
-                    full[:, :v.shape[1]] = v
-                    v = full
+                if k in fills:
+                    if v.shape[1] < S:
+                        full = v.new_full((v.shape[0], S) + v.shape[2:], fills[k])
+                        full[:, :v.shape[1]] = v
+                        v = full
+                    v = cut(v, seq, 1)
                 batch[k][host_pos] = v.to(batch[k].dtype)
             return self._step(state, self._device_seg_ids(_long_labels(batch)), epoch)
 
@@ -605,8 +671,9 @@ class Trainer:
 
         def eval_step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
             rows = self._rows(batch["features"].shape[0])
-            with self._split(rows):
-                return self._eval(state, self.to_device(take_rows(batch, rows)))
+            seq = self._seq(batch["features"].shape[1])
+            with self._split(rows, seq):
+                return self._eval(state, self.to_device(take_seq(take_rows(batch, rows), seq)))
 
         return eval_step
 
@@ -666,9 +733,10 @@ class Trainer:
                                  shuffle=False, drop_remainder=False)
             for _, entries in _same_shape_runs(plan, _plan_shape, K):
                 rows = self._rows(len(entries[0][1]))
+                seq = self._seq(entries[0][0])
                 idx = self._index_table([cut(idx, rows) for _, idx in entries])
-                with self._split(rows):
-                    _add(agg, cached_eval(st, val_cache.data, idx, entries[0][0]))
+                with self._split(rows, seq):
+                    _add(agg, cached_eval(st, val_cache.data, idx, entries[0][0], seq))
                 vb += len(entries)
             return self._to_host(agg), vb
 
@@ -695,9 +763,10 @@ class Trainer:
             for n, entries in _same_shape_runs(plan, _plan_shape, K):
                 S, idx0 = entries[0]
                 rows = self._rows(len(idx0))
+                seq = self._seq(S)
                 idx = self._index_table([cut(idx, rows) for _, idx in entries])
-                with self._split(rows):
-                    metrics = train_fn(state, cache.data, idx, S, epoch)
+                with self._split(rows, seq):
+                    metrics = train_fn(state, cache.data, idx, S, epoch, seq)
                 yield metrics, n, n * len(idx0)
 
         return self._epochs(state, seed, start_epoch, steps_of,
@@ -745,8 +814,9 @@ class Trainer:
                                      query_pad_idx=cache.query_pad_idx)
                 view_ids = self._index_table([np.where(cached_id >= 0, cached_id, 0)])[0]
                 host_pos = self._index_table([host_sel])[0]
-                with self._split(rows):
-                    metrics = step_fn(state, cache.data, view_ids, host_pos, part, S, epoch)
+                seq = self._seq(S)
+                with self._split(rows, seq):
+                    metrics = step_fn(state, cache.data, view_ids, host_pos, part, S, epoch, seq)
                 yield metrics, 1, len(chunk)
 
         return self._epochs(state, seed, start_epoch, steps_of,
@@ -758,9 +828,9 @@ class Trainer:
         """The epoch loop of ``fit``, ``fit_cached`` and ``fit_hybrid``:
         dropout seeded, then each epoch's dispatches (``steps_of(epoch)``
         yields (metrics, batches, clips) for each) summed on the device and
-        read once, and ``_finish_epoch``. Only rank 0 logs."""
+        read once, and ``_finish_epoch``. Only global rank 0 logs."""
         self._seed_dropout(state, seed, start_epoch)
-        if self.rank:
+        if not is_writer():
             log = _quiet
         best = (0.0, 0.0)
         for epoch in range(start_epoch, self.config.train.epochs):

@@ -501,8 +501,8 @@ def test_cached_sweep_and_model_only_restore_equal_the_host_sweep(disk_data, tmp
                          source.n_class, device="cpu")
         outs = outputs[tag] = []
         run = pred._run
-        pred._run = lambda modules, args, n, _run=run, outs=outs: outs.append(
-            _run(modules, args, n)) or outs[-1]
+        pred._run = lambda modules, args, n, *seq, _run=run, outs=outs: outs.append(
+            _run(modules, args, n, *seq)) or outs[-1]
         outs.append(pred.predict_multi(weights, source, list(pcfg.eval.obs_percs),
                                        log=lambda *a: None, cache_data=cache_data))
     for tag in ("cached", "restored"):

@@ -109,13 +109,14 @@ def spawn(fn, world, tmp_path, *args, timeout=240):
 # ------------------------------------------------------------------ set-ups
 
 def fusion_config(model="futr_fusion_bn", fuser_depth=1, dtype="float32", config=pt_config,
-                  buckets=(64, 128), **train_kw):
+                  buckets=(64, 128), model_extra=None, **train_kw):
     """``tests/test_torch_train.py``'s fusion set-up (hidden 32, depth 6 x 5,
-    the 64/128 buckets, dropout 0); ``config`` the package to build it in."""
+    the 64/128 buckets, dropout 0); ``config`` the package to build it in,
+    ``model_extra`` more model fields."""
     m = config
     model_kw = dict(model=model, hidden_dim=32, n_head=4, n_query=NQ, input_dim=12,
                     max_pos_len=max(buckets), dropout=0.0, fuser_dropout=0.0,
-                    fuser_depth=fuser_depth, compute_dtype=dtype)
+                    fuser_depth=fuser_depth, compute_dtype=dtype, **(model_extra or {}))
     data = dict(dataset="synthetic", gt_format="plain", seq_buckets=buckets,
                 train_obs_percs=OBS, depth_shape=(6, 5),
                 feature_dtype="bfloat16" if dtype == "bfloat16" else "float32")
@@ -125,20 +126,21 @@ def fusion_config(model="futr_fusion_bn", fuser_depth=1, dtype="float32", config
         model=m.ModelConfig(**model_kw), data=m.DataConfig(**data), train=m.TrainConfig(**train))
 
 
-def futr_config(model="futr", loop="futr", config=pt_config, n_query=20, moe=None, **train_kw):
+def futr_config(model="futr", loop="futr", config=pt_config, n_query=20, moe=None,
+                buckets=(64, 128), model_extra=None, **train_kw):
     """``tests/test_torch_train.py``'s ``futr`` set-up (features only, 20
     queries); ``futr_proposed`` in the ``proposed`` loop with a query stream
     as ``tests/test_torch_proposed_fit.py`` has it; the baselines in their
-    loops; ``moe`` the MoE fields of the model."""
+    loops; ``moe`` the MoE fields of the model, ``model_extra`` others."""
     m = config
     query = model == "futr_proposed"
     model_kw = dict(model=model, hidden_dim=32, n_head=4, n_query=NQ if query else n_query,
-                    input_dim=12, n_decoder_layers=2, max_pos_len=128, seg_excludes_none=True,
-                    dropout=0.0, **(moe or {}))
+                    input_dim=12, n_decoder_layers=2, max_pos_len=max(128, *buckets),
+                    seg_excludes_none=True, dropout=0.0, **(moe or {}), **(model_extra or {}))
     if query:
         model_kw["query_num"] = QUERY_CLASSES + 1
     data = dict(dataset="50salads", depth_features_dir=None, gt_format="plain",
-                seq_buckets=(64, 128), train_obs_percs=OBS)
+                seq_buckets=buckets, train_obs_percs=OBS)
     train = dict(dict(loop=loop, batch_size=4, epochs=2, warmup_epochs=1, lr=1e-3,
                       min_train_batch=0), **train_kw)
     name = "50salads_proposed" if query else "50salads"
@@ -173,8 +175,23 @@ TP_SETUPS = {
 }
 
 
+# the sequence-parallel set-ups: the encoder on, in the 128 bucket, where
+# sp 2 runs its self-attention as the ring; afft (its pool over the
+# gathered stream); a 65 bucket, which sp 2 does not divide
+ENCODER = dict(use_encoder=True, n_encoder_layers=1)
+SP_SETUPS = {
+    "sp_fusion": ("fusion", dict(buckets=(128,), model_extra=ENCODER)),
+    "sp_futr": ("futr", dict(buckets=(128,), model_extra=ENCODER)),
+    "sp_afft": ("fusion", dict(model="afft", buckets=(128,))),
+    "sp_odd": ("fusion", dict(buckets=(65,), model_extra=ENCODER)),
+}
+
+
 def _setup(name):
-    return SETUPS[name] if name in SETUPS else TP_SETUPS[name]
+    for table in (SETUPS, TP_SETUPS, SP_SETUPS):
+        if name in table:
+            return table[name]
+    raise KeyError(name)
 
 
 def setup_config(name, config=pt_config, **train_kw):
@@ -303,7 +320,7 @@ def step_arm(mesh, name, state_dict=None, root=None, epoch=0, fsdp=False):
     (under FSDP where asked): its parameters and the bottom-k masks of its
     BN scales. The sources' hard-coded dropouts are off: the ranks of a dp
     group draw their own masks."""
-    from r3d_tpu_torch.parallel.mesh import average_gradients, take_rows
+    from r3d_tpu_torch.parallel.mesh import average_gradients, sp_group, take_rows, take_seq
 
     cfg, n_class, batch = inputs(name, root)
     sd = state_dict if state_dict is not None else init_state_dict(name, root=root)
@@ -314,9 +331,11 @@ def step_arm(mesh, name, state_dict=None, root=None, epoch=0, fsdp=False):
     model = state.model
     model.train()
     rows = trainer._rows(batch["features"].shape[0])
-    with trainer._split(rows):
-        metrics = trainer._grad_core(model, trainer.to_device(take_rows(batch, rows)), epoch)
-    average_gradients(model, trainer.group)
+    seq = trainer._seq(batch["features"].shape[1])
+    with trainer._split(rows, seq):
+        metrics = trainer._shared(trainer._grad_core(
+            model, trainer.to_device(take_seq(take_rows(batch, rows), seq)), epoch))
+    average_gradients(model, trainer.group, sp_group(mesh))
     host = trainer._to_host(metrics)
     out = dict(metrics=host, grads=_grads(model),
                stats={k: v.clone() for k, v in model.state_dict().items() if "running" in k})
@@ -346,11 +365,11 @@ def synthetic_videos(src):
             for v in src.videos]
 
 
-def hybrid_of(src, n_cached=3):
+def hybrid_of(src, n_cached=3, buckets=(64, 128)):
     """A ``HybridCache`` over the fusion source: its first ``n_cached``
     videos in the cache, the others collated on the host."""
     videos = synthetic_videos(src)
-    cache = dc.build_cache(videos[:n_cached], OBS, 1, NQ, src.pad_idx, src.n_class, (64, 128),
+    cache = dc.build_cache(videos[:n_cached], OBS, 1, NQ, src.pad_idx, src.n_class, buckets,
                            device="cpu")
     n_obs = len(OBS)
     ids = np.full(len(videos) * n_obs, -1, np.int32)
@@ -371,14 +390,15 @@ def hybrid_of(src, n_cached=3):
 MIN_ELEMS = 256
 
 
-def fit_arm(mesh, route, fsdp=False, ckpt_dir=None, foreach=None, **train_kw):
-    """A 2-epoch ``futr_fusion_bn`` fit on ``route`` (``fit``, ``fit_cached``
-    or ``fit_hybrid``) from the spread-gamma init: (log lines, final state
-    dict, step, this rank's and the whole elements of the parameters and
-    moments of at least ``MIN_ELEMS``, the optimizer's whole state, the
-    sharded and the whole parameters' names). ``foreach=True``: AdamW's foreach lists, its
+def fit_arm(mesh, route, fsdp=False, ckpt_dir=None, foreach=None, name="futr_fusion_bn",
+            **train_kw):
+    """A 2-epoch fit of ``name`` (a fusion set-up, ``futr_fusion_bn`` by
+    default) on ``route`` (``fit``, ``fit_cached`` or ``fit_hybrid``) from
+    the spread-gamma init: (log lines, final state dict, step, this rank's
+    and the whole elements of the parameters and moments of at least
+    ``MIN_ELEMS``, the optimizer's whole state, the sharded and the whole
+    parameters' names). ``foreach=True``: AdamW's foreach lists, its
     default on the card."""
-    name = "futr_fusion_bn"
     cfg = setup_config(name, **train_kw)
     cfg = cfg.replace(mesh=dataclasses.replace(cfg.mesh, fsdp=fsdp))
     src = source_for(name)
@@ -393,16 +413,18 @@ def fit_arm(mesh, route, fsdp=False, ckpt_dir=None, foreach=None, **train_kw):
     log = []
     ckpt = Checkpointer(ckpt_dir) if ckpt_dir else None
     val = loader_for(name, src, False)
+    buckets = cfg.data.seq_buckets
     if route == "fit":
         trainer.fit(state, loader_for(name, src, True, seed=3), val, seed=1, log=log.append,
                     checkpointer=ckpt)
     elif route == "fit_cached":
         cache = dc.build_cache(synthetic_videos(src), OBS, 1, NQ, src.pad_idx, src.n_class,
-                               (64, 128), device="cpu")
+                               buckets, device="cpu")
         trainer.fit_cached(state, cache, val, seed=1, log=log.append, checkpointer=ckpt,
                            val_cache=cache)
     else:
-        trainer.fit_hybrid(state, hybrid_of(src), val, seed=1, log=log.append, checkpointer=ckpt)
+        trainer.fit_hybrid(state, hybrid_of(src, buckets=buckets), val, seed=1, log=log.append,
+                           checkpointer=ckpt)
     big = [p for p in state.model.parameters() if p.numel() >= MIN_ELEMS]
     moments = [t for p in big for k, t in state.optimizer.state[p].items() if k != "step"]
     held = (sum(local_numel(t) for t in big + moments), sum(t.numel() for t in big + moments))
@@ -579,11 +601,11 @@ def dropout_steps_arm(mesh, state_dict, name=TP_NAME, steps=2):
                 sliced={k: v for k, v in own.items() if k in placed})
 
 
-def one_step_state(mesh, state_dict, name=TP_NAME):
+def one_step_state(mesh, state_dict, name=TP_NAME, fsdp=False):
     """``name``'s train state after one ``train_step`` of its first batch."""
     cfg, n_class, batch = inputs(name)
     trainer = Trainer(cfg, n_class, device="cpu", mesh=mesh)
-    state = shard_state(trainer.init_state(5, state_dict), mesh)
+    state = shard_state(trainer.init_state(5, state_dict), mesh, fsdp=fsdp)
     trainer.train_step(state, batch, 0)
     return trainer, state, batch
 
@@ -599,11 +621,12 @@ def whole_train_state(state):
                 step=state.step)
 
 
-def checkpoint_arm(mesh, state_dict, ckpt_in, ckpt_out):
+def checkpoint_arm(mesh, state_dict, ckpt_in, ckpt_out, name=TP_NAME, fsdp=False):
     """Checkpoint ``seed_1_last`` under ``ckpt_in`` (one process's)
-    restored into a fresh placed state of ``TP_NAME``: its whole train
-    state; then one more step, saved under ``ckpt_out``: its whole state."""
-    trainer, state, batch = one_step_state(mesh, state_dict)
+    restored into a fresh placed state of ``name`` (under FSDP where asked):
+    its whole train state; then one more step, saved under ``ckpt_out``:
+    its whole state."""
+    trainer, state, batch = one_step_state(mesh, state_dict, name, fsdp)
     state = Checkpointer(ckpt_in).restore_last(1, state)
     restored = whole_train_state(state)
     trainer.train_step(state, batch, 0)
@@ -654,3 +677,227 @@ def dp_tp_arm(mesh, state_dict):
     and with FSDP."""
     m = make_mesh(dp=2, tp=2)
     return {fsdp: step_arm(m, TP_NAME, state_dict, fsdp=fsdp) for fsdp in (False, True)}
+
+
+# ------------------------------------------------------- sequence parallelism
+
+SP_STEPS = 2
+
+
+def sp_batches(name, n=SP_STEPS):
+    """``name``'s first ``n`` host batches."""
+    it = iter(loader_for(name, source_for(name), False))
+    return [next(it) for _ in range(n)]
+
+
+@contextlib.contextmanager
+def attention_routes(seen):
+    """Within: each sequence-parallel self-attention records its route,
+    ``ring`` or ``gathered`` (its inputs gathered over sp), into ``seen``."""
+    from r3d_tpu_torch.models import layers
+
+    saved = layers.ring_attention, layers.cut_seq
+
+    def ring(*a):
+        seen.add("ring")
+        return saved[0](*a)
+
+    def cut_seq(*a):
+        seen.add("gathered")
+        return saved[1](*a)
+
+    layers.ring_attention, layers.cut_seq = ring, cut_seq
+    try:
+        yield
+    finally:
+        layers.ring_attention, layers.cut_seq = saved
+
+
+def sp_steps_arm(mesh, name, state_dict, fsdp=False, dropout=0.0, steps=SP_STEPS):
+    """``steps`` ``train_step``s of ``name``'s first batches from
+    ``state_dict`` (FSDP where asked; dropout and fuser dropout at
+    ``dropout``), after the trainer seeds dropout: the losses, the whole
+    state after (the BN statistics with it), this rank's own tensors and
+    the sequence-parallel attention routes taken."""
+    cfg, n_class, _ = inputs(name)
+    if dropout:
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model, dropout=dropout,
+                                                    fuser_dropout=dropout))
+    trainer = Trainer(cfg, n_class, device="cpu", mesh=mesh)
+    state = trainer.init_state(5, state_dict)
+    if mesh is not None:
+        state = shard_state(state, mesh, fsdp=fsdp)
+    trainer._seed_dropout(state, seed=1, start_epoch=0)
+    losses, routes = [], set()
+    with attention_routes(routes):
+        for b in sp_batches(name, steps):
+            metrics = trainer.train_step(state, b, 0)
+            losses.append(trainer._to_host({"loss": metrics["loss"]})["loss"])
+    own = {k: (v.to_local() if is_sharded(v) else v).detach().clone()
+           for k, v in state.model.state_dict().items()}
+    return dict(losses=losses, state=_sd(state.model), own=own, routes=sorted(routes),
+                seq=trainer._seq(sp_batches(name, 1)[0]["features"].shape[1]))
+
+
+SP_NAMES = ("sp_fusion", "sp_futr")
+# the fit routes on dp 2 x sp 2: (route, keywords), each held to ``fit``
+SP_FITS = (("fit", {}), ("fit_cached", {}), ("fit_hybrid", {}), ("fit", dict(grad_accum=2)),
+           ("fit", dict(steps_per_dispatch=2)))
+
+
+def sp_group(mesh, init, ckpt_in, ckpt_out):
+    """The 4-rank arms of ``tests/test_torch_parallel_sp.py`` on one group:
+    each ``SP_NAMES`` set-up's steps on dp 2 x sp 2, tp 2 x sp 2, FSDP dp 2 x
+    sp 2 and, with dropout, tp 2 x sp 2, and its first step's gradients on
+    dp 2 x sp 2; afft and the 65 bucket on dp 2 x sp 2; the checkpoint of
+    one process restored on dp 2 x sp 2 under FSDP and a step saved, that
+    one restored on tp 2 x sp 2; the fit routes on dp 2 x sp 2."""
+    dpsp = make_mesh(dp=2, sp=2)
+    tpsp = make_mesh(dp=1, tp=2, sp=2)
+    out = {n: dict(dpsp=sp_steps_arm(dpsp, n, init[n]), tpsp=sp_steps_arm(tpsp, n, init[n]),
+                   fsdp=sp_steps_arm(dpsp, n, init[n], fsdp=True),
+                   dropout=sp_steps_arm(tpsp, n, init[n], dropout=0.1),
+                   step=step_arm(dpsp, n, init[n]))
+           for n in SP_NAMES}
+    out.update({n: sp_steps_arm(dpsp, n, init[n]) for n in ("sp_afft", "sp_odd")})
+    out["checkpoint"] = checkpoint_arm(dpsp, init["sp_fusion"], ckpt_in, ckpt_out,
+                                       name="sp_fusion", fsdp=True)
+    _, state, _ = one_step_state(tpsp, init["sp_fusion"], "sp_fusion")
+    state = Checkpointer(ckpt_out).restore_last(1, state)
+    out["restored_tpsp"] = whole_train_state(state)
+    out["fits"] = [fit_arm(dpsp, route, name="sp_fusion", **kw) for route, kw in SP_FITS]
+    return out
+
+
+def sp_sweep_arm(mesh, root, save_dir, results, ref_save_dir):
+    """``cli.run.main`` train_eval with ``--mesh_sp 2`` (and the encoder) on
+    the group the harness formed (the CLI's mesh: dp 1, sp 2), then the
+    sweep of the one-process run's checkpoint under ``ref_save_dir`` on that
+    mesh, host collate and the cached route."""
+    from r3d_tpu_torch.cli import run as pt_run
+
+    cfg = sp_cli_config(root, save_dir)
+    cfg = cfg.replace(mesh=dataclasses.replace(cfg.mesh, sp=2))
+    log = []
+    res = pt_run.main(cfg, mode="train_eval", log=log.append, device="cpu",
+                      results_save_path=results)
+    sp = make_mesh(dp=1, sp=2)
+    sweep = {}
+    for cache in (False, True):
+        c = sp_cli_config(root, ref_save_dir)
+        c = c.replace(train=dataclasses.replace(c.train, device_cache=cache))
+        sweep[cache] = pt_run.predict(c, log=lambda *a: None, device="cpu", mesh=sp)
+    return dict(log=log, results=res, sweep=sweep)
+
+
+def sp_cli_config(root, save_dir):
+    """``cli_config`` with one encoder layer: its self-attention gathers
+    over sp (the 64 bucket is under the ring's 128 on sp 2)."""
+    cfg = cli_config(root, save_dir)
+    return cfg.replace(model=dataclasses.replace(cfg.model, **ENCODER))
+
+
+RING_CASES = ((1, 1, 4), (2, 1, 2), (1, 2, 2))   # (dp, tp, sp), as tests/test_ring_attention.py
+
+
+def ring_inputs(sp):
+    """``tests/test_ring_attention.py``'s inputs at ``sp``: q, k, v [4, 2,
+    64 sp, 16] from ``RandomState(0)``, the last 37 keys padding (the tail
+    crosses blocks), the bias, the scale."""
+    rng = np.random.RandomState(0)
+    B, H, S, D = 4, 2, 64 * sp, 16
+    q, k, v = (rng.randn(B, H, S, D).astype(np.float32) for _ in range(3))
+    pad = np.zeros((B, S), bool)
+    pad[:, S - 37:] = True
+    bias = np.where(pad, np.finfo(np.float32).min, 0.0).astype(np.float32)[:, None, None, :]
+    return q, k, v, bias, 1.0 / np.sqrt(D)
+
+
+def ring_arm(mesh):
+    """For each ``RING_CASES`` mesh: this rank's rows (dp), heads (tp) and
+    sequence block (sp) through ``ring_attention``, the gradients of the sum
+    of the squared outputs: {case: (the rank's index, out, dq, dk, dv)}."""
+    from r3d_tpu_torch.ops.ring_attention import ring_attention
+    from r3d_tpu_torch.parallel.mesh import axis, axis_rank, axis_size
+
+    out = {}
+    for dp, tp, sp in RING_CASES:
+        m = make_mesh(dp=dp, tp=tp, sp=sp)
+        q, k, v, bias, scale = ring_inputs(sp)
+        B, H, S = q.shape[:3]
+        b, h, s = (slice(axis_rank(m, a) * n // axis_size(m, a),
+                         (axis_rank(m, a) + 1) * n // axis_size(m, a))
+                   for a, n in (("dp", B), ("tp", H), ("sp", S)))
+        qkv = [torch.from_numpy(t[b, h, s]).requires_grad_() for t in (q, k, v)]
+        o = ring_attention(*qkv, torch.from_numpy(bias[b, :, :, s]), scale, axis(m, "sp"))
+        (o ** 2).sum().backward()
+        out[dp, tp, sp] = ((b, h, s), o.detach(), *(t.grad for t in qkv))
+    return out
+
+
+MHA_ROUTES = (("ring", 128, 0.0), ("gathered", 64, 0.0), ("gathered_dropout", 128, 0.1))
+
+
+def mha_inputs(S):
+    """A ``MultiheadAttention`` (32 wide, 4 heads) of seeded weights, x [4,
+    S, 32], the output's cotangent and a padding mask whose tail crosses the
+    sp blocks."""
+    from r3d_tpu_torch.models.layers import MultiheadAttention
+
+    torch.manual_seed(0)
+    mha = MultiheadAttention(32, 4, 0.1)
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(4, S, 32, generator=g)
+    cot = torch.randn(4, S, 32, generator=g)
+    mask = torch.zeros(4, S, dtype=torch.bool)
+    mask[0, S - 37:] = True
+    mask[2, S // 2 - 5:] = True
+    return mha, x, cot, mask
+
+
+def mha_run(mha, x, cot, mask, rate, seq=False):
+    """The attention of ``x`` on itself in train mode at ``rate`` (the
+    generators seeded), the loss ``sum(out * cot)`` backward: (out, dx,
+    the parameters' gradients)."""
+    from r3d_tpu_torch.models.layers import set_generators
+
+    mha.dropout = rate
+    mha.train()
+    set_generators(mha, torch.Generator().manual_seed(5), torch.Generator().manual_seed(6))
+    x = x.clone().requires_grad_()
+    out = mha(x, x, x, mask, seq=seq)
+    (out * cot).sum().backward()
+    grads = {n: p.grad.clone() for n, p in mha.named_parameters()}
+    mha.zero_grad()
+    return out.detach(), x.grad, grads
+
+
+def mha_arm(mesh):
+    """``MHA_ROUTES`` of ``MultiheadAttention`` on the sequence stream of
+    dp 2 x sp 2 (without dropout) or tp 2 x sp 2 (the layer unplaced, every
+    tp rank alike; one dp coordinate, so the masks are one process's):
+    {route: (rows, frames, routes taken, out, dx, parameter gradients)}."""
+    from r3d_tpu_torch.parallel.mesh import (
+        axis,
+        batch_sharding,
+        rows_group,
+        seq_sharding,
+        split_rows,
+    )
+
+    out = {}
+    for route, S, rate in MHA_ROUTES:
+        m = make_mesh(dp=1, tp=2, sp=2) if rate else make_mesh(dp=2, sp=2)
+        mha, x, cot, mask = mha_inputs(S)
+        rows, seq = batch_sharding(m, 4), seq_sharding(m, S)
+        cut = lambda t: t[rows if rows is not None else slice(None), seq]
+        seen = set()
+        with attention_routes(seen), split_rows(rows_group(m, rows is not None, True),
+                                                axis(m, "sp")):
+            got = mha_run(mha, cut(x), cut(cot), cut(mask), rate, seq=True)
+        out[route] = (rows, seq, sorted(seen)) + got
+    return out
+
+
+def ring_group(mesh):
+    return dict(ring=ring_arm(mesh), mha=mha_arm(mesh))
