@@ -4,7 +4,7 @@ plain versions.
     python3 chip_smoke.py          # from the root of a checkout, on a CUDA host
     python3 chip_smoke.py --cards  # the CLI on every card of a host of two or more,
                                    # against one card (phase 21's second arm, and on
-                                   # dp x tp 2, phase 22), alone
+                                   # dp x tp 2 and dp x sp 2, phases 22-24), alone
 
 Phases, each of which fails the run (non-zero exit) if it fails:
 
@@ -299,7 +299,29 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    under ``torchrun ... --fsdp --mesh_sp 2`` (dp x sp 2, NCCL) against one
    card, without and with one encoder layer (the ring over point-to-point
    calls; its logged numbers within ``SP_RING_LOG_RTOL``);
-24. print one ``{"kernels": [...]}`` line (with each kernel's launches in
+24. sequence parallelism for every other family (A14,
+   ``sequence_parallel_families``): two gloo ranks on the one card on dp 1
+   x sp 2 run ``SPF_ARMS`` at full width, each against the same steps in
+   one process on the card within the fit bounds, the ranks' whole states
+   equal: 50salads_proposed (bf16) in the 3100 bucket with dropout 0.1
+   (bf16 many-query K4/K5 on the decoder's gathered 3,100 queries), then
+   its eval forward (the decoder's self-attention the ring, its
+   cross-attention bf16 many-query K3 on each rank's 1,550 rows against
+   the 3,100 gathered keys) within ``SP_EVAL_TOL``; darai (SupCon on) in
+   the 512 bucket, epoch 0 with dropout and the sticky epoch 2 (fp32 K3-K5,
+   8 queries against the 512 gathered keys) on the host route and on the
+   cached route, the two equal; its depth source (fp32 many-query K3-K5,
+   the ring in the sticky epoch); darai_gaze in the 2000 bucket, its gaze
+   stream cut, under ``R3D_CROSS_NATIVE=1`` (fp32 K6/K7); 50salads with
+   MoE and one encoder layer in the 3100 bucket with dropout under
+   ``R3D_CROSS_NATIVE=1`` (bf16 K4/K5 in the gathered encoder, K6/K7 in
+   the decoder; the queues on cut and on replicated tokens) and in the 512
+   without (the ring, bf16 K3/K5); nturgbd's rnn and tcn (no kernel); each
+   rank's launches (every kernel of an arm's path must launch on each
+   rank), routes, step times and peak allocated bytes beside one
+   process's. ``--cards`` also runs 50salads_proposed and darai through
+   the CLI under ``torchrun ... --fsdp --mesh_sp 2`` against one card;
+25. print one ``{"kernels": [...]}`` line (with each kernel's launches in
    the CLI phases' training and sweeps and in the cached epoch beside those
    of the other phases; rows for bf16 K3, K4 and K5 at Lq = Lk = 3,100 and
    2,000 with the launches of the two proposed configs' training and
@@ -307,7 +329,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    encoder's launches; rows for K1 and K2 with the outer residual, with the
    grad variant's launches, and for fp32 K3, K4 and K5 at Lq = Lk = 512 and
    2,000, with the encoder fit's launches and the serving launches of that
-   bucket, the launches of phases 15-23 in their own columns and the
+   bucket, the launches of phases 15-24 in their own columns and the
    relative error of phase 22's tp-shape checks) and, as
    the last line,
    ``{"ok": true, "device": {...}}``.
@@ -6087,6 +6109,12 @@ SP_RING_LOG_RTOL = 1e-2     # a logged number over max(1, |it|), N cards with th
                             # algorithms, so the trained states drift apart within the fit bounds;
                             # read 7.1e-3 on 4 H100s (700 W), a sticky validation loss 6.736
                             # vs 6.784, while the same arm without the encoder read 0
+SP_RING_MOC_TOL = 1e-2      # a MoC entry of the one-card checkpoint swept on N cards where the
+                            # S-query decoder's self-attention is the ring (fp32 scores of bf16
+                            # q, k, v) vs one card's bf16 many-query K3: outputs about 1e-2 apart
+                            # (the sequence_parallel_families eval forward), enough to flip a
+                            # frame's argmax; read 1.25e-3 on 4 H100s (700 W) for
+                            # 50salads_proposed, whose training logs and states matched
 CLI_WORKER = "--cli-worker"  # chip_smoke.py --cli-worker DROPOUT ENCODER FLAGS: the CLI, dropout at
                              # DROPOUT, ENCODER encoder layers (0: none)
 CARDS = "--cards"            # chip_smoke.py --cards: cli_under_torchrun on every card, alone
@@ -6318,9 +6346,29 @@ def _cli_main(flags, dropout=None, log=print, encoder=0):
     if encoder:
         cfg = cfg.replace(model=dataclasses.replace(cfg.model, use_encoder=True,
                                                     n_encoder_layers=encoder))
-    return cli_main(cfg, mode="predict" if args.predict else args.mode, log=log,
-                    results_save_path=args.results_save_path,
-                    device="cpu" if args.cpu else "cuda")
+    with fixed_dropouts(dropout):
+        return cli_main(cfg, mode="predict" if args.predict else args.mode, log=log,
+                        results_save_path=args.results_save_path,
+                        device="cpu" if args.cpu else "cuda")
+
+
+@contextlib.contextmanager
+def fixed_dropouts(rate):
+    """Within: the dropouts whose rate is written into the models (the
+    self-attention and depth sources', the TCN's) at ``rate``, read when a
+    model is built (as they were where ``rate`` is None): on N cards the dp
+    ranks draw their own masks, so a run held to one card's turns them off
+    as it turns off the configured ones."""
+    from r3d_tpu_torch.models import baselines
+    from r3d_tpu_torch.models import futr_unsupervised as fu
+
+    saved = baselines.TCN_DROPOUT, fu.SRC_DROPOUT, fu.DEPTH_QUERY_DROPOUT
+    if rate is not None:
+        baselines.TCN_DROPOUT = fu.SRC_DROPOUT = fu.DEPTH_QUERY_DROPOUT = rate
+    try:
+        yield
+    finally:
+        baselines.TCN_DROPOUT, fu.SRC_DROPOUT, fu.DEPTH_QUERY_DROPOUT = saved
 
 
 def cli_worker(argv) -> None:
@@ -6364,13 +6412,16 @@ def _log_numbers(lines):
             for l in lines if l.startswith(("Epoch", "Validation"))]
 
 
-def cli_under_torchrun(n_ranks, argv, work, here, card, tp=1, sp=1, encoder=0):
+def cli_under_torchrun(n_ranks, argv, work, here, card, tp=1, sp=1, encoder=0,
+                       ring_decoder=False):
     """The CLI (train, checkpoints, sweep) under ``torchrun --standalone
     --nproc_per_node n_ranks ... --fsdp`` (and ``--mesh_tp tp``, ``--mesh_sp
     sp``: a mesh of n_ranks / (tp sp) by tp by sp; ``encoder``: both CLIs
     with that many encoder layers, whose self-attention on sp is the ring
     over NCCL's point-to-point calls, its logged numbers then held to
-    ``SP_RING_LOG_RTOL``) against the plain CLI on one card (in this process). One rank keeps utkinects' dropout 0.1
+    ``SP_RING_LOG_RTOL``; ``ring_decoder``: the config's S-query decoder
+    takes the ring on sp, its logged numbers held so too and its sweep's
+    MoC to ``SP_RING_MOC_TOL``) against the plain CLI on one card (in this process). One rank keeps utkinects' dropout 0.1
     (rank 0 draws one process's masks): the MoC tables and every checkpoint
     tensor equal, bit for bit. More ranks run with dropout off (their masks
     are not one process's): the same log lines with their numbers within
@@ -6419,7 +6470,8 @@ def cli_under_torchrun(n_ranks, argv, work, here, card, tp=1, sp=1, encoder=0):
         return dict(train_s=[runs["plain"][2], runs["torchrun"][2]])
     lr = config_from_args(build_parser("utkinects").parse_args(argv)).train.lr
     numbers = [_log_numbers(runs[t][0]) for t in ("plain", "torchrun")]
-    ring = sp > 1 and encoder > 0
+    ring = sp > 1 and (encoder > 0 or ring_decoder)
+    moc_tol = SP_RING_MOC_TOL if sp > 1 and ring_decoder else DP_MOC_TOL
     scale = (lambda b: max(1.0, abs(b))) if ring else (lambda b: 1.0)
     log_tol = SP_RING_LOG_RTOL if ring else DP_LOG_TOL
     log_err = max((abs(a - b) / scale(b) for x, y in zip(*numbers) for a, b in zip(x, y)),
@@ -6452,8 +6504,8 @@ def cli_under_torchrun(n_ranks, argv, work, here, card, tp=1, sp=1, encoder=0):
           f"{' / max(1, |number|)' if ring else ''} {log_err:.3e} (tol {log_tol}), lines alike {heads[0] == heads[1]}, {len(bad)} checkpoint tensors "
           f"outside the fit bounds at lr {lr} {bad[:4]}; the one-process checkpoint swept on "
           f"{n_ranks} ranks {sweeps['torchrun'][1]:.2f} s, plain {sweeps['plain'][1]:.2f} s: "
-          f"max|MoC diff| {moc_err:.3e} (tol {DP_MOC_TOL})")
-    if log_err > log_tol or heads[0] != heads[1] or bad or moc_err > DP_MOC_TOL:
+          f"max|MoC diff| {moc_err:.3e} (tol {moc_tol})")
+    if log_err > log_tol or heads[0] != heads[1] or bad or moc_err > moc_tol:
         raise AssertionError(f"data_parallel: the CLI on {n_ranks} cards differs from one card")
     return dict(train_s=[runs["plain"][2], runs["torchrun"][2]],
                 sweep_s=[sweeps["plain"][1], sweeps["torchrun"][1]], log_err=log_err,
@@ -7470,12 +7522,454 @@ def sequence_parallel(kernels, card):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# --------------------------- phase 24: sequence parallelism for every family
+
+SPF_DIR = "build/spf_phase"   # under the checkout (git-ignored), removed after the phase
+SPF_ROWS = 4                  # rows of each arm's batch
+SPF_PROPOSED_QUERIES = 19     # 50salads_proposed's L2 query ids (query_num 20 with the pad)
+SPF_GAZE_ROWS = (1200, 1900)  # the gaze stream's true rows, padded to the 2000 bucket
+# arm -> (config, dropout, R3D_CROSS_NATIVE, the epochs of its steps (one batch, from the
+# same init), its route, the kernels each rank must launch in it)
+SPF_ARMS = {
+    "50salads_proposed sp 2, 3100, dropout 0.1: the decoder's S queries gathered": (
+        "proposed", 0.1, False, (0,), "host",
+        ("flash_attention_dropout_bf16_many", "attention_bwd_bf16_many")),
+    "darai sp 2, 512, SupCon on: epoch 0 with dropout 0.1, then epoch 2, host route": (
+        "darai", 0.1, False, (0, 2), "host",
+        ("flash_attention", "flash_attention_dropout", "attention_bwd")),
+    "darai sp 2, 512, SupCon on: the same steps on the cached route": (
+        "darai", 0.1, False, (0, 2), "cached",
+        ("flash_attention", "flash_attention_dropout", "attention_bwd")),
+    "darai --model futr_unsupervised_depth sp 2, 512: epoch 0, then epoch 2 (the ring)": (
+        "depth", 0.1, False, (0, 2), "host",
+        ("flash_attention_many", "flash_attention_dropout_many", "attention_bwd_many")),
+    "darai_gaze sp 2, 2000, R3D_CROSS_NATIVE=1: the gaze stream cut": (
+        "gaze", 0.1, True, (0,), "host", ("cross_attention_fp32", "cross_attention_bwd_fp32")),
+    "50salads MoE, 1 encoder layer, sp 2, 3100, dropout 0.1, R3D_CROSS_NATIVE=1": (
+        "moe", 0.1, True, (0,), "host",
+        ("flash_attention_dropout_bf16_many", "attention_bwd_bf16_many", "cross_attention",
+         "cross_attention_bwd")),
+    "50salads MoE, 1 encoder layer, sp 2, 512, dropout off: the ring": (
+        "moe512", 0.0, False, (0,), "host", ("flash_attention_bf16", "attention_bwd_bf16")),
+    "nturgbd --model rnn sp 2, 512": ("rnn", 0.0, False, (0,), "host", ()),
+    "nturgbd --model tcn sp 2, 512": ("tcn", 0.0, False, (0,), "host", ()),
+}
+
+
+def spf_configs():
+    """The phase's configs at full width: 50salads_proposed (bf16, hidden
+    512, the proposed loop); darai (futr_unsupervised, fp32, hidden 128,
+    the unsupervised loop with SupCon on, ``DARAI_TP``) and its depth
+    source; darai_gaze (its gaze stream padded to the 2000 bucket); 50salads
+    with MoE (``MOE``) and one encoder layer; nturgbd's rnn and tcn (input
+    2,048, hidden 128, bf16 batches) without the depth stream."""
+    import dataclasses
+
+    from r3d_tpu_torch.config import get_config
+
+    def with_model(cfg, **kw):
+        return cfg.replace(model=dataclasses.replace(cfg.model, **kw))
+
+    darai = get_config("darai")
+    darai = darai.replace(train=dataclasses.replace(darai.train, **DARAI_TP))
+    moe = with_model(get_config("50salads"), use_encoder=True, n_encoder_layers=1, **MOE)
+    ntu = get_config("nturgbd")
+    ntu = ntu.replace(data=dataclasses.replace(ntu.data, depth_features_dir=None))
+    return dict(
+        proposed=get_config("50salads_proposed"), darai=darai,
+        depth=with_model(darai, model=DEPTH_MODEL), gaze=get_config("darai_gaze"), moe=moe,
+        moe512=moe,
+        rnn=ntu.replace(model=dataclasses.replace(ntu.model, model="rnn"),
+                        train=dataclasses.replace(ntu.train, loop="unimodal")),
+        tcn=ntu.replace(model=dataclasses.replace(ntu.model, model="tcn"),
+                        train=dataclasses.replace(ntu.train, loop="tcn")))
+
+
+def spf_config(key, dropout):
+    import dataclasses
+
+    cfg = spf_configs()[key]
+    return cfg.replace(model=dataclasses.replace(cfg.model, dropout=dropout))
+
+
+def spf_classes(key):
+    return {"proposed": 6, "darai": DARAI_CLASSES, "depth": DARAI_CLASSES,
+            "gaze": DARAI_CLASSES, "rnn": NTU_CLASSES, "tcn": NTU_CLASSES}.get(key, SALADS_CLASSES)
+
+
+def spf_darai_source(cfg):
+    """darai's synthetic videos (10 actions, 47 L3 labels padded with 47,
+    600-1,000 frames; observed at 0.5 they fall in the 512 bucket): the same
+    in every process."""
+    from r3d_tpu_torch.data.synthetic import SyntheticSource
+
+    return SyntheticSource(n_videos=6, n_actions=DARAI_CLASSES - 1, vid_len_range=(600, 1000),
+                           input_dim=cfg.model.input_dim, n_query_classes=cfg.train.l3_pad_idx,
+                           seed=SEED)
+
+
+def spf_batches(cfgs):
+    """Each arm's host batch of ``SPF_ROWS`` rows (``rnn``/``tcn``: 8):
+    50salads_proposed's and MoE's in the 3100 bucket (synthetic 50salads
+    videos of 2,600-3,800 frames observed at 0.8, with an L2 query stream
+    for the former) and MoE's in the 512; darai's first 4 views in the 512
+    (their view ids too, for the cached route); darai_gaze's in the 2000
+    with a synthetic normalised gaze stream of ``SPF_GAZE_ROWS`` rows;
+    nturgbd's in the 512."""
+    import torch
+
+    from r3d_tpu_torch.data.pipeline import BucketedLoader, pad_batch
+    from r3d_tpu_torch.data.synthetic import SyntheticSource
+
+    out = {}
+    p = cfgs["proposed"]
+    src = SyntheticSource(n_videos=6, n_actions=spf_classes("proposed") - 1,
+                          vid_len_range=(2600, 3800), input_dim=p.model.input_dim,
+                          n_query_classes=SPF_PROPOSED_QUERIES, seed=SEED)
+    fn, n = src.make_example_fn((0.8,), 1, p.model.n_query)
+    loader = BucketedLoader(num_examples=n, make_example_fn=fn, batch_size=SPF_ROWS,
+                            pad_idx=src.pad_idx, buckets=p.data.seq_buckets,
+                            n_query=p.model.n_query, with_query=True,
+                            query_pad_idx=SPF_PROPOSED_QUERIES, shuffle=False,
+                            feature_dtype=p.data.feature_dtype)
+    out["proposed"] = one_batch(loader, 1024, rows=SPF_ROWS)
+    d = cfgs["darai"]
+    src = spf_darai_source(d)
+    fn, _ = src.make_example_fn((0.5,), 1, d.model.n_query)
+    ids = list(range(SPF_ROWS))
+    out["darai"] = pad_batch([fn(j) for j in ids], src.pad_idx, d.data.seq_buckets,
+                             d.model.n_query, with_query=True,
+                             query_pad_idx=d.train.l3_pad_idx)
+    out["darai_ids"] = torch.tensor(ids)
+    out["depth"] = out["darai"]
+    g = cfgs["gaze"]
+    _, loader, _ = train_loaders(g, n_class=DARAI_CLASSES, n_videos=6,
+                                 vid_len_range=(2600, 3300), obs=(0.6,), val_videos=1,
+                                 val_obs=(0.6,), val_batch=1)
+    gaze = dict(one_batch(loader, 1024, rows=SPF_ROWS))
+    rng = np.random.default_rng(SEED + 24)
+    S = gaze["features"].shape[1]
+    lens = rng.integers(*SPF_GAZE_ROWS, size=SPF_ROWS)
+    q = rng.uniform(0.0, 2.0, (SPF_ROWS, S, 2)).astype(np.float32)
+    q[np.arange(S)[None, :] >= lens[:, None]] = 0.0
+    gaze.update(query_label=torch.from_numpy(q), query_len=torch.from_numpy(lens.astype(np.int32)))
+    out["gaze"] = gaze
+    _, loader, _ = train_loaders(cfgs["moe"], n_class=SALADS_CLASSES, n_videos=6,
+                                 vid_len_range=(2600, 3800), obs=(0.13, 0.8), val_videos=1,
+                                 val_obs=(0.8,), val_batch=1)
+    out["moe"] = one_batch(loader, 1024, rows=SPF_ROWS)
+    out["moe512"] = one_batch(loader, 256, 512, rows=SPF_ROWS)
+    for key in ("rnn", "tcn"):
+        _, loader, _ = train_loaders(cfgs[key], n_class=NTU_CLASSES, n_videos=8, obs=(0.5,),
+                                     val_videos=1, val_obs=(0.5,), val_batch=1)
+        out[key] = one_batch(loader, 256, 512)
+    for key, want in (("proposed", 3100), ("darai", 512), ("gaze", 2000), ("moe", 3100),
+                      ("moe512", 512), ("rnn", 512), ("tcn", 512)):
+        if out[key]["features"].shape[1] != want:
+            raise AssertionError(f"sequence_parallel_families: the {key} batch fell in bucket "
+                                 f"{out[key]['features'].shape[1]}, not {want}")
+    return out
+
+
+def spf_inits(cfgs):
+    """The seeded init of each config's model (the same in every process)."""
+    import torch
+
+    from r3d_tpu_torch.models import build_model, init_weights
+
+    return {k: init_weights(build_model(c.model, spf_classes(k)),
+                            torch.Generator().manual_seed(SEED)).state_dict()
+            for k, c in cfgs.items()}
+
+
+def _spf_arm(tag, kernels, batches, inits, mesh=None):
+    """One ``SPF_ARMS`` arm on ``mesh`` (None: one process on the card): its
+    steps from the init after the trainer seeds dropout, each with the
+    counts set to 0 before and read after, the routes and shapes seen, its
+    loss, wall time and the peak bytes allocated in this process; the whole
+    final state."""
+    import os
+
+    import torch
+
+    from r3d_tpu_torch.data import device_cache as dc
+    from r3d_tpu_torch.parallel.mesh import shard_state, whole_model_state
+    from r3d_tpu_torch.train.loop import Trainer
+
+    key, drop, native, epochs, route, _ = SPF_ARMS[tag]
+    before = os.environ.get("R3D_CROSS_NATIVE")
+    if native:
+        os.environ["R3D_CROSS_NATIVE"] = "1"
+    try:
+        cfg = spf_config(key, drop)
+        trainer = Trainer(cfg, spf_classes(key), mesh=mesh)
+        state = trainer.init_state(1, inits[key])
+        if mesh is not None:
+            state = shard_state(state, mesh)
+        trainer._seed_dropout(state, SEED, 0)
+        batch = trainer._with_seg_ids(batches[key])
+        if route == "cached":
+            src = spf_darai_source(cfg)
+            videos = [{"features": v["features"],
+                       "label_idx": np.array([src.actions_dict[l] for l in v["labels"]]),
+                       "query_idx": np.array([src.query_dict[q] for q in v["query"]])}
+                      for v in src.videos]
+            cache = dc.build_cache(videos, (0.5,), 1, cfg.model.n_query, src.pad_idx,
+                                   src.n_class, cfg.data.seq_buckets,
+                                   query_pad_idx=cfg.train.l3_pad_idx)
+            cached_step = trainer.make_cached_train_fn(cache)
+        steps = []
+        for epoch in epochs:
+            seen = set()
+            for k in kernels:
+                k.launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with _sp_spy(seen):
+                if route == "cached":
+                    B, S = batch["features"].shape[:2]
+                    rows, seq = trainer._rows(B), trainer._seq(S)
+                    idx = trainer._index_table([batches["darai_ids"].numpy()])
+                    with trainer._split(rows, seq):
+                        metrics = cached_step(state, cache.data, idx, S, epoch, seq)
+                else:
+                    metrics = trainer.train_step(state, batch, epoch)
+                loss = trainer._to_host({"loss": metrics["loss"]})["loss"]
+            torch.cuda.synchronize()
+            steps.append(dict(loss=loss, ms=1e3 * (time.perf_counter() - t0),
+                              peak=torch.cuda.max_memory_allocated(),
+                              launches={k.name: k.launches for k in kernels}, seen=sorted(seen)))
+        whole = {k: v.detach().cpu() for k, v in whole_model_state(state.model).items()}
+        return dict(steps=steps, state=whole,
+                    finite=all(bool(torch.isfinite(v).all()) for v in whole.values()
+                               if v.is_floating_point()))
+    finally:
+        os.environ.pop("R3D_CROSS_NATIVE", None)
+        if before is not None:
+            os.environ["R3D_CROSS_NATIVE"] = before
+
+
+def _spf_eval(kernels, batches, inits, mesh=None):
+    """50salads_proposed's module-eval forward of its 3100-bucket batch with
+    the pad mask (the decoder's self-attention the ring, its
+    cross-attention the rank's query rows against the gathered keys): the
+    action and duration outputs, the launches, the routes seen, the wall
+    time and the peak bytes allocated in this process."""
+    import torch
+
+    from r3d_tpu_torch.parallel.mesh import take_rows, take_seq
+    from r3d_tpu_torch.train.loop import Trainer
+
+    trainer = Trainer(spf_config("proposed", 0.0), spf_classes("proposed"), mesh=mesh)
+    state = trainer.init_state(1, inits["proposed"])
+    model = state.model.eval()
+    batch = batches["proposed"]
+    rows = trainer._rows(batch["features"].shape[0])
+    seq = trainer._seq(batch["features"].shape[1])
+    seen = set()
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad(), trainer._split(rows, seq), _sp_spy(seen):
+        out = model(*trainer._model_inputs(
+            trainer.to_device(take_seq(take_rows(batch, rows), seq)), with_mask=True))
+        got = {k: out[k].float().cpu() for k in ("action", "duration")}
+    torch.cuda.synchronize()
+    return dict(out=got, seen=sorted(seen), ms=1e3 * (time.perf_counter() - t0),
+                peak=torch.cuda.max_memory_allocated(),
+                launches={k.name: k.launches for k in kernels})
+
+
+def _spf_rank(rank, world, work):
+    """One gloo rank on the card (``cuda:0``, shared), on dp 1 x sp 2: every
+    ``SPF_ARMS`` arm and the eval forward; writes its results to
+    ``work/rank{rank}.pt``."""
+    import datetime
+    import os
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"file://{work}/store", rank=rank,
+                                world_size=world, timeout=datetime.timedelta(seconds=SP_TIMEOUT))
+        from r3d_tpu_torch.parallel.mesh import make_mesh
+
+        kernels = sp_kernels() + spf_kernels()
+        batches = torch.load(os.path.join(work, "batches.pt"), weights_only=True)
+        inits = torch.load(os.path.join(work, "inits.pt"), weights_only=True)
+        mesh = make_mesh(dp=1, sp=world)
+        out = {"arms": {tag: _spf_arm(tag, kernels, batches, inits, mesh) for tag in SPF_ARMS},
+               "eval": _spf_eval(kernels, batches, inits, mesh)}
+        torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(work, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        os._exit(1)
+
+
+def spf_kernels():
+    """The kernels this phase's arms launch beyond ``sp_kernels``'."""
+    from r3d_tpu_torch.ops import attention as att
+
+    return [att.KERNEL_MANY, att.DROPOUT_KERNEL_MANY, att.BWD_KERNEL_MANY]
+
+
+def _spf_routes(tag, seen, S):
+    """What a rank's run of ``tag`` did that its path does not: the S-query
+    decoders' attention with dropout not gathered over the S frames; their
+    and the encoder's self-attention without dropout not the ring on the
+    rank's S/2 queries. [] where none."""
+    key, drop = SPF_ARMS[tag][:2]
+    routes = {x for x in seen if x[0] in ("ring", "gathered")}
+    want = set()
+    if key in ("proposed", "depth", "moe") and drop:
+        want.add(("gathered", S))
+    if key in ("depth", "moe512"):   # the depth source's sticky epoch 2, MoE without dropout
+        want.add(("ring", S // 2))
+    return [] if routes == want else [f"took {sorted(routes)}, not {sorted(want)}"]
+
+
+def sequence_parallel_families(kernels, card):
+    """Phase 24: see the module docstring. Returns each kernel's launches
+    on the two ranks' arms (both ranks summed) and each rank's peak bytes
+    against one process's in each arm."""
+    import os
+    import shutil
+
+    import torch
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(here, SPF_DIR)
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    procs = []
+    try:
+        cfgs = spf_configs()
+        batches = spf_batches(cfgs)
+        inits = spf_inits(cfgs)
+        torch.save(batches, os.path.join(work, "batches.pt"))
+        torch.save(inits, os.path.join(work, "inits.pt"))
+        every = kernels + [k for k in spf_kernels() if k not in kernels]
+        ctx = mp.get_context("spawn")
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=_spf_rank, args=(r, 2, work), daemon=True) for r in range(2)]
+        for p in procs:
+            p.start()
+        # while the ranks start: one process on the same card
+        one = {tag: _spf_arm(tag, every, batches, inits) for tag in SPF_ARMS}
+        one_eval = _spf_eval(every, batches, inits)
+        for p in procs:
+            p.join(max(1.0, SP_TIMEOUT - (time.perf_counter() - t0)))
+        errors = [open(os.path.join(work, f)).read() for f in sorted(os.listdir(work))
+                  if f.endswith(".err")]
+        if any(p.is_alive() or p.exitcode != 0 for p in procs) or errors:
+            raise AssertionError(f"sequence_parallel_families: a gloo rank failed: exit codes "
+                                 f"{[p.exitcode for p in procs]} {errors}")
+        ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+        t_ranks = time.perf_counter() - t0
+        total = {k.name: 0 for k in every}
+        peaks = {}
+        for tag, (key, drop, native, epochs, route, need) in SPF_ARMS.items():
+            lr = cfgs[key].train.lr
+            got = [r["arms"][tag] for r in ranks]
+            want = one[tag]
+            bf16 = cfgs[key].model.compute_dtype == "bfloat16"
+            tol = TP_BF16_LOSS_TOL if bf16 else DP_LOSS_TOL
+            loss_err = max(abs(a["loss"] - b["loss"]) / max(1.0, abs(b["loss"]))
+                           for a, b in zip(got[0]["steps"], want["steps"]))
+            bad = _close_states(got[0]["state"], want["state"], lr, len(epochs), share=not bf16)
+            split = [k for k in want["state"] if not torch.equal(got[0]["state"][k],
+                                                                 got[1]["state"][k])]
+            print(f"spf [{card}]: {tag}: {len(epochs)} steps on 2 gloo ranks (dp 1 x sp 2) vs "
+                  f"one process: max|loss diff| / max(1, |loss|) {loss_err:.3e} (tol {tol}), "
+                  f"losses {[s['loss'] for s in got[0]['steps']]} vs "
+                  f"{[s['loss'] for s in want['steps']]}; {len(bad)} of {len(want['state'])} "
+                  f"final tensors outside the fit bounds {bad[:3]}; the ranks' whole states "
+                  f"differ in {len(split)} tensors")
+            if loss_err > tol or bad or split or not (got[0]["finite"] and got[1]["finite"]):
+                raise AssertionError(f"sequence_parallel_families: {tag} disagrees with one "
+                                     f"process")
+            if route == "cached":
+                # the cached route against the host route's arm, on the ranks and alone
+                host = next(t for t, a in SPF_ARMS.items() if a[0] == key and a[4] == "host")
+                for label, a, b in (("ranks", got[0], ranks[0]["arms"][host]),
+                                    ("one process", want, one[host])):
+                    d = max(abs(x["loss"] - y["loss"]) for x, y in zip(a["steps"], b["steps"]))
+                    off = _close_states(a["state"], b["state"], lr, len(epochs))
+                    print(f"spf [{card}]: {key}: cached route vs host route ({label}): "
+                          f"max|loss diff| {d:.3e}, {len(off)} tensors outside the fit bounds")
+                    if d > DP_LOSS_TOL or off:
+                        raise AssertionError(f"sequence_parallel_families: {key}'s cached "
+                                             f"route differs from its host route ({label})")
+            S = batches[key]["features"].shape[1]
+            for r, g in enumerate(got):
+                launched = {n: sum(s["launches"].get(n, 0) for s in g["steps"]) for n in total}
+                seen = sorted({x for s in g["steps"] for x in s["seen"]})
+                print(f"spf [{card}]: {tag}: gloo rank {r}: launches "
+                      f"{ {n: c for n, c in launched.items() if c} }; routes and shapes {seen}; "
+                      f"step ms {[round(s['ms'], 2) for s in g['steps']]} (one process "
+                      f"{[round(s['ms'], 2) for s in want['steps']]}); peak allocated bytes "
+                      f"{[s['peak'] for s in g['steps']]} (one process "
+                      f"{[s['peak'] for s in want['steps']]})")
+                for n, c in launched.items():
+                    total[n] += c
+                wrong = [f"never launched {n}" for n in need if launched.get(n, 0) == 0]
+                wrong += _spf_routes(tag, seen, S)
+                if wrong:
+                    raise AssertionError(f"sequence_parallel_families: {tag}: rank {r}: {wrong}")
+            peaks[tag] = ([max(s["peak"] for s in g["steps"]) for g in got],
+                          max(s["peak"] for s in want["steps"]))
+        ev = [r["eval"] for r in ranks]
+        err = max(float((e["out"][k] - one_eval["out"][k]).abs().max())
+                  for e in ev for k in one_eval["out"])
+        S = batches["proposed"]["features"].shape[1]
+        print(f"spf [{card}]: {SPF_ROWS} x {S} 50salads_proposed eval forward, 2 ranks vs one "
+              f"process: max|output diff| {err:.3e} (tol {SP_EVAL_TOL}); routes "
+              f"{ev[0]['seen']} (one process {one_eval['seen']}); launches "
+              f"{ {n: c for n, c in ev[0]['launches'].items() if c} }; ms "
+              f"{[round(e['ms'], 2) for e in ev]} (one process {one_eval['ms']:.2f}); peak "
+              f"allocated bytes {[e['peak'] for e in ev]} (one process {one_eval['peak']})")
+        for e in ev:
+            for n, c in e["launches"].items():
+                total[n] = total.get(n, 0) + c
+        rows_k3 = ("K3", S // 2, S)   # the rank's query rows against the gathered keys
+        if not err <= SP_EVAL_TOL or any(
+                ("ring", S // 2) not in e["seen"] or rows_k3 not in e["seen"]
+                or e["launches"].get("flash_attention_bf16_many", 0) == 0 for e in ev):
+            raise AssertionError("sequence_parallel_families: the 50salads_proposed eval "
+                                 "forward disagrees or missed the ring and K3")
+        peaks["proposed eval"] = ([e["peak"] for e in ev], one_eval["peak"])
+        print(f"spf [{card}]: 2 gloo ranks, {len(SPF_ARMS)} arms and the eval forward, "
+              f"{t_ranks:.1f} s with their start; the sequence_parallel_families phase took "
+              f"{time.perf_counter() - t_phase:.1f} s")
+        return total, peaks
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def cards_main() -> int:
     """``chip_smoke.py --cards``: ``cli_under_torchrun`` on every card the
     host has (two or more) against one card, alone, on a dp mesh and (an
     even count of cards) on dp x tp 2 and on dp x sp 2, without and with
-    one encoder layer; prints the cards' names and power
-    limits, the readings and, last, one JSON object of them."""
+    one encoder layer, then 50salads_proposed and darai on dp x sp 2;
+    prints the cards' names and power limits, the readings and, last, one
+    JSON object of them."""
     import os
     import shutil
 
@@ -7507,13 +8001,27 @@ def cards_main() -> int:
         # dp x sp 2 (NCCL, FSDP over dp): the sequence cut across cards, then
         # with one encoder layer: the ring over NCCL's point-to-point calls
         got_sp = got_ring = None
+        families = {}
         if n % 2 == 0:
             got_sp = cli_under_torchrun(n, argv, work, here, cards, sp=2)
             got_ring = cli_under_torchrun(n, argv, work, here, cards, sp=2, encoder=1)
+            # the query families on dp x sp 2: 50salads_proposed (S queries
+            # against S keys) and darai (the self-attention source, the
+            # unsupervised loop), each over a dataset of its layout
+            train_l, val_l, _ = PROPOSED_DATA["50salads_proposed"]
+            roots = {"50salads_proposed": write_proposed_dataset(
+                         os.path.join(work, "proposed"), "50salads_proposed", train_l, val_l),
+                     "darai": write_darai_dataset(os.path.join(work, "darai"), DARAI_TRAIN,
+                                                  DARAI_VAL)}
+            for name, root in roots.items():
+                fam = ["--config", name, "--data_root", root, "--seed", "1", "--epochs", "2"]
+                families[name] = cli_under_torchrun(n, fam, work, here, cards, sp=2,
+                                                    ring_decoder=name == "50salads_proposed")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(json.dumps({"ranks": n, **got, "mesh_tp_2": got_tp, "mesh_sp_2": got_sp,
-                      "mesh_sp_2_encoder": got_ring}))
+                      "mesh_sp_2_encoder": got_ring,
+                      **{f"mesh_sp_2_{k}": v for k, v in families.items()}}))
     return 0
 
 
@@ -7746,6 +8254,17 @@ def main() -> int:
     unused = [k.name for k in sp_path if sp_counts[k.name] == 0]
     if unused:
         raise AssertionError(f"the sequence_parallel phase never launched {unused}")
+    # sequence parallelism for every other family (A14): two gloo ranks on dp 1 x sp 2
+    spf_counts, spf_peaks = sequence_parallel_families(kernels, card)
+    print(f"launches on the sequence_parallel_families phase's ranks: "
+          f"{ {k: c for k, c in spf_counts.items() if c} }; each rank's peak allocated bytes "
+          f"against one process's: {spf_peaks}")
+    spf_path = (att.KERNEL, att.DROPOUT_KERNEL, att.BWD_KERNEL, att.KERNEL_BF16,
+                att.BWD_KERNEL_BF16, *many, *fp32_many, ca.FWD_KERNEL, ca.BWD_KERNEL,
+                ca.FWD_KERNEL_FP32, ca.BWD_KERNEL_FP32)
+    unused = [k.name for k in spf_path if spf_counts[k.name] == 0]
+    if unused:
+        raise AssertionError(f"the sequence_parallel_families phase never launched {unused}")
     tp_shape_err = {k.name: tp_shapes[key][1] for k, key in (
         (att.KERNEL, "K3 fp32"), (att.DROPOUT_KERNEL, "K4 fp32"), (att.BWD_KERNEL, "K5 fp32"),
         (att.KERNEL_BF16, "K3 bf16"), (att.DROPOUT_KERNEL_BF16, "K4 bf16"),
@@ -7761,7 +8280,8 @@ def main() -> int:
         "deploy_launches": deploy_live, "deploy_exported_launches": deploy_exported,
         "dp_launches": dp_counts,   # the one-rank NCCL group's three fits (A14)
         "tp_launches": tp_counts,   # the two ranks' tp, ep and dp arms (A14), both summed
-        "sp_launches": sp_counts}   # the two ranks' sp arms (A14), both summed
+        "sp_launches": sp_counts,   # the two ranks' sp arms (A14), both summed
+        "spf_launches": spf_counts}   # the two ranks' arms of every other family on sp
 
     def a114_columns(name):
         return {**{col: counts[name] for col, counts in a114.items()},

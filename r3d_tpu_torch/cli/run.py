@@ -30,8 +30,7 @@ several devices (``r3d_tpu/cli/run.py:59-73``), and logs it (``mesh:
 sequences over sp, and the parameters over tp and ep, ``--fsdp`` shards
 the train state over dp, and only rank 0 logs and writes. A group the
 caller already formed is used as it is. The pp axis is ROADMAP item A14's
-next slice, and sp runs the fusion models and futr
-(``parallel.mesh.sp_refusal``).
+next slice; sp runs every family.
 """
 
 from __future__ import annotations

@@ -26,7 +26,8 @@ rows included, so the same outputs.
 A query model (``models.QUERY_MODELS``) gets each window's query ids,
 sliced and strided as the features are, with ``query_mod2`` re-encoded as
 segment parity (``alternating_query``; on the cached route on the card,
-over the gathered rows), and zeros past a window's rows; its ``l3`` output
+over the gathered rows, each whole row's on a cut sequence), and zeros past
+a window's rows; its ``l3`` output
 gives the L3 accuracy (``l3_acc``), as JAX's does; the depth source takes
 the same ids, as JAX's sweep feeds them. A gaze stream
 (``gaze_dir``) is windowed over its raw rows, ``[:int(obs_p * N)]``, and
@@ -52,11 +53,13 @@ divides it, the cached route gathering only the rank's frames; JAX's sweep
 cuts over dp and lets its ring reshard, ``r3d_tpu/eval/predict.py:114-125``,
 to the same numbers), and the per-frame outputs are gathered over sp
 before dp. The filler rows stay masked and dropped, so the MoC tables are
-the one-process sweep's.
+the one-process sweep's. Every family runs so: the query ids and a gaze
+stream as long as the bucket are cut with the features, and each model
+gathers over sp what mixes frames (``models/futr_unsupervised.py``,
+``models/baselines.py``).
 
 Not ported yet, and raising ``NotImplementedError`` naming their ROADMAP
-item: the pp mesh axis and sp for the families
-``parallel.mesh.sp_refusal`` names (A14), and ``gif_dir`` (A15).
+item: the pp mesh axis (A14), and ``gif_dir`` (A15).
 """
 
 from __future__ import annotations
@@ -78,6 +81,7 @@ from r3d_tpu_torch.data.pipeline import bucket_length
 from r3d_tpu_torch.eval.decode import decode_anticipation, decode_frames_from_slots
 from r3d_tpu_torch.eval.moc import MoCAccumulator
 from r3d_tpu_torch.models import is_fusion_model, model_needs_query
+from r3d_tpu_torch.models.futr_unsupervised import check_gaze_cut
 from r3d_tpu_torch.models.layers import DTYPES
 from r3d_tpu_torch.parallel.mesh import (
     axis,
@@ -89,12 +93,10 @@ from r3d_tpu_torch.parallel.mesh import (
     is_writer,
     local_model_state,
     place_model,
-    rows_group,
     seq_sharding,
-    sp_refusal,
-    split_rows,
+    split_mesh,
 )
-from r3d_tpu_torch.parallel.tensor import gather_seq
+from r3d_tpu_torch.parallel.tensor import cut_seq, gather_seq
 from r3d_tpu_torch.serving import resolve_device
 
 OUTPUT_KEYS = ("action", "duration", "seg", "l3")   # what the sweep reads back
@@ -145,7 +147,7 @@ class Predictor:
         """``model``: a module of ``config.model`` that ``state_dict``
         variables load into; ``mesh`` the mesh to split the sweep over."""
         check_mesh(mesh)
-        sp_refusal(config, mesh)
+        check_gaze_cut(config, mesh)
         self.mesh = mesh
         self.group = dp_group(mesh)
         self.sp = axis(mesh, "sp")
@@ -282,8 +284,12 @@ class Predictor:
             args = (b["features"], b["depth"], b["mask"])
         elif self.needs_query:
             q = b["query"]
-            args = (b["features"], alternating_query_rows(q) if self.config.eval.query_mod2
-                    else q, b["mask"])
+            if self.config.eval.query_mod2:
+                # the parity of each whole row: on a cut sequence, of the
+                # row gathered over sp, the rank's frames kept
+                sp = self.sp if seq is not None else None
+                q = cut_seq(alternating_query_rows(gather_seq(q, sp)), sp)
+            args = (b["features"], q, b["mask"])
         else:
             args = (b["features"], b["mask"])
         return self._run(modules, args, len(items), seq)
@@ -305,8 +311,7 @@ class Predictor:
         rank's frames, and the per-frame outputs are gathered over sp."""
         rows = self._rows()
         sp = self.sp if seq is not None else None
-        with torch.inference_mode(), split_rows(
-                rows_group(self.mesh, rows is not None, sp is not None), sp):
+        with torch.inference_mode(), split_mesh(self.mesh, rows is not None, sp is not None):
             outs = [m(*args) for m in modules]
             outputs = {k: sum(o[k] for o in outs) / len(outs)
                        for k in OUTPUT_KEYS if k in outs[0]}

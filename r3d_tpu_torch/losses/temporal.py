@@ -27,7 +27,12 @@ quirks are kept:
 Inside ``parallel.mesh.split_rows`` the cluster loss's counts are the
 global batch's (the existing clusters, the rows with more than one, the
 cluster count of the global batch's last such row), and each rank's value
-is scaled so that the ranks' mean is the global loss.
+is scaled so that the ranks' mean is the global loss. On a cut sequence
+(``seq_axis()``) a segment may cross the cut: each (row, segment)'s frame
+count, the sums behind its mean and its squared deviations are summed over
+sp (with gradients) before they are divided, so every sp rank holds each
+row's whole statistics, and the per-row counts reduce over the dp group
+alone (``rank_table``'s per-row group).
 """
 
 from __future__ import annotations
@@ -37,7 +42,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from r3d_tpu_torch.parallel.mesh import global_count, rank_table
+from r3d_tpu_torch.parallel.mesh import global_count, rank_table, seq_axis
+from r3d_tpu_torch.parallel.tensor import sum_over
 
 
 def segment_ids_from_labels(labels: np.ndarray, valid: Optional[np.ndarray],
@@ -81,12 +87,16 @@ def _onehot(seg_ids: torch.Tensor, max_segments: int, dtype) -> torch.Tensor:
 
 def temporal_cluster_loss(predictions: torch.Tensor, seg_ids: torch.Tensor,
                           max_segments: int) -> torch.Tensor:
-    """utils.py:271-321 on dense segment ids; predictions [B, T, C]."""
+    """utils.py:271-321 on dense segment ids; predictions [B, T, C] (under
+    sp the rank's T frames)."""
     B, T, C = predictions.shape
     K = max_segments
+    sp = seq_axis()
+    frames = None if sp is None else sp.group   # the row's other frames
     onehot = _onehot(seg_ids, K, predictions.dtype)
-    counts = onehot.sum(1)                                            # [B, K]
-    means = torch.einsum("btk,btc->bkc", onehot, predictions) / counts.clamp_min(1.0)[..., None]
+    counts = sum_over(onehot.sum(1), frames)                          # [B, K]
+    sums = sum_over(torch.einsum("btk,btc->bkc", onehot, predictions), frames)
+    means = sums / counts.clamp_min(1.0)[..., None]
     exists = counts > 0
     valid = seg_ids >= 0
 
@@ -98,7 +108,8 @@ def temporal_cluster_loss(predictions: torch.Tensor, seg_ids: torch.Tensor,
     frame_means = torch.einsum("btk,bkc->btc", _onehot(safe, K, predictions.dtype), means)
     sq_dev = ((predictions - frame_means) ** 2).sum(-1)
     sq_dev = torch.where(valid, sq_dev, torch.zeros((), dtype=sq_dev.dtype, device=sq_dev.device))
-    per_cluster = torch.einsum("btk,bt->bk", onehot, sq_dev) / (counts * C).clamp_min(1.0)
+    per_cluster = (sum_over(torch.einsum("btk,bt->bk", onehot, sq_dev), frames)
+                   / (counts * C).clamp_min(1.0))
     zero = torch.zeros((), dtype=predictions.dtype, device=predictions.device)
     n_exists = global_count(exists.sum())
     if n_exists is None:

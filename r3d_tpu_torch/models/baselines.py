@@ -28,6 +28,14 @@ packed to its length, and the TCN's temporal mean divides by it.
 
 JAX computes the LSTM and the convs outside any Pallas kernel; the port
 runs them in cuDNN.
+
+Sequence parallelism (``parallel.mesh.seq_axis()`` set; the features and
+the mask are the rank's S/sp frames): each model gathers over sp, with the
+mask and so the lengths, what the first layer that mixes frames reads (the
+embedded stream before the LSTM or the pool, the TCN's features before its
+convs), and everything after runs on the whole sequence, replicated on the
+sp ranks; ``seg`` is read off the rank's own embedded frames, and
+``supcon`` is cut back to them.
 """
 
 from __future__ import annotations
@@ -47,6 +55,8 @@ from r3d_tpu_torch.models.layers import (
     linear_in,
     masked_adaptive_avg_pool1d,
 )
+from r3d_tpu_torch.parallel.mesh import seq_axis
+from r3d_tpu_torch.parallel.tensor import cut_seq, gather_seq
 
 POOL_ROWS = 8   # rnn.py:97 hard-codes the pool to 8
 TCN_DROPOUT = 0.2   # tcn.py's hard-coded dropout rate
@@ -54,6 +64,14 @@ TCN_DROPOUT = 0.2   # tcn.py's hard-coded dropout rate
 
 def _lengths(src_pad_mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return None if src_pad_mask is None else (~src_pad_mask).sum(-1)
+
+
+def _whole(x: torch.Tensor, src_pad_mask: Optional[torch.Tensor]):
+    """(``x`` [B, S, ...], the rows' lengths): under sp, gathered over it
+    with the mask (one process's stream and lengths otherwise)."""
+    sp = seq_axis()
+    mask = None if src_pad_mask is None else gather_seq(src_pad_mask, sp)
+    return gather_seq(x, sp), _lengths(mask)
 
 
 def _pool8(x: torch.Tensor, lengths: Optional[torch.Tensor]) -> torch.Tensor:
@@ -130,11 +148,11 @@ class RNNAnticipator(_Heads):
         self.rnn_fc = nn.Linear(C, C)
 
     def forward(self, features, src_pad_mask: Optional[torch.Tensor] = None):
-        lengths = _lengths(src_pad_mask)
         src = self.embed(features)
-        tgt = linear_in(self.rnn(src, lengths), self.rnn_fc, compute_dtype(self.cfg))
+        whole, lengths = _whole(src, src_pad_mask)
+        tgt = linear_in(self.rnn(whole, lengths), self.rnn_fc, compute_dtype(self.cfg))
         out = self.heads(_pool8(tgt, lengths), src)
-        out["supcon"] = tgt
+        out["supcon"] = cut_seq(tgt, seq_axis())
         return out
 
 
@@ -147,7 +165,7 @@ class CNNAnticipator(_Heads):
 
     def forward(self, features, src_pad_mask: Optional[torch.Tensor] = None):
         src = self.embed(features)
-        out = self.heads(_pool8(src, _lengths(src_pad_mask)), src)
+        out = self.heads(_pool8(*_whole(src, src_pad_mask)), src)
         out["supcon"] = src
         return out
 
@@ -206,6 +224,7 @@ class TCNAnticipator(nn.Module):
 
     def forward(self, features, src_pad_mask: Optional[torch.Tensor] = None):
         dt = compute_dtype(self.cfg)
+        features, lengths = _whole(features, src_pad_mask)
         x = features.to(dt).transpose(1, 2)   # [B, C, T]
         for i in range(self.n_blocks):
             conv1, conv2 = getattr(self, f"block{i}_conv1"), getattr(self, f"block{i}_conv2")
@@ -219,7 +238,6 @@ class TCNAnticipator(nn.Module):
         logits = F.conv1d(x, r.weight.to(dt), r.bias.to(dt)).transpose(1, 2)
         B, T, _ = logits.shape
         logits = logits.reshape(B, T, self.anticipated_frames, self.n_class)
-        lengths = _lengths(src_pad_mask)
         if lengths is None:
             action = logits.mean(1)
         else:

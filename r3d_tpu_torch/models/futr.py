@@ -22,6 +22,7 @@ from r3d_tpu_torch.config import ModelConfig
 from r3d_tpu_torch.models.layers import DTYPES, linear_in
 from r3d_tpu_torch.models.transformer import FUTRTransformer
 from r3d_tpu_torch.parallel.mesh import seq_axis
+from r3d_tpu_torch.parallel.tensor import seq_positions
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -42,9 +43,7 @@ def positions(table: torch.Tensor, S: int) -> torch.Tensor:
     """The learned positions of the stream's S frames, [1, S, C]: the first
     S rows of ``table``, or under sequence parallelism the sp rank's own
     range of them, ``[r S, (r+1) S)``."""
-    sp = seq_axis()
-    start = 0 if sp is None else sp.rank * S
-    return table[:, start:start + S]
+    return seq_positions(table, S, seq_axis(), dim=1)
 
 
 class InputEmbed(nn.Module):

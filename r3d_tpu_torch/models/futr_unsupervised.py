@@ -47,6 +47,26 @@ The hard-coded dropouts (``SRC_DROPOUT``, ``DEPTH_QUERY_DROPOUT``) are
 ``FixedDropout``: on in the sticky epochs, as in JAX's frozen twin (ROADMAP
 C4).
 
+Sequence parallelism (``parallel.mesh.seq_axis()`` set; the features,
+``query`` ids and, where as long as the bucket, the gaze stream are the
+rank's S/sp frames): the encoding and ``pos_embedding`` take the rank's
+positions, the hard-coded dropouts draw the whole mask and keep the rank's
+frames, and ``l3``, ``supcon`` and the seg head stay the rank's frames.
+What mixes frames is gathered over sp first and then runs whole,
+replicated on the sp ranks:
+
+- gt and depth: the decoder runs the rank's S/sp queries
+  (``FUTRTransformer(seq_queries=True)``), and its output ``hs`` is
+  gathered before the pool to ``n_query`` rows, whose lengths come from
+  the gathered mask;
+- self-attention: ``l3_attention``'s keys are the dp group's rows at the
+  rank's own frames (``gather_rows`` over the per-row group), and its
+  stream is gathered before the pool to ``n_query`` rows (``temp2``'s
+  add stays per frame);
+- gaze: ``GazeCNN`` convolves and averages over the gaze rows, so it runs
+  on the stream gathered over sp where the batch cut it (its length the
+  features'), ``query_len`` whole.
+
 Outputs: ``action``, ``duration``, ``seg`` as ``Heads`` gives them; ``l3``
 [B, S, query_num] (``fc_l3`` of the query stream, fp32) but for gaze;
 ``supcon`` (the query stream, in the compute dtype) but for ``temp2`` and
@@ -63,7 +83,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from r3d_tpu_torch.config import ModelConfig
-from r3d_tpu_torch.models.futr import Heads, InputEmbed, compute_dtype, moe_spec
+from r3d_tpu_torch.models.futr import Heads, InputEmbed, compute_dtype, moe_spec, positions
 from r3d_tpu_torch.models.futr_fusion import DepthEmbed
 from r3d_tpu_torch.models.layers import (
     FixedDropout,
@@ -74,12 +94,25 @@ from r3d_tpu_torch.models.layers import (
     sinusoidal_positional_encoding,
 )
 from r3d_tpu_torch.models.transformer import FUTRTransformer
-from r3d_tpu_torch.parallel.mesh import gather_rows
+from r3d_tpu_torch.parallel.mesh import axis_size, gather_rows, seq_axis
+from r3d_tpu_torch.parallel.tensor import gather_seq, seq_positions
 
 SOURCES = ("gt", "self_attention", "gaze", "depth")
 GAZE_STEPS = 8   # GazeCNN's output rows: its constructor default, never overridden
 SRC_DROPOUT = 0.1   # the hard-coded dropout on the self-attention and depth sources
 DEPTH_QUERY_DROPOUT = 0.1   # the hard-coded dropout on the depth queries
+
+
+def check_gaze_cut(config, mesh) -> None:
+    """Raise ``ValueError`` where a gaze stream uncut by sp would read as
+    cut: the model takes a stream of the rank's S/sp frames for a cut one,
+    which an explicit ``gaze_pad_len`` of S/sp rows for a bucket of S would
+    mimic."""
+    d, sp = config.data, axis_size(mesh, "sp")
+    if d.gaze_dir is not None and d.gaze_pad_len and sp > 1 and \
+            d.gaze_pad_len * sp in d.seq_buckets and d.gaze_pad_len not in d.seq_buckets:
+        raise ValueError(f"gaze_pad_len {d.gaze_pad_len} on sp {sp}: its rows would read as the "
+                         f"sp rank's frames of the {d.gaze_pad_len * sp} bucket")
 
 
 class GazeCNN(nn.Module):
@@ -146,11 +179,11 @@ class FUTRUnsupervised(nn.Module):
         elif query_source == "gaze":
             self.gaze_cnn = GazeCNN(C, dt)
         elif query_source == "depth":
-            self.src_drop = FixedDropout(SRC_DROPOUT)
+            self.src_drop = FixedDropout(SRC_DROPOUT, seq_dim=1)
             self.depth_embed = DepthEmbed(cfg, depth_dim)
-            self.query_drop = FixedDropout(DEPTH_QUERY_DROPOUT)
+            self.query_drop = FixedDropout(DEPTH_QUERY_DROPOUT, seq_dim=1)
         else:
-            self.src_drop = FixedDropout(SRC_DROPOUT)
+            self.src_drop = FixedDropout(SRC_DROPOUT, seq_dim=1)
             self.l3_attention = MultiheadAttention(C, cfg.n_head, 0.0, dt)
             if variant == "temp2":
                 self.query_embed = nn.Parameter(torch.zeros(cfg.n_query, C))
@@ -167,17 +200,18 @@ class FUTRUnsupervised(nn.Module):
     def forward(self, features, query=None, src_pad_mask: Optional[torch.Tensor] = None,
                 query_len: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         cfg = self.cfg
-        B, S = features.shape[:2]
+        B, S = features.shape[:2]   # S: the rank's frames under sp
         dt = compute_dtype(cfg)
+        sp = seq_axis()
         src = self.embed(features)
-        pe = self.pe[:S].to(dt)
+        pe = seq_positions(self.pe, S, sp).to(dt)
         if self.query_source in ("self_attention", "depth"):
             # futr_unsupervised.py:106, futr_unsupervised_depth.py:99: the
             # encoding and its dropout on the source
             src = self.src_drop(src + pe)
         pos = None
         if cfg.pos_emb:
-            pos = self.pos_embedding[:, :S].to(src.dtype).expand(B, S, cfg.hidden_dim)
+            pos = positions(self.pos_embedding, S).to(src.dtype).expand(B, S, cfg.hidden_dim)
         seg_stream = None   # temp2: the seg head reads the source before the add
         if self.query_source == "gt":
             # the lookup in fp32, then the cast: the values of flax's table
@@ -185,6 +219,8 @@ class FUTRUnsupervised(nn.Module):
             action_query = self.query_embed(query.long()).to(dt) + pe
             query_stream = action_query
         elif self.query_source == "gaze":
+            if sp is not None and query.shape[1] == S:
+                query = gather_seq(query, sp)   # the batch cut it with the features
             q = self.gaze_cnn(torch.trunc(query.float()), query_len)
             pe_q = self.pe[:GAZE_STEPS]
             pe_q = pe_q / pe_q.norm(dim=-1, keepdim=True).clamp_min(1e-12)
@@ -195,7 +231,8 @@ class FUTRUnsupervised(nn.Module):
             action_query = query_stream = self.query_drop(self.depth_embed(query) + pe)
         else:
             # (S, B, C): attention across the batch, whose keys are the
-            # global batch's rows where a dp group splits them
+            # global batch's rows at the same frames where a dp group
+            # splits the rows (the per-row group: not the sp ranks)
             src_t = src.transpose(0, 1)
             all_t = gather_rows(src).transpose(0, 1)
             query_stream = self.l3_attention(src_t, all_t, all_t).transpose(0, 1) + pe
@@ -204,12 +241,16 @@ class FUTRUnsupervised(nn.Module):
                 src = src + query_stream
                 action_query = self.query_embed[None].to(dt).expand(B, -1, -1)
             else:
-                action_query = adaptive_avg_pool1d(query_stream, cfg.n_query)
+                action_query = adaptive_avg_pool1d(gather_seq(query_stream, sp), cfg.n_query)
         s_queries = self.query_source in ("gt", "depth")   # pooled after the decoder
         tgt_mask = src_pad_mask if s_queries else None
-        memory, hs = self.transformer(src, pos, action_query, src_pad_mask, tgt_mask)
+        memory, hs = self.transformer(src, pos, action_query, src_pad_mask, tgt_mask,
+                                      seq_queries=s_queries)
+        if s_queries:
+            hs = gather_seq(hs, sp)   # the rank's frames of the decoder's S rows
         if s_queries and src_pad_mask is not None:
-            hs = masked_adaptive_avg_pool1d(hs, cfg.n_query, (~src_pad_mask).sum(1))
+            lengths = (~gather_seq(src_pad_mask, sp)).sum(1)
+            hs = masked_adaptive_avg_pool1d(hs, cfg.n_query, lengths)
         elif self.query_source in ("gt", "depth", "gaze"):
             # gaze: the 8 decoder rows pool to n_query (identity at 8)
             hs = adaptive_avg_pool1d(hs, cfg.n_query)

@@ -43,6 +43,7 @@ from r3d_tpu_torch.ops.attention import (
     attention_kernel_eligible,
     flash_attention,
     flash_attention_dropout,
+    many_query_body,
 )
 from r3d_tpu_torch.ops.cross_attention import (
     cross_attention_native,
@@ -118,7 +119,8 @@ class Dropout(nn.Module):
     """Dropout in train mode at ``rate`` > 0, identity otherwise; ``cuts``
     where its input is a rank's slice (``dropout``). ``seq_dim``: the axis
     of its input that is the sequence, cut over sp where ``seq_axis()`` is
-    set (None: its input never is)."""
+    set (None: its input never is); a caller whose input is on the sequence
+    stream only at times says which with ``seq``."""
 
     def __init__(self, rate: float, seq_dim: Optional[int] = None):
         super().__init__()
@@ -127,10 +129,10 @@ class Dropout(nn.Module):
         self.cuts: Cuts = ()
         self.seq_dim = seq_dim
 
-    def forward(self, x):
+    def forward(self, x, seq: bool = True):
         if not self.training or self.rate == 0.0:
             return x
-        sp = seq_axis() if self.seq_dim is not None else None
+        sp = seq_axis() if seq and self.seq_dim is not None else None
         cuts = self.cuts if sp is None else self.cuts + ((self.seq_dim, sp),)
         return dropout(x, self.rate, self.generator, cuts)
 
@@ -171,11 +173,19 @@ class MultiheadAttention(nn.Module):
       weights in train mode.
 
     With a tp axis every route runs on the rank's H/tp heads (K6/K7 on its
-    C/tp channels, each head's channels together). With ``seq`` (q, k and
-    v on the sequence stream) and ``seq_axis()`` set, the routes are chosen
-    on the whole lengths, JAX's order (``r3d_tpu/models/layers.py:87-133``):
-    the ring without dropout where ``ring_attention_eligible``, else the
-    whole call on the inputs gathered over sp, the rank's rows kept.
+    C/tp channels, each head's channels together). With ``seq`` and
+    ``seq_axis()`` set, the routes are chosen on the whole lengths, JAX's
+    order (``r3d_tpu/models/layers.py:87-133``):
+
+    - ``seq=True`` (q, k and v on the sequence stream): the ring without
+      dropout where ``ring_attention_eligible``, else the whole call on the
+      inputs gathered over sp, the rank's rows kept;
+    - ``seq="q"`` (the rank's queries against whole keys: the S-query
+      decoder's cross-attention into the gathered memory): without dropout
+      the rank's query rows alone, where their route (kernel body
+      included) is the whole call's, so each row is computed as one
+      process computes it; else (the kernels' dropout hashes the query's
+      index) the whole call on the gathered queries, the rank's rows kept.
     """
 
     def __init__(self, dim: int, n_head: int, dropout: float = 0.0,
@@ -201,24 +211,40 @@ class MultiheadAttention(nn.Module):
             seed = (seed + TP_SEED_STRIDE * self.tp.rank) % INT32_MAX
         return seed
 
-    def forward(self, q, k, v, key_padding_mask=None, seq: bool = False):
+    def _route(self, Lq: int, Lk: int, Cl: int, H: int, rate: float, device) -> tuple:
+        """The route a call of ``Lq`` queries against ``Lk`` keys takes: the
+        native cross-attention, an attention kernel and its body (many
+        queries or few), or plain."""
+        if cross_attention_native_eligible(Lq, Lk, Cl, H, rate, device):
+            return ("native",)
+        if attention_kernel_eligible(Lq, Lk, Cl // H, device):
+            return ("kernel", many_query_body(self.dtype, Lq))
+        return ("plain",)
+
+    def forward(self, q, k, v, key_padding_mask=None, seq=False):
         B, Lq, C = q.shape
         Lk = k.shape[1]
         tp = self.tp
         rate = self.dropout if self.training else 0.0
         sp = seq_axis() if seq else None
-        ring = (sp is not None and rate == 0.0
-                and ring_attention_eligible(Lq * sp.size, Lk * sp.size, sp.size))
-        if sp is not None and not ring:
-            # the one-process call on the gathered sequence, this rank's rows kept
-            gq = gather_seq(q, sp)
-            gk = gq if k is q else gather_seq(k, sp)
-            gv = gk if v is k else gather_seq(v, sp)
-            mask = None if key_padding_mask is None else gather_seq(key_padding_mask, sp)
-            return cut_seq(self.forward(gq, gk, gv, mask), sp)
         D = C // self.n_head
         H = self.n_head // (1 if tp is None else tp.size)   # this rank's heads
         Cl = H * D
+        ring = (sp is not None and seq is True and rate == 0.0
+                and ring_attention_eligible(Lq * sp.size, Lk * sp.size, sp.size))
+        rows = (sp is not None and seq == "q" and rate == 0.0
+                and self._route(Lq, Lk, Cl, H, rate, q.device)
+                == self._route(Lq * sp.size, Lk, Cl, H, rate, q.device))
+        if sp is not None and not (ring or rows):
+            # the one-process call on the gathered sequence, this rank's rows kept
+            gq = gather_seq(q, sp)
+            if seq == "q":
+                gk, gv, mask = k, v, key_padding_mask
+            else:
+                gk = gq if k is q else gather_seq(k, sp)
+                gv = gk if v is k else gather_seq(v, sp)
+                mask = None if key_padding_mask is None else gather_seq(key_padding_mask, sp)
+            return cut_seq(self.forward(gq, gk, gv, mask), sp)
         scale = 1.0 / math.sqrt(D)
         if tp is not None:
             qi = copy_to(q, tp)
@@ -269,8 +295,8 @@ class FeedForward(nn.Module):
         self.tp = tp
         self.drop.cuts = () if tp is None else ((-1, tp),)
 
-    def forward(self, x, pad_mask=None):
-        h = self.drop(torch.relu(linear_in(copy_to(x, self.tp), self.linear1, self.dtype)))
+    def forward(self, x, pad_mask=None, seq: bool = True):
+        h = self.drop(torch.relu(linear_in(copy_to(x, self.tp), self.linear1, self.dtype)), seq)
         return row_parallel(h, self.linear2, self.dtype, self.tp)
 
 
@@ -318,7 +344,11 @@ class DecoderLayer(nn.Module):
     (memory + pos) keys and values, FFN, each added back through dropout.
     ``tgt_key_padding_mask`` masks padded query rows out of the
     self-attention (the S-query models, whose queries pad with the
-    stream) and, with ``moe``, out of the MoE FFN's queues."""
+    stream) and, with ``moe``, out of the MoE FFN's queues. ``seq``: the
+    queries are the sequence stream (the S-query models; under sp the
+    rank's frames): the self-attention takes ``seq=True``'s routes, the
+    cross-attention into the gathered memory ``seq="q"``'s, and the
+    dropouts, the FFN and MoE's queues take the rank's frames."""
 
     def __init__(self, dim: int, n_head: int, ffn_dim: int, dropout: float = 0.0,
                  dtype: torch.dtype = torch.float32, moe: Optional[tuple] = None):
@@ -329,18 +359,22 @@ class DecoderLayer(nn.Module):
         self.norm2 = LayerNorm(dim, dtype)
         self.norm3 = LayerNorm(dim, dtype)
         self.ffn = feed_forward(dim, ffn_dim, dropout, dtype, moe)
-        self.drop1 = Dropout(dropout)
-        self.drop2 = Dropout(dropout)
-        self.drop3 = Dropout(dropout)
+        self.drop1 = Dropout(dropout, seq_dim=1)
+        self.drop2 = Dropout(dropout, seq_dim=1)
+        self.drop3 = Dropout(dropout, seq_dim=1)
+        if isinstance(self.ffn, FeedForward):
+            self.ffn.drop.seq_dim = 1
 
     def forward(self, tgt, memory, pos, query_pos, memory_key_padding_mask=None,
-                tgt_key_padding_mask=None):
+                tgt_key_padding_mask=None, seq: bool = False):
         q = tgt + query_pos
-        tgt = self.norm1(tgt + self.drop1(self.self_attn(q, q, q, tgt_key_padding_mask)))
+        tgt = self.norm1(tgt + self.drop1(self.self_attn(q, q, q, tgt_key_padding_mask, seq=seq),
+                                          seq))
         mem = memory if pos is None else memory + pos
         q = tgt + query_pos
-        tgt = self.norm2(tgt + self.drop2(self.cross_attn(q, mem, mem, memory_key_padding_mask)))
-        return self.norm3(tgt + self.drop3(self.ffn(tgt, tgt_key_padding_mask)))
+        tgt = self.norm2(tgt + self.drop2(self.cross_attn(q, mem, mem, memory_key_padding_mask,
+                                                          seq="q" if seq else False), seq))
+        return self.norm3(tgt + self.drop3(self.ffn(tgt, tgt_key_padding_mask, seq=seq), seq))
 
 
 def sinusoidal_positional_encoding(seq_len: int, dim: int) -> torch.Tensor:

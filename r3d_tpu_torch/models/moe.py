@@ -28,11 +28,18 @@ back from them, which gives the same values (each slot holds one token, and
 each token's output one product a choice).
 
 On a mesh (``parallel.mesh``) JAX routes over the global batch: inside
-``split_rows`` T is the dp group's token count, ``cap`` is taken from it,
-and an assignment's queue place is its place in the global k-major,
-rank-major order (one all-reduce of each rank's [K, E] counts gives each
-rank its offsets); the balance term's f, P and token count are global
-sums. The experts shard over ep (each rank holds E/ep of them, its slots
+``split_rows`` T is the global token count, ``cap`` is taken from it, and
+an assignment's queue place is its place in the global k-major order of
+the global token index ``b * S + s`` (one all-reduce of each rank's
+per-row [B, K, E] counts gives each row its offset: every token of the
+rows on earlier dp coordinates, then, within its dp block, of its earlier
+rows on every sp rank, then of its own row on earlier sp ranks); the
+balance term's f, P and token count are global sums. Which group holds the
+tokens depends on the layer: the encoder's FFN (and the S-query decoder's)
+takes the sequence stream, cut over sp, so its tokens are per frame and
+the group is the dp x sp ranks; ``futr``'s decoder takes ``n_query`` rows
+that every sp rank holds whole (``seq=False``), so its group is the dp
+ranks alone, else each token would count sp times. The experts shard over ep (each rank holds E/ep of them, its slots
 of the global queues) and each expert's two linears over tp, as JAX's
 rules say; tokens are replicated over ep and tp, so each rank adds its
 experts' contributions and one sum over ep (and tp inside each expert)
@@ -48,8 +55,8 @@ import torch
 from torch import nn
 
 from r3d_tpu_torch.models.layers import Dropout
-from r3d_tpu_torch.parallel.mesh import global_sum, rank_table, split_group, split_size
-from r3d_tpu_torch.parallel.tensor import Axis, copy_to, reduce_from
+from r3d_tpu_torch.parallel.mesh import group_size, rank_table, row_group, seq_axis, split_group
+from r3d_tpu_torch.parallel.tensor import Axis, copy_to, reduce_from, sum_over
 
 
 class Router(nn.Linear):
@@ -119,11 +126,15 @@ class MoEFeedForward(nn.Module):
         to the lower expert (a stable descending sort)."""
         return torch.sort(probs, stable=True, dim=-1, descending=True).indices[:, :self.top_k]
 
-    def forward(self, x, pad_mask: Optional[torch.Tensor] = None):
+    def forward(self, x, pad_mask: Optional[torch.Tensor] = None, seq: bool = True):
+        """``seq``: ``x`` is the sequence stream (under sp the rank's
+        frames), not rows every sp rank holds whole."""
         B, L, C = x.shape
         T = B * L
         E, K = self.n_experts, self.top_k
-        W = split_size()
+        sp = seq_axis() if seq else None
+        group = split_group() if sp is not None else row_group()   # where the tokens lie
+        W = group_size(group)
         cap = min(int(math.ceil(K * T * W / E * self.capacity_factor)), T * W)
         xt = x.reshape(T, C)
         valid = (torch.ones(T, device=x.device) if pad_mask is None
@@ -136,17 +147,23 @@ class MoEFeedForward(nn.Module):
             gate = gate / gate.sum(-1, keepdim=True)
 
         # k-major queue positions over the global batch, pad tokens out of
-        # every queue: this rank's place within its own (choice, expert)
-        # runs, after every rank's earlier choices and, within a choice,
-        # the earlier ranks'
+        # every queue: a token's place within its row's (choice, expert)
+        # run, after every earlier choice and, within its choice, every
+        # token of a lower global index b * S + s
         expert = gate_idx.t().reshape(K * T)
         onehot = (torch.nn.functional.one_hot(expert, E)
-                  * valid.repeat(K).long()[:, None]).view(K, T, E)
-        table = rank_table(onehot.sum(1).double()).long()          # [W, K, E]
-        r = 0 if W == 1 else torch.distributed.get_rank(split_group())
-        totals = table.sum(0)
-        before = totals.cumsum(0) - totals + table[:r].sum(0)      # [K, E]
-        pos = ((torch.cumsum(onehot, 1) + before[:, None, :]) * onehot).sum(-1).reshape(K * T) - 1
+                  * valid.repeat(K).long()[:, None]).view(K, B, L, E)
+        n_sp = 1 if sp is None else sp.size
+        table = rank_table(onehot.sum(2).transpose(0, 1).double(), group).long()   # [W, B, K, E]
+        table = table.view(W // n_sp, n_sp, B, K, E)   # [dp, sp, rows, K, E]
+        r = 0 if W == 1 else torch.distributed.get_rank(group)
+        d, p = divmod(r, n_sp)
+        totals = table.sum((0, 1, 2))                             # [K, E]
+        rows = table.sum(1)                                       # [dp, B, K, E]: whole rows
+        before = (totals.cumsum(0) - totals + rows[:d].sum((0, 1))
+                  + rows[d].cumsum(0) - rows[d] + table[d, :p].sum(0))   # [B, K, E]
+        pos = ((torch.cumsum(onehot, 2) + before.transpose(0, 1)[:, :, None, :])
+               * onehot).sum(-1).reshape(K * T) - 1
         keep = (pos >= 0) & (pos < cap)
         # each kept assignment to this rank's experts gets its slot in
         # [E_local * cap]; the others point at a zero row past the end
@@ -166,10 +183,10 @@ class MoEFeedForward(nn.Module):
 
         self.aux = None
         if torch.is_grad_enabled():
-            n_valid = global_sum(valid.sum()).clamp_min(1.0)
-            f = global_sum((torch.nn.functional.one_hot(gate_idx[:, 0], E).float()
-                            * valid[:, None]).sum(0))
-            P = global_sum((probs * valid[:, None]).sum(0))
+            n_valid = sum_over(valid.sum(), group).clamp_min(1.0)
+            f = sum_over((torch.nn.functional.one_hot(gate_idx[:, 0], E).float()
+                          * valid[:, None]).sum(0), group)
+            P = sum_over((probs * valid[:, None]).sum(0), group)
             self.aux = E * ((f / n_valid) * (P / n_valid)).sum()
         return y.reshape(B, L, C).to(self.dtype)
 

@@ -16,10 +16,24 @@ source, no mask, no dropout), plus the sinusoidal encoding, pooled to
 Sequence parallelism (``parallel.mesh.seq_axis()`` set): the encoder runs
 on the rank's S/sp frames (ring attention, ``models/layers.py``), then the
 decoder's keys and values (``memory + pos``) and the memory's padding mask
-are gathered over sp (``gather_seq``, one collective each) and the decoder
-runs on the whole sequence, replicated on the sp ranks, as JAX's program
-computes it on each sp device; the memory handed back stays the rank's
-block, so the segmentation head runs on the rank's frames.
+are gathered over sp (``gather_seq``, one collective each). The decoder
+then runs one of two ways:
+
+- ``n_query`` queries (``seq_queries=False``): on the whole sequence,
+  replicated on the sp ranks, as JAX's program computes it on each sp
+  device;
+- S queries (``seq_queries=True``, the gt and depth sources): the queries
+  are the rank's frames, the self-attention on the sequence stream (the
+  ring, or the gathered call under dropout), the cross-attention the
+  rank's query rows against the gathered keys (``MultiheadAttention``'s
+  ``seq="q"``: the kernels run on the rank's rows, their route chosen as
+  one process's), and ``hs`` comes back as the rank's frames.
+
+L3 generation on sp: ``l3_attention`` is S queries against S keys on the
+sequence stream (``seq=True``), the encoding takes the rank's positions,
+and the pool to ``n_query`` rows runs on the stream gathered over sp. The
+memory handed back stays the rank's block, so the segmentation head runs on
+the rank's frames.
 """
 
 from __future__ import annotations
@@ -30,7 +44,7 @@ import torch
 from torch import nn
 
 from r3d_tpu_torch.parallel.mesh import seq_axis
-from r3d_tpu_torch.parallel.tensor import gather_seq
+from r3d_tpu_torch.parallel.tensor import gather_seq, seq_positions
 from r3d_tpu_torch.models.layers import (
     DecoderLayer,
     EncoderLayer,
@@ -73,11 +87,11 @@ class TransformerDecoder(nn.Module):
         self.norm = LayerNorm(dim, dtype)
 
     def forward(self, tgt, memory, pos, query_pos, memory_key_padding_mask=None,
-                tgt_key_padding_mask=None):
+                tgt_key_padding_mask=None, seq: bool = False):
         out = tgt
         for layer in self.layers:
             out = layer(out, memory, pos, query_pos, memory_key_padding_mask,
-                        tgt_key_padding_mask)
+                        tgt_key_padding_mask, seq)
         return self.norm(out)
 
 
@@ -103,23 +117,25 @@ class FUTRTransformer(nn.Module):
                                  persistent=False)
 
     def forward(self, src, pos, query_pos, src_key_padding_mask=None,
-                tgt_key_padding_mask=None):
+                tgt_key_padding_mask=None, seq_queries: bool = False):
         """``tgt_key_padding_mask`` [B, Q] (True = pad) masks padded query
-        rows out of the decoder self-attention."""
+        rows out of the decoder self-attention; ``seq_queries``: the
+        queries are the sequence stream (under sp the rank's frames, as
+        ``tgt_key_padding_mask`` and the returned ``hs`` are)."""
         memory = src if self.encoder is None else self.encoder(src, pos, src_key_padding_mask)
+        sp = seq_axis()
         if query_pos is None:
             if not hasattr(self, "l3_attention"):
                 raise ValueError("query_pos=None needs a transformer built with l3_queries=True")
-            src_l3 = self.l3_attention(memory, src, src)
-            query_pos = adaptive_avg_pool1d(src_l3 + self.pe[:src.shape[1]].to(src_l3.dtype),
-                                            self.n_query)
+            src_l3 = self.l3_attention(memory, src, src, seq=True)
+            pe = seq_positions(self.pe, src.shape[1], sp).to(src_l3.dtype)
+            query_pos = adaptive_avg_pool1d(gather_seq(src_l3 + pe, sp), self.n_query)
         keys, key_pos, key_mask = memory, pos, src_key_padding_mask
-        sp = seq_axis()
         if sp is not None:
             # the decoder reads memory + pos alone: one gather
             keys = gather_seq(memory if pos is None else memory + pos, sp)
             key_pos = None
             key_mask = None if key_mask is None else gather_seq(key_mask, sp)
         hs = self.decoder(query_pos.new_zeros(query_pos.shape), keys, key_pos,
-                          query_pos, key_mask, tgt_key_padding_mask)
+                          query_pos, key_mask, tgt_key_padding_mask, seq_queries)
         return memory, hs

@@ -239,6 +239,12 @@ def many_query(q) -> bool:
     return q.dtype == torch.bfloat16 and q.shape[2] >= MANY_QUERY_MIN
 
 
+def many_query_body(dtype: torch.dtype, Lq: int) -> bool:
+    """Whether a CUDA call of ``Lq`` queries in ``dtype`` takes a many-query
+    body (``many_query``, ``fp32_many_query``)."""
+    return Lq >= (MANY_QUERY_MIN if dtype == torch.bfloat16 else FP32_MANY_QUERY_MIN)
+
+
 def fp32_many_query(q) -> bool:
     """Whether a CUDA call on ``q`` [B, H, Lq, D] takes the fp32 many-query
     bodies, forward and backward: fp32 with at least ``FP32_MANY_QUERY_MIN``

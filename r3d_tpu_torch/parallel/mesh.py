@@ -20,15 +20,25 @@ parameters, and the collectives are written out:
   ``r3d_tpu/parallel/mesh.py:224-247``, ``r3d_tpu/train/loop.py:955-990``);
   ``n_query``-sized arrays stay whole, and a bucket whose S sp does not
   divide runs whole on every sp rank;
-- what mixes rows: inside ``split_rows(group, seq)`` the BatchNorm
+- what mixes rows: inside ``split_rows(group, seq, rows)`` the BatchNorm
   statistics, the fusers' activation rankings, MoE's routing and balance
   term, the unsupervised loop's loss terms and the self-attention source's
   attention across the batch are taken over the global batch by
   ``global_sum`` (an all-reduce that carries gradients), ``gather_rows``
   and ``rank_table``, and the duration loss divides by the global count of
-  valid slots (``global_count``); the group is the dp x sp ranks of this
-  rank's (ep, tp) coordinate where both cut the batch (``rows_group``), and
-  ``seq_axis()`` tells the layers that their S axis is this sp rank's block;
+  valid slots (``global_count``); ``seq_axis()`` tells the layers that their
+  S axis is this sp rank's block. Each tensor on an sp path is one of two
+  kinds, and each kind has its group:
+
+  - per-frame (the rank's S/sp frames of its rows): reduced over the dp x
+    sp ranks of this rank's (ep, tp) coordinate where both cut the batch
+    (``rows_group``, ``split_group()``: ``global_sum``, ``global_mean``,
+    ``global_count``);
+  - per-row (whole, the same on the sp ranks of a dp coordinate: a pooled
+    query, a row's cluster means, a gathered frame stream): reduced and
+    gathered over the dp group alone (``row_group()``: ``gather_rows``,
+    ``rank_table`` by default), else each row counts sp times and a
+    gather stacks frame blocks as rows;
 - the parameters: ``TP_RULES`` is JAX's ``_TP_RULES``, applied to each
   parameter's flax path (``convert.flax_path``); ``place_model`` cuts each
   rank's slice of the parameters the rules shard and points the layers
@@ -47,7 +57,7 @@ parameters, and the collectives are written out:
 
 ``make_mesh`` returns a ``DeviceMesh`` with JAX's dims ``("dp", "ep",
 "tp", "sp", "pp")``; pp above 1 is ROADMAP item A14's next slice and
-raises, and so does sp for the families ``sp_refusal`` names. JAX's
+raises. JAX's
 module-wide active mesh has no counterpart: its Pallas wrappers read it to
 shard_map themselves, while here the trainer and the predictor hold their
 own mesh, the layers their own axes, and only ``split_rows`` is scoped
@@ -77,6 +87,7 @@ DIMS = ("dp", "ep", "tp", "sp", "pp")
 FSDP_MIN_ELEMS = 8192
 
 _SPLIT_GROUP: Optional[dist.ProcessGroup] = None
+_ROW_GROUP: Optional[dist.ProcessGroup] = None
 _SEQ_AXIS: Optional[Axis] = None
 # {id(mesh): this rank's dp x sp group}, made by ``make_mesh`` where both exceed 1
 _ROWS_GROUPS: Dict[int, dist.ProcessGroup] = {}
@@ -129,36 +140,6 @@ def check_mesh(mesh) -> None:
     """Raise for what is not ported: pp above 1."""
     if mesh is not None:
         _refuse_axes(mesh_sizes(mesh))
-
-
-# the families whose S-axis work is attention, token-wise layers and
-# reductions: the sequence cut runs them (ROADMAP A14's sp slice)
-SP_MODELS = ("futr_fusion_bn", "futr_fusion_grad", "futr_fusion_vary", "futr_fusion_nox", "afft",
-             "futr", "futr_baseline")
-SP_LOOPS = ("proposed_depth", "futr")
-
-
-def sp_refusal(config, mesh) -> None:
-    """Raise ``NotImplementedError`` (A14) where ``mesh`` cuts the sequence
-    (sp above 1) for a family the sp slice does not run: the query family
-    (S queries against S keys, the self-attention, depth and gaze sources,
-    temp2/temp3, L3 generation) and its loops, MoE (routing over the dp x
-    sp tokens), the rnn/cnn/tcn baselines (recurrences and dilated
-    convolutions across the cut)."""
-    if axis_size(mesh, "sp") == 1:
-        return
-    m, loop = config.model, config.train.loop
-    why = None
-    if m.model not in SP_MODELS:
-        why = f"model {m.model!r}"
-    elif loop not in SP_LOOPS:
-        why = f"the {loop!r} loop"
-    elif m.moe_experts > 0:
-        why = "MoE FFNs (moe_experts > 0)"
-    if why is not None:
-        raise NotImplementedError(f"{why} on an sp mesh is not ported yet: sequence "
-                                  "parallelism runs the fusion models and futr (ROADMAP queue "
-                                  "A, item A14)")
 
 
 def axis_size(mesh, ax: str) -> int:
@@ -279,22 +260,39 @@ def take_seq(batch: Dict[str, Any], seq: Optional[slice], axis: int = 1) -> Dict
 # ---------------------------------------------------------------- the rows' group
 
 @contextlib.contextmanager
-def split_rows(group: Optional[dist.ProcessGroup], seq: Optional[Axis] = None):
+def split_rows(group: Optional[dist.ProcessGroup], seq: Optional[Axis] = None,
+               rows: Optional[dist.ProcessGroup] = None):
     """Within the block, the batch's rows are split over ``group`` (None:
     this process holds the whole batch): ``global_sum``, ``global_mean``
     and ``global_count`` reduce over it. ``seq``: the batch's S axis is
-    this rank's block on that sp axis (``seq_axis``)."""
-    global _SPLIT_GROUP, _SEQ_AXIS
-    prev = _SPLIT_GROUP, _SEQ_AXIS
-    _SPLIT_GROUP, _SEQ_AXIS = group, seq
+    this rank's block on that sp axis (``seq_axis``), and ``rows`` is the
+    group its rows alone are split over (the dp group, None where dp does
+    not cut them: ``row_group``); without ``seq`` that is ``group``."""
+    global _SPLIT_GROUP, _ROW_GROUP, _SEQ_AXIS
+    prev = _SPLIT_GROUP, _ROW_GROUP, _SEQ_AXIS
+    _SPLIT_GROUP, _ROW_GROUP, _SEQ_AXIS = group, group if seq is None else rows, seq
     try:
         yield
     finally:
-        _SPLIT_GROUP, _SEQ_AXIS = prev
+        _SPLIT_GROUP, _ROW_GROUP, _SEQ_AXIS = prev
+
+
+def split_mesh(mesh, rows: bool, seq: bool):
+    """``split_rows`` for a batch of ``mesh`` whose rows are cut over dp
+    (``rows``) and whose sequence is cut over sp (``seq``)."""
+    return split_rows(rows_group(mesh, rows, seq), axis(mesh, "sp") if seq else None,
+                      dp_group(mesh) if rows else None)
 
 
 def split_group() -> Optional[dist.ProcessGroup]:
+    """The group a per-frame tensor reduces over (None: no group)."""
     return _SPLIT_GROUP
+
+
+def row_group() -> Optional[dist.ProcessGroup]:
+    """The group a per-row tensor reduces over: the dp ranks that hold
+    the other rows at this sp rank's frames (None: no group)."""
+    return _ROW_GROUP
 
 
 def seq_axis() -> Optional[Axis]:
@@ -323,7 +321,9 @@ def global_mean(x: torch.Tensor, dims: Tuple[int, ...]) -> torch.Tensor:
 def global_count(count: torch.Tensor) -> Optional[torch.Tensor]:
     """For a loss ``sum / count`` whose rows are split: ``max(global count,
     1) / W``, so that the ranks' mean of ``local sum / that`` is the global
-    ``sum / max(count, 1)``. None outside ``split_rows``."""
+    ``sum / max(count, 1)``. None outside ``split_rows``. A per-row count
+    (the same on the sp ranks) comes out the same: it and W both scale by
+    sp."""
     g = _SPLIT_GROUP
     if g is None:
         return None
@@ -332,27 +332,27 @@ def global_count(count: torch.Tensor) -> Optional[torch.Tensor]:
     return c.clamp_min(1.0) / dist.get_world_size(g)
 
 
-def split_size() -> int:
-    """The ranks the rows are split over (1 outside ``split_rows``)."""
-    g = _SPLIT_GROUP
-    return 1 if g is None else dist.get_world_size(g)
+def group_size(group: Optional[dist.ProcessGroup]) -> int:
+    """The ranks of ``group`` (1 for None)."""
+    return 1 if group is None else dist.get_world_size(group)
 
 
-def gather_rows(x: torch.Tensor) -> torch.Tensor:
-    """The global batch of which ``x`` holds this rank's rows (axis 0),
-    each rank's rows in a zero-filled tensor summed over the group: exact,
-    and a gradient reaches each rank's rows from every rank's loss (as
-    ``global_sum``'s does). ``x`` itself outside ``split_rows``."""
-    g = _SPLIT_GROUP
+def gather_rows(x: torch.Tensor, group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
+    """The global batch of which ``x`` holds this rank's rows (axis 0), over
+    the per-row group (``row_group()``, or ``group``): each rank's rows in a
+    zero-filled tensor summed over the group, exact, and a gradient reaches
+    each rank's rows from every rank's loss (as ``global_sum``'s does).
+    ``x`` itself where there is no group."""
+    g = _ROW_GROUP if group is None else group
     if g is None:
         return x
     return gather_block(x, g, dist.get_rank(g), dist.get_world_size(g))
 
 
-def rank_table(x: torch.Tensor) -> torch.Tensor:
-    """[W, *x.shape]: every rank's ``x`` (no gradient), in rank order;
-    ``x[None]`` outside ``split_rows``."""
-    return gather_rows(x.detach()[None])
+def rank_table(x: torch.Tensor, group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
+    """[W, *x.shape]: every rank's ``x`` (no gradient), in rank order over
+    the per-row group (or ``group``); ``x[None]`` where there is none."""
+    return gather_rows(x.detach()[None], group)
 
 
 # ------------------------------------------------------------------------- FSDP

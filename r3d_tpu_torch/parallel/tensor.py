@@ -153,6 +153,15 @@ def cut_seq(x: torch.Tensor, axis: Optional[Axis], dim: int = 1) -> torch.Tensor
     return x.narrow(dim, axis.rank * n, n)
 
 
+def seq_positions(table: torch.Tensor, S: int, axis: Optional[Axis], dim: int = 0
+                  ) -> torch.Tensor:
+    """The rows of a position ``table`` for a stream of ``S`` frames along
+    ``dim``: the first S, or on the sp ``axis`` this rank's own range of
+    them, ``[r S, (r+1) S)``."""
+    start = 0 if axis is None else axis.rank * S
+    return table.narrow(dim, start, S)
+
+
 def copy_to(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
     return x if axis is None else _Copy.apply(x, axis.group)
 

@@ -97,13 +97,20 @@ rankings and the duration count reduce over it, the effective rank's Gram
 matrices sum over sp alone, the weighted CE reads the whole ``past_label``
 row (gathered, no gradient), the gradients average over dp x sp (FSDP's
 shards over sp after its reduce-scatter), and the epoch's per-frame counts
-sum over dp x sp while its per-query counts (``cls_*``, ``weight_acc_*``)
-sum over dp alone. A bucket sp does not divide runs whole on every sp rank.
-The sp ranks of a dp coordinate share its dropout streams.
+(``seg_*``, ``l3_*``) sum over dp x sp while its per-query counts
+(``cls_*``, ``weight_acc_*``) sum over dp alone. The unsupervised loop's
+terms keep the one-process values: the focal L3 loss and the correctness
+gate's mean are means over equal frame blocks, the cluster loss sums its
+per-segment statistics over sp (``losses/temporal.py``), SupCon's first
+``supcon_samples`` frames are gathered over sp, then over the dp group, in
+the global batch's order, and the cached routes number each row's segments
+on its query labels gathered over sp, then keep the rank's frames, as the
+host route numbers the whole row and cuts. A bucket sp does not divide runs
+whole on every sp rank. The sp ranks of a dp coordinate share its dropout
+streams.
 
 Not ported yet, and raising ``NotImplementedError`` naming its ROADMAP
-item: ``rng_impl`` (A10); the pp mesh axis and sp for the families
-``parallel.mesh.sp_refusal`` names (A14).
+item: ``rng_impl`` (A10); the pp mesh axis (A14).
 """
 
 from __future__ import annotations
@@ -138,6 +145,7 @@ from r3d_tpu_torch.models import (
     model_needs_query,
 )
 from r3d_tpu_torch.models.fuser import mark_sticky
+from r3d_tpu_torch.models.futr_unsupervised import check_gaze_cut
 from r3d_tpu_torch.models.layers import FixedDropout, set_generators
 from r3d_tpu_torch.models.moe import moe_aux
 from r3d_tpu_torch.ops.effective_rank import effective_rank, effective_rank_loss
@@ -155,16 +163,14 @@ from r3d_tpu_torch.parallel.mesh import (
     global_mean,
     grad_group,
     is_writer,
-    rows_group,
     seq_axis,
     seq_sharding,
     sp_group,
-    sp_refusal,
-    split_rows,
+    split_mesh,
     take_rows,
     take_seq,
 )
-from r3d_tpu_torch.parallel.tensor import gather_seq
+from r3d_tpu_torch.parallel.tensor import cut_seq, gather_seq
 from r3d_tpu_torch.serving import resolve_device
 from r3d_tpu_torch.train.optim import make_optimizer
 from r3d_tpu_torch.train.state import TrainState
@@ -178,7 +184,7 @@ ACCURACY_GATE_LOOPS = ("futr", "tcn")   # train.py:63, train_tcn.py:44
 _SUM_METRICS = ("_correct", "_total", "_sum", "_cnt")
 # the sums over frames: on a cut sequence each sp rank counts its own; the
 # other sums count queries, which every sp rank holds alike
-_FRAME_METRICS = ("seg_correct", "seg_total")
+_FRAME_METRICS = ("seg_correct", "seg_total", "l3_correct", "l3_total")
 
 
 def triangular_warmup(epoch: int, start: int, peak: int, end: int) -> float:
@@ -226,7 +232,7 @@ class Trainer:
             raise ValueError("grad_accum and steps_per_dispatch are mutually exclusive: one "
                              "stacks microbatches per update, the other updates per step")
         check_mesh(mesh)
-        sp_refusal(config, mesh)
+        check_gaze_cut(config, mesh)
         self.mesh = mesh
         self.dp, self.rank = dp_size(mesh), dp_rank(mesh)
         self.sp = axis(mesh, "sp")
@@ -273,8 +279,7 @@ class Trainer:
         prev = self._cut
         self._cut = (rows is not None, seq is not None)
         try:
-            with split_rows(rows_group(self.mesh, *self._cut),
-                            self.sp if seq is not None else None):
+            with split_mesh(self.mesh, *self._cut):
                 yield
         finally:
             self._cut = prev
@@ -476,15 +481,17 @@ class Trainer:
         if tr.supcon_weight > 0.0 and "supcon" in outputs:
             # the commented "soft label loss" (train_unsupervised.py:314-319):
             # SupCon over the unit-norm per-frame embeddings against their L3
-            # labels, the first supcon_samples frames of the global batch
-            # (on a dp group mostly the first ranks' rows, gathered with
-            # their gradient), ramped to the warmup peak
-            sc = gather_rows(outputs["supcon"])
+            # labels, the first supcon_samples frames of the global batch in
+            # its (row, frame) order: each row made whole over sp, then the
+            # dp group's rows (mostly the first ranks'), gathered with their
+            # gradient; ramped to the warmup peak
+            sp = seq_axis()
+            sc = gather_rows(gather_seq(outputs["supcon"], sp))
             feats = sc.reshape(-1, sc.shape[-1])
             n = min(tr.supcon_samples, feats.shape[0])
             feats = feats[:n]
             feats = feats / feats.norm(dim=-1, keepdim=True).clamp_min(1e-6)
-            labels = gather_rows(batch["query_label"]).reshape(-1)[:n]
+            labels = gather_rows(gather_seq(batch["query_label"], sp)).reshape(-1)[:n]
             loss_sc = supcon_loss(feats[:, None, :], labels, temperature=tr.supcon_temperature)
             ramp = float(min(np.float32(1.0), np.float32(epoch)
                              / np.float32(max(tr.warmup_loss_epochs[0], 1))))
@@ -610,11 +617,15 @@ class Trainer:
 
     def _device_seg_ids(self, batch):
         """``_with_seg_ids`` of a batch on the card (the JAX twin's
-        ``segment_ids_from_labels_jnp``, ``r3d_tpu/train/loop.py:782-800``)."""
+        ``segment_ids_from_labels_jnp``, ``r3d_tpu/train/loop.py:782-800``):
+        on a cut sequence, of each row's query labels gathered over sp, the
+        rank's frames kept, as the host route numbers the whole row."""
         if self.config.train.loop != "unsupervised":
             return batch
-        return dict(batch, seg_ids=segment_ids_from_labels_torch(
-            batch["query_label"], self.config.train.max_segments))
+        sp = seq_axis()
+        ids = segment_ids_from_labels_torch(gather_seq(batch["query_label"], sp),
+                                            self.config.train.max_segments)
+        return dict(batch, seg_ids=cut_seq(ids, sp))
 
     def make_cached_eval_fn(self, cache):
         """cached_eval(state, data, idx [K, B], S) -> metrics summed over K:

@@ -70,18 +70,22 @@ def test_launch_env_reads_torchrun():
 
 
 @pytest.mark.parametrize("axis", ["sp", "pp"])
-def test_other_axes_raise_a14(axis):
-    """pp is not ported; sp is, for the fusion models and futr, and an sp
-    mesh refuses the other families (the layout of a 2-rank sp
-    ``DeviceMesh`` stands in for one: building one takes the ranks)."""
+def test_pp_raises_a14_and_sp_takes_every_family(axis):
+    """pp is not ported; sp is, for every family: an sp mesh refuses none
+    (the layout of a 2-rank sp ``DeviceMesh`` stands in for one: building
+    one takes the ranks; ``tests/test_torch_parallel_sp_families.py`` runs
+    them)."""
     if axis == "pp":
         with pytest.raises(NotImplementedError, match="A14"):
             pm.make_mesh(pp=2)
         return
+    from r3d_tpu_torch.models.futr_unsupervised import check_gaze_cut
+
     sp2 = types.SimpleNamespace(mesh_dim_names=pm.DIMS, mesh=torch.empty(1, 1, 1, 2, 1))
-    with pytest.raises(NotImplementedError, match="A14"):
-        pm.sp_refusal(pt_config.get_config("darai"), sp2)
-    pm.sp_refusal(pt_config.get_config("utkinects"), sp2)
+    assert not hasattr(pm, "sp_refusal")
+    for name in ("darai", "darai_gaze", "50salads_proposed", "utkinects"):
+        pm.check_mesh(sp2)
+        check_gaze_cut(pt_config.get_config(name), sp2)
 
 
 def test_no_group_computes_as_without_one():

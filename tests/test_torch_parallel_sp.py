@@ -32,8 +32,9 @@ the one-process port and the JAX package's sp mesh.
   held to ``fit`` by ``tests/test_torch_device_cache.py`` and
   ``tests/test_torch_dispatch.py``).
 - No process: the sequence cut follows JAX's rule, the device cache
-  gathers a rank's frames alone, and the families outside the slice raise
-  ``NotImplementedError`` naming A14 on an sp mesh (pp on any).
+  gathers a rank's frames alone, and pp raises ``NotImplementedError``
+  naming A14. Every other family runs on sp:
+  ``tests/test_torch_parallel_sp_families.py`` holds them.
 """
 
 import dataclasses
@@ -313,30 +314,6 @@ def _sp_mesh(sp=2, pp=1):
     return types.SimpleNamespace(mesh_dim_names=pm.DIMS, mesh=torch.empty(1, 1, 1, sp, pp))
 
 
-REFUSED = {
-    "futr_proposed": ("futr_proposed", dict(model="futr_proposed", loop="proposed")),
-    "moe": ("futr", dict(moe=dict(moe_experts=4, moe_top_k=2))),
-    "self_attention": ("futr", dict(model="futr_unsupervised")),
-    "unsupervised_loop": ("futr", dict(loop="unsupervised")),
-    "rnn": ("rnn", dict(model="rnn", loop="unimodal", n_query=NQ)),
-    "tcn": ("tcn", dict(model="tcn", loop="tcn", n_query=NQ)),
-}
-
-
-@pytest.mark.parametrize("family", list(REFUSED))
-def test_families_outside_the_slice_refuse_sp(family):
-    from torch_parallel_ranks import futr_config
-
-    _, kw = REFUSED[family]
-    cfg = futr_config(**kw)
-    with pytest.raises(NotImplementedError, match="A14"):
-        Trainer(cfg, 19, device="cpu", mesh=_sp_mesh())
-    with pytest.raises(NotImplementedError, match="A14"):
-        Predictor(cfg, build_model(cfg.model, 19), 19, device="cpu", mesh=_sp_mesh())
-    # the same family on a mesh without sp is not refused for sp
-    pm.sp_refusal(cfg, None)
-
-
 def test_pp_still_raises():
     cfg = setup_config("sp_fusion")
     for target in (lambda m: Trainer(cfg, 6, device="cpu", mesh=m),
@@ -344,4 +321,3 @@ def test_pp_still_raises():
                                        mesh=m)):
         with pytest.raises(NotImplementedError, match="A14"):
             target(_sp_mesh(sp=1, pp=2))
-    pm.sp_refusal(cfg, _sp_mesh())   # the slice's families run on sp

@@ -127,13 +127,14 @@ def fusion_config(model="futr_fusion_bn", fuser_depth=1, dtype="float32", config
 
 
 def futr_config(model="futr", loop="futr", config=pt_config, n_query=20, moe=None,
-                buckets=(64, 128), model_extra=None, **train_kw):
+                buckets=(64, 128), model_extra=None, queries=False, **train_kw):
     """``tests/test_torch_train.py``'s ``futr`` set-up (features only, 20
-    queries); ``futr_proposed`` in the ``proposed`` loop with a query stream
-    as ``tests/test_torch_proposed_fit.py`` has it; the baselines in their
-    loops; ``moe`` the MoE fields of the model, ``model_extra`` others."""
+    queries); ``futr_proposed`` (or any model with ``queries``) with a query
+    stream as ``tests/test_torch_proposed_fit.py`` has it; the baselines in
+    their loops; ``moe`` the MoE fields of the model, ``model_extra``
+    others."""
     m = config
-    query = model == "futr_proposed"
+    query = model == "futr_proposed" or queries
     model_kw = dict(model=model, hidden_dim=32, n_head=4, n_query=NQ if query else n_query,
                     input_dim=12, n_decoder_layers=2, max_pos_len=max(128, *buckets),
                     seg_excludes_none=True, dropout=0.0, **(moe or {}), **(model_extra or {}))
@@ -187,8 +188,38 @@ SP_SETUPS = {
 }
 
 
+# the sequence-parallel families (``tests/test_torch_parallel_sp_families.py``),
+# each in the 128 bucket (the ring's smallest on sp 2) over videos of 200-256
+# frames (``long_``: observed at 0.2-0.5 they cross the cut at frame 64): the
+# query models (the unsupervised loop with SupCon over the first 300 frames
+# of the global batch, which cross the sp and the dp cut), MoE with the
+# encoder on at a capacity that drops assignments, the baselines
+UNSUP = dict(loop="unsupervised", l3_pad_idx=QUERY_CLASSES, supcon_weight=0.5,
+             supcon_samples=300, warmup_loss_epochs=(1, 3))
+SP_FAMILY_SETUPS = {
+    "sp_proposed": ("long_query", dict(model="futr_proposed", loop="proposed", buckets=(128,))),
+    "sp_unsup": ("long_query", dict(model="futr_unsupervised", queries=True, buckets=(128,),
+                                    **UNSUP)),
+    "sp_temp2": ("long_query", dict(model="futr_unsupervised_temp2", queries=True,
+                                    buckets=(128,), **UNSUP)),
+    "sp_temp3": ("long_query", dict(model="futr_unsupervised_temp3", queries=True,
+                                    buckets=(128,), **UNSUP)),
+    "sp_depth": ("long_query", dict(model="futr_unsupervised_depth", queries=True,
+                                    buckets=(128,), **UNSUP)),
+    "sp_moe": ("long_futr", dict(buckets=(128,), model_extra=ENCODER, moe=dict(
+        moe_experts=4, moe_top_k=2, moe_capacity_factor=0.5))),
+    "sp_rnn": ("long_baseline", dict(model="rnn", loop="unimodal", n_query=NQ, buckets=(128,))),
+    "sp_cnn": ("long_baseline", dict(model="cnn", loop="unimodal", n_query=NQ, buckets=(128,))),
+    "sp_tcn": ("long_baseline", dict(model="tcn", loop="tcn", n_query=NQ, buckets=(128,))),
+}
+# the epoch each family's steps run in: the unsupervised loop's epoch 2 (a
+# sticky one), where the cluster and SupCon terms weigh in
+SP_FAMILY_EPOCH = {n: 2 if kw.get("loop") == "unsupervised" else 0
+                   for n, (_, kw) in SP_FAMILY_SETUPS.items()}
+
+
 def _setup(name):
-    for table in (SETUPS, TP_SETUPS, SP_SETUPS):
+    for table in (SETUPS, TP_SETUPS, SP_SETUPS, SP_FAMILY_SETUPS):
         if name in table:
             return table[name]
     raise KeyError(name)
@@ -202,17 +233,20 @@ def setup_config(name, config=pt_config, **train_kw):
 
 def source_for(name, Source=SyntheticSource):
     kind = _setup(name)[0]
+    lengths = (200, 256) if kind.startswith("long_") else (60, 120)
+    kind = kind[len("long_"):] if kind.startswith("long_") else kind
     if kind == "fusion":
-        return Source(n_videos=6, n_actions=5, vid_len_range=(60, 120), input_dim=12,
+        return Source(n_videos=6, n_actions=5, vid_len_range=lengths, input_dim=12,
                       depth_shape=(6, 5), seed=0)
     if kind == "query":
-        return Source(n_videos=6, n_actions=5, vid_len_range=(60, 120), input_dim=12,
+        return Source(n_videos=6, n_actions=5, vid_len_range=lengths, input_dim=12,
                       n_query_classes=QUERY_CLASSES, seed=3)
-    return Source(n_videos=6, n_actions=19, vid_len_range=(60, 120), input_dim=12, seed=1)
+    return Source(n_videos=6, n_actions=19, vid_len_range=lengths, input_dim=12, seed=1)
 
 
 def loader_for(name, src, shuffle, seed=0, batch_size=4, Loader=BucketedLoader):
     kind, kw = _setup(name)
+    kind = kind[len("long_"):] if kind.startswith("long_") else kind
     buckets = kw.get("buckets", (64, 128))
     nq = 20 if kind == "futr" else NQ
     fn, n = src.make_example_fn(OBS, 1, nq)
@@ -252,16 +286,35 @@ def darai_config(root, **train_kw):
             warmup_loss_epochs=(1, 3), supcon_weight=0.5, supcon_samples=64), **train_kw)))
 
 
+def gaze_config(root):
+    """``darai_gaze`` over the dataset at ``root``, as ``darai_config`` sizes
+    ``darai``: its gaze stream padded to the 64 bucket, where sp 2 cuts it."""
+    base = pt_config.get_config("darai_gaze")
+    return base.replace(
+        model=dataclasses.replace(base.model, hidden_dim=32, n_head=4, n_query=NQ,
+                                  input_dim=12, max_pos_len=64, dropout=0.0),
+        data=dataclasses.replace(base.data, data_root=root, sample_rate=2, seq_buckets=(64,)),
+        train=dataclasses.replace(base.train, batch_size=4, epochs=2, warmup_epochs=1,
+                                  min_train_batch=0))
+
+
+def dataset_batches(name, root, n=1):
+    """(config, class count, the first ``n`` batches of 4 rows) of ``darai``
+    or ``sp_gaze`` (``darai_gaze``) over the dataset at ``root``."""
+    from r3d_tpu_torch.data import datasets as pt_ds
+
+    cfg = darai_config(root) if name == "darai" else gaze_config(root)
+    src = pt_ds.build_source(cfg.data, "train_split.txt")
+    it = iter(pt_ds.build_loader(src, cfg.data, 4, NQ, shuffle=False))
+    return cfg, src.n_class, [next(it) for _ in range(n)]
+
+
 def inputs(name, root=None):
     """(config, class count, the first batch of 4 rows) of ``name``, or of
-    ``darai`` over the dataset at ``root``."""
-    if name == "darai":
-        from r3d_tpu_torch.data import datasets as pt_ds
-
-        cfg = darai_config(root)
-        src = pt_ds.build_source(cfg.data, "train_split.txt")
-        return cfg, src.n_class, next(iter(pt_ds.build_loader(src, cfg.data, 4, NQ,
-                                                              shuffle=False)))
+    ``darai`` or ``sp_gaze`` over the dataset at ``root``."""
+    if name in ("darai", "sp_gaze"):
+        cfg, n_class, batches = dataset_batches(name, root)
+        return cfg, n_class, batches[0]
     src = source_for(name)
     return setup_config(name), src.n_class, next(iter(loader_for(name, src, False)))
 
@@ -303,14 +356,14 @@ def fixed_dropouts_off():
     """The models built inside have the TCN's and the sources' hard-coded
     dropouts at rate 0 (read at construction): the ranks of a dp group draw
     their own masks."""
-    from r3d_tpu_torch.models import futr_unsupervised
+    from r3d_tpu_torch.models import futr_unsupervised as fu
 
-    saved = baselines.TCN_DROPOUT, futr_unsupervised.SRC_DROPOUT
-    baselines.TCN_DROPOUT = futr_unsupervised.SRC_DROPOUT = 0.0
+    saved = baselines.TCN_DROPOUT, fu.SRC_DROPOUT, fu.DEPTH_QUERY_DROPOUT
+    baselines.TCN_DROPOUT = fu.SRC_DROPOUT = fu.DEPTH_QUERY_DROPOUT = 0.0
     try:
         yield
     finally:
-        baselines.TCN_DROPOUT, futr_unsupervised.SRC_DROPOUT = saved
+        baselines.TCN_DROPOUT, fu.SRC_DROPOUT, fu.DEPTH_QUERY_DROPOUT = saved
 
 
 def step_arm(mesh, name, state_dict=None, root=None, epoch=0, fsdp=False):
@@ -359,10 +412,18 @@ def step_arms(mesh, names, state_dicts):
 
 
 def synthetic_videos(src):
-    """The synthetic videos as ``build_cache`` takes them."""
-    return [{"features": v["features"], "depth": v["depth"],
+    """The synthetic videos as ``build_cache`` takes them (their query ids
+    where the source has a query stream)."""
+    out = []
+    for v in src.videos:
+        d = {"features": v["features"],
              "label_idx": np.array([src.actions_dict[l] for l in v["labels"]])}
-            for v in src.videos]
+        if "depth" in v:
+            d["depth"] = v["depth"]
+        if src.query_dict is not None:
+            d["query_idx"] = np.array([src.query_dict[q] for q in v["query"]])
+        out.append(d)
+    return out
 
 
 def hybrid_of(src, n_cached=3, buckets=(64, 128)):
@@ -391,19 +452,21 @@ MIN_ELEMS = 256
 
 
 def fit_arm(mesh, route, fsdp=False, ckpt_dir=None, foreach=None, name="futr_fusion_bn",
-            **train_kw):
+            loader_seed=3, **train_kw):
     """A 2-epoch fit of ``name`` (a fusion set-up, ``futr_fusion_bn`` by
     default) on ``route`` (``fit``, ``fit_cached`` or ``fit_hybrid``) from
     the spread-gamma init: (log lines, final state dict, step, this rank's
     and the whole elements of the parameters and moments of at least
     ``MIN_ELEMS``, the optimizer's whole state, the sharded and the whole
     parameters' names). ``foreach=True``: AdamW's foreach lists, its
-    default on the card."""
+    default on the card; ``loader_seed``: the host loader's shuffle seed
+    (the fit's, 1, draws ``fit_cached``'s batch order)."""
     cfg = setup_config(name, **train_kw)
     cfg = cfg.replace(mesh=dataclasses.replace(cfg.mesh, fsdp=fsdp))
     src = source_for(name)
     trainer = Trainer(cfg, src.n_class, device="cpu", mesh=mesh)
-    state = trainer.init_state(5, init_state_dict(name))
+    with fixed_dropouts_off():
+        state = trainer.init_state(5, init_state_dict(name))
     if foreach is not None:
         state.optimizer.defaults["foreach"] = foreach
         for group in state.optimizer.param_groups:
@@ -415,11 +478,12 @@ def fit_arm(mesh, route, fsdp=False, ckpt_dir=None, foreach=None, name="futr_fus
     val = loader_for(name, src, False)
     buckets = cfg.data.seq_buckets
     if route == "fit":
-        trainer.fit(state, loader_for(name, src, True, seed=3), val, seed=1, log=log.append,
-                    checkpointer=ckpt)
+        trainer.fit(state, loader_for(name, src, True, seed=loader_seed), val, seed=1,
+                    log=log.append, checkpointer=ckpt)
     elif route == "fit_cached":
+        qpad = None if src.query_dict is None else QUERY_CLASSES
         cache = dc.build_cache(synthetic_videos(src), OBS, 1, NQ, src.pad_idx, src.n_class,
-                               buckets, device="cpu")
+                               buckets, query_pad_idx=qpad, device="cpu")
         trainer.fit_cached(state, cache, val, seed=1, log=log.append, checkpointer=ckpt,
                            val_cache=cache)
     else:
@@ -605,7 +669,9 @@ def one_step_state(mesh, state_dict, name=TP_NAME, fsdp=False):
     """``name``'s train state after one ``train_step`` of its first batch."""
     cfg, n_class, batch = inputs(name)
     trainer = Trainer(cfg, n_class, device="cpu", mesh=mesh)
-    state = shard_state(trainer.init_state(5, state_dict), mesh, fsdp=fsdp)
+    with fixed_dropouts_off():
+        state = shard_state(trainer.init_state(5, state_dict), mesh, fsdp=fsdp)
+    batch = trainer._with_seg_ids(batch)
     trainer.train_step(state, batch, 0)
     return trainer, state, batch
 
@@ -684,8 +750,11 @@ def dp_tp_arm(mesh, state_dict):
 SP_STEPS = 2
 
 
-def sp_batches(name, n=SP_STEPS):
-    """``name``'s first ``n`` host batches."""
+def sp_batches(name, n=SP_STEPS, root=None):
+    """``name``'s first ``n`` host batches (``darai`` and ``sp_gaze`` over the
+    dataset at ``root``)."""
+    if name in ("darai", "sp_gaze"):
+        return dataset_batches(name, root, n)[2]
     it = iter(loader_for(name, source_for(name), False))
     return [next(it) for _ in range(n)]
 
@@ -713,30 +782,34 @@ def attention_routes(seen):
         layers.ring_attention, layers.cut_seq = saved
 
 
-def sp_steps_arm(mesh, name, state_dict, fsdp=False, dropout=0.0, steps=SP_STEPS):
+def sp_steps_arm(mesh, name, state_dict, fsdp=False, dropout=0.0, steps=SP_STEPS, root=None,
+                 fixed_off=False, epoch=0):
     """``steps`` ``train_step``s of ``name``'s first batches from
     ``state_dict`` (FSDP where asked; dropout and fuser dropout at
-    ``dropout``), after the trainer seeds dropout: the losses, the whole
-    state after (the BN statistics with it), this rank's own tensors and
-    the sequence-parallel attention routes taken."""
-    cfg, n_class, _ = inputs(name)
+    ``dropout``; the hard-coded dropouts at 0 with ``fixed_off``) in
+    ``epoch``, after the trainer seeds dropout: the losses, the whole state
+    after (the BN statistics with it), this rank's own tensors and the
+    sequence-parallel attention routes taken."""
+    cfg, n_class, _ = inputs(name, root)
     if dropout:
         cfg = cfg.replace(model=dataclasses.replace(cfg.model, dropout=dropout,
                                                     fuser_dropout=dropout))
     trainer = Trainer(cfg, n_class, device="cpu", mesh=mesh)
-    state = trainer.init_state(5, state_dict)
+    with fixed_dropouts_off() if fixed_off else contextlib.nullcontext():
+        state = trainer.init_state(5, state_dict)
     if mesh is not None:
         state = shard_state(state, mesh, fsdp=fsdp)
     trainer._seed_dropout(state, seed=1, start_epoch=0)
     losses, routes = [], set()
+    batches = sp_batches(name, steps, root)
     with attention_routes(routes):
-        for b in sp_batches(name, steps):
-            metrics = trainer.train_step(state, b, 0)
+        for b in batches:
+            metrics = trainer.train_step(state, trainer._with_seg_ids(b), epoch)
             losses.append(trainer._to_host({"loss": metrics["loss"]})["loss"])
     own = {k: (v.to_local() if is_sharded(v) else v).detach().clone()
            for k, v in state.model.state_dict().items()}
     return dict(losses=losses, state=_sd(state.model), own=own, routes=sorted(routes),
-                seq=trainer._seq(sp_batches(name, 1)[0]["features"].shape[1]))
+                seq=trainer._seq(batches[0]["features"].shape[1]))
 
 
 SP_NAMES = ("sp_fusion", "sp_futr")
@@ -901,3 +974,205 @@ def mha_arm(mesh):
 
 def ring_group(mesh):
     return dict(ring=ring_arm(mesh), mha=mha_arm(mesh))
+
+
+# ---------------------------------------- sequence parallelism: the families
+
+SP_FAMILIES = tuple(SP_FAMILY_SETUPS) + ("sp_gaze",)
+SP_JAX_FAMILIES = ("sp_proposed", "sp_unsup", "sp_moe", "sp_rnn")   # held to JAX's sp mesh too
+SP_FAMILY_MESHES = {"sp_unsup": dict(dp=1, tp=2, sp=2), "sp_moe": dict(dp=1, ep=2, sp=2)}
+SP_FAMILY_DROPOUT = ("sp_proposed", "sp_depth")   # tp 2 x sp 2, dropout 0.1 and the fixed ones
+# (set-up, route, keywords) on dp 2 x sp 2, each held to one process's run of it
+SP_FAMILY_FITS = (("sp_unsup", "fit", dict(loader_seed=1)), ("sp_unsup", "fit_cached", {}),
+                  ("sp_proposed", "fit", dict(grad_accum=2)),
+                  ("sp_proposed", "fit", dict(steps_per_dispatch=2)))
+SP_FAMILY_CKPTS = ("sp_proposed", "sp_unsup")
+
+
+def family_steps(mesh, name, state_dict, root, dropout=0.0):
+    """``sp_steps_arm`` of a family in its epoch (``SP_FAMILY_EPOCH``), the
+    hard-coded dropouts off; with ``dropout`` in epoch 0 with them on."""
+    return sp_steps_arm(mesh, name, state_dict, root=root, fixed_off=not dropout,
+                        dropout=dropout, epoch=0 if dropout else SP_FAMILY_EPOCH.get(name, 0))
+
+
+def l3_generation_arm(mesh):
+    """``FUTRTransformer`` with one encoder layer and L3 query generation
+    (no model of the registry reaches it) on a [4, 128, 32] stream whose
+    padding crosses the sp cut, on ``mesh`` (None: one process) inside its
+    split: the loss sum(hs * c) + sum(memory * c') (hs, whole on every sp
+    rank, weighed 1/sp) backward; the rank's rows of hs, its block of the
+    memory and of the source's gradient, and the parameters' gradients
+    summed over the ranks."""
+    from r3d_tpu_torch.models.transformer import FUTRTransformer
+    from r3d_tpu_torch.parallel.mesh import axis_size, seq_sharding, split_mesh
+
+    torch.manual_seed(0)
+    model = FUTRTransformer(32, 4, 1, 64, n_encoder_layers=1, l3_queries=True, n_query=NQ,
+                            max_pos_len=128)
+    g = torch.Generator().manual_seed(1)
+    src, pos, c_mem = (torch.randn(4, 128, 32, generator=g) for _ in range(3))
+    c_hs = torch.randn(4, NQ, 32, generator=g)
+    mask = torch.zeros(4, 128, dtype=torch.bool)
+    mask[0, 50:] = True
+    mask[2, 70:] = True
+    rows = batch_sharding(mesh, 4) or slice(None)
+    seq = (seq_sharding(mesh, 128) if mesh is not None else None) or slice(None)
+    x = src[rows, seq].clone().requires_grad_()
+    with split_mesh(mesh, mesh is not None, mesh is not None):
+        memory, hs = model(x, pos[rows, seq], None, mask[rows, seq])
+    loss = (hs * c_hs[rows]).sum() / axis_size(mesh, "sp") + (memory * c_mem[rows, seq]).sum()
+    loss.backward()
+    grads = {}
+    for n, p in model.named_parameters():
+        grads[n] = p.grad.clone()
+        if mesh is not None:
+            dist.all_reduce(grads[n])
+    return dict(rows=rows, seq=seq, hs=hs.detach(), memory=memory.detach(), dx=x.grad,
+                grads=grads)
+
+
+def traps_arm(mesh):
+    """The first-order mistakes of sp, each on a [4, 16, ...] batch cut over
+    ``mesh`` (None: one process), inside its split: the cluster loss with
+    segments that cross the cut (its value and the predictions' gradient
+    over the ranks' losses), the supcon gather's frame order, MoE's output
+    and balance term at a capacity that drops assignments on cut tokens and
+    on rows every sp rank holds whole, the self-attention source's keys,
+    and the positions of the rank's frames."""
+    from r3d_tpu_torch.losses.temporal import temporal_cluster_loss
+    from r3d_tpu_torch.models import init_weights
+    from r3d_tpu_torch.models.futr import positions
+    from r3d_tpu_torch.models.moe import MoEFeedForward
+    from r3d_tpu_torch.parallel.mesh import gather_rows, seq_axis, seq_sharding, split_mesh
+    from r3d_tpu_torch.parallel.tensor import gather_seq
+
+    rng = np.random.RandomState(0)
+    B, S = 4, 16
+    preds = torch.from_numpy(rng.randn(B, S, 6).astype(np.float32))
+    seg = np.repeat(np.arange(8), rng.randint(1, 5, 8))[:S]
+    ids = torch.from_numpy(np.stack([np.roll(seg, i) for i in range(B)]).astype(np.int64))
+    ids[1, 12:] = -1
+    ids[3] = torch.from_numpy(np.minimum(np.arange(S) // 9, 1))   # two clusters across the cut
+    x_tok = torch.from_numpy(rng.randn(B, S, 32).astype(np.float32))
+    x_row = torch.from_numpy(rng.randn(B, 5, 32).astype(np.float32))
+    pad = torch.zeros(B, S, dtype=torch.bool)
+    pad[2, 11:] = True
+    table = torch.from_numpy(rng.randn(1, 64, 8).astype(np.float32))
+    moe = init_weights(MoEFeedForward(32, 64, 4, 2, capacity_factor=0.5),
+                       torch.Generator().manual_seed(3))
+    rows = batch_sharding(mesh, B) or slice(None)
+    seq = (seq_sharding(mesh, S) if mesh is not None else None) or slice(None)
+    p = preds[rows, seq].clone().requires_grad_()
+    out = dict(rows=rows, seq=seq)
+    with split_mesh(mesh, mesh is not None, mesh is not None):
+        loss = temporal_cluster_loss(p, ids[rows, seq], 8)
+        loss.backward()
+        out.update(cluster=float(loss.detach()), cluster_grad=p.grad)
+        frame_ids = torch.arange(B * S, dtype=torch.float32).view(B, S, 1)[rows, seq]
+        out["supcon_order"] = gather_rows(gather_seq(frame_ids, seq_axis())).reshape(-1)
+        out["moe_tokens"] = moe(x_tok[rows, seq], pad[rows, seq]).detach()
+        out["moe_tokens_aux"] = float(moe.aux.detach())
+        out["moe_rows"] = moe(x_row[rows], seq=False).detach()
+        out["moe_rows_aux"] = float(moe.aux.detach())
+        out["keys"] = gather_rows(x_tok[rows, seq])
+        out["positions"] = positions(table, x_tok[rows, seq].shape[1])
+    return out
+
+
+def family_checkpoint_arm(mesh, name, state_dict, ckpt_in, ckpt_out):
+    """``checkpoint_arm`` of ``name`` on ``mesh``."""
+    return checkpoint_arm(mesh, state_dict, ckpt_in, ckpt_out, name=name)
+
+
+def families_group(mesh, init, root, ckpts):
+    """The 4-rank arms of ``tests/test_torch_parallel_sp_families.py`` on one
+    group: each family's steps on dp 2 x sp 2, the self-attention source on
+    tp 2 x sp 2 and MoE on ep 2 x sp 2, the dropout arms on tp 2 x sp 2, L3
+    generation and the traps on dp 2 x sp 2, the fit routes, and the
+    checkpoints of one process restored there (``ckpts``: {name: (in,
+    out)})."""
+    dpsp = make_mesh(dp=2, sp=2)
+    tpsp = make_mesh(dp=1, tp=2, sp=2)
+    out = {n: dict(dpsp=family_steps(dpsp, n, init[n], root)) for n in SP_FAMILIES}
+    for n, sizes in SP_FAMILY_MESHES.items():
+        out[n]["other"] = family_steps(make_mesh(**sizes), n, init[n], root)
+    for n in SP_FAMILY_DROPOUT:
+        out[n]["dropout"] = family_steps(tpsp, n, init[n], root, dropout=0.1)
+    out["l3_generation"] = l3_generation_arm(dpsp)
+    out["traps"] = traps_arm(dpsp)
+    out["fits"] = [fit_arm(dpsp, route, name=n, **kw) for n, route, kw in SP_FAMILY_FITS]
+    out["checkpoints"] = {n: family_checkpoint_arm(dpsp, n, init[n], *ckpts[n])
+                          for n in SP_FAMILY_CKPTS}
+    return out
+
+
+FAMILY_CLI = {   # config -> the dataset's (train, val) videos
+    "50salads_proposed": ((300, 340, 380, 360), (330, 370)),
+    "breakfast_proposed": ((150, 160, 170, 180, 140, 190), (175, 155)),
+    "darai": (((80, 90), (100,), (70, 75), (95,), (85,)), ((85, 60), (90,))),
+}
+
+
+def family_cli_config(name, root, save_dir):
+    """``tests/test_torch_proposed_cli.py``'s and ``tests/test_torch_darai_cli.py``'s
+    port config of ``name`` (hidden 32, fp32, dropout 0; ``darai``'s
+    hard-coded source dropout stays on) over the dataset at ``root``."""
+    base = pt_config.get_config(name)
+    proposed = name != "darai"
+    data = (dict(seq_buckets=(32, 64), feature_dtype="float32") if proposed
+            else dict(sample_rate=2, seq_buckets=(64,)))
+    train = dict(warmup_loss_epochs=(1, 3), batch_size=8) if not proposed else {}
+    return base.replace(
+        data=dataclasses.replace(base.data, data_root=root, **data),
+        model=dataclasses.replace(base.model, hidden_dim=32, n_head=4, input_dim=12,
+                                  max_pos_len=64, dropout=0.0, compute_dtype="float32"),
+        train=dataclasses.replace(base.train, epochs=2, warmup_epochs=0, seeds=(1,),
+                                  save_dir=save_dir, **train))
+
+
+@contextlib.contextmanager
+def sweep_outputs(chunks):
+    """Within: each sweep chunk's outputs (``Predictor._run``'s, every row
+    of the chunk on the host) appended to ``chunks``."""
+    from r3d_tpu_torch.eval.predict import Predictor
+
+    saved = Predictor._run
+
+    def run(self, *a, **kw):
+        out = saved(self, *a, **kw)
+        chunks.append(out)
+        return out
+
+    Predictor._run = run
+    try:
+        yield
+    finally:
+        Predictor._run = saved
+
+
+def family_cli_arm(mesh, roots, tmp):
+    """For each ``FAMILY_CLI`` config over its dataset in ``roots``:
+    ``cli.run.main`` train_eval with ``--mesh_sp 2`` on the group the harness
+    formed (the CLI's mesh: dp 1, sp 2), then the sweep of the one-process
+    run's checkpoint (under ``tmp/<name>/one``) on that mesh, host collate
+    and the cached route, with each chunk's outputs."""
+    from r3d_tpu_torch.cli import run as pt_run
+
+    sp = make_mesh(dp=1, sp=2)
+    out = {}
+    for name, root in roots.items():
+        cfg = family_cli_config(name, root, f"{tmp}/{name}/sp")
+        cfg = cfg.replace(mesh=dataclasses.replace(cfg.mesh, sp=2))
+        log = []
+        res = pt_run.main(cfg, mode="train_eval", log=log.append, device="cpu",
+                          results_save_path=f"{tmp}/{name}/sp_results")
+        sweep, chunks = {}, {}
+        for cache in (False, True):
+            c = family_cli_config(name, root, f"{tmp}/{name}/one")
+            c = c.replace(train=dataclasses.replace(c.train, device_cache=cache))
+            chunks[cache] = []
+            with sweep_outputs(chunks[cache]):
+                sweep[cache] = pt_run.predict(c, log=lambda *a: None, device="cpu", mesh=sp)
+        out[name] = dict(log=log, results=res, sweep=sweep, chunks=chunks)
+    return out
