@@ -4,7 +4,8 @@ plain versions.
     python3 chip_smoke.py          # from the root of a checkout, on a CUDA host
     python3 chip_smoke.py --cards  # the CLI on every card of a host of two or more,
                                    # against one card (phase 21's second arm, and on
-                                   # dp x tp 2 and dp x sp 2, phases 22-24), alone
+                                   # dp x tp 2, dp x sp 2 and dp x pp 2, phases 22-25),
+                                   # alone
 
 Phases, each of which fails the run (non-zero exit) if it fails:
 
@@ -321,7 +322,27 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    rank), routes, step times and peak allocated bytes beside one
    process's. ``--cards`` also runs 50salads_proposed and darai through
    the CLI under ``torchrun ... --fsdp --mesh_sp 2`` against one card;
-25. print one ``{"kernels": [...]}`` line (with each kernel's launches in
+25. pipeline parallelism (A14, ``pipeline_parallel``): two gloo ranks on
+   the one card on dp 1 x pp 2, each rank one decoder layer, run
+   ``PP_ARMS``, each against the same steps in one process on the card
+   within the fit bounds (GPipe's steps through ``pp_twin``, one process
+   drawing the pipelined decoder's per-(layer, microbatch) dropout; the
+   1F1B steps against ``make_accum_step`` over the same M microbatches),
+   the ranks' whole states equal: 50salads at full width under
+   ``R3D_CROSS_NATIVE=1`` in the 512 and 3100 buckets, GPipe with dropout
+   0.1 and off (bf16 K3/K4/K5 at 512, K6/K7 at 3100), 1F1B at M = 2 and
+   4, and its eval forwards (K3, K6); utkinects with 2 decoder layers,
+   1F1B at M = 2 in epoch 0 and the sticky epoch (K1 and K2 in the pre
+   stage, fp32 K3-K5 at 8 queries in each stage); a utkinects session on
+   dp 2 and a 50salads session on pp 2 against one process. Each rank's
+   launches must be the twin's share: its own layer's over M microbatches
+   (1F1B's forward twice before the last stage: the forward tick and the
+   recomputation), the pre's all; step times and peak allocated bytes
+   beside one process's. ``--cards`` also runs the utkinects CLI with 2
+   decoder layers under ``torchrun ... --mesh_pp 2`` on dp 2 x pp 2, GPipe
+   (``--fsdp``) and 1F1B (one microbatch on the host route), against one
+   card. Each phase's seconds print on a line of their own;
+26. print one ``{"kernels": [...]}`` line (with each kernel's launches in
    the CLI phases' training and sweeps and in the cached epoch beside those
    of the other phases; rows for bf16 K3, K4 and K5 at Lq = Lk = 3,100 and
    2,000 with the launches of the two proposed configs' training and
@@ -329,7 +350,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    encoder's launches; rows for K1 and K2 with the outer residual, with the
    grad variant's launches, and for fp32 K3, K4 and K5 at Lq = Lk = 512 and
    2,000, with the encoder fit's launches and the serving launches of that
-   bucket, the launches of phases 15-24 in their own columns and the
+   bucket, the launches of phases 15-25 in their own columns and the
    relative error of phase 22's tp-shape checks) and, as
    the last line,
    ``{"ok": true, "device": {...}}``.
@@ -5161,7 +5182,9 @@ ENCODER_WITNESS_SEEDS = (SEED, SEED + 1, SEED + 2)
 # the encoder fit's videos: 16 of 2,100-3,400 frames, whose windows at 0.15
 # (315-510 rows) fill two batches of 8 in the 512 bucket and at 0.5
 # (1,050-1,700) two in the 2000 bucket
-ENCODER_FIT = dict(n_videos=16, vid_len_range=(2100, 3400), obs=(0.15, 0.5))
+# 8 videos: one batch of 8 a bucket and epoch (16 made two; their synthetic
+# depth frames, made on the host, were most of the phase's time)
+ENCODER_FIT = dict(n_videos=8, vid_len_range=(2100, 3400), obs=(0.15, 0.5))
 
 
 @contextlib.contextmanager
@@ -5351,11 +5374,11 @@ def encoder(kernels, loaders):
     del session
     want = {"epoch 0 train": (att.DROPOUT_KERNEL_MANY.name, att.BWD_KERNEL_MANY.name),
             "epoch 1 train": (att.KERNEL_MANY.name, att.BWD_KERNEL_MANY.name)}
-    fit_counts = train(cfg, state_dict, kernels, train_loaders(cfg, **ENCODER_FIT), want)
+    fit_loaders = train_loaders(cfg, **ENCODER_FIT)
+    fit_counts = train(cfg, state_dict, kernels, fit_loaders, want)
     print(f"encoder fit: launches {fit_counts}")
     train_step_on_card_and_cpu(cfg, state_dict, one_batch(loaders[1], 256))
-    fit_loader = train_loaders(cfg, **ENCODER_FIT)[1]
-    train_breakdown(cfg, state_dict, fit_loader, min_len=1024, label=" (encoder, 2000)")
+    train_breakdown(cfg, state_dict, fit_loaders[1], min_len=1024, label=" (encoder, 2000)")
 
     # futr (50salads widths, bf16) with the encoder: a 3100-bucket step
     s_base = get_config("50salads")
@@ -5906,7 +5929,7 @@ def serve_and_print(session, kernels, cfg, videos, label, card):
 
 def serving_deploy(kernels, card, state_dict):
     """The rest of serving (A13) at full width. ``utkinects`` from the seeded
-    init in four sessions, float, ``quantize="int8"``, ``input_dtype="uint8"``
+    init in four sessions (``max_batch`` 4), float, ``quantize="int8"``, ``input_dtype="uint8"``
     and both: every count set to 0, requests through ``ServingQueue`` in the
     256-2,000 buckets (each chunk must launch K1's blend route, the 256/512
     chunks fp32 K3), each session against the same session on the CPU
@@ -5921,10 +5944,13 @@ def serving_deploy(kernels, card, state_dict):
     requests, equal to the live session bit for bit, K1's blend route and
     fp32 K3 launched, and a 512- and a 2000-bucket chunk timed live against
     exported in turns. Then ``50salads`` (bf16, one request at a time:
-    ``max_batch=1``, 5 programs) with ``R3D_CROSS_NATIVE=1`` exported,
+    ``max_batch=1``, 4 programs) with ``R3D_CROSS_NATIVE=1`` exported,
     loaded and served in the 256-3,100 buckets, equal to its live session
-    bit for bit, bf16 K3 at 256/512 and bf16 K6 at 1,024/3,100.
+    bit for bit, bf16 K3 at 256/512 and bf16 K6 at 1,024/3,100. Each
+    session's buckets are the served ones (``DEPLOY_SERVE``,
+    ``SALADS_DEPLOY``), the utkinects sessions' ``max_batch`` 4.
     Returns (the live sessions' counts, the exported sessions' counts)."""
+    import dataclasses
     import os
     import shutil
 
@@ -5938,7 +5964,11 @@ def serving_deploy(kernels, card, state_dict):
     from r3d_tpu_torch.ops.quant import quantized_nbytes
     from r3d_tpu_torch.serving import ExportedSession, InferenceSession, dequantize_depth
 
-    cfg = get_config("utkinects")
+    # the served buckets alone, max_batch 4 (no bucket gets more than 4
+    # requests): 12 programs an artifact, where the config's 5 buckets and
+    # max_batch 8 made 20, about 2 s each to export
+    base = get_config("utkinects")
+    cfg = base.replace(data=dataclasses.replace(base.data, seq_buckets=tuple(DEPLOY_SERVE)))
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), DEPLOY_DIR)
     shutil.rmtree(root, ignore_errors=True)
     rng = np.random.default_rng(SEED + 9)
@@ -5963,7 +5993,7 @@ def serving_deploy(kernels, card, state_dict):
         sessions, chunk_out, live_results, live_lat = {}, {}, {}, {}
         chunk = {}
         for kind, kw in DEPLOY_KINDS.items():
-            session = InferenceSession(cfg, state_dict, N_CLASS, max_batch=8, **kw)
+            session = InferenceSession(cfg, state_dict, N_CLASS, max_batch=4, **kw)
             label = f"utkinects {kind} session"
             live_lat[kind], counts, per_bucket, live_results[kind] = serve_and_print(
                 session, kernels, cfg, videos, label, card)
@@ -6043,10 +6073,12 @@ def serving_deploy(kernels, card, state_dict):
         before = os.environ.get("R3D_CROSS_NATIVE")
         os.environ["R3D_CROSS_NATIVE"] = "1"
         try:
-            scfg = get_config("50salads")
+            sbase = get_config("50salads")
+            scfg = sbase.replace(data=dataclasses.replace(sbase.data,
+                                                          seq_buckets=tuple(SALADS_DEPLOY)))
             model = init_weights(build_model(scfg.model, SALADS_CLASSES),
                                  torch.Generator().manual_seed(SEED))
-            # one request at a time: the artifact's programs are the 5 of batch 1
+            # one request at a time: the artifact's programs are the 4 of batch 1
             live = InferenceSession(scfg, model.state_dict(), SALADS_CLASSES, max_batch=1)
             del model
             svideos = {S: make_videos(rng, lens, scfg) for S, lens in SALADS_DEPLOY.items()}
@@ -6109,6 +6141,10 @@ SP_RING_LOG_RTOL = 1e-2     # a logged number over max(1, |it|), N cards with th
                             # algorithms, so the trained states drift apart within the fit bounds;
                             # read 7.1e-3 on 4 H100s (700 W), a sticky validation loss 6.736
                             # vs 6.784, while the same arm without the encoder read 0
+PP_LOG_RTOL = SP_RING_LOG_RTOL   # a logged number over max(1, |it|), N cards on dp x pp 2 vs
+                            # one card: on the CLI phase's dataset dp 2 alone drifts from one
+                            # process (gloo on the CPU, dropout off: a sticky validation loss
+                            # 8.623 vs 8.590, as on dp 2 x pp 2), where dp 4 reads 0 apart
 SP_RING_MOC_TOL = 1e-2      # a MoC entry of the one-card checkpoint swept on N cards where the
                             # S-query decoder's self-attention is the ring (fp32 scores of bf16
                             # q, k, v) vs one card's bf16 many-query K3: outputs about 1e-2 apart
@@ -6194,9 +6230,23 @@ DP_KERNELS = ("fused_bn_blend_tail", "fused_safuser_tail", "fused_tail_bwd", "fl
               "flash_attention_dropout", "attention_bwd")   # K1 (both routes), K2, K3, K4, K5
 
 
+_DP_BATCHES = {}   # the data's fields -> the batches: the parallel phases share them
+
+
 def _dp_batches(cfg):
     """``DP_STEPS`` host batches of 8 windows of 257-512 rows (the 512
-    bucket), cycling over the distinct ones the utkinects loader has."""
+    bucket), cycling over the distinct ones the utkinects loader has; made
+    once for each layout of the data (its synthetic depth frames are made on
+    the host)."""
+    m, d = cfg.model, cfg.data
+    key = (m.input_dim, m.n_query, tuple(d.depth_shape), tuple(d.seq_buckets), d.feature_dtype,
+           d.depth_features_dir is not None)
+    if key not in _DP_BATCHES:
+        _DP_BATCHES[key] = _make_dp_batches(cfg)
+    return list(_DP_BATCHES[key])
+
+
+def _make_dp_batches(cfg):
     from r3d_tpu_torch.data.pipeline import pad_batch
 
     _, loader, _ = train_loaders(cfg)
@@ -6413,7 +6463,7 @@ def _log_numbers(lines):
 
 
 def cli_under_torchrun(n_ranks, argv, work, here, card, tp=1, sp=1, encoder=0,
-                       ring_decoder=False):
+                       ring_decoder=False, pp=1, pp_flags=()):
     """The CLI (train, checkpoints, sweep) under ``torchrun --standalone
     --nproc_per_node n_ranks ... --fsdp`` (and ``--mesh_tp tp``, ``--mesh_sp
     sp``: a mesh of n_ranks / (tp sp) by tp by sp; ``encoder``: both CLIs
@@ -6421,7 +6471,9 @@ def cli_under_torchrun(n_ranks, argv, work, here, card, tp=1, sp=1, encoder=0,
     over NCCL's point-to-point calls, its logged numbers then held to
     ``SP_RING_LOG_RTOL``; ``ring_decoder``: the config's S-query decoder
     takes the ring on sp, its logged numbers held so too and its sweep's
-    MoC to ``SP_RING_MOC_TOL``) against the plain CLI on one card (in this process). One rank keeps utkinects' dropout 0.1
+    MoC to ``SP_RING_MOC_TOL``; ``pp``: ``--mesh_pp pp`` and ``pp_flags``,
+    without ``--fsdp`` under ``--pp_schedule 1f1b``, which refuses it)
+    against the plain CLI on one card (in this process). One rank keeps utkinects' dropout 0.1
     (rank 0 draws one process's masks): the MoC tables and every checkpoint
     tensor equal, bit for bit. More ranks run with dropout off (their masks
     are not one process's): the same log lines with their numbers within
@@ -6440,23 +6492,24 @@ def cli_under_torchrun(n_ranks, argv, work, here, card, tp=1, sp=1, encoder=0,
     dropout = None if one else 0.0
     mode = "train_eval" if one else "train"
     mesh_flags = ((["--mesh_tp", str(tp)] if tp > 1 else [])
-                  + (["--mesh_sp", str(sp)] if sp > 1 else []))
+                  + (["--mesh_sp", str(sp)] if sp > 1 else [])
+                  + (["--mesh_pp", str(pp)] if pp > 1 else []) + list(pp_flags))
+    fsdp = [] if "1f1b" in pp_flags else ["--fsdp"]
     runs = {}
     for tag, n in (("plain", None), ("torchrun", n_ranks)):
         save, res = os.path.join(work, f"cli_{tag}"), os.path.join(work, f"results_{tag}")
         flags = argv + ["--mode", mode, "--model_save_path", save, "--results_save_path", res]
-        lines, dt = _cli(flags + (["--fsdp"] + mesh_flags if n else []), here, n, dropout,
-                         encoder)
+        lines, dt = _cli(flags + (fsdp + mesh_flags if n else []), here, n, dropout, encoder)
         runs[tag] = (lines, saved_tensors(save), dt, res)
     lines = runs["torchrun"][0]
-    mesh = (f"mesh: {{'dp': {n_ranks // (tp * sp)}, 'ep': 1, 'tp': {tp}, 'sp': {sp}, "
-            f"'pp': 1}}")
-    for need in (mesh, "fsdp: state sharded over dp"):
+    mesh = (f"mesh: {{'dp': {n_ranks // (tp * sp * pp)}, 'ep': 1, 'tp': {tp}, 'sp': {sp}, "
+            f"'pp': {pp}}}")
+    for need in (mesh,) + (("fsdp: state sharded over dp",) if fsdp else ()):
         if need not in lines:
             raise AssertionError(f"data_parallel: torchrun CLI on {n_ranks} ranks: no {need!r}")
     want, got = runs["plain"][1], runs["torchrun"][1]
-    label = (f"the CLI (2 epochs) under torchrun --standalone --nproc_per_node {n_ranks} --fsdp "
-             f"{' '.join(mesh_flags)} "
+    label = (f"the CLI (2 epochs) under torchrun --standalone --nproc_per_node {n_ranks} "
+             f"{' '.join(fsdp + mesh_flags)} "
              f"{runs['torchrun'][2]:.2f} s, plain {runs['plain'][2]:.2f} s (wall time, the "
              f"former with its processes' start)")
     if one:
@@ -6472,8 +6525,9 @@ def cli_under_torchrun(n_ranks, argv, work, here, card, tp=1, sp=1, encoder=0,
     numbers = [_log_numbers(runs[t][0]) for t in ("plain", "torchrun")]
     ring = sp > 1 and (encoder > 0 or ring_decoder)
     moc_tol = SP_RING_MOC_TOL if sp > 1 and ring_decoder else DP_MOC_TOL
-    scale = (lambda b: max(1.0, abs(b))) if ring else (lambda b: 1.0)
-    log_tol = SP_RING_LOG_RTOL if ring else DP_LOG_TOL
+    relative = ring or pp > 1
+    scale = (lambda b: max(1.0, abs(b))) if relative else (lambda b: 1.0)
+    log_tol = SP_RING_LOG_RTOL if ring else PP_LOG_RTOL if pp > 1 else DP_LOG_TOL
     log_err = max((abs(a - b) / scale(b) for x, y in zip(*numbers) for a, b in zip(x, y)),
                   default=0.0)
     heads = [[l.split(":")[0] for l in runs[t][0] if l.startswith(("Epoch", "Best"))]
@@ -6501,7 +6555,7 @@ def cli_under_torchrun(n_ranks, argv, work, here, card, tp=1, sp=1, encoder=0,
                           for t in ("plain", "torchrun")]):
             print(f"dp [{card}]:   one card: {a}\n dp [{card}]:   {n_ranks} cards: {b}")
     print(f"dp [{card}]: {label}, dropout off: logged numbers max|diff|"
-          f"{' / max(1, |number|)' if ring else ''} {log_err:.3e} (tol {log_tol}), lines alike {heads[0] == heads[1]}, {len(bad)} checkpoint tensors "
+          f"{' / max(1, |number|)' if relative else ''} {log_err:.3e} (tol {log_tol}), lines alike {heads[0] == heads[1]}, {len(bad)} checkpoint tensors "
           f"outside the fit bounds at lr {lr} {bad[:4]}; the one-process checkpoint swept on "
           f"{n_ranks} ranks {sweeps['torchrun'][1]:.2f} s, plain {sweeps['plain'][1]:.2f} s: "
           f"max|MoC diff| {moc_err:.3e} (tol {moc_tol})")
@@ -7963,11 +8017,423 @@ def sequence_parallel_families(kernels, card):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# --------------------------------------------- phase 25: pipeline parallelism
+
+PP_DIR = "build/pp_phase"   # under the checkout (git-ignored), removed after the phase
+PP_TIMEOUT = 400            # s: a rank or a collective that takes longer fails the phase
+# arm -> (config, dropout, schedule, M, the (bucket, epoch) of each step, one batch each, from
+# the same init); 50salads under R3D_CROSS_NATIVE=1 (K6/K7 in the decoder)
+PP_ARMS = {
+    "50salads pp 2, 512 then 3100: GPipe, dropout 0.1": ("salads", 0.1, "gpipe", 2,
+                                                        ((512, 0), (3100, 0))),
+    "50salads pp 2, 512 then 3100: GPipe, dropout off": ("salads", 0.0, "gpipe", 2,
+                                                        ((512, 0), (3100, 0))),
+    "50salads pp 2, 3100: 1F1B, M = 2": ("salads", 0.1, "1f1b", 2, ((3100, 0),)),
+    "50salads pp 2, 3100: 1F1B, M = 4": ("salads", 0.1, "1f1b", 4, ((3100, 0),)),
+    "utkinects (2 decoder layers) pp 2, 512: 1F1B, M = 2, epoch 0 then the sticky epoch": (
+        "utk", 0.1, "1f1b", 2, ((512, 0), (512, 1))),
+}
+PP_SERVE_LENGTHS = (400, 512, 300, 480, 257, 350, 444, 500)   # one chunk of 8 in the 512 bucket
+
+
+def pp_configs():
+    """50salads at full width (FUTR, hidden 512, 2 decoder layers, 20
+    queries, bf16) and utkinects with 2 decoder layers (``--n_decoder_layers
+    2``; the named config has one, which pp 2 declines)."""
+    import dataclasses
+
+    from r3d_tpu_torch.config import get_config
+
+    utk = get_config("utkinects")
+    return dict(salads=get_config("50salads"),
+                utk=utk.replace(model=dataclasses.replace(utk.model, n_decoder_layers=2)))
+
+
+def pp_config(key, dropout, schedule, M):
+    import dataclasses
+
+    cfg = pp_configs()[key]
+    return cfg.replace(model=dataclasses.replace(cfg.model, dropout=dropout,
+                                                 fuser_dropout=dropout),
+                       mesh=dataclasses.replace(cfg.mesh, pp_schedule=schedule,
+                                                pp_microbatches=M))
+
+
+def pp_classes(key):
+    return SALADS_CLASSES if key == "salads" else N_CLASS
+
+
+def pp_batches(cfgs):
+    """{config: {bucket: a batch of 8}}: 50salads' 512 and 3100 windows
+    (``salads_loaders``), utkinects' 512 (``_dp_batches``)."""
+    salads = salads_loaders(cfgs["salads"])[1]
+    out = dict(salads={512: one_batch(salads, 256, 512), 3100: one_batch(salads, 1024)},
+               utk={512: _dp_batches(cfgs["utk"])[0]})
+    for key, by in out.items():
+        for S, b in by.items():
+            if b["features"].shape[:2] != (8, S):
+                raise AssertionError(f"pipeline_parallel: {key}'s batch is "
+                                     f"{tuple(b['features'].shape[:2])}, not (8, {S})")
+    return out
+
+
+def pp_inits(cfgs):
+    import torch
+
+    from r3d_tpu_torch.models import build_model, init_weights
+
+    return {k: init_weights(build_model(c.model, pp_classes(k), c.data.depth_shape),
+                            torch.Generator().manual_seed(SEED)).state_dict()
+            for k, c in cfgs.items()}
+
+
+@contextlib.contextmanager
+def pp_twin(M, microbatch_calls=False):
+    """Within (one process): each decoder draws its dropout as the pipelined
+    decoder does on pp ranks, its layers run per microbatch under the
+    generators of (the base seed, the global layer, the microbatch)
+    (``parallel.pipeline.stage_generators``): each call's rows cut into M
+    microbatches, the base drawn per call (GPipe's twin), or with
+    ``microbatch_calls`` each call one microbatch, numbered in order, the
+    base drawn at the first (the 1F1B step's twin, ``make_accum_step``)."""
+    import torch
+
+    from r3d_tpu_torch.models.transformer import TransformerDecoder
+    from r3d_tpu_torch.parallel.pipeline import draw_base_seed, stage_generators
+
+    saved = TransformerDecoder.forward
+    calls = {"m": 0, "base": None}
+
+    def forward(self, tgt, memory, pos, query_pos, mkpm=None, tkpm=None, seq=False):
+        if microbatch_calls:
+            if calls["m"] == 0:
+                calls["base"] = draw_base_seed(self.layers)
+            parts, base = [(calls["m"], slice(None))], calls["base"]
+            calls["m"] += 1
+        else:
+            base = draw_base_seed(self.layers)
+            n = tgt.shape[0] // M
+            parts = [(m, slice(m * n, (m + 1) * n)) for m in range(M)]
+        pick = lambda t, r: None if t is None else t[r]
+        outs = []
+        for m, r in parts:
+            x = tgt[r]
+            for li, layer in enumerate(self.layers):
+                with stage_generators(layer, base, li, m):
+                    x = layer(x, memory[r], pick(pos, r), query_pos[r], pick(mkpm, r),
+                              pick(tkpm, r), seq)
+            outs.append(x)
+        return self.norm(torch.cat(outs))
+
+    TransformerDecoder.forward = forward
+    try:
+        yield
+    finally:
+        TransformerDecoder.forward = saved
+
+
+def pp_kernels():
+    from r3d_tpu_torch.ops import attention as att
+    from r3d_tpu_torch.ops import cross_attention as ca
+
+    return tp_kernels() + [ca.FWD_KERNEL, ca.BWD_KERNEL, att.KERNEL_BF16_MANY,
+                           att.DROPOUT_KERNEL_BF16_MANY, att.BWD_KERNEL_BF16_MANY]
+
+
+@contextlib.contextmanager
+def _native(on):
+    import os
+
+    before = os.environ.get("R3D_CROSS_NATIVE")
+    if on:
+        os.environ["R3D_CROSS_NATIVE"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("R3D_CROSS_NATIVE", None)
+        if before is not None:
+            os.environ["R3D_CROSS_NATIVE"] = before
+
+
+def _pp_arm(tag, kernels, batches, inits, mesh=None):
+    """One ``PP_ARMS`` arm on ``mesh`` (None: one process on the card, the
+    GPipe steps through ``pp_twin``, the 1F1B steps as ``make_accum_step``
+    over the same M microbatches through its microbatch twin): its steps
+    from the init after the trainer seeds dropout, each with the counts set
+    to 0 before and read after, its loss, wall time and the peak bytes
+    allocated in this process; the whole final state."""
+    import torch
+
+    from r3d_tpu_torch.parallel.mesh import shard_state, whole_model_state
+    from r3d_tpu_torch.train.loop import Trainer
+
+    key, drop, schedule, M, steps_of = PP_ARMS[tag]
+    with _native(key == "salads"):
+        trainer = Trainer(pp_config(key, drop, schedule, M), pp_classes(key), mesh=mesh)
+        state = trainer.init_state(1, inits[key])
+        if mesh is not None:
+            state = shard_state(state, mesh)
+        trainer._seed_dropout(state, SEED, 0)
+        step = trainer.make_train_step() if mesh is not None else None
+        steps = []
+        for S, epoch in steps_of:
+            batch = batches[key][S]
+            for k in kernels:
+                k.launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            if mesh is not None:
+                metrics = step(state, batch, epoch)
+            elif schedule == "1f1b":
+                stacked = {k: v.reshape((M, v.shape[0] // M) + tuple(v.shape[1:]))
+                           for k, v in batch.items()}
+                with pp_twin(M, microbatch_calls=True):
+                    metrics = trainer.make_accum_step()(state, stacked, epoch)
+            else:
+                with pp_twin(M):
+                    metrics = trainer.train_step(state, batch, epoch)
+            loss = trainer._to_host({"loss": metrics["loss"]})["loss"]
+            torch.cuda.synchronize()
+            steps.append(dict(loss=loss, ms=1e3 * (time.perf_counter() - t0), S=S, epoch=epoch,
+                              peak=torch.cuda.max_memory_allocated(),
+                              launches={k.name: k.launches for k in kernels}))
+        whole = {k: v.detach().cpu() for k, v in whole_model_state(state.model).items()}
+    return dict(steps=steps, state=whole,
+                finite=all(bool(torch.isfinite(v).all()) for v in whole.values()
+                           if v.is_floating_point()))
+
+
+def _pp_eval(kernels, batches, inits, mesh=None):
+    """50salads' module-eval forward of its 512 and 3100 batches with the
+    pad mask (GPipe on the pp ranks, under R3D_CROSS_NATIVE=1: the decoder's
+    cross-attention K3 at 512, K6 at 3100; one process through ``pp_twin``,
+    the same microbatches): the action and duration outputs, the launches,
+    the wall time and the peak bytes."""
+    import torch
+
+    from r3d_tpu_torch.parallel.mesh import place_model
+    from r3d_tpu_torch.train.loop import Trainer
+
+    with _native(True):
+        trainer = Trainer(pp_config("salads", 0.1, "gpipe", 2), SALADS_CLASSES, mesh=mesh)
+        model = place_model(trainer.init_state(1, inits["salads"]).model, mesh).eval()
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got = {}
+        with torch.no_grad(), (pp_twin(2) if mesh is None else contextlib.nullcontext()):
+            for S, batch in sorted(batches["salads"].items()):
+                out = model(*trainer._model_inputs(trainer.to_device(batch), with_mask=True))
+                got.update({f"{k} {S}": out[k].float().cpu() for k in ("action", "duration")})
+    return dict(out=got, launches={k.name: k.launches for k in kernels},
+                ms=1e3 * (time.perf_counter() - t0), peak=torch.cuda.max_memory_allocated())
+
+
+def _pp_serve(inits, meshes=None):
+    """A utkinects session on dp 2 and a 50salads session on pp 2 (one
+    process: no mesh), max_batch 8: each one's logits of one chunk of
+    ``PP_SERVE_LENGTHS`` in the 512 bucket."""
+    from r3d_tpu_torch.serving import InferenceSession
+
+    cfgs = pp_configs()
+    rng = np.random.default_rng(SEED + 25)
+    out = {}
+    for key, kind in (("dp", "utk"), ("pp", "salads")):
+        cfg = cfgs[kind]
+        with _native(kind == "salads"):
+            session = InferenceSession(cfg, inits[kind], pp_classes(kind), max_batch=8,
+                                       mesh=None if meshes is None else meshes[key])
+            videos = make_videos(rng, PP_SERVE_LENGTHS, cfg)
+            res = session._run(*session._collate(videos, 512))
+            out[key] = {k: res[k].float().cpu() for k in ("action", "duration")}
+    return out
+
+
+def _pp_rank(rank, world, work):
+    """One gloo rank on the card (``cuda:0``, shared), on dp 1 x pp 2: every
+    ``PP_ARMS`` arm, the eval forward and the sessions (utkinects on dp 2,
+    50salads on pp 2); writes its results to ``work/rank{rank}.pt``."""
+    import datetime
+    import os
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"file://{work}/store", rank=rank,
+                                world_size=world, timeout=datetime.timedelta(seconds=PP_TIMEOUT))
+        from r3d_tpu_torch.parallel.mesh import make_mesh
+
+        kernels = pp_kernels()
+        batches = torch.load(os.path.join(work, "batches.pt"), weights_only=True)
+        inits = torch.load(os.path.join(work, "inits.pt"), weights_only=True)
+        mesh = make_mesh(dp=1, pp=world)
+        out = {"arms": {tag: _pp_arm(tag, kernels, batches, inits, mesh) for tag in PP_ARMS},
+               "eval": _pp_eval(kernels, batches, inits, mesh),
+               "serve": _pp_serve(inits, {"dp": make_mesh(dp=world), "pp": mesh})}
+        torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(work, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        os._exit(1)
+
+
+def _pp_expected(name, one, rank, schedule, pp=2):
+    """The launches of kernel ``name`` on pp rank ``rank`` for a step whose
+    one-process twin launched it ``one`` times: the fuser's (the pre,
+    which every rank runs over all M microbatches) as many; the decoder's,
+    each rank running its own half of the layers, half (GPipe, and 1F1B's
+    backward), and the 1F1B forward on stages before the last twice that
+    (its forward tick and the recomputation before the backward)."""
+    if name.startswith("fused_"):
+        return one
+    if schedule == "1f1b" and "bwd" not in name and rank < pp - 1:
+        return one
+    return one // pp
+
+
+def pipeline_parallel(kernels, card):
+    """Phase 25: see the module docstring. Returns each kernel's launches
+    on the two ranks' arms (both ranks summed) and each rank's peak bytes
+    against one process's."""
+    import os
+    import shutil
+
+    import torch
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(here, PP_DIR)
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    procs = []
+    try:
+        cfgs = pp_configs()
+        batches = pp_batches(cfgs)
+        inits = pp_inits(cfgs)
+        torch.save(batches, os.path.join(work, "batches.pt"))
+        torch.save(inits, os.path.join(work, "inits.pt"))
+        ctx = mp.get_context("spawn")
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=_pp_rank, args=(r, 2, work), daemon=True) for r in range(2)]
+        for p in procs:
+            p.start()
+        # while the ranks start: one process on the same card
+        pk = pp_kernels()
+        one = {tag: _pp_arm(tag, pk, batches, inits) for tag in PP_ARMS}
+        one_eval = _pp_eval(pk, batches, inits)
+        one_serve = _pp_serve(inits)
+        for p in procs:
+            p.join(max(1.0, PP_TIMEOUT - (time.perf_counter() - t0)))
+        errors = [open(os.path.join(work, f)).read() for f in sorted(os.listdir(work))
+                  if f.endswith(".err")]
+        if any(p.is_alive() or p.exitcode != 0 for p in procs) or errors:
+            raise AssertionError(f"pipeline_parallel: a gloo rank failed: exit codes "
+                                 f"{[p.exitcode for p in procs]} {errors}")
+        ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+        t_ranks = time.perf_counter() - t0
+        total = {k.name: 0 for k in kernels}
+        peaks = {}
+        print(f"pp [{card}]: two gloo ranks share the one card, their transfers staged through "
+              f"the host by gloo: step times and peak bytes are readings, not throughputs")
+        for tag, (key, drop, schedule, M, steps_of) in PP_ARMS.items():
+            lr = cfgs[key].train.lr
+            got = [r["arms"][tag] for r in ranks]
+            want = one[tag]
+            bf16 = cfgs[key].model.compute_dtype == "bfloat16"
+            tol = TP_BF16_LOSS_TOL if bf16 else DP_LOSS_TOL
+            loss_err = max(abs(a["loss"] - b["loss"]) / max(1.0, abs(b["loss"]))
+                           for a, b in zip(got[0]["steps"], want["steps"]))
+            bad = _close_states(got[0]["state"], want["state"], lr, len(steps_of),
+                                share=not bf16)
+            split = [k for k in want["state"] if not torch.equal(got[0]["state"][k],
+                                                                 got[1]["state"][k])]
+            print(f"pp [{card}]: {tag}: {len(steps_of)} steps on 2 gloo ranks (dp 1 x pp 2) vs "
+                  f"one process ({'make_accum_step over M' if schedule == '1f1b' else 'GPipe'}'s "
+                  f"twin): max|loss diff| / max(1, |loss|) {loss_err:.3e} (tol {tol}), losses "
+                  f"{[s['loss'] for s in got[0]['steps']]} vs {[s['loss'] for s in want['steps']]}"
+                  f"; {len(bad)} of {len(want['state'])} final tensors outside the fit bounds "
+                  f"{bad[:3]}; the ranks' whole states differ in {len(split)} tensors")
+            if loss_err > tol or bad or split or not (got[0]["finite"] and got[1]["finite"]):
+                raise AssertionError(f"pipeline_parallel: {tag} disagrees with one process")
+            for r, g in enumerate(got):
+                wrong = []
+                for i, (s, w) in enumerate(zip(g["steps"], want["steps"])):
+                    for n, c in w["launches"].items():
+                        if c and s["launches"][n] != _pp_expected(n, c, r, schedule):
+                            wrong.append((i, n, s["launches"][n], c))
+                        total[n] += s["launches"][n]
+                    if not any(s["launches"].values()):
+                        wrong.append((i, "no kernel launched"))
+                print(f"pp [{card}]: {tag}: gloo rank {r}: launches a step "
+                      f"{[{n: c for n, c in s['launches'].items() if c} for s in g['steps']]} "
+                      f"(one process {[{n: c for n, c in s['launches'].items() if c} for s in want['steps']]}, "
+                      f"M = {M}); step ms {[round(s['ms'], 2) for s in g['steps']]} (one process "
+                      f"{[round(s['ms'], 2) for s in want['steps']]}); peak allocated bytes "
+                      f"{[s['peak'] for s in g['steps']]} (one process "
+                      f"{[s['peak'] for s in want['steps']]})")
+                if wrong:
+                    raise AssertionError(f"pipeline_parallel: {tag}: rank {r}: launches "
+                                         f"(step, kernel, got, one process's) {wrong}")
+            peaks[tag] = ([g["steps"][-1]["peak"] for g in got], want["steps"][-1]["peak"])
+        ev = [r["eval"] for r in ranks]
+        err = max(float((e["out"][k] - one_eval["out"][k]).abs().max())
+                  for e in ev for k in one_eval["out"])
+        print(f"pp [{card}]: 8 x 512 and 8 x 3100 50salads eval forwards (GPipe, M = 2), 2 ranks vs one "
+              f"process: max|output diff| {err:.3e} (tol {SALADS_E2E_TOL}); launches "
+              f"{[{n: c for n, c in e['launches'].items() if c} for e in ev]} (one process "
+              f"{ {n: c for n, c in one_eval['launches'].items() if c} }); ms "
+              f"{[round(e['ms'], 2) for e in ev]} (one process {one_eval['ms']:.2f}); peak "
+              f"allocated bytes {[e['peak'] for e in ev]} (one process {one_eval['peak']})")
+        halves = all(e["launches"][n] * 2 == c for e in ev
+                     for n, c in one_eval["launches"].items() if c)
+        if not err <= SALADS_E2E_TOL or not halves or not any(one_eval["launches"].values()):
+            raise AssertionError("pipeline_parallel: the 50salads eval forward disagrees")
+        for e in ev:
+            for n, c in e["launches"].items():
+                total[n] += c
+        peaks["eval"] = ([e["peak"] for e in ev], one_eval["peak"])
+        for key, tol in (("dp", E2E_TOL), ("pp", SALADS_E2E_TOL)):
+            serr = max(float((r["serve"][key][k] - one_serve[key][k]).abs().max())
+                       for r in ranks for k in one_serve[key])
+            print(f"pp [{card}]: the {'utkinects session on dp 2' if key == 'dp' else '50salads session on pp 2'}, "
+                  f"a chunk of 8 in the 512 bucket: max|logit and duration diff| against one "
+                  f"process {serr:.3e} (tol {tol})")
+            if not serr <= tol:
+                raise AssertionError(f"pipeline_parallel: the session on {key} 2 disagrees")
+        print(f"pp [{card}]: 2 gloo ranks, {len(PP_ARMS)} arms, the eval forward and the "
+              f"sessions, {t_ranks:.1f} s with their start; the pipeline_parallel phase took "
+              f"{time.perf_counter() - t_phase:.1f} s")
+        return total, peaks
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+CARDS_ARMS = ("dp", "tp", "sp", "families", "pp")   # --cards' arms, in their order
+
+
 def cards_main() -> int:
     """``chip_smoke.py --cards``: ``cli_under_torchrun`` on every card the
     host has (two or more) against one card, alone, on a dp mesh and (an
     even count of cards) on dp x tp 2 and on dp x sp 2, without and with
-    one encoder layer, then 50salads_proposed and darai on dp x sp 2;
+    one encoder layer, then 50salads_proposed and darai on dp x sp 2, and
+    (a count of cards 4 divides) utkinects with 2 decoder layers on dp x
+    pp 2, GPipe and 1F1B; ``--cards ARM ...`` runs only the named arms of
+    ``CARDS_ARMS`` (all by default);
     prints the cards' names and power limits, the readings and, last, one
     JSON object of them."""
     import os
@@ -7993,18 +8459,25 @@ def cards_main() -> int:
     work = os.path.join(here, DP_DIR)
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
+    arms = set(sys.argv[2:]) or set(CARDS_ARMS)
+    if arms - set(CARDS_ARMS):
+        print(f"chip_smoke --cards: unknown arms {sorted(arms - set(CARDS_ARMS))} (of "
+              f"{CARDS_ARMS})", file=sys.stderr)
+        return 1
     try:
         argv = dp_cli_argv(work)
-        got = cli_under_torchrun(n, argv, work, here, cards)
+        got = cli_under_torchrun(n, argv, work, here, cards) if "dp" in arms else {}
         # dp x tp 2 (NCCL, FSDP over dp): tensor parallelism across cards
-        got_tp = cli_under_torchrun(n, argv, work, here, cards, tp=2) if n % 2 == 0 else None
+        got_tp = (cli_under_torchrun(n, argv, work, here, cards, tp=2)
+                  if n % 2 == 0 and "tp" in arms else None)
         # dp x sp 2 (NCCL, FSDP over dp): the sequence cut across cards, then
         # with one encoder layer: the ring over NCCL's point-to-point calls
         got_sp = got_ring = None
         families = {}
-        if n % 2 == 0:
+        if n % 2 == 0 and "sp" in arms:
             got_sp = cli_under_torchrun(n, argv, work, here, cards, sp=2)
             got_ring = cli_under_torchrun(n, argv, work, here, cards, sp=2, encoder=1)
+        if n % 2 == 0 and "families" in arms:
             # the query families on dp x sp 2: 50salads_proposed (S queries
             # against S keys) and darai (the self-attention source, the
             # unsupervised loop), each over a dataset of its layout
@@ -8017,12 +8490,36 @@ def cards_main() -> int:
                 fam = ["--config", name, "--data_root", root, "--seed", "1", "--epochs", "2"]
                 families[name] = cli_under_torchrun(n, fam, work, here, cards, sp=2,
                                                     ring_decoder=name == "50salads_proposed")
+        # dp x pp 2 (NCCL point-to-point hops), utkinects with 2 decoder layers: GPipe on
+        # the cached route (FSDP over dp), and 1F1B on the host route with one
+        # microbatch, which every dp rank runs whole (rank 0's update: one card's)
+        pipelines = {}
+        if n % 4 == 0 and "pp" in arms:
+            deep = argv + ["--n_decoder_layer", "2"]
+            pipelines["gpipe"] = cli_under_torchrun(n, deep, work, here, cards, pp=2)
+            pipelines["1f1b"] = cli_under_torchrun(
+                n, deep + ["--no-device_cache"], work, here, cards, pp=2,
+                pp_flags=("--pp_schedule", "1f1b", "--pp_microbatches", "1"))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(json.dumps({"ranks": n, **got, "mesh_tp_2": got_tp, "mesh_sp_2": got_sp,
                       "mesh_sp_2_encoder": got_ring,
-                      **{f"mesh_sp_2_{k}": v for k, v in families.items()}}))
+                      **{f"mesh_sp_2_{k}": v for k, v in families.items()},
+                      **{f"mesh_pp_2_{k}": v for k, v in pipelines.items()}}))
     return 0
+
+
+_LAP = [0.0]
+PHASE_SECONDS = {}   # phase -> its seconds in this run, as printed
+
+
+def lap(name):
+    """Print the seconds since the previous lap as phase ``name``'s, on a
+    line of its own."""
+    now = time.perf_counter()
+    PHASE_SECONDS[name] = now - _LAP[0]
+    print(f"chip_smoke: phase {name} took {PHASE_SECONDS[name]:.1f} s", flush=True)
+    _LAP[0] = now
 
 
 def main() -> int:
@@ -8048,7 +8545,7 @@ def main() -> int:
               "the root of a checkout", file=sys.stderr)
         return 1
 
-    t_start = time.perf_counter()
+    t_start = _LAP[0] = time.perf_counter()
     card = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
@@ -8079,6 +8576,7 @@ def main() -> int:
                 entry = ptxas_entry(line.split("'")[1]) + ": "
             elif "registers" in line or "spill" in line:
                 print(f"  {source}: {entry}{line.strip()}")
+    lap("build")
 
     gen = torch.Generator().manual_seed(SEED)
     (k1_err, k1_time), (k1t_err, k1t_time) = check_fuser_kernel(gen, device)
@@ -8093,6 +8591,7 @@ def main() -> int:
     fp32_threshold_ab(gen, device)
     k1o_time, k2o_time = time_outer_residual(gen, device)
     fuser_bf16 = check_fuser_bf16_kernels(gen, device)
+    lap("kernel checks")
 
     # utkinects: futr_fusion_bn, fp32 after the bf16 embeds (PR 1, PR 2)
     cfg = get_config("utkinects")
@@ -8116,6 +8615,7 @@ def main() -> int:
     compare_with_cpu(session, cfg, state_dict, rng)
     del session
     deploy_htod(card, state_dict)   # the serving deployment phase's H2D bytes (phase 20)
+    lap("utkinects serving")
 
     loaders = train_loaders(cfg)
     want = {"epoch 0 train": ("fused_safuser_tail", "fused_tail_bwd",
@@ -8126,15 +8626,18 @@ def main() -> int:
     train_breakdown(cfg, state_dict, loaders[1])
     train_step_on_card_and_cpu(cfg, state_dict,
                                min(loaders[1], key=lambda b: b["features"].shape[1]))
+    lap("utkinects training")
 
     # utkinects through the CLI: train -> checkpoint -> the MoC sweep, card and CPU
     cli_train, cli_sweep = utkinects_cli(kernels, card, fk.KERNEL, att.KERNEL)
     print(f"launches on the utkinects CLI training path: "
           f"{ {k: c for k, c in cli_train.items() if c} }")
     print(f"launches on the utkinects CLI sweep: { {k: c for k, c in cli_sweep.items() if c} }")
+    lap("utkinects CLI")
 
     # utkinects at UTKinect scale from the device cache
     cache_counts = utkinects_device_cache(kernels, card, state_dict)
+    lap("utkinects device cache")
 
     # utkinects, R3D_CROSS_NATIVE=1: fp32 K6 and K7 in the 1024 and 2000 buckets
     n_serving, n_counts = utkinects_cross_native(kernels, state_dict, ca.FWD_KERNEL_FP32,
@@ -8143,6 +8646,7 @@ def main() -> int:
           f"{ {k: c for k, c in n_serving.items() if c} }")
     print(f"launches on the utkinects R3D_CROSS_NATIVE=1 training path: "
           f"{ {k: c for k, c in n_counts.items() if c} }")
+    lap("utkinects R3D_CROSS_NATIVE=1")
 
     # 50salads: futr, bf16, R3D_CROSS_NATIVE=1
     s_serving, s_counts = salads(kernels, att.KERNEL_BF16, att.DROPOUT_KERNEL_BF16,
@@ -8152,6 +8656,7 @@ def main() -> int:
         raise AssertionError(f"50salads launched the many-query bodies: {launched}")
     print(f"launches on the 50salads serving path: { {k: c for k, c in s_serving.items() if c} }")
     print(f"launches on the 50salads training path: { {k: c for k, c in s_counts.items() if c} }")
+    lap("50salads")
 
     # the gt-query FUTR: 50salads_proposed and breakfast_proposed through the CLI
     proposed = {}
@@ -8165,6 +8670,7 @@ def main() -> int:
                if c[k.name]}
         if few:   # S queries against S keys take the many-query bodies
             raise AssertionError(f"{name} launched the few-query bodies: {few}")
+    lap("proposed configs")
 
     # the DARai family: darai and darai_gaze through the CLI, fp32 K3-K5
     darai = {}
@@ -8196,6 +8702,7 @@ def main() -> int:
               f"{ {k: c for k, c in darai[DEPTH_MODEL][1].items() if c} }")
     finally:
         shutil.rmtree(data_dir, ignore_errors=True)
+    lap("darai family")
 
     # the fuser ablations through the CLI, fuser_depth=2, and the encoder
     ablation = ablations(kernels, card)
@@ -8203,6 +8710,7 @@ def main() -> int:
         print(f"launches on the {model} CLI training path: "
               f"{ {k: c for k, c in a_train.items() if c} }; "
               f"sweep: { {k: c for k, c in a_sweep.items() if c} }")
+    lap("ablations")
     # the fusion models in bf16 (A18): bf16 K1 on both routes, bf16 K2
     bf16_counts, bf16_sweep, bf16_steps = utkinects_bf16(kernels, card)
     print(f"launches on the bf16 utkinects path (CLI training, sweep, the ablations' steps): "
@@ -8210,30 +8718,38 @@ def main() -> int:
     unused = [k.name for k in bf16_fuser if bf16_counts[k.name] == 0]
     if unused:
         raise AssertionError(f"the bf16 utkinects path never launched {unused}")
+    lap("bf16 utkinects")
     depth2_counts = fuser_depth_2(kernels, loaders)
+    lap("fuser_depth=2")
     enc = encoder(kernels, loaders)
     print(f"launches on the encoder serving path: "
           f"{ {k: c for k, c in enc['serving'].items() if c} }; fit: "
           f"{ {k: c for k, c in enc['fit'].items() if c} }")
+    lap("encoder")
 
     # the rest of A11.4: the NTU baselines, MoE, the gt embed, L3 generation
     ntu = ntu_baselines(kernels, card)
+    lap("NTU baselines")
     moe_serving, moe_train = salads_moe(kernels, card, att.KERNEL_BF16, att.DROPOUT_KERNEL_BF16,
                                         att.BWD_KERNEL_BF16, ca.FWD_KERNEL, ca.BWD_KERNEL)
     print(f"launches on the 50salads MoE serving path: "
           f"{ {k: c for k, c in moe_serving.items() if c} }; training path: "
           f"{ {k: c for k, c in moe_train.items() if c} }")
+    lap("50salads MoE")
     gt_counts = gt_futr(kernels, card)
     l3_counts = l3_generation(kernels, card)
+    lap("gt futr and L3 generation")
     # the rest of serving (A13): int8 weights, uint8 depth, export and ExportedSession
     deploy_live, deploy_exported = serving_deploy(kernels, card, state_dict)
     print(f"launches on the deployment phase's live sessions: "
           f"{ {k: c for k, c in deploy_live.items() if c} }; exported sessions: "
           f"{ {k: c for k, c in deploy_exported.items() if c} }")
+    lap("serving deployment")
     # data parallelism (A14): a one-rank NCCL group, torchrun, two gloo ranks
     dp_counts = data_parallel(kernels, card)
     print(f"launches on the one-rank group's fits: "
           f"{ {k: c for k, c in dp_counts.items() if c} }")
+    lap("data_parallel")
     # tensor and expert parallelism (A14): two gloo ranks on tp, ep and dp meshes
     tp_counts, tp_shapes = tensor_parallel(kernels, card)
     print(f"launches on the tensor_parallel phase's ranks: "
@@ -8243,6 +8759,7 @@ def main() -> int:
     unused = [k.name for k in tp_path if tp_counts[k.name] == 0]
     if unused:
         raise AssertionError(f"the tensor_parallel phase never launched {unused}")
+    lap("tensor_parallel")
     # sequence parallelism (A14): two gloo ranks on dp 1 x sp 2
     sp_counts, sp_peaks = sequence_parallel(kernels, card)
     print(f"launches on the sequence_parallel phase's ranks: "
@@ -8254,6 +8771,7 @@ def main() -> int:
     unused = [k.name for k in sp_path if sp_counts[k.name] == 0]
     if unused:
         raise AssertionError(f"the sequence_parallel phase never launched {unused}")
+    lap("sequence_parallel")
     # sequence parallelism for every other family (A14): two gloo ranks on dp 1 x sp 2
     spf_counts, spf_peaks = sequence_parallel_families(kernels, card)
     print(f"launches on the sequence_parallel_families phase's ranks: "
@@ -8265,6 +8783,19 @@ def main() -> int:
     unused = [k.name for k in spf_path if spf_counts[k.name] == 0]
     if unused:
         raise AssertionError(f"the sequence_parallel_families phase never launched {unused}")
+    lap("sequence_parallel_families")
+    # pipeline parallelism (A14): two gloo ranks on dp 1 x pp 2, GPipe and 1F1B
+    pp_counts, pp_peaks = pipeline_parallel(kernels, card)
+    print(f"launches on the pipeline_parallel phase's ranks: "
+          f"{ {k: c for k, c in pp_counts.items() if c} }; each rank's peak allocated bytes "
+          f"against one process's: {pp_peaks}")
+    pp_path = (fk.TAIL_KERNEL, fk.KERNEL, fkb.KERNEL, att.KERNEL, att.DROPOUT_KERNEL,
+               att.BWD_KERNEL, att.KERNEL_BF16, att.DROPOUT_KERNEL_BF16, att.BWD_KERNEL_BF16,
+               ca.FWD_KERNEL, ca.BWD_KERNEL)
+    unused = [k.name for k in pp_path if pp_counts[k.name] == 0]
+    if unused:
+        raise AssertionError(f"the pipeline_parallel phase never launched {unused}")
+    lap("pipeline_parallel")
     tp_shape_err = {k.name: tp_shapes[key][1] for k, key in (
         (att.KERNEL, "K3 fp32"), (att.DROPOUT_KERNEL, "K4 fp32"), (att.BWD_KERNEL, "K5 fp32"),
         (att.KERNEL_BF16, "K3 bf16"), (att.DROPOUT_KERNEL_BF16, "K4 bf16"),
@@ -8281,7 +8812,8 @@ def main() -> int:
         "dp_launches": dp_counts,   # the one-rank NCCL group's three fits (A14)
         "tp_launches": tp_counts,   # the two ranks' tp, ep and dp arms (A14), both summed
         "sp_launches": sp_counts,   # the two ranks' sp arms (A14), both summed
-        "spf_launches": spf_counts}   # the two ranks' arms of every other family on sp
+        "spf_launches": spf_counts,   # the two ranks' arms of every other family on sp
+        "pp_launches": pp_counts}   # the two ranks' GPipe and 1F1B arms on pp, both summed
 
     def a114_columns(name):
         return {**{col: counts[name] for col, counts in a114.items()},
@@ -8395,7 +8927,8 @@ def main() -> int:
             "device_ms": t["device_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "library_device_ms": t["library_device_ms"]})
-    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s "
+          f"({json.dumps({k: round(v, 1) for k, v in PHASE_SECONDS.items()})})")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

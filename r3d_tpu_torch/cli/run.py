@@ -48,6 +48,7 @@ from r3d_tpu_torch.data.datasets import VideoSource, build_loader, build_source
 from r3d_tpu_torch.eval.predict import Predictor
 from r3d_tpu_torch.models import build_model
 from r3d_tpu_torch.parallel.mesh import is_writer, make_mesh, mesh_sizes, shard_state
+from r3d_tpu_torch.parallel.pipeline import set_pipeline_microbatches
 from r3d_tpu_torch.serving import resolve_device
 from r3d_tpu_torch.train.checkpoint import Checkpointer
 from r3d_tpu_torch.train.loop import Trainer
@@ -68,12 +69,6 @@ def save_path(config: Config, dataset_ops: str = "") -> str:
 def _splits(config: Config):
     d = config.data
     return d.train_split.format(split=d.split), d.val_split.format(split=d.split)
-
-
-def _check_ported(config: Config) -> None:
-    if config.mesh.pp > 1:
-        raise NotImplementedError("the pp mesh axis is not ported yet (ROADMAP queue A, "
-                                  "item A14)")
 
 
 def launch_env(environ=None) -> Optional[Tuple[int, int, int]]:
@@ -107,6 +102,7 @@ def form_group(config: Config, device: Device):
     elif device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     m = config.mesh
+    set_pipeline_microbatches(m.pp_microbatches)
     return make_mesh(m.dp, m.tp, m.sp, m.pp, m.ep), device, formed
 
 
@@ -161,7 +157,6 @@ def train(config: Config, seed: int, dataset_ops: str = "",
           device: Device = "cuda", mesh=None):
     """Train one seed, data-parallel over ``mesh`` where one is given;
     returns (trainer, final state, checkpointer)."""
-    _check_ported(config)
     train_name, val_name = _splits(config)
     if sources is None:
         sources = {"train": build_source(config.data, train_name),
@@ -224,7 +219,6 @@ def predict(config: Config, dataset_ops: str = "", seeds=None,
     ``ensemble`` one sweep averaging the seeds' output heads.
     ``results_save_path`` gets ``results.json`` (ratio x metric) and each
     sweep's gt/pred transcript logs."""
-    _check_ported(config)
     _, val_name = _splits(config)
     if source is None:
         source = build_source(config.data, val_name)
@@ -285,7 +279,6 @@ def predict(config: Config, dataset_ops: str = "", seeds=None,
 def main(config: Config, mode: str = "train", dataset_ops: str = "", log=print,
          resume: bool = False, ensemble: bool = False,
          results_save_path: Optional[str] = None, device: Device = "cuda"):
-    _check_ported(config)
     mesh, device, formed = form_group(config, device)
     if mesh is not None:
         if not is_writer():

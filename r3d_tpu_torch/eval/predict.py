@@ -56,10 +56,12 @@ before dp. The filler rows stay masked and dropped, so the MoC tables are
 the one-process sweep's. Every family runs so: the query ids and a gaze
 stream as long as the bucket are cut with the features, and each model
 gathers over sp what mixes frames (``models/futr_unsupervised.py``,
-``models/baselines.py``).
+``models/baselines.py``). On a pp axis the pp ranks of a dp coordinate run
+its rows, the decoder stack as the GPipe forward (``parallel/pipeline.py``,
+JAX's sweep on its pp mesh, ``r3d_tpu/eval/predict.py:84-120``).
 
-Not ported yet, and raising ``NotImplementedError`` naming their ROADMAP
-item: the pp mesh axis (A14), and ``gif_dir`` (A15).
+Not ported yet, and raising ``NotImplementedError`` naming its ROADMAP
+item: ``gif_dir`` (A15).
 """
 
 from __future__ import annotations
@@ -86,7 +88,6 @@ from r3d_tpu_torch.models.layers import DTYPES
 from r3d_tpu_torch.parallel.mesh import (
     axis,
     batch_sharding,
-    check_mesh,
     cut,
     dp_group,
     dp_size,
@@ -146,7 +147,6 @@ class Predictor:
                  mesh=None, device: Union[str, torch.device] = "cuda"):
         """``model``: a module of ``config.model`` that ``state_dict``
         variables load into; ``mesh`` the mesh to split the sweep over."""
-        check_mesh(mesh)
         check_gaze_cut(config, mesh)
         self.mesh = mesh
         self.group = dp_group(mesh)

@@ -38,13 +38,22 @@ the rank's frames.
 
 from __future__ import annotations
 
+import warnings
 from typing import Optional
 
 import torch
 from torch import nn
 
-from r3d_tpu_torch.parallel.mesh import seq_axis
-from r3d_tpu_torch.parallel.tensor import gather_seq, seq_positions
+from r3d_tpu_torch.parallel.mesh import gather_rows, group_size, row_group, seq_axis
+from r3d_tpu_torch.parallel.pipeline import (
+    PipelineFallbackWarning,
+    draw_base_seed,
+    gpipe,
+    pipeline_plan,
+    stage_generators,
+    stage_layers,
+)
+from r3d_tpu_torch.parallel.tensor import Axis, gather_seq, seq_positions
 from r3d_tpu_torch.models.layers import (
     DecoderLayer,
     EncoderLayer,
@@ -74,8 +83,16 @@ class TransformerEncoder(nn.Module):
 
 
 class TransformerDecoder(nn.Module):
-    """Sequential decoder layers and the reference's unconditional final
-    LayerNorm."""
+    """Decoder layers and the reference's unconditional final LayerNorm.
+
+    On a pp mesh (``set_pipeline``, which ``parallel.mesh.place_model``
+    calls) the stack runs as the GPipe pipeline where ``pipeline_plan``
+    applies (``r3d_tpu/models/transformer.py:72-113``): each pp rank its
+    stage's layers over M microbatches of its rows (``parallel/pipeline.py``),
+    or, where a microbatch's rows do not divide over dp (JAX replicates
+    them), of the dp group's rows gathered, its own rows kept. A MoE
+    decoder declines with JAX's warning; every decline runs the stack
+    sequentially on every pp rank."""
 
     def __init__(self, dim: int, n_head: int, n_layers: int, ffn_dim: int,
                  dropout: float = 0.0, dtype: torch.dtype = torch.float32,
@@ -85,14 +102,62 @@ class TransformerDecoder(nn.Module):
             DecoderLayer(dim, n_head, ffn_dim, dropout, dtype, moe) for _ in range(n_layers)
         )
         self.norm = LayerNorm(dim, dtype)
+        self.moe = moe is not None and moe[0] > 0
+        self.pp: Optional[Axis] = None
+        self.sp_size = 1
+
+    def set_pipeline(self, pp: Optional[Axis], sp_size: int) -> None:
+        """The mesh's pp axis (None: one rank) and its sp extent."""
+        self.pp, self.sp_size = pp, sp_size
 
     def forward(self, tgt, memory, pos, query_pos, memory_key_padding_mask=None,
                 tgt_key_padding_mask=None, seq: bool = False):
+        plan = None
+        if self.pp is not None and self.moe:
+            warnings.warn(
+                "mesh has pp>1 but the MoE decoder declined the pipeline (the stage body "
+                "would drop the MoE aux-loss sow) — the layer stack runs sequentially on "
+                "every pp rank", PipelineFallbackWarning, stacklevel=2)
+        elif self.pp is not None:
+            plan = pipeline_plan(self.pp, self.sp_size, len(self.layers),
+                                 tgt.shape[0] * group_size(row_group()))
+        if plan is not None:
+            return self.norm(self._pipelined(plan, tgt, memory, pos, query_pos,
+                                             memory_key_padding_mask, tgt_key_padding_mask,
+                                             seq))
         out = tgt
         for layer in self.layers:
             out = layer(out, memory, pos, query_pos, memory_key_padding_mask,
                         tgt_key_padding_mask, seq)
         return self.norm(out)
+
+    def _pipelined(self, plan, tgt, memory, pos, query_pos, memory_key_padding_mask,
+                   tgt_key_padding_mask, seq):
+        pp, M = plan
+        consts = {"memory": memory, "pos": pos, "query_pos": query_pos,
+                  "mkpm": memory_key_padding_mask, "tkpm": tgt_key_padding_mask}
+        B = tgt.shape[0]
+        rows = row_group() if B % M else None
+        if rows is not None:
+            # the microbatches' rows do not divide over dp: the dp group's
+            # rows, each rank its own kept after
+            tgt = gather_rows(tgt, rows)
+            consts = {k: None if v is None else gather_rows(v, rows) for k, v in consts.items()}
+        mine = stage_layers(len(self.layers), pp)
+        base = draw_base_seed(self.layers)
+
+        def stage(x, c, m):
+            for li in mine:
+                with stage_generators(self.layers[li], base, li, m):
+                    x = self.layers[li](x, c["memory"], c["pos"], c["query_pos"], c["mkpm"],
+                                        c["tkpm"], seq)
+            return x
+
+        out = gpipe(stage, pp, M, tgt, consts, list(self.layers.parameters()))
+        if rows is not None:
+            r = torch.distributed.get_rank(rows)
+            out = out[r * B:(r + 1) * B]
+        return out
 
 
 class FUTRTransformer(nn.Module):

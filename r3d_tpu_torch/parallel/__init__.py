@@ -1,6 +1,6 @@
-"""Data, tensor, expert and sequence parallelism over a
+"""Data, tensor, expert, sequence and pipeline parallelism over a
 ``torch.distributed`` group (counterpart of ``r3d_tpu/parallel``'s dp, ep,
-tp and sp axes)."""
+tp, sp and pp axes)."""
 
 from r3d_tpu_torch.parallel.mesh import (
     FSDP_MIN_ELEMS,

@@ -1,8 +1,8 @@
-"""Data, tensor, expert and sequence parallelism over a ``torch.distributed``
-group.
+"""Data, tensor, expert, sequence and pipeline parallelism over a
+``torch.distributed`` group.
 
-Counterpart of ``r3d_tpu/parallel/mesh.py`` for its ``dp``, ``ep``, ``tp``
-and ``sp`` axes. JAX jits one program over the sharded global batch and
+Counterpart of ``r3d_tpu/parallel/mesh.py`` for its ``dp``, ``ep``, ``tp``,
+``sp`` and ``pp`` axes. JAX jits one program over the sharded global batch and
 parameters and GSPMD inserts the collectives; here each rank is a process
 that runs the same step on its own rows and its own slices of the
 parameters, and the collectives are written out:
@@ -55,9 +55,15 @@ parameters, and the collectives are written out:
   that ``shard_placement_fn``; axis 0 where no axis divides); the
   optimizer's moments follow their parameters.
 
+- the pipeline (pp): no TP rule names pp, so every parameter is whole on
+  every pp rank, as JAX replicates it; ``place_model`` points each
+  ``TransformerDecoder`` at the pp axis, and its layers split into stages
+  only inside a step (``parallel/pipeline.py``, ``parallel/pipeline_1f1b.py``).
+  The pp ranks of a dp coordinate hold the same rows and are no replicas:
+  the gradient group stays dp x sp.
+
 ``make_mesh`` returns a ``DeviceMesh`` with JAX's dims ``("dp", "ep",
-"tp", "sp", "pp")``; pp above 1 is ROADMAP item A14's next slice and
-raises. JAX's
+"tp", "sp", "pp")``. JAX's
 module-wide active mesh has no counterpart: its Pallas wrappers read it to
 shard_map themselves, while here the trainer and the predictor hold their
 own mesh, the layers their own axes, and only ``split_rows`` is scoped
@@ -93,12 +99,6 @@ _SEQ_AXIS: Optional[Axis] = None
 _ROWS_GROUPS: Dict[int, dist.ProcessGroup] = {}
 
 
-def _refuse_axes(sizes: Dict[str, int]) -> None:
-    if sizes.get("pp", 1) > 1:
-        raise NotImplementedError(f"mesh axis pp={sizes['pp']} is not ported yet: dp, ep, tp "
-                                  "and sp are (ROADMAP queue A, item A14)")
-
-
 def make_mesh(dp: int = -1, tp: int = 1, sp: int = 1, pp: int = 1, ep: int = 1,
               device_type: Optional[str] = None):
     """The ``DeviceMesh`` of the initialised process group, dims ``("dp",
@@ -107,39 +107,33 @@ def make_mesh(dp: int = -1, tp: int = 1, sp: int = 1, pp: int = 1, ep: int = 1,
     ``device_type`` defaults to ``cuda`` under NCCL, else ``cpu`` (gloo)."""
     from torch.distributed.device_mesh import init_device_mesh
 
-    _refuse_axes(dict(tp=tp, sp=sp, pp=pp, ep=ep))
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs an initialised torch.distributed process group")
     n = dist.get_world_size()
     if dp == -1:
-        dp = n // (tp * ep * sp)
-    if dp * ep * tp * sp != n:
+        dp = n // (tp * ep * sp * pp)
+    if dp * ep * tp * sp * pp != n:
         raise ValueError(f"mesh {dp}x{ep}x{tp}x{sp}x{pp} != {n} ranks")
     if device_type is None:
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    mesh = init_device_mesh(device_type, (dp, ep, tp, sp, 1), mesh_dim_names=DIMS)
+    mesh = init_device_mesh(device_type, (dp, ep, tp, sp, pp), mesh_dim_names=DIMS)
     if dp > 1 and sp > 1:
-        # the dp x sp ranks of each (ep, tp) coordinate: every rank makes
+        # the dp x sp ranks of each (ep, tp, pp) coordinate: every rank makes
         # every group, in one order, and keeps its own
-        ranks = torch.arange(n).reshape(dp, ep, tp, sp)
+        ranks = torch.arange(n).reshape(dp, ep, tp, sp, pp)
         for e in range(ep):
             for t in range(tp):
-                members = ranks[:, e, t, :].reshape(-1).tolist()
-                g = dist.new_group(members)
-                if dist.get_rank() in members:
-                    _ROWS_GROUPS[id(mesh)] = g
+                for p in range(pp):
+                    members = ranks[:, e, t, :, p].reshape(-1).tolist()
+                    g = dist.new_group(members)
+                    if dist.get_rank() in members:
+                        _ROWS_GROUPS[id(mesh)] = g
     return mesh
 
 
 def mesh_sizes(mesh) -> Dict[str, int]:
     """{dim: extent} of a ``DeviceMesh`` (JAX's ``mesh.shape``)."""
     return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
-
-
-def check_mesh(mesh) -> None:
-    """Raise for what is not ported: pp above 1."""
-    if mesh is not None:
-        _refuse_axes(mesh_sizes(mesh))
 
 
 def axis_size(mesh, ax: str) -> int:
@@ -518,9 +512,13 @@ def place_model(model: nn.Module, mesh) -> nn.Module:
     from r3d_tpu_torch.models.futr_fusion import DepthEmbed
     from r3d_tpu_torch.models.layers import FeedForward, MultiheadAttention
     from r3d_tpu_torch.models.moe import Experts
+    from r3d_tpu_torch.models.transformer import TransformerDecoder
 
     if mesh is None or hasattr(model, "placement"):
         return model
+    for m in model.modules():
+        if isinstance(m, TransformerDecoder):
+            m.set_pipeline(axis(mesh, "pp"), axis_size(mesh, "sp"))
     axes = {"tp": axis(mesh, "tp"), "ep": axis(mesh, "ep")}
     plan = {name: tuple((d, axes[a]) for d, a in cuts) for name, cuts in _plan(model, mesh).items()}
     with torch.no_grad():
@@ -689,7 +687,6 @@ def shard_state(state, mesh, fsdp: bool = False):
     ones). One rank without ``fsdp``: nothing changes; with it, FSDP2 on
     the one-rank mesh (each shard the whole tensor), which computes what no
     mesh does."""
-    check_mesh(mesh)
     world = dist.get_world_size() if mesh is not None else 1
     if world == 1 and not fsdp:
         return state

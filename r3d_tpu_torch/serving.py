@@ -42,7 +42,18 @@ recorded in ``meta.json``).
 ``InferenceSession.from_checkpoint(config, ckpt_dir, seed, n_class)``
 serves a seed's best checkpoint (``train/checkpoint.py``).
 
-Not ported yet (ROADMAP queue A, A14): ``mesh``.
+``mesh`` (``parallel.make_mesh``; JAX's ``r3d_tpu/serving.py:86-97,
+282-319``): every rank of the group builds the same session and is sent
+the same requests. The weights are the rank's slices under the TP and EP
+rules (``parallel.mesh.place_model``; the decoder runs as the GPipe forward
+on a pp axis), a chunk's padded batch is cut over dp where dp divides it
+(else every rank runs it whole), each rank runs its rows (the sequence
+whole, on an sp axis too) and the chunk's outputs are gathered over dp, so
+every rank decodes the plain session's results. ``quantize`` and
+``export`` are single-device and raise ``ValueError`` on a mesh, as JAX's.
+A ``ServingQueue`` over a mesh session lets global rank 0 decide how many
+requests each drain takes and broadcasts the count, so every rank forms
+the same chunks whatever its own timing.
 """
 
 from __future__ import annotations
@@ -70,6 +81,14 @@ from r3d_tpu_torch.ops import attention as _attention  # noqa: F401
 from r3d_tpu_torch.ops import cross_attention as _cross_attention  # noqa: F401
 from r3d_tpu_torch.ops import fuser_kernel as _fuser_kernel  # noqa: F401
 from r3d_tpu_torch.ops.quant import Weights, dequantize_state_dict, quantize_state_dict
+from r3d_tpu_torch.parallel.mesh import (
+    batch_sharding,
+    cut,
+    dp_group,
+    gather_rows,
+    place_model,
+    split_mesh,
+)
 
 WEIGHTS_FILE = "weights.pt"
 META_FILE = "meta.json"
@@ -146,14 +165,17 @@ class InferenceSession:
         ``convert.state_dict_from_flax``) or a built module. ``quantize``:
         None or ``"int8"`` (int8 weight-only, ``ops/quant.py``).
         ``input_dtype``: None or ``"uint8"`` (uint8 depth with a per-video
-        affine; fusion models only). ``mesh`` is not ported (A14) and
-        raises."""
+        affine; fusion models only). ``mesh``: serve over the group's
+        mesh (a collective of every rank: each builds the session and is
+        sent the same requests)."""
         from r3d_tpu_torch.convert import flax_kernels
         from r3d_tpu_torch.models import build_model, is_fusion_model
 
-        if mesh is not None:
-            raise NotImplementedError("serving on a mesh is not ported yet "
-                                      "(ROADMAP queue A, item A14)")
+        if mesh is not None and quantize is not None:
+            raise ValueError("quantize is a single-device serving path (the TP rules key on "
+                             "param paths the quantized tree restructures); build the session "
+                             "without a mesh to quantize")
+        self.mesh = mesh
         self.is_fusion = is_fusion_model(config.model.model)
         if input_dtype not in (None, "uint8"):
             raise ValueError(f"unknown input_dtype {input_dtype!r} (supported: None, 'uint8')")
@@ -174,6 +196,8 @@ class InferenceSession:
         else:
             model = build_model(config.model, n_class, config.data.depth_shape)
             model.load_state_dict(weights)
+        if mesh is not None:
+            place_model(model.to(self.device), mesh)
         tensors = {name: t.detach() for name, t in
                    (*model.named_parameters(), *model.named_buffers())}
         if quantize is not None:
@@ -250,11 +274,18 @@ class InferenceSession:
         return feats, depth, mask
 
     def _run(self, feats, depth, mask, qp=None) -> Dict[str, torch.Tensor]:
-        """One padded chunk -> model outputs on the device (not synced)."""
-        args = [None if t is None else t.to(self.device, non_blocking=True)
+        """One padded chunk -> model outputs on the device (not synced); on
+        a mesh this rank's rows of it run and the outputs are gathered over
+        dp."""
+        rows = None if self.mesh is None else batch_sharding(self.mesh, feats.shape[0])
+        args = [None if t is None else cut(t, rows).to(self.device, non_blocking=True)
                 for t in (feats, depth, qp, mask)]
-        with torch.inference_mode():
-            return self._forward(*args)
+        with torch.inference_mode(), split_mesh(self.mesh, rows is not None, False):
+            out = self._forward(*args)
+            if rows is not None:
+                out = {k: gather_rows(out[k], dp_group(self.mesh))
+                       for k in ("action", "duration", "seg") if k in out}
+        return out
 
     def _forward(self, feats, depth, qp, mask) -> Dict[str, torch.Tensor]:
         return self.program(self.weights, feats, depth, qp, mask)
@@ -285,6 +316,9 @@ class InferenceSession:
         first argument; ``meta.json``, what ``ExportedSession`` needs to
         collate and decode, the route flags and the device type it was
         traced on. Export on the device type you will serve on."""
+        if self.mesh is not None:
+            raise ValueError("export() is single-device (the artifact embeds replicated "
+                             "params); build the session without a mesh to export")
         os.makedirs(path, exist_ok=True)
         data = self.config.data
         torch.save({name: _to(t, "cpu") for name, t in self.weights.items()},
@@ -376,6 +410,10 @@ class ServingQueue:
     ``submit()`` returns a Future; a background thread coalesces pending
     requests into ``anticipate_batch`` calls (up to ``session.max_batch``
     per drain, waiting at most ``max_wait_ms`` after the first request).
+    Over a session on a mesh every rank is sent the same requests in the
+    same order: global rank 0 drains by its timing and broadcasts how many
+    requests it took, and every other rank takes that many (its first one
+    awaited before it joins the broadcast).
     """
 
     def __init__(self, session: InferenceSession, max_wait_ms: float = 5.0):
@@ -409,9 +447,11 @@ class ServingQueue:
         return self.submit(features, depth, future_len).result()
 
     def _loop(self):
+        spmd = getattr(self.session, "mesh", None) is not None
+        follow = spmd and torch.distributed.get_rank() != 0
         while True:
             try:
-                item = self._q.get(timeout=0.1)
+                item = self._q.get(timeout=None if follow else 0.1)
             except queue.Empty:
                 if self._closed:
                     return
@@ -419,7 +459,12 @@ class ServingQueue:
             if item is None:
                 return
             batch = [item]
+            if follow:   # take as many requests as rank 0 did
+                batch += [self._q.get() for _ in range(_agree(0) - 1)]
+                self._drain(batch)
+                continue
             deadline = time.time() + self.max_wait_s
+            closing = False
             while len(batch) < self.session.max_batch:
                 remaining = deadline - time.time()
                 if remaining <= 0:
@@ -429,10 +474,14 @@ class ServingQueue:
                 except queue.Empty:
                     break
                 if nxt is None:
-                    self._drain(batch)
-                    return
+                    closing = True
+                    break
                 batch.append(nxt)
+            if spmd:
+                _agree(len(batch))
             self._drain(batch)
+            if closing:
+                return
 
     def _drain(self, batch):
         # anticipate_batch takes one future_len per call: group by it
@@ -466,6 +515,13 @@ class ServingQueue:
         self._thread.join()
 
 
+def _agree(n: int) -> int:
+    """Global rank 0's ``n`` on every rank (a broadcast)."""
+    box = [n]
+    torch.distributed.broadcast_object_list(box, src=0)
+    return box[0]
+
+
 class ExportedSession(InferenceSession):
     """Serve an ``InferenceSession.export`` artifact: the weights on the
     device once, the programs loaded lazily per (bucket, batch) shape, no
@@ -473,6 +529,7 @@ class ExportedSession(InferenceSession):
     ``anticipate_batch`` API, and ``ServingQueue`` serves it."""
 
     def __init__(self, path: str, device: Union[str, torch.device] = "cuda"):
+        self.mesh = None
         self.device = resolve_device(device)
         with open(os.path.join(path, META_FILE)) as f:
             meta = json.load(f)

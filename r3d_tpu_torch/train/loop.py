@@ -109,8 +109,19 @@ host route numbers the whole row and cuts. A bucket sp does not divide runs
 whole on every sp rank. The sp ranks of a dp coordinate share its dropout
 streams.
 
+On a pp axis (``parallel/pipeline.py``) every pp rank of a dp coordinate
+holds its rows and every parameter; the decoder stack runs as the GPipe
+pipeline in every step, validation and the sweep included (the cached and
+hybrid routes run GPipe whatever ``pp_schedule`` says, as JAX's cached
+routes call its plain step core, ``r3d_tpu/train/loop.py:770-807``), the
+gradients summed over pp where the stages split the work and averaged over
+dp x sp as without pp. ``pp_schedule="1f1b"`` makes ``fit``'s host-route
+step ``make_1f1b_train_step``'s (``parallel/pipeline_1f1b.py``):
+``make_accum_step``'s update over M microbatches, for the futr and fusion
+families, raising ``ValueError`` with JAX's reason for anything else.
+
 Not ported yet, and raising ``NotImplementedError`` naming its ROADMAP
-item: ``rng_impl`` (A10); the pp mesh axis (A14).
+item: ``rng_impl`` (A10).
 """
 
 from __future__ import annotations
@@ -145,6 +156,7 @@ from r3d_tpu_torch.models import (
     model_needs_query,
 )
 from r3d_tpu_torch.models.fuser import mark_sticky
+from r3d_tpu_torch.models.futr import positions
 from r3d_tpu_torch.models.futr_unsupervised import check_gaze_cut
 from r3d_tpu_torch.models.layers import FixedDropout, set_generators
 from r3d_tpu_torch.models.moe import moe_aux
@@ -153,8 +165,8 @@ from r3d_tpu_torch.parallel.mesh import (
     average_gradients,
     axis,
     batch_sharding,
+    axis_size,
     broadcast_buffers,
-    check_mesh,
     cut,
     dp_rank,
     dp_size,
@@ -170,6 +182,8 @@ from r3d_tpu_torch.parallel.mesh import (
     take_rows,
     take_seq,
 )
+from r3d_tpu_torch.parallel.pipeline import draw_base_seed, stage_generators, stage_layers
+from r3d_tpu_torch.parallel.pipeline_1f1b import pipelined_value_and_grad
 from r3d_tpu_torch.parallel.tensor import cut_seq, gather_seq
 from r3d_tpu_torch.serving import resolve_device
 from r3d_tpu_torch.train.optim import make_optimizer
@@ -231,7 +245,6 @@ class Trainer:
         if tc.grad_accum > 1 and tc.steps_per_dispatch > 1:
             raise ValueError("grad_accum and steps_per_dispatch are mutually exclusive: one "
                              "stacks microbatches per update, the other updates per step")
-        check_mesh(mesh)
         check_gaze_cut(config, mesh)
         self.mesh = mesh
         self.dp, self.rank = dp_size(mesh), dp_rank(mesh)
@@ -544,6 +557,140 @@ class Trainer:
         with self._split(rows, seq):
             return self._step(state, self.to_device(take_seq(take_rows(batch, rows), seq)), epoch)
 
+    # ------------------------------------------------------ the pp schedule
+    def _wants_1f1b(self) -> bool:
+        return self.config.mesh.pp_schedule == "1f1b" and axis_size(self.mesh, "pp") > 1
+
+    def make_train_step(self):
+        """train_step(state, host batch, epoch) -> metrics: ``train_step``,
+        or on a pp mesh with ``pp_schedule="1f1b"`` the 1F1B step."""
+        return self.make_1f1b_train_step() if self._wants_1f1b() else self.train_step
+
+    def make_1f1b_train_step(self):
+        """The train step scheduled 1F1B over the pp axis
+        (``r3d_tpu/train/loop.py:make_1f1b_train_step``): the batch splits
+        into M (``pp_microbatches``, else pp) microbatches of its rows in
+        order; the pre (input embed, for the fusion models depth embed and
+        fuser) runs per microbatch, the decoder's layers are the stages, the
+        last stage runs the final norm, the heads and each microbatch's
+        losses (``parallel/pipeline_1f1b.py``). Semantics are
+        ``make_accum_step``'s over the M microbatches (their mean gradient;
+        each microbatch's losses, duration count and BN statistics its own);
+        ``state.step`` advances by 1.
+
+        On dp, microbatch m is the global rows [m B/M, (m+1) B/M) and dp rank
+        r pipelines microbatches [r M/dp, (r+1) M/dp) where dp divides M
+        (every microbatch where it does not: rank 0's update, as one process
+        would draw one set of masks); every rank runs the fusion models' pre
+        over all M microbatches in order, so the BN running statistics
+        advance as ``make_accum_step``'s on every rank. Anything else raises
+        ``ValueError`` with JAX's reason."""
+        cfg, mc = self.config.model, self.config.mesh
+        pp = axis(self.mesh, "pp")
+        M = mc.pp_microbatches or pp.size
+        B = self.config.train.batch_size
+
+        def bail(reason: str):
+            raise ValueError(f"pp_schedule='1f1b' requested but unsupported: {reason}. "
+                             "Use pp_schedule='gpipe' (the default) for this config.")
+
+        fusion = self.is_fusion and cfg.model != "afft"
+        if cfg.model != "futr" and not fusion:
+            bail(f"model {cfg.model!r} (only the futr/fusion families have the pre/stage/last "
+                 "split; afft has no decoder stack to pipeline, the query family reads "
+                 "pre-decoder streams)")
+        if self.config.train.loop not in ("futr", "proposed", "proposed_depth"):
+            bail(f"loop {self.config.train.loop!r} (losses must live entirely in the last "
+                 "stage; the unsupervised composite reads pre-decoder streams)")
+        if cfg.use_encoder or cfg.moe_experts > 0 or cfg.sow_attn:
+            bail("use_encoder/moe_experts/sow_attn")
+        if not cfg.pos_emb:
+            bail("pos_emb=False")
+        if any(axis_size(self.mesh, a) != 1 for a in ("tp", "sp", "ep")):
+            bail("tp/sp/ep > 1 (1f1b shards pp x dp only)")
+        if mc.fsdp:
+            bail("fsdp (grads are assembled manually)")
+        if cfg.n_decoder_layers % pp.size != 0:
+            bail(f"{cfg.n_decoder_layers} decoder layers do not split into {pp.size} stages")
+        if B % M != 0:
+            bail(f"batch {B} does not divide into {M} microbatches")
+        if self.config.train.grad_accum > 1 or self.config.train.steps_per_dispatch > 1:
+            bail("grad_accum/steps_per_dispatch > 1")
+        split = self.dp > 1 and M % self.dp == 0
+        own = (range(self.rank * M // self.dp, (self.rank + 1) * M // self.dp) if split
+               else range(M))
+
+        def step(state: TrainState, batch, epoch: int) -> Dict[str, torch.Tensor]:
+            model = state.model
+            self._train_mode(model, epoch)
+            state.optimizer.zero_grad(set_to_none=True)
+            rows = batch["features"].shape[0]
+            if rows % M:
+                raise ValueError(f"pp_schedule='1f1b': a batch of {rows} rows does not divide "
+                                 f"into {M} microbatches")
+            b = self.to_device(batch)   # the whole batch: microbatches, not rows, split dp
+            S = b["features"].shape[1]
+            mb = {k: list(v.chunk(M)) for k, v in b.items()}
+            mask = [p == self.pad_idx for p in mb["past_label"]]
+            dec = model.transformer.decoder
+            pre: Dict[int, Tuple[torch.Tensor, ...]] = {}
+            for m in range(M):
+                if m not in own and not fusion:
+                    continue
+                with torch.set_grad_enabled(m in own):
+                    memory = model.embed(mb["features"][m])
+                    if fusion:   # the BN statistics per microbatch, in order
+                        memory = model.fuser(memory, model.depth_embed(mb["depth_features"][m]))
+                if m in own:
+                    Bm, C = memory.shape[0], memory.shape[-1]
+                    pos = positions(model.pos_embedding, S).to(memory.dtype).expand(Bm, S, C)
+                    query = model.query_embed[None].to(memory.dtype).expand(Bm, -1, -1)
+                    pre[m] = (memory, pos, query)
+            base = draw_base_seed(dec.layers)
+            mine = stage_layers(len(dec.layers), pp)
+
+            def stage_fn(x, c, a, i):
+                for li in mine:
+                    with stage_generators(dec.layers[li], base, li, a["m"]):
+                        x = dec.layers[li](x, c["memory"], c["pos"], c["query_pos"], a["mask"])
+                return x
+
+            def last_fn(y, c, a, i):
+                outputs = model.heads(dec.norm(y), c["memory"])
+                if fusion:
+                    outputs["fused"] = c["memory"].float()
+                return self._losses(outputs, a, epoch, train=True)
+
+            consts = [dict(zip(("memory", "pos", "query_pos"), pre[m])) for m in own]
+            aux = [{"m": m, "mask": mask[m], "past_label": mb["past_label"][m],
+                    "trans_future_target": mb["trans_future_target"][m],
+                    "trans_future_dur": mb["trans_future_dur"][m]} for m in own]
+            inject = [torch.zeros_like(pre[m][2]) for m in own]
+            stage_params = list(dec.layers.parameters())
+            last_params = list(dec.norm.parameters()) + list(model.heads.parameters())
+            _, sums, g_stage, g_last, _, d_consts = pipelined_value_and_grad(
+                stage_fn, last_fn, stage_params, last_params, inject, consts, aux, pp)
+            outs = [t for m in own for t in pre[m]]
+            grads = [c[k] for c in d_consts for k in ("memory", "pos", "query_pos")]
+            torch.autograd.backward(outs, [g.to(t.dtype) for t, g in zip(outs, grads)])
+            for p, g in zip(stage_params + last_params, g_stage + g_last):
+                p.grad = g
+            # the mean over microbatches; replicated microbatches: rank 0's update
+            scale = 1.0 / len(own)
+            if self.dp > 1 and not split:
+                scale = self.dp / M if self.rank == 0 else 0.0
+            for p in model.parameters():
+                if p.grad is not None:
+                    p.grad.mul_(scale)
+            average_gradients(model, self.group)
+            state.apply_gradients()
+            if not split:
+                return self._shared({k: v / M for k, v in sums.items()})
+            return {k: v / (M if k.endswith(_SUM_METRICS) else len(own))
+                    for k, v in sums.items()}
+
+        return step
+
     def make_multi_step(self):
         """multi_step(state, stacked host batch [K, ...], epoch) -> metrics
         summed over K: one copy to the card, then the K steps in order,
@@ -710,6 +857,7 @@ class Trainer:
         accum = max(1, cfg.grad_accum)
         K = accum if accum > 1 else max(1, cfg.steps_per_dispatch)
         group_step = self.make_accum_step() if accum > 1 else self.make_multi_step()
+        one_step = self.make_train_step()
 
         def steps_of(epoch):
             # the BN guard (train_proposed_depth.py:148), then the seg ids
@@ -721,7 +869,7 @@ class Trainer:
                     yield (group_step(state, _stack(batches), epoch), 1 if accum > 1 else n,
                            n * batches[0]["features"].shape[0])
                 else:
-                    yield (self.train_step(state, batches[0], epoch), 1,
+                    yield (one_step(state, batches[0], epoch), 1,
                            batches[0]["features"].shape[0])
 
         return self._epochs(state, seed, start_epoch, steps_of,

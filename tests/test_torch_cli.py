@@ -246,8 +246,7 @@ def test_config_from_args_matches_jax(argv):
 
 @pytest.mark.parametrize("flag,item", [
     (["--rng_impl", "rbg"], "A10"),
-    (["--tensorboard"], "A15"),
-    (["--mesh_pp", "2"], "A14")])
+    (["--tensorboard"], "A15")])
 def test_unported_flags_parse_and_raise(cli_data, tmp_path, flag, item):
     root, _ = cli_data
     argv = ["--data_root", root, "--model_save_path", str(tmp_path), "--cpu", "--epochs", "1",

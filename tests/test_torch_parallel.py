@@ -70,22 +70,19 @@ def test_launch_env_reads_torchrun():
 
 
 @pytest.mark.parametrize("axis", ["sp", "pp"])
-def test_pp_raises_a14_and_sp_takes_every_family(axis):
-    """pp is not ported; sp is, for every family: an sp mesh refuses none
-    (the layout of a 2-rank sp ``DeviceMesh`` stands in for one: building
-    one takes the ranks; ``tests/test_torch_parallel_sp_families.py`` runs
-    them)."""
-    if axis == "pp":
-        with pytest.raises(NotImplementedError, match="A14"):
-            pm.make_mesh(pp=2)
-        return
+def test_sp_and_pp_take_every_family(axis):
+    """sp and pp are ported for every family: a mesh with either refuses
+    none (the layout of a 2-rank ``DeviceMesh`` stands in for one: building
+    one takes the ranks; ``tests/test_torch_parallel_sp_families.py`` and
+    ``tests/test_torch_parallel_pp*.py`` run them)."""
     from r3d_tpu_torch.models.futr_unsupervised import check_gaze_cut
 
-    sp2 = types.SimpleNamespace(mesh_dim_names=pm.DIMS, mesh=torch.empty(1, 1, 1, 2, 1))
-    assert not hasattr(pm, "sp_refusal")
+    shape = (1, 1, 1, 2, 1) if axis == "sp" else (1, 1, 1, 1, 2)
+    mesh = types.SimpleNamespace(mesh_dim_names=pm.DIMS, mesh=torch.empty(*shape))
+    assert not hasattr(pm, "sp_refusal") and not hasattr(pm, "check_mesh")
+    assert pm.mesh_sizes(mesh)[axis] == 2
     for name in ("darai", "darai_gaze", "50salads_proposed", "utkinects"):
-        pm.check_mesh(sp2)
-        check_gaze_cut(pt_config.get_config(name), sp2)
+        check_gaze_cut(pt_config.get_config(name), mesh)
 
 
 def test_no_group_computes_as_without_one():

@@ -32,8 +32,8 @@ the one-process port and the JAX package's sp mesh.
   held to ``fit`` by ``tests/test_torch_device_cache.py`` and
   ``tests/test_torch_dispatch.py``).
 - No process: the sequence cut follows JAX's rule, the device cache
-  gathers a rank's frames alone, and pp raises ``NotImplementedError``
-  naming A14. Every other family runs on sp:
+  gathers a rank's frames alone, and a pp mesh is taken. Every other
+  family runs on sp:
   ``tests/test_torch_parallel_sp_families.py`` holds them.
 """
 
@@ -310,14 +310,14 @@ def test_device_cache_gathers_a_ranks_frames():
 
 def _sp_mesh(sp=2, pp=1):
     """The layout of a ``DeviceMesh`` with ``sp`` and ``pp`` ranks (building
-    one takes the ranks): enough for the refusals, which come first."""
+    one takes the ranks): enough for a constructor."""
     return types.SimpleNamespace(mesh_dim_names=pm.DIMS, mesh=torch.empty(1, 1, 1, sp, pp))
 
 
-def test_pp_still_raises():
+def test_pp_mesh_is_taken():
+    """The trainer and the predictor take a pp mesh (the pipeline runs in
+    ``tests/test_torch_parallel_pp*.py``)."""
     cfg = setup_config("sp_fusion")
-    for target in (lambda m: Trainer(cfg, 6, device="cpu", mesh=m),
-                   lambda m: Predictor(cfg, build_model(cfg.model, 6, (6, 5)), 6, device="cpu",
-                                       mesh=m)):
-        with pytest.raises(NotImplementedError, match="A14"):
-            target(_sp_mesh(sp=1, pp=2))
+    mesh = _sp_mesh(sp=1, pp=2)
+    assert Trainer(cfg, 6, device="cpu", mesh=mesh).mesh is mesh
+    assert Predictor(cfg, build_model(cfg.model, 6, (6, 5)), 6, device="cpu", mesh=mesh).mesh is mesh

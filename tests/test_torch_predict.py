@@ -14,7 +14,6 @@ accumulator equals JAX's exactly on random label arrays.
 """
 
 import dataclasses
-import types
 
 import numpy as np
 import pytest
@@ -263,12 +262,5 @@ def test_helpers_and_l3_accuracy_match_jax(sweep64):
 
 
 def test_unported_options_raise(sweep64):
-    # the layout of a DeviceMesh of 2 ranks with pp = 2 (building one takes
-    # the 2 ranks): dp, ep, tp and sp are ported, pp is not
-    pp2 = types.SimpleNamespace(mesh_dim_names=("dp", "ep", "tp", "sp", "pp"),
-                                mesh=torch.empty(1, 1, 1, 1, 2))
-    with pytest.raises(NotImplementedError, match="A14"):
-        pt_predict.Predictor(sweep64.pcfg, sweep64.ppred.model, N_CLASS, mesh=pp2,
-                             device="cpu")
     with pytest.raises(NotImplementedError, match="A15"):
         sweep64.ppred.predict_multi(sweep64.state_dicts[0], sweep64.psrc, [0.5], gif_dir="g")

@@ -208,8 +208,10 @@ def test_refusals(artifacts, variables):  # noqa: F811
         InferenceSession(pcfg, sd, N_CLASS, device="cpu", quantize="int4")
     with pytest.raises(ValueError, match="input_dtype"):
         InferenceSession(pcfg, sd, N_CLASS, device="cpu", input_dtype="int4")
-    with pytest.raises(NotImplementedError, match="A14"):
-        InferenceSession(pcfg, sd, N_CLASS, device="cpu", mesh=object())
+    # a mesh session is single-device for quantize, as JAX's (export too:
+    # tests/test_torch_parallel_pp_cli.py)
+    with pytest.raises(ValueError, match="single-device"):
+        InferenceSession(pcfg, sd, N_CLASS, device="cpu", mesh=object(), quantize="int8")
     futr = pcfg.replace(model=pt_config.ModelConfig(model="futr", hidden_dim=64, n_head=4,
                                                     n_query=8, input_dim=12, max_pos_len=256))
     model = build_model(futr.model, N_CLASS)

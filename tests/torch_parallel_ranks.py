@@ -114,9 +114,9 @@ def fusion_config(model="futr_fusion_bn", fuser_depth=1, dtype="float32", config
     the 64/128 buckets, dropout 0); ``config`` the package to build it in,
     ``model_extra`` more model fields."""
     m = config
-    model_kw = dict(model=model, hidden_dim=32, n_head=4, n_query=NQ, input_dim=12,
-                    max_pos_len=max(buckets), dropout=0.0, fuser_dropout=0.0,
-                    fuser_depth=fuser_depth, compute_dtype=dtype, **(model_extra or {}))
+    model_kw = dict(dict(model=model, hidden_dim=32, n_head=4, n_query=NQ, input_dim=12,
+                         max_pos_len=max(buckets), dropout=0.0, fuser_dropout=0.0,
+                         fuser_depth=fuser_depth, compute_dtype=dtype), **(model_extra or {}))
     data = dict(dataset="synthetic", gt_format="plain", seq_buckets=buckets,
                 train_obs_percs=OBS, depth_shape=(6, 5),
                 feature_dtype="bfloat16" if dtype == "bfloat16" else "float32")
@@ -135,9 +135,10 @@ def futr_config(model="futr", loop="futr", config=pt_config, n_query=20, moe=Non
     others."""
     m = config
     query = model == "futr_proposed" or queries
-    model_kw = dict(model=model, hidden_dim=32, n_head=4, n_query=NQ if query else n_query,
-                    input_dim=12, n_decoder_layers=2, max_pos_len=max(128, *buckets),
-                    seg_excludes_none=True, dropout=0.0, **(moe or {}), **(model_extra or {}))
+    model_kw = dict(dict(model=model, hidden_dim=32, n_head=4, n_query=NQ if query else n_query,
+                         input_dim=12, n_decoder_layers=2, max_pos_len=max(128, *buckets),
+                         seg_excludes_none=True, dropout=0.0, **(moe or {})),
+                    **(model_extra or {}))
     if query:
         model_kw["query_num"] = QUERY_CLASSES + 1
     data = dict(dataset="50salads", depth_features_dir=None, gt_format="plain",
@@ -218,8 +219,23 @@ SP_FAMILY_EPOCH = {n: 2 if kw.get("loop") == "unsupervised" else 0
                    for n, (_, kw) in SP_FAMILY_SETUPS.items()}
 
 
+# the pipeline-parallel set-ups (``tests/test_torch_parallel_pp*.py``): JAX's
+# ``_deep_futr_setup`` and ``_fusion_cfg`` depth (4 decoder layers, so pp 2
+# and pp 4 split them) over batches of 8 rows in the 128 bucket; MoE with
+# its 2 layers (JAX's ``test_moe_pp_declines_loudly``)
+PP_ROWS = 8
+PP_SETUPS = {
+    "pp_futr": ("futr", dict(buckets=(128,), batch_size=PP_ROWS,
+                             model_extra=dict(n_decoder_layers=4))),
+    "pp_fusion": ("fusion", dict(buckets=(128,), batch_size=PP_ROWS, exclude_class_idx=None,
+                                 model_extra=dict(n_decoder_layers=4))),
+    "pp_moe": ("futr", dict(buckets=(128,), batch_size=PP_ROWS,
+                            moe=dict(moe_experts=2, moe_top_k=1))),
+}
+
+
 def _setup(name):
-    for table in (SETUPS, TP_SETUPS, SP_SETUPS, SP_FAMILY_SETUPS):
+    for table in (SETUPS, TP_SETUPS, SP_SETUPS, SP_FAMILY_SETUPS, PP_SETUPS):
         if name in table:
             return table[name]
     raise KeyError(name)
@@ -316,7 +332,9 @@ def inputs(name, root=None):
         cfg, n_class, batches = dataset_batches(name, root)
         return cfg, n_class, batches[0]
     src = source_for(name)
-    return setup_config(name), src.n_class, next(iter(loader_for(name, src, False)))
+    rows = _setup(name)[1].get("batch_size", 4)
+    return setup_config(name), src.n_class, next(iter(loader_for(name, src, False,
+                                                                   batch_size=rows)))
 
 
 def init_state_dict(name, seed=0, root=None):
@@ -1176,3 +1194,509 @@ def family_cli_arm(mesh, roots, tmp):
                 sweep[cache] = pt_run.predict(c, log=lambda *a: None, device="cpu", mesh=sp)
         out[name] = dict(log=log, results=res, sweep=sweep, chunks=chunks)
     return out
+
+
+# ------------------------------------------------------- pipeline parallelism
+
+# (dp, pp, M) of the pipelined decoder on 4 ranks and on 2: JAX's four
+# parametrisations (tests/test_pipeline_pp.py:50-55) within 4 ranks, and
+# (2, 2, 8), whose microbatch of 1 row does not divide over dp (JAX
+# replicates it: the rows are gathered over dp)
+PP_DECODER_CASES = ((1, 4, 0), (2, 2, 0), (2, 2, 2), (2, 2, 8))
+PP2_DECODER_CASES = ((1, 2, 0), (1, 2, 8))
+
+
+def decoder_setup(n_layers=4, dropout=0.0, B=8, Q=6, S=32, C=16):
+    """JAX's ``_decoder_setup`` shapes (tests/test_pipeline_pp.py:32-47): a
+    seeded ``TransformerDecoder`` of hidden 16, 4 heads and FFN 32; (tgt,
+    memory, pos, query_pos) drawn with numpy, the last 4 keys masked."""
+    from r3d_tpu_torch.models import init_weights
+    from r3d_tpu_torch.models.transformer import TransformerDecoder
+
+    dec = init_weights(TransformerDecoder(C, 4, n_layers, 32, dropout),
+                       torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(0)
+    args = [torch.from_numpy(rng.randn(*shape).astype(np.float32))
+            for shape in ((B, Q, C), (B, S, C), (B, S, C), (B, Q, C))]
+    mask = torch.zeros(B, S, dtype=torch.bool)
+    mask[:, S - 4:] = True
+    return dec, args, mask
+
+
+def decoder_pass(dec, args, mask, rows=None):
+    """The decoder on ``rows`` of the inputs (all of them for None), the
+    loss the sum of its squared outputs: (output, parameter gradients,
+    the inputs' gradients)."""
+    leaves = [a.clone().requires_grad_() for a in args]
+    part = [a if rows is None else a[rows] for a in leaves]
+    out = dec(*part, mask if rows is None else mask[rows])
+    (out ** 2).sum().backward()
+    return (out.detach(), {n: p.grad.clone() for n, p in dec.named_parameters()},
+            [a.grad for a in leaves])
+
+
+@contextlib.contextmanager
+def layer_calls(dec, calls):
+    """Within: each call of a layer of ``dec`` counted in ``calls`` by its index."""
+    saved = [layer.forward for layer in dec.layers]
+    for i, layer in enumerate(dec.layers):
+        def counted(*a, _f=saved[i], _i=i, **kw):
+            calls[_i] = calls.get(_i, 0) + 1
+            return _f(*a, **kw)
+        layer.forward = counted
+    try:
+        yield
+    finally:
+        for layer, f in zip(dec.layers, saved):
+            layer.forward = f
+
+
+def decoder_arm(dp, pp, M, gather_hops=False):
+    """The pipelined decoder on ``make_mesh(dp, pp)`` with M microbatches
+    (0: auto), each dp rank on its rows: its output, the gradients summed
+    over dp (the loss is a sum), its rows, and each layer's calls on this
+    rank. ``gather_hops``: the hops take the all-gather that gloo takes on
+    CUDA tensors."""
+    from r3d_tpu_torch.parallel import pipeline as pl
+    from r3d_tpu_torch.parallel.mesh import dp_group, place_model, split_mesh
+
+    mesh = make_mesh(dp=dp, pp=pp)
+    pl.set_pipeline_microbatches(M)
+    saved = pl._p2p
+    if gather_hops:
+        pl._p2p = lambda t, g: False
+    try:
+        dec, args, mask = decoder_setup()
+        place_model(dec, mesh)
+        rows = batch_sharding(mesh, args[0].shape[0])
+        calls = {}
+        with split_mesh(mesh, rows is not None, False), layer_calls(dec, calls):
+            out, grads, arg_grads = decoder_pass(dec, args, mask, rows)
+    finally:
+        pl._p2p = saved
+        pl.set_pipeline_microbatches(0)
+    if dp > 1:
+        for g in list(grads.values()) + arg_grads:
+            dist.all_reduce(g, group=dp_group(mesh))
+    return dict(out=out, grads=grads, arg_grads=arg_grads, rows=rows, calls=calls)
+
+
+def decoder_dropout_arm(pp, seeds=(5, 5, 6)):
+    """The pipelined decoder (dropout 0.3, train mode) on ``make_mesh(dp=1,
+    pp=pp)`` once per seed of its generators: the outputs."""
+    from r3d_tpu_torch.models.layers import set_generators
+    from r3d_tpu_torch.parallel.mesh import place_model
+
+    mesh = make_mesh(dp=1, pp=pp)
+    dec, args, mask = decoder_setup(dropout=0.3)
+    place_model(dec, mesh)
+    dec.train()
+    outs = []
+    for s in seeds:
+        set_generators(dec, torch.Generator().manual_seed(s), torch.Generator().manual_seed(s))
+        with torch.no_grad():
+            outs.append(dec(*args, mask))
+    return outs
+
+
+def pp_config(name, M=0, schedule="gpipe", dropout=None, **train_kw):
+    cfg = setup_config(name, **train_kw)
+    cfg = cfg.replace(mesh=dataclasses.replace(cfg.mesh, pp_microbatches=M,
+                                               pp_schedule=schedule))
+    if dropout is not None:
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model, dropout=dropout,
+                                                    fuser_dropout=dropout))
+    return cfg
+
+
+@contextlib.contextmanager
+def captured_grads(state, grads):
+    """Within: each update's gradients (after the group's reduction) copied
+    into ``grads`` by name, whole."""
+    saved = state.apply_gradients
+
+    def capture():
+        grads.clear()
+        grads.update(_grads(state.model))
+        saved()
+
+    state.apply_gradients = capture
+    try:
+        yield
+    finally:
+        state.apply_gradients = saved
+
+
+def pp_step_arm(mesh, name, state_dict, M=0, schedule="gpipe", epoch=0, dropout=None,
+                steps=1, fsdp=False):
+    """``steps`` updates of ``name``'s first batch from ``state_dict`` on
+    ``mesh`` (None: one process; ``make_train_step``: GPipe, or 1F1B with
+    ``schedule="1f1b"``), after the trainer seeds dropout: each update's
+    metrics, the last update's gradients, the whole state after, this rank's
+    own tensors, its warnings and its decoder layers' calls."""
+    import warnings as w
+
+    from r3d_tpu_torch.parallel import pipeline as pl
+
+    cfg, n_class, batch = inputs(name)
+    cfg = pp_config(name, M, schedule, dropout)
+    cfg = cfg.replace(mesh=dataclasses.replace(cfg.mesh, fsdp=fsdp))
+    trainer = Trainer(cfg, n_class, device="cpu", mesh=mesh)
+    state = trainer.init_state(5, state_dict)
+    if mesh is not None:
+        state = shard_state(state, mesh, fsdp=fsdp)
+    trainer._seed_dropout(state, seed=1, start_epoch=0)
+    pl.set_pipeline_microbatches(M)
+    grads, metrics, calls = {}, [], {}
+    try:
+        with w.catch_warnings(record=True) as seen, captured_grads(state, grads), \
+                layer_calls(state.model.transformer.decoder, calls):
+            w.simplefilter("always")
+            step = trainer.make_train_step()
+            for _ in range(steps):
+                metrics.append(trainer._to_host(step(state, batch, epoch)))
+    finally:
+        pl.set_pipeline_microbatches(0)
+    own = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+    return dict(metrics=metrics, grads=grads, state=_sd(state.model), own=own, calls=calls,
+                warnings=sorted({str(x.message) for x in seen
+                                 if issubclass(x.category, pl.PipelineFallbackWarning)}))
+
+
+def accum_arm(name, state_dict, M, epoch=0):
+    """The one-process oracle of the 1F1B step: ``make_accum_step`` over
+    ``name``'s first batch cut into M microbatches in row order."""
+    cfg, n_class, batch = inputs(name)
+    trainer = Trainer(cfg, n_class, device="cpu")
+    state = trainer.init_state(5, state_dict)
+    stacked = {k: torch.stack(list(v.chunk(M))) for k, v in batch.items()}
+    grads = {}
+    with captured_grads(state, grads):
+        metrics = trainer.make_accum_step()(state, stacked, epoch)
+    return dict(metrics=[_to_float(metrics)], grads=grads, state=_sd(state.model))
+
+
+def _to_float(metrics):
+    return {k: float(v) for k, v in metrics.items()}
+
+
+def one_f_one_b_reference(name, state_dict, M, pp, seed=1, dropout=0.1):
+    """The 1F1B step's gradient with dropout by autograd in one process
+    through the same masks: for each microbatch in order, the pre, then
+    each decoder layer under the generators of (base seed, its global
+    index, the microbatch) (``parallel.pipeline.stage_generators``, the
+    base drawn as the pipelined step draws it), the heads and the losses;
+    the mean of the microbatches' gradients."""
+    from r3d_tpu_torch.models.futr import positions
+    from r3d_tpu_torch.parallel.pipeline import draw_base_seed, stage_generators
+
+    cfg, n_class, batch = inputs(name)
+    cfg = pp_config(name, M, "1f1b", dropout)
+    trainer = Trainer(cfg, n_class, device="cpu")
+    state = trainer.init_state(5, state_dict)
+    trainer._seed_dropout(state, seed=seed, start_epoch=0)
+    model = state.model
+    model.train()
+    dec = model.transformer.decoder
+    mb = {k: list(v.chunk(M)) for k, v in batch.items()}
+    pre = []
+    for m in range(M):
+        memory = model.embed(mb["features"][m])
+        S, C = memory.shape[1], memory.shape[-1]
+        pos = positions(model.pos_embedding, S).to(memory.dtype).expand(memory.shape[0], S, C)
+        query = model.query_embed[None].expand(memory.shape[0], -1, -1)
+        pre.append((memory, pos, query))
+    base = draw_base_seed(dec.layers)
+    assert base is not None
+    for m in range(M):
+        memory, pos, query = pre[m]
+        x = torch.zeros_like(query)
+        mask = mb["past_label"][m] == trainer.pad_idx
+        for li, layer in enumerate(dec.layers):
+            with stage_generators(layer, base, li, m):
+                x = layer(x, memory, pos, query, mask)
+        outputs = model.heads(dec.norm(x), memory)
+        total, _ = trainer._losses(outputs, {k: v[m] for k, v in mb.items()}, 0, train=True)
+        (total / M).backward()
+    return {n: p.grad.clone() for n, p in model.named_parameters() if p.grad is not None}
+
+
+def toy_1f1b_arm(pp, cases):
+    """JAX's toy problem (tests/test_pipeline_1f1b.py:20-90) through the
+    port's ``pipelined_value_and_grad`` on ``make_mesh(dp, pp)``, for each
+    (M, Bm) of ``cases``: (loss, correct, stage, last, inject and side
+    gradients)."""
+    from r3d_tpu_torch.parallel.pipeline_1f1b import pipelined_value_and_grad
+    from r3d_tpu_torch.parallel.mesh import axis
+
+    mesh = make_mesh(dp=dist.get_world_size() // pp, pp=pp)
+    ax = axis(mesh, "pp")
+    out = []
+    for M, Bm in cases:
+        w, b, head, inject, side, tgt = toy_problem(M, Bm)
+        L = w.shape[0]
+        mine = range(ax.rank * L // pp, (ax.rank + 1) * L // pp)
+
+        def stage(x, c, a, i):
+            for l in mine:
+                x = torch.tanh(x @ w[l] + b[l] + c["side"])
+            return x
+
+        def last(y, c, a, i):
+            return toy_last(y, head, a["tgt"])
+
+        res = pipelined_value_and_grad(
+            stage, last, [w, b], [head], [inject[m] for m in range(M)],
+            [{"side": side[m]} for m in range(M)], [{"tgt": tgt[m]} for m in range(M)], ax)
+        loss, metrics, g_stage, g_last, d_inject, d_consts = res
+        out.append(dict(loss=loss, correct=metrics["correct"], w=g_stage[0], b=g_stage[1],
+                        head=g_last[0], inject=torch.stack(d_inject),
+                        side=torch.stack([c["side"] for c in d_consts])))
+    return out
+
+
+def toy_problem(M, Bm, L=8, F=8, seed=0):
+    """JAX's ``_toy_problem`` (its numpy draws): stacked [L, F, F] weights,
+    [L, F] biases, a [F, 5] head, [M, Bm, F] inputs and side inputs, [M,
+    Bm] targets, fp64."""
+    rng = np.random.RandomState(seed)
+    w = torch.from_numpy(rng.randn(L, F, F) * 0.3).requires_grad_()
+    b = torch.from_numpy(rng.randn(L, F) * 0.1).requires_grad_()
+    head = torch.from_numpy(rng.randn(F, 5) * 0.3).requires_grad_()
+    inject = torch.from_numpy(rng.randn(M, Bm, F))
+    side = torch.from_numpy(rng.randn(M, Bm, F) * 0.5)
+    tgt = torch.from_numpy(rng.randint(0, 5, (M, Bm)))
+    return w, b, head, inject, side, tgt
+
+
+def toy_last(y, head, tgt):
+    logits = y @ head
+    nll = -torch.log_softmax(logits, -1).gather(1, tgt[:, None])[:, 0]
+    loss = nll.sum()
+    return loss, {"correct": (logits.argmax(-1) == tgt).double().sum(), "loss": loss}
+
+
+UNSUPPORTED_1F1B = {   # name -> (set-up, model fields, train fields)
+    "afft": ("pp_fusion", dict(model="afft"), {}),
+    "futr_unsupervised": ("pp_futr", dict(model="futr_unsupervised", query_num=5), {}),
+    "loop": ("pp_futr", {}, dict(loop="unsupervised")),
+    "stages": ("pp_futr", dict(n_decoder_layers=3), {}),
+    "encoder": ("pp_futr", dict(use_encoder=True, n_encoder_layers=1), {}),
+    "moe": ("pp_moe", {}, {}),
+    "pos_emb": ("pp_futr", dict(pos_emb=False), {}),
+    "batch": ("pp_futr", {}, dict(batch_size=6)),
+    "grad_accum": ("pp_futr", {}, dict(grad_accum=2)),
+    "fsdp": ("pp_futr", {}, {}),
+    "tp": ("pp_futr", {}, {}),   # on a tp mesh
+}
+
+
+def unsupported_1f1b(mesh, keys):
+    """Each configuration of ``keys`` (``UNSUPPORTED_1F1B``) on ``mesh``: the
+    message of the ``ValueError`` its ``make_train_step`` raised (None where
+    none)."""
+    out = {}
+    for key in keys:
+        name, model_kw, train_kw = UNSUPPORTED_1F1B[key]
+        cfg = pp_config(name, 4, "1f1b")
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model, **model_kw),
+                          train=dataclasses.replace(cfg.train, **train_kw))
+        if key == "fsdp":
+            cfg = cfg.replace(mesh=dataclasses.replace(cfg.mesh, fsdp=True))
+        try:
+            Trainer(cfg, 7, device="cpu", mesh=mesh).make_train_step()
+            out[key] = None
+        except ValueError as e:
+            out[key] = str(e)
+    return out
+
+
+def gpipe_group(mesh, init):
+    """The 4-rank arms of ``tests/test_torch_parallel_pp.py``: the decoder
+    cases (and one with the all-gather hops), its dropout, and the steps on
+    dp 2 x pp 2 (M = 2; with FSDP; MoE, which declines), tp 2 x pp 2 and sp
+    2 x pp 2 (which declines), and two fusion steps with dropout 0.1 on dp 2
+    x pp 2."""
+    dppp = make_mesh(dp=2, pp=2)
+    futr = init["pp_futr"]
+    return dict(
+        decoder={c: decoder_arm(*c) for c in PP_DECODER_CASES},
+        gather_hops=decoder_arm(2, 2, 0, gather_hops=True),
+        dropout=decoder_dropout_arm(4),
+        dppp=pp_step_arm(dppp, "pp_futr", futr, M=2, steps=2),
+        fsdp=pp_step_arm(dppp, "pp_futr", futr, fsdp=True),
+        moe=pp_step_arm(dppp, "pp_moe", init["pp_moe"]),
+        tppp=pp_step_arm(make_mesh(dp=1, tp=2, pp=2), "pp_futr", futr),
+        sppp=pp_step_arm(make_mesh(dp=1, sp=2, pp=2), "pp_futr", futr),
+        fusion_dropout=pp_step_arm(dppp, "pp_fusion", init["pp_fusion"], dropout=0.1, steps=2))
+
+
+def gpipe2_group(mesh, init):
+    """The 2-rank arms: the decoder on pp 2, and a futr step on dp 1 x pp 2."""
+    return dict(decoder={c: decoder_arm(*c) for c in PP2_DECODER_CASES},
+                step=pp_step_arm(make_mesh(dp=1, pp=2), "pp_futr", init["pp_futr"]))
+
+
+def one_f_one_b_group(mesh, init):
+    """The 4-rank arms of ``tests/test_torch_parallel_pp_1f1b.py``: JAX's toy
+    problem on pp 4 and on dp 2 x pp 2, the 1F1B steps of futr (pp 4, M =
+    4; dp 2 x pp 2, M = 4 and M = 1, which dp does not divide) and of the
+    fusion model (dp 2 x pp 2, M = 4, epoch 0 and the sticky epoch), and the
+    refusals."""
+    dppp = make_mesh(dp=2, pp=2)
+    futr, fusion = init["pp_futr"], init["pp_fusion"]
+    refused = [k for k in UNSUPPORTED_1F1B if k != "tp"]
+    return dict(
+        toy4=toy_1f1b_arm(4, TOY_CASES[4]), toy2=toy_1f1b_arm(2, TOY_CASES[2]),
+        futr_pp4=pp_step_arm(make_mesh(dp=1, pp=4), "pp_futr", futr, M=4, schedule="1f1b"),
+        futr=pp_step_arm(dppp, "pp_futr", futr, M=4, schedule="1f1b"),
+        futr_m1=pp_step_arm(dppp, "pp_futr", futr, M=1, schedule="1f1b"),
+        fusion=pp_step_arm(dppp, "pp_fusion", fusion, M=4, schedule="1f1b"),
+        fusion_frozen=pp_step_arm(dppp, "pp_fusion", fusion, M=4, schedule="1f1b", epoch=1),
+        refused=unsupported_1f1b(dppp, refused),
+        refused_tp=unsupported_1f1b(make_mesh(dp=1, tp=2, pp=2), ["tp"]))
+
+
+TOY_CASES = {4: ((4, 4), (8, 2)), 2: ((3, 4),)}   # pp -> (M, Bm), JAX's parametrisation
+
+
+def one_f_one_b2_group(mesh, init):
+    """The 2-rank arms: the futr 1F1B step with dropout 0.1 on dp 1 x pp 2
+    (M = 2), and the fusion model's (M = 2)."""
+    pp2 = make_mesh(dp=1, pp=2)
+    return dict(dropout=pp_step_arm(pp2, "pp_futr", init["pp_futr"], M=2, schedule="1f1b",
+                                    dropout=0.1),
+                fusion=pp_step_arm(pp2, "pp_fusion", init["pp_fusion"], M=2, schedule="1f1b"))
+
+
+# the CLI on dp 1 x pp 2 (tests/test_torch_parallel_pp_cli.py): run -> (schedule, device cache)
+PP_CLI_RUNS = {"gpipe_host": ("gpipe", False), "1f1b_cached": ("1f1b", True),
+               "1f1b_host": ("1f1b", False)}
+
+
+def pp_cli_config(root, save_dir, pp=1, schedule="gpipe", cache=True):
+    """``cli_config`` with 2 decoder layers (pp 2 splits them), eval
+    batches of 4 (M = 2 divides them), ``--mesh_pp`` and ``--pp_schedule``,
+    the device cache on or off."""
+    cfg = cli_config(root, save_dir, eval_batch=4)
+    return cfg.replace(model=dataclasses.replace(cfg.model, n_decoder_layers=2),
+                       train=dataclasses.replace(cfg.train, device_cache=cache),
+                       mesh=dataclasses.replace(cfg.mesh, pp=pp, pp_schedule=schedule))
+
+
+def pp_cli_arm(tmp, root):
+    """``cli.run.main`` train_eval for each ``PP_CLI_RUNS`` run with
+    ``--mesh_pp 2`` on the group the harness formed (the CLI's mesh: dp 1,
+    pp 2), then the one-process host run's checkpoint (under
+    ``tmp/one_host``) swept on that mesh, host collate and the cached
+    route, with each chunk's outputs."""
+    from r3d_tpu_torch.cli import run as pt_run
+
+    out = {}
+    for key, (schedule, cache) in PP_CLI_RUNS.items():
+        cfg = pp_cli_config(root, f"{tmp}/{key}", 2, schedule, cache)
+        log = []
+        res = pt_run.main(cfg, mode="train_eval", log=log.append, device="cpu",
+                          results_save_path=f"{tmp}/{key}_results")
+        out[key] = dict(log=log, results=res)
+    pp = make_mesh(dp=1, pp=2)
+    sweep, chunks = {}, {}
+    for cache in (False, True):
+        c = pp_cli_config(root, f"{tmp}/one_host", cache=cache)
+        chunks[cache] = []
+        with sweep_outputs(chunks[cache]):
+            sweep[cache] = pt_run.predict(c, log=lambda *a: None, device="cpu", mesh=pp)
+    out.update(sweep=sweep, chunks=chunks)
+    return out
+
+
+PP_FITS = ("fit", "fit_cached")
+
+
+def serving_configs():
+    """The sessions' configs: utkinects' fusion model at hidden 32 (4 heads,
+    8 queries, depth 6 x 5), and futr with 2 decoder layers at hidden 32,
+    both fp32 in the 128 and 256 buckets."""
+    model = dict(hidden_dim=32, n_head=4, n_query=8, input_dim=12, max_pos_len=256,
+                 embed_dtype=None, compute_dtype="float32")
+    data = dict(depth_shape=(6, 5), seq_buckets=(128, 256), feature_dtype="float32")
+    utk = pt_config.get_config("utkinects")
+    futr = pt_config.get_config("50salads")
+    return dict(
+        utk=utk.replace(model=dataclasses.replace(utk.model, **model),
+                        data=dataclasses.replace(utk.data, **data)),
+        futr=futr.replace(model=dataclasses.replace(futr.model, n_decoder_layers=2, **model),
+                          data=dataclasses.replace(futr.data, **data)))
+
+
+SERVING_LENGTHS = (100, 128, 60, 200, 90)   # a chunk of 4 in the 128 bucket, 1 in the 256
+
+
+def serving_videos(depth, seed=0):
+    rng = np.random.RandomState(seed)
+    return [dict({"features": rng.randn(n, 12).astype(np.float32)},
+                 **({"depth": rng.rand(n, 6, 5).astype(np.float32)} if depth else {}))
+            for n in SERVING_LENGTHS]
+
+
+def serving_weights():
+    from r3d_tpu_torch.models import build_model, init_weights
+
+    return {k: init_weights(build_model(c.model, 17, c.data.depth_shape),
+                            torch.Generator().manual_seed(3)).state_dict()
+            for k, c in serving_configs().items()}
+
+
+SERVING_MESHES = {"dp": ("utk", dict(dp=2)), "tp": ("utk", dict(dp=1, tp=2)),
+                  "pp": ("futr", dict(dp=1, pp=2))}
+
+
+def serving_arm(weights):
+    """``InferenceSession(mesh=)`` on each ``SERVING_MESHES`` mesh: its
+    results; on dp 2 the ``ServingQueue`` results with this rank's own
+    submission timing; the ``ValueError``s of ``quantize`` and ``export`` on
+    a mesh."""
+    import time as _time
+
+    from r3d_tpu_torch.serving import InferenceSession, ServingQueue
+
+    cfgs = serving_configs()
+    out = {}
+    for key, (kind, sizes) in SERVING_MESHES.items():
+        mesh = make_mesh(**sizes)
+        session = InferenceSession(cfgs[kind], weights[kind], 17, max_batch=4, device="cpu",
+                                   mesh=mesh)
+        videos = serving_videos(kind == "utk")
+        out[key] = session.anticipate_batch(videos, future_len=25)
+        if key == "dp":
+            q = ServingQueue(session, max_wait_ms=20)
+            futures = []
+            for i, v in enumerate(videos):
+                _time.sleep(0.004 * i * (1 + 3 * dist.get_rank()))
+                futures.append(q.submit(v["features"], v["depth"], future_len=25))
+            out["queue"] = [f.result() for f in futures]
+            q.close()
+            try:
+                session.export("unused")
+                out["export"] = None
+            except ValueError as e:
+                out["export"] = str(e)
+            try:
+                InferenceSession(cfgs[kind], weights[kind], 17, device="cpu", mesh=mesh,
+                                 quantize="int8")
+                out["quantize"] = None
+            except ValueError as e:
+                out["quantize"] = str(e)
+    return out
+
+
+def pp_cli_group(mesh, tmp, root, init, ckpt_in, ckpt_out, weights):
+    """The 2-rank arms of ``tests/test_torch_parallel_pp_cli.py``: the CLI runs
+    and sweeps (``pp_cli_arm``), ``fit`` and ``fit_cached`` of the fusion
+    model (4 decoder layers) on dp 1 x pp 2, one process's checkpoint
+    restored there and a step later saved, and the serving sessions."""
+    pp = make_mesh(dp=1, pp=2)
+    return dict(cli=pp_cli_arm(tmp, root),
+                fits=[fit_arm(pp, route, name="pp_fusion") for route in PP_FITS],
+                checkpoint=checkpoint_arm(pp, init, ckpt_in, ckpt_out, name="pp_futr"),
+                serving=serving_arm(weights))
