@@ -8509,6 +8509,203 @@ def cards_main() -> int:
     return 0
 
 
+NATIVE_DIR = "build/native_phase"   # under the checkout (git-ignored), removed after the phase
+NATIVE_VIDEOS = (8, 2)              # train and val videos of the utkinect layout at full width
+NATIVE_LENGTHS = (600, 1000)        # frames a video
+NATIVE_OBS = (0.3, 0.4, 0.5)        # the fit's ratios: windows of 180-500 rows, the 256 and
+                                    # 512 buckets, 3 batches of 8 an epoch
+
+
+def same_example(a, b):
+    """Two examples equal field by field, bit for bit (dtypes and shapes too)."""
+    for f in ("features", "past_label", "trans_future_target", "trans_future_dur",
+              "depth_features", "query_label"):
+        x, y = getattr(a, f), getattr(b, f)
+        if (x is None) != (y is None) or x is not None and not (
+                x.dtype == y.dtype and x.shape == y.shape and np.array_equal(x, y)):
+            return False
+    return (a.vid_name, a.obs_perc) == (b.vid_name, b.obs_perc)
+
+
+def native_loader(kernels, card, state_dict):
+    """The native host loader on the utkinects training path (A9): build
+    ``native/fastloader.cpp`` with the host's C++ compiler; write a utkinect
+    layout at full width (``NATIVE_VIDEOS`` videos of ``NATIVE_LENGTHS``
+    frames, 2,048-d fp32 features, 160x120 fp32 depth); hold every example
+    of the config's train table from ``VideoSource(cache='native')`` to the
+    RAM path's, bit for bit, with as many native loads as examples and no
+    fall-through, timing each load against a cold RAM-path load (``np.load``
+    of the whole video and the slice; the files are in the page cache, so
+    both reads are warm); then ``Trainer.fit`` for 2 epochs of 3 steps over
+    the native source at ``NATIVE_OBS`` with every launch count set to 0 and
+    ``MetricsLogger(tensorboard=True)``, whose events must read back equal
+    to its JSONL, and K1 (both routes), K2, K3, K4 and K5 each launched;
+    the same fit over the RAM source, in the same batch order, must end in
+    the same state bit for bit; two fits under ``rng_impl="rbg"`` equal to
+    each other, another than the threefry fit, K4 and K5 launched; and one
+    step under ``utils.profiling.profile_trace`` whose trace names an
+    annotated region and the port's kernels. Returns the native fit's
+    launch counts."""
+    import dataclasses
+    import json as _json
+    import os
+    import shutil
+    import statistics
+
+    import torch
+
+    from r3d_tpu_torch.config import get_config
+    from r3d_tpu_torch.data import native
+    from r3d_tpu_torch.data.datasets import VideoSource, build_loader, build_source
+    from r3d_tpu_torch.train.loop import Trainer
+    from r3d_tpu_torch.utils.metrics import MetricsLogger
+    from r3d_tpu_torch.utils.profiling import TRACE_FILE, annotate, profile_trace
+    from r3d_tpu_torch.utils.tbwriter import read_events
+
+    t0 = time.perf_counter()
+    so = native.build()
+    print(f"native: {native.compiler()} {' '.join(native.CXX_FLAGS)} built {so} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(here, NATIVE_DIR)
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        root = write_utkinect_dataset(os.path.join(work, "data"), *NATIVE_VIDEOS, NATIVE_LENGTHS)
+        size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+        print(f"native: utkinect layout, {NATIVE_VIDEOS[0]} + {NATIVE_VIDEOS[1]} videos of "
+              f"{NATIVE_LENGTHS[0]}-{NATIVE_LENGTHS[1]} frames, {size / 2**20:.0f} MiB written in "
+              f"{time.perf_counter() - t0:.2f} s")
+        base = get_config("utkinects")
+        cfg = base.replace(data=dataclasses.replace(base.data, data_root=root),
+                           train=dataclasses.replace(base.train, epochs=2))
+        sr, nq = cfg.data.sample_rate, cfg.model.n_query
+
+        def sources(split):
+            ram = build_source(cfg.data, split)
+            args = (ram.vid_list, ram.actions_dict, ram.n_class, ram.pad_idx, ram.query_dict)
+            return ram, VideoSource(cfg.data, *args, cache="native"), args
+
+        ram, nat, args = sources("train_split.txt")
+        table = [(u, o) for u in ram.units() for o in cfg.data.train_obs_percs]
+        native.STATS.reset()
+        t_native, t_ram = [], []
+        for (vid, seq), o in table:
+            t1 = time.perf_counter()
+            got = nat.make_example(vid, o, sr, nq, seq)
+            t2 = time.perf_counter()
+            want = VideoSource(cfg.data, *args).make_example(vid, o, sr, nq, seq)
+            t3 = time.perf_counter()
+            t_native.append(1e3 * (t2 - t1))
+            t_ram.append(1e3 * (t3 - t2))
+            if not same_example(got, want):
+                raise AssertionError(f"native: the example of {vid} at {o} is not the RAM "
+                                     "path's")
+        stats = native.STATS.as_dict()
+        if stats != {"loads": len(table), "fallbacks": 0, "depth_misses": 0}:
+            raise AssertionError(f"native: {len(table)} examples, counted {stats}")
+        print(f"native: {len(table)} examples of the train table ({len(ram.units())} videos x "
+              f"{len(cfg.data.train_obs_percs)} ratios) equal to the RAM path's bit for bit, "
+              f"{stats}; per-example load median {statistics.median(t_native):.2f} ms native "
+              f"against {statistics.median(t_ram):.2f} ms RAM path (np.load + slice; warm page "
+              f"cache) on {card}")
+
+        fit_cfg = cfg.replace(data=dataclasses.replace(cfg.data, train_obs_percs=NATIVE_OBS))
+        val_ram, val_nat, _ = sources("val_split.txt")
+        by_name = {k.name: k for k in kernels}
+        path = ("fused_safuser_tail", "fused_bn_blend_tail", "fused_tail_bwd", "flash_attention",
+                "flash_attention_dropout", "attention_bwd")
+
+        def fit(train_src, val_src, rng_impl=None, logger=None):
+            c = fit_cfg.replace(train=dataclasses.replace(fit_cfg.train, rng_impl=rng_impl))
+            loader = build_loader(train_src, c.data, c.train.batch_size, nq, mode="train",
+                                  seed=SEED, pin_memory=True)
+            val = build_loader(val_src, c.data, c.train.batch_size, nq, mode="val",
+                               shuffle=False, pin_memory=True)
+            trainer = Trainer(c, train_src.n_class)
+            state = trainer.init_state(len(loader), state_dict)
+            for k in kernels:
+                k.launches = 0
+            native.STATS.reset()
+            lines = []
+            t1 = time.perf_counter()
+            trainer.fit(state, loader, val, seed=SEED, log=lines.append, metrics_logger=logger)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t1
+            losses = [float(x) for line in lines
+                      for x in re.findall(r"Loss ?: ?(-?[0-9.]+|nan|inf)", line)]
+            if (len(losses) != 4 or not all(math.isfinite(x) for x in losses)
+                    or state.step != 2 * len(loader)):
+                raise AssertionError(f"native fit: {state.step} steps, {lines}")
+            counts = {n: by_name[n].launches for n in path}
+            print(f"native: fit over the {'native' if train_src.cache == 'native' else 'RAM'} "
+                  f"source, rng_impl {rng_impl}: 2 epochs of {len(loader)} steps in {dt:.2f} s, "
+                  f"losses {losses}, loader {native.STATS.as_dict()}, launches {counts}")
+            return state, {k.name: k.launches for k in kernels}, trainer, loader
+
+        logger = MetricsLogger(os.path.join(work, "metrics"), run_name="native",
+                               tensorboard=True)
+        try:
+            s_native, counts, trainer, loader = fit(nat, val_nat, logger=logger)
+        finally:
+            logger.close()
+        unused = [n for n in path if counts[n] == 0]
+        if unused:
+            raise AssertionError(f"native: the fit never launched {unused}")
+        with open(logger.path) as f:
+            records = [_json.loads(line) for line in f]
+        tb = os.path.join(work, "metrics", "tb", "native")
+        events = [e for name in os.listdir(tb) for e in read_events(os.path.join(tb, name))]
+        got = {}
+        for e in events[1:]:
+            got.setdefault(e["step"], {}).update(e["scalars"])
+        want = {r["step"]: {k: float(np.float32(v)) for k, v in r.items()
+                            if k not in ("time", "step") and isinstance(v, (int, float))}
+                for r in records}
+        if len(records) != 2 or got != want:
+            raise AssertionError(f"native: TensorBoard events {got} against the JSONL {want}")
+        print(f"native: TensorBoard events of {len(records)} records ({len(events) - 1} "
+              "scalars) equal to the JSONL")
+        s_ram, _, _, _ = fit(ram, val_ram)
+        differ = unequal(s_native.model.state_dict(), s_ram.model.state_dict())
+        if differ:
+            raise AssertionError(f"native: the native-fed fit is not the RAM-fed fit: {differ}")
+        print("native: the native-fed fit's final state equals the RAM-fed fit's bit for bit")
+        s_rbg, c_rbg, _, _ = fit(nat, val_nat, rng_impl="rbg")
+        s_rbg2, _, _, _ = fit(nat, val_nat, rng_impl="rbg")
+        if (unequal(s_rbg.model.state_dict(), s_rbg2.model.state_dict())
+                or not unequal(s_rbg.model.state_dict(), s_native.model.state_dict())):
+            raise AssertionError("native: rng_impl='rbg' fits are not equal to each other, "
+                                 "or equal the threefry fit")
+        if not (c_rbg["flash_attention_dropout"] and c_rbg["attention_bwd"]):
+            raise AssertionError(f"native: the rbg fit launched no K4 or K5: {c_rbg}")
+        print("native: two rng_impl='rbg' fits equal bit for bit, the threefry fit another")
+
+        batch = trainer.to_device(one_batch(loader, 0))
+        seen = set()
+        for attempt in range(3):   # a trace now and then comes back without device events
+            with profile_trace(os.path.join(work, "trace")):
+                with annotate("native_step"):
+                    s_native.model.train()
+                    s_native.optimizer.zero_grad(set_to_none=True)
+                    trainer._grad_core(s_native.model, batch)
+                    s_native.apply_gradients()
+            with open(os.path.join(work, "trace", TRACE_FILE)) as f:
+                trace = _json.load(f)["traceEvents"]
+            names = {e.get("name", "") for e in trace}
+            seen = {k for k in OWN_KERNELS if any(k in n for n in names)}
+            if "native_step" in names and seen:
+                break
+        if "native_step" not in names or not seen:
+            raise AssertionError(f"native: profile_trace's trace names no annotated region or "
+                                 f"no kernel of the port: {sorted(names)[:40]}")
+        print(f"native: profile_trace's trace names 'native_step' and the port's kernels "
+              f"{sorted(seen)} (attempt {attempt + 1})")
+        return counts
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 _LAP = [0.0]
 PHASE_SECONDS = {}   # phase -> its seconds in this run, as printed
 
@@ -8796,6 +8993,9 @@ def main() -> int:
     if unused:
         raise AssertionError(f"the pipeline_parallel phase never launched {unused}")
     lap("pipeline_parallel")
+    # the native host loader (A9) on the utkinects training path, rng_impl, the side channels
+    native_counts = native_loader(kernels, card, state_dict)
+    lap("native_loader")
     tp_shape_err = {k.name: tp_shapes[key][1] for k, key in (
         (att.KERNEL, "K3 fp32"), (att.DROPOUT_KERNEL, "K4 fp32"), (att.BWD_KERNEL, "K5 fp32"),
         (att.KERNEL_BF16, "K3 bf16"), (att.DROPOUT_KERNEL_BF16, "K4 bf16"),
@@ -8813,7 +9013,8 @@ def main() -> int:
         "tp_launches": tp_counts,   # the two ranks' tp, ep and dp arms (A14), both summed
         "sp_launches": sp_counts,   # the two ranks' sp arms (A14), both summed
         "spf_launches": spf_counts,   # the two ranks' arms of every other family on sp
-        "pp_launches": pp_counts}   # the two ranks' GPipe and 1F1B arms on pp, both summed
+        "pp_launches": pp_counts,   # the two ranks' GPipe and 1F1B arms on pp, both summed
+        "native_launches": native_counts}   # the fit fed by the native loader
 
     def a114_columns(name):
         return {**{col: counts[name] for col, counts in a114.items()},

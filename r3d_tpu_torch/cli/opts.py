@@ -2,9 +2,8 @@
 
 The port's own copy of ``r3d_tpu/cli/opts.py``, with the same flags: every
 flag of the reference parser is accepted, ``--config <name>`` selects a
-named Config of the port, and individual flags override its fields. Flags
-of features the port has not ported yet still parse; those features raise
-``NotImplementedError`` where they are used. ``--cpu`` runs on the CPU
+named Config of the port, and individual flags override its fields; every
+one of them runs in the port. ``--cpu`` runs on the CPU
 (``device="cpu"``); without it the run needs CUDA.
 """
 
@@ -102,8 +101,9 @@ def build_parser(default_config: str = "utkinects") -> argparse.ArgumentParser:
     p.add_argument("--erank_target", type=float, default=None)
     p.add_argument("--compute_dtype", default=None)
     p.add_argument("--rng_impl", default=None, choices=["threefry2x32", "rbg"],
-                   help="the JAX package's dropout PRNG (threefry2x32 or rbg); "
-                        "not ported")
+                   help="the dropout streams' base seed: threefry2x32 (the "
+                        "default) draws from the seed, rbg from another seed "
+                        "derived from it")
     p.add_argument("--opt_mu_dtype", default=None,
                    choices=["float32", "bfloat16"],
                    help="AdamW first-moment storage dtype (bf16 halves its "

@@ -29,8 +29,9 @@ several devices (``r3d_tpu/cli/run.py:59-73``), and logs it (``mesh:
 {...}``): the trainer and the sweep split their batches over dp and their
 sequences over sp, and the parameters over tp and ep, ``--fsdp`` shards
 the train state over dp, and only rank 0 logs and writes. A group the
-caller already formed is used as it is. The pp axis is ROADMAP item A14's
-next slice; sp runs every family.
+caller already formed is used as it is. A ``--mesh_pp`` axis runs the
+decoder as a pipeline (``parallel/pipeline.py``; ``--pp_schedule 1f1b`` the
+host route's 1F1B step), and sp runs every family.
 """
 
 from __future__ import annotations

@@ -19,20 +19,29 @@ reference's dataset files, its fork points ``DataConfig`` fields:
   left out, and an example's window is ``[:int(obs_perc * N)]`` of the raw
   gaze, not strided by ``sample_rate`` (basedataset_darai_gaze.py:152-188).
 
-Videos parse their labels once into int arrays and stay cached in host
-memory. Not ported yet, and raising ``NotImplementedError`` naming their
-ROADMAP item: ``cache='native'`` (the C++ streaming loader, A9) and
-``raw_frames`` (A15).
+- ``raw_frames``: jpg frames resized to ``raw_frame_wh`` and scaled to
+  [0, 1], depth from one Kinect XML a frame (basedataset_utkinects_raw.py).
+
+Videos parse their labels once into int arrays. Feature arrays stay cached
+in host memory (``cache='ram'``), or each example streams its observed
+window from disk through the native C++ loader (``cache='native'``,
+``data/native.py``), for datasets larger than host memory. The native path
+serves whole flat videos (no ``seq``, not ``multi_sequence``, not
+``raw_frames``); every other example, and one whose feature file the loader
+cannot read, takes the NumPy path, as JAX's does
+(``r3d_tpu/data/datasets.py:314-364``). ``native.STATS`` counts both.
 """
 
 from __future__ import annotations
 
 import os
+import re
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from r3d_tpu_torch.config import DataConfig
+from r3d_tpu_torch.data import native
 from r3d_tpu_torch.data.mapping import read_mapping_dict
 from r3d_tpu_torch.data.pipeline import BucketedLoader
 from r3d_tpu_torch.data.preprocess.tools import gaze_csv_to_query
@@ -67,25 +76,19 @@ def read_gt_file(path: str, gt_format: str
     return labels, None, None
 
 
-def _check_ported(cfg: DataConfig, cache: str) -> None:
-    if cache == "native":
-        raise NotImplementedError("cache='native' (the C++ streaming loader) is not "
-                                  "ported yet (ROADMAP queue A, item A9)")
-    if cfg.raw_frames:
-        raise NotImplementedError("raw_frames (jpg frames and Kinect XML depth) is not "
-                                  "ported yet (ROADMAP queue A, item A15)")
-
-
 class VideoSource:
     """Lazy per-video loader and the train table over observation ratios.
 
     Labels parse once per video into int arrays; feature arrays stay cached
-    in host memory (``cache='ram'``)."""
+    in host memory (``cache='ram'``) or stream per example through the
+    native loader (``cache='native'``, which builds it here and raises
+    ``native.NativeBuildError`` where it cannot be built)."""
 
     def __init__(self, cfg: DataConfig, vid_list: List[str], actions_dict: Dict[str, int],
                  n_class: int, pad_idx: int, query_dict: Optional[Dict[str, int]] = None,
                  cache: str = "ram"):
-        _check_ported(cfg, cache)
+        if cache == "native":
+            native.get_lib()
         self.cfg = cfg
         self.vid_list = vid_list
         self.actions_dict = actions_dict
@@ -202,38 +205,134 @@ class VideoSource:
         self._meta[key] = meta
         return meta
 
+    def _load_raw_video(self, vid_file: str, meta: Dict) -> Dict:
+        """The raw-frame ablation (basedataset_utkinects_raw.py:80-104): the
+        video's jpgs sorted by the number in their name, resized to
+        ``raw_frame_wh`` and scaled by 1/255; depth from one Kinect XML a
+        frame."""
+        import cv2
+
+        from r3d_tpu_torch.data.preprocess.depth import kinect_xml_to_depth
+
+        def num(name):
+            return int(re.search(r"\d+", name).group())
+
+        base = self._base(vid_file)
+        img_folder = os.path.join(self.features_path, base)
+        frames = []
+        for f in sorted((f for f in os.listdir(img_folder) if f.endswith(".jpg")), key=num):
+            img = cv2.imread(os.path.join(img_folder, f), cv2.IMREAD_COLOR)
+            frames.append(cv2.resize(img, tuple(self.cfg.raw_frame_wh)) / 255.0)
+        video = dict(meta, features=np.array(frames, np.float32))
+        if self.depth_path is not None:
+            depth_folder = os.path.join(self.depth_path, base)
+
+            def load_depth(f):
+                d = kinect_xml_to_depth(os.path.join(depth_folder, f))
+                h, w = d.shape
+                # the reference passes (h/2, w/2) as cv2's (width, height)
+                # dsize, an axis swap it ships with, reproduced exactly
+                # (basedataset_utkinects_raw.py:66-70, COMPAT.md)
+                d = cv2.resize(d, (int(h / 2), int(w / 2)))
+                return np.uint8(cv2.normalize(d, None, 0, 255, cv2.NORM_MINMAX))
+
+            video["depth"] = np.array(
+                [load_depth(f) for f in sorted(
+                    (f for f in os.listdir(depth_folder) if f.endswith(".xml")), key=num)],
+                np.float32)
+        return video
+
     def load_video(self, vid: str, seq: Optional[int] = None) -> Dict:
         vid_file = vid.split("/")[-1]
         key = self._meta_key(vid_file, seq)
         if key in self._cache:
             return self._cache[key]
         meta = self.load_meta(vid, seq)
-        feats = np.load(self._feature_file(vid_file, seq))
-        if self.cfg.features_transposed:
-            feats = feats.T
-        video = dict(meta, features=feats)
-        if self.depth_path is not None:
-            depth = np.load(self._depth_file(vid_file, seq))
-            if self.cfg.multi_sequence and meta["images"]:
-                # align the whole-video depth stack to this sequence's frame
-                # window by the gt's image indices
-                # (basedataset_darai_depth.py:105-113)
-                idxs = [int(os.path.basename(p).split("_")[-1].split(".")[0])
-                        for p in meta["images"]]
-                depth = depth[idxs[0]: idxs[-1] + 1]
-            if self.cfg.normalize_depth:
-                # NTU: whole-stack min-max -> [0, 255] uint8
-                # (basedataset_nturgbd.py:42-52)
-                lo, hi = depth.min(), depth.max()
-                if hi > lo:
-                    depth = (depth - lo) / (hi - lo) * 255
-                depth = depth.astype(np.uint8)
-            video["depth"] = depth
-        self._cache[key] = video
+        if self.cfg.raw_frames:
+            video = self._load_raw_video(vid_file, meta)
+        else:
+            feats = np.load(self._feature_file(vid_file, seq))
+            if self.cfg.features_transposed:
+                feats = feats.T
+            video = dict(meta, features=feats)
+            if self.depth_path is not None:
+                depth = np.load(self._depth_file(vid_file, seq))
+                if self.cfg.multi_sequence and meta["images"]:
+                    # align the whole-video depth stack to this sequence's
+                    # frame window by the gt's image indices
+                    # (basedataset_darai_depth.py:105-113)
+                    idxs = [int(os.path.basename(p).split("_")[-1].split(".")[0])
+                            for p in meta["images"]]
+                    depth = depth[idxs[0]: idxs[-1] + 1]
+                if self.cfg.normalize_depth:
+                    # NTU: whole-stack min-max -> [0, 255] uint8
+                    # (basedataset_nturgbd.py:42-52)
+                    lo, hi = depth.min(), depth.max()
+                    if hi > lo:
+                        depth = (depth - lo) / (hi - lo) * 255
+                    depth = depth.astype(np.uint8)
+                video["depth"] = depth
+        if self.cache == "ram":
+            self._cache[key] = video
         return video
+
+    def _gaze_window(self, ex: Example, gaze: np.ndarray, obs_perc: float) -> Example:
+        """The observation window over the raw gaze stream, not strided
+        (basedataset_darai_gaze.py:186-188)."""
+        ex.query_label = gaze[:int(obs_perc * len(gaze))]
+        return ex
+
+    def _native_example(self, vid: str, obs_perc: float, sample_rate: int,
+                        n_query: int) -> Optional[Example]:
+        """A whole flat video's example from the native loader: the observed
+        window's ``ceil(observed / sample_rate)`` rows of the features (and
+        of the depth stack, through its own probe; None where the loader
+        cannot read it, as in JAX), or None where the feature file cannot be
+        read natively."""
+        vid_file = vid.split("/")[-1]
+        meta = self.load_meta(vid)
+        idx = meta["label_idx"]
+        observed = int(obs_perc * len(idx))
+        n_rows = -(-observed // sample_rate) if observed else 0
+        path = self._feature_file(vid_file)
+        shape = native.probe(path)
+        if shape is None or n_rows == 0:
+            return None
+        dims = shape[0]
+        transposed = self.cfg.features_transposed
+        row_elems = dims[0] if transposed else int(np.prod(dims[1:]))
+        res = native.load_sliced(path, observed, sample_rate, n_rows, row_elems,
+                                 transpose=transposed)
+        if res is None:
+            return None
+        feats, n = res
+        depth = None
+        if self.depth_path is not None:
+            dpath = self._depth_file(vid_file)
+            dshape = native.probe(dpath)
+            dres = (None if dshape is None else native.load_sliced(
+                dpath, observed, sample_rate, n_rows, int(np.prod(dshape[0][1:]))))
+            if dres is None:
+                native.STATS.count("depth_misses")
+            else:
+                depth = dres[0].reshape((n_rows,) + tuple(dshape[0][1:]))[:n]
+        gaze = self.cfg.gaze_dir is not None
+        ex = make_example_from_indices(
+            feats[:n], idx, obs_perc, sample_rate, n_query, self.pad_idx, self.n_class,
+            depth_features=depth, query_idx=None if gaze else meta["query_idx"],
+            vid_name=vid, features_presliced=True, future_frames=self.cfg.future_frames)
+        return self._gaze_window(ex, meta["query_idx"], obs_perc) if gaze else ex
 
     def make_example(self, vid: str, obs_perc: float, sample_rate: int, n_query: int,
                      seq: Optional[int] = None) -> Example:
+        if self.cache == "native":
+            ex = None
+            if seq is None and not self.cfg.multi_sequence and not self.cfg.raw_frames:
+                ex = self._native_example(vid, obs_perc, sample_rate, n_query)
+            if ex is not None:
+                native.STATS.count("loads")
+                return ex
+            native.STATS.count("fallbacks")
         v = self.load_video(vid, seq)
         gaze = self.cfg.gaze_dir is not None
         ex = make_example_from_indices(
@@ -242,12 +341,7 @@ class VideoSource:
             query_idx=None if gaze else v["query_idx"],
             vid_name=vid if seq is None else f"{vid}::{seq}",
             future_frames=self.cfg.future_frames)
-        if gaze:
-            # the observation window over the raw gaze stream, not strided
-            # (basedataset_darai_gaze.py:186-188)
-            g = v["query_idx"]
-            ex.query_label = g[:int(obs_perc * len(g))]
-        return ex
+        return self._gaze_window(ex, v["query_idx"], obs_perc) if gaze else ex
 
 
 def build_source(cfg: DataConfig, split_name: str,

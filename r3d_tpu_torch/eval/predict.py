@@ -60,8 +60,11 @@ gathers over sp what mixes frames (``models/futr_unsupervised.py``,
 its rows, the decoder stack as the GPipe forward (``parallel/pipeline.py``,
 JAX's sweep on its pp mesh, ``r3d_tpu/eval/predict.py:84-120``).
 
-Not ported yet, and raising ``NotImplementedError`` naming its ROADMAP
-item: ``gif_dir`` (A15).
+``gif_dir`` renders, for each video whose ground truth names its frames
+(``images`` in its meta, the csv layouts), a gt-against-prediction GIF over
+those frames under ``frames_root`` (``eval/visualize.py``), named
+``<video>[_<seq>]_<ratio>.gif``, as ``r3d_tpu/eval/predict.py:346-366``
+does; on a group only rank 0 writes them.
 """
 
 from __future__ import annotations
@@ -331,8 +334,10 @@ class Predictor:
         return full
 
     def _accumulate(self, it: Dict, outputs: Dict, i: int, acc: MoCAccumulator, stats: Dict,
-                    obs_p: float, dump: Optional[List[str]] = None) -> None:
-        """Fold one video's outputs into the per-ratio accumulators."""
+                    obs_p: float, dump: Optional[List[str]] = None,
+                    gif: Optional[Callable] = None) -> None:
+        """Fold one video's outputs into the per-ratio accumulators; ``gif``,
+        where given, renders the video's labels against the prediction."""
         cfg = self.config
         sample_rate = cfg.data.sample_rate
         none_idx = self.n_class - 1
@@ -345,7 +350,10 @@ class Predictor:
         else:
             # a model without a duration head (the TCN): each slot paints its share
             frames = decode_frames_from_slots(action_logits, future_len)
-        acc.add_video(labels_idx, np.concatenate([labels_idx[:past_len], frames]), obs_p)
+        prediction = np.concatenate([labels_idx[:past_len], frames])
+        acc.add_video(labels_idx, prediction, obs_p)
+        if gif is not None:
+            gif(it, labels_idx, prediction, obs_p)
 
         # secondary metrics (predict_utkinects.py:305-328)
         future_sub = labels_idx[past_len: past_len + future_len][::sample_rate]
@@ -403,6 +411,30 @@ class Predictor:
                 stats["l3_total"] += int(valid.sum())
         stats["n"] += 1
 
+    def _gif_renderer(self, source: VideoSource, gif_dir: str, frames_root: str) -> Callable:
+        """render(it, labels, prediction, obs_p): a video's anticipation GIF
+        over its first ``min(frames, len(prediction))`` frames, the observed
+        ones captioned with their label (``r3d_tpu/eval/predict.py:346-366``)."""
+        from r3d_tpu_torch.eval.visualize import render_anticipation_gif
+
+        names = {v: k for k, v in source.actions_dict.items()}
+        names[self.n_class - 1] = "NONE"
+
+        def render(it: Dict, labels_idx: np.ndarray, prediction: np.ndarray, obs_p: float):
+            images = source.load_meta(it["vid"], it["seq"]).get("images")
+            if not images:
+                return
+            n_show = min(len(images), len(prediction))
+            name = it["vid"].split("/")[-1].split(".")[0] + (
+                f"_{it['seq']}" if it["seq"] is not None else "")
+            render_anticipation_gif(
+                [os.path.join(frames_root, p) for p in images[:n_show]],
+                [names.get(int(x), "?") for x in labels_idx[:n_show]],
+                [names.get(int(x), "?") for x in prediction[:n_show]],
+                os.path.join(gif_dir, f"{name}_{obs_p}.gif"), observed_count=it["past_len"])
+
+        return render
+
     def predict_multi(self, variables, source: VideoSource, obs_list, log: Callable = print,
                       gif_dir: Optional[str] = None, frames_root: str = "",
                       dump_dir: Optional[str] = None, cache_data=None
@@ -413,8 +445,6 @@ class Predictor:
         counted, ``l3_acc``; prints the reference's MoC lines. With
         ``cache_data`` (the video tensors of ``source``'s units, on the card)
         the windows are gathered there."""
-        if gif_dir is not None:
-            raise NotImplementedError("gif_dir is not ported yet (ROADMAP queue A, item A15)")
         cfg = self.config
         modules = self._modules(variables)
         groups: Dict[int, List[Dict]] = collections.defaultdict(list)
@@ -428,6 +458,8 @@ class Predictor:
         stats = {o: dict(ant=0.0, seg=0.0, l3_correct=0, l3_total=0, n=0, ant_correct=0,
                          ant_total=0) for o in obs_list}
         dumps = {o: [] for o in obs_list} if dump_dir is not None else None
+        gif = (self._gif_renderer(source, gif_dir, frames_root)
+               if gif_dir is not None and is_writer() else None)
         for S, items in sorted(groups.items()):
             for start in range(0, len(items), self.eval_batch):
                 chunk = items[start: start + self.eval_batch]
@@ -436,7 +468,7 @@ class Predictor:
                 for i, it in enumerate(chunk):
                     o = it["obs_p"]
                     self._accumulate(it, outputs, i, accs[o], stats[o], o,
-                                     dump=None if dumps is None else dumps[o])
+                                     dump=None if dumps is None else dumps[o], gif=gif)
         if dumps is not None and is_writer():
             os.makedirs(dump_dir, exist_ok=True)
             for o, lines in dumps.items():

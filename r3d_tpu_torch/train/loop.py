@@ -120,8 +120,15 @@ step ``make_1f1b_train_step``'s (``parallel/pipeline_1f1b.py``):
 ``make_accum_step``'s update over M microbatches, for the futr and fusion
 families, raising ``ValueError`` with JAX's reason for anything else.
 
-Not ported yet, and raising ``NotImplementedError`` naming its ROADMAP
-item: ``rng_impl`` (A10).
+``rng_impl`` picks the dropout streams' base seed, as JAX's picks the
+bit-generator of its base key (``r3d_tpu/train/loop.py:316-326``); the
+port's streams never matched flax's, so the names keep JAX's documented
+properties rather than its bits. None and ``"threefry2x32"`` seed from the
+run's seed itself; ``"rbg"`` from another seed derived from it
+(``dropout_base_seed``), so the same seed draws other masks. Every stream
+(per step, per rank, a resumed run's, pp's per (layer, microbatch)) follows
+from that base, so paths that must agree under one impl still do. Another
+name raises ``ValueError``, as ``jax.random.key`` does.
 """
 
 from __future__ import annotations
@@ -193,12 +200,29 @@ INIT_SEED = 0  # the seeded init without a state_dict
 LOOPS = ("proposed_depth", "futr", "proposed", "unsupervised", "unimodal", "tcn")
 STICKY_LOOPS = ("futr", "proposed_depth", "unsupervised", "tcn")   # r3d_tpu/train/loop.py:86-91
 ACCURACY_GATE_LOOPS = ("futr", "tcn")   # train.py:63, train_tcn.py:44
+RNG_IMPLS = (None, "threefry2x32", "rbg")   # TrainConfig.rng_impl's values
+# the "rbg" streams' tag: an integer, not a string's hash(), which Python
+# salts per process (PYTHONHASHSEED), so ranks and runs would disagree
+RBG_STREAM = 0x72626731
 # metrics that are sums over rows (the others are means over a fixed number
 # of entries per row): a dp group adds them up, and averages the rest
 _SUM_METRICS = ("_correct", "_total", "_sum", "_cnt")
 # the sums over frames: on a cut sequence each sp rank counts its own; the
 # other sums count queries, which every sp rank holds alike
 _FRAME_METRICS = ("seg_correct", "seg_total", "l3_correct", "l3_total")
+
+
+def dropout_base_seed(seed: int, rng_impl: Optional[str]) -> int:
+    """The dropout streams' base seed for ``rng_impl``: ``seed`` itself for
+    None and ``"threefry2x32"``, another 63-bit seed drawn from (``seed``,
+    ``RBG_STREAM``) for ``"rbg"``."""
+    if rng_impl not in RNG_IMPLS:
+        raise ValueError(f"unknown rng_impl {rng_impl!r} (supported: "
+                         f"{', '.join(repr(i) for i in RNG_IMPLS)})")
+    if rng_impl != "rbg":
+        return seed
+    state = np.random.SeedSequence([seed % 2**64, RBG_STREAM]).generate_state(1, np.uint64)
+    return int(state[0]) & (2**63 - 1)
 
 
 def triangular_warmup(epoch: int, start: int, peak: int, end: int) -> float:
@@ -240,8 +264,7 @@ class Trainer:
         tc = config.train
         if tc.loop not in LOOPS:
             raise ValueError(f"unknown loop {tc.loop!r}")
-        if tc.rng_impl is not None:
-            raise NotImplementedError("rng_impl is not ported yet (ROADMAP queue A, item A10)")
+        dropout_base_seed(0, tc.rng_impl)   # an unknown rng_impl raises here, not at fit
         if tc.grad_accum > 1 and tc.steps_per_dispatch > 1:
             raise ValueError("grad_accum and steps_per_dispatch are mutually exclusive: one "
                              "stacks microbatches per update, the other updates per step")
@@ -837,10 +860,11 @@ class Trainer:
 
     # ------------------------------------------------------------ outer loop
     def _seed_dropout(self, state: TrainState, seed: int, start_epoch: int) -> None:
-        """Dropout draws from generators seeded with ``seed`` and, in a
-        resumed run, its start epoch (JAX folds it into its key); on a
-        group, ranks above 0 fold in their rank."""
-        dropout_seed = seed if start_epoch == 0 else hash((seed, start_epoch)) & (2**63 - 1)
+        """Dropout draws from generators seeded with the ``rng_impl``'s base
+        seed of ``seed`` and, in a resumed run, its start epoch (JAX folds
+        it into its key); on a group, ranks above 0 fold in their rank."""
+        base = dropout_base_seed(seed, self.config.train.rng_impl)
+        dropout_seed = base if start_epoch == 0 else hash((base, start_epoch)) & (2**63 - 1)
         if self.rank:
             # two ranks never draw the same masks for different rows
             dropout_seed = hash((dropout_seed, -self.rank)) & (2**63 - 1)

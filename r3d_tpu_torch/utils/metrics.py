@@ -1,9 +1,10 @@
 """Structured metrics logging.
 
 Counterpart of ``r3d_tpu/utils/metrics.py``: every epoch record lands in a
-JSONL stream (one object per record) beside the checkpoints; on a process
-group only rank 0 writes it. The TensorBoard mirror is not ported yet
-(ROADMAP queue A, item A15).
+JSONL stream (one object per record) beside the checkpoints, and with
+``tensorboard=True`` each numeric field of a record that has a step also
+goes to a TensorBoard event file under ``log_dir/tb/<run_name>``
+(``utils/tbwriter.py``). On a process group only rank 0 writes either.
 """
 
 from __future__ import annotations
@@ -14,18 +15,18 @@ import time
 from typing import Any, Dict, Optional
 
 from r3d_tpu_torch.parallel.mesh import is_writer
+from r3d_tpu_torch.utils.tbwriter import SummaryWriter
 
 
 class MetricsLogger:
     def __init__(self, log_dir: str, run_name: str = "run", tensorboard: bool = False):
-        if tensorboard:
-            raise NotImplementedError("the TensorBoard writer is not ported yet "
-                                      "(ROADMAP queue A, item A15)")
         self.path = os.path.join(log_dir, f"{run_name}.jsonl")
-        self._f = None
+        self._f = self._tb = None
         if is_writer():
             os.makedirs(log_dir, exist_ok=True)
             self._f = open(self.path, "a")
+            if tensorboard:
+                self._tb = SummaryWriter(os.path.join(log_dir, "tb", run_name))
 
     def log(self, record: Dict[str, Any], step: Optional[int] = None) -> None:
         if self._f is None:
@@ -35,10 +36,19 @@ class MetricsLogger:
             rec["step"] = step
         self._f.write(json.dumps(rec) + "\n")
         self._f.flush()
+        if self._tb is not None and step is not None:
+            for k, v in record.items():
+                if isinstance(v, (int, float)):
+                    self._tb.scalar(k, v, step)
+            # flushed per record like the JSONL stream: TensorBoard tails the
+            # file during the run, and an unclean exit keeps every scalar
+            self._tb.flush()
 
     def close(self) -> None:
         if self._f is not None:
             self._f.close()
+        if self._tb is not None:
+            self._tb.close()
 
 
 class Timer:

@@ -24,6 +24,7 @@ from r3d_tpu_torch.data import datasets as pt_ds
 from r3d_tpu_torch.train.checkpoint import Checkpointer
 from r3d_tpu_torch.train.loop import Trainer
 from r3d_tpu_torch.utils.metrics import MetricsLogger
+from r3d_tpu_torch.utils.tbwriter import read_events
 from test_torch_cli import (N_CLASS, assert_logs_match, assert_metrics_match, cli_configs,
                             one_device_jax, write_init)
 from test_torch_datasets import write_utkinect
@@ -127,5 +128,12 @@ def test_metrics_logger_appends_records(tmp_path):
     log.close()
     lines = (tmp_path / "r.jsonl").read_text().splitlines()
     assert len(lines) == 2 and '"step": 3' in lines[0] and '"step"' not in lines[1]
-    with pytest.raises(NotImplementedError, match="A15"):
-        MetricsLogger(str(tmp_path), tensorboard=True)
+    # tensorboard=True: the records with a step also land in an event file
+    # under tb/<run_name> (tests/test_torch_side_channels.py holds it to JAX's)
+    log = MetricsLogger(str(tmp_path), run_name="t", tensorboard=True)
+    log.log({"a": 1.5, "name": "x"}, step=3)
+    log.log({"a": 2.0})
+    log.close()
+    [events] = os.listdir(tmp_path / "tb" / "t")
+    got = list(read_events(str(tmp_path / "tb" / "t" / events)))
+    assert [(e.get("step"), e["scalars"]) for e in got] == [(None, {}), (3, {"a": 1.5})]

@@ -244,15 +244,58 @@ def test_config_from_args_matches_jax(argv):
         jax_opts.config_from_args(jargs))
 
 
-@pytest.mark.parametrize("flag,item", [
-    (["--rng_impl", "rbg"], "A10"),
-    (["--tensorboard"], "A15")])
-def test_unported_flags_parse_and_raise(cli_data, tmp_path, flag, item):
+def _train_with_flags(root, save, flags, log):
+    """One epoch of utkinects at hidden 32 (dropout 0.1) through the CLI's
+    parser and ``main``, with the tests' depth frames and bucket."""
+    argv = ["--data_root", root, "--model_save_path", str(save), "--cpu", "--epochs", "1",
+            "--hidden_dim", "32", "--n_head", "4", "--input_dim", "12", "--max_pos_len", "64"]
+    cfg = pt_opts.config_from_args(pt_opts.build_parser("utkinects").parse_args(argv + flags))
+    cfg = cfg.replace(data=dataclasses.replace(cfg.data, seq_buckets=(64,), depth_shape=(6, 4),
+                                               train_obs_percs=(0.3, 0.5)))
+    pt_run.main(cfg, "train", log=log, device="cpu")
+
+
+def test_rng_impl_rbg_trains_through_the_cli(cli_data, tmp_path):
+    """``--rng_impl rbg`` (once refused) trains: finite losses, and another
+    epoch-0 training loss than the default's from the same seed, since it
+    draws other dropout masks (``tests/test_torch_rng_impl.py`` holds the
+    streams)."""
     root, _ = cli_data
-    argv = ["--data_root", root, "--model_save_path", str(tmp_path), "--cpu", "--epochs", "1",
-            "--hidden_dim", "32", "--n_head", "4", "--input_dim", "12", "--mode", "train"]
-    with pytest.raises(NotImplementedError, match=item):
-        pt_opts.run_from_argv("utkinects", argv + flag, log=lambda *a: None)
+    losses = {}
+    for name, flag in (("default", []), ("rbg", ["--rng_impl", "rbg"])):
+        lines = []
+        _train_with_flags(root, tmp_path / name, flag, lines.append)
+        losses[name] = [float(x) for l in lines if l.startswith("Epoch")
+                        for x in re.findall(r"Loss ?: ?(-?[0-9.]+)", l)]
+    assert losses["rbg"] and np.isfinite(losses["rbg"]).all()
+    assert losses["rbg"] != losses["default"]
+
+
+def test_tensorboard_flag_mirrors_the_metrics_records(cli_data, tmp_path):
+    """``--tensorboard`` (once refused) writes an event file under
+    ``tb/seed_1_metrics`` beside the JSONL stream: one event a record, at
+    the record's step, with every numeric field, each the JSONL value in
+    float32."""
+    from r3d_tpu_torch.utils.tbwriter import read_events
+
+    root, _ = cli_data
+    _train_with_flags(root, tmp_path, ["--tensorboard"], lambda *a: None)
+    [jsonl] = [os.path.join(d, f) for d, _, fs in os.walk(tmp_path) for f in fs
+               if f == "seed_1_metrics.jsonl"]
+    tb = os.path.join(os.path.dirname(jsonl), "tb", "seed_1_metrics")
+    [events] = os.listdir(tb)
+    records = [json.loads(l) for l in open(jsonl)]
+    got = list(read_events(os.path.join(tb, events)))
+    assert got[0]["file_version"] == "brain.Event:2" and len(records) == 1
+    scalars = {}
+    for e in got[1:]:
+        assert e["step"] == records[0]["step"]
+        scalars.update(e["scalars"])
+    want = {k: v for k, v in records[0].items()
+            if k not in ("time", "step") and isinstance(v, (int, float))}
+    assert sorted(scalars) == sorted(want) and "val_acc" in want
+    for k, v in want.items():
+        assert scalars[k] == np.float32(v), k
 
 
 def test_opt_mu_dtype_trains_with_a_bf16_first_moment(cli_data, tmp_path):

@@ -155,13 +155,6 @@ def test_read_mapping_matches_jax(csv_root):
     assert read_mapping_dict(path) == jax_read_mapping(path) == {f"a{i}": i for i in range(5)}
 
 
-@pytest.mark.parametrize("field,value,item", [("raw_frames", True, "A15")])
-def test_unported_branches_raise(csv_root, field, value, item):
-    _, pcfg = data_configs(csv_root)
-    with pytest.raises(NotImplementedError, match=item):
-        pt_ds.build_source(dataclasses.replace(pcfg, **{field: value}), "train_split.txt")
-
-
 def test_gaze_dir_builds_a_gaze_source_as_jax(csv_root):
     """``gaze_dir`` (once refused here) reads each video's gaze CSV as the
     query stream and leaves out the videos without one, as JAX's source
@@ -179,12 +172,8 @@ def test_gaze_dir_builds_a_gaze_source_as_jax(csv_root):
                                   jsrc.load_meta(vids[0])["query_idx"])
 
 
-def test_native_cache_and_query_streams_raise(csv_root):
+def test_query_stream_of_the_loader_matches_jax(csv_root):
     _, pcfg = data_configs(csv_root)
-    src = pt_ds.build_source(pcfg, "train_split.txt")
-    with pytest.raises(NotImplementedError, match="A9"):
-        pt_ds.VideoSource(pcfg, src.vid_list, src.actions_dict, src.n_class, src.pad_idx,
-                          cache="native")
     with open(os.path.join(csv_root, "utkinect", "mapping_l3.txt"), "w") as f:
         f.write("0 q0\n1 q1\n2 q2\n")
     qsrc = pt_ds.build_source(pcfg, "train_split.txt", query_mapping="mapping_l3.txt")

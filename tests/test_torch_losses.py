@@ -236,9 +236,12 @@ def test_trainer_defaults_to_cuda_and_raises_without_it():
         Trainer(_small_config(), 6)
 
 
-@pytest.mark.parametrize("kw,item", [({"rng_impl": "rbg"}, "A10")])
+@pytest.mark.parametrize("kw,item", [({"rng_impl": "philox"}, "rng_impl")])
 def test_trainer_refuses_what_is_not_ported(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
+    """An ``rng_impl`` other than None, "threefry2x32" and "rbg" raises
+    ``ValueError`` at construction ("rbg" once raised here and now runs,
+    ``tests/test_torch_rng_impl.py``)."""
+    with pytest.raises(ValueError, match=item):
         Trainer(_small_config(**kw), 6, device="cpu")
 
 

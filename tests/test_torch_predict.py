@@ -259,8 +259,3 @@ def test_helpers_and_l3_accuracy_match_jax(sweep64):
         results.append((stats, acc.T.tolist(), acc.F.tolist()))
     assert results[0] == results[1]
     assert results[1][0]["l3_total"] > 0
-
-
-def test_unported_options_raise(sweep64):
-    with pytest.raises(NotImplementedError, match="A15"):
-        sweep64.ppred.predict_multi(sweep64.state_dicts[0], sweep64.psrc, [0.5], gif_dir="g")
